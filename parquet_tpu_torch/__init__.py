@@ -1,0 +1,41 @@
+"""parquet_tpu_torch — Parquet column decode into GPU memory, on PyTorch.
+
+The PyTorch/CUDA port of parquet_tpu's decode path. The host walks pages
+(Thrift headers, decompression, R/D levels, run/block prescans); the value
+streams of each column chunk go to the device as packed upload buffers and
+are decoded there by hand-written CUDA kernels (kernels/csrc/): hybrid
+RLE/bit-packed expansion, dictionary gather and DELTA_BINARY_PACKED decode.
+
+    from parquet_tpu_torch import FileReader
+    with FileReader("trips.parquet") as r:          # device=None -> CUDA
+        groups = r.read_row_groups_device()         # [{path: DeviceColumn}]
+
+`device="cpu"` runs the kernels' plain PyTorch versions on the CPU; without
+it a machine with no CUDA raises.
+"""
+
+from .core.arrays import ByteArrayData
+from .core.chunk import ChunkData, ChunkError, read_chunk
+from .core.compress import CompressionError
+from .core.page import PageError
+from .core.reader import BACKENDS, FileReader
+from .core.schema import Column, Schema
+from .kernels.pipeline import DecodeStats, DeviceColumn
+from .meta.file_meta import ParquetFileError, read_file_metadata
+
+__all__ = [
+    "BACKENDS",
+    "ByteArrayData",
+    "ChunkData",
+    "ChunkError",
+    "Column",
+    "CompressionError",
+    "DecodeStats",
+    "DeviceColumn",
+    "FileReader",
+    "PageError",
+    "ParquetFileError",
+    "Schema",
+    "read_chunk",
+    "read_file_metadata",
+]

@@ -1,0 +1,365 @@
+"""Device decode primitives: the three kernels of the decode path.
+
+Each primitive has three parts:
+
+  * a CUDA C++ kernel in `kernels/csrc/` (built by `kernels/build.py`), the
+    port of one XLA program of `parquet_tpu/kernels/device_ops.py`;
+  * a plain PyTorch version of the same function (`*_plain`). It runs on any
+    device; the wrapper uses it only for tensors that lie on the CPU, and
+    `chip_smoke.py` holds the kernel against it on the card;
+  * the wrapper, which checks its inputs, takes the plain version for a CPU
+    tensor, and for a CUDA tensor launches the kernel on the current stream
+    or raises. Each wrapper carries a plain int `launches`, which goes up by
+    one where the kernel is launched and nowhere else.
+
+Bit patterns travel in signed dtypes: uploads are int32 (the uint32 words of
+the frozen buffers) or int64 (uint64 words), and outputs hold the unsigned
+results' bit patterns in int32/int64. PyTorch has no shifts, adds or
+searchsorted on uint32/uint64 tensors on the CPU, so the plain versions
+compute in int64 lanes with explicit masks.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = [
+    "MAX_DEVICE_BATCH_BITS",
+    "bytes_to_words32",
+    "bytes_to_words64",
+    "expand_hybrid",
+    "expand_hybrid_plain",
+    "dict_gather",
+    "dict_gather_plain",
+    "delta_packed_decode",
+    "delta_packed_decode_plain",
+    "KERNELS",
+    "reset_launch_counts",
+]
+
+# Largest bit offset the kernels' int32 position tables can hold (the host
+# batches split before it; 2^31 bits = 256 MiB of packed payload).
+MAX_DEVICE_BATCH_BITS = 1 << 31
+
+_M32 = 0xFFFFFFFF
+
+
+def bytes_to_words32(data: bytes) -> np.ndarray:
+    """Pad bytes to a uint32 LE word array (+1 guard word for the hi gather)."""
+    pad = (-len(data)) % 4
+    buf = bytes(data) + b"\x00" * (pad + 4)
+    return np.frombuffer(buf, dtype="<u4")
+
+
+def bytes_to_words64(data: bytes) -> np.ndarray:
+    pad = (-len(data)) % 8
+    buf = bytes(data) + b"\x00" * (pad + 8)
+    return np.frombuffer(buf, dtype="<u8")
+
+
+# -- shared wrapper plumbing ---------------------------------------------------
+
+
+def _check_vec(t: torch.Tensor, dtypes, name: str) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if t.dim() != 1:
+        raise ValueError(f"{name}: expected a 1-D tensor, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU; False when all lie on one CUDA
+    device; raises for any other device or a mix."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"inputs lie on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(
+            f"device {dev} not supported: the kernels run on CUDA, the plain "
+            "versions on the CPU"
+        )
+    return False
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def _launch(name: str, device: torch.device, fn, *args) -> None:
+    """Call a C entry point on `device`'s current stream; raise on a nonzero
+    cudaError_t (a refused launch never runs, and no synchronize reports it)."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
+
+
+def _lib():
+    from .build import load
+
+    return load()
+
+
+def _to_signed32(v: torch.Tensor) -> torch.Tensor:
+    """int64 lanes holding uint32 values -> int32 with the same bit pattern."""
+    return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
+
+
+def _u32(t: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> their unsigned values in int64 lanes."""
+    return t.to(torch.int64) & _M32
+
+
+def _lshr64(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Logical right shift of int64 lanes (as uint64) by s in [0, 63]."""
+    mask = torch.bitwise_not(torch.full_like(x, -1) << (64 - s).clamp(max=63))
+    return torch.where(s == 0, x, (x >> s) & mask)
+
+
+def _search_right(table: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """searchsorted(table, i, side='right') - 1 (int64)."""
+    return torch.searchsorted(table, i, right=True).to(torch.int64) - 1
+
+
+# -- expand_hybrid -------------------------------------------------------------
+
+
+def expand_hybrid_plain(
+    buf: torch.Tensor, width: int, run_pad: int, total: int
+) -> torch.Tensor:
+    """Plain version of the hybrid expansion (layout in
+    kernels/csrc/expand_hybrid.cu). Returns int32[total] holding the uint32
+    values' bit patterns."""
+    dev = buf.device
+    if width == 0 or total == 0:
+        return torch.zeros(total, dtype=torch.int32, device=dev)
+    is_rle = buf[:run_pad] != 0
+    out_start = buf[run_pad : 2 * run_pad].contiguous()
+    rle_value = _u32(buf[2 * run_pad : 3 * run_pad])
+    bit_start = buf[3 * run_pad : 4 * run_pad].to(torch.int64)
+    words = _u32(buf[4 * run_pad :])
+    i = torch.arange(total, dtype=torch.int32, device=dev)
+    r = _search_right(out_start, i)
+    within = i.to(torch.int64) - out_start.to(torch.int64)[r]
+    bitpos = bit_start[r] + within * width
+    rle = is_rle[r]
+    # RLE outputs read word 0 (their bitpos is meaningless): keep gathers in range
+    bitpos = torch.where(rle, torch.zeros_like(bitpos), bitpos)
+    w0 = bitpos >> 5
+    s = bitpos & 31
+    lo = words[w0] >> s
+    hi = torch.where(s == 0, torch.zeros_like(lo), (words[w0 + 1] << (32 - s)) & _M32)
+    mask = (1 << width) - 1 if width < 32 else _M32
+    v = torch.where(rle, rle_value[r], (lo | hi) & mask)
+    return _to_signed32(v)
+
+
+def expand_hybrid(buf: torch.Tensor, width: int, run_pad: int, total: int) -> torch.Tensor:
+    """Expand a prescanned RLE/bit-packed hybrid batch (the packed upload of
+    kernels/pipeline._HybridBatch.freeze) into int32[total] values.
+
+    Replaces parquet_tpu/kernels/device_ops.py:expand_hybrid_device; the
+    port writes exactly `total` outputs instead of an n_pad bucket."""
+    _check_vec(buf, (torch.int32,), "expand_hybrid: buf")
+    if not 0 <= width <= 32:
+        raise ValueError(f"expand_hybrid: width {width} outside 0..32")
+    if run_pad <= 0 or buf.numel() < 4 * run_pad + 2:
+        raise ValueError(
+            f"expand_hybrid: buf of {buf.numel()} words too short for run_pad {run_pad}"
+        )
+    if total < 0 or total >= (1 << 31):
+        raise ValueError(f"expand_hybrid: total {total} outside int32 range")
+    if _on_cpu(buf):
+        return expand_hybrid_plain(buf, width, run_pad, total)
+    out = torch.empty(total, dtype=torch.int32, device=buf.device)
+    if total:
+        _launch(
+            "expand_hybrid", buf.device, _lib().pqt_expand_hybrid,
+            _ptr(buf), run_pad, width, total, _ptr(out),
+        )
+        expand_hybrid.launches += 1
+    return out
+
+
+expand_hybrid.launches = 0
+
+
+# -- dict_gather ---------------------------------------------------------------
+
+
+def dict_gather_plain(dictionary: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Plain version of `dictionary[indices]` with jnp's out-of-range rule:
+    a negative index wraps once, then the index clamps into [0, D-1]."""
+    d = dictionary.numel()
+    idx = indices.to(torch.int64)
+    idx = torch.where(idx < 0, idx + d, idx).clamp(0, d - 1)
+    return dictionary[idx]
+
+
+def dict_gather(dictionary: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """out[i] = dictionary[indices[i]] for 4- and 8-byte elements (floats as
+    their int32/int64 bit patterns). Replaces
+    parquet_tpu/kernels/device_ops.py:dict_gather_device."""
+    _check_vec(
+        dictionary, (torch.int32, torch.int64), "dict_gather: dictionary"
+    )
+    _check_vec(indices, (torch.int32,), "dict_gather: indices")
+    n = indices.numel()
+    if n and dictionary.numel() == 0:
+        raise ValueError("dict_gather: empty dictionary with indices to gather")
+    if _on_cpu(dictionary, indices):
+        return dict_gather_plain(dictionary, indices)
+    out = torch.empty(n, dtype=dictionary.dtype, device=dictionary.device)
+    if n:
+        lib = _lib()
+        fn = lib.pqt_dict_gather4 if dictionary.dtype == torch.int32 else lib.pqt_dict_gather8
+        _launch(
+            "dict_gather", dictionary.device, fn,
+            _ptr(dictionary), dictionary.numel(), _ptr(indices), n, _ptr(out),
+        )
+        dict_gather.launches += 1
+    return out
+
+
+dict_gather.launches = 0
+
+
+# -- delta_packed_decode -------------------------------------------------------
+
+
+def _delta_fields(meta32, wide, nbits, m_pad, p_pad):
+    """Split the frozen uploads into (width, bit_start, out_start, page_start,
+    mb_min, page_first, words); unsigned fields as int64 lanes."""
+    width = _u32(meta32[:m_pad])
+    bit_start = meta32[m_pad : 2 * m_pad].to(torch.int64)
+    out_start = meta32[2 * m_pad : 3 * m_pad].contiguous()
+    page_start = meta32[3 * m_pad : 3 * m_pad + p_pad].contiguous()
+    if nbits == 32:
+        base = 3 * m_pad + p_pad
+        mb_min = _u32(meta32[base : base + m_pad])
+        page_first = _u32(meta32[base + m_pad : base + m_pad + p_pad])
+        words = _u32(meta32[base + m_pad + p_pad :])
+    else:
+        mb_min = wide[:m_pad]
+        page_first = wide[m_pad : m_pad + p_pad]
+        words = wide[m_pad + p_pad :]
+    return width, bit_start, out_start, page_start, mb_min, page_first, words
+
+
+def delta_packed_decode_plain(
+    meta32: torch.Tensor,
+    wide: torch.Tensor,
+    nbits: int,
+    m_pad: int,
+    p_pad: int,
+    total: int,
+) -> torch.Tensor:
+    """Plain version of the DELTA_BINARY_PACKED chunk decode (layout in
+    kernels/csrc/delta_packed_decode.cu). int32 or int64 [total]."""
+    dev = meta32.device
+    out_dtype = torch.int32 if nbits == 32 else torch.int64
+    if total == 0:
+        return torch.zeros(0, dtype=out_dtype, device=dev)
+    width, bit_start, out_start, page_start, mb_min, page_first, words = _delta_fields(
+        meta32, wide, nbits, m_pad, p_pad
+    )
+    i = torch.arange(total, dtype=torch.int32, device=dev)
+    i64 = i.to(torch.int64)
+    p = _search_right(page_start, i)
+    is_start = i64 == page_start.to(torch.int64)[p]
+    m = _search_right(out_start, i).clamp(min=0)  # -1 only at page starts
+    w = width[m]
+    bitpos = bit_start[m] + (i64 - out_start.to(torch.int64)[m]) * w
+    bitpos = torch.where(is_start, torch.zeros_like(bitpos), bitpos)
+    if nbits == 32:
+        w0 = bitpos >> 5
+        s = bitpos & 31
+        lo = words[w0] >> s
+        hi = torch.where(s == 0, torch.zeros_like(lo), (words[w0 + 1] << (32 - s)) & _M32)
+        mask = torch.where(w >= 32, torch.full_like(w, _M32), (1 << w.clamp(max=31)) - 1)
+        d = (((lo | hi) & mask) + mb_min[m]) & _M32
+        d = torch.where(is_start, torch.zeros_like(d), d)
+        c = torch.cumsum(d, 0) & _M32
+        vals = (page_first[p] + c - c[page_start.to(torch.int64)[p]]) & _M32
+        return _to_signed32(vals)
+    w0 = bitpos >> 6
+    s = bitpos & 63
+    lo = _lshr64(words[w0], s)
+    hi = torch.where(s == 0, torch.zeros_like(lo), words[w0 + 1] << (64 - s).clamp(max=63))
+    mask = torch.where(
+        w >= 64, torch.full_like(w, -1), (torch.ones_like(w) << w.clamp(max=63)) - 1
+    )
+    d = ((lo | hi) & mask) + mb_min[m]
+    d = torch.where(is_start, torch.zeros_like(d), d)
+    c = torch.cumsum(d, 0)  # int64 adds wrap: the uint64 scan's bit pattern
+    return page_first[p] + c - c[page_start.to(torch.int64)[p]]
+
+
+def delta_packed_decode(
+    meta32: torch.Tensor,
+    wide: torch.Tensor,
+    nbits: int,
+    m_pad: int,
+    p_pad: int,
+    total: int,
+) -> torch.Tensor:
+    """Decode a frozen DELTA_BINARY_PACKED batch (kernels/pipeline.
+    _DeltaBatch.freeze) into int32/int64[total]. Replaces
+    parquet_tpu/kernels/device_ops.py:delta_packed_decode_device."""
+    if nbits not in (32, 64):
+        raise ValueError(f"delta_packed_decode: nbits {nbits} not 32 or 64")
+    _check_vec(meta32, (torch.int32,), "delta_packed_decode: meta32")
+    _check_vec(
+        wide, (torch.int32 if nbits == 32 else torch.int64,), "delta_packed_decode: wide"
+    )
+    if m_pad <= 0 or p_pad <= 0:
+        raise ValueError("delta_packed_decode: m_pad and p_pad must be positive")
+    if total < 0 or total >= (1 << 31):
+        raise ValueError(f"delta_packed_decode: total {total} outside int32 range")
+    if nbits == 32:
+        if meta32.numel() < 4 * m_pad + 2 * p_pad + 2:
+            raise ValueError("delta_packed_decode: meta32 too short for its tables")
+    elif meta32.numel() < 3 * m_pad + p_pad or wide.numel() < m_pad + p_pad + 2:
+        raise ValueError("delta_packed_decode: uploads too short for their tables")
+    if _on_cpu(meta32, wide):
+        return delta_packed_decode_plain(meta32, wide, nbits, m_pad, p_pad, total)
+    dt = torch.int32 if nbits == 32 else torch.int64
+    dev = meta32.device
+    out = torch.empty(total, dtype=dt, device=dev)
+    if total:
+        lib = _lib()
+        tile = lib.pqt_delta_tile()
+        scratch_c = torch.empty(total, dtype=dt, device=dev)
+        block_sums = torch.empty((total + tile - 1) // tile, dtype=dt, device=dev)
+        _launch(
+            "delta_packed_decode", dev, lib.pqt_delta_packed_decode,
+            _ptr(meta32), _ptr(wide), nbits, m_pad, p_pad, total,
+            _ptr(out), _ptr(scratch_c), _ptr(block_sums),
+        )
+        delta_packed_decode.launches += 1
+    return out
+
+
+delta_packed_decode.launches = 0
+
+
+# The kernels of the decode path, by name.
+KERNELS = {
+    "expand_hybrid": expand_hybrid,
+    "dict_gather": dict_gather,
+    "delta_packed_decode": delta_packed_decode,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

@@ -1,0 +1,219 @@
+"""Port kernels' plain versions against the JAX device programs, on the CPU.
+
+The same frozen upload buffer (built by the JAX package's batch freezer and
+carried over with testing.parity.frozen_from_numpy) goes through the JAX
+function and through the port's wrapper, which takes the plain PyTorch
+version for CPU tensors. Every comparison is of integer bit patterns and
+must be exact. The CUDA kernels themselves run in chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import parquet_tpu.kernels.device_ops as jops  # noqa: E402  (turns x64 on first)
+import jax.numpy as jnp  # noqa: E402
+from parquet_tpu.kernels import pipeline as jpipe  # noqa: E402
+from parquet_tpu.ops.delta import encode_delta as j_encode_delta  # noqa: E402
+from parquet_tpu.ops.delta import prescan_delta_packed as j_prescan_delta  # noqa: E402
+from parquet_tpu.ops.rle_hybrid import encode_hybrid as j_encode_hybrid  # noqa: E402
+from parquet_tpu.ops.rle_hybrid import prescan_hybrid as j_prescan_hybrid  # noqa: E402
+
+from parquet_tpu_torch.kernels import build, device_ops as ops  # noqa: E402
+from parquet_tpu_torch.kernels import pipeline as tpipe  # noqa: E402
+from parquet_tpu_torch.ops.rle_hybrid import prescan_hybrid as t_prescan_hybrid  # noqa: E402
+from parquet_tpu_torch.testing.parity import frozen_from_numpy  # noqa: E402
+
+
+def _hybrid_pages(width, seed, sizes=(1500, 2221)):
+    rng = np.random.default_rng(seed)
+    pages = []
+    for n in sizes:
+        v = rng.integers(0, 1 << width, size=n, dtype=np.uint64) if width else np.zeros(n, np.uint64)
+        for s in rng.integers(0, n - 64, size=6):  # RLE stretches
+            v[s : s + int(rng.integers(8, 64))] = v[s]
+        pages.append(v.astype(np.uint32) if width <= 32 else v)
+    return pages
+
+
+def _freeze_hybrid(batch_cls, prescan, width, pages):
+    b = batch_cls(width)
+    for v in pages:
+        stream = j_encode_hybrid(v, width)
+        b.add_page(prescan(stream, len(v), width), len(v))
+    return b.freeze()
+
+
+@pytest.mark.parametrize("width", range(33))
+def test_expand_hybrid_plain_matches_jax(width):
+    pages = _hybrid_pages(width, seed=width)
+    jf = _freeze_hybrid(jpipe._HybridBatch, j_prescan_hybrid, width, pages)
+    tf = _freeze_hybrid(tpipe._HybridBatch, t_prescan_hybrid, width, pages)
+    # the port's prescan tables freeze into the same upload buffer
+    assert tf._asdict().keys() == jf._asdict().keys()
+    assert tf.buf.tobytes() == jf.buf.tobytes()
+    assert (tf.width, tf.n_pad, tf.run_pad, tf.total) == (jf.width, jf.n_pad, jf.run_pad, jf.total)
+    want = np.asarray(jpipe._HybridBatch.dispatch_frozen(jf))
+    got = frozen_from_numpy(jf._asdict(), "cpu").run()
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(want, np.concatenate(pages) if width else 0 * want)
+
+
+def _delta_pages(nbits, seed):
+    rng = np.random.default_rng(seed)
+    dt = np.int32 if nbits == 32 else np.int64
+    info = np.iinfo(dt)
+    full = rng.integers(info.min, info.max, size=900, dtype=dt, endpoint=True)
+    mono = (np.cumsum(rng.integers(-40, 900, size=1300)) + int(info.max) - 20_000).astype(np.int64)
+    return [
+        full,  # full-range values: miniblock widths up to nbits, wrapping deltas
+        mono.astype(dt),  # monotone with negative jitter, wrapping past max
+        np.full(257, -3, dtype=dt),  # zero-width miniblocks
+        np.array([42], dtype=dt),  # a page holding only its first value
+        rng.integers(-1000, 1000, size=333).astype(dt),
+    ]
+
+
+@pytest.mark.parametrize("nbits", [32, 64])
+@pytest.mark.parametrize("split", [False, True])
+def test_delta_packed_decode_plain_matches_jax(nbits, split, monkeypatch):
+    pages = _delta_pages(nbits, seed=nbits + split)
+    if split:
+        # a small cap forces several batches, as the pipeline splits them
+        monkeypatch.setattr(jpipe, "_BATCH_BITS_CAP", 8 * 3000)
+    batches = []
+    for v in pages:
+        stream = j_encode_delta(v, nbits)
+        table = j_prescan_delta(stream, nbits, max_total=len(v))
+        if not batches or not batches[-1].fits(table):
+            batches.append(jpipe._DeltaBatch(nbits))
+        batches[-1].add_page(table, stream)
+    assert (len(batches) > 1) == split
+    got_all = []
+    for b in batches:
+        jf = b.freeze()
+        want = np.asarray(jpipe._DeltaBatch.dispatch_frozen(jf))
+        got = frozen_from_numpy(jf._asdict(), "cpu").run()
+        assert got.dtype == (torch.int32 if nbits == 32 else torch.int64)
+        np.testing.assert_array_equal(got.numpy(), want)
+        got_all.append(got.numpy())
+    np.testing.assert_array_equal(np.concatenate(got_all), np.concatenate(pages))
+    widths = np.concatenate([w for b in batches for w in b.widths])
+    assert int(widths.max()) == nbits
+
+
+_GATHER_TYPES = {
+    "i32": (np.int32, np.int32),
+    "i64": (np.int64, np.int64),
+    "u32": (np.uint32, np.int32),
+    "u64": (np.uint64, np.int64),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(_GATHER_TYPES))
+def test_dict_gather_plain_matches_jax(kind):
+    jdt, tdt = _GATHER_TYPES[kind]
+    rng = np.random.default_rng(7)
+    d = 1000
+    info = np.iinfo(jdt)
+    dictionary = rng.integers(info.min, info.max, size=d, dtype=jdt, endpoint=True)
+    idx = rng.integers(0, d, size=5000).astype(np.int32)
+    want = np.asarray(jops.dict_gather_device(jnp.asarray(dictionary), jnp.asarray(idx)))
+    got = ops.dict_gather(torch.from_numpy(dictionary.view(tdt)), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy().view(jdt), want)
+
+
+@pytest.mark.parametrize("bad", [-1, -7, 1000, 2**31 - 1, -(2**31)])
+def test_dict_gather_out_of_range_matches_jnp(bad):
+    dictionary = np.arange(1000, dtype=np.int64) * 3 + 1
+    idx = np.array([5, bad, 17], dtype=np.int32)
+    want = np.asarray(jops.dict_gather_device(jnp.asarray(dictionary), jnp.asarray(idx)))
+    got = ops.dict_gather_plain(torch.from_numpy(dictionary), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _cpu_calls():
+    buf = np.zeros(4 * 64 + 1024, dtype=np.int32)
+    buf[65:128] = 4097  # one run at out_start 0, then sentinels
+    frozen = tpipe._DeltaBatch(64)
+    v = np.arange(100, dtype=np.int64)
+    from parquet_tpu_torch.ops.delta import encode_delta, prescan_delta_packed
+
+    s = encode_delta(v, 64)
+    frozen.add_page(prescan_delta_packed(s, 64, max_total=100), s)
+    fd = frozen.freeze()
+    return {
+        "expand_hybrid": (torch.from_numpy(buf), 3, 64, 10),
+        "dict_gather": (torch.arange(5, dtype=torch.int64), torch.zeros(9, dtype=torch.int32)),
+        "delta_packed_decode": (
+            torch.from_numpy(fd.meta32.view(np.int32)),
+            torch.from_numpy(fd.wide.view(np.int64)),
+            64, fd.m_pad, fd.p_pad, fd.total,
+        ),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(ops.KERNELS))
+def test_wrapper_takes_plain_version_for_cpu_tensors(name):
+    args = _cpu_calls()[name]
+    fn = ops.KERNELS[name]
+    before = fn.launches
+    out = fn(*args)
+    plain = getattr(ops, name + "_plain")(*args)
+    assert out.device.type == "cpu"
+    assert torch.equal(out, plain)
+    assert fn.launches == before  # no kernel launched, so no count
+
+
+@pytest.mark.parametrize("name", sorted(ops.KERNELS))
+def test_wrapper_raises_for_non_cuda_devices(name):
+    args = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a for a in _cpu_calls()[name])
+    with pytest.raises(ValueError, match="not supported"):
+        ops.KERNELS[name](*args)
+    assert ops.KERNELS[name].launches == 0
+
+
+def test_wrapper_input_checks():
+    with pytest.raises(TypeError):
+        ops.expand_hybrid(torch.zeros(2000, dtype=torch.int64), 3, 64, 10)
+    with pytest.raises(ValueError, match="1-D"):
+        ops.dict_gather(torch.zeros(4, 2, dtype=torch.int32), torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.dict_gather(torch.zeros(8, dtype=torch.int32)[::2], torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="width"):
+        ops.expand_hybrid(torch.zeros(2000, dtype=torch.int32), 33, 64, 10)
+    with pytest.raises(ValueError, match="too short"):
+        ops.expand_hybrid(torch.zeros(100, dtype=torch.int32), 3, 64, 10)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.dict_gather(torch.zeros(8, dtype=torch.int32), torch.zeros(3, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="empty dictionary"):
+        ops.dict_gather(torch.zeros(0, dtype=torch.int32), torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="nbits"):
+        ops.delta_packed_decode(torch.zeros(9, dtype=torch.int32), torch.zeros(0, dtype=torch.int32), 16, 1, 1, 1)
+
+
+def test_reset_launch_counts():
+    ops.expand_hybrid.launches = 5
+    ops.reset_launch_counts()
+    assert all(fn.launches == 0 for fn in ops.KERNELS.values())
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(build.KernelBuildError, match="nvcc"):
+        build._nvcc()
+
+
+def test_build_key_tracks_sources(tmp_path):
+    a = tmp_path / "a.cu"
+    a.write_text("// one")
+    k1 = build._key([a])
+    a.write_text("// two")
+    assert build._key([a]) != k1
+    assert sorted(build.SIGNATURES) == sorted(
+        ["pqt_expand_hybrid", "pqt_dict_gather4", "pqt_dict_gather8",
+         "pqt_delta_tile", "pqt_delta_packed_decode"]
+    )
