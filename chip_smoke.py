@@ -9,18 +9,30 @@ toolkit (nvcc):
 Phases (any failure raises and the script exits non-zero):
 
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    the CUDA kernels from kernels/csrc/, timed;
+  2. build    the CUDA kernels from kernels/csrc/ and the host library
+              from native/, timed;
   3. kernels  each kernel against its plain PyTorch version on the card,
-              bit-exact, at the main path's shapes;
-  4. main     an 8,388,608-row NYC-taxi-like file (8 row groups of 2**20
-              rows, ~1 MiB pages, built from a seed with testing/synth.py)
-              decoded by FileReader(path).read_row_groups_device() and held
-              against the generator's arrays; every kernel must have been
-              launched, no page may fall back to host decode, and one row
-              group through backend="device_roundtrip" must equal the host
-              decode;
-  5. times    rows/s of the device read and of host decode + upload, and
-              each kernel's CUDA-event time beside its bound.
+              bit-exact, at the main paths' shapes and at edge shapes (one
+              page, empty pages, all-dict and all-PLAIN chunks);
+  4. main     two 8,388,608-row NYC-taxi-like files (8 row groups of 2**20
+              rows, ~1 MiB pages, built from a seed with testing/synth.py),
+              each decoded by FileReader(path).read_row_groups_device() and
+              held against the generator's arrays, with the launch counts
+              set to 0 just before each read and read just after:
+              - "taxi": GZIP and uncompressed, dictionary, DELTA and PLAIN
+                columns; expand_hybrid, dict_gather and delta_packed_decode
+                must launch and no page may fall back to host decode;
+              - "taxi_mixed": pyarrow's default writer shape, SNAPPY, data
+                page V1, every dictionary falling back to PLAIN pages past
+                1 MiB; the mixed numeric, mixed bytes and BYTE_STREAM_SPLIT
+                routes must run (merge_mixed_numeric, merge_mixed_bytes,
+                bss_transpose) and the DOUBLE column takes the host merge;
+              on both the fused native prepare walk must take every chunk
+              (no decline, fault or recovery), and one row group through
+              backend="device_roundtrip" must equal the host decode;
+  5. times    rows/s of the device reads, of host decode + upload, of host
+              prepare alone on the fused and the staged walk, and each
+              kernel's CUDA-event time beside its bound.
 
 The last two lines of standard output are the `kernels` JSON line and the
 `{"ok": true, ...}` line. Without CUDA, or without the package beside it,
@@ -30,6 +42,7 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -47,6 +60,8 @@ HYBRID_N = 1 << 20
 GATHER_D = 100_000
 DELTA_PAGES = 8
 DELTA_PAGE_ROWS = 1 << 17
+# pyarrow's default dictionary_pagesize_limit
+DICT_LIMIT = 1 << 20
 # Non-tensor peak of an H100 SXM (67 T/s in float32, from NVIDIA's H100
 # datasheet): the operations bound of these integer kernels.
 OPS_PER_S = 67e12
@@ -68,6 +83,24 @@ def mem_bandwidth(name: str) -> float:
     if "H200" in n:
         return 4.8e12
     raise RuntimeError(f"no memory bandwidth on record for {name!r}")
+
+
+def events_ms(fn, reps: int = 20) -> float:
+    """Time per call of `fn` between CUDA events around `reps` eager calls:
+    for functions that synchronize inside (no graph can capture them), so
+    the host's share is included."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def device_ms(fn, reps: int = 20, replays: int = 5) -> float:
@@ -273,12 +306,12 @@ def taxi_columns(seed: int):
     ]
 
 
-def smoke_file(specs) -> Path:
-    """The main-path file, built once per seed under the build directory."""
+def smoke_file(specs, name: str = "taxi") -> Path:
+    """A main-path file, built once per seed under the build directory."""
     from parquet_tpu_torch.kernels.build import BUILD_ROOT
     from parquet_tpu_torch.testing.synth import write_file
 
-    path = BUILD_ROOT / "smoke" / f"taxi-{SEED}-{ROW_GROUPS}x{RG_ROWS}.parquet"
+    path = BUILD_ROOT / "smoke" / f"{name}-{SEED}-{ROW_GROUPS}x{RG_ROWS}.parquet"
     if not path.exists():
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(".tmp")
@@ -287,7 +320,7 @@ def smoke_file(specs) -> Path:
     return path
 
 
-def check_main_path(groups, specs, stats) -> None:
+def check_main_path(groups, specs, stats, no_host_fallback: bool = True) -> None:
     """Every delivered column equals the generator's arrays."""
     from parquet_tpu_torch.testing.synth import column_values
 
@@ -298,6 +331,16 @@ def check_main_path(groups, specs, stats) -> None:
             defs = np.concatenate([c.def_levels for c in cols])
             if not np.array_equal(defs.astype(bool), s.valid):
                 raise AssertionError(f"{s.name}: null positions differ")
+        if cols[0].data is not None:
+            # a merged byte-array column: (data, offsets) per row group
+            want = column_values(s)
+            lens = np.concatenate([np.diff(c.offsets.cpu().numpy()) for c in cols])
+            data = b"".join(
+                c.data[: int(c.offsets[-1])].cpu().numpy().tobytes() for c in cols
+            )
+            if not (np.array_equal(lens, np.diff(want.offsets)) and data == bytes(want.data)):
+                raise AssertionError(f"{s.name}: merged strings differ")
+            continue
         if s.name == "zone":
             idx = np.concatenate([c.indices.cpu().numpy() for c in cols])
             if not np.array_equal(idx, s.indices):
@@ -314,7 +357,7 @@ def check_main_path(groups, specs, stats) -> None:
         want = np.asarray(column_values(s))
         if got.dtype != want.dtype or got.tobytes() != want.tobytes():
             raise AssertionError(f"{s.name}: values differ")
-    if stats.host_fallback_pages != 0:
+    if no_host_fallback and stats.host_fallback_pages != 0:
         raise AssertionError(f"host_fallback_pages = {stats.host_fallback_pages}")
 
 
@@ -333,6 +376,310 @@ def chunks_equal(a, b) -> bool:
         same(getattr(a, f), getattr(b, f))
         for f in ("values", "def_levels", "rep_levels", "dictionary")
     )
+
+
+# -- the second main path: pyarrow's default writer shape ----------------------
+
+
+def mixed_columns(seed: int):
+    """The "taxi_mixed" file's columns, as pyarrow's default writer would
+    lay them out: SNAPPY, data page V1, every dictionary falling back to
+    PLAIN pages once its page passes DICT_LIMIT (dictionary_pagesize_limit).
+    trip_id and pickup_us (unique and near-unique int64) and zone (100,000
+    strings) become mixed chunks; trip_distance is a mixed DOUBLE chunk (the
+    host merge); fare_amount is FLOAT BYTE_STREAM_SPLIT; vendor_id and
+    passenger_count stay pure dictionary chunks."""
+    from parquet_tpu_torch.core.arrays import ByteArrayData
+    from parquet_tpu_torch.meta.parquet_types import CompressionCodec as C
+    from parquet_tpu_torch.meta.parquet_types import Encoding as E
+    from parquet_tpu_torch.meta.parquet_types import Type as T
+    from parquet_tpu_torch.testing.synth import ColumnSpec
+
+    n = ROW_GROUPS * RG_ROWS
+    rng = np.random.default_rng(seed)
+    runs = rng.integers(200, 5000, size=n // 200 + 2)
+    vendor = np.repeat(rng.integers(0, 8, size=len(runs)).astype(np.int32), runs)[:n]
+    valid = rng.random(n) >= 0.05
+    passengers = rng.choice(7, size=int(valid.sum()), p=(0.02, 0.7, 0.14, 0.05, 0.03, 0.04, 0.02))
+    pickup = 1_700_000_000_000_000 + np.cumsum(rng.integers(-2_000_000, 60_000_000, size=n))
+    pickup_dict, pickup_idx = np.unique(pickup.astype(np.int64), return_inverse=True)
+    fare = np.round(rng.gamma(2.0, 9.0, size=n), 2).astype(np.float32)
+    dist = np.round(rng.gamma(1.5, 2.5, size=n), 6)
+    dist_dict, dist_idx = np.unique(dist, return_inverse=True)
+    zones = ByteArrayData.from_list(
+        [f"zone-{i:06d}-{'abcdefgh'[i % 8] * (i % 11)}".encode() for i in range(100_000)]
+    )
+    common = dict(codec=C.SNAPPY, page_version=1, dict_fallback_bytes=DICT_LIMIT)
+    dict_enc = dict(encoding=E.RLE_DICTIONARY, **common)
+    return [
+        ColumnSpec("trip_id", T.INT64, dictionary=np.arange(n, dtype=np.int64) + 10**9,
+                   indices=np.arange(n, dtype=np.int32), **dict_enc),
+        ColumnSpec("vendor_id", T.INT32, dictionary=np.arange(1, 9, dtype=np.int32),
+                   indices=vendor, **dict_enc),
+        ColumnSpec("passenger_count", T.INT32, valid=valid, dictionary=np.arange(7, dtype=np.int32),
+                   indices=passengers.astype(np.int32), **dict_enc),
+        ColumnSpec("pickup_us", T.INT64, dictionary=pickup_dict,
+                   indices=pickup_idx.astype(np.int32), **dict_enc),
+        ColumnSpec("fare_amount", T.FLOAT, values=fare, encoding=E.BYTE_STREAM_SPLIT,
+                   codec=C.SNAPPY),
+        ColumnSpec("trip_distance", T.DOUBLE, dictionary=dist_dict,
+                   indices=dist_idx.astype(np.int32), **dict_enc),
+        ColumnSpec("zone", T.BYTE_ARRAY, dictionary=zones, utf8=True,
+                   indices=rng.integers(0, 100_000, size=n, dtype=np.int32), **dict_enc),
+    ]
+
+
+def row_group_plans(path, dev, group: int, columns):
+    """Dispatched plans of one row group's chunks, by column name."""
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.kernels.pipeline import prepare_chunk_plan
+
+    with FileReader(path, device=dev) as r:
+        return {
+            p[0]: prepare_chunk_plan(r._window(cc), cc, column).dispatch_device(dev)
+            for p, cc, column in r._selected_chunks(group, columns)
+        }
+
+
+def numeric_case(rng, dev, layout, n_dict, itemsize):
+    """merge_mixed_numeric arguments for a page layout, a list of ("dict" |
+    "plain", rows); out-of-range indices in the first dict page."""
+    import torch
+
+    from parquet_tpu_torch.kernels.pipeline import _page_merge_tables
+
+    it = np.int32 if itemsize == 4 else np.int64
+    infos, idx, plain = [], [], []
+    for kind, r in layout:
+        if kind == "dict":
+            v = rng.integers(0, n_dict, r).astype(np.int32)
+            if not idx and r:
+                v[:4] = (-1, n_dict, n_dict + 1, 2**31 - 1)[:r]
+            idx.append(v)
+            infos.append((r, None, None, "dict", r))
+        else:
+            pv = rng.integers(-(2**62), 2**62, r).astype(it)
+            plain.append(pv)
+            infos.append((r, None, None, "values", pv))
+    kind, prs, aux, n_rows = _page_merge_tables(infos, lambda p: (len(p), len(p)))
+    host = (
+        np.concatenate(idx) if idx else np.zeros(0, np.int32),
+        rng.integers(-(2**62), 2**62, n_dict).astype(it),
+        np.concatenate(plain) if plain else np.zeros(0, it),
+        kind, prs, aux,
+    )
+    return tuple(torch.from_numpy(h).to(dev) for h in host) + (n_rows,)
+
+
+def bytes_case(rng, dev, layout, n_dict):
+    """merge_mixed_bytes arguments for a page layout (as numeric_case)."""
+    import torch
+
+    from parquet_tpu_torch.core.arrays import ByteArrayData
+    from parquet_tpu_torch.kernels.pipeline import _page_merge_tables, _skewed_dict_bound
+
+    d = ByteArrayData.from_list([b"z" * int(k) for k in rng.integers(0, 20, n_dict)])
+    infos, idx = [], []
+    for kind, r in layout:
+        if kind == "dict":
+            v = rng.integers(0, n_dict, r).astype(np.int32)
+            if not idx and r:
+                v[:4] = (-1, n_dict, n_dict + 1, 2**31 - 1)[:r]
+            idx.append(v)
+            infos.append((r, None, None, "dict", r))
+        else:
+            vals = [b"Q" * int(k) for k in rng.integers(0, 40, r)]
+            infos.append((r, None, None, "values", ByteArrayData.from_list(vals)))
+    kind, prs, aux, n_rows = _page_merge_tables(
+        infos, lambda p: (len(p.offsets), len(p.offsets) - 1)
+    )
+    pools, src_base, po, base = [np.frombuffer(d.data, np.uint8)], [], [], len(d.data)
+    for *_x, k, payload in infos:
+        if k == "dict":
+            src_base.append(0)
+        else:
+            src_base.append(base)
+            po.append(payload.offsets.astype(np.int32))
+            pools.append(np.frombuffer(payload.data, np.uint8))
+            base += len(payload.data)
+    srcb = np.zeros(len(kind), np.int64)
+    srcb[: len(src_base)] = src_base
+    dict_rows = sum(p[4] for p in infos if p[3] == "dict")
+    bound, _ok = _skewed_dict_bound(d, dict_rows, base - len(d.data))
+    pool = np.concatenate(pools)
+    host = (
+        np.concatenate(idx) if idx else np.zeros(0, np.int32),
+        np.asarray(d.offsets, np.int64),
+        pool if len(pool) else np.zeros(1, np.uint8),
+        np.concatenate(po) if po else np.zeros(2, np.int32),
+        kind, prs, aux, srcb,
+    )
+    return tuple(torch.from_numpy(h).to(dev) for h in host) + (n_rows, bound)
+
+
+# page layouts of the edge cases: one page, empty pages, one-row pages,
+# all-dict and all-PLAIN chunks, and a long mixed chunk
+D, P = "dict", "plain"
+EDGE_LAYOUTS = {
+    "one_page": [(D, 70_000)],
+    "empty_pages": [(D, 0), (P, 900), (D, 0), (D, 64), (P, 0)],
+    "one_row_pages": [(D, 1), (P, 1), (D, 1), (P, 1)],
+    "all_dict": [(D, 3000), (D, 1), (D, 700)],
+    "all_plain": [(P, 1500), (P, 1)],
+    "mixed": [(D, 3000), (P, 2500), (D, 1), (P, 1), (D, 0), (D, 70_000), (P, 300_000),
+              (D, 700_000)],
+}
+
+
+def merged_equal(got, plain) -> tuple[bool, float]:
+    """(equal?, max abs err) of merge_mixed_bytes results: offsets, and the
+    data up to the last offset (the rest of `data` is unspecified)."""
+    (gd, go), (pd, po) = got, plain
+    ok_off, err = bits_equal(go, po)
+    total = int(po[-1])
+    ok_data, err_d = bits_equal(gd[:total], pd[:total])
+    return ok_off and ok_data, max(err, err_d)
+
+
+def check_new_kernels(dev, rows: dict, mixed_path) -> None:
+    """bss_transpose, merge_mixed_numeric and merge_mixed_bytes against their
+    plain versions on the card: at the taxi_mixed file's first row group's
+    shapes and at the edge shapes."""
+    import torch
+
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    errs = {"bss_transpose": 0.0, "merge_mixed_numeric": 0.0, "merge_mixed_bytes": 0.0}
+
+    def hold(name, what, got, plain):
+        torch.cuda.synchronize()
+        ok, err = merged_equal(got, plain) if isinstance(got, tuple) else bits_equal(got, plain)
+        log(f"  {name} {what}: equal={ok}")
+        if not ok:
+            raise AssertionError(f"{name} {what} disagrees with its plain version (max abs {err})")
+        errs[name] = max(errs[name], err)
+
+    plans = row_group_plans(mixed_path, dev, 0, ["fare_amount", "trip_id", "pickup_us", "zone"])
+    for k, (streams, nv) in enumerate(plans["fare_amount"].dev_bss):
+        hold("bss_transpose", f"fare_amount page {k} n={nv}",
+             ops.bss_transpose(streams, nv), ops.bss_transpose_plain(streams, nv))
+    for name in ("trip_id", "pickup_us"):
+        args = plans[name]._merge_numeric_args()
+        hold("merge_mixed_numeric", f"{name} rows={args[-1]} dict={args[1].numel()} "
+             f"plain={args[2].numel()}",
+             ops.merge_mixed_numeric(*args), ops.merge_mixed_numeric_plain(*args))
+    args = plans["zone"]._merge_bytes_args()
+    hold("merge_mixed_bytes", f"zone rows={args[-2]} dict={args[1].numel() - 1} "
+         f"pool={args[2].numel()}",
+         ops.merge_mixed_bytes(*args), ops.merge_mixed_bytes_plain(*args))
+    rng = np.random.default_rng(SEED)
+    for n in (0, 1, 1000):
+        streams = torch.from_numpy(
+            rng.integers(0, 256, (4, max(1024, n)), dtype=np.uint8)).to(dev)
+        hold("bss_transpose", f"edge n={n}",
+             ops.bss_transpose(streams, n), ops.bss_transpose_plain(streams, n))
+    for label, layout in EDGE_LAYOUTS.items():
+        for n_dict in (5, 1024, 100_000):
+            for itemsize in (4, 8):
+                args = numeric_case(rng, dev, layout, n_dict, itemsize)
+                hold("merge_mixed_numeric", f"edge {label} dict={n_dict} {itemsize}-byte",
+                     ops.merge_mixed_numeric(*args), ops.merge_mixed_numeric_plain(*args))
+            args = bytes_case(rng, dev, layout, n_dict)
+            hold("merge_mixed_bytes", f"edge {label} dict={n_dict}",
+                 ops.merge_mixed_bytes(*args), ops.merge_mixed_bytes_plain(*args))
+    for name, err in errs.items():
+        rows[name]["max_abs_err"] = err
+
+
+def time_new_kernels(mixed_path, dev, rows: dict, bw: float) -> None:
+    """Device times of the three kernels of the mixed path on the taxi_mixed
+    file's first row group, beside their bounds, plain versions and (for
+    bss_transpose) the one PyTorch call computing the same function."""
+    import torch
+
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    plans = row_group_plans(mixed_path, dev, 0, ["fare_amount", "trip_id", "zone"])
+
+    def record(name, fn, plain, nbytes, ops_count, library=None, plain_graph=True):
+        entry = {
+            "ms": device_ms(fn),
+            "plain_ms": device_ms(plain) if plain_graph else events_ms(plain),
+            "library_ms": device_ms(library) if library is not None else None,
+            "eager_ms": eager_ms(fn),
+        }
+        bytes_ms = nbytes / bw * 1e3
+        ops_ms = ops_count / OPS_PER_S * 1e3
+        entry["bound_ms"] = max(bytes_ms, ops_ms)
+        entry["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        rows[name].update(entry)
+        log(f"  {name}: {entry['ms']:.4f} ms on the device (eager call "
+            f"{entry['eager_ms']:.4f} ms), plain {entry['plain_ms']:.4f} ms"
+            + (f", library {entry['library_ms']:.4f} ms" if library is not None else "")
+            + f"; bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, {nbytes} B, "
+            f"{ops_count} ops); {nbytes / entry['ms'] / 1e6:.1f} GB/s")
+
+    streams, nv = plans["fare_amount"].dev_bss[0]
+    # bytes: four stream bytes read and one word written per value; ops:
+    # three shifts, three ors and the addressing, ~8 per value
+    record("bss_transpose",
+           lambda: ops.bss_transpose(streams, nv), lambda: ops.bss_transpose_plain(streams, nv),
+           8 * nv, 8 * nv,
+           library=lambda: streams[:, :nv].t().contiguous().view(torch.int32))
+    args = plans["trip_id"]._merge_numeric_args()
+    idx, dictionary, plain = args[0], args[1], args[2]
+    n_rows = args[-1]
+    e = dictionary.element_size()
+    p_pad = args[3].numel()
+    # bytes: the dict rows' indices, the dictionary, the PLAIN values and the
+    # output, each once; ops: the page search (~3 per step) and ~12 for the
+    # clamps and the select, per row
+    record("merge_mixed_numeric",
+           lambda: ops.merge_mixed_numeric(*args), lambda: ops.merge_mixed_numeric_plain(*args),
+           4 * idx.numel() + e * dictionary.numel() + e * plain.numel() + e * n_rows,
+           n_rows * (3 * p_pad.bit_length() + 12))
+    bargs = plans["zone"]._merge_bytes_args()
+    b_rows = bargs[-2]
+    probe = ops.merge_mixed_bytes(*bargs)
+    total = int(probe[1][-1])
+    # bytes: indices, dictionary offsets, the pool (dictionary payload and
+    # PLAIN bytes), the PLAIN offsets, the output bytes and offsets, each
+    # once; ops: per row the page search and ~30 for the source, the scan
+    # and the copy loop, plus ~2 per output byte
+    record("merge_mixed_bytes",
+           lambda: ops.merge_mixed_bytes(*bargs), lambda: ops.merge_mixed_bytes_plain(*bargs),
+           4 * bargs[0].numel() + 8 * bargs[1].numel() + bargs[2].numel()
+           + 4 * bargs[3].numel() + total + 8 * (b_rows + 1),
+           b_rows * (3 * bargs[4].numel().bit_length() + 30) + 2 * total,
+           plain_graph=False)
+
+
+def prepare_alone(path, fused: bool, by_column: dict | None = None) -> float:
+    """Seconds of host prepare alone over a whole file, on the fused native
+    walk or the staged per-page walk (PQT_FUSED_PREPARE). `by_column`, when
+    given, accumulates each column's seconds."""
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.kernels.pipeline import prepare_chunk_plan
+
+    old = os.environ.get("PQT_FUSED_PREPARE")
+    os.environ["PQT_FUSED_PREPARE"] = "1" if fused else "0"
+    try:
+        t = time.perf_counter()
+        with FileReader(path, device="cpu") as r:  # prepare touches no device
+            for i in range(r.num_row_groups):
+                for p, cc, column in r._selected_chunks(i):
+                    t_chunk = time.perf_counter()
+                    prepare_chunk_plan(r._window(cc), cc, column)
+                    if by_column is not None:
+                        by_column[p[0]] = (
+                            by_column.get(p[0], 0.0) + time.perf_counter() - t_chunk
+                        )
+        return time.perf_counter() - t
+    finally:
+        if old is None:
+            os.environ.pop("PQT_FUSED_PREPARE", None)
+        else:
+            os.environ["PQT_FUSED_PREPARE"] = old
 
 
 # -- phase 5: kernel times at the main path's shapes ----------------------------
@@ -452,7 +799,12 @@ def main() -> int:
     from parquet_tpu_torch.core.reader import FileReader
     from parquet_tpu_torch.kernels import build
     from parquet_tpu_torch.kernels import device_ops as ops
-    from parquet_tpu_torch.kernels.pipeline import to_device
+    from parquet_tpu_torch.kernels.pipeline import (
+        prepare_counts,
+        reset_prepare_counts,
+        to_device,
+    )
+    from parquet_tpu_torch.utils.native import get_native
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -467,14 +819,21 @@ def main() -> int:
 
     build.load()
     log(f"[build] kernels built and loaded in {build.build_seconds():.2f} s")
+    t = time.perf_counter()
+    get_native()
+    log(f"[build] host library built and loaded in {time.perf_counter() - t:.2f} s")
 
+    csrc = "parquet_tpu_torch/kernels/csrc/"
     sources = {
-        "expand_hybrid": ("parquet_tpu_torch/kernels/csrc/expand_hybrid.cu",
-                          "parquet_tpu/kernels/device_ops.py:108"),
-        "dict_gather": ("parquet_tpu_torch/kernels/csrc/dict_gather.cu",
-                        "parquet_tpu/kernels/device_ops.py:256"),
-        "delta_packed_decode": ("parquet_tpu_torch/kernels/csrc/delta_packed_decode.cu",
+        "expand_hybrid": (csrc + "expand_hybrid.cu", "parquet_tpu/kernels/device_ops.py:108"),
+        "dict_gather": (csrc + "dict_gather.cu", "parquet_tpu/kernels/device_ops.py:256"),
+        "delta_packed_decode": (csrc + "delta_packed_decode.cu",
                                 "parquet_tpu/kernels/device_ops.py:152"),
+        "bss_transpose": (csrc + "bss_transpose.cu", "parquet_tpu/kernels/device_ops.py:245"),
+        "merge_mixed_numeric": (csrc + "merge_mixed_numeric.cu",
+                                "parquet_tpu/kernels/device_ops.py:689"),
+        "merge_mixed_bytes": (csrc + "merge_mixed_bytes.cu",
+                              "parquet_tpu/kernels/device_ops.py:718"),
     }
     rows = {
         k: {"name": k, "route": "cuda", "source": src, "replaces": rep}
@@ -484,45 +843,81 @@ def main() -> int:
     log("[kernels] each kernel against its plain version on the card (bit-exact)")
     check_kernels(dev, rows)
 
-    log("[main] building the main-path file")
-    t = time.perf_counter()
-    specs = taxi_columns(SEED)
-    path = smoke_file(specs)
+    launches: dict[str, dict] = {}
+
+    def drive(label, path, specs, need, no_host_fallback):
+        """One main-path read with the launch and prepare counts zeroed just
+        before and read just after; checks the columns and the counts."""
+        ops.reset_launch_counts()
+        reset_prepare_counts()
+        t = time.perf_counter()
+        reader = FileReader(path)
+        groups = reader.read_row_groups_device()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
+        prep = prepare_counts()
+        launches[label] = counts
+        log(f"[main:{label}] read_row_groups_device: {secs:.2f} s, launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items())
+            + f", stats {reader.stats}, prepare {prep}")
+        check_main_path(groups, specs, reader.stats, no_host_fallback)
+        for k in need:
+            if counts[k] <= 0:
+                raise AssertionError(f"{k} was not launched on the {label} path")
+        chunks = ROW_GROUPS * len(specs)
+        bad = {k: v for k, v in prep.items()
+               if k.startswith("prepare_fused_fault_")
+               or k in ("prepare_fused_declined", "prepare_fallback_recovered")}
+        if prep.get("prepare_fused_engaged") != chunks or bad:
+            raise AssertionError(
+                f"{label}: fused walk engaged {prep.get('prepare_fused_engaged')} of "
+                f"{chunks} chunks; declines/faults/recoveries {bad}")
+        del groups
+        rt = FileReader(path, backend="device_roundtrip")
+        host = FileReader(path, backend="host")
+        a, b = rt.read_row_group(0), host.read_row_group(0)
+        if a.keys() != b.keys() or not all(chunks_equal(a[p], b[p]) for p in a):
+            raise AssertionError(f"{label}: device_roundtrip row group 0 differs from host decode")
+        log(f"[main:{label}] columns equal the generator; fused walk on all {chunks} chunks; "
+            "device_roundtrip row group 0 equals host decode")
+        return prep
+
+    paths = {}
+    for label, make in (("taxi", taxi_columns), ("taxi_mixed", mixed_columns)):
+        t = time.perf_counter()
+        specs = make(SEED)
+        path = smoke_file(specs, label.replace("_", "-"))
+        paths[label] = (path, specs)
+        log(f"[main:{label}] {path.name}: {ROW_GROUPS * RG_ROWS} rows, "
+            f"{path.stat().st_size / 2**20:.1f} MiB, ready in {time.perf_counter() - t:.1f} s")
     n_rows = ROW_GROUPS * RG_ROWS
-    log(f"[main] {path.name}: {n_rows} rows, {path.stat().st_size / 2**20:.1f} MiB, "
-        f"ready in {time.perf_counter() - t:.1f} s")
-    ops.reset_launch_counts()
-    t = time.perf_counter()
-    reader = FileReader(path)
-    groups = reader.read_row_groups_device()
-    torch.cuda.synchronize()
-    t_main = time.perf_counter() - t
-    for k, fn in ops.KERNELS.items():
-        rows[k]["launches"] = fn.launches
-    log(f"[main] read_row_groups_device: {t_main:.2f} s, launches "
-        + ", ".join(f"{k}={fn.launches}" for k, fn in ops.KERNELS.items())
-        + f", stats {reader.stats}")
-    check_main_path(groups, specs, reader.stats)
-    for k, fn in ops.KERNELS.items():
-        if rows[k]["launches"] <= 0:
-            raise AssertionError(f"{k} was not launched on the main path")
-    del groups
-    rt = FileReader(path, backend="device_roundtrip")
-    host = FileReader(path, backend="host")
-    a, b = rt.read_row_group(0), host.read_row_group(0)
-    if a.keys() != b.keys() or not all(chunks_equal(a[p], b[p]) for p in a):
-        raise AssertionError("device_roundtrip row group 0 differs from host decode")
-    log("[main] columns equal the generator; host_fallback_pages=0; "
-        "device_roundtrip row group 0 equals host decode")
+    mixed_path = paths["taxi_mixed"][0]
+
+    log("[kernels] the mixed path's kernels at its shapes and at edge shapes")
+    check_new_kernels(dev, rows, mixed_path)
+
+    drive("taxi", *paths["taxi"],
+          need=("expand_hybrid", "dict_gather", "delta_packed_decode"), no_host_fallback=True)
+    prep = drive("taxi_mixed", *paths["taxi_mixed"],
+                 need=("expand_hybrid", "dict_gather", "bss_transpose",
+                       "merge_mixed_numeric", "merge_mixed_bytes"),
+                 no_host_fallback=False)
+    for route in ("route_merge_numeric", "route_merge_bytes", "route_bss", "route_host_merge"):
+        if prep.get(route, 0) <= 0:
+            raise AssertionError(f"taxi_mixed: {route} never taken ({prep})")
+    for k in rows:
+        rows[k]["launches"] = sum(c[k] for c in launches.values())
+        rows[k]["launches_by_path"] = {label: c[k] for label, c in launches.items()}
 
     log(f"[times] {name} | {smi}")
 
-    def device_read():
+    def device_read(path):
         out = FileReader(path).read_row_groups_device()
         torch.cuda.synchronize()
         return out
 
-    def host_read_upload():
+    def host_read_upload(path):
         out = []
         with FileReader(path, backend="host") as r:
             for i in range(r.num_row_groups):
@@ -538,36 +933,44 @@ def main() -> int:
         torch.cuda.synchronize()
         return out
 
-    rates = {}
-    for label, fn in (("device", device_read), ("host+upload", host_read_upload)):
-        fn()
+    def median_s(fn, reps=3):
         secs = []
-        for _ in range(3):
+        for _ in range(reps):
             t = time.perf_counter()
             fn()
             secs.append(time.perf_counter() - t)
-        rates[label] = n_rows / statistics.median(secs)
-        log(f"  {label}: {rates[label]:,.0f} rows/s (median of {[round(s, 3) for s in secs]} s)")
-    from parquet_tpu_torch.kernels.pipeline import prepare_chunk_plan
+        return statistics.median(secs), secs
 
-    def prepare_only():
-        with FileReader(path) as r:
-            for i in range(r.num_row_groups):
-                for _p, cc, column in r._selected_chunks(i):
-                    prepare_chunk_plan(r._window(cc), cc, column)
-
-    secs = []
-    for _ in range(3):
-        t = time.perf_counter()
-        prepare_only()
-        secs.append(time.perf_counter() - t)
-    log(f"  host prepare alone: {n_rows / statistics.median(secs):,.0f} rows/s "
-        f"(median of {[round(s, 3) for s in secs]} s)")
-    profile_device_read(path)
-    time_kernels(path, dev, rows, bw)
+    rates = {}
+    runs = [("taxi device", lambda: device_read(paths["taxi"][0])),
+            ("taxi host+upload", lambda: host_read_upload(paths["taxi"][0])),
+            ("taxi_mixed device", lambda: device_read(mixed_path))]
+    for label, fn in runs:
+        fn()
+        med, secs = median_s(fn)
+        rates[label] = n_rows / med
+        log(f"  {label}: {rates[label]:,.0f} rows/s (median of {[round(x, 3) for x in secs]} s)")
+    prepare = {}
+    for label in paths:
+        for walk, fused in (("fused", True), ("staged", False)):
+            prepare_alone(paths[label][0], fused)
+            med, secs = median_s(lambda: prepare_alone(paths[label][0], fused))
+            prepare[f"{label} {walk}"] = med
+            log(f"  host prepare alone, {label}, {walk} walk: {n_rows / med:,.0f} rows/s "
+                f"(median of {[round(x, 3) for x in secs]} s)")
+            split: dict = {}
+            prepare_alone(paths[label][0], fused, split)
+            prepare[f"{label} {walk} by column"] = split
+            log("    by column (one more pass): " + ", ".join(
+                f"{c} {v:.3f} s" for c, v in sorted(split.items(), key=lambda kv: -kv[1])))
+    for label in paths:
+        log(f"  profiler, {label}:")
+        profile_device_read(paths[label][0])
+    time_kernels(paths["taxi"][0], dev, rows, bw)
+    time_new_kernels(mixed_path, dev, rows, bw)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
-    print(json.dumps({"rows_per_s": rates, "card": smi}))
+    print(json.dumps({"rows_per_s": rates, "prepare_s": prepare, "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,11 +1,14 @@
-"""Block compression registry (UNCOMPRESSED and GZIP built in).
+"""Block compression registry.
 
 Pluggable codec registry mirroring the reference's BlockCompressor model
 (reference: compress.go:16-157). Decompressed output is validated against the
-expected size before use (reference: compress.go:102-123). Only the two
-codecs the standard library carries are built in; every other codec raises
-the typed "codec not registered" CompressionError unless the caller
-registers an implementation with register_codec.
+expected size before use (reference: compress.go:102-123). Built in:
+UNCOMPRESSED and GZIP from the standard library, and SNAPPY, LZ4_RAW and the
+legacy LZ4 codec (Hadoop framing on write; framed or bare raw blocks on
+read, parquet-cpp's contract) over the port's host library
+(utils/native.py, built on first use). ZSTD, BROTLI and LZO raise the typed
+"codec not registered" CompressionError unless the caller registers an
+implementation with register_codec.
 """
 
 from __future__ import annotations
@@ -30,7 +33,17 @@ class CompressionError(ParquetFileError):
     same as every other malformed-file path."""
 
 
-class _Uncompressed:
+class _Codec:
+    name = "?"
+
+    def compress(self, data: bytes) -> bytes:
+        raise NotImplementedError
+
+    def decompress(self, data: bytes, uncompressed_size: int) -> bytes:
+        raise NotImplementedError
+
+
+class _Uncompressed(_Codec):
     name = "UNCOMPRESSED"
 
     def compress(self, data):
@@ -40,7 +53,7 @@ class _Uncompressed:
         return bytes(data)
 
 
-class _Gzip:
+class _Gzip(_Codec):
     name = "GZIP"
 
     def compress(self, data):
@@ -63,10 +76,72 @@ class _Gzip:
         return out
 
 
+def _native():
+    """The host library, resolved at first use (never at import)."""
+    from ..utils.native import get_native
+
+    return get_native()
+
+
+class _NativeSnappy(_Codec):
+    name = "SNAPPY"
+
+    def compress(self, data):
+        return _native().snappy_compress(data)
+
+    def decompress(self, data, uncompressed_size):
+        return _native().snappy_decompress(data, uncompressed_size)
+
+
+class _NativeLz4Raw(_Codec):
+    """LZ4_RAW (codec 7): one raw LZ4 block per page."""
+
+    name = "LZ4_RAW"
+
+    def compress(self, data):
+        return _native().lz4_compress(bytes(data))
+
+    def decompress(self, data, uncompressed_size):
+        return _native().lz4_decompress(data, uncompressed_size)
+
+
+class _Lz4Hadoop(_Codec):
+    """Legacy LZ4 (codec 5): Hadoop framing on disk, repeated
+    [4B BE uncompressed size][4B BE compressed size][raw block], with a
+    bare-raw-block fallback on read (parquet-cpp's contract; pyarrow and
+    parquet-mr both write the framed form)."""
+
+    name = "LZ4"
+
+    def __init__(self, raw: _Codec):
+        self._raw = raw
+
+    # Hadoop's BlockCompressorStream splits writes at the codec buffer size
+    # (256 KiB by default): larger pages emit several [sizes][block] frames
+    _BLOCK = 256 << 10
+
+    def compress(self, data):
+        import struct
+
+        data = bytes(data)
+        out = bytearray()
+        for lo in range(0, max(len(data), 1), self._BLOCK):
+            piece = data[lo : lo + self._BLOCK]
+            block = self._raw.compress(piece)
+            out += struct.pack(">II", len(piece), len(block)) + block
+        return bytes(out)
+
+    def decompress(self, data, uncompressed_size):
+        return _native().lz4_decompress(data, uncompressed_size, hadoop=True)
+
+
 _REGISTRY: dict = {
     int(CompressionCodec.UNCOMPRESSED): _Uncompressed(),
     int(CompressionCodec.GZIP): _Gzip(),
+    int(CompressionCodec.SNAPPY): _NativeSnappy(),
+    int(CompressionCodec.LZ4_RAW): _NativeLz4Raw(),
 }
+_REGISTRY[int(CompressionCodec.LZ4)] = _Lz4Hadoop(_REGISTRY[int(CompressionCodec.LZ4_RAW)])
 
 
 def register_codec(codec: CompressionCodec, impl) -> None:
@@ -77,6 +152,14 @@ def register_codec(codec: CompressionCodec, impl) -> None:
 
 def codec_supported(codec: CompressionCodec) -> bool:
     return int(codec) in _REGISTRY
+
+
+def is_builtin_codec(codec) -> bool:
+    """True while `codec` still resolves to a stock implementation: the
+    native whole-chunk walk inlines UNCOMPRESSED, SNAPPY, GZIP, LZ4 and
+    LZ4_RAW and must stand down when register_codec has overridden one."""
+    impl = _REGISTRY.get(int(codec))
+    return isinstance(impl, (_Uncompressed, _Gzip, _NativeSnappy, _NativeLz4Raw, _Lz4Hadoop))
 
 
 def _get(codec):

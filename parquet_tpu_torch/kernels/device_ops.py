@@ -1,4 +1,4 @@
-"""Device decode primitives: the three kernels of the decode path.
+"""Device decode primitives: the kernels of the decode path.
 
 Each primitive has three parts:
 
@@ -34,6 +34,12 @@ __all__ = [
     "dict_gather_plain",
     "delta_packed_decode",
     "delta_packed_decode_plain",
+    "bss_transpose",
+    "bss_transpose_plain",
+    "merge_mixed_numeric",
+    "merge_mixed_numeric_plain",
+    "merge_mixed_bytes",
+    "merge_mixed_bytes_plain",
     "KERNELS",
     "reset_launch_counts",
 ]
@@ -352,11 +358,301 @@ def delta_packed_decode(
 delta_packed_decode.launches = 0
 
 
+# -- bss_transpose -------------------------------------------------------------
+
+
+def bss_transpose_plain(streams: torch.Tensor, num_values: int) -> torch.Tensor:
+    """Plain version of the BYTE_STREAM_SPLIT de-interleave: byte k of value
+    i is streams[k, i]. Returns int32[num_values] holding the uint32 words'
+    bit patterns."""
+    b = streams[:, :num_values].to(torch.int64)
+    v = b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24)
+    return _to_signed32(v)
+
+
+def bss_transpose(streams: torch.Tensor, num_values: int) -> torch.Tensor:
+    """De-interleave a 4-byte BYTE_STREAM_SPLIT page: the four byte streams
+    arrive as a (4, n_pad) uint8 tensor (one stream per row, padded), and
+    out[i] is the little-endian word of streams[0..3, i], as int32 bit
+    patterns. Replaces parquet_tpu/kernels/device_ops.py:bss_transpose_device
+    (and its jitted _bss_transpose_padded); the port writes exactly
+    `num_values` words."""
+    if not isinstance(streams, torch.Tensor):
+        raise TypeError("bss_transpose: streams must be a torch.Tensor")
+    if streams.dtype != torch.uint8 or streams.dim() != 2 or streams.shape[0] != 4:
+        raise ValueError(
+            f"bss_transpose: expected a (4, n_pad) uint8 tensor, got "
+            f"{tuple(streams.shape)} {streams.dtype}"
+        )
+    if not streams.is_contiguous():
+        raise ValueError("bss_transpose: streams must be contiguous")
+    n_pad = streams.shape[1]
+    if not 0 <= num_values <= n_pad or n_pad >= (1 << 31):
+        raise ValueError(f"bss_transpose: {num_values} values in a stream of {n_pad}")
+    if _on_cpu(streams):
+        return bss_transpose_plain(streams, num_values)
+    out = torch.empty(num_values, dtype=torch.int32, device=streams.device)
+    if num_values:
+        _launch(
+            "bss_transpose", streams.device, _lib().pqt_bss_transpose,
+            _ptr(streams), n_pad, num_values, _ptr(out),
+        )
+        bss_transpose.launches += 1
+    return out
+
+
+bss_transpose.launches = 0
+
+
+# -- the mixed dict/PLAIN merges -----------------------------------------------
+
+
+def _bucket(n: int, floor: int = 1024) -> int:
+    """Next power-of-two bucket >= n (>= floor): the shapes the JAX pipeline
+    pads its uploads to (pipeline._bucket, _pad_device). The merges'
+    out-of-range reads are defined against those padded shapes, so the port
+    replicates their effect from the sizes alone and uploads no padding."""
+    b = floor
+    while b < n:
+        b <<= 1
+    return b
+
+
+def _take_or_zero(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """t[i] where 0 <= i < len(t), else 0 (the zero padding's value)."""
+    n = t.numel()
+    if n == 0:
+        return torch.zeros(i.shape, dtype=t.dtype, device=t.device)
+    return torch.where(i < n, t[i.clamp(0, n - 1)], torch.zeros((), dtype=t.dtype, device=t.device))
+
+
+def _merge_pages(page_kind, page_row_start, page_aux, n_rows, dev):
+    """(is_dict, src, pg) per output row: the row's page (a search over the
+    page row starts), whether it is a dict page, and aux[pg] + its offset
+    within the page."""
+    p_pad = page_kind.numel()
+    rows = torch.arange(n_rows, dtype=torch.int64, device=dev)
+    prs = page_row_start.to(torch.int64)
+    pg = torch.searchsorted(prs[1:].contiguous(), rows, right=True).clamp(max=p_pad - 1)
+    rel = rows - prs[pg]
+    return page_kind[pg] == 1, page_aux.to(torch.int64)[pg] + rel, pg
+
+
+def _check_pages(page_kind, page_row_start, page_aux, name):
+    for t, what in ((page_kind, "page_kind"), (page_row_start, "page_row_start"),
+                    (page_aux, "page_aux")):
+        _check_vec(t, (torch.int32,), f"{name}: {what}")
+    p_pad = page_kind.numel()
+    if p_pad == 0 or page_aux.numel() != p_pad or page_row_start.numel() != p_pad + 1:
+        raise ValueError(
+            f"{name}: page tables of {p_pad}, {page_row_start.numel()} and "
+            f"{page_aux.numel()} entries (want P, P + 1, P with P >= 1)"
+        )
+
+
+def merge_mixed_numeric_plain(
+    idx_all: torch.Tensor,
+    dictionary: torch.Tensor,
+    plain: torch.Tensor,
+    page_kind: torch.Tensor,
+    page_row_start: torch.Tensor,
+    page_aux: torch.Tensor,
+    n_rows: int,
+) -> torch.Tensor:
+    """Plain version of the mixed dict/PLAIN numeric merge, with the JAX
+    program's clamping over its zero-padded inputs: the row's source index
+    clamps below at 0 and above at the last padded slot; a dict index clamps
+    into [0, bucket(n_dict) - 1] and reads 0 past the real dictionary."""
+    dev = dictionary.device
+    is_dict, src, _pg = _merge_pages(page_kind, page_row_start, page_aux, n_rows, dev)
+    src = src.clamp(min=0)
+    d_pad = _bucket(max(idx_all.numel(), 1))
+    i = _take_or_zero(idx_all, src.clamp(max=d_pad - 1)).to(torch.int64)
+    i = i.clamp(0, _bucket(max(dictionary.numel(), 1)) - 1)
+    dv = _take_or_zero(dictionary, i)
+    pv = _take_or_zero(plain, src.clamp(max=_bucket(max(plain.numel(), 1)) - 1))
+    return torch.where(is_dict, dv, pv)
+
+
+def merge_mixed_numeric(
+    idx_all: torch.Tensor,
+    dictionary: torch.Tensor,
+    plain: torch.Tensor,
+    page_kind: torch.Tensor,
+    page_row_start: torch.Tensor,
+    page_aux: torch.Tensor,
+    n_rows: int,
+) -> torch.Tensor:
+    """Merge a mixed dict/PLAIN numeric chunk in output-row order: a row of a
+    dict page reads dictionary[idx_all[aux + rel]], a row of a PLAIN page
+    reads plain[aux + rel] (4- or 8-byte elements; floats as bit patterns).
+    Page tables as pipeline._page_merge_tables builds them. Replaces
+    parquet_tpu/kernels/device_ops.py:merge_mixed_numeric_device, called as
+    the JAX pipeline calls it (inputs zero-padded to their buckets, the
+    output sliced to n_rows); the port writes exactly n_rows values."""
+    _check_vec(idx_all, (torch.int32,), "merge_mixed_numeric: idx_all")
+    _check_vec(dictionary, (torch.int32, torch.int64), "merge_mixed_numeric: dictionary")
+    _check_vec(plain, (dictionary.dtype,), "merge_mixed_numeric: plain")
+    _check_pages(page_kind, page_row_start, page_aux, "merge_mixed_numeric")
+    if not 0 <= n_rows < (1 << 31):
+        raise ValueError(f"merge_mixed_numeric: n_rows {n_rows} outside int32 range")
+    sizes = (idx_all.numel(), dictionary.numel(), plain.numel())
+    if max(sizes) >= (1 << 31):
+        raise ValueError(f"merge_mixed_numeric: inputs of {sizes} exceed int32 range")
+    tensors = (idx_all, dictionary, plain, page_kind, page_row_start, page_aux)
+    if _on_cpu(*tensors):
+        return merge_mixed_numeric_plain(*tensors, n_rows)
+    dev = dictionary.device
+    out = torch.empty(n_rows, dtype=dictionary.dtype, device=dev)
+    if n_rows:
+        lib = _lib()
+        fn = (
+            lib.pqt_merge_mixed_numeric4
+            if dictionary.dtype == torch.int32
+            else lib.pqt_merge_mixed_numeric8
+        )
+        _launch(
+            "merge_mixed_numeric", dev, fn,
+            _ptr(idx_all), sizes[0], _bucket(max(sizes[0], 1)),
+            _ptr(dictionary), sizes[1], _bucket(max(sizes[1], 1)),
+            _ptr(plain), sizes[2], _bucket(max(sizes[2], 1)),
+            _ptr(page_kind), _ptr(page_row_start), _ptr(page_aux), page_kind.numel(),
+            n_rows, _ptr(out),
+        )
+        merge_mixed_numeric.launches += 1
+    return out
+
+
+merge_mixed_numeric.launches = 0
+
+
+def _bytes_rows(idx_all, doff, po32, page_kind, page_row_start, page_aux,
+                page_src_base, n_rows):
+    """(start, length) per output row of the ragged merge, int64."""
+    dev = doff.device
+    is_dict, src, pg = _merge_pages(page_kind, page_row_start, page_aux, n_rows, dev)
+    d_pad = _bucket(max(idx_all.numel(), 1))
+    j = torch.where(is_dict, src, torch.zeros_like(src)).clamp(0, d_pad - 1)
+    idx = _take_or_zero(idx_all, j).to(torch.int64)
+    # doff pads to bucket(len(doff), 1024) with its last offset: an index
+    # past the dictionary reads an empty entry
+    idx = idx.clamp(0, _bucket(doff.numel()) - 2)
+    last = doff.numel() - 1
+    dstart = doff[idx.clamp(max=last)]
+    dlen = doff[(idx + 1).clamp(max=last)] - dstart
+    e_pad = _bucket(po32.numel())
+    e = torch.where(is_dict, torch.zeros_like(src), src).clamp(0, e_pad - 2)
+    p0 = _take_or_zero(po32, e).to(torch.int64)
+    p1 = _take_or_zero(po32, e + 1).to(torch.int64)
+    start = torch.where(is_dict, dstart, p0 + page_src_base[pg])
+    length = torch.where(is_dict, dlen, p1 - p0).clamp(min=0)
+    return start, length
+
+
+def merge_mixed_bytes_plain(
+    idx_all: torch.Tensor,
+    doff: torch.Tensor,
+    pool: torch.Tensor,
+    po32: torch.Tensor,
+    page_kind: torch.Tensor,
+    page_row_start: torch.Tensor,
+    page_aux: torch.Tensor,
+    page_src_base: torch.Tensor,
+    n_rows: int,
+    data_bytes: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the ragged mixed dict/PLAIN byte-array merge, with
+    the JAX program's clamping over its padded inputs. Returns (data
+    uint8[data_bytes], offsets int64[n_rows + 1]); bytes past
+    offsets[n_rows] are zero."""
+    dev = doff.device
+    start, length = _bytes_rows(
+        idx_all, doff, po32, page_kind, page_row_start, page_aux, page_src_base, n_rows
+    )
+    offsets = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(length, 0, out=offsets[1:])
+    total = int(offsets[-1])
+    if total > data_bytes:
+        raise ValueError(f"merge_mixed_bytes: {total} bytes exceed the bound {data_bytes}")
+    data = torch.zeros(data_bytes, dtype=torch.uint8, device=dev)
+    if total:
+        row = torch.repeat_interleave(torch.arange(n_rows, device=dev), length)
+        pos = torch.arange(total, dtype=torch.int64, device=dev) - offsets[row]
+        data[:total] = pool[(start[row] + pos).clamp(0, pool.numel() - 1)]
+    return data, offsets
+
+
+def merge_mixed_bytes(
+    idx_all: torch.Tensor,
+    doff: torch.Tensor,
+    pool: torch.Tensor,
+    po32: torch.Tensor,
+    page_kind: torch.Tensor,
+    page_row_start: torch.Tensor,
+    page_aux: torch.Tensor,
+    page_src_base: torch.Tensor,
+    n_rows: int,
+    data_bytes: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Materialize a mixed dict/PLAIN byte-array chunk: dict rows copy their
+    dictionary entry (doff offsets into the head of `pool`), PLAIN rows copy
+    their bytes (po32: the PLAIN pages' int32 offset arrays concatenated;
+    page_src_base: each PLAIN page's byte base in `pool`). Returns (data
+    uint8[data_bytes], offsets int64[n_rows + 1]). `data_bytes` is the
+    caller's upper bound on the total, so nothing waits for the device to
+    size the output; the kernel writes data[:offsets[n_rows]] and leaves the
+    rest of `data` unwritten. Replaces
+    parquet_tpu/kernels/device_ops.py:merge_mixed_bytes_device, called as
+    the JAX pipeline calls it (padded inputs, sliced outputs)."""
+    _check_vec(idx_all, (torch.int32,), "merge_mixed_bytes: idx_all")
+    _check_vec(doff, (torch.int64,), "merge_mixed_bytes: doff")
+    _check_vec(pool, (torch.uint8,), "merge_mixed_bytes: pool")
+    _check_vec(po32, (torch.int32,), "merge_mixed_bytes: po32")
+    _check_vec(page_src_base, (torch.int64,), "merge_mixed_bytes: page_src_base")
+    _check_pages(page_kind, page_row_start, page_aux, "merge_mixed_bytes")
+    if page_src_base.numel() != page_kind.numel():
+        raise ValueError("merge_mixed_bytes: page_src_base must have one entry per page")
+    if doff.numel() < 1 or po32.numel() < 2 or pool.numel() < 1:
+        raise ValueError("merge_mixed_bytes: doff, po32 and pool must not be empty")
+    if not 0 <= n_rows < (1 << 31) or data_bytes < 0:
+        raise ValueError(f"merge_mixed_bytes: n_rows {n_rows} / data_bytes {data_bytes}")
+    if max(idx_all.numel(), doff.numel(), po32.numel()) >= (1 << 31):
+        raise ValueError("merge_mixed_bytes: tables exceed int32 range")
+    tensors = (idx_all, doff, pool, po32, page_kind, page_row_start, page_aux, page_src_base)
+    if _on_cpu(*tensors):
+        return merge_mixed_bytes_plain(*tensors, n_rows, data_bytes)
+    dev = doff.device
+    data = torch.empty(data_bytes, dtype=torch.uint8, device=dev)
+    offsets = torch.empty(n_rows + 1, dtype=torch.int64, device=dev)
+    lib = _lib()
+    tile = lib.pqt_merge_bytes_tile()
+    starts = torch.empty(max(n_rows, 1), dtype=torch.int64, device=dev)
+    block_sums = torch.empty(max((n_rows + tile - 1) // tile, 1), dtype=torch.int64, device=dev)
+    _launch(
+        "merge_mixed_bytes", dev, lib.pqt_merge_mixed_bytes,
+        _ptr(idx_all), idx_all.numel(), _bucket(max(idx_all.numel(), 1)),
+        _ptr(doff), doff.numel(), _bucket(doff.numel()),
+        _ptr(pool), pool.numel(),
+        _ptr(po32), po32.numel(), _bucket(po32.numel()),
+        _ptr(page_kind), _ptr(page_row_start), _ptr(page_aux), _ptr(page_src_base),
+        page_kind.numel(), n_rows, data_bytes,
+        _ptr(data), _ptr(offsets), _ptr(starts), _ptr(block_sums),
+    )
+    merge_mixed_bytes.launches += 1
+    return data, offsets
+
+
+merge_mixed_bytes.launches = 0
+
+
 # The kernels of the decode path, by name.
 KERNELS = {
     "expand_hybrid": expand_hybrid,
     "dict_gather": dict_gather,
     "delta_packed_decode": delta_packed_decode,
+    "bss_transpose": bss_transpose,
+    "merge_mixed_numeric": merge_mixed_numeric,
+    "merge_mixed_bytes": merge_mixed_bytes,
 }
 
 

@@ -15,9 +15,24 @@ upload buffers and decoded by the kernels in device_ops.py:
                   per-page tables -> ONE delta_packed_decode launch per batch.
   PLAIN numeric   the pages' raw little-endian values, one upload.
 
-Chunks that mix device-routable pages with host-decoded ones are demoted to
-host decode and one upload (_commit_routes), exactly as the JAX staged walk
-does, so DecodeStats counts the same pages for the same file.
+  BYTE_STREAM_SPLIT 4-byte pages ship their byte streams raw, one (4, n_pad)
+                  staging each -> one bss_transpose launch per page.
+  Mixed chunks    dict pages with a mid-chunk fall-back to PLAIN pages (a
+                  writer's dictionary passing its size limit): the dict
+                  batches expand as above and one merge launch joins them
+                  with the PLAIN upload in row order (merge_mixed_numeric;
+                  merge_mixed_bytes for byte arrays).
+
+Host prepare is the fused native walk (utils/native.chunk_prepare: one C
+call per chunk does header parse, decompress, level decode and prescan) and
+_plan_from_tables; a chunk the walk declines or aborts on takes the staged
+per-page Python walk, the error-semantics reference, which raises the exact
+typed error on a genuinely corrupt chunk (the fused -> staged -> raise
+ladder of the JAX pipeline). PQT_FUSED_PREPARE=0 forces the staged walk. The
+staged walk demotes chunks that mix device-routable pages with host-decoded
+ones to host decode and one upload (_commit_routes); the fused walk keeps
+the JAX routing exactly, so DecodeStats counts the same pages for the same
+file as TpuDecodeStats does on either walk.
 
 The decode of one chunk runs in two phases:
 
@@ -35,6 +50,9 @@ pads them, so the frozen upload buffers are byte-identical to its own.
 
 from __future__ import annotations
 
+import os
+import threading
+from collections import Counter
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -42,8 +60,14 @@ import numpy as np
 import torch
 
 from ..core.arrays import ByteArrayData
-from ..core.chunk import ChunkData, ChunkError, _check_crc, iter_chunk_pages
-from ..core.compress import decompress_block
+from ..core.chunk import (
+    ChunkData,
+    ChunkError,
+    _check_crc,
+    chunk_byte_range,
+    iter_chunk_pages,
+)
+from ..core.compress import decompress_block, is_builtin_codec
 from ..core.page import (
     MissingDictionaryError,
     PageError,
@@ -52,17 +76,22 @@ from ..core.page import (
     typed_page_errors,
 )
 from ..core.schema import Column
-from ..meta.parquet_types import Encoding, PageType, Type
+from ..meta.parquet_types import DictionaryPageHeader, Encoding, PageHeader, PageType, Type
 from ..ops.delta import decode_delta, prescan_delta_packed
 from ..ops.levels import decode_levels_v1, decode_levels_v2
-from ..ops.rle_hybrid import expand_runs, prescan_hybrid
+from ..ops.rle_hybrid import RunTable, expand_runs, prescan_hybrid
+from ..utils.native import PrepareFault, get_native
 from .device_ops import (
     MAX_DEVICE_BATCH_BITS,
+    _bucket,
+    bss_transpose,
     bytes_to_words32,
     bytes_to_words64,
     delta_packed_decode,
     dict_gather,
     expand_hybrid,
+    merge_mixed_bytes,
+    merge_mixed_numeric,
 )
 
 __all__ = [
@@ -72,25 +101,104 @@ __all__ = [
     "plan_chunk_device",
     "read_chunk_device",
     "to_device",
+    "prepare_counts",
+    "reset_prepare_counts",
 ]
 
 # Patchable in tests to force multi-batch splitting on small inputs.
 _BATCH_BITS_CAP = MAX_DEVICE_BATCH_BITS
 
 
-def _bucket(n: int, floor: int = 1024) -> int:
-    """Next power-of-two bucket >= n (>= floor)."""
-    b = floor
-    while b < n:
-        b <<= 1
-    return b
+def _page_merge_tables(page_infos, plain_entries):
+    """Padded per-page tables for the mixed-merge kernels: (page_kind,
+    page_row_start, aux, n_rows). `plain_entries(payload)` maps a 'values'
+    payload to (aux entries consumed, rows contributed)."""
+    kinds_t: list[int] = []
+    row_starts: list[int] = [0]
+    aux: list[int] = []
+    idx_base = plain_base = rowpos = 0
+    for _n, _d, _r, kind, payload in page_infos:
+        if kind == "dict":
+            kinds_t.append(1)
+            aux.append(idx_base)
+            idx_base += payload
+            rowpos += payload
+            row_starts.append(rowpos)
+        elif kind == "values":
+            adv, rows = plain_entries(payload)
+            kinds_t.append(0)
+            aux.append(plain_base)
+            plain_base += adv
+            rowpos += rows
+            row_starts.append(rowpos)
+    P = len(kinds_t)
+    P_pad = _bucket(max(P, 1), 16)
+    page_kind = np.zeros(P_pad, dtype=np.int32)
+    page_kind[:P] = kinds_t
+    prs = np.full(P_pad + 1, rowpos, dtype=np.int32)
+    prs[: P + 1] = row_starts
+    aux_np = np.zeros(P_pad, dtype=np.int32)
+    aux_np[:P] = aux
+    return page_kind, prs, aux_np, rowpos
+
+
+def _skewed_dict_bound(dictionary, dict_rows: int, plain_bytes: int):
+    """(byte bound, acceptable?) for the ragged byte merge: the output is
+    sized to the worst-case dictionary entry per row, so a skewed dictionary
+    (one huge entry) keeps the host fallback: 4x the expected size or 64 MB,
+    whichever is larger."""
+    dict_lens = np.diff(dictionary.offsets)
+    n_dict = len(dictionary.offsets) - 1
+    max_len = int(dict_lens.max()) if n_dict and dict_rows else 0
+    mean_len = float(dict_lens.mean()) if n_dict else 0.0
+    bound = plain_bytes + dict_rows * max_len
+    est = plain_bytes + int(dict_rows * mean_len) + 1
+    ok = bound < (1 << 31) and bound <= max(64 << 20, 4 * est)
+    return bound, ok
 
 
 def to_device(host: np.ndarray, device) -> torch.Tensor:
     """Copy a host array to `device` (a read-only buffer is copied on the
-    host first: torch refuses to alias one)."""
+    host first: torch refuses to alias one).
+
+    The copy is a pageable, blocking `.to(device)`: it has consumed `host`
+    when it returns, so the fused walk may hand its staging buffers back to
+    the per-thread pool (utils/native.release_buffers) right after. A later
+    pinned or non_blocking upload must not recycle a buffer before its
+    copy's event has completed."""
     host = np.require(host, requirements=["C", "W"])
     return torch.from_numpy(host).to(device)
+
+
+# -- prepare counters ------------------------------------------------------------
+#
+# Which walk each chunk took, and which device routes the plans used: the
+# counters the JAX package bumps through utils.trace (prepare_fused_engaged,
+# prepare_fused_declined, prepare_fused_fault_<stage>,
+# prepare_fallback_recovered, repack_engaged, repack_declined), plus the
+# port's route counts (route_bss, route_merge_numeric, route_merge_bytes,
+# route_host_merge: a mixed chunk merged on the host). Process-wide, like
+# device_ops launch counts: read with prepare_counts(), zero with
+# reset_prepare_counts().
+
+_COUNTS: Counter = Counter()
+_COUNTS_LOCK = threading.Lock()
+
+
+def _bump(name: str, n: int = 1) -> None:
+    with _COUNTS_LOCK:
+        _COUNTS[name] += n
+
+
+def prepare_counts() -> dict:
+    """A snapshot of the prepare and route counters."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
+
+
+def reset_prepare_counts() -> None:
+    with _COUNTS_LOCK:
+        _COUNTS.clear()
 
 
 class _FrozenHybrid(NamedTuple):
@@ -342,6 +450,10 @@ class _ChunkPlan:
         self.column = column
         self.expected = expected
         self.page_infos: list[tuple] = []  # (n, def, rep, kind, payload)
+        # whole-chunk level arrays from the native walk (page slices view
+        # them); when set, finalize/device_column skip the per-page concat
+        self.native_def: np.ndarray | None = None
+        self.native_rep: np.ndarray | None = None
         self.dictionary = None
         self.dict_dev: torch.Tensor | None = None
         self.dev_hybrid: list[torch.Tensor] = []  # per batch, page order
@@ -352,6 +464,10 @@ class _ChunkPlan:
         self.frozen_delta: list[_FrozenDelta] = []
         self.plain_host: np.ndarray | None = None
         self.dev_plain: torch.Tensor | None = None
+        # BYTE_STREAM_SPLIT pages shipped raw: [((4, n_pad) uint8 staging,
+        # num_values)], in the order of the "bss" page_infos
+        self.bss_host: list[tuple] = []
+        self.dev_bss: list[tuple] = []  # [(device streams, num_values)]
         self.device = None
         self._dispatched = False
 
@@ -375,6 +491,12 @@ class _ChunkPlan:
             self.dev_plain = _upload_typed(self.plain_host, self.device)
             self.plain_host = None
         stats = self.stats
+        for streams, nv in self.bss_host:
+            self.dev_bss.append((to_device(streams, self.device), nv))
+            if stats is not None:
+                stats.device_values += nv
+                stats.device_batches += 1
+        self.bss_host = []
         for frozen in self.frozen_hybrid:
             self.dev_hybrid.append(dispatch_hybrid(frozen, self.device))
             if stats is not None:
@@ -395,6 +517,22 @@ class _ChunkPlan:
         column = self.column
         hybrid_flat = _fetch(self.dev_hybrid, np.uint32)
         delta_flat = _fetch(self.dev_delta, None)
+        bss_pages = None
+        if self.dev_bss or self.bss_host:
+            # fetch the device transposes (dispatched), or transpose the
+            # staged streams on the host (a plan finalized undispatched)
+            np_dt = _NUMERIC_DTYPE.get(column.type)
+            if self.dev_bss:
+                bss_pages = [
+                    bss_transpose(d, nv).cpu().numpy().view(np_dt)
+                    for d, nv in self.dev_bss
+                ]
+            else:
+                bss_pages = [
+                    np.ascontiguousarray(st[:, :nv].T).view(np_dt).reshape(nv)
+                    for st, nv in self.bss_host
+                ]
+            bss_pages.reverse()  # pop from the front
         pages_values = []
         all_def: list[np.ndarray] = []
         all_rep: list[np.ndarray] = []
@@ -417,6 +555,8 @@ class _ChunkPlan:
                 if payload:
                     pages_values.append(delta_flat[dpos : dpos + payload])
                     dpos += payload
+            elif kind == "bss":
+                pages_values.append(bss_pages.pop())
             elif kind == "values":
                 pages_values.append(payload)
         if num_values_total != self.expected:
@@ -424,13 +564,24 @@ class _ChunkPlan:
                 f"chunk: pages hold {num_values_total} values, "
                 f"metadata says {self.expected}"
             )
+        def_levels, rep_levels = self._levels(all_def, all_rep)
         return ChunkData(
             column=column,
             num_values=num_values_total,
             values=_concat_values(pages_values, column),
-            def_levels=np.concatenate(all_def) if all_def else None,
-            rep_levels=np.concatenate(all_rep) if all_rep else None,
+            def_levels=def_levels,
+            rep_levels=rep_levels,
             dictionary=self.dictionary,
+        )
+
+    def _levels(self, all_def, all_rep):
+        """The chunk's (def, rep) levels: the native walk's whole-chunk
+        arrays, or the pages' arrays concatenated."""
+        if self.native_def is not None or self.native_rep is not None:
+            return self.native_def, self.native_rep
+        return (
+            np.concatenate(all_def) if all_def else None,
+            np.concatenate(all_rep) if all_rep else None,
         )
 
     # -- decode-to-device ------------------------------------------------------
@@ -445,12 +596,14 @@ class _ChunkPlan:
         column = self.column
         dev = self.device
         kinds = {k for _, _, _, k, _ in self.page_infos if k != "empty"}
-        all_def = [d for _, d, _, _, _ in self.page_infos if d is not None]
-        all_rep = [r for _, _, r, _, _ in self.page_infos if r is not None]
+        def_levels, rep_levels = self._levels(
+            [d for _, d, _, _, _ in self.page_infos if d is not None],
+            [r for _, _, r, _, _ in self.page_infos if r is not None],
+        )
         out = DeviceColumn(
             num_values=sum(n for n, *_ in self.page_infos),
-            def_levels=np.concatenate(all_def) if all_def else None,
-            rep_levels=np.concatenate(all_rep) if all_rep else None,
+            def_levels=def_levels,
+            rep_levels=rep_levels,
         )
 
         if (
@@ -478,6 +631,12 @@ class _ChunkPlan:
             )
             return out
 
+        if kinds <= {"bss", "empty"} and self.dev_bss:
+            parts = [bss_transpose(d, nv) for d, nv in self.dev_bss]
+            u = parts[0] if len(parts) == 1 else torch.cat(parts)
+            out.values = _device_view(u, column)
+            return out
+
         if "values" in kinds and kinds <= {"values", "empty"} and column.type in _NUMERIC_DTYPE:
             if self.dev_plain is not None:
                 out.values = self.dev_plain
@@ -487,11 +646,45 @@ class _ChunkPlan:
                 out.values = _upload_typed(host, dev)
             return out
 
-        # The JAX package's mixed dict/PLAIN device merges (numeric, DOUBLE
-        # excluded; and byte arrays) serve chunks that only its native fused
-        # walk leaves mixed: the staged walk demotes every mixed chunk in
-        # _commit_routes, so they land here, as they do there.
+        # Mixed dict+PLAIN numeric chunk (a writer's dictionary passing its
+        # size limit mid-chunk): dict pages keep their device expansion,
+        # PLAIN pages ride the raw upload, and one merge joins both in row
+        # order. Only the native walk leaves chunks mixed; the staged walk
+        # demotes them in _commit_routes.
+        if (
+            column.type in _NUMERIC_DTYPE
+            # DOUBLE excluded, as the JAX pipeline excludes it (written for
+            # its TPU x64 emulation, which cannot bitcast f64<->u64): mixed
+            # doubles take the host merge below. Lifting it would be a route
+            # the reference lacks.
+            and column.type != Type.DOUBLE
+            and kinds <= {"dict", "values", "empty"}
+            and "dict" in kinds
+            and self.dev_hybrid
+            and self.dict_dev is not None
+            and self.dev_plain is not None
+        ):
+            merged = merge_mixed_numeric(*self._merge_numeric_args())
+            out.values = _device_view(merged, column)
+            _bump("route_merge_numeric")
+            return out
+
+        # Mixed dict+PLAIN byte-array chunk: dict pages ship indices plus the
+        # dictionary, PLAIN pages their raw bytes, and one ragged merge
+        # materializes the (data, offsets) column on the device.
+        if (
+            kinds <= {"dict", "values", "empty"}
+            and "dict" in kinds
+            and self.dev_hybrid
+            and isinstance(self.dictionary, ByteArrayData)
+            and self._merge_ragged_bytes(out)
+        ):
+            _bump("route_merge_bytes")
+            return out
+
         # Mixed, unsupported, or fully empty shapes: host decode, then upload.
+        if "dict" in kinds and "values" in kinds:
+            _bump("route_host_merge")
         data = self.finalize()
         if isinstance(data.values, ByteArrayData):
             out.data = to_device(np.frombuffer(data.values.data, dtype=np.uint8), dev)
@@ -503,6 +696,99 @@ class _ChunkPlan:
     def _dev_indices(self) -> torch.Tensor:
         """All dispatched dict-index batches as one int32 device tensor."""
         return self.dev_hybrid[0] if len(self.dev_hybrid) == 1 else torch.cat(self.dev_hybrid)
+
+    def _merge_numeric_args(self) -> tuple:
+        """The arguments of merge_mixed_numeric for this dispatched mixed
+        chunk: indices, dictionary and PLAIN upload in the bit-pattern domain
+        (floats are viewed back once after the merge), and the page tables."""
+        dev = self.device
+        page_kind, prs, aux_np, n_rows = _page_merge_tables(
+            self.page_infos, lambda p: (len(p), len(p))
+        )
+        plain = self.dev_plain
+        if plain.is_floating_point():
+            plain = plain.view(torch.int32 if plain.element_size() == 4 else torch.int64)
+        return (
+            self._dev_indices(),
+            self.dict_dev,
+            plain,
+            to_device(page_kind, dev),
+            to_device(prs, dev),
+            to_device(aux_np, dev),
+            n_rows,
+        )
+
+    def _merge_ragged_bytes(self, out: DeviceColumn) -> bool:
+        """Device merge of a mixed dict/PLAIN byte-array chunk. Returns False
+        (leaving `out` untouched) when the shape is unsuitable."""
+        args = self._merge_bytes_args()
+        if args is None:
+            return False
+        out.data, out.offsets = merge_mixed_bytes(*args)
+        out.dictionary = self.dictionary
+        return True
+
+    def _merge_bytes_args(self) -> tuple | None:
+        """The arguments of merge_mixed_bytes for this dispatched mixed chunk,
+        or None when the shape is unsuitable: a skewed dictionary whose
+        worst-case bound would blow device memory, or PLAIN pages that did
+        not decode to ByteArrayData.
+
+        Only raw page bytes, int32 PLAIN offsets and per-page tables go up;
+        merge_mixed_bytes derives the rest on the device. `data` is sized to
+        the bound from _skewed_dict_bound, so nothing waits for the device;
+        the bytes past offsets[n_rows] are unspecified."""
+        d = self.dictionary
+        dev = self.device
+        dict_rows = plain_rows = plain_bytes = 0
+        for _n, _d, _r, kind, payload in self.page_infos:
+            if kind == "dict":
+                dict_rows += payload
+            elif kind == "values":
+                if not isinstance(payload, ByteArrayData):
+                    return None
+                plain_rows += len(payload.offsets) - 1
+                plain_bytes += len(payload.data)
+        bound, ok = _skewed_dict_bound(d, dict_rows, plain_bytes)
+        n_rows = dict_rows + plain_rows
+        if n_rows == 0 or not ok:
+            return None
+        if len(d.data) + plain_bytes >= (1 << 31):
+            return None  # int32 plain offsets would overflow
+        page_kind, prs, aux_np, _nr = _page_merge_tables(
+            self.page_infos, lambda p: (len(p.offsets), len(p.offsets) - 1)
+        )
+        P_pad = len(page_kind)
+        pools = [np.frombuffer(d.data, dtype=np.uint8)]
+        base = len(d.data)
+        po_parts: list[np.ndarray] = []
+        src_base: list[int] = []
+        for _n, _dl, _rl, kind, payload in self.page_infos:
+            if kind == "dict":
+                src_base.append(0)
+            elif kind == "values":
+                src_base.append(base)
+                po_parts.append(payload.offsets.astype(np.int32))
+                pools.append(np.frombuffer(payload.data, dtype=np.uint8))
+                base += len(payload.data)
+        srcb = np.zeros(P_pad, dtype=np.int64)
+        srcb[: len(src_base)] = src_base
+        po32 = np.concatenate(po_parts) if po_parts else np.zeros(2, dtype=np.int32)
+        pool = pools[0] if len(pools) == 1 else np.concatenate(pools)
+        if len(pool) == 0:
+            pool = np.zeros(1, dtype=np.uint8)
+        return (
+            self._dev_indices(),
+            to_device(np.asarray(d.offsets, dtype=np.int64), dev),
+            to_device(pool, dev),
+            to_device(po32, dev),
+            to_device(page_kind, dev),
+            to_device(prs, dev),
+            to_device(aux_np, dev),
+            to_device(srcb, dev),
+            n_rows,
+            bound,
+        )
 
 
 def _fetch(parts: list, view):
@@ -556,9 +842,614 @@ def prepare_chunk_plan(
     validate_crc: bool = False,
     stats: DecodeStats | None = None,
 ) -> _ChunkPlan:
-    """Host-only prepare: the per-page walk (decompress, level decode,
-    prescan), then batch building or demotion to host decode. Touches no
-    device; the returned plan goes to the device via plan.dispatch_device()."""
+    """Host-only prepare: page walk, decompress, level decode, prescan.
+
+    Touches no device; the returned plan goes to the device via
+    plan.dispatch_device(). The whole-chunk native walk handles the common
+    shapes in one C call; a chunk it declines takes the per-page Python walk
+    (the error-semantics reference). A chunk the native walk ABORTED on that
+    the staged walk then decodes cleanly counts as
+    prepare_fallback_recovered; a genuinely corrupt chunk raises the staged
+    walk's typed error."""
+    plan, fault = _native_prepare(f, chunk, column, validate_crc, stats)
+    if plan is not None:
+        return plan
+    plan = _staged_prepare(f, chunk, column, validate_crc, stats)
+    if fault is not None:
+        # the native walk aborted but the staged walk decoded cleanly
+        _bump("prepare_fallback_recovered")
+    return plan
+
+
+# Page-table column indices of the native whole-chunk walk (layout defined in
+# native/prepare.cc ptq_chunk_prepare).
+_PC_KIND, _PC_N, _PC_NONNULL, _PC_ENC, _PC_ROUTE = 0, 1, 2, 3, 4
+_PC_VOFF, _PC_VLEN, _PC_LVLBASE = 5, 6, 7
+_PC_RUNS, _PC_RUNE, _PC_PACKS, _PC_PACKE = 8, 9, 10, 11
+_PC_MINIS, _PC_MINIE, _PC_DSTART, _PC_DCONS = 12, 13, 14, 15
+_PC_EXTRA, _PC_DFIRST = 16, 17
+
+
+def _native_prepare(f, chunk, column, validate_crc, stats):
+    """Whole-chunk native prepare: ONE C call walks every page (header
+    parse, CRC verify when validate_crc, decompress, level decode, value
+    prescan) and returns packed tables; batch assembly is then a handful of
+    vectorized NumPy ops instead of a per-page Python loop.
+
+    Returns (plan, fault): a ready _ChunkPlan and None, or None and an
+    optional PrepareFault. fault is set when the native walk RAN and aborted
+    (corrupt/unsupported/capacity, with stage + page + byte offset); it is
+    None when the walk was never attempted (a registered codec override, an
+    unreadable chunk range). Either way the caller falls back to the staged
+    walk. PQT_FUSED_PREPARE=0 forces the staged walk (the differential-test
+    control), as it does in the JAX package."""
+    if os.environ.get("PQT_FUSED_PREPARE", "1") == "0":
+        return None, None  # forced staged path: not a decline, no counter
+    plan, fault = _native_prepare_impl(f, chunk, column, validate_crc, stats)
+    if plan is None:
+        _bump("prepare_fused_declined")
+        if fault is not None:
+            _bump(f"prepare_fused_fault_{fault.stage}")
+    else:
+        _bump("prepare_fused_engaged")
+    return plan, fault
+
+
+def _native_prepare_impl(f, chunk, column, validate_crc, stats):
+    md = chunk.meta_data
+    codec = int(md.codec or 0)
+    if codec not in (0, 1, 2, 5, 7) or not is_builtin_codec(codec):
+        return None, None
+    try:
+        offset, total = chunk_byte_range(chunk)
+    except ChunkError:
+        return None, None
+    f.seek(offset)
+    buf = f.read(total)
+    if len(buf) != total:
+        return None, None  # truncated: the staged walk raises the exact error
+    ptype = column.type
+    np_dt = _NUMERIC_DTYPE.get(ptype)
+    type_size = np.dtype(np_dt).itemsize if np_dt is not None else 0
+    delta_nbits = 32 if ptype == Type.INT32 else (64 if ptype == Type.INT64 else 0)
+    expected = int(md.num_values or 0)
+    if expected < 0:
+        return None, None
+    lib = get_native()  # a failed host build raises: no quiet decline
+    res = lib.chunk_prepare(
+        buf,
+        codec,
+        column.max_def,
+        column.max_rep,
+        type_size,
+        delta_nbits,
+        expected,
+        int(md.total_uncompressed_size or 0),
+        validate_crc=validate_crc,
+    )
+    if isinstance(res, PrepareFault):
+        return None, res
+    try:
+        plan = _plan_from_tables(column, expected, res, stats, np_dt, delta_nbits)
+    except (PageError, ChunkError):
+        raise
+    except Exception:
+        return None, None  # unexpected table shape: let the staged walk decide
+    return plan, None
+
+
+def _release(res, keep_values: bool) -> None:
+    """Hand the walk's staging buffers that no plan view escapes into back
+    to this thread's pool: `packed` and `delta` always, `values` unless the
+    plan keeps a view of it (a PLAIN upload buffer, or a decoded dictionary
+    page, which can alias it zero-copy)."""
+    names = ("packed", "delta") if keep_values else ("values", "packed", "delta")
+    get_native().release_buffers(res, names)
+
+
+def _plan_from_tables(column, expected, res, stats, np_dt, delta_nbits):
+    plan = _ChunkPlan(column, expected)
+    plan.stats = stats
+    pages = res["pages"].tolist()
+    values_buf = res["values"]
+    def_all = res["def"]
+    rep_all = res["rep"]
+    n_data = sum(1 for P in pages if P[_PC_KIND] == 0)
+    if stats is not None:
+        stats.pages += n_data
+    data_pages = []
+    for P in pages:
+        if P[_PC_KIND] == 1:  # dictionary page
+            header = PageHeader(
+                type=int(PageType.DICTIONARY_PAGE),
+                dictionary_page_header=DictionaryPageHeader(
+                    num_values=P[_PC_N], encoding=P[_PC_ENC]
+                ),
+            )
+            block = memoryview(values_buf)[P[_PC_VOFF] : P[_PC_VOFF] + P[_PC_VLEN]]
+            plan.dictionary = decode_dict_page(header, block, column)
+        elif P[_PC_KIND] == 0:
+            data_pages.append(P)
+    if column.max_def > 0 and data_pages:
+        plan.native_def = def_all
+    if column.max_rep > 0 and data_pages:
+        plan.native_rep = rep_all
+
+    def _levels(P):
+        base, n = P[_PC_LVLBASE], P[_PC_N]
+        dfl = def_all[base : base + n] if column.max_def > 0 else None
+        rep = rep_all[base : base + n] if column.max_rep > 0 else None
+        return dfl, rep
+
+    routes = {P[_PC_ROUTE] for P in data_pages if P[_PC_ROUTE] != 4}
+
+    if routes == {3} or not routes:  # PLAIN numeric (and/or empty pages)
+        first = None
+        nbytes = 0
+        for P in data_pages:
+            if P[_PC_ROUTE] == 4:
+                continue
+            if first is None:
+                first = P[_PC_VOFF]
+            nbytes += P[_PC_VLEN]
+        whole = None
+        if first is not None and np_dt is not None:
+            # routes wrote values_out sequentially: one zero-copy view is the
+            # whole chunk's upload buffer (no per-page concatenation)
+            whole = np.frombuffer(
+                values_buf, dtype=np_dt, count=nbytes // np.dtype(np_dt).itemsize,
+                offset=first,
+            )
+        repacked = (
+            whole is not None
+            and delta_nbits != 0
+            and _repack_plain_as_delta(plan, whole, delta_nbits)
+        )
+        for P in data_pages:
+            dfl, rep = _levels(P)
+            if P[_PC_ROUTE] == 4:
+                plan.page_infos.append((P[_PC_N], dfl, rep, "empty", None))
+            elif repacked:
+                plan.page_infos.append(
+                    (P[_PC_N], dfl, rep, "delta", P[_PC_NONNULL])
+                )
+            else:
+                vals = np.frombuffer(
+                    values_buf, dtype=np_dt, count=P[_PC_NONNULL],
+                    offset=P[_PC_VOFF],
+                )
+                plan.page_infos.append((P[_PC_N], dfl, rep, "values", vals))
+        if not repacked:
+            plan.plain_host = whole
+        _release(res, keep_values=not repacked or plan.dictionary is not None)
+        return plan
+
+    if routes == {5} and np_dt is not None:
+        # BYTE_STREAM_SPLIT 4-byte pages shipped RAW: each page's streams
+        # stage into a (4, bucket) array (4 contiguous copies: the host never
+        # strides byte by byte) and the device does the transpose
+        for P in data_pages:
+            dfl, rep = _levels(P)
+            if P[_PC_ROUTE] == 4:
+                plan.page_infos.append((P[_PC_N], dfl, rep, "empty", None))
+                continue
+            nv = P[_PC_NONNULL]
+            raw = np.frombuffer(
+                values_buf, dtype=np.uint8, count=P[_PC_VLEN], offset=P[_PC_VOFF]
+            )
+            staged = np.zeros((4, _bucket(max(nv, 1))), dtype=np.uint8)
+            staged[:, :nv] = raw.reshape(4, nv)
+            plan.bss_host.append((staged, nv))
+            plan.page_infos.append((P[_PC_N], dfl, rep, "bss", nv))
+        _bump("route_bss")
+        # the staging copied out of values
+        _release(res, keep_values=plan.dictionary is not None)
+        return plan
+
+    if routes == {1} or (
+        routes == {1, 3} and np_dt is not None and column.type != Type.DOUBLE
+        # DOUBLE mixed chunks take the host merge (kept from the JAX
+        # pipeline: its device merge excludes DOUBLE); freezing their batches
+        # would only upload indices that finalize() fetches back: demote
+    ):
+        # Dictionary-encoded chunk, possibly with a mid-chunk fall-back to
+        # PLAIN pages: dict pages build device run batches, PLAIN pages ride
+        # the contiguous raw upload, and device_column merges in page order.
+        frozen = _freeze_hybrid_from_tables(data_pages, res)
+        if frozen is not None:
+            plan.frozen_hybrid = frozen
+            first = None
+            nbytes = 0
+            for P in data_pages:
+                dfl, rep = _levels(P)
+                if P[_PC_ROUTE] == 4:
+                    plan.page_infos.append((P[_PC_N], dfl, rep, "empty", None))
+                elif P[_PC_ROUTE] == 3:
+                    vals = np.frombuffer(
+                        values_buf, dtype=np_dt, count=P[_PC_NONNULL],
+                        offset=P[_PC_VOFF],
+                    )
+                    plan.page_infos.append((P[_PC_N], dfl, rep, "values", vals))
+                    if first is None:
+                        first = P[_PC_VOFF]
+                    nbytes += P[_PC_VLEN]
+                else:
+                    plan.page_infos.append(
+                        (P[_PC_N], dfl, rep, "dict", P[_PC_NONNULL])
+                    )
+            if first is not None:
+                plan.plain_host = np.frombuffer(
+                    values_buf, dtype=np_dt,
+                    count=nbytes // np.dtype(np_dt).itemsize, offset=first,
+                )
+            return plan
+        # oversized page: fall through to the demote path below
+
+    if routes == {2} and all(
+        P[_PC_DCONS] * 8 <= _BATCH_BITS_CAP
+        for P in data_pages
+        if P[_PC_ROUTE] == 2
+    ):  # delta-bp chunk (an oversized page demotes the whole chunk, as below)
+        frozen = _freeze_delta_from_tables(data_pages, res, delta_nbits)
+        if frozen is not None:
+            plan.frozen_delta = frozen
+            for P in data_pages:
+                dfl, rep = _levels(P)
+                if P[_PC_ROUTE] == 4:
+                    plan.page_infos.append((P[_PC_N], dfl, rep, "empty", None))
+                else:
+                    plan.page_infos.append(
+                        (P[_PC_N], dfl, rep, "delta", P[_PC_EXTRA])
+                    )
+            return plan
+
+    if (
+        column.type == Type.BYTE_ARRAY
+        and routes <= {0, 1}
+        and 1 in routes
+        and all(
+            P[_PC_ENC] == int(Encoding.PLAIN)
+            for P in data_pages
+            if P[_PC_ROUTE] == 0
+        )
+        and plan.dictionary is not None
+        and _skewed_dict_bound(
+            plan.dictionary,
+            sum(P[_PC_NONNULL] for P in data_pages if P[_PC_ROUTE] == 1),
+            # PLAIN stream length bounds the page's data bytes; close enough
+            # for the skew gate (the merge re-checks exactly)
+            sum(P[_PC_VLEN] for P in data_pages if P[_PC_ROUTE] == 0),
+        )[1]
+    ):
+        # Dict pages with a mid-chunk PLAIN byte-array fallback: dict index
+        # batches stay device-bound; PLAIN pages decode their offsets on the
+        # host and device_column's ragged merge joins both in row order.
+        frozen = _freeze_hybrid_from_tables(data_pages, res)
+        if frozen is not None:
+            plan.frozen_hybrid = frozen
+            dict_size = (
+                len(plan.dictionary) if plan.dictionary is not None else None
+            )
+            for P in data_pages:
+                dfl, rep = _levels(P)
+                if P[_PC_ROUTE] == 4:
+                    plan.page_infos.append((P[_PC_N], dfl, rep, "empty", None))
+                elif P[_PC_ROUTE] == 1:
+                    plan.page_infos.append(
+                        (P[_PC_N], dfl, rep, "dict", P[_PC_NONNULL])
+                    )
+                else:
+                    stream = memoryview(values_buf)[
+                        P[_PC_VOFF] : P[_PC_VOFF] + P[_PC_VLEN]
+                    ]
+                    values, _idx = _decode_values(
+                        stream, P[_PC_NONNULL], P[_PC_ENC], column, dict_size
+                    )
+                    plan.page_infos.append((P[_PC_N], dfl, rep, "values", values))
+                    if stats is not None:
+                        stats.host_fallback_pages += 1
+            return plan
+
+    # Mixed-route chunk (or an oversized device page): host-decode in place,
+    # the policy of _commit_routes: device decode only pays when the whole
+    # chunk stays on the device.
+    if 1 in routes and len(routes) > 1:
+        _bump("route_host_merge")
+    dict_size = len(plan.dictionary) if plan.dictionary is not None else None
+    for P in data_pages:
+        dfl, rep = _levels(P)
+        route = P[_PC_ROUTE]
+        if route == 4:
+            plan.page_infos.append((P[_PC_N], dfl, rep, "empty", None))
+            continue
+        if route == 1:
+            idx = _expand_dict_from_tables(P, res)
+            plan.page_infos.append((P[_PC_N], dfl, rep, "indices", idx))
+            if stats is not None:
+                stats.host_fallback_pages += 1
+        elif route == 2:
+            stream = res["delta_stream"][
+                P[_PC_DSTART] : P[_PC_DSTART] + P[_PC_DCONS]
+            ]
+            vals, _ = decode_delta(
+                memoryview(stream), delta_nbits, max_total=P[_PC_NONNULL]
+            )
+            plan.page_infos.append(
+                (P[_PC_N], dfl, rep, "values", vals[: P[_PC_NONNULL]])
+            )
+            if stats is not None:
+                stats.host_fallback_pages += 1
+        elif route == 3:
+            vals = np.frombuffer(
+                values_buf, dtype=np_dt, count=P[_PC_NONNULL], offset=P[_PC_VOFF]
+            )
+            plan.page_infos.append((P[_PC_N], dfl, rep, "values", vals))
+        elif route == 5:
+            # raw BSS page in a mixed chunk: de-interleave on the host
+            nv = P[_PC_NONNULL]
+            raw = np.frombuffer(
+                values_buf, dtype=np.uint8, count=P[_PC_VLEN], offset=P[_PC_VOFF]
+            )
+            vals = (
+                np.ascontiguousarray(raw.reshape(4, nv).T)
+                .view(np_dt)
+                .reshape(nv)
+            )
+            plan.page_infos.append((P[_PC_N], dfl, rep, "values", vals))
+        else:  # route 0: host decoder on the raw stream
+            stream = memoryview(values_buf)[P[_PC_VOFF] : P[_PC_VOFF] + P[_PC_VLEN]]
+            values, indices = _decode_values(
+                stream, P[_PC_NONNULL], P[_PC_ENC], column, dict_size
+            )
+            if indices is not None:
+                plan.page_infos.append((P[_PC_N], dfl, rep, "indices", indices))
+            else:
+                plan.page_infos.append((P[_PC_N], dfl, rep, "values", values))
+            if stats is not None:
+                stats.host_fallback_pages += 1
+    kinds_after = {k for _, _, _, k, _ in plan.page_infos}
+    kinds_after.discard("empty")
+    if kinds_after == {"values"} and column.type in _NUMERIC_DTYPE:
+        parts = [p for _, _, _, k, p in plan.page_infos if k == "values"]
+        if parts:
+            plan.plain_host = parts[0] if len(parts) == 1 else np.concatenate(parts)
+    return plan
+
+
+def _freeze_hybrid_from_tables(data_pages, res) -> list | None:
+    """Vectorized _HybridBatch.freeze over the native walk's global run
+    tables. Pages group sequentially per index width under the bit cap (the
+    policy of _commit_routes); returns None when a single page exceeds the
+    cap (demote-all, matching the staged walk)."""
+    cap = _BATCH_BITS_CAP
+    groups: list[list] = []  # [width, rs, re, ps, pe, bits]
+    cur = None
+    for P in data_pages:
+        if P[_PC_ROUTE] != 1:
+            continue
+        width = P[_PC_EXTRA]
+        bits = (P[_PC_PACKE] - P[_PC_PACKS]) * 8
+        if bits > cap:
+            return None
+        if cur is None or cur[0] != width or cur[5] + bits > cap:
+            cur = [width, P[_PC_RUNS], P[_PC_RUNE], P[_PC_PACKS], P[_PC_PACKE], bits]
+            groups.append(cur)
+        else:
+            cur[2] = P[_PC_RUNE]
+            cur[4] = P[_PC_PACKE]
+            cur[5] += bits
+    frozen = []
+    h_counts = res["h_counts"]
+    h_is_rle = res["h_is_rle"]
+    h_values = res["h_values"]
+    h_byteoff = res["h_byteoff"]
+    packed_all = res["packed"]
+    for width, rs, re, ps, pe, _bits in groups:
+        counts = h_counts[rs:re]
+        k = len(counts)
+        total = int(counts.sum())
+        n_pad = _bucket(max(total, 1))
+        run_pad = _bucket(k, 64)
+        words = bytes_to_words32(bytes(packed_all[ps:pe]))
+        w_pad = _bucket(len(words), 1024)
+        buf = np.zeros(4 * run_pad + w_pad, dtype=np.uint32)
+        buf[run_pad : 2 * run_pad] = np.int32(n_pad + 1).view(np.uint32)  # sentinel
+        buf[:k] = h_is_rle[rs:re]
+        out_start = np.zeros(k, dtype=np.int64)
+        np.cumsum(counts[:-1], out=out_start[1:])
+        buf[run_pad : run_pad + k] = out_start.astype(np.int32).view(np.uint32)
+        buf[2 * run_pad : 2 * run_pad + k] = h_values[rs:re].astype(np.uint32)
+        buf[3 * run_pad : 3 * run_pad + k] = (
+            ((h_byteoff[rs:re] - ps) * 8).astype(np.int32).view(np.uint32)
+        )
+        buf[4 * run_pad : 4 * run_pad + len(words)] = words
+        frozen.append(_FrozenHybrid(buf, width, n_pad, run_pad, total))
+    return frozen
+
+
+def _repack_plain_as_delta(plan: _ChunkPlan, whole: np.ndarray, nbits: int) -> bool:
+    """Transfer-side re-encoding of a PLAIN int chunk: the host deltas and
+    bit-packs the values (native DELTA_BINARY_PACKED encoder) and the device
+    delta kernel rebuilds them bit-exactly, so the upload carries the
+    column's entropy, not its width (ids, timestamps, counters shrink
+    10-50x). Chunks that sample as incompressible ship raw (returns False,
+    the caller keeps the PLAIN upload). One whole-chunk stream, not one per
+    page."""
+    n = len(whole)
+    raw_bytes = n * whole.dtype.itemsize
+    if n < 1 << 16 or raw_bytes < 1 << 19:
+        return False  # small chunk: upload latency, not bandwidth, dominates
+    lib = get_native()
+    # profitability estimate from 4 contiguous sample windows: max zigzag
+    # delta width ~ the packed width the encoder will pick
+    est_bits = 0
+    win = 1024
+    for lo in (0, n // 3, (2 * n) // 3, n - win):
+        w = whole[max(lo, 0) : max(lo, 0) + win]
+        if len(w) < 2:
+            continue
+        d = np.diff(w.astype(np.int64, copy=False))
+        if len(d):
+            zz = int(np.abs(d).max()) << 1
+            est_bits = max(est_bits, zz.bit_length())
+    if est_bits * n >= 4 * raw_bytes:  # est packed size >= raw/2: not worth it
+        _bump("repack_declined")
+        return False
+    try:
+        stream = lib.delta_encode(whole, nbits, 1024, 4)
+    except (ValueError, OverflowError):
+        _bump("repack_declined")
+        return False
+    if len(stream) * 8 > _BATCH_BITS_CAP or len(stream) * 2 > raw_bytes:
+        # sampled estimate missed: ship raw rather than inflate
+        _bump("repack_declined")
+        return False
+    try:
+        widths, byte_starts, out_starts, mins, first, total, consumed = (
+            lib.prescan_delta_packed(stream, nbits, n)
+        )
+    except (ValueError, OverflowError):
+        _bump("repack_declined")
+        return False
+    if int(total) != n:
+        _bump("repack_declined")
+        return False
+    first_u = int(first) & ((1 << 64) - 1)
+    first_i64 = first_u - (1 << 64) if first_u >= 1 << 63 else first_u
+    P2 = [0] * 18
+    P2[_PC_ROUTE] = 2
+    P2[_PC_EXTRA] = n
+    P2[_PC_DCONS] = int(consumed)
+    P2[_PC_MINIS] = 0
+    P2[_PC_MINIE] = len(widths)
+    P2[_PC_DSTART] = 0
+    P2[_PC_DFIRST] = first_i64
+    res2 = {
+        "d_widths": np.asarray(widths, dtype=np.uint32),
+        "d_bytestart": np.asarray(byte_starts, dtype=np.int64),
+        "d_outstart": np.asarray(out_starts, dtype=np.int32),
+        "d_mins": np.asarray(mins, dtype=np.uint64),
+        "delta_stream": np.frombuffer(stream, dtype=np.uint8),
+    }
+    plan.frozen_delta = _freeze_delta_from_tables([P2], res2, nbits)
+    if plan.frozen_delta:
+        _bump("repack_engaged")
+    return bool(plan.frozen_delta)
+
+
+def _freeze_delta_from_tables(data_pages, res, nbits: int) -> list:
+    """Vectorized _DeltaBatch.freeze over the native walk's global miniblock
+    tables (pages group sequentially under the bit cap)."""
+    cap = _BATCH_BITS_CAP
+    groups: list[list] = []  # [pages, ms, me, lo, hi, bits]
+    cur = None
+    for P in data_pages:
+        if P[_PC_ROUTE] != 2 or P[_PC_EXTRA] == 0:
+            continue  # empty streams contribute nothing (add_page parity)
+        bits = P[_PC_DCONS] * 8
+        if cur is None or cur[5] + bits > cap:
+            cur = [[P], P[_PC_MINIS], P[_PC_MINIE], P[_PC_DSTART],
+                   P[_PC_DSTART] + P[_PC_DCONS], bits]
+            groups.append(cur)
+        else:
+            cur[0].append(P)
+            cur[2] = P[_PC_MINIE]
+            cur[4] = P[_PC_DSTART] + P[_PC_DCONS]
+            cur[5] += bits
+    frozen = []
+    ud = np.uint32 if nbits == 32 else np.uint64
+    d_widths = res["d_widths"]
+    d_bytestart = res["d_bytestart"]
+    d_outstart = res["d_outstart"]
+    d_mins = res["d_mins"]
+    stream_all = res["delta_stream"]
+    for plist, ms, me, lo, hi, _bits in groups:
+        totals = np.array([P[_PC_EXTRA] for P in plist], dtype=np.int64)
+        bases = np.zeros(len(plist), dtype=np.int64)
+        np.cumsum(totals[:-1], out=bases[1:])
+        total = int(totals.sum())
+        minis_per_page = np.array(
+            [P[_PC_MINIE] - P[_PC_MINIS] for P in plist], dtype=np.int64
+        )
+        m = me - ms
+        n_pad = _bucket(total)
+        m_pad = _bucket(max(m, 1), 64)
+        p = len(plist)
+        p_pad = _bucket(p, 64)
+        sentinel = np.int32(n_pad + 1).view(np.uint32)
+        stream = bytes(stream_all[lo:hi])
+        words = bytes_to_words32(stream) if nbits == 32 else bytes_to_words64(stream)
+        w_pad = _bucket(len(words), 1024)
+        tail32 = (2 * m_pad + 2 * p_pad + w_pad) if nbits == 32 else 0
+        meta32 = np.zeros(3 * m_pad + p_pad + tail32, dtype=np.uint32)
+        meta32[2 * m_pad : 3 * m_pad] = sentinel
+        meta32[3 * m_pad : 3 * m_pad + p_pad] = sentinel
+        out_starts = d_outstart[ms:me].astype(np.int64) + np.repeat(
+            bases + 1, minis_per_page
+        )
+        if m:
+            meta32[:m] = d_widths[ms:me]
+            meta32[m_pad : m_pad + m] = (
+                ((d_bytestart[ms:me] - lo) * 8).astype(np.int32).view(np.uint32)
+            )
+            meta32[2 * m_pad : 2 * m_pad + m] = (
+                out_starts.astype(np.int32).view(np.uint32)
+            )
+        meta32[3 * m_pad : 3 * m_pad + p] = bases.astype(np.int32).view(np.uint32)
+        firsts = np.array([P[_PC_DFIRST] for P in plist], dtype=np.int64).view(
+            np.uint64
+        )
+        if nbits == 32:
+            base = 3 * m_pad + p_pad
+            if m:
+                meta32[base : base + m] = d_mins[ms:me].astype(ud)
+            meta32[base + m_pad : base + m_pad + p] = firsts.astype(ud)
+            meta32[base + m_pad + p_pad : base + m_pad + p_pad + len(words)] = words
+            wide = np.zeros(0, dtype=np.uint32)
+        else:
+            wide = np.zeros(m_pad + p_pad + w_pad, dtype=np.uint64)
+            if m:
+                wide[:m] = d_mins[ms:me]
+            wide[m_pad : m_pad + p] = firsts
+            wide[m_pad + p_pad : m_pad + p_pad + len(words)] = words
+        frozen.append(_FrozenDelta(meta32, wide, nbits, n_pad, m_pad, p_pad, total))
+    return frozen
+
+
+def _expand_dict_from_tables(P, res) -> np.ndarray:
+    """Host expansion of one dict page straight from the global run tables
+    (mirrors _host_decode_dict_page without re-prescanning the stream)."""
+    rs, re, ps = P[_PC_RUNS], P[_PC_RUNE], P[_PC_PACKS]
+    width = P[_PC_EXTRA]
+    is_rle = res["h_is_rle"][rs:re].astype(bool)
+    counts = res["h_counts"][rs:re]
+    if len(counts) and not is_rle[-1] and width > 0:
+        # the native walk clamps the final run's count to the page's value
+        # count; expand_runs wants the FULL bit-packed count (its dense-unpack
+        # math needs multiples of 8) and clamps itself
+        counts = counts.copy()
+        counts[-1] = ((P[_PC_PACKE] - int(res["h_byteoff"][re - 1])) // width) * 8
+    table = RunTable(
+        is_rle=is_rle,
+        counts=counts,
+        rle_values=res["h_values"][rs:re],
+        bp_offsets=res["h_byteoff"][rs:re] - ps,
+        packed=bytes(res["packed"][ps : P[_PC_PACKE]]),
+        consumed=0,
+    )
+    return expand_runs(table, P[_PC_NONNULL], width, np.uint32)
+
+
+def _staged_prepare(
+    f,
+    chunk,
+    column: Column,
+    validate_crc: bool = False,
+    stats: DecodeStats | None = None,
+) -> _ChunkPlan:
+    """The per-page Python prepare walk (the error-semantics reference):
+    decompress, level decode, prescan, then batch building or demotion to
+    host decode."""
     md = chunk.meta_data
     codec = md.codec or 0
     expected = md.num_values or 0

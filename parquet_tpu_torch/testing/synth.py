@@ -13,9 +13,15 @@ the JAX package is installed.
 
 Dictionary-encoded columns take their dictionary and the per-row indices
 (`dictionary=`, `indices=`) instead of `values`; every row group's
-dictionary page holds the whole dictionary. An OPTIONAL column takes a
-`valid` mask over all rows, and `values`/`indices` hold the non-null cells
-only.
+dictionary page holds the whole dictionary. With `dict_fallback_bytes=`, a
+column is written as pyarrow writes one under its dictionary_pagesize_limit:
+each chunk's dictionary holds the entries in the order the chunk first uses
+them, and once adding the next new entry would take the dictionary page's
+PLAIN size past the limit, the chunk's remaining rows go out as PLAIN pages
+(a mixed dict/PLAIN chunk). An OPTIONAL column takes a `valid` mask over all
+rows, and `values`/`indices` hold the non-null cells only. Any codec the
+port registers can be named (SNAPPY and LZ4 through the port's host
+library), and BYTE_STREAM_SPLIT serves FLOAT, DOUBLE, INT32 and INT64.
 """
 
 from __future__ import annotations
@@ -60,6 +66,9 @@ class ColumnSpec:
     dictionary: object = None  # ndarray | ByteArrayData (dictionary encodings)
     indices: np.ndarray | None = None  # int32 (non-null cells)
     utf8: bool = False  # BYTE_ARRAY annotated as a UTF-8 string
+    # PLAIN size at which a chunk's dictionary stops growing and the rest of
+    # the chunk falls back to PLAIN pages (pyarrow's dictionary_pagesize_limit)
+    dict_fallback_bytes: int | None = None
 
     @property
     def dict_encoded(self) -> bool:
@@ -124,13 +133,52 @@ def _rows_per_page(spec, column, cell_prefix, page_bytes: int, rg_rows: int) -> 
     return max(8, min(rg_rows, int(page_bytes * sample / max(nbytes, 1))))
 
 
-def _encode_values_only(spec, column, cells) -> bytes:
-    dict_size = len(spec.dictionary) if spec.dict_encoded else None
+def _encode_values_only(spec, column, cells, encoding=None) -> bytes:
+    encoding = spec.encoding if encoding is None else encoding
+    dict_size = len(spec.dictionary) if Encoding(encoding) in _DICT else None
     _h, block = encode_data_page_v1(
-        _required(column), cells, None, None, spec.encoding,
+        _required(column), cells, None, None, encoding,
         CompressionCodec.UNCOMPRESSED, dict_size,
     )
     return block
+
+
+def _plain_rows_per_page(spec, column, page_bytes: int, rg_rows: int) -> int:
+    """Rows per PLAIN fallback page, as _rows_per_page measures it."""
+    sample = min(rg_rows, len(spec.indices), 1 << 16)
+    if sample == 0:
+        return rg_rows
+    cells = _take(spec.dictionary, spec.indices[:sample])
+    nbytes = len(_encode_values_only(spec, column, cells, Encoding.PLAIN))
+    return max(8, min(rg_rows, int(page_bytes * sample / max(nbytes, 1))))
+
+
+def _take(dictionary, idx):
+    if isinstance(dictionary, ByteArrayData):
+        return dictionary.take(np.asarray(idx, dtype=np.int64))
+    return np.asarray(dictionary)[idx]
+
+
+def _entry_bytes(dictionary, keys: np.ndarray) -> np.ndarray:
+    """PLAIN-encoded size of each dictionary entry in `keys`."""
+    if isinstance(dictionary, ByteArrayData):
+        lens = np.diff(dictionary.offsets)
+        return lens[keys] + 4
+    return np.full(len(keys), np.asarray(dictionary).dtype.itemsize, dtype=np.int64)
+
+
+def _fallback_split(spec, cells: np.ndarray):
+    """(chunk dictionary, remapped dict-page indices, count of dict-encoded
+    cells) for a chunk whose dictionary passes spec.dict_fallback_bytes."""
+    uniq, first = np.unique(cells, return_index=True)
+    order = np.argsort(first, kind="stable")
+    uniq, first = uniq[order], first[order]
+    size = np.cumsum(_entry_bytes(spec.dictionary, uniq))
+    k = int(np.searchsorted(size, spec.dict_fallback_bytes, side="right"))
+    n_dict_cells = int(first[k]) if k < len(uniq) else len(cells)
+    remap = np.zeros(int(uniq.max()) + 1 if len(uniq) else 1, dtype=np.int32)
+    remap[uniq[:k]] = np.arange(k, dtype=np.int32)
+    return _take(spec.dictionary, uniq[:k]), remap[cells[:n_dict_cells]], n_dict_cells
 
 
 def _required(column):
@@ -153,6 +201,9 @@ def write_file(
     num_rows = specs[0].num_rows()
     if any(s.num_rows() != num_rows for s in specs):
         raise ValueError("synth: columns have different row counts")
+    for s in specs:
+        if s.dict_fallback_bytes is not None and not s.dict_encoded:
+            raise ValueError(f"synth: {s.name}: dict_fallback_bytes needs a dictionary encoding")
     schema = _schema(specs)
     out = open(dest, "wb") if isinstance(dest, (str, Path)) else dest
     try:
@@ -168,7 +219,12 @@ def write_file(
                 np.cumsum(s.valid, out=p[1:])
                 prefixes.append(p)
         page_rows = [
-            _rows_per_page(s, schema.column((s.name,)), pre, page_bytes, row_group_rows)
+            (
+                _rows_per_page(s, schema.column((s.name,)), pre, page_bytes, row_group_rows),
+                _plain_rows_per_page(s, schema.column((s.name,)), page_bytes, row_group_rows)
+                if s.dict_fallback_bytes is not None
+                else None,
+            )
             for s, pre in zip(specs, prefixes)
         ]
         row_groups = []
@@ -176,9 +232,9 @@ def write_file(
             r1 = min(num_rows, r0 + row_group_rows)
             chunks = []
             total = 0
-            for s, pre, step in zip(specs, prefixes, page_rows):
+            for s, pre, steps in zip(specs, prefixes, page_rows):
                 column = schema.column((s.name,))
-                cc, nbytes = _write_chunk(out, pos, s, column, pre, r0, r1, step)
+                cc, nbytes = _write_chunk(out, pos, s, column, pre, r0, r1, steps)
                 pos += nbytes
                 total += cc.meta_data.total_uncompressed_size
                 chunks.append(cc)
@@ -199,33 +255,56 @@ def write_file(
     return meta
 
 
-def _write_chunk(out, pos, spec, column, prefix, r0, r1, step):
+def _write_chunk(out, pos, spec, column, prefix, r0, r1, steps):
     """Write one column chunk at file position `pos`: (ColumnChunk, bytes)."""
+    step, plain_step = steps
     buf = io.BytesIO()
     uncompressed = 0
     dict_offset = None
     encodings = {int(Encoding.RLE)} if spec.valid is not None else set()
     dict_size = None
+    dictionary = spec.dictionary
+    cells = spec.cells()
+    lo, hi = int(prefix[r0]), int(prefix[r1])
+    # rows [r0, fb_row) are dict-encoded; [fb_row, r1) PLAIN
+    fb_row = r1
+    if spec.dict_encoded and spec.dict_fallback_bytes is not None:
+        dictionary, dict_cells, n_dict = _fallback_split(spec, spec.indices[lo:hi])
+        if n_dict < hi - lo:
+            fb_row = r0 + int(np.searchsorted(prefix[r0 : r1 + 1], lo + n_dict, side="left"))
+        cells, lo = dict_cells, 0
     if spec.dict_encoded:
-        header, block = encode_dict_page(column, spec.dictionary, int(spec.codec))
+        header, block = encode_dict_page(column, dictionary, int(spec.codec))
         hbytes = header.dumps()
         dict_offset = pos
         buf.write(hbytes)
         buf.write(block)
         uncompressed += len(hbytes) + header.uncompressed_page_size
         encodings.add(int(Encoding.PLAIN))
-        dict_size = len(spec.dictionary)
+        dict_size = len(dictionary)
     encodings.add(int(spec.encoding))
     data_offset = pos + buf.tell()
     encode = encode_data_page_v1 if spec.page_version == 1 else encode_data_page_v2
-    for p0 in range(r0, r1, step):
-        p1 = min(r1, p0 + step)
-        cells = _slice(spec.cells(), int(prefix[p0]), int(prefix[p1]))
+    pages = [(p0, min(fb_row, p0 + step), spec.encoding) for p0 in range(r0, fb_row, step)]
+    if fb_row < r1:
+        encodings.add(int(Encoding.PLAIN))
+        pages += [
+            (p0, min(r1, p0 + plain_step), Encoding.PLAIN)
+            for p0 in range(fb_row, r1, plain_step)
+        ]
+    base = int(prefix[r0])
+    for p0, p1, enc in pages:
+        c0, c1 = int(prefix[p0]) - base, int(prefix[p1]) - base
+        if enc == spec.encoding:
+            page_cells = _slice(cells, lo + c0, lo + c1)
+        else:  # PLAIN fallback: the cells' values
+            page_cells = _take(spec.dictionary, spec.indices[base + c0 : base + c1])
         dfl = (
             spec.valid[p0:p1].astype(np.uint16) if spec.valid is not None else None
         )
         header, block = encode(
-            column, cells, dfl, None, spec.encoding, int(spec.codec), dict_size
+            column, page_cells, dfl, None, enc, int(spec.codec),
+            dict_size if enc == spec.encoding else None,
         )
         hbytes = header.dumps()
         buf.write(hbytes)

@@ -152,6 +152,20 @@ def _cpu_calls():
             torch.from_numpy(fd.wide.view(np.int64)),
             64, fd.m_pad, fd.p_pad, fd.total,
         ),
+        "bss_transpose": (torch.arange(4 * 1024, dtype=torch.int64).to(torch.uint8).view(4, 1024), 7),
+        "merge_mixed_numeric": (
+            torch.tensor([2, 0, 1], dtype=torch.int32), torch.tensor([10, 20, 30], dtype=torch.int64),
+            torch.tensor([7, 8], dtype=torch.int64), torch.tensor([1, 0, 0, 0], dtype=torch.int32),
+            torch.tensor([0, 3, 5, 5, 5], dtype=torch.int32), torch.tensor([0, 0, 0, 0], dtype=torch.int32),
+            5,
+        ),
+        "merge_mixed_bytes": (
+            torch.tensor([1, 0], dtype=torch.int32), torch.tensor([0, 2, 5], dtype=torch.int64),
+            torch.frombuffer(bytearray(b"abcdeXYZ"), dtype=torch.uint8),
+            torch.tensor([0, 1, 3], dtype=torch.int32), torch.tensor([1, 0], dtype=torch.int32),
+            torch.tensor([0, 2, 4], dtype=torch.int32), torch.tensor([0, 0], dtype=torch.int32),
+            torch.tensor([0, 5], dtype=torch.int64), 4, 16,
+        ),
     }
 
 
@@ -162,8 +176,10 @@ def test_wrapper_takes_plain_version_for_cpu_tensors(name):
     before = fn.launches
     out = fn(*args)
     plain = getattr(ops, name + "_plain")(*args)
-    assert out.device.type == "cpu"
-    assert torch.equal(out, plain)
+    outs = out if isinstance(out, tuple) else (out,)
+    plains = plain if isinstance(plain, tuple) else (plain,)
+    assert all(o.device.type == "cpu" for o in outs)
+    assert len(outs) == len(plains) and all(map(torch.equal, outs, plains))
     assert fn.launches == before  # no kernel launched, so no count
 
 
@@ -215,5 +231,7 @@ def test_build_key_tracks_sources(tmp_path):
     assert build._key([a]) != k1
     assert sorted(build.SIGNATURES) == sorted(
         ["pqt_expand_hybrid", "pqt_dict_gather4", "pqt_dict_gather8",
-         "pqt_delta_tile", "pqt_delta_packed_decode"]
+         "pqt_delta_tile", "pqt_delta_packed_decode", "pqt_bss_transpose",
+         "pqt_merge_mixed_numeric4", "pqt_merge_mixed_numeric8",
+         "pqt_merge_bytes_tile", "pqt_merge_mixed_bytes"]
     )

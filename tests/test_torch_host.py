@@ -30,6 +30,7 @@ from parquet_tpu_torch.core.arrays import ByteArrayData  # noqa: E402
 from parquet_tpu_torch.core.compress import CompressionError  # noqa: E402
 from parquet_tpu_torch.core.schema import Schema  # noqa: E402
 from parquet_tpu_torch.meta.file_meta import read_file_metadata as t_read_meta  # noqa: E402
+from parquet_tpu_torch.meta.parquet_types import CompressionCodec  # noqa: E402
 from parquet_tpu_torch.ops import delta as tdelta  # noqa: E402
 from parquet_tpu_torch.ops import rle_hybrid as thybrid  # noqa: E402
 
@@ -194,11 +195,47 @@ def test_host_read_chunk_matches(tmp_path):
     assert n > 40
 
 
+class _Zstd:
+    """A ZSTD codec over the zstandard module, registered by tests only (the
+    port builds in no ZSTD)."""
+
+    name = "ZSTD"
+
+    def __init__(self):
+        import zstandard
+
+        self._c = zstandard.ZstdCompressor()
+        self._d = zstandard.ZstdDecompressor()
+
+    def compress(self, data):
+        return self._c.compress(bytes(data))
+
+    def decompress(self, data, uncompressed_size):
+        return self._d.decompress(bytes(data), max_output_size=max(uncompressed_size, 1))
+
+
 @pytest.mark.parametrize("name", sorted(set(GOLDEN_FILES) - READABLE))
-def test_other_codecs_raise_typed_error(name):
+def test_other_codecs_raise_typed_error(name, monkeypatch):
+    # The golden files beyond UNCOMPRESSED/GZIP. With their codec registered
+    # (SNAPPY is built in; ZSTD through a codec this test registers) every
+    # chunk decodes equal to the reference; with it unregistered, every
+    # compressed chunk raises the typed "not registered" error.
+    from parquet_tpu_torch.core import compress as tcompress
+
     raw = (GOLDEN / name).read_bytes()
     meta = t_read_meta(io.BytesIO(raw))
     schema = Schema.from_thrift(meta.schema)
+    monkeypatch.setitem(tcompress._REGISTRY, int(CompressionCodec.ZSTD), _Zstd())
+    codecs = set()
+    with JReader(io.BytesIO(raw)) as jr:
+        for rg in meta.row_groups:
+            for cc in rg.columns:
+                p = tuple(cc.meta_data.path_in_schema)
+                ref = jchunk.read_chunk(jr._f, cc, jr.schema.column(p))
+                assert_chunk_equal(tchunk.read_chunk(io.BytesIO(raw), cc, schema.column(p)), ref)
+                codecs.add(int(cc.meta_data.codec))
+    for codec in codecs - {int(CompressionCodec.UNCOMPRESSED)}:
+        monkeypatch.delitem(tcompress._REGISTRY, codec)
     raised = 0
     for rg in meta.row_groups:
         for cc in rg.columns:

@@ -72,14 +72,30 @@ def test_sources_and_surface(small_file):
 
 
 def test_snappy_file_raises_typed_codec_error(tmp_path):
+    # SNAPPY reads since the port carries its own codec; a corrupt snappy
+    # block raises the typed CompressionError on every path (the fused walk
+    # aborts at its decompress stage and the staged walk raises)
+    from parquet_tpu_torch.core.chunk import iter_chunk_pages
+
     path = tmp_path / "s.parquet"
     pq.write_table(pa.table({"a": np.arange(50)}), path, compression="snappy")
-    for backend in ("host", "device_roundtrip"):
-        with FileReader(path, backend=backend, device="cpu") as r:
-            with pytest.raises(CompressionError, match="SNAPPY not registered"):
-                r.read_row_group(0)
+    with FileReader(path, backend="device_roundtrip", device="cpu") as r:
+        assert np.array_equal(r.read_row_group(0)[("a",)].values, np.arange(50))
+    raw = bytearray(path.read_bytes())
+    f = io.BytesIO(bytes(raw))
     with FileReader(path, device="cpu") as r:
-        with pytest.raises(parquet_tpu_torch.ParquetFileError, match="SNAPPY"):
+        cc = r.row_group(0).columns[0]
+    for page in iter_chunk_pages(f, cc):
+        if page.header.data_page_header is not None:
+            start = f.tell() - page.header.compressed_page_size
+            break
+    raw[start : start + 4] = b"\xff\xff\xff\x7f"  # the block's length preamble
+    for backend in ("host", "device_roundtrip"):
+        with FileReader(bytes(raw), backend=backend, device="cpu") as r:
+            with pytest.raises(CompressionError, match="decompression failed"):
+                r.read_row_group(0)
+    with FileReader(bytes(raw), device="cpu") as r:
+        with pytest.raises(parquet_tpu_torch.ParquetFileError, match="snappy"):
             r.read_row_groups_device()
 
 
