@@ -13,12 +13,15 @@ Phases (any failure raises and the script exits non-zero):
               from native/, timed;
   3. kernels  each kernel against its plain PyTorch version on the card,
               bit-exact, at the main paths' shapes and at edge shapes (one
-              page, empty pages, all-dict and all-PLAIN chunks);
-  4. main     two 8,388,608-row NYC-taxi-like files (8 row groups of 2**20
-              rows, ~1 MiB pages, built from a seed with testing/synth.py),
-              each decoded by FileReader(path).read_row_groups_device() and
-              held against the generator's arrays, with the launch counts
-              set to 0 just before each read and read just after:
+              page, empty pages, all-dict and all-PLAIN chunks; for the
+              batch path's kernels n = 0, 1 and 2**20 + 3, no values,
+              all-null and no-null masks, leading non-boundary entries,
+              max_len 1, rows longer than a scan tile, every byte width);
+  4. main     three 8,388,608-row files (8 row groups of 2**20 rows, ~1 MiB
+              pages, built from a seed with testing/synth.py), each decoded
+              by FileReader(path).read_row_groups_device() and held against
+              the generator's arrays, with the launch counts set to 0 just
+              before each path and read just after:
               - "taxi": GZIP and uncompressed, dictionary, DELTA and PLAIN
                 columns; expand_hybrid, dict_gather and delta_packed_decode
                 must launch and no page may fall back to host decode;
@@ -27,20 +30,38 @@ Phases (any failure raises and the script exits non-zero):
                 1 MiB; the mixed numeric, mixed bytes and BYTE_STREAM_SPLIT
                 routes must run (merge_mixed_numeric, merge_mixed_bytes,
                 bss_transpose) and the DOUBLE column takes the host merge;
-              on both the fused native prepare walk must take every chunk
+              - "sessions": a recommender's item histories, SNAPPY, data
+                page V2: an int64 DELTA session_id and an optional LIST of
+                required int32 item ids (RLE_DICTIONARY over 65,536 keys;
+                2 % null, 3 % empty, else 1..15 items a row); after the
+                read, DeviceColumn.list_layout(0, 2) and record_starts on
+                every items group must give the generator's per-row
+                offsets, null mask and row ids (list_layout and
+                record_starts must launch);
+              on each the fused native prepare walk must take every chunk
               (no decline, fault or recovery), and one row group through
               backend="device_roundtrip" must equal the host decode;
-  5. times    rows/s of the device reads, of host decode + upload, of host
-              prepare alone on the fused and the staged walk, and each
-              kernel's CUDA-event time beside its bound.
+     batches  FileReader(path).iter_device_batches(100_000, ...) over
+              "taxi" (nullable="mask": passenger_count as a MaskedColumn,
+              zone as its int32 indices; expand_nullable must launch) and
+              "sessions" (lists="pad", max_list_len=16: items as a padded
+              RaggedColumn; pad_ragged must launch), each batch feeding a
+              small step on the card (masked sums and row counts) whose
+              totals must equal the generator's exactly;
+  5. times    rows/s of the device reads and of the batch streams (the same
+              call, both files), of host decode + upload, of host prepare
+              alone on the fused and the staged walk, and each kernel's
+              CUDA-event time beside its bound.
 
-The last two lines of standard output are the `kernels` JSON line and the
+The last three lines of standard output are a JSON line of the end-to-end
+rates with the card's name and power limit, the `kernels` JSON line and the
 `{"ok": true, ...}` line. Without CUDA, or without the package beside it,
 the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -378,6 +399,176 @@ def chunks_equal(a, b) -> bool:
     )
 
 
+# -- the third main path: LIST item histories, and the batch path -------------
+
+SESSIONS_VOCAB = 1 << 16
+BATCH = 100_000
+MAX_LIST_LEN = 16
+
+
+def sessions_columns(seed: int):
+    """The "sessions" file's columns: ROW_GROUPS * RG_ROWS user sessions,
+    each an int64 session id (DELTA) and an optional LIST of required int32
+    item ids (RLE_DICTIONARY over a 65,536-key vocabulary): 2 % null lists,
+    3 % empty lists, the rest 1..15 items (mean 8), SNAPPY, data page V2."""
+    from parquet_tpu_torch.meta.parquet_types import CompressionCodec as C
+    from parquet_tpu_torch.meta.parquet_types import Encoding as E
+    from parquet_tpu_torch.meta.parquet_types import Type as T
+    from parquet_tpu_torch.testing.synth import ColumnSpec
+
+    n = ROW_GROUPS * RG_ROWS
+    rng = np.random.default_rng(seed)
+    u = rng.random(n)
+    valid = u >= 0.02
+    lengths = rng.integers(1, 16, size=n)
+    lengths[u < 0.05] = 0
+    # distinct item ids spread over int32 (a bijection mod the prime 2^31 - 1)
+    vocab = (np.arange(SESSIONS_VOCAB, dtype=np.int64) * 2654435761 % (2**31 - 1)).astype(np.int32)
+    items = rng.integers(0, SESSIONS_VOCAB, size=int(lengths.sum()), dtype=np.int32)
+    sid = 10**9 + np.cumsum(rng.integers(1, 5000, size=n))
+    common = dict(codec=C.SNAPPY, page_version=2)
+    return [
+        ColumnSpec("session_id", T.INT64, values=sid.astype(np.int64),
+                   encoding=E.DELTA_BINARY_PACKED, **common),
+        ColumnSpec("items", T.INT32, encoding=E.RLE_DICTIONARY, valid=valid, list_lengths=lengths,
+                   dictionary=vocab, indices=items, **common),
+    ]
+
+
+def check_sessions(groups, specs, stats, no_host_fallback: bool = True) -> None:
+    """The sessions file's columns equal the generator's: session ids, the
+    items' values, and their def and rep levels."""
+    from parquet_tpu_torch.testing.synth import column_levels, column_values
+
+    sid, items = specs
+    got = np.concatenate([g[sid.path].values.cpu().numpy() for g in groups])
+    if not np.array_equal(got, sid.values):
+        raise AssertionError("session_id: values differ")
+    cols = [g[items.path] for g in groups]
+    want = column_values(items)
+    got = np.concatenate([c.values.cpu().numpy() for c in cols])
+    if got.dtype != want.dtype or not np.array_equal(got, want):
+        raise AssertionError("items: values differ")
+    want_def, want_rep = column_levels(items)
+    defs = np.concatenate([c.def_levels for c in cols])
+    reps = np.concatenate([c.rep_levels for c in cols])
+    if not (np.array_equal(defs, want_def) and np.array_equal(reps, want_rep)):
+        raise AssertionError("items: levels differ")
+    if no_host_fallback and stats.host_fallback_pages != 0:
+        raise AssertionError(f"host_fallback_pages = {stats.host_fallback_pages}")
+
+
+def check_layouts(groups, specs) -> None:
+    """DeviceColumn.list_layout(0, 2) and record_starts on every items group
+    against the generator: per-row offsets, each row's def level (0 null,
+    1 empty, 2 items), the row count and each level entry's row id."""
+    import torch
+
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    items = specs[1]
+    lengths = np.asarray(items.list_lengths, dtype=np.int64)
+    first_def = np.where(lengths > 0, 2, np.where(items.valid, 1, 0))
+    for g, group in enumerate(groups):
+        dc = group[items.path]
+        offsets, fdef, n_slots = dc.list_layout(0, 2)
+        row_of, n_rows = ops.record_starts(dc._dev_rep)
+        torch.cuda.synchronize()
+        r0, r1 = g * RG_ROWS, min((g + 1) * RG_ROWS, len(lengths))
+        rows = r1 - r0
+        want_off = np.zeros(rows + 1, dtype=np.int64)
+        np.cumsum(lengths[r0:r1], out=want_off[1:])
+        n = dc.num_values
+        off = offsets.cpu().numpy()
+        if not (int(n_slots) == rows == int(n_rows) and np.array_equal(off[: rows + 1], want_off)
+                and (off[rows + 1 :] == want_off[-1]).all()):
+            raise AssertionError(f"items group {g}: list_layout offsets differ")
+        fd = fdef.cpu().numpy()
+        if not (np.array_equal(fd[:rows], first_def[r0:r1]) and not fd[rows:].any()):
+            raise AssertionError(f"items group {g}: list_layout first_def differs")
+        want_rows = np.repeat(np.arange(rows, dtype=np.int32), np.maximum(lengths[r0:r1], 1))
+        if len(want_rows) != n or not np.array_equal(row_of.cpu().numpy(), want_rows):
+            raise AssertionError(f"items group {g}: record_starts row ids differ")
+
+
+def taxi_step(batch, acc) -> None:
+    """The taxi batch step on the card: masked sums and row counts, kept on
+    the device (no sync per batch)."""
+    import torch
+
+    from parquet_tpu_torch.core.reader import MaskedColumn
+
+    pc = batch[("passenger_count",)]
+    if not isinstance(pc, MaskedColumn) or batch[("zone",)].dtype != torch.int32:
+        raise AssertionError("taxi batch: passenger_count is not a MaskedColumn or zone "
+                             "not int32 indices")
+    acc["rows"] += batch[("trip_id",)].shape[0]
+    acc["trip_id"] += batch[("trip_id",)].sum()
+    acc["fare_cents"] += batch[("fare_cents",)].sum(dtype=torch.int64)
+    acc["passengers"] += torch.where(pc.mask, pc.values, 0).sum(dtype=torch.int64)
+    acc["valid"] += pc.mask.sum()
+    acc["zone"] += batch[("zone",)].sum(dtype=torch.int64)
+
+
+def taxi_totals(specs) -> dict:
+    s = {sp.name: sp for sp in specs}
+    return {
+        "rows": len(s["trip_id"].values),
+        "trip_id": int(s["trip_id"].values.sum()),
+        "fare_cents": int(s["fare_cents"].values.astype(np.int64).sum()),
+        "passengers": int(s["passenger_count"].indices.astype(np.int64).sum()),
+        "valid": int(s["passenger_count"].valid.sum()),
+        "zone": int(s["zone"].indices.astype(np.int64).sum()),
+    }
+
+
+def sessions_step(batch, acc) -> None:
+    """The sessions batch step on the card: the masked sum of the padded
+    items, the sum of every padded slot (zero past each row's length), the
+    element and row counts."""
+    import torch
+
+    from parquet_tpu_torch.core.reader import RaggedColumn
+
+    col = batch[("items", "list", "element")]
+    if not isinstance(col, RaggedColumn) or col.values.shape[1] != MAX_LIST_LEN:
+        raise AssertionError("sessions batch: items is not a padded RaggedColumn")
+    width = col.values.shape[1]
+    mask = torch.arange(width, device=col.values.device)[None, :] < col.lengths[:, None]
+    acc["rows"] += col.values.shape[0]
+    acc["items"] += torch.where(mask, col.values, 0).sum(dtype=torch.int64)
+    acc["padded"] += col.values.sum(dtype=torch.int64)
+    acc["elements"] += col.lengths.sum()
+    acc["session_id"] += batch[("session_id",)].sum()
+
+
+def sessions_totals(specs) -> dict:
+    from parquet_tpu_torch.testing.synth import column_values
+
+    sid, items = specs
+    total = int(column_values(items).astype(np.int64).sum())
+    return {"rows": len(sid.values), "items": total, "padded": total,
+            "elements": int(np.asarray(items.list_lengths).sum()),
+            "session_id": int(sid.values.sum())}
+
+
+def run_batches(path, kwargs, step) -> tuple[dict, int]:
+    """Stream a file through iter_device_batches and the step; returns the
+    step's totals (synchronized) and the batch count."""
+    import torch
+
+    from parquet_tpu_torch.core.reader import FileReader
+
+    acc: dict = collections.defaultdict(int)
+    n = 0
+    with FileReader(path) as r:
+        for batch in r.iter_device_batches(BATCH, drop_remainder=False, **kwargs):
+            step(batch, acc)
+            n += 1
+    torch.cuda.synchronize()
+    return {k: int(v) for k, v in acc.items()}, n
+
+
 # -- the second main path: pyarrow's default writer shape ----------------------
 
 
@@ -589,6 +780,163 @@ def check_new_kernels(dev, rows: dict, mixed_path) -> None:
                  ops.merge_mixed_bytes(*args), ops.merge_mixed_bytes_plain(*args))
     for name, err in errs.items():
         rows[name]["max_abs_err"] = err
+
+
+def batch_kernel_cases(rng, dev):
+    """(name, label, args) of the batch path's kernels at edge shapes: n = 0,
+    1 and 2**20 + 3; leading non-boundary entries; a stream with no
+    boundary; no values; all-null and no-null masks; fewer values than valid
+    rows; max_len 1; rows longer than a scan tile; every byte width; int32
+    and int64 lengths."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    big = (1 << 20) + 3
+    for n, lead in ((0, 0), (1, 0), (1, 1), (1000, 3), (big, 0), (big, 29)):
+        rep = rng.integers(0, 3, n).astype(np.int32)
+        if n > lead:
+            rep[lead] = 0
+        rep[:lead] = 1
+        dfl = rng.integers(0, 4, n).astype(np.int32)
+        yield "record_starts", f"n={n} lead={lead}", (t(rep),)
+        for parent_rep, elem_def in ((0, 2), (0, 1), (1, 3)):
+            yield ("list_layout", f"n={n} lead={lead} parent_rep={parent_rep} elem_def={elem_def}",
+                   (t(rep), t(dfl), parent_rep, elem_def))
+    yield ("list_layout", "no boundary, saturated def",
+           (t(np.ones(5000, np.int32)), t(np.full(5000, 2**31 - 1, np.int32)), 0, 2))
+    dtypes = (np.bool_, np.uint8, np.int32, np.float32, np.int64, np.float64)
+
+    def vals(nv, dt):
+        if dt is np.bool_:
+            return rng.random(nv) > 0.5
+        if np.dtype(dt).kind == "f":
+            return rng.standard_normal(nv).astype(dt)
+        return rng.integers(np.iinfo(dt).min, np.iinfo(dt).max, nv, dtype=dt, endpoint=True)
+
+    for dt in dtypes:
+        name = np.dtype(dt).name
+        for rows, max_len, nv_rule in ((0, 4, "fit"), (1, 1, "fit"), (5000, 1, "fit"),
+                                       (big, MAX_LIST_LEN, "fit"), (3, 2500, "fit"),
+                                       (4000, 8, "over"), (3000, 6, "none")):
+            lengths = rng.integers(0, max_len + 1, rows)
+            if rows > 10:
+                lengths[rows // 2] = -3  # a later row's offset below its elements
+            nv = {"fit": max(int(lengths.sum()), 0), "over": rows, "none": 0}[nv_rule]
+            for ldt in (np.int32, np.int64):
+                yield ("pad_ragged", f"{name} rows={rows} max_len={max_len} nv={nv} "
+                       f"lengths {np.dtype(ldt).name}",
+                       (t(vals(nv, dt)), t(lengths.astype(ldt)), max_len))
+        for n, p, short in ((0, 0.5, 0), (1, 1.0, 0), (1, 0.0, 0), (big, 0.95, 0),
+                            (big, 0.0, 0), (big, 1.0, 0), (5000, 0.7, 40), (5000, 0.7, None)):
+            mask = rng.random(n) < p
+            nv = 0 if short is None else max(int(mask.sum()) - short, 0)
+            yield ("expand_nullable", f"{name} n={n} valid={p} nv={nv}", (t(vals(nv, dt)), t(mask)))
+
+
+def check_batch_kernels(dev, rows: dict) -> None:
+    """record_starts, list_layout, pad_ragged and expand_nullable against
+    their plain versions on the card, bit for bit, at the edge shapes."""
+    import torch
+
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    errs = {"record_starts": 0.0, "list_layout": 0.0, "pad_ragged": 0.0, "expand_nullable": 0.0}
+    counts = dict.fromkeys(errs, 0)
+    for name, label, args in batch_kernel_cases(np.random.default_rng(SEED), dev):
+        got = ops.KERNELS[name](*args)
+        plain = getattr(ops, name + "_plain")(*args)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        plain = plain if isinstance(plain, tuple) else (plain,)
+        for g, p in zip(got, plain):
+            if g.dtype == torch.bool:
+                g, p = g.view(torch.uint8), p.view(torch.uint8)
+            ok, err = bits_equal(g, p)
+            if not ok:
+                log(f"  {name} {label}: equal=False")
+                raise AssertionError(f"{name} {label} disagrees with its plain version (max abs {err})")
+            errs[name] = max(errs[name], err)
+        counts[name] += 1
+    log("  " + ", ".join(f"{k}: {v} shapes equal" for k, v in counts.items()))
+    for name, err in errs.items():
+        rows[name]["max_abs_err"] = err
+
+
+def time_batch_kernels(sessions_path, taxi_path, dev, rows: dict, bw: float) -> None:
+    """Device times of the batch path's kernels at the main path's shapes:
+    record_starts and list_layout on the sessions file's first items group,
+    pad_ragged on that group's values and lengths (as iter_device_batches
+    calls it), expand_nullable on the taxi file's first passenger_count
+    group; each beside its bound, its plain version and the one PyTorch call
+    computing the same function where there is one."""
+    import torch
+
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.kernels.pipeline import to_device
+
+    with FileReader(sessions_path) as r:
+        dc = r.read_row_group_device(0, ["items"])[("items", "list", "element")]
+    with FileReader(taxi_path) as r:
+        pc = r.read_row_group_device(0, ["passenger_count"])[("passenger_count",)]
+    rep = to_device(np.asarray(dc.rep_levels, np.int32), dev)
+    dfl = to_device(np.asarray(dc.def_levels, np.int32), dev)
+    n = rep.numel()
+    rl = np.asarray(dc.rep_levels)
+    present = (np.asarray(dc.def_levels) == 2).astype(np.int32)
+    lengths_np = np.add.reduceat(present, np.nonzero(rl == 0)[0])
+    lengths = to_device(lengths_np, dev)
+    values = dc.values
+    n_rows = lengths.numel()
+    mask = to_device(np.asarray(pc.def_levels) == 1, dev)
+    pvals = pc.values
+
+    def record(name, fn, plain, nbytes, ops_count, lib=None, shape=""):
+        entry = {"ms": device_ms(fn), "plain_ms": device_ms(plain),
+                 "library_ms": device_ms(lib) if lib is not None else None,
+                 "eager_ms": eager_ms(fn), "shape": shape}
+        bytes_ms = nbytes / bw * 1e3
+        ops_ms = ops_count / OPS_PER_S * 1e3
+        entry["bound_ms"] = max(bytes_ms, ops_ms)
+        entry["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        rows[name].update(entry)
+        log(f"  {name} [{shape}]: {entry['ms']:.4f} ms on the device (eager call "
+            f"{entry['eager_ms']:.4f} ms), plain {entry['plain_ms']:.4f} ms"
+            + (f", library {entry['library_ms']:.4f} ms" if lib is not None else "")
+            + f"; bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, {nbytes} B, "
+            f"{ops_count} ops); {nbytes / entry['ms'] / 1e6:.1f} GB/s")
+
+    # bytes: rep read, row_of written (4 B each) and the 8-byte count; ops:
+    # compare, scan and subtract, ~6 per entry
+    record("record_starts", lambda: ops.record_starts(rep), lambda: ops.record_starts_plain(rep),
+           8 * n + 8, 6 * n, shape=f"sessions items group 0, n={n}")
+    # bytes: rep and dfl read, offsets and first_def written; ops: two
+    # compares, the packed scan and the scatter, ~20 per entry
+    record("list_layout", lambda: ops.list_layout(rep, dfl, 0, 2),
+           lambda: ops.list_layout_plain(rep, dfl, 0, 2),
+           8 * n + 4 * (n + 1) + 4 * n + 8, 20 * n, shape=f"sessions items group 0, n={n}")
+    nv = values.numel()
+    offs = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
+    offs[1:] = torch.from_numpy(np.cumsum(lengths_np)).to(dev)
+    nested = torch.nested.nested_tensor_from_jagged(values, offsets=offs)
+    # bytes: lengths and the elements read once, the padded matrix written;
+    # ops: index, compare, clamp and address, ~10 per output slot
+    record("pad_ragged", lambda: ops.pad_ragged(values, lengths, MAX_LIST_LEN),
+           lambda: ops.pad_ragged_plain(values, lengths, MAX_LIST_LEN),
+           lengths.element_size() * n_rows + 4 * nv + 4 * n_rows * MAX_LIST_LEN,
+           10 * n_rows * MAX_LIST_LEN,
+           lib=lambda: nested.to_padded_tensor(0, output_size=(n_rows, MAX_LIST_LEN)),
+           shape=f"sessions items group 0, rows={n_rows} nv={nv} max_len={MAX_LIST_LEN}")
+    m = mask.numel()
+    # bytes: the mask, the non-null values and the output; ops: scan,
+    # clamp, select, ~8 per row
+    record("expand_nullable", lambda: ops.expand_nullable(pvals, mask),
+           lambda: ops.expand_nullable_plain(pvals, mask),
+           m + 4 * pvals.numel() + 4 * m, 8 * m,
+           lib=lambda: torch.zeros(m, dtype=pvals.dtype, device=dev).masked_scatter_(mask, pvals),
+           shape=f"taxi passenger_count group 0, n={m} nv={pvals.numel()}")
 
 
 def time_new_kernels(mixed_path, dev, rows: dict, bw: float) -> None:
@@ -834,6 +1182,10 @@ def main() -> int:
                                 "parquet_tpu/kernels/device_ops.py:689"),
         "merge_mixed_bytes": (csrc + "merge_mixed_bytes.cu",
                               "parquet_tpu/kernels/device_ops.py:718"),
+        "record_starts": (csrc + "record_starts.cu", "parquet_tpu/kernels/device_ops.py:262"),
+        "list_layout": (csrc + "list_layout.cu", "parquet_tpu/kernels/device_ops.py:275"),
+        "pad_ragged": (csrc + "pad_ragged.cu", "parquet_tpu/core/reader.py:242"),
+        "expand_nullable": (csrc + "expand_nullable.cu", "parquet_tpu/core/reader.py:286"),
     }
     rows = {
         k: {"name": k, "route": "cuda", "source": src, "replaces": rep}
@@ -842,12 +1194,15 @@ def main() -> int:
 
     log("[kernels] each kernel against its plain version on the card (bit-exact)")
     check_kernels(dev, rows)
+    log("[kernels] the batch path's kernels at edge shapes")
+    check_batch_kernels(dev, rows)
 
     launches: dict[str, dict] = {}
 
-    def drive(label, path, specs, need, no_host_fallback):
-        """One main-path read with the launch and prepare counts zeroed just
-        before and read just after; checks the columns and the counts."""
+    def drive(label, path, specs, need, no_host_fallback, check=check_main_path, then=None):
+        """One main-path read (and `then(groups)`, the path's use of what it
+        read) with the launch and prepare counts zeroed just before and read
+        just after; checks the columns and the counts."""
         ops.reset_launch_counts()
         reset_prepare_counts()
         t = time.perf_counter()
@@ -855,13 +1210,15 @@ def main() -> int:
         groups = reader.read_row_groups_device()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
+        if then is not None:
+            then(groups)
         counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
         prep = prepare_counts()
         launches[label] = counts
         log(f"[main:{label}] read_row_groups_device: {secs:.2f} s, launches "
             + ", ".join(f"{k}={v}" for k, v in counts.items())
             + f", stats {reader.stats}, prepare {prep}")
-        check_main_path(groups, specs, reader.stats, no_host_fallback)
+        check(groups, specs, reader.stats, no_host_fallback)
         for k in need:
             if counts[k] <= 0:
                 raise AssertionError(f"{k} was not launched on the {label} path")
@@ -884,7 +1241,8 @@ def main() -> int:
         return prep
 
     paths = {}
-    for label, make in (("taxi", taxi_columns), ("taxi_mixed", mixed_columns)):
+    for label, make in (("taxi", taxi_columns), ("taxi_mixed", mixed_columns),
+                        ("sessions", sessions_columns)):
         t = time.perf_counter()
         specs = make(SEED)
         path = smoke_file(specs, label.replace("_", "-"))
@@ -906,6 +1264,42 @@ def main() -> int:
     for route in ("route_merge_numeric", "route_merge_bytes", "route_bss", "route_host_merge"):
         if prep.get(route, 0) <= 0:
             raise AssertionError(f"taxi_mixed: {route} never taken ({prep})")
+    sessions_path, sessions_specs = paths["sessions"]
+    drive("sessions", sessions_path, sessions_specs,
+          need=("expand_hybrid", "dict_gather", "delta_packed_decode", "list_layout",
+                "record_starts"),
+          no_host_fallback=True, check=check_sessions,
+          then=lambda groups: check_layouts(groups, sessions_specs))
+    log("[main:sessions] list_layout(0, 2) and record_starts on every items group equal "
+        "the generator's offsets, null mask and row ids")
+
+    batch_paths = {
+        "taxi batches": (paths["taxi"][0], dict(nullable="mask"), taxi_step,
+                         taxi_totals(paths["taxi"][1]),
+                         ("expand_hybrid", "dict_gather", "delta_packed_decode",
+                          "expand_nullable")),
+        "sessions batches": (sessions_path, dict(lists="pad", max_list_len=MAX_LIST_LEN),
+                             sessions_step, sessions_totals(sessions_specs),
+                             ("expand_hybrid", "dict_gather", "delta_packed_decode",
+                              "pad_ragged")),
+    }
+    for label, (path, kwargs, step, want, need) in batch_paths.items():
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        got, n_batches = run_batches(path, kwargs, step)
+        secs = time.perf_counter() - t
+        counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
+        launches[label] = counts
+        log(f"[batches:{label}] iter_device_batches({BATCH}, {kwargs}): {n_batches} batches in "
+            f"{secs:.2f} s, launches " + ", ".join(f"{k}={v}" for k, v in counts.items()))
+        if got != want:
+            raise AssertionError(f"{label}: step totals {got} differ from the generator's {want}")
+        if n_batches != -(-n_rows // BATCH):
+            raise AssertionError(f"{label}: {n_batches} batches for {n_rows} rows")
+        for k in need:
+            if counts[k] <= 0:
+                raise AssertionError(f"{k} was not launched on the {label} path")
+        log(f"[batches:{label}] step totals equal the generator's: {got}")
     for k in rows:
         rows[k]["launches"] = sum(c[k] for c in launches.values())
         rows[k]["launches_by_path"] = {label: c[k] for label, c in launches.items()}
@@ -942,9 +1336,16 @@ def main() -> int:
         return statistics.median(secs), secs
 
     rates = {}
+    def batch_stream(label):
+        path, kwargs, step, _want, _need = batch_paths[label]
+        return run_batches(path, kwargs, step)
+
     runs = [("taxi device", lambda: device_read(paths["taxi"][0])),
+            ("taxi batches", lambda: batch_stream("taxi batches")),
             ("taxi host+upload", lambda: host_read_upload(paths["taxi"][0])),
-            ("taxi_mixed device", lambda: device_read(mixed_path))]
+            ("taxi_mixed device", lambda: device_read(mixed_path)),
+            ("sessions device", lambda: device_read(sessions_path)),
+            ("sessions batches", lambda: batch_stream("sessions batches"))]
     for label, fn in runs:
         fn()
         med, secs = median_s(fn)
@@ -952,7 +1353,9 @@ def main() -> int:
         log(f"  {label}: {rates[label]:,.0f} rows/s (median of {[round(x, 3) for x in secs]} s)")
     prepare = {}
     for label in paths:
-        for walk, fused in (("fused", True), ("staged", False)):
+        # the staged walk is the fallback: timed on the two taxi files only
+        walks = (("fused", True),) if label == "sessions" else (("fused", True), ("staged", False))
+        for walk, fused in walks:
             prepare_alone(paths[label][0], fused)
             med, secs = median_s(lambda: prepare_alone(paths[label][0], fused))
             prepare[f"{label} {walk}"] = med
@@ -968,6 +1371,7 @@ def main() -> int:
         profile_device_read(paths[label][0])
     time_kernels(paths["taxi"][0], dev, rows, bw)
     time_new_kernels(mixed_path, dev, rows, bw)
+    time_batch_kernels(sessions_path, paths["taxi"][0], dev, rows, bw)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"rows_per_s": rates, "prepare_s": prepare, "card": smi}))

@@ -10,6 +10,10 @@ RLE/bit-packed expansion, dictionary gather and DELTA_BINARY_PACKED decode.
     with FileReader("trips.parquet") as r:          # device=None -> CUDA
         groups = r.read_row_groups_device()         # [{path: DeviceColumn}]
 
+    for batch in FileReader("trips.parquet").iter_device_batches(
+            100_000, nullable="mask", lists="pad", max_list_len=16):
+        ...                                         # {path: Tensor | MaskedColumn | RaggedColumn}
+
 `device="cpu"` runs the kernels' plain PyTorch versions on the CPU; without
 it a machine with no CUDA raises.
 """
@@ -18,7 +22,7 @@ from .core.arrays import ByteArrayData
 from .core.chunk import ChunkData, ChunkError, read_chunk
 from .core.compress import CompressionError
 from .core.page import PageError
-from .core.reader import BACKENDS, FileReader
+from .core.reader import BACKENDS, FileReader, MaskedColumn, RaggedColumn
 from .core.schema import Column, Schema
 from .kernels.pipeline import DecodeStats, DeviceColumn
 from .meta.file_meta import ParquetFileError, read_file_metadata
@@ -33,8 +37,10 @@ __all__ = [
     "DecodeStats",
     "DeviceColumn",
     "FileReader",
+    "MaskedColumn",
     "PageError",
     "ParquetFileError",
+    "RaggedColumn",
     "Schema",
     "read_chunk",
     "read_file_metadata",

@@ -3,11 +3,12 @@
 Every `kernels/csrc/*.cu` source compiles with `nvcc` for `sm_90a` (one
 `nvcc -c` per source, all started together), and the objects link into one
 shared library with a plain C interface, loaded with `ctypes`. Pointers and
-the CUDA stream are passed as `ctypes.c_void_p`.
+the CUDA stream are passed as `ctypes.c_void_p`. The `*.cuh` headers
+(scan.cuh) are included by the sources and compile with them.
 
 The library goes to `build/parquet_tpu_torch/<key>/` at the repository root
-(listed in .gitignore), keyed by a hash of the sources and the flags, so a
-changed source rebuilds and an unchanged one loads at once. A lock file
+(listed in .gitignore), keyed by a hash of the sources, the headers and the
+flags, so a changed source or header rebuilds and an unchanged one loads at once. A lock file
 guards a concurrent first use. A failed build raises `KernelBuildError`:
 nothing gives way to the plain PyTorch versions.
 
@@ -58,6 +59,11 @@ SIGNATURES = {
         _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P, _LL, _LL, _P, _P, _P, _P, _I,
         _LL, _LL, _P, _P, _P, _P, _P,
     ),
+    "pqt_scan_tile": (),
+    "pqt_record_starts": (_P, _LL, _P, _P, _P, _P),
+    "pqt_list_layout": (_P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P),
+    "pqt_pad_ragged": (_P, _LL, _I, _P, _I, _LL, _I, _P, _P, _P, _P),
+    "pqt_expand_nullable": (_P, _LL, _I, _P, _LL, _P, _P, _P, _P),
 }
 
 _lib = None
@@ -85,7 +91,13 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _key(sources: list[Path]) -> str:
+    """Hash of the flags and of `sources` (the build passes the headers too,
+    so an edited header rebuilds)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
@@ -128,7 +140,7 @@ def load():
         if _lib is not None:
             return _lib
         sources = _sources()
-        out_dir = BUILD_ROOT / _key(sources)
+        out_dir = BUILD_ROOT / _key(sources + _headers())
         out_dir.mkdir(parents=True, exist_ok=True)
         lib_path = out_dir / LIB_NAME
         t0 = time.perf_counter()

@@ -1,4 +1,4 @@
-"""Device decode primitives: the kernels of the decode path.
+"""Device primitives: the kernels of the decode path and of the batch path.
 
 Each primitive has three parts:
 
@@ -40,6 +40,14 @@ __all__ = [
     "merge_mixed_numeric_plain",
     "merge_mixed_bytes",
     "merge_mixed_bytes_plain",
+    "record_starts",
+    "record_starts_plain",
+    "list_layout",
+    "list_layout_plain",
+    "pad_ragged",
+    "pad_ragged_plain",
+    "expand_nullable",
+    "expand_nullable_plain",
     "KERNELS",
     "reset_launch_counts",
 ]
@@ -645,6 +653,244 @@ def merge_mixed_bytes(
 merge_mixed_bytes.launches = 0
 
 
+# -- the batch path: record starts, list layout, ragged padding, nulls ---------
+#
+# Four scans (kernels/csrc/scan.cuh) with their epilogues. The scans carry a
+# scratch the wrapper allocates: a partial buffer of the scan's dtype and
+# num_tiles + 1 tile sums (pqt_scan_tile() elements per tile).
+
+_INT32_LIMIT = 1 << 31
+# dtypes the byte-width kernels copy (1-, 4- and 8-byte elements)
+_COPY_DTYPES = (
+    torch.bool, torch.uint8, torch.int8, torch.int32, torch.float32, torch.int64, torch.float64,
+)
+
+
+def _tile_sums(lib, n: int, dtype, device) -> torch.Tensor:
+    tile = lib.pqt_scan_tile()
+    return torch.empty((n + tile - 1) // tile + 1, dtype=dtype, device=device)
+
+
+def _check_len(n: int, name: str) -> None:
+    if n >= _INT32_LIMIT:
+        raise ValueError(f"{name}: {n} entries exceed the int32 range of the scans")
+
+
+def _check_values(values: torch.Tensor, name: str) -> None:
+    """Values of the byte-width kernels: a 1-D contiguous tensor of a copyable
+    dtype. 2-D values (FIXED_LEN_BYTE_ARRAY, INT96 as (n, w) uint8) have no
+    row layout here, as in the reference, whose select fails to broadcast."""
+    if not isinstance(values, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(values).__name__}")
+    if values.dim() != 1:
+        raise ValueError(
+            f"{name}: values of shape {tuple(values.shape)} have no device batch "
+            "layout (only 1-D columns pad or expand)"
+        )
+    _check_vec(values, _COPY_DTYPES, name)
+
+
+def record_starts_plain(rep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the record starts: (row_of int32[n] = inclusive count
+    of rep == 0, minus 1; n_rows int64 0-d)."""
+    starts = (rep == 0).to(torch.int32)
+    row_of = torch.cumsum(starts, 0, dtype=torch.int32) - 1
+    return row_of, starts.sum(dtype=torch.int64)
+
+
+def record_starts(rep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Which record each level entry belongs to: row_of int32[n] (the
+    inclusive count of rep == 0 minus 1, so -1 for leading entries that start
+    no record) and n_rows, a 0-d int64 tensor (the JAX program's count is
+    int64 under x64). Replaces
+    parquet_tpu/kernels/device_ops.py:record_starts_device."""
+    _check_vec(rep, (torch.int32,), "record_starts: rep")
+    n = rep.numel()
+    _check_len(n, "record_starts")
+    if _on_cpu(rep):
+        return record_starts_plain(rep)
+    dev = rep.device
+    row_of = torch.empty(n, dtype=torch.int32, device=dev)
+    if not n:
+        return row_of, torch.zeros((), dtype=torch.int64, device=dev)
+    n_rows = torch.empty((), dtype=torch.int64, device=dev)
+    lib = _lib()
+    tile_sums = _tile_sums(lib, n, torch.int32, dev)
+    _launch(
+        "record_starts", dev, lib.pqt_record_starts,
+        _ptr(rep), n, _ptr(row_of), _ptr(n_rows), _ptr(tile_sums),
+    )
+    record_starts.launches += 1
+    return row_of, n_rows
+
+
+record_starts.launches = 0
+
+
+def list_layout_plain(
+    rep: torch.Tensor, dfl: torch.Tensor, parent_rep: int, elem_def: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the list layout, the reference's scatter-adds into
+    slot clip(slot_of, 0, n - 1) as written: (offsets int32[n + 1],
+    first_def int32[n], n_slots int64 0-d)."""
+    dev = rep.device
+    n = rep.numel()
+    r64 = rep.to(torch.int64)
+    boundary = r64 <= parent_rep
+    slot_of = torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32) - 1
+    elem_start = (r64 <= parent_rep + 1) & (dfl.to(torch.int64) >= elem_def)
+    slot = slot_of.clamp(0, max(n - 1, 0)).to(torch.int64)
+    counts = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+        0, slot, elem_start.to(torch.int32)
+    )
+    offsets = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(counts, 0, dtype=torch.int32)
+    first_def = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+        0, slot, torch.where(boundary, dfl, torch.zeros_like(dfl))
+    )
+    return offsets, first_def, boundary.sum(dtype=torch.int64)
+
+
+def list_layout(
+    rep: torch.Tensor, dfl: torch.Tensor, parent_rep: int, elem_def: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One nesting depth's Arrow-style layout from device-resident levels:
+    (offsets int32[n + 1], entries past n_slots repeating the total;
+    first_def int32[n], each slot's boundary entry's def level, entries past
+    n_slots 0; n_slots, a 0-d int64 tensor). An entry opens a slot iff
+    rep <= parent_rep and starts an element iff rep <= parent_rep + 1 and
+    dfl >= elem_def; leading entries before the first boundary count into
+    slot 0, as the reference's clip puts them. Replaces
+    parquet_tpu/kernels/device_ops.py:list_layout_device."""
+    _check_vec(rep, (torch.int32,), "list_layout: rep")
+    _check_vec(dfl, (torch.int32,), "list_layout: dfl")
+    n = rep.numel()
+    if dfl.numel() != n:
+        raise ValueError(f"list_layout: {n} rep levels but {dfl.numel()} def levels")
+    _check_len(n, "list_layout")
+    parent_rep, elem_def = int(parent_rep), int(elem_def)
+    if _on_cpu(rep, dfl):
+        return list_layout_plain(rep, dfl, parent_rep, elem_def)
+    dev = rep.device
+    offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    first_def = torch.empty(n, dtype=torch.int32, device=dev)
+    if not n:
+        offsets.zero_()
+        return offsets, first_def, torch.zeros((), dtype=torch.int64, device=dev)
+    n_slots = torch.empty((), dtype=torch.int64, device=dev)
+    lib = _lib()
+    partial = torch.empty(n, dtype=torch.int64, device=dev)
+    tile_sums = _tile_sums(lib, n, torch.int64, dev)
+    _launch(
+        "list_layout", dev, lib.pqt_list_layout,
+        _ptr(rep), _ptr(dfl), n, parent_rep, elem_def,
+        _ptr(offsets), _ptr(first_def), _ptr(n_slots), _ptr(partial), _ptr(tile_sums),
+    )
+    list_layout.launches += 1
+    return offsets, first_def, n_slots
+
+
+list_layout.launches = 0
+
+
+def pad_ragged_plain(values: torch.Tensor, lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Plain version of the ragged padding, as the reference's `pad` writes
+    it: int32 row offsets, a [rows, max_len] index matrix clipped into
+    [0, nv - 1], and zeros past each row's length (all zeros when nv == 0)."""
+    dev = values.device
+    rows = lengths.numel()
+    offs = torch.zeros(rows + 1, dtype=torch.int32, device=dev)
+    offs[1:] = torch.cumsum(lengths, 0, dtype=torch.int32)
+    ar = torch.arange(max_len, dtype=torch.int32, device=dev)
+    idx = offs[:-1, None] + ar[None, :]
+    nv = values.numel()
+    mask = ar[None, :] < lengths[:, None]
+    if not nv:
+        return torch.zeros((rows, max_len), dtype=values.dtype, device=dev)
+    vals = values[idx.clamp(0, nv - 1).to(torch.int64)]
+    return torch.where(mask, vals, torch.zeros((), dtype=values.dtype, device=dev))
+
+
+def pad_ragged(values: torch.Tensor, lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Pad a flat element vector into [rows, max_len] by per-row lengths
+    (int32 or int64): row r takes values[offs[r] : offs[r] + lengths[r]]
+    (offs the int32 exclusive scan of lengths), gather indices clip into
+    [0, nv - 1], and slots past a
+    row's length are 0 (the bit pattern 0; all zeros when nv == 0). Values
+    keep their dtype (1-, 4- or 8-byte elements). Replaces the jitted
+    `pad` of parquet_tpu/core/reader.py:_pad_ragged_device."""
+    _check_values(values, "pad_ragged: values")
+    _check_vec(lengths, (torch.int32, torch.int64), "pad_ragged: lengths")
+    max_len = int(max_len)
+    if max_len < 0:
+        raise ValueError(f"pad_ragged: max_len {max_len} is negative")
+    rows, nv = lengths.numel(), values.numel()
+    _check_len(max(rows, nv), "pad_ragged")
+    if _on_cpu(values, lengths):
+        return pad_ragged_plain(values, lengths, max_len)
+    dev = values.device
+    out = torch.empty((rows, max_len), dtype=values.dtype, device=dev)
+    if not rows * max_len:
+        return out
+    lib = _lib()
+    offs = torch.empty(rows, dtype=torch.int32, device=dev)
+    tile_sums = _tile_sums(lib, rows, torch.int32, dev)
+    _launch(
+        "pad_ragged", dev, lib.pqt_pad_ragged,
+        _ptr(values), nv, values.element_size(), _ptr(lengths), lengths.element_size(),
+        rows, max_len,
+        _ptr(out), _ptr(offs), _ptr(tile_sums),
+    )
+    pad_ragged.launches += 1
+    return out
+
+
+pad_ragged.launches = 0
+
+
+def expand_nullable_plain(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Plain version of the null expansion, as the reference's `expand`
+    writes it: idx = inclusive count of the mask - 1 clipped into
+    [0, nv - 1], then where(mask, values[idx], 0) (zeros when nv == 0)."""
+    dev = values.device
+    nv = values.numel()
+    if not nv:
+        return torch.zeros(mask.shape, dtype=values.dtype, device=dev)
+    idx = (torch.cumsum(mask, 0, dtype=torch.int64) - 1).clamp(0, nv - 1)
+    return torch.where(mask, values[idx], torch.zeros((), dtype=values.dtype, device=dev))
+
+
+def expand_nullable(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Scatter the dense non-null values into row positions, nulls 0 (the
+    bit pattern 0): out[i] = values[clip(count(mask[:i + 1]) - 1, 0, nv - 1)]
+    where mask[i], else 0; all zeros when nv == 0. Values keep their dtype
+    (1-, 4- or 8-byte elements). Replaces the jitted `expand` of
+    parquet_tpu/core/reader.py:_expand_nullable_device."""
+    _check_values(values, "expand_nullable: values")
+    _check_vec(mask, (torch.bool,), "expand_nullable: mask")
+    n, nv = mask.numel(), values.numel()
+    _check_len(max(n, nv), "expand_nullable")
+    if _on_cpu(values, mask):
+        return expand_nullable_plain(values, mask)
+    dev = values.device
+    out = torch.empty(n, dtype=values.dtype, device=dev)
+    if not n:
+        return out
+    lib = _lib()
+    partial = torch.empty(n, dtype=torch.int32, device=dev)
+    tile_sums = _tile_sums(lib, n, torch.int32, dev)
+    _launch(
+        "expand_nullable", dev, lib.pqt_expand_nullable,
+        _ptr(values), nv, values.element_size(), _ptr(mask), n,
+        _ptr(out), _ptr(partial), _ptr(tile_sums),
+    )
+    expand_nullable.launches += 1
+    return out
+
+
+expand_nullable.launches = 0
+
+
 # The kernels of the decode path, by name.
 KERNELS = {
     "expand_hybrid": expand_hybrid,
@@ -653,6 +899,10 @@ KERNELS = {
     "bss_transpose": bss_transpose,
     "merge_mixed_numeric": merge_mixed_numeric,
     "merge_mixed_bytes": merge_mixed_bytes,
+    "record_starts": record_starts,
+    "list_layout": list_layout,
+    "pad_ragged": pad_ragged,
+    "expand_nullable": expand_nullable,
 }
 
 

@@ -90,6 +90,7 @@ from .device_ops import (
     delta_packed_decode,
     dict_gather,
     expand_hybrid,
+    list_layout,
     merge_mixed_bytes,
     merge_mixed_numeric,
 )
@@ -429,7 +430,8 @@ class DeviceColumn:
     host-side and as `dict_data`/`dict_offsets` on the device.
 
     def/rep levels stay host-side as uint16 NumPy arrays (record assembly
-    is a host concern)."""
+    is a host concern); list_layout() uploads them once when a consumer
+    wants a repeated depth's layout on the device."""
 
     num_values: int
     values: torch.Tensor | None = None
@@ -441,6 +443,44 @@ class DeviceColumn:
     dict_offsets: torch.Tensor | None = None
     def_levels: np.ndarray | None = None
     rep_levels: np.ndarray | None = None
+    # memoized device copies of the level streams (one upload, shared by
+    # every list_layout() depth)
+    _dev_rep: torch.Tensor | None = None
+    _dev_def: torch.Tensor | None = None
+
+    @property
+    def device(self) -> torch.device | None:
+        """The device the column's tensors lie on."""
+        for t in (self.values, self.indices, self.data):
+            if t is not None:
+                return t.device
+        return None
+
+    def list_layout(self, parent_rep: int, elem_def: int):
+        """Arrow-style offsets and validity of one repeated depth, computed
+        on the column's device from its level streams (device_ops.
+        list_layout): the levels go up once as int32 (memoized) and the
+        results stay on the device.
+
+        Returns (offsets int32[n + 1], first_def int32[n], n_slots, a 0-d
+        int64 tensor); entries past n_slots are padding. Feed
+        `first_def < node.max_def` for the depth's null mask. A column with
+        no def stream counts every entry as fully defined (its def levels
+        saturate at the int32 maximum). Replaces
+        parquet_tpu/kernels/pipeline.py:DeviceColumn.list_layout."""
+        if self.rep_levels is None:
+            raise ValueError("list_layout: column has no repetition levels")
+        dev = self.device
+        if self._dev_rep is None:
+            self._dev_rep = to_device(np.asarray(self.rep_levels, dtype=np.int32), dev)
+        if self._dev_def is None:
+            if self.def_levels is None:
+                self._dev_def = torch.full(
+                    (self.num_values,), np.iinfo(np.int32).max, dtype=torch.int32, device=dev
+                )
+            else:
+                self._dev_def = to_device(np.asarray(self.def_levels, dtype=np.int32), dev)
+        return list_layout(self._dev_rep, self._dev_def, parent_rep, elem_def)
 
 
 class _ChunkPlan:

@@ -2,9 +2,11 @@
 
 The "parameters" of the decode path are the host prescan tables and the
 frozen upload buffers; both packages hold them as NumPy arrays. These
-helpers let a test feed one upload buffer to both packages' kernels and
-compare the two packages' DeviceColumns field by field. Nothing here
-imports the JAX package: the JAX side passes `frozen._asdict()`.
+helpers let a test feed one upload buffer to both packages' kernels,
+compare the two packages' DeviceColumns field by field, and flatten either
+package's device batches to NumPy. Nothing here imports the JAX package:
+the JAX side passes `frozen._asdict()`, and its arrays convert through
+`np.asarray`.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 from ..kernels.device_ops import delta_packed_decode, expand_hybrid
 from ..kernels.pipeline import DeviceColumn, to_device
 
-__all__ = ["DeviceBatch", "frozen_from_numpy", "to_numpy"]
+__all__ = ["DeviceBatch", "batches_to_numpy", "frozen_from_numpy", "to_numpy"]
 
 
 class DeviceBatch(NamedTuple):
@@ -69,4 +71,26 @@ def to_numpy(col: DeviceColumn) -> dict:
     out["dictionary"] = col.dictionary
     out["def_levels"] = col.def_levels
     out["rep_levels"] = col.rep_levels
+    return out
+
+
+def _leaf_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def batches_to_numpy(batch: dict) -> dict:
+    """A device batch, {leaf path: array | (values, mask) | (values,
+    lengths)}, of either package flattened to NumPy: a plain column maps to
+    {path: array}, a MaskedColumn or RaggedColumn (any NamedTuple) to one
+    entry per field, {(path, field): array}. Torch tensors and JAX arrays
+    both convert."""
+    out = {}
+    for path, node in batch.items():
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            for field, x in zip(node._fields, node):
+                out[(path, field)] = _leaf_numpy(x)
+        else:
+            out[path] = _leaf_numpy(node)
     return out

@@ -1,9 +1,9 @@
 """Build a Parquet file from NumPy columns with the port's own encoders.
 
-A small writer for tests and for `chip_smoke.py`: a flat schema of REQUIRED
-or OPTIONAL leaves, one codec, data page version and encoding per column,
-row groups of a fixed row count, and pages cut at about `page_bytes` of
-encoded values. It uses only the port's page encoders (core/page.py), its
+A small writer for tests and for `chip_smoke.py`: a schema of REQUIRED or
+OPTIONAL leaves and single-level LIST columns, one codec, data page version
+and encoding per column, row groups of a fixed row count, and pages cut at
+about `page_bytes` of encoded values (always at record boundaries). It uses only the port's page encoders (core/page.py), its
 Thrift writer and `serialize_footer`, so it runs where neither pyarrow nor
 the JAX package is installed.
 
@@ -22,6 +22,18 @@ PLAIN size past the limit, the chunk's remaining rows go out as PLAIN pages
 rows, and `values`/`indices` hold the non-null cells only. Any codec the
 port registers can be named (SNAPPY and LZ4 through the port's host
 library), and BYTE_STREAM_SPLIT serves FLOAT, DOUBLE, INT32 and INT64.
+
+A spec with `list_lengths=` (elements per row) is a LIST column, written as
+
+    optional group <name> (LIST) {
+      repeated group list { required|optional <type> element }
+    }
+
+with repetition and definition levels: `valid` marks null lists (False;
+such a row has length 0), a row of length 0 that is valid is an empty
+list, and `element_valid` (one flag per element) makes the element
+optional, False marking a null element. `values`/`indices` hold the
+non-null elements only, and the leaf's path is (name, "list", "element").
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ from __future__ import annotations
 import io
 from dataclasses import dataclass
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -49,7 +62,7 @@ from ..meta.parquet_types import (
     Type,
 )
 
-__all__ = ["ColumnSpec", "write_file", "column_values"]
+__all__ = ["ColumnSpec", "write_file", "column_levels", "column_values"]
 
 _DICT = (Encoding.RLE_DICTIONARY, Encoding.PLAIN_DICTIONARY)
 
@@ -69,19 +82,88 @@ class ColumnSpec:
     # PLAIN size at which a chunk's dictionary stops growing and the rest of
     # the chunk falls back to PLAIN pages (pyarrow's dictionary_pagesize_limit)
     dict_fallback_bytes: int | None = None
+    # LIST column: elements per row (0 for a null or an empty list)
+    list_lengths: np.ndarray | None = None
+    # LIST column with an optional element: bool per element, False = null
+    element_valid: np.ndarray | None = None
 
     @property
     def dict_encoded(self) -> bool:
         return Encoding(self.encoding) in _DICT
+
+    @property
+    def is_list(self) -> bool:
+        return self.list_lengths is not None
+
+    @property
+    def path(self) -> tuple:
+        return (self.name, "list", "element") if self.is_list else (self.name,)
 
     def cells(self):
         """The non-null cells as written: indices or values."""
         return self.indices if self.dict_encoded else self.values
 
     def num_rows(self) -> int:
+        if self.is_list:
+            return len(self.list_lengths)
         if self.valid is not None:
             return len(self.valid)
         return len(self.cells())
+
+
+class _Levels(NamedTuple):
+    """A column's level streams over the whole file, and per-row prefixes
+    into them: row r owns level entries entries[r]:entries[r + 1] and
+    non-null cells cells[r]:cells[r + 1]."""
+
+    def_levels: np.ndarray | None  # uint16[entries]
+    rep_levels: np.ndarray | None  # uint16[entries]
+    entries: np.ndarray  # int64[num_rows + 1]
+    cells: np.ndarray  # int64[num_rows + 1]
+
+
+def _levels(spec: ColumnSpec, column) -> _Levels:
+    num_rows = spec.num_rows()
+    if not spec.is_list:
+        entries = np.arange(num_rows + 1, dtype=np.int64)
+        if spec.valid is None:
+            return _Levels(None, None, entries, entries)
+        cells = np.zeros(num_rows + 1, dtype=np.int64)
+        np.cumsum(spec.valid, out=cells[1:])
+        return _Levels(spec.valid.astype(np.uint16), None, entries, cells)
+    lengths = np.asarray(spec.list_lengths, dtype=np.int64)
+    if spec.valid is not None and lengths[~spec.valid].any():
+        raise ValueError(f"synth: {spec.name}: a null list must have length 0")
+    per_row = np.maximum(lengths, 1)
+    entries = np.zeros(num_rows + 1, dtype=np.int64)
+    np.cumsum(per_row, out=entries[1:])
+    n_entries = int(entries[-1])
+    starts = entries[:-1]
+    rep = np.ones(n_entries, dtype=np.uint16)
+    rep[starts] = 0
+    max_def = column.max_def
+    dfl = np.full(n_entries, max_def, dtype=np.uint16)
+    empty = lengths == 0
+    # an empty list is defined through the repeated group's parent (def 1),
+    # a null list is not (def 0)
+    dfl[starts[empty]] = 1
+    if spec.valid is not None:
+        dfl[starts[~spec.valid]] = 0
+    n_elems = int(lengths.sum())
+    elem_prefix = np.zeros(num_rows + 1, dtype=np.int64)
+    np.cumsum(lengths, out=elem_prefix[1:])
+    if spec.element_valid is None:
+        cells = elem_prefix
+    else:
+        ev = np.asarray(spec.element_valid, dtype=bool)
+        if len(ev) != n_elems:
+            raise ValueError(f"synth: {spec.name}: {len(ev)} element flags for {n_elems} elements")
+        is_elem = np.repeat(~empty, per_row)
+        dfl[is_elem] = np.where(ev, max_def, max_def - 1).astype(np.uint16)
+        valid_prefix = np.zeros(n_elems + 1, dtype=np.int64)
+        np.cumsum(ev, out=valid_prefix[1:])
+        cells = valid_prefix[elem_prefix]
+    return _Levels(dfl, rep, entries, cells)
 
 
 def column_values(spec: ColumnSpec):
@@ -91,6 +173,13 @@ def column_values(spec: ColumnSpec):
     if isinstance(spec.dictionary, ByteArrayData):
         return spec.dictionary.take(spec.indices)
     return np.asarray(spec.dictionary)[spec.indices]
+
+
+def column_levels(spec: ColumnSpec) -> tuple:
+    """The (def, rep) level streams the column is written with, over all
+    rows (uint16; None where the column has no such stream)."""
+    lv = _levels(spec, _schema([spec]).column(spec.path))
+    return lv.def_levels, lv.rep_levels
 
 
 def _slice(cells, lo: int, hi: int):
@@ -105,6 +194,31 @@ def _slice(cells, lo: int, hi: int):
 def _schema(specs: list[ColumnSpec]) -> Schema:
     elems = [SchemaElement(name="schema", num_children=len(specs))]
     for s in specs:
+        if s.is_list:
+            elems += [
+                SchemaElement(
+                    name=s.name,
+                    repetition_type=int(FieldRepetitionType.OPTIONAL),
+                    num_children=1,
+                    converted_type=int(ConvertedType.LIST),
+                ),
+                SchemaElement(
+                    name="list",
+                    repetition_type=int(FieldRepetitionType.REPEATED),
+                    num_children=1,
+                ),
+                SchemaElement(
+                    type=int(s.type),
+                    repetition_type=int(
+                        FieldRepetitionType.OPTIONAL
+                        if s.element_valid is not None
+                        else FieldRepetitionType.REQUIRED
+                    ),
+                    name="element",
+                    converted_type=int(ConvertedType.UTF8) if s.utf8 else None,
+                ),
+            ]
+            continue
         elems.append(
             SchemaElement(
                 type=int(s.type),
@@ -187,6 +301,7 @@ def _required(column):
 
     c = copy.copy(column)
     c.max_def = 0
+    c.max_rep = 0
     return c
 
 
@@ -204,37 +319,31 @@ def write_file(
     for s in specs:
         if s.dict_fallback_bytes is not None and not s.dict_encoded:
             raise ValueError(f"synth: {s.name}: dict_fallback_bytes needs a dictionary encoding")
+        if s.dict_fallback_bytes is not None and s.is_list:
+            raise ValueError(f"synth: {s.name}: dict_fallback_bytes is for flat columns")
     schema = _schema(specs)
     out = open(dest, "wb") if isinstance(dest, (str, Path)) else dest
     try:
         out.write(MAGIC)
         pos = len(MAGIC)
-        # cell index at each row: prefix count of the valid mask
-        prefixes = []
-        for s in specs:
-            if s.valid is None:
-                prefixes.append(np.arange(num_rows + 1, dtype=np.int64))
-            else:
-                p = np.zeros(num_rows + 1, dtype=np.int64)
-                np.cumsum(s.valid, out=p[1:])
-                prefixes.append(p)
+        levels = [_levels(s, schema.column(s.path)) for s in specs]
         page_rows = [
             (
-                _rows_per_page(s, schema.column((s.name,)), pre, page_bytes, row_group_rows),
-                _plain_rows_per_page(s, schema.column((s.name,)), page_bytes, row_group_rows)
+                _rows_per_page(s, schema.column(s.path), lv.cells, page_bytes, row_group_rows),
+                _plain_rows_per_page(s, schema.column(s.path), page_bytes, row_group_rows)
                 if s.dict_fallback_bytes is not None
                 else None,
             )
-            for s, pre in zip(specs, prefixes)
+            for s, lv in zip(specs, levels)
         ]
         row_groups = []
         for r0 in range(0, num_rows, row_group_rows):
             r1 = min(num_rows, r0 + row_group_rows)
             chunks = []
             total = 0
-            for s, pre, steps in zip(specs, prefixes, page_rows):
-                column = schema.column((s.name,))
-                cc, nbytes = _write_chunk(out, pos, s, column, pre, r0, r1, steps)
+            for s, lv, steps in zip(specs, levels, page_rows):
+                column = schema.column(s.path)
+                cc, nbytes = _write_chunk(out, pos, s, column, lv, r0, r1, steps)
                 pos += nbytes
                 total += cc.meta_data.total_uncompressed_size
                 chunks.append(cc)
@@ -255,13 +364,14 @@ def write_file(
     return meta
 
 
-def _write_chunk(out, pos, spec, column, prefix, r0, r1, steps):
+def _write_chunk(out, pos, spec, column, levels, r0, r1, steps):
     """Write one column chunk at file position `pos`: (ColumnChunk, bytes)."""
     step, plain_step = steps
+    prefix = levels.cells
     buf = io.BytesIO()
     uncompressed = 0
     dict_offset = None
-    encodings = {int(Encoding.RLE)} if spec.valid is not None else set()
+    encodings = {int(Encoding.RLE)} if levels.def_levels is not None else set()
     dict_size = None
     dictionary = spec.dictionary
     cells = spec.cells()
@@ -299,11 +409,11 @@ def _write_chunk(out, pos, spec, column, prefix, r0, r1, steps):
             page_cells = _slice(cells, lo + c0, lo + c1)
         else:  # PLAIN fallback: the cells' values
             page_cells = _take(spec.dictionary, spec.indices[base + c0 : base + c1])
-        dfl = (
-            spec.valid[p0:p1].astype(np.uint16) if spec.valid is not None else None
-        )
+        e0, e1 = int(levels.entries[p0]), int(levels.entries[p1])
+        dfl = levels.def_levels[e0:e1] if levels.def_levels is not None else None
+        rl = levels.rep_levels[e0:e1] if levels.rep_levels is not None else None
         header, block = encode(
-            column, page_cells, dfl, None, enc, int(spec.codec),
+            column, page_cells, dfl, rl, enc, int(spec.codec),
             dict_size if enc == spec.encoding else None,
         )
         hbytes = header.dumps()
@@ -315,9 +425,9 @@ def _write_chunk(out, pos, spec, column, prefix, r0, r1, steps):
     md = ColumnMetaData(
         type=int(spec.type),
         encodings=sorted(encodings),
-        path_in_schema=[spec.name],
+        path_in_schema=list(spec.path),
         codec=int(spec.codec),
-        num_values=r1 - r0,
+        num_values=int(levels.entries[r1] - levels.entries[r0]),
         total_uncompressed_size=uncompressed,
         total_compressed_size=len(data),
         data_page_offset=data_offset,

@@ -166,6 +166,17 @@ def _cpu_calls():
             torch.tensor([0, 2, 4], dtype=torch.int32), torch.tensor([0, 0], dtype=torch.int32),
             torch.tensor([0, 5], dtype=torch.int64), 4, 16,
         ),
+        "record_starts": (torch.tensor([1, 0, 1, 0, 0], dtype=torch.int32),),
+        "list_layout": (
+            torch.tensor([1, 0, 1, 0, 0], dtype=torch.int32),
+            torch.tensor([2, 2, 1, 0, 2], dtype=torch.int32), 0, 2,
+        ),
+        "pad_ragged": (
+            torch.arange(7, dtype=torch.float32), torch.tensor([2, 0, 4, 3], dtype=torch.int64), 3,
+        ),
+        "expand_nullable": (
+            torch.arange(3, dtype=torch.int64), torch.tensor([True, False, True, True, False]),
+        ),
     }
 
 
@@ -233,5 +244,13 @@ def test_build_key_tracks_sources(tmp_path):
         ["pqt_expand_hybrid", "pqt_dict_gather4", "pqt_dict_gather8",
          "pqt_delta_tile", "pqt_delta_packed_decode", "pqt_bss_transpose",
          "pqt_merge_mixed_numeric4", "pqt_merge_mixed_numeric8",
-         "pqt_merge_bytes_tile", "pqt_merge_mixed_bytes"]
+         "pqt_merge_bytes_tile", "pqt_merge_mixed_bytes", "pqt_scan_tile",
+         "pqt_record_starts", "pqt_list_layout", "pqt_pad_ragged", "pqt_expand_nullable"]
     )
+    # the header compiles into its includers: editing it changes the key
+    h = tmp_path / "scan.cuh"
+    h.write_text("// one")
+    k3 = build._key([a, h])
+    h.write_text("// two")
+    assert build._key([a, h]) != k3
+    assert [p.name for p in build._headers()] == ["scan.cuh"]
