@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive parquet_tpu_torch's decode path on one CUDA card.
+"""Drive parquet_tpu_torch's decode, batch and filter paths on one CUDA card.
 
 Run from the repository root, on a machine with one NVIDIA card and the CUDA
 toolkit (nvcc):
@@ -16,9 +16,15 @@ Phases (any failure raises and the script exits non-zero):
               page, empty pages, all-dict and all-PLAIN chunks; for the
               batch path's kernels n = 0, 1 and 2**20 + 3, no values,
               all-null and no-null masks, leading non-boundary entries,
-              max_len 1, rows longer than a scan tile, every byte width);
+              max_len 1, rows longer than a scan tile, every byte width;
+              for the filter path's kernels every value dtype and op,
+              inexact and NaN brackets, unsigned patterns above 2**31 and
+              2**63, in-lists of up to 64 members, FLBA rows, out-of-range
+              dictionary indices, LIST streams opening mid-record, nv = 0,
+              compaction past out_pad, 2-D and misaligned rows);
   4. main     three 8,388,608-row files (8 row groups of 2**20 rows, ~1 MiB
-              pages, built from a seed with testing/synth.py), each decoded
+              pages, chunk statistics, built from a seed with
+              testing/synth.py), each decoded
               by FileReader(path).read_row_groups_device() and held against
               the generator's arrays, with the launch counts set to 0 just
               before each path and read just after:
@@ -48,10 +54,24 @@ Phases (any failure raises and the script exits non-zero):
               RaggedColumn; pad_ragged must launch), each batch feeding a
               small step on the card (masked sums and row counts) whose
               totals must equal the generator's exactly;
-  5. times    rows/s of the device reads and of the batch streams (the same
-              call, both files), of host decode + upload, of host prepare
-              alone on the fused and the staged walk, and each kernel's
-              CUDA-event time beside its bound.
+     filter   the same two streams with a predicate pushed down
+              (filters=, filter_rows=True): "taxi" under F_taxi, a DNF of
+              two conjunctions over pickup_us, fare_cents, passenger_count
+              and a 12-string zone in-list; "sessions" under items
+              contains its most frequent item and session_id below row
+              group 6's first. Statistics must prune groups 6 and 7, the
+              device engine must take every admitted group (no decline),
+              predicate_mask, leaf_verdict (taxi), list_contains_mask
+              (sessions) and mask_take must launch, and the steps' totals
+              must equal NumPy's over the generator's arrays under the same
+              predicate; then read_row_group_device(i, ["fare_cents"],
+              filters=F_taxi) on every taxi group, mask_take of fare_cents
+              under the mask summed on the card, held against NumPy;
+  5. times    rows/s of the device reads and of the batch streams, filtered
+              and not (the same call, both files), of the filtered read, of
+              host decode + upload, of host prepare alone on the fused and
+              the staged walk, and each kernel's CUDA-event time beside its
+              bound.
 
 The last three lines of standard output are a JSON line of the end-to-end
 rates with the card's name and power limit, the `kernels` JSON line and the
@@ -174,6 +194,49 @@ def bits_equal(a, b) -> tuple[bool, float]:
     if torch.equal(a, b):
         return True, 0.0
     return False, float((a.double() - b.double()).abs().max())
+
+
+def hold_plain(rows: dict, name: str, label: str, got, plain) -> None:
+    """A kernel's outputs against its plain version's on the same inputs, bit
+    for bit (bools as bytes): raises on any difference, and folds the max
+    abs difference into the kernel's row."""
+    import torch
+
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    plain = plain if isinstance(plain, tuple) else (plain,)
+    for g, p in zip(got, plain, strict=True):
+        if g.dtype == torch.bool:
+            g, p = g.view(torch.uint8), p.view(torch.uint8)
+        ok, err = bits_equal(g, p)
+        if not ok:
+            log(f"  {name} {label}: equal=False")
+            raise AssertionError(f"{name} {label} disagrees with its plain version (max abs {err})")
+        rows[name]["max_abs_err"] = max(rows[name].get("max_abs_err", 0.0), err)
+
+
+def record_kernel(rows: dict, name: str, fn, plain, nbytes: int, ops_count: int, bw: float,
+                  lib=None, lib_events: bool = False, shape: str = "") -> None:
+    """One kernel at a main path's shape: held against its plain version on
+    the inputs it is timed on, then its device time beside its bound, its
+    plain version's and the one PyTorch call computing the same function
+    where there is one (`lib_events`: a call that synchronizes inside, timed
+    with events)."""
+    hold_plain(rows, name, f"[{shape}]", fn(), plain())
+    entry = {"ms": device_ms(fn), "plain_ms": device_ms(plain),
+             "library_ms": None if lib is None else
+             (events_ms(lib) if lib_events else device_ms(lib)),
+             "eager_ms": eager_ms(fn), "shape": shape}
+    bytes_ms = nbytes / bw * 1e3
+    ops_ms = ops_count / OPS_PER_S * 1e3
+    entry["bound_ms"] = max(bytes_ms, ops_ms)
+    entry["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    rows[name].update(entry)
+    log(f"  {name} [{shape}]: equal to its plain version; {entry['ms']:.4f} ms on the device "
+        f"(eager call {entry['eager_ms']:.4f} ms), plain {entry['plain_ms']:.4f} ms"
+        + (f", library {entry['library_ms']:.4f} ms" if lib is not None else "")
+        + f"; bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, {nbytes} B, "
+        f"{ops_count} ops); {nbytes / entry['ms'] / 1e6:.1f} GB/s")
 
 
 # -- phase 3: kernel inputs at the main path's shapes ---------------------------
@@ -332,7 +395,9 @@ def smoke_file(specs, name: str = "taxi") -> Path:
     from parquet_tpu_torch.kernels.build import BUILD_ROOT
     from parquet_tpu_torch.testing.synth import write_file
 
-    path = BUILD_ROOT / "smoke" / f"{name}-{SEED}-{ROW_GROUPS}x{RG_ROWS}.parquet"
+    # "stats": the files carry chunk statistics (a cached file from before
+    # them would prune nothing)
+    path = BUILD_ROOT / "smoke" / f"{name}-{SEED}-{ROW_GROUPS}x{RG_ROWS}-stats.parquet"
     if not path.exists():
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(".tmp")
@@ -838,30 +903,14 @@ def batch_kernel_cases(rng, dev):
 def check_batch_kernels(dev, rows: dict) -> None:
     """record_starts, list_layout, pad_ragged and expand_nullable against
     their plain versions on the card, bit for bit, at the edge shapes."""
-    import torch
-
     from parquet_tpu_torch.kernels import device_ops as ops
 
-    errs = {"record_starts": 0.0, "list_layout": 0.0, "pad_ragged": 0.0, "expand_nullable": 0.0}
-    counts = dict.fromkeys(errs, 0)
+    counts = dict.fromkeys(("record_starts", "list_layout", "pad_ragged", "expand_nullable"), 0)
     for name, label, args in batch_kernel_cases(np.random.default_rng(SEED), dev):
-        got = ops.KERNELS[name](*args)
-        plain = getattr(ops, name + "_plain")(*args)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        plain = plain if isinstance(plain, tuple) else (plain,)
-        for g, p in zip(got, plain):
-            if g.dtype == torch.bool:
-                g, p = g.view(torch.uint8), p.view(torch.uint8)
-            ok, err = bits_equal(g, p)
-            if not ok:
-                log(f"  {name} {label}: equal=False")
-                raise AssertionError(f"{name} {label} disagrees with its plain version (max abs {err})")
-            errs[name] = max(errs[name], err)
+        hold_plain(rows, name, label, ops.KERNELS[name](*args),
+                   getattr(ops, name + "_plain")(*args))
         counts[name] += 1
     log("  " + ", ".join(f"{k}: {v} shapes equal" for k, v in counts.items()))
-    for name, err in errs.items():
-        rows[name]["max_abs_err"] = err
 
 
 def time_batch_kernels(sessions_path, taxi_path, dev, rows: dict, bw: float) -> None:
@@ -869,8 +918,9 @@ def time_batch_kernels(sessions_path, taxi_path, dev, rows: dict, bw: float) -> 
     record_starts and list_layout on the sessions file's first items group,
     pad_ragged on that group's values and lengths (as iter_device_batches
     calls it), expand_nullable on the taxi file's first passenger_count
-    group; each beside its bound, its plain version and the one PyTorch call
-    computing the same function where there is one."""
+    group; each held against its plain version on the inputs it is timed
+    on, then timed beside its bound, its plain version and the one PyTorch
+    call computing the same function where there is one."""
     import torch
 
     from parquet_tpu_torch.core.reader import FileReader
@@ -894,19 +944,7 @@ def time_batch_kernels(sessions_path, taxi_path, dev, rows: dict, bw: float) -> 
     pvals = pc.values
 
     def record(name, fn, plain, nbytes, ops_count, lib=None, shape=""):
-        entry = {"ms": device_ms(fn), "plain_ms": device_ms(plain),
-                 "library_ms": device_ms(lib) if lib is not None else None,
-                 "eager_ms": eager_ms(fn), "shape": shape}
-        bytes_ms = nbytes / bw * 1e3
-        ops_ms = ops_count / OPS_PER_S * 1e3
-        entry["bound_ms"] = max(bytes_ms, ops_ms)
-        entry["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
-        rows[name].update(entry)
-        log(f"  {name} [{shape}]: {entry['ms']:.4f} ms on the device (eager call "
-            f"{entry['eager_ms']:.4f} ms), plain {entry['plain_ms']:.4f} ms"
-            + (f", library {entry['library_ms']:.4f} ms" if lib is not None else "")
-            + f"; bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, {nbytes} B, "
-            f"{ops_count} ops); {nbytes / entry['ms'] / 1e6:.1f} GB/s")
+        record_kernel(rows, name, fn, plain, nbytes, ops_count, bw, lib=lib, shape=shape)
 
     # bytes: rep read, row_of written (4 B each) and the 8-byte count; ops:
     # compare, scan and subtract, ~6 per entry
@@ -937,6 +975,303 @@ def time_batch_kernels(sessions_path, taxi_path, dev, rows: dict, bw: float) -> 
            m + 4 * pvals.numel() + 4 * m, 8 * m,
            lib=lambda: torch.zeros(m, dtype=pvals.dtype, device=dev).masked_scatter_(mask, pvals),
            shape=f"taxi passenger_count group 0, n={m} nv={pvals.numel()}")
+
+
+# -- the filter path: predicates, LIST contains, verdicts, compaction ----------
+
+FILTER_KERNELS = ("predicate_mask", "leaf_verdict", "list_contains_mask", "mask_take")
+
+
+def filter_kernel_cases(rng, dev):
+    """(name, label, args, kwargs) of the filter kernels at edge shapes: every
+    value dtype and op, exact and inexact brackets, NaN brackets, unsigned
+    patterns above 2**31 / 2**63 and sub-width masks, bools, in-lists up to
+    64 members, values off the kernel's 4-element alignment,
+    FIXED_LEN_BYTE_ARRAY rows (==, != and in-lists, width 0, patterns of
+    another width, no members); verdicts with and without
+    indices (out-of-range ones) and validity, nd = 0; LIST streams opening
+    mid-record, nv = 0, null and empty lists; compaction with count above
+    out_pad, n = 0, 2-D and misaligned rows; n = 0, 1 and 2**20 + 3."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    big = (1 << 20) + 3
+    for dt in (np.int8, np.int16, np.int32, np.int64, np.uint32, np.uint64,
+               np.float32, np.float64, np.bool_):
+        name = np.dtype(dt).name
+        for n in (0, 1, big):
+            if dt is np.bool_:
+                v = rng.random(n) > 0.5
+            elif np.dtype(dt).kind == "f":
+                v = rng.standard_normal(n).astype(dt)
+                v[::97] = np.nan
+            else:
+                info = np.iinfo(dt)
+                v = rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+            unsigned = np.dtype(dt).kind == "u"
+            tv = t(v.view({np.uint32: np.int32, np.uint64: np.int64}[dt]) if unsigned else v)
+            kw = {"unsigned": True} if unsigned else {}
+            if dt is np.bool_:
+                brackets = ((0, 0, True), (1, 1, True), (0, 1, False))
+            elif np.dtype(dt).kind == "f":
+                x = float(v[0]) if n else 0.25
+                x32 = float(np.float32(x))
+                brackets = ((x, x, True), (x32, float(np.nextafter(np.float32(x32), np.float32(1))),
+                                           False), (float("nan"), float("nan"), False))
+            else:
+                info = np.iinfo(dt)
+                x = int(v[0]) if n else 0
+                brackets = ((x, x, True), (x, min(x + 1, int(info.max)), False),
+                            (int(info.max), int(info.max), True))
+                if unsigned:
+                    top = 1 << (8 * np.dtype(dt).itemsize - 1)
+                    brackets += ((top + 3, top + 3, True),)
+            for lo, hi, exact in brackets:
+                for op in ("==", "!=", "<", "<=", ">", ">="):
+                    yield ("predicate_mask", f"{name} n={n} {op} ({lo}, {hi}, {exact})",
+                           (tv, op, lo, hi, exact), kw)
+            mem = [b[0] for b in brackets] + ([int(x) for x in v[1:62]] if n > 62 and
+                                              np.dtype(dt).kind in "iu" else [])
+            for op in ("in", "not_in"):
+                yield ("predicate_mask", f"{name} n={n} {op} {len(mem)} members",
+                       (tv, op), dict(kw, members=mem[:64]))
+            if dt is np.uint32:
+                yield ("predicate_mask", f"uint32 n={n} < 2**15, 16-bit view",
+                       (tv, "<", 1 << 15, 1 << 15), dict(kw, bits=16))
+    for dt in (np.int8, np.int32, np.int64, np.float64):
+        base = t(rng.integers(-9, 9, 4099).astype(dt))
+        for off in (1, 2, 3):  # values not aligned to the kernel's 4-element loads
+            label = f"{np.dtype(dt).name} values at element offset {off}"
+            yield "predicate_mask", f"{label} >= 0", (base[off:], ">=", 0, 0), {}
+            yield "predicate_mask", f"{label} in", (base[off:], "in"), {"members": [1, -3, 7]}
+    for n, w in ((0, 4), (1, 16), (big, 12), (5000, 1), (7, 0)):
+        rows = rng.integers(0, 2, (n, w), dtype=np.uint8)
+        pat = bytes(rows[0]) if n else bytes(w)
+        for op in ("==", "!="):
+            yield "predicate_mask", f"FLBA n={n} w={w} {op}", (t(rows), op, pat), {}
+            yield ("predicate_mask", f"FLBA n={n} w={w} {op} a pattern of width {w + 1}",
+                   (t(rows), op, bytes(w + 1)), {})
+        # in-lists up to 64 members, one of another width; and none
+        mem = [bytes(r) for r in rows[1:64]] + [bytes(w + 1)] if n > 1 else [pat, bytes(w + 1)]
+        for op in ("in", "not_in"):
+            for m in (mem, []):
+                yield ("predicate_mask", f"FLBA n={n} w={w} {op} {len(m)} members",
+                       (t(rows), op), {"members": m})
+    for n, p, n_dict in ((0, 0.5, 5), (1, 1.0, 1), (1, 0.0, 3), (big, 0.95, 100_000),
+                         (big, 1.0, 7), (big, 0.0, 9), (5000, 0.5, 0)):
+        valid = rng.random(n) < p
+        nd = int(valid.sum())
+        if n_dict == 0:  # a dense verdict
+            verdict, idx = t(rng.random(nd) > 0.5), None
+        else:
+            ix = rng.integers(0, n_dict, nd).astype(np.int32)
+            if nd >= 3:
+                ix[:3] = (-1, n_dict + 4, -n_dict - 9)
+            verdict, idx = t((rng.random(n_dict) > 0.5).view(np.uint8)), t(ix)
+        for fill in (False, True):
+            yield ("leaf_verdict", f"n={n} valid={p} n_dict={n_dict} fill={fill}",
+                   (verdict, idx, t(valid), fill), {})
+        if idx is not None:
+            yield "leaf_verdict", f"nd={nd} n_dict={n_dict} no validity", (verdict, idx), {}
+    for n, lead, nv_rule in ((1, 0, "fit"), (7, 0, "none"), (1000, 3, "fit"), (big, 0, "fit"),
+                             (big, 17, "over"), (5000, 0, "none")):
+        rep = rng.integers(0, 2, n).astype(np.int32)
+        rep[lead:][:1] = 0
+        rep[:lead] = 1
+        dfl = rng.integers(0, 3, n).astype(np.int32)  # 0 null list, 1 empty list
+        nv = {"fit": int((dfl == 2).sum()), "over": int((dfl == 2).sum()) + 50, "none": 0}[nv_rule]
+        yield ("list_contains_mask", f"n={n} lead={lead} nv={nv}",
+               (t(rep), t(dfl), t(rng.random(nv) > 0.7), 2), {})
+    yield ("list_contains_mask", "no def stream (saturated)",
+           (t(np.zeros(3000, np.int32)), t(np.full(3000, 2**31 - 1, np.int32)),
+            t(rng.random(3000) > 0.5), 2**31 - 1), {})
+    for n, p, out_pad in ((0, 0.5, 4), (1, 1.0, 1), (1, 0.0, 3), (big, 0.3, big),
+                          (big, 0.9, 1000), (big, 0.0, 16), (5000, 1.0, 5000)):
+        mask = t(rng.random(n) < p)
+        for label, vals in (("int32", t(rng.integers(-9, 9, n).astype(np.int32))),
+                            ("int64", t(rng.integers(-9, 9, n).astype(np.int64))),
+                            ("bool", t(rng.random(n) > 0.5)),
+                            ("int32[n, 16]", t(rng.integers(0, 99, (n, 16)).astype(np.int32)))):
+            yield "mask_take", f"{label} n={n} p={p} out_pad={out_pad}", (vals, mask, out_pad), {}
+    odd = t(rng.integers(0, 99, 4097).astype(np.int32))[1:]  # 4-byte aligned, not 8
+    yield ("mask_take", "misaligned int32 rows", (odd.view(-1, 2), t(rng.random(2048) > 0.5), 2048),
+           {})
+
+
+def check_filter_kernels(dev, rows: dict) -> None:
+    """The filter kernels against their plain versions on the card, bit for
+    bit, at the edge shapes."""
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    counts = dict.fromkeys(FILTER_KERNELS, 0)
+    for name, label, args, kw in filter_kernel_cases(np.random.default_rng(SEED + 4), dev):
+        hold_plain(rows, name, label, ops.KERNELS[name](*args, **kw),
+                   getattr(ops, name + "_plain")(*args, **kw))
+        counts[name] += 1
+    log("  " + ", ".join(f"{k}: {v} shapes equal" for k, v in counts.items()))
+
+
+def taxi_filter(specs):
+    """F_taxi, a DNF of two conjunctions over the taxi file, and the
+    generator's row mask under it. T is the smallest pickup_us of row group
+    6, so statistics prune groups 6 and 7 under both conjunctions."""
+    s = {sp.name: sp for sp in specs}
+    pickup = s["pickup_us"].values
+    t_cut = int(pickup[6 * RG_ROWS : 7 * RG_ROWS].min())
+    zone_ids = [(k * 8191) % 100_000 for k in range(12)]
+    zones = [s["zone"].dictionary[k].decode() for k in zone_ids]
+    filters = [
+        [("pickup_us", "<", t_cut), ("fare_cents", ">=", 1500), ("passenger_count", ">=", 2)],
+        [("zone", "in", zones), ("pickup_us", "<", t_cut)],
+    ]
+    valid = s["passenger_count"].valid
+    pc = np.zeros(len(valid), np.int64)
+    pc[valid] = s["passenger_count"].indices  # the dictionary is 0..6
+    early = pickup < t_cut
+    keep = (early & (s["fare_cents"].values >= 1500) & valid & (pc >= 2)) | (
+        early & np.isin(s["zone"].indices, zone_ids))
+    return filters, keep
+
+
+def taxi_filtered_totals(specs, keep) -> dict:
+    s = {sp.name: sp for sp in specs}
+    valid = s["passenger_count"].valid
+    pc = np.zeros(len(valid), np.int64)
+    pc[valid] = s["passenger_count"].indices
+    return {
+        "rows": int(keep.sum()),
+        "trip_id": int(s["trip_id"].values[keep].sum()),
+        "fare_cents": int(s["fare_cents"].values[keep].astype(np.int64).sum()),
+        "passengers": int(pc[keep].sum()),
+        "valid": int((keep & valid).sum()),
+        "zone": int(s["zone"].indices[keep].astype(np.int64).sum()),
+    }
+
+
+def sessions_filter(specs):
+    """The sessions filter (contains the most frequent item K, and a session
+    id below S, the smallest of row group 6: the ids rise strictly, so
+    statistics prune groups 6 and 7), the generator's row mask under it,
+    and its step totals."""
+    from parquet_tpu_torch.testing.synth import column_values
+
+    sid, items = specs
+    vals = np.asarray(column_values(items))
+    k_item = int(items.dictionary[np.bincount(items.indices).argmax()])
+    s_cut = int(sid.values[6 * RG_ROWS])
+    lengths = np.asarray(items.list_lengths, dtype=np.int64)
+    row_of = np.repeat(np.arange(len(lengths)), lengths)
+    keep = np.zeros(len(lengths), bool)
+    keep[row_of[vals == k_item]] = True
+    keep &= sid.values < s_cut
+    elem_keep = keep[row_of]
+    total = int(vals[elem_keep].astype(np.int64).sum())
+    totals = {"rows": int(keep.sum()), "items": total, "padded": total,
+              "elements": int(lengths[keep].sum()),
+              "session_id": int(sid.values[keep].sum())}
+    return [("items", "contains", k_item), ("session_id", "<", s_cut)], keep, totals
+
+
+def filtered_read(path, filters, dev) -> tuple[int, int]:
+    """read_row_group_device(i, ["fare_cents"], filters=) on every group,
+    then mask_take of fare_cents under the mask, summed on the card:
+    (kept rows, fare sum)."""
+    import torch
+
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    kept = torch.zeros((), dtype=torch.int64, device=dev)
+    fare = torch.zeros((), dtype=torch.int64, device=dev)
+    with FileReader(path) as r:
+        for i in range(r.num_row_groups):
+            cols, mask = r.read_row_group_device(i, ["fare_cents"], filters=filters)
+            n = mask.numel()
+            taken, count = ops.mask_take(cols[("fare_cents",)].values, mask, n)
+            live = torch.arange(n, device=dev) < count
+            fare += torch.where(live, taken, 0).sum(dtype=torch.int64)
+            kept += count
+    return int(kept), int(fare)
+
+
+def time_filter_kernels(taxi_path, sessions_path, taxi_filters, k_item, dev, rows: dict,
+                        bw: float) -> None:
+    """Device times of the filter kernels at the main paths' shapes:
+    predicate_mask on taxi's first fare_cents group, leaf_verdict on its zone
+    indices (an in-list verdict over the 100,000-entry dictionary) and on
+    its passenger_count validity, list_contains_mask on sessions' first
+    items group, mask_take of taxi's first fare_cents group under F_taxi's
+    mask; each held against its plain version on the inputs it is timed on,
+    then timed beside its bound, its plain version and the one PyTorch call
+    computing the same function where there is one."""
+    import torch
+
+    from parquet_tpu_torch.core.filter_vec import _member_mask
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.kernels.pipeline import to_device
+
+    with FileReader(taxi_path) as r:
+        _cols, fmask = r.read_row_group_device(0, ["fare_cents", "zone", "passenger_count"],
+                                               filters=taxi_filters)
+        leaf = r.schema.column(("zone",))
+    fare = _cols[("fare_cents",)].values
+    zone = _cols[("zone",)]
+    pc = _cols[("passenger_count",)]
+    with FileReader(sessions_path) as r:
+        dc = r.read_row_group_device(0, ["items"])[("items", "list", "element")]
+    rep, dfl = dc.level_tensors()
+    members = [z.encode() for z in taxi_filters[1][0][2]]
+    zverdict = to_device(_member_mask(zone.dictionary, leaf, members, (("zone",), {}))
+                         .view(np.uint8), dev)
+    zverdict_b = zverdict.view(torch.bool)
+    zidx = zone.indices
+    valid = to_device(np.asarray(pc.def_levels) == 1, dev)
+    pverdict = ops.predicate_mask(pc.values, ">=", 2, 2)
+    dm = ops.predicate_mask(dc.values, "==", k_item, k_item)
+    n_f, n_z, n_v, n_l = fare.numel(), zidx.numel(), valid.numel(), rep.numel()
+    kept = int(fmask.sum())
+
+    def record(name, fn, plain, nbytes, ops_count, lib=None, lib_events=False, shape=""):
+        record_kernel(rows, name, fn, plain, nbytes, ops_count, bw, lib=lib,
+                      lib_events=lib_events, shape=shape)
+
+    # bytes: the values read, the mask written; ops: load, compare, store, ~3
+    record("predicate_mask", lambda: ops.predicate_mask(fare, ">=", 1500, 1500),
+           lambda: ops.predicate_mask_plain(fare, ">=", 1500, 1500), 5 * n_f, 3 * n_f,
+           lib=lambda: fare >= 1500, shape=f"taxi fare_cents group 0, n={n_f} int32")
+    # bytes: indices and the verdict read, the mask written; ops: wrap,
+    # clamp, gather, ~6 per row
+    record("leaf_verdict", lambda: ops.leaf_verdict(zverdict, zidx),
+           lambda: ops.leaf_verdict_plain(zverdict, zidx), 4 * n_z + zverdict.numel() + n_z,
+           6 * n_z, lib=lambda: zverdict_b[zidx],
+           shape=f"taxi zone group 0, n={n_z} indices, {zverdict.numel()}-entry verdict")
+    v_shape = f"taxi passenger_count group 0, validity of {n_v} rows, {pverdict.numel()} dense"
+    hold_plain(rows, "leaf_verdict", f"[{v_shape}]", ops.leaf_verdict(pverdict, None, valid),
+               ops.leaf_verdict_plain(pverdict, None, valid))
+    t_v = {"ms": device_ms(lambda: ops.leaf_verdict(pverdict, None, valid)),
+           "plain_ms": device_ms(lambda: ops.leaf_verdict_plain(pverdict, None, valid)),
+           "library_ms": device_ms(lambda: torch.zeros(n_v, dtype=torch.bool, device=dev)
+                                   .masked_scatter_(valid, pverdict)),
+           "bound_ms": (2 * n_v + pverdict.numel()) / bw * 1e3}
+    rows["leaf_verdict"]["validity"] = t_v
+    log(f"  leaf_verdict [{v_shape}]: equal to its plain version; {t_v['ms']:.4f} ms, "
+        f"plain {t_v['plain_ms']:.4f} ms, "
+        f"library {t_v['library_ms']:.4f} ms; bound {t_v['bound_ms']:.4f} ms (bytes)")
+    # bytes: rep and dfl read, the dense mask read, rows written, the count;
+    # ops: two compares, the packed scan, two clamps and the store, ~20 per entry
+    record("list_contains_mask", lambda: ops.list_contains_mask(rep, dfl, dm, 2),
+           lambda: ops.list_contains_mask_plain(rep, dfl, dm, 2),
+           8 * n_l + dm.numel() + n_l + 8, 20 * n_l,
+           shape=f"sessions items group 0, n={n_l}, nv={dm.numel()}")
+    # bytes: the mask read, the kept values read and written, the count;
+    # ops: the scan and the placement, ~8 per entry, and ~4 per kept row
+    record("mask_take", lambda: ops.mask_take(fare, fmask, kept),
+           lambda: ops.mask_take_plain(fare, fmask, kept), n_f + 8 * kept + 8,
+           8 * n_f + 4 * kept, lib=lambda: fare[fmask], lib_events=True,
+           shape=f"taxi fare_cents group 0 under F_taxi, n={n_f} kept={kept}")
 
 
 def time_new_kernels(mixed_path, dev, rows: dict, bw: float) -> None:
@@ -1144,7 +1479,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.core.reader import FileReader, filter_counts, reset_filter_counts
     from parquet_tpu_torch.kernels import build
     from parquet_tpu_torch.kernels import device_ops as ops
     from parquet_tpu_torch.kernels.pipeline import (
@@ -1186,6 +1521,11 @@ def main() -> int:
         "list_layout": (csrc + "list_layout.cu", "parquet_tpu/kernels/device_ops.py:275"),
         "pad_ragged": (csrc + "pad_ragged.cu", "parquet_tpu/core/reader.py:242"),
         "expand_nullable": (csrc + "expand_nullable.cu", "parquet_tpu/core/reader.py:286"),
+        "predicate_mask": (csrc + "predicate_mask.cu", "parquet_tpu/kernels/device_ops.py:327"),
+        "leaf_verdict": (csrc + "leaf_verdict.cu", "parquet_tpu/core/filter_device.py:169"),
+        "list_contains_mask": (csrc + "list_contains_mask.cu",
+                               "parquet_tpu/kernels/device_ops.py:355"),
+        "mask_take": (csrc + "mask_take.cu", "parquet_tpu/kernels/device_ops.py:388"),
     }
     rows = {
         k: {"name": k, "route": "cuda", "source": src, "replaces": rep}
@@ -1196,6 +1536,8 @@ def main() -> int:
     check_kernels(dev, rows)
     log("[kernels] the batch path's kernels at edge shapes")
     check_batch_kernels(dev, rows)
+    log("[kernels] the filter path's kernels at edge shapes")
+    check_filter_kernels(dev, rows)
 
     launches: dict[str, dict] = {}
 
@@ -1300,6 +1642,64 @@ def main() -> int:
             if counts[k] <= 0:
                 raise AssertionError(f"{k} was not launched on the {label} path")
         log(f"[batches:{label}] step totals equal the generator's: {got}")
+    # the filtered paths: two batch streams compacted on the card, and a
+    # filtered read per group; statistics prune groups 6 and 7 of both files
+    taxi_path, taxi_specs = paths["taxi"]
+    f_taxi, taxi_keep = taxi_filter(taxi_specs)
+    f_sessions, _sessions_keep, sessions_want = sessions_filter(sessions_specs)
+    filtered_paths = {
+        "taxi filtered batches": (taxi_path, dict(nullable="mask", filters=f_taxi,
+                                                  filter_rows=True), taxi_step,
+                                  taxi_filtered_totals(taxi_specs, taxi_keep)),
+        "sessions filtered batches": (sessions_path, dict(lists="pad", max_list_len=MAX_LIST_LEN,
+                                                          filters=f_sessions, filter_rows=True),
+                                      sessions_step, sessions_want),
+    }
+    filter_need = ("predicate_mask", "mask_take")
+    for label, (path, kwargs, step, want) in filtered_paths.items():
+        ops.reset_launch_counts()
+        reset_filter_counts()
+        t = time.perf_counter()
+        got, n_batches = run_batches(path, kwargs, step)
+        secs = time.perf_counter() - t
+        counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
+        fc = filter_counts()
+        launches[label] = counts
+        log(f"[filter:{label}] {n_batches} batches, {got.get('rows', 0)} of {n_rows} rows kept "
+            f"in {secs:.2f} s; filter counts {fc}; launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items()))
+        if got != want:
+            raise AssertionError(f"{label}: step totals {got} differ from NumPy's {want}")
+        admitted = ROW_GROUPS - 2
+        if (fc.get("groups_pruned_stats") != 2 or fc.get("groups_pruned_bloom")
+                or fc.get("device_filter_engaged") != admitted
+                or fc.get("device_filter_declined")):
+            raise AssertionError(f"{label}: filter counts {fc}, expected 2 groups pruned by "
+                                 f"statistics and the device engine on all {admitted} others")
+        more = ("list_contains_mask", "pad_ragged") if "sessions" in label else (
+            "leaf_verdict", "expand_nullable")
+        for k in filter_need + more:
+            if counts[k] <= 0:
+                raise AssertionError(f"{k} was not launched on the {label} path")
+        log(f"[filter:{label}] step totals equal NumPy's under the filter: {got}")
+    ops.reset_launch_counts()
+    reset_filter_counts()
+    kept, fare = filtered_read(taxi_path, f_taxi, dev)
+    counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
+    fc = filter_counts()
+    launches["taxi filtered read"] = counts
+    want = (int(taxi_keep.sum()),
+            int(next(sp for sp in taxi_specs if sp.name == "fare_cents").values[taxi_keep]
+                .astype(np.int64).sum()))
+    log(f"[filter:taxi filtered read] read_row_group_device(i, ['fare_cents'], filters=F_taxi) "
+        f"+ mask_take on {ROW_GROUPS} groups: kept {kept}, fare sum {fare}; filter counts {fc}")
+    if (kept, fare) != want:
+        raise AssertionError(f"filtered read: (kept, fare sum) {(kept, fare)} != NumPy's {want}")
+    if fc.get("device_filter_engaged") != ROW_GROUPS or fc.get("device_filter_declined"):
+        raise AssertionError(f"filtered read: filter counts {fc}")
+    for k in ("predicate_mask", "leaf_verdict", "mask_take"):
+        if counts[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the filtered read")
     for k in rows:
         rows[k]["launches"] = sum(c[k] for c in launches.values())
         rows[k]["launches_by_path"] = {label: c[k] for label, c in launches.items()}
@@ -1340,17 +1740,29 @@ def main() -> int:
         path, kwargs, step, _want, _need = batch_paths[label]
         return run_batches(path, kwargs, step)
 
+    def filtered_stream(label):
+        path, kwargs, step, _want = filtered_paths[label]
+        return run_batches(path, kwargs, step)
+
     runs = [("taxi device", lambda: device_read(paths["taxi"][0])),
             ("taxi batches", lambda: batch_stream("taxi batches")),
+            ("taxi filtered batches", lambda: filtered_stream("taxi filtered batches")),
+            ("taxi filtered read", lambda: filtered_read(taxi_path, f_taxi, dev)),
             ("taxi host+upload", lambda: host_read_upload(paths["taxi"][0])),
             ("taxi_mixed device", lambda: device_read(mixed_path)),
             ("sessions device", lambda: device_read(sessions_path)),
-            ("sessions batches", lambda: batch_stream("sessions batches"))]
+            ("sessions batches", lambda: batch_stream("sessions batches")),
+            ("sessions filtered batches", lambda: filtered_stream("sessions filtered batches"))]
     for label, fn in runs:
         fn()
         med, secs = median_s(fn)
         rates[label] = n_rows / med
-        log(f"  {label}: {rates[label]:,.0f} rows/s (median of {[round(x, 3) for x in secs]} s)")
+        extra = ""
+        if "filtered" in label:
+            keep = taxi_keep if label.startswith("taxi") else _sessions_keep
+            extra = f"; over input rows, {int(keep.sum())} kept, 2 groups pruned"
+        log(f"  {label}: {rates[label]:,.0f} rows/s (median of {[round(x, 3) for x in secs]} s)"
+            + extra)
     prepare = {}
     for label in paths:
         # the staged walk is the fallback: timed on the two taxi files only
@@ -1372,6 +1784,7 @@ def main() -> int:
     time_kernels(paths["taxi"][0], dev, rows, bw)
     time_new_kernels(mixed_path, dev, rows, bw)
     time_batch_kernels(sessions_path, paths["taxi"][0], dev, rows, bw)
+    time_filter_kernels(taxi_path, sessions_path, f_taxi, f_sessions[0][2], dev, rows, bw)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"rows_per_s": rates, "prepare_s": prepare, "card": smi}))

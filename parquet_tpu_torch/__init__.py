@@ -5,6 +5,8 @@ The PyTorch/CUDA port of parquet_tpu's decode path. The host walks pages
 streams of each column chunk go to the device as packed upload buffers and
 are decoded there by hand-written CUDA kernels (kernels/csrc/): hybrid
 RLE/bit-packed expansion, dictionary gather and DELTA_BINARY_PACKED decode.
+Filters prune row groups by statistics and bloom filters and evaluate as
+device row masks, compacted on the card.
 
     from parquet_tpu_torch import FileReader
     with FileReader("trips.parquet") as r:          # device=None -> CUDA
@@ -14,6 +16,10 @@ RLE/bit-packed expansion, dictionary gather and DELTA_BINARY_PACKED decode.
             100_000, nullable="mask", lists="pad", max_list_len=16):
         ...                                         # {path: Tensor | MaskedColumn | RaggedColumn}
 
+    for batch in FileReader("trips.parquet").iter_device_batches(
+            100_000, filters=[("fare", ">=", 1500)], filter_rows=True):
+        ...                                         # matching rows only, compacted on the card
+
 `device="cpu"` runs the kernels' plain PyTorch versions on the CPU; without
 it a machine with no CUDA raises.
 """
@@ -22,7 +28,17 @@ from .core.arrays import ByteArrayData
 from .core.chunk import ChunkData, ChunkError, read_chunk
 from .core.compress import CompressionError
 from .core.page import PageError
-from .core.reader import BACKENDS, FileReader, MaskedColumn, RaggedColumn
+from .core.filter import FilterError
+from .core.filter_device import DeviceFilterError
+from .core.filter_vec import VecFilterError
+from .core.reader import (
+    BACKENDS,
+    FileReader,
+    MaskedColumn,
+    RaggedColumn,
+    filter_counts,
+    reset_filter_counts,
+)
 from .core.schema import Column, Schema
 from .kernels.pipeline import DecodeStats, DeviceColumn
 from .meta.file_meta import ParquetFileError, read_file_metadata
@@ -36,12 +52,17 @@ __all__ = [
     "CompressionError",
     "DecodeStats",
     "DeviceColumn",
+    "DeviceFilterError",
     "FileReader",
+    "FilterError",
     "MaskedColumn",
     "PageError",
     "ParquetFileError",
     "RaggedColumn",
     "Schema",
+    "VecFilterError",
+    "filter_counts",
     "read_chunk",
     "read_file_metadata",
+    "reset_filter_counts",
 ]

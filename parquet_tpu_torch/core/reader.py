@@ -15,6 +15,14 @@ RaggedColumn for padded LIST columns). Chunks are planned and dispatched
 serially on the calling thread, so every launch goes to that thread's
 current CUDA stream.
 
+Filters (pyarrow-style (column, op, value) conjunctions, or an OR of them)
+prune row groups by their statistics and bloom filters
+(prune_row_groups), evaluate as a device row mask over a group's
+delivered columns (read_row_group_device(filters=), core/filter_device,
+with the host vec engine as its typed and counted fallback), and compact
+a batch stream on the device (iter_device_batches(filters=,
+filter_rows=True)). filter_counts() reads the plain counters of that path.
+
 The device is explicit: `device=None` means `torch.device("cuda")`, and a
 reader built without a device on a machine with no CUDA raises rather than
 decoding on the CPU. Pass `device="cpu"` to run the kernels' plain PyTorch
@@ -25,28 +33,65 @@ from __future__ import annotations
 
 import io
 import threading
+from collections import Counter
 from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..kernels.device_ops import expand_nullable, pad_ragged
+from ..kernels.device_ops import expand_nullable, mask_take_rows, mask_take_scan, pad_ragged
 from ..kernels.pipeline import DecodeStats, DeviceColumn, plan_chunk_device, to_device
 from ..meta.file_meta import ParquetFileError, read_file_metadata
-from ..meta.parquet_types import FieldRepetitionType, FileMetaData, RowGroup
+from ..meta.parquet_types import BloomFilterHeader, FieldRepetitionType, FileMetaData, RowGroup
+from ..meta.thrift import CompactReader, ThriftError
+from .bloom import BloomFilter
 from .chunk import ChunkData, ChunkWindow, chunk_byte_range, read_chunk
+from .filter import chunks_by_path, normalize_dnf, row_group_may_match
+from .filter_device import DeviceFilterError, device_dnf_mask
+from .filter_vec import dnf_mask
 from .schema import Schema
+from .stats import column_is_unsigned
 
 __all__ = [
     "FileReader",
     "BACKENDS",
     "MaskedColumn",
     "RaggedColumn",
+    "filter_counts",
+    "reset_filter_counts",
     "resolve_device",
 ]
 
 BACKENDS = ("host", "device", "device_roundtrip")
+
+# -- filter counters ---------------------------------------------------------------
+#
+# The counters the JAX package bumps through utils.trace on its filter path:
+# device_filter_engaged / device_filter_declined (a group's row mask from
+# the device engine, or from the host vec engine after a typed decline),
+# and groups_pruned_stats / groups_pruned_bloom (row groups the pruning walk
+# excluded, by the rung that excluded them). Process-wide, like the prepare
+# counters: read with filter_counts(), zero with reset_filter_counts().
+
+_FILTER_COUNTS: Counter = Counter()
+_FILTER_LOCK = threading.Lock()
+
+
+def _bump(name: str, n: int = 1) -> None:
+    with _FILTER_LOCK:
+        _FILTER_COUNTS[name] += n
+
+
+def filter_counts() -> dict:
+    """A snapshot of the filter counters."""
+    with _FILTER_LOCK:
+        return dict(_FILTER_COUNTS)
+
+
+def reset_filter_counts() -> None:
+    with _FILTER_LOCK:
+        _FILTER_COUNTS.clear()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -153,6 +198,7 @@ class FileReader:
         # page routing counts of every device plan this reader made
         self.stats = DecodeStats()
         self._lock = threading.Lock()
+        self._bloom_cache: dict = {}
         if isinstance(source, (str, Path)):
             self._f = open(source, "rb")
             self._owns_file = True
@@ -212,10 +258,12 @@ class FileReader:
         offset, total = chunk_byte_range(cc)
         if offset >= self._size or total <= 0:
             return ChunkWindow(b"", offset)
+        return ChunkWindow(self._pread(offset, min(total, self._size - offset)), offset)
+
+    def _pread(self, offset: int, length: int) -> bytes:
         with self._lock:
             self._f.seek(offset)
-            buf = self._f.read(min(total, self._size - offset))
-        return ChunkWindow(buf, offset)
+            return self._f.read(length)
 
     # -- host delivery ---------------------------------------------------------
 
@@ -225,6 +273,9 @@ class FileReader:
         if self.backend == "device_roundtrip":
             plans = self._plan_row_group(i, columns, self.device)
             return {path: plan.finalize() for path, plan in plans.items()}
+        return self._read_host(i, columns)
+
+    def _read_host(self, i: int, columns) -> dict[tuple, ChunkData]:
         return {
             path: read_chunk(self._window(cc), cc, column, validate_crc=self.validate_crc)
             for path, cc, column in self._selected_chunks(i, columns)
@@ -241,14 +292,75 @@ class FileReader:
             for path, cc, column in self._selected_chunks(i, columns)
         }
 
-    def read_row_group_device(
-        self, i: int, columns=None, device=None
-    ) -> dict[tuple, DeviceColumn]:
+    def read_row_group_device(self, i: int, columns=None, device=None, *, filters=None):
         """Decode one row group straight into device memory: {leaf path:
-        DeviceColumn}. `device` overrides the reader's device for this call."""
+        DeviceColumn}. `device` overrides the reader's device for this call.
+
+        `filters` (a (column, op, value) conjunction, or a list of lists:
+        the OR-of-ANDs DNF convention) additionally evaluates the predicate
+        over the delivered columns and returns ({leaf path: DeviceColumn},
+        mask), the mask a bool[num_rows] tensor computed on the device
+        (core/filter_device; the host vec engine takes over, typed and
+        counted, for any shape the device engine declines). Any filter
+        column missing from `columns` is read and delivered too. The
+        columns are NOT compacted: feed the mask to
+        kernels.device_ops.mask_take for the gather, or carry it into
+        masked reductions."""
         dev = self.device if device is None else resolve_device(device)
-        plans = self._plan_row_group(i, columns, dev)
-        return {path: plan.device_column() for path, plan in plans.items()}
+        if filters is None:
+            plans = self._plan_row_group(i, columns, dev)
+            return {path: plan.device_column() for path, plan in plans.items()}
+        normalized = normalize_dnf(self.schema, filters)
+        plans = self._plan_row_group(i, self._columns_with_filters(columns, normalized), dev)
+        cols = {path: plan.device_column() for path, plan in plans.items()}
+        n = int(self.row_group(i).num_rows or 0)
+        return cols, self._device_group_mask(i, cols, normalized, n, dev)
+
+    def _columns_with_filters(self, columns, normalized):
+        """The read set a row-filtered device read needs: the caller's
+        projection plus any filter-referenced leaf it misses (None = all
+        columns, which already covers every filter leaf)."""
+        if columns is None:
+            return None
+        proj = resolve_column_prefixes(self.schema, columns)
+        fpaths = {e[0] for conj in normalized for e in conj}
+        return sorted(proj) + sorted(p for p in fpaths if p not in proj)
+
+    def _device_group_mask(self, i, group, normalized, n, dev, *, null_mode="row"):
+        """bool[n] DEVICE row mask for group i's delivered columns — the
+        engine ladder: the device kernels (filter_device.device_dnf_mask)
+        first; a typed decline counts device_filter_declined and derives the
+        mask with the host vec engine, uploaded (a shape even it declines
+        raises its typed VecFilterError). Anything else, a CUDA error
+        included, propagates."""
+        try:
+            mask = device_dnf_mask(group, normalized, n, null_mode=null_mode, device=dev)
+        except DeviceFilterError:
+            _bump("device_filter_declined")
+            return to_device(self._host_row_mask(i, normalized, n, null_mode), dev)
+        _bump("device_filter_engaged")
+        return mask
+
+    def _host_row_mask(self, i, normalized, n, null_mode="row"):
+        """Host-engine fallback mask: decode the filter columns on the host
+        and run the vec mask pipeline (np bool[n])."""
+        cols = sorted({e[0] for conj in normalized for e in conj})
+        chunks = self._read_host(i, cols) if cols else {}
+        return dnf_mask(chunks, normalized, n, null_mode=null_mode)
+
+    def _device_filter_rows(self, i, group, normalized, arrs, n, dev):
+        """Row-level compaction of one staged group (iter_device_batches
+        filter_rows=True): DNF -> device mask (_device_group_mask, with its
+        typed and counted host fallback) -> ONE mask_take scan shared by
+        every delivered leaf, then one row gather per tensor into exactly
+        the kept rows. The kept count is the group's one host sync.
+        Returns (filtered arrs, kept rows)."""
+        mask = self._device_group_mask(i, group, normalized, n, dev)
+        src, count = mask_take_scan(mask, n)
+        kept = int(count)
+        if kept == n or kept == 0:
+            return arrs, kept
+        return _tree_map(lambda a: mask_take_rows(a, src, count, kept), arrs), kept
 
     def read_row_groups_device(
         self, row_groups=None, columns=None, device=None
@@ -275,6 +387,8 @@ class FileReader:
         lists: str = "error",
         max_list_len: int | None = None,
         device=None,
+        filters=None,
+        filter_rows: bool = False,
     ):
         """Stream the file as fixed-size device-resident batches.
 
@@ -312,6 +426,23 @@ class FileReader:
         lookahead): memory stays bounded by two row groups plus the carry.
         With drop_remainder=False the final short batch is yielded as is.
 
+        `filters` pushes a predicate (a (column, op, value) conjunction, or
+        a list of lists: the OR-of-ANDs DNF convention) down to ROW-GROUP
+        granularity: groups whose statistics or bloom filters exclude it
+        are never prepared, uploaded or decoded (counted as
+        groups_pruned_stats / groups_pruned_bloom). Surviving groups stream
+        whole: rows are not filtered one by one.
+
+        `filter_rows=True` (requires `filters`) extends the push-down to
+        ROW granularity on the device: each surviving group's predicate
+        evaluates as a device mask over the resident columns
+        (core/filter_device) and one mask_take scan compacts every leaf to
+        the matching rows, which pack densely across group boundaries. A
+        predicate shape the device engine cannot run falls back, typed and
+        counted (device_filter_engaged / device_filter_declined), to the
+        host vec engine's mask with the same compaction. Filter columns
+        missing from `columns=` are read for the mask but not batched.
+
         `device` overrides the reader's device for every batch. All work runs
         on the calling thread's current CUDA stream.
         """
@@ -334,14 +465,22 @@ class FileReader:
                         "repetition levels; ragged batching covers "
                         "single-level LIST columns only"
                     )
+        normalized = None
+        if filters is not None:
+            # eager, like every other argument: a bad column or op fails
+            # here, not at the first next()
+            normalized = normalize_dnf(self.schema, filters)
+        if filter_rows and normalized is None:
+            raise ValueError("filter_rows=True requires filters")
         dev = self.device if device is None else resolve_device(device)
         return self._iter_device_batches(
-            batch_size, columns, drop_remainder, nullable, lists, max_list_len, dev
+            batch_size, columns, drop_remainder, nullable, lists, max_list_len, dev,
+            normalized, filter_rows,
         )
 
     def _iter_device_batches(
         self, batch_size: int, columns, drop_remainder: bool, nullable: str,
-        lists: str, max_list_len, dev: torch.device,
+        lists: str, max_list_len, dev: torch.device, normalized, filter_rows: bool,
     ):
         def _ragged(path, dc, arr):
             leaf = self.schema.column(path)
@@ -417,11 +556,24 @@ class FileReader:
                 )
             return arr
 
-        groups = list(range(self.num_row_groups))
+        if normalized is not None:
+            # group-level push-down: excluded groups never touch the device
+            groups = self._prune_groups_normalized(normalized)
+        else:
+            groups = list(range(self.num_row_groups))
+        # row-level push-down reads the filter leaves too (the mask needs
+        # them resident), but only the caller's projection batches
+        proj = None
+        read_columns = columns
+        if filter_rows:
+            proj = resolve_column_prefixes(self.schema, columns) if columns else self._selected
+            read_columns = self._columns_with_filters(
+                columns if columns else (sorted(proj) if proj else None), normalized
+            )
 
         def stage(i):
             # prepare + upload + launch, nothing delivered yet
-            return self._plan_row_group(i, columns, dev)
+            return self._plan_row_group(i, read_columns, dev)
 
         staged_next = stage(groups[0]) if groups else None
         carry: dict = {}
@@ -429,10 +581,13 @@ class FileReader:
         for gi, i in enumerate(groups):
             staged = staged_next
             staged_next = stage(groups[gi + 1]) if gi + 1 < len(groups) else None
-            arrs = {
-                path: _array_of(path, plan.device_column()) for path, plan in staged.items()
-            }
+            group = {path: plan.device_column() for path, plan in staged.items()}
             del staged
+            arrs = {
+                path: _array_of(path, dc)
+                for path, dc in group.items()
+                if proj is None or path in proj
+            }
             if not arrs:
                 continue
             lengths = {t.shape[0] for t in _tree_leaves(arrs)}
@@ -442,6 +597,11 @@ class FileReader:
                     f"{sorted(lengths)}"
                 )
             n = lengths.pop()
+            if filter_rows:
+                arrs, n = self._device_filter_rows(i, group, normalized, arrs, n, dev)
+                if not n:
+                    continue
+            del group
             cat = _tree_map(lambda c, a: torch.cat([c, a]), carry, arrs) if carry_n else arrs
             total = carry_n + n
             # cursor slicing: each batch is one row slice; the tail is sliced
@@ -455,6 +615,121 @@ class FileReader:
             carry = _tree_map(lambda a: a[off:], cat) if carry_n else {}
         if carry_n and not drop_remainder:
             yield carry
+
+    # -- row-group pruning -----------------------------------------------------
+
+    def prune_row_groups(self, filters) -> list[int]:
+        """Row-group indices whose chunk statistics and bloom filters admit
+        the filters: groups provably excluded by written min/max/null-count
+        (or by a bloom filter proving an equality value absent) never load."""
+        return self.prune_row_groups_counted(filters)[0]
+
+    def prune_row_groups_counted(self, filters) -> tuple:
+        """`(admitted_indices, stats_pruned, bloom_pruned)`: the pruning walk
+        of prune_row_groups, attributing each excluded group to the rung
+        that excluded it (statistics first, then bloom)."""
+        return self._prune_counted(normalize_dnf(self.schema, filters))
+
+    def _prune_counted(self, dnf) -> tuple:
+        admitted: list[int] = []
+        stats_pruned = bloom_pruned = 0
+        for i in range(self.num_row_groups):
+            # one walk per (group, conjunction): dnf_group_may_match's OR
+            # semantics, unrolled so each stats evaluation happens once and
+            # the excluding rung is known without a second pass
+            rg = self.row_group(i)
+            stats_ok = survives = False
+            for conj in dnf:
+                if not row_group_may_match(rg, conj):
+                    continue
+                stats_ok = True
+                if self._bloom_excludes(i, conj):
+                    continue
+                survives = True
+                break
+            if survives:
+                admitted.append(i)
+            elif stats_ok:
+                bloom_pruned += 1
+            else:
+                stats_pruned += 1
+        return admitted, stats_pruned, bloom_pruned
+
+    def _prune_groups_normalized(self, dnf) -> list[int]:
+        """The groups a normalized DNF admits; the excluded ones are counted
+        as groups_pruned_stats / groups_pruned_bloom."""
+        admitted, stats_pruned, bloom_pruned = self._prune_counted(dnf)
+        _bump("groups_pruned_stats", stats_pruned)
+        _bump("groups_pruned_bloom", bloom_pruned)
+        return admitted
+
+    def read_bloom_filter(self, i: int, column):
+        """The split-block bloom filter of one column chunk, or None when
+        the chunk carries none."""
+        path = tuple(column.split(".")) if isinstance(column, str) else tuple(column)
+        if (i, path) in self._bloom_cache:
+            return self._bloom_cache[(i, path)]
+        for cc in self.row_group(i).columns or []:
+            md = cc.meta_data
+            if md is None or tuple(md.path_in_schema or []) != path:
+                continue
+            off = md.bloom_filter_offset
+            if not off or off <= 0:
+                self._bloom_cache[(i, path)] = None
+                return None
+            length = md.bloom_filter_length
+            if not length or length <= 0:
+                # header precedes the bitset; peek enough for the header,
+                # parse numBytes, then take exactly header + bitset
+                try:
+                    r = CompactReader(self._pread(off, 64))
+                    h = BloomFilterHeader.read(r)
+                except ThriftError as e:
+                    raise ParquetFileError(
+                        f"parquet: corrupt bloom header for {'.'.join(path)}: {e}"
+                    ) from e
+                length = r.pos + (h.numBytes or 0)
+            try:
+                bf = BloomFilter.from_buffer(self._pread(off, length))
+            except (ValueError, ThriftError) as e:
+                raise ParquetFileError(
+                    f"parquet: corrupt bloom filter for {'.'.join(path)}: {e}"
+                ) from e
+            self._bloom_cache[(i, path)] = bf
+            return bf
+        raise ParquetFileError(f"parquet: column {'.'.join(path)} not in row group")
+
+    def _bloom_excludes(self, i: int, normalized) -> bool:
+        """True when some equality predicate's value is PROVABLY absent from
+        row group i per its bloom filter (false-positive-only structure:
+        never excludes a group that contains the value)."""
+        by_path = chunks_by_path(self.row_group(i))
+        for path, leaf, op, _rv, vlo, vhi in normalized:
+            if op == "==":
+                if vlo is None or vlo != vhi:
+                    continue
+                probes = [vlo]
+            elif op == "in":
+                # exclusion needs EVERY member provably absent, so every
+                # bracket must be exact ([] is handled by stats pruning)
+                if not vlo or any(a != b for a, b in vlo):
+                    continue
+                probes = [a for a, _ in vlo]
+            else:
+                continue
+            cc = by_path.get(path)
+            if cc is None or not cc.meta_data.bloom_filter_offset:
+                continue
+            try:
+                bf = self.read_bloom_filter(i, path)
+            except ParquetFileError:
+                continue  # corrupt filter: never exclude on it
+            if bf is not None and all(
+                not bf.might_contain(leaf.type, p, column_is_unsigned(leaf))
+                for p in probes
+            ):
+                return True
+        return False
 
     # -- lifetime --------------------------------------------------------------
 

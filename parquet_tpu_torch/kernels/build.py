@@ -40,6 +40,8 @@ LIB_NAME = "libpqt_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_ULL = ctypes.c_ulonglong
+_D = ctypes.c_double
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
     "pqt_expand_hybrid": (_P, _I, _I, _I, _P, _P),
@@ -64,6 +66,14 @@ SIGNATURES = {
     "pqt_list_layout": (_P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P),
     "pqt_pad_ragged": (_P, _LL, _I, _P, _I, _LL, _I, _P, _P, _P, _P),
     "pqt_expand_nullable": (_P, _LL, _I, _P, _LL, _P, _P, _P, _P),
+    "pqt_predicate_mask": (
+        _P, _LL, _I, _I, _LL, _LL, _D, _D, _I, _ULL, _P, _P, _I, _P, _P,
+    ),
+    "pqt_fixed_members": (_P, _LL, _I, _P, _I, _I, _P, _P),
+    "pqt_leaf_verdict": (_P, _LL, _P, _LL, _P, _LL, _I, _P, _P, _P, _P),
+    "pqt_list_contains_mask": (_P, _P, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P),
+    "pqt_mask_scan": (_P, _LL, _LL, _P, _P, _P, _P, _P),
+    "pqt_take_rows": (_P, _LL, _LL, _I, _P, _P, _LL, _P, _P),
 }
 
 _lib = None

@@ -1,4 +1,4 @@
-"""Device primitives: the kernels of the decode path and of the batch path.
+"""Device primitives: the kernels of the decode, batch and filter paths.
 
 Each primitive has three parts:
 
@@ -20,6 +20,8 @@ compute in int64 lanes with explicit masks.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -48,6 +50,18 @@ __all__ = [
     "pad_ragged_plain",
     "expand_nullable",
     "expand_nullable_plain",
+    "predicate_mask",
+    "predicate_mask_plain",
+    "leaf_verdict",
+    "leaf_verdict_plain",
+    "list_contains_mask",
+    "list_contains_mask_plain",
+    "mask_take",
+    "mask_take_plain",
+    "mask_take_scan",
+    "mask_take_scan_plain",
+    "mask_take_rows",
+    "mask_take_rows_plain",
     "KERNELS",
     "reset_launch_counts",
 ]
@@ -891,7 +905,473 @@ def expand_nullable(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 expand_nullable.launches = 0
 
 
-# The kernels of the decode path, by name.
+# -- the filter path: predicate masks, LIST contains, verdicts, compaction -----
+#
+# Four kernels of the device filter (core/filter_device.py and the reader's
+# filter_rows= compaction). Masks are torch.bool tensors; counts are 0-d
+# int64 tensors, the JAX programs' dtype under x64.
+
+_PRED_OPS = {"==": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5, "in": 6, "not_in": 7}
+# the kernel's value dtype codes (predicate_mask.cu)
+_PRED_DTYPES = {
+    torch.bool: 0, torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.int64: 3,
+    torch.float32: 6, torch.float64: 7,
+}
+# the most in-list members one launch compares against (kMaxMembers of
+# predicate_mask.cu; core/filter_device.py sends longer lists to the host)
+MAX_MEMBERS = 64
+_I64_MIN = -(1 << 63)
+
+
+def _pred_view(values: torch.Tensor) -> torch.Tensor:
+    """Booleans compare as int8, as the reference compares them."""
+    return values.view(torch.int8) if values.dtype == torch.bool else values
+
+
+def _pred_domain(values: torch.Tensor, unsigned: bool, bits):
+    """(the integer range a bracket must lie in, or None for floats; the
+    unsigned sub-width mask)."""
+    if values.dtype.is_floating_point:
+        return None, None
+    width = 8 * _pred_view(values).element_size()
+    if unsigned:
+        nbits = width if bits is None else min(int(bits), width)
+        return (0, (1 << width) - 1), (1 << nbits) - 1
+    return (-(1 << (width - 1)), (1 << (width - 1)) - 1), None
+
+
+def _coerce_bracket(values, x, domain, name):
+    """A bracket end in the column's dtype: an int within the integer range,
+    or a float rounded to float32 for a float32 column."""
+    if domain is None:
+        x = float(x)
+        return float(np.float32(x)) if values.dtype == torch.float32 else x
+    if isinstance(x, (bool, np.bool_)):
+        x = int(x)
+    if not isinstance(x, (int, np.integer)):
+        raise TypeError(f"{name}: integer column compared with {type(x).__name__}")
+    x = int(x)
+    if not domain[0] <= x <= domain[1]:
+        raise ValueError(f"{name}: bracket {x} outside the column's range {domain}")
+    return x
+
+
+def _check_members(members) -> None:
+    if len(members) > MAX_MEMBERS:
+        raise ValueError(f"predicate_mask: {len(members)} members > {MAX_MEMBERS}")
+
+
+def _fixed_patterns(values: torch.Tensor, op: str, lo, members) -> list[bytes]:
+    """The byte patterns an FLBA compare tests rows against: `lo` for == and
+    !=, the members for in / not_in; a pattern of another width than the
+    rows' can equal no row and is dropped."""
+    pats = [bytes(lo)] if op in ("==", "!=") else [bytes(m) for m in members]
+    _check_members(pats)
+    return [p for p in pats if len(p) == values.shape[1]]
+
+
+def predicate_mask_plain(
+    values: torch.Tensor, op: str, lo=None, hi=None, exact: bool = True, *,
+    members=(), unsigned: bool = False, bits: int | None = None,
+) -> torch.Tensor:
+    """Plain version of the predicate mask, as the reference writes it: the
+    bracket rule for the six comparisons, an OR of equalities for in /
+    not_in, unsigned bit patterns compared as unsigned (int64 lanes for
+    32-bit patterns, the sign bit flipped for 64-bit ones) and FLBA rows
+    ((n, w) uint8) compared with the byte pattern `lo` or the members'."""
+    if values.dim() == 2:
+        hit = torch.zeros(values.shape[0], dtype=torch.bool, device=values.device)
+        for p in _fixed_patterns(values, op, lo, members):
+            pat = torch.tensor(list(p), dtype=torch.uint8, device=values.device)
+            hit |= (values == pat).all(dim=1)
+        return hit if op in ("==", "in") else ~hit
+    domain, umask = _pred_domain(values, unsigned, bits)
+    x = _pred_view(values)
+
+    def key(v):
+        if domain is None:
+            # a float bracket is exact in the column's dtype already, so the
+            # scalar compares in that dtype, as the reference's does
+            return v
+        if unsigned and values.dtype == torch.int64:
+            k = v ^ (1 << 63)  # the sign flip that orders unsigned as signed
+            return k - (1 << 64) if k >= (1 << 63) else k
+        return v
+
+    if unsigned:
+        if x.dtype == torch.int32:
+            x = x.to(torch.int64) & _M32
+        if umask is not None and umask < (1 << 63):
+            x = x & umask
+        if x.dtype == torch.int64 and values.dtype == torch.int64:
+            x = x ^ _I64_MIN
+    if op in ("in", "not_in"):
+        hit = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+        for m in members:
+            hit |= x == key(m)
+        return hit if op == "in" else ~hit
+    lo_k, hi_k = key(lo), key(hi)
+    if op == "==":
+        return (x == lo_k) if exact else torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    if op == "!=":
+        return (x != lo_k) if exact else torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    if op == "<":
+        return (x < lo_k) if exact else (x <= lo_k)
+    if op == "<=":
+        return x <= lo_k
+    if op == ">":
+        return (x > hi_k) if exact else (x >= hi_k)
+    return x >= hi_k
+
+
+def predicate_mask(
+    values: torch.Tensor, op: str, lo=None, hi=None, exact: bool = True, *,
+    members=(), unsigned: bool = False, bits: int | None = None,
+) -> torch.Tensor:
+    """bool[n] mask of one leaf predicate over a column's dense values.
+
+    `op` is one of ==, !=, <, <=, >, >= against the bracket (lo, hi, exact)
+    of the reference (an inexact bracket: == all false, != all true, the
+    ordered ops on the end that stays exact), or in / not_in against up to
+    64 `members`. Values are bool (compared as int8), int8/16/32/64 or
+    float32/64; with `unsigned=True` int32/int64 values are bit patterns
+    compared as unsigned, masked to `bits` low bits when given. A bracket
+    end is coerced to the column's dtype here (float32 rounding; an integer
+    outside the dtype's range raises ValueError, a non-integer TypeError).
+    2-D uint8 values are FIXED_LEN_BYTE_ARRAY rows, compared with the
+    pattern `lo` (bytes) by == and !=, or with the member patterns by in /
+    not_in, in one launch either way. Replaces
+    parquet_tpu/kernels/device_ops.py:predicate_mask_device with the
+    unsigned view, member OR and FLBA compare of
+    parquet_tpu/core/filter_device.py folded in."""
+    if op not in _PRED_OPS:
+        raise ValueError(f"predicate_mask: unsupported op {op!r}")
+    if not isinstance(values, torch.Tensor):
+        raise TypeError(f"predicate_mask: expected a torch.Tensor, got {type(values).__name__}")
+    if not values.is_contiguous():
+        raise ValueError("predicate_mask: values must be contiguous")
+    _check_len(values.shape[0] if values.dim() else 0, "predicate_mask")
+    if values.dim() == 2:
+        if values.dtype != torch.uint8 or op not in ("==", "!=", "in", "not_in"):
+            raise ValueError(
+                "predicate_mask: fixed-width rows are uint8 [n, w] compared with ==, !=, "
+                "in or not_in"
+            )
+        pats = _fixed_patterns(values, op, lo, members)
+        if _on_cpu(values):
+            return predicate_mask_plain(values, op, lo, members=members)
+        n, w = values.shape
+        out = torch.empty(n, dtype=torch.bool, device=values.device)
+        if n:
+            table = (
+                torch.frombuffer(bytearray(b"".join(pats)), dtype=torch.uint8).to(values.device)
+                if pats and w else None
+            )
+            _launch(
+                "predicate_mask", values.device, _lib().pqt_fixed_members,
+                _ptr(values), n, w, None if table is None else _ptr(table), len(pats),
+                int(op in ("!=", "not_in")), _ptr(out),
+            )
+            predicate_mask.launches += 1
+        return out
+    _check_vec(values, tuple(_PRED_DTYPES), "predicate_mask: values")
+    if unsigned and values.dtype not in (torch.int32, torch.int64):
+        raise ValueError("predicate_mask: unsigned compares int32/int64 bit patterns only")
+    domain, umask = _pred_domain(values, unsigned, bits)
+    if op in ("in", "not_in"):
+        _check_members(members)
+        members = [_coerce_bracket(values, m, domain, "predicate_mask") for m in members]
+        lo = hi = None
+    else:
+        lo = _coerce_bracket(values, lo, domain, "predicate_mask")
+        hi = _coerce_bracket(values, hi, domain, "predicate_mask")
+    if _on_cpu(values):
+        return predicate_mask_plain(
+            values, op, lo, hi, exact, members=members, unsigned=unsigned, bits=bits
+        )
+    n = values.numel()
+    out = torch.empty(n, dtype=torch.bool, device=values.device)
+    if not n:
+        return out
+    code = _PRED_DTYPES[values.dtype] + (2 if unsigned else 0)
+    floats = domain is None
+
+    def bits64(v):  # an integer as the int64 bit pattern the kernel reads
+        return v - (1 << 64) if v >= (1 << 63) else v
+
+    mem = list(members) + [0] * (1 if not members else 0)
+    mem_i = np.array([0 if floats else bits64(m) for m in mem], dtype=np.int64)
+    mem_f = np.array([m if floats else 0.0 for m in mem], dtype=np.float64)
+    lo_i = 0 if floats or lo is None else bits64(lo)
+    hi_i = 0 if floats or hi is None else bits64(hi)
+    lo_f = lo if floats and lo is not None else 0.0
+    hi_f = hi if floats and hi is not None else 0.0
+    _launch(
+        "predicate_mask", values.device, _lib().pqt_predicate_mask,
+        _ptr(_pred_view(values)), n, code, _PRED_OPS[op], lo_i, hi_i, lo_f, hi_f,
+        int(bool(exact)), (1 << 64) - 1 if umask is None else umask,
+        mem_i.ctypes.data, mem_f.ctypes.data, len(members), _ptr(out),
+    )
+    predicate_mask.launches += 1
+    return out
+
+
+predicate_mask.launches = 0
+
+
+def _wrap_clamp(indices: torch.Tensor, n: int) -> torch.Tensor:
+    """jnp's index rule: a negative index wraps once, then clamps into
+    [0, n - 1] (int64)."""
+    idx = indices.to(torch.int64)
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
+def leaf_verdict_plain(
+    verdict: torch.Tensor, indices: torch.Tensor | None = None,
+    valid: torch.Tensor | None = None, fill: bool = False,
+) -> torch.Tensor:
+    """Plain version of the leaf verdict, as the reference writes it: the
+    verdict gathered through the indices (jnp's index rule), then, with a
+    validity, didx = clip(cumsum(valid) - 1, 0, nd - 1) and
+    where(valid, dense[didx], fill) (all `fill` when nd == 0)."""
+    v = verdict.to(torch.bool)
+    dense = v if indices is None else v[_wrap_clamp(indices, v.numel())]
+    if valid is None:
+        return dense
+    nd = dense.numel()
+    if not nd:
+        return torch.full(valid.shape, bool(fill), dtype=torch.bool, device=valid.device)
+    didx = (torch.cumsum(valid, 0, dtype=torch.int64) - 1).clamp(0, nd - 1)
+    return torch.where(valid, dense[didx], bool(fill))
+
+
+def leaf_verdict(
+    verdict: torch.Tensor, indices: torch.Tensor | None = None,
+    valid: torch.Tensor | None = None, fill: bool = False,
+) -> torch.Tensor:
+    """A leaf's bool row mask from a verdict over its dense values, in one
+    pass: the verdict (bool or uint8) per dense value, or per dictionary
+    entry gathered through int32 `indices` (a negative index wraps once,
+    then indices clamp into range); with a row validity (bool), null rows
+    get `fill` (False; True for arrow's not_in) and the valid rows read
+    the dense verdict in order. Replaces the verdict gather, validity scan
+    and expansion of parquet_tpu/core/filter_device.py (:153-182, :252,
+    :271)."""
+    _check_vec(verdict, (torch.bool, torch.uint8), "leaf_verdict: verdict")
+    tensors = [verdict]
+    nd = verdict.numel()
+    if indices is not None:
+        _check_vec(indices, (torch.int32,), "leaf_verdict: indices")
+        nd = indices.numel()
+        if nd and not verdict.numel():
+            raise ValueError("leaf_verdict: empty verdict with indices to gather")
+        tensors.append(indices)
+    n = nd
+    if valid is not None:
+        _check_vec(valid, (torch.bool,), "leaf_verdict: valid")
+        n = valid.numel()
+        tensors.append(valid)
+    _check_len(max(n, nd, verdict.numel()), "leaf_verdict")
+    if _on_cpu(*tensors):
+        return leaf_verdict_plain(verdict, indices, valid, fill)
+    dev = verdict.device
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    if not n:
+        return out
+    lib = _lib()
+    partial = tile_sums = None
+    if valid is not None:
+        partial = torch.empty(n, dtype=torch.int32, device=dev)
+        tile_sums = _tile_sums(lib, n, torch.int32, dev)
+    _launch(
+        "leaf_verdict", dev, lib.pqt_leaf_verdict,
+        _ptr(verdict), verdict.numel(), None if indices is None else _ptr(indices), nd,
+        None if valid is None else _ptr(valid), n, int(bool(fill)), _ptr(out),
+        None if partial is None else _ptr(partial),
+        None if tile_sums is None else _ptr(tile_sums),
+    )
+    leaf_verdict.launches += 1
+    return out
+
+
+leaf_verdict.launches = 0
+
+
+def list_contains_mask_plain(
+    rep: torch.Tensor, dfl: torch.Tensor, dense_match: torch.Tensor, elem_def: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the LIST contains mask, as the reference writes it:
+    a clipped gather of the dense mask, then a scatter-max of the entry
+    matches into rows clip(row_of, 0, n - 1)."""
+    dev = rep.device
+    n = rep.numel()
+    valid = dfl.to(torch.int64) == int(elem_def)
+    nv = dense_match.numel()
+    if nv:
+        didx = (torch.cumsum(valid, 0, dtype=torch.int64) - 1).clamp(0, nv - 1)
+        entry_match = valid & dense_match[didx]
+    else:
+        entry_match = torch.zeros(n, dtype=torch.bool, device=dev)
+    starts = rep == 0
+    row_of = (torch.cumsum(starts, 0, dtype=torch.int64) - 1).clamp(0, max(n - 1, 0))
+    rows = torch.zeros(n, dtype=torch.int32, device=dev).scatter_reduce_(
+        0, row_of, entry_match.to(torch.int32), "amax"
+    )
+    return rows.to(torch.bool), starts.sum(dtype=torch.int64)
+
+
+def list_contains_mask(
+    rep: torch.Tensor, dfl: torch.Tensor, dense_match: torch.Tensor, elem_def: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """('tags', 'contains', x) at the list-slot level: (rows bool[n], n_rows
+    a 0-d int64 tensor). Entry i is a present element iff dfl[i] ==
+    elem_def; the k-th present element takes dense_match[clip(k, 0, nv - 1)],
+    and a matching entry sets rows[clip(row_of, 0, n - 1)], row_of being the
+    count of record starts (rep == 0) up to it, minus 1. Entries past
+    n_rows are padding. Replaces
+    parquet_tpu/kernels/device_ops.py:list_contains_mask_device."""
+    _check_vec(rep, (torch.int32,), "list_contains_mask: rep")
+    _check_vec(dfl, (torch.int32,), "list_contains_mask: dfl")
+    _check_vec(dense_match, (torch.bool,), "list_contains_mask: dense_match")
+    n = rep.numel()
+    if dfl.numel() != n:
+        raise ValueError(f"list_contains_mask: {n} rep levels but {dfl.numel()} def levels")
+    _check_len(max(n, dense_match.numel()), "list_contains_mask")
+    elem_def = int(elem_def)
+    if _on_cpu(rep, dfl, dense_match):
+        return list_contains_mask_plain(rep, dfl, dense_match, elem_def)
+    dev = rep.device
+    rows = torch.empty(n, dtype=torch.bool, device=dev)
+    if not n:
+        return rows, torch.zeros((), dtype=torch.int64, device=dev)
+    n_rows = torch.empty((), dtype=torch.int64, device=dev)
+    lib = _lib()
+    partial = torch.empty(n, dtype=torch.int64, device=dev)
+    tile_sums = _tile_sums(lib, n, torch.int64, dev)
+    _launch(
+        "list_contains_mask", dev, lib.pqt_list_contains_mask,
+        _ptr(rep), _ptr(dfl), n, _ptr(dense_match), dense_match.numel(), elem_def,
+        _ptr(rows), _ptr(n_rows), _ptr(partial), _ptr(tile_sums),
+    )
+    list_contains_mask.launches += 1
+    return rows, n_rows
+
+
+list_contains_mask.launches = 0
+
+
+def mask_take_scan_plain(mask: torch.Tensor, out_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the mask scan, as the reference writes it: a
+    scatter-max of arange(n) into src[clip(where(mask, pos, out_pad), 0,
+    out_pad)] over zeros(out_pad + 1), cut to out_pad."""
+    n = mask.numel()
+    pos = torch.cumsum(mask, 0, dtype=torch.int64) - 1
+    tgt = torch.where(mask, pos, out_pad).clamp(0, out_pad)
+    src = torch.zeros(out_pad + 1, dtype=torch.int32, device=mask.device)
+    src.scatter_reduce_(
+        0, tgt, torch.arange(n, dtype=torch.int32, device=mask.device), "amax"
+    )
+    return src[:out_pad], mask.sum(dtype=torch.int64)
+
+
+def mask_take_rows_plain(
+    rows: torch.Tensor, src: torch.Tensor, count: torch.Tensor, out_rows: int
+) -> torch.Tensor:
+    """Plain version of the row gather: rows[src[j]] for j < min(count,
+    out_rows), rows[0] past it; zeros when there are no rows."""
+    dev = rows.device
+    if not rows.shape[0]:
+        return torch.zeros((out_rows,) + tuple(rows.shape[1:]), dtype=rows.dtype, device=dev)
+    j = torch.arange(out_rows, device=dev)
+    sel = torch.where(j < count, src[:out_rows].to(torch.int64), 0)
+    return rows[sel]
+
+
+def mask_take_plain(values: torch.Tensor, mask: torch.Tensor, out_pad: int):
+    """Plain version of mask_take: (taken[out_pad], count)."""
+    src, count = mask_take_scan_plain(mask, out_pad)
+    return mask_take_rows_plain(values, src, count, out_pad), count
+
+
+def mask_take_scan(mask: torch.Tensor, out_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first half of mask_take: (src int32[out_pad], count a 0-d int64
+    tensor), src[p] the index of the p-th kept entry for p < min(count,
+    out_pad) and 0 past it. One scan per row group serves every leaf's
+    mask_take_rows."""
+    _check_vec(mask, (torch.bool,), "mask_take: mask")
+    out_pad = int(out_pad)
+    if out_pad < 0:
+        raise ValueError(f"mask_take: out_pad {out_pad} is negative")
+    n = mask.numel()
+    _check_len(max(n, out_pad), "mask_take")
+    if _on_cpu(mask):
+        return mask_take_scan_plain(mask, out_pad)
+    dev = mask.device
+    src = torch.empty(out_pad, dtype=torch.int32, device=dev)
+    if not n:
+        src.zero_()
+        return src, torch.zeros((), dtype=torch.int64, device=dev)
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    lib = _lib()
+    partial = torch.empty(n, dtype=torch.int32, device=dev)
+    tile_sums = _tile_sums(lib, n, torch.int32, dev)
+    _launch(
+        "mask_take", dev, lib.pqt_mask_scan,
+        _ptr(mask), n, out_pad, _ptr(src), _ptr(count), _ptr(partial), _ptr(tile_sums),
+    )
+    mask_take.launches += 1
+    return src, count
+
+
+def mask_take_rows(
+    rows: torch.Tensor, src: torch.Tensor, count: torch.Tensor, out_rows: int
+) -> torch.Tensor:
+    """The second half of mask_take: out[j] = rows[src[j]] for j <
+    min(count, out_rows) and rows[0] past it (zeros when rows is empty),
+    over the leading dimension of a contiguous tensor of any dtype and
+    trailing shape. `count` stays on the device: nothing waits for it."""
+    if not isinstance(rows, torch.Tensor) or rows.dim() < 1:
+        raise ValueError("mask_take: rows must be a tensor of at least one dimension")
+    if not rows.is_contiguous():
+        raise ValueError("mask_take: rows must be contiguous")
+    _check_vec(src, (torch.int32,), "mask_take: src")
+    out_rows = int(out_rows)
+    if not 0 <= out_rows <= src.numel():
+        raise ValueError(f"mask_take: {out_rows} output rows from {src.numel()} positions")
+    _check_len(max(rows.shape[0], out_rows), "mask_take")
+    if _on_cpu(rows, src, count):
+        return mask_take_rows_plain(rows, src, count, out_rows)
+    dev = rows.device
+    out = torch.empty((out_rows,) + tuple(rows.shape[1:]), dtype=rows.dtype, device=dev)
+    row_bytes = rows.element_size() * math.prod(rows.shape[1:])
+    if not out.numel():
+        return out
+    word = 8
+    while word > 1 and (row_bytes % word or rows.data_ptr() % word):
+        word //= 2
+    _launch(
+        "mask_take", dev, _lib().pqt_take_rows,
+        _ptr(rows), rows.shape[0], row_bytes, word, _ptr(src), _ptr(count), out_rows,
+        _ptr(out),
+    )
+    mask_take.launches += 1
+    return out
+
+
+def mask_take(values: torch.Tensor, mask: torch.Tensor, out_pad: int):
+    """Compact values[mask] into out_pad rows: (taken, count a 0-d int64
+    tensor). A count above out_pad keeps the first out_pad kept rows and
+    returns the full count; positions past the count hold values[0]; no
+    values give zeros. Replaces
+    parquet_tpu/kernels/device_ops.py:mask_take_device."""
+    src, count = mask_take_scan(mask, out_pad)
+    return mask_take_rows(values, src, count, out_pad), count
+
+
+mask_take.launches = 0
+
+
+# The kernels of the decode, batch and filter paths, by name.
 KERNELS = {
     "expand_hybrid": expand_hybrid,
     "dict_gather": dict_gather,
@@ -903,6 +1383,10 @@ KERNELS = {
     "list_layout": list_layout,
     "pad_ragged": pad_ragged,
     "expand_nullable": expand_nullable,
+    "predicate_mask": predicate_mask,
+    "leaf_verdict": leaf_verdict,
+    "list_contains_mask": list_contains_mask,
+    "mask_take": mask_take,
 }
 
 

@@ -421,6 +421,11 @@ def dispatch_delta(frozen: _FrozenDelta, device) -> torch.Tensor:
 # -- the chunk plan ------------------------------------------------------------
 
 
+# The def level a column without a def stream reports for every entry on
+# the device (DeviceColumn.level_tensors).
+DEF_SATURATED = np.iinfo(np.int32).max
+
+
 @dataclass
 class DeviceColumn:
     """Decoded column delivered in device memory. Numeric columns carry
@@ -468,19 +473,28 @@ class DeviceColumn:
         no def stream counts every entry as fully defined (its def levels
         saturate at the int32 maximum). Replaces
         parquet_tpu/kernels/pipeline.py:DeviceColumn.list_layout."""
+        rep, dfl = self.level_tensors()
+        return list_layout(rep, dfl, parent_rep, elem_def)
+
+    def level_tensors(self):
+        """(rep, def) as int32 tensors on the column's device, uploaded once
+        and shared by every list_layout() depth and every LIST `contains`
+        filter of the column. With no def stream every entry counts as fully
+        defined: its def levels saturate at the int32 maximum
+        (DEF_SATURATED)."""
         if self.rep_levels is None:
-            raise ValueError("list_layout: column has no repetition levels")
+            raise ValueError("column has no repetition levels")
         dev = self.device
         if self._dev_rep is None:
             self._dev_rep = to_device(np.asarray(self.rep_levels, dtype=np.int32), dev)
         if self._dev_def is None:
             if self.def_levels is None:
                 self._dev_def = torch.full(
-                    (self.num_values,), np.iinfo(np.int32).max, dtype=torch.int32, device=dev
+                    (self.num_values,), DEF_SATURATED, dtype=torch.int32, device=dev
                 )
             else:
                 self._dev_def = to_device(np.asarray(self.def_levels, dtype=np.int32), dev)
-        return list_layout(self._dev_rep, self._dev_def, parent_rep, elem_def)
+        return self._dev_rep, self._dev_def
 
 
 class _ChunkPlan:

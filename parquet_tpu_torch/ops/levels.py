@@ -22,6 +22,7 @@ __all__ = [
     "encode_levels_v1",
     "encode_levels_v2",
     "LevelError",
+    "rows_from_rep",
 ]
 
 
@@ -116,3 +117,15 @@ def _check(levels: np.ndarray, max_level: int) -> None:
         raise LevelError(
             f"levels: value {int(levels.max())} exceeds max level {max_level}"
         )
+
+
+def rows_from_rep(rep, n: int | None = None) -> np.ndarray:
+    """Positions where a record starts (rep == 0), as int64 indices.
+
+    `rep is None` means the column has no repetition dimension: every entry
+    starts a record, so the starts are 0..n-1 (`n` required then)."""
+    if rep is None:
+        if n is None:
+            raise ValueError("rows_from_rep: n required when rep is None")
+        return np.arange(n, dtype=np.int64)
+    return np.flatnonzero(np.asarray(rep) == 0)

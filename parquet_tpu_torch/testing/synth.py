@@ -23,6 +23,11 @@ rows, and `values`/`indices` hold the non-null cells only. Any codec the
 port registers can be named (SNAPPY and LZ4 through the port's host
 library), and BYTE_STREAM_SPLIT serves FLOAT, DOUBLE, INT32 and INT64.
 
+Every chunk carries its Statistics (min_value / max_value, null_count and
+the legacy min / max), computed with the port's copy of the JAX writer's
+compute_statistics, so row groups prune on them as on the JAX writer's
+files.
+
 A spec with `list_lengths=` (elements per row) is a LIST column, written as
 
     optional group <name> (LIST) {
@@ -48,6 +53,7 @@ import numpy as np
 from ..core.arrays import ByteArrayData
 from ..core.page import encode_data_page_v1, encode_data_page_v2, encode_dict_page
 from ..core.schema import Schema
+from ..core.stats import column_is_unsigned, compute_statistics
 from ..meta.file_meta import MAGIC, serialize_footer
 from ..meta.parquet_types import (
     ColumnChunk,
@@ -364,6 +370,14 @@ def write_file(
     return meta
 
 
+def _chunk_value_set(spec, c0: int, c1: int):
+    """The chunk's non-null cells [c0, c1), or for a dictionary column the
+    dictionary entries they use: the same min and max, from fewer values."""
+    if spec.dict_encoded:
+        return _take(spec.dictionary, np.unique(spec.indices[c0:c1]))
+    return _slice(spec.values, c0, c1)
+
+
 def _write_chunk(out, pos, spec, column, levels, r0, r1, steps):
     """Write one column chunk at file position `pos`: (ColumnChunk, bytes)."""
     step, plain_step = steps
@@ -422,16 +436,22 @@ def _write_chunk(out, pos, spec, column, levels, r0, r1, steps):
         uncompressed += len(hbytes) + header.uncompressed_page_size
     data = buf.getvalue()
     out.write(data)
+    num_values = int(levels.entries[r1] - levels.entries[r0])
+    c0, c1 = int(prefix[r0]), int(prefix[r1])
     md = ColumnMetaData(
         type=int(spec.type),
         encodings=sorted(encodings),
         path_in_schema=list(spec.path),
         codec=int(spec.codec),
-        num_values=int(levels.entries[r1] - levels.entries[r0]),
+        num_values=num_values,
         total_uncompressed_size=uncompressed,
         total_compressed_size=len(data),
         data_page_offset=data_offset,
         dictionary_page_offset=dict_offset,
+        statistics=compute_statistics(
+            spec.type, _chunk_value_set(spec, c0, c1), num_values - (c1 - c0),
+            column_is_unsigned(column),
+        ),
     )
     cc = ColumnChunk(
         file_offset=dict_offset if dict_offset is not None else data_offset,

@@ -310,12 +310,13 @@ def test_bad_arguments_raise_eagerly_on_both_sides(tmp_path, case):
 
 
 def test_batch_path_options_left_out():
-    # sharding=, filters= and filter_rows= belong to later slices: the port
-    # does not accept them
+    # sharding= belongs to a later slice: the port does not accept it;
+    # filters= and filter_rows= came with the filtering slice
     import inspect
 
     params = inspect.signature(FileReader.iter_device_batches).parameters
-    assert not {"sharding", "filters", "filter_rows"} & set(params)
+    assert "sharding" not in params
+    assert {"filters", "filter_rows"} <= set(params)
 
 
 def test_no_cuda_raises_at_the_call(files, monkeypatch):

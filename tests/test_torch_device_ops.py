@@ -177,6 +177,19 @@ def _cpu_calls():
         "expand_nullable": (
             torch.arange(3, dtype=torch.int64), torch.tensor([True, False, True, True, False]),
         ),
+        "predicate_mask": (torch.tensor([3, -1, 7, 2], dtype=torch.int32), "<=", 3, 3),
+        "leaf_verdict": (
+            torch.tensor([1, 0, 1], dtype=torch.uint8), torch.tensor([2, 1, 0], dtype=torch.int32),
+            torch.tensor([True, False, True, True, False]),
+        ),
+        "list_contains_mask": (
+            torch.tensor([0, 1, 0, 0, 1], dtype=torch.int32),
+            torch.tensor([2, 2, 0, 2, 2], dtype=torch.int32),
+            torch.tensor([False, True, True, False]), 2,
+        ),
+        "mask_take": (
+            torch.arange(5, dtype=torch.int64), torch.tensor([True, False, True, True, False]), 4,
+        ),
     }
 
 
@@ -234,6 +247,19 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build._nvcc()
 
 
+def test_signatures_match_the_sources():
+    """Every C entry point ctypes binds is defined in a kernel source with the
+    same number of arguments, and every one defined there is bound."""
+    import re
+
+    declared = {}
+    for src in build._sources() + build._headers():
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            args = m.group(2).strip()
+            declared[m.group(1)] = 0 if args in ("", "void") else args.count(",") + 1
+    assert declared == {k: len(v) for k, v in build.SIGNATURES.items()}
+
+
 def test_build_key_tracks_sources(tmp_path):
     a = tmp_path / "a.cu"
     a.write_text("// one")
@@ -245,7 +271,9 @@ def test_build_key_tracks_sources(tmp_path):
          "pqt_delta_tile", "pqt_delta_packed_decode", "pqt_bss_transpose",
          "pqt_merge_mixed_numeric4", "pqt_merge_mixed_numeric8",
          "pqt_merge_bytes_tile", "pqt_merge_mixed_bytes", "pqt_scan_tile",
-         "pqt_record_starts", "pqt_list_layout", "pqt_pad_ragged", "pqt_expand_nullable"]
+         "pqt_record_starts", "pqt_list_layout", "pqt_pad_ragged", "pqt_expand_nullable",
+         "pqt_predicate_mask", "pqt_fixed_members",
+         "pqt_leaf_verdict", "pqt_list_contains_mask", "pqt_mask_scan", "pqt_take_rows"]
     )
     # the header compiles into its includers: editing it changes the key
     h = tmp_path / "scan.cuh"

@@ -102,7 +102,11 @@ def test_snappy_file_raises_typed_codec_error(tmp_path):
 def test_import_loads_no_jax_and_no_jax_package():
     code = (
         "import sys, parquet_tpu_torch, parquet_tpu_torch.testing.synth, "
-        "parquet_tpu_torch.testing.parity, parquet_tpu_torch.kernels.build\n"
+        "parquet_tpu_torch.testing.parity, parquet_tpu_torch.kernels.build, "
+        "parquet_tpu_torch.core.filter, parquet_tpu_torch.core.filter_vec, "
+        "parquet_tpu_torch.core.filter_device, parquet_tpu_torch.core.stats, "
+        "parquet_tpu_torch.core.bloom, parquet_tpu_torch.core.assembly, "
+        "parquet_tpu_torch.floor.time, parquet_tpu_torch.ops.levels\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'parquet_tpu' or m.startswith('parquet_tpu.'))\n"
         "print(bad)\n"
