@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive parquet_tpu_torch's decode, batch and filter paths on one CUDA card.
+"""Drive parquet_tpu_torch's decode, batch, filter and write paths on one CUDA card.
 
 Run from the repository root, on a machine with one NVIDIA card and the CUDA
 toolkit (nvcc):
@@ -21,7 +21,11 @@ Phases (any failure raises and the script exits non-zero):
               inexact and NaN brackets, unsigned patterns above 2**31 and
               2**63, in-lists of up to 64 members, FLBA rows, out-of-range
               dictionary indices, LIST streams opening mid-record, nv = 0,
-              compaction past out_pad, 2-D and misaligned rows);
+              compaction past out_pad, 2-D and misaligned rows; for the
+              write path's kernels n = 0, 1, 7, 8, 9, 127-129, every
+              bit-pack width 0-32 and DELTA width 1-64, runs straddling the
+              8-alignment, adjacent RLE windows, dictionary keys -1, INT_MIN
+              and NaN payloads, more than 32,767 uniques, empty strings);
   4. main     three 8,388,608-row files (8 row groups of 2**20 rows, ~1 MiB
               pages, chunk statistics, built from a seed with
               testing/synth.py), each decoded
@@ -67,11 +71,23 @@ Phases (any failure raises and the script exits non-zero):
               predicate; then read_row_group_device(i, ["fare_cents"],
               filters=F_taxi) on every taxi group, mask_take of fare_cents
               under the mask summed on the card, held against NumPy;
+     write    the taxi generator's columns uploaded to the card (numeric
+              tensors, zone as uint8 data and int64 offsets per group) and
+              written with FileWriter.write_device_column (SNAPPY, data
+              page V1, 1 MiB pages, a dictionary probed on five columns,
+              DELTA on pickup_us and fare_cents; passenger_count, OPTIONAL,
+              through write_column): all six device columns of all groups
+              must engage the device encoder (device_write_engaged 48,
+              declined 0), the five write kernels must launch, the file
+              must equal the host write_column's of the same NumPy values
+              byte for byte, and read_row_groups_device() of it must give
+              the generator's columns;
   5. times    rows/s of the device reads and of the batch streams, filtered
               and not (the same call, both files), of the filtered read, of
-              host decode + upload, of host prepare alone on the fused and
-              the staged walk, and each kernel's CUDA-event time beside its
-              bound.
+              host decode + upload, of the device write against the host
+              write (tensors on the card to a closed file), of host prepare
+              alone on the fused and the staged walk, and each kernel's
+              CUDA-event time beside its bound.
 
 The last three lines of standard output are a JSON line of the end-to-end
 rates with the card's name and power limit, the `kernels` JSON line and the
@@ -196,6 +212,17 @@ def bits_equal(a, b) -> tuple[bool, float]:
     return False, float((a.double() - b.double()).abs().max())
 
 
+def delta_payload(out: tuple) -> tuple:
+    """delta_block_encode's (mins, widths, words) cut to what it defines:
+    the first sum(widths) words (the kernel leaves the rest unwritten)."""
+    mins, widths, words = out
+    return mins, widths, words[: int(widths.long().sum())]
+
+
+# kernels whose outputs are compared on a defined prefix, not whole
+HELD_PREFIX = {"delta_block_encode": delta_payload}
+
+
 def hold_plain(rows: dict, name: str, label: str, got, plain) -> None:
     """A kernel's outputs against its plain version's on the same inputs, bit
     for bit (bools as bytes): raises on any difference, and folds the max
@@ -203,6 +230,8 @@ def hold_plain(rows: dict, name: str, label: str, got, plain) -> None:
     import torch
 
     torch.cuda.synchronize()
+    if name in HELD_PREFIX:
+        got, plain = HELD_PREFIX[name](got), HELD_PREFIX[name](plain)
     got = got if isinstance(got, tuple) else (got,)
     plain = plain if isinstance(plain, tuple) else (plain,)
     for g, p in zip(got, plain, strict=True):
@@ -216,14 +245,15 @@ def hold_plain(rows: dict, name: str, label: str, got, plain) -> None:
 
 
 def record_kernel(rows: dict, name: str, fn, plain, nbytes: int, ops_count: int, bw: float,
-                  lib=None, lib_events: bool = False, shape: str = "") -> None:
+                  lib=None, lib_events: bool = False, plain_events: bool = False,
+                  shape: str = "") -> None:
     """One kernel at a main path's shape: held against its plain version on
     the inputs it is timed on, then its device time beside its bound, its
     plain version's and the one PyTorch call computing the same function
-    where there is one (`lib_events`: a call that synchronizes inside, timed
-    with events)."""
+    where there is one (`lib_events`, `plain_events`: a call that
+    synchronizes inside, timed with events)."""
     hold_plain(rows, name, f"[{shape}]", fn(), plain())
-    entry = {"ms": device_ms(fn), "plain_ms": device_ms(plain),
+    entry = {"ms": device_ms(fn), "plain_ms": events_ms(plain) if plain_events else device_ms(plain),
              "library_ms": None if lib is None else
              (events_ms(lib) if lib_events else device_ms(lib)),
              "eager_ms": eager_ms(fn), "shape": shape}
@@ -1274,6 +1304,272 @@ def time_filter_kernels(taxi_path, sessions_path, taxi_filters, k_item, dev, row
            shape=f"taxi fare_cents group 0 under F_taxi, n={n_f} kept={kept}")
 
 
+# -- the write path: FileWriter.write_device_column ------------------------------
+
+WRITE_KERNELS = ("bitpack_encode", "rle_hybrid_encode", "dict_indices", "delta_block_encode",
+                 "plain_bytearray_encode")
+# the write phase's options: pyarrow's default shape (SNAPPY, data page V1,
+# 1 MiB pages), a dictionary probed on five columns, DELTA on two
+WRITE_DICT = ("trip_id", "vendor_id", "passenger_count", "pickup_us", "trip_distance")
+WRITE_DELTA = ("pickup_us", "fare_cents")
+EDGE_N = (0, 1, 7, 8, 9, 127, 128, 129, 1000)
+
+
+def write_kernel_cases(rng, dev):
+    """(name, label, args) of the write kernels at edge shapes: n = 0, 1, 7,
+    8, 9, 127-129; every bit-pack width 0-32 and DELTA width 1-64; runs
+    straddling the 8-alignment and adjacent RLE windows of different runs;
+    dictionary keys -1, INT_MIN, NaN payloads and more than 32,767 uniques;
+    empty strings and offsets that do not start at 0."""
+    from parquet_tpu_torch.kernels.pipeline import to_device
+
+    def t(a):
+        return to_device(np.ascontiguousarray(a), dev)
+
+    for n in EDGE_N:
+        for w in range(33):
+            v = rng.integers(0, 1 << w, n, dtype=np.uint64).astype(np.uint32)
+            yield "bitpack_encode", f"n={n} width={w}", (t(v.view(np.int32)), w)
+    patterns = {
+        "straddling runs": [3, 13, 8, 8, 9, 20, 1, 16, 7, 9, 15, 17],
+        "adjacent windows": [16, 16, 8, 24, 8, 8],
+        "one run": [1000],
+        "short runs": [7] * 40,
+    }
+    for label, lens in patterns.items():
+        v = np.repeat((np.arange(len(lens)) * 3) % 8, lens).astype(np.int32)
+        for w in (3, 8, 32):
+            yield "rle_hybrid_encode", f"{label} width={w}", (t(v), w)
+    for n in EDGE_N + (15, 16, 17, 5000):
+        for w in (1, 3, 8, 17, 32):
+            v = rng.integers(0, 1 << w, n, dtype=np.uint64).astype(np.uint32)
+            yield "rle_hybrid_encode", f"random n={n} width={w}", (t(v.view(np.int32)), w)
+        m = n // 5 + 1
+        v = np.repeat(rng.integers(0, 4, m), rng.integers(1, 30, m))[:n].astype(np.int32)
+        yield "rle_hybrid_encode", f"random runs n={len(v)} width=2", (t(v), 2)
+    for n in EDGE_N:
+        for dt in (np.int32, np.int64):
+            yield "dict_indices", f"n={n} {np.dtype(dt)}", (t(rng.integers(-3, 40, n).astype(dt)),)
+    for dt in (np.int32, np.int64):
+        info = np.iinfo(dt)
+        keys = np.array([-1, info.min, 0, info.max, 1, -2], dtype=dt)
+        yield "dict_indices", f"-1 and INT_MIN {np.dtype(dt)}", (t(rng.choice(keys, 5000)),)
+    nan64 = np.array([0x7FF8000000000000, 0x7FF8000000000001, 0xFFF8000000000000,
+                      0x7FF0000000000001, 0x3FF0000000000000], dtype=np.uint64)
+    nan32 = np.array([0x7FC00000, 0x7FC00001, 0xFFC00000, 0x7F800001, 0x3F800000],
+                     dtype=np.uint32)
+    yield "dict_indices", "NaN payloads float64", (t(rng.choice(nan64, 5000).view(np.int64)),)
+    yield "dict_indices", "NaN payloads float32", (t(rng.choice(nan32, 5000).view(np.int32)),)
+    yield "dict_indices", "50,000 uniques of 100,000", (
+        t(rng.integers(0, 50_000, 100_000).astype(np.int64)),)
+    yield "dict_indices", "2**20 uniques", (t(rng.permutation(1 << 20).astype(np.int64)),)
+    for n in EDGE_N + (2, 130, 257):
+        for dt in (np.int32, np.int64):
+            info = np.iinfo(dt)
+            for label, v in (
+                ("full range", rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)),
+                ("rising", np.cumsum(rng.integers(0, 7, n)).astype(dt)),
+                ("constant", np.full(n, 5, dtype=dt)),
+            ):
+                yield "delta_block_encode", f"{label} n={n} {np.dtype(dt)}", (t(v),)
+    for bits, udt, sdt in ((32, np.uint32, np.int32), (64, np.uint64, np.int64)):
+        for w in range(1, bits + 1):
+            d = rng.integers(0, (1 << w) - 1, 300, dtype=np.uint64, endpoint=True).astype(udt)
+            d[5], d[6] = 0, (1 << w) - 1
+            v = np.cumsum(d, dtype=udt).view(sdt)
+            yield "delta_block_encode", f"width {w} {np.dtype(sdt)}", (t(v),)
+    for n in EDGE_N:
+        lens = rng.integers(0, 40, n)
+        lens[::3] = 0
+        off = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(lens, out=off[1:])
+        data = rng.integers(0, 256, int(off[-1]), dtype=np.uint8)
+        yield "plain_bytearray_encode", f"n={n}", (t(data), t(off), 4 * n + int(off[-1]))
+        if n > 3:
+            sub = off[3:]
+            yield "plain_bytearray_encode", f"n={n - 3} from offset {sub[0]}", (
+                t(data), t(sub), 4 * (n - 3) + int(sub[-1] - sub[0]))
+    long = np.array([0, 5000, 5000, 5003], dtype=np.int64)
+    yield "plain_bytearray_encode", "a 5,000-byte value", (
+        t(rng.integers(0, 256, 5003, dtype=np.uint8)), t(long), 12 + 5003)
+
+
+def check_write_kernels(dev, rows: dict) -> None:
+    """The write kernels against their plain versions on the card, bit for
+    bit, at the edge shapes."""
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    counts = dict.fromkeys(WRITE_KERNELS, 0)
+    for name, label, args in write_kernel_cases(np.random.default_rng(SEED + 5), dev):
+        hold_plain(rows, name, label, ops.KERNELS[name](*args),
+                   getattr(ops, name + "_plain")(*args))
+        counts[name] += 1
+    log("  " + ", ".join(f"{k}: {v} shapes equal" for k, v in counts.items()))
+
+
+def write_groups(specs) -> list[dict]:
+    """The generator's columns cut into row groups as the write phase takes
+    them: {name: ndarray | ByteArrayData}, passenger_count as (non-null
+    values, def levels)."""
+    from parquet_tpu_torch.core.arrays import ByteArrayData
+    from parquet_tpu_torch.testing.synth import column_values
+
+    vals = {s.name: column_values(s) for s in specs}
+    valid = next(s for s in specs if s.name == "passenger_count").valid
+    cells = np.concatenate([[0], np.cumsum(valid)])
+    groups = []
+    for g in range(ROW_GROUPS):
+        r0, r1 = g * RG_ROWS, (g + 1) * RG_ROWS
+        grp = {}
+        for s in specs:
+            v = vals[s.name]
+            if s.name == "passenger_count":
+                grp[s.name] = (v[cells[r0] : cells[r1]], valid[r0:r1].astype(np.uint16))
+            elif isinstance(v, ByteArrayData):
+                o = v.offsets[r0 : r1 + 1]
+                grp[s.name] = ByteArrayData(offsets=o - o[0], data=v.data[o[0] : o[-1]])
+            else:
+                grp[s.name] = v[r0:r1]
+        groups.append(grp)
+    return groups
+
+
+def upload_groups(groups: list[dict], dev) -> list[dict]:
+    """The row groups on the card: numeric columns as tensors, byte arrays as
+    (uint8 data, int64 offsets); passenger_count stays on the host (an
+    OPTIONAL column: device columns carry no levels)."""
+    from parquet_tpu_torch.core.arrays import ByteArrayData
+    from parquet_tpu_torch.kernels.pipeline import to_device
+
+    out = []
+    for grp in groups:
+        d = {}
+        for name, v in grp.items():
+            if name == "passenger_count":
+                d[name] = v
+            elif isinstance(v, ByteArrayData):
+                d[name] = (to_device(np.frombuffer(v.data, np.uint8), dev),
+                           to_device(v.offsets, dev))
+            else:
+                d[name] = to_device(v, dev)
+        out.append(d)
+    return out
+
+
+def write_taxi(path, schema, groups: list[dict], device: bool) -> None:
+    """Write the groups with the port's FileWriter: device columns through
+    write_device_column (device=True) or every column through write_column
+    from NumPy; passenger_count through write_column either way."""
+    from parquet_tpu_torch import FileWriter
+
+    with FileWriter(path, schema, codec="snappy", data_page_version=1,
+                    max_page_size=1 << 20, use_dictionary=list(WRITE_DICT),
+                    column_encodings=dict.fromkeys(WRITE_DELTA, "DELTA_BINARY_PACKED")) as w:
+        for grp in groups:
+            for name, v in grp.items():
+                if name == "passenger_count":
+                    w.write_column(name, v[0], def_levels=v[1])
+                elif device:
+                    w.write_device_column(name, v)
+                else:
+                    w.write_column(name, v)
+            w.flush_row_group()
+
+
+def time_write_kernels(dev_groups: list[dict], dev, rows: dict, bw: float) -> None:
+    """Device times of the write kernels at the write phase's shapes (row
+    group 0): dict_indices on trip_distance's bit patterns, rle_hybrid_encode
+    on vendor_id's first page of indices, bitpack_encode on
+    trip_distance's first page of indices, delta_block_encode on pickup_us's
+    first page, plain_bytearray_encode on zone; each held against its plain
+    version on the inputs it is timed on, then timed beside its bound, its
+    plain version and the one PyTorch call computing the same function
+    where there is one."""
+    import torch
+
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    g = dev_groups[0]
+    dist_bits = g["trip_distance"].view(torch.int64)
+    n = dist_bits.numel()
+
+    def record(name, fn, plain, nbytes, ops_count, lib=None, lib_events=False,
+               plain_events=False, shape=""):
+        record_kernel(rows, name, fn, plain, nbytes, ops_count, bw, lib=lib,
+                      lib_events=lib_events, plain_events=plain_events, shape=shape)
+
+    # bytes: keys read, indices and firsts written; ops: the hash, the probe
+    # and compare, the scan and the rank gather, ~30 per row. The library
+    # call (torch.unique) gives sorted groups, not the first-occurrence order.
+    record("dict_indices", lambda: ops.dict_indices(dist_bits),
+           lambda: ops.dict_indices_plain(dist_bits), 8 * n + 8 * n + 4, 30 * n,
+           lib=lambda: torch.unique(dist_bits, return_inverse=True), lib_events=True,
+           plain_events=True, shape=f"taxi trip_distance group 0, n={n} int64 bit patterns")
+    # the same probe over a low-cardinality column: 8 keys, every row a
+    # repeat of one of them (the case that makes the hash's atomics queue)
+    vendor = g["vendor_id"]
+    nv = vendor.numel()
+    v_shape = f"taxi vendor_id group 0, n={nv} int32, 8 keys"
+    hold_plain(rows, "dict_indices", f"[{v_shape}]", ops.dict_indices(vendor),
+               ops.dict_indices_plain(vendor))
+    t_v = {"ms": device_ms(lambda: ops.dict_indices(vendor)),
+           "plain_ms": events_ms(lambda: ops.dict_indices_plain(vendor)),
+           "library_ms": events_ms(lambda: torch.unique(vendor, return_inverse=True)),
+           "bound_ms": (4 * nv + 8 * nv + 4) / bw * 1e3, "shape": v_shape}
+    rows["dict_indices"]["low_cardinality"] = t_v
+    log(f"  dict_indices [{v_shape}]: equal to its plain version; {t_v['ms']:.4f} ms, "
+        f"plain {t_v['plain_ms']:.4f} ms, library {t_v['library_ms']:.4f} ms; "
+        f"bound {t_v['bound_ms']:.4f} ms (bytes)")
+    page = (1 << 20) // 4
+    vendor_idx = ops.dict_indices(vendor)[0][:page]
+    dist_idx = ops.dict_indices(dist_bits)[0][:page]
+    torch.cuda.synchronize()
+    m = vendor_idx.numel()
+    n_bp = int(ops.rle_hybrid_encode(vendor_idx, 3)[3])
+    # bytes: the values read, both masks, the bit-packed groups this page
+    # has and n_bp written; ops: two compares, two scans, the window
+    # arithmetic and the pack, ~40 per value
+    record("rle_hybrid_encode", lambda: ops.rle_hybrid_encode(vendor_idx, 3),
+           lambda: ops.rle_hybrid_encode_plain(vendor_idx, 3),
+           4 * m + 2 * m + (n_bp + 7) // 8 * 3 + 4, 40 * m,
+           shape=f"taxi vendor_id group 0 page 0, n={m} indices ({n_bp} bit-packed), width 3")
+    # trip_distance's pages take the same kernel at width 12, nearly all
+    # bit-packed: held, not timed
+    hold_plain(rows, "rle_hybrid_encode", f"[taxi trip_distance group 0 page 0, n={m}, width 12]",
+               ops.rle_hybrid_encode(dist_idx, 12), ops.rle_hybrid_encode_plain(dist_idx, 12))
+    k = dist_idx.numel()
+    words = (k * 12 + 31) // 32 + 1
+    # bytes: the values read, the words written; ops: ~3 per value gathered
+    record("bitpack_encode", lambda: ops.bitpack_encode(dist_idx, 12),
+           lambda: ops.bitpack_encode_plain(dist_idx, 12), 4 * k + 4 * words, 6 * k,
+           shape=f"taxi trip_distance group 0 page 0, n={k} indices, width 12")
+    pickup = g["pickup_us"][: (1 << 20) // 8]
+    p = pickup.numel()
+    nb = (p - 1 + 127) // 128
+    payload = 4 * int(ops.delta_block_encode(pickup)[1].long().sum())
+    # bytes: the values read, mins and widths written, and the payload this
+    # page's widths give (the words past it are not written); ops: subtract,
+    # two reductions, clz, the scan and the pack, ~25 per value
+    record("delta_block_encode", lambda: ops.delta_block_encode(pickup),
+           lambda: ops.delta_block_encode_plain(pickup),
+           8 * p + 8 * nb + 16 * nb + payload, 25 * p,
+           shape=f"taxi pickup_us group 0 page 0, n={p} int64, {payload} payload bytes")
+    # fare_cents's pages take the int32 instance of the same kernel: held,
+    # not timed
+    fare = g["fare_cents"][: (1 << 20) // 4]
+    hold_plain(rows, "delta_block_encode", f"[taxi fare_cents group 0 page 0, n={fare.numel()} int32]",
+               ops.delta_block_encode(fare), ops.delta_block_encode_plain(fare))
+    data, offsets = g["zone"]
+    nz = offsets.numel() - 1
+    total = data.numel()
+    # bytes: offsets and data read, the framed stream written; ops: ~2 per byte
+    record("plain_bytearray_encode",
+           lambda: ops.plain_bytearray_encode(data, offsets, 4 * nz + total),
+           lambda: ops.plain_bytearray_encode_plain(data, offsets, 4 * nz + total),
+           8 * (nz + 1) + total + 4 * nz + total, 2 * (total + 4 * nz),
+           shape=f"taxi zone group 0, n={nz} values, {total} bytes")
+
+
 def time_new_kernels(mixed_path, dev, rows: dict, bw: float) -> None:
     """Device times of the three kernels of the mixed path on the taxi_mixed
     file's first row group, beside their bounds, plain versions and (for
@@ -1443,15 +1739,21 @@ def time_kernels(path, dev, rows: dict, bw: float) -> None:
 def profile_device_read(path) -> None:
     """torch.profiler over one device read: device time by kernel and copy,
     and the device's busy share of the wall time."""
+    from parquet_tpu_torch.core.reader import FileReader
+
+    profile_device(lambda: FileReader(path).read_row_groups_device())
+
+
+def profile_device(fn) -> None:
+    """torch.profiler over one call of `fn`: device time by kernel and copy,
+    and the device's busy share of the wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from parquet_tpu_torch.core.reader import FileReader
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        FileReader(path).read_row_groups_device()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     # device-side events only (kernels, copies): a host op such as
@@ -1479,6 +1781,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from parquet_tpu_torch import reset_write_counts, write_counts
     from parquet_tpu_torch.core.reader import FileReader, filter_counts, reset_filter_counts
     from parquet_tpu_torch.kernels import build
     from parquet_tpu_torch.kernels import device_ops as ops
@@ -1526,6 +1829,14 @@ def main() -> int:
         "list_contains_mask": (csrc + "list_contains_mask.cu",
                                "parquet_tpu/kernels/device_ops.py:355"),
         "mask_take": (csrc + "mask_take.cu", "parquet_tpu/kernels/device_ops.py:388"),
+        "bitpack_encode": (csrc + "bitpack_encode.cu", "parquet_tpu/kernels/device_ops.py:411"),
+        "rle_hybrid_encode": (csrc + "rle_hybrid_encode.cu",
+                              "parquet_tpu/kernels/device_ops.py:445"),
+        "dict_indices": (csrc + "dict_indices.cu", "parquet_tpu/kernels/device_ops.py:512"),
+        "delta_block_encode": (csrc + "delta_block_encode.cu",
+                               "parquet_tpu/kernels/device_ops.py:553"),
+        "plain_bytearray_encode": (csrc + "plain_bytearray_encode.cu",
+                                   "parquet_tpu/kernels/device_ops.py:630"),
     }
     rows = {
         k: {"name": k, "route": "cuda", "source": src, "replaces": rep}
@@ -1538,6 +1849,8 @@ def main() -> int:
     check_batch_kernels(dev, rows)
     log("[kernels] the filter path's kernels at edge shapes")
     check_filter_kernels(dev, rows)
+    log("[kernels] the write path's kernels at edge shapes")
+    check_write_kernels(dev, rows)
 
     launches: dict[str, dict] = {}
 
@@ -1700,6 +2013,45 @@ def main() -> int:
     for k in ("predicate_mask", "leaf_verdict", "mask_take"):
         if counts[k] <= 0:
             raise AssertionError(f"{k} was not launched on the filtered read")
+    # the write path: the taxi generator's columns on the card, written back
+    # through write_device_column; the file must equal the host write's
+    with FileReader(taxi_path) as r:
+        taxi_schema = r.schema
+    host_groups = write_groups(taxi_specs)
+    dev_groups = upload_groups(host_groups, dev)
+    torch.cuda.synchronize()
+    dev_file = build.BUILD_ROOT / "smoke" / "write-device.parquet"
+    host_file = build.BUILD_ROOT / "smoke" / "write-host.parquet"
+    ops.reset_launch_counts()
+    reset_write_counts()
+    t = time.perf_counter()
+    write_taxi(dev_file, taxi_schema, dev_groups, device=True)
+    secs = time.perf_counter() - t
+    counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
+    wc = write_counts()
+    launches["taxi write"] = counts
+    log(f"[write:taxi] write_device_column, {ROW_GROUPS} groups: {secs:.2f} s, "
+        f"{dev_file.stat().st_size / 2**20:.1f} MiB, write counts {wc}, launches "
+        + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+    want_wc = {"device_write_engaged": 6 * ROW_GROUPS, "device_write_declined": 0}
+    if wc != want_wc:
+        raise AssertionError(f"write counts {wc}, expected {want_wc}")
+    for k in WRITE_KERNELS:
+        if counts[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the write path")
+    t = time.perf_counter()
+    write_taxi(host_file, taxi_schema, host_groups, device=False)
+    log(f"[write:taxi] write_column from NumPy: {time.perf_counter() - t:.2f} s")
+    if dev_file.read_bytes() != host_file.read_bytes():
+        raise AssertionError("the device write's file differs from the host write's")
+    log("[write:taxi] the device write's file equals the host write's, byte for byte")
+    reader = FileReader(dev_file)
+    groups = reader.read_row_groups_device()
+    torch.cuda.synchronize()
+    check_main_path(groups, taxi_specs, reader.stats, no_host_fallback=False)
+    del groups
+    log(f"[write:taxi] read back with read_row_groups_device: columns equal the generator "
+        f"({reader.stats})")
     for k in rows:
         rows[k]["launches"] = sum(c[k] for c in launches.values())
         rows[k]["launches_by_path"] = {label: c[k] for label, c in launches.items()}
@@ -1763,6 +2115,19 @@ def main() -> int:
             extra = f"; over input rows, {int(keep.sum())} kept, 2 groups pruned"
         log(f"  {label}: {rates[label]:,.0f} rows/s (median of {[round(x, 3) for x in secs]} s)"
             + extra)
+    for label, fn in (("taxi device write",
+                       lambda: write_taxi(dev_file, taxi_schema, dev_groups, device=True)),
+                      ("taxi host write",
+                       lambda: write_taxi(host_file, taxi_schema, host_groups, device=False))):
+        # the phase's own writes above were the warm-up
+        med, secs = median_s(fn)
+        rates[label] = n_rows / med
+        log(f"  {label}: {rates[label]:,.0f} rows/s (median of {[round(x, 3) for x in secs]} s)")
+    log(f"[write] rows/s: device write {rates['taxi device write']:,.0f}, host write "
+        f"{rates['taxi host write']:,.0f}, ratio "
+        f"{rates['taxi device write'] / rates['taxi host write']:.3f}")
+    log("  profiler, taxi device write:")
+    profile_device(lambda: write_taxi(dev_file, taxi_schema, dev_groups, device=True))
     prepare = {}
     for label in paths:
         # the staged walk is the fallback: timed on the two taxi files only
@@ -1785,6 +2150,10 @@ def main() -> int:
     time_new_kernels(mixed_path, dev, rows, bw)
     time_batch_kernels(sessions_path, paths["taxi"][0], dev, rows, bw)
     time_filter_kernels(taxi_path, sessions_path, f_taxi, f_sessions[0][2], dev, rows, bw)
+    time_write_kernels(dev_groups, dev, rows, bw)
+    del dev_groups
+    dev_file.unlink()
+    host_file.unlink()
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"rows_per_s": rates, "prepare_s": prepare, "card": smi}))

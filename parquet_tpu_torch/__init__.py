@@ -6,7 +6,9 @@ streams of each column chunk go to the device as packed upload buffers and
 are decoded there by hand-written CUDA kernels (kernels/csrc/): hybrid
 RLE/bit-packed expansion, dictionary gather and DELTA_BINARY_PACKED decode.
 Filters prune row groups by statistics and bloom filters and evaluate as
-device row masks, compacted on the card.
+device row masks, compacted on the card. FileWriter writes device tensors
+back to Parquet: the dictionary probe, the hybrid and DELTA encodes and the
+byte-array framing run on the card, byte-identical to the host write.
 
     from parquet_tpu_torch import FileReader
     with FileReader("trips.parquet") as r:          # device=None -> CUDA
@@ -19,6 +21,11 @@ device row masks, compacted on the card.
     for batch in FileReader("trips.parquet").iter_device_batches(
             100_000, filters=[("fare", ">=", 1500)], filter_rows=True):
         ...                                         # matching rows only, compacted on the card
+
+    with FileWriter("out.parquet", schema, codec="snappy") as w:
+        w.write_device_column("fare", fare_tensor)  # a CUDA tensor
+        w.write_device_column("zone", (data_u8, offsets_i64))
+    write_counts()                                  # device_write_engaged / _declined
 
 `device="cpu"` runs the kernels' plain PyTorch versions on the CPU; without
 it a machine with no CUDA raises.
@@ -40,6 +47,7 @@ from .core.reader import (
     reset_filter_counts,
 )
 from .core.schema import Column, Schema
+from .core.writer import FileWriter, WriterError, reset_write_counts, write_counts
 from .kernels.pipeline import DecodeStats, DeviceColumn
 from .meta.file_meta import ParquetFileError, read_file_metadata
 
@@ -54,6 +62,7 @@ __all__ = [
     "DeviceColumn",
     "DeviceFilterError",
     "FileReader",
+    "FileWriter",
     "FilterError",
     "MaskedColumn",
     "PageError",
@@ -61,8 +70,11 @@ __all__ = [
     "RaggedColumn",
     "Schema",
     "VecFilterError",
+    "WriterError",
     "filter_counts",
     "read_chunk",
     "read_file_metadata",
     "reset_filter_counts",
+    "reset_write_counts",
+    "write_counts",
 ]

@@ -48,7 +48,7 @@ from .schema import Column
 
 __all__ = ["DecodedPage", "PageError", "decode_data_page_v1", "decode_data_page_v2",
            "decode_dict_page", "encode_data_page_v1", "encode_data_page_v2",
-           "encode_dict_page"]
+           "encode_dict_page", "frame_page"]
 
 
 class PageError(ValueError):
@@ -301,6 +301,57 @@ def decode_dict_page(header: PageHeader, block: bytes, column: Column):
 # -- write side ----------------------------------------------------------------
 
 
+def frame_page(
+    values_raw: bytes,
+    n: int,
+    encoding: Encoding,
+    codec: int,
+    version: int,
+    with_crc: bool = False,
+    rep_block: bytes = b"",
+    def_block: bytes = b"",
+    num_nulls: int = 0,
+    num_rows: int | None = None,
+) -> tuple[PageHeader, bytes]:
+    """One data page from its encoded parts: `n` level entries (values for a
+    flat REQUIRED column), the encoded levels and the value stream. V1
+    compresses levels and values as one block; V2 keeps the level blocks
+    uncompressed in front of the compressed values."""
+    if version == 1:
+        raw = rep_block + def_block + values_raw
+        block = compress_block(raw, codec)
+        header = PageHeader(
+            type=0,
+            uncompressed_page_size=len(raw),
+            compressed_page_size=len(block),
+            data_page_header=DataPageHeader(
+                num_values=n,
+                encoding=int(encoding),
+                definition_level_encoding=int(Encoding.RLE),
+                repetition_level_encoding=int(Encoding.RLE),
+            ),
+        )
+    else:
+        block = rep_block + def_block + compress_block(values_raw, codec)
+        header = PageHeader(
+            type=3,
+            uncompressed_page_size=len(rep_block) + len(def_block) + len(values_raw),
+            compressed_page_size=len(block),
+            data_page_header_v2=DataPageHeaderV2(
+                num_values=n,
+                num_nulls=num_nulls,
+                num_rows=n if num_rows is None else num_rows,
+                encoding=int(encoding),
+                definition_levels_byte_length=len(def_block),
+                repetition_levels_byte_length=len(rep_block),
+                is_compressed=True,
+            ),
+        )
+    if with_crc:
+        header.crc = _crc32_signed(block)
+    return header, block
+
+
 def encode_data_page_v1(
     column: Column,
     values,
@@ -313,31 +364,9 @@ def encode_data_page_v1(
 ) -> tuple[PageHeader, bytes]:
     n = _count_level_entries(values, def_levels)
     vals = _encode_values(values, encoding, column, dict_size)
-    if column.max_rep > 0 or column.max_def > 0:
-        payload = bytearray()
-        if column.max_rep > 0:
-            payload += encode_levels_v1(rep_levels, column.max_rep)
-        if column.max_def > 0:
-            payload += encode_levels_v1(def_levels, column.max_def)
-        payload += vals
-        raw = payload
-    else:
-        raw = vals  # flat required column: the value stream IS the page
-    block = compress_block(raw, codec)
-    header = PageHeader(
-        type=0,
-        uncompressed_page_size=len(raw),
-        compressed_page_size=len(block),
-        data_page_header=DataPageHeader(
-            num_values=n,
-            encoding=int(encoding),
-            definition_level_encoding=int(Encoding.RLE),
-            repetition_level_encoding=int(Encoding.RLE),
-        ),
-    )
-    if with_crc:
-        header.crc = _crc32_signed(block)
-    return header, block
+    rep_block = encode_levels_v1(rep_levels, column.max_rep) if column.max_rep > 0 else b""
+    def_block = encode_levels_v1(def_levels, column.max_def) if column.max_def > 0 else b""
+    return frame_page(vals, n, encoding, codec, 1, with_crc, rep_block, def_block)
 
 
 def encode_data_page_v2(
@@ -358,8 +387,6 @@ def encode_data_page_v2(
         encode_levels_v2(def_levels, column.max_def) if column.max_def > 0 else b""
     )
     values_raw = _encode_values(values, encoding, column, dict_size)
-    values_block = compress_block(values_raw, codec)
-    block = rep_block + def_block + values_block
     num_nulls = 0
     num_rows = n
     if def_levels is not None and column.max_def > 0:
@@ -367,23 +394,8 @@ def encode_data_page_v2(
         num_nulls = int((dl != column.max_def).sum())
     if rep_levels is not None and column.max_rep > 0:
         num_rows = int((np.asarray(rep_levels) == 0).sum())
-    header = PageHeader(
-        type=3,
-        uncompressed_page_size=len(rep_block) + len(def_block) + len(values_raw),
-        compressed_page_size=len(block),
-        data_page_header_v2=DataPageHeaderV2(
-            num_values=n,
-            num_nulls=num_nulls,
-            num_rows=num_rows,
-            encoding=int(encoding),
-            definition_levels_byte_length=len(def_block),
-            repetition_levels_byte_length=len(rep_block),
-            is_compressed=True,
-        ),
-    )
-    if with_crc:
-        header.crc = _crc32_signed(block)
-    return header, block
+    return frame_page(values_raw, n, encoding, codec, 2, with_crc, rep_block, def_block,
+                      num_nulls, num_rows)
 
 
 def encode_dict_page(

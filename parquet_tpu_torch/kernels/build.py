@@ -74,6 +74,11 @@ SIGNATURES = {
     "pqt_list_contains_mask": (_P, _P, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P),
     "pqt_mask_scan": (_P, _LL, _LL, _P, _P, _P, _P, _P),
     "pqt_take_rows": (_P, _LL, _LL, _I, _P, _P, _LL, _P, _P),
+    "pqt_bitpack_encode": (_P, _LL, _I, _P, _LL, _P),
+    "pqt_rle_hybrid_plan": (_P, _LL, _P, _P, _P, _P, _P, _P, _P),
+    "pqt_dict_indices": (_P, _LL, _I, _P, _LL, _P, _P, _P, _P, _P, _P),
+    "pqt_delta_block_encode": (_P, _LL, _I, _P, _P, _P, _P, _P, _P),
+    "pqt_plain_bytearray_encode": (_P, _P, _LL, _LL, _P, _P),
 }
 
 _lib = None

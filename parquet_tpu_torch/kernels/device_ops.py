@@ -1,4 +1,4 @@
-"""Device primitives: the kernels of the decode, batch and filter paths.
+"""Device primitives: the kernels of the decode, batch, filter and write paths.
 
 Each primitive has three parts:
 
@@ -62,6 +62,16 @@ __all__ = [
     "mask_take_scan_plain",
     "mask_take_rows",
     "mask_take_rows_plain",
+    "bitpack_encode",
+    "bitpack_encode_plain",
+    "rle_hybrid_encode",
+    "rle_hybrid_encode_plain",
+    "dict_indices",
+    "dict_indices_plain",
+    "delta_block_encode",
+    "delta_block_encode_plain",
+    "plain_bytearray_encode",
+    "plain_bytearray_encode_plain",
     "KERNELS",
     "reset_launch_counts",
 ]
@@ -1371,7 +1381,367 @@ def mask_take(values: torch.Tensor, mask: torch.Tensor, out_pad: int):
 mask_take.launches = 0
 
 
-# The kernels of the decode, batch and filter paths, by name.
+# -- the write path: bit-pack, hybrid run plan, dictionary probe, DELTA blocks,
+#    byte-array framing ---------------------------------------------------------
+
+
+def bitpack_encode_plain(values: torch.Tensor, width: int) -> torch.Tensor:
+    """Plain version of the LSB-first bit-pack: value i at bits [i*width,
+    (i+1)*width) of little-endian uint32 words, ceil(n*width/32) + 1 words
+    (the last a zero guard word); one zero word for width 0 or no values.
+    Values are masked to `width` bits; each splits into a lo/hi word
+    contribution and a scatter-add joins them (disjoint bits: add is or)."""
+    dev = values.device
+    n = values.numel()
+    if width == 0 or n == 0:
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+    n_words = (n * width + 31) // 32 + 1
+    v = _u32(values) & ((1 << width) - 1)
+    bitpos = torch.arange(n, dtype=torch.int64, device=dev) * width
+    w0 = bitpos >> 5
+    shifted = v << (bitpos & 31)  # < 2^63: no sign overflow
+    words = torch.zeros(n_words, dtype=torch.int64, device=dev)
+    words.index_add_(0, w0, shifted & _M32)
+    words.index_add_(0, (w0 + 1).clamp(max=n_words - 1), shifted >> 32)
+    return _to_signed32(words)
+
+
+def bitpack_encode(values: torch.Tensor, width: int) -> torch.Tensor:
+    """Bit-pack uint32 values (int32 bit patterns) at `width` bits into
+    int32[ceil(n*width/32) + 1] words, LSB first. Replaces
+    parquet_tpu/kernels/device_ops.py:bitpack_encode_device; the caller pads
+    to whole groups of 8 where the hybrid format needs them."""
+    _check_vec(values, (torch.int32,), "bitpack_encode: values")
+    width = int(width)
+    if not 0 <= width <= 32:
+        raise ValueError(f"bitpack_encode: width {width} outside 0..32")
+    n = values.numel()
+    _check_len(n, "bitpack_encode")
+    if _on_cpu(values):
+        return bitpack_encode_plain(values, width)
+    dev = values.device
+    if width == 0 or n == 0:
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+    out = torch.empty((n * width + 31) // 32 + 1, dtype=torch.int32, device=dev)
+    _launch(
+        "bitpack_encode", dev, _lib().pqt_bitpack_encode,
+        _ptr(values), n, width, _ptr(out), out.numel(),
+    )
+    bitpack_encode.launches += 1
+    return out
+
+
+bitpack_encode.launches = 0
+
+
+def rle_hybrid_encode_plain(values: torch.Tensor, width: int):
+    """Plain version of the hybrid encode's run plan and payload, as the
+    reference writes it (run extents, 8-aligned RLE windows of >= 8 equal
+    values, compaction of the rest, one pack)."""
+    dev = values.device
+    n = values.numel()
+    if n == 0:
+        return (
+            torch.zeros(0, dtype=torch.bool, device=dev),
+            torch.zeros(0, dtype=torch.bool, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev),
+        )
+    # run extents by cummax/cummin, the bit-packed values compacted by a
+    # scatter into a trash slot: no host sync
+    i = torch.arange(n, dtype=torch.int64, device=dev)
+    boundary = torch.ones(n, dtype=torch.bool, device=dev)
+    boundary[1:] = values[1:] != values[:-1]
+    is_end = torch.ones(n, dtype=torch.bool, device=dev)
+    is_end[:-1] = boundary[1:]
+    run_start = torch.cummax(torch.where(boundary, i, 0), 0).values
+    run_end = torch.cummin(torch.where(is_end, i + 1, n).flip(0), 0).values.flip(0)
+    rle_s = (run_start + 7) & ~7
+    rle_e = run_end & ~7
+    qualifies = (run_end - run_start >= 8) & (rle_e - rle_s >= 8)
+    in_rle = qualifies & (i >= rle_s) & (i < rle_e)
+    rle_break = in_rle & (i == rle_s)
+    keep = ~in_rle
+    pos = torch.cumsum(keep, 0, dtype=torch.int64) - 1
+    bp = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    bp.scatter_(0, torch.where(keep, pos, n), values)
+    return in_rle, rle_break, bitpack_encode_plain(bp[:n], width), keep.sum(dtype=torch.int32)
+
+
+def rle_hybrid_encode(values: torch.Tensor, width: int):
+    """The device half of the RLE/bit-pack hybrid encode of uint32 values
+    (int32 bit patterns) < 2**width: (in_rle bool[n], rle_break bool[n],
+    packed int32 words, n_bp a 0-d int32 tensor). An 8-aligned window of >= 8
+    equal values is an RLE run (in_rle), starting where rle_break is set;
+    every other value, in order, is bit-packed into `packed` (zero-padded,
+    bitpack_encode's layout over n values); n_bp counts them.
+    kernels/pipeline.assemble_hybrid_device_stream frames the result into
+    ops/rle_hybrid.encode_hybrid's bytes. Replaces
+    parquet_tpu/kernels/device_ops.py:rle_hybrid_encode_device; its pack is
+    a bitpack_encode launch."""
+    _check_vec(values, (torch.int32,), "rle_hybrid_encode: values")
+    width = int(width)
+    if not 0 <= width <= 32:
+        raise ValueError(f"rle_hybrid_encode: width {width} outside 0..32")
+    n = values.numel()
+    _check_len(n, "rle_hybrid_encode")
+    if _on_cpu(values):
+        return rle_hybrid_encode_plain(values, width)
+    dev = values.device
+    in_rle = torch.empty(n, dtype=torch.bool, device=dev)
+    rle_break = torch.empty(n, dtype=torch.bool, device=dev)
+    n_bp = torch.zeros((), dtype=torch.int32, device=dev)
+    if not n:
+        return in_rle, rle_break, torch.zeros(1, dtype=torch.int32, device=dev), n_bp
+    lib = _lib()
+    bp = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(4 * n, dtype=torch.int32, device=dev)
+    tile_sums = _tile_sums(lib, n, torch.int32, dev)
+    _launch(
+        "rle_hybrid_encode", dev, lib.pqt_rle_hybrid_plan,
+        _ptr(values), n, _ptr(in_rle), _ptr(rle_break), _ptr(bp), _ptr(n_bp),
+        _ptr(scratch), _ptr(tile_sums),
+    )
+    rle_hybrid_encode.launches += 1
+    return in_rle, rle_break, bitpack_encode(bp, width), n_bp
+
+
+rle_hybrid_encode.launches = 0
+
+
+def dict_indices_plain(bits: torch.Tensor):
+    """Plain version of the first-occurrence dictionary probe, by sorting:
+    torch.unique groups the keys, a scatter-min finds each group's first
+    row, and the groups rank by it."""
+    dev = bits.device
+    n = bits.numel()
+    if n == 0:
+        empty = torch.zeros(0, dtype=torch.int32, device=dev)
+        return empty, empty.clone(), torch.zeros((), dtype=torch.int32, device=dev)
+    _uniq, inv = torch.unique(bits, return_inverse=True)
+    nu = _uniq.numel()
+    first = torch.full((nu,), n, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, inv, torch.arange(n, dtype=torch.int64, device=dev), "amin")
+    order = torch.argsort(first)
+    rank = torch.empty(nu, dtype=torch.int64, device=dev)
+    rank[order] = torch.arange(nu, dtype=torch.int64, device=dev)
+    firsts = torch.full((n,), n, dtype=torch.int32, device=dev)
+    firsts[:nu] = first[order].to(torch.int32)
+    return rank[inv].to(torch.int32), firsts, torch.tensor(nu, dtype=torch.int32, device=dev)
+
+
+def dict_indices(bits: torch.Tensor):
+    """First-occurrence dictionary of a column's bit patterns (int32 or
+    int64; floats as their patterns, so NaN payloads stay distinct):
+    (indices int32[n], firsts int32[n], n_uniques a 0-d int32 tensor).
+    Dictionary entry k is bits[firsts[k]], the k-th distinct value in row
+    order; indices[i] is row i's entry; firsts holds n past n_uniques.
+    Replaces parquet_tpu/kernels/device_ops.py:dict_indices_device (sort
+    based); the kernel hashes instead, with the same outputs."""
+    _check_vec(bits, (torch.int32, torch.int64), "dict_indices: bits")
+    n = bits.numel()
+    _check_len(2 * n, "dict_indices")
+    if _on_cpu(bits):
+        return dict_indices_plain(bits)
+    dev = bits.device
+    indices = torch.empty(n, dtype=torch.int32, device=dev)
+    firsts = torch.empty(n, dtype=torch.int32, device=dev)
+    nu = torch.zeros((), dtype=torch.int32, device=dev)
+    if not n:
+        return indices, firsts, nu
+    lib = _lib()
+    slots = 64
+    while slots < 2 * n:
+        slots <<= 1
+    table = torch.empty(slots, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    tile_sums = _tile_sums(lib, n, torch.int32, dev)
+    _launch(
+        "dict_indices", dev, lib.pqt_dict_indices,
+        _ptr(bits), n, bits.element_size(), _ptr(table), slots - 1, _ptr(scratch),
+        _ptr(tile_sums), _ptr(indices), _ptr(firsts), _ptr(nu),
+    )
+    dict_indices.launches += 1
+    return indices, firsts, nu
+
+
+dict_indices.launches = 0
+
+
+def _bit_length(x: torch.Tensor, nbits: int) -> torch.Tensor:
+    """Bit length of unsigned values held in int64 lanes (uint64 patterns)."""
+    out = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for b in range(nbits):
+        out += (_lshr64(x, torch.full_like(x, b)) != 0).to(torch.int32)
+    return out
+
+
+def delta_block_encode_plain(values: torch.Tensor):
+    """Plain version of the DELTA_BINARY_PACKED block tables and payload of
+    one page, as the reference writes them: wrapping deltas, per-128-block
+    signed minimum, per-32-miniblock bit widths, payloads at
+    cumsum(4 * width) byte offsets placed by a scatter-add of word
+    contributions. 64-bit lanes wrap as uint64 does."""
+    dev = values.device
+    n = values.numel()
+    nbits = values.element_size() * 8
+    nd = max(n - 1, 0)
+    nb = (nd + 127) // 128
+    nm = 4 * nb
+    if nb == 0:
+        return (
+            torch.zeros(0, dtype=values.dtype, device=dev),
+            torch.zeros(0, dtype=torch.int32, device=dev),
+            torch.zeros(0, dtype=torch.int32, device=dev),
+        )
+    p = 128 * nb
+    if nbits == 32:
+        u = _u32(values)
+        d = (u[1:] - u[:-1]) & _M32
+        sd = torch.where(d >= (1 << 31), d - (1 << 32), d)
+        big = (1 << 31) - 1
+    else:
+        d = values[1:] - values[:-1]  # two's complement: uint64 wrap
+        sd = d
+        big = (1 << 63) - 1
+    sdp = torch.full((p,), big, dtype=torch.int64, device=dev)
+    sdp[:nd] = sd
+    mins = sdp.view(nb, 128).amin(1)
+    dp = torch.zeros(p, dtype=torch.int64, device=dev)
+    dp[:nd] = d
+    valid = torch.arange(p, device=dev) < nd
+    adj = torch.where(valid, dp - mins.repeat_interleave(128), 0)
+    if nbits == 32:
+        adj = adj & _M32
+        amax = adj.view(nm, 32).amax(1)
+    else:
+        flip = -(1 << 63)  # unsigned max as a signed max of sign-flipped lanes
+        amax = (adj ^ flip).view(nm, 32).amax(1) ^ flip
+    widths = _bit_length(amax, nbits)
+    pay = torch.zeros(nm + 1, dtype=torch.int64, device=dev)
+    pay[1:] = torch.cumsum(4 * widths.to(torch.int64), 0)
+    i = torch.arange(p, dtype=torch.int64, device=dev)
+    m = i >> 5
+    w = widths.to(torch.int64)[m]
+    bitpos = pay[m] * 8 + (i & 31) * w
+    n_words = nm * nbits
+    words = torch.zeros(n_words + 3, dtype=torch.int64, device=dev)
+    w0 = bitpos >> 5
+    s = bitpos & 31
+    lo = (adj & _M32) << s
+    words.index_add_(0, w0, lo & _M32)
+    words.index_add_(0, w0 + 1, lo >> 32)
+    if nbits == 64:
+        hi = _lshr64(adj, torch.full_like(adj, 32)) << s
+        words.index_add_(0, w0 + 1, hi & _M32)
+        words.index_add_(0, w0 + 2, hi >> 32)
+    return mins.to(values.dtype), widths, _to_signed32(words[:n_words])
+
+
+def delta_block_encode(values: torch.Tensor):
+    """DELTA_BINARY_PACKED tables and payload of one page of int32/int64
+    values (unsigned columns as their bit patterns), blocks of 128 deltas in
+    4 miniblocks of 32: (mins, widths, words). For the page's n - 1 deltas
+    in nb = ceil((n - 1) / 128) blocks: mins[nb] (the values' dtype) is each
+    block's signed minimum delta; widths int32[4 * nb] each miniblock's bit
+    width, 0 past the deltas; words int32[4 * nb * nbits] the payloads of
+    all miniblocks, each 4 * width bytes, butted together in order: the
+    first sum(widths) words. The kernel leaves the words after them
+    unwritten (the plain version zeroes them), so a caller reads only that
+    prefix. Replaces parquet_tpu/kernels/device_ops.py:
+    delta_block_encode_device, whose tables run over a padded bucket (the
+    blocks past the data carry INT_MAX there)."""
+    _check_vec(values, (torch.int32, torch.int64), "delta_block_encode: values")
+    n = values.numel()
+    _check_len(8 * n, "delta_block_encode")
+    if _on_cpu(values):
+        return delta_block_encode_plain(values)
+    dev = values.device
+    nbits = values.element_size() * 8
+    nb = (max(n - 1, 0) + 127) // 128
+    mins = torch.empty(nb, dtype=values.dtype, device=dev)
+    widths = torch.empty(4 * nb, dtype=torch.int32, device=dev)
+    words = torch.empty(4 * nb * nbits, dtype=torch.int32, device=dev)
+    if not nb:
+        return mins, widths, words
+    lib = _lib()
+    offs = torch.empty(4 * nb, dtype=torch.int64, device=dev)
+    tile_sums = _tile_sums(lib, 4 * nb, torch.int64, dev)
+    _launch(
+        "delta_block_encode", dev, lib.pqt_delta_block_encode,
+        _ptr(values), n, nbits, _ptr(mins), _ptr(widths), _ptr(offs), _ptr(tile_sums),
+        _ptr(words),
+    )
+    delta_block_encode.launches += 1
+    return mins, widths, words
+
+
+delta_block_encode.launches = 0
+
+
+def plain_bytearray_encode_plain(
+    data: torch.Tensor, offsets: torch.Tensor, out_len: int
+) -> torch.Tensor:
+    """Plain version of the PLAIN BYTE_ARRAY framing: value i's 4-byte LE
+    length at 4*i + offsets[i] - offsets[0], its bytes after it; output
+    positions at or past out_len are dropped."""
+    dev = data.device
+    n = offsets.numel() - 1
+    off = offsets.to(torch.int64)
+    out = torch.zeros(out_len + 1, dtype=torch.uint8, device=dev)
+    if n <= 0:
+        return out[:out_len]
+    i = torch.arange(n, dtype=torch.int64, device=dev)
+    lens = off[1:] - off[:-1]
+    at = 4 * i + off[:-1] - off[0]
+    for k in range(4):
+        pos = at + k
+        out.scatter_(0, torch.where(pos < out_len, pos, out_len),
+                     ((lens >> (8 * k)) & 0xFF).to(torch.uint8))
+    j = torch.arange(data.numel(), dtype=torch.int64, device=dev)
+    v = torch.searchsorted(off[1:].contiguous(), j, right=True)
+    inside = (j >= off[0]) & (j < off[n])
+    pos = j - off[0] + 4 * (v + 1)
+    out.scatter_(0, torch.where(inside & (pos < out_len), pos, out_len), data)
+    return out[:out_len]
+
+
+def plain_bytearray_encode(
+    data: torch.Tensor, offsets: torch.Tensor, out_len: int
+) -> torch.Tensor:
+    """PLAIN framing of a byte-array column, `<4-byte LE length><bytes>` per
+    value, from uint8 data and int64 offsets[n + 1] into uint8[out_len];
+    out_len = 4*n + offsets[n] - offsets[0] holds the whole stream (the
+    caller knows the offsets on the host: it splits pages by them). PLAIN
+    streams concatenate, so page a..b is bytes [4a + off[a] - off[0],
+    4b + off[b] - off[0]). Replaces
+    parquet_tpu/kernels/device_ops.py:plain_bytearray_encode_device (which
+    zero-pads to a bucket)."""
+    _check_vec(data, (torch.uint8,), "plain_bytearray_encode: data")
+    _check_vec(offsets, (torch.int64,), "plain_bytearray_encode: offsets")
+    n = offsets.numel() - 1
+    out_len = int(out_len)
+    if n < 0 or out_len < 4 * n:
+        raise ValueError(
+            f"plain_bytearray_encode: {out_len} output bytes for {max(n, 0)} values"
+        )
+    if _on_cpu(data, offsets):
+        return plain_bytearray_encode_plain(data, offsets, out_len)
+    dev = data.device
+    out = torch.zeros(out_len, dtype=torch.uint8, device=dev)
+    if n:
+        _launch(
+            "plain_bytearray_encode", dev, _lib().pqt_plain_bytearray_encode,
+            _ptr(data), _ptr(offsets), n, out_len, _ptr(out),
+        )
+        plain_bytearray_encode.launches += 1
+    return out
+
+
+plain_bytearray_encode.launches = 0
+
+
+# The kernels of the decode, batch, filter and write paths, by name.
 KERNELS = {
     "expand_hybrid": expand_hybrid,
     "dict_gather": dict_gather,
@@ -1387,6 +1757,11 @@ KERNELS = {
     "leaf_verdict": leaf_verdict,
     "list_contains_mask": list_contains_mask,
     "mask_take": mask_take,
+    "bitpack_encode": bitpack_encode,
+    "rle_hybrid_encode": rle_hybrid_encode,
+    "dict_indices": dict_indices,
+    "delta_block_encode": delta_block_encode,
+    "plain_bytearray_encode": plain_bytearray_encode,
 }
 
 

@@ -67,37 +67,65 @@ from ..core.chunk import (
     chunk_byte_range,
     iter_chunk_pages,
 )
+from ..core.column_store import DICT_MAX_UNIQUES
 from ..core.compress import decompress_block, is_builtin_codec
 from ..core.page import (
     MissingDictionaryError,
     PageError,
     _decode_values,
     decode_dict_page,
+    encode_dict_page,
+    frame_page,
     typed_page_errors,
 )
 from ..core.schema import Column
-from ..meta.parquet_types import DictionaryPageHeader, Encoding, PageHeader, PageType, Type
-from ..ops.delta import decode_delta, prescan_delta_packed
+from ..core.stats import column_is_unsigned
+from ..meta.parquet_types import (
+    DictionaryPageHeader,
+    Encoding,
+    PageHeader,
+    PageType,
+    Type,
+)
+from ..ops.delta import _to_signed, decode_delta, prescan_delta_packed
 from ..ops.levels import decode_levels_v1, decode_levels_v2
 from ..ops.rle_hybrid import RunTable, expand_runs, prescan_hybrid
+from ..ops.varint import emit_uvarint, emit_zigzag
 from ..utils.native import PrepareFault, get_native
+from ..sink.encoder import (
+    EncodedChunk,
+    _ChunkEncodePlan,
+    _chunk_meta,
+    _split_starts,
+    _value_width,
+)
 from .device_ops import (
     MAX_DEVICE_BATCH_BITS,
     _bucket,
     bss_transpose,
     bytes_to_words32,
     bytes_to_words64,
+    delta_block_encode,
     delta_packed_decode,
     dict_gather,
+    dict_indices,
     expand_hybrid,
     list_layout,
     merge_mixed_bytes,
     merge_mixed_numeric,
+    plain_bytearray_encode,
+    rle_hybrid_encode,
 )
 
 __all__ = [
     "DecodeStats",
     "DeviceColumn",
+    "EncodeDeclined",
+    "assemble_delta_device_stream",
+    "assemble_hybrid_device_stream",
+    "encode_device_column",
+    "hybrid_segments",
+    "host_byte_array",
     "prepare_chunk_plan",
     "plan_chunk_device",
     "read_chunk_device",
@@ -1780,3 +1808,381 @@ def _concat_values(parts, column: Column):
     if column.type == Type.BYTE_ARRAY:
         return ByteArrayData(offsets=np.zeros(1, dtype=np.int64), data=b"")
     return np.empty(0, dtype=_empty_dtype(column))
+
+
+# -- write path: device column -> encoded pages --------------------------------
+#
+# The inverse of the decode above, ported from the encode half of
+# parquet_tpu/kernels/pipeline.py: a device-resident column (a training
+# batch, a checkpoint shard, a DeviceColumn's values) becomes parquet pages
+# without a host round trip of its raw values. The dictionary probe, the
+# hybrid run plan and bit-pack, the DELTA block scans and the byte-array
+# framing are kernels (dict_indices, rle_hybrid_encode, bitpack_encode,
+# delta_block_encode, plain_bytearray_encode); the host emits run and block
+# headers, frames pages and compresses, and the bytes equal
+# sink.encoder.encode_chunk's for the same values.
+
+
+class EncodeDeclined(ValueError):
+    """A column the device encoder does not take, as the reference routes
+    them: a nested or optional leaf, a writer with the page index on, a
+    dictionary-eligible BYTE_ARRAY, a tensor whose width or kind does not
+    match the leaf, or an encoding other than PLAIN, dictionary and
+    DELTA_BINARY_PACKED. FileWriter encodes such a column on the host,
+    counted as device_write_declined. A kernel that fails to build or launch
+    raises its own error and is never declined."""
+
+
+def hybrid_segments(in_rle: np.ndarray, rle_break: np.ndarray) -> np.ndarray:
+    """Start positions of the hybrid stream's segments: each RLE window (a
+    break starts one, so adjacent windows of different runs stay apart) and
+    each stretch of bit-packed values between them."""
+    seg_start = np.asarray(rle_break, dtype=bool).copy()
+    if len(seg_start):
+        mask = np.asarray(in_rle, dtype=bool)
+        seg_start[0] = True
+        seg_start[1:] |= mask[1:] != mask[:-1]
+    return np.flatnonzero(seg_start)
+
+
+def assemble_hybrid_device_stream(
+    in_rle: np.ndarray, starts: np.ndarray, packed: np.ndarray, width: int, rle_values
+) -> bytes:
+    """Turn rle_hybrid_encode's run plan into the exact
+    ops/rle_hybrid.encode_hybrid byte stream. `in_rle` is the fetched mask,
+    `starts` its hybrid_segments, `packed` the packed payload words (at
+    least the first ceil(n_bp / 8) * width bytes) and `rle_values` the
+    repeated value of each RLE segment, in order (the caller gathers them in
+    one launch; the reference reads each with its own device sync)."""
+    n = len(in_rle)
+    out = bytearray()
+    if n == 0:
+        return b""
+    if width == 0:
+        emit_uvarint(out, n << 1)
+        return bytes(out)
+    vbytes = (width + 7) // 8
+    packed_bytes = memoryview(np.ascontiguousarray(packed)).cast("B")
+    mask = np.asarray(in_rle, dtype=bool)
+    bounds = np.append(starts, n).tolist()
+    values = iter(np.asarray(rle_values).tolist())
+    bp_done = 0  # bit-packed values consumed (tracks the payload cursor)
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        if mask[a]:
+            emit_uvarint(out, (b - a) << 1)
+            out += int(next(values)).to_bytes(vbytes, "little")
+        else:
+            groups = (b - a + 7) // 8
+            emit_uvarint(out, (groups << 1) | 1)
+            byte0 = (bp_done // 8) * width
+            out += packed_bytes[byte0 : byte0 + groups * width]
+            bp_done += groups * 8
+    return bytes(out)
+
+
+def assemble_delta_device_stream(
+    nbits: int,
+    n: int,
+    first: int,  # values[0] in the UNSIGNED nbits domain (0 when n == 0)
+    mins: np.ndarray,  # per-block min delta, signed
+    widths: np.ndarray,  # int32: per-miniblock bit widths
+    payload: bytes,  # packed payloads at cumsum(4 * width) byte offsets
+) -> bytes:
+    """Frame delta_block_encode's tables into the exact ops/delta.encode_delta
+    byte stream (block_size=128, mini_count=4): uvarint header, then per
+    block `<zigzag min> <4 width bytes> <payloads>`. A miniblock of 32
+    values is 4 * width bytes, so the payloads slice out by a running
+    cursor."""
+    out = bytearray()
+    emit_uvarint(out, 128)
+    emit_uvarint(out, 4)
+    emit_uvarint(out, n)
+    emit_zigzag(out, _to_signed(int(first), nbits))
+    if n <= 1:
+        return bytes(out)
+    n_deltas = n - 1
+    mins = np.asarray(mins).tolist()
+    widths = np.asarray(widths).tolist()
+    pay = 0
+    for blk in range((n_deltas + 127) // 128):
+        emit_zigzag(out, mins[blk])
+        ws = widths[blk * 4 : blk * 4 + 4]
+        out += bytes(ws)
+        for k, w in enumerate(ws):
+            if blk * 128 + k * 32 < n_deltas:  # mini has values: full payload
+                out += payload[pay : pay + 4 * w]
+            pay += 4 * w
+    return bytes(out)
+
+
+class _DevicePageFramer:
+    """Host framing of device-produced page payloads through
+    core/page.frame_page (compress, Thrift header, optional CRC), as the
+    host encoder frames a flat REQUIRED column's pages."""
+
+    def __init__(self, cfg, value_encoding):
+        self._cfg = cfg
+        self._value_encoding = value_encoding
+        self.parts: list = []
+        self.pos = 0
+        self.uncompressed_total = 0
+        self.n_pages = 0
+
+    def add(self, hdr: bytes, block: bytes, uncompressed: int) -> None:
+        self.parts.append(hdr)
+        self.parts.append(block)
+        self.pos += len(hdr) + len(block)
+        self.uncompressed_total += len(hdr) + uncompressed
+
+    def frame(self, raw: bytes, n_values: int) -> None:
+        cfg = self._cfg
+        header, block = frame_page(raw, n_values, self._value_encoding, cfg.codec,
+                                   cfg.data_page_version, cfg.with_crc)
+        self.add(header.dumps(), block, len(raw))
+        self.n_pages += 1
+
+
+# leaf type -> (tensor dtypes the device encoder takes, their NumPy dtype)
+_DEVICE_ENCODE_DTYPES = {
+    Type.INT32: ((torch.int32,), np.int32),
+    Type.INT64: ((torch.int64,), np.int64),
+    Type.FLOAT: ((torch.float32,), np.float32),
+    Type.DOUBLE: ((torch.float64,), np.float64),
+}
+
+
+def encode_device_column(column: Column, values, cfg, kv: dict | None = None, *,
+                         enable_dict: bool = True):
+    """Encode one device-resident column into an EncodedChunk whose bytes
+    equal the host encoder's for the same values: a drop-in for
+    sink.encoder's assemble_group/commit_group.
+
+    `values` is a 1-D int32/int64/float32/float64 tensor, or for a
+    BYTE_ARRAY leaf a `(data, offsets)` pair (uint8 bytes and n + 1 integer
+    offsets, the layout the device read delivers). The leaf must be flat
+    REQUIRED. On a CUDA tensor the dictionary probe, the index hybrid
+    encode and bit-pack, the DELTA block scans and the byte-array framing
+    run as kernels; on a CPU tensor as their plain versions. Shapes the
+    device encoder does not take raise EncodeDeclined."""
+    if column.max_rep > 0 or column.max_def > 0:
+        raise EncodeDeclined(
+            "encode_device_column: only flat REQUIRED columns encode on the "
+            "device (nested and optional columns go through the host writer)"
+        )
+    if cfg.write_page_index:
+        raise EncodeDeclined(
+            "encode_device_column: the page index is a host-encoder option"
+        )
+    if column.type == Type.BYTE_ARRAY:
+        if enable_dict:
+            # the host encoder would probe a dictionary, and there is no
+            # byte-array uniqueness kernel: decline to keep the bytes equal
+            raise EncodeDeclined(
+                "encode_device_column: dictionary-eligible BYTE_ARRAY columns "
+                "encode on the host (disable the dictionary for this column to "
+                "take the device PLAIN route)"
+            )
+        return _encode_device_bytearray(column, values, cfg, kv)
+    if not isinstance(values, torch.Tensor):
+        raise TypeError(
+            f"encode_device_column: expected a torch.Tensor, got {type(values).__name__}"
+        )
+    dev = values.contiguous()
+    accepted = _DEVICE_ENCODE_DTYPES.get(column.type)
+    if dev.dim() != 1 or accepted is None or dev.dtype not in accepted[0]:
+        # an int64 batch for an INT32 leaf, ints for a DOUBLE leaf: the host
+        # encoder casts them exactly (or refuses), the device one cannot
+        raise EncodeDeclined(
+            f"encode_device_column: {column.path_str} is {column.type!s} but the "
+            f"tensor is {dev.dtype} of shape {tuple(dev.shape)} (width or kind mismatch)"
+        )
+    np_dt = np.dtype(accepted[1])
+    n = dev.numel()
+    nbits = np_dt.itemsize * 8
+    # uniqueness domain: bit patterns, so NaN payloads dedup like the host
+    bits = dev.view(torch.int32 if nbits == 32 else torch.int64)
+    dict_values = None
+    indices = None
+    if enable_dict and n:
+        idx_dev, firsts_dev, nu_dev = dict_indices(bits)
+        nu = int(nu_dev)
+        if nu <= DICT_MAX_UNIQUES:
+            width = max(int(nu - 1).bit_length(), 1)
+            if nu * np_dt.itemsize + (n * width) // 8 < n * np_dt.itemsize:
+                dict_values = dev[firsts_dev[:nu].long()].cpu().numpy()
+                indices = idx_dev
+    value_encoding = (
+        Encoding.RLE_DICTIONARY
+        if dict_values is not None
+        else cfg.column_encodings.get(column.path, Encoding.PLAIN)
+    )
+    delta_route = (
+        dict_values is None
+        and value_encoding == Encoding.DELTA_BINARY_PACKED
+        and column.type in (Type.INT32, Type.INT64)
+    )
+    if dict_values is None and not delta_route and value_encoding != Encoding.PLAIN:
+        raise EncodeDeclined(
+            "encode_device_column: only PLAIN, dictionary and DELTA_BINARY_PACKED "
+            f"device encodes exist for numeric columns (column asks for {value_encoding})"
+        )
+    host_typed = None
+    stats_src = None
+    if dict_values is not None:
+        stats_src = dict_values
+    elif delta_route:
+        # DELTA never downloads the column: min/max reduce on the device in
+        # the column's order (unsigned leaves: the sign bit flipped, reduced
+        # signed, flipped back), and the 2-element stats_src gives the same
+        # Statistics bytes
+        if n:
+            flip = -(1 << (nbits - 1)) if column_is_unsigned(column) else 0
+            keyed = dev ^ flip
+            stats_src = (torch.stack([keyed.min(), keyed.max()]) ^ flip).cpu().numpy()
+        else:
+            stats_src = np.zeros(0, dtype=np_dt)
+    else:
+        host_typed = dev.cpu().numpy()
+        stats_src = host_typed
+
+    framer = _DevicePageFramer(cfg, value_encoding)
+    dict_offset = None
+    if dict_values is not None:
+        header, block = encode_dict_page(column, dict_values, cfg.codec, cfg.with_crc)
+        dict_offset = framer.pos
+        framer.add(header.dumps(), block, header.uncompressed_page_size or 0)
+        data_offset = framer.pos
+        width = max(int(len(dict_values) - 1).bit_length(), 1)
+        for a, b in _split_starts(n, max(int(cfg.max_page_size // 4), 1)):
+            page_idx = indices[a:b]
+            in_rle, rle_break, packed, _n_bp = rle_hybrid_encode(page_idx, width)
+            in_rle, rle_break = torch.stack([in_rle, rle_break]).cpu().numpy()
+            starts = hybrid_segments(in_rle, rle_break)
+            rle_at = starts[in_rle[starts]]
+            rle_values = (
+                page_idx[torch.from_numpy(rle_at).to(page_idx.device)].cpu().numpy()
+                if len(rle_at) else ()
+            )
+            # only the words that hold the bit-packed groups come back
+            bp_groups = (len(in_rle) - int(in_rle.sum()) + 7) // 8
+            stream = assemble_hybrid_device_stream(
+                in_rle, starts, packed[: (bp_groups * width + 3) // 4].cpu().numpy(), width,
+                rle_values,
+            )
+            framer.frame(bytes([width]) + stream, b - a)
+    elif delta_route:
+        data_offset = framer.pos
+        pages = list(_split_starts(n, max(int(cfg.max_page_size // np_dt.itemsize), 1)))
+        firsts = [0]
+        if n:
+            # every page's first value in one gather and one copy
+            at = torch.tensor([a for a, _ in pages], dtype=torch.int64, device=dev.device)
+            firsts = bits[at].cpu().numpy().view(np.uint32 if nbits == 32 else np.uint64)
+        for (a, b), first in zip(pages, firsts):
+            mins, widths, words = delta_block_encode(bits[a:b])
+            widths = widths.cpu().numpy()
+            # the payload is sum(widths) words; nothing past it comes back
+            payload = words[: int(widths.sum(dtype=np.int64))].cpu().numpy().tobytes()
+            stream = assemble_delta_device_stream(
+                nbits, b - a, int(first), mins.cpu().numpy(), widths, payload
+            )
+            framer.frame(stream, b - a)
+    else:
+        data_offset = framer.pos
+        for a, b in _split_starts(n, max(int(cfg.max_page_size // np_dt.itemsize), 1)):
+            framer.frame(host_typed[a:b].tobytes(), b - a)
+    plan = _ChunkEncodePlan(
+        nv=n,
+        num_entries=n,
+        null_count=0,
+        def_levels=None,
+        rep_levels=None,
+        typed=host_typed,
+        dict_result=(dict_values, None) if dict_values is not None else None,
+        value_encoding=value_encoding,
+        page_values=None,
+        dict_size=len(dict_values) if dict_values is not None else None,
+        stats_src=stats_src,
+    )
+    cc = _chunk_meta(
+        cfg, column, kv, plan,
+        uncompressed_total=framer.uncompressed_total,
+        pos=framer.pos,
+        data_offset=data_offset,
+        dict_offset=dict_offset,
+        n_pages=framer.n_pages,
+    )
+    return EncodedChunk(parts=framer.parts, nbytes=framer.pos, chunk=cc)
+
+
+def host_byte_array(data: torch.Tensor, offsets: torch.Tensor) -> ByteArrayData:
+    """A (data, offsets) pair of tensors as a host ByteArrayData, the
+    offsets rebased to 0 and only the bytes they span copied."""
+    off = offsets.cpu().numpy().astype(np.int64)
+    lo, hi = int(off[0]), int(off[-1])
+    return ByteArrayData(offsets=off - lo, data=data[lo:hi].cpu().numpy().tobytes())
+
+
+def _encode_device_bytearray(column: Column, values, cfg, kv: dict | None):
+    """BYTE_ARRAY half of encode_device_column: `values` is a (data, offsets)
+    pair. The PLAIN framing (`<4-byte LE length><bytes>` per value) runs as
+    one plain_bytearray_encode launch, and PLAIN streams concatenate, so the
+    host slices each page's bytes out of one framed download. Statistics
+    (lexicographic byte-string min/max) scan on the host, over the bytes
+    downloaded once more."""
+    try:
+        data, offsets = values
+    except (TypeError, ValueError):
+        raise TypeError(
+            "encode_device_column: BYTE_ARRAY columns take a (data, offsets) pair"
+        ) from None
+    value_encoding = cfg.column_encodings.get(column.path, Encoding.PLAIN)
+    if value_encoding != Encoding.PLAIN:
+        raise EncodeDeclined(
+            "encode_device_column: only PLAIN device encodes exist for BYTE_ARRAY "
+            f"columns (column asks for {value_encoding})"
+        )
+    if (
+        not isinstance(data, torch.Tensor)
+        or not isinstance(offsets, torch.Tensor)
+        or data.dtype != torch.uint8
+        or data.dim() != 1
+        or offsets.dim() != 1
+        or offsets.dtype not in (torch.int32, torch.int64)
+        or offsets.numel() == 0
+    ):
+        raise EncodeDeclined(
+            "encode_device_column: BYTE_ARRAY takes 1-D uint8 data and 1-D int32 "
+            "or int64 offsets tensors"
+        )
+    offsets = offsets.to(torch.int64).contiguous()
+    bad = host_byte_array(data, offsets)
+    rel = bad.offsets
+    n = len(rel) - 1
+    framed = plain_bytearray_encode(data.contiguous(), offsets, 4 * n + int(rel[-1])).cpu().numpy()
+    framer = _DevicePageFramer(cfg, value_encoding)
+    data_offset = framer.pos
+    for a, b in _split_starts(n, max(int(cfg.max_page_size // _value_width(bad)), 1)):
+        framer.frame(framed[4 * a + int(rel[a]) : 4 * b + int(rel[b])].tobytes(), b - a)
+    plan = _ChunkEncodePlan(
+        nv=n,
+        num_entries=n,
+        null_count=0,
+        def_levels=None,
+        rep_levels=None,
+        typed=bad,
+        dict_result=None,
+        value_encoding=value_encoding,
+        page_values=None,
+        dict_size=None,
+        stats_src=bad,
+    )
+    cc = _chunk_meta(
+        cfg, column, kv, plan,
+        uncompressed_total=framer.uncompressed_total,
+        pos=framer.pos,
+        data_offset=data_offset,
+        dict_offset=None,
+        n_pages=framer.n_pages,
+    )
+    return EncodedChunk(parts=framer.parts, nbytes=framer.pos, chunk=cc)

@@ -190,6 +190,14 @@ def _cpu_calls():
         "mask_take": (
             torch.arange(5, dtype=torch.int64), torch.tensor([True, False, True, True, False]), 4,
         ),
+        "bitpack_encode": (torch.tensor([1, 5, 2, 7, 0], dtype=torch.int32), 3),
+        "rle_hybrid_encode": (torch.tensor([1] * 9 + [2, 3], dtype=torch.int32), 2),
+        "dict_indices": (torch.tensor([5, -1, 5, 3], dtype=torch.int64),),
+        "delta_block_encode": (torch.tensor([3, 9, 1, 4, 4], dtype=torch.int64),),
+        "plain_bytearray_encode": (
+            torch.frombuffer(bytearray(b"abcde"), dtype=torch.uint8),
+            torch.tensor([0, 2, 2, 5], dtype=torch.int64), 17,
+        ),
     }
 
 
@@ -273,7 +281,9 @@ def test_build_key_tracks_sources(tmp_path):
          "pqt_merge_bytes_tile", "pqt_merge_mixed_bytes", "pqt_scan_tile",
          "pqt_record_starts", "pqt_list_layout", "pqt_pad_ragged", "pqt_expand_nullable",
          "pqt_predicate_mask", "pqt_fixed_members",
-         "pqt_leaf_verdict", "pqt_list_contains_mask", "pqt_mask_scan", "pqt_take_rows"]
+         "pqt_leaf_verdict", "pqt_list_contains_mask", "pqt_mask_scan", "pqt_take_rows",
+         "pqt_bitpack_encode", "pqt_rle_hybrid_plan", "pqt_dict_indices",
+         "pqt_delta_block_encode", "pqt_plain_bytearray_encode"]
     )
     # the header compiles into its includers: editing it changes the key
     h = tmp_path / "scan.cuh"

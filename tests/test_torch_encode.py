@@ -1,0 +1,297 @@
+"""The write path's device programs: the port's plain versions against JAX.
+
+The same seeded NumPy inputs go through the JAX package's encode programs
+(parquet_tpu/kernels/device_ops.py: bitpack_encode_device,
+rle_hybrid_encode_device, dict_indices_device, delta_block_encode_device,
+plain_bytearray_encode_device, on CPU jax) and through the port's wrappers
+on CPU tensors, which run the kernels' plain versions. Every comparison is
+exact (tolerance 0). Where the JAX program pads to a bucket, the port's
+exact outputs are held against the real prefix of the padded tables, and
+the framed streams (assemble_hybrid_device_stream,
+assemble_delta_device_stream, the PLAIN framing) against the host encoders
+of both packages. The CUDA kernels themselves run only on the card
+(chip_smoke.py holds them against these plain versions).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import parquet_tpu.kernels.device_ops as J  # noqa: E402  (turns x64 on first)
+from parquet_tpu.core.arrays import ByteArrayData as JByteArrayData  # noqa: E402
+from parquet_tpu.kernels.pipeline import _bucket, _pad_device  # noqa: E402
+from parquet_tpu.ops.delta import encode_delta as j_encode_delta  # noqa: E402
+from parquet_tpu.ops.plain import encode_plain as j_encode_plain  # noqa: E402
+from parquet_tpu.ops.rle_hybrid import encode_hybrid as j_encode_hybrid  # noqa: E402
+
+from parquet_tpu_torch.core.arrays import ByteArrayData  # noqa: E402
+from parquet_tpu_torch.kernels import device_ops as P  # noqa: E402
+from parquet_tpu_torch.kernels.pipeline import (  # noqa: E402
+    assemble_delta_device_stream,
+    assemble_hybrid_device_stream,
+    host_byte_array,
+    hybrid_segments,
+)
+from parquet_tpu_torch.meta.parquet_types import Type  # noqa: E402
+from parquet_tpu_torch.ops.delta import encode_delta  # noqa: E402
+from parquet_tpu_torch.ops.plain import encode_plain  # noqa: E402
+from parquet_tpu_torch.ops.rle_hybrid import encode_hybrid  # noqa: E402
+
+jnp = pytest.importorskip("jax").numpy
+
+EDGE_N = (0, 1, 7, 8, 9, 127, 128, 129, 1000)
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a).copy())
+
+
+def _u32(values: np.ndarray, width: int) -> np.ndarray:
+    return (np.asarray(values, dtype=np.uint64) & np.uint64((1 << width) - 1)).astype(np.uint32)
+
+
+# -- bitpack_encode ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("width", range(33))
+def test_bitpack_encode_matches_jax(width):
+    rng = np.random.default_rng(width)
+    for n in EDGE_N:
+        v = _u32(rng.integers(0, 1 << 32, n, dtype=np.uint64), width)
+        want = np.asarray(J.bitpack_encode_device(jnp.asarray(v), width)).view(np.int32)
+        got = P.bitpack_encode(_t(v.view(np.int32)), width).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"n={n}")
+
+
+def test_bitpack_encode_refuses_bad_widths():
+    v = torch.zeros(8, dtype=torch.int32)
+    for width in (-1, 33):
+        with pytest.raises(ValueError, match="width"):
+            P.bitpack_encode(v, width)
+    with pytest.raises(TypeError, match="dtype"):
+        P.bitpack_encode(torch.zeros(8, dtype=torch.int64), 3)
+
+
+# -- rle_hybrid_encode -----------------------------------------------------------
+
+
+def _hybrid_cases():
+    rng = np.random.default_rng(11)
+    patterns = {
+        "straddling": [3, 13, 8, 8, 9, 20, 1, 16, 7, 9, 15, 17],
+        "adjacent": [16, 16, 8, 24, 8, 8],
+        "one_run": [1000],
+        "short_runs": [7] * 40,
+    }
+    for label, lens in patterns.items():
+        yield label, np.repeat((np.arange(len(lens)) * 3) % 8, lens).astype(np.uint32), 3
+    for n in EDGE_N + (15, 16, 17):
+        yield f"random{n}", rng.integers(0, 8, n).astype(np.uint32), 3
+        m = n // 5 + 1
+        runs = np.repeat(rng.integers(0, 4, m), rng.integers(1, 30, m))[:n]
+        yield f"runs{n}", runs.astype(np.uint32), 2
+    for width in (1, 8, 17, 32):
+        v = np.repeat(rng.integers(0, 1 << 32, 60, dtype=np.uint64), rng.integers(1, 25, 60))
+        yield f"wide{width}", _u32(v, width), width
+
+
+HYBRID_CASES = list(_hybrid_cases())
+
+
+@pytest.mark.parametrize("label,values,width", HYBRID_CASES, ids=[c[0] for c in HYBRID_CASES])
+def test_rle_hybrid_encode_matches_jax(label, values, width):
+    j_in, j_brk, j_packed, j_nbp = J.rle_hybrid_encode_device(jnp.asarray(values), width)
+    in_rle, rle_break, packed, n_bp = P.rle_hybrid_encode(_t(values.view(np.int32)), width)
+    np.testing.assert_array_equal(in_rle.numpy(), np.asarray(j_in))
+    np.testing.assert_array_equal(rle_break.numpy(), np.asarray(j_brk))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(j_packed).view(np.int32))
+    assert n_bp.dtype == torch.int32 and int(n_bp) == int(j_nbp)
+
+
+@pytest.mark.parametrize("label,values,width", HYBRID_CASES, ids=[c[0] for c in HYBRID_CASES])
+def test_rle_hybrid_stream_equals_encode_hybrid(label, values, width):
+    t = _t(values.view(np.int32))
+    in_rle, rle_break, packed, _ = P.rle_hybrid_encode(t, width)
+    in_rle, rle_break = in_rle.numpy(), rle_break.numpy()
+    starts = hybrid_segments(in_rle, rle_break)
+    rle_values = values[starts[in_rle[starts]]]
+    got = assemble_hybrid_device_stream(in_rle, starts, packed.numpy(), width, rle_values)
+    assert got == encode_hybrid(values, width) == j_encode_hybrid(values, width)
+
+
+@pytest.mark.parametrize("label,values,width", HYBRID_CASES, ids=[c[0] for c in HYBRID_CASES])
+def test_rle_hybrid_stream_from_the_packed_prefix(label, values, width):
+    """The writer downloads only the words that hold the bit-packed groups:
+    ceil(ceil(n_bp / 8) * width / 4) of them frame the same stream."""
+    in_rle, rle_break, packed, n_bp = P.rle_hybrid_encode(_t(values.view(np.int32)), width)
+    in_rle = in_rle.numpy()
+    assert int(n_bp) == len(in_rle) - int(in_rle.sum())
+    starts = hybrid_segments(in_rle, rle_break.numpy())
+    prefix = packed.numpy()[: ((int(n_bp) + 7) // 8 * width + 3) // 4]
+    got = assemble_hybrid_device_stream(in_rle, starts, prefix, width,
+                                        values[starts[in_rle[starts]]])
+    assert got == encode_hybrid(values, width)
+
+
+# -- dict_indices ------------------------------------------------------------------
+
+
+def _dict_cases():
+    rng = np.random.default_rng(5)
+    for n in EDGE_N:
+        for dt in (np.int32, np.int64):
+            yield f"small{n}_{np.dtype(dt)}", rng.integers(-3, 40, n).astype(dt)
+    for dt in (np.int32, np.int64):
+        info = np.iinfo(dt)
+        keys = np.array([-1, info.min, 0, info.max, 1, -2], dtype=dt)
+        yield f"minus1_intmin_{np.dtype(dt)}", rng.choice(keys, 3000)
+    nan64 = np.array([0x7FF8000000000000, 0x7FF8000000000001, 0xFFF8000000000000,
+                      0x7FF0000000000001, 0x3FF0000000000000], dtype=np.uint64)
+    nan32 = np.array([0x7FC00000, 0x7FC00001, 0xFFC00000, 0x7F800001, 0x3F800000],
+                     dtype=np.uint32)
+    yield "nan_payloads_f64", rng.choice(nan64, 3000).view(np.int64)
+    yield "nan_payloads_f32", rng.choice(nan32, 3000).view(np.int32)
+    yield "uniques_over_cutoff", rng.integers(0, 40_000, 100_000).astype(np.int64)
+
+
+DICT_CASES = list(_dict_cases())
+
+
+@pytest.mark.parametrize("label,bits", DICT_CASES, ids=[c[0] for c in DICT_CASES])
+def test_dict_indices_matches_jax(label, bits):
+    unsigned = bits.view(np.uint32 if bits.itemsize == 4 else np.uint64)
+    want = J.dict_indices_device(jnp.asarray(unsigned))
+    got = P.dict_indices(_t(bits))
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if label == "uniques_over_cutoff":
+        assert int(got[2]) > 32_767  # counted in full, no cut-off
+
+
+def test_dict_indices_gives_first_occurrence_order():
+    bits = _t(np.array([7, 3, 7, -1, 3, 9], dtype=np.int64))
+    indices, firsts, nu = P.dict_indices(bits)
+    assert indices.tolist() == [0, 1, 0, 2, 1, 3]
+    assert firsts.tolist() == [0, 1, 3, 5, 6, 6]
+    assert int(nu) == 4
+
+
+# -- delta_block_encode ----------------------------------------------------------
+
+
+def _delta_cases():
+    rng = np.random.default_rng(9)
+    for n in EDGE_N + (2, 130, 257):
+        for dt in (np.int32, np.int64):
+            info = np.iinfo(dt)
+            yield f"full{n}_{np.dtype(dt)}", rng.integers(
+                info.min, info.max, n, dtype=dt, endpoint=True)
+            yield f"rising{n}_{np.dtype(dt)}", np.cumsum(rng.integers(0, 7, n)).astype(dt)
+            yield f"constant{n}_{np.dtype(dt)}", np.full(n, 5, dtype=dt)
+    for bits, udt, sdt in ((32, np.uint32, np.int32), (64, np.uint64, np.int64)):
+        for w in range(1, bits + 1):
+            d = rng.integers(0, (1 << w) - 1, 300, dtype=np.uint64, endpoint=True).astype(udt)
+            d[5], d[6] = 0, (1 << w) - 1
+            yield f"width{w}_{np.dtype(sdt)}", np.cumsum(d, dtype=udt).view(sdt)
+
+
+DELTA_CASES = list(_delta_cases())
+
+
+@pytest.mark.parametrize("label,values", DELTA_CASES, ids=[c[0] for c in DELTA_CASES])
+def test_delta_block_encode_matches_jax(label, values):
+    n = len(values)
+    nbits = values.itemsize * 8
+    padded = np.zeros(_bucket(max(n, 1)), dtype=values.dtype)
+    padded[:n] = values
+    j_mins, j_widths, j_words = J.delta_block_encode_device(jnp.asarray(padded), n, nbits)
+    mins, widths, words = P.delta_block_encode(_t(values))
+    nb = (max(n - 1, 0) + 127) // 128
+    assert mins.numel() == nb and widths.numel() == 4 * nb
+    assert words.numel() == 4 * nb * nbits
+    np.testing.assert_array_equal(mins.numpy(), np.asarray(j_mins)[:nb])
+    np.testing.assert_array_equal(widths.numpy(), np.asarray(j_widths)[: 4 * nb])
+    payload = int(4 * widths.numpy().astype(np.int64).sum())
+    got_bytes = words.numpy().view(np.uint8)
+    assert got_bytes[:payload].tobytes() == np.asarray(j_words).view(np.uint8)[:payload].tobytes()
+    assert not got_bytes[payload:].any()
+
+
+@pytest.mark.parametrize("label,values", DELTA_CASES, ids=[c[0] for c in DELTA_CASES])
+def test_delta_stream_equals_encode_delta(label, values):
+    nbits = values.itemsize * 8
+    mins, widths, words = P.delta_block_encode(_t(values))
+    first = int(values.view(np.uint32 if nbits == 32 else np.uint64)[0]) if len(values) else 0
+    got = assemble_delta_device_stream(nbits, len(values), first, mins.numpy(),
+                                       widths.numpy(), words.numpy().tobytes())
+    assert got == encode_delta(values, nbits) == j_encode_delta(values, nbits)
+
+
+# -- plain_bytearray_encode -----------------------------------------------------
+
+
+def _bytes_cases():
+    rng = np.random.default_rng(13)
+    for n in EDGE_N:
+        lens = rng.integers(0, 40, n)
+        lens[::3] = 0  # empty strings
+        yield f"n{n}", [bytes(rng.integers(0, 256, k, dtype=np.uint8)) for k in lens]
+    yield "long", [b"x" * 5000, b"", b"abc"]
+
+
+BYTES_CASES = list(_bytes_cases())
+
+
+@pytest.mark.parametrize("label,items", BYTES_CASES, ids=[c[0] for c in BYTES_CASES])
+def test_plain_bytearray_encode_matches_jax_and_encode_plain(label, items):
+    n = len(items)
+    data = np.frombuffer(b"".join(items), dtype=np.uint8)
+    off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(x) for x in items], out=off[1:])
+    out_len = 4 * n + int(off[-1])
+    want = np.asarray(J.plain_bytearray_encode_device(
+        _pad_device(jnp.asarray(data)), _pad_device(jnp.asarray(off)), n,
+        _bucket(max(out_len, 1))))
+    got = P.plain_bytearray_encode(_t(data), _t(off), out_len).numpy()
+    assert got.tobytes() == want[:out_len].tobytes()
+    assert got.tobytes() == encode_plain(ByteArrayData.from_list(items), Type.BYTE_ARRAY)
+    assert got.tobytes() == j_encode_plain(JByteArrayData.from_list(items), Type.BYTE_ARRAY)
+
+
+def test_plain_bytearray_encode_of_a_slice():
+    """Offsets that start past 0 (a page of a larger column) frame the slice."""
+    items = [b"ab", b"", b"cde", b"f", b"ghij"]
+    data = np.frombuffer(b"".join(items), dtype=np.uint8)
+    off = np.array([0, 2, 2, 5, 6, 10], dtype=np.int64)
+    sub = off[2:]
+    got = P.plain_bytearray_encode(_t(data), _t(sub), 4 * 3 + 8).numpy().tobytes()
+    assert got == encode_plain(ByteArrayData.from_list(items[2:]), Type.BYTE_ARRAY)
+
+
+@pytest.mark.parametrize("lo", [0, 2, 5])
+def test_host_byte_array_rebases_the_slice(lo):
+    """A (data, offsets) pair downloads as the ByteArrayData of the values
+    its offsets span, offsets rebased to 0."""
+    items = [b"ab", b"", b"cde", b"f", b"ghij"]
+    data = np.frombuffer(b"".join(items), dtype=np.uint8)
+    off = np.array([0, 2, 2, 5, 6, 10], dtype=np.int64)
+    got = host_byte_array(_t(data), _t(off[lo:]))
+    assert got.to_list() == items[lo:]
+    assert got.offsets[0] == 0 and len(got.data) == off[-1] - off[lo]
+
+
+def test_plain_bytearray_encode_refuses_short_output():
+    with pytest.raises(ValueError, match="output bytes"):
+        P.plain_bytearray_encode(torch.zeros(4, dtype=torch.uint8),
+                                 torch.tensor([0, 2, 4]), 7)
+
+
+def test_write_kernels_are_registered():
+    names = ("bitpack_encode", "rle_hybrid_encode", "dict_indices", "delta_block_encode",
+             "plain_bytearray_encode")
+    for name in names:
+        fn = P.KERNELS[name]
+        assert fn.launches == 0  # CPU tensors run the plain versions: no launch
+        assert name in P.__all__ and name + "_plain" in P.__all__
