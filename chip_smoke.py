@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive parquet_tpu_torch's decode, batch, filter and write paths on one CUDA card.
+"""Drive parquet_tpu_torch's decode, batch, filter, write, query and scan paths on one
+CUDA card.
 
 Run from the repository root, on a machine with one NVIDIA card and the CUDA
 toolkit (nvcc):
@@ -25,7 +26,15 @@ Phases (any failure raises and the script exits non-zero):
               write path's kernels n = 0, 1, 7, 8, 9, 127-129, every
               bit-pack width 0-32 and DELTA width 1-64, runs straddling the
               8-alignment, adjacent RLE windows, dictionary keys -1, INT_MIN
-              and NaN payloads, more than 32,767 uniques, empty strings);
+              and NaN payloads, more than 32,767 uniques, empty strings;
+              for masked_agg every dtype (int32, int64, float32, float64,
+              bool), op (count, sum, min, max) and view (signed, unsigned,
+              UINT_8 and UINT_16 sub-widths) at n = 0, 1 and 2**20 + 3
+              under random, all-false, all-true and no masks, with the
+              signed extremes, patterns above 2**31 and 2**63, NaN, +-0.0
+              and +-inf; for expand_page_grid widths 0, 1, 3, 12, 17 and 32
+              with a single-run page, ragged counts, an all-padding page
+              and out-of-range dictionary indices);
   4. main     three 8,388,608-row files (8 row groups of 2**20 rows, ~1 MiB
               pages, chunk statistics, built from a seed with
               testing/synth.py), each decoded
@@ -82,15 +91,44 @@ Phases (any failure raises and the script exits non-zero):
               must equal the host write_column's of the same NumPy values
               byte for byte, and read_row_groups_device() of it must give
               the generator's columns;
+     query    run_local_query over "taxi", unfiltered and under F_taxi:
+              count(*), count(passenger_count) and sum/min/max of
+              fare_cents (int32 DELTA, widened), pickup_us (int64),
+              vendor_id (dictionary) and passenger_count (nullable: under
+              the filter its validity aligns the mask); the body (units,
+              rows scanned and matched, every value) must equal NumPy's
+              over the generator, groups 6 and 7 pruned under the filter,
+              masked_agg, dict_gather and (filtered) mask_take launched;
+              group_by vendor_id and sum(trip_distance) must decline typed
+              and counted;
+     scan     in an NCCL group of one rank (a file store): column_stats
+              and distributed_column_stats over taxi's six numeric leaves,
+              sharded_decode_step over trip_distance's real index pages (all
+              8 groups, width 12, its 4,096-key double dictionary), and the
+              entry point's three steps (decode_step with an int64
+              dictionary, the pages x cols step on a 1 x 1 DeviceMesh,
+              train_step over iter_device_batches(sharding=the group)), all
+              equal to NumPy;
   5. times    rows/s of the device reads and of the batch streams, filtered
               and not (the same call, both files), of the filtered read, of
               host decode + upload, of the device write against the host
               write (tensors on the card to a closed file), of host prepare
-              alone on the fused and the staged walk, and each kernel's
+              alone on the fused and the staged walk, of the query
+              (filtered and not) and of column_stats, and each kernel's
               CUDA-event time beside its bound.
 
+`python3 chip_smoke.py --ranks N` (N cards) runs only the multi-rank check:
+N NCCL ranks spawned through parquet_tpu_torch.testing.dist, one card a
+rank, each holding mesh_reduce_stats (per-rank partials, a NaN among
+them), distributed_column_stats over taxi's numeric leaves and
+sharded_decode_step over trip_distance's real index pages against NumPy;
+at N = 4 also the entry point's three steps over a 2 x 2 DeviceMesh and
+distributed_column_stats over it. Its last line is the `{"ok": true, ...}`
+line with the card count.
+
 The last three lines of standard output are a JSON line of the end-to-end
-rates with the card's name and power limit, the `kernels` JSON line and the
+rates with the card's name and power limit, the `kernels` JSON line (21
+kernels) and the
 `{"ok": true, ...}` line. Without CUDA, or without the package beside it,
 the script exits non-zero and prints no result.
 """
@@ -237,6 +275,10 @@ def hold_plain(rows: dict, name: str, label: str, got, plain) -> None:
     for g, p in zip(got, plain, strict=True):
         if g.dtype == torch.bool:
             g, p = g.view(torch.uint8), p.view(torch.uint8)
+        elif g.dtype.is_floating_point and g.dtype == p.dtype:
+            # bit patterns: a NaN equals itself, -0.0 differs from +0.0
+            bits = {4: torch.int32, 8: torch.int64}[g.element_size()]
+            g, p = g.view(bits), p.view(bits)
         ok, err = bits_equal(g, p)
         if not ok:
             log(f"  {name} {label}: equal=False")
@@ -1774,11 +1816,599 @@ def profile_device(fn) -> None:
         log(f"    {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
-def main() -> int:
+# -- the query and multi-device paths --------------------------------------------
+
+AGG_DTYPES = ("int32", "int64", "float32", "float64", "bool")
+AGG_N = (0, 1, (1 << 20) + 3)
+GRID_WIDTHS = (0, 1, 3, 12, 17, 32)
+
+
+def agg_values(rng, dtype: str, n: int):
+    """Values of one dtype with the payloads the kernel must carry: the
+    signed extremes, patterns at and above 2**31 and 2**63 (the unsigned
+    views), NaN, +-0.0 and +-inf; float sums on multiples of 1/4, exact in
+    any order."""
+    if dtype == "bool":
+        return rng.random(n) < 0.5
+    if dtype.startswith("float"):
+        v = (rng.integers(-4000, 4000, n) / 4).astype(dtype)
+        specials = [np.nan, -0.0, 0.0, np.inf, -np.inf, np.nan]
+        return v if n < 64 else np.concatenate([v[:-6], np.array(specials, dtype=dtype)])
+    info = np.iinfo(dtype)
+    v = rng.integers(info.min, info.max, n, dtype=dtype, endpoint=True)
+    if n >= 8:
+        v[:6] = (info.min, info.max, -1, 0, info.min + 1, 1 << (info.bits - 2))
+    return v
+
+
+def agg_cases(rng, dev):
+    """(label, values, mask, op, unsigned, bits) over every dtype, op and
+    view at n = 0, 1 and 2**20 + 3, under a random, an all-false, an
+    all-true and no mask. Float min/max run once on values with no NaN too,
+    so the signed zeros decide."""
     import torch
 
+    from parquet_tpu_torch.kernels.pipeline import to_device
+
+    for dtype in AGG_DTYPES:
+        views = [(False, None)]
+        if dtype.startswith("int"):
+            views += [(True, None), (True, 8), (True, 16)]
+        for n in AGG_N:
+            v = to_device(agg_values(rng, dtype, n), dev)
+            masks = {"random": to_device(rng.random(n) < 0.6, dev),
+                     "all-false": torch.zeros(n, dtype=torch.bool, device=dev),
+                     "all-true": torch.ones(n, dtype=torch.bool, device=dev), "none": None}
+            vals = [("", v)]
+            if dtype.startswith("float") and n > 64:
+                vals.append((" no-NaN", v[:-6].contiguous()))
+            for tag, vv in vals:
+                for mname, m in masks.items():
+                    if m is not None and m.numel() != vv.numel():
+                        m = m[: vv.numel()].contiguous()
+                    for op in ("count", "sum", "min", "max"):
+                        for uns, bits in views:
+                            view = f" unsigned{'' if bits is None else bits}" if uns else ""
+                            yield (f"{dtype}{tag}{view} n={vv.numel()} {mname} {op}",
+                                   vv, m, op, uns, bits)
+
+
+def grid_case(rng, width: int, n_out: int = 4096, pages: int = 6):
+    """A page grid of `pages` hybrid pages at `width` (a single-run RLE page,
+    ragged counts, real RLE runs between bit-packed ones) with one all-zero
+    padding page, and a dictionary shorter than the index range (the clamp);
+    at width 32 indices at and above 2**31 too."""
+    from parquet_tpu_torch.ops.rle_hybrid import encode_hybrid, prescan_hybrid
+    from parquet_tpu_torch.parallel.mesh import build_page_grid
+
+    tables, takes = [], []
+    for p in range(pages):
+        n = n_out - 97 * p
+        hi = 1 << width
+        idx = (rng.integers(0, hi, n, dtype=np.uint64).astype(np.uint32) if width
+               else np.zeros(n, np.uint32))
+        if p == 0:
+            idx[:] = idx[0]  # one RLE run
+        else:
+            for start in rng.integers(0, n - 64, size=4):
+                idx[start : start + 40] = idx[start]
+        tables.append(prescan_hybrid(encode_hybrid(idx, width), n, width))
+        takes.append(n)
+    g = build_page_grid(tables, takes, width, n_out)
+    arrs = [np.pad(a, [(0, 1), (0, 0)]) for a in (g.words, g.starts, g.is_rle, g.values,
+                                                     g.bit_starts)]
+    return arrs, max(2, (1 << min(width, 20)) // 3)
+
+
+def check_query_kernels(dev, rows: dict) -> None:
+    """masked_agg and expand_page_grid against their plain versions."""
+    from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.kernels.pipeline import to_device
+
+    rng = np.random.default_rng(SEED + 6)
+    count = 0
+    for label, v, m, op, uns, bits in agg_cases(rng, dev):
+        hold_plain(rows, "masked_agg", f"[{label}]",
+                   ops.masked_agg(v, m, op, unsigned=uns, bits=bits),
+                   ops.masked_agg_plain(v, m, op, unsigned=uns, bits=bits))
+        count += 1
+    log(f"  masked_agg: {count} cases (5 dtypes, 4 ops, unsigned and UINT_8/16 views, "
+        f"n in {AGG_N}, random/all-false/all-true/no masks) equal to the plain version")
+    for width in GRID_WIDTHS:
+        arrs, d_len = grid_case(rng, width)
+        grid = [to_device(a.view(np.int32), dev) for a in arrs]
+        for dt in (np.int64, np.int32):
+            d = to_device(rng.integers(-(2**30), 2**30, d_len).astype(dt), dev)
+            hold_plain(rows, "expand_page_grid", f"[width {width}, {np.dtype(dt).name} D={d_len}]",
+                       ops.expand_page_grid(*grid, d, width, 4096),
+                       ops.expand_page_grid_plain(*grid, d, width, 4096))
+        log(f"  expand_page_grid width={width:2d}: 7 pages (one RLE-only, ragged counts, one "
+            f"all-padding) x 4096, dictionaries of {d_len} int64 and int32 keys: equal")
+
+
+def query_aggregates():
+    from parquet_tpu_torch.serve.protocol import aggregates_from_spec
+
+    spec = ["count", ["count", "passenger_count"]]
+    for c in QUERY_COLUMNS:
+        spec += [["sum", c], ["min", c], ["max", c]]
+    return aggregates_from_spec(spec)
+
+
+QUERY_COLUMNS = ("fare_cents", "pickup_us", "vendor_id", "passenger_count")
+
+
+def query_request(path, filters, aggregates=None, group_by=()):
+    from parquet_tpu_torch.serve.protocol import QueryRequest
+
+    return QueryRequest(paths=[str(path)], filters=filters,
+                        aggregates=query_aggregates() if aggregates is None else aggregates,
+                        group_by=tuple(group_by), max_groups=10_000, shard=None,
+                        timeout_ms=None)
+
+
+def query_want(specs, keep, groups: int) -> dict:
+    """The query body NumPy gives over the generator's columns: int64 sums
+    wrap as the device's do; min/max of no row are None."""
+    s = {sp.name: sp for sp in specs}
+    valid = s["passenger_count"].valid
+    pc = np.zeros(len(valid), np.int64)
+    pc[valid] = s["passenger_count"].indices
+    cols = {"fare_cents": s["fare_cents"].values, "pickup_us": s["pickup_us"].values,
+            "vendor_id": s["vendor_id"].dictionary[s["vendor_id"].indices], "passenger_count": pc}
+    result = {"count": int(keep.sum()), "count(passenger_count)": int((keep & valid).sum())}
+    for c in QUERY_COLUMNS:
+        sel = keep & valid if c == "passenger_count" else keep
+        x = cols[c][sel].astype(np.int64)
+        result[f"sum({c})"] = int(x.sum()) if len(x) else None
+        result[f"min({c})"] = int(x.min()) if len(x) else None
+        result[f"max({c})"] = int(x.max()) if len(x) else None
+    return {"group_by": [], "aggregates": list(result), "units": groups,
+            "rows_scanned": groups * RG_ROWS, "rows_matched": int(keep.sum()), "result": result}
+
+
+def run_query(path, filters, device=None):
+    from parquet_tpu_torch.serve.aggregate import run_local_query
+
+    q = query_request(path, filters)
+    return run_local_query(q.paths, q, device=device)
+
+
+def check_query_declines(path, device=None) -> None:
+    """group_by and a float sum decline, typed and counted."""
+    from parquet_tpu_torch.serve.aggregate import (
+        query_device_counts,
+        reset_query_device_counts,
+        run_local_query,
+    )
+    from parquet_tpu_torch.serve.protocol import ServeError, aggregates_from_spec
+
+    for label, q in (("group_by vendor_id", query_request(path, None, group_by=("vendor_id",))),
+                     ("sum(trip_distance)", query_request(
+                         path, None, aggregates_from_spec([["sum", "trip_distance"]])))):
+        reset_query_device_counts()
+        try:
+            run_local_query(q.paths, q, device=device)
+        except ServeError as e:
+            if e.code != "device_declined":
+                raise
+            got = query_device_counts()
+            if got != {"declined": 1}:
+                raise AssertionError(f"{label}: query counts {got}") from None
+            log(f"[query:taxi] {label}: declined, typed ({e.status} {e.code}) and counted {got}")
+            continue
+        raise AssertionError(f"{label} did not decline")
+
+
+def index_page_grid(path, column: str):
+    """The PageGrid of a required dictionary-encoded column's V1 data pages
+    (every row group): each page decompressed, its bit-width byte read, its
+    hybrid stream prescanned. Returns (grid, per-page value counts, the
+    host dictionary)."""
+    from parquet_tpu_torch.core.chunk import iter_chunk_pages
+    from parquet_tpu_torch.core.compress import decompress_block
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.meta.parquet_types import PageType
+    from parquet_tpu_torch.ops.rle_hybrid import prescan_hybrid
+    from parquet_tpu_torch.parallel.mesh import build_page_grid
+
+    tables, takes, widths = [], [], set()
+    with FileReader(path, device="cpu") as r:  # host work only: the footer and pages
+        for i in range(r.num_row_groups):
+            for _path, cc, _col in r._selected_chunks(i, [column]):
+                for page in iter_chunk_pages(r._window(cc), cc):
+                    if page.header.type != PageType.DATA_PAGE:
+                        continue
+                    block = decompress_block(page.payload, cc.meta_data.codec,
+                                             page.header.uncompressed_page_size)
+                    n = page.header.data_page_header.num_values
+                    width = block[0]
+                    widths.add(width)
+                    tables.append(prescan_hybrid(bytes(block[1:]), n, width))
+                    takes.append(n)
+    if len(widths) != 1:
+        raise AssertionError(f"{column}: index pages of widths {sorted(widths)}")
+    return build_page_grid(tables, takes, widths.pop(), max(takes)), takes
+
+
+SCAN_COLUMNS = ("trip_id", "vendor_id", "passenger_count", "pickup_us", "fare_cents",
+                "trip_distance")
+
+
+def scan_want(specs) -> dict:
+    """column_stats' answer over the generator's columns: NumPy scalars of the
+    leaf's dtype, counts of non-null values."""
+    s = {sp.name: sp for sp in specs}
+    vals = {"trip_id": s["trip_id"].values, "pickup_us": s["pickup_us"].values,
+            "fare_cents": s["fare_cents"].values,
+            "vendor_id": s["vendor_id"].dictionary[s["vendor_id"].indices],
+            "passenger_count": np.arange(7, dtype=np.int32)[s["passenger_count"].indices],
+            "trip_distance": s["trip_distance"].dictionary[s["trip_distance"].indices]}
+    return {(c,): {"min": vals[c].min(), "max": vals[c].max(), "count": len(vals[c])}
+            for c in SCAN_COLUMNS}
+
+
+def stats_equal(got: dict, want: dict) -> bool:
+    return got.keys() == want.keys() and all(
+        type(got[k][f]) is type(want[k][f]) and got[k][f] == want[k][f]
+        for k in want for f in ("min", "max", "count"))
+
+
+def check_scans(taxi_path, specs, dev, launches: dict) -> dict:
+    """The scan phase at world size 1, in an NCCL group of one rank opened
+    through a file store: column_stats and distributed_column_stats over the
+    numeric leaves, sharded_decode_step over trip_distance's real index
+    pages, and the three steps of the entry point's check. Every answer is
+    held against NumPy over the generator's columns. Returns what the
+    times phase reuses."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.parallel.mesh import sharded_decode_step
+    from parquet_tpu_torch.parallel.scan import column_stats, distributed_column_stats
+    from parquet_tpu_torch.testing.dist import decode_step, mesh_step, train_step
+
+    def counted(label, fn):
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches[label] = {k: f.launches for k, f in ops.KERNELS.items()}
+        return out, time.perf_counter() - t
+
+    want = scan_want(specs)
+    s = {sp.name: sp for sp in specs}
+    store = tempfile.mkdtemp(prefix="pqt-store-")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        with FileReader(taxi_path, device=dev) as r:
+            got, secs = counted("scan column_stats",
+                                lambda: column_stats(r, [dev], columns=list(SCAN_COLUMNS)))
+            if not stats_equal(got, want):
+                raise AssertionError(f"column_stats {got} != NumPy's {want}")
+            if dev.type == "cuda" and launches["scan column_stats"]["masked_agg"] <= 0:
+                raise AssertionError("masked_agg was not launched by column_stats")
+            log(f"[scan:taxi] column_stats(reader, [{dev}]) over {len(want)} numeric leaves: "
+                f"{secs:.2f} s, equal to NumPy; masked_agg launches "
+                f"{launches['scan column_stats']['masked_agg']}")
+            got, secs = counted("scan distributed", lambda: distributed_column_stats(
+                r, columns=list(SCAN_COLUMNS), group=group))
+            if not stats_equal(got, want):
+                raise AssertionError(f"distributed_column_stats {got} != NumPy's {want}")
+            log(f"[scan:taxi] distributed_column_stats(group=NCCL world 1): {secs:.2f} s, "
+                "equal to NumPy")
+        grid, takes = index_page_grid(taxi_path, "trip_distance")
+        dist_dict = s["trip_distance"].dictionary
+        idx_all = s["trip_distance"].indices
+        n_out = max(takes)
+        (decoded, st), secs = counted("sharded decode", lambda: sharded_decode_step(
+            group, grid, dist_dict, n_out, device=dev))
+        dec = decoded.cpu().numpy()
+        col = dist_dict[idx_all]
+        off = np.concatenate([[0], np.cumsum(takes)])
+        for p, k in enumerate(takes):
+            if not np.array_equal(dec[p, :k], col[off[p] : off[p + 1]]):
+                raise AssertionError(f"sharded_decode_step page {p} differs from the generator")
+        if dev.type == "cuda" and not all(launches["sharded decode"][k] > 0
+                                          for k in ("expand_page_grid", "masked_agg")):
+            raise AssertionError("sharded_decode_step did not launch its kernels")
+        sw = {"min": col.min(), "max": col.max(), "count": len(col)}
+        sg = {k: v.cpu().numpy()[()] for k, v in st.items()}
+        if any(sg[k] != sw[k] for k in sw):
+            raise AssertionError(f"sharded_decode_step stats {sg} != NumPy's {sw}")
+        log(f"[scan:taxi] sharded_decode_step over trip_distance's {grid.num_pages} index pages "
+            f"(width {grid.width}, up to {n_out} values, {len(dist_dict)} double keys): "
+            f"{secs:.2f} s; every page's prefix equals the generator's, stats {sg} equal "
+            "NumPy's; launches expand_page_grid "
+            f"{launches['sharded decode']['expand_page_grid']}, masked_agg "
+            f"{launches['sharded decode']['masked_agg']}")
+        # the entry point's check at world size 1: decode_step over the same
+        # pages with an int64 dictionary (an exact checksum), the pages x
+        # cols step on a 1 x 1 mesh, train_step over sharded batches
+        rng = np.random.default_rng(SEED + 24)
+        int_dict = rng.integers(-(2**40), 2**40, len(dist_dict)).astype(np.int64)
+        mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("pages", "cols"))
+
+        def steps():
+            d_out, d_st = decode_step(grid, int_dict, n_out, device=dev)
+            stacked = [a[None] for a in (grid.words, grid.starts, grid.is_rle, grid.values,
+                                         grid.bit_starts, grid.counts)]
+            m_out = mesh_step(mesh, *stacked, int_dict[None], grid.width, n_out, device=dev)
+            total = torch.zeros(2, dtype=torch.int64, device=dev)
+            with FileReader(taxi_path, device=dev) as r:
+                for b in r.iter_device_batches(BATCH, ["passenger_count", "fare_cents"],
+                                               nullable="mask", drop_remainder=False,
+                                               sharding=group):
+                    total += train_step(b, group, x=("passenger_count",), a=("fare_cents",))
+            return d_out, d_st, m_out, total
+
+        (d_out, d_st, (m_dec, m_cnt, m_sums), total), secs = counted("entry steps", steps)
+        checksum = int(int_dict[idx_all].sum())
+        valid = s["passenger_count"].valid
+        want_train = [int(s["passenger_count"].indices.astype(np.int64).sum())
+                      + int(s["fare_cents"].values.astype(np.int64).sum()), int(valid.sum())]
+        got_steps = (int(d_st["count"]), int(d_st["checksum"]), int(m_cnt),
+                     m_sums.cpu().tolist(), total.cpu().tolist())
+        want_steps = (len(idx_all), checksum, len(idx_all), [checksum], want_train)
+        if got_steps != want_steps or not torch.equal(d_out, m_dec):
+            raise AssertionError(f"entry steps {got_steps} != NumPy's {want_steps}")
+        log(f"[scan:taxi] the entry's steps at world size 1 ({secs:.2f} s): decode_step count "
+            f"{got_steps[0]} checksum {got_steps[1]}, the 1 x 1 pages x cols step equal, "
+            f"train_step over iter_device_batches(sharding=NCCL world 1) {got_steps[4]}: "
+            "equal to NumPy")
+    finally:
+        dist.destroy_process_group()
+    check_gloo_on_card(dev)
+    return {"grid": grid, "n_out": n_out, "dist_dict": dist_dict}
+
+
+def check_gloo_on_card(dev) -> None:
+    """mesh_reduce_stats over two ranks spawned on this machine (gloo, both
+    on the one card), each with its own partials, a NaN among them: the
+    reduction must skip the NaN and equal NumPy's."""
+    from parquet_tpu_torch.testing.dist import run_checks, spawn
+
+    partials = [
+        {("f",): {"min": np.float64(-1.5), "max": np.float64(2.0), "count": np.int64(3)},
+         ("x",): {"min": np.int64(-7), "max": np.int64(2**40), "count": np.int64(5)}},
+        {("f",): {"min": np.float64(np.nan), "max": np.float64(np.nan), "count": np.int64(4)},
+         ("x",): {"min": np.int64(-(2**62)), "max": np.int64(9), "count": np.int64(6)}},
+    ]
+    want = {("f",): {"min": -1.5, "max": 2.0, "count": 7},
+            ("x",): {"min": -(2**62), "max": 2**40, "count": 11}}
+    t = time.perf_counter()
+    out = spawn(run_checks, 2, {"reduce": [(partials, 1)], "device": str(dev)}, timeout=300.0)
+    got = [o["reduce"][0] for o in out]
+    if any({k: {f: v.item() for f, v in s.items()} for k, s in g.items()} != want for g in got):
+        raise AssertionError(f"gloo mesh_reduce_stats on the card: {got} != {want}")
+    log(f"[scan] mesh_reduce_stats over 2 spawned gloo ranks on {dev}: {time.perf_counter() - t:.1f} s "
+        "(the spawns included), the NaN partial skipped, equal to NumPy on both ranks")
+
+
+def time_query_kernels(taxi_path, f_taxi, scan, dev, rows: dict, bw: float) -> None:
+    """Device times of masked_agg on the query's shape (pickup_us of row
+    group 0 under F_taxi's mask: 2**20 int64 and a bool mask) and of
+    expand_page_grid on trip_distance's real index pages, each held against
+    its plain version on the inputs it is timed on."""
+    import torch
+
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.kernels.pipeline import to_device
+
+    with FileReader(taxi_path) as r:
+        cols, mask = r.read_row_group_device(0, ["pickup_us"], filters=f_taxi)
+    v = cols[("pickup_us",)].values
+    n = v.numel()
+    # bytes: the values and the mask read once, 8 written; ops: a compare
+    # and an add a row
+    record_kernel(rows, "masked_agg", lambda: ops.masked_agg(v, mask, "sum"),
+                  lambda: ops.masked_agg_plain(v, mask, "sum"), 9 * n + 8, 2 * n, bw,
+                  lib=lambda: torch.where(mask, v, 0).sum(),
+                  shape=f"taxi pickup_us group 0 under F_taxi, n={n} int64 + bool mask, sum")
+    imax = torch.iinfo(torch.int64).max
+    t_min = {"ms": device_ms(lambda: ops.masked_agg(v, mask, "min")),
+             "library_ms": device_ms(lambda: torch.where(mask, v, imax).min())}
+    hold_plain(rows, "masked_agg", "[min, the same inputs]", ops.masked_agg(v, mask, "min"),
+               ops.masked_agg_plain(v, mask, "min"))
+    rows["masked_agg"]["min"] = t_min
+    log(f"  masked_agg min on the same inputs: {t_min['ms']:.4f} ms, library "
+        f"(torch.where(mask, v, INT64_MAX).min()) {t_min['library_ms']:.4f} ms")
+    grid, n_out = scan["grid"], scan["n_out"]
+    args = [to_device(a.view(np.int32), dev) for a in (grid.words, grid.starts, grid.is_rle,
+                                                       grid.values, grid.bit_starts)]
+    d = to_device(scan["dist_dict"].view(np.int64), dev)
+    out_bytes = grid.num_pages * n_out * 8
+    in_bytes = sum(a.numel() * 4 for a in args) + d.numel() * 8
+    # bytes: the grid's words and run tables and the dictionary read once,
+    # the decoded values written; ops: a binary search over the page's runs
+    # and ~15 for the extract and the gather, per output
+    runs = grid.starts.shape[1]
+    record_kernel(rows, "expand_page_grid",
+                  lambda: ops.expand_page_grid(*args, d, grid.width, n_out),
+                  lambda: ops.expand_page_grid_plain(*args, d, grid.width, n_out),
+                  in_bytes + out_bytes, grid.num_pages * n_out * (15 + 2 * runs.bit_length()),
+                  bw, shape=f"taxi trip_distance index pages: {grid.num_pages} x {n_out}, "
+                  f"{runs} runs, {grid.words.shape[1]} words, width {grid.width}")
+
+
+# -- the multi-rank check (python3 chip_smoke.py --ranks N, one card a rank) ----
+
+
+def entry_grid(rng, n_pages: int, out_per_page: int, dict_size: int):
+    """The entry point's padded page grid (slightly ragged pages of random
+    dictionary indices, hybrid-encoded) from the port's encoder, its int64
+    dictionary and each page's indices."""
+    from parquet_tpu_torch.ops.rle_hybrid import encode_hybrid, prescan_hybrid
+    from parquet_tpu_torch.parallel.mesh import build_page_grid
+
+    width = max((dict_size - 1).bit_length(), 1)
+    tables, takes, idx = [], [], []
+    for p in range(n_pages):
+        n = out_per_page - (p % 5)
+        i = rng.integers(0, dict_size, n, dtype=np.uint32)
+        tables.append(prescan_hybrid(encode_hybrid(i, width), n, width))
+        takes.append(n)
+        idx.append(i)
+    grid = build_page_grid(tables, takes, width, out_per_page)
+    return grid, rng.integers(0, 1 << 40, dict_size).astype(np.int64), idx
+
+
+def stacked_grids(grids, dicts, out_per_page: int):
+    """(cols, pages, ...) arrays of one grid a column, padded to a common run
+    and word count as the reference's dry run pads them (starts with
+    out_per_page + 1)."""
+    def stack(attr, fill=0):
+        arrs = [getattr(g, attr) for g in grids]
+        if arrs[0].ndim == 1:
+            return np.stack(arrs)
+        dim = max(a.shape[-1] for a in arrs)
+        return np.stack([np.pad(a, [(0, 0), (0, dim - a.shape[-1])], constant_values=fill)
+                         for a in arrs])
+
+    return (stack("words"), stack("starts", out_per_page + 1), stack("is_rle"),
+            stack("values"), stack("bit_starts"), stack("counts"), np.stack(dicts),
+            grids[0].width, out_per_page)
+
+
+def dry_file(path) -> dict:
+    """The entry point's dry-run file: int64 a (50 values), int64 ts (DELTA,
+    rising), optional int64 x (every fifth row null), 4 groups of 2,048 rows;
+    returns its columns."""
+    from parquet_tpu_torch.meta.parquet_types import CompressionCodec as C
+    from parquet_tpu_torch.meta.parquet_types import Encoding as E
+    from parquet_tpu_torch.meta.parquet_types import Type as T
+    from parquet_tpu_torch.testing.synth import ColumnSpec, write_file
+
+    n = 8_192
+    rng = np.random.default_rng(7)
+    cols = {"a": rng.integers(0, 50, n).astype(np.int64),
+            "ts": (10_000 + np.cumsum(rng.integers(0, 9, n))).astype(np.int64),
+            "x": rng.integers(0, 99, n).astype(np.int64), "valid": np.arange(n) % 5 != 0}
+    write_file(path, [
+        ColumnSpec("a", T.INT64, values=cols["a"], codec=C.SNAPPY),
+        ColumnSpec("ts", T.INT64, values=cols["ts"], encoding=E.DELTA_BINARY_PACKED,
+                   codec=C.SNAPPY),
+        ColumnSpec("x", T.INT64, values=cols["x"][cols["valid"]], valid=cols["valid"],
+                   codec=C.SNAPPY),
+    ], row_group_rows=2048)
+    return cols
+
+
+def check_ranks(world: int, backend: str = "nccl", device: str = "cuda") -> None:
+    """The multi-rank paths over `world` ranks, one card a rank (rank k on
+    card k), against NumPy: mesh_reduce_stats of per-rank partials (a NaN
+    among them), distributed_column_stats over taxi's numeric leaves,
+    sharded_decode_step over trip_distance's real index pages, and, at 4
+    ranks, the entry point's three steps over a 2 x 2 DeviceMesh and
+    distributed_column_stats over it."""
+    from parquet_tpu_torch.testing.dist import run_checks, spawn
+
+    specs = taxi_columns(SEED)
+    taxi_path = smoke_file(specs, "taxi")
+    s = {sp.name: sp for sp in specs}
+    grid, takes = index_page_grid(taxi_path, "trip_distance")
+    dist_dict = s["trip_distance"].dictionary
+    partials = [{("f",): {"min": np.float64(np.nan if k == 1 else -k - 0.5),
+                          "max": np.float64(np.nan if k == 1 else 2.0 * k),
+                          "count": np.int64(k + 1)},
+                 ("x",): {"min": np.int64(-(2**62) + k), "max": np.int64(2**40 * k),
+                          "count": np.int64(3)}} for k in range(world)]
+    fin = [k for k in range(world) if k != 1]
+    want_reduce = {("f",): {"min": min(-k - 0.5 for k in fin), "max": max(2.0 * k for k in fin),
+                            "count": sum(k + 1 for k in range(world))},
+                   ("x",): {"min": -(2**62), "max": 2**40 * (world - 1), "count": 3 * world}}
+    spec = {"device": device, "reduce": [(partials, 1)],
+            "stats": [(str(taxi_path), list(SCAN_COLUMNS), None)],
+            "decode": [(grid, dist_dict, max(takes))]}
+    rng = np.random.default_rng(SEED + 4)
+    if world == 4:
+        eg, ed, eidx = entry_grid(rng, 4, 2048, 100)
+        cgrids = [entry_grid(np.random.default_rng(SEED + 40 + c), 4, 512, 64) for c in range(2)]
+        dry = dry_file(smoke_dir() / "dry.parquet")
+        spec["steps"] = (eg, ed, 2048, stacked_grids([g for g, _, _ in cgrids],
+                                                     [d for _, d, _ in cgrids], 512),
+                         str(smoke_dir() / "dry.parquet"))
+    t = time.perf_counter()
+    out = spawn(run_checks, world, spec, backend=backend, timeout=900.0)
+    log(f"[ranks] {world} {backend} ranks on {device}: {time.perf_counter() - t:.1f} s, the "
+        "spawns included")
+    for k, o in enumerate(out):
+        got = {p: {f: v.item() for f, v in st.items()} for p, st in o["reduce"][0].items()}
+        if got != want_reduce:
+            raise AssertionError(f"rank {k}: mesh_reduce_stats {got} != {want_reduce}")
+        if not stats_equal(o["stats"][0], scan_want(specs)):
+            raise AssertionError(f"rank {k}: distributed_column_stats {o['stats'][0]}")
+    log(f"[ranks] mesh_reduce_stats (a NaN partial skipped) and distributed_column_stats over "
+        f"taxi's {len(SCAN_COLUMNS)} numeric leaves equal NumPy's on every rank")
+    decoded = np.concatenate([o["decode"][0][0] for o in out])
+    col = dist_dict[s["trip_distance"].indices]
+    off = np.concatenate([[0], np.cumsum(takes)])
+    for p, k in enumerate(takes):
+        if not np.array_equal(decoded[p, :k], col[off[p] : off[p + 1]]):
+            raise AssertionError(f"sharded_decode_step page {p} differs from the generator")
+    sw = {"min": col.min(), "max": col.max(), "count": len(col)}
+    for k, o in enumerate(out):
+        if any(o["decode"][0][1][f] != sw[f] for f in sw):
+            raise AssertionError(f"rank {k}: sharded_decode_step stats {o['decode'][0][1]}")
+    log(f"[ranks] sharded_decode_step over trip_distance's {grid.num_pages} pages, "
+        f"{decoded.shape[0] // world} a rank: every page equals the generator's, stats equal "
+        "NumPy's on every rank")
+    if world != 4:
+        return
+    checksum = int(sum(int(ed[i].sum()) for i in eidx))
+    col_sums = [int(sum(int(d[i].sum()) for i in idx)) for _, d, idx in cgrids]
+    col_counts = [sum(len(i) for i in idx) for _, _, idx in cgrids]
+    x, valid = dry["x"], dry["valid"]
+    want_train = [int(x[valid].sum()) + int(dry["a"].sum()), int(valid.sum())]
+    want_dry = {("a",): {"min": dry["a"].min(), "max": dry["a"].max(), "count": 8192},
+                ("ts",): {"min": dry["ts"].min(), "max": dry["ts"].max(), "count": 8192}}
+    for k, o in enumerate(out):
+        st = o["steps"]
+        pi, ci = divmod(k, 2)
+        got = (int(st["decode"][1]["count"]), int(st["decode"][1]["checksum"]),
+               int(st["mesh"][1]), st["mesh"][2].tolist(), st["train"].tolist())
+        want = (sum(len(i) for i in eidx), checksum, col_counts[ci], col_sums, want_train)
+        if got != want or not stats_equal(st["stats"], want_dry):
+            raise AssertionError(f"rank {k}: entry steps {got} != {want} or stats {st['stats']}")
+    log("[ranks] the entry's three steps over a 2 x 2 (pages, cols) DeviceMesh (decode_step, "
+        "psum over pages + all_gather over cols, train_step over sharded batches) and "
+        "distributed_column_stats over the mesh equal NumPy's on every rank")
+
+
+def smoke_dir() -> Path:
+    """The directory of the cached main-path files."""
+    from parquet_tpu_torch.kernels.build import BUILD_ROOT
+
+    (BUILD_ROOT / "smoke").mkdir(parents=True, exist_ok=True)
+    return BUILD_ROOT / "smoke"
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="run only the multi-rank check, over this many ranks, one card each")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    if args.ranks and torch.cuda.device_count() < args.ranks:
+        print(f"chip_smoke: --ranks {args.ranks} needs {args.ranks} cards, "
+              f"{torch.cuda.device_count()} found", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     from parquet_tpu_torch import reset_write_counts, write_counts
@@ -1795,19 +2425,27 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
+    cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
+    smi = cards[0]
     bw = mem_bandwidth(name)
     log(f"[device] {name}, torch {torch.__version__}, CUDA {torch.version.cuda}")
-    log(smi)
+    for card in cards:
+        log(card)
 
     build.load()
     log(f"[build] kernels built and loaded in {build.build_seconds():.2f} s")
     t = time.perf_counter()
     get_native()
     log(f"[build] host library built and loaded in {time.perf_counter() - t:.2f} s")
+    if args.ranks:
+        check_ranks(args.ranks)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        return 0
 
     csrc = "parquet_tpu_torch/kernels/csrc/"
     sources = {
@@ -1837,6 +2475,8 @@ def main() -> int:
                                "parquet_tpu/kernels/device_ops.py:553"),
         "plain_bytearray_encode": (csrc + "plain_bytearray_encode.cu",
                                    "parquet_tpu/kernels/device_ops.py:630"),
+        "masked_agg": (csrc + "masked_agg.cu", "parquet_tpu/kernels/device_ops.py:664"),
+        "expand_page_grid": (csrc + "expand_page_grid.cu", "parquet_tpu/parallel/mesh.py:91"),
     }
     rows = {
         k: {"name": k, "route": "cuda", "source": src, "replaces": rep}
@@ -1851,6 +2491,8 @@ def main() -> int:
     check_filter_kernels(dev, rows)
     log("[kernels] the write path's kernels at edge shapes")
     check_write_kernels(dev, rows)
+    log("[kernels] the query and multi-device paths' kernels at edge shapes")
+    check_query_kernels(dev, rows)
 
     launches: dict[str, dict] = {}
 
@@ -2052,6 +2694,36 @@ def main() -> int:
     del groups
     log(f"[write:taxi] read back with read_row_groups_device: columns equal the generator "
         f"({reader.stats})")
+    # the query path: run_local_query over taxi, unfiltered and under F_taxi
+    from parquet_tpu_torch.serve.aggregate import query_device_counts, reset_query_device_counts
+
+    query_runs = {"taxi query": (None, np.ones(n_rows, dtype=bool), ROW_GROUPS),
+                  "taxi query filtered": (f_taxi, taxi_keep, ROW_GROUPS - 2)}
+    for label, (filters, keep, units) in query_runs.items():
+        ops.reset_launch_counts()
+        reset_query_device_counts()
+        t = time.perf_counter()
+        body = run_query(taxi_path, filters)
+        secs = time.perf_counter() - t
+        counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
+        launches[label] = counts
+        want = query_want(taxi_specs, keep, units)
+        qc = query_device_counts()
+        log(f"[query:{label}] run_local_query, {len(query_aggregates())} aggregates: {secs:.2f} s, "
+            f"units {body['units']}, rows scanned {body['rows_scanned']}, matched "
+            f"{body['rows_matched']}; query counts {qc}; launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+        if body != want:
+            raise AssertionError(f"{label}: body {body} != NumPy's {want}")
+        if qc != {"device": units}:
+            raise AssertionError(f"{label}: query counts {qc}, expected {units} device units")
+        need = ("masked_agg", "dict_gather") + (("mask_take",) if filters else ())
+        for k in need:
+            if counts[k] <= 0:
+                raise AssertionError(f"{k} was not launched on the {label} path")
+        log(f"[query:{label}] the body equals NumPy's: {body['result']}")
+    check_query_declines(taxi_path)
+    scan = check_scans(taxi_path, taxi_specs, dev, launches)
     for k in rows:
         rows[k]["launches"] = sum(c[k] for c in launches.values())
         rows[k]["launches_by_path"] = {label: c[k] for label, c in launches.items()}
@@ -2115,6 +2787,21 @@ def main() -> int:
             extra = f"; over input rows, {int(keep.sum())} kept, 2 groups pruned"
         log(f"  {label}: {rates[label]:,.0f} rows/s (median of {[round(x, 3) for x in secs]} s)"
             + extra)
+    from parquet_tpu_torch.parallel.scan import column_stats
+
+    def stats_scan():
+        with FileReader(taxi_path) as r:
+            return column_stats(r, [dev], columns=list(SCAN_COLUMNS))
+
+    for label, fn in (("taxi query", lambda: run_query(taxi_path, None)),
+                      ("taxi query filtered", lambda: run_query(taxi_path, f_taxi)),
+                      ("taxi column_stats", stats_scan)):
+        med, secs = median_s(fn)  # the phase's own run above was the warm-up
+        rates[label] = n_rows / med
+        log(f"  {label}: {rates[label]:,.0f} rows/s (median of {[round(x, 3) for x in secs]} s)"
+            + ("; over input rows, 2 groups pruned" if "filtered" in label else ""))
+    log("  profiler, taxi query filtered:")
+    profile_device(lambda: run_query(taxi_path, f_taxi))
     for label, fn in (("taxi device write",
                        lambda: write_taxi(dev_file, taxi_schema, dev_groups, device=True)),
                       ("taxi host write",
@@ -2138,6 +2825,8 @@ def main() -> int:
             prepare[f"{label} {walk}"] = med
             log(f"  host prepare alone, {label}, {walk} walk: {n_rows / med:,.0f} rows/s "
                 f"(median of {[round(x, 3) for x in secs]} s)")
+            if not fused:
+                continue  # the per-column split is taken on the fused walk only
             split: dict = {}
             prepare_alone(paths[label][0], fused, split)
             prepare[f"{label} {walk} by column"] = split
@@ -2151,6 +2840,7 @@ def main() -> int:
     time_batch_kernels(sessions_path, paths["taxi"][0], dev, rows, bw)
     time_filter_kernels(taxi_path, sessions_path, f_taxi, f_sessions[0][2], dev, rows, bw)
     time_write_kernels(dev_groups, dev, rows, bw)
+    time_query_kernels(taxi_path, f_taxi, scan, dev, rows, bw)
     del dev_groups
     dev_file.unlink()
     host_file.unlink()

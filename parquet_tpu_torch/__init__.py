@@ -9,6 +9,10 @@ Filters prune row groups by statistics and bloom filters and evaluate as
 device row masks, compacted on the card. FileWriter writes device tensors
 back to Parquet: the dictionary probe, the hybrid and DELTA encodes and the
 byte-array framing run on the card, byte-identical to the host write.
+Aggregation queries (serve.run_local_query) filter and reduce each row
+group on the card, and scans (parallel.column_stats,
+distributed_column_stats, sharded_decode_step) spread row groups and pages
+over devices and torch.distributed ranks.
 
     from parquet_tpu_torch import FileReader
     with FileReader("trips.parquet") as r:          # device=None -> CUDA

@@ -173,6 +173,19 @@ def _tree_leaves(tree: dict) -> list:
     return [t for node in tree.values() for t in (node if isinstance(node, tuple) else (node,))]
 
 
+def _shard_batches(batches, rank: int, world: int):
+    """Each batch's rows of this rank: the contiguous 1/world slice of a
+    batch; a short final batch that world does not divide goes whole to
+    rank 0 (empty elsewhere)."""
+    for batch in batches:
+        n = _tree_leaves(batch)[0].shape[0]
+        if n % world == 0:
+            lo, hi = rank * (n // world), (rank + 1) * (n // world)
+        else:
+            lo, hi = (0, n) if rank == 0 else (0, 0)
+        yield _tree_map(lambda a, lo=lo, hi=hi: a[lo:hi], batch)
+
+
 class FileReader:
     """Reads Parquet files into host ChunkData or device DeviceColumns.
 
@@ -389,6 +402,7 @@ class FileReader:
         device=None,
         filters=None,
         filter_rows: bool = False,
+        sharding=None,
     ):
         """Stream the file as fixed-size device-resident batches.
 
@@ -445,6 +459,18 @@ class FileReader:
 
         `device` overrides the reader's device for every batch. All work runs
         on the calling thread's current CUDA stream.
+
+        `sharding` (a torch.distributed ProcessGroup, or a DeviceMesh, whose
+        ranks it flattens) splits every batch over the group's ranks, as the
+        reference's jax.device_put(batch, NamedSharding(mesh, P(axes))) does
+        with every mesh axis in P: rank k
+        yields rows [k*b/w, (k+1)*b/w) of each global batch (w the group's
+        size, b the batch size, which w must divide), with a MaskedColumn's
+        values and mask sliced together. Every rank reads the whole stream
+        (the carry between row groups stays global), so rank k's slices
+        concatenate to the unsharded stream. A final short batch that w
+        does not divide is not split: rank 0 yields it whole and the others
+        an empty slice, so every rank takes the same number of steps.
         """
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
@@ -473,10 +499,20 @@ class FileReader:
         if filter_rows and normalized is None:
             raise ValueError("filter_rows=True requires filters")
         dev = self.device if device is None else resolve_device(device)
-        return self._iter_device_batches(
+        batches = self._iter_device_batches(
             batch_size, columns, drop_remainder, nullable, lists, max_list_len, dev,
             normalized, filter_rows,
         )
+        if sharding is None:
+            return batches
+        from ..parallel.scan import _resolve
+
+        _group, rank, world = _resolve(sharding)
+        if batch_size % world:
+            raise ValueError(
+                f"batch_size {batch_size} is not divisible over the {world} ranks of sharding"
+            )
+        return _shard_batches(batches, rank, world)
 
     def _iter_device_batches(
         self, batch_size: int, columns, drop_remainder: bool, nullable: str,

@@ -79,6 +79,8 @@ SIGNATURES = {
     "pqt_dict_indices": (_P, _LL, _I, _P, _LL, _P, _P, _P, _P, _P, _P),
     "pqt_delta_block_encode": (_P, _LL, _I, _P, _P, _P, _P, _P, _P),
     "pqt_plain_bytearray_encode": (_P, _P, _LL, _LL, _P, _P),
+    "pqt_masked_agg": (_P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _P),
+    "pqt_expand_page_grid": (_P, _I, _P, _P, _P, _P, _I, _I, _P, _LL, _I, _I, _I, _P, _P),
 }
 
 _lib = None

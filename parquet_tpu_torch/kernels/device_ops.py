@@ -1,4 +1,5 @@
-"""Device primitives: the kernels of the decode, batch, filter and write paths.
+"""Device primitives: the kernels of the decode, batch, filter, write, query
+and multi-device paths.
 
 Each primitive has three parts:
 
@@ -72,6 +73,10 @@ __all__ = [
     "delta_block_encode_plain",
     "plain_bytearray_encode",
     "plain_bytearray_encode_plain",
+    "masked_agg",
+    "masked_agg_plain",
+    "expand_page_grid",
+    "expand_page_grid_plain",
     "KERNELS",
     "reset_launch_counts",
 ]
@@ -1741,7 +1746,240 @@ def plain_bytearray_encode(
 plain_bytearray_encode.launches = 0
 
 
-# The kernels of the decode, batch, filter and write paths, by name.
+# -- the query and multi-device paths: masked aggregate, page-grid expansion ----
+
+_AGG_OPS = {"count": 0, "sum": 1, "min": 2, "max": 3}
+_AGG_DTYPES = {
+    torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3, torch.bool: 4,
+}
+# pass 1's block count: one block per 1,024 elements, at most 1,024 blocks
+_AGG_MAX_BLOCKS = 1024
+_INT64_MIN = -(1 << 63)
+
+
+def _agg_out_dtype(dtype: torch.dtype, op: str, unsigned: bool) -> torch.dtype:
+    """count -> int64; an integer or bool sum -> int64; a float result keeps
+    its dtype; an unsigned view's min/max -> int64 (the uint64 pattern)."""
+    if op == "count" or (not dtype.is_floating_point and (op == "sum" or unsigned)):
+        return torch.int64
+    return dtype
+
+
+def _agg_bits(values: torch.Tensor, unsigned: bool, bits) -> int:
+    width = values.element_size() * 8
+    if not unsigned or bits is None or bits >= width:
+        return width
+    if bits < 1:
+        raise ValueError(f"masked_agg: sub-width of {bits} bits")
+    return int(bits)
+
+
+def _agg_identity(dtype: torch.dtype, op: str, unsigned: bool, dev) -> torch.Tensor:
+    out = _agg_out_dtype(dtype, op, unsigned)
+    if op in ("count", "sum"):
+        return torch.zeros((), dtype=out, device=dev)
+    lo = op == "min"
+    if dtype.is_floating_point:
+        v = math.inf if lo else -math.inf
+    elif unsigned:
+        v = -1 if lo else 0  # the uint64 patterns of UINT64_MAX and 0
+    elif dtype == torch.bool:
+        v = lo
+    else:
+        info = torch.iinfo(dtype)
+        v = info.max if lo else info.min
+    return torch.full((), v, dtype=out, device=dev)
+
+
+def _signed_zero(r, values, mask, op):
+    """A float min (max) equal to zero is -0.0 (+0.0) when a kept value is
+    that zero: XLA's reduce orders -0.0 below +0.0."""
+    want_neg = op == "min"
+    zeros = mask & (values == 0) & (torch.signbit(values) == want_neg)
+    signed = torch.full_like(r, -0.0 if want_neg else 0.0)
+    return torch.where((r == 0) & zeros.any(), signed, r)
+
+
+def masked_agg_plain(values, mask, op: str, *, unsigned: bool = False, bits=None):
+    """Plain version of masked_agg (semantics in kernels/csrc/masked_agg.cu).
+    Unsigned views compute in int64 lanes: the uint64 order is the int64
+    order with the sign bit flipped."""
+    dev = values.device
+    n = values.numel()
+    if mask is None:
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+    if op == "count":
+        return mask.sum(dtype=torch.int64)
+    if n == 0:
+        return _agg_identity(values.dtype, op, unsigned, dev)
+    if values.dtype.is_floating_point:
+        v = values.to(torch.float64)
+        if op == "sum":
+            r = torch.where(mask, v, 0.0).sum() + 0.0  # a sum of -0.0s is +0.0
+        else:
+            w = torch.where(mask, v, math.inf if op == "min" else -math.inf)
+            r = _signed_zero(w.amin() if op == "min" else w.amax(), v, mask, op)
+        r = r.to(values.dtype)
+        return torch.where(torch.isnan(r), torch.full_like(r, math.nan), r)
+    v = values.to(torch.int64)
+    if unsigned:
+        keep = _agg_bits(values, True, bits)
+        if keep < 64:
+            v = v & ((1 << keep) - 1)
+    if op == "sum":
+        return torch.where(mask, v, 0).sum()
+    ident = _agg_identity(values.dtype, op, unsigned, dev).to(torch.int64)
+    if unsigned:
+        v = v ^ _INT64_MIN
+        ident = ident ^ _INT64_MIN
+    w = torch.where(mask, v, ident)
+    r = w.amin() if op == "min" else w.amax()
+    if unsigned:
+        return r ^ _INT64_MIN
+    return r.to(values.dtype) if values.dtype != torch.bool else r != 0
+
+
+def masked_agg(values: torch.Tensor, mask, op: str, *, unsigned: bool = False, bits=None):
+    """One count, sum, min or max of a 1-D column under a bool row mask (None:
+    every row), as a 0-d tensor on the column's device:
+
+      count    the true mask entries, int64;
+      sum      integers and bools in 64-bit two's complement, int64 (an
+               unsigned view's uint64 pattern); floats accumulated in double,
+               in the column's dtype;
+      min/max  masked-out rows take the identity (the dtype's max/min, +-inf,
+               True/False); the column's dtype, or int64 holding the uint64
+               pattern for an unsigned view; NaN propagates; -0.0 < +0.0.
+
+    `unsigned` reads int32/int64 values as their unsigned bit patterns,
+    masked to the low `bits` (UINT_8, UINT_16) when given, and widened to 64
+    bits in the load. n = 0 gives the identity. Replaces
+    parquet_tpu/kernels/device_ops.py:masked_agg_device (and the counts,
+    the unsigned view and the widening of serve/query_device.py)."""
+    _check_vec(values, tuple(_AGG_DTYPES), "masked_agg: values")
+    if mask is not None:
+        _check_vec(mask, (torch.bool,), "masked_agg: mask")
+        if mask.numel() != values.numel():
+            raise ValueError(
+                f"masked_agg: {mask.numel()} mask entries for {values.numel()} values"
+            )
+    if op not in _AGG_OPS:
+        raise ValueError(f"masked_agg: unsupported op {op!r}")
+    if unsigned and values.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"masked_agg: no unsigned view of {values.dtype}")
+    bits = _agg_bits(values, unsigned, bits)
+    if _on_cpu(values, *(() if mask is None else (mask,))):
+        return masked_agg_plain(values, mask, op, unsigned=unsigned, bits=bits)
+    dev = values.device
+    n = values.numel()
+    nb = max(1, min(_AGG_MAX_BLOCKS, -(-n // 1024)))
+    partial = torch.empty(nb, dtype=torch.int64, device=dev)
+    out = torch.empty((), dtype=_agg_out_dtype(values.dtype, op, unsigned), device=dev)
+    _launch(
+        "masked_agg", dev, _lib().pqt_masked_agg,
+        _ptr(values), None if mask is None else _ptr(mask), n, _AGG_DTYPES[values.dtype],
+        _AGG_OPS[op], int(unsigned), bits, nb, _ptr(partial), _ptr(out),
+    )
+    masked_agg.launches += 1
+    return out
+
+
+masked_agg.launches = 0
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 lanes wrapped to the int32 range (two's complement)."""
+    return ((x + (1 << 31)) & _M32) - (1 << 31)
+
+
+def expand_page_grid_plain(words, starts, is_rle, values, bit_starts, dictionary,
+                           width: int, n_out: int) -> torch.Tensor:
+    """Plain version of the page-grid expansion (kernels/csrc/
+    expand_page_grid.cu): the JAX program's int32 arithmetic in int64 lanes
+    wrapped to int32, its gathers wrapped once and clamped."""
+    dev = words.device
+    n_pages, n_words = words.shape
+    n_runs = starts.shape[1]
+    if n_pages == 0 or n_out == 0:
+        return torch.empty((n_pages, n_out), dtype=dictionary.dtype, device=dev)
+    i = torch.arange(n_out, dtype=torch.int64, device=dev).expand(n_pages, n_out).contiguous()
+    r = (torch.searchsorted(starts.to(torch.int64), i, right=True) - 1).clamp(0, n_runs - 1)
+
+    def take(t):
+        return t.to(torch.int64).gather(1, r)
+
+    within = _wrap32(i - take(starts))
+    bitpos = _wrap32(take(bit_starts) + within * width)
+    w0 = bitpos >> 5
+    s = bitpos & 31
+    wd = _u32(words)
+
+    def word(j):
+        j = torch.where(j < 0, j + n_words, j).clamp(0, n_words - 1)
+        return wd.gather(1, j)
+
+    lo = word(w0) >> s
+    hi = torch.where(s == 0, 0, (word(torch.clamp(w0 + 1, max=n_words - 1)) << ((32 - s) & 31)) & _M32)
+    vmask = (1 << width) - 1 if width < 32 else _M32
+    idx = torch.where(take(is_rle) == 1, _u32(values).gather(1, r), (lo | hi) & vmask)
+    # XLA's gather reads the uint32 index as int32 and clamps it
+    return dictionary[_wrap32(idx).clamp(0, dictionary.numel() - 1)]
+
+
+def expand_page_grid(words, starts, is_rle, values, bit_starts, dictionary,
+                     width: int, n_out: int) -> torch.Tensor:
+    """Expand a padded page grid of hybrid RLE/bit-packed index pages and
+    gather each index from `dictionary`: (P, n_out) of the dictionary's dtype
+    (int32 or int64; floats as their bit patterns). `words` (P, W) holds the
+    pages' packed payload as uint32 patterns in int32, `starts`, `is_rle`,
+    `values` (uint32 patterns) and `bit_starts` (P, R) their run tables,
+    padded as parallel/mesh.build_page_grid pads them (each starts row
+    non-decreasing). Positions past a page's real count hold what the JAX
+    program computes there; an index at or past the dictionary's end takes
+    its last entry, one at or above 2^31 its first (XLA reads the uint32
+    index as int32 and clamps). Replaces parquet_tpu/parallel/mesh.py:
+    _expand_one_page (vmapped) and the dictionary gather of
+    sharded_decode_step."""
+    grid = (words, starts, is_rle, values, bit_starts)
+    for name, t in zip(("words", "starts", "is_rle", "values", "bit_starts"), grid):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 2:
+            raise TypeError(f"expand_page_grid: {name} must be a 2-D int32 tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"expand_page_grid: {name} must be contiguous")
+    _check_vec(dictionary, (torch.int32, torch.int64), "expand_page_grid: dictionary")
+    n_pages, n_words = words.shape
+    n_runs = starts.shape[1]
+    if any(t.shape != (n_pages, n_runs) for t in grid[2:]) or starts.shape[0] != n_pages:
+        raise ValueError("expand_page_grid: run tables disagree with the grid's shape")
+    if n_words < 1 or n_runs < 1:
+        raise ValueError("expand_page_grid: a grid needs at least one word and one run")
+    if not 0 <= width <= 32:
+        raise ValueError(f"expand_page_grid: width {width} outside 0..32")
+    n_out = int(n_out)
+    if not 0 <= n_out < (1 << 31):
+        raise ValueError(f"expand_page_grid: n_out {n_out} outside the int32 range")
+    if n_pages * n_out and dictionary.numel() == 0:
+        raise ValueError("expand_page_grid: empty dictionary with outputs to gather")
+    if _on_cpu(*grid, dictionary):
+        return expand_page_grid_plain(*grid, dictionary, width, n_out)
+    dev = words.device
+    out = torch.empty((n_pages, n_out), dtype=dictionary.dtype, device=dev)
+    if out.numel():
+        _launch(
+            "expand_page_grid", dev, _lib().pqt_expand_page_grid,
+            _ptr(words), n_words, _ptr(starts), _ptr(is_rle), _ptr(values),
+            _ptr(bit_starts), n_runs, width, _ptr(dictionary), dictionary.numel(),
+            dictionary.element_size(), n_pages, n_out, _ptr(out),
+        )
+        expand_page_grid.launches += 1
+    return out
+
+
+expand_page_grid.launches = 0
+
+
+# The kernels of the decode, batch, filter, write, query and multi-device
+# paths, by name.
 KERNELS = {
     "expand_hybrid": expand_hybrid,
     "dict_gather": dict_gather,
@@ -1762,6 +2000,8 @@ KERNELS = {
     "dict_indices": dict_indices,
     "delta_block_encode": delta_block_encode,
     "plain_bytearray_encode": plain_bytearray_encode,
+    "masked_agg": masked_agg,
+    "expand_page_grid": expand_page_grid,
 }
 
 

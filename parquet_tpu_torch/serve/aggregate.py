@@ -1,0 +1,262 @@
+"""Aggregation push-down: per-unit partials, exact merge, canonical body.
+
+The query half of parquet_tpu/serve/aggregate.py, without pyarrow. Each
+unit (one row group of one file) computes a PARTIAL aggregate on the device
+(serve/query_device.device_unit_partial), partials merge with exact
+semantics, and the response is kilobytes however many rows matched.
+
+The reference merges two partials with the pyarrow kernel of the partial's
+arrow type. Device partials are only 64-bit integers, so the port's merge
+(_merge_value) is that kernel written out: counts add, sums wrap in 64-bit
+two's complement in the int64 or uint64 domain their type tag names, min
+and max compare, and None (no matching rows) passes the other side
+through. The tests pin it against the pyarrow merge, wrap-around included.
+
+run_local_query is the daemon-free runner: units are the row groups each
+file's statistics and bloom filters admit, file by file in sorted order
+(the layout of parquet_tpu/data/plan.build_plan). A count(*)-only query
+without filters answers from the footer; every other unit runs on the
+device. A unit outside the device envelope raises a typed ServeError
+(device_declined): the reference reruns it on its host engine, which is
+pyarrow (to_arrow) and is not ported. query_device_counts() reads how many
+units each engine took.
+
+The canonical JSON rendering (render_query_body) is the reference's, so
+the bodies are its bytes for the same corpus and spec.
+"""
+
+from __future__ import annotations
+
+import glob as _glob
+import json
+import os
+import threading
+from collections import Counter
+
+from .protocol import QueryRequest, ServeError, agg_name, json_default
+from .query_device import DeviceQueryError, device_unit_partial
+
+__all__ = [
+    "QueryState",
+    "query_columns",
+    "unit_count_partial",
+    "result_dict",
+    "render_query_body",
+    "run_local_query",
+    "query_device_counts",
+    "reset_query_device_counts",
+]
+
+_M64 = (1 << 64) - 1
+
+# Units by engine, as the reference counts query_device_units_total{engine=}:
+# "device" (device_unit_partial answered) and "declined" (DeviceQueryError).
+_COUNTS: Counter = Counter()
+_COUNTS_LOCK = threading.Lock()
+
+
+def query_device_counts() -> dict:
+    """A snapshot of the query units' engine counts."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
+
+
+def reset_query_device_counts() -> None:
+    with _COUNTS_LOCK:
+        _COUNTS.clear()
+
+
+def _bump(engine: str) -> None:
+    with _COUNTS_LOCK:
+        _COUNTS[engine] += 1
+
+
+def query_columns(query: QueryRequest) -> list:
+    """The column projection a query's units must decode: group-by keys
+    plus aggregate inputs, order-stable. Empty + no filters means NO decode
+    at all (pure count(*) answers from footer-promised row counts); empty
+    WITH filters borrows the first filter column so the filtered row count
+    is still observable."""
+    cols: list = []
+    for c in query.group_by:
+        if c not in cols:
+            cols.append(c)
+    for a in query.aggregates:
+        if a.column is not None and a.column not in cols:
+            cols.append(a.column)
+    if not cols and query.filters is not None:
+        first = query.filters[0]
+        if isinstance(first, (list, tuple)) and first and isinstance(
+            first[0], (list, tuple)
+        ):
+            first = first[0]  # DNF: first conjunction's first triple
+        cols.append(first[0])
+    return cols
+
+
+def unit_count_partial(query: QueryRequest, num_rows: int):
+    """The zero-decode partial: every aggregate is count(*) (query_columns
+    returned empty with no filters), so the footer-promised row count IS
+    the answer and the unit never opens its file."""
+    return {(): [num_rows for _ in query.aggregates]}, [None] * len(
+        query.aggregates
+    )
+
+
+def _merge_value(op: str, a, b, typ):
+    """Merge two partial values of one aggregate: counts add; sums wrap in
+    64-bit two's complement in the domain of `typ` ("int64" or "uint64");
+    min/max compare; None (no matching rows) passes the other through."""
+    if op == "count":
+        return int(a) + int(b)
+    if a is None:
+        return b
+    if b is None:
+        return a
+    if op == "sum":
+        if typ not in ("int64", "uint64"):
+            raise ServeError(500, "internal", f"sum partials of type {typ!r}")
+        s = (int(a) + int(b)) & _M64
+        return s - (1 << 64) if typ == "int64" and s >> 63 else s
+    return min(a, b) if op == "min" else max(a, b)
+
+
+class QueryState:
+    """The merged aggregate state one request accumulates unit by unit."""
+
+    __slots__ = ("query", "groups", "types", "rows_scanned", "rows_matched")
+
+    def __init__(self, query: QueryRequest):
+        self.query = query
+        self.types: list = [None] * len(query.aggregates)
+        self.rows_scanned = 0
+        self.rows_matched = 0
+        if query.group_by:
+            self.groups: dict = {}
+        else:
+            # the global row exists even over zero units: count 0, sum/min/
+            # max null — matching pyarrow kernels over an empty column
+            self.groups = {
+                (): [0 if a.column is None or a.op == "count" else None
+                     for a in query.aggregates]
+            }
+
+    def absorb(self, part) -> None:
+        """Merge one unit's ((groups, types), scanned, matched) partial."""
+        (groups, types), scanned, matched = part
+        self.rows_scanned += scanned
+        self.rows_matched += matched
+        for j, t in enumerate(types):
+            if self.types[j] is None:
+                self.types[j] = t
+        q = self.query
+        for key, vals in groups.items():
+            cur = self.groups.get(key)
+            if cur is None:
+                if len(self.groups) >= q.max_groups:
+                    raise ServeError(
+                        413, "group_overflow",
+                        f"group-by cardinality exceeded max_groups="
+                        f"{q.max_groups}; narrow the filter or raise "
+                        "max_groups",
+                    )
+                self.groups[key] = list(vals)
+                continue
+            for j, a in enumerate(q.aggregates):
+                op = "count" if a.column is None else a.op
+                cur[j] = _merge_value(op, cur[j], vals[j], self.types[j])
+
+
+def _key_order(key: tuple) -> str:
+    # deterministic total order over arbitrary (possibly None/mixed) keys:
+    # their canonical JSON encoding — the same bytes the body renders
+    return json.dumps(list(key), default=json_default)
+
+
+def result_dict(query: QueryRequest, state: QueryState, *, units: int) -> dict:
+    """The response body, deterministically ordered (groups sort by their
+    canonical key encoding) so daemon bytes == CLI bytes."""
+    names = [agg_name(a) for a in query.aggregates]
+    body: dict = {
+        "group_by": list(query.group_by),
+        "aggregates": names,
+        "units": units,
+        "rows_scanned": state.rows_scanned,
+        "rows_matched": state.rows_matched,
+    }
+    if query.group_by:
+        body["group_count"] = len(state.groups)
+        body["groups"] = [
+            {
+                "key": list(key),
+                "aggregates": dict(zip(names, state.groups[key])),
+            }
+            for key in sorted(state.groups, key=_key_order)
+        ]
+    else:
+        body["result"] = dict(zip(names, state.groups[()]))
+    return body
+
+
+def render_query_body(body: dict) -> bytes:
+    """ONE canonical serialization (shared with `parquet-tool scan
+    --aggregate`), so a daemon response is byte-identical to the CLI's."""
+    return (json.dumps(body, default=json_default) + "\n").encode()
+
+
+def _expand(path: str) -> list:
+    """A glob pattern's sorted hits, or the one file (the reference's
+    data/plan.expand_paths for local paths)."""
+    if _glob.has_magic(path):
+        hits = _glob.glob(path)
+        if not hits:
+            raise FileNotFoundError(f"query: glob {path!r} matched no files")
+        return sorted(hits)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"query: no such file {path!r}")
+    return [path]
+
+
+def run_local_query(paths, query: QueryRequest, *, device=None) -> dict:
+    """The daemon-free twin of POST /v1/query over local files: plan the
+    units (row groups admitted by statistics and bloom filters, files in
+    sorted order), run each on the device (`device`, default CUDA), merge.
+    A count(*)-only query without filters reads footers only. Raises a
+    typed ServeError for a unit outside the device envelope
+    (device_declined) and for `query.shard` (its striping needs the
+    dataset planner, data/plan.py, which is not ported)."""
+    from ..core.reader import FileReader
+
+    if query.shard is not None:
+        raise ServeError(
+            501, "shard_unsupported",
+            "query shard= needs the dataset planner (data/plan.py), not ported",
+        )
+    files: list = []
+    for p in paths:
+        files.extend(_expand(p))
+    files = sorted(set(files))
+    cols = query_columns(query)
+    decode = bool(cols) or query.filters is not None
+    state = QueryState(query)
+    units = 0
+    for path in files:
+        with FileReader(path, device=device) as r:
+            if query.filters is not None:
+                groups = r.prune_row_groups_counted(query.filters)[0]
+            else:
+                groups = range(r.num_row_groups)
+            for g in groups:
+                units += 1
+                num_rows = int(r.row_group(g).num_rows or 0)
+                if not decode:
+                    state.absorb((unit_count_partial(query, num_rows), num_rows, num_rows))
+                    continue
+                try:
+                    part = device_unit_partial(r, g, query, query.filters)
+                except DeviceQueryError as e:
+                    _bump("declined")
+                    raise ServeError(400, "device_declined", str(e)) from None
+                _bump("device")
+                state.absorb(part)
+    return result_dict(query, state, units=units)

@@ -310,13 +310,13 @@ def test_bad_arguments_raise_eagerly_on_both_sides(tmp_path, case):
 
 
 def test_batch_path_options_left_out():
-    # sharding= belongs to a later slice: the port does not accept it;
-    # filters= and filter_rows= came with the filtering slice
+    # nothing of the reference's iter_device_batches is left out any more:
+    # filters= and filter_rows= came with the filtering slice, sharding=
+    # with the multi-device slice (tests/test_torch_parallel.py holds it)
     import inspect
 
     params = inspect.signature(FileReader.iter_device_batches).parameters
-    assert "sharding" not in params
-    assert {"filters", "filter_rows"} <= set(params)
+    assert {"filters", "filter_rows", "sharding"} <= set(params)
 
 
 def test_no_cuda_raises_at_the_call(files, monkeypatch):

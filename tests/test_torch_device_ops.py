@@ -198,6 +198,16 @@ def _cpu_calls():
             torch.frombuffer(bytearray(b"abcde"), dtype=torch.uint8),
             torch.tensor([0, 2, 2, 5], dtype=torch.int64), 17,
         ),
+        "masked_agg": (
+            torch.tensor([3, -9, 7, 1], dtype=torch.int64),
+            torch.tensor([True, False, True, True]), "min",
+        ),
+        "expand_page_grid": (
+            torch.tensor([[0x1234567, 0x89ABCDEF, 0]], dtype=torch.int64).to(torch.int32),
+            torch.tensor([[0, 4, 9]], dtype=torch.int32), torch.tensor([[1, 0, 0]], dtype=torch.int32),
+            torch.tensor([[5, 0, 0]], dtype=torch.int32), torch.tensor([[0, 0, 0]], dtype=torch.int32),
+            torch.arange(10, dtype=torch.int64) * 7, 3, 8,
+        ),
     }
 
 
@@ -283,7 +293,8 @@ def test_build_key_tracks_sources(tmp_path):
          "pqt_predicate_mask", "pqt_fixed_members",
          "pqt_leaf_verdict", "pqt_list_contains_mask", "pqt_mask_scan", "pqt_take_rows",
          "pqt_bitpack_encode", "pqt_rle_hybrid_plan", "pqt_dict_indices",
-         "pqt_delta_block_encode", "pqt_plain_bytearray_encode"]
+         "pqt_delta_block_encode", "pqt_plain_bytearray_encode",
+         "pqt_masked_agg", "pqt_expand_page_grid"]
     )
     # the header compiles into its includers: editing it changes the key
     h = tmp_path / "scan.cuh"
