@@ -14,11 +14,17 @@ Phases (any failure raises and the script exits non-zero):
               from native/, timed;
   3. kernels  each kernel against its plain PyTorch version on the card,
               bit-exact, at the main paths' shapes and at edge shapes (one
-              page, empty pages, all-dict and all-PLAIN chunks; for the
+              page, empty pages, all-dict and all-PLAIN chunks; the DELTA
+              decode also on testing/synth.delta_edge_batches at 32 and 64
+              bits: miniblocks of 8-128 values, widths 0 and nbits, one-value
+              pages, hundreds of short pages, one page of 2**20 + 3 values,
+              totals around the kernel's tile; for the
               batch path's kernels n = 0, 1 and 2**20 + 3, no values,
               all-null and no-null masks, leading non-boundary entries,
               max_len 1, rows longer than a scan tile, every byte width;
-              for the filter path's kernels every value dtype and op,
+              for the filter path's kernels every value dtype and op at
+              n = 0, 1, 15-17, one block's work +-1 and 2**20 + 3 and at
+              starts 1-15 elements off the 16-byte alignment,
               inexact and NaN brackets, unsigned patterns above 2**31 and
               2**63, in-lists of up to 64 members, FLBA rows, out-of-range
               dictionary indices, LIST streams opening mid-record, nv = 0,
@@ -102,7 +108,9 @@ Phases (any failure raises and the script exits non-zero):
               group_by vendor_id and sum(trip_distance) must decline typed
               and counted;
      scan     in an NCCL group of one rank (a file store): column_stats
-              and distributed_column_stats over taxi's six numeric leaves,
+              and distributed_column_stats over taxi's six numeric leaves
+              (one stats scan's 18 one-element all_reduces timed alone and
+              inside mesh_reduce_stats, by CUDA events),
               sharded_decode_step over trip_distance's real index pages (all
               8 groups, width 12, its 4,096-key double dictionary), and the
               entry point's three steps (decode_step with an int64
@@ -127,7 +135,8 @@ distributed_column_stats over it. Its last line is the `{"ok": true, ...}`
 line with the card count.
 
 The last three lines of standard output are a JSON line of the end-to-end
-rates with the card's name and power limit, the `kernels` JSON line (21
+rates, the collectives' times and the card's name and power limit, the
+`kernels` JSON line (21
 kernels) and the
 `{"ok": true, ...}` line. Without CUDA, or without the package beside it,
 the script exits non-zero and prints no result.
@@ -366,6 +375,7 @@ def check_kernels(dev, rows: dict) -> None:
 
     from parquet_tpu_torch.kernels import device_ops as ops
     from parquet_tpu_torch.kernels.pipeline import to_device
+    from parquet_tpu_torch.testing.synth import delta_edge_batches
 
     rng = np.random.default_rng(SEED)
     errs = {"expand_hybrid": 0.0, "dict_gather": 0.0, "delta_packed_decode": 0.0}
@@ -414,6 +424,22 @@ def check_kernels(dev, rows: dict) -> None:
         if not (ok and truth):
             raise AssertionError(f"delta_packed_decode {nbits} disagrees (max abs {err})")
         errs["delta_packed_decode"] = max(errs["delta_packed_decode"], err)
+    for nbits in (32, 64):
+        labels = []
+        for label, frozen, want in delta_edge_batches(nbits, ops.DELTA_TILE, SEED):
+            meta32 = to_device(frozen.meta32.view(np.int32), dev)
+            wide = to_device(frozen.wide.view(np.int32 if nbits == 32 else np.int64), dev)
+            args = (meta32, wide, nbits, frozen.m_pad, frozen.p_pad, frozen.total)
+            got = ops.delta_packed_decode(*args)
+            plain = ops.delta_packed_decode_plain(*args)
+            torch.cuda.synchronize()
+            ok, err = bits_equal(got, plain)
+            if not (ok and np.array_equal(got.cpu().numpy(), want)):
+                raise AssertionError(f"delta_packed_decode {nbits}-bit {label} disagrees "
+                                     f"(max abs {err})")
+            labels.append(f"{label} (n={frozen.total})")
+        log(f"  delta_packed_decode {nbits}-bit edge batches equal to the plain version and "
+            f"the generator: {'; '.join(labels)}")
     for name, err in errs.items():
         rows[name]["max_abs_err"] = err
 
@@ -1052,39 +1078,55 @@ def time_batch_kernels(sessions_path, taxi_path, dev, rows: dict, bw: float) -> 
 # -- the filter path: predicates, LIST contains, verdicts, compaction ----------
 
 FILTER_KERNELS = ("predicate_mask", "leaf_verdict", "list_contains_mask", "mask_take")
+PRED_DTYPES = (np.int8, np.int16, np.int32, np.int64, np.uint32, np.uint64, np.float32,
+               np.float64, np.bool_)
+
+
+def pred_values(rng, dt, n: int):
+    """n values of a predicate_mask column: bools, normal floats with a NaN
+    every 97th, or integers over the dtype's whole range."""
+    if dt is np.bool_:
+        return rng.random(n) > 0.5
+    if np.dtype(dt).kind == "f":
+        v = rng.standard_normal(n).astype(dt)
+        v[::97] = np.nan
+        return v
+    info = np.iinfo(dt)
+    return rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
 
 
 def filter_kernel_cases(rng, dev):
     """(name, label, args, kwargs) of the filter kernels at edge shapes: every
     value dtype and op, exact and inexact brackets, NaN brackets, unsigned
     patterns above 2**31 / 2**63 and sub-width masks, bools, in-lists up to
-    64 members, values off the kernel's 4-element alignment,
-    FIXED_LEN_BYTE_ARRAY rows (==, != and in-lists, width 0, patterns of
-    another width, no members); verdicts with and without
-    indices (out-of-range ones) and validity, nd = 0; LIST streams opening
-    mid-record, nv = 0, null and empty lists; compaction with count above
-    out_pad, n = 0, 2-D and misaligned rows; n = 0, 1 and 2**20 + 3."""
+    64 members, at n = 0, 1, 15, 16, 17, one block's work (predicate_block)
+    - 1 and + 1 and 2**20 + 3, and every dtype at starts 1-15 elements off
+    the kernel's 16-byte loads; FIXED_LEN_BYTE_ARRAY rows (==, != and
+    in-lists, width 0, patterns of another width, no members); verdicts
+    with and without indices (out-of-range ones) and validity, nd = 0; LIST
+    streams opening mid-record, nv = 0, null and empty lists; compaction
+    with count above out_pad, n = 0, 2-D and misaligned rows; n = 0, 1 and
+    2**20 + 3."""
     import torch
+
+    from parquet_tpu_torch.kernels import device_ops as ops
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     big = (1 << 20) + 3
-    for dt in (np.int8, np.int16, np.int32, np.int64, np.uint32, np.uint64,
-               np.float32, np.float64, np.bool_):
+    for dt in PRED_DTYPES:
         name = np.dtype(dt).name
-        for n in (0, 1, big):
-            if dt is np.bool_:
-                v = rng.random(n) > 0.5
-            elif np.dtype(dt).kind == "f":
-                v = rng.standard_normal(n).astype(dt)
-                v[::97] = np.nan
-            else:
-                info = np.iinfo(dt)
-                v = rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
-            unsigned = np.dtype(dt).kind == "u"
-            tv = t(v.view({np.uint32: np.int32, np.uint64: np.int64}[dt]) if unsigned else v)
-            kw = {"unsigned": True} if unsigned else {}
+        block = ops.predicate_block(np.dtype(np.int8 if dt is np.bool_ else dt).itemsize)
+        unsigned = np.dtype(dt).kind == "u"
+        kw = {"unsigned": True} if unsigned else {}
+
+        def upload(v):
+            return t(v.view({np.uint32: np.int32, np.uint64: np.int64}[dt]) if unsigned else v)
+
+        for n in (0, 1, 15, 16, 17, block - 1, block + 1, big):
+            v = pred_values(rng, dt, n)
+            tv = upload(v)
             if dt is np.bool_:
                 brackets = ((0, 0, True), (1, 1, True), (0, 1, False))
             elif np.dtype(dt).kind == "f":
@@ -1112,9 +1154,22 @@ def filter_kernel_cases(rng, dev):
             if dt is np.uint32:
                 yield ("predicate_mask", f"uint32 n={n} < 2**15, 16-bit view",
                        (tv, "<", 1 << 15, 1 << 15), dict(kw, bits=16))
+        # starts 1-15 elements into a column: loads off the 16-byte alignment
+        # (the element path; even offsets of 8-byte values stay aligned)
+        v = pred_values(rng, dt, block + 16)
+        tb = upload(v)
+        for off in range(1, 16):
+            x = v[off].item()
+            x = float(x) if np.dtype(dt).kind == "f" else int(x)
+            for n in (17, block + 1):
+                tv = tb[off : off + n]
+                label = f"{name} n={n} at element offset {off}"
+                yield "predicate_mask", f"{label} >= {x}", (tv, ">=", x, x), kw
+                yield "predicate_mask", f"{label} == {x}", (tv, "==", x, x, True), kw
+                yield "predicate_mask", f"{label} in", (tv, "in"), dict(kw, members=[x, 0, 1])
     for dt in (np.int8, np.int32, np.int64, np.float64):
         base = t(rng.integers(-9, 9, 4099).astype(dt))
-        for off in (1, 2, 3):  # values not aligned to the kernel's 4-element loads
+        for off in (1, 2, 3):  # values off the kernel's 16-byte loads
             label = f"{np.dtype(dt).name} values at element offset {off}"
             yield "predicate_mask", f"{label} >= 0", (base[off:], ">=", 0, 0), {}
             yield "predicate_mask", f"{label} in", (base[off:], "in"), {"members": [1, -3, 7]}
@@ -2107,6 +2162,7 @@ def check_scans(taxi_path, specs, dev, launches: dict) -> dict:
                 raise AssertionError(f"distributed_column_stats {got} != NumPy's {want}")
             log(f"[scan:taxi] distributed_column_stats(group=NCCL world 1): {secs:.2f} s, "
                 "equal to NumPy")
+            collectives = time_collectives(got, group, dev)
         grid, takes = index_page_grid(taxi_path, "trip_distance")
         dist_dict = s["trip_distance"].dictionary
         idx_all = s["trip_distance"].indices
@@ -2169,7 +2225,45 @@ def check_scans(taxi_path, specs, dev, launches: dict) -> dict:
     finally:
         dist.destroy_process_group()
     check_gloo_on_card(dev)
-    return {"grid": grid, "n_out": n_out, "dist_dict": dist_dict}
+    return {"grid": grid, "n_out": n_out, "dist_dict": dist_dict, "collectives": collectives}
+
+
+# NVLink's rate each way between two cards of one host (H100 SXM data sheet)
+NVLINK_BYTES_PER_S = 450e9
+
+
+def time_collectives(stats: dict, group, dev) -> dict:
+    """The collectives of one stats scan (mesh_reduce_stats: MIN, MAX and SUM
+    of one element per numeric leaf), timed with CUDA events around eager
+    calls: the bare all_reduces alone, and mesh_reduce_stats with its
+    per-value copies. The bound is their bytes at NVLink's rate each way."""
+    import torch
+    import torch.distributed as dist
+
+    from parquet_tpu_torch.parallel.scan import mesh_reduce_stats
+
+    parts = {p: {k: torch.from_numpy(np.asarray(v[k])).to(dev) for k in ("min", "max", "count")}
+             for p, v in stats.items()}
+    flat = [(t, op) for v in parts.values()
+            for t, op in ((v["min"], dist.ReduceOp.MIN), (v["max"], dist.ReduceOp.MAX),
+                          (v["count"], dist.ReduceOp.SUM))]
+    bufs = [t.reshape(1).clone() for t, _ in flat]
+
+    def bare():
+        for b, (_, op) in zip(bufs, flat):
+            dist.all_reduce(b, op=op, group=group)
+
+    nbytes = sum(b.element_size() for b in bufs)
+    out = {"count": len(flat), "bytes": nbytes, "all_reduce_ms": events_ms(bare),
+           "mesh_reduce_stats_ms": events_ms(lambda: mesh_reduce_stats(parts, group)),
+           "bound_ms": nbytes / NVLINK_BYTES_PER_S * 1e3, "bound_by": "bytes (latency-bound)",
+           "world_size": dist.get_world_size(group)}
+    log(f"[scan:taxi] one stats scan's {out['count']} one-element all_reduces "
+        f"({dist.get_backend(group)}, world {out['world_size']}): {out['all_reduce_ms']:.4f} ms "
+        "a scan by CUDA events; "
+        f"mesh_reduce_stats {out['mesh_reduce_stats_ms']:.4f} ms; bound {nbytes} B at 450 GB/s "
+        f"= {out['bound_ms']:.2e} ms: latency-bound")
+    return out
 
 
 def check_gloo_on_card(dev) -> None:
@@ -2846,7 +2940,8 @@ def main(argv=None) -> int:
     host_file.unlink()
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
-    print(json.dumps({"rows_per_s": rates, "prepare_s": prepare, "card": smi}))
+    print(json.dumps({"rows_per_s": rates, "prepare_s": prepare,
+                      "collectives": scan["collectives"], "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -47,8 +47,8 @@ SIGNATURES = {
     "pqt_expand_hybrid": (_P, _I, _I, _I, _P, _P),
     "pqt_dict_gather4": (_P, _LL, _P, _LL, _P, _P),
     "pqt_dict_gather8": (_P, _LL, _P, _LL, _P, _P),
-    "pqt_delta_tile": (),
-    "pqt_delta_packed_decode": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "pqt_delta_scratch_words": (_I,),
+    "pqt_delta_packed_decode": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "pqt_bss_transpose": (_P, _LL, _LL, _P, _P),
     "pqt_merge_mixed_numeric4": (
         _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _I, _LL, _P, _P,

@@ -116,5 +116,147 @@ int run(Load load, Epi epi, long long n, T* partial, T* tile_sums,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Single-pass segmented scan across tiles (decoupled look-back), used by
+// delta_packed_decode.cu. Each block scans one tile of consecutive items in
+// place:
+//
+//   SegPair<U> is (reset flag f, value v); SegOp restarts the sum at a set
+//   flag, (fa, va) + (fb, vb) = (fa | fb, fb ? vb : va + vb), with U's
+//   wrapping adds. An item with f set starts a segment with its own value.
+//
+// A block takes its tile index from next_tile (an atomicAdd on a counter),
+// so every tile it may wait for has already started and never waits for it
+// in turn. seg_tile_scan scans the block's items (cub::BlockScan with
+// SegOp); the prefix callback, run by warp 0, publishes the tile's
+// aggregate (status AGGREGATE, or PREFIX straight away when the tile holds
+// a reset: its aggregate then needs nothing before it), then looks back
+// over the earlier tiles' descriptors, 32 a step (one a lane), summing
+// aggregates up to the nearest PREFIX, and publishes its own inclusive
+// prefix. A tile whose first item starts a segment needs no carry and
+// skips the look-back.
+//
+// A descriptor is one 16-byte word (status, value), stored and loaded as
+// one 16-byte access (st/ld.relaxed.gpu.v2.u64, as CUB's single-pass scan
+// keeps the descriptors of 8-byte values), so a status seen implies its
+// value and no fence is needed. Weak .cg accesses are not enough: a look-back
+// spinning on them read stale descriptors on an H100. The scratch is 64-bit words, [counter |
+// pad | descriptors(2 t)] for t tiles (seg_scratch_words), all zeroed by
+// the caller on the stream before each launch. Exact in any order:
+// wrapping integer adds.
+
+template <typename U>
+struct SegPair {
+  U v;
+  uint32_t f;
+};
+
+template <typename U>
+struct SegOp {
+  __device__ __forceinline__ SegPair<U> operator()(const SegPair<U>& a,
+                                                   const SegPair<U>& b) const {
+    SegPair<U> r;
+    r.f = a.f | b.f;
+    r.v = b.f ? b.v : U(a.v + b.v);
+    return r;
+  }
+};
+
+inline long long seg_scratch_words(long long ntiles) { return 2 + 2 * ntiles; }
+
+constexpr unsigned long long kSegNone = 0, kSegAggregate = 1, kSegPrefix = 2;
+
+struct SegTiles {
+  unsigned long long* words;
+  long long ntiles;
+
+  __device__ __forceinline__ void publish(long long tile, unsigned long long s,
+                                          unsigned long long v) const {
+    asm volatile("st.relaxed.gpu.global.v2.u64 [%0], {%1, %2};"
+                 :: "l"(words + 2 + 2 * tile), "l"(s), "l"(v) : "memory");
+  }
+  __device__ __forceinline__ ulonglong2 read(long long tile) const {
+    ulonglong2 r;
+    asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];"
+                 : "=l"(r.x), "=l"(r.y) : "l"(words + 2 + 2 * tile) : "memory");
+    return r;
+  }
+};
+
+// The block's tile index, in the order blocks start. Every thread calls it.
+__device__ __forceinline__ long long next_tile(const SegTiles& d,
+                                               unsigned int* slot) {
+  if (threadIdx.x == 0) *slot = atomicAdd((unsigned int*)d.words, 1u);
+  __syncthreads();
+  return (long long)*slot;
+}
+
+// The sum of everything before `tile` back to (and with) the nearest earlier
+// tile's inclusive prefix. All 32 lanes of one warp call it, each reading one
+// descriptor a step, nearest first. (Reading more a lane made each step wait
+// for more tiles to publish, and was slower.)
+template <typename U>
+__device__ __forceinline__ U seg_look_back(const SegTiles& d, long long tile) {
+  const int lane = threadIdx.x & 31;
+  U run = U(0);
+  for (long long top = tile - 1;; top -= 32) {
+    const long long j = top - lane;
+    ulonglong2 dsc = make_ulonglong2(kSegPrefix, 0ull);
+    if (j >= 0) {
+      do {
+        dsc = d.read(j);
+      } while (dsc.x == kSegNone);
+    }
+    const unsigned prefixes = __ballot_sync(0xffffffffu, dsc.x == kSegPrefix);
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+    U x = lane <= stop ? U(dsc.y) : U(0);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    run += x;
+    if (prefixes) return run;
+  }
+}
+
+template <typename U>
+struct SegTilePrefix {
+  SegTiles d;
+  long long tile;
+  bool first_resets;
+
+  // called by warp 0 with the tile's aggregate; lane 0's return is the
+  // tile's exclusive prefix
+  __device__ __forceinline__ SegPair<U> operator()(const SegPair<U>& agg) {
+    SegPair<U> prefix;
+    prefix.v = U(0);
+    prefix.f = 0;
+    const bool lead = threadIdx.x == 0;
+    if (tile == 0 || first_resets) {
+      if (lead) d.publish(tile, kSegPrefix, (unsigned long long)agg.v);
+      return prefix;
+    }
+    if (lead)
+      d.publish(tile, agg.f ? kSegPrefix : kSegAggregate, (unsigned long long)agg.v);
+    prefix.v = seg_look_back<U>(d, tile);
+    if (lead && !agg.f)
+      d.publish(tile, kSegPrefix, (unsigned long long)U(prefix.v + agg.v));
+    return prefix;
+  }
+};
+
+template <typename U, int kBlock>
+using SegBlockScan = cub::BlockScan<SegPair<U>, kBlock, cub::BLOCK_SCAN_RAKING>;
+
+// The inclusive segmented scan of the block's items in place, carried over
+// from the earlier tiles. `first_resets`: the tile's first item has its flag
+// set (the same in every thread).
+template <typename U, int kBlock, int kItemsPerThread>
+__device__ __forceinline__ void seg_tile_scan(
+    typename SegBlockScan<U, kBlock>::TempStorage& temp,
+    SegPair<U> (&items)[kItemsPerThread], const SegTiles& d, long long tile,
+    bool first_resets) {
+  SegTilePrefix<U> prefix{d, tile, first_resets};
+  SegBlockScan<U, kBlock>(temp).InclusiveScan(items, items, SegOp<U>(), prefix);
+}
+
 }  // namespace scan
 }  // namespace

@@ -37,6 +37,7 @@ __all__ = [
     "dict_gather_plain",
     "delta_packed_decode",
     "delta_packed_decode_plain",
+    "DELTA_TILE",
     "bss_transpose",
     "bss_transpose_plain",
     "merge_mixed_numeric",
@@ -53,6 +54,7 @@ __all__ = [
     "expand_nullable_plain",
     "predicate_mask",
     "predicate_mask_plain",
+    "predicate_block",
     "leaf_verdict",
     "leaf_verdict_plain",
     "list_contains_mask",
@@ -347,6 +349,11 @@ def delta_packed_decode_plain(
     return page_first[p] + c - c[page_start.to(torch.int64)[p]]
 
 
+# Outputs one block of the CUDA kernel decodes (kTile of
+# kernels/csrc/delta_packed_decode.cu, pinned by a test).
+DELTA_TILE = 2048
+
+
 def delta_packed_decode(
     meta32: torch.Tensor,
     wide: torch.Tensor,
@@ -380,13 +387,11 @@ def delta_packed_decode(
     out = torch.empty(total, dtype=dt, device=dev)
     if total:
         lib = _lib()
-        tile = lib.pqt_delta_tile()
-        scratch_c = torch.empty(total, dtype=dt, device=dev)
-        block_sums = torch.empty((total + tile - 1) // tile, dtype=dt, device=dev)
+        # the per-tile look-back descriptors; no scratch of `total` elements
+        scratch = torch.empty(lib.pqt_delta_scratch_words(total), dtype=torch.int64, device=dev)
         _launch(
             "delta_packed_decode", dev, lib.pqt_delta_packed_decode,
-            _ptr(meta32), _ptr(wide), nbits, m_pad, p_pad, total,
-            _ptr(out), _ptr(scratch_c), _ptr(block_sums),
+            _ptr(meta32), _ptr(wide), nbits, m_pad, p_pad, total, _ptr(out), _ptr(scratch),
         )
         delta_packed_decode.launches += 1
     return out
@@ -935,6 +940,14 @@ _PRED_DTYPES = {
 # the most in-list members one launch compares against (kMaxMembers of
 # predicate_mask.cu; core/filter_device.py sends longer lists to the host)
 MAX_MEMBERS = 64
+
+
+def predicate_block(itemsize: int) -> int:
+    """Elements one block of predicate_mask.cu takes from 16-byte-aligned
+    values of `itemsize` bytes (kThreads * max(kStepBytes / itemsize,
+    kMinPer), pinned by a test): the kernel's edge sizes sit around it."""
+    return 256 * max(16 // itemsize, 4)
+
 _I64_MIN = -(1 << 63)
 
 

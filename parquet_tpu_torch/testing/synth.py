@@ -68,7 +68,16 @@ from ..meta.parquet_types import (
     Type,
 )
 
-__all__ = ["ColumnSpec", "write_file", "column_levels", "column_values"]
+__all__ = [
+    "ColumnSpec",
+    "DeltaCase",
+    "column_levels",
+    "column_values",
+    "delta_edge_batches",
+    "delta_edge_cases",
+    "freeze_delta_case",
+    "write_file",
+]
 
 _DICT = (Encoding.RLE_DICTIONARY, Encoding.PLAIN_DICTIONARY)
 
@@ -458,3 +467,101 @@ def _write_chunk(out, pos, spec, column, levels, r0, r1, steps):
         meta_data=md,
     )
     return cc, len(data)
+
+
+# -- DELTA_BINARY_PACKED batches at the decode kernel's edges --------------------
+
+
+class DeltaCase(NamedTuple):
+    """The pages of one DELTA_BINARY_PACKED batch and the block layout they
+    are encoded with (block_size values a block, mini_count miniblocks)."""
+
+    label: str
+    pages: list
+    block_size: int
+    mini_count: int
+
+
+# miniblock length -> (block_size, mini_count)
+DELTA_LAYOUTS = {8: (1024, 128), 32: (128, 4), 64: (128, 2), 128: (128, 1)}
+
+
+def _delta_page(rng, dt, n: int, kind: int) -> np.ndarray:
+    """n values of one kind: 0 full-range random (miniblock widths of the
+    type's width, wrapping deltas), 1 monotone with negative jitter wrapping
+    past the type's max, 2 a constant (width 0), 3 a narrow random walk."""
+    info = np.iinfo(dt)
+    if kind == 0:
+        return rng.integers(info.min, info.max, size=n, dtype=dt, endpoint=True)
+    if kind == 1:
+        v = np.cumsum(rng.integers(-40, 900, size=n)) + int(info.max) - 20_000
+        return v.astype(np.int64).astype(dt)
+    if kind == 2:
+        return np.full(n, -3, dtype=dt)
+    return np.cumsum(rng.integers(-3, 4, size=n)).astype(dt)
+
+
+def delta_edge_cases(nbits: int, tile: int, seed: int = 0) -> list:
+    """DeltaCases at the edges of a DELTA decode that cuts its outputs into
+    tiles of `tile` values: miniblocks of 8, 32, 64 and 128 values over
+    pages of every kind (widths 0 and nbits among them) and a page holding
+    only its first value; 300 pages of 1-700 values, 200 pages of 34-36
+    values in 8-value miniblocks, 500 pages of 10-30 values and 2,000 pages
+    of 1-3 values (tiles crossing many page starts and miniblocks, pages
+    shorter than a tile); one
+    page of 2**20 + 3 values; totals one below, at and one above a multiple
+    of `tile`."""
+    rng = np.random.default_rng(seed + nbits)
+    dt = np.int32 if nbits == 32 else np.int64
+    cases = []
+    for mini_len, (block_size, mini_count) in DELTA_LAYOUTS.items():
+        pages = [_delta_page(rng, dt, n, kind)
+                 for n, kind in ((5000, 0), (3001, 1), (700, 2), (1, 0), (2500, 3))]
+        cases.append(DeltaCase(f"miniblocks of {mini_len}", pages, block_size, mini_count))
+    sizes = rng.integers(1, 701, size=300)
+    cases.append(DeltaCase("300 pages of 1-700 values",
+                           [_delta_page(rng, dt, int(n), k % 4) for k, n in enumerate(sizes)],
+                           128, 4))
+    sizes = rng.integers(34, 37, size=200)
+    cases.append(DeltaCase("200 pages of 34-36 values in miniblocks of 8",
+                           [_delta_page(rng, dt, int(n), k % 4) for k, n in enumerate(sizes)],
+                           1024, 128))
+    sizes = rng.integers(10, 31, size=500)
+    cases.append(DeltaCase("500 pages of 10-30 values",
+                           [_delta_page(rng, dt, int(n), k % 4) for k, n in enumerate(sizes)],
+                           128, 4))
+    sizes = rng.integers(1, 4, size=2000)
+    cases.append(DeltaCase("2000 pages of 1-3 values",
+                           [_delta_page(rng, dt, int(n), k % 4) for k, n in enumerate(sizes)],
+                           1024, 128))
+    big = (1 << 20) + 3
+    walk = np.cumsum(rng.integers(-(1 << 20), 1 << 22, size=big)).astype(dt)
+    walk[big // 3 : big // 3 + 4096] = _delta_page(rng, dt, 4096, 0)
+    cases.append(DeltaCase("one page of 2**20 + 3 values", [walk], 128, 4))
+    for d in (-1, 0, 1):
+        total = 5 * tile + d
+        cut = [0, tile // 3, 2 * tile + 5, total]
+        pages = [_delta_page(rng, dt, b - a, k) for k, (a, b) in enumerate(zip(cut, cut[1:]))]
+        cases.append(DeltaCase(f"total 5 x {tile} {d:+d}", pages, 128, 4))
+    return cases
+
+
+def freeze_delta_case(case: DeltaCase, nbits: int):
+    """The case's pages encoded with the port's encode_delta, prescanned and
+    frozen as one batch (kernels.pipeline._DeltaBatch): (frozen batch, the
+    values it decodes to)."""
+    from ..kernels.pipeline import _DeltaBatch
+    from ..ops.delta import encode_delta, prescan_delta_packed
+
+    batch = _DeltaBatch(nbits)
+    for v in case.pages:
+        stream = encode_delta(v, nbits, block_size=case.block_size, mini_count=case.mini_count)
+        batch.add_page(prescan_delta_packed(stream, nbits, max_total=len(v)), stream)
+    return batch.freeze(), np.concatenate(case.pages)
+
+
+def delta_edge_batches(nbits: int, tile: int, seed: int = 0):
+    """(label, frozen batch, values) for each of delta_edge_cases."""
+    for case in delta_edge_cases(nbits, tile, seed):
+        frozen, want = freeze_delta_case(case, nbits)
+        yield case.label, frozen, want

@@ -7,6 +7,8 @@ version for CPU tensors. Every comparison is of integer bit patterns and
 must be exact. The CUDA kernels themselves run in chip_smoke.py.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -24,6 +26,7 @@ from parquet_tpu_torch.kernels import build, device_ops as ops  # noqa: E402
 from parquet_tpu_torch.kernels import pipeline as tpipe  # noqa: E402
 from parquet_tpu_torch.ops.rle_hybrid import prescan_hybrid as t_prescan_hybrid  # noqa: E402
 from parquet_tpu_torch.testing.parity import frozen_from_numpy  # noqa: E402
+from parquet_tpu_torch.testing.synth import delta_edge_cases, freeze_delta_case  # noqa: E402
 
 
 def _hybrid_pages(width, seed, sizes=(1500, 2221)):
@@ -102,6 +105,48 @@ def test_delta_packed_decode_plain_matches_jax(nbits, split, monkeypatch):
     np.testing.assert_array_equal(np.concatenate(got_all), np.concatenate(pages))
     widths = np.concatenate([w for b in batches for w in b.widths])
     assert int(widths.max()) == nbits
+
+
+@functools.lru_cache(maxsize=2)
+def _edge_cases(nbits):
+    return delta_edge_cases(nbits, ops.DELTA_TILE)
+
+
+@pytest.mark.parametrize("nbits", [32, 64])
+@pytest.mark.parametrize("case", range(len(_edge_cases(32))),
+                         ids=[c.label for c in _edge_cases(32)])
+def test_delta_packed_decode_edge_batches_match_jax(nbits, case):
+    """The generator's edge batches (miniblocks of 8-128 values, widths 0
+    and nbits, one-value pages, many short pages, one page of 2**20 + 3
+    values, totals around a multiple of the kernel's tile): the port's
+    encoder, prescan and freeze give the JAX package's upload buffers byte
+    for byte, and the port's plain version decodes them as the JAX program
+    does, to the generator's values."""
+    c = _edge_cases(nbits)[case]
+    frozen, values = freeze_delta_case(c, nbits)
+    jb = jpipe._DeltaBatch(nbits)
+    for v in c.pages:
+        stream = j_encode_delta(v, nbits, block_size=c.block_size, mini_count=c.mini_count)
+        jb.add_page(j_prescan_delta(stream, nbits, max_total=len(v)), stream)
+    jf = jb.freeze()
+    assert frozen.meta32.tobytes() == np.asarray(jf.meta32).tobytes()
+    assert frozen.wide.tobytes() == np.asarray(jf.wide).tobytes()
+    assert (frozen.m_pad, frozen.p_pad, frozen.total) == (jf.m_pad, jf.p_pad, jf.total)
+    want = np.asarray(jpipe._DeltaBatch.dispatch_frozen(jf))
+    got = frozen_from_numpy(frozen._asdict(), "cpu").run()
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, values)
+
+
+def test_delta_tile_pinned_to_the_kernel():
+    """DELTA_TILE, around which the edge batches put their totals, is the
+    kernel's tile (kThreads * kItems of delta_packed_decode.cu)."""
+    import re
+
+    src = (build.CSRC / "delta_packed_decode.cu").read_text()
+    threads = int(re.search(r"kThreads = (\d+);", src).group(1))
+    items = int(re.search(r"kItems = (\d+);", src).group(1))
+    assert threads * items == ops.DELTA_TILE
 
 
 _GATHER_TYPES = {
@@ -286,7 +331,7 @@ def test_build_key_tracks_sources(tmp_path):
     assert build._key([a]) != k1
     assert sorted(build.SIGNATURES) == sorted(
         ["pqt_expand_hybrid", "pqt_dict_gather4", "pqt_dict_gather8",
-         "pqt_delta_tile", "pqt_delta_packed_decode", "pqt_bss_transpose",
+         "pqt_delta_scratch_words", "pqt_delta_packed_decode", "pqt_bss_transpose",
          "pqt_merge_mixed_numeric4", "pqt_merge_mixed_numeric8",
          "pqt_merge_bytes_tile", "pqt_merge_mixed_bytes", "pqt_scan_tile",
          "pqt_record_starts", "pqt_list_layout", "pqt_pad_ragged", "pqt_expand_nullable",

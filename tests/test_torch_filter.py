@@ -97,17 +97,39 @@ PRED_DTYPES = (np.int8, np.int16, np.int32, np.int64, np.uint32, np.uint64,
                np.float32, np.float64, np.bool_)
 
 
-@pytest.mark.parametrize("dt", PRED_DTYPES, ids=lambda d: np.dtype(d).name)
-def test_predicate_mask_plain_matches_jax(dt):
+def _pred_sizes(dt):
+    """The kernel's edge sizes for a dtype: around one 16-element step, one
+    block's work, and 2**20 + 3."""
+    block = P.predicate_block(np.dtype(np.int8 if dt == np.bool_ else dt).itemsize)
+    return (1, 15, 16, 17, block - 1, block + 1, (1 << 20) + 3)
+
+
+_PRED_CASES = (
+    [pytest.param(dt, 300, 0, id=np.dtype(dt).name) for dt in PRED_DTYPES]
+    + [pytest.param(dt, n, 0, id=f"{np.dtype(dt).name}-n{n}")
+       for dt in PRED_DTYPES for n in _pred_sizes(dt)]
+    # starts off the kernel's 16-byte loads
+    + [pytest.param(dt, _pred_sizes(dt)[5], off,
+                    id=f"{np.dtype(dt).name}-n{_pred_sizes(dt)[5]}-offset{off}")
+       for dt in PRED_DTYPES for off in range(1, 16)]
+)
+
+
+@pytest.mark.parametrize("dt, n, offset", _PRED_CASES)
+def test_predicate_mask_plain_matches_jax(dt, n, offset):
+    """n values starting `offset` elements into a larger column (a view),
+    under every op, exact and inexact brackets taken from the column."""
     rng = np.random.default_rng(11)
-    v = _values(rng, dt, 300)
+    base = _values(rng, dt, max(n + offset, 300))
+    v = base[offset : offset + n]
     signed_view = {np.uint32: np.int32, np.uint64: np.int64}.get(dt)
-    tv = torch.from_numpy(v.view(signed_view).copy() if signed_view else v.copy())
+    tv = torch.from_numpy(base.view(signed_view).copy() if signed_view else base.copy())
+    tv = tv[offset : offset + n]
     jv = jnp.asarray(v.astype(np.int8) if dt == np.bool_ else v)
     jt = np.int8 if dt == np.bool_ else dt
     for op in ("==", "!=", "<", "<=", ">", ">="):
         for exact in (True, False):
-            lo, hi = _bracket(v, dt, exact)
+            lo, hi = _bracket(base, dt, exact)
             want = np.asarray(J.predicate_mask_device(jv, op, jt(lo), jt(hi), exact))
             got = P.predicate_mask(tv, op, lo, hi, exact, unsigned=signed_view is not None)
             np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{op} {exact}")
@@ -214,6 +236,20 @@ def test_member_cap_stated_once():
     assert int(P.predicate_mask(vals, "in", members=list(range(P.MAX_MEMBERS))).sum()) == 64
     with pytest.raises(ValueError):
         P.predicate_mask(vals, "in", members=list(range(P.MAX_MEMBERS + 1)))
+
+
+def test_predicate_block_pinned_to_the_kernel():
+    """predicate_block, around which the edge sizes sit, is what one block of
+    predicate_mask.cu takes from aligned values (kThreads *
+    max(kStepBytes / itemsize, kMinPer))."""
+    import re
+    from pathlib import Path
+
+    src = (Path(P.__file__).parent / "csrc" / "predicate_mask.cu").read_text()
+    threads, step, least = (int(re.search(rf"{name} = (\d+);", src).group(1))
+                            for name in ("kThreads", "kStepBytes", "kMinPer"))
+    for itemsize in (1, 2, 4, 8):
+        assert P.predicate_block(itemsize) == threads * max(step // itemsize, least)
 
 
 def _levels(rng, n, lead=0):
