@@ -18,7 +18,17 @@ Phases (any failure raises and the script exits non-zero):
               decode also on testing/synth.delta_edge_batches at 32 and 64
               bits: miniblocks of 8-128 values, widths 0 and nbits, one-value
               pages, hundreds of short pages, one page of 2**20 + 3 values,
-              totals around the kernel's tile; for the
+              totals around the kernel's tile; expand_hybrid also on
+              testing/synth.hybrid_edge_batches at widths 0, 1, 31 and 32:
+              RLE runs of 1-17 values, one RLE run over five tiles,
+              bit-packed last runs cut short, alternating 8-value runs
+              that outnumber the kernel's staging, totals of 1 and around
+              its tile, each line naming the route its tiles took;
+              merge_mixed_bytes also on
+              testing/synth.mixed_bytes_edge_cases: PLAIN rows of 100 KiB
+              and more, all-empty rows and an all-empty tile, row counts
+              around its tile, out-of-range indices across a tile
+              boundary, lengths around multiples of 16; for the
               batch path's kernels n = 0, 1 and 2**20 + 3, no values,
               all-null and no-null masks, leading non-boundary entries,
               max_len 1, rows longer than a scan tile, every byte width;
@@ -123,7 +133,11 @@ Phases (any failure raises and the script exits non-zero):
               write (tensors on the card to a closed file), of host prepare
               alone on the fused and the staged walk, of the query
               (filtered and not) and of column_stats, and each kernel's
-              CUDA-event time beside its bound.
+              CUDA-event time beside its bound; expand_hybrid also at
+              every distinct main-path shape (taxi group 0's four index
+              batches, sessions' items group 0) and the six synthetic
+              widths, under `shapes` in its kernels entry with the main
+              paths' launches at each width.
 
 `python3 chip_smoke.py --ranks N` (N cards) runs only the multi-rank check:
 N NCCL ranks spawned through parquet_tpu_torch.testing.dist, one card a
@@ -270,6 +284,16 @@ def delta_payload(out: tuple) -> tuple:
 HELD_PREFIX = {"delta_block_encode": delta_payload}
 
 
+def kernel_counts() -> dict:
+    """Launches of each kernel since the last reset_launch_counts, and
+    expand_hybrid's by bit width (`expand_hybrid_by_width`)."""
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
+    counts["expand_hybrid_by_width"] = dict(ops.expand_hybrid.launches_by_width)
+    return counts
+
+
 def hold_plain(rows: dict, name: str, label: str, got, plain) -> None:
     """A kernel's outputs against its plain version's on the same inputs, bit
     for bit (bools as bytes): raises on any difference, and folds the max
@@ -375,10 +399,34 @@ def check_kernels(dev, rows: dict) -> None:
 
     from parquet_tpu_torch.kernels import device_ops as ops
     from parquet_tpu_torch.kernels.pipeline import to_device
-    from parquet_tpu_torch.testing.synth import delta_edge_batches
+    from parquet_tpu_torch.testing.synth import (
+        HYBRID_EDGE_WIDTHS,
+        delta_edge_batches,
+        hybrid_edge_batches,
+        most_runs_a_tile,
+    )
 
     rng = np.random.default_rng(SEED)
     errs = {"expand_hybrid": 0.0, "dict_gather": 0.0, "delta_packed_decode": 0.0}
+    for width in HYBRID_EDGE_WIDTHS:
+        labels = []
+        for label, frozen, want in hybrid_edge_batches(width, ops.HYBRID_TILE, SEED):
+            buf = to_device(frozen.buf.view(np.int32), dev)
+            got = ops.expand_hybrid(buf, width, frozen.run_pad, frozen.total)
+            plain = ops.expand_hybrid_plain(buf, width, frozen.run_pad, frozen.total)
+            torch.cuda.synchronize()
+            ok, err = bits_equal(got, plain)
+            if not (ok and np.array_equal(got.cpu().numpy().view(np.uint32), want * (width > 0))):
+                raise AssertionError(f"expand_hybrid width {width} {label} disagrees "
+                                     f"(max abs {err})")
+            most = most_runs_a_tile(frozen, ops.HYBRID_TILE)
+            route = ("table staged whole" if frozen.run_pad <= ops.HYBRID_STAGE_RUNS
+                     else "tables in place" if most > ops.HYBRID_STAGE_RUNS
+                     else "tile's runs staged")
+            labels.append(f"{label} (n={frozen.total}, {frozen.run_pad} run slots, up to {most} "
+                          f"runs a tile: {route})")
+        log(f"  expand_hybrid width={width:2d} edge batches equal to the plain version and the "
+            f"generator: {'; '.join(labels)}")
     for width in HYBRID_WIDTHS:
         frozen, want = hybrid_batch(rng, width, HYBRID_N)
         buf = to_device(frozen.buf.view(np.int32), dev)
@@ -830,44 +878,25 @@ def bytes_case(rng, dev, layout, n_dict):
     import torch
 
     from parquet_tpu_torch.core.arrays import ByteArrayData
-    from parquet_tpu_torch.kernels.pipeline import _page_merge_tables, _skewed_dict_bound
+    from parquet_tpu_torch.testing.synth import (
+        MixedBytesCase,
+        mixed_bytes_args,
+        out_of_range_indices,
+    )
 
     d = ByteArrayData.from_list([b"z" * int(k) for k in rng.integers(0, 20, n_dict)])
-    infos, idx = [], []
+    pages, first = [], True
     for kind, r in layout:
         if kind == "dict":
             v = rng.integers(0, n_dict, r).astype(np.int32)
-            if not idx and r:
-                v[:4] = (-1, n_dict, n_dict + 1, 2**31 - 1)[:r]
-            idx.append(v)
-            infos.append((r, None, None, "dict", r))
+            if first and r:
+                v[:4] = out_of_range_indices(n_dict)[:r]
+            first = False
+            pages.append(("dict", v))
         else:
             vals = [b"Q" * int(k) for k in rng.integers(0, 40, r)]
-            infos.append((r, None, None, "values", ByteArrayData.from_list(vals)))
-    kind, prs, aux, n_rows = _page_merge_tables(
-        infos, lambda p: (len(p.offsets), len(p.offsets) - 1)
-    )
-    pools, src_base, po, base = [np.frombuffer(d.data, np.uint8)], [], [], len(d.data)
-    for *_x, k, payload in infos:
-        if k == "dict":
-            src_base.append(0)
-        else:
-            src_base.append(base)
-            po.append(payload.offsets.astype(np.int32))
-            pools.append(np.frombuffer(payload.data, np.uint8))
-            base += len(payload.data)
-    srcb = np.zeros(len(kind), np.int64)
-    srcb[: len(src_base)] = src_base
-    dict_rows = sum(p[4] for p in infos if p[3] == "dict")
-    bound, _ok = _skewed_dict_bound(d, dict_rows, base - len(d.data))
-    pool = np.concatenate(pools)
-    host = (
-        np.concatenate(idx) if idx else np.zeros(0, np.int32),
-        np.asarray(d.offsets, np.int64),
-        pool if len(pool) else np.zeros(1, np.uint8),
-        np.concatenate(po) if po else np.zeros(2, np.int32),
-        kind, prs, aux, srcb,
-    )
+            pages.append(("plain", ByteArrayData.from_list(vals)))
+    *host, n_rows, bound = mixed_bytes_args(MixedBytesCase("", d, pages))
     return tuple(torch.from_numpy(h).to(dev) for h in host) + (n_rows, bound)
 
 
@@ -902,6 +931,7 @@ def check_new_kernels(dev, rows: dict, mixed_path) -> None:
     import torch
 
     from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.testing.synth import mixed_bytes_args, mixed_bytes_edge_cases
 
     errs = {"bss_transpose": 0.0, "merge_mixed_numeric": 0.0, "merge_mixed_bytes": 0.0}
 
@@ -941,6 +971,11 @@ def check_new_kernels(dev, rows: dict, mixed_path) -> None:
             args = bytes_case(rng, dev, layout, n_dict)
             hold("merge_mixed_bytes", f"edge {label} dict={n_dict}",
                  ops.merge_mixed_bytes(*args), ops.merge_mixed_bytes_plain(*args))
+    for case in mixed_bytes_edge_cases(ops.MERGE_BYTES_TILE, SEED):
+        *host, n_rows, bound = mixed_bytes_args(case)
+        args = tuple(torch.from_numpy(h).to(dev) for h in host) + (n_rows, bound)
+        hold("merge_mixed_bytes", f"edge {case.label} rows={n_rows} bytes<={bound}",
+             ops.merge_mixed_bytes(*args), ops.merge_mixed_bytes_plain(*args))
     for name, err in errs.items():
         rows[name]["max_abs_err"] = err
 
@@ -1761,6 +1796,57 @@ def prepare_alone(path, fused: bool, by_column: dict | None = None) -> float:
 # -- phase 5: kernel times at the main path's shapes ----------------------------
 
 
+def hybrid_bytes(frozen) -> tuple[int, int]:
+    """(runs, bytes the expansion must move) of a frozen hybrid batch: 16 B
+    of run table a run, the packed payload of its bit-packed outputs and the
+    int32 outputs."""
+    runs = int(np.count_nonzero(frozen.buf[frozen.run_pad : 2 * frozen.run_pad]
+                                != frozen.n_pad + 1))
+    starts = frozen.buf[frozen.run_pad : frozen.run_pad + runs].astype(np.int64)
+    counts = np.diff(np.append(starts, frozen.total))
+    bp_values = int(counts[frozen.buf[:runs] == 0].sum())
+    return runs, 16 * runs + (bp_values * frozen.width + 7) // 8 + 4 * frozen.total
+
+
+def time_hybrid_shapes(taxi_path, sessions_path, dev, rows: dict, bw: float,
+                       by_width: dict) -> None:
+    """expand_hybrid's device time at every distinct main-path shape (taxi
+    group 0's four dictionary-index batches, sessions' items group 0) and at
+    the kernel check's six synthetic batches, each held bit for bit against
+    the plain version first; with the bound and the main paths' launches at
+    the shape's width (vendor_id and passenger_count share width 3)."""
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.kernels.pipeline import prepare_chunk_plan, to_device
+
+    batches = []
+    for path, columns in ((taxi_path, ["vendor_id", "passenger_count", "trip_distance", "zone"]),
+                          (sessions_path, ["items"])):
+        with FileReader(path, device="cpu") as r:  # prepare touches no device
+            for p, cc, column in r._selected_chunks(0, columns):
+                plan = prepare_chunk_plan(r._window(cc), cc, column)
+                batches.append((f"{path.name.split('-')[0]} {p[0]}", plan.frozen_hybrid[0], True))
+    rng = np.random.default_rng(SEED + 8)
+    for width in HYBRID_WIDTHS:
+        batches.append((f"synthetic width {width}", hybrid_batch(rng, width, HYBRID_N)[0], False))
+    shapes = []
+    for label, fh, main in batches:
+        buf = to_device(fh.buf.view(np.int32), dev)
+        args = (buf, fh.width, fh.run_pad, fh.total)
+        hold_plain(rows, "expand_hybrid", f"[{label}]", ops.expand_hybrid(*args),
+                   ops.expand_hybrid_plain(*args))
+        runs, nbytes = hybrid_bytes(fh)
+        entry = {"shape": label, "width": fh.width, "total": fh.total, "runs": runs,
+                 "ms": device_ms(lambda a=args: ops.expand_hybrid(*a)),
+                 "bound_ms": nbytes / bw * 1e3,
+                 "launches": by_width.get(fh.width, 0) if main else None}
+        shapes.append(entry)
+        log(f"  expand_hybrid [{label}] width {fh.width}, n={fh.total}, {runs} runs: "
+            f"{entry['ms']:.5f} ms on the device, bound {entry['bound_ms']:.5f} ms "
+            f"({nbytes} B); launches at width {fh.width} on the main paths: {entry['launches']}")
+    rows["expand_hybrid"]["shapes"] = shapes
+
+
 def time_kernels(path, dev, rows: dict, bw: float) -> None:
     """Device times of each kernel on one main-path chunk's inputs, of its
     plain version, and of the one PyTorch call computing the same function
@@ -1795,18 +1881,13 @@ def time_kernels(path, dev, rows: dict, bw: float) -> None:
             f"{ops_count} ops); {nbytes / entry['ms'] / 1e6:.1f} GB/s")
 
     fh = plans["trip_distance"].frozen_hybrid[0]
-    runs = int(np.count_nonzero(fh.buf[fh.run_pad : 2 * fh.run_pad] != fh.n_pad + 1))
-    starts = fh.buf[fh.run_pad : fh.run_pad + runs].astype(np.int64)
-    counts = np.diff(np.append(starts, fh.total))
-    bp_values = int(counts[fh.buf[:runs] == 0].sum())
+    runs, nbytes = hybrid_bytes(fh)
     buf = to_device(fh.buf.view(np.int32), dev)
     hargs = (buf, fh.width, fh.run_pad, fh.total)
-    # bytes: 16 B of run table per run, the packed payload, int32 outputs;
     # ops: 3 per step of the run search plus ~12 for the two-word extract
     record("expand_hybrid",
            lambda: ops.expand_hybrid(*hargs), lambda: ops.expand_hybrid_plain(*hargs),
-           16 * runs + (bp_values * fh.width + 7) // 8 + 4 * fh.total,
-           fh.total * (3 * max(runs, 1).bit_length() + 12))
+           nbytes, fh.total * (3 * max(runs, 1).bit_length() + 12))
     idx = ops.expand_hybrid(*hargs)
     dictionary = to_device(plans["trip_distance"].dictionary.view(np.int64), dev)
     n = idx.numel()
@@ -2134,7 +2215,7 @@ def check_scans(taxi_path, specs, dev, launches: dict) -> dict:
         out = fn()
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        launches[label] = {k: f.launches for k, f in ops.KERNELS.items()}
+        launches[label] = kernel_counts()
         return out, time.perf_counter() - t
 
     want = scan_want(specs)
@@ -2603,7 +2684,7 @@ def main(argv=None) -> int:
         secs = time.perf_counter() - t
         if then is not None:
             then(groups)
-        counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
+        counts = kernel_counts()
         prep = prepare_counts()
         launches[label] = counts
         log(f"[main:{label}] read_row_groups_device: {secs:.2f} s, launches "
@@ -2679,7 +2760,7 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         got, n_batches = run_batches(path, kwargs, step)
         secs = time.perf_counter() - t
-        counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
+        counts = kernel_counts()
         launches[label] = counts
         log(f"[batches:{label}] iter_device_batches({BATCH}, {kwargs}): {n_batches} batches in "
             f"{secs:.2f} s, launches " + ", ".join(f"{k}={v}" for k, v in counts.items()))
@@ -2711,7 +2792,7 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         got, n_batches = run_batches(path, kwargs, step)
         secs = time.perf_counter() - t
-        counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
+        counts = kernel_counts()
         fc = filter_counts()
         launches[label] = counts
         log(f"[filter:{label}] {n_batches} batches, {got.get('rows', 0)} of {n_rows} rows kept "
@@ -2734,7 +2815,7 @@ def main(argv=None) -> int:
     ops.reset_launch_counts()
     reset_filter_counts()
     kept, fare = filtered_read(taxi_path, f_taxi, dev)
-    counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
+    counts = kernel_counts()
     fc = filter_counts()
     launches["taxi filtered read"] = counts
     want = (int(taxi_keep.sum()),
@@ -2763,7 +2844,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     write_taxi(dev_file, taxi_schema, dev_groups, device=True)
     secs = time.perf_counter() - t
-    counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
+    counts = kernel_counts()
     wc = write_counts()
     launches["taxi write"] = counts
     log(f"[write:taxi] write_device_column, {ROW_GROUPS} groups: {secs:.2f} s, "
@@ -2799,7 +2880,7 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         body = run_query(taxi_path, filters)
         secs = time.perf_counter() - t
-        counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
+        counts = kernel_counts()
         launches[label] = counts
         want = query_want(taxi_specs, keep, units)
         qc = query_device_counts()
@@ -2821,6 +2902,13 @@ def main(argv=None) -> int:
     for k in rows:
         rows[k]["launches"] = sum(c[k] for c in launches.values())
         rows[k]["launches_by_path"] = {label: c[k] for label, c in launches.items()}
+    hybrid_by_width = collections.Counter()
+    for c in launches.values():
+        hybrid_by_width.update(c["expand_hybrid_by_width"])
+    if sum(hybrid_by_width.values()) != rows["expand_hybrid"]["launches"]:
+        raise AssertionError(f"expand_hybrid launches by width {hybrid_by_width} do not add up "
+                             f"to its {rows['expand_hybrid']['launches']} launches")
+    log(f"[main] expand_hybrid launches by width: {dict(sorted(hybrid_by_width.items()))}")
 
     log(f"[times] {name} | {smi}")
 
@@ -2930,6 +3018,7 @@ def main(argv=None) -> int:
         log(f"  profiler, {label}:")
         profile_device_read(paths[label][0])
     time_kernels(paths["taxi"][0], dev, rows, bw)
+    time_hybrid_shapes(paths["taxi"][0], sessions_path, dev, rows, bw, hybrid_by_width)
     time_new_kernels(mixed_path, dev, rows, bw)
     time_batch_kernels(sessions_path, paths["taxi"][0], dev, rows, bw)
     time_filter_kernels(taxi_path, sessions_path, f_taxi, f_sessions[0][2], dev, rows, bw)

@@ -56,10 +56,10 @@ SIGNATURES = {
     "pqt_merge_mixed_numeric8": (
         _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _I, _LL, _P, _P,
     ),
-    "pqt_merge_bytes_tile": (),
+    "pqt_merge_bytes_scratch_words": (_LL,),
     "pqt_merge_mixed_bytes": (
         _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P, _LL, _LL, _P, _P, _P, _P, _I,
-        _LL, _LL, _P, _P, _P, _P, _P,
+        _LL, _LL, _P, _P, _P, _P,
     ),
     "pqt_scan_tile": (),
     "pqt_record_starts": (_P, _LL, _P, _P, _P, _P),

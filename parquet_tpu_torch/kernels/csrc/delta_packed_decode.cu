@@ -137,16 +137,6 @@ __device__ __forceinline__ U unpack(const uint32_t* w32, unsigned pos, uint32_t 
   }
 }
 
-// the number of a[0..n) that are <= x, in a sorted array (a thread's own)
-__device__ __forceinline__ int count_le(const int32_t* a, int n, long long x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if ((long long)a[mid] <= x) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
 // The number of entries of the sorted arr[k] that are <= key[k], known to
 // lie in [lo[k], hi[k]], narrowed by the whole block until lo == hi: each
 // round every thread samples one entry of each open range at stride
@@ -204,8 +194,8 @@ __device__ __forceinline__ void decode_items(const uint32_t* vw, const int32_t* 
                                              const uint32_t* w32, unsigned pos0, unsigned i0,
                                              unsigned ulast,
                                              scan::SegPair<U> (&items)[kItems]) {
-  int jm = count_le(vo, mc, i0);  // the next miniblock's index
-  int jp = count_le(vps, pc, i0);  // the next page's index
+  int jm = scan::count_le(vo, mc, i0);  // the next miniblock's index
+  int jp = scan::count_le(vps, pc, i0);  // the next page's index
   unsigned next_m = jm < mc ? (unsigned)vo[jm] : UINT_MAX;
   unsigned next_p = jp < pc ? (unsigned)vps[jp] : UINT_MAX;
   int m = max(jm - 1, 0);
@@ -385,8 +375,8 @@ __global__ void __launch_bounds__(kThreads)
     const int k = threadIdx.x;
     const long long x = k & 1 ? last : begin;
     int c = k == 0 ? lo[0] : k == 1 ? lo[1] : k == 2 ? lo[2] : lo[3];
-    if (k < 2 && stage_m) c = ws_m + count_le(s_out, we_m - ws_m, x);
-    if (k >= 2 && stage_p) c = ws_p + count_le(s_ps, we_p - ws_p, x);
+    if (k < 2 && stage_m) c = ws_m + scan::count_le(s_out, we_m - ws_m, x);
+    if (k >= 2 && stage_p) c = ws_p + scan::count_le(s_ps, we_p - ws_p, x);
     s_cnt[k] = c;
   }
   __syncthreads();

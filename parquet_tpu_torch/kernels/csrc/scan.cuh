@@ -16,15 +16,20 @@
 // wrappers size the latter with pqt_scan_tile() (record_starts.cu). Nothing
 // here allocates or synchronizes; every launch goes to the given stream.
 //
-// Used by record_starts.cu, list_layout.cu, pad_ragged.cu and
-// expand_nullable.cu. A load functor is `T operator()(long long i) const`,
-// called for i < n; an epilogue is `void operator()(long long i, T incl,
-// T total) const`. Sums are exact as long as they fit T (the wrappers keep
-// n below 2^31).
+// The three-pass scan (run) is used by record_starts.cu, list_layout.cu,
+// pad_ragged.cu, expand_nullable.cu, mask_take.cu, leaf_verdict.cu,
+// list_contains_mask.cu, rle_hybrid_encode.cu, dict_indices.cu and
+// delta_block_encode.cu; the single-pass segmented scan below
+// (seg_tile_scan) by delta_packed_decode.cu and merge_mixed_bytes.cu; the
+// searches (count_le, warp_count_le2) by merge_mixed_bytes.cu,
+// expand_hybrid.cu and delta_packed_decode.cu.
+// A load functor is `T operator()(long long i) const`, called for i < n; an
+// epilogue is `void operator()(long long i, T incl, T total) const`. Sums
+// are exact as long as they fit T (the wrappers keep n below 2^31).
 //
 // Bound on an H100: memory. Pass 1 reads the inputs and writes `partial`,
 // pass 3 reads it back: 2 x sizeof(T) bytes per element beyond the inputs
-// and outputs. A decoupled look-back scan (one pass) is later work. 64-bit
+// and outputs (the single-pass scan writes 16 bytes a tile instead). 64-bit
 // scans need the 256-thread cap of __launch_bounds__ (a 1,024-thread
 // 64-bit BlockScan asked for more registers than an SM has).
 
@@ -118,7 +123,8 @@ int run(Load load, Epi epi, long long n, T* partial, T* tile_sums,
 
 // ---------------------------------------------------------------------------
 // Single-pass segmented scan across tiles (decoupled look-back), used by
-// delta_packed_decode.cu. Each block scans one tile of consecutive items in
+// delta_packed_decode.cu and, with no flag set (a plain sum), by
+// merge_mixed_bytes.cu. Each block scans one tile of consecutive items in
 // place:
 //
 //   SegPair<U> is (reset flag f, value v); SegOp restarts the sum at a set
@@ -189,6 +195,50 @@ __device__ __forceinline__ long long next_tile(const SegTiles& d,
   if (threadIdx.x == 0) *slot = atomicAdd((unsigned int*)d.words, 1u);
   __syncthreads();
   return (long long)*slot;
+}
+
+// The number of entries of the sorted a[0, n) that are <= x, by one thread
+// (a binary search; `a` in shared or global memory).
+template <typename T>
+__device__ __forceinline__ int count_le(const T* a, int n, long long x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if ((long long)a[mid] <= x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// The counts of entries of the sorted a[0, n) that are <= k0 and <= k1, by
+// the 32 lanes of one warp (all of them call it; every lane gets the
+// counts). Each round samples both open ranges at 32 evenly spaced entries,
+// one a lane and key, and a ballot narrows each range to one sampling
+// stride: ceil(log32(n)) rounds of dependent loads where a binary search
+// takes log2(n). The first round's loads depend on n alone, so every block
+// searching one table reads the same entries.
+__device__ __forceinline__ int2 warp_count_le2(const int32_t* a, int n, long long k0,
+                                               long long k1) {
+  const int lane = threadIdx.x & 31;
+  int lo[2] = {0, 0}, hi[2] = {n, n};
+  const long long key[2] = {k0, k1};
+  while (lo[0] < hi[0] || lo[1] < hi[1]) {
+    int step[2];
+    bool le[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      step[k] = (hi[k] - lo[k] + 31) / 32;
+      const long long j = lo[k] + (long long)(lane + 1) * step[k] - 1;
+      le[k] = step[k] > 0 && j < hi[k] && (long long)__ldg(a + j) <= key[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (step[k] == 0) continue;
+      // the samples at or below the key are a prefix of the lanes
+      lo[k] += __popc(__ballot_sync(0xffffffffu, le[k])) * step[k];
+      hi[k] = min(lo[k] + step[k] - 1, hi[k]);
+    }
+  }
+  return make_int2(lo[0], lo[1]);
 }
 
 // The sum of everything before `tile` back to (and with) the nearest earlier

@@ -33,6 +33,8 @@ __all__ = [
     "bytes_to_words64",
     "expand_hybrid",
     "expand_hybrid_plain",
+    "HYBRID_TILE",
+    "HYBRID_STAGE_RUNS",
     "dict_gather",
     "dict_gather_plain",
     "delta_packed_decode",
@@ -44,6 +46,7 @@ __all__ = [
     "merge_mixed_numeric_plain",
     "merge_mixed_bytes",
     "merge_mixed_bytes_plain",
+    "MERGE_BYTES_TILE",
     "record_starts",
     "record_starts_plain",
     "list_layout",
@@ -208,6 +211,14 @@ def expand_hybrid_plain(
     return _to_signed32(v)
 
 
+# Outputs one block of the CUDA kernel expands, and the run-table entries it
+# stages in shared memory (kTile and kStageRuns of
+# kernels/csrc/expand_hybrid.cu, pinned by a test): a tile of a longer
+# table spanning more runs reads the tables in place.
+HYBRID_TILE = 1024
+HYBRID_STAGE_RUNS = 128
+
+
 def expand_hybrid(buf: torch.Tensor, width: int, run_pad: int, total: int) -> torch.Tensor:
     """Expand a prescanned RLE/bit-packed hybrid batch (the packed upload of
     kernels/pipeline._HybridBatch.freeze) into int32[total] values.
@@ -232,10 +243,14 @@ def expand_hybrid(buf: torch.Tensor, width: int, run_pad: int, total: int) -> to
             _ptr(buf), run_pad, width, total, _ptr(out),
         )
         expand_hybrid.launches += 1
+        by_width = expand_hybrid.launches_by_width
+        by_width[width] = by_width.get(width, 0) + 1
     return out
 
 
 expand_hybrid.launches = 0
+# the same launches by bit width (the shapes of the tuning queue)
+expand_hybrid.launches_by_width = {}
 
 
 # -- dict_gather ---------------------------------------------------------------
@@ -624,6 +639,11 @@ def merge_mixed_bytes_plain(
     return data, offsets
 
 
+# Rows one block of the CUDA kernel merges (kTile of
+# kernels/csrc/merge_mixed_bytes.cu, pinned by a test).
+MERGE_BYTES_TILE = 1024
+
+
 def merge_mixed_bytes(
     idx_all: torch.Tensor,
     doff: torch.Tensor,
@@ -667,9 +687,8 @@ def merge_mixed_bytes(
     data = torch.empty(data_bytes, dtype=torch.uint8, device=dev)
     offsets = torch.empty(n_rows + 1, dtype=torch.int64, device=dev)
     lib = _lib()
-    tile = lib.pqt_merge_bytes_tile()
-    starts = torch.empty(max(n_rows, 1), dtype=torch.int64, device=dev)
-    block_sums = torch.empty(max((n_rows + tile - 1) // tile, 1), dtype=torch.int64, device=dev)
+    # the per-tile look-back descriptors; no scratch of n_rows elements
+    scratch = torch.empty(lib.pqt_merge_bytes_scratch_words(n_rows), dtype=torch.int64, device=dev)
     _launch(
         "merge_mixed_bytes", dev, lib.pqt_merge_mixed_bytes,
         _ptr(idx_all), idx_all.numel(), _bucket(max(idx_all.numel(), 1)),
@@ -678,7 +697,7 @@ def merge_mixed_bytes(
         _ptr(po32), po32.numel(), _bucket(po32.numel()),
         _ptr(page_kind), _ptr(page_row_start), _ptr(page_aux), _ptr(page_src_base),
         page_kind.numel(), n_rows, data_bytes,
-        _ptr(data), _ptr(offsets), _ptr(starts), _ptr(block_sums),
+        _ptr(data), _ptr(offsets), _ptr(scratch),
     )
     merge_mixed_bytes.launches += 1
     return data, offsets
@@ -2021,3 +2040,4 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    expand_hybrid.launches_by_width = {}

@@ -71,11 +71,21 @@ from ..meta.parquet_types import (
 __all__ = [
     "ColumnSpec",
     "DeltaCase",
+    "HYBRID_EDGE_WIDTHS",
+    "HybridCase",
+    "MixedBytesCase",
     "column_levels",
     "column_values",
     "delta_edge_batches",
     "delta_edge_cases",
     "freeze_delta_case",
+    "freeze_hybrid_case",
+    "hybrid_edge_batches",
+    "hybrid_edge_cases",
+    "mixed_bytes_args",
+    "mixed_bytes_edge_cases",
+    "most_runs_a_tile",
+    "out_of_range_indices",
     "write_file",
 ]
 
@@ -565,3 +575,240 @@ def delta_edge_batches(nbits: int, tile: int, seed: int = 0):
     for case in delta_edge_cases(nbits, tile, seed):
         frozen, want = freeze_delta_case(case, nbits)
         yield case.label, frozen, want
+
+
+# -- hybrid batches at the expansion kernel's edges ------------------------------
+
+
+class HybridCase(NamedTuple):
+    """The pages of one RLE/bit-packed hybrid batch at `width` bits: (stream,
+    values) each, the stream holding exactly the runs the case names."""
+
+    label: str
+    width: int
+    pages: list
+
+
+def _hybrid_page(runs, width: int) -> tuple[bytes, np.ndarray]:
+    """A hybrid stream of `runs`, each ("rle", count, value) or ("bp",
+    values), and the values it holds. A bit-packed run is zero-padded to
+    whole groups of 8 in the stream; only a page's last run may hold a count
+    that is not a multiple of 8 (the page's value count cuts it short)."""
+    from ..ops.bitpack import pack_bits
+    from ..ops.varint import emit_uvarint
+
+    out = bytearray()
+    vals = []
+    for k, run in enumerate(runs):
+        if run[0] == "rle":
+            _kind, count, value = run
+            emit_uvarint(out, count << 1)
+            out += int(value).to_bytes((width + 7) // 8, "little")
+            vals.append(np.full(count, value, dtype=np.uint64))
+        else:
+            v = np.asarray(run[1], dtype=np.uint64)
+            if len(v) % 8 and k != len(runs) - 1:
+                raise ValueError("hybrid: only a page's last bit-packed run may be cut short")
+            padded = np.concatenate([v, np.zeros(-len(v) % 8, dtype=np.uint64)])
+            emit_uvarint(out, (len(padded) // 8) << 1 | 1)
+            out += pack_bits(padded, width)
+            vals.append(v)
+    return bytes(out), np.concatenate(vals).astype(np.uint32)
+
+
+# the widths hybrid_edge_cases is run at: none, one bit, and the widest
+HYBRID_EDGE_WIDTHS = (0, 1, 31, 32)
+
+
+def hybrid_edge_cases(width: int, tile: int, seed: int = 0) -> list:
+    """HybridCases at the edges of a hybrid expansion that cuts its outputs
+    into tiles of `tile` values: RLE runs of length 1-17 among bit-packed
+    runs of 32-96 values; one RLE run over five tiles; pages whose last
+    bit-packed run is cut short (1, 7, 1,001 and tile + 5 values); 8-value
+    RLE and bit-packed runs alternating (a tile spans tile / 8 + 1 runs,
+    more than the kernel stages); totals of 1, tile - 1, tile and tile + 1."""
+    rng = np.random.default_rng(seed + width)
+
+    def vals(n):
+        if width == 0:
+            return np.zeros(n, dtype=np.uint64)
+        return rng.integers(0, 1 << width, size=n, dtype=np.uint64)
+
+    def one():
+        return int(vals(1)[0])
+
+    cases = []
+    runs = []
+    for _ in range(600):
+        if rng.random() < 0.5:
+            runs.append(("rle", int(rng.choice([1, 1, 1, 2, 3, 5, 9, 17])), one()))
+        else:
+            runs.append(("bp", vals(8 * int(rng.integers(4, 13)))))
+    cases.append(HybridCase("RLE runs of 1-17 values", width, [_hybrid_page(runs, width)]))
+    cases.append(HybridCase(
+        "one RLE run over five tiles", width,
+        [_hybrid_page([("bp", vals(16)), ("rle", 5 * tile + 3, one()), ("bp", vals(13))], width)],
+    ))
+    cases.append(HybridCase("bit-packed last runs cut short", width, [
+        _hybrid_page([("bp", vals(1001))], width),
+        _hybrid_page([("rle", 20, one()), ("bp", vals(7))], width),
+        _hybrid_page([("bp", vals(1))], width),
+        _hybrid_page([("rle", 3, one()), ("bp", vals(tile + 5))], width),
+    ]))
+    pairs = 3 * tile // 16
+    # (a 3-value run first: every tile then spans tile / 8 + 1 runs)
+    alternating = [("rle", 3, one())] + [
+        run for _ in range(pairs) for run in (("rle", 8, one()), ("bp", vals(8)))]
+    cases.append(HybridCase("8-value RLE and bit-packed runs alternating", width,
+                            [_hybrid_page(alternating, width), _hybrid_page(alternating, width)]))
+    cases.append(HybridCase("total 1", width, [_hybrid_page([("bp", vals(1))], width)]))
+    for d in (-1, 0, 1):
+        rest = tile // 2 - 100 + d
+        runs = [("bp", vals(tile // 2)), ("rle", 100, one()), ("bp", vals(rest))]
+        cases.append(HybridCase(f"total {tile} {d:+d}", width, [_hybrid_page(runs, width)]))
+    return cases
+
+
+def freeze_hybrid_case(case: HybridCase):
+    """The case's pages prescanned with the port's prescan_hybrid and frozen
+    as one batch (kernels.pipeline._HybridBatch): (frozen batch, the values
+    it expands to; zeros at width 0)."""
+    from ..kernels.pipeline import _HybridBatch
+    from ..ops.rle_hybrid import prescan_hybrid
+
+    batch = _HybridBatch(case.width)
+    for stream, v in case.pages:
+        batch.add_page(prescan_hybrid(stream, len(v), case.width), len(v))
+    return batch.freeze(), np.concatenate([v for _s, v in case.pages])
+
+
+def most_runs_a_tile(frozen, tile: int) -> int:
+    """The most runs that one tile of `tile` consecutive outputs of a frozen
+    hybrid batch spans."""
+    starts = frozen.buf[frozen.run_pad : 2 * frozen.run_pad].view(np.int32)
+    first = np.arange(0, frozen.total, tile)
+    last = np.minimum(first + tile, frozen.total) - 1
+    return int((np.searchsorted(starts, last, "right")
+                - np.searchsorted(starts, first, "right") + 1).max())
+
+
+def hybrid_edge_batches(width: int, tile: int, seed: int = 0):
+    """(label, frozen batch, values) for each of hybrid_edge_cases."""
+    for case in hybrid_edge_cases(width, tile, seed):
+        frozen, want = freeze_hybrid_case(case)
+        yield case.label, frozen, want
+
+
+# -- mixed dict/PLAIN byte-array chunks at the merge kernel's edges ---------------
+
+
+class MixedBytesCase(NamedTuple):
+    """A mixed byte-array chunk: its dictionary and its pages, each ("dict",
+    int32 indices) or ("plain", ByteArrayData)."""
+
+    label: str
+    dictionary: ByteArrayData
+    pages: list
+
+
+def out_of_range_indices(n_dict: int) -> tuple:
+    """Dictionary indices a chunk may carry that lie outside its dictionary
+    of n_dict entries."""
+    return (-1, n_dict, n_dict + 1, 2**31 - 1)
+
+
+def mixed_bytes_args(case: MixedBytesCase) -> tuple:
+    """The merge_mixed_bytes arguments of a case, as the pipeline builds
+    them (kernels.pipeline._page_merge_tables; the pool is the dictionary's
+    payload followed by every PLAIN page's): (idx_all, doff, pool, po32,
+    page_kind, page_row_start, page_aux, page_src_base) as NumPy arrays,
+    then n_rows and the byte bound."""
+    from ..kernels.pipeline import _page_merge_tables, _skewed_dict_bound
+
+    d = case.dictionary
+    infos = [(len(p), None, None, "dict", len(p)) if kind == "dict"
+             else (len(p.offsets) - 1, None, None, "values", p) for kind, p in case.pages]
+    kind, prs, aux, n_rows = _page_merge_tables(
+        infos, lambda p: (len(p.offsets), len(p.offsets) - 1)
+    )
+    pools, src_base, po, base = [np.frombuffer(d.data, np.uint8)], [], [], len(d.data)
+    for k, p in case.pages:
+        if k == "dict":
+            src_base.append(0)
+        else:
+            src_base.append(base)
+            po.append(np.asarray(p.offsets, np.int32))
+            pools.append(np.frombuffer(p.data, np.uint8))
+            base += len(p.data)
+    srcb = np.zeros(len(kind), np.int64)
+    srcb[: len(src_base)] = src_base
+    idx = [np.asarray(p, np.int32) for k, p in case.pages if k == "dict"]
+    dict_rows = sum(len(p) for p in idx)
+    bound, _ok = _skewed_dict_bound(d, dict_rows, base - len(d.data))
+    pool = np.concatenate(pools)
+    return (
+        np.concatenate(idx) if idx else np.zeros(0, np.int32),
+        np.asarray(d.offsets, np.int64),
+        pool if len(pool) else np.zeros(1, np.uint8),
+        np.concatenate(po) if po else np.zeros(2, np.int32),
+        kind, prs, aux, srcb, n_rows, bound,
+    )
+
+
+def mixed_bytes_edge_cases(tile: int, seed: int = 0) -> list:
+    """MixedBytesCases at the edges of a merge that cuts its rows into tiles
+    of `tile` rows and copies 16-byte chunks: PLAIN rows of 100 KiB and more;
+    all-empty rows, and a tile whose rows are all empty; row counts of tile
+    - 1, tile, tile + 1 and 3 x tile + 1; the out-of-range dictionary
+    indices at row 0 and across a tile boundary; lengths of 15-17, 31-33 and
+    47-49 bytes."""
+    rng = np.random.default_rng(seed)
+
+    def words(lengths, letter=b"a"):
+        return ByteArrayData.from_list(
+            [bytes(rng.integers(letter[0], letter[0] + 26, size=int(k), dtype=np.uint8))
+             for k in lengths])
+
+    def idx(n, n_dict):
+        return rng.integers(0, n_dict, size=n).astype(np.int32)
+
+    small = words(rng.integers(0, 21, size=1000))
+    cases = [MixedBytesCase("PLAIN rows of 100 KiB and more", small, [
+        ("dict", idx(tile - 2, 1000)),
+        ("plain", words([150_000, 3, 0, 102_400, 17, 131_073], b"A")),
+        ("dict", idx(5, 1000)),
+        ("plain", words([100 << 10, 1], b"A")),
+    ])]
+    empty = ByteArrayData.from_list([b""] * 7)
+    cases.append(MixedBytesCase("all rows empty", empty, [
+        ("dict", idx(2 * tile + 5, 7)), ("plain", words([0] * tile)),
+    ]))
+    with_empty = words([0] + [int(k) for k in rng.integers(1, 21, size=99)])
+    cases.append(MixedBytesCase("a tile of empty rows", with_empty, [
+        ("plain", words(rng.integers(0, 31, size=tile), b"A")),
+        ("dict", np.zeros(tile, np.int32)),
+        ("dict", idx(tile // 2, 100)),
+    ]))
+    for n in (tile - 1, tile, tile + 1, 3 * tile + 1):
+        cut = sorted(rng.integers(0, n, size=3))
+        sizes = np.diff([0, *cut, n])
+        pages = [("dict", idx(int(s), 1000)) if k % 2 == 0
+                 else ("plain", words(rng.integers(0, 41, size=int(s)), b"A"))
+                 for k, s in enumerate(sizes)]
+        cases.append(MixedBytesCase(f"{n} rows", small, pages))
+    bad = np.array(out_of_range_indices(1000), np.int32)
+    first = idx(tile + 2, 1000)
+    first[:4] = bad
+    first[tile - 2 : tile + 2] = bad
+    cases.append(MixedBytesCase("out-of-range indices", small, [
+        ("dict", first), ("plain", words(rng.integers(0, 41, size=300), b"A")),
+        ("dict", idx(700, 1000)),
+    ]))
+    near16 = words(rng.choice([1, 15, 16, 17, 31, 32, 33], size=500))
+    cases.append(MixedBytesCase("lengths around multiples of 16", near16, [
+        ("plain", words(rng.choice([0, 15, 16, 17, 47, 48, 49], size=tile + 7), b"A")),
+        ("dict", idx(tile, 500)),
+        ("plain", words(rng.choice([1, 15, 16, 17], size=3 * tile), b"A")),
+        ("dict", idx(2 * tile + 3, 500)),
+    ]))
+    return cases

@@ -26,7 +26,14 @@ from parquet_tpu_torch.kernels import build, device_ops as ops  # noqa: E402
 from parquet_tpu_torch.kernels import pipeline as tpipe  # noqa: E402
 from parquet_tpu_torch.ops.rle_hybrid import prescan_hybrid as t_prescan_hybrid  # noqa: E402
 from parquet_tpu_torch.testing.parity import frozen_from_numpy  # noqa: E402
-from parquet_tpu_torch.testing.synth import delta_edge_cases, freeze_delta_case  # noqa: E402
+from parquet_tpu_torch.testing.synth import (  # noqa: E402
+    HYBRID_EDGE_WIDTHS,
+    delta_edge_cases,
+    freeze_delta_case,
+    freeze_hybrid_case,
+    hybrid_edge_cases,
+    most_runs_a_tile,
+)
 
 
 def _hybrid_pages(width, seed, sizes=(1500, 2221)):
@@ -62,6 +69,69 @@ def test_expand_hybrid_plain_matches_jax(width):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
     np.testing.assert_array_equal(want, np.concatenate(pages) if width else 0 * want)
+
+
+@functools.lru_cache(maxsize=4)
+def _hybrid_cases(width):
+    return hybrid_edge_cases(width, ops.HYBRID_TILE)
+
+
+@pytest.mark.parametrize("width", HYBRID_EDGE_WIDTHS)
+@pytest.mark.parametrize("case", range(len(_hybrid_cases(1))),
+                         ids=[c.label for c in _hybrid_cases(1)])
+def test_expand_hybrid_edge_batches_match_jax(width, case):
+    """The generator's edge batches (RLE runs of 1-17 values, one RLE run over
+    five tiles, bit-packed last runs cut short, alternating 8-value runs that
+    outnumber the kernel's staging, totals around the kernel's tile): the
+    port's prescan and freeze give the JAX package's upload buffer byte for
+    byte, and the port's plain version expands it as the JAX program does,
+    to the generator's values (zeros at width 0)."""
+    c = _hybrid_cases(width)[case]
+    frozen, values = freeze_hybrid_case(c)
+    jb = jpipe._HybridBatch(width)
+    for stream, v in c.pages:
+        jb.add_page(j_prescan_hybrid(stream, len(v), width), len(v))
+    jf = jb.freeze()
+    assert frozen.buf.tobytes() == np.asarray(jf.buf).tobytes()
+    assert (frozen.run_pad, frozen.total) == (jf.run_pad, jf.total)
+    want = np.asarray(jpipe._HybridBatch.dispatch_frozen(jf))
+    got = frozen_from_numpy(frozen._asdict(), "cpu").run()
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(want, values if width else 0 * values)
+
+
+def test_hybrid_edge_batches_reach_every_route():
+    """The edge batches take each of the kernel's three routes: a run table
+    staged whole (run_pad within the staging), the window of a tile's runs
+    staged (the RLE runs of 1-17 values), and the tables read in place (the
+    alternating case, whose tiles span more runs than the staging)."""
+    def route(frozen):
+        if frozen.run_pad <= ops.HYBRID_STAGE_RUNS:
+            return "whole"
+        most = most_runs_a_tile(frozen, ops.HYBRID_TILE)
+        return "global" if most > ops.HYBRID_STAGE_RUNS else "window"
+
+    routes = {c.label: route(freeze_hybrid_case(c)[0]) for c in _hybrid_cases(1)}
+    assert routes.pop("8-value RLE and bit-packed runs alternating") == "global"
+    assert routes.pop("RLE runs of 1-17 values") == "window"
+    assert set(routes.values()) == {"whole"}
+
+
+def _kernel_constants(source):
+    import re
+
+    src = (build.CSRC / source).read_text()
+    return {m.group(1): int(m.group(2))
+            for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def test_hybrid_tile_pinned_to_the_kernel():
+    """HYBRID_TILE and HYBRID_STAGE_RUNS, around which the edge batches put
+    their totals and runs, are the kernel's (kThreads * kItems and kStageRuns
+    of expand_hybrid.cu)."""
+    k = _kernel_constants("expand_hybrid.cu")
+    assert k["kThreads"] * k["kItems"] == ops.HYBRID_TILE
+    assert k["kStageRuns"] == ops.HYBRID_STAGE_RUNS
 
 
 def _delta_pages(nbits, seed):
@@ -299,8 +369,10 @@ def test_wrapper_input_checks():
 
 def test_reset_launch_counts():
     ops.expand_hybrid.launches = 5
+    ops.expand_hybrid.launches_by_width = {12: 5}
     ops.reset_launch_counts()
     assert all(fn.launches == 0 for fn in ops.KERNELS.values())
+    assert ops.expand_hybrid.launches_by_width == {}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -333,7 +405,7 @@ def test_build_key_tracks_sources(tmp_path):
         ["pqt_expand_hybrid", "pqt_dict_gather4", "pqt_dict_gather8",
          "pqt_delta_scratch_words", "pqt_delta_packed_decode", "pqt_bss_transpose",
          "pqt_merge_mixed_numeric4", "pqt_merge_mixed_numeric8",
-         "pqt_merge_bytes_tile", "pqt_merge_mixed_bytes", "pqt_scan_tile",
+         "pqt_merge_bytes_scratch_words", "pqt_merge_mixed_bytes", "pqt_scan_tile",
          "pqt_record_starts", "pqt_list_layout", "pqt_pad_ragged", "pqt_expand_nullable",
          "pqt_predicate_mask", "pqt_fixed_members",
          "pqt_leaf_verdict", "pqt_list_contains_mask", "pqt_mask_scan", "pqt_take_rows",

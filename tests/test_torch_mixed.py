@@ -38,7 +38,14 @@ from parquet_tpu_torch.meta.parquet_types import CompressionCodec as C  # noqa: 
 from parquet_tpu_torch.meta.parquet_types import Encoding as E  # noqa: E402
 from parquet_tpu_torch.meta.parquet_types import Type as T  # noqa: E402
 from parquet_tpu_torch.testing.parity import to_numpy  # noqa: E402
-from parquet_tpu_torch.testing.synth import ColumnSpec, column_values, write_file  # noqa: E402
+from parquet_tpu_torch.testing.synth import (  # noqa: E402
+    ColumnSpec,
+    MixedBytesCase,
+    column_values,
+    mixed_bytes_args,
+    mixed_bytes_edge_cases,
+    write_file,
+)
 
 GOLDEN = Path(__file__).parent / "golden" / "data"
 GOLDEN_FILES = sorted(p.name for p in GOLDEN.glob("*.parquet"))
@@ -138,25 +145,22 @@ def test_merge_mixed_numeric_plain_matches_jax(layout, itemsize, n_dict):
 
 
 def _bytes_case(rng, layout, n_dict, bad):
-    """A ByteArrayData dictionary, dict indices, PLAIN pages, and the tables
-    _merge_ragged_bytes builds from them."""
+    """A chunk of a ByteArrayData dictionary, dict pages (`bad` indices at
+    the head of the first) and PLAIN pages, for testing.synth.mixed_bytes_args."""
     words = [bytes(rng.integers(97, 123, size=int(k), dtype=np.uint8))
              for k in rng.integers(0, 20, size=n_dict)]
-    d = ByteArrayData.from_list(words)
-    infos, idx = [], []
+    pages = []
     for kind, rows in layout:
         if kind == "dict":
             v = rng.integers(0, max(n_dict, 1), size=rows).astype(np.int32)
-            if len(idx) == 0 and rows:
+            if not any(k == "dict" for k, _p in pages) and rows:
                 v[: len(bad)] = bad[:rows]
-            idx.append(v)
-            infos.append((rows, None, None, "dict", rows))
+            pages.append(("dict", v))
         else:
             vals = [bytes(rng.integers(65, 91, size=int(k), dtype=np.uint8))
                     for k in rng.integers(0, 30, size=rows)]
-            infos.append((rows, None, None, "values", ByteArrayData.from_list(vals)))
-    idx = np.concatenate(idx) if idx else np.zeros(0, np.int32)
-    return d, infos, idx
+            pages.append(("plain", ByteArrayData.from_list(vals)))
+    return MixedBytesCase("", ByteArrayData.from_list(words), pages)
 
 
 @pytest.mark.parametrize("n_dict", [3, 1023, 1500])
@@ -164,51 +168,64 @@ def _bytes_case(rng, layout, n_dict, bad):
 def test_merge_mixed_bytes_plain_matches_jax(layout, n_dict):
     rng = np.random.default_rng(n_dict)
     bad = (-1, n_dict, n_dict + 1, 2**31 - 1)
-    d, infos, idx = _bytes_case(rng, NUMERIC_LAYOUTS[layout], n_dict, bad)
-    dict_rows = sum(p[4] for p in infos if p[3] == "dict")
-    plain_bytes = sum(len(p[4].data) for p in infos if p[3] == "values")
-    bound, _ok = tpipe._skewed_dict_bound(d, dict_rows, plain_bytes)
-    kind, prs, aux, n_rows = tpipe._page_merge_tables(
-        infos, lambda p: (len(p.offsets), len(p.offsets) - 1)
-    )
-    pools = [np.frombuffer(d.data, np.uint8)]
-    src_base, po_parts, base = [], [], len(d.data)
-    for *_x, k, payload in infos:
-        if k == "dict":
-            src_base.append(0)
-        else:
-            src_base.append(base)
-            po_parts.append(payload.offsets.astype(np.int32))
-            pools.append(np.frombuffer(payload.data, np.uint8))
-            base += len(payload.data)
-    srcb = np.zeros(len(kind), np.int64)
-    srcb[: len(src_base)] = src_base
-    po32 = np.concatenate(po_parts) if po_parts else np.zeros(2, np.int32)
-    pool = np.concatenate(pools)
-    pool = pool if len(pool) else np.zeros(1, np.uint8)
-    # the JAX side exactly as its _merge_ragged_bytes pads its inputs
+    *host, n_rows, bound = mixed_bytes_args(_bytes_case(rng, NUMERIC_LAYOUTS[layout], n_dict, bad))
+    _assert_merge_bytes_matches_jax(tuple(host), n_rows, bound)
+
+
+def _assert_merge_bytes_matches_jax(host, n_rows, bound):
+    """The port's merge_mixed_bytes (its plain version, for CPU tensors) on
+    the host arrays against the JAX program on them padded exactly as its
+    _merge_ragged_bytes pads them: equal offsets, equal bytes up to the last
+    offset, `bound` bytes of data."""
+    idx, doff, pool, po32, kind, prs, aux, srcb = host
     b = jpipe._bucket
     po32p = np.zeros(b(len(po32), 1024), np.int32)
     po32p[: len(po32)] = po32
     poolp = np.zeros(b(max(len(pool), 1), 1024), np.uint8)
     poolp[: len(pool)] = pool
-    doffp = np.full(b(len(d.offsets), 1024), d.offsets[-1], np.int64)
-    doffp[: len(d.offsets)] = d.offsets
+    doffp = np.full(b(len(doff), 1024), doff[-1], np.int64)
+    doffp[: len(doff)] = doff
     jdata, joff = jops.merge_mixed_bytes_device(
         jpipe._pad_device(jnp.asarray(idx)), jnp.asarray(doffp), jnp.asarray(poolp),
         jnp.asarray(po32p), jnp.asarray(kind), jnp.asarray(prs), jnp.asarray(aux),
         jnp.asarray(srcb), jnp.int32(n_rows), b(max(n_rows, 1), 1024), b(max(bound, 1)),
     )
     joff = np.asarray(joff)[: n_rows + 1]
-    data, off = ops.merge_mixed_bytes(
-        torch.from_numpy(idx), torch.from_numpy(np.asarray(d.offsets, np.int64)),
-        torch.from_numpy(pool), torch.from_numpy(po32), torch.from_numpy(kind),
-        torch.from_numpy(prs), torch.from_numpy(aux), torch.from_numpy(srcb), n_rows, bound,
-    )
+    data, off = ops.merge_mixed_bytes(*map(torch.from_numpy, host), n_rows, bound)
     assert off.numpy().tobytes() == joff.tobytes()
     total = int(joff[-1])
     assert data.numpy()[:total].tobytes() == np.asarray(jdata)[:total].tobytes()
     assert len(data) == bound
+    return total
+
+
+_BYTES_EDGE = mixed_bytes_edge_cases(ops.MERGE_BYTES_TILE)
+
+
+@pytest.mark.parametrize("case", range(len(_BYTES_EDGE)), ids=[c.label for c in _BYTES_EDGE])
+def test_merge_mixed_bytes_edge_cases_match_jax(case):
+    """The generator's edge chunks (PLAIN rows of 100 KiB and more, empty
+    rows and an all-empty tile, row counts around the kernel's tile, the
+    out-of-range indices across a tile boundary, lengths around multiples of
+    16): the port's plain version equals the JAX program, called as the JAX
+    pipeline calls it."""
+    *host, n_rows, bound = mixed_bytes_args(_BYTES_EDGE[case])
+    total = _assert_merge_bytes_matches_jax(tuple(host), n_rows, bound)
+    if _BYTES_EDGE[case].label == "all rows empty":
+        assert total == 0
+
+
+def test_merge_bytes_tile_pinned_to_the_kernel():
+    """MERGE_BYTES_TILE, around which the edge chunks put their row counts,
+    is the kernel's tile (kThreads * kItems of merge_mixed_bytes.cu)."""
+    import re
+
+    from parquet_tpu_torch.kernels import build
+
+    src = (build.CSRC / "merge_mixed_bytes.cu").read_text()
+    threads = int(re.search(r"kThreads = (\d+);", src).group(1))
+    items = int(re.search(r"kItems = (\d+);", src).group(1))
+    assert threads * items == ops.MERGE_BYTES_TILE
 
 
 # -- every golden file against the JAX reader ----------------------------------
