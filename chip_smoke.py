@@ -31,7 +31,12 @@ Phases (any failure raises and the script exits non-zero):
               boundary, lengths around multiples of 16; for the
               batch path's kernels n = 0, 1 and 2**20 + 3, no values,
               all-null and no-null masks, leading non-boundary entries,
-              max_len 1, rows longer than a scan tile, every byte width;
+              max_len 1, rows longer than a scan tile, every byte width
+              (pad_ragged also on testing/synth.pad_ragged_edge_cases:
+              rows around its tile, negative lengths at a tile's first and
+              last row, int32 offsets that wrap and clip, lengths past
+              int32, nv 0 and over, max_len 0, 1, 16 and 2,500, 1-, 4- and
+              8-byte elements, int32 and int64 lengths);
               for the filter path's kernels every value dtype and op at
               n = 0, 1, 15-17, one block's work +-1 and 2**20 + 3 and at
               starts 1-15 elements off the 16-byte alignment,
@@ -42,7 +47,11 @@ Phases (any failure raises and the script exits non-zero):
               write path's kernels n = 0, 1, 7, 8, 9, 127-129, every
               bit-pack width 0-32 and DELTA width 1-64, runs straddling the
               8-alignment, adjacent RLE windows, dictionary keys -1, INT_MIN
-              and NaN payloads, more than 32,767 uniques, empty strings;
+              and NaN payloads, more than 32,767 uniques, empty strings
+              (dict_indices also on testing/synth.dict_indices_edge_cases:
+              sizes around its tile, one key over 2**20 rows, two keys
+              across warp and tile boundaries, first rows in the last tile,
+              32 keys a warp, at 32 and 64 bits);
               for masked_agg every dtype (int32, int64, float32, float64,
               bool), op (count, sum, min, max) and view (signed, unsigned,
               UINT_8 and UINT_16 sub-widths) at n = 0, 1 and 2**20 + 3
@@ -137,7 +146,10 @@ Phases (any failure raises and the script exits non-zero):
               every distinct main-path shape (taxi group 0's four index
               batches, sessions' items group 0) and the six synthetic
               widths, under `shapes` in its kernels entry with the main
-              paths' launches at each width.
+              paths' launches at each width; pad_ragged also at a wide edge
+              shape (PAD_WIDE: 4,096 rows, max_len 2,500) under `wide`;
+              dict_indices also over vendor_id (8 keys) and trip_id (all
+              unique), with the main paths' launches by key width.
 
 `python3 chip_smoke.py --ranks N` (N cards) runs only the multi-rank check:
 N NCCL ranks spawned through parquet_tpu_torch.testing.dist, one card a
@@ -285,12 +297,14 @@ HELD_PREFIX = {"delta_block_encode": delta_payload}
 
 
 def kernel_counts() -> dict:
-    """Launches of each kernel since the last reset_launch_counts, and
-    expand_hybrid's by bit width (`expand_hybrid_by_width`)."""
+    """Launches of each kernel since the last reset_launch_counts,
+    expand_hybrid's by bit width (`expand_hybrid_by_width`) and
+    dict_indices' by key width (`dict_indices_by_width`)."""
     from parquet_tpu_torch.kernels import device_ops as ops
 
     counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
     counts["expand_hybrid_by_width"] = dict(ops.expand_hybrid.launches_by_width)
+    counts["dict_indices_by_width"] = dict(ops.dict_indices.launches_by_width)
     return counts
 
 
@@ -615,6 +629,21 @@ def chunks_equal(a, b) -> bool:
 SESSIONS_VOCAB = 1 << 16
 BATCH = 100_000
 MAX_LIST_LEN = 16
+# pad_ragged's wide edge shape, timed beside the sessions batch's: rows and
+# max_len (the width of the edge cases' long rows)
+PAD_WIDE = (4096, 2500)
+
+
+def wide_pad_inputs(dev):
+    """(values, lengths) of pad_ragged's wide edge shape: PAD_WIDE[0] rows of
+    int32 values, int64 lengths uniform in 0..max_len, from the seed."""
+    import torch
+
+    rows, max_len = PAD_WIDE
+    rng = np.random.default_rng(SEED + 9)
+    lengths = rng.integers(0, max_len + 1, rows)
+    values = rng.integers(-(2**31), 2**31, int(lengths.sum()), dtype=np.int64).astype(np.int32)
+    return torch.from_numpy(values).to(dev), torch.from_numpy(lengths).to(dev)
 
 
 def sessions_columns(seed: int):
@@ -1035,8 +1064,13 @@ def batch_kernel_cases(rng, dev):
 
 def check_batch_kernels(dev, rows: dict) -> None:
     """record_starts, list_layout, pad_ragged and expand_nullable against
-    their plain versions on the card, bit for bit, at the edge shapes."""
+    their plain versions on the card, bit for bit, at the edge shapes; then
+    pad_ragged on testing/synth.pad_ragged_edge_cases, each with its rows
+    and the kernel's tile."""
+    import torch
+
     from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.testing.synth import pad_ragged_edge_cases, pad_ragged_tile_rows
 
     counts = dict.fromkeys(("record_starts", "list_layout", "pad_ragged", "expand_nullable"), 0)
     for name, label, args in batch_kernel_cases(np.random.default_rng(SEED), dev):
@@ -1044,6 +1078,15 @@ def check_batch_kernels(dev, rows: dict) -> None:
                    getattr(ops, name + "_plain")(*args))
         counts[name] += 1
     log("  " + ", ".join(f"{k}: {v} shapes equal" for k, v in counts.items()))
+    labels = []
+    for case in pad_ragged_edge_cases(SEED):
+        args = (torch.from_numpy(case.values).to(dev), torch.from_numpy(case.lengths).to(dev),
+                case.max_len)
+        hold_plain(rows, "pad_ragged", case.label, ops.pad_ragged(*args),
+                   ops.pad_ragged_plain(*args))
+        labels.append(f"{case.label} ({len(case.lengths)} rows, tiles of "
+                      f"{pad_ragged_tile_rows(max(case.max_len, 1), case.values.itemsize)})")
+    log(f"  pad_ragged edge cases equal to the plain version: {'; '.join(labels)}")
 
 
 def time_batch_kernels(sessions_path, taxi_path, dev, rows: dict, bw: float) -> None:
@@ -1100,6 +1143,29 @@ def time_batch_kernels(sessions_path, taxi_path, dev, rows: dict, bw: float) -> 
            10 * n_rows * MAX_LIST_LEN,
            lib=lambda: nested.to_padded_tensor(0, output_size=(n_rows, MAX_LIST_LEN)),
            shape=f"sessions items group 0, rows={n_rows} nv={nv} max_len={MAX_LIST_LEN}")
+    # the wide edge shape: the same bytes and operations, beside the same
+    # library call
+    wv, wl = wide_pad_inputs(dev)
+    w_rows, w_len = PAD_WIDE
+    w_nv = wv.numel()
+    w_offs = torch.zeros(w_rows + 1, dtype=torch.int64, device=dev)
+    w_offs[1:] = torch.cumsum(wl, 0)
+    w_nested = torch.nested.nested_tensor_from_jagged(wv, offsets=w_offs)
+    w_shape = f"wide edge, rows={w_rows} nv={w_nv} max_len={w_len}, int64 lengths"
+    hold_plain(rows, "pad_ragged", f"[{w_shape}]", ops.pad_ragged(wv, wl, w_len),
+               ops.pad_ragged_plain(wv, wl, w_len))
+    w_bytes = 8 * w_rows + 4 * w_nv + 4 * w_rows * w_len
+    wide = {"shape": w_shape, "ms": device_ms(lambda: ops.pad_ragged(wv, wl, w_len)),
+            "plain_ms": device_ms(lambda: ops.pad_ragged_plain(wv, wl, w_len)),
+            "library_ms": device_ms(
+                lambda: w_nested.to_padded_tensor(0, output_size=(w_rows, w_len))),
+            "bound_ms": max(w_bytes / bw, 10 * w_rows * w_len / OPS_PER_S) * 1e3,
+            "bound_by": "bytes" if w_bytes / bw >= 10 * w_rows * w_len / OPS_PER_S
+            else "operations"}
+    rows["pad_ragged"]["wide"] = wide
+    log(f"  pad_ragged [{w_shape}]: equal to its plain version; {wide['ms']:.4f} ms on the "
+        f"device, plain {wide['plain_ms']:.4f} ms, library {wide['library_ms']:.4f} ms; bound "
+        f"{wide['bound_ms']:.4f} ms ({wide['bound_by']}, {w_bytes} B)")
     m = mask.numel()
     # bytes: the mask, the non-null values and the output; ops: scan,
     # clamp, select, ~8 per row
@@ -1528,8 +1594,11 @@ def write_kernel_cases(rng, dev):
 
 def check_write_kernels(dev, rows: dict) -> None:
     """The write kernels against their plain versions on the card, bit for
-    bit, at the edge shapes."""
+    bit, at the edge shapes; dict_indices also on
+    testing/synth.dict_indices_edge_cases."""
     from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.kernels.pipeline import to_device
+    from parquet_tpu_torch.testing.synth import dict_indices_edge_cases
 
     counts = dict.fromkeys(WRITE_KERNELS, 0)
     for name, label, args in write_kernel_cases(np.random.default_rng(SEED + 5), dev):
@@ -1537,6 +1606,12 @@ def check_write_kernels(dev, rows: dict) -> None:
                    getattr(ops, name + "_plain")(*args))
         counts[name] += 1
     log("  " + ", ".join(f"{k}: {v} shapes equal" for k, v in counts.items()))
+    labels = []
+    for label, bits in dict_indices_edge_cases(ops.DICT_INDICES_TILE, SEED):
+        b = to_device(bits, dev)
+        hold_plain(rows, "dict_indices", label, ops.dict_indices(b), ops.dict_indices_plain(b))
+        labels.append(f"{label} (n={len(bits)})")
+    log(f"  dict_indices edge cases equal to the plain version: {'; '.join(labels)}")
 
 
 def write_groups(specs) -> list[dict]:
@@ -1637,6 +1712,7 @@ def time_write_kernels(dev_groups: list[dict], dev, rows: dict, bw: float) -> No
            lambda: ops.dict_indices_plain(dist_bits), 8 * n + 8 * n + 4, 30 * n,
            lib=lambda: torch.unique(dist_bits, return_inverse=True), lib_events=True,
            plain_events=True, shape=f"taxi trip_distance group 0, n={n} int64 bit patterns")
+    rows["dict_indices"]["key_bits"] = 64
     # the same probe over a low-cardinality column: 8 keys, every row a
     # repeat of one of them (the case that makes the hash's atomics queue)
     vendor = g["vendor_id"]
@@ -1647,11 +1723,28 @@ def time_write_kernels(dev_groups: list[dict], dev, rows: dict, bw: float) -> No
     t_v = {"ms": device_ms(lambda: ops.dict_indices(vendor)),
            "plain_ms": events_ms(lambda: ops.dict_indices_plain(vendor)),
            "library_ms": events_ms(lambda: torch.unique(vendor, return_inverse=True)),
-           "bound_ms": (4 * nv + 8 * nv + 4) / bw * 1e3, "shape": v_shape}
+           "bound_ms": (4 * nv + 8 * nv + 4) / bw * 1e3, "bound_by": "bytes", "shape": v_shape,
+           "key_bits": 32}
     rows["dict_indices"]["low_cardinality"] = t_v
     log(f"  dict_indices [{v_shape}]: equal to its plain version; {t_v['ms']:.4f} ms, "
         f"plain {t_v['plain_ms']:.4f} ms, library {t_v['library_ms']:.4f} ms; "
         f"bound {t_v['bound_ms']:.4f} ms (bytes)")
+    # and over an all-unique column (trip_id; pickup_us is nearly the same
+    # shape): every row a first row, every probe a claim
+    tid = g["trip_id"]
+    nt = tid.numel()
+    u_shape = f"taxi trip_id group 0, n={nt} int64, all unique"
+    hold_plain(rows, "dict_indices", f"[{u_shape}]", ops.dict_indices(tid),
+               ops.dict_indices_plain(tid))
+    t_u = {"ms": device_ms(lambda: ops.dict_indices(tid)),
+           "plain_ms": events_ms(lambda: ops.dict_indices_plain(tid)),
+           "library_ms": events_ms(lambda: torch.unique(tid, return_inverse=True)),
+           "bound_ms": (8 * nt + 8 * nt + 4) / bw * 1e3, "bound_by": "bytes", "shape": u_shape,
+           "key_bits": 64}
+    rows["dict_indices"]["all_unique"] = t_u
+    log(f"  dict_indices [{u_shape}]: equal to its plain version; {t_u['ms']:.4f} ms, "
+        f"plain {t_u['plain_ms']:.4f} ms, library {t_u['library_ms']:.4f} ms; "
+        f"bound {t_u['bound_ms']:.4f} ms (bytes)")
     page = (1 << 20) // 4
     vendor_idx = ops.dict_indices(vendor)[0][:page]
     dist_idx = ops.dict_indices(dist_bits)[0][:page]
@@ -2909,6 +3002,14 @@ def main(argv=None) -> int:
         raise AssertionError(f"expand_hybrid launches by width {hybrid_by_width} do not add up "
                              f"to its {rows['expand_hybrid']['launches']} launches")
     log(f"[main] expand_hybrid launches by width: {dict(sorted(hybrid_by_width.items()))}")
+    dict_by_width = collections.Counter()
+    for c in launches.values():
+        dict_by_width.update(c["dict_indices_by_width"])
+    if sum(dict_by_width.values()) != rows["dict_indices"]["launches"]:
+        raise AssertionError(f"dict_indices launches by key width {dict_by_width} do not add "
+                             f"up to its {rows['dict_indices']['launches']} launches")
+    rows["dict_indices"]["launches_by_width"] = dict(sorted(dict_by_width.items()))
+    log(f"[main] dict_indices launches by key width: {dict(sorted(dict_by_width.items()))}")
 
     log(f"[times] {name} | {smi}")
 

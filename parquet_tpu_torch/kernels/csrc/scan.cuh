@@ -17,10 +17,10 @@
 // here allocates or synchronizes; every launch goes to the given stream.
 //
 // The three-pass scan (run) is used by record_starts.cu, list_layout.cu,
-// pad_ragged.cu, expand_nullable.cu, mask_take.cu, leaf_verdict.cu,
-// list_contains_mask.cu, rle_hybrid_encode.cu, dict_indices.cu and
-// delta_block_encode.cu; the single-pass segmented scan below
-// (seg_tile_scan) by delta_packed_decode.cu and merge_mixed_bytes.cu; the
+// expand_nullable.cu, mask_take.cu, leaf_verdict.cu, list_contains_mask.cu,
+// rle_hybrid_encode.cu and delta_block_encode.cu; the single-pass segmented
+// scan below (seg_tile_scan) by delta_packed_decode.cu and, with no flag set,
+// merge_mixed_bytes.cu and dict_indices.cu; the
 // searches (count_le, warp_count_le2) by merge_mixed_bytes.cu,
 // expand_hybrid.cu and delta_packed_decode.cu.
 // A load functor is `T operator()(long long i) const`, called for i < n; an
@@ -124,7 +124,8 @@ int run(Load load, Epi epi, long long n, T* partial, T* tile_sums,
 // ---------------------------------------------------------------------------
 // Single-pass segmented scan across tiles (decoupled look-back), used by
 // delta_packed_decode.cu and, with no flag set (a plain sum), by
-// merge_mixed_bytes.cu. Each block scans one tile of consecutive items in
+// merge_mixed_bytes.cu and dict_indices.cu. Each block scans one tile of
+// consecutive items in
 // place:
 //
 //   SegPair<U> is (reset flag f, value v); SegOp restarts the sum at a set

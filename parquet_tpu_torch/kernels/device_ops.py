@@ -53,6 +53,8 @@ __all__ = [
     "list_layout_plain",
     "pad_ragged",
     "pad_ragged_plain",
+    "PAD_RAGGED_TILE",
+    "PAD_RAGGED_TILE_BYTES",
     "expand_nullable",
     "expand_nullable_plain",
     "predicate_mask",
@@ -74,6 +76,7 @@ __all__ = [
     "rle_hybrid_encode_plain",
     "dict_indices",
     "dict_indices_plain",
+    "DICT_INDICES_TILE",
     "delta_block_encode",
     "delta_block_encode_plain",
     "plain_bytearray_encode",
@@ -864,6 +867,13 @@ def pad_ragged_plain(values: torch.Tensor, lengths: torch.Tensor, max_len: int) 
     return torch.where(mask, vals, torch.zeros((), dtype=values.dtype, device=dev))
 
 
+# Rows one block of the CUDA kernel pads at most, and the output bytes a
+# tile of wide rows aims at (it then takes fewer rows, a multiple of 16):
+# kTileRows and kTileBytes of kernels/csrc/pad_ragged.cu, pinned by a test.
+PAD_RAGGED_TILE = 512
+PAD_RAGGED_TILE_BYTES = 32768
+
+
 def pad_ragged(values: torch.Tensor, lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """Pad a flat element vector into [rows, max_len] by per-row lengths
     (int32 or int64): row r takes values[offs[r] : offs[r] + lengths[r]]
@@ -881,18 +891,21 @@ def pad_ragged(values: torch.Tensor, lengths: torch.Tensor, max_len: int) -> tor
     _check_len(max(rows, nv), "pad_ragged")
     if _on_cpu(values, lengths):
         return pad_ragged_plain(values, lengths, max_len)
+    if 16 * max_len >= _INT32_LIMIT:
+        raise ValueError(f"pad_ragged: max_len {max_len} too wide for the kernel's tiles")
     dev = values.device
     out = torch.empty((rows, max_len), dtype=values.dtype, device=dev)
     if not rows * max_len:
         return out
     lib = _lib()
-    offs = torch.empty(rows, dtype=torch.int32, device=dev)
-    tile_sums = _tile_sums(lib, rows, torch.int32, dev)
+    elem = values.element_size()
+    # the tiles' length sums; no scratch of `rows` elements
+    scratch = torch.empty(lib.pqt_pad_ragged_scratch_words(rows, max_len, elem),
+                          dtype=torch.int64, device=dev)
     _launch(
         "pad_ragged", dev, lib.pqt_pad_ragged,
-        _ptr(values), nv, values.element_size(), _ptr(lengths), lengths.element_size(),
-        rows, max_len,
-        _ptr(out), _ptr(offs), _ptr(tile_sums),
+        _ptr(values), nv, elem, _ptr(lengths), lengths.element_size(), rows, max_len,
+        _ptr(out), _ptr(scratch),
     )
     pad_ragged.launches += 1
     return out
@@ -1567,6 +1580,11 @@ def dict_indices_plain(bits: torch.Tensor):
     return rank[inv].to(torch.int32), firsts, torch.tensor(nu, dtype=torch.int32, device=dev)
 
 
+# Rows one block of the CUDA kernel dedupes and ranks (kTile of
+# kernels/csrc/dict_indices.cu, pinned by a test).
+DICT_INDICES_TILE = 1024
+
+
 def dict_indices(bits: torch.Tensor):
     """First-occurrence dictionary of a column's bit patterns (int32 or
     int64; floats as their patterns, so NaN payloads stay distinct):
@@ -1587,22 +1605,23 @@ def dict_indices(bits: torch.Tensor):
     if not n:
         return indices, firsts, nu
     lib = _lib()
-    slots = 64
-    while slots < 2 * n:
-        slots <<= 1
-    table = torch.empty(slots, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * n, dtype=torch.int32, device=dev)
-    tile_sums = _tile_sums(lib, n, torch.int32, dev)
+    # the tile descriptors, the hash table and the rows' slots
+    scratch = torch.empty(lib.pqt_dict_indices_scratch_words(n), dtype=torch.int64, device=dev)
     _launch(
         "dict_indices", dev, lib.pqt_dict_indices,
-        _ptr(bits), n, bits.element_size(), _ptr(table), slots - 1, _ptr(scratch),
-        _ptr(tile_sums), _ptr(indices), _ptr(firsts), _ptr(nu),
+        _ptr(bits), n, bits.element_size(), _ptr(scratch), _ptr(indices), _ptr(firsts), _ptr(nu),
     )
     dict_indices.launches += 1
+    by_width = dict_indices.launches_by_width
+    key_bits = 8 * bits.element_size()
+    by_width[key_bits] = by_width.get(key_bits, 0) + 1
     return indices, firsts, nu
 
 
 dict_indices.launches = 0
+# the same launches by key width in bits, 32 or 64 (the shapes of the tuning
+# queue)
+dict_indices.launches_by_width = {}
 
 
 def _bit_length(x: torch.Tensor, nbits: int) -> torch.Tensor:
@@ -2041,3 +2060,4 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     expand_hybrid.launches_by_width = {}
+    dict_indices.launches_by_width = {}

@@ -74,10 +74,12 @@ __all__ = [
     "HYBRID_EDGE_WIDTHS",
     "HybridCase",
     "MixedBytesCase",
+    "PadCase",
     "column_levels",
     "column_values",
     "delta_edge_batches",
     "delta_edge_cases",
+    "dict_indices_edge_cases",
     "freeze_delta_case",
     "freeze_hybrid_case",
     "hybrid_edge_batches",
@@ -86,6 +88,8 @@ __all__ = [
     "mixed_bytes_edge_cases",
     "most_runs_a_tile",
     "out_of_range_indices",
+    "pad_ragged_edge_cases",
+    "pad_ragged_tile_rows",
     "write_file",
 ]
 
@@ -811,4 +815,120 @@ def mixed_bytes_edge_cases(tile: int, seed: int = 0) -> list:
         ("plain", words(rng.choice([1, 15, 16, 17], size=3 * tile), b"A")),
         ("dict", idx(2 * tile + 3, 500)),
     ]))
+    return cases
+
+
+# -- ragged paddings at the padding kernel's edges --------------------------------
+
+
+class PadCase(NamedTuple):
+    """One pad_ragged call: flat values, per-row lengths and the row width."""
+
+    label: str
+    values: np.ndarray
+    lengths: np.ndarray
+    max_len: int
+
+
+def pad_ragged_tile_rows(max_len: int, elem_bytes: int) -> int:
+    """Rows a tile of the padding kernel takes (tile_rows_for of
+    kernels/csrc/pad_ragged.cu): PAD_RAGGED_TILE, or fewer when a row's
+    output is wide, a multiple of 16 and at least 16."""
+    from ..kernels.device_ops import PAD_RAGGED_TILE, PAD_RAGGED_TILE_BYTES
+
+    row_bytes = max_len * elem_bytes
+    t = PAD_RAGGED_TILE_BYTES // row_bytes if row_bytes else PAD_RAGGED_TILE
+    return min(max(t // 16 * 16, 16), PAD_RAGGED_TILE)
+
+
+def pad_ragged_edge_cases(seed: int = 0) -> list:
+    """PadCases at the edges of a padding that cuts its rows into tiles
+    (pad_ragged_tile_rows): row counts of tile - 1,
+    tile, tile + 1 and 3 x tile + 1; a negative length at a tile's first and
+    at its last row; rows longer than max_len, and far longer; lengths near
+    2**30 whose int32 offsets wrap negative and clip (and, for int64
+    lengths, lengths past int32 whose cast differs from the compare); nv 0
+    and fewer values than the lengths ask ("over"); max_len 0, 1, 16 and
+    2,500; 1-, 4- and 8-byte elements, int32 and int64 lengths."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def vals(nv, dt):
+        info = np.iinfo(dt)
+        return rng.integers(info.min, info.max, nv, dtype=dt, endpoint=True)
+
+    for dt in (np.uint8, np.int32, np.int64):
+        e = np.dtype(dt).itemsize
+        for ldt in (np.int32, np.int64):
+            tag = f"{np.dtype(dt).name} values, {np.dtype(ldt).name} lengths"
+
+            def case(label, lengths, max_len, nv=None):
+                ln = np.asarray(lengths).astype(ldt)
+                if nv is None:
+                    nv = max(int(np.clip(ln.astype(np.int64), 0, None).sum()), 0)
+                cases.append(PadCase(f"{label}, {tag}", vals(nv, dt), ln, max_len))
+
+            t = pad_ragged_tile_rows(16, e)
+            for n in (t - 1, t, t + 1, 3 * t + 1):
+                # lengths up to 20: some rows are longer than max_len
+                case(f"rows={n} (tile {t}) max_len=16", rng.integers(0, 21, n), 16)
+            ln = rng.integers(0, 17, 2 * t + 5)
+            ln[t], ln[2 * t - 1] = -5, -3  # a tile's first row and its last
+            case("negative lengths at a tile's first and last row", ln, 16)
+            ln = rng.integers(0, 9, 2 * t)
+            ln[[3, t + 7, t + 8]] = 5000
+            case("rows far longer than max_len", ln, 16)
+            ln = rng.integers(0, 9, t + 40)
+            ln[[2, 3, 4, t + 1]] = (2**30, 2**30, 2**30 - 1, 2**30 + 7)
+            case("lengths near 2**30: int32 offsets wrap and clip", ln, 16, nv=1000)
+            if ldt is np.int64:
+                ln = rng.integers(0, 9, t + 3).astype(np.int64)
+                ln[[1, 5, t]] = (2**32 + 3, -(2**32) + 2, 2**31)
+                case("lengths past int32", ln, 16, nv=3000)
+            case("nv=0", rng.integers(0, 17, t + 9), 16, nv=0)
+            case("nv over", rng.integers(0, 17, 3 * t + 1), 16, nv=t)
+            for max_len in (0, 1):
+                case(f"max_len={max_len}", rng.integers(0, 3, t + 5), max_len)
+            w = pad_ragged_tile_rows(2500, e)
+            case(f"max_len=2500 (tile {w})", rng.integers(0, 3001, 3 * w + 5), 2500)
+    return cases
+
+
+# -- dictionary probes at the probe kernel's edges --------------------------------
+
+
+def dict_indices_edge_cases(tile: int, seed: int = 0) -> list:
+    """(label, bit patterns) at the edges of a first-occurrence probe that
+    dedupes tiles of `tile` rows in warps of 32: sizes of tile - 1, tile and
+    tile + 1; one key over 2**20 rows; two keys alternating across warp and
+    tile boundaries; every key but one first seen in the last tile; 32
+    distinct keys in every warp; -1, INT_MIN and NaN payloads; each at
+    32 and 64 bits."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for dt in (np.int32, np.int64):
+        info = np.iinfo(dt)
+        bits = 8 * np.dtype(dt).itemsize
+        for n in (tile - 1, tile, tile + 1):
+            cases.append((f"n={n} {bits}-bit", rng.integers(-50, 200, n).astype(dt)))
+        cases.append((f"one key over 2**20 rows {bits}-bit", np.full(1 << 20, -7, dtype=dt)))
+        alt = np.arange(3 * tile + 7) % 2
+        runs = np.repeat(np.arange(12) % 2, [31, 33, 1, 1, tile - 1, tile + 1, 32, 32, 5, tile,
+                                            2, 3])
+        for label, pattern in (("two keys alternating", alt), ("two keys in runs across "
+                                                               "warps and tiles", runs)):
+            cases.append((f"{label} {bits}-bit", np.where(pattern == 1, info.min, 3).astype(dt)))
+        late = np.full(4 * tile + 1000, 11, dtype=dt)
+        late[4 * tile :] = rng.permutation(np.arange(1000, 2000)).astype(dt)
+        cases.append((f"every key but one first seen in the last tile {bits}-bit", late))
+        warps = np.concatenate([rng.permutation(64)[:32] for _ in range(3 * tile // 32 + 2)])
+        cases.append((f"32 distinct keys in every warp {bits}-bit", warps.astype(dt)))
+        special = np.array([-1, info.min, 0, info.max, 1, -2], dtype=dt)
+        cases.append((f"-1, INT_MIN and extremes {bits}-bit", rng.choice(special, 3 * tile + 1)))
+    nan64 = np.array([0x7FF8000000000000, 0x7FF8000000000001, 0xFFF8000000000000,
+                      0x7FF0000000000001, 0x3FF0000000000000], dtype=np.uint64)
+    nan32 = np.array([0x7FC00000, 0x7FC00001, 0xFFC00000, 0x7F800001, 0x3F800000],
+                     dtype=np.uint32)
+    cases.append(("NaN payloads 64-bit", rng.choice(nan64, 2 * tile + 3).view(np.int64)))
+    cases.append(("NaN payloads 32-bit", rng.choice(nan32, 2 * tile + 3).view(np.int32)))
     return cases

@@ -37,6 +37,7 @@ from parquet_tpu_torch.meta.parquet_types import Type  # noqa: E402
 from parquet_tpu_torch.ops.delta import encode_delta  # noqa: E402
 from parquet_tpu_torch.ops.plain import encode_plain  # noqa: E402
 from parquet_tpu_torch.ops.rle_hybrid import encode_hybrid  # noqa: E402
+from parquet_tpu_torch.testing.synth import dict_indices_edge_cases  # noqa: E402
 
 jnp = pytest.importorskip("jax").numpy
 
@@ -168,6 +169,46 @@ def test_dict_indices_matches_jax(label, bits):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     if label == "uniques_over_cutoff":
         assert int(got[2]) > 32_767  # counted in full, no cut-off
+
+
+DICT_EDGE = dict_indices_edge_cases(P.DICT_INDICES_TILE, seed=23)
+
+
+@pytest.mark.parametrize("label,bits", DICT_EDGE, ids=[c[0] for c in DICT_EDGE])
+def test_dict_indices_edge_cases_match_jax(label, bits):
+    """The probe kernel's edge cases (sizes around its tile, one key over
+    2**20 rows, two keys across warp and tile boundaries, first rows in the
+    last tile, 32 keys a warp, -1, INT_MIN and NaN payloads): the plain
+    version equals the JAX program bit for bit."""
+    unsigned = bits.view(np.uint32 if bits.itemsize == 4 else np.uint64)
+    want = J.dict_indices_device(jnp.asarray(unsigned))
+    got = P.dict_indices(_t(bits))
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_dict_indices_tile_pinned_to_the_kernel():
+    """DICT_INDICES_TILE, around which the edge cases put their sizes, is
+    the kernel's tile (kThreads * kItems of dict_indices.cu)."""
+    import re
+
+    from parquet_tpu_torch.kernels import build
+
+    src = (build.CSRC / "dict_indices.cu").read_text()
+    threads = int(re.search(r"kThreads = (\d+);", src).group(1))
+    items = int(re.search(r"kItems = (\d+);", src).group(1))
+    assert threads * items == P.DICT_INDICES_TILE
+
+
+def test_dict_indices_launches_by_width_cleared_with_the_counts():
+    """The tally of launches by key width goes with reset_launch_counts, and
+    CPU tensors (the plain version) add nothing to it."""
+    P.dict_indices.launches_by_width[64] = 3
+    P.reset_launch_counts()
+    assert P.dict_indices.launches_by_width == {}
+    P.dict_indices(_t(np.arange(5, dtype=np.int64)))
+    assert P.dict_indices.launches_by_width == {} and P.dict_indices.launches == 0
 
 
 def test_dict_indices_gives_first_occurrence_order():

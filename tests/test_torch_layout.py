@@ -31,7 +31,12 @@ from parquet_tpu_torch.kernels.pipeline import DeviceColumn  # noqa: E402
 from parquet_tpu_torch.meta.parquet_types import CompressionCodec as C  # noqa: E402
 from parquet_tpu_torch.meta.parquet_types import Encoding as E  # noqa: E402
 from parquet_tpu_torch.meta.parquet_types import Type as T  # noqa: E402
-from parquet_tpu_torch.testing.synth import ColumnSpec, write_file  # noqa: E402
+from parquet_tpu_torch.testing.synth import (  # noqa: E402
+    ColumnSpec,
+    pad_ragged_edge_cases,
+    pad_ragged_tile_rows,
+    write_file,
+)
 
 
 def _same(got: torch.Tensor, want) -> None:
@@ -155,6 +160,59 @@ def test_pad_ragged_plain_matches_jax(case, dt):
         got = ops.pad_ragged(torch.from_numpy(values), torch.from_numpy(lengths), max_len)
         want = j_pad(jnp.asarray(values), jnp.asarray(lengths), max_len)
         _same(got, want.values)
+
+
+PAD_EDGE = pad_ragged_edge_cases(seed=17)
+
+
+@pytest.mark.parametrize("case", PAD_EDGE, ids=[c.label for c in PAD_EDGE])
+def test_pad_ragged_edge_cases_match_jax(case):
+    """The padding kernel's edge cases (tile boundaries, negative lengths at
+    a tile's first and last row, wrapping and clipped offsets, lengths past
+    int32, nv 0 and over, max_len 0, 1, 16 and 2,500): the plain version
+    equals the JAX program bit for bit."""
+    got = ops.pad_ragged(torch.from_numpy(case.values), torch.from_numpy(case.lengths),
+                         case.max_len)
+    want = j_pad(jnp.asarray(case.values), jnp.asarray(case.lengths), case.max_len)
+    _same(got, want.values)
+
+
+def test_pad_ragged_edge_cases_cover_every_width_and_tile_edge():
+    """Each element width and length dtype has cases at a tile's edges
+    (tile - 1, tile, tile + 1 rows), cases whose int32 offsets wrap or clip
+    (the reference's rules, not an in-range copy) and wide rows (16-row
+    tiles)."""
+    seen = {}
+    for c in PAD_EDGE:
+        key = (c.values.itemsize, c.lengths.dtype.itemsize)
+        t = pad_ragged_tile_rows(max(c.max_len, 1), c.values.itemsize)
+        offs = np.cumsum(c.lengths.astype(np.int32).astype(np.int64))
+        wraps = bool((offs > 2**31 - 1).any() or (offs > len(c.values)).any()
+                     or (c.lengths < 0).any())
+        marks = seen.setdefault(key, set())
+        marks.add("edge" if abs(len(c.lengths) - t) <= 1 else "wrap" if wraps else "other")
+        if t == 16:
+            marks.add("wide")
+    assert sorted(seen) == [(e, w) for e in (1, 4, 8) for w in (4, 8)]
+    assert all({"edge", "wrap", "wide"} <= m for m in seen.values()), seen
+
+
+def test_pad_ragged_tile_pinned_to_the_kernel():
+    """PAD_RAGGED_TILE and PAD_RAGGED_TILE_BYTES, from which the edge cases
+    take their tiles, are the kernel's (kThreads * kItems and kTileBytes of
+    pad_ragged.cu); a tile is a multiple of 16 rows."""
+    import re
+
+    from parquet_tpu_torch.kernels import build
+
+    src = (build.CSRC / "pad_ragged.cu").read_text()
+    k = {m.group(1): int(m.group(2)) for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert k["kThreads"] * k["kItems"] == ops.PAD_RAGGED_TILE
+    assert k["kTileBytes"] == ops.PAD_RAGGED_TILE_BYTES
+    for max_len in (1, 16, 100, 2500, 1 << 20):
+        for e in (1, 4, 8):
+            t = pad_ragged_tile_rows(max_len, e)
+            assert t % 16 == 0 and 16 <= t <= ops.PAD_RAGGED_TILE
 
 
 MASK_CASES = {
