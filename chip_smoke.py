@@ -43,7 +43,12 @@ Phases (any failure raises and the script exits non-zero):
               inexact and NaN brackets, unsigned patterns above 2**31 and
               2**63, in-lists of up to 64 members, FLBA rows, out-of-range
               dictionary indices, LIST streams opening mid-record, nv = 0,
-              compaction past out_pad, 2-D and misaligned rows; for the
+              compaction past out_pad, 2-D and misaligned rows (mask_take
+              also on testing/synth.mask_take_edge_cases, fused and as a
+              scan and a row gather: sizes around its tile, two tiles a
+              chunk, masks 1-15 bytes off 16, all-false and all-true
+              masks, out_pad below, at and past the count, 1- to 64-byte
+              rows, misaligned rows); for the
               write path's kernels n = 0, 1, 7, 8, 9, 127-129, every
               bit-pack width 0-32 and DELTA width 1-64, runs straddling the
               8-alignment, adjacent RLE windows, dictionary keys -1, INT_MIN
@@ -51,7 +56,11 @@ Phases (any failure raises and the script exits non-zero):
               (dict_indices also on testing/synth.dict_indices_edge_cases:
               sizes around its tile, one key over 2**20 rows, two keys
               across warp and tile boundaries, first rows in the last tile,
-              32 keys a warp, at 32 and 64 bits);
+              32 keys a warp, at 32 and 64 bits; plain_bytearray_encode
+              also on testing/synth.bytearray_frame_edge_cases: values
+              of 5,000 and 70,000 bytes, tiles of headers only, offsets
+              past 0 into data off 16 bytes, out_len past, inside and off
+              16 of the stream, n = 1, no data, no values);
               for masked_agg every dtype (int32, int64, float32, float64,
               bool), op (count, sum, min, max) and view (signed, unsigned,
               UINT_8 and UINT_16 sub-widths) at n = 0, 1 and 2**20 + 3
@@ -149,7 +158,9 @@ Phases (any failure raises and the script exits non-zero):
               paths' launches at each width; pad_ragged also at a wide edge
               shape (PAD_WIDE: 4,096 rows, max_len 2,500) under `wide`;
               dict_indices also over vendor_id (8 keys) and trip_id (all
-              unique), with the main paths' launches by key width.
+              unique), with the main paths' launches by key width;
+              mask_take_rows alone at sessions' items padded to [rows, 16]
+              int32 under the sessions filter, under `wide`.
 
 `python3 chip_smoke.py --ranks N` (N cards) runs only the multi-rank check:
 N NCCL ranks spawned through parquet_tpu_torch.testing.dist, one card a
@@ -1125,7 +1136,8 @@ def time_batch_kernels(sessions_path, taxi_path, dev, rows: dict, bw: float) -> 
     # bytes: rep read, row_of written (4 B each) and the 8-byte count; ops:
     # compare, scan and subtract, ~6 per entry
     record("record_starts", lambda: ops.record_starts(rep), lambda: ops.record_starts_plain(rep),
-           8 * n + 8, 6 * n, shape=f"sessions items group 0, n={n}")
+           8 * n + 8, 6 * n, lib=lambda: torch.cumsum(rep == 0, 0, dtype=torch.int32),
+           shape=f"sessions items group 0, n={n}")
     # bytes: rep and dfl read, offsets and first_def written; ops: two
     # compares, the packed scan and the scatter, ~20 per entry
     record("list_layout", lambda: ops.list_layout(rep, dfl, 0, 2),
@@ -1332,6 +1344,8 @@ def check_filter_kernels(dev, rows: dict) -> None:
     """The filter kernels against their plain versions on the card, bit for
     bit, at the edge shapes."""
     from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.kernels.pipeline import to_device
+    from parquet_tpu_torch.testing.synth import mask_take_args, mask_take_edge_cases
 
     counts = dict.fromkeys(FILTER_KERNELS, 0)
     for name, label, args, kw in filter_kernel_cases(np.random.default_rng(SEED + 4), dev):
@@ -1339,6 +1353,17 @@ def check_filter_kernels(dev, rows: dict) -> None:
                    getattr(ops, name + "_plain")(*args, **kw))
         counts[name] += 1
     log("  " + ", ".join(f"{k}: {v} shapes equal" for k, v in counts.items()))
+    labels = []
+    for case in mask_take_edge_cases(ops.MASK_TAKE_TILE, ops.MASK_TAKE_BLOCKS, SEED):
+        v, m, out_pad = mask_take_args(case, lambda a: to_device(a, dev))
+        plain = ops.mask_take_plain(v, m, out_pad)
+        hold_plain(rows, "mask_take", case.label, ops.mask_take(v, m, out_pad), plain)
+        src, count = ops.mask_take_scan(m, out_pad)
+        hold_plain(rows, "mask_take", f"{case.label} (scan + rows)",
+                   (ops.mask_take_rows(v, src, count, out_pad), count), plain)
+        labels.append(f"{case.label} (n={len(m)}, out_pad={out_pad})")
+    log(f"  mask_take edge cases equal to the plain version, fused and in two calls: "
+        f"{'; '.join(labels)}")
 
 
 def taxi_filter(specs):
@@ -1424,14 +1449,16 @@ def filtered_read(path, filters, dev) -> tuple[int, int]:
     return int(kept), int(fare)
 
 
-def time_filter_kernels(taxi_path, sessions_path, taxi_filters, k_item, dev, rows: dict,
-                        bw: float) -> None:
+def time_filter_kernels(taxi_path, sessions_path, taxi_filters, sessions_filters, dev,
+                        rows: dict, bw: float) -> None:
     """Device times of the filter kernels at the main paths' shapes:
     predicate_mask on taxi's first fare_cents group, leaf_verdict on its zone
     indices (an in-list verdict over the 100,000-entry dictionary) and on
     its passenger_count validity, list_contains_mask on sessions' first
     items group, mask_take of taxi's first fare_cents group under F_taxi's
-    mask; each held against its plain version on the inputs it is timed on,
+    mask, and mask_take_rows alone of sessions' first items group padded to
+    [rows, 16] int32 under the sessions filter's mask (under `wide`); each
+    held against its plain version on the inputs it is timed on,
     then timed beside its bound, its plain version and the one PyTorch call
     computing the same function where there is one."""
     import torch
@@ -1450,6 +1477,9 @@ def time_filter_kernels(taxi_path, sessions_path, taxi_filters, k_item, dev, row
     pc = _cols[("passenger_count",)]
     with FileReader(sessions_path) as r:
         dc = r.read_row_group_device(0, ["items"])[("items", "list", "element")]
+        _scols, smask = r.read_row_group_device(0, ["items", "session_id"],
+                                                filters=sessions_filters)
+    k_item = sessions_filters[0][2]
     rep, dfl = dc.level_tensors()
     members = [z.encode() for z in taxi_filters[1][0][2]]
     zverdict = to_device(_member_mask(zone.dictionary, leaf, members, (("zone",), {}))
@@ -1500,6 +1530,29 @@ def time_filter_kernels(taxi_path, sessions_path, taxi_filters, k_item, dev, row
            lambda: ops.mask_take_plain(fare, fmask, kept), n_f + 8 * kept + 8,
            8 * n_f + 4 * kept, lib=lambda: fare[fmask], lib_events=True,
            shape=f"taxi fare_cents group 0 under F_taxi, n={n_f} kept={kept}")
+    # the row gather alone at the filtered batch stream's widest leaf, as
+    # the reader's _device_filter_rows calls it after one scan of the group:
+    # bytes: the kept positions read, the kept 64-byte rows read and
+    # written, the count; the library call gathers by the same positions
+    rl = np.asarray(dc.rep_levels)
+    present = (np.asarray(dc.def_levels) == 2).astype(np.int32)
+    lengths = to_device(np.add.reduceat(present, np.nonzero(rl == 0)[0]), dev)
+    wide = ops.pad_ragged(dc.values, lengths, MAX_LIST_LEN)
+    src, count = ops.mask_take_scan(smask, smask.numel())
+    s_kept = int(count)
+    w_shape = (f"sessions items group 0 padded to [{wide.shape[0]}, {MAX_LIST_LEN}] int32 under "
+               f"the sessions filter, kept={s_kept}, mask_take_rows alone")
+    hold_plain(rows, "mask_take", f"[{w_shape}]", ops.mask_take_rows(wide, src, count, s_kept),
+               ops.mask_take_rows_plain(wide, src, count, s_kept))
+    w_bytes = 4 * s_kept + 2 * wide[0].nbytes * s_kept + 8
+    t_w = {"shape": w_shape, "ms": device_ms(lambda: ops.mask_take_rows(wide, src, count, s_kept)),
+           "plain_ms": device_ms(lambda: ops.mask_take_rows_plain(wide, src, count, s_kept)),
+           "library_ms": device_ms(lambda: torch.index_select(wide, 0, src[:s_kept])),
+           "bound_ms": w_bytes / bw * 1e3, "bound_by": "bytes"}
+    rows["mask_take"]["wide"] = t_w
+    log(f"  mask_take [{w_shape}]: equal to its plain version; {t_w['ms']:.4f} ms, plain "
+        f"{t_w['plain_ms']:.4f} ms, library {t_w['library_ms']:.4f} ms (index_select); bound "
+        f"{t_w['bound_ms']:.5f} ms (bytes, {w_bytes} B)")
 
 
 # -- the write path: FileWriter.write_device_column ------------------------------
@@ -1598,7 +1651,11 @@ def check_write_kernels(dev, rows: dict) -> None:
     testing/synth.dict_indices_edge_cases."""
     from parquet_tpu_torch.kernels import device_ops as ops
     from parquet_tpu_torch.kernels.pipeline import to_device
-    from parquet_tpu_torch.testing.synth import dict_indices_edge_cases
+    from parquet_tpu_torch.testing.synth import (
+        bytearray_frame_edge_cases,
+        dict_indices_edge_cases,
+        frame_args,
+    )
 
     counts = dict.fromkeys(WRITE_KERNELS, 0)
     for name, label, args in write_kernel_cases(np.random.default_rng(SEED + 5), dev):
@@ -1612,6 +1669,13 @@ def check_write_kernels(dev, rows: dict) -> None:
         hold_plain(rows, "dict_indices", label, ops.dict_indices(b), ops.dict_indices_plain(b))
         labels.append(f"{label} (n={len(bits)})")
     log(f"  dict_indices edge cases equal to the plain version: {'; '.join(labels)}")
+    labels = []
+    for case in bytearray_frame_edge_cases(ops.FRAME_TILE, SEED):
+        args = frame_args(case, lambda a: to_device(a, dev))
+        hold_plain(rows, "plain_bytearray_encode", case.label, ops.plain_bytearray_encode(*args),
+                   ops.plain_bytearray_encode_plain(*args))
+        labels.append(f"{case.label} (n={len(case.offsets) - 1}, out_len={case.out_len})")
+    log(f"  plain_bytearray_encode edge cases equal to the plain version: {'; '.join(labels)}")
 
 
 def write_groups(specs) -> list[dict]:
@@ -3122,7 +3186,7 @@ def main(argv=None) -> int:
     time_hybrid_shapes(paths["taxi"][0], sessions_path, dev, rows, bw, hybrid_by_width)
     time_new_kernels(mixed_path, dev, rows, bw)
     time_batch_kernels(sessions_path, paths["taxi"][0], dev, rows, bw)
-    time_filter_kernels(taxi_path, sessions_path, f_taxi, f_sessions[0][2], dev, rows, bw)
+    time_filter_kernels(taxi_path, sessions_path, f_taxi, f_sessions, dev, rows, bw)
     time_write_kernels(dev_groups, dev, rows, bw)
     time_query_kernels(taxi_path, f_taxi, scan, dev, rows, bw)
     del dev_groups

@@ -73,14 +73,15 @@ SIGNATURES = {
     "pqt_fixed_members": (_P, _LL, _I, _P, _I, _I, _P, _P),
     "pqt_leaf_verdict": (_P, _LL, _P, _LL, _P, _LL, _I, _P, _P, _P, _P),
     "pqt_list_contains_mask": (_P, _P, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P),
-    "pqt_mask_scan": (_P, _LL, _LL, _P, _P, _P, _P, _P),
+    "pqt_mask_scan": (_P, _LL, _LL, _P, _P, _P, _P),
+    "pqt_mask_take": (_P, _LL, _LL, _P, _LL, _I, _P, _P, _P, _P),
     "pqt_take_rows": (_P, _LL, _LL, _I, _P, _P, _LL, _P, _P),
     "pqt_bitpack_encode": (_P, _LL, _I, _P, _LL, _P),
     "pqt_rle_hybrid_plan": (_P, _LL, _P, _P, _P, _P, _P, _P, _P),
     "pqt_dict_indices_scratch_words": (_LL,),
     "pqt_dict_indices": (_P, _LL, _I, _P, _P, _P, _P, _P),
     "pqt_delta_block_encode": (_P, _LL, _I, _P, _P, _P, _P, _P, _P),
-    "pqt_plain_bytearray_encode": (_P, _P, _LL, _LL, _P, _P),
+    "pqt_plain_bytearray_encode": (_P, _P, _LL, _LL, _P, _P, _P),
     "pqt_masked_agg": (_P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _P),
     "pqt_expand_page_grid": (_P, _I, _P, _P, _P, _P, _I, _I, _P, _LL, _I, _I, _I, _P, _P),
 }

@@ -17,7 +17,7 @@
 // here allocates or synchronizes; every launch goes to the given stream.
 //
 // The three-pass scan (run) is used by record_starts.cu, list_layout.cu,
-// expand_nullable.cu, mask_take.cu, leaf_verdict.cu, list_contains_mask.cu,
+// expand_nullable.cu, leaf_verdict.cu, list_contains_mask.cu,
 // rle_hybrid_encode.cu and delta_block_encode.cu; the single-pass segmented
 // scan below (seg_tile_scan) by delta_packed_decode.cu and, with no flag set,
 // merge_mixed_bytes.cu and dict_indices.cu; the

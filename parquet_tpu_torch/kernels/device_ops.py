@@ -70,6 +70,8 @@ __all__ = [
     "mask_take_scan_plain",
     "mask_take_rows",
     "mask_take_rows_plain",
+    "MASK_TAKE_TILE",
+    "MASK_TAKE_BLOCKS",
     "bitpack_encode",
     "bitpack_encode_plain",
     "rle_hybrid_encode",
@@ -81,6 +83,7 @@ __all__ = [
     "delta_block_encode_plain",
     "plain_bytearray_encode",
     "plain_bytearray_encode_plain",
+    "FRAME_TILE",
     "masked_agg",
     "masked_agg_plain",
     "expand_page_grid",
@@ -1353,17 +1356,47 @@ def mask_take_plain(values: torch.Tensor, mask: torch.Tensor, out_pad: int):
     return mask_take_rows_plain(values, src, count, out_pad), count
 
 
-def mask_take_scan(mask: torch.Tensor, out_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The first half of mask_take: (src int32[out_pad], count a 0-d int64
-    tensor), src[p] the index of the p-th kept entry for p < min(count,
-    out_pad) and 0 past it. One scan per row group serves every leaf's
-    mask_take_rows."""
+# mask_take.cu's tile (mask entries a block scans at once) and its grid's cap
+# (the chunks' counts it keeps as scratch); tests pin both to the source.
+MASK_TAKE_TILE = 4096
+MASK_TAKE_BLOCKS = 1024
+
+
+def _mask_arg(mask: torch.Tensor, out_pad: int) -> tuple[int, int]:
+    """(n, out_pad) of a compaction, checked."""
     _check_vec(mask, (torch.bool,), "mask_take: mask")
     out_pad = int(out_pad)
     if out_pad < 0:
         raise ValueError(f"mask_take: out_pad {out_pad} is negative")
     n = mask.numel()
     _check_len(max(n, out_pad), "mask_take")
+    return n, out_pad
+
+
+def _check_rows(rows: torch.Tensor, name: str) -> None:
+    """Rows of a compaction: a contiguous tensor of at least one dimension,
+    rows along the first."""
+    if not isinstance(rows, torch.Tensor) or rows.dim() < 1:
+        raise ValueError(f"mask_take: {name} must be a tensor of at least one dimension")
+    if not rows.is_contiguous():
+        raise ValueError(f"mask_take: {name} must be contiguous")
+
+
+def _word(row_bytes: int, *tensors: torch.Tensor) -> int:
+    """The widest copy word (16, 8, 4, 2 or 1 bytes) dividing the row width
+    and every tensor's address."""
+    word = 16
+    while word > 1 and (row_bytes % word or any(t.data_ptr() % word for t in tensors)):
+        word //= 2
+    return word
+
+
+def mask_take_scan(mask: torch.Tensor, out_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first half of mask_take: (src int32[out_pad], count a 0-d int64
+    tensor), src[p] the index of the p-th kept entry for p < min(count,
+    out_pad) and 0 past it. One scan per row group serves every leaf's
+    mask_take_rows."""
+    n, out_pad = _mask_arg(mask, out_pad)
     if _on_cpu(mask):
         return mask_take_scan_plain(mask, out_pad)
     dev = mask.device
@@ -1372,12 +1405,10 @@ def mask_take_scan(mask: torch.Tensor, out_pad: int) -> tuple[torch.Tensor, torc
         src.zero_()
         return src, torch.zeros((), dtype=torch.int64, device=dev)
     count = torch.empty((), dtype=torch.int64, device=dev)
-    lib = _lib()
-    partial = torch.empty(n, dtype=torch.int32, device=dev)
-    tile_sums = _tile_sums(lib, n, torch.int32, dev)
+    scratch = torch.empty(MASK_TAKE_BLOCKS, dtype=torch.int32, device=dev)
     _launch(
-        "mask_take", dev, lib.pqt_mask_scan,
-        _ptr(mask), n, out_pad, _ptr(src), _ptr(count), _ptr(partial), _ptr(tile_sums),
+        "mask_take", dev, _lib().pqt_mask_scan,
+        _ptr(mask), n, out_pad, _ptr(src), _ptr(count), _ptr(scratch),
     )
     mask_take.launches += 1
     return src, count
@@ -1390,10 +1421,7 @@ def mask_take_rows(
     min(count, out_rows) and rows[0] past it (zeros when rows is empty),
     over the leading dimension of a contiguous tensor of any dtype and
     trailing shape. `count` stays on the device: nothing waits for it."""
-    if not isinstance(rows, torch.Tensor) or rows.dim() < 1:
-        raise ValueError("mask_take: rows must be a tensor of at least one dimension")
-    if not rows.is_contiguous():
-        raise ValueError("mask_take: rows must be contiguous")
+    _check_rows(rows, "rows")
     _check_vec(src, (torch.int32,), "mask_take: src")
     out_rows = int(out_rows)
     if not 0 <= out_rows <= src.numel():
@@ -1406,13 +1434,10 @@ def mask_take_rows(
     row_bytes = rows.element_size() * math.prod(rows.shape[1:])
     if not out.numel():
         return out
-    word = 8
-    while word > 1 and (row_bytes % word or rows.data_ptr() % word):
-        word //= 2
     _launch(
         "mask_take", dev, _lib().pqt_take_rows,
-        _ptr(rows), rows.shape[0], row_bytes, word, _ptr(src), _ptr(count), out_rows,
-        _ptr(out),
+        _ptr(rows), rows.shape[0], row_bytes, _word(row_bytes, rows, out), _ptr(src),
+        _ptr(count), out_rows, _ptr(out),
     )
     mask_take.launches += 1
     return out
@@ -1422,10 +1447,31 @@ def mask_take(values: torch.Tensor, mask: torch.Tensor, out_pad: int):
     """Compact values[mask] into out_pad rows: (taken, count a 0-d int64
     tensor). A count above out_pad keeps the first out_pad kept rows and
     returns the full count; positions past the count hold values[0]; no
-    values give zeros. Replaces
-    parquet_tpu/kernels/device_ops.py:mask_take_device."""
-    src, count = mask_take_scan(mask, out_pad)
-    return mask_take_rows(values, src, count, out_pad), count
+    values give zeros. One scan that places the values itself
+    (mask_take_scan + mask_take_rows is the route for several leaves under
+    one mask). Replaces parquet_tpu/kernels/device_ops.py:mask_take_device."""
+    n, out_pad = _mask_arg(mask, out_pad)
+    _check_rows(values, "values")
+    if values.shape[0] != n:
+        raise ValueError(f"mask_take: {values.shape[0]} values under a mask of {n}")
+    if _on_cpu(values, mask):
+        return mask_take_plain(values, mask, out_pad)
+    dev = values.device
+    out = torch.empty((out_pad,) + tuple(values.shape[1:]), dtype=values.dtype, device=dev)
+    if not n:
+        return out.zero_(), torch.zeros((), dtype=torch.int64, device=dev)
+    if not out.numel():
+        return out, mask_take_scan(mask, 0)[1]
+    row_bytes = values.element_size() * math.prod(values.shape[1:])
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    scratch = torch.empty(MASK_TAKE_BLOCKS, dtype=torch.int32, device=dev)
+    _launch(
+        "mask_take", dev, _lib().pqt_mask_take,
+        _ptr(mask), n, out_pad, _ptr(values), row_bytes, _word(row_bytes, values, out),
+        _ptr(out), _ptr(count), _ptr(scratch),
+    )
+    mask_take.launches += 1
+    return out, count
 
 
 mask_take.launches = 0
@@ -1735,6 +1781,11 @@ def delta_block_encode(values: torch.Tensor):
 delta_block_encode.launches = 0
 
 
+# plain_bytearray_encode.cu's tile: output bytes a block writes, one int32 of
+# scratch a tile (a test pins it to the source).
+FRAME_TILE = 4096
+
+
 def plain_bytearray_encode_plain(
     data: torch.Tensor, offsets: torch.Tensor, out_len: int
 ) -> torch.Tensor:
@@ -1781,14 +1832,16 @@ def plain_bytearray_encode(
         raise ValueError(
             f"plain_bytearray_encode: {out_len} output bytes for {max(n, 0)} values"
         )
+    _check_len(n, "plain_bytearray_encode")
     if _on_cpu(data, offsets):
         return plain_bytearray_encode_plain(data, offsets, out_len)
     dev = data.device
-    out = torch.zeros(out_len, dtype=torch.uint8, device=dev)
-    if n:
+    out = torch.empty(out_len, dtype=torch.uint8, device=dev)
+    if out_len:
+        heads = torch.empty(-(-out_len // FRAME_TILE), dtype=torch.int32, device=dev)
         _launch(
             "plain_bytearray_encode", dev, _lib().pqt_plain_bytearray_encode,
-            _ptr(data), _ptr(offsets), n, out_len, _ptr(out),
+            _ptr(data), _ptr(offsets), n, out_len, _ptr(out), _ptr(heads),
         )
         plain_bytearray_encode.launches += 1
     return out

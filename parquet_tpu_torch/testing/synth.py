@@ -71,19 +71,25 @@ from ..meta.parquet_types import (
 __all__ = [
     "ColumnSpec",
     "DeltaCase",
+    "FrameCase",
     "HYBRID_EDGE_WIDTHS",
     "HybridCase",
+    "MaskTakeCase",
     "MixedBytesCase",
     "PadCase",
+    "bytearray_frame_edge_cases",
     "column_levels",
     "column_values",
     "delta_edge_batches",
     "delta_edge_cases",
     "dict_indices_edge_cases",
+    "frame_args",
     "freeze_delta_case",
     "freeze_hybrid_case",
     "hybrid_edge_batches",
     "hybrid_edge_cases",
+    "mask_take_args",
+    "mask_take_edge_cases",
     "mixed_bytes_args",
     "mixed_bytes_edge_cases",
     "most_runs_a_tile",
@@ -931,4 +937,164 @@ def dict_indices_edge_cases(tile: int, seed: int = 0) -> list:
                      dtype=np.uint32)
     cases.append(("NaN payloads 64-bit", rng.choice(nan64, 2 * tile + 3).view(np.int64)))
     cases.append(("NaN payloads 32-bit", rng.choice(nan32, 2 * tile + 3).view(np.int32)))
+    return cases
+
+
+# -- compactions at the compaction kernel's edges ---------------------------------
+
+
+class MaskTakeCase(NamedTuple):
+    """One mask_take call: values `flat[shift:]` viewed as rows of
+    `row_shape` (a shift off the row width misaligns them), the mask
+    `mask[mask_shift:]` (a shift moves its start off 16 bytes) and out_pad."""
+
+    label: str
+    flat: np.ndarray
+    shift: int
+    row_shape: tuple
+    mask: np.ndarray
+    mask_shift: int
+    out_pad: int
+
+
+def mask_take_args(case: MaskTakeCase, to=np.asarray) -> tuple:
+    """(values, mask, out_pad) of a case, each array passed through `to`
+    (a host-to-device copy, say) before it is sliced, so a shift gives a
+    view whose start is off the allocation's alignment."""
+    values = to(case.flat)[case.shift :]
+    if case.row_shape:
+        values = values.reshape((-1,) + tuple(case.row_shape))
+    return values, to(case.mask)[case.mask_shift :], case.out_pad
+
+
+def mask_take_edge_cases(tile: int, blocks: int, seed: int = 0) -> list:
+    """MaskTakeCases at the edges of a compaction that cuts its mask into at
+    most `blocks` chunks of whole `tile`-entry tiles, read as 16-byte
+    vectors, and places rows of any byte width:
+    - tiles: n = tile - 1, tile, tile + 1 and 3 x tile + 5; n = blocks x
+      tile + 3 x tile + 7, where a chunk holds two tiles;
+    - the mask's start: 1, 3, 8 and 15 bytes past 16-byte alignment, and a
+      mask of 5 or 1 entries inside one vector;
+    - the mask: all false, all true, one kept entry in the last tile;
+    - out_pad: below the count (one tenth, 0), at it, past it (the rest
+      hold values[0]) and past n; n = 0;
+    - rows: bool, int16, int32 and int64 values; [n, 3], [n, 4] and
+      [n, 16] int32 (12-, 16- and 64-byte rows); [n, 2] and [n, 4] int32
+      shifted one element (4-byte aligned only); [n, 5] uint8."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def case(label, n, p=0.5, out_pad=None, dt=np.int32, row_shape=(), shift=0, mask_shift=0,
+             mask=None):
+        width = int(np.prod(row_shape)) if row_shape else 1
+        if dt is np.bool_:
+            flat = rng.random(shift + n * width) > 0.5
+        else:
+            info = np.iinfo(dt)
+            flat = rng.integers(info.min, info.max, shift + n * width, dtype=dt, endpoint=True)
+        if mask is None:
+            mask = rng.random(n) < p
+        full = np.concatenate([rng.random(mask_shift) < 0.5, mask])
+        cases.append(MaskTakeCase(label, flat, shift, tuple(row_shape), full, mask_shift,
+                                  n if out_pad is None else out_pad))
+
+    for n in (tile - 1, tile, tile + 1, 3 * tile + 5):
+        case(f"n={n} (tile {tile})", n)
+    big = blocks * tile + 3 * tile + 7
+    case(f"n={big}: two tiles a chunk", big, p=0.3)
+    for s in (1, 3, 8, 15):
+        case(f"mask start {s} bytes off 16, int64 values", 2 * tile + 9, dt=np.int64,
+             mask_shift=s)
+    case("5 entries inside one vector", 5, p=0.6, mask_shift=3)
+    case("1 entry at a vector's last byte", 1, p=1.0, mask_shift=15)
+    n = 2 * tile + 1
+    case("all false", n, p=0.0)
+    case("all true", n, p=1.0)
+    last = np.zeros(3 * tile, bool)
+    last[-2] = True
+    case("one kept entry in the last tile", 3 * tile, mask=last)
+    case("count past out_pad (a tenth)", n, p=0.9, out_pad=n // 10)
+    case("out_pad 0", n, p=0.5, out_pad=0)
+    case("out_pad past the count", n, p=0.1, out_pad=n)
+    case("out_pad past n", 300, p=0.5, out_pad=400)
+    case("n=0", 0, out_pad=4)
+    case("n=1 kept", 1, p=1.0, out_pad=3)
+    case("n=1 dropped", 1, p=0.0, out_pad=2)
+    for dt in (np.bool_, np.int16, np.int64):
+        case(f"{np.dtype(dt).name} values", n, dt=dt)
+    for shape in ((3,), (4,), (16,)):
+        case(f"[n, {shape[0]}] int32 rows", n, row_shape=shape)
+    case("[n, 2] int32 rows, 4-byte aligned", n, row_shape=(2,), shift=1)
+    case("[n, 4] int32 rows, 4-byte aligned", n, row_shape=(4,), shift=1)
+    case("[n, 5] uint8 rows", n, dt=np.uint8, row_shape=(5,))
+    return cases
+
+
+# -- byte-array framings at the framing kernel's edges ----------------------------
+
+
+class FrameCase(NamedTuple):
+    """One plain_bytearray_encode call: data `data[shift:]` (a shift moves
+    its start off 16 bytes), offsets into it (they may start past 0) and
+    out_len."""
+
+    label: str
+    data: np.ndarray
+    shift: int
+    offsets: np.ndarray
+    out_len: int
+
+
+def frame_args(case: FrameCase, to=np.asarray) -> tuple:
+    """(data, offsets, out_len) of a case, the arrays passed through `to`
+    before the data is sliced."""
+    return to(case.data)[case.shift :], to(case.offsets), case.out_len
+
+
+def bytearray_frame_edge_cases(tile: int, seed: int = 0) -> list:
+    """FrameCases at the edges of a framing whose blocks each write a `tile`
+    of output bytes, finding their first value by a search of the frame
+    starts:
+    - long values: one of 5,000 bytes and one of 70,000 between short ones
+      (a value longer than a tile, over many tiles);
+    - headers only: 1,024 empty values filling a tile from its first byte,
+      and 3,000 empty values in a row;
+    - offsets that start past 0 into data 3 bytes off 16-byte alignment;
+    - out_len: not a multiple of 16, 37 bytes past the stream (zeros),
+      cut 5 bytes inside the stream;
+    - n = 1 (a 10-byte value, an empty value, 20 bytes past it); no data
+      (50 empty values); no values;
+    - frames straddling tile boundaries, and 20,000 values of 12-22 bytes."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def case(label, lengths, shift=0, lead=0, extra=0):
+        lengths = np.asarray(lengths, dtype=np.int64)
+        off = np.zeros(len(lengths) + 1, dtype=np.int64)
+        np.cumsum(lengths, out=off[1:])
+        off += lead
+        # bytes past the last value too, unless there is no data at all
+        tail = 11 if off[-1] else 0
+        data = rng.integers(0, 256, shift + int(off[-1]) + tail, dtype=np.uint8)
+        total = 4 * len(lengths) + int(off[-1] - off[0])
+        cases.append(FrameCase(label, data, shift, off, total + extra))
+
+    case("a 5,000-byte value", [5000, 0, 3])
+    case("a 70,000-byte value between short ones", [3, 70_000, 0, 5])
+    # 256 frames of 16 bytes fill the first tile, then 1,024 headers the second
+    case("1,024 empty values filling a tile", [12] * (tile // 16) + [0] * (tile // 4) + [7] * 5)
+    case("3,000 empty values in a row", [9] * 10 + [0] * 3000 + [4] * 10)
+    case("offsets from 37, data 3 bytes off 16", rng.integers(0, 41, 500), shift=3, lead=37)
+    ln = rng.integers(0, 41, 777)
+    ln[0] += (16 - (4 * len(ln) + int(ln.sum())) % 16) % 16 + 3  # total % 16 == 3
+    case("out_len 3 past a multiple of 16", ln)
+    case("out_len 37 past the stream", rng.integers(0, 41, 300), extra=37)
+    case("out_len cut 5 bytes inside the stream", rng.integers(1, 41, 300), extra=-5)
+    case("n=1", [10])
+    case("n=1 empty", [0])
+    case("n=1, 20 bytes past it", [6], extra=20)
+    case("no data: 50 empty values", [0] * 50)
+    case("no values, 10 bytes out", [], extra=10)
+    case("frames straddling tiles", rng.integers(0, 41, 3 * tile // 20))
+    case("20,000 values of 12-22 bytes", rng.integers(12, 23, 20_000))
     return cases

@@ -409,7 +409,8 @@ def test_build_key_tracks_sources(tmp_path):
          "pqt_record_starts", "pqt_list_layout", "pqt_pad_ragged_scratch_words",
          "pqt_pad_ragged", "pqt_expand_nullable",
          "pqt_predicate_mask", "pqt_fixed_members",
-         "pqt_leaf_verdict", "pqt_list_contains_mask", "pqt_mask_scan", "pqt_take_rows",
+         "pqt_leaf_verdict", "pqt_list_contains_mask", "pqt_mask_scan", "pqt_mask_take",
+         "pqt_take_rows",
          "pqt_bitpack_encode", "pqt_rle_hybrid_plan", "pqt_dict_indices_scratch_words",
          "pqt_dict_indices",
          "pqt_delta_block_encode", "pqt_plain_bytearray_encode",

@@ -37,7 +37,11 @@ from parquet_tpu_torch.meta.parquet_types import Type  # noqa: E402
 from parquet_tpu_torch.ops.delta import encode_delta  # noqa: E402
 from parquet_tpu_torch.ops.plain import encode_plain  # noqa: E402
 from parquet_tpu_torch.ops.rle_hybrid import encode_hybrid  # noqa: E402
-from parquet_tpu_torch.testing.synth import dict_indices_edge_cases  # noqa: E402
+from parquet_tpu_torch.testing.synth import (  # noqa: E402
+    bytearray_frame_edge_cases,
+    dict_indices_edge_cases,
+    frame_args,
+)
 
 jnp = pytest.importorskip("jax").numpy
 
@@ -321,6 +325,42 @@ def test_host_byte_array_rebases_the_slice(lo):
     got = host_byte_array(_t(data), _t(off[lo:]))
     assert got.to_list() == items[lo:]
     assert got.offsets[0] == 0 and len(got.data) == off[-1] - off[lo]
+
+
+FRAME_EDGE = bytearray_frame_edge_cases(P.FRAME_TILE, seed=29)
+
+
+@pytest.mark.parametrize("case", FRAME_EDGE, ids=[c.label for c in FRAME_EDGE])
+def test_bytearray_frame_edge_cases_match_jax(case):
+    """The framing kernel's edge cases (values longer than a tile, tiles of
+    headers only, offsets past 0 into data off 16 bytes, out_len past or
+    inside the stream and off 16, n = 1, no data, no values): the plain
+    version equals the JAX program on the rebased slice, its zeros past the
+    stream included, bit for bit."""
+    data, off, out_len = frame_args(case)
+    n = len(off) - 1
+    rel = off - off[0]
+    sub = data[off[0] : off[-1]]
+    want = np.asarray(J.plain_bytearray_encode_device(
+        _pad_device(jnp.asarray(sub)), _pad_device(jnp.asarray(rel)), n,
+        _bucket(max(out_len, 1))))[:out_len]
+    got = P.plain_bytearray_encode(*frame_args(case, _t))
+    assert got.dtype == torch.uint8 and got.shape == (out_len,)
+    assert got.numpy().tobytes() == want.tobytes()
+
+
+def test_frame_tile_pinned_to_the_kernel():
+    """FRAME_TILE, around which the edge cases put their frames, is the
+    kernel's tile (kTileBytes = 16 * kThreads of
+    plain_bytearray_encode.cu)."""
+    import re
+
+    from parquet_tpu_torch.kernels import build
+
+    src = (build.CSRC / "plain_bytearray_encode.cu").read_text()
+    threads = int(re.search(r"kThreads = (\d+);", src).group(1))
+    assert re.search(r"kTileBytes = 16 \* kThreads;", src)
+    assert P.FRAME_TILE == 16 * threads
 
 
 def test_plain_bytearray_encode_refuses_short_output():

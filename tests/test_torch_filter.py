@@ -34,7 +34,12 @@ from parquet_tpu_torch.kernels import device_ops as P  # noqa: E402
 from parquet_tpu_torch.meta.parquet_types import CompressionCodec as C  # noqa: E402
 from parquet_tpu_torch.meta.parquet_types import Encoding as E  # noqa: E402
 from parquet_tpu_torch.meta.parquet_types import Type as T  # noqa: E402
-from parquet_tpu_torch.testing.synth import ColumnSpec, write_file  # noqa: E402
+from parquet_tpu_torch.testing.synth import (  # noqa: E402
+    ColumnSpec,
+    mask_take_args,
+    mask_take_edge_cases,
+    write_file,
+)
 
 jnp = pytest.importorskip("jax").numpy
 CPU = torch.device("cpu")
@@ -296,6 +301,49 @@ def test_mask_take_plain_matches_jax(n, out_pad, p):
         np.testing.assert_array_equal(gt2.numpy(), np.asarray(wt2))
     else:  # the reference's zeros drop the row shape; the port keeps it
         assert gt2.shape == (out_pad, 3) and not gt2.any() and not np.asarray(wt2).any()
+
+
+MASK_TAKE_EDGE = mask_take_edge_cases(P.MASK_TAKE_TILE, P.MASK_TAKE_BLOCKS, seed=31)
+
+
+@pytest.mark.parametrize("case", MASK_TAKE_EDGE, ids=[c.label for c in MASK_TAKE_EDGE])
+def test_mask_take_edge_cases_match_jax(case):
+    """The compaction kernel's edge cases (sizes around its tile, two tiles a
+    chunk, masks off 16 bytes, all-false and all-true masks, out_pad below,
+    at and past the count, every row width, misaligned rows): the plain
+    version of mask_take, and of its scan and row gather in turn, equals the
+    JAX program bit for bit."""
+    v, m, out_pad = mask_take_args(case)
+    wt, wc = J.mask_take_device(jnp.asarray(v), jnp.asarray(m), out_pad)
+    tv, tm, _ = mask_take_args(case, torch.from_numpy)
+    gt, gc = P.mask_take(tv, tm, out_pad)
+    src, count = P.mask_take_scan(tm, out_pad)
+    rows = P.mask_take_rows(tv, src, count, out_pad)
+    assert int(gc) == int(wc) == int(count) and gc.dtype == torch.int64
+    if len(v):
+        np.testing.assert_array_equal(gt.numpy(), np.asarray(wt))
+        np.testing.assert_array_equal(rows.numpy(), np.asarray(wt))
+    else:  # the reference's zeros drop the row shape; the port keeps it
+        assert gt.shape == (out_pad,) + v.shape[1:] and not gt.any() and not rows.any()
+
+
+def test_mask_take_constants_pinned_to_the_kernel():
+    """MASK_TAKE_TILE and MASK_TAKE_BLOCKS, around which the edge cases put
+    their sizes, are mask_take.cu's tile (16 entries a thread) and grid cap."""
+    import re
+
+    from parquet_tpu_torch.kernels import build
+
+    src = (build.CSRC / "mask_take.cu").read_text()
+    threads = int(re.search(r"kThreads = (\d+);", src).group(1))
+    assert re.search(r"kTileVecs = kThreads;", src) and re.search(r"kTile = 16 \* kTileVecs;", src)
+    assert P.MASK_TAKE_TILE == 16 * threads
+    assert P.MASK_TAKE_BLOCKS == int(re.search(r"kMaxBlocks = (\d+);", src).group(1))
+
+
+def test_mask_take_refuses_values_of_another_length():
+    with pytest.raises(ValueError, match="values under a mask"):
+        P.mask_take(torch.arange(4), torch.ones(5, dtype=torch.bool), 5)
 
 
 @pytest.mark.parametrize("n_dict,n,p", [(50, 400, 0.8), (1, 10, 1.0), (7, 30, 0.0),
