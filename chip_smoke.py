@@ -35,8 +35,15 @@ Phases (any failure raises and the script exits non-zero):
               (pad_ragged also on testing/synth.pad_ragged_edge_cases:
               rows around its tile, negative lengths at a tile's first and
               last row, int32 offsets that wrap and clip, lengths past
-              int32, nv 0 and over, max_len 0, 1, 16 and 2,500, 1-, 4- and
-              8-byte elements, int32 and int64 lengths);
+              int32, nv 0 and over, max_len 0, 1, 16 and 2,500, rows
+              written in spans, 1-, 4- and 8-byte elements, int32 and
+              int64 lengths; and on one row and on 17 rows of max_len
+              2**27 uint8, a 128 MiB row, held a block of rows at a time,
+              and on one row of max_len 2**31 + 4096;
+              record_starts also on testing/synth.record_starts_edge_cases:
+              sizes around its tile, leading non-starts longer than a
+              tile, a tile without a start and one of starts only, and
+              over 4,097 tiles);
               for the filter path's kernels every value dtype and op at
               n = 0, 1, 15-17, one block's work +-1 and 2**20 + 3 and at
               starts 1-15 elements off the 16-byte alignment,
@@ -53,7 +60,12 @@ Phases (any failure raises and the script exits non-zero):
               bit-pack width 0-32 and DELTA width 1-64, runs straddling the
               8-alignment, adjacent RLE windows, dictionary keys -1, INT_MIN
               and NaN payloads, more than 32,767 uniques, empty strings
-              (dict_indices also on testing/synth.dict_indices_edge_cases:
+              (rle_hybrid_encode also on testing/synth.rle_plan_edge_cases:
+              sizes around its tile, a run over whole tiles, a run ending
+              at a tile's edge, windows straddling and meeting at a tile's
+              edge, alternating and all-equal values, widths 1, 3, 12 and
+              32, and on pages of 2**20, 2**22 + 777 and 2**26 + 777
+              values, 4, 17 and 257 groups of its tiles; dict_indices also on testing/synth.dict_indices_edge_cases:
               sizes around its tile, one key over 2**20 rows, two keys
               across warp and tile boundaries, first rows in the last tile,
               32 keys a warp, at 32 and 64 bits; plain_bytearray_encode
@@ -1077,11 +1089,18 @@ def check_batch_kernels(dev, rows: dict) -> None:
     """record_starts, list_layout, pad_ragged and expand_nullable against
     their plain versions on the card, bit for bit, at the edge shapes; then
     pad_ragged on testing/synth.pad_ragged_edge_cases, each with its rows
-    and the kernel's tile."""
+    and the kernel's tile or span, record_starts on
+    testing/synth.record_starts_edge_cases and over 4,097 tiles, and
+    pad_ragged on rows of 2**27 and 2**31 + 4096 columns."""
     import torch
 
     from parquet_tpu_torch.kernels import device_ops as ops
-    from parquet_tpu_torch.testing.synth import pad_ragged_edge_cases, pad_ragged_tile_rows
+    from parquet_tpu_torch.testing.synth import (
+        pad_ragged_edge_cases,
+        pad_ragged_tile_rows,
+        pad_ragged_wide,
+        record_starts_edge_cases,
+    )
 
     counts = dict.fromkeys(("record_starts", "list_layout", "pad_ragged", "expand_nullable"), 0)
     for name, label, args in batch_kernel_cases(np.random.default_rng(SEED), dev):
@@ -1095,9 +1114,100 @@ def check_batch_kernels(dev, rows: dict) -> None:
                 case.max_len)
         hold_plain(rows, "pad_ragged", case.label, ops.pad_ragged(*args),
                    ops.pad_ragged_plain(*args))
-        labels.append(f"{case.label} ({len(case.lengths)} rows, tiles of "
-                      f"{pad_ragged_tile_rows(max(case.max_len, 1), case.values.itemsize)})")
+        e = case.values.itemsize
+        labels.append(f"{case.label} ({len(case.lengths)} rows, "
+                      + (f"spans of {ops.PAD_RAGGED_TILE_BYTES} bytes)"
+                         if pad_ragged_wide(case.max_len, e) else
+                         f"tiles of {pad_ragged_tile_rows(max(case.max_len, 1), e)})"))
     log(f"  pad_ragged edge cases equal to the plain version: {'; '.join(labels)}")
+    labels = []
+    for label, rep in record_starts_edge_cases(ops.RECORD_STARTS_TILE, SEED):
+        r = torch.from_numpy(rep).to(dev)
+        hold_plain(rows, "record_starts", label, ops.record_starts(r), ops.record_starts_plain(r))
+        labels.append(f"{label} (n={len(rep)})")
+    # a look-back over 4,097 tiles
+    n = 4097 * ops.RECORD_STARTS_TILE + 5
+    r = torch.from_numpy(np.random.default_rng(SEED + 11).integers(0, 3, n, dtype=np.int32)).to(dev)
+    hold_plain(rows, "record_starts", "4,097 tiles", ops.record_starts(r),
+               ops.record_starts_plain(r))
+    labels.append(f"4,097 tiles (n={n})")
+    del r
+    log(f"  record_starts edge cases equal to the plain version: {'; '.join(labels)}")
+    check_pad_giant(dev, rows)
+
+
+# pad_ragged's rows of 2^27 columns: one row of 128 MiB (uint8), and 17
+# rows, one of them full, whose 16-row tile would pass 2^31 elements
+PAD_GIANT = 1 << 27
+
+
+def hold_pad_blocks(rows: dict, label: str, got, values, lengths, max_len: int,
+                    block: int = 4) -> None:
+    """pad_ragged's output held against pad_ragged_plain block of rows by
+    block: each block padded by the plain version behind one leading row
+    whose length is the int32 sum of the earlier rows (the plain version's
+    offsets then wrap as over the whole), so its index matrix stays small."""
+    import torch
+
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    n = lengths.numel()
+    before = torch.cumsum(lengths, 0, dtype=torch.int32)
+    for r0 in range(0, n, block):
+        r1 = min(r0 + block, n)
+        part = lengths[r0:r1]
+        if r0:
+            part = torch.cat([before[r0 - 1 : r0].to(lengths.dtype), part])
+        plain = ops.pad_ragged_plain(values, part, max_len)[1 if r0 else 0 :]
+        hold_plain(rows, "pad_ragged", f"{label}, rows {r0}-{r1 - 1}", got[r0:r1], plain)
+        del plain
+
+
+def check_pad_giant(dev, rows: dict) -> None:
+    """pad_ragged on rows of PAD_GIANT columns and on one row of 2**31 +
+    4096 (its span kernel), held against the plain version, and the one-row
+    case of PAD_GIANT timed beside its bound."""
+    import torch
+
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    one = torch.tensor([PAD_GIANT - 5], dtype=torch.int64, device=dev)
+    values = torch.randint(0, 256, (PAD_GIANT - 5,), dtype=torch.uint8, device=dev, generator=gen)
+    got = ops.pad_ragged(values, one, PAD_GIANT)
+    hold_pad_blocks(rows, "one row of 2**27 uint8", got, values, one, PAD_GIANT)
+    del got
+    # bytes: the length, the values read and the row written
+    g_bytes = 8 + values.numel() + PAD_GIANT
+    giant = {"shape": f"one row, max_len={PAD_GIANT} uint8, nv={values.numel()}",
+             "ms": device_ms(lambda: ops.pad_ragged(values, one, PAD_GIANT), reps=5),
+             "bound_ms": max(g_bytes / mem_bandwidth(torch.cuda.get_device_name(0)),
+                             10 * PAD_GIANT / OPS_PER_S) * 1e3}
+    rows["pad_ragged"]["giant"] = giant
+    lengths = np.random.default_rng(SEED + 13).integers(0, 1000, 17).astype(np.int32)
+    lengths[7] = PAD_GIANT
+    lengths = torch.from_numpy(lengths).to(dev)
+    values = torch.randint(0, 256, (int(lengths.sum()),), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    got = ops.pad_ragged(values, lengths, PAD_GIANT)
+    hold_pad_blocks(rows, "17 rows of 2**27 uint8, one full", got, values, lengths, PAD_GIANT)
+    del got, values
+    torch.cuda.empty_cache()
+    # one row of 2**31 + 4096 columns (an int64 length): max_len reaches the
+    # kernel whole, and the columns past 2**31 - 1 enter as the reference's
+    # int32 arange gives them, wrapping (kept, reading values[0]); the plain
+    # version's index matrices take about 42 GiB of the card
+    huge = (1 << 31) + 4096
+    one = torch.tensor([huge - 3], dtype=torch.int64, device=dev)
+    values = torch.randint(0, 256, (1 << 20,), dtype=torch.uint8, device=dev, generator=gen)
+    got = ops.pad_ragged(values, one, huge)
+    hold_pad_blocks(rows, "one row of 2**31 + 4096 uint8", got, values, one, huge)
+    del got, values
+    torch.cuda.empty_cache()
+    log(f"  pad_ragged at max_len 2**27 equal to the plain version (one row; 17 rows, one "
+        f"full), and at max_len 2**31 + 4096 (one row); one row of 2**27 {giant['ms']:.4f} ms, "
+        f"bound {giant['bound_ms']:.4f} ms")
 
 
 def time_batch_kernels(sessions_path, taxi_path, dev, rows: dict, bw: float) -> None:
@@ -1647,14 +1757,16 @@ def write_kernel_cases(rng, dev):
 
 def check_write_kernels(dev, rows: dict) -> None:
     """The write kernels against their plain versions on the card, bit for
-    bit, at the edge shapes; dict_indices also on
-    testing/synth.dict_indices_edge_cases."""
+    bit, at the edge shapes; dict_indices, plain_bytearray_encode and
+    rle_hybrid_encode also on testing/synth's dict_indices_edge_cases,
+    bytearray_frame_edge_cases and rle_plan_edge_cases."""
     from parquet_tpu_torch.kernels import device_ops as ops
     from parquet_tpu_torch.kernels.pipeline import to_device
     from parquet_tpu_torch.testing.synth import (
         bytearray_frame_edge_cases,
         dict_indices_edge_cases,
         frame_args,
+        rle_plan_edge_cases,
     )
 
     counts = dict.fromkeys(WRITE_KERNELS, 0)
@@ -1676,6 +1788,55 @@ def check_write_kernels(dev, rows: dict) -> None:
                    ops.plain_bytearray_encode_plain(*args))
         labels.append(f"{case.label} (n={len(case.offsets) - 1}, out_len={case.out_len})")
     log(f"  plain_bytearray_encode edge cases equal to the plain version: {'; '.join(labels)}")
+    labels = []
+    for label, values, width in rle_plan_edge_cases(ops.RLE_PLAN_TILE, SEED):
+        v = to_device(values.view(np.int32), dev)
+        hold_plain(rows, "rle_hybrid_encode", label, ops.rle_hybrid_encode(v, width),
+                   ops.rle_hybrid_encode_plain(v, width))
+        labels.append(f"{label} (n={len(values)})")
+    log(f"  rle_hybrid_encode edge cases equal to the plain version: {'; '.join(labels)}")
+    check_rle_rounds(dev, rows)
+
+
+def rle_round_pages(n: int, seed: int) -> list:
+    """(label, uint32 values < 8) pages of n values for rle_hybrid_encode's
+    record walks: all bit-packed (runs of 3), run-heavy (runs of 1-3,000 and
+    one of 600,000, which covers whole groups of tiles) and short mixed runs
+    (1-30)."""
+    rng = np.random.default_rng(seed)
+    heavy = np.repeat(rng.integers(0, 8, n // 1000), rng.integers(1, 3000, n // 1000))
+    heavy = np.concatenate([heavy[: n // 3], np.full(600_000, 5), heavy[n // 3 :]])
+    mixed = np.repeat(rng.integers(0, 8, n // 10), rng.integers(1, 30, n // 10))
+    return [("all bit-packed", (np.arange(n) // 3) % 8),
+            ("run-heavy", heavy[:n]), ("mixed runs", mixed[:n])]
+
+
+def check_rle_rounds(dev, rows: dict) -> None:
+    """rle_hybrid_encode against its plain version on pages of several groups
+    of RLE_PLAN_GROUP tiles (group_plans sums each group's tile records, and
+    place walks the group records, then its group's tiles): 2**20 values (4
+    groups), 2**22 + 777 (17, the last partial) and 2**26 + 777 (257: two
+    rounds of the walk over group records); each size's pages twice in
+    turns, so each call reuses the last call's buffers, which held another
+    page's plan."""
+    from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.kernels.pipeline import to_device
+
+    for n in (1 << 20, (1 << 22) + 777, (1 << 26) + 777):
+        pages = []
+        for label, values in rle_round_pages(n, SEED + 17):
+            assert len(values) == n
+            v = to_device(values.astype(np.int32), dev)
+            pages.append((label, v, ops.rle_hybrid_encode_plain(v, 3)))
+        for turn in range(2):
+            for label, v, plain in pages:
+                hold_plain(rows, "rle_hybrid_encode", f"{label}, n={n}, turn {turn}",
+                           ops.rle_hybrid_encode(v, 3), plain)
+        kept = ", ".join(f"{label} n_bp={int(plain[3])}" for label, _, plain in pages)
+        groups = -(-n // (ops.RLE_PLAN_TILE * ops.RLE_PLAN_GROUP))
+        log(f"  rle_hybrid_encode equal to the plain version at n={n} ({groups} groups of "
+            f"tiles; {kept}), two turns")
+        del pages
 
 
 def write_groups(specs) -> list[dict]:

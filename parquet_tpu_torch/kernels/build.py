@@ -64,8 +64,8 @@ SIGNATURES = {
     "pqt_scan_tile": (),
     "pqt_record_starts": (_P, _LL, _P, _P, _P, _P),
     "pqt_list_layout": (_P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P),
-    "pqt_pad_ragged_scratch_words": (_LL, _I, _I),
-    "pqt_pad_ragged": (_P, _LL, _I, _P, _I, _LL, _I, _P, _P, _P),
+    "pqt_pad_ragged_scratch_words": (_LL, _LL, _I),
+    "pqt_pad_ragged": (_P, _LL, _I, _P, _I, _LL, _LL, _P, _P, _P),
     "pqt_expand_nullable": (_P, _LL, _I, _P, _LL, _P, _P, _P, _P),
     "pqt_predicate_mask": (
         _P, _LL, _I, _I, _LL, _LL, _D, _D, _I, _ULL, _P, _P, _I, _P, _P,
@@ -77,7 +77,7 @@ SIGNATURES = {
     "pqt_mask_take": (_P, _LL, _LL, _P, _LL, _I, _P, _P, _P, _P),
     "pqt_take_rows": (_P, _LL, _LL, _I, _P, _P, _LL, _P, _P),
     "pqt_bitpack_encode": (_P, _LL, _I, _P, _LL, _P),
-    "pqt_rle_hybrid_plan": (_P, _LL, _P, _P, _P, _P, _P, _P, _P),
+    "pqt_rle_hybrid_plan": (_P, _LL, _P, _P, _P, _P, _P, _P),
     "pqt_dict_indices_scratch_words": (_LL,),
     "pqt_dict_indices": (_P, _LL, _I, _P, _P, _P, _P, _P),
     "pqt_delta_block_encode": (_P, _LL, _I, _P, _P, _P, _P, _P, _P),

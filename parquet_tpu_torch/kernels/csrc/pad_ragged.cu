@@ -33,6 +33,20 @@
 //      global memory. The output's last chunk, when the matrix is not a
 //      multiple of 16 bytes, is stored element by element.
 //
+// A row whose output exceeds kTileBytes (wide rows, of any max_len: a
+// 16-row tile of 2^27 columns would pass 2^31 elements) takes launch 2 as
+// pad_wide instead: each block writes one kTileBytes span of the flat
+// output (16-byte aligned, as the spans are), which lies in one row or
+// crosses into the next, so the block needs two rows' offsets and lengths.
+// It finds its row and first column by one 64-bit division, reduces the
+// tile sums before the row's tile and the lengths of the tile's rows before
+// it, and indexes the span in 32 bits from its start. The column j enters
+// as the reference's int32 arange does, wrapping past 2^31 - 1: the slot is
+// kept when int32(j) < lengths[r] (in the length's type) and reads
+// values[clip(int32(offs[r] + j), 0, nv - 1)]. Tiles of wide rows take
+// kTileRows rows (they only carry length sums), so every 32-bit index of
+// pad stays below 16 x kTileBytes.
+//
 // Bound on an H100: memory. Bytes: lengths read once (4 or 8 B per row), the
 // elements read once (E B each) and the padded matrix written once
 // (rows x max_len x E). Beyond them: the lengths read a second time (from
@@ -43,7 +57,6 @@
 // there; and why no staging: copying a tile's source span into shared
 // memory first lost to these direct reads in every A/B.
 
-#include <climits>
 #include <cstdint>
 #include <cub/block/block_reduce.cuh>
 #include <cub/block/block_scan.cuh>
@@ -54,7 +67,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kItems = 2;
 constexpr int kTileRows = kThreads * kItems;  // device_ops.PAD_RAGGED_TILE
-constexpr int kTileBytes = 32768;  // output bytes a tile of wide rows aims at
+constexpr int kTileBytes = 32768;  // output bytes a tile aims at; a span of wider rows
 static_assert(kTileRows % 16 == 0, "16-byte aligned tiles");
 
 using U = uint32_t;
@@ -64,17 +77,24 @@ struct Args {
   long long nv;
   const void* lengths;
   long long rows;
-  int max_len;
+  long long max_len;
   int tile_rows;
   uint32_t div_mul;  // q / max_len = __umulhi(q, div_mul) >> div_shift, q < 2^31
   int div_shift;
   uint8_t* out;
 };
 
+// A row's output exceeds a tile's aim: pad_wide writes it in spans.
+inline bool wide_rows(long long max_len, int elem_bytes) {
+  return max_len * elem_bytes > kTileBytes;
+}
+
 // Rows a tile takes: kTileRows, or fewer (a multiple of 16, at least 16)
-// when a row's output is wide.
-inline int tile_rows_for(int max_len, int elem_bytes) {
-  const long long row_bytes = (long long)max_len * elem_bytes;
+// when a row's output is wide; kTileRows again for wide rows, whose tiles
+// only carry length sums.
+inline int tile_rows_for(long long max_len, int elem_bytes) {
+  const long long row_bytes = max_len * elem_bytes;
+  if (wide_rows(max_len, elem_bytes)) return kTileRows;
   long long t = row_bytes > 0 ? kTileBytes / row_bytes : kTileRows;
   t = t / 16 * 16;
   return (int)(t < 16 ? 16 : (t > kTileRows ? kTileRows : t));
@@ -110,6 +130,7 @@ __global__ void __launch_bounds__(kThreads) pad(Args a, const uint32_t* __restri
   const long long tile = blockIdx.x;
   const long long r_begin = tile * a.tile_rows;
   const int n_rows = (int)min((long long)a.tile_rows, a.rows - r_begin);
+  const int max_len = (int)a.max_len;  // narrow rows: at most kTileBytes
   const L* len = (const L*)a.lengths + r_begin;
   U items[kItems];
   L lv[kItems];
@@ -134,7 +155,7 @@ __global__ void __launch_bounds__(kThreads) pad(Args a, const uint32_t* __restri
     const int row = threadIdx.x * kItems + k;
     if (row < n_rows) {
       s_off[row] = (int32_t)(prefix + items[k] - (U)(int32_t)lv[k]);
-      s_lim[row] = lv[k] <= 0 ? 0 : ((long long)lv[k] < a.max_len ? (int)lv[k] : a.max_len);
+      s_lim[row] = lv[k] <= 0 ? 0 : ((long long)lv[k] < max_len ? (int)lv[k] : max_len);
     }
   }
   __syncthreads();
@@ -142,13 +163,13 @@ __global__ void __launch_bounds__(kThreads) pad(Args a, const uint32_t* __restri
   // aligned 16-byte chunks of the tile's output block
   constexpr int kV = 16 / (int)sizeof(E);
   const E* vals = reinterpret_cast<const E*>(a.values);
-  const uint32_t elems = (uint32_t)n_rows * (uint32_t)a.max_len;
-  E* out = reinterpret_cast<E*>(a.out) + r_begin * a.max_len;
+  const uint32_t elems = (uint32_t)n_rows * (uint32_t)max_len;
+  E* out = reinterpret_cast<E*>(a.out) + r_begin * max_len;
   const uint32_t n_chunks = (elems + kV - 1) / kV;
   for (uint32_t c = threadIdx.x; c < n_chunks; c += kThreads) {
     const uint32_t q = c * kV;
-    int row = a.max_len == 1 ? (int)q : (int)(__umulhi(q, a.div_mul) >> a.div_shift);
-    int j = (int)(q - (uint32_t)row * (uint32_t)a.max_len);
+    int row = max_len == 1 ? (int)q : (int)(__umulhi(q, a.div_mul) >> a.div_shift);
+    int j = (int)(q - (uint32_t)row * (uint32_t)max_len);
     int lim = s_lim[row];
     int32_t off = s_off[row];
     union {
@@ -164,7 +185,7 @@ __global__ void __launch_bounds__(kThreads) pad(Args a, const uint32_t* __restri
         x = __ldg(vals + (idx < 0 ? 0 : (idx >= a.nv ? a.nv - 1 : idx)));
       }
       v.e[e] = x;
-      if (++j == a.max_len && e + 1 < kV) {
+      if (++j == max_len && e + 1 < kV) {
         j = 0;
         if (++row < n_rows) {
           lim = s_lim[row];
@@ -182,31 +203,106 @@ __global__ void __launch_bounds__(kThreads) pad(Args a, const uint32_t* __restri
   }
 }
 
+// One kTileBytes span of the flat output of wide rows a block; the span
+// starts in row r = first / max_len and at most crosses into row r + 1.
 template <typename E, typename L>
-int launch(const Args& a, long long ntiles, uint32_t* sums, cudaStream_t s) {
+__global__ void __launch_bounds__(kThreads) pad_wide(Args a, const uint32_t* __restrict__ sums) {
+  using BlockReduce = cub::BlockReduce<U, kThreads>;
+  __shared__ typename BlockReduce::TempStorage temp;
+  __shared__ uint32_t s_off[2];  // offs + the part's first column, wrapping
+  __shared__ long long s_len[2];
+  constexpr int kSpan = kTileBytes / (int)sizeof(E);
+  const long long first = (long long)blockIdx.x * kSpan;
+  const long long row = first / a.max_len;
+  const long long j0 = first - row * a.max_len;
+  const uint32_t col0 = (uint32_t)j0;  // the first column, mod 2^32
+  const int elems = (int)min((long long)kSpan, a.rows * a.max_len - first);
+  // the span's slots in row `row`; the rest lie in row + 1
+  const int cut = (int)min((long long)elems, a.max_len - j0);
+  const L* len = (const L*)a.lengths;
+  // the row's offset: the wrapping sum of the tile sums before its tile and
+  // of the lengths of its tile's rows before it
+  const long long tile = row / a.tile_rows;
+  U p = 0;
+  for (long long u = threadIdx.x; u < tile; u += kThreads) p += __ldg(sums + u);
+  for (long long r = tile * a.tile_rows + threadIdx.x; r < row; r += kThreads)
+    p += (U)(int32_t)len[r];
+  p = BlockReduce(temp).Sum(p);
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 2; ++k) {
+      const L l = row + k < a.rows ? len[row + k] : L(0);
+      s_off[k] = k ? p : p + col0;
+      s_len[k] = (long long)l;
+      p += (U)(int32_t)l;
+    }
+  }
+  __syncthreads();
+  const uint32_t off0 = s_off[0], off1 = s_off[1];
+  const long long len0 = s_len[0], len1 = s_len[1];
+
+  constexpr int kV = 16 / (int)sizeof(E);
+  const E* vals = reinterpret_cast<const E*>(a.values);
+  E* out = reinterpret_cast<E*>(a.out) + first;
+  const int n_chunks = (elems + kV - 1) / kV;
+  for (int c = threadIdx.x; c < n_chunks; c += kThreads) {
+    const int q = c * kV;
+    union {
+      uint4 u;
+      E e[kV];
+    } v;
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      const bool next = q + e >= cut;  // in row + 1
+      const uint32_t t = (uint32_t)(next ? q + e - cut : q + e);  // slots into the part
+      E x = E(0);
+      // the reference's int32 column, then its int32 offset, wrapping, and
+      // its clip
+      if ((long long)(int32_t)(next ? t : col0 + t) < (next ? len1 : len0) && a.nv > 0) {
+        const int32_t idx = (int32_t)((next ? off1 : off0) + t);
+        x = __ldg(vals + (idx < 0 ? 0 : (idx >= a.nv ? a.nv - 1 : idx)));
+      }
+      v.e[e] = x;
+    }
+    if (q + kV <= elems) {
+      *reinterpret_cast<uint4*>(out + q) = v.u;
+    } else {
+      for (int e = 0; q + e < elems; ++e) out[q + e] = v.e[e];
+    }
+  }
+}
+
+template <typename E, typename L>
+int launch(const Args& a, long long ntiles, bool wide, uint32_t* sums, cudaStream_t s) {
   tile_sums<L><<<(unsigned)ntiles, kThreads, 0, s>>>((const L*)a.lengths, a.rows, a.tile_rows,
                                                       sums);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  pad<E, L><<<(unsigned)ntiles, kThreads, 0, s>>>(a, sums);
+  if (wide) {
+    constexpr long long kSpan = kTileBytes / (long long)sizeof(E);
+    const long long spans = (a.rows * a.max_len + kSpan - 1) / kSpan;
+    pad_wide<E, L><<<(unsigned)spans, kThreads, 0, s>>>(a, sums);
+  } else {
+    pad<E, L><<<(unsigned)ntiles, kThreads, 0, s>>>(a, sums);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename L>
-int by_width(int elem_bytes, const Args& a, long long ntiles, uint32_t* sums, cudaStream_t s) {
+int by_width(int elem_bytes, const Args& a, long long ntiles, bool wide, uint32_t* sums,
+             cudaStream_t s) {
   switch (elem_bytes) {
     case 1:
-      return launch<uint8_t, L>(a, ntiles, sums, s);
+      return launch<uint8_t, L>(a, ntiles, wide, sums, s);
     case 4:
-      return launch<uint32_t, L>(a, ntiles, sums, s);
+      return launch<uint32_t, L>(a, ntiles, wide, sums, s);
     case 8:
-      return launch<unsigned long long, L>(a, ntiles, sums, s);
+      return launch<unsigned long long, L>(a, ntiles, wide, sums, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-inline long long num_tiles(long long rows, int max_len, int elem_bytes) {
+inline long long num_tiles(long long rows, long long max_len, int elem_bytes) {
   const int t = tile_rows_for(max_len, elem_bytes);
   return (rows + t - 1) / t;
 }
@@ -215,19 +311,17 @@ inline long long num_tiles(long long rows, int max_len, int elem_bytes) {
 
 // 64-bit words of scratch (the tiles' length sums) a padding of `rows` rows
 // needs.
-extern "C" int pqt_pad_ragged_scratch_words(long long rows, int max_len, int elem_bytes) {
+extern "C" int pqt_pad_ragged_scratch_words(long long rows, long long max_len, int elem_bytes) {
   return (int)((num_tiles(rows, max_len, elem_bytes) + 1) / 2);
 }
 
 // `out` (rows x max_len elements) must be 16-byte aligned; `scratch` holds
-// pqt_pad_ragged_scratch_words 64-bit words. max_len * 16 must stay below
-// 2^31.
+// pqt_pad_ragged_scratch_words 64-bit words.
 extern "C" int pqt_pad_ragged(const void* values, long long nv, int elem_bytes,
                               const void* lengths, int len_bytes, long long rows,
-                              int max_len, void* out, void* scratch, void* stream) {
+                              long long max_len, void* out, void* scratch, void* stream) {
   if (rows <= 0 || max_len <= 0) return 0;
-  if ((len_bytes != 4 && len_bytes != 8) || (long long)max_len * 16 > INT_MAX ||
-      (uintptr_t)out % 16 != 0)
+  if ((len_bytes != 4 && len_bytes != 8) || (uintptr_t)out % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   Args a;
@@ -237,15 +331,18 @@ extern "C" int pqt_pad_ragged(const void* values, long long nv, int elem_bytes,
   a.rows = rows;
   a.max_len = max_len;
   a.tile_rows = tile_rows_for(max_len, elem_bytes);
-  // q / d for 0 <= q < 2^31 and d >= 2: p = 31 + ceil(log2 d), m = ceil(2^p / d)
-  // (CUTLASS's FastDivmod); d == 1 divides by nothing
+  const bool wide = wide_rows(max_len, elem_bytes);
+  // pad's q / d for 0 <= q < 2^31 and 2 <= d <= kTileBytes: p = 31 +
+  // ceil(log2 d), m = ceil(2^p / d) (CUTLASS's FastDivmod); d == 1 divides
+  // by nothing. pad's q stays below 16 x kTileBytes; pad_wide does not
+  // divide per slot.
   int l = 0;
-  while ((1LL << l) < max_len) ++l;
-  a.div_mul = max_len > 1 ? (uint32_t)(((1ULL << (31 + l)) + max_len - 1) / max_len) : 0u;
-  a.div_shift = max_len > 1 ? l - 1 : 0;
+  while (!wide && (1LL << l) < max_len) ++l;
+  a.div_mul = !wide && max_len > 1 ? (uint32_t)(((1ULL << (31 + l)) + max_len - 1) / max_len) : 0u;
+  a.div_shift = !wide && max_len > 1 ? l - 1 : 0;
   a.out = (uint8_t*)out;
   const long long ntiles = num_tiles(rows, max_len, elem_bytes);
   auto* sums = (uint32_t*)scratch;
-  return len_bytes == 4 ? by_width<int32_t>(elem_bytes, a, ntiles, sums, s)
-                        : by_width<long long>(elem_bytes, a, ntiles, sums, s);
+  return len_bytes == 4 ? by_width<int32_t>(elem_bytes, a, ntiles, wide, sums, s)
+                        : by_width<long long>(elem_bytes, a, ntiles, wide, sums, s);
 }

@@ -1,4 +1,6 @@
-// Device-wide inclusive prefix scan over int32 or int64, in three passes:
+// Device-wide prefix scans and searches.
+//
+// The three-pass inclusive scan over int32 or int64 (run):
 //
 //   1. tile_scan: each block of kThreads x kItems elements loads its items
 //      through a functor, scans them (cub::BlockScan: warp shuffles and
@@ -16,28 +18,44 @@
 // wrappers size the latter with pqt_scan_tile() (record_starts.cu). Nothing
 // here allocates or synchronizes; every launch goes to the given stream.
 //
-// The three-pass scan (run) is used by record_starts.cu, list_layout.cu,
-// expand_nullable.cu, leaf_verdict.cu, list_contains_mask.cu,
-// rle_hybrid_encode.cu and delta_block_encode.cu; the single-pass segmented
+// The one-pass inclusive scan over vectors (run1): a memset of the
+// descriptors of the decoupled look-back below, then one launch whose
+// blocks each take a tile of kBlock x kItems items (next_tile), load it a
+// vector of kVec items at a time (a loader is `void operator()(long long
+// first, T (&items)[kVec]) const`: the items first .. first + kVec - 1,
+// zero past n), sum it with warp shuffles, look back for the earlier tiles'
+// sum (seg_look_back) and hand each vector's inclusive sums to the
+// epilogue (`void operator()(long long first, const T (&incl)[kVec])
+// const`, called for every vector, also past n), which may write them as
+// one 16-byte store. No n-element scratch and no pass over the tile sums:
+// at record_starts' 8 M entries it beat a two-launch scan (tile sums, then
+// blocks that reduce them and scan their tile again) on an H100 (PERF.md
+// §6).
+//
+// The three-pass scan (run) is used by list_layout.cu, expand_nullable.cu,
+// leaf_verdict.cu, list_contains_mask.cu and delta_block_encode.cu; the
+// one-pass vector scan (run1) by record_starts.cu; the single-pass segmented
 // scan below (seg_tile_scan) by delta_packed_decode.cu and, with no flag set,
 // merge_mixed_bytes.cu and dict_indices.cu; the
 // searches (count_le, warp_count_le2) by merge_mixed_bytes.cu,
 // expand_hybrid.cu and delta_packed_decode.cu.
-// A load functor is `T operator()(long long i) const`, called for i < n; an
-// epilogue is `void operator()(long long i, T incl, T total) const`. Sums
-// are exact as long as they fit T (the wrappers keep n below 2^31).
+// A load functor of run is `T operator()(long long i) const`, called for
+// i < n; an epilogue is `void operator()(long long i, T incl, T total)
+// const`. Sums are exact as long as they fit T (the wrappers keep n below
+// 2^31).
 //
-// Bound on an H100: memory. Pass 1 reads the inputs and writes `partial`,
-// pass 3 reads it back: 2 x sizeof(T) bytes per element beyond the inputs
-// and outputs (the single-pass scan writes 16 bytes a tile instead). 64-bit
-// scans need the 256-thread cap of __launch_bounds__ (a 1,024-thread
-// 64-bit BlockScan asked for more registers than an SM has).
+// Bound on an H100: memory. run's pass 1 reads the inputs and writes
+// `partial`, pass 3 reads it back: 2 x sizeof(T) bytes per element beyond
+// the inputs and outputs (the single-pass scans write 16 bytes a tile
+// instead). 64-bit scans need the 256-thread cap of __launch_bounds__ (a
+// 1,024-thread 64-bit BlockScan asked for more registers than an SM has).
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <cub/block/block_scan.cuh>
+#include <type_traits>
 
 namespace {
 namespace scan {
@@ -307,6 +325,104 @@ __device__ __forceinline__ void seg_tile_scan(
     bool first_resets) {
   SegTilePrefix<U> prefix{d, tile, first_resets};
   SegBlockScan<U, kBlock>(temp).InclusiveScan(items, items, SegOp<U>(), prefix);
+}
+
+// ---------------------------------------------------------------------------
+// One-pass inclusive scan over vectors (run1; see the top of this file). A
+// tile is kBlock x kItems items in warp-striped order: warp w takes the w-th
+// run of 32 x kItems items, and its lane l the vectors l, l + 32, ... (kVec
+// items each) of that run, so each vector access of a warp covers 32
+// consecutive vectors. (A thread's kItems consecutive items, 64-128 bytes
+// apart from its neighbours', ran at half the speed on an H100.)
+
+template <int kBlock, int kItems, int kVec>
+__device__ __forceinline__ long long vec_first(long long tile, int j) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  return tile * (kBlock * kItems) + (long long)warp * (32 * kItems) +
+         (long long)(j * 32 + lane) * kVec;
+}
+
+template <typename T, int kBlock, int kItems, int kVec, typename Load, typename Epi>
+__global__ void __launch_bounds__(kBlock) vec_scan(Load load, Epi epi, SegTiles d) {
+  using U = typename std::make_unsigned<T>::type;
+  constexpr int kVecs = kItems / kVec, kWarps = kBlock / 32;
+  __shared__ unsigned int slot;
+  __shared__ U s_warp[kWarps];
+  __shared__ U s_prefix;
+  const long long tile = next_tile(d, &slot);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T v[kVecs][kVec];
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) load(vec_first<kBlock, kItems, kVec>(tile, j), v[j]);
+  // each vector's exclusive prefix in its warp's run: vectors in order
+  // (j, lane), a warp scan a row
+  U excl[kVecs];
+  U run = U(0);
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    U s = U(0);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) s += U(v[j][e]);
+    U x = s;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const U y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    excl[j] = run + x - s;
+    run += __shfl_sync(0xffffffffu, x, 31);
+  }
+  if (lane == 0) s_warp[warp] = run;
+  __syncthreads();
+  U before = U(0), agg = U(0);
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) before += s_warp[w];
+    agg += s_warp[w];
+  }
+  // warp 0 publishes the tile's sum and looks back for its prefix
+  if (warp == 0) {
+    U prefix = U(0);
+    if (tile == 0) {
+      if (lane == 0) d.publish(tile, kSegPrefix, (unsigned long long)agg);
+    } else {
+      if (lane == 0) d.publish(tile, kSegAggregate, (unsigned long long)agg);
+      prefix = seg_look_back<U>(d, tile);
+      if (lane == 0) d.publish(tile, kSegPrefix, (unsigned long long)U(prefix + agg));
+    }
+    if (lane == 0) s_prefix = prefix;
+  }
+  __syncthreads();
+  const U prefix = s_prefix + before;
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    U acc = prefix + excl[j];
+    T incl[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      acc += U(v[j][e]);
+      incl[e] = T(acc);
+    }
+    epi(vec_first<kBlock, kItems, kVec>(tile, j), incl);
+  }
+}
+
+// The descriptors' memset and the scan on `stream`; `descriptors` holds
+// seg_scratch_words(ceil(n / (kBlock * kItems))) words. Returns the first
+// failing call's cudaError_t.
+template <typename T, int kBlock, int kItems, int kVec, typename Load, typename Epi>
+int run1(Load load, Epi epi, long long n, unsigned long long* descriptors,
+         cudaStream_t stream) {
+  static_assert(kBlock % 32 == 0 && kItems % kVec == 0, "whole warps and vectors");
+  if (n <= 0) return 0;
+  const long long ntiles = (n + kBlock * kItems - 1) / (kBlock * kItems);
+  int rc = (int)cudaMemsetAsync(descriptors, 0,
+                                (size_t)seg_scratch_words(ntiles) * sizeof(unsigned long long),
+                                stream);
+  if (rc) return rc;
+  vec_scan<T, kBlock, kItems, kVec, Load, Epi><<<(unsigned)ntiles, kBlock, 0, stream>>>(
+      load, epi, SegTiles{descriptors, ntiles});
+  return (int)cudaGetLastError();
 }
 
 }  // namespace scan

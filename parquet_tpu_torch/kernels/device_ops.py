@@ -49,6 +49,7 @@ __all__ = [
     "MERGE_BYTES_TILE",
     "record_starts",
     "record_starts_plain",
+    "RECORD_STARTS_TILE",
     "list_layout",
     "list_layout_plain",
     "pad_ragged",
@@ -76,6 +77,7 @@ __all__ = [
     "bitpack_encode_plain",
     "rle_hybrid_encode",
     "rle_hybrid_encode_plain",
+    "RLE_PLAN_TILE",
     "dict_indices",
     "dict_indices_plain",
     "DICT_INDICES_TILE",
@@ -714,9 +716,10 @@ merge_mixed_bytes.launches = 0
 
 # -- the batch path: record starts, list layout, ragged padding, nulls ---------
 #
-# Four scans (kernels/csrc/scan.cuh) with their epilogues. The scans carry a
-# scratch the wrapper allocates: a partial buffer of the scan's dtype and
-# num_tiles + 1 tile sums (pqt_scan_tile() elements per tile).
+# Scans (kernels/csrc/scan.cuh) with their epilogues. The three-pass scans
+# carry a scratch the wrapper allocates: a partial buffer of the scan's dtype
+# and num_tiles + 1 tile sums (pqt_scan_tile() elements per tile);
+# record_starts' one-pass scan only its look-back descriptors.
 
 _INT32_LIMIT = 1 << 31
 # dtypes the byte-width kernels copy (1-, 4- and 8-byte elements)
@@ -757,6 +760,11 @@ def record_starts_plain(rep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return row_of, starts.sum(dtype=torch.int64)
 
 
+# Entries a tile of the record-starts kernel scans (kThreads * kItems of
+# kernels/csrc/record_starts.cu, pinned by a test).
+RECORD_STARTS_TILE = 8192
+
+
 def record_starts(rep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Which record each level entry belongs to: row_of int32[n] (the
     inclusive count of rep == 0 minus 1, so -1 for leading entries that start
@@ -774,10 +782,11 @@ def record_starts(rep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return row_of, torch.zeros((), dtype=torch.int64, device=dev)
     n_rows = torch.empty((), dtype=torch.int64, device=dev)
     lib = _lib()
-    tile_sums = _tile_sums(lib, n, torch.int32, dev)
+    # the look-back's descriptors: a counter, a pad word and 16 bytes a tile
+    descriptors = torch.empty(2 + 2 * -(-n // RECORD_STARTS_TILE), dtype=torch.int64, device=dev)
     _launch(
         "record_starts", dev, lib.pqt_record_starts,
-        _ptr(rep), n, _ptr(row_of), _ptr(n_rows), _ptr(tile_sums),
+        _ptr(rep), n, _ptr(row_of), _ptr(n_rows), _ptr(descriptors),
     )
     record_starts.launches += 1
     return row_of, n_rows
@@ -894,8 +903,6 @@ def pad_ragged(values: torch.Tensor, lengths: torch.Tensor, max_len: int) -> tor
     _check_len(max(rows, nv), "pad_ragged")
     if _on_cpu(values, lengths):
         return pad_ragged_plain(values, lengths, max_len)
-    if 16 * max_len >= _INT32_LIMIT:
-        raise ValueError(f"pad_ragged: max_len {max_len} too wide for the kernel's tiles")
     dev = values.device
     out = torch.empty((rows, max_len), dtype=values.dtype, device=dev)
     if not rows * max_len:
@@ -1564,6 +1571,13 @@ def rle_hybrid_encode_plain(values: torch.Tensor, width: int):
     return in_rle, rle_break, bitpack_encode_plain(bp[:n], width), keep.sum(dtype=torch.int32)
 
 
+# Values a tile of the run-plan kernel takes, and tiles a group of it
+# (kThreads * kItems and kGroup of kernels/csrc/rle_hybrid_encode.cu, pinned
+# by a test).
+RLE_PLAN_TILE = 1024
+RLE_PLAN_GROUP = 256
+
+
 def rle_hybrid_encode(values: torch.Tensor, width: int):
     """The device half of the RLE/bit-pack hybrid encode of uint32 values
     (int32 bit patterns) < 2**width: (in_rle bool[n], rle_break bool[n],
@@ -1586,17 +1600,19 @@ def rle_hybrid_encode(values: torch.Tensor, width: int):
     dev = values.device
     in_rle = torch.empty(n, dtype=torch.bool, device=dev)
     rle_break = torch.empty(n, dtype=torch.bool, device=dev)
-    n_bp = torch.zeros((), dtype=torch.int32, device=dev)
     if not n:
-        return in_rle, rle_break, torch.zeros(1, dtype=torch.int32, device=dev), n_bp
-    lib = _lib()
+        return (in_rle, rle_break, torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    n_bp = torch.empty((), dtype=torch.int32, device=dev)  # the kernel writes it
     bp = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = torch.empty(4 * n, dtype=torch.int32, device=dev)
-    tile_sums = _tile_sums(lib, n, torch.int32, dev)
+    # one record a tile (first and last run boundary, kept values), then one
+    # a group of tiles; no scratch of n elements
+    ntiles = -(-n // RLE_PLAN_TILE)
+    tiles = torch.empty((ntiles + -(-ntiles // RLE_PLAN_GROUP), 4), dtype=torch.int32,
+                        device=dev)
     _launch(
-        "rle_hybrid_encode", dev, lib.pqt_rle_hybrid_plan,
-        _ptr(values), n, _ptr(in_rle), _ptr(rle_break), _ptr(bp), _ptr(n_bp),
-        _ptr(scratch), _ptr(tile_sums),
+        "rle_hybrid_encode", dev, _lib().pqt_rle_hybrid_plan,
+        _ptr(values), n, _ptr(in_rle), _ptr(rle_break), _ptr(bp), _ptr(n_bp), _ptr(tiles),
     )
     rle_hybrid_encode.launches += 1
     return in_rle, rle_break, bitpack_encode(bp, width), n_bp

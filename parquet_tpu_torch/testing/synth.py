@@ -836,12 +836,26 @@ class PadCase(NamedTuple):
     max_len: int
 
 
+def pad_ragged_wide(max_len: int, elem_bytes: int) -> bool:
+    """Whether the padding kernel writes these rows in spans (wide_rows of
+    kernels/csrc/pad_ragged.cu): a row's output exceeds
+    PAD_RAGGED_TILE_BYTES, and each block writes one such span of the
+    output, crossing at most one row's end."""
+    from ..kernels.device_ops import PAD_RAGGED_TILE_BYTES
+
+    return max_len * elem_bytes > PAD_RAGGED_TILE_BYTES
+
+
 def pad_ragged_tile_rows(max_len: int, elem_bytes: int) -> int:
     """Rows a tile of the padding kernel takes (tile_rows_for of
     kernels/csrc/pad_ragged.cu): PAD_RAGGED_TILE, or fewer when a row's
-    output is wide, a multiple of 16 and at least 16."""
+    output is wide, a multiple of 16 and at least 16; PAD_RAGGED_TILE again
+    for rows written in spans (pad_ragged_wide), whose tiles only carry
+    length sums."""
     from ..kernels.device_ops import PAD_RAGGED_TILE, PAD_RAGGED_TILE_BYTES
 
+    if pad_ragged_wide(max_len, elem_bytes):
+        return PAD_RAGGED_TILE
     row_bytes = max_len * elem_bytes
     t = PAD_RAGGED_TILE_BYTES // row_bytes if row_bytes else PAD_RAGGED_TILE
     return min(max(t // 16 * 16, 16), PAD_RAGGED_TILE)
@@ -855,7 +869,11 @@ def pad_ragged_edge_cases(seed: int = 0) -> list:
     2**30 whose int32 offsets wrap negative and clip (and, for int64
     lengths, lengths past int32 whose cast differs from the compare); nv 0
     and fewer values than the lengths ask ("over"); max_len 0, 1, 16 and
-    2,500; 1-, 4- and 8-byte elements, int32 and int64 lengths."""
+    2,500; rows wider than PAD_RAGGED_TILE_BYTES (written in spans that
+    cross row ends), with a length near 2**30 among them; 1-, 4- and 8-byte
+    elements, int32 and int64 lengths."""
+    from ..kernels.device_ops import PAD_RAGGED_TILE_BYTES
+
     rng = np.random.default_rng(seed)
     cases = []
 
@@ -897,6 +915,85 @@ def pad_ragged_edge_cases(seed: int = 0) -> list:
                 case(f"max_len={max_len}", rng.integers(0, 3, t + 5), max_len)
             w = pad_ragged_tile_rows(2500, e)
             case(f"max_len=2500 (tile {w})", rng.integers(0, 3001, 3 * w + 5), 2500)
+            # rows of 1.5 spans, so the spans cross row ends at every phase
+            wide = 3 * PAD_RAGGED_TILE_BYTES // (2 * e) + 3
+            ln = rng.integers(0, wide + 50, 9)
+            ln[[2, 6]] = (wide, -4)
+            case(f"max_len={wide} (spans)", ln, wide)
+            ln[4] = 2**30 + 5
+            case(f"max_len={wide} (spans), a length near 2**30", ln, wide, nv=3 * wide)
+    return cases
+
+
+# -- repetition levels at the record-start kernel's edges -------------------------
+
+
+def record_starts_edge_cases(tile: int, seed: int = 0) -> list:
+    """(label, int32 repetition levels) at the edges of a record-start scan
+    over tiles of `tile` entries: n = 0, 1, tile - 1, tile, tile + 1;
+    leading non-starts longer than a tile; a tile with no record start; a
+    tile of starts only; levels 0-3 at random over several tiles."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def levels(n):
+        rep = rng.integers(1, 4, n).astype(np.int32)
+        rep[rng.random(n) < 0.3] = 0
+        return rep
+
+    for n in (0, 1, tile - 1, tile, tile + 1):
+        cases.append((f"n={n}", levels(n)))
+    cases.append(("n=1, not a start", np.ones(1, np.int32)))
+    rep = levels(3 * tile + 5)
+    rep[: tile + 37] = 2
+    cases.append(("leading non-starts longer than a tile", rep))
+    rep = levels(3 * tile + 11)
+    rep[tile - 3 : 2 * tile + 5] = 1
+    cases.append(("a tile with no record start", rep))
+    rep = levels(3 * tile + 2)
+    rep[tile : 2 * tile] = 0
+    cases.append(("a tile of starts only", rep))
+    cases.append(("levels 0-3 over five tiles", rng.integers(0, 4, 5 * tile - 7).astype(np.int32)))
+    return cases
+
+
+# -- run plans at the hybrid encode's tile edges ----------------------------------
+
+
+def rle_plan_edge_cases(tile: int, seed: int = 0) -> list:
+    """(label, uint32 values, width) at the edges of a run plan over tiles of
+    `tile` values (8-aligned RLE windows of >= 8 equal values): n = 0, 1,
+    tile - 1, tile, tile + 1; one run over several whole tiles; a run
+    ending exactly at a tile's edge; an RLE window straddling a tile's
+    edge; adjacent windows of different runs across a tile's edge;
+    alternating values; all-equal values longer than a tile; widths 1, 3,
+    12 and 32."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def runs(lengths, width):
+        keys = rng.integers(0, 1 << width, len(lengths), dtype=np.uint64)
+        # neighbouring runs differ
+        for k in range(1, len(keys)):
+            if keys[k] == keys[k - 1]:
+                keys[k] ^= np.uint64(1)
+        return np.repeat(keys, lengths).astype(np.uint32)
+
+    def mixed(n, width):
+        return runs(rng.integers(1, 20, n // 6 + 1), width)[:n]
+
+    for n, width in ((0, 3), (1, 3), (tile - 1, 12), (tile, 1), (tile + 1, 32)):
+        cases.append((f"n={n}, width {width}", mixed(n, width), width))
+    t = tile
+    cases.append(("one run over three whole tiles, width 3", runs([t - 5, 3 * t + 9, 17, t], 3), 3))
+    cases.append(("a run ending at a tile's edge, width 12", runs([t - 20, 20, 3, t - 3], 12), 12))
+    # the window [t - 8, t + 8) of the run [t - 9, t + 10)
+    cases.append(("a window straddling a tile's edge, width 3", runs([t - 9, 19, t - 10], 3), 3))
+    # the windows [t - 16, t) and [t, t + 16) of two runs
+    cases.append(("adjacent windows of two runs across a tile's edge, width 32",
+                  runs([t - 16, 16, 16, t - 16], 32), 32))
+    cases.append(("alternating values, width 1", (np.arange(2 * t + 3) % 2).astype(np.uint32), 1))
+    cases.append(("all equal over 2.5 tiles, width 12", np.full(5 * t // 2, 4000, np.uint32), 12))
     return cases
 
 

@@ -395,6 +395,23 @@ def test_signatures_match_the_sources():
     assert declared == {k: len(v) for k, v in build.SIGNATURES.items()}
 
 
+def test_signature_types_match_the_sources():
+    """Every argument ctypes passes has its C parameter's width: a Python int
+    bound as c_int where the source takes long long would be cut to 32 bits
+    without an error."""
+    import ctypes
+    import re
+
+    c_types = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+               "unsigned long long": ctypes.c_ulonglong, "double": ctypes.c_double}
+    for src in build._sources() + build._headers():
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            params = [a.strip() for a in m.group(2).split(",") if a.strip() not in ("", "void")]
+            want = [ctypes.c_void_p if "*" in a else c_types[re.sub(r"\s+\w+$", "", a)]
+                    for a in params]
+            assert list(build.SIGNATURES[m.group(1)]) == want, m.group(1)
+
+
 def test_build_key_tracks_sources(tmp_path):
     a = tmp_path / "a.cu"
     a.write_text("// one")

@@ -41,6 +41,7 @@ from parquet_tpu_torch.testing.synth import (  # noqa: E402
     bytearray_frame_edge_cases,
     dict_indices_edge_cases,
     frame_args,
+    rle_plan_edge_cases,
 )
 
 jnp = pytest.importorskip("jax").numpy
@@ -137,6 +138,61 @@ def test_rle_hybrid_stream_from_the_packed_prefix(label, values, width):
     got = assemble_hybrid_device_stream(in_rle, starts, prefix, width,
                                         values[starts[in_rle[starts]]])
     assert got == encode_hybrid(values, width)
+
+
+RLE_EDGE = rle_plan_edge_cases(P.RLE_PLAN_TILE, seed=31)
+
+
+@pytest.mark.parametrize("label,values,width", RLE_EDGE, ids=[c[0] for c in RLE_EDGE])
+def test_rle_plan_edge_cases_match_jax(label, values, width):
+    """The run plan's edge cases (sizes around its tile, a run over whole
+    tiles, a run ending at a tile's edge, windows straddling and meeting
+    at a tile's edge, alternating and all-equal values): the plain version
+    equals the JAX program bit for bit, and the framed stream equals
+    encode_hybrid's."""
+    j_in, j_brk, j_packed, j_nbp = J.rle_hybrid_encode_device(jnp.asarray(values), width)
+    in_rle, rle_break, packed, n_bp = P.rle_hybrid_encode(_t(values.view(np.int32)), width)
+    np.testing.assert_array_equal(in_rle.numpy(), np.asarray(j_in))
+    np.testing.assert_array_equal(rle_break.numpy(), np.asarray(j_brk))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(j_packed).view(np.int32))
+    assert n_bp.dtype == torch.int32 and int(n_bp) == int(j_nbp)
+    in_rle, rle_break = in_rle.numpy(), rle_break.numpy()
+    starts = hybrid_segments(in_rle, rle_break)
+    got = assemble_hybrid_device_stream(in_rle, starts, packed.numpy(), width,
+                                        values[starts[in_rle[starts]]])
+    assert got == encode_hybrid(values, width)
+
+
+def test_rle_plan_edge_cases_cover_the_tile():
+    """Windows that straddle a tile's edge and that meet at one, and a run
+    over more than one whole tile, are among the edge cases."""
+    t = P.RLE_PLAN_TILE
+    straddle = meet = whole = False
+    for _, values, width in RLE_EDGE:
+        in_rle, rle_break, _, _ = P.rle_hybrid_encode(_t(values.view(np.int32)), width)
+        in_rle, rle_break = in_rle.numpy(), rle_break.numpy()
+        for edge in range(t, len(values), t):
+            straddle |= bool(in_rle[edge - 1] and in_rle[edge] and not rle_break[edge])
+            meet |= bool(in_rle[edge - 1] and rle_break[edge])
+        change = np.flatnonzero(np.diff(values.astype(np.int64))) + 1
+        bounds = np.concatenate([[0], change, [len(values)]])
+        whole |= bool((np.diff(bounds) > 2 * t).any())
+    assert straddle and meet and whole
+
+
+def test_rle_plan_tile_pinned_to_the_kernel():
+    """RLE_PLAN_TILE, around which the edge cases put their sizes and the
+    wrapper sizes its tile records, is the kernel's tile (kThreads *
+    kItems of rle_hybrid_encode.cu), and RLE_PLAN_GROUP, by which it sizes
+    the group records, the kernel's kGroup (kThreads tiles)."""
+    import re
+
+    from parquet_tpu_torch.kernels import build
+
+    src = (build.CSRC / "rle_hybrid_encode.cu").read_text()
+    k = {m.group(1): int(m.group(2)) for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert k["kThreads"] * k["kItems"] == P.RLE_PLAN_TILE
+    assert "constexpr int kGroup = kThreads;" in src and k["kThreads"] == P.RLE_PLAN_GROUP
 
 
 # -- dict_indices ------------------------------------------------------------------

@@ -35,6 +35,8 @@ from parquet_tpu_torch.testing.synth import (  # noqa: E402
     ColumnSpec,
     pad_ragged_edge_cases,
     pad_ragged_tile_rows,
+    pad_ragged_wide,
+    record_starts_edge_cases,
     write_file,
 )
 
@@ -78,6 +80,47 @@ def test_record_starts_plain_matches_jax(case):
     _same(n_rows, j_n_rows)
     if lead:
         assert (row_of[:lead] == -1).all()
+
+
+RECORD_EDGE = record_starts_edge_cases(ops.RECORD_STARTS_TILE, seed=19)
+
+
+@pytest.mark.parametrize("label,rep", RECORD_EDGE, ids=[c[0] for c in RECORD_EDGE])
+def test_record_starts_edge_cases_match_jax(label, rep):
+    """The record-start kernel's edge cases (sizes around its tile, leading
+    non-starts longer than a tile, a tile with no start, a tile of starts
+    only): the plain version equals the JAX program bit for bit."""
+    row_of, n_rows = ops.record_starts(torch.from_numpy(rep))
+    j_row_of, j_n_rows = jops.record_starts_device(jnp.asarray(rep))
+    _same(row_of, j_row_of)
+    _same(n_rows, j_n_rows)
+
+
+def test_record_starts_edge_cases_cover_the_tile():
+    """Sizes tile - 1, tile and tile + 1, a leading run of non-starts past
+    the first tile, and a whole tile without a start and one of starts
+    only."""
+    t = ops.RECORD_STARTS_TILE
+    sizes = {len(rep) for _, rep in RECORD_EDGE}
+    assert {0, 1, t - 1, t, t + 1} <= sizes
+    starts = [np.flatnonzero(rep == 0) for _, rep in RECORD_EDGE]
+    assert any(len(s) and s[0] > t for s in starts)
+    tiles = [rep[k * t : (k + 1) * t] for _, rep in RECORD_EDGE for k in range(len(rep) // t)]
+    assert any((x != 0).all() for x in tiles) and any((x == 0).all() for x in tiles)
+
+
+def test_record_starts_tile_pinned_to_the_kernel():
+    """RECORD_STARTS_TILE, around which the edge cases put their sizes and
+    the wrapper sizes its look-back descriptors, is the kernel's tile
+    (kThreads * kItems of record_starts.cu), whole 16-byte vectors."""
+    import re
+
+    from parquet_tpu_torch.kernels import build
+
+    src = (build.CSRC / "record_starts.cu").read_text()
+    k = {m.group(1): int(m.group(2)) for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert k["kThreads"] * k["kItems"] == ops.RECORD_STARTS_TILE
+    assert k["kItems"] % 4 == 0
 
 
 @pytest.mark.parametrize("case", sorted(LEVEL_CASES))
@@ -169,8 +212,8 @@ PAD_EDGE = pad_ragged_edge_cases(seed=17)
 def test_pad_ragged_edge_cases_match_jax(case):
     """The padding kernel's edge cases (tile boundaries, negative lengths at
     a tile's first and last row, wrapping and clipped offsets, lengths past
-    int32, nv 0 and over, max_len 0, 1, 16 and 2,500): the plain version
-    equals the JAX program bit for bit."""
+    int32, nv 0 and over, max_len 0, 1, 16 and 2,500, rows written in
+    spans): the plain version equals the JAX program bit for bit."""
     got = ops.pad_ragged(torch.from_numpy(case.values), torch.from_numpy(case.lengths),
                          case.max_len)
     want = j_pad(jnp.asarray(case.values), jnp.asarray(case.lengths), case.max_len)
@@ -180,8 +223,9 @@ def test_pad_ragged_edge_cases_match_jax(case):
 def test_pad_ragged_edge_cases_cover_every_width_and_tile_edge():
     """Each element width and length dtype has cases at a tile's edges
     (tile - 1, tile, tile + 1 rows), cases whose int32 offsets wrap or clip
-    (the reference's rules, not an in-range copy) and wide rows (16-row
-    tiles)."""
+    (the reference's rules, not an in-range copy), wide rows (16-row
+    tiles) and rows wider than a tile's bytes (written in spans), whose
+    spans cross row ends."""
     seen = {}
     for c in PAD_EDGE:
         key = (c.values.itemsize, c.lengths.dtype.itemsize)
@@ -193,14 +237,20 @@ def test_pad_ragged_edge_cases_cover_every_width_and_tile_edge():
         marks.add("edge" if abs(len(c.lengths) - t) <= 1 else "wrap" if wraps else "other")
         if t == 16:
             marks.add("wide")
+        if pad_ragged_wide(c.max_len, c.values.itemsize):
+            span = ops.PAD_RAGGED_TILE_BYTES // c.values.itemsize
+            if len(c.lengths) * c.max_len > span and c.max_len % span:
+                marks.add("spans")
     assert sorted(seen) == [(e, w) for e in (1, 4, 8) for w in (4, 8)]
-    assert all({"edge", "wrap", "wide"} <= m for m in seen.values()), seen
+    assert all({"edge", "wrap", "wide", "spans"} <= m for m in seen.values()), seen
 
 
 def test_pad_ragged_tile_pinned_to_the_kernel():
     """PAD_RAGGED_TILE and PAD_RAGGED_TILE_BYTES, from which the edge cases
     take their tiles, are the kernel's (kThreads * kItems and kTileBytes of
-    pad_ragged.cu); a tile is a multiple of 16 rows."""
+    pad_ragged.cu); a tile is a multiple of 16 rows; rows whose output
+    exceeds kTileBytes go to the span kernel (wide_rows), as
+    synth.pad_ragged_wide says, at any max_len."""
     import re
 
     from parquet_tpu_torch.kernels import build
@@ -213,6 +263,12 @@ def test_pad_ragged_tile_pinned_to_the_kernel():
         for e in (1, 4, 8):
             t = pad_ragged_tile_rows(max_len, e)
             assert t % 16 == 0 and 16 <= t <= ops.PAD_RAGGED_TILE
+    assert "return max_len * elem_bytes > kTileBytes;" in src
+    for e in (1, 4, 8):
+        edge = ops.PAD_RAGGED_TILE_BYTES // e
+        assert not pad_ragged_wide(edge, e) and pad_ragged_wide(edge + 1, e)
+        for max_len in (2**31 - 1, 2**31 + 4096, 2**40):
+            assert pad_ragged_tile_rows(max_len, e) == ops.PAD_RAGGED_TILE
 
 
 MASK_CASES = {
