@@ -319,6 +319,22 @@ def delta_payload(out: tuple) -> tuple:
 HELD_PREFIX = {"delta_block_encode": delta_payload}
 
 
+def shifted(a: np.ndarray, off: int, dev):
+    """`a` on the card as a view `off` elements past the start of its
+    allocation (16-byte aligned), so a kernel takes its unaligned path at
+    off * itemsize % 16 != 0."""
+    import torch
+
+    buf = np.zeros(len(a) + off, dtype=a.dtype)
+    buf[off:] = a
+    return torch.from_numpy(buf).to(dev)[off:]
+
+
+# views of (rep, dfl) at these element offsets: list_layout's vector loads
+# need both 16-byte aligned
+LAYOUT_VIEW_OFFSETS = ((0, 0), (1, 1), (2, 2), (3, 3), (1, 0), (0, 3))
+
+
 def kernel_counts() -> dict:
     """Launches of each kernel since the last reset_launch_counts,
     expand_hybrid's by bit width (`expand_hybrid_by_width`) and
@@ -1090,12 +1106,15 @@ def check_batch_kernels(dev, rows: dict) -> None:
     their plain versions on the card, bit for bit, at the edge shapes; then
     pad_ragged on testing/synth.pad_ragged_edge_cases, each with its rows
     and the kernel's tile or span, record_starts on
-    testing/synth.record_starts_edge_cases and over 4,097 tiles, and
-    pad_ragged on rows of 2**27 and 2**31 + 4096 columns."""
+    testing/synth.record_starts_edge_cases and over 4,097 tiles,
+    list_layout on testing/synth.list_layout_edge_cases with rep and dfl
+    also as views 1-3 entries off 16 bytes, and pad_ragged on rows of
+    2**27 and 2**31 + 4096 columns."""
     import torch
 
     from parquet_tpu_torch.kernels import device_ops as ops
     from parquet_tpu_torch.testing.synth import (
+        list_layout_edge_cases,
         pad_ragged_edge_cases,
         pad_ragged_tile_rows,
         pad_ragged_wide,
@@ -1133,6 +1152,16 @@ def check_batch_kernels(dev, rows: dict) -> None:
     labels.append(f"4,097 tiles (n={n})")
     del r
     log(f"  record_starts edge cases equal to the plain version: {'; '.join(labels)}")
+    labels = []
+    for label, rep, dfl, parent_rep, elem_def in list_layout_edge_cases(ops.LIST_LAYOUT_TILE, SEED):
+        for off_r, off_d in LAYOUT_VIEW_OFFSETS:
+            r, d = shifted(rep, off_r, dev), shifted(dfl, off_d, dev)
+            hold_plain(rows, "list_layout", f"{label}, views at +{off_r}/+{off_d}",
+                       ops.list_layout(r, d, parent_rep, elem_def),
+                       ops.list_layout_plain(r, d, parent_rep, elem_def))
+        labels.append(f"{label} (n={len(rep)})")
+    log(f"  list_layout edge cases equal to the plain version, rep/dfl also at +1-+3 entries: "
+        f"{'; '.join(labels)}")
     check_pad_giant(dev, rows)
 
 
@@ -1757,13 +1786,16 @@ def write_kernel_cases(rng, dev):
 
 def check_write_kernels(dev, rows: dict) -> None:
     """The write kernels against their plain versions on the card, bit for
-    bit, at the edge shapes; dict_indices, plain_bytearray_encode and
-    rle_hybrid_encode also on testing/synth's dict_indices_edge_cases,
-    bytearray_frame_edge_cases and rle_plan_edge_cases."""
+    bit, at the edge shapes; dict_indices, plain_bytearray_encode,
+    rle_hybrid_encode and delta_block_encode also on testing/synth's
+    dict_indices_edge_cases, bytearray_frame_edge_cases,
+    rle_plan_edge_cases and delta_encode_edge_cases (the values also as
+    views 1-3 elements past an aligned start)."""
     from parquet_tpu_torch.kernels import device_ops as ops
     from parquet_tpu_torch.kernels.pipeline import to_device
     from parquet_tpu_torch.testing.synth import (
         bytearray_frame_edge_cases,
+        delta_encode_edge_cases,
         dict_indices_edge_cases,
         frame_args,
         rle_plan_edge_cases,
@@ -1795,6 +1827,15 @@ def check_write_kernels(dev, rows: dict) -> None:
                    ops.rle_hybrid_encode_plain(v, width))
         labels.append(f"{label} (n={len(values)})")
     log(f"  rle_hybrid_encode edge cases equal to the plain version: {'; '.join(labels)}")
+    labels = []
+    for label, values in delta_encode_edge_cases(ops.DELTA_ENCODE_TILE, SEED):
+        for off in range(4):
+            v = shifted(values, off, dev)
+            hold_plain(rows, "delta_block_encode", f"{label}, view at +{off}",
+                       ops.delta_block_encode(v), ops.delta_block_encode_plain(v))
+        labels.append(f"{label} (n={len(values)})")
+    log(f"  delta_block_encode edge cases equal to the plain version, also at +1-+3 values: "
+        f"{'; '.join(labels)}")
     check_rle_rounds(dev, rows)
 
 

@@ -63,7 +63,7 @@ SIGNATURES = {
     ),
     "pqt_scan_tile": (),
     "pqt_record_starts": (_P, _LL, _P, _P, _P, _P),
-    "pqt_list_layout": (_P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P),
+    "pqt_list_layout": (_P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P),
     "pqt_pad_ragged_scratch_words": (_LL, _LL, _I),
     "pqt_pad_ragged": (_P, _LL, _I, _P, _I, _LL, _LL, _P, _P, _P),
     "pqt_expand_nullable": (_P, _LL, _I, _P, _LL, _P, _P, _P, _P),
@@ -80,7 +80,7 @@ SIGNATURES = {
     "pqt_rle_hybrid_plan": (_P, _LL, _P, _P, _P, _P, _P, _P),
     "pqt_dict_indices_scratch_words": (_LL,),
     "pqt_dict_indices": (_P, _LL, _I, _P, _P, _P, _P, _P),
-    "pqt_delta_block_encode": (_P, _LL, _I, _P, _P, _P, _P, _P, _P),
+    "pqt_delta_block_encode": (_P, _LL, _I, _P, _P, _P, _P, _P),
     "pqt_plain_bytearray_encode": (_P, _P, _LL, _LL, _P, _P, _P),
     "pqt_masked_agg": (_P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _P),
     "pqt_expand_page_grid": (_P, _I, _P, _P, _P, _P, _I, _I, _P, _LL, _I, _I, _I, _P, _P),

@@ -54,7 +54,8 @@ struct RowOf {
   long long* n_rows;
   long long n;
   bool vec;  // row_of is 16-byte aligned
-  __device__ void operator()(long long first, const int32_t (&incl)[4]) const {
+  __device__ void operator()(long long first, const int32_t (&incl)[4],
+                             const int32_t (&)[4]) const {
     if (first >= n) return;
     if (vec && first + 4 <= n) {
       *reinterpret_cast<int4*>(row_of + first) =

@@ -24,21 +24,22 @@
 // vector of kVec items at a time (a loader is `void operator()(long long
 // first, T (&items)[kVec]) const`: the items first .. first + kVec - 1,
 // zero past n), sum it with warp shuffles, look back for the earlier tiles'
-// sum (seg_look_back) and hand each vector's inclusive sums to the
-// epilogue (`void operator()(long long first, const T (&incl)[kVec])
-// const`, called for every vector, also past n), which may write them as
-// one 16-byte store. No n-element scratch and no pass over the tile sums:
-// at record_starts' 8 M entries it beat a two-launch scan (tile sums, then
-// blocks that reduce them and scan their tile again) on an H100 (PERF.md
-// §6).
+// sum (seg_look_back) and hand each vector's inclusive sums and its items
+// to the epilogue (`void operator()(long long first, const T (&incl)[kVec],
+// const T (&items)[kVec]) const`, called for every vector, also past n),
+// which may write them as one 16-byte store. No n-element scratch and no
+// pass over the tile sums: at record_starts' 8 M entries it beat a
+// two-launch scan (tile sums, then blocks that reduce them and scan their
+// tile again) on an H100 (PERF.md §6). A launch after it on the same stream
+// reads the grand total from the last tile's descriptor (run1_total).
 //
-// The three-pass scan (run) is used by list_layout.cu, expand_nullable.cu,
-// leaf_verdict.cu, list_contains_mask.cu and delta_block_encode.cu; the
-// one-pass vector scan (run1) by record_starts.cu; the single-pass segmented
-// scan below (seg_tile_scan) by delta_packed_decode.cu and, with no flag set,
-// merge_mixed_bytes.cu and dict_indices.cu; the
-// searches (count_le, warp_count_le2) by merge_mixed_bytes.cu,
-// expand_hybrid.cu and delta_packed_decode.cu.
+// The three-pass scan (run) is used by expand_nullable.cu, leaf_verdict.cu
+// and list_contains_mask.cu; the one-pass vector scan (run1) by
+// record_starts.cu and list_layout.cu; the single-pass segmented scan below
+// (seg_tile_scan) by delta_packed_decode.cu and, with no flag set,
+// merge_mixed_bytes.cu and dict_indices.cu; the searches (count_le,
+// warp_count_le2) by merge_mixed_bytes.cu, expand_hybrid.cu,
+// delta_packed_decode.cu and delta_block_encode.cu.
 // A load functor of run is `T operator()(long long i) const`, called for
 // i < n; an epilogue is `void operator()(long long i, T incl, T total)
 // const`. Sums are exact as long as they fit T (the wrappers keep n below
@@ -403,19 +404,31 @@ __global__ void __launch_bounds__(kBlock) vec_scan(Load load, Epi epi, SegTiles 
       acc += U(v[j][e]);
       incl[e] = T(acc);
     }
-    epi(vec_first<kBlock, kItems, kVec>(tile, j), incl);
+    epi(vec_first<kBlock, kItems, kVec>(tile, j), incl, v[j]);
   }
 }
 
 // The descriptors' memset and the scan on `stream`; `descriptors` holds
-// seg_scratch_words(ceil(n / (kBlock * kItems))) words. Returns the first
+// seg_scratch_words(run1_tiles<kBlock, kItems>(n)) words. Returns the first
 // failing call's cudaError_t.
+template <int kBlock, int kItems>
+inline long long run1_tiles(long long n) {
+  return (n + kBlock * kItems - 1) / (kBlock * kItems);
+}
+
+// The grand total of a finished run1 over ntiles >= 1 tiles (the last tile's
+// inclusive prefix, as U's bits), for a launch after it on the same stream.
+__device__ __forceinline__ unsigned long long run1_total(const unsigned long long* descriptors,
+                                                         long long ntiles) {
+  return descriptors[2 + 2 * (ntiles - 1) + 1];
+}
+
 template <typename T, int kBlock, int kItems, int kVec, typename Load, typename Epi>
 int run1(Load load, Epi epi, long long n, unsigned long long* descriptors,
          cudaStream_t stream) {
   static_assert(kBlock % 32 == 0 && kItems % kVec == 0, "whole warps and vectors");
   if (n <= 0) return 0;
-  const long long ntiles = (n + kBlock * kItems - 1) / (kBlock * kItems);
+  const long long ntiles = run1_tiles<kBlock, kItems>(n);
   int rc = (int)cudaMemsetAsync(descriptors, 0,
                                 (size_t)seg_scratch_words(ntiles) * sizeof(unsigned long long),
                                 stream);

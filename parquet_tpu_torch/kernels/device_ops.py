@@ -52,6 +52,7 @@ __all__ = [
     "RECORD_STARTS_TILE",
     "list_layout",
     "list_layout_plain",
+    "LIST_LAYOUT_TILE",
     "pad_ragged",
     "pad_ragged_plain",
     "PAD_RAGGED_TILE",
@@ -83,6 +84,8 @@ __all__ = [
     "DICT_INDICES_TILE",
     "delta_block_encode",
     "delta_block_encode_plain",
+    "DELTA_ENCODE_TILE",
+    "DELTA_ENCODE_GROUP",
     "plain_bytearray_encode",
     "plain_bytearray_encode_plain",
     "FRAME_TILE",
@@ -716,10 +719,12 @@ merge_mixed_bytes.launches = 0
 
 # -- the batch path: record starts, list layout, ragged padding, nulls ---------
 #
-# Scans (kernels/csrc/scan.cuh) with their epilogues. The three-pass scans
-# carry a scratch the wrapper allocates: a partial buffer of the scan's dtype
-# and num_tiles + 1 tile sums (pqt_scan_tile() elements per tile);
-# record_starts' one-pass scan only its look-back descriptors.
+# Scans (kernels/csrc/scan.cuh) with their epilogues. The three-pass scan
+# (expand_nullable here; leaf_verdict and list_contains_mask below) carries a
+# scratch the wrapper allocates: a partial buffer of the scan's dtype and
+# num_tiles + 1 tile sums (pqt_scan_tile() elements per tile). The one-pass
+# scans of record_starts and list_layout take only their look-back
+# descriptors: a counter, a pad word and 16 bytes a tile.
 
 _INT32_LIMIT = 1 << 31
 # dtypes the byte-width kernels copy (1-, 4- and 8-byte elements)
@@ -752,6 +757,13 @@ def _check_values(values: torch.Tensor, name: str) -> None:
     _check_vec(values, _COPY_DTYPES, name)
 
 
+def _descriptors(n: int, tile: int, device) -> torch.Tensor:
+    """Look-back scratch of a one-pass scan over n items in tiles of `tile`:
+    a counter, a pad word and 16 bytes a tile (zeroed by the kernel's own
+    memset)."""
+    return torch.empty(2 + 2 * -(-n // tile), dtype=torch.int64, device=device)
+
+
 def record_starts_plain(rep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the record starts: (row_of int32[n] = inclusive count
     of rep == 0, minus 1; n_rows int64 0-d)."""
@@ -782,8 +794,7 @@ def record_starts(rep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return row_of, torch.zeros((), dtype=torch.int64, device=dev)
     n_rows = torch.empty((), dtype=torch.int64, device=dev)
     lib = _lib()
-    # the look-back's descriptors: a counter, a pad word and 16 bytes a tile
-    descriptors = torch.empty(2 + 2 * -(-n // RECORD_STARTS_TILE), dtype=torch.int64, device=dev)
+    descriptors = _descriptors(n, RECORD_STARTS_TILE, dev)
     _launch(
         "record_starts", dev, lib.pqt_record_starts,
         _ptr(rep), n, _ptr(row_of), _ptr(n_rows), _ptr(descriptors),
@@ -819,6 +830,11 @@ def list_layout_plain(
     return offsets, first_def, boundary.sum(dtype=torch.int64)
 
 
+# Entries a tile of the list-layout kernel scans (kThreads * kItems of
+# kernels/csrc/list_layout.cu, pinned by a test).
+LIST_LAYOUT_TILE = 4096
+
+
 def list_layout(
     rep: torch.Tensor, dfl: torch.Tensor, parent_rep: int, elem_def: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -846,13 +862,11 @@ def list_layout(
         offsets.zero_()
         return offsets, first_def, torch.zeros((), dtype=torch.int64, device=dev)
     n_slots = torch.empty((), dtype=torch.int64, device=dev)
-    lib = _lib()
-    partial = torch.empty(n, dtype=torch.int64, device=dev)
-    tile_sums = _tile_sums(lib, n, torch.int64, dev)
+    descriptors = _descriptors(n, LIST_LAYOUT_TILE, dev)
     _launch(
-        "list_layout", dev, lib.pqt_list_layout,
+        "list_layout", dev, _lib().pqt_list_layout,
         _ptr(rep), _ptr(dfl), n, parent_rep, elem_def,
-        _ptr(offsets), _ptr(first_def), _ptr(n_slots), _ptr(partial), _ptr(tile_sums),
+        _ptr(offsets), _ptr(first_def), _ptr(n_slots), _ptr(descriptors),
     )
     list_layout.launches += 1
     return offsets, first_def, n_slots
@@ -1756,6 +1770,13 @@ def delta_block_encode_plain(values: torch.Tensor):
     return mins.to(values.dtype), widths, _to_signed32(words[:n_words])
 
 
+# Deltas a tile of the encode kernel covers (kG delta blocks of 128 in
+# kernels/csrc/delta_block_encode.cu) and tiles a group of its payload sums
+# (kGroup), both pinned by a test.
+DELTA_ENCODE_TILE = 1024
+DELTA_ENCODE_GROUP = 256
+
+
 def delta_block_encode(values: torch.Tensor):
     """DELTA_BINARY_PACKED tables and payload of one page of int32/int64
     values (unsigned columns as their bit patterns), blocks of 128 deltas in
@@ -1782,13 +1803,12 @@ def delta_block_encode(values: torch.Tensor):
     words = torch.empty(4 * nb * nbits, dtype=torch.int32, device=dev)
     if not nb:
         return mins, widths, words
-    lib = _lib()
-    offs = torch.empty(4 * nb, dtype=torch.int64, device=dev)
-    tile_sums = _tile_sums(lib, 4 * nb, torch.int64, dev)
+    # each tile's payload words, then each group's
+    tiles = -(-(n - 1) // DELTA_ENCODE_TILE)
+    scratch = torch.empty(tiles + -(-tiles // DELTA_ENCODE_GROUP), dtype=torch.int32, device=dev)
     _launch(
-        "delta_block_encode", dev, lib.pqt_delta_block_encode,
-        _ptr(values), n, nbits, _ptr(mins), _ptr(widths), _ptr(offs), _ptr(tile_sums),
-        _ptr(words),
+        "delta_block_encode", dev, _lib().pqt_delta_block_encode,
+        _ptr(values), n, nbits, _ptr(mins), _ptr(widths), _ptr(words), _ptr(scratch),
     )
     delta_block_encode.launches += 1
     return mins, widths, words

@@ -957,6 +957,113 @@ def record_starts_edge_cases(tile: int, seed: int = 0) -> list:
     return cases
 
 
+# -- level streams at the list-layout kernel's edges -----------------------------
+
+
+def list_layout_edge_cases(tile: int, seed: int = 0) -> list:
+    """(label, int32 rep levels, int32 def levels, parent_rep, elem_def) at
+    the edges of a list-layout scan over tiles of `tile` entries in 4-entry
+    vectors: n = 0, 1, tile - 1, tile and tile + 1; boundaries (rep <=
+    parent_rep) as the first and the last entry of a tile and of a vector;
+    a tile with no boundary and one of boundaries only; a stream of
+    boundaries only (n_slots = n); leading non-boundaries longer than a
+    tile; no boundary at all; a tail (the entries from n_slots on) that
+    starts in the first tile and one that starts in the last; levels 0-3
+    at parent_rep 1 over several tiles."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    t = tile
+
+    def levels(n, p_boundary=0.3):
+        rep = rng.integers(1, 3, n).astype(np.int32)
+        rep[rng.random(n) < p_boundary] = 0
+        return rep, rng.integers(0, 4, n).astype(np.int32)
+
+    def case(label, rep, dfl, parent_rep=0, elem_def=2):
+        cases.append((label, rep, dfl, parent_rep, elem_def))
+
+    for n in (0, 1, t - 1, t, t + 1):
+        case(f"n={n}", *levels(n))
+    case("n=1, not a boundary", np.ones(1, np.int32), np.full(1, 3, np.int32))
+    rep, dfl = levels(3 * t + 5, 0.0)
+    rep[[t - 1, t, 2 * t - 1, 2 * t, 4 * 9, 4 * 11 + 3, t + 4 * 5, t + 4 * 7 + 3]] = 0
+    case("boundaries first and last in tiles and vectors", rep, dfl)
+    rep, dfl = levels(3 * t + 11)
+    rep[t - 3 : 2 * t + 5] = 1
+    case("a tile with no boundary", rep, dfl)
+    rep, dfl = levels(3 * t + 2)
+    rep[t : 2 * t] = 0
+    case("a tile of boundaries only", rep, dfl)
+    case("boundaries only (n_slots = n)", np.zeros(2 * t + 3, np.int32),
+         rng.integers(0, 4, 2 * t + 3).astype(np.int32))
+    rep, dfl = levels(3 * t + 5)
+    rep[: t + 37] = 2
+    case("leading non-boundaries longer than a tile", rep, dfl)
+    case("no boundary at all", *levels(2 * t + 9, 0.0))
+    rep, dfl = levels(3 * t + 1, 0.0)
+    rep[rng.choice(t // 2, 40, replace=False)] = 0
+    case("a tail starting in the first tile", rep, dfl)
+    rep = np.zeros(3 * t + 100, np.int32)
+    rep[rng.choice(len(rep), 50, replace=False)] = 1
+    case("a tail starting in the last tile", rep, rng.integers(0, 4, len(rep)).astype(np.int32))
+    case("levels 0-3 at parent_rep 1 over five tiles",
+         rng.integers(0, 4, 5 * t - 7).astype(np.int32),
+         rng.integers(0, 5, 5 * t - 7).astype(np.int32), 1, 3)
+    return cases
+
+
+# -- pages at the DELTA encode kernel's tile edges ---------------------------------
+
+
+def delta_encode_edge_cases(tile: int, seed: int = 0) -> list:
+    """(label, int32 or int64 values) of one DELTA page each at the edges of
+    an encode over tiles of `tile` deltas (tile / 128 blocks of 128):
+    n = 2; block counts of G k - 1, G k and G k + 1 (G blocks a tile); n - 1
+    not a multiple of 128; an all-constant tile (payload 0) between wide
+    ones; miniblock widths 32 and 64 in one tile; the write path's page
+    sizes (131,072 int64 timestamps, 262,144 int32 fares); 2**20 + 3
+    values; and a page of 257 tiles (past one round of 256)."""
+    rng = np.random.default_rng(seed)
+    g = tile // 128
+    cases = []
+
+    def full(n, dt):
+        info = np.iinfo(dt)
+        return rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+
+    def rising(n, dt):
+        return np.cumsum(rng.integers(-50, 3000, n)).astype(dt)
+
+    for dt in (np.int32, np.int64):
+        name = np.dtype(dt).name
+        cases.append((f"n=2 {name}", full(2, dt)))
+        for nb in (2 * g - 1, 2 * g, 2 * g + 1):
+            cases.append((f"{nb} blocks {name}", rising(128 * nb + 1, dt)))
+        cases.append((f"n - 1 = {256 * g + 77} {name}", full(256 * g + 78, dt)))
+        v = full(3 * tile + 1, dt)
+        v[tile : 2 * tile + 1] = v[tile]
+        cases.append((f"an all-constant tile between wide ones {name}", v))
+    # block 0 of tile 1 spans all 64 bits, block 1 exactly 32
+    d = rng.integers(0, 1 << 20, 3 * tile, dtype=np.uint64)
+    d[tile : tile + 128] = rng.integers(0, 2**64 - 1, 128, dtype=np.uint64, endpoint=True)
+    d[tile + 128 : tile + 256] = rng.integers(0, 2**32 - 1, 128, dtype=np.uint64, endpoint=True)
+    d[tile + 128], d[tile + 129] = 0, 2**32 - 1
+    v = np.cumsum(np.concatenate([np.zeros(1, np.uint64), d]), dtype=np.uint64).view(np.int64)
+    cases.append(("widths 32 and 64 in one tile int64", v))
+    d = rng.integers(0, 1 << 10, 2 * tile, dtype=np.uint64).astype(np.uint32)
+    d[tile + 200 : tile + 232] = rng.integers(0, 2**32 - 1, 32, dtype=np.uint64, endpoint=True)
+    d[tile + 200], d[tile + 201] = 0, 2**32 - 1
+    v = np.cumsum(np.concatenate([np.zeros(1, np.uint32), d]), dtype=np.uint32).view(np.int32)
+    cases.append(("width 32 beside narrow ones in one tile int32", v))
+    pickup = 1_700_000_000_000_000 + np.cumsum(rng.integers(-2_000_000, 60_000_000, 1 << 17))
+    cases.append(("131,072 int64 timestamps (a write page)", pickup.astype(np.int64)))
+    fare = rng.gamma(2.0, 900.0, 1 << 18).astype(np.int32) + 250
+    cases.append(("262,144 int32 fares (a write page)", fare))
+    cases.append(("2**20 + 3 int64", rising((1 << 20) + 3, np.int64)))
+    cases.append(("257 tiles int32", full(256 * tile + 2, np.int32)))
+    return cases
+
+
 # -- run plans at the hybrid encode's tile edges ----------------------------------
 
 

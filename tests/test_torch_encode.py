@@ -39,6 +39,7 @@ from parquet_tpu_torch.ops.plain import encode_plain  # noqa: E402
 from parquet_tpu_torch.ops.rle_hybrid import encode_hybrid  # noqa: E402
 from parquet_tpu_torch.testing.synth import (  # noqa: E402
     bytearray_frame_edge_cases,
+    delta_encode_edge_cases,
     dict_indices_edge_cases,
     frame_args,
     rle_plan_edge_cases,
@@ -301,8 +302,7 @@ def _delta_cases():
 DELTA_CASES = list(_delta_cases())
 
 
-@pytest.mark.parametrize("label,values", DELTA_CASES, ids=[c[0] for c in DELTA_CASES])
-def test_delta_block_encode_matches_jax(label, values):
+def _delta_matches_jax(values):
     n = len(values)
     nbits = values.itemsize * 8
     padded = np.zeros(_bucket(max(n, 1)), dtype=values.dtype)
@@ -318,6 +318,64 @@ def test_delta_block_encode_matches_jax(label, values):
     got_bytes = words.numpy().view(np.uint8)
     assert got_bytes[:payload].tobytes() == np.asarray(j_words).view(np.uint8)[:payload].tobytes()
     assert not got_bytes[payload:].any()
+
+
+@pytest.mark.parametrize("label,values", DELTA_CASES, ids=[c[0] for c in DELTA_CASES])
+def test_delta_block_encode_matches_jax(label, values):
+    _delta_matches_jax(values)
+
+
+DELTA_EDGE = delta_encode_edge_cases(P.DELTA_ENCODE_TILE, seed=37)
+
+
+@pytest.mark.parametrize("label,values", DELTA_EDGE, ids=[c[0] for c in DELTA_EDGE])
+def test_delta_encode_edge_cases_match_jax(label, values):
+    """The encode kernel's edge cases (block counts around its tile, a
+    payload-free tile between wide ones, widths 32 and 64 in one tile, the
+    write path's page sizes, 2**20 + 3 values, a page past one group of
+    256 tiles): the plain version equals the JAX program bit for bit on the
+    real prefix."""
+    _delta_matches_jax(values)
+
+
+def test_delta_encode_edge_cases_cover_the_tile():
+    """Block counts G k - 1, G k and G k + 1 (G blocks a tile), n = 2, an
+    n - 1 off the block size, a tile of width 0 between tiles with payload,
+    a tile holding widths 32 and 64, the write pages' sizes, 2**20 + 3
+    values and more than one group of tiles."""
+    t = P.DELTA_ENCODE_TILE
+    g = t // 128
+    nbs = {(len(v) - 1) // 128 for _, v in DELTA_EDGE if (len(v) - 1) % 128 == 0}
+    assert {2 * g - 1, 2 * g, 2 * g + 1} <= nbs
+    sizes = {(len(v), v.dtype.itemsize) for _, v in DELTA_EDGE}
+    assert {(2, 4), (2, 8), (1 << 17, 8), (1 << 18, 4), ((1 << 20) + 3, 8)} <= sizes
+    assert any((len(v) - 1) % 128 and len(v) > t for _, v in DELTA_EDGE)
+    assert any(-(-(len(v) - 1) // t) > P.DELTA_ENCODE_GROUP for _, v in DELTA_EDGE)
+    quiet = mixed = False
+    for _, v in DELTA_EDGE:
+        widths = P.delta_block_encode(_t(v))[1].numpy()
+        tiles = [widths[k : k + 4 * g] for k in range(0, len(widths), 4 * g)]
+        for a, b, c in zip(tiles, tiles[1:], tiles[2:]):
+            quiet |= bool(a.any() and not b.any() and c.any())
+        mixed |= any({32, 64} <= set(x.tolist()) for x in tiles)
+    assert quiet and mixed
+
+
+def test_delta_encode_tile_pinned_to_the_kernel():
+    """DELTA_ENCODE_TILE, around which the edge cases put their sizes and
+    the wrapper sizes its scratch, is the kernel's tile (kG delta blocks of
+    kBlock = 128 deltas in delta_block_encode.cu, one warp a block), and
+    DELTA_ENCODE_GROUP, by which it sizes the group sums, the kernel's
+    kGroup (kThreads tiles)."""
+    import re
+
+    from parquet_tpu_torch.kernels import build
+
+    src = (build.CSRC / "delta_block_encode.cu").read_text()
+    k = {m.group(1): int(m.group(2)) for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert k["kBlock"] == 128 and k["kG"] * k["kBlock"] == P.DELTA_ENCODE_TILE
+    assert "constexpr int kThreads = 32 * kG;" in src
+    assert "constexpr int kGroup = kThreads;" in src and 32 * k["kG"] == P.DELTA_ENCODE_GROUP
 
 
 @pytest.mark.parametrize("label,values", DELTA_CASES, ids=[c[0] for c in DELTA_CASES])

@@ -36,6 +36,7 @@ from parquet_tpu_torch.testing.synth import (  # noqa: E402
     pad_ragged_edge_cases,
     pad_ragged_tile_rows,
     pad_ragged_wide,
+    list_layout_edge_cases,
     record_starts_edge_cases,
     write_file,
 )
@@ -132,6 +133,66 @@ def test_list_layout_plain_matches_jax(case, parent_rep, elem_def):
     want = jops.list_layout_device(jnp.asarray(rep), jnp.asarray(dfl), parent_rep, elem_def)
     for g, w in zip(got, want):
         _same(g, w)
+
+
+LAYOUT_EDGE = list_layout_edge_cases(ops.LIST_LAYOUT_TILE, seed=29)
+
+
+@pytest.mark.parametrize("label,rep,dfl,parent_rep,elem_def", LAYOUT_EDGE,
+                         ids=[c[0] for c in LAYOUT_EDGE])
+def test_list_layout_edge_cases_match_jax(label, rep, dfl, parent_rep, elem_def):
+    """The list-layout kernel's edge cases (sizes around its tile,
+    boundaries at tile and vector edges, tiles of no boundary and of
+    boundaries only, leading non-boundaries past a tile, tails starting in
+    the first and the last tile): the plain version equals the JAX program
+    bit for bit."""
+    got = ops.list_layout(torch.from_numpy(rep), torch.from_numpy(dfl), parent_rep, elem_def)
+    want = jops.list_layout_device(jnp.asarray(rep), jnp.asarray(dfl), parent_rep, elem_def)
+    for g, w in zip(got, want, strict=True):
+        _same(g, w)
+
+
+def test_list_layout_edge_cases_cover_the_tile():
+    """Sizes tile - 1, tile and tile + 1; boundaries at a tile's first and
+    last entry and at a 4-entry vector's; a tile without a boundary and one
+    of boundaries only; a stream of boundaries only and one with none past
+    a tile; leading non-boundaries past the first tile; a tail (entries
+    from n_slots on) starting in the first tile and one in the last."""
+    t = ops.LIST_LAYOUT_TILE
+    assert {0, 1, t - 1, t, t + 1} <= {len(c[1]) for c in LAYOUT_EDGE}
+    seen = set()
+    for _, rep, _, parent_rep, _ in LAYOUT_EDGE:
+        n = len(rep)
+        b = np.flatnonzero(rep <= parent_rep)
+        inner = b[b > 0]
+        seen |= {("tile first", bool((inner % t == 0).any())),
+                 ("tile last", bool((b % t == t - 1).any())),
+                 ("vector first", bool((inner % 4 == 0).any())),
+                 ("vector last", bool((b % 4 == 3).any()))}
+        tiles = [rep[k * t : (k + 1) * t] <= parent_rep for k in range(n // t)]
+        seen.add(("no boundary tile", any(not x.any() for x in tiles)))
+        seen.add(("boundary tile", any(x.all() for x in tiles)))
+        if n > t:
+            seen.add(("all boundaries", len(b) == n))
+            seen.add(("no boundary", len(b) == 0))
+            seen.add(("leading", len(b) > 0 and b[0] > t))
+            seen.add(("tail in the first tile", 0 < len(b) < t))
+            seen.add(("tail in the last tile", len(b) < n and len(b) // t == (n - 1) // t))
+    assert {k for k, v in seen if v} == {k for k, _ in seen}
+
+
+def test_list_layout_tile_pinned_to_the_kernel():
+    """LIST_LAYOUT_TILE, around which the edge cases put their sizes and
+    the wrapper sizes its look-back descriptors, is the kernel's tile
+    (kThreads * kItems of list_layout.cu), whole 4-entry vectors."""
+    import re
+
+    from parquet_tpu_torch.kernels import build
+
+    src = (build.CSRC / "list_layout.cu").read_text()
+    k = {m.group(1): int(m.group(2)) for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert k["kThreads"] * k["kItems"] == ops.LIST_LAYOUT_TILE
+    assert k["kItems"] % 4 == 0
 
 
 def test_list_layout_leading_entry_counts_into_slot_zero():
