@@ -337,13 +337,15 @@ LAYOUT_VIEW_OFFSETS = ((0, 0), (1, 1), (2, 2), (3, 3), (1, 0), (0, 3))
 
 def kernel_counts() -> dict:
     """Launches of each kernel since the last reset_launch_counts,
-    expand_hybrid's by bit width (`expand_hybrid_by_width`) and
-    dict_indices' by key width (`dict_indices_by_width`)."""
+    expand_hybrid's by bit width (`expand_hybrid_by_width`),
+    dict_indices' by key width (`dict_indices_by_width`) and leaf_verdict's
+    by kind, gather or validity scan (`leaf_verdict_by_kind`)."""
     from parquet_tpu_torch.kernels import device_ops as ops
 
     counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
     counts["expand_hybrid_by_width"] = dict(ops.expand_hybrid.launches_by_width)
     counts["dict_indices_by_width"] = dict(ops.dict_indices.launches_by_width)
+    counts["leaf_verdict_by_kind"] = dict(ops.leaf_verdict.launches_by_kind)
     return counts
 
 
@@ -1481,10 +1483,18 @@ def filter_kernel_cases(rng, dev):
 
 def check_filter_kernels(dev, rows: dict) -> None:
     """The filter kernels against their plain versions on the card, bit for
-    bit, at the edge shapes."""
+    bit, at the edge shapes, list_contains_mask and leaf_verdict also on
+    views whose start is off 16 bytes."""
+    import torch
+
     from parquet_tpu_torch.kernels import device_ops as ops
     from parquet_tpu_torch.kernels.pipeline import to_device
-    from parquet_tpu_torch.testing.synth import mask_take_args, mask_take_edge_cases
+    from parquet_tpu_torch.testing.synth import (
+        leaf_verdict_edge_cases,
+        list_contains_edge_cases,
+        mask_take_args,
+        mask_take_edge_cases,
+    )
 
     counts = dict.fromkeys(FILTER_KERNELS, 0)
     for name, label, args, kw in filter_kernel_cases(np.random.default_rng(SEED + 4), dev):
@@ -1503,6 +1513,30 @@ def check_filter_kernels(dev, rows: dict) -> None:
         labels.append(f"{case.label} (n={len(m)}, out_pad={out_pad})")
     log(f"  mask_take edge cases equal to the plain version, fused and in two calls: "
         f"{'; '.join(labels)}")
+    labels = []
+    for label, rep, dfl, dm, elem_def in list_contains_edge_cases(ops.LIST_CONTAINS_TILE, SEED):
+        m = torch.from_numpy(dm).to(dev)
+        for off_r, off_d in LAYOUT_VIEW_OFFSETS:
+            r, d = shifted(rep, off_r, dev), shifted(dfl, off_d, dev)
+            hold_plain(rows, "list_contains_mask", f"{label}, views at +{off_r}/+{off_d}",
+                       ops.list_contains_mask(r, d, m, elem_def),
+                       ops.list_contains_mask_plain(r, d, m, elem_def))
+        labels.append(f"{label} (n={len(rep)}, nv={len(dm)})")
+    log(f"  list_contains_mask edge cases equal to the plain version, rep/dfl also at +1-+3 "
+        f"entries: {'; '.join(labels)}")
+    labels = []
+    for label, verdict, idx, valid, fill in leaf_verdict_edge_cases(
+            ops.LEAF_VERDICT_TILE, SEED, ops.LEAF_VERDICT_GROUP):
+        # the indices 1-3 elements and the validity 1-15 bytes off 16 bytes
+        for off_i, off_v in ((0, 0), (1, 1), (2, 7), (3, 15)):
+            v = shifted(verdict, off_i, dev) if idx is None else torch.from_numpy(verdict).to(dev)
+            ix = None if idx is None else shifted(idx, off_i, dev)
+            va = None if valid is None else shifted(valid, off_v, dev)
+            hold_plain(rows, "leaf_verdict", f"{label}, views at +{off_i}/+{off_v}",
+                       ops.leaf_verdict(v, ix, va, fill), ops.leaf_verdict_plain(v, ix, va, fill))
+        labels.append(label)
+    log(f"  leaf_verdict edge cases equal to the plain version, indices (or a dense verdict) "
+        f"at +1-+3 entries, validity at +1-+15 bytes: {'; '.join(labels)}")
 
 
 def taxi_filter(specs):
@@ -3276,6 +3310,14 @@ def main(argv=None) -> int:
                              f"up to its {rows['dict_indices']['launches']} launches")
     rows["dict_indices"]["launches_by_width"] = dict(sorted(dict_by_width.items()))
     log(f"[main] dict_indices launches by key width: {dict(sorted(dict_by_width.items()))}")
+    verdict_by_kind = collections.Counter()
+    for c in launches.values():
+        verdict_by_kind.update(c["leaf_verdict_by_kind"])
+    if sum(verdict_by_kind.values()) != rows["leaf_verdict"]["launches"]:
+        raise AssertionError(f"leaf_verdict launches by kind {verdict_by_kind} do not add up "
+                             f"to its {rows['leaf_verdict']['launches']} launches")
+    rows["leaf_verdict"]["launches_by_kind"] = dict(sorted(verdict_by_kind.items()))
+    log(f"[main] leaf_verdict launches by kind: {dict(sorted(verdict_by_kind.items()))}")
 
     log(f"[times] {name} | {smi}")
 

@@ -71,8 +71,8 @@ SIGNATURES = {
         _P, _LL, _I, _I, _LL, _LL, _D, _D, _I, _ULL, _P, _P, _I, _P, _P,
     ),
     "pqt_fixed_members": (_P, _LL, _I, _P, _I, _I, _P, _P),
-    "pqt_leaf_verdict": (_P, _LL, _P, _LL, _P, _LL, _I, _P, _P, _P, _P),
-    "pqt_list_contains_mask": (_P, _P, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P),
+    "pqt_leaf_verdict": (_P, _LL, _P, _LL, _P, _LL, _I, _P, _P, _P),
+    "pqt_list_contains_mask": (_P, _P, _LL, _P, _LL, _LL, _P, _P, _P, _P),
     "pqt_mask_scan": (_P, _LL, _LL, _P, _P, _P, _P),
     "pqt_mask_take": (_P, _LL, _LL, _P, _LL, _I, _P, _P, _P, _P),
     "pqt_take_rows": (_P, _LL, _LL, _I, _P, _P, _LL, _P, _P),

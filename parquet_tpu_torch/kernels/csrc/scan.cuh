@@ -33,11 +33,11 @@
 // tile again) on an H100 (PERF.md §6). A launch after it on the same stream
 // reads the grand total from the last tile's descriptor (run1_total).
 //
-// The three-pass scan (run) is used by expand_nullable.cu, leaf_verdict.cu
-// and list_contains_mask.cu; the one-pass vector scan (run1) by
-// record_starts.cu and list_layout.cu; the single-pass segmented scan below
-// (seg_tile_scan) by delta_packed_decode.cu and, with no flag set,
-// merge_mixed_bytes.cu and dict_indices.cu; the searches (count_le,
+// The three-pass scan (run) is used by expand_nullable.cu alone; the
+// one-pass vector scan (run1) by record_starts.cu, list_layout.cu,
+// list_contains_mask.cu and leaf_verdict.cu; the single-pass segmented
+// scan below (seg_tile_scan) by delta_packed_decode.cu and, with no flag
+// set, merge_mixed_bytes.cu and dict_indices.cu; the searches (count_le,
 // warp_count_le2) by merge_mixed_bytes.cu, expand_hybrid.cu,
 // delta_packed_decode.cu and delta_block_encode.cu.
 // A load functor of run is `T operator()(long long i) const`, called for

@@ -64,8 +64,11 @@ __all__ = [
     "predicate_block",
     "leaf_verdict",
     "leaf_verdict_plain",
+    "LEAF_VERDICT_TILE",
+    "LEAF_VERDICT_GROUP",
     "list_contains_mask",
     "list_contains_mask_plain",
+    "LIST_CONTAINS_TILE",
     "mask_take",
     "mask_take_plain",
     "mask_take_scan",
@@ -720,11 +723,11 @@ merge_mixed_bytes.launches = 0
 # -- the batch path: record starts, list layout, ragged padding, nulls ---------
 #
 # Scans (kernels/csrc/scan.cuh) with their epilogues. The three-pass scan
-# (expand_nullable here; leaf_verdict and list_contains_mask below) carries a
-# scratch the wrapper allocates: a partial buffer of the scan's dtype and
-# num_tiles + 1 tile sums (pqt_scan_tile() elements per tile). The one-pass
-# scans of record_starts and list_layout take only their look-back
-# descriptors: a counter, a pad word and 16 bytes a tile.
+# (expand_nullable) carries a scratch the wrapper allocates: a partial buffer
+# of the scan's dtype and num_tiles + 1 tile sums (pqt_scan_tile() elements
+# per tile). The one-pass scans of record_starts and list_layout (and of
+# list_contains_mask below) take only their look-back descriptors: a
+# counter, a pad word and 16 bytes a tile.
 
 _INT32_LIMIT = 1 << 31
 # dtypes the byte-width kernels copy (1-, 4- and 8-byte elements)
@@ -1229,6 +1232,13 @@ def leaf_verdict_plain(
     return torch.where(valid, dense[didx], bool(fill))
 
 
+# Rows a tile of the leaf-verdict kernel's validity path holds, and tiles a
+# group of its counts (kThreads * kItems and kGroup of
+# kernels/csrc/leaf_verdict.cu, pinned by a test).
+LEAF_VERDICT_TILE = 4096
+LEAF_VERDICT_GROUP = 256
+
+
 def leaf_verdict(
     verdict: torch.Tensor, indices: torch.Tensor | None = None,
     valid: torch.Tensor | None = None, fill: bool = False,
@@ -1262,23 +1272,28 @@ def leaf_verdict(
     out = torch.empty(n, dtype=torch.bool, device=dev)
     if not n:
         return out
-    lib = _lib()
-    partial = tile_sums = None
+    scratch = None
     if valid is not None:
-        partial = torch.empty(n, dtype=torch.int32, device=dev)
-        tile_sums = _tile_sums(lib, n, torch.int32, dev)
+        # each tile's count of valid rows, then each group's; no scratch of
+        # n rows
+        tiles = -(-n // LEAF_VERDICT_TILE)
+        scratch = torch.empty(tiles + -(-tiles // LEAF_VERDICT_GROUP), dtype=torch.int32,
+                              device=dev)
     _launch(
-        "leaf_verdict", dev, lib.pqt_leaf_verdict,
+        "leaf_verdict", dev, _lib().pqt_leaf_verdict,
         _ptr(verdict), verdict.numel(), None if indices is None else _ptr(indices), nd,
         None if valid is None else _ptr(valid), n, int(bool(fill)), _ptr(out),
-        None if partial is None else _ptr(partial),
-        None if tile_sums is None else _ptr(tile_sums),
+        None if scratch is None else _ptr(scratch),
     )
     leaf_verdict.launches += 1
+    kind = "gather" if valid is None else "validity"
+    leaf_verdict.launches_by_kind[kind] = leaf_verdict.launches_by_kind.get(kind, 0) + 1
     return out
 
 
 leaf_verdict.launches = 0
+# launches without a validity (the gather) and with one (the validity scan)
+leaf_verdict.launches_by_kind = {}
 
 
 def list_contains_mask_plain(
@@ -1302,6 +1317,11 @@ def list_contains_mask_plain(
         0, row_of, entry_match.to(torch.int32), "amax"
     )
     return rows.to(torch.bool), starts.sum(dtype=torch.int64)
+
+
+# Entries a tile of the LIST-contains kernel scans (kThreads * kItems of
+# kernels/csrc/list_contains_mask.cu, pinned by a test).
+LIST_CONTAINS_TILE = 4096
 
 
 def list_contains_mask(
@@ -1329,13 +1349,11 @@ def list_contains_mask(
     if not n:
         return rows, torch.zeros((), dtype=torch.int64, device=dev)
     n_rows = torch.empty((), dtype=torch.int64, device=dev)
-    lib = _lib()
-    partial = torch.empty(n, dtype=torch.int64, device=dev)
-    tile_sums = _tile_sums(lib, n, torch.int64, dev)
+    descriptors = _descriptors(n, LIST_CONTAINS_TILE, dev)
     _launch(
-        "list_contains_mask", dev, lib.pqt_list_contains_mask,
+        "list_contains_mask", dev, _lib().pqt_list_contains_mask,
         _ptr(rep), _ptr(dfl), n, _ptr(dense_match), dense_match.numel(), elem_def,
-        _ptr(rows), _ptr(n_rows), _ptr(partial), _ptr(tile_sums),
+        _ptr(rows), _ptr(n_rows), _ptr(descriptors),
     )
     list_contains_mask.launches += 1
     return rows, n_rows
@@ -2150,3 +2168,4 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     expand_hybrid.launches_by_width = {}
     dict_indices.launches_by_width = {}
+    leaf_verdict.launches_by_kind = {}

@@ -1012,6 +1012,140 @@ def list_layout_edge_cases(tile: int, seed: int = 0) -> list:
     return cases
 
 
+# -- level streams at the LIST-contains kernel's edges ---------------------------
+
+
+def list_contains_edge_cases(tile: int, seed: int = 0) -> list:
+    """(label, int32 rep levels, int32 def levels, bool dense_match,
+    elem_def) at the edges of a LIST-contains scan over tiles of `tile`
+    entries in 4-entry vectors, whose epilogue marks a warp's rows of 128
+    entries: n = 0, 1, tile - 1, tile and tile + 1; record starts (rep == 0)
+    as the first and the last entry of a tile and of a vector; a record
+    longer than a tile that matches only in its second tile; matching
+    entries before the first record start (they clip into row 0); no record
+    start at all; starts only (n_rows = n) with every element matching, so
+    a warp marks 128 rows; nv = 0, nv past the element count and a stream
+    of one element; the saturated elem_def 2**31 - 1 (no def stream)."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    t = tile
+
+    def levels(n, p_start=0.3):
+        rep = rng.integers(1, 3, n).astype(np.int32)
+        rep[rng.random(n) < p_start] = 0
+        # 0 a null list, 1 an empty one, 2 an element
+        dfl = rng.choice(np.array([0, 1, 2], np.int32), n, p=(0.05, 0.05, 0.9))
+        return rep, dfl
+
+    def case(label, rep, dfl, dm=None, p=0.3, elem_def=2):
+        if dm is None:
+            dm = rng.random(int((dfl == elem_def).sum())) < p
+        cases.append((label, rep, dfl, np.asarray(dm, dtype=bool), elem_def))
+
+    for n in (0, 1, t - 1, t, t + 1):
+        case(f"n={n}", *levels(n))
+    rep, dfl = levels(3 * t + 5, 0.0)
+    rep[[0, t - 1, t, 2 * t - 1, 2 * t, 4 * 9, 4 * 11 + 3, t + 4 * 5, t + 4 * 7 + 3]] = 0
+    case("starts first and last in tiles and vectors", rep, dfl)
+    # one record from entry 5 over two tiles; its only match lies in the
+    # second tile, and the records after it match nowhere
+    rep, dfl = levels(3 * t, 0.3)
+    rep[5 : 2 * t + 50] = 1
+    rep[5] = 0
+    dfl[5 : 2 * t + 50] = 2
+    elems = np.cumsum(dfl == 2) - 1
+    dm = np.zeros(int((dfl == 2).sum()), bool)
+    dm[elems[t + 300]] = True
+    case("a record over two tiles matching only in the second", rep, dfl, dm)
+    rep, dfl = levels(2 * t + 3)
+    rep[:200] = 1
+    dfl[:200] = 2
+    dm = rng.random(int((dfl == 2).sum())) < 0.3
+    dm[:200:7] = True
+    case("matches before the first record start", rep, dfl, dm)
+    case("no record start at all", *levels(2 * t + 9, 0.0), p=0.5)
+    rep = np.zeros(2 * t + 3, np.int32)
+    dfl = rng.choice(np.array([1, 2], np.int32), len(rep), p=(0.1, 0.9))
+    dfl[:512] = 2  # the first warps' rows all match
+    case("starts only (n_rows = n), every element matching", rep, dfl, p=1.0)
+    rep, dfl = levels(t + 17)
+    case("nv = 0", rep, dfl, np.zeros(0, bool))
+    rep, dfl = levels(t + 17)
+    case("nv past the element count", rep, dfl, rng.random(int((dfl == 2).sum()) + 50) < 0.3)
+    rep, dfl = levels(t + 17)
+    dfl[:] = 1
+    dfl[t - 3] = 2
+    case("one element", rep, dfl, np.ones(1, bool))
+    rep, _ = levels(2 * t + 1)
+    case("saturated elem_def 2**31 - 1", rep, np.full(len(rep), 2**31 - 1, np.int32),
+         rng.random(len(rep)) < 0.2, elem_def=2**31 - 1)
+    return cases
+
+
+# -- verdicts at the leaf-verdict kernel's edges ----------------------------------
+
+
+def leaf_verdict_edge_cases(tile: int, seed: int = 0, group: int = 0) -> list:
+    """(label, uint8 verdict, int32 indices or None, bool validity or None,
+    fill) at the edges of a leaf verdict whose threads take 16 rows and
+    whose validity path counts tiles of `tile` rows (and, past `group`
+    tiles, groups of them): n = 0, 1, 15, 16, 17, tile - 1, tile, tile + 1
+    and 3 x tile + 5; with `group`, n = group x tile (one whole group),
+    group x tile + 1 and 2 x group x tile + tile + 3; all-true, all-false and
+    random validities; nd = 0; `fill` both ways; out-of-range indices (-1,
+    n_dict, -n_dict - 4) on both sides of a tile boundary, with and without
+    a validity; a dense verdict and one through indices; verdict bytes
+    other than 0 and 1 (any nonzero byte is true)."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    t = tile
+    n_dict = 1000
+
+    def verdict(m):
+        v = rng.integers(0, 2, m).astype(np.uint8)
+        # nonzero bytes other than 1 on a third of the true entries
+        high = (v == 1) & (rng.random(m) < 0.33)
+        v[high] = rng.integers(2, 256, int(high.sum()), dtype=np.uint8)
+        return v
+
+    def case(label, n, p=0.7, dense=False, valid=True, idx_at=(), n_dict=n_dict):
+        val = rng.random(n) < p if valid else None
+        nd = n if val is None else int(val.sum())
+        if dense:
+            v, idx = verdict(nd), None
+        else:
+            v = verdict(n_dict)
+            idx = rng.integers(0, n_dict, nd).astype(np.int32)
+            # out-of-range indices at the dense positions of rows idx_at
+            dense_at = idx_at if val is None else (np.cumsum(val) - 1)[list(idx_at)]
+            for k, x in zip(dense_at, (-1, n_dict, -n_dict - 4) * 2, strict=False):
+                if 0 <= k < nd:
+                    idx[k] = x
+        for fill in (False, True) if val is not None else (False,):
+            cases.append((f"{label}, fill={fill}", v, idx, val, fill))
+
+    for n in (0, 1, 15, 16, 17, t - 1, t, t + 1, 3 * t + 5):
+        case(f"n={n}, random validity", n)
+        case(f"n={n}, no validity", n, valid=False)
+    edge = (t - 3, t - 2, t - 1, t, t + 1, t + 2)
+    case("out-of-range indices around a tile boundary", 3 * t, p=1.0, idx_at=edge)
+    case("out-of-range indices around a tile boundary, no validity", 3 * t, valid=False,
+         idx_at=edge)
+    case("out-of-range indices with nulls", 3 * t, p=0.5, idx_at=edge)
+    case("all valid", 2 * t + 7, p=1.0)
+    case("all null (nd = 0)", 2 * t + 7, p=0.0)
+    case("nd = 0, one row", 1, p=0.0)
+    case("dense verdict, random validity", 2 * t + 7, dense=True)
+    case("dense verdict, all valid", t + 1, p=1.0, dense=True)
+    case("dense verdict, no validity", 2 * t + 7, dense=True, valid=False)
+    if group:
+        g = group * t
+        case(f"n={g}: one whole group of tiles", g, p=0.9)
+        case(f"n={g + 1}: a tile past one group", g + 1, p=0.9, idx_at=(g - 1, g))
+        case(f"n={2 * g + t + 3}: past two groups", 2 * g + t + 3, p=0.5, dense=True)
+    return cases
+
+
 # -- pages at the DELTA encode kernel's tile edges ---------------------------------
 
 

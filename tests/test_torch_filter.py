@@ -36,6 +36,8 @@ from parquet_tpu_torch.meta.parquet_types import Encoding as E  # noqa: E402
 from parquet_tpu_torch.meta.parquet_types import Type as T  # noqa: E402
 from parquet_tpu_torch.testing.synth import (  # noqa: E402
     ColumnSpec,
+    leaf_verdict_edge_cases,
+    list_contains_edge_cases,
     mask_take_args,
     mask_take_edge_cases,
     write_file,
@@ -279,6 +281,179 @@ def test_list_contains_mask_plain_matches_jax(n, nv, lead):
                                   torch.from_numpy(dm), 2)
     np.testing.assert_array_equal(gr.numpy(), np.asarray(wr))
     assert int(gn) == int(wn) and gn.dtype == torch.int64 and gn.dim() == 0
+
+
+def _kernel_constants(source: str) -> dict:
+    import re
+
+    from parquet_tpu_torch.kernels import build
+
+    src = (build.CSRC / source).read_text()
+    return {m.group(1): int(m.group(2)) for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+CONTAINS_EDGE = list_contains_edge_cases(P.LIST_CONTAINS_TILE, seed=37)
+
+
+@pytest.mark.parametrize("label,rep,dfl,dm,elem_def", CONTAINS_EDGE,
+                         ids=[c[0] for c in CONTAINS_EDGE])
+def test_list_contains_edge_cases_match_jax(label, rep, dfl, dm, elem_def):
+    """The LIST-contains kernel's edge cases (sizes around its tile, record
+    starts at tile and vector edges, a record over two tiles, matches
+    before the first start, no start, starts only, nv = 0 and past the
+    element count, one element, the saturated def level): the plain
+    version equals the JAX program bit for bit, rows past n_rows false."""
+    wr, wn = J.list_contains_mask_device(jnp.asarray(rep), jnp.asarray(dfl), jnp.asarray(dm),
+                                         elem_def)
+    gr, gn = P.list_contains_mask(torch.from_numpy(rep), torch.from_numpy(dfl),
+                                  torch.from_numpy(dm), elem_def)
+    np.testing.assert_array_equal(gr.numpy(), np.asarray(wr))
+    assert int(gn) == int(wn) == int((rep == 0).sum()) and gn.dtype == torch.int64
+    assert not gr[int(gn):].any() or int(gn) == 0
+
+
+def test_list_contains_edge_cases_cover_the_tile():
+    """Sizes 0, 1, tile - 1, tile and tile + 1; starts at a tile's and a
+    vector's first and last entry; a record longer than a tile whose only
+    match lies past its first tile; matches before the first start; no
+    start past a tile; starts only with a warp's 128 rows all matching; nv
+    = 0, nv past the element count, one element; the saturated def level."""
+    t = P.LIST_CONTAINS_TILE
+    assert {0, 1, t - 1, t, t + 1} <= {len(c[1]) for c in CONTAINS_EDGE}
+    seen = set()
+    for _, rep, dfl, dm, elem_def in CONTAINS_EDGE:
+        n = len(rep)
+        s = np.flatnonzero(rep == 0)
+        inner = s[s > 0]
+        elem = dfl == elem_def
+        nv = int(elem.sum())
+        didx = np.clip(np.cumsum(elem) - 1, 0, max(len(dm) - 1, 0))
+        match = elem & (dm[didx] if len(dm) else False)
+        row_of = np.cumsum(rep == 0) - 1
+        seen |= {("tile first", bool((inner % t == 0).any())),
+                 ("tile last", bool((s % t == t - 1).any())),
+                 ("vector first", bool((inner % 4 == 0).any())),
+                 ("vector last", bool((s % 4 == 3).any())),
+                 ("nv 0", len(dm) == 0 and nv > 0),
+                 ("nv past", len(dm) > nv > 0),
+                 ("one element", nv == 1),
+                 ("saturated", elem_def == 2**31 - 1),
+                 ("before the first start", bool(match[: s[0] if len(s) else n].any()))}
+        if n > t:
+            seen.add(("no start", len(s) == 0))
+            seen.add(("starts only, 128 matching rows a warp",
+                      len(s) == n and bool(match[:128].all())))
+            ends = np.append(s[1:], n) if len(s) else s
+            long = [(a, b) for a, b in zip(s, ends, strict=True) if b - a > t]
+            seen.add(("long record matching past its first tile only", any(
+                match[a:b].any() and not match[a : (a // t + 1) * t].any()
+                and not match[b:][row_of[b:] == row_of[a]].any() for a, b in long)))
+    assert {k for k, v in seen if v} == {k for k, _ in seen}
+
+
+def test_list_contains_tile_pinned_to_the_kernel():
+    """LIST_CONTAINS_TILE, around which the edge cases put their sizes and
+    the wrapper sizes its look-back descriptors, is the kernel's tile
+    (kThreads * kItems of list_contains_mask.cu), whole 4-entry vectors."""
+    k = _kernel_constants("list_contains_mask.cu")
+    assert k["kThreads"] * k["kItems"] == P.LIST_CONTAINS_TILE
+    assert k["kItems"] % 4 == 0
+
+
+LV_EDGE = leaf_verdict_edge_cases(P.LEAF_VERDICT_TILE, seed=41, group=P.LEAF_VERDICT_GROUP)
+
+
+def _leaf_verdict_jax(verdict, idx, valid, fill):
+    """Row 22's inline ops as parquet_tpu/core/filter_device.py writes them:
+    the gather `dcmp[indices]`, then `v & cmp[didx]` or, for arrow's
+    not_in, `(~v) | (v & cmp[didx])` (zeros or ~valid when nd == 0)."""
+    from parquet_tpu.core.filter_device import _valid_expand
+
+    dcmp = jnp.asarray(verdict != 0)
+    cmp_j = dcmp if idx is None else dcmp[jnp.asarray(idx)]
+    if valid is None:
+        return np.asarray(cmp_j)
+    nd = int(valid.sum())
+    if nd == 0:
+        return np.asarray(jnp.asarray(~valid)) if fill else np.zeros(len(valid), bool)
+    v, didx = _valid_expand(valid, nd, {}, ("c",))
+    return np.asarray((~v) | (v & cmp_j[didx]) if fill else v & cmp_j[didx])
+
+
+@pytest.mark.parametrize("label,verdict,idx,valid,fill", LV_EDGE, ids=[c[0] for c in LV_EDGE])
+def test_leaf_verdict_edge_cases_match_jax(label, verdict, idx, valid, fill):
+    """The leaf-verdict kernel's edge cases (sizes around its 16-row
+    threads and its tile, all-true, all-false and random validities, nd =
+    0, both fills, out-of-range indices around a tile boundary, dense and
+    dictionary verdicts, verdict bytes other than 0 and 1): the plain
+    version equals the JAX package's inline ops bit for bit."""
+    got = P.leaf_verdict(torch.from_numpy(verdict),
+                         None if idx is None else torch.from_numpy(idx),
+                         None if valid is None else torch.from_numpy(valid), fill)
+    np.testing.assert_array_equal(got.numpy(), _leaf_verdict_jax(verdict, idx, valid, fill))
+
+
+def test_leaf_verdict_edge_cases_cover_the_tile():
+    """Sizes 0, 1, 15-17, tile - 1, tile and tile + 1, with and without a
+    validity; with a validity, one whole group of tiles, a tile past it and
+    a size past two groups; all-true, all-false and random validities; both fills; the
+    out-of-range indices -1, n_dict and -n_dict - 4 at dense positions on
+    both sides of a tile boundary; dense and dictionary verdicts; verdict
+    bytes past 1."""
+    t = P.LEAF_VERDICT_TILE
+    sizes = {(len(c[3]) if c[3] is not None else len(c[2] if c[2] is not None else c[1]),
+              c[3] is None) for c in LV_EDGE}
+    assert {(n, w) for n in (0, 1, 15, 16, 17, t - 1, t, t + 1) for w in (True, False)} <= sizes
+    g = P.LEAF_VERDICT_GROUP * t
+    assert {(g, False), (g + 1, False), (2 * g + t + 3, False)} <= sizes
+    seen = set()
+    for _, verdict, idx, valid, fill in LV_EDGE:
+        seen.add(("fill", fill))
+        seen.add(("dense", idx is None))
+        seen.add(("bytes past 1", bool((verdict > 1).any())))
+        if valid is not None and len(valid) > 1:
+            seen.add(("validity", "all" if valid.all() else "none" if not valid.any() else "some"))
+        if idx is not None and len(idx):
+            bad = np.flatnonzero((idx < 0) | (idx >= len(verdict)))
+            seen.add(("out of range below a tile boundary", bool((bad % t >= t - 3).any())))
+            seen.add(("out of range above a tile boundary",
+                      bool(((bad % t < 3) & (bad >= t)).any())))
+            seen.add(("wrapped", bool((idx == -1).any() and (idx < -len(verdict)).any()
+                                      and (idx == len(verdict)).any())))
+    assert {k for k in seen if k[1] is not False} | {("fill", False), ("dense", False)} == {
+        ("fill", False), ("fill", True), ("dense", True), ("dense", False), ("bytes past 1", True),
+        ("validity", "all"), ("validity", "none"), ("validity", "some"),
+        ("out of range below a tile boundary", True), ("out of range above a tile boundary", True),
+        ("wrapped", True)}
+    assert ("fill", False) in seen and ("dense", False) in seen
+
+
+def test_leaf_verdict_launches_by_kind_cleared_with_the_counts():
+    """The tally of launches by kind (gather, validity) goes with
+    reset_launch_counts, and CPU tensors (the plain version) add nothing."""
+    P.leaf_verdict.launches_by_kind["validity"] = 3
+    P.reset_launch_counts()
+    assert P.leaf_verdict.launches_by_kind == {}
+    v = torch.ones(4, dtype=torch.bool)
+    P.leaf_verdict(v, torch.arange(4, dtype=torch.int32), torch.ones(4, dtype=torch.bool))
+    assert P.leaf_verdict.launches_by_kind == {} and P.leaf_verdict.launches == 0
+
+
+def test_leaf_verdict_tile_pinned_to_the_kernel():
+    """LEAF_VERDICT_TILE and LEAF_VERDICT_GROUP, around which the edge
+    cases put their sizes and the wrapper sizes the validity path's tile
+    and group counts, are the kernel's tile (kThreads * kItems of
+    leaf_verdict.cu, whole 16-row vectors) and its tiles a group."""
+    import re
+
+    from parquet_tpu_torch.kernels import build
+
+    k = _kernel_constants("leaf_verdict.cu")
+    assert k["kThreads"] * k["kItems"] == P.LEAF_VERDICT_TILE
+    assert k["kVec"] == 16 and k["kItems"] % k["kVec"] == 0
+    src = (build.CSRC / "leaf_verdict.cu").read_text()
+    assert re.search(r"constexpr int kGroup = kThreads;", src)
+    assert k["kThreads"] == P.LEAF_VERDICT_GROUP
 
 
 @pytest.mark.parametrize("n,out_pad,p", [(10, 16, 0.5), (300, 40, 0.5), (1, 4, 1.0),
