@@ -43,7 +43,11 @@ Phases (any failure raises and the script exits non-zero):
               record_starts also on testing/synth.record_starts_edge_cases:
               sizes around its tile, leading non-starts longer than a
               tile, a tile without a start and one of starts only, and
-              over 4,097 tiles);
+              over 4,097 tiles; expand_nullable also on
+              testing/synth.expand_nullable_edge_cases: sizes around its
+              tile and past one and two groups of tiles, all-valid,
+              all-null and random masks, nv exact, short, zero and long,
+              1-, 4- and 8-byte values, views off 16 bytes);
               for the filter path's kernels every value dtype and op at
               n = 0, 1, 15-17, one block's work +-1 and 2**20 + 3 and at
               starts 1-15 elements off the 16-byte alignment,
@@ -80,7 +84,11 @@ Phases (any failure raises and the script exits non-zero):
               signed extremes, patterns above 2**31 and 2**63, NaN, +-0.0
               and +-inf; for expand_page_grid widths 0, 1, 3, 12, 17 and 32
               with a single-run page, ragged counts, an all-padding page
-              and out-of-range dictionary indices);
+              and out-of-range dictionary indices, and
+              testing/synth.page_grid_edge_cases: n_out off its tile, runs
+              shorter than a thread's outputs, more runs a tile than it
+              stages, a page ending inside a tile, bit starts that wrap or
+              are negative, a first start above 0, is_rle 2);
   4. main     three 8,388,608-row files (8 row groups of 2**20 rows, ~1 MiB
               pages, chunk statistics, built from a seed with
               testing/synth.py), each decoded
@@ -172,7 +180,11 @@ Phases (any failure raises and the script exits non-zero):
               dict_indices also over vendor_id (8 keys) and trip_id (all
               unique), with the main paths' launches by key width;
               mask_take_rows alone at sessions' items padded to [rows, 16]
-              int32 under the sessions filter, under `wide`.
+              int32 under the sessions filter, under `wide`;
+              expand_nullable also at 2**22 + 777 rows (past one group of
+              its tiles) and expand_page_grid also on a grid of many runs
+              a page (grid_case at width 3, 16 pages x 2**19), each under
+              `shapes`.
 
 `python3 chip_smoke.py --ranks N` (N cards) runs only the multi-rank check:
 N NCCL ranks spawned through parquet_tpu_torch.testing.dist, one card a
@@ -374,14 +386,14 @@ def hold_plain(rows: dict, name: str, label: str, got, plain) -> None:
         rows[name]["max_abs_err"] = max(rows[name].get("max_abs_err", 0.0), err)
 
 
-def record_kernel(rows: dict, name: str, fn, plain, nbytes: int, ops_count: int, bw: float,
-                  lib=None, lib_events: bool = False, plain_events: bool = False,
-                  shape: str = "") -> None:
-    """One kernel at a main path's shape: held against its plain version on
-    the inputs it is timed on, then its device time beside its bound, its
-    plain version's and the one PyTorch call computing the same function
-    where there is one (`lib_events`, `plain_events`: a call that
-    synchronizes inside, timed with events)."""
+def measure_kernel(rows: dict, name: str, fn, plain, nbytes: int, ops_count: int, bw: float,
+                   lib=None, lib_events: bool = False, plain_events: bool = False,
+                   shape: str = "") -> dict:
+    """One kernel at one shape: held against its plain version on the inputs
+    it is timed on, then its device time beside its bound, its plain
+    version's and the one PyTorch call computing the same function where
+    there is one (`lib_events`, `plain_events`: a call that synchronizes
+    inside, timed with events)."""
     hold_plain(rows, name, f"[{shape}]", fn(), plain())
     entry = {"ms": device_ms(fn), "plain_ms": events_ms(plain) if plain_events else device_ms(plain),
              "library_ms": None if lib is None else
@@ -391,12 +403,25 @@ def record_kernel(rows: dict, name: str, fn, plain, nbytes: int, ops_count: int,
     ops_ms = ops_count / OPS_PER_S * 1e3
     entry["bound_ms"] = max(bytes_ms, ops_ms)
     entry["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
-    rows[name].update(entry)
     log(f"  {name} [{shape}]: equal to its plain version; {entry['ms']:.4f} ms on the device "
         f"(eager call {entry['eager_ms']:.4f} ms), plain {entry['plain_ms']:.4f} ms"
         + (f", library {entry['library_ms']:.4f} ms" if lib is not None else "")
         + f"; bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, {nbytes} B, "
         f"{ops_count} ops); {nbytes / entry['ms'] / 1e6:.1f} GB/s")
+    return entry
+
+
+def record_kernel(rows: dict, name: str, fn, plain, nbytes: int, ops_count: int, bw: float,
+                  **kw) -> None:
+    """measure_kernel at a main path's shape, into the kernel's row."""
+    rows[name].update(measure_kernel(rows, name, fn, plain, nbytes, ops_count, bw, **kw))
+
+
+def record_shape(rows: dict, name: str, fn, plain, nbytes: int, ops_count: int, bw: float,
+                 **kw) -> None:
+    """measure_kernel at a shape beside the main one, into the row's `shapes`."""
+    rows[name].setdefault("shapes", []).append(
+        measure_kernel(rows, name, fn, plain, nbytes, ops_count, bw, **kw))
 
 
 # -- phase 3: kernel inputs at the main path's shapes ---------------------------
@@ -1110,13 +1135,16 @@ def check_batch_kernels(dev, rows: dict) -> None:
     and the kernel's tile or span, record_starts on
     testing/synth.record_starts_edge_cases and over 4,097 tiles,
     list_layout on testing/synth.list_layout_edge_cases with rep and dfl
-    also as views 1-3 entries off 16 bytes, and pad_ragged on rows of
+    also as views 1-3 entries off 16 bytes, expand_nullable on
+    testing/synth.expand_nullable_edge_cases, and pad_ragged on rows of
     2**27 and 2**31 + 4096 columns."""
     import torch
 
     from parquet_tpu_torch.kernels import device_ops as ops
     from parquet_tpu_torch.testing.synth import (
+        expand_nullable_edge_cases,
         list_layout_edge_cases,
+        nullable_args,
         pad_ragged_edge_cases,
         pad_ragged_tile_rows,
         pad_ragged_wide,
@@ -1129,6 +1157,16 @@ def check_batch_kernels(dev, rows: dict) -> None:
                    getattr(ops, name + "_plain")(*args))
         counts[name] += 1
     log("  " + ", ".join(f"{k}: {v} shapes equal" for k, v in counts.items()))
+    cases = expand_nullable_edge_cases(ops.EXPAND_NULLABLE_TILE, SEED,
+                                       ops.EXPAND_NULLABLE_GROUP)
+    for case in cases:
+        args = nullable_args(case, lambda a: torch.from_numpy(a).to(dev))
+        hold_plain(rows, "expand_nullable", case.label, ops.expand_nullable(*args),
+                   ops.expand_nullable_plain(*args))
+    log(f"  expand_nullable: {len(cases)} edge cases equal to the plain version (sizes around "
+        f"its {ops.EXPAND_NULLABLE_TILE}-row tile and {ops.EXPAND_NULLABLE_GROUP}-tile group, "
+        "all-valid, all-null and random masks, nv exact, short, zero and long, 1-, 4- and "
+        "8-byte values, views off 16 bytes)")
     labels = []
     for case in pad_ragged_edge_cases(SEED):
         args = (torch.from_numpy(case.values).to(dev), torch.from_numpy(case.lengths).to(dev),
@@ -1241,6 +1279,10 @@ def check_pad_giant(dev, rows: dict) -> None:
         f"bound {giant['bound_ms']:.4f} ms")
 
 
+# expand_nullable's timed shape past one group of its tiles
+NULLABLE_BIG = (1 << 22) + 777
+
+
 def time_batch_kernels(sessions_path, taxi_path, dev, rows: dict, bw: float) -> None:
     """Device times of the batch path's kernels at the main path's shapes:
     record_starts and list_layout on the sessions file's first items group,
@@ -1248,7 +1290,8 @@ def time_batch_kernels(sessions_path, taxi_path, dev, rows: dict, bw: float) -> 
     calls it), expand_nullable on the taxi file's first passenger_count
     group; each held against its plain version on the inputs it is timed
     on, then timed beside its bound, its plain version and the one PyTorch
-    call computing the same function where there is one."""
+    call computing the same function where there is one; expand_nullable
+    also at NULLABLE_BIG rows, past one group of its tiles."""
     import torch
 
     from parquet_tpu_torch.core.reader import FileReader
@@ -1327,6 +1370,16 @@ def time_batch_kernels(sessions_path, taxi_path, dev, rows: dict, bw: float) -> 
            m + 4 * pvals.numel() + 4 * m, 8 * m,
            lib=lambda: torch.zeros(m, dtype=pvals.dtype, device=dev).masked_scatter_(mask, pvals),
            shape=f"taxi passenger_count group 0, n={m} nv={pvals.numel()}")
+    # past one group of tiles: the counts of groups between the two launches
+    rng = np.random.default_rng(SEED + 14)
+    bm = to_device(rng.random(NULLABLE_BIG) < 0.95, dev)
+    bv = to_device(rng.integers(0, 7, int(bm.sum()), dtype=np.int32), dev)
+    record_shape(rows, "expand_nullable", lambda: ops.expand_nullable(bv, bm),
+                 lambda: ops.expand_nullable_plain(bv, bm),
+                 NULLABLE_BIG + 4 * bv.numel() + 4 * NULLABLE_BIG, 8 * NULLABLE_BIG, bw,
+                 lib=lambda: torch.zeros(NULLABLE_BIG, dtype=bv.dtype, device=dev)
+                 .masked_scatter_(bm, bv),
+                 shape=f"random 95 % valid, n={NULLABLE_BIG} nv={bv.numel()} int32")
 
 
 # -- the filter path: predicates, LIST contains, verdicts, compaction ----------
@@ -2430,7 +2483,8 @@ def grid_case(rng, width: int, n_out: int = 4096, pages: int = 6):
 
 
 def check_query_kernels(dev, rows: dict) -> None:
-    """masked_agg and expand_page_grid against their plain versions."""
+    """masked_agg and expand_page_grid against their plain versions
+    (expand_page_grid also on testing/synth.page_grid_edge_cases)."""
     from parquet_tpu_torch.kernels import device_ops as ops
     from parquet_tpu_torch.kernels.pipeline import to_device
 
@@ -2453,6 +2507,21 @@ def check_query_kernels(dev, rows: dict) -> None:
                        ops.expand_page_grid_plain(*grid, d, width, 4096))
         log(f"  expand_page_grid width={width:2d}: 7 pages (one RLE-only, ragged counts, one "
             f"all-padding) x 4096, dictionaries of {d_len} int64 and int32 keys: equal")
+    from parquet_tpu_torch.testing.synth import page_grid_edge_cases
+
+    cases = page_grid_edge_cases(ops.PAGE_GRID_TILE, ops.PAGE_GRID_ITEMS,
+                                 ops.PAGE_GRID_STAGE_RUNS, SEED)
+    for case in cases:
+        grid = [to_device(a, dev) for a in case.grid]
+        d = to_device(case.dictionary, dev)
+        hold_plain(rows, "expand_page_grid", f"[{case.label}]",
+                   ops.expand_page_grid(*grid, d, case.width, case.n_out),
+                   ops.expand_page_grid_plain(*grid, d, case.width, case.n_out))
+    log(f"  expand_page_grid: {len(cases)} edge cases equal to the plain version (widths 0, 1, "
+        f"3, 12, 17 and 32: n_out off its {ops.PAGE_GRID_TILE}-output tile, runs shorter than "
+        f"a thread's {ops.PAGE_GRID_ITEMS} outputs, more than {ops.PAGE_GRID_STAGE_RUNS} runs a "
+        "tile, a page ending inside a tile, a padding page, bit starts that wrap or are "
+        "negative, a first start above 0, is_rle 2, short int32 and int64 dictionaries)")
 
 
 def query_aggregates():
@@ -2766,8 +2835,9 @@ def check_gloo_on_card(dev) -> None:
 def time_query_kernels(taxi_path, f_taxi, scan, dev, rows: dict, bw: float) -> None:
     """Device times of masked_agg on the query's shape (pickup_us of row
     group 0 under F_taxi's mask: 2**20 int64 and a bool mask) and of
-    expand_page_grid on trip_distance's real index pages, each held against
-    its plain version on the inputs it is timed on."""
+    expand_page_grid on trip_distance's real index pages and on a grid of
+    many runs a page (grid_case at width 3, 16 pages x GRID_MULTI_OUT),
+    each held against its plain version on the inputs it is timed on."""
     import torch
 
     from parquet_tpu_torch.core.reader import FileReader
@@ -2808,6 +2878,23 @@ def time_query_kernels(taxi_path, f_taxi, scan, dev, rows: dict, bw: float) -> N
                   in_bytes + out_bytes, grid.num_pages * n_out * (15 + 2 * runs.bit_length()),
                   bw, shape=f"taxi trip_distance index pages: {grid.num_pages} x {n_out}, "
                   f"{runs} runs, {grid.words.shape[1]} words, width {grid.width}")
+    # a grid of many runs a page: width 3, RLE runs between bit-packed ones
+    arrs, d_len = grid_case(np.random.default_rng(SEED + 14), 3, n_out=GRID_MULTI_OUT, pages=16)
+    margs = [to_device(a.view(np.int32), dev) for a in arrs]
+    md = to_device(np.random.default_rng(SEED + 15).integers(-(2**40), 2**40, d_len), dev)
+    m_pages, m_runs = arrs[0].shape[0], arrs[1].shape[1]
+    record_shape(rows, "expand_page_grid",
+                 lambda: ops.expand_page_grid(*margs, md, 3, GRID_MULTI_OUT),
+                 lambda: ops.expand_page_grid_plain(*margs, md, 3, GRID_MULTI_OUT),
+                 sum(a.numel() * 4 for a in margs) + md.numel() * 8
+                 + m_pages * GRID_MULTI_OUT * 8,
+                 m_pages * GRID_MULTI_OUT * (15 + 2 * m_runs.bit_length()), bw,
+                 shape=f"grid_case width 3: {m_pages} x {GRID_MULTI_OUT} (16 pages and a "
+                 f"padding page), {m_runs} runs, {arrs[0].shape[1]} words, {d_len} int64 keys")
+
+
+# expand_page_grid's multi-run timed shape: outputs a page
+GRID_MULTI_OUT = 1 << 19
 
 
 # -- the multi-rank check (python3 chip_smoke.py --ranks N, one card a rank) ----

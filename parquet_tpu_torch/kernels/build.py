@@ -4,7 +4,8 @@ Every `kernels/csrc/*.cu` source compiles with `nvcc` for `sm_90a` (one
 `nvcc -c` per source, all started together), and the objects link into one
 shared library with a plain C interface, loaded with `ctypes`. Pointers and
 the CUDA stream are passed as `ctypes.c_void_p`. The `*.cuh` headers
-(scan.cuh) are included by the sources and compile with them.
+(hybrid.cuh, scan.cuh, validity.cuh) are included by the sources and compile
+with them.
 
 The library goes to `build/parquet_tpu_torch/<key>/` at the repository root
 (listed in .gitignore), keyed by a hash of the sources, the headers and the
@@ -61,12 +62,11 @@ SIGNATURES = {
         _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P, _LL, _LL, _P, _P, _P, _P, _I,
         _LL, _LL, _P, _P, _P, _P,
     ),
-    "pqt_scan_tile": (),
     "pqt_record_starts": (_P, _LL, _P, _P, _P, _P),
     "pqt_list_layout": (_P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P),
     "pqt_pad_ragged_scratch_words": (_LL, _LL, _I),
     "pqt_pad_ragged": (_P, _LL, _I, _P, _I, _LL, _LL, _P, _P, _P),
-    "pqt_expand_nullable": (_P, _LL, _I, _P, _LL, _P, _P, _P, _P),
+    "pqt_expand_nullable": (_P, _LL, _I, _P, _LL, _P, _P, _P),
     "pqt_predicate_mask": (
         _P, _LL, _I, _I, _LL, _LL, _D, _D, _I, _ULL, _P, _P, _I, _P, _P,
     ),

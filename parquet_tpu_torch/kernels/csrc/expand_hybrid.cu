@@ -37,7 +37,7 @@
 //      the payload words its outputs span once (at most
 //      (kItems - 1) * width / 32 + 3 of them, each load independent), funnel-
 //      shifts them to the first output's bit and takes every output at a
-//      constant offset; otherwise each output finds its run by the walk and
+//      constant offset (hybrid.cuh, shared with expand_page_grid.cu); otherwise each output finds its run by the walk and
 //      reads its two words;
 //   4. one 16-byte store a thread; the tail past `total` is stored one
 //      output at a time.
@@ -59,6 +59,7 @@
 #include <climits>
 #include <utility>
 
+#include "hybrid.cuh"
 #include "scan.cuh"
 
 namespace {
@@ -78,35 +79,6 @@ struct Runs {
   const int32_t* bit_start;
   int n;
 };
-
-template <int W>
-__device__ __forceinline__ uint32_t low_bits(uint32_t v) {
-  if constexpr (W >= 32) return v;
-  else return v & ((1u << W) - 1u);
-}
-
-// kItems outputs of one bit-packed run from bit `pos0` of the words on: the
-// words they span are loaded once (none past the last word the plain version
-// reads, the one after the last output's first word) and shifted to pos0, so
-// output k sits at the constant bit k * W.
-template <int W>
-__device__ __forceinline__ void unpack_run(const uint32_t* words, unsigned pos0,
-                                           uint32_t (&v)[kItems]) {
-  constexpr int kAligned = ((kItems - 1) * W >> 5) + 2;
-  const unsigned q0 = pos0 >> 5, sh = pos0 & 31;
-  const unsigned q_last = ((pos0 + (kItems - 1) * W) >> 5) + 1;
-  uint32_t w[kAligned + 1];
-#pragma unroll
-  for (int m = 0; m <= kAligned; ++m) w[m] = q0 + m <= q_last ? __ldg(words + q0 + m) : 0u;
-  uint32_t a[kAligned];
-#pragma unroll
-  for (int m = 0; m < kAligned; ++m) a[m] = __funnelshift_r(w[m], w[m + 1], sh);
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int bit = k * W;
-    v[k] = low_bits<W>(__funnelshift_r(a[bit >> 5], a[(bit >> 5) + 1], bit & 31));
-  }
-}
 
 template <int W>
 __global__ void __launch_bounds__(kThreads)
@@ -175,7 +147,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int k = 0; k < kItems; ++k) v[k] = x;
       } else {
-        unpack_run<W>(words, (unsigned)t.bit_start[j] + (unsigned)(i0 - t.out_start[j]) * W, v);
+        hybrid::unpack_run<W>(words, (unsigned)t.bit_start[j] + (unsigned)(i0 - t.out_start[j]) * W, v);
       }
     } else {
       bool rle = t.is_rle[j] != 0u;
@@ -199,7 +171,7 @@ __global__ void __launch_bounds__(kThreads)
           v[k] = x;
         } else {
           const unsigned pos = bit0 + (unsigned)i * W;
-          v[k] = low_bits<W>(
+          v[k] = hybrid::low_bits<W>(
               __funnelshift_r(__ldg(words + (pos >> 5)), __ldg(words + (pos >> 5) + 1), pos & 31));
         }
       }

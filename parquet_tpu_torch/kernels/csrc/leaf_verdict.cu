@@ -30,7 +30,7 @@
 //      it across a cluster all cost as much or more (PERF.md §6).
 //   with a validity: two launches over tiles of kThreads x kItems rows, a
 //      thread's rows read as 16-byte vectors of the validity:
-//        1. counts: each tile's count of valid rows;
+//        1. counts (validity.cuh): each tile's count of valid rows;
 //        1b. group_counts, past one group of kGroup tiles: each group's;
 //        2. place: each block sums the earlier groups' counts and its
 //           group's earlier tiles' (one round of kThreads each), scans its
@@ -46,23 +46,14 @@
 // the mask written once (1 B per row); launch 2 reads the validity again
 // (from L2). At a row group (2^20 rows) the launches are most of the time.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "validity.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kItems = 16;  // rows a thread; kThreads * kItems: device_ops.LEAF_VERDICT_TILE
-constexpr int kVec = 16;    // rows a 16-byte vector of the validity
-constexpr int kGroup = kThreads;  // tiles a group
-static_assert(kItems % kVec == 0, "whole vectors a thread");
-
-// 0x01 in each byte of x that is not zero, 0x00 elsewhere.
-__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
-  return ((((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x) >> 7) & 0x01010101u;
-}
-
-inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+constexpr int kGroup = kThreads;  // tiles a group: device_ops.LEAF_VERDICT_GROUP
+static_assert(kGroup == kThreads, "validity.cuh groups kThreads tiles");
 
 // jnp's index rule: a negative index wraps once, then clamps into range.
 __device__ __forceinline__ long long wrap_clamp(long long j, long long n_verdict) {
@@ -123,10 +114,10 @@ __global__ void __launch_bounds__(kThreads)
   if (v.indices == nullptr) {
     if (whole) {
       const uint4 q = *reinterpret_cast<const uint4*>(v.verdict + first);
-      w[0] = nonzero_bytes(q.x);
-      w[1] = nonzero_bytes(q.y);
-      w[2] = nonzero_bytes(q.z);
-      w[3] = nonzero_bytes(q.w);
+      w[0] = validity::nonzero_bytes(q.x);
+      w[1] = validity::nonzero_bytes(q.y);
+      w[2] = validity::nonzero_bytes(q.z);
+      w[3] = validity::nonzero_bytes(q.w);
     } else {
 #pragma unroll
       for (int e = 0; e < 16; ++e)
@@ -144,71 +135,6 @@ __global__ void __launch_bounds__(kThreads)
   store16(out, first, n, ovec, w);
 }
 
-// The validity bytes first .. first + kItems - 1 as 0x01 / 0x00 bytes (0
-// past n), kVec a vector.
-__device__ __forceinline__ void load_valid(const uint8_t* valid, long long first, long long n,
-                                           bool vec, uint32_t (&w)[kItems / 4]) {
-#pragma unroll
-  for (int q = 0; q < kItems / kVec; ++q) {
-    const long long f = first + q * kVec;
-    if (vec && f + kVec <= n) {
-      const uint4 x = *reinterpret_cast<const uint4*>(valid + f);
-      w[4 * q] = nonzero_bytes(x.x);
-      w[4 * q + 1] = nonzero_bytes(x.y);
-      w[4 * q + 2] = nonzero_bytes(x.z);
-      w[4 * q + 3] = nonzero_bytes(x.w);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) w[4 * q + k] = 0;
-#pragma unroll
-      for (int e = 0; e < kVec; ++e)
-        if (f + e < n && valid[f + e] != 0) w[4 * q + (e >> 2)] |= 1u << (8 * (e & 3));
-    }
-  }
-}
-
-// The number of 0x01 bytes in w.
-__device__ __forceinline__ uint32_t count_bytes(const uint32_t (&w)[kItems / 4]) {
-  uint32_t c = 0;
-#pragma unroll
-  for (int q = 0; q < kItems / 16; ++q)
-    c += ((w[4 * q] + w[4 * q + 1] + w[4 * q + 2] + w[4 * q + 3]) * 0x01010101u) >> 24;
-  return c;
-}
-
-// The block's sum of x (every thread calls it and gets the sum).
-__device__ __forceinline__ uint32_t block_sum(uint32_t x, uint32_t* s_part) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xFFFFFFFFu, x, o);
-  if ((threadIdx.x & 31) == 0) s_part[threadIdx.x >> 5] = x;
-  __syncthreads();
-  uint32_t t = 0;
-#pragma unroll
-  for (int k = 0; k < kThreads / 32; ++k) t += s_part[k];
-  return t;
-}
-
-// Launch 1: each tile's count of valid rows.
-__global__ void __launch_bounds__(kThreads)
-    counts(const uint8_t* __restrict__ valid, long long n, bool vec,
-           uint32_t* __restrict__ tile_counts) {
-  __shared__ uint32_t s_part[kThreads / 32];
-  uint32_t w[kItems / 4];
-  load_valid(valid, ((long long)blockIdx.x * kThreads + threadIdx.x) * kItems, n, vec, w);
-  const uint32_t t = block_sum(count_bytes(w), s_part);
-  if (threadIdx.x == 0) tile_counts[blockIdx.x] = t;
-}
-
-// Launch 1b, past one group: the count of each group of kGroup tiles.
-__global__ void __launch_bounds__(kThreads)
-    group_counts(const uint32_t* __restrict__ tile_counts, long long ntiles,
-                 uint32_t* __restrict__ groups) {
-  __shared__ uint32_t s_part[kThreads / 32];
-  const long long j = (long long)blockIdx.x * kGroup + threadIdx.x;
-  const uint32_t t = block_sum(j < ntiles ? tile_counts[j] : 0u, s_part);
-  if (threadIdx.x == 0) groups[blockIdx.x] = t;
-}
-
 // Launch 2: the tile's rows. A valid row reads V at its dense index, a null
 // row gets `fill`.
 __global__ void __launch_bounds__(kThreads)
@@ -217,14 +143,12 @@ __global__ void __launch_bounds__(kThreads)
           const uint32_t* __restrict__ groups, bool ovec, uint8_t* __restrict__ out) {
   __shared__ uint32_t s_part[kThreads / 32];
   __shared__ uint32_t s_warp[kThreads / 32];
-  const long long tile = blockIdx.x, group = tile / kGroup;
-  uint32_t b = 0;
-  for (long long j = threadIdx.x; j < group; j += kThreads) b += groups[j];
-  for (long long j = group * kGroup + threadIdx.x; j < tile; j += kThreads) b += tile_counts[j];
+  const long long tile = blockIdx.x;
+  const uint32_t b = validity::share_before<kThreads, kGroup>(tile_counts, groups, tile);
   const long long first = (tile * kThreads + threadIdx.x) * kItems;
   uint32_t w[kItems / 4];
-  load_valid(valid, first, n, vec, w);
-  const uint32_t c = count_bytes(w);
+  validity::load_valid<kItems>(valid, first, n, vec, w);
+  const uint32_t c = validity::count_bytes<kItems>(w);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   uint32_t x = c;
 #pragma unroll
@@ -234,7 +158,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (lane == 31) s_warp[warp] = x;
   // the rows before the thread's: earlier tiles, earlier warps, earlier lanes
-  uint32_t acc = block_sum(b, s_part) + x - c;
+  uint32_t acc = validity::block_sum<kThreads>(b, s_part) + x - c;
 #pragma unroll
   for (int k = 0; k < kThreads / 32; ++k)
     if (k < warp) acc += s_warp[k];
@@ -273,28 +197,20 @@ extern "C" int pqt_leaf_verdict(const void* verdict, long long n_verdict,
   if (n <= 0) return 0;
   const Verdict v{(const uint8_t*)verdict, n_verdict, (const int32_t*)indices};
   cudaStream_t s = (cudaStream_t)stream;
-  const bool ovec = aligned16(out);
+  const bool ovec = validity::aligned16(out);
   if (valid == nullptr) {
     const long long blocks = ((n + 15) / 16 + kThreads - 1) / kThreads;
     gather<<<(unsigned)blocks, kThreads, 0, s>>>(
-        v, n, aligned16(indices == nullptr ? verdict : indices), ovec, (uint8_t*)out);
+        v, n, validity::aligned16(indices == nullptr ? verdict : indices), ovec, (uint8_t*)out);
     return (int)cudaGetLastError();
   }
-  const long long ntiles = (n + kThreads * kItems - 1) / (kThreads * kItems);
+  const long long ntiles = validity::num_tiles(n, kThreads * kItems);
   uint32_t* tile_counts = (uint32_t*)scratch;
-  uint32_t* groups = tile_counts + ntiles;
   const uint8_t* m = (const uint8_t*)valid;
-  const bool vec = aligned16(valid);
-  counts<<<(unsigned)ntiles, kThreads, 0, s>>>(m, n, vec, tile_counts);
-  int rc = (int)cudaGetLastError();
+  const int rc = validity::count_tiles<kThreads, kItems>(m, n, ntiles, tile_counts, s);
   if (rc) return rc;
-  if (ntiles > kGroup) {
-    group_counts<<<(unsigned)((ntiles + kGroup - 1) / kGroup), kThreads, 0, s>>>(
-        tile_counts, ntiles, groups);
-    rc = (int)cudaGetLastError();
-    if (rc) return rc;
-  }
-  place<<<(unsigned)ntiles, kThreads, 0, s>>>(v, m, n, vec, nd, fill != 0 ? 1u : 0u, tile_counts,
-                                             groups, ovec, (uint8_t*)out);
+  place<<<(unsigned)ntiles, kThreads, 0, s>>>(v, m, n, validity::aligned16(valid), nd,
+                                             fill != 0 ? 1u : 0u, tile_counts,
+                                             tile_counts + ntiles, ovec, (uint8_t*)out);
   return (int)cudaGetLastError();
 }

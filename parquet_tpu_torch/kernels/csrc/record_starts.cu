@@ -75,10 +75,6 @@ inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 }  // namespace
 
-// Elements per tile of scan.cuh's three-pass scan: the wrappers of its
-// users size each scan's tile_sums scratch with it (num_tiles + 1 entries).
-extern "C" int pqt_scan_tile() { return scan::kTile; }
-
 // descriptors: 2 + 2 * ceil(n / (kThreads * kItems)) 64-bit words.
 extern "C" int pqt_record_starts(const void* rep, long long n, void* row_of,
                                  void* n_rows, void* descriptors, void* stream) {

@@ -59,6 +59,8 @@ __all__ = [
     "PAD_RAGGED_TILE_BYTES",
     "expand_nullable",
     "expand_nullable_plain",
+    "EXPAND_NULLABLE_TILE",
+    "EXPAND_NULLABLE_GROUP",
     "predicate_mask",
     "predicate_mask_plain",
     "predicate_block",
@@ -96,6 +98,9 @@ __all__ = [
     "masked_agg_plain",
     "expand_page_grid",
     "expand_page_grid_plain",
+    "PAGE_GRID_TILE",
+    "PAGE_GRID_ITEMS",
+    "PAGE_GRID_STAGE_RUNS",
     "KERNELS",
     "reset_launch_counts",
 ]
@@ -722,23 +727,18 @@ merge_mixed_bytes.launches = 0
 
 # -- the batch path: record starts, list layout, ragged padding, nulls ---------
 #
-# Scans (kernels/csrc/scan.cuh) with their epilogues. The three-pass scan
-# (expand_nullable) carries a scratch the wrapper allocates: a partial buffer
-# of the scan's dtype and num_tiles + 1 tile sums (pqt_scan_tile() elements
-# per tile). The one-pass scans of record_starts and list_layout (and of
-# list_contains_mask below) take only their look-back descriptors: a
-# counter, a pad word and 16 bytes a tile.
+# Scans (kernels/csrc/scan.cuh) with their epilogues. The one-pass scans of
+# record_starts and list_layout (and of list_contains_mask below) take only
+# their look-back descriptors: a counter, a pad word and 16 bytes a tile.
+# expand_nullable (and leaf_verdict below) count a validity's tiles, then
+# place them (kernels/csrc/validity.cuh): their scratch is a count a tile
+# and a count a group of tiles.
 
 _INT32_LIMIT = 1 << 31
 # dtypes the byte-width kernels copy (1-, 4- and 8-byte elements)
 _COPY_DTYPES = (
     torch.bool, torch.uint8, torch.int8, torch.int32, torch.float32, torch.int64, torch.float64,
 )
-
-
-def _tile_sums(lib, n: int, dtype, device) -> torch.Tensor:
-    tile = lib.pqt_scan_tile()
-    return torch.empty((n + tile - 1) // tile + 1, dtype=dtype, device=device)
 
 
 def _check_len(n: int, name: str) -> None:
@@ -953,6 +953,20 @@ def expand_nullable_plain(values: torch.Tensor, mask: torch.Tensor) -> torch.Ten
     return torch.where(mask, values[idx], torch.zeros((), dtype=values.dtype, device=dev))
 
 
+# Rows a tile of the null expansion's two launches (tile counts, then a
+# placement) and tiles a group of its counts (kThreads * kItems and kGroup
+# of kernels/csrc/expand_nullable.cu, pinned by a test).
+EXPAND_NULLABLE_TILE = 4096
+EXPAND_NULLABLE_GROUP = 256
+
+
+def _tile_counts(n: int, tile: int, group: int, device) -> torch.Tensor:
+    """Scratch of a two-launch validity scan (kernels/csrc/validity.cuh)
+    over n rows: each tile's count of valid rows, then each group's."""
+    tiles = -(-n // tile)
+    return torch.empty(tiles + -(-tiles // group), dtype=torch.int32, device=device)
+
+
 def expand_nullable(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Scatter the dense non-null values into row positions, nulls 0 (the
     bit pattern 0): out[i] = values[clip(count(mask[:i + 1]) - 1, 0, nv - 1)]
@@ -969,13 +983,10 @@ def expand_nullable(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, dtype=values.dtype, device=dev)
     if not n:
         return out
-    lib = _lib()
-    partial = torch.empty(n, dtype=torch.int32, device=dev)
-    tile_sums = _tile_sums(lib, n, torch.int32, dev)
+    scratch = _tile_counts(n, EXPAND_NULLABLE_TILE, EXPAND_NULLABLE_GROUP, dev)
     _launch(
-        "expand_nullable", dev, lib.pqt_expand_nullable,
-        _ptr(values), nv, values.element_size(), _ptr(mask), n,
-        _ptr(out), _ptr(partial), _ptr(tile_sums),
+        "expand_nullable", dev, _lib().pqt_expand_nullable,
+        _ptr(values), nv, values.element_size(), _ptr(mask), n, _ptr(out), _ptr(scratch),
     )
     expand_nullable.launches += 1
     return out
@@ -1276,9 +1287,7 @@ def leaf_verdict(
     if valid is not None:
         # each tile's count of valid rows, then each group's; no scratch of
         # n rows
-        tiles = -(-n // LEAF_VERDICT_TILE)
-        scratch = torch.empty(tiles + -(-tiles // LEAF_VERDICT_GROUP), dtype=torch.int32,
-                              device=dev)
+        scratch = _tile_counts(n, LEAF_VERDICT_TILE, LEAF_VERDICT_GROUP, dev)
     _launch(
         "leaf_verdict", dev, _lib().pqt_leaf_verdict,
         _ptr(verdict), verdict.numel(), None if indices is None else _ptr(indices), nd,
@@ -2082,6 +2091,14 @@ def expand_page_grid_plain(words, starts, is_rle, values, bit_starts, dictionary
     idx = torch.where(take(is_rle) == 1, _u32(values).gather(1, r), (lo | hi) & vmask)
     # XLA's gather reads the uint32 index as int32 and clamps it
     return dictionary[_wrap32(idx).clamp(0, dictionary.numel() - 1)]
+
+
+# Outputs a tile (a block) and a thread of the page-grid expansion, and the
+# most runs a tile stages in shared memory (kTile, kItems and kStageRuns of
+# kernels/csrc/expand_page_grid.cu, pinned by a test).
+PAGE_GRID_TILE = 2048
+PAGE_GRID_ITEMS = 8
+PAGE_GRID_STAGE_RUNS = 128
 
 
 def expand_page_grid(words, starts, is_rle, values, bit_starts, dictionary,

@@ -1436,3 +1436,188 @@ def bytearray_frame_edge_cases(tile: int, seed: int = 0) -> list:
     case("frames straddling tiles", rng.integers(0, 41, 3 * tile // 20))
     case("20,000 values of 12-22 bytes", rng.integers(12, 23, 20_000))
     return cases
+
+
+# -- nullable columns at the null expansion's tile edges ---------------------------
+
+
+class NullableCase(NamedTuple):
+    """One expand_nullable call: `values[values_shift:]` and
+    `mask[mask_shift:]` (a shift moves a view's start off 16 bytes)."""
+
+    label: str
+    values: np.ndarray
+    values_shift: int
+    mask: np.ndarray
+    mask_shift: int
+
+
+def nullable_args(case: NullableCase, to=np.asarray) -> tuple:
+    """(values, mask) of a case, each array passed through `to` (a
+    host-to-device copy, say) before it is sliced."""
+    return to(case.values)[case.values_shift :], to(case.mask)[case.mask_shift :]
+
+
+def expand_nullable_edge_cases(tile: int, seed: int = 0, group: int = 0) -> list:
+    """NullableCases at the edges of a null expansion that counts tiles of
+    `tile` rows (and, past `group` tiles, groups of them), then places each
+    tile's rows: n = 0, 1, 15, 16, 17, tile - 1, tile and tile + 1; with
+    `group`, group x tile, group x tile + 1 and 2 x group x tile + tile + 3;
+    all-valid, all-null and random masks; nv exact, short (the high clamp),
+    zero and longer than the count; 1-, 4- and 8-byte values (bool, uint8,
+    int32, float32, int64, float64); views of the values and the mask off
+    16 bytes."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    dtypes = (np.bool_, np.uint8, np.int32, np.float32, np.int64, np.float64)
+
+    def values(nv, dt):
+        if dt is np.bool_:
+            return rng.random(nv) < 0.5
+        if np.dtype(dt).kind == "f":
+            return rng.standard_normal(nv).astype(dt)
+        return rng.integers(np.iinfo(dt).min, np.iinfo(dt).max, nv, dtype=dt, endpoint=True)
+
+    def case(label, n, dt, p=0.7, nv_rule="exact", shifts=(0, 0)):
+        sv, sm = shifts
+        mask = np.zeros(n + sm, dtype=bool)
+        mask[sm:] = rng.random(n) < p
+        count = int(mask[sm:].sum())
+        nv = {"exact": count, "short": max(count - 5, 0), "zero": 0, "long": count + 9}[nv_rule]
+        vals = np.zeros(nv + sv, dtype=dt)
+        vals[sv:] = values(nv, dt)
+        name = np.dtype(dt).name
+        cases.append(NullableCase(f"{label}, {name}, n={n}, nv {nv_rule} ({nv})", vals, sv,
+                                  mask, sm))
+
+    t = tile
+    for k, n in enumerate((0, 1, 15, 16, 17, t - 1, t, t + 1)):
+        for dt in dtypes[k % 2 :: 2]:
+            case("random mask", n, dt)
+    for dt in dtypes:
+        case("all valid", 2 * t + 7, dt, p=1.0)
+        case("all null", 2 * t + 7, dt, p=0.0)
+        case("random mask", 3 * t + 5, dt, nv_rule="short")
+        case("random mask", t + 3, dt, nv_rule="zero")
+        case("random mask", t + 3, dt, nv_rule="long")
+        case("views off 16 bytes", 2 * t + 9, dt, shifts=(1, 3))
+        case("mask off 16 bytes", t + 17, dt, shifts=(0, 7))
+    case("all valid, high clamp", 2 * t + 7, np.int32, p=1.0, nv_rule="short")
+    case("views off 16 bytes, high clamp", t + 33, np.float64, nv_rule="short", shifts=(3, 9))
+    if group:
+        g = group * t
+        case("one whole group of tiles", g, np.int32, p=0.9)
+        case("a tile past one group", g + 1, np.float64, p=0.9, nv_rule="short")
+        case("past two groups", 2 * g + t + 3, np.uint8, p=0.5, shifts=(5, 1))
+    return cases
+
+
+# -- page grids at the page-grid expansion's tile edges -----------------------------
+
+
+class GridCase(NamedTuple):
+    """One expand_page_grid call: the grid's five (P, W) / (P, R) int32
+    arrays (uint32 patterns), a dictionary (int32 or int64), the width and
+    n_out."""
+
+    label: str
+    grid: tuple
+    dictionary: np.ndarray
+    width: int
+    n_out: int
+
+
+def _edge_grid(rng, width: int, pages, n_out: int, rle_share: float = 0.3,
+               bit_shift=None, index_bits: int = 32):
+    """A padded page grid laid out as parallel/mesh.build_page_grid lays one
+    out, from each page's run lengths and first start (`pages`: (first,
+    lengths) pairs; lengths None is an all-zero padding page): run values
+    and payload words random (values up to `index_bits` bits), bit-packed
+    runs' payload back to back; `bit_shift` {run: bit_start} overrides
+    bit starts (any int32)."""
+    runs = [len(ln) for _, ln in pages if ln is not None]
+    n_runs = max(runs, default=1)
+    n_words = max((sum(int(x) for x in ln) * width + 31) // 32 + 2
+                  for _, ln in pages if ln is not None)
+    words = np.zeros((len(pages), n_words), np.uint32)
+    starts = np.full((len(pages), n_runs), n_out + 1, np.int64)
+    is_rle = np.zeros((len(pages), n_runs), np.int32)
+    values = np.zeros((len(pages), n_runs), np.uint32)
+    bit_starts = np.zeros((len(pages), n_runs), np.int64)
+    for p, (first, ln) in enumerate(pages):
+        if ln is None:
+            starts[p] = 0
+            continue
+        ln = np.asarray(ln, np.int64)
+        r = len(ln)
+        starts[p, :r] = first + np.concatenate([[0], np.cumsum(ln[:-1])])
+        rle = rng.random(r) < rle_share
+        is_rle[p, :r] = rle
+        hi = 1 << index_bits
+        values[p, :r] = rng.integers(0, hi, r, dtype=np.uint64).astype(np.uint32)
+        bits = np.where(rle, 0, ln * width)
+        bit_starts[p, :r] = np.concatenate([[0], np.cumsum(bits[:-1])])
+        words[p] = rng.integers(0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32)
+    for (p, r), b in (bit_shift or {}).items():
+        bit_starts[p, r] = b
+    grid = (words.view(np.int32), starts.astype(np.int32), is_rle, values.view(np.int32),
+            bit_starts.astype(np.int64).astype(np.int32))
+    return tuple(np.ascontiguousarray(a) for a in grid)
+
+
+def page_grid_edge_cases(tile: int, items: int, stage_runs: int, seed: int = 0) -> list:
+    """GridCases at the edges of a page-grid expansion whose blocks take
+    `tile` consecutive outputs of a page, a thread `items` of them, and
+    stage at most `stage_runs` runs of a tile in shared memory: at widths 0,
+    1, 3, 12, 17 and 32, n_out off a multiple of the tile; runs shorter
+    than a thread's outputs (staged whole, and past the stage); more runs
+    in a tile than the stage holds, and a long table whose tiles each span
+    fewer; a page whose real count ends inside a tile (its last run read
+    into the padding, words past the end clamped) and an all-zero padding
+    page; bit starts near 2^31 (bitpos wraps) and negative ones (w0 below
+    0, wrapped once, then clamped); a first start above 0 (the run clipped
+    to 0) and an is_rle of 2 (not RLE); int32 and int64 dictionaries
+    shorter than the index range."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    t = tile
+
+    def lengths(total, lo, hi):
+        ln = []
+        while sum(ln) < total:
+            ln.append(int(rng.integers(lo, hi + 1)))
+        ln[-1] -= sum(ln) - total
+        return [x for x in ln if x > 0]
+
+    for k, width in enumerate((0, 1, 3, 12, 17, 32)):
+        d_len = max(2, (1 << min(width, 20)) // 3)
+        dt = (np.int64, np.int32)[k % 2]
+
+        def case(label, pages, n_out, **kw):
+            grid = _edge_grid(rng, width, pages, n_out, **kw)
+            lo, hi = (-(2**62), 2**62) if dt is np.int64 else (-(2**31), 2**31 - 1)
+            d = rng.integers(lo, hi, d_len, dtype=np.int64).astype(dt)
+            cases.append(GridCase(f"width {width}: {label}", grid, d, width, n_out))
+
+        n = 2 * t + 37
+        case(f"n_out {n} (off the tile), a page ending inside a tile, a padding page",
+             [(0, lengths(n, 100, 900)), (0, lengths(n - 500, 60, 700)), (0, None)], n)
+        case(f"runs of 1 to {items - 1} outputs, staged whole",
+             [(0, lengths(200, 1, items - 1)), (0, lengths(190, 2, items - 1))], 200,
+             rle_share=0.5)
+        case(f"runs of 1 to {items - 1} outputs, more than {stage_runs} a tile",
+             [(0, lengths(n, 1, items - 1)), (0, lengths(n, 2, 5))], n, rle_share=0.5)
+        case(f"runs of 20 to 40 outputs, more than {stage_runs} a table, fewer a tile",
+             [(0, lengths(3 * t, 20, 40)), (0, lengths(3 * t - 11, 20, 40))], 3 * t)
+        n = t + 5
+        case("bit starts near 2^31 (bitpos wraps) and negative (w0 below 0)",
+             [(0, lengths(n, 150, 400)), (0, lengths(n, 150, 400))], n, rle_share=0.0,
+             bit_shift={(0, 1): 2**31 - 3 * width - 40, (0, 2): -70, (1, 0): -(2**31) + 7,
+                        (1, 1): 2**31 - 1})
+        grid = _edge_grid(rng, width, [(37, lengths(600, 50, 200))], 700)
+        grid[2][0, 1] = 2  # not RLE: the JAX program tests is_rle == 1
+        lo, hi = (-(2**62), 2**62) if dt is np.int64 else (-(2**31), 2**31 - 1)
+        cases.append(GridCase(f"width {width}: first start 37 (run clipped to 0), is_rle 2",
+                              grid, rng.integers(lo, hi, d_len, dtype=np.int64).astype(dt),
+                              width, 700))
+    return cases

@@ -422,7 +422,7 @@ def test_build_key_tracks_sources(tmp_path):
         ["pqt_expand_hybrid", "pqt_dict_gather4", "pqt_dict_gather8",
          "pqt_delta_scratch_words", "pqt_delta_packed_decode", "pqt_bss_transpose",
          "pqt_merge_mixed_numeric4", "pqt_merge_mixed_numeric8",
-         "pqt_merge_bytes_scratch_words", "pqt_merge_mixed_bytes", "pqt_scan_tile",
+         "pqt_merge_bytes_scratch_words", "pqt_merge_mixed_bytes",
          "pqt_record_starts", "pqt_list_layout", "pqt_pad_ragged_scratch_words",
          "pqt_pad_ragged", "pqt_expand_nullable",
          "pqt_predicate_mask", "pqt_fixed_members",
@@ -439,4 +439,4 @@ def test_build_key_tracks_sources(tmp_path):
     k3 = build._key([a, h])
     h.write_text("// two")
     assert build._key([a, h]) != k3
-    assert [p.name for p in build._headers()] == ["scan.cuh"]
+    assert [p.name for p in build._headers()] == ["hybrid.cuh", "scan.cuh", "validity.cuh"]

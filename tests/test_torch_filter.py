@@ -450,7 +450,8 @@ def test_leaf_verdict_tile_pinned_to_the_kernel():
 
     k = _kernel_constants("leaf_verdict.cu")
     assert k["kThreads"] * k["kItems"] == P.LEAF_VERDICT_TILE
-    assert k["kVec"] == 16 and k["kItems"] % k["kVec"] == 0
+    vec = _kernel_constants("validity.cuh")["kVec"]
+    assert vec == 16 and k["kItems"] % vec == 0
     src = (build.CSRC / "leaf_verdict.cu").read_text()
     assert re.search(r"constexpr int kGroup = kThreads;", src)
     assert k["kThreads"] == P.LEAF_VERDICT_GROUP

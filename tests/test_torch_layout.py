@@ -33,6 +33,8 @@ from parquet_tpu_torch.meta.parquet_types import Encoding as E  # noqa: E402
 from parquet_tpu_torch.meta.parquet_types import Type as T  # noqa: E402
 from parquet_tpu_torch.testing.synth import (  # noqa: E402
     ColumnSpec,
+    expand_nullable_edge_cases,
+    nullable_args,
     pad_ragged_edge_cases,
     pad_ragged_tile_rows,
     pad_ragged_wide,
@@ -355,6 +357,60 @@ def test_expand_nullable_plain_matches_jax(case, dt, short):
     got = ops.expand_nullable(torch.from_numpy(values), torch.from_numpy(mask))
     want = j_expand(jnp.asarray(values), jnp.asarray(mask))
     _same(got, want.values)
+
+
+NULLABLE_EDGE = expand_nullable_edge_cases(ops.EXPAND_NULLABLE_TILE, seed=43,
+                                           group=ops.EXPAND_NULLABLE_GROUP)
+
+
+@pytest.mark.parametrize("case", NULLABLE_EDGE, ids=[c.label for c in NULLABLE_EDGE])
+def test_expand_nullable_edge_cases_match_jax(case):
+    """The null expansion's tile and group edges, masks all valid, all null
+    and random, nv exact, short (the high clamp), zero and long, 1-, 4- and
+    8-byte values and views off 16 bytes: the port equals the reference's
+    jitted `expand` bit for bit."""
+    values, mask = nullable_args(case)
+    got = ops.expand_nullable(torch.from_numpy(values), torch.from_numpy(mask))
+    _same(got, j_expand(jnp.asarray(values), jnp.asarray(mask)).values)
+
+
+def test_expand_nullable_edge_cases_cover_the_tile():
+    """The cases reach every size the two launches turn on: around a
+    thread's 16 rows and a tile, a whole group of tiles and past it, past
+    two groups; each element width with nv short, zero and long, and views
+    of the values and the mask off 16 bytes."""
+    t, g = ops.EXPAND_NULLABLE_TILE, ops.EXPAND_NULLABLE_GROUP
+    sizes = {len(c.mask) - c.mask_shift for c in NULLABLE_EDGE}
+    assert {0, 1, 15, 16, 17, t - 1, t, t + 1, g * t, g * t + 1, 2 * g * t + t + 3} <= sizes
+    for e in (1, 4, 8):
+        mine = [c for c in NULLABLE_EDGE if c.values.itemsize == e]
+        assert {"exact", "short", "zero", "long"} <= {c.label.split("nv ")[1].split()[0]
+                                                      for c in mine}
+        assert any(c.values_shift * e % 16 and c.mask_shift % 16 for c in mine)
+    for c in NULLABLE_EDGE:
+        m = c.mask[c.mask_shift:]
+        if "all valid" in c.label:
+            assert m.all() and len(m)
+        if "all null" in c.label:
+            assert not m.any() and len(m)
+
+
+def test_expand_nullable_tile_pinned_to_the_kernel():
+    """EXPAND_NULLABLE_TILE and EXPAND_NULLABLE_GROUP, around which the edge
+    cases put their sizes and the wrapper sizes the tile and group counts,
+    are the kernel's tile (kThreads * kItems of expand_nullable.cu, whole
+    16-byte vectors of the validity) and its tiles a group."""
+    import re
+
+    from parquet_tpu_torch.kernels import build
+
+    src = (build.CSRC / "expand_nullable.cu").read_text()
+    k = {m.group(1): int(m.group(2)) for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert k["kThreads"] * k["kItems"] == ops.EXPAND_NULLABLE_TILE
+    assert k["kItems"] % 16 == 0
+    assert re.search(r"constexpr int kGroup = kThreads;", src)
+    assert k["kThreads"] == ops.EXPAND_NULLABLE_GROUP
+    assert "constexpr int kVec = 16;" in (build.CSRC / "validity.cuh").read_text()
 
 
 def test_two_d_values_refused_on_both_sides():

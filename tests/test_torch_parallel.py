@@ -52,6 +52,7 @@ from parquet_tpu_torch.ops.rle_hybrid import prescan_hybrid  # noqa: E402
 from parquet_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from parquet_tpu_torch.parallel import scan as pscan  # noqa: E402
 from parquet_tpu_torch.testing import dist as tdist  # noqa: E402
+from parquet_tpu_torch.testing.synth import page_grid_edge_cases  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
@@ -166,6 +167,95 @@ def test_expand_page_grid_padding_page_matches_jax():
     args = [torch.from_numpy(a.view(np.int32)) for a in padded]
     got = ops.expand_page_grid(*args, torch.from_numpy(dictionary), grid.width, n_out)
     assert np.array_equal(got.numpy(), want_dec)
+
+
+PAGE_GRID_EDGE = page_grid_edge_cases(ops.PAGE_GRID_TILE, ops.PAGE_GRID_ITEMS,
+                                      ops.PAGE_GRID_STAGE_RUNS, seed=47)
+
+
+def _jax_expand_grid(grid, dictionary, width, n_out):
+    """The reference's vmapped _expand_one_page and the dictionary gather
+    of sharded_decode_step, jitted as there, on one device."""
+    words, starts, is_rle, values, bit_starts = grid
+
+    @jax.jit
+    def step(w, s, r, v, b, d):
+        return d[jax.vmap(partial(jmesh._expand_one_page, width=width, n_out=n_out))(w, s, r, v, b)]
+
+    return np.asarray(step(words.view(np.uint32), starts, is_rle, values.view(np.uint32),
+                           bit_starts, dictionary))
+
+
+@pytest.mark.parametrize("case", PAGE_GRID_EDGE, ids=[c.label for c in PAGE_GRID_EDGE])
+def test_expand_page_grid_edge_cases_match_jax(case):
+    """The page-grid expansion's tile edges (n_out off the tile, runs
+    shorter than a thread's outputs, more runs a tile than the stage holds,
+    a page ending inside a tile, a padding page, bit starts that wrap or
+    are negative, a first start above 0, is_rle 2, dictionaries shorter
+    than the index range) at widths 0-32: the port equals the JAX program
+    bit for bit."""
+    got = ops.expand_page_grid(*map(torch.from_numpy, case.grid),
+                               torch.from_numpy(case.dictionary), case.width, case.n_out)
+    want = _jax_expand_grid(case.grid, case.dictionary, case.width, case.n_out)
+    assert got.numpy().dtype == want.dtype and np.array_equal(got.numpy(), want)
+
+
+def _runs_a_tile(starts: np.ndarray, n_out: int, tile: int) -> int:
+    """The most runs any tile of any page spans."""
+    most = 0
+    for row in starts:
+        for b in range(0, n_out, tile):
+            last = min(b + tile, n_out) - 1
+            first = max(int(np.searchsorted(row, b, side="right")) - 1, 0)
+            most = max(most, max(int(np.searchsorted(row, last, side="right")) - 1, 0) - first + 1)
+    return most
+
+
+def test_page_grid_edge_cases_cover_the_tile():
+    """The cases reach every path of the kernel: each width of 0, 1, 3, 12,
+    17 and 32; n_out off a multiple of the tile; runs shorter than a
+    thread's outputs in tables staged whole and past the stage; tiles over
+    more runs than the stage holds, and a table longer than the stage whose
+    tiles each span fewer; bitpos past 2^31 and below 0; an all-zero
+    padding page; both dictionary widths, shorter than the index range."""
+    t, items, stage = ops.PAGE_GRID_TILE, ops.PAGE_GRID_ITEMS, ops.PAGE_GRID_STAGE_RUNS
+    assert {c.width for c in PAGE_GRID_EDGE} == {0, 1, 3, 12, 17, 32}
+    for w in (0, 1, 3, 12, 17, 32):
+        mine = [c for c in PAGE_GRID_EDGE if c.width == w]
+        assert any(c.n_out % t for c in mine)
+        runs = [(c.grid[1].shape[1], _runs_a_tile(c.grid[1], c.n_out, t)) for c in mine]
+        assert any(r <= stage for r, _ in runs) and any(m > stage for _, m in runs)
+        assert any(r > stage >= m for r, m in runs)
+        short = [c for c in mine if (np.diff(c.grid[1], axis=1) < items).any()]
+        assert any(c.grid[1].shape[1] <= stage for c in short)
+        assert any(_runs_a_tile(c.grid[1], c.n_out, t) > stage for c in short)
+        bs = np.concatenate([c.grid[4].ravel().astype(np.int64) for c in mine])
+        assert bs.max() + w > 2**31 - 1 - w * t or w == 0
+        assert bs.min() < 0
+        assert any((c.grid[1] == 0).all(axis=1).any() for c in mine)
+        assert any((c.grid[2] == 2).any() for c in mine)
+        # run values past the dictionary's end and at or above 2^31 (read as
+        # negative int32): both clamps
+        vals = np.concatenate([c.grid[3][c.grid[2] == 1].view(np.uint32) for c in mine])
+        assert (vals >= 1 << 31).any()
+        assert ((vals < 1 << 31) & (vals >= min(len(c.dictionary) for c in mine))).any()
+    assert {c.dictionary.dtype for c in PAGE_GRID_EDGE} == {np.dtype(np.int32), np.dtype(np.int64)}
+
+
+def test_page_grid_tile_pinned_to_the_kernel():
+    """PAGE_GRID_TILE, PAGE_GRID_ITEMS and PAGE_GRID_STAGE_RUNS, around
+    which the edge cases put their runs and sizes, are the kernel's kTile,
+    kItems and kStageRuns (expand_page_grid.cu)."""
+    import re
+
+    from parquet_tpu_torch.kernels import build
+
+    src = (build.CSRC / "expand_page_grid.cu").read_text()
+    k = {m.group(1): int(m.group(2)) for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert "constexpr int kTile = kThreads * kItems;" in src
+    assert k["kThreads"] * k["kItems"] == ops.PAGE_GRID_TILE
+    assert k["kItems"] == ops.PAGE_GRID_ITEMS
+    assert k["kStageRuns"] == ops.PAGE_GRID_STAGE_RUNS
 
 
 def test_expand_page_grid_refuses_bad_input():
