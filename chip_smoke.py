@@ -64,10 +64,16 @@ Phases (any failure raises and the script exits non-zero):
               bit-pack width 0-32 and DELTA width 1-64, runs straddling the
               8-alignment, adjacent RLE windows, dictionary keys -1, INT_MIN
               and NaN payloads, more than 32,767 uniques, empty strings
-              (rle_hybrid_encode also on testing/synth.rle_plan_edge_cases:
+              (bitpack_encode also on testing/synth.bitpack_edge_cases:
+              sizes around its tile at widths 0-32, unmasked values, views
+              off 16 bytes; rle_hybrid_encode also on
+              testing/synth.rle_plan_edge_cases:
               sizes around its tile, a run over whole tiles, a run ending
               at a tile's edge, windows straddling and meeting at a tile's
-              edge, alternating and all-equal values, widths 1, 3, 12 and
+              edge, alternating and all-equal values, a tile's packed range
+              starting and ending mid-word, an all-RLE tile between two
+              tiles that share a packed word, every value packed over
+              2**22 + 777 values, widths 1, 3, 7, 12, 17, 31 and
               32, and on pages of 2**20, 2**22 + 777 and 2**26 + 777
               values, 4, 17 and 257 groups of its tiles; dict_indices also on testing/synth.dict_indices_edge_cases:
               sizes around its tile, one key over 2**20 rows, two keys
@@ -102,7 +108,8 @@ Phases (any failure raises and the script exits non-zero):
                 page V1, every dictionary falling back to PLAIN pages past
                 1 MiB; the mixed numeric, mixed bytes and BYTE_STREAM_SPLIT
                 routes must run (merge_mixed_numeric, merge_mixed_bytes,
-                bss_transpose) and the DOUBLE column takes the host merge;
+                bss_transpose, one launch a BYTE_STREAM_SPLIT chunk) and
+                the DOUBLE column takes the host merge;
               - "sessions": a recommender's item histories, SNAPPY, data
                 page V2: an int64 DELTA session_id and an optional LIST of
                 required int32 item ids (RLE_DICTIONARY over 65,536 keys;
@@ -141,7 +148,8 @@ Phases (any failure raises and the script exits non-zero):
               DELTA on pickup_us and fare_cents; passenger_count, OPTIONAL,
               through write_column): all six device columns of all groups
               must engage the device encoder (device_write_engaged 48,
-              declined 0), the five write kernels must launch, the file
+              declined 0), the four write kernels must launch and
+              bitpack_encode must not (rle_hybrid_encode packs), the file
               must equal the host write_column's of the same NumPy values
               byte for byte, and read_row_groups_device() of it must give
               the generator's columns;
@@ -182,8 +190,11 @@ Phases (any failure raises and the script exits non-zero):
               mask_take_rows alone at sessions' items padded to [rows, 16]
               int32 under the sessions filter, under `wide`;
               expand_nullable also at 2**22 + 777 rows (past one group of
-              its tiles) and expand_page_grid also on a grid of many runs
-              a page (grid_case at width 3, 16 pages x 2**19), each under
+              its tiles), expand_page_grid also on a grid of many runs
+              a page (grid_case at width 3, 16 pages x 2**19),
+              rle_hybrid_encode also at trip_distance's page 0 (width 12)
+              and bss_transpose also over taxi_mixed fare_amount's whole
+              chunk of group 0 (its pages in one launch), each under
               `shapes`.
 
 `python3 chip_smoke.py --ranks N` (N cards) runs only the multi-rank check:
@@ -1039,9 +1050,13 @@ def check_new_kernels(dev, rows: dict, mixed_path) -> None:
         errs[name] = max(errs[name], err)
 
     plans = row_group_plans(mixed_path, dev, 0, ["fare_amount", "trip_id", "pickup_us", "zone"])
-    for k, (streams, nv) in enumerate(plans["fare_amount"].dev_bss):
+    fare = plans["fare_amount"].dev_bss
+    for k, (streams, nv) in enumerate(fare):
         hold("bss_transpose", f"fare_amount page {k} n={nv}",
              ops.bss_transpose(streams, nv), ops.bss_transpose_plain(streams, nv))
+    hold("bss_transpose", f"fare_amount chunk, {len(fare)} pages in one launch",
+         ops.bss_transpose_pages(fare), ops.bss_transpose_pages_plain(fare))
+    check_bss_pages(dev, hold)
     for name in ("trip_id", "pickup_us"):
         args = plans[name]._merge_numeric_args()
         hold("merge_mixed_numeric", f"{name} rows={args[-1]} dict={args[1].numel()} "
@@ -1073,6 +1088,38 @@ def check_new_kernels(dev, rows: dict, mixed_path) -> None:
              ops.merge_mixed_bytes(*args), ops.merge_mixed_bytes_plain(*args))
     for name, err in errs.items():
         rows[name]["max_abs_err"] = err
+
+
+def check_bss_pages(dev, hold) -> None:
+    """bss_transpose_pages against its plain version on
+    testing/synth.bss_pages_cases (one-page chunks of 0-17 and 1,023-1,025
+    values, chunks whose pages start off 4 values, 150 pages: three
+    launches' page tables, an unpadded page), each page alone through
+    bss_transpose, and one chunk whose streams start 1-3 bytes past a
+    4-byte boundary."""
+    import torch
+
+    from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.testing.synth import bss_pages_cases
+
+    labels = []
+    for label, pages in bss_pages_cases(SEED):
+        tp = [(torch.from_numpy(st).to(dev), nv) for st, nv in pages]
+        hold("bss_transpose", f"pages: {label}", ops.bss_transpose_pages(tp),
+             ops.bss_transpose_pages_plain(tp))
+        for st, nv in tp[:8]:
+            hold("bss_transpose", f"page of {label}", ops.bss_transpose(st, nv),
+                 ops.bss_transpose_plain(st, nv))
+        labels.append(label)
+    rng = np.random.default_rng(SEED + 15)
+    off = []
+    for shift, nv in ((1, 1029), (2, 4093), (3, 2)):
+        buf = torch.from_numpy(rng.integers(0, 256, 4 * 4096 + shift, dtype=np.uint8)).to(dev)
+        off.append((buf[shift:].view(4, 4096), nv))
+    hold("bss_transpose", "pages whose streams start 1-3 bytes off 4",
+         ops.bss_transpose_pages(off), ops.bss_transpose_pages_plain(off))
+    log(f"  bss_transpose_pages equal to the plain version: {'; '.join(labels)}; streams "
+        "1-3 bytes off 4")
 
 
 def batch_kernel_cases(rng, dev):
@@ -1881,6 +1928,7 @@ def check_write_kernels(dev, rows: dict) -> None:
     from parquet_tpu_torch.kernels import device_ops as ops
     from parquet_tpu_torch.kernels.pipeline import to_device
     from parquet_tpu_torch.testing.synth import (
+        bitpack_edge_cases,
         bytearray_frame_edge_cases,
         delta_encode_edge_cases,
         dict_indices_edge_cases,
@@ -1894,6 +1942,15 @@ def check_write_kernels(dev, rows: dict) -> None:
                    getattr(ops, name + "_plain")(*args))
         counts[name] += 1
     log("  " + ", ".join(f"{k}: {v} shapes equal" for k, v in counts.items()))
+    labels = []
+    for label, values, width in bitpack_edge_cases(ops.BITPACK_TILE, SEED):
+        for off in range(4):
+            v = shifted(values.view(np.int32), off, dev)
+            hold_plain(rows, "bitpack_encode", f"{label}, view at +{off}",
+                       ops.bitpack_encode(v, width), ops.bitpack_encode_plain(v, width))
+        labels.append(label)
+    log(f"  bitpack_encode edge cases equal to the plain version, also at +1-+3 values: "
+        f"{'; '.join(labels)}")
     labels = []
     for label, bits in dict_indices_edge_cases(ops.DICT_INDICES_TILE, SEED):
         b = to_device(bits, dev)
@@ -2112,9 +2169,13 @@ def time_write_kernels(dev_groups: list[dict], dev, rows: dict, bw: float) -> No
            4 * m + 2 * m + (n_bp + 7) // 8 * 3 + 4, 40 * m,
            shape=f"taxi vendor_id group 0 page 0, n={m} indices ({n_bp} bit-packed), width 3")
     # trip_distance's pages take the same kernel at width 12, nearly all
-    # bit-packed: held, not timed
-    hold_plain(rows, "rle_hybrid_encode", f"[taxi trip_distance group 0 page 0, n={m}, width 12]",
-               ops.rle_hybrid_encode(dist_idx, 12), ops.rle_hybrid_encode_plain(dist_idx, 12))
+    # bit-packed
+    d_bp = int(ops.rle_hybrid_encode(dist_idx, 12)[3])
+    record_shape(rows, "rle_hybrid_encode", lambda: ops.rle_hybrid_encode(dist_idx, 12),
+                 lambda: ops.rle_hybrid_encode_plain(dist_idx, 12),
+                 4 * m + 2 * m + (d_bp + 7) // 8 * 12 + 4, 40 * m, bw,
+                 shape=f"taxi trip_distance group 0 page 0, n={m} indices ({d_bp} bit-packed), "
+                 "width 12")
     k = dist_idx.numel()
     words = (k * 12 + 31) // 32 + 1
     # bytes: the values read, the words written; ops: ~3 per value gathered
@@ -2183,6 +2244,15 @@ def time_new_kernels(mixed_path, dev, rows: dict, bw: float) -> None:
            lambda: ops.bss_transpose(streams, nv), lambda: ops.bss_transpose_plain(streams, nv),
            8 * nv, 8 * nv,
            library=lambda: streams[:, :nv].t().contiguous().view(torch.int32))
+    # the chunk as _ChunkPlan.device_column builds it: every page in one
+    # launch; the library call is one cat over the transposed views
+    pages = plans["fare_amount"].dev_bss
+    total = sum(n for _, n in pages)
+    record_shape(rows, "bss_transpose", lambda: ops.bss_transpose_pages(pages),
+                 lambda: ops.bss_transpose_pages_plain(pages), 8 * total, 8 * total, bw,
+                 lib=lambda: torch.cat([s[:, :n].t() for s, n in pages]).view(torch.int32),
+                 shape=f"taxi_mixed fare_amount group 0, the chunk: {len(pages)} pages, "
+                 f"{total} values, one launch")
     args = plans["trip_id"]._merge_numeric_args()
     idx, dictionary, plain = args[0], args[1], args[2]
     n_rows = args[-1]
@@ -3216,6 +3286,10 @@ def main(argv=None) -> int:
     for route in ("route_merge_numeric", "route_merge_bytes", "route_bss", "route_host_merge"):
         if prep.get(route, 0) <= 0:
             raise AssertionError(f"taxi_mixed: {route} never taken ({prep})")
+    # fare_amount is the one BYTE_STREAM_SPLIT column: one launch a chunk
+    if launches["taxi_mixed"]["bss_transpose"] != ROW_GROUPS:
+        raise AssertionError(f"taxi_mixed: {launches['taxi_mixed']['bss_transpose']} "
+                             f"bss_transpose launches for {ROW_GROUPS} chunks")
     sessions_path, sessions_specs = paths["sessions"]
     drive("sessions", sessions_path, sessions_specs,
           need=("expand_hybrid", "dict_gather", "delta_packed_decode", "list_layout",
@@ -3334,8 +3408,11 @@ def main(argv=None) -> int:
     if wc != want_wc:
         raise AssertionError(f"write counts {wc}, expected {want_wc}")
     for k in WRITE_KERNELS:
-        if counts[k] <= 0:
+        if k != "bitpack_encode" and counts[k] <= 0:
             raise AssertionError(f"{k} was not launched on the write path")
+    if counts["bitpack_encode"]:
+        raise AssertionError("bitpack_encode was launched on the write path: rle_hybrid_encode "
+                             "packs inside its own kernel")
     t = time.perf_counter()
     write_taxi(host_file, taxi_schema, host_groups, device=False)
     log(f"[write:taxi] write_column from NumPy: {time.perf_counter() - t:.2f} s")
@@ -3382,6 +3459,9 @@ def main(argv=None) -> int:
     for k in rows:
         rows[k]["launches"] = sum(c[k] for c in launches.values())
         rows[k]["launches_by_path"] = {label: c[k] for label, c in launches.items()}
+    rows["bitpack_encode"]["main_paths"] = (
+        "none: the write path packs inside rle_hybrid_encode's kernel, on the same word "
+        "assembly (kernels/csrc/bitpack.cuh)")
     hybrid_by_width = collections.Counter()
     for c in launches.values():
         hybrid_by_width.update(c["expand_hybrid_by_width"])

@@ -4,7 +4,7 @@ Every `kernels/csrc/*.cu` source compiles with `nvcc` for `sm_90a` (one
 `nvcc -c` per source, all started together), and the objects link into one
 shared library with a plain C interface, loaded with `ctypes`. Pointers and
 the CUDA stream are passed as `ctypes.c_void_p`. The `*.cuh` headers
-(hybrid.cuh, scan.cuh, validity.cuh) are included by the sources and compile
+(bitpack.cuh, hybrid.cuh, scan.cuh, validity.cuh) are included by the sources and compile
 with them.
 
 The library goes to `build/parquet_tpu_torch/<key>/` at the repository root
@@ -50,7 +50,7 @@ SIGNATURES = {
     "pqt_dict_gather8": (_P, _LL, _P, _LL, _P, _P),
     "pqt_delta_scratch_words": (_I,),
     "pqt_delta_packed_decode": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
-    "pqt_bss_transpose": (_P, _LL, _LL, _P, _P),
+    "pqt_bss_transpose_pages": (_P, _I, _P, _P),
     "pqt_merge_mixed_numeric4": (
         _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _I, _LL, _P, _P,
     ),
@@ -77,7 +77,7 @@ SIGNATURES = {
     "pqt_mask_take": (_P, _LL, _LL, _P, _LL, _I, _P, _P, _P, _P),
     "pqt_take_rows": (_P, _LL, _LL, _I, _P, _P, _LL, _P, _P),
     "pqt_bitpack_encode": (_P, _LL, _I, _P, _LL, _P),
-    "pqt_rle_hybrid_plan": (_P, _LL, _P, _P, _P, _P, _P, _P),
+    "pqt_rle_hybrid_encode": (_P, _LL, _I, _P, _P, _P, _LL, _P, _P, _P),
     "pqt_dict_indices_scratch_words": (_LL,),
     "pqt_dict_indices": (_P, _LL, _I, _P, _P, _P, _P, _P),
     "pqt_delta_block_encode": (_P, _LL, _I, _P, _P, _P, _P, _P),

@@ -1,5 +1,5 @@
-// The run plan of the RLE/bit-packed hybrid encode: which values go into RLE
-// runs, and the rest compacted in order for the bit-pack.
+// The RLE/bit-packed hybrid encode's device half: which values go into RLE
+// runs, and the rest compacted in order and bit-packed.
 //
 // Replaces parquet_tpu/kernels/device_ops.py:rle_hybrid_encode_device (under
 // XLA: a boundary compare, cumsum, segment scatter-min/max of run extents,
@@ -21,7 +21,8 @@
 //
 //   1. tile_plans: each tile writes a record (first boundary, last boundary,
 //      kept values): the kept count covers the runs that start and end in
-//      the tile. A tile with no boundary lies inside one run.
+//      the tile. A tile with no boundary lies inside one run. The blocks
+//      also zero the packed output, grid-stride, for the atomics of 2.
 //   1b. group_plans, when there is more than one group of kGroup tiles:
 //      each group's record of the same three, from its tiles' records by
 //      the walk below (a boundary at the group's end closes a run in it).
@@ -37,29 +38,35 @@
 //      also give the start of the run over the tile's first value (the
 //      largest earlier boundary) and the end of the run over its last (the
 //      smallest later one). The block then finds each value's run, writes
-//      in_rle and rle_break, stores each kept value at its compacted
-//      position in bp, zeroes bp at its positions past n_bp (the pack reads
-//      n values), and the block of the last tile writes n_bp. A block walks
-//      ceil(groups / kThreads) + 1 steps, not one a kThreads tiles: a walk
-//      over every tile record made the plan quadratic in the page (17 steps
-//      a block at 2^22 values ran slower than the three-pass scans).
+//      in_rle and rle_break, stages its kept values in shared memory at
+//      their compacted positions less its offset, and writes the packed
+//      words over bits [offset * width, (offset + kept) * width) with
+//      bitpack.cuh (bitpack_encode's layout): whole words as stores, the
+//      first and last, which it may share with the blocks of the tiles
+//      before and after, with atomicOr. The block of the last tile writes
+//      n_bp. A block walks ceil(groups / kThreads) + 1 steps, not one a
+//      kThreads tiles: a walk over every tile record made the plan
+//      quadratic in the page (17 steps a block at 2^22 values ran slower
+//      than the three-pass scans).
 //
-// The wrapper then packs bp with bitpack_encode (bitpack_encode.cu), as the
-// reference calls bitpack_encode_device.
+// Packing in place saves the bitpack_encode launch that packed an n-value
+// scratch, which place wrote and zeroed past n_bp (8 B a value of traffic
+// and a third device operation at a page).
 //
 // Bound on an H100: memory. Bytes: the values read (4 B), the two masks
 // written (2 B) and the bit-packed groups written. The kernel reads the
-// values twice (the second time from L2), writes bp in full (4 B a value)
-// and 16 B of record a tile. At a page's 262,144 values the launches are
-// the time: the memset and two three-pass scans it replaced were seven
-// dependent launches and 16 B of scratch a value; 1,024-value tiles (256
-// blocks) beat 512 and 2,048 on an H100 (PERF.md §6).
+// values twice (the second time from L2), writes the packed words twice
+// (zeros, then the words) and 16 B of record a tile. At a page's 262,144
+// values the launches are the time: 1,024-value tiles (256 blocks) beat
+// 512 and 2,048 on an H100 (PERF.md §6).
 
 #include <climits>
 #include <cstdint>
 #include <cub/block/block_reduce.cuh>
 #include <cub/block/block_scan.cuh>
 #include <cuda_runtime.h>
+
+#include "bitpack.cuh"
 
 namespace {
 
@@ -195,10 +202,18 @@ __device__ __forceinline__ void tile_runs(const uint32_t* __restrict__ v, long l
 __device__ __forceinline__ bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 // Launch 1: each tile's (first boundary or INT_MAX, last boundary or -1,
-// kept values of the runs inside it).
+// kept values of the runs inside it); `packed` (n_words, 16-byte aligned)
+// zeroed.
 __global__ void __launch_bounds__(kThreads)
-    tile_plans(const uint32_t* __restrict__ v, long long n, int4* __restrict__ recs) {
+    tile_plans(const uint32_t* __restrict__ v, long long n, int4* __restrict__ recs,
+               uint32_t* __restrict__ packed, long long n_words) {
   __shared__ Shared sh;
+  // a memset in its own operation cost 0.0010 ms more at a page (PERF.md §6)
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long t0 = (long long)blockIdx.x * kThreads + threadIdx.x;
+  for (long long q = t0; q < n_words / 4; q += stride)
+    reinterpret_cast<uint4*>(packed)[q] = make_uint4(0u, 0u, 0u, 0u);
+  if (t0 < n_words % 4) packed[n_words / 4 * 4 + t0] = 0u;
   const long long p0 = (long long)blockIdx.x * kTile + (long long)threadIdx.x * kItems;
   TileRuns r;
   tile_runs(v, n, p0, aligned16(v), r, sh);
@@ -283,11 +298,12 @@ __global__ void __launch_bounds__(kThreads)
 
 // Launch 2. `groups`: the group records when ngroups > 1.
 __global__ void __launch_bounds__(kThreads)
-    place(const uint32_t* __restrict__ v, long long n, const int4* __restrict__ recs,
+    place(const uint32_t* __restrict__ v, long long n, int width, const int4* __restrict__ recs,
           long long ntiles, const int4* __restrict__ groups, long long ngroups,
-          bool* __restrict__ in_rle, bool* __restrict__ rle_break, uint32_t* __restrict__ bp,
-          int32_t* __restrict__ n_bp) {
+          bool* __restrict__ in_rle, bool* __restrict__ rle_break,
+          uint32_t* __restrict__ packed, int32_t* __restrict__ n_bp) {
   __shared__ Shared sh;
+  __shared__ uint32_t staged[bitpack::slots(kTile)];
   const long long t = blockIdx.x;
   const long long a = t * kTile;
   const long long p0 = a + (long long)threadIdx.x * kItems;
@@ -332,7 +348,8 @@ __global__ void __launch_bounds__(kThreads)
     keep[k] = p < n && !w;
     pos[k] = keep[k];
   }
-  cub::BlockScan<int, kThreads>(sh.temp.scan).ExclusiveSum(pos, pos);
+  int kept;
+  cub::BlockScan<int, kThreads>(sh.temp.scan).ExclusiveSum(pos, pos, kept);
   if (p0 + kItems <= n) {
 #pragma unroll
     for (int k = 0; k < kItems / 4; ++k) {
@@ -348,33 +365,39 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+  const uint32_t mask = bitpack::mask_of(width);
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const long long p = p0 + k;
-    if (keep[k]) bp[offset + pos[k]] = r.x[k];
-    if (p < n && p >= total) bp[p] = 0u;
-  }
+  for (int k = 0; k < kItems; ++k)
+    if (keep[k]) staged[bitpack::slot(pos[k])] = r.x[k] & mask;
+  __syncthreads();
+  // the last kept values of the page own the bits past them
+  bitpack::store_span(staged, kept, width, (long long)offset * width, false,
+                      offset + kept == total, packed, threadIdx.x, kThreads);
   if (threadIdx.x == 0 && a + kTile >= n) *n_bp = total;
 }
 
 }  // namespace
 
-// values: uint32[n]; in_rle, rle_break: bool[n], 4-byte aligned; bp:
-// uint32[n]; n_bp: int32[1]; tiles: int32[4 * (ntiles + ngroups)], the
-// tiles' records, then the groups' (ntiles = ceil(n / kTile), ngroups =
-// ceil(ntiles / kGroup)).
-extern "C" int pqt_rle_hybrid_plan(const void* values, long long n, void* in_rle,
-                                   void* rle_break, void* bp, void* n_bp, void* tiles,
-                                   void* stream) {
+// values: uint32[n] (< 2^width); in_rle, rle_break: bool[n], 4-byte
+// aligned; packed: uint32[n_words], 16-byte aligned, n_words =
+// ceil(n * width / 32) + 1 (bitpack_encode's layout over n values: the
+// words past n_bp's and the guard word zero); n_bp: int32[1]; tiles:
+// int32[4 * (ntiles + ngroups)], the tiles' records, then the groups'
+// (ntiles = ceil(n / kTile), ngroups = ceil(ntiles / kGroup)).
+extern "C" int pqt_rle_hybrid_encode(const void* values, long long n, int width, void* in_rle,
+                                     void* rle_break, void* packed, long long n_words,
+                                     void* n_bp, void* tiles, void* stream) {
   if (n <= 0) return 0;
-  if ((uintptr_t)in_rle % 4 != 0 || (uintptr_t)rle_break % 4 != 0)
+  if ((uintptr_t)in_rle % 4 != 0 || (uintptr_t)rle_break % 4 != 0 ||
+      (uintptr_t)packed % 16 != 0 || width < 0 || width > 32 ||
+      n_words != (n * width + 31) / 32 + 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const long long ntiles = (n + kTile - 1) / kTile;
   const uint32_t* v = (const uint32_t*)values;
   const long long ngroups = (ntiles + kGroup - 1) / kGroup;
   int4* recs = (int4*)tiles;
-  tile_plans<<<(unsigned)ntiles, kThreads, 0, s>>>(v, n, recs);
+  tile_plans<<<(unsigned)ntiles, kThreads, 0, s>>>(v, n, recs, (uint32_t*)packed, n_words);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   if (ngroups > 1) {
@@ -382,8 +405,8 @@ extern "C" int pqt_rle_hybrid_plan(const void* values, long long n, void* in_rle
     rc = (int)cudaGetLastError();
     if (rc) return rc;
   }
-  place<<<(unsigned)ntiles, kThreads, 0, s>>>(v, n, recs, ntiles, recs + ntiles, ngroups,
-                                              (bool*)in_rle, (bool*)rle_break, (uint32_t*)bp,
-                                              (int32_t*)n_bp);
+  place<<<(unsigned)ntiles, kThreads, 0, s>>>(v, n, width, recs, ntiles, recs + ntiles, ngroups,
+                                              (bool*)in_rle, (bool*)rle_break,
+                                              (uint32_t*)packed, (int32_t*)n_bp);
   return (int)cudaGetLastError();
 }

@@ -42,6 +42,9 @@ __all__ = [
     "DELTA_TILE",
     "bss_transpose",
     "bss_transpose_plain",
+    "bss_transpose_pages",
+    "bss_transpose_pages_plain",
+    "BSS_PAGES_PER_LAUNCH",
     "merge_mixed_numeric",
     "merge_mixed_numeric_plain",
     "merge_mixed_bytes",
@@ -81,6 +84,7 @@ __all__ = [
     "MASK_TAKE_BLOCKS",
     "bitpack_encode",
     "bitpack_encode_plain",
+    "BITPACK_TILE",
     "rle_hybrid_encode",
     "rle_hybrid_encode_plain",
     "RLE_PLAN_TILE",
@@ -446,35 +450,71 @@ def bss_transpose_plain(streams: torch.Tensor, num_values: int) -> torch.Tensor:
     return _to_signed32(v)
 
 
-def bss_transpose(streams: torch.Tensor, num_values: int) -> torch.Tensor:
-    """De-interleave a 4-byte BYTE_STREAM_SPLIT page: the four byte streams
-    arrive as a (4, n_pad) uint8 tensor (one stream per row, padded), and
-    out[i] is the little-endian word of streams[0..3, i], as int32 bit
-    patterns. Replaces parquet_tpu/kernels/device_ops.py:bss_transpose_device
-    (and its jitted _bss_transpose_padded); the port writes exactly
-    `num_values` words."""
+def bss_transpose_pages_plain(pages) -> torch.Tensor:
+    """Plain version of the chunk's de-interleave: every page's values, one
+    page after another (the JAX pipeline's concatenate of the pages)."""
+    return torch.cat([bss_transpose_plain(s, nv) for s, nv in pages])
+
+
+# Pages one launch of the chunk's de-interleave takes (kPages of
+# kernels/csrc/bss_transpose.cu, pinned by a test): the page table travels
+# in the kernel's parameters.
+BSS_PAGES_PER_LAUNCH = 64
+
+
+def _check_streams(streams: torch.Tensor, num_values: int, name: str) -> None:
     if not isinstance(streams, torch.Tensor):
-        raise TypeError("bss_transpose: streams must be a torch.Tensor")
+        raise TypeError(f"{name}: streams must be a torch.Tensor")
     if streams.dtype != torch.uint8 or streams.dim() != 2 or streams.shape[0] != 4:
         raise ValueError(
-            f"bss_transpose: expected a (4, n_pad) uint8 tensor, got "
+            f"{name}: expected a (4, n_pad) uint8 tensor, got "
             f"{tuple(streams.shape)} {streams.dtype}"
         )
     if not streams.is_contiguous():
-        raise ValueError("bss_transpose: streams must be contiguous")
+        raise ValueError(f"{name}: streams must be contiguous")
     n_pad = streams.shape[1]
     if not 0 <= num_values <= n_pad or n_pad >= (1 << 31):
-        raise ValueError(f"bss_transpose: {num_values} values in a stream of {n_pad}")
+        raise ValueError(f"{name}: {num_values} values in a stream of {n_pad}")
+
+
+def bss_transpose_pages(pages) -> torch.Tensor:
+    """De-interleave a chunk's 4-byte BYTE_STREAM_SPLIT pages into one
+    int32[sum of num_values] (int32 bit patterns), page after page: `pages`
+    is a non-empty sequence of (streams, num_values), each streams a (4,
+    n_pad) uint8 tensor (one stream per row, padded) whose value i is the
+    little-endian word of streams[0..3, i]. Replaces the JAX pipeline's
+    bss_transpose_device per page and the concatenate of the pages: one
+    launch writes up to BSS_PAGES_PER_LAUNCH pages at their offsets."""
+    pages = list(pages)
+    if not pages:
+        raise ValueError("bss_transpose_pages: no pages")
+    for streams, nv in pages:
+        _check_streams(streams, nv, "bss_transpose_pages")
+    if _on_cpu(*(s for s, _ in pages)):
+        return bss_transpose_pages_plain(pages)
+    dev = pages[0][0].device
+    out = torch.empty(sum(nv for _, nv in pages), dtype=torch.int32, device=dev)
+    table = np.array([(_ptr(s), s.shape[1], nv) for s, nv in pages if nv], dtype=np.int64)
+    if len(table):
+        _launch(
+            "bss_transpose", dev, _lib().pqt_bss_transpose_pages,
+            table.ctypes.data, len(table), _ptr(out),
+        )
+        bss_transpose.launches += -(-len(table) // BSS_PAGES_PER_LAUNCH)
+    return out
+
+
+def bss_transpose(streams: torch.Tensor, num_values: int) -> torch.Tensor:
+    """De-interleave one 4-byte BYTE_STREAM_SPLIT page: the four byte
+    streams arrive as a (4, n_pad) uint8 tensor (one stream per row,
+    padded), and out[i] is the little-endian word of streams[0..3, i], as
+    int32 bit patterns. Replaces parquet_tpu/kernels/device_ops.py:
+    bss_transpose_device (and its jitted _bss_transpose_padded); the port
+    writes exactly `num_values` words, with bss_transpose_pages' kernel."""
+    _check_streams(streams, num_values, "bss_transpose")
     if _on_cpu(streams):
         return bss_transpose_plain(streams, num_values)
-    out = torch.empty(num_values, dtype=torch.int32, device=streams.device)
-    if num_values:
-        _launch(
-            "bss_transpose", streams.device, _lib().pqt_bss_transpose,
-            _ptr(streams), n_pad, num_values, _ptr(out),
-        )
-        bss_transpose.launches += 1
-    return out
+    return bss_transpose_pages([(streams, num_values)])
 
 
 bss_transpose.launches = 0
@@ -1550,11 +1590,17 @@ def bitpack_encode_plain(values: torch.Tensor, width: int) -> torch.Tensor:
     return _to_signed32(words)
 
 
+# Values a block of the bit-pack takes (kTile of
+# kernels/csrc/bitpack_encode.cu, pinned by a test): 32 * width whole words.
+BITPACK_TILE = 1024
+
+
 def bitpack_encode(values: torch.Tensor, width: int) -> torch.Tensor:
     """Bit-pack uint32 values (int32 bit patterns) at `width` bits into
     int32[ceil(n*width/32) + 1] words, LSB first. Replaces
     parquet_tpu/kernels/device_ops.py:bitpack_encode_device; the caller pads
-    to whole groups of 8 where the hybrid format needs them."""
+    to whole groups of 8 where the hybrid format needs them. The write
+    path's pack runs inside rle_hybrid_encode's kernel, not here."""
     _check_vec(values, (torch.int32,), "bitpack_encode: values")
     width = int(width)
     if not 0 <= width <= 32:
@@ -1628,8 +1674,8 @@ def rle_hybrid_encode(values: torch.Tensor, width: int):
     bitpack_encode's layout over n values); n_bp counts them.
     kernels/pipeline.assemble_hybrid_device_stream frames the result into
     ops/rle_hybrid.encode_hybrid's bytes. Replaces
-    parquet_tpu/kernels/device_ops.py:rle_hybrid_encode_device; its pack is
-    a bitpack_encode launch."""
+    parquet_tpu/kernels/device_ops.py:rle_hybrid_encode_device; its pack
+    runs inside the kernel's placement (no bitpack_encode launch)."""
     _check_vec(values, (torch.int32,), "rle_hybrid_encode: values")
     width = int(width)
     if not 0 <= width <= 32:
@@ -1645,18 +1691,19 @@ def rle_hybrid_encode(values: torch.Tensor, width: int):
         return (in_rle, rle_break, torch.zeros(1, dtype=torch.int32, device=dev),
                 torch.zeros((), dtype=torch.int32, device=dev))
     n_bp = torch.empty((), dtype=torch.int32, device=dev)  # the kernel writes it
-    bp = torch.empty(n, dtype=torch.int32, device=dev)
+    packed = torch.empty((n * width + 31) // 32 + 1, dtype=torch.int32, device=dev)
     # one record a tile (first and last run boundary, kept values), then one
     # a group of tiles; no scratch of n elements
     ntiles = -(-n // RLE_PLAN_TILE)
     tiles = torch.empty((ntiles + -(-ntiles // RLE_PLAN_GROUP), 4), dtype=torch.int32,
                         device=dev)
     _launch(
-        "rle_hybrid_encode", dev, _lib().pqt_rle_hybrid_plan,
-        _ptr(values), n, _ptr(in_rle), _ptr(rle_break), _ptr(bp), _ptr(n_bp), _ptr(tiles),
+        "rle_hybrid_encode", dev, _lib().pqt_rle_hybrid_encode,
+        _ptr(values), n, width, _ptr(in_rle), _ptr(rle_break), _ptr(packed), packed.numel(),
+        _ptr(n_bp), _ptr(tiles),
     )
     rle_hybrid_encode.launches += 1
-    return in_rle, rle_break, bitpack_encode(bp, width), n_bp
+    return in_rle, rle_break, packed, n_bp
 
 
 rle_hybrid_encode.launches = 0

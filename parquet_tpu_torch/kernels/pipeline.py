@@ -16,7 +16,8 @@ upload buffers and decoded by the kernels in device_ops.py:
   PLAIN numeric   the pages' raw little-endian values, one upload.
 
   BYTE_STREAM_SPLIT 4-byte pages ship their byte streams raw, one (4, n_pad)
-                  staging each -> one bss_transpose launch per page.
+                  staging each -> one bss_transpose launch per chunk (per
+                  64 pages), writing the pages one after another.
   Mixed chunks    dict pages with a mid-chunk fall-back to PLAIN pages (a
                   writer's dictionary passing its size limit): the dict
                   batches expand as above and one merge launch joins them
@@ -102,7 +103,7 @@ from ..sink.encoder import (
 from .device_ops import (
     MAX_DEVICE_BATCH_BITS,
     _bucket,
-    bss_transpose,
+    bss_transpose_pages,
     bytes_to_words32,
     bytes_to_words64,
     delta_block_encode,
@@ -605,10 +606,8 @@ class _ChunkPlan:
             # staged streams on the host (a plan finalized undispatched)
             np_dt = _NUMERIC_DTYPE.get(column.type)
             if self.dev_bss:
-                bss_pages = [
-                    bss_transpose(d, nv).cpu().numpy().view(np_dt)
-                    for d, nv in self.dev_bss
-                ]
+                flat = bss_transpose_pages(self.dev_bss).cpu().numpy().view(np_dt)
+                bss_pages = np.split(flat, np.cumsum([nv for _, nv in self.dev_bss])[:-1])
             else:
                 bss_pages = [
                     np.ascontiguousarray(st[:, :nv].T).view(np_dt).reshape(nv)
@@ -714,9 +713,7 @@ class _ChunkPlan:
             return out
 
         if kinds <= {"bss", "empty"} and self.dev_bss:
-            parts = [bss_transpose(d, nv) for d, nv in self.dev_bss]
-            u = parts[0] if len(parts) == 1 else torch.cat(parts)
-            out.values = _device_view(u, column)
+            out.values = _device_view(bss_transpose_pages(self.dev_bss), column)
             return out
 
         if "values" in kinds and kinds <= {"values", "empty"} and column.type in _NUMERIC_DTYPE:
@@ -1850,10 +1847,13 @@ def assemble_hybrid_device_stream(
 ) -> bytes:
     """Turn rle_hybrid_encode's run plan into the exact
     ops/rle_hybrid.encode_hybrid byte stream. `in_rle` is the fetched mask,
-    `starts` its hybrid_segments, `packed` the packed payload words (at
-    least the first ceil(n_bp / 8) * width bytes) and `rle_values` the
-    repeated value of each RLE segment, in order (the caller gathers them in
-    one launch; the reference reads each with its own device sync)."""
+    `starts` its hybrid_segments, `packed` the packed payload words and
+    `rle_values` the repeated value of each RLE segment, in order (the
+    caller gathers them in one launch; the reference reads each with its own
+    device sync). The last bit-packed group is padded with zero values to 8:
+    where its bytes run past `packed` (ceil(n * width / 32) + 1 words, short
+    of ceil(n_bp / 8) * width bytes when nearly every value is packed and n
+    is not a multiple of 8), they are zeros."""
     n = len(in_rle)
     out = bytearray()
     if n == 0:
@@ -1875,7 +1875,9 @@ def assemble_hybrid_device_stream(
             groups = (b - a + 7) // 8
             emit_uvarint(out, (groups << 1) | 1)
             byte0 = (bp_done // 8) * width
-            out += packed_bytes[byte0 : byte0 + groups * width]
+            payload = packed_bytes[byte0 : byte0 + groups * width]
+            out += payload
+            out += bytes(groups * width - len(payload))
             bp_done += groups * 8
     return bytes(out)
 

@@ -1235,6 +1235,73 @@ def rle_plan_edge_cases(tile: int, seed: int = 0) -> list:
                   runs([t - 16, 16, 16, t - 16], 32), 32))
     cases.append(("alternating values, width 1", (np.arange(2 * t + 3) % 2).astype(np.uint32), 1))
     cases.append(("all equal over 2.5 tiles, width 12", np.full(5 * t // 2, 4000, np.uint32), 12))
+    # the pack inside the placement: each tile's compacted range as bits of
+    # the packed words, at widths that put its ends mid-word
+    for width in (7, 17, 31):
+        cases.append((f"n={3 * t + 5}, width {width}", mixed(3 * t + 5, width), width))
+    # tile 0 keeps t - 8 values (one 8-value window): tile 1's range starts
+    # mid-word; tile 1 keeps 16 (13 single values, then the 3 before the
+    # window [t + 16, 2t) of the run [t + 13, 2t + 6)) and ends mid-word
+    short0 = [3] * ((t - 8) // 3) + [(t - 8) % 3] * ((t - 8) % 3 > 0)
+    cases.append(("a tile's packed range starting and ending mid-word, width 7",
+                  runs([8] + short0 + [1] * 13 + [t - 7] + [3] * (t // 3), 7), 7))
+    # tile 1 lies in the window [t, 2t) of the run [t - 3, 2t + 5): tile 0
+    # keeps t - 8 values and tile 2 goes on in the packed word tile 0 ends in
+    short1 = [5] * ((t - 11) // 5) + [(t - 11) % 5] * ((t - 11) % 5 > 0)
+    cases.append(("an all-RLE tile between two tiles that share a packed word, width 17",
+                  runs([8] + short1 + [t + 8] + [3] * (t // 3), 17), 17))
+    # nothing in an RLE window: every value packed, 17 groups of tiles
+    cases.append(("every value kept over 2**22 + 777 values, width 31",
+                  runs(np.full(((1 << 22) + 777 + 6) // 7, 7), 31)[: (1 << 22) + 777], 31))
+    return cases
+
+
+# -- bit-packs at the pack kernel's tile edges --------------------------------------
+
+
+def bitpack_edge_cases(tile: int, seed: int = 0) -> list:
+    """(label, uint32 values, width) for a bit-pack over tiles of `tile`
+    values: n = 0, 1, 7, 8, 31, 32, 33, tile - 1, tile, tile + 1 and
+    3 * tile + 5 at widths 0, 1, 3, 7, 12, 17, 31 and 32. The values are
+    not masked: a quarter are 2**width - 1, a quarter 2**width exactly and
+    the rest at random over all 32 bits, so the pack must mask them."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for n in (0, 1, 7, 8, 31, 32, 33, tile - 1, tile, tile + 1, 3 * tile + 5):
+        for width in (0, 1, 3, 7, 12, 17, 31, 32):
+            v = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+            v[rng.random(n) < 0.25] = (1 << width) - 1
+            v[rng.random(n) < 0.25] = (1 << width) & 0xFFFFFFFF
+            cases.append((f"n={n}, width {width}", v.astype(np.uint32), width))
+    return cases
+
+
+# -- BYTE_STREAM_SPLIT chunks of pages ----------------------------------------------
+
+
+def bss_pages_cases(seed: int = 0) -> list:
+    """(label, [(uint8 (4, n_pad) streams, num_values), ...]) chunks for the
+    BYTE_STREAM_SPLIT de-interleave, each page's streams padded to the
+    pipeline's power-of-two bucket (>= 1,024) with random bytes: one-page
+    chunks of 0-17, 1,023, 1,024 and 1,025 values; chunks of 1, 2 and 5
+    pages whose pages start at output offsets that are not multiples of 4;
+    150 pages (more than one launch's page table of 64); and one page
+    whose streams are not padded (n_pad = num_values = 1,027, rows off 4
+    bytes)."""
+    rng = np.random.default_rng(seed)
+
+    def page(nv, n_pad=None):
+        n_pad = n_pad or max(1024, 1 << max(nv - 1, 0).bit_length())
+        return rng.integers(0, 256, (4, n_pad), dtype=np.uint8), nv
+
+    cases = [(f"one page of {nv}", [page(nv)]) for nv in (*range(18), 1023, 1024, 1025)]
+    cases.append(("1 page of 1,021 values", [page(1021)]))
+    cases.append(("2 pages of 1,021 and 2,050 values", [page(1021), page(2050)]))
+    cases.append(("5 pages of 5, 1,027, 3, 4,097 and 1,030 values",
+                  [page(nv) for nv in (5, 1027, 3, 4097, 1030)]))
+    cases.append(("150 pages of 0-3,000 values",
+                  [page(int(nv)) for nv in rng.integers(0, 3000, 150)]))
+    cases.append(("1 unpadded page of 1,027 values (n_pad 1,027)", [page(1027, 1027)]))
     return cases
 
 

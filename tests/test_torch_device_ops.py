@@ -420,7 +420,7 @@ def test_build_key_tracks_sources(tmp_path):
     assert build._key([a]) != k1
     assert sorted(build.SIGNATURES) == sorted(
         ["pqt_expand_hybrid", "pqt_dict_gather4", "pqt_dict_gather8",
-         "pqt_delta_scratch_words", "pqt_delta_packed_decode", "pqt_bss_transpose",
+         "pqt_delta_scratch_words", "pqt_delta_packed_decode", "pqt_bss_transpose_pages",
          "pqt_merge_mixed_numeric4", "pqt_merge_mixed_numeric8",
          "pqt_merge_bytes_scratch_words", "pqt_merge_mixed_bytes",
          "pqt_record_starts", "pqt_list_layout", "pqt_pad_ragged_scratch_words",
@@ -428,7 +428,7 @@ def test_build_key_tracks_sources(tmp_path):
          "pqt_predicate_mask", "pqt_fixed_members",
          "pqt_leaf_verdict", "pqt_list_contains_mask", "pqt_mask_scan", "pqt_mask_take",
          "pqt_take_rows",
-         "pqt_bitpack_encode", "pqt_rle_hybrid_plan", "pqt_dict_indices_scratch_words",
+         "pqt_bitpack_encode", "pqt_rle_hybrid_encode", "pqt_dict_indices_scratch_words",
          "pqt_dict_indices",
          "pqt_delta_block_encode", "pqt_plain_bytearray_encode",
          "pqt_masked_agg", "pqt_expand_page_grid"]
@@ -439,4 +439,5 @@ def test_build_key_tracks_sources(tmp_path):
     k3 = build._key([a, h])
     h.write_text("// two")
     assert build._key([a, h]) != k3
-    assert [p.name for p in build._headers()] == ["hybrid.cuh", "scan.cuh", "validity.cuh"]
+    assert [p.name for p in build._headers()] == [
+        "bitpack.cuh", "hybrid.cuh", "scan.cuh", "validity.cuh"]

@@ -38,6 +38,7 @@ from parquet_tpu_torch.ops.delta import encode_delta  # noqa: E402
 from parquet_tpu_torch.ops.plain import encode_plain  # noqa: E402
 from parquet_tpu_torch.ops.rle_hybrid import encode_hybrid  # noqa: E402
 from parquet_tpu_torch.testing.synth import (  # noqa: E402
+    bitpack_edge_cases,
     bytearray_frame_edge_cases,
     delta_encode_edge_cases,
     dict_indices_edge_cases,
@@ -69,6 +70,34 @@ def test_bitpack_encode_matches_jax(width):
         want = np.asarray(J.bitpack_encode_device(jnp.asarray(v), width)).view(np.int32)
         got = P.bitpack_encode(_t(v.view(np.int32)), width).numpy()
         np.testing.assert_array_equal(got, want, err_msg=f"n={n}")
+
+
+BITPACK_EDGE = bitpack_edge_cases(P.BITPACK_TILE, seed=15)
+
+
+@pytest.mark.parametrize("label,values,width", BITPACK_EDGE, ids=[c[0] for c in BITPACK_EDGE])
+def test_bitpack_edge_cases_match_jax(label, values, width):
+    """Sizes around the pack's tile at widths 0-32, the values unmasked
+    (2**width - 1, 2**width and random over 32 bits): the port masks them,
+    and equals the JAX program on the masked values bit for bit."""
+    want = np.asarray(J.bitpack_encode_device(jnp.asarray(_u32(values, width)), width))
+    got = P.bitpack_encode(_t(values.view(np.int32)), width).numpy()
+    np.testing.assert_array_equal(got, want.view(np.int32))
+
+
+def test_bitpack_tile_pinned_to_the_kernel():
+    """BITPACK_TILE, around which the edge cases put their sizes, is the
+    kernel's tile (kTile = 4 * kThreads of bitpack_encode.cu), and the
+    shared word assembly is a header both packing kernels include."""
+    import re
+
+    from parquet_tpu_torch.kernels import build
+
+    src = (build.CSRC / "bitpack_encode.cu").read_text()
+    k = {m.group(1): int(m.group(2)) for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert "constexpr int kTile = 4 * kThreads;" in src and 4 * k["kThreads"] == P.BITPACK_TILE
+    for name in ("bitpack_encode.cu", "rle_hybrid_encode.cu"):
+        assert '#include "bitpack.cuh"' in (build.CSRC / name).read_text()
 
 
 def test_bitpack_encode_refuses_bad_widths():
@@ -139,6 +168,21 @@ def test_rle_hybrid_stream_from_the_packed_prefix(label, values, width):
     got = assemble_hybrid_device_stream(in_rle, starts, prefix, width,
                                         values[starts[in_rle[starts]]])
     assert got == encode_hybrid(values, width)
+
+
+@pytest.mark.parametrize("n,width", [(9, 32), (17, 12), (1025, 31), (4097, 17)])
+def test_rle_hybrid_stream_pads_the_last_group(n, width):
+    """Every value bit-packed and n not a multiple of 8: the last group's
+    zero padding runs past the packed words (ceil(n * width / 32) + 1 of
+    them), and the framed stream still equals encode_hybrid's. The JAX
+    package's assembly cuts such a stream short (ROADMAP §3)."""
+    values = np.arange(n, dtype=np.uint32) & np.uint32((1 << width) - 1)
+    in_rle, rle_break, packed, n_bp = P.rle_hybrid_encode(_t(values.view(np.int32)), width)
+    assert int(n_bp) == n and (n + 7) // 8 * width > 4 * packed.numel()
+    in_rle = in_rle.numpy()
+    starts = hybrid_segments(in_rle, rle_break.numpy())
+    got = assemble_hybrid_device_stream(in_rle, starts, packed.numpy(), width, ())
+    assert got == encode_hybrid(values, width) == j_encode_hybrid(values, width)
 
 
 RLE_EDGE = rle_plan_edge_cases(P.RLE_PLAN_TILE, seed=31)

@@ -41,6 +41,7 @@ from parquet_tpu_torch.testing.parity import to_numpy  # noqa: E402
 from parquet_tpu_torch.testing.synth import (  # noqa: E402
     ColumnSpec,
     MixedBytesCase,
+    bss_pages_cases,
     column_values,
     mixed_bytes_args,
     mixed_bytes_edge_cases,
@@ -85,6 +86,49 @@ def test_bss_transpose_plain_matches_jax(n):
     want = np.asarray(jops.bss_transpose_device(jnp.asarray(streams), n))
     got = ops.bss_transpose(torch.from_numpy(streams), n)
     assert got.dtype == torch.int32 and got.numpy().view(np.uint32).tobytes() == want.tobytes()
+
+
+BSS_PAGES = bss_pages_cases(seed=15)
+
+
+@pytest.mark.parametrize("label,pages", BSS_PAGES, ids=[c[0] for c in BSS_PAGES])
+def test_bss_transpose_pages_plain_matches_jax(label, pages):
+    """A chunk's pages in one output, as the JAX pipeline builds it
+    (jnp.concatenate of bss_transpose_device per page): empty and short
+    pages, offsets that are not multiples of 4, more pages than one
+    launch's table and an unpadded page, bit for bit; each page alone
+    through bss_transpose too."""
+    want = np.asarray(jnp.concatenate(
+        [jops.bss_transpose_device(jnp.asarray(s), nv) for s, nv in pages]))
+    got = ops.bss_transpose_pages([(torch.from_numpy(s), nv) for s, nv in pages])
+    assert got.dtype == torch.int32 and got.numpy().view(np.uint32).tobytes() == want.tobytes()
+    for s, nv in pages[:5]:
+        want = np.asarray(jops.bss_transpose_device(jnp.asarray(s), nv))
+        assert ops.bss_transpose(torch.from_numpy(s), nv).numpy().tobytes() == want.tobytes()
+
+
+def test_bss_pages_per_launch_pinned_to_the_kernel():
+    """BSS_PAGES_PER_LAUNCH, by which the wrapper counts launches, is the
+    kernel's page table (kPages of bss_transpose.cu), and the edge cases
+    hold more pages than one table."""
+    import re
+
+    from parquet_tpu_torch.kernels import build
+
+    src = (build.CSRC / "bss_transpose.cu").read_text()
+    assert int(re.search(r"constexpr int kPages = (\d+);", src).group(1)) == \
+        ops.BSS_PAGES_PER_LAUNCH
+    assert max(len(pages) for _, pages in BSS_PAGES) > ops.BSS_PAGES_PER_LAUNCH
+
+
+def test_bss_transpose_pages_refuses_bad_pages():
+    s = torch.zeros((4, 1024), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="no pages"):
+        ops.bss_transpose_pages([])
+    with pytest.raises(ValueError, match="values in a stream"):
+        ops.bss_transpose_pages([(s, 5), (s, 1025)])
+    with pytest.raises(ValueError, match="uint8"):
+        ops.bss_transpose_pages([(s.view(torch.int32), 5)])
 
 
 def _pages(rng, layout, n_dict, bad=()):
