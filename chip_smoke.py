@@ -195,7 +195,18 @@ Phases (any failure raises and the script exits non-zero):
               rle_hybrid_encode also at trip_distance's page 0 (width 12)
               and bss_transpose also over taxi_mixed fare_amount's whole
               chunk of group 0 (its pages in one launch), each under
-              `shapes`.
+              `shapes`; and an A/B of the host library's value functions
+              against their Python oracles on row group 0 of the real
+              columns, each side's seconds printed and the outputs held
+              equal: the PLAIN byte-array gather on taxi's zone dictionary
+              page and taxi_mixed's zone PLAIN pages, the page-header parse
+              of taxi's row group 0, the hybrid prescan and decode of
+              vendor_id, the DELTA decode of pickup_us, the byte-array take
+              of zone's dictionary by the group's indices, and on write
+              group 0 zone's min/max, dictionary probe (whole and its first
+              20,000 rows) and PLAIN encode, trip_distance's numeric probe,
+              fare_cents' DELTA encode, passenger_count's def-level hybrid
+              encode and XXH64 of 20,000 zone keys.
 
 `python3 chip_smoke.py --ranks N` (N cards) runs only the multi-rank check:
 N NCCL ranks spawned through parquet_tpu_torch.testing.dist, one card a
@@ -207,7 +218,8 @@ distributed_column_stats over it. Its last line is the `{"ok": true, ...}`
 line with the card count.
 
 The last three lines of standard output are a JSON line of the end-to-end
-rates, the collectives' times and the card's name and power limit, the
+rates, the host value functions' A/B seconds, the collectives' times and the
+card's name and power limit, the
 `kernels` JSON line (21
 kernels) and the
 `{"ok": true, ...}` line. Without CUDA, or without the package beside it,
@@ -2309,6 +2321,181 @@ def prepare_alone(path, fused: bool, by_column: dict | None = None) -> float:
             os.environ["PQT_FUSED_PREPARE"] = old
 
 
+def value_pages(path, column: str):
+    """Row group 0's pages of one required column: (kind, header, value
+    stream, n) with kind "dict" or "data", the value stream decompressed and
+    past the levels (a required flat column has none)."""
+    from parquet_tpu_torch.core.chunk import iter_chunk_pages
+    from parquet_tpu_torch.core.compress import decompress_block
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.meta.parquet_types import PageType
+
+    out = []
+    with FileReader(path, device="cpu") as r:
+        cc = next(c for c in r.row_group(0).columns
+                  if c.meta_data.path_in_schema == [column])
+        codec = cc.meta_data.codec or 0
+        for raw in iter_chunk_pages(r._window(cc), cc):
+            h = raw.header
+            if h.type == int(PageType.DATA_PAGE_V2):
+                v2 = h.data_page_header_v2
+                skip = (v2.repetition_levels_byte_length or 0) + (
+                    v2.definition_levels_byte_length or 0)
+                block = raw.payload[skip:]
+                if v2.is_compressed is None or v2.is_compressed:
+                    block = decompress_block(block, codec, h.uncompressed_page_size - skip)
+                out.append(("data", h, bytes(block), v2.num_values))
+                continue
+            block = bytes(decompress_block(raw.payload, codec, h.uncompressed_page_size))
+            if h.type == int(PageType.DICTIONARY_PAGE):
+                out.append(("dict", h, block, h.dictionary_page_header.num_values))
+            else:
+                out.append(("data", h, block, h.data_page_header.num_values))
+    return out
+
+
+def header_walk(path, read) -> list:
+    """Every page header of row group 0's chunks, read with `read` (the
+    native `_read_page_header` or its oracle), statistics dropped as the
+    native parser drops them."""
+    from parquet_tpu_torch.core.chunk import chunk_byte_range
+    from parquet_tpu_torch.core.reader import FileReader
+
+    headers = []
+    with FileReader(path, device="cpu") as r:
+        for cc in r.row_group(0).columns:
+            f = r._window(cc)
+            off, total = chunk_byte_range(cc)
+            f.seek(off)
+            while f.tell() < off + total:
+                h = read(f)
+                for part in (h.data_page_header, h.data_page_header_v2):
+                    if part is not None:
+                        part.statistics = None
+                headers.append(repr(h))
+                f.seek(f.tell() + h.compressed_page_size)
+    return headers
+
+
+def ab_native_values(paths: dict, host_group: dict, taxi_specs) -> dict:
+    """Phase 5's A/B of the host value functions on row group 0 of the real
+    columns: each function of the port's host library (native/values.cc and
+    the parsers of native/prepare.cc) against its Python oracle, the seconds
+    of each side, the outputs held equal (an inequality fails the run)."""
+    from parquet_tpu_torch.core import chunk as tchunk
+    from parquet_tpu_torch.core.arrays import ByteArrayData
+    from parquet_tpu_torch.core.bloom import xxh64
+    from parquet_tpu_torch.core.column_store import (
+        DICT_MAX_UNIQUES,
+        _bytes_first_occurrence_dictionary,
+        _first_occurrence_dictionary,
+    )
+    from parquet_tpu_torch.core.stats import bytes_minmax_plain
+    from parquet_tpu_torch.meta.parquet_types import Encoding
+    from parquet_tpu_torch.meta.parquet_types import Type as T
+    from parquet_tpu_torch.ops import delta as tdelta
+    from parquet_tpu_torch.ops import plain as tplain
+    from parquet_tpu_torch.ops import rle_hybrid as thybrid
+    from parquet_tpu_torch.utils.native import get_native
+
+    lib = get_native()
+    out = {}
+
+    def same(a, b) -> bool:
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if a is None or b is None:
+            return a is None and b is None
+        if isinstance(a, ByteArrayData):
+            return same(a.offsets, b.offsets) and bytes(a.data) == bytes(b.data)
+        if isinstance(a, (bytes, memoryview)):
+            return bytes(a) == bytes(b)
+        if isinstance(a, (int, str)):
+            return a == b
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+    def ab(label, native, oracle):
+        t = time.perf_counter()
+        got = native()
+        native_s = time.perf_counter() - t
+        t = time.perf_counter()
+        want = oracle()
+        oracle_s = time.perf_counter() - t
+        if not same(got, want):
+            raise AssertionError(f"A/B {label}: the native function differs from its oracle")
+        out[label] = {"native_s": native_s, "oracle_s": oracle_s}
+        log(f"  A/B {label}: native {native_s:.4f} s, Python oracle {oracle_s:.4f} s "
+            f"({oracle_s / max(native_s, 1e-9):.1f}x), equal")
+
+    def gathered(pages):
+        return [tplain.decode_plain(b, n, T.BYTE_ARRAY) for _k, _h, b, n in pages]
+
+    def gathered_plain(pages):
+        return [tplain.byte_array_gather_plain(memoryview(b), n) for _k, _h, b, n in pages]
+
+    taxi, mixed = paths["taxi"][0], paths["taxi_mixed"][0]
+    zone_dict = [pg for pg in value_pages(taxi, "zone") if pg[0] == "dict"]
+    ab("byte_array_gather, taxi zone dictionary page", lambda: gathered(zone_dict),
+       lambda: gathered_plain(zone_dict))
+    mixed_plain = [pg for pg in value_pages(mixed, "zone")
+                   if pg[0] == "data" and pg[1].data_page_header.encoding == Encoding.PLAIN]
+    if not mixed_plain:
+        raise AssertionError("taxi_mixed zone: row group 0 has no PLAIN fallback page")
+    ab(f"byte_array_gather, taxi_mixed zone {len(mixed_plain)} PLAIN pages",
+       lambda: gathered(mixed_plain), lambda: gathered_plain(mixed_plain))
+    ab("parse_page_header, taxi row group 0", lambda: header_walk(taxi, tchunk._read_page_header),
+       lambda: header_walk(taxi, tchunk.read_page_header_plain))
+    vendor = [(b[1:], n, b[0]) for k, _h, b, n in value_pages(taxi, "vendor_id") if k == "data"]
+    ab("prescan_hybrid, taxi vendor_id pages",
+       lambda: [vars(thybrid.prescan_hybrid(b, n, w)) for b, n, w in vendor],
+       lambda: [vars(thybrid.prescan_hybrid_plain(b, n, w)) for b, n, w in vendor])
+    ab("hybrid_decode, taxi vendor_id pages",
+       lambda: [thybrid.decode_hybrid(b, n, w) for b, n, w in vendor],
+       lambda: [thybrid.decode_hybrid_plain(b, n, w) for b, n, w in vendor])
+    pickup = [(b, n) for k, _h, b, n in value_pages(taxi, "pickup_us") if k == "data"]
+    ab("delta_decode, taxi pickup_us pages",
+       lambda: [tdelta.decode_delta(b, 64, max_total=n) for b, n in pickup],
+       lambda: [tdelta.decode_delta_plain(b, 64, max_total=n) for b, n in pickup])
+    zspec = next(sp for sp in taxi_specs if sp.name == "zone")
+    idx = zspec.indices[:RG_ROWS].astype(np.int64)
+    ab("bytearray_take, zone dictionary by row group 0's indices",
+       lambda: zspec.dictionary.take(idx), lambda: zspec.dictionary.take_plain(idx))
+    zone = host_group["zone"]
+    ab("bytes_minmax, zone of write group 0", lambda: lib.bytes_minmax(zone.data, zone.offsets),
+       lambda: bytes_minmax_plain(zone))
+    ab("bytes_dict_indices, zone of write group 0",
+       lambda: lib.bytes_dict_indices(zone.data, zone.offsets, DICT_MAX_UNIQUES),
+       lambda: _bytes_first_occurrence_dictionary(zone))
+    few = ByteArrayData(offsets=zone.offsets[:20_001], data=zone.data)  # under the cutoff
+    ab("bytes_dict_indices, its first 20,000 rows",
+       lambda: lib.bytes_dict_indices(few.data, few.offsets, DICT_MAX_UNIQUES),
+       lambda: _bytes_first_occurrence_dictionary(few))
+    ab("plain_encode_bytearray, zone of write group 0",
+       lambda: tplain.encode_plain(zone, T.BYTE_ARRAY),
+       lambda: tplain.plain_encode_bytearray_plain(zone))
+    bits = host_group["trip_distance"].view(np.uint64)
+
+    def u64_probe():  # the oracle's first rows are int64 (np.unique's)
+        firsts, indices = lib.u64_dict_indices(bits, DICT_MAX_UNIQUES)
+        return firsts.astype(np.int64), indices
+
+    ab("u64_dict_indices, trip_distance of write group 0", u64_probe,
+       lambda: _first_occurrence_dictionary(bits))
+    fare = host_group["fare_cents"]
+    ab("delta_encode, fare_cents of write group 0", lambda: tdelta.encode_delta(fare, 32),
+       lambda: tdelta.encode_delta_plain(fare, 32))
+    levels = host_group["passenger_count"][1]
+    ab("hybrid_encode, passenger_count def levels of write group 0",
+       lambda: thybrid.encode_hybrid(levels, 1), lambda: thybrid.encode_hybrid_plain(levels, 1))
+    keys = zspec.dictionary.to_list()[:20_000]
+    ab("xxh64, 20,000 zone keys", lambda: [lib.xxh64(k) for k in keys],
+       lambda: [xxh64(k) for k in keys])
+    return out
+
+
 # -- phase 5: kernel times at the main path's shapes ----------------------------
 
 
@@ -3590,6 +3777,8 @@ def main(argv=None) -> int:
             prepare[f"{label} {walk} by column"] = split
             log("    by column (one more pass): " + ", ".join(
                 f"{c} {v:.3f} s" for c, v in sorted(split.items(), key=lambda kv: -kv[1])))
+    log("[native] the host value functions against their Python oracles, row group 0:")
+    native_ab = ab_native_values(paths, host_groups[0], taxi_specs)
     for label in paths:
         log(f"  profiler, {label}:")
         profile_device_read(paths[label][0])
@@ -3605,7 +3794,7 @@ def main(argv=None) -> int:
     host_file.unlink()
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
-    print(json.dumps({"rows_per_s": rates, "prepare_s": prepare,
+    print(json.dumps({"rows_per_s": rates, "prepare_s": prepare, "native_ab_s": native_ab,
                       "collectives": scan["collectives"], "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

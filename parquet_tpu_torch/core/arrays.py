@@ -31,23 +31,11 @@ class ByteArrayData:
     def __getitem__(self, i: int) -> bytes:
         return self.data[self.offsets[i] : self.offsets[i + 1]]
 
-    def to_list(self, cache: bool = False) -> list[bytes]:
-        """Per-value bytes. The write path asks repeatedly on the same chunk
-        (dictionary build, PLAIN encode, stats) and opts into memoization
-        with cache=True — those callers share one list and must not mutate
-        it (the writer wraps caller-owned arrays, so the cache never pins a
-        user object). cache=False always builds a fresh list: read-path
-        callers neither retain extra memory nor alias the shared one."""
-        if cache:
-            cached = getattr(self, "_list_cache", None)
-            if cached is not None:
-                return cached
+    def to_list(self) -> list[bytes]:
+        """Per-value bytes (a fresh list each call)."""
         o = self.offsets.tolist()
         d = self.data
-        out = [d[o[i] : o[i + 1]] for i in range(len(o) - 1)]
-        if cache:
-            self._list_cache = out
-        return out
+        return [d[o[i] : o[i + 1]] for i in range(len(o) - 1)]
 
     @classmethod
     def from_list(cls, items) -> "ByteArrayData":
@@ -57,13 +45,9 @@ class ByteArrayData:
         return cls(offsets=offsets, data=b"".join(items))
 
 
-    def take(self, indices: np.ndarray) -> "ByteArrayData":
-        """Gather rows by index (dictionary expansion), fully vectorized.
-
-        Builds one fancy-index over the source buffer: for output row k the
-        source positions are starts[k] + [0, len_k); expressed as
-        arange(total) - repeat(out_starts) + repeat(src_starts).
-        """
+    def _take_offsets(self, indices):
+        """(indices as int64, the taken rows' lengths, their new offsets),
+        after the range check."""
         indices = np.asarray(indices, dtype=np.int64)
         if len(indices) and (
             int(indices.min()) < 0 or int(indices.max()) >= len(self)
@@ -73,11 +57,32 @@ class ByteArrayData:
         lengths = (o[1:] - o[:-1])[indices]
         new_off = np.zeros(len(indices) + 1, dtype=np.int64)
         np.cumsum(lengths, out=new_off[1:])
+        return indices, lengths, new_off
+
+    def take(self, indices: np.ndarray) -> "ByteArrayData":
+        """Gather rows by index (dictionary expansion): the offsets by a
+        NumPy cumsum, the bytes by one native pass (ptq_bytearray_take).
+        `take_plain` is its oracle."""
+        indices, _lengths, new_off = self._take_offsets(indices)
+        total = int(new_off[-1])
+        if total == 0:
+            return ByteArrayData(offsets=new_off, data=b"")
+        from ..utils.native import get_native
+
+        data = get_native().bytearray_take(self.data, self.offsets, indices, new_off, total)
+        return ByteArrayData(offsets=new_off, data=data)
+
+    def take_plain(self, indices: np.ndarray) -> "ByteArrayData":
+        """`take` in NumPy alone, the oracle the tests hold the native take
+        against: one fancy-index over the source buffer; for output row k
+        the source positions are starts[k] + [0, len_k), expressed as
+        arange(total) - repeat(out_starts) + repeat(src_starts)."""
+        indices, lengths, new_off = self._take_offsets(indices)
         total = int(new_off[-1])
         if total == 0:
             return ByteArrayData(offsets=new_off, data=b"")
         src = np.frombuffer(self.data, dtype=np.uint8)
-        starts = o[:-1][indices]
+        starts = self.offsets[:-1][indices]
         gather = (
             np.arange(total, dtype=np.int64)
             - np.repeat(new_off[:-1], lengths)

@@ -9,11 +9,11 @@ its PLAIN-encoded bytes, the hash's top 32 bits pick the block, and the low
 high-cardinality columns — exactly where min/max statistics are useless —
 prune row groups whose filter proves the value absent.
 
-XXH64 is the pure-Python spec implementation only. The JAX module hashes
-through its native library when one is built; the port's host library
-(native/prepare.cc) carries no XXH64, and a probe hashes one value per
-predicate and row group, so nothing measurable is lost. Building and
-writing filters wait for the write slice.
+A probe hashes through the port's host library (ptq_xxh64 in
+native/values.cc), as the JAX module does through its own; the pure-Python
+`xxh64` below is the spec implementation the tests hold it against.
+Building and writing filters (and the batch hashes they use) wait for the
+write slice.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def _rotl(x: int, r: int) -> int:
 
 
 def xxh64(data: bytes, seed: int = 0) -> int:
-    """Pure-Python XXH64 (the spec implementation)."""
+    """Pure-Python XXH64 (the spec implementation): the oracle of ptq_xxh64."""
     p, end = 0, len(data)
     if end >= 32:
         vs = [
@@ -139,14 +139,17 @@ class BloomFilter:
         raw = plain_bytes_for_hash(ptype, value, unsigned)
         if raw is None:
             return True
-        if self.might_contain_hash(xxh64(raw)):
+        from ..utils.native import get_native
+
+        lib = get_native()
+        if self.might_contain_hash(lib.xxh64(raw)):
             return True
         if ptype in (Type.FLOAT, Type.DOUBLE) and value == 0.0:
             # writers that normalize -0.0 -> +0.0 insert +0.0, but FOREIGN
             # writers may have inserted the raw -0.0 bit pattern; 0.0 ==
             # -0.0, so the probe must admit either before claiming absence
             neg = struct.pack("<f" if ptype == Type.FLOAT else "<d", -0.0)
-            return self.might_contain_hash(xxh64(neg))
+            return self.might_contain_hash(lib.xxh64(neg))
         return False
 
     @classmethod

@@ -7,11 +7,15 @@ A copy of parquet_tpu/core/column_store.py, cut to the columnar half of
 (`_from_arrow`) are left out, and so is the conversion of row-domain objects
 (datetime, Decimal) to storage: the port has no host row assembly yet.
 
-The JAX module probes dictionaries through its native library (a C hash
-probe in first-occurrence order); here the numeric probe is NumPy
-(`np.unique` of the bit patterns, the uniques ranked by first occurrence)
-and the byte-array and string probes are Python dict loops, so the
-dictionary order, the indices and every page byte equal the JAX writer's.
+Dictionaries are probed as the JAX module probes them: one C hash probe of
+the port's host library in first-occurrence order, over the byte-array
+column's (offsets, data) (ptq_bytes_dict_indices) or the numeric column's
+bit patterns (ptq_u64_dict_indices), each stopping past the cutoff. Their
+oracles are a Python dict loop (`_bytes_first_occurrence_dictionary`) and
+NumPy (`_first_occurrence_dictionary`: `np.unique` of the bit patterns, the
+uniques ranked by first occurrence). The str-domain probe of
+`fast_dictionary` stays a Python dict loop. The dictionary order, the
+indices and every page byte equal the JAX writer's.
 
 Defaults carried from the reference: 1 MiB max page size (data_store.go:149-154),
 dictionary cutoff 32767 uniques (chunk_writer.go:188-200, type_dict.go:101-103).
@@ -63,6 +67,26 @@ def _first_occurrence_dictionary(bits: np.ndarray):
     rank = np.empty(len(order), dtype=np.uint32)
     rank[order] = np.arange(len(order), dtype=np.uint32)
     return first[order], rank[inverse.reshape(-1)]
+
+
+def _bytes_first_occurrence_dictionary(typed: ByteArrayData):
+    """(firsts, indices) of a byte-array column's first-occurrence
+    dictionary by a Python dict loop, or None past DICT_MAX_UNIQUES: the
+    oracle the tests hold ptq_bytes_dict_indices against."""
+    uniq: dict[bytes, int] = {}
+    firsts: list[int] = []
+    indices = np.empty(len(typed), dtype=np.uint32)
+    uniq_get = uniq.get
+    for i, key in enumerate(typed.to_list()):
+        idx = uniq_get(key)
+        if idx is None:
+            idx = len(uniq)
+            if idx >= DICT_MAX_UNIQUES:
+                return None
+            uniq[key] = idx
+            firsts.append(i)
+        indices[i] = idx
+    return np.array(firsts, dtype=np.uint32), indices
 
 
 class ColumnChunkBuilder:
@@ -142,10 +166,7 @@ class ColumnChunkBuilder:
             return np.asarray(v, dtype=bool)
         if ptype == Type.BYTE_ARRAY:
             if isinstance(v, ByteArrayData):
-                # shallow wrapper sharing offsets/data: the write path's
-                # to_list(cache=True) memo then lives on the writer's copy,
-                # never pinning a caller-owned array
-                return ByteArrayData(offsets=v.offsets, data=v.data)
+                return v
             return ByteArrayData.from_list([self._to_bytes(x) for x in v])
         if isinstance(v, (list, tuple)) and (not v or isinstance(v[0], bytes)):
             width = 12 if ptype == Type.INT96 else (self.column.type_length or 0)
@@ -223,31 +244,28 @@ class ColumnChunkBuilder:
         n = len(typed)
         if n == 0:
             return None
+        from ..utils.native import get_native
+
         if isinstance(typed, ByteArrayData):
-            # a dict probe over the values in row order beats np.unique on
-            # object arrays: hashing short bytes is cheaper than compares
-            uniq: dict[bytes, int] = {}
-            indices = np.empty(n, dtype=np.uint32)
-            uniq_get = uniq.get
-            for i, key in enumerate(typed.to_list(cache=True)):
-                idx = uniq_get(key)
-                if idx is None:
-                    idx = len(uniq)
-                    if idx >= DICT_MAX_UNIQUES:
-                        return None
-                    uniq[key] = idx
-                indices[i] = idx
-            dict_values = ByteArrayData.from_list(list(uniq.keys()))
+            # C hash probe straight over (offsets, data): no Python object
+            # per value
+            res = get_native().bytes_dict_indices(typed.data, typed.offsets, DICT_MAX_UNIQUES)
+            if res is None:
+                return None  # more uniques than the cutoff: dict never pays
+            firsts, indices = res
+            dict_values = typed.take(firsts.astype(np.int64))
             plain_size = len(typed.data) + 4 * n
-            dict_size = len(dict_values.data) + 4 * len(uniq) + n * 4
+            dict_size = len(dict_values.data) + 4 * len(firsts) + n * 4
         elif isinstance(typed, np.ndarray) and typed.ndim == 1 and ptype != Type.BOOLEAN:
             # Bit-pattern uniqueness so NaN payloads dedup correctly
-            # (reference CHANGELOG.md:31 NaN-in-dict fix).
+            # (reference CHANGELOG.md:31 NaN-in-dict fix). The C probe exits
+            # early past the cutoff: no sort of a high-cardinality column.
             bits = typed.view(np.uint32 if typed.itemsize == 4 else np.uint64)
-            firsts, indices = _first_occurrence_dictionary(bits)
-            if len(firsts) > DICT_MAX_UNIQUES:
+            res = get_native().u64_dict_indices(bits, DICT_MAX_UNIQUES)
+            if res is None:
                 return None
-            dict_values = typed[firsts]
+            firsts, indices = res
+            dict_values = typed[firsts.astype(np.int64)]
             width = max(int(len(firsts) - 1).bit_length(), 1)
             plain_size = typed.nbytes
             dict_size = dict_values.nbytes + (n * width) // 8

@@ -3,11 +3,11 @@
 A copy of parquet_tpu/core/stats.py, cut to what the port uses:
 `column_is_unsigned` (the filters decode statistics with it) and
 `compute_statistics` (testing/synth.py writes each chunk's statistics with
-it, so its files prune as the JAX writer's do). The JAX module's native
-byte-array min/max scan is left out: byte arrays take its Python fallback,
-with the same result. Written into both the legacy (min/max) and modern
-(min_value/max_value) Statistics fields, matching what current writers emit
-for TypeDefinedOrder columns.
+it, so its files prune as the JAX writer's do). A byte-array column's
+min/max is one scan of the port's host library (ptq_bytes_minmax), as the
+JAX module's is; `bytes_minmax_plain` is its oracle. Written into both the
+legacy (min/max) and modern (min_value/max_value) Statistics fields,
+matching what current writers emit for TypeDefinedOrder columns.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import numpy as np
 from ..meta.parquet_types import ConvertedType, Statistics, Type
 from .arrays import ByteArrayData
 
-__all__ = ["compute_statistics", "column_is_unsigned"]
+__all__ = ["compute_statistics", "column_is_unsigned", "bytes_minmax_plain"]
 
 _PACK = {
     Type.INT32: struct.Struct("<i"),
@@ -100,13 +100,19 @@ def compute_statistics(
         st.max_value = bytes([int(arr.max())])
     elif ptype in (Type.BYTE_ARRAY, Type.FIXED_LEN_BYTE_ARRAY):
         if isinstance(values, ByteArrayData):
-            items = values.to_list(cache=True)
-        elif isinstance(values, np.ndarray) and values.ndim == 2:
-            items = [v.tobytes() for v in values]
+            from ..utils.native import get_native
+
+            # one C scan over (offsets, data), no Python object per value;
+            # bytes_minmax_plain is its oracle
+            i_mn, i_mx = get_native().bytes_minmax(values.data, values.offsets)
+            mn, mx = values[i_mn], values[i_mx]
         else:
-            items = [bytes(v) for v in values]
-        mn = min(items)
-        mx = max(items)
+            if isinstance(values, np.ndarray) and values.ndim == 2:
+                items = [v.tobytes() for v in values]
+            else:
+                items = [bytes(v) for v in values]
+            mn = min(items)
+            mx = max(items)
         st.min_value, exact_min = _truncate_min(mn)
         st.max_value, exact_max = _truncate_max(mx)
         if not (exact_min and exact_max):
@@ -122,6 +128,15 @@ def compute_statistics(
     st.min = st.min_value
     st.max = st.max_value
     return st
+
+
+def bytes_minmax_plain(values: ByteArrayData) -> tuple[int, int]:
+    """(row of the lexicographic min, row of the max), each the first such
+    row, by Python comparisons: the oracle the tests hold ptq_bytes_minmax
+    against."""
+    items = values.to_list()
+    rows = range(len(items))
+    return min(rows, key=items.__getitem__), max(rows, key=items.__getitem__)
 
 
 def _truncate_min(raw: bytes):

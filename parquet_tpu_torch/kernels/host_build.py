@@ -1,7 +1,10 @@
-"""Build and load the port's host library (the native prepare walk).
+"""Build and load the port's host library (the native prepare walk and the
+host value functions).
 
-`parquet_tpu_torch/native/prepare.cc` compiles with `g++ -O3 -fPIC
--std=c++17 -shared ... -lz` into `build/parquet_tpu_torch/host-<key>/` at
+`parquet_tpu_torch/native/prepare.cc` (the chunk walk and codecs) and
+`values.cc` (the host value functions), with the headers `prepare.h` and
+`bits.h`, compile in one `g++ -O3 -fPIC -std=c++17 -shared ... -lz` into
+`build/parquet_tpu_torch/host-<key>/` at
 the repository root (listed in .gitignore), keyed by a hash of the sources
 and the flags, under the same lock scheme as the CUDA library
 (kernels/build.py). It needs a C++ compiler and zlib, and no card: the CPU
@@ -26,7 +29,8 @@ from .build import BUILD_ROOT
 __all__ = ["HostBuildError", "load"]
 
 NATIVE = Path(__file__).resolve().parents[1] / "native"
-SOURCES = ("prepare.cc", "prepare.h")
+SOURCES = ("prepare.cc", "values.cc", "prepare.h", "bits.h")
+CXX_SOURCES = ("prepare.cc", "values.cc")
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 LIB_NAME = "libpqt_host.so"
 
@@ -56,7 +60,7 @@ def _key() -> str:
 
 def _build(out_dir: Path) -> None:
     tmp = out_dir / (LIB_NAME + ".tmp")
-    cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp), str(NATIVE / "prepare.cc"), "-lz"]
+    cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp), *(str(NATIVE / n) for n in CXX_SOURCES), "-lz"]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     if proc.returncode != 0:
         raise HostBuildError(

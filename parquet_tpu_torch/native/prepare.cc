@@ -6,10 +6,13 @@
 // (raw and hadoop-framed) block codecs, the hybrid and delta prescans, the
 // compact-Thrift page-header parser, gzip inflate, level decode, the
 // whole-chunk walk ptq_chunk_prepare, and the DELTA_BINARY_PACKED encoder the
-// PLAIN->delta transfer repack uses. The encode walk, bloom filters, xxhash
-// and the dictionary probes are left out. The ABI (prepare.h) and the
-// PTQ_E_* / PTQ_STAGE_* codes are identical to the original, so the two
-// walks' tables compare field by field.
+// PLAIN->delta transfer repack uses. The host value functions (byte-array
+// gather, take and encode, hybrid and delta decode, hybrid encode, XXH64,
+// the statistics and dictionary probes) are in values.cc, linked into the
+// same library; the bit reader/writer and varints both use are in bits.h.
+// The encode walk and the bloom batch hashes are left out. The ABI
+// (prepare.h) and the PTQ_E_* / PTQ_STAGE_* codes are identical to the
+// original, so the two walks' tables compare field by field.
 //
 // Built at first use with g++ -O3 -fPIC -std=c++17 -shared ... -lz by
 // parquet_tpu_torch/kernels/host_build.py and loaded with ctypes
@@ -24,6 +27,7 @@
 #include <sys/types.h>  // ssize_t
 #include <zlib.h>       // gzip pages in the whole-chunk prepare walk
 
+#include "bits.h"     // bit reader/writer and varints (shared with values.cc)
 #include "prepare.h"  // shared ptq_chunk_prepare prototype
 
 extern "C" {
@@ -566,62 +570,6 @@ ssize_t ptq_prescan_hybrid(const uint8_t* src, size_t src_len, int64_t num_value
   }
   *consumed = static_cast<int64_t>(pos);
   return static_cast<ssize_t>(runs);
-}
-
-// ---------------------------------------------------------------------------
-// bit-stream reader (LSB-first, parquet bit-packed order)
-// ---------------------------------------------------------------------------
-
-struct BitReader {
-  const uint8_t* src;
-  size_t len;
-  size_t pos;     // next byte
-  uint64_t buf;   // pending bits, LSB first
-  int bits;       // number of pending bits
-};
-
-static inline void br_init(BitReader* r, const uint8_t* src, size_t len) {
-  r->src = src; r->len = len; r->pos = 0; r->buf = 0; r->bits = 0;
-}
-
-// Reads `w` bits (0 <= w <= 64). Caller guarantees the underlying payload is
-// in bounds (all call sites bounds-check the whole run/miniblock first).
-static inline uint64_t br_read(BitReader* r, int w) {
-  uint64_t v = 0;
-  int got = 0;
-  while (got < w) {
-    if (r->bits == 0) {
-      r->buf = r->src[r->pos++];
-      r->bits = 8;
-    }
-    int take = w - got;
-    if (take > r->bits) take = r->bits;
-    v |= (r->buf & ((take == 64) ? ~0ull : ((1ull << take) - 1))) << got;
-    r->buf >>= take;
-    r->bits -= take;
-    got += take;
-  }
-  return v;
-}
-
-// ---------------------------------------------------------------------------
-// DELTA_BINARY_PACKED decode (header walk + miniblock unpack + wrapping cumsum)
-// ---------------------------------------------------------------------------
-
-static inline bool read_uvarint64(const uint8_t* src, size_t src_len, size_t* pos,
-                                  uint64_t* out) {
-  uint64_t v = 0;
-  int shift = 0;
-  for (;;) {
-    if (*pos >= src_len || shift > 63) return false;
-    uint8_t b = src[(*pos)++];
-    if (shift == 63 && (b & 0x7e)) return false;  // overflows uint64
-    v |= static_cast<uint64_t>(b & 0x7f) << shift;
-    if (!(b & 0x80)) break;
-    shift += 7;
-  }
-  *out = v;
-  return true;
 }
 
 // ---------------------------------------------------------------------------
@@ -1565,61 +1513,6 @@ ssize_t ptq_chunk_prepare(
 // DELTA_BINARY_PACKED encoder (the PLAIN->delta transfer repack). Byte-
 // identical to the NumPy reference encoder in ops/delta.py.
 // ---------------------------------------------------------------------------
-
-namespace {
-
-inline bool put_uvarint(uint8_t* out, size_t cap, size_t* pos, uint64_t v) {
-  while (v >= 0x80) {
-    if (*pos >= cap) return false;
-    out[(*pos)++] = static_cast<uint8_t>(v | 0x80);
-    v >>= 7;
-  }
-  if (*pos >= cap) return false;
-  out[(*pos)++] = static_cast<uint8_t>(v);
-  return true;
-}
-
-inline bool put_zigzag(uint8_t* out, size_t cap, size_t* pos, int64_t v) {
-  uint64_t u = (static_cast<uint64_t>(v) << 1) ^ static_cast<uint64_t>(v >> 63);
-  return put_uvarint(out, cap, pos, u);
-}
-
-struct BitWriter {
-  uint8_t* out;
-  size_t cap;
-  size_t pos;
-  unsigned __int128 acc;
-  int nbits;
-};
-
-inline void bw_init(BitWriter* w, uint8_t* out, size_t cap, size_t pos) {
-  w->out = out; w->cap = cap; w->pos = pos; w->acc = 0; w->nbits = 0;
-}
-
-inline bool bw_push(BitWriter* w, uint64_t v, int width) {
-  w->acc |= static_cast<unsigned __int128>(v) << w->nbits;
-  w->nbits += width;
-  while (w->nbits >= 8) {
-    if (w->pos >= w->cap) return false;
-    w->out[w->pos++] = static_cast<uint8_t>(w->acc);
-    w->acc >>= 8;
-    w->nbits -= 8;
-  }
-  return true;
-}
-
-inline bool bw_flush(BitWriter* w) {
-  if (w->nbits > 0) {
-    if (w->pos >= w->cap) return false;
-    w->out[w->pos++] = static_cast<uint8_t>(w->acc);
-    w->acc = 0;
-    w->nbits = 0;
-  }
-  return true;
-}
-
-}  // namespace
-
 
 // DELTA_BINARY_PACKED encode (mirrors ops/delta.py encode_delta
 // byte-for-byte, including wrapping min-delta arithmetic and zero-width

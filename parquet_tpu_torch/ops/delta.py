@@ -36,7 +36,9 @@ from .varint import emit_uvarint as _emit_uvarint_impl, emit_zigzag as _emit_zig
 __all__ = [
     "DeltaError",
     "decode_delta",
+    "decode_delta_plain",
     "encode_delta",
+    "encode_delta_plain",
     "prescan_delta",
     "prescan_delta_packed",
     "DeltaTable",
@@ -247,12 +249,28 @@ def prescan_delta_packed(data, nbits: int, max_total: int | None = None) -> Delt
 
 
 def decode_delta(data, nbits: int, max_total: int | None = None) -> tuple[np.ndarray, int]:
-    """Decode a full DELTA_BINARY_PACKED stream.
+    """Decode a full DELTA_BINARY_PACKED stream in one native pass
+    (ptq_delta_decode, after ptq_delta_peek_total sizes the output).
 
     Returns (values as int32/int64 ndarray, bytes consumed). The count comes
     from the stream header; `max_total` (the page/chunk value count) bounds it
-    before allocation.
+    before allocation. `decode_delta_plain` is its oracle.
     """
+    if nbits not in (32, 64):
+        raise DeltaError(f"delta: unsupported type width {nbits}")
+    from ..utils.native import get_native
+
+    try:
+        return get_native().delta_decode(data, nbits, max_total)
+    except OverflowError as e:
+        raise DeltaError(f"delta: {e}") from e
+    except ValueError as e:
+        raise DeltaError(f"delta: {e}") from e
+
+
+def decode_delta_plain(data, nbits: int, max_total: int | None = None) -> tuple[np.ndarray, int]:
+    """`decode_delta` as the Python prescan and one wrapping NumPy cumsum:
+    the oracle the tests hold the native decode against."""
     t = prescan_delta(data, nbits, max_total)
     if nbits == 32:
         seq = np.empty(t.total, dtype=np.uint32)
@@ -277,7 +295,28 @@ def encode_delta(
     block_size: int = DEFAULT_BLOCK_SIZE,
     mini_count: int = DEFAULT_MINIBLOCKS,
 ) -> bytes:
-    """Encode int32/int64 values as DELTA_BINARY_PACKED."""
+    """Encode int32/int64 values as DELTA_BINARY_PACKED in one native pass
+    (ptq_delta_encode), byte-identical to `encode_delta_plain`, its oracle.
+    A block shape no decoder takes (more than 512 miniblocks, miniblocks
+    not a multiple of 8 values) raises DeltaError."""
+    if nbits not in (32, 64):
+        raise DeltaError(f"delta: unsupported type width {nbits}")
+    from ..utils.native import get_native
+
+    try:
+        return get_native().delta_encode(values, nbits, block_size, mini_count)
+    except ValueError as e:
+        raise DeltaError(f"delta: {e} (block size {block_size}, {mini_count} miniblocks)") from e
+
+
+def encode_delta_plain(
+    values,
+    nbits: int,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    mini_count: int = DEFAULT_MINIBLOCKS,
+) -> bytes:
+    """`encode_delta` in NumPy and a Python loop over the blocks: the oracle
+    the tests hold the native encoder against."""
     if nbits not in (32, 64):
         raise DeltaError(f"delta: unsupported type width {nbits}")
     mask = (1 << nbits) - 1

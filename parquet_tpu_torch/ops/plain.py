@@ -14,7 +14,13 @@ import numpy as np
 from ..meta.parquet_types import Type
 from ..core.arrays import ByteArrayData
 
-__all__ = ["decode_plain", "encode_plain", "PlainError"]
+__all__ = [
+    "decode_plain",
+    "encode_plain",
+    "PlainError",
+    "byte_array_gather_plain",
+    "plain_encode_bytearray_plain",
+]
 
 
 class PlainError(ValueError):
@@ -75,7 +81,20 @@ def decode_plain(data, num_values: int, ptype: Type, type_length: int | None = N
 
 def _decode_plain_byte_array(buf: memoryview, num_values: int):
     # Inline 4-byte LE length before each value (reference: type_bytearray.go:24-45).
-    # The offset chain is data-dependent: a sequential walk.
+    # The offset chain is data-dependent: one native walk at memcpy speed
+    # (ptq_byte_array_gather); byte_array_gather_plain is its oracle.
+    from ..utils.native import get_native
+
+    try:
+        offsets, flat, consumed = get_native().byte_array_gather(buf, num_values)
+    except ValueError as e:
+        raise PlainError(str(e)) from e
+    return ByteArrayData(offsets=offsets, data=flat), consumed
+
+
+def byte_array_gather_plain(buf, num_values: int):
+    """The PLAIN byte-array decode as a Python walk: the oracle the tests
+    hold ptq_byte_array_gather against. Returns (ByteArrayData, consumed)."""
     end = len(buf)
     offsets = np.empty(num_values + 1, dtype=np.int64)
     offsets[0] = 0
@@ -115,13 +134,25 @@ def encode_plain(values, ptype: Type, type_length: int | None = None) -> bytes:
             raise PlainError("plain: fixed-len width mismatch")
         return v.tobytes()
     if ptype == Type.BYTE_ARRAY:
-        if isinstance(values, ByteArrayData):
-            items = values.to_list(cache=True)
-        else:
-            items = [bytes(x) for x in values]
-        out = bytearray()
-        for item in items:
-            out += len(item).to_bytes(4, "little")
-            out += item
-        return bytes(out)
+        from ..utils.native import get_native
+
+        if not isinstance(values, ByteArrayData):
+            values = ByteArrayData.from_list([bytes(x) for x in values])
+        # one C pass over (offsets, data): the write path's hot loop for
+        # string chunks; plain_encode_bytearray_plain is its oracle
+        return get_native().plain_encode_bytearray(values.data, values.offsets)
     raise PlainError(f"plain: unsupported type {ptype}")
+
+
+def plain_encode_bytearray_plain(values) -> bytes:
+    """The PLAIN byte-array encode as a Python loop over the items: the
+    oracle the tests hold ptq_plain_encode_bytearray against."""
+    if isinstance(values, ByteArrayData):
+        items = values.to_list()
+    else:
+        items = [bytes(x) for x in values]
+    out = bytearray()
+    for item in items:
+        out += len(item).to_bytes(4, "little")
+        out += item
+    return bytes(out)

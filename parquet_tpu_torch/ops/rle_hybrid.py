@@ -22,6 +22,11 @@ Encoding: unlike the reference, which only ever emits bit-packed runs
 (reference: hybrid_encoder.go:55-70, README.md:42), `encode_hybrid` emits RLE
 runs for 8-aligned stretches of repeated values — strictly smaller output for
 level streams and low-cardinality dictionaries, still spec-conformant.
+
+On the host the prescan, the one-shot decode and the encode each run as one
+native pass of the port's host library (native/prepare.cc, native/values.cc);
+`prescan_hybrid_plain`, `decode_hybrid_plain` and `encode_hybrid_plain` are
+the Python versions the tests hold them against.
 """
 
 from __future__ import annotations
@@ -36,9 +41,12 @@ from .varint import emit_uvarint as _emit_uvarint, read_uvarint
 __all__ = [
     "RunTable",
     "prescan_hybrid",
+    "prescan_hybrid_plain",
     "decode_hybrid",
+    "decode_hybrid_plain",
     "expand_runs",
     "encode_hybrid",
+    "encode_hybrid_plain",
 ]
 
 
@@ -71,12 +79,57 @@ class RunTable:
 
 
 def prescan_hybrid(data, num_values: int, width: int) -> RunTable:
-    """Walk run headers until `num_values` values are covered.
+    """Walk run headers until `num_values` values are covered: one native
+    pass (ptq_prescan_hybrid), then the packed payloads compacted as the JAX
+    package compacts them. `prescan_hybrid_plain` is its oracle.
 
     Validates every count and payload size before accepting it, per the
     reference's validation-before-allocation discipline (reference:
     hybrid_decoder.go:126-129, SURVEY §5 failure handling).
     """
+    if width < 0 or width > 64:
+        raise HybridError(f"hybrid: invalid bit width {width}")
+    from ..utils.native import get_native
+
+    try:
+        is_rle, counts, values, offsets, consumed = get_native().prescan_hybrid(
+            data, num_values, width
+        )
+    except ValueError as e:
+        raise HybridError(f"hybrid: {e}") from e
+    # Compact the packed buffer to just the bit-packed payloads so device
+    # buffers sized by len(packed) don't scale with RLE-heavy streams.
+    new_offsets = np.zeros(len(counts), dtype=np.int64)
+    bp_idx = np.flatnonzero(~is_rle)
+    if len(bp_idx) == 0:
+        packed = b""
+    else:
+        nb = (counts[bp_idx] // 8) * width
+        offs = offsets[bp_idx]
+        if len(bp_idx) > 1:
+            new_offsets[bp_idx[1:]] = np.cumsum(nb[:-1])
+        if len(bp_idx) == 1 or bool(np.all(offs[1:] == offs[:-1] + nb[:-1])):
+            # payload regions are back-to-back (the no-RLE common case):
+            # one zero-copy slice of the input
+            mv = memoryview(data) if not isinstance(data, memoryview) else data
+            packed = mv[int(offs[0]) : int(offs[0] + nb.sum())]
+        else:
+            packed = b"".join(
+                data[o : o + n] for o, n in zip(offs.tolist(), nb.tolist())
+            )
+    return RunTable(
+        is_rle=is_rle,
+        counts=counts,
+        rle_values=values,
+        bp_offsets=new_offsets,
+        packed=packed,
+        consumed=consumed,
+    )
+
+
+def prescan_hybrid_plain(data, num_values: int, width: int) -> RunTable:
+    """`prescan_hybrid` as a Python walk over the run headers: the oracle the
+    tests hold the native prescan against."""
     if width < 0 or width > 64:
         raise HybridError(f"hybrid: invalid bit width {width}")
     buf = memoryview(data) if not isinstance(data, memoryview) else data
@@ -194,10 +247,34 @@ def expand_runs(table: RunTable, num_values: int, width: int, dtype=np.uint32) -
 
 
 def decode_hybrid(data, num_values: int, width: int, dtype=np.uint32) -> np.ndarray:
-    """One-shot host decode: prescan + expand."""
+    """One-shot host decode: one native pass (ptq_hybrid_decode) into 32- or
+    64-bit lanes, viewed or cast to `dtype`. `decode_hybrid_plain` is its
+    oracle."""
     if num_values == 0:
         return np.empty(0, dtype=dtype)
-    table = prescan_hybrid(data, num_values, width)
+    if width < 0 or width > 64:
+        raise HybridError(f"hybrid: invalid bit width {width}")
+    from ..utils.native import get_native
+
+    nbits = 32 if width <= 32 else 64
+    try:
+        out, _ = get_native().hybrid_decode(data, num_values, width, nbits)
+    except ValueError as e:
+        raise HybridError(f"hybrid: {e}") from e
+    want = np.dtype(dtype)
+    if want == out.dtype:
+        return out
+    if want.itemsize == out.dtype.itemsize:  # e.g. int32 view of uint32
+        return out.view(want)
+    return out.astype(want)
+
+
+def decode_hybrid_plain(data, num_values: int, width: int, dtype=np.uint32) -> np.ndarray:
+    """`decode_hybrid` as the Python prescan + the vectorized expansion: the
+    oracle the tests hold the native decode against."""
+    if num_values == 0:
+        return np.empty(0, dtype=dtype)
+    table = prescan_hybrid_plain(data, num_values, width)
     return expand_runs(table, num_values, width, dtype=dtype)
 
 
@@ -214,6 +291,26 @@ def encode_hybrid(values, width: int) -> bytes:
         return b""
     if width == 0:
         # Single RLE run covering everything; value occupies 0 bytes.
+        out = bytearray()
+        _emit_uvarint(out, n << 1)
+        return bytes(out)
+    if width < 0 or width > 64:
+        raise HybridError(f"hybrid: invalid bit width {width}")
+    from ..utils.native import get_native
+
+    # one native pass (ptq_hybrid_encode), byte-identical to
+    # encode_hybrid_plain: the write path's hottest loop
+    return get_native().hybrid_encode(v.astype(np.uint64, copy=False), width)
+
+
+def encode_hybrid_plain(values, width: int) -> bytes:
+    """`encode_hybrid` as a NumPy run split and a Python loop over the runs:
+    the oracle the tests hold the native encoder against."""
+    v = np.asarray(values)
+    n = len(v)
+    if n == 0:
+        return b""
+    if width == 0:
         out = bytearray()
         _emit_uvarint(out, n << 1)
         return bytes(out)

@@ -1,14 +1,20 @@
 """ctypes binding of the port's host library (parquet_tpu_torch/native/).
 
-A copy of parquet_tpu/utils/native.py cut down to what the fused prepare
-walk uses: the whole-chunk walk `chunk_prepare` with its per-thread buffer
-recycling, the snappy and LZ4 block codecs, the DELTA_BINARY_PACKED encoder
-and header prescan behind the PLAIN->delta transfer repack, and the walk's
-fault report (`PrepareFault`, `PREPARE_STAGES`, `PREPARE_E_*`).
+A copy of parquet_tpu/utils/native.py cut down to what the port calls: the
+whole-chunk walk `chunk_prepare` with its per-thread buffer recycling, the
+snappy and LZ4 block codecs, the DELTA_BINARY_PACKED encoder and header
+prescan behind the PLAIN->delta transfer repack, the walk's fault report
+(`PrepareFault`, `PREPARE_STAGES`, `PREPARE_E_*`), and the host value
+functions of native/values.cc and the parsers of native/prepare.cc that the
+host read and write paths call: the PLAIN byte-array gather and encode, the
+byte-array take, the hybrid prescan, decode and encode, the DELTA decode,
+the page-header parser, XXH64, the byte-array min/max and the dictionary
+probes. Each method keeps the original's signature, return convention and
+error text.
 
 The library is built on first use (kernels/host_build.py); `get_native()`
-raises HostBuildError when it cannot be built, so no codec or walk quietly
-gives way to a slower one.
+raises HostBuildError when it cannot be built, so no codec, walk or value
+function quietly gives way to a slower one.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ __all__ = [
     "PREPARE_E_CRC",
     "delta_encode_cap",
     "get_native",
+    "hybrid_encode_cap",
 ]
 
 # ptq_chunk_prepare err_info[0] stage codes (native/prepare.h PTQ_STAGE_*).
@@ -45,6 +52,13 @@ PREPARE_STAGES = {
 PREPARE_E_CORRUPT = -1
 PREPARE_E_CAPACITY = -5
 PREPARE_E_CRC = -6
+
+
+def hybrid_encode_cap(n: int, width: int) -> int:
+    """Worst-case hybrid RLE/bit-pack stream size for n values at `width`
+    bits: hybrid_encode's output buffer."""
+    vbytes = (width + 7) // 8
+    return 64 + (n // 8 + 2) * (5 + vbytes) + ((n + 7) // 8) * max(width, 1)
 
 
 def delta_encode_cap(
@@ -89,6 +103,7 @@ _SZ = ctypes.c_size_t
 _SSZ = ctypes.c_ssize_t
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_U64 = ctypes.c_uint64
 
 
 class NativeLib:
@@ -114,6 +129,34 @@ class NativeLib:
         lib.ptq_prescan_delta_packed.argtypes = [
             _P, _SZ, _I, _I64, _P, _P, _P, _P, _SZ, _P, _P, _P,
         ]
+        # the host value functions (native/values.cc) and the two parsers of
+        # native/prepare.cc the host paths call
+        lib.ptq_xxh64.restype = _U64
+        lib.ptq_xxh64.argtypes = [_P, _SZ, _U64]
+        lib.ptq_byte_array_gather.restype = _SSZ
+        lib.ptq_byte_array_gather.argtypes = [_P, _SZ, _I64, _P, _P, _SZ]
+        lib.ptq_hybrid_decode.restype = _SSZ
+        lib.ptq_hybrid_decode.argtypes = [_P, _SZ, _I64, _I, _P, _P]
+        lib.ptq_delta_decode.restype = _SSZ
+        lib.ptq_delta_decode.argtypes = [_P, _SZ, _I, _I64, _P, _P]
+        lib.ptq_delta_peek_total.restype = _SSZ
+        lib.ptq_delta_peek_total.argtypes = [_P, _SZ, _P]
+        lib.ptq_bytearray_take.restype = _SSZ
+        lib.ptq_bytearray_take.argtypes = [_P, _SZ, _P, _I64, _P, _I64, _P, _P, _SZ]
+        lib.ptq_plain_encode_bytearray.restype = _SSZ
+        lib.ptq_plain_encode_bytearray.argtypes = [_P, _SZ, _P, _I64, _P, _SZ]
+        lib.ptq_parse_page_header.restype = _SSZ
+        lib.ptq_parse_page_header.argtypes = [_P, _SZ, _P]
+        lib.ptq_prescan_hybrid.restype = _SSZ
+        lib.ptq_prescan_hybrid.argtypes = [_P, _SZ, _I64, _I, _P, _P, _P, _P, _SZ, _P]
+        lib.ptq_hybrid_encode.restype = _SSZ
+        lib.ptq_hybrid_encode.argtypes = [_P, _I64, _I, _P, _SZ]
+        lib.ptq_bytes_dict_indices.restype = _SSZ
+        lib.ptq_bytes_dict_indices.argtypes = [_P, _SZ, _P, _I64, _I64, _P, _P]
+        lib.ptq_bytes_minmax.restype = _SSZ
+        lib.ptq_bytes_minmax.argtypes = [_P, _SZ, _P, _I64, _P]
+        lib.ptq_u64_dict_indices.restype = _SSZ
+        lib.ptq_u64_dict_indices.argtypes = [_P, _I, _I64, _I64, _P, _P]
         lib.ptq_chunk_prepare.restype = _SSZ
         lib.ptq_chunk_prepare.argtypes = (
             [_P, _SZ]  # src
@@ -240,6 +283,211 @@ class NativeLib:
             int(total[0]),
             int(consumed[0]),
         )
+
+    # -- host value functions (native/values.cc) -------------------------------
+
+    def xxh64(self, data, seed: int = 0) -> int:
+        addr, n, _keep = _ptr(data)
+        return int(self._lib.ptq_xxh64(addr, n, seed))
+
+    def byte_array_gather(self, data, num_values: int):
+        """PLAIN byte_array scan: returns (offsets int64[n+1], flat bytes, consumed)."""
+        addr, n_in, _keep = _ptr(data)
+        offsets = np.empty(num_values + 1, dtype=np.int64)
+        out = ctypes.create_string_buffer(max(n_in, 1))
+        consumed = self._lib.ptq_byte_array_gather(
+            addr, n_in, num_values, offsets.ctypes.data_as(_P), out, n_in,
+        )
+        if consumed < 0:
+            raise ValueError("native: corrupt byte_array stream")
+        # single copy of exactly the payload (out.raw would copy the whole cap)
+        flat = ctypes.string_at(out, int(offsets[-1]))
+        return offsets, flat, int(consumed)
+
+    def hybrid_decode(self, data, num_values: int, width: int, nbits: int):
+        """One-shot hybrid RLE/bit-pack decode. Returns (values, consumed);
+        values is uint32 (nbits==32) or uint64 (nbits==64)."""
+        addr, n_in, _keep = _ptr(data)
+        out = np.empty(num_values, dtype=np.uint32 if nbits == 32 else np.uint64)
+        p = out.ctypes.data_as(_P)
+        consumed = self._lib.ptq_hybrid_decode(
+            addr, n_in, num_values, width,
+            p if nbits == 32 else None,
+            p if nbits == 64 else None,
+        )
+        if consumed < 0:
+            raise ValueError("native: corrupt hybrid stream")
+        return out, int(consumed)
+
+    def delta_decode(self, data, nbits: int, max_total: int | None):
+        """Full DELTA_BINARY_PACKED decode. Returns (int32/int64 values, consumed).
+        Raises OverflowError when the stream's count exceeds max_total."""
+        addr, n_in, _keep = _ptr(data)
+        total = np.zeros(1, dtype=np.int64)
+        if self._lib.ptq_delta_peek_total(addr, n_in, total.ctypes.data_as(_P)) < 0:
+            raise ValueError("native: corrupt delta header")
+        cap = int(total[0])
+        if max_total is not None and cap > max(max_total, 0):
+            raise OverflowError(
+                f"stream claims {cap} values, caller expects at most {max_total}"
+            )
+        out = np.empty(cap, dtype=np.int32 if nbits == 32 else np.int64)
+        # max_total already enforced above on the peeked count; the C-side
+        # bound (-3) is unreachable from here, so pass "no bound"
+        consumed = self._lib.ptq_delta_decode(
+            addr, n_in, nbits, -1, out.ctypes.data_as(_P), total.ctypes.data_as(_P),
+        )
+        if consumed < 0:
+            raise ValueError("native: corrupt delta stream")
+        return out, int(consumed)
+
+    def plain_encode_bytearray(self, data, offsets) -> bytes:
+        """(offsets, data) column -> PLAIN stream ([4B LE len][bytes] per
+        value) in one C pass."""
+        offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+        n = len(offsets) - 1
+        addr, n_in, _keep = _ptr(data)
+        cap = n_in + 4 * max(n, 0)
+        out = np.empty(max(cap, 1), dtype=np.uint8)
+        rc = self._lib.ptq_plain_encode_bytearray(
+            addr, n_in, offsets.ctypes.data_as(_P), n, ctypes.c_void_p(out.ctypes.data), cap,
+        )
+        if rc < 0:
+            raise ValueError("native: corrupt byte-array offsets")
+        return out[: int(rc)].tobytes()
+
+    def bytearray_take(self, data: bytes, offsets, indices, new_offsets, total: int) -> bytes:
+        """Gather rows of an (offsets, data) byte-array column by index."""
+        offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+        indices = np.ascontiguousarray(indices, dtype=np.int64)
+        new_offsets = np.ascontiguousarray(new_offsets, dtype=np.int64)
+        addr, n_in, _keep = _ptr(data)
+        out = ctypes.create_string_buffer(max(total, 1))
+        rc = self._lib.ptq_bytearray_take(
+            addr, n_in,
+            offsets.ctypes.data_as(_P), len(offsets) - 1,
+            indices.ctypes.data_as(_P), len(indices),
+            new_offsets.ctypes.data_as(_P), out, total,
+        )
+        if rc < 0:
+            raise ValueError("native: byte-array take index out of range")
+        return ctypes.string_at(out, total)
+
+    def prescan_hybrid(self, data, num_values: int, width: int):
+        """Run-header prescan: returns (is_rle, counts, values, bp_offsets, consumed)
+        with bp_offsets absolute into `data`."""
+        addr, n_in, _keep = _ptr(data)
+        max_runs = 4096
+        while True:
+            is_rle = np.empty(max_runs, dtype=np.uint8)
+            counts = np.empty(max_runs, dtype=np.int64)
+            values = np.empty(max_runs, dtype=np.uint64)
+            offsets = np.empty(max_runs, dtype=np.int64)
+            consumed = np.zeros(1, dtype=np.int64)
+            n = self._lib.ptq_prescan_hybrid(
+                addr, n_in, num_values, width,
+                is_rle.ctypes.data_as(_P), counts.ctypes.data_as(_P),
+                values.ctypes.data_as(_P), offsets.ctypes.data_as(_P),
+                max_runs, consumed.ctypes.data_as(_P),
+            )
+            if n == -2:
+                max_runs *= 8
+                continue
+            if n < 0:
+                raise ValueError("native: corrupt hybrid stream")
+            n = int(n)
+            return (
+                is_rle[:n].astype(bool),
+                counts[:n],
+                values[:n],
+                offsets[:n],
+                int(consumed[0]),
+            )
+
+    def hybrid_encode(self, values, width: int) -> bytes:
+        """RLE/bit-pack hybrid encode of a uint64 array (byte-identical to
+        ops/rle_hybrid.py encode_hybrid_plain)."""
+        v = np.ascontiguousarray(values, dtype=np.uint64)
+        n = len(v)
+        cap = hybrid_encode_cap(n, width)
+        out = np.empty(cap, dtype=np.uint8)
+        rc = self._lib.ptq_hybrid_encode(
+            ctypes.c_void_p(v.ctypes.data), n, width, ctypes.c_void_p(out.ctypes.data), cap,
+        )
+        if rc < 0:
+            raise ValueError(
+                f"native: hybrid encode failed ({'value too wide' if rc == -1 else 'capacity'})"
+            )
+        return out[: int(rc)].tobytes()
+
+    def bytes_dict_indices(self, data, offsets, max_uniques: int):
+        """Dictionary probe over an (offsets, data) byte-array column.
+        Returns (first_occurrence_rows uint32[U], indices uint32[n]) or None
+        when uniques exceed max_uniques."""
+        offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+        n = len(offsets) - 1
+        addr, data_len, _keep = _ptr(data)
+        indices = np.empty(max(n, 1), dtype=np.uint32)
+        firsts = np.empty(max_uniques + 2, dtype=np.uint32)
+        rc = self._lib.ptq_bytes_dict_indices(
+            addr, data_len, ctypes.c_void_p(offsets.ctypes.data), n, max_uniques,
+            ctypes.c_void_p(indices.ctypes.data), ctypes.c_void_p(firsts.ctypes.data),
+        )
+        if rc == -2:
+            return None
+        if rc < 0:
+            raise ValueError("native: byte-array dictionary probe failed")
+        return firsts[: int(rc)], indices[:n]
+
+    def bytes_minmax(self, data, offsets):
+        """(row of lexicographic min, row of max) over a byte-array column."""
+        offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+        n = len(offsets) - 1
+        addr, data_len, _keep = _ptr(data)
+        out = np.empty(2, dtype=np.int64)
+        rc = self._lib.ptq_bytes_minmax(
+            addr, data_len, ctypes.c_void_p(offsets.ctypes.data), n,
+            ctypes.c_void_p(out.ctypes.data),
+        )
+        if rc < 0:
+            raise ValueError("native: byte-array minmax failed")
+        return int(out[0]), int(out[1])
+
+    def u64_dict_indices(self, bits, max_uniques: int):
+        """Dictionary probe over uint32/uint64 bit patterns (probed in place,
+        no widening copy); early-exits past the unique cutoff. Returns
+        (first_rows, indices) or None over the cap."""
+        v = np.ascontiguousarray(bits)
+        if v.dtype not in (np.dtype(np.uint32), np.dtype(np.uint64)):
+            v = v.astype(np.uint64)
+        n = len(v)
+        indices = np.empty(max(n, 1), dtype=np.uint32)
+        firsts = np.empty(max_uniques + 2, dtype=np.uint32)
+        rc = self._lib.ptq_u64_dict_indices(
+            ctypes.c_void_p(v.ctypes.data), v.dtype.itemsize, n, max_uniques,
+            ctypes.c_void_p(indices.ctypes.data), ctypes.c_void_p(firsts.ctypes.data),
+        )
+        if rc == -2:
+            return None
+        if rc < 0:
+            raise ValueError("native: u64 dictionary probe failed")
+        return firsts[: int(rc)], indices[:n]
+
+    def parse_page_header(self, window: bytes):
+        """Parse one Thrift compact PageHeader from a peeked window.
+
+        Returns the 23-slot int64 array (see ptq_parse_page_header layout),
+        None when the window was too small (caller re-peeks larger), or
+        raises ValueError on structurally corrupt bytes (caller falls back
+        to the Python reader for its exact error)."""
+        addr, n_in, _keep = _ptr(window)
+        out = np.empty(23, dtype=np.int64)
+        rc = self._lib.ptq_parse_page_header(addr, n_in, out.ctypes.data_as(_P))
+        if rc == -2:
+            return None
+        if rc < 0:
+            raise ValueError("native: corrupt page header")
+        return out
 
     # -- the whole-chunk prepare walk ------------------------------------------
 
