@@ -94,7 +94,9 @@ Phases (any failure raises and the script exits non-zero):
               testing/synth.page_grid_edge_cases: n_out off its tile, runs
               shorter than a thread's outputs, more runs a tile than it
               stages, a page ending inside a tile, bit starts that wrap or
-              are negative, a first start above 0, is_rle 2);
+              are negative, a first start above 0, is_rle 2); every check
+              of this phase runs on the pqt-dispatch thread, under its own
+              stream, where the main paths launch the decode kernels;
   4. main     three 8,388,608-row files (8 row groups of 2**20 rows, ~1 MiB
               pages, chunk statistics, built from a seed with
               testing/synth.py), each decoded
@@ -162,7 +164,8 @@ Phases (any failure raises and the script exits non-zero):
               over the generator, groups 6 and 7 pruned under the filter,
               masked_agg, dict_gather and (filtered) mask_take launched;
               group_by vendor_id and sum(trip_distance) must decline typed
-              and counted;
+              and counted; the unfiltered query over shard=(k, 4), k =
+              0..3, must equal NumPy's over groups k and k + 4;
      scan     in an NCCL group of one rank (a file store): column_stats
               and distributed_column_stats over taxi's six numeric leaves
               (one stats scan's 18 one-element all_reduces timed alone and
@@ -173,6 +176,13 @@ Phases (any failure raises and the script exits non-zero):
               dictionary, the pages x cols step on a 1 x 1 DeviceMesh,
               train_step over iter_device_batches(sharding=the group)), all
               equal to NumPy;
+     dataset  data.ParquetDataset over taxi without zone (batch 100,000,
+              nullable="zero"): CUDA delivery (device_put_pipelined on the
+              dispatch thread) equal to CPU delivery batch for batch and to
+              the generator, a resume from state_dict() after 13 batches
+              (mid-unit) equal to the uninterrupted stream, shard=(k, 4) for
+              k = 0..3 covering every unit and row once, and both
+              deliveries' rows/s (medians of 3 after a warm-up);
   5. times    rows/s of the device reads and of the batch streams, filtered
               and not (the same call, both files), of the filtered read, of
               host decode + upload, of the device write against the host
@@ -206,7 +216,18 @@ Phases (any failure raises and the script exits non-zero):
               group 0 zone's min/max, dictionary probe (whole and its first
               20,000 rows) and PLAIN encode, trip_distance's numeric probe,
               fare_cents' DELTA encode, passenger_count's def-level hybrid
-              encode and XXH64 of 20,000 zone keys.
+              encode and XXH64 of 20,000 zone keys; then the one-call A/B of
+              the overlap layer ([overlap] lines, OVERLAP_VARIANTS: serial
+              prepare with PQT_HOST_THREADS=1, and the pqt-host pool):
+              read_row_groups_device of the
+              three files and the taxi batch stream, a warm-up and 3 rounds
+              each in rotating order, every read bit-equal to the
+              generator's columns, host prepare alone on one thread and on
+              the pool, os.cpu_count(); and a profiler window of one
+              pipelined taxi read (its Chrome trace: each H2D copy's kind
+              and stream, which must be Pinned and, for the plans' buffers,
+              the dispatch stream; the busy share; the copy time that
+              overlaps a kernel).
 
 `python3 chip_smoke.py --ranks N` (N cards) runs only the multi-rank check:
 N NCCL ranks spawned through parquet_tpu_torch.testing.dist, one card a
@@ -218,8 +239,9 @@ distributed_column_stats over it. Its last line is the `{"ok": true, ...}`
 line with the card count.
 
 The last three lines of standard output are a JSON line of the end-to-end
-rates, the host value functions' A/B seconds, the collectives' times and the
-card's name and power limit, the
+rates, the host value functions' A/B seconds, the collectives' times, the
+overlap A/B, profile and dataset rates, and the card's name and power
+limit, the
 `kernels` JSON line (21
 kernels) and the
 `{"ok": true, ...}` line. Without CUDA, or without the package beside it,
@@ -231,6 +253,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2793,12 +2816,12 @@ def query_aggregates():
 QUERY_COLUMNS = ("fare_cents", "pickup_us", "vendor_id", "passenger_count")
 
 
-def query_request(path, filters, aggregates=None, group_by=()):
+def query_request(path, filters, aggregates=None, group_by=(), shard=None):
     from parquet_tpu_torch.serve.protocol import QueryRequest
 
     return QueryRequest(paths=[str(path)], filters=filters,
                         aggregates=query_aggregates() if aggregates is None else aggregates,
-                        group_by=tuple(group_by), max_groups=10_000, shard=None,
+                        group_by=tuple(group_by), max_groups=10_000, shard=shard,
                         timeout_ms=None)
 
 
@@ -2822,10 +2845,10 @@ def query_want(specs, keep, groups: int) -> dict:
             "rows_scanned": groups * RG_ROWS, "rows_matched": int(keep.sum()), "result": result}
 
 
-def run_query(path, filters, device=None):
+def run_query(path, filters, device=None, shard=None):
     from parquet_tpu_torch.serve.aggregate import run_local_query
 
-    q = query_request(path, filters)
+    q = query_request(path, filters, shard=shard)
     return run_local_query(q.paths, q, device=device)
 
 
@@ -3298,6 +3321,417 @@ def check_ranks(world: int, backend: str = "nccl", device: str = "cuda") -> None
         "distributed_column_stats over the mesh equal NumPy's on every rank")
 
 
+# -- the overlap layer: serial against pipelined, in one call --------------------
+
+# (label, environment): prepare serially on the calling thread (dispatch
+# still on its thread), and prepare on the pqt-host pool
+OVERLAP_VARIANTS = (("serial", {"PQT_HOST_THREADS": "1"}), ("pipelined", {}))
+
+
+class env_set:
+    """Set (or, with None, unset) environment variables for a block."""
+
+    def __init__(self, **values):
+        self.values = values
+        self.saved: dict = {}
+
+    def __enter__(self):
+        for k, v in self.values.items():
+            self.saved[k] = os.environ.get(k)
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def variant_env(env: dict) -> env_set:
+    """A variant's environment, the other variants' knobs unset."""
+    knobs = {k: None for _, e in OVERLAP_VARIANTS for k in e}
+    knobs.update(env)
+    return env_set(**knobs)
+
+
+def groups_equal(a, b) -> bool:
+    """Two reads' [{path: DeviceColumn}] equal field by field, on the card."""
+    import torch
+
+    if len(a) != len(b):
+        return False
+    for ga, gb in zip(a, b):
+        if ga.keys() != gb.keys():
+            return False
+        for p in ga:
+            x, y = ga[p], gb[p]
+            if x.num_values != y.num_values:
+                return False
+            for f in ("values", "indices", "data", "offsets", "dict_data", "dict_offsets"):
+                u, v = getattr(x, f), getattr(y, f)
+                if (u is None) != (v is None):
+                    return False
+                if u is not None and f == "data" and x.offsets is not None:
+                    # a merged byte column's payload is sized to its bound:
+                    # the bytes past the last offset are unspecified
+                    end = int(x.offsets[-1])
+                    u, v = u[:end], v[:end]
+                if u is not None and not (u.dtype == v.dtype and u.shape == v.shape
+                                          and torch.equal(u, v)):
+                    return False
+            for f in ("def_levels", "rep_levels"):
+                u, v = getattr(x, f), getattr(y, f)
+                if (u is None) != (v is None) or (u is not None and not np.array_equal(u, v)):
+                    return False
+    return True
+
+
+def prepare_pooled(path) -> float:
+    """Seconds of host prepare alone over a whole file on the pqt-host pool
+    (every chunk submitted at once, nothing dispatched): the fused walk's
+    thread scaling, beside prepare_alone's one thread."""
+    from parquet_tpu_torch.core.reader import FileReader, _host_pool
+    from parquet_tpu_torch.kernels.pipeline import prepare_chunk_plan
+
+    pool = _host_pool()
+    t = time.perf_counter()
+    with FileReader(path, device="cpu") as r:
+        futs = [pool.submit(prepare_chunk_plan, r._window(cc), cc, column)
+                for i in range(r.num_row_groups) for _p, cc, column in r._selected_chunks(i)]
+        for f in futs:
+            f.result(timeout=600)
+    return time.perf_counter() - t
+
+
+def ratios(rates: dict) -> str:
+    """Each variant's rate over the serial one's."""
+    return ", ".join(f"{v} / serial {r / rates['serial']:.3f}" for v, r in rates.items()
+                     if v != "serial")
+
+
+def ab_overlap(paths: dict, taxi_batches, dev) -> dict:
+    """The one-call A/B of the overlap layer: read_row_groups_device of taxi,
+    taxi_mixed and sessions and the taxi batch stream under each of
+    OVERLAP_VARIANTS, a warm-up each, then 3 rounds in rotating order, each
+    read ending in torch.cuda.synchronize(). Every warm-up read is held
+    against the generator's columns and every timed read bit-equal to it on
+    the card; every batch stream's step totals equal the generator's. Also
+    host prepare alone, one thread against the pool, per file. Returns
+    {target: {variant: rows/s}} and the seconds behind them."""
+    import torch
+
+    from parquet_tpu_torch.core.reader import FileReader, _host_pool
+
+    n_rows = ROW_GROUPS * RG_ROWS
+    checks = {"taxi": (check_main_path, True), "taxi_mixed": (check_main_path, False),
+              "sessions": (check_sessions, True)}
+    out: dict = {"cpu_count": os.cpu_count(),
+                 "host_threads": getattr(_host_pool(), "_max_workers", 1)}
+    log(f"[overlap] host: os.cpu_count() = {os.cpu_count()}, pqt-host pool of "
+        f"{out['host_threads']} threads; variants: "
+        + "; ".join(f"{label} {env or '(defaults)'}" for label, env in OVERLAP_VARIANTS))
+    for label, (path, specs) in paths.items():
+        check, no_fallback = checks[label]
+        ref = None
+        secs: dict = {v: [] for v, _ in OVERLAP_VARIANTS}
+
+        def read():
+            r = FileReader(path)
+            groups = r.read_row_groups_device()
+            torch.cuda.synchronize()
+            return groups, r.stats
+
+        for v, env in OVERLAP_VARIANTS:
+            with variant_env(env):
+                groups, stats = read()
+            check(groups, specs, stats, no_fallback)
+            if ref is None:
+                ref = groups
+            elif not groups_equal(groups, ref):
+                raise AssertionError(f"[overlap] {label}, {v}: the read differs from the serial one")
+            del groups
+        for rnd in range(3):
+            k = rnd % len(OVERLAP_VARIANTS)
+            order = OVERLAP_VARIANTS[k:] + OVERLAP_VARIANTS[:k]
+            for v, env in order:
+                with variant_env(env):
+                    t = time.perf_counter()
+                    groups, _stats = read()
+                    secs[v].append(time.perf_counter() - t)
+                if not groups_equal(groups, ref):
+                    raise AssertionError(f"[overlap] {label}, {v}: a timed read differs")
+                del groups
+        del ref
+        rates = {v: n_rows / statistics.median(x) for v, x in secs.items()}
+        out[f"{label} read"] = {"rows_per_s": rates, "seconds": secs}
+        log(f"[overlap] {label} read_row_groups_device: " + ", ".join(
+            f"{v} {rates[v]:,.0f} rows/s (median of {[round(x, 3) for x in secs[v]]} s)"
+            for v in secs)
+            + "; " + ratios(rates) + "; every read bit-equal to the generator's columns")
+    path, kwargs, step, want = taxi_batches
+    secs = {v: [] for v, _ in OVERLAP_VARIANTS}
+    for rnd in range(4):
+        k = rnd % len(OVERLAP_VARIANTS)
+        order = OVERLAP_VARIANTS[k:] + OVERLAP_VARIANTS[:k]
+        for v, env in order:
+            with variant_env(env):
+                t = time.perf_counter()
+                got, _n = run_batches(path, kwargs, step)
+                dt = time.perf_counter() - t
+            if got != want:
+                raise AssertionError(f"[overlap] taxi batches, {v}: totals {got} != {want}")
+            if rnd:  # round 0 is the warm-up
+                secs[v].append(dt)
+    rates = {v: n_rows / statistics.median(x) for v, x in secs.items()}
+    out["taxi batches"] = {"rows_per_s": rates, "seconds": secs}
+    log("[overlap] taxi iter_device_batches: " + ", ".join(
+        f"{v} {rates[v]:,.0f} rows/s (median of {[round(x, 3) for x in secs[v]]} s)"
+        for v in secs) + "; " + ratios(rates) + "; every stream's step totals equal the "
+        "generator's")
+    for label, (path, _specs) in paths.items():
+        prepare_pooled(path)
+        one = statistics.median(prepare_alone(path, True) for _ in range(3))
+        pooled = statistics.median(prepare_pooled(path) for _ in range(3))
+        out[f"{label} prepare"] = {"one_thread_s": one, "pool_s": pooled}
+        log(f"[overlap] {label} host prepare alone (fused walk): one thread {one:.3f} s, "
+            f"pool {pooled:.3f} s (medians of 3), scaling {one / pooled:.2f}x on "
+            f"{out['host_threads']} threads")
+    return out
+
+
+def profile_overlap(path, dev) -> dict:
+    """torch.profiler over one pipelined read of `path`, read from its
+    Chrome trace: each H2D copy's kind (Pinned or Pageable -> Device) and
+    stream, the streams of the kernels (expand_hybrid and the DELTA decode
+    launch on the dispatch stream, dict_gather from device_column on the
+    caller's), the device's busy share of the wall time, and the copy time
+    that overlaps a kernel. Fails when the profiler recorded no kernel or
+    no H2D copy (the read makes both, so nothing would have been checked),
+    on an H2D copy that is not from pinned memory, when no H2D copy ran on
+    the dispatch stream, or when the dispatched kernels share the caller's
+    stream. Returns the summary."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from parquet_tpu_torch.core.reader import FileReader
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        FileReader(path).read_row_groups_device()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    with tempfile.TemporaryDirectory() as d:
+        trace = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text()).get("traceEvents", [])
+    dev_ev = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+    def stream(e):
+        return (e.get("args") or {}).get("stream")
+
+    def union(spans):
+        total = 0.0
+        end = None
+        for a, b in sorted(spans):
+            if end is None or a > end:
+                total += b - a
+                end = b
+            elif b > end:
+                total += b - end
+                end = b
+        return total
+
+    def intersect(xs, ys):
+        # total length of the union of xs that lies inside the union of ys
+        ys = sorted(ys)
+        merged = []
+        for a, b in ys:
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        total = 0.0
+        for a, b in xs:
+            for c, d in merged:
+                if d <= a:
+                    continue
+                if c >= b:
+                    break
+                total += min(b, d) - max(a, c)
+        return total
+
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in dev_ev]
+    h2d = [e for e in dev_ev if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
+    kernels = [e for e in dev_ev if e["cat"] == "kernel"]
+    if not kernels or not h2d:
+        raise AssertionError(
+            f"[overlap] the profiler recorded {len(kernels)} kernels and {len(h2d)} H2D copies "
+            f"in a read that makes both: the copies' kind and stream cannot be checked")
+    kinds = collections.Counter(e["name"] for e in h2d)
+    copy_streams = collections.Counter(stream(e) for e in h2d)
+    def short(name):
+        # "void (anonymous namespace)::expand<12>(unsigned int const*, ...)" -> "expand"
+        name = re.sub(r"^void\s+|\(anonymous namespace\)::", "", name)
+        return re.split(r"[<(]", name, maxsplit=1)[0][:40]
+
+    kernel_streams: dict = collections.defaultdict(collections.Counter)
+    for e in kernels:
+        kernel_streams[stream(e)][short(e["name"])] += 1
+    # expand_hybrid.cu's `expand` and delta_packed_decode.cu's `decode`
+    # (anonymous namespaces) launch from dispatch_device
+    dispatch_streams = {stream(e) for e in kernels
+                        if re.search(r"::(expand|decode)\b", e["name"])}
+    caller_streams = {stream(e) for e in kernels if "dict_gather" in e["name"]}
+    busy = union(spans)
+    copy_us = union([(e["ts"], e["ts"] + e["dur"]) for e in h2d])
+    overlap_us = intersect([(e["ts"], e["ts"] + e["dur"]) for e in h2d],
+                           [(e["ts"], e["ts"] + e["dur"]) for e in kernels])
+    on_dispatch = sum(c for s_, c in copy_streams.items() if s_ in dispatch_streams)
+    summary = {
+        "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "busy_share": busy / wall_us,
+        "h2d_copies": len(h2d), "h2d_kinds": dict(kinds), "h2d_ms": copy_us / 1e3,
+        "h2d_by_stream": {str(k): v for k, v in copy_streams.items()},
+        "h2d_on_dispatch_stream": on_dispatch,
+        "dispatch_streams": sorted(map(str, dispatch_streams)),
+        "caller_streams": sorted(map(str, caller_streams)),
+        "h2d_overlapping_kernels_ms": overlap_us / 1e3,
+    }
+    log(f"[overlap] profiler, pipelined read of {path.name}: device busy {busy / 1e3:.1f} ms of "
+        f"{wall_us / 1e3:.1f} ms wall ({100 * busy / wall_us:.2f} %); {len(h2d)} H2D copies "
+        f"({dict(kinds)}), {copy_us / 1e3:.1f} ms, by stream {dict(copy_streams)}, "
+        f"{on_dispatch} on the dispatch stream {sorted(map(str, dispatch_streams))} (the "
+        f"caller's: {sorted(map(str, caller_streams))}); H2D time overlapping a kernel "
+        f"{overlap_us / 1e3:.2f} ms")
+    for s_, names in sorted(kernel_streams.items(), key=lambda kv: str(kv[0])):
+        log(f"    stream {s_}: kernels {dict(names)}")
+    unpinned = [k for k in kinds if "Pinned" not in k]
+    if unpinned:
+        raise AssertionError(f"[overlap] H2D copies not from pinned memory on the pipelined "
+                             f"read: {unpinned}")
+    if not on_dispatch:
+        raise AssertionError(f"[overlap] no H2D copy on the dispatch stream "
+                             f"{sorted(map(str, dispatch_streams))}: copies by stream "
+                             f"{dict(copy_streams)}")
+    if not dispatch_streams or dispatch_streams & caller_streams:
+        raise AssertionError(f"[overlap] dispatched kernels on streams {dispatch_streams}, "
+                             f"device_column's on {caller_streams}: no stream of their own")
+    return summary
+
+
+DATASET_COLUMNS = ("trip_id", "vendor_id", "passenger_count", "pickup_us", "fare_cents",
+                   "trip_distance")
+
+
+def dataset_want(specs) -> dict:
+    """The generator's taxi columns without zone as the dataset delivers
+    them (nullable="zero": a null passenger_count reads 0)."""
+    from parquet_tpu_torch.testing.synth import column_values
+
+    s = {sp.name: sp for sp in specs}
+    out = {}
+    for c in DATASET_COLUMNS:
+        if s[c].valid is not None:
+            v = np.zeros(len(s[c].valid), np.int32)
+            v[s[c].valid] = s[c].dictionary[s[c].indices]
+            out[c] = v
+        else:
+            out[c] = np.asarray(column_values(s[c]))
+    return out
+
+
+def check_dataset(taxi_path, specs, dev, card: str) -> dict:
+    """The dataset phase over taxi without zone, nullable="zero": CUDA
+    delivery (device_put_pipelined on the dispatch thread) equals CPU
+    delivery batch for batch and the generator's columns; a resume from
+    state_dict() mid-epoch, mid-unit equals the uninterrupted stream;
+    shard=(k, 4) for k = 0..3 partitions the units and delivers every row
+    once; rows/s of both deliveries, medians of 3 after a warm-up, printed
+    beside `card` (nvidia-smi's name and power limit)."""
+    import torch
+
+    from parquet_tpu_torch.data import ParquetDataset
+
+    n_rows = ROW_GROUPS * RG_ROWS
+    kw = dict(batch_size=BATCH, columns=list(DATASET_COLUMNS), nullable="zero",
+              remainder="keep")
+    want = dataset_want(specs)
+
+    def drain(device, **more):
+        return list(ParquetDataset(str(taxi_path), device=device, **kw, **more))
+
+    cuda = drain(None)
+    cpu = drain("cpu")
+    if len(cuda) != len(cpu) or len(cuda) != -(-n_rows // BATCH):
+        raise AssertionError(f"[dataset] {len(cuda)} CUDA batches, {len(cpu)} CPU batches")
+    for k, (g, w) in enumerate(zip(cuda, cpu)):
+        if g.keys() != w.keys() or not all(
+                g[p].is_cuda and g[p].dtype == w[p].dtype and torch.equal(g[p].cpu(), w[p])
+                for p in g):
+            raise AssertionError(f"[dataset] CUDA batch {k} differs from the CPU batch")
+    for c in DATASET_COLUMNS:
+        got = np.concatenate([b[(c,)].numpy() for b in cpu])
+        if got.tobytes() != want[c].tobytes():
+            raise AssertionError(f"[dataset] {c}: delivered rows differ from the generator's")
+    log(f"[dataset] ParquetDataset(taxi, {len(DATASET_COLUMNS)} columns, batch {BATCH}, "
+        f"nullable='zero'): {len(cuda)} CUDA batches equal the CPU batches and the generator")
+    # resume mid-epoch, mid-unit (a unit is 1,048,576 rows, a batch 100,000)
+    it = iter(ParquetDataset(str(taxi_path), device=None, **kw))
+    for _ in range(13):
+        next(it)
+    state = it.state_dict()
+    rest = list(it)
+    resumed = list(ParquetDataset(str(taxi_path), device=None, prefetch=0, **kw)
+                   .iterator(state=state))
+    if len(rest) != len(resumed) or not all(
+            all(torch.equal(a[p], b[p]) for p in a) for a, b in zip(rest, resumed)):
+        raise AssertionError("[dataset] the resumed stream differs from the uninterrupted one")
+    if not all(all(torch.equal(a[p].cpu(), b[p]) for p in a) for a, b in zip(rest, cpu[13:])):
+        raise AssertionError("[dataset] the stream after the checkpoint differs")
+    log(f"[dataset] resume from state_dict() after 13 batches ({state['unit_pos']}, "
+        f"row {state['row_offset']} of its unit): {len(resumed)} batches equal the "
+        "uninterrupted stream")
+    units: list = []
+    rows = 0
+    for k in range(4):
+        ds = ParquetDataset(str(taxi_path), device=None, shard=(k, 4), **kw)
+        units.extend(ds.epoch_order(0))
+        rows += sum(b[("trip_id",)].shape[0] for b in ds)
+    if sorted(units) != list(range(ROW_GROUPS)) or rows != n_rows:
+        raise AssertionError(f"[dataset] shards cover units {sorted(units)}, {rows} rows")
+    log(f"[dataset] shard=(k, 4), k = 0..3: the units {sorted(units)} once each, {rows} rows")
+    del cuda, cpu, rest, resumed
+    rates = {}
+    for label, device in (("CUDA delivery", None), ("CPU delivery", "cpu")):
+        def run():
+            n = 0
+            for b in ParquetDataset(str(taxi_path), device=device, **kw):
+                n += b[("trip_id",)].shape[0]
+            if device is None:
+                torch.cuda.synchronize()
+            return n
+
+        run()
+        secs = []
+        for _ in range(3):
+            t = time.perf_counter()
+            if run() != n_rows:
+                raise AssertionError(f"[dataset] {label}: rows lost")
+            secs.append(time.perf_counter() - t)
+        rates[label] = n_rows / statistics.median(secs)
+        log(f"[dataset] {label}: {rates[label]:,.0f} rows/s (median of "
+            f"{[round(x, 3) for x in secs]} s) | {card}")
+    return rates
+
+
 def smoke_dir() -> Path:
     """The directory of the cached main-path files."""
     from parquet_tpu_torch.kernels.build import BUILD_ROOT
@@ -3328,6 +3762,7 @@ def main(argv=None) -> int:
     from parquet_tpu_torch.kernels import build
     from parquet_tpu_torch.kernels import device_ops as ops
     from parquet_tpu_torch.kernels.pipeline import (
+        dispatch,
         prepare_counts,
         reset_prepare_counts,
         to_device,
@@ -3395,16 +3830,25 @@ def main(argv=None) -> int:
         for k, (src, rep) in sources.items()
     }
 
+    def on_dispatch(fn, *args):
+        """fn(*args) on the pqt-dispatch thread, under its own stream: the
+        kernels are held against their plain versions where the main paths
+        launch them."""
+        return dispatch(fn, dev, *args).result(timeout=1200)
+
+    log(f"[kernels] the checks run on the pqt-dispatch thread, on its stream "
+        f"{on_dispatch(lambda: torch.cuda.current_stream())} (the caller's is "
+        f"{torch.cuda.current_stream()})")
     log("[kernels] each kernel against its plain version on the card (bit-exact)")
-    check_kernels(dev, rows)
+    on_dispatch(check_kernels, dev, rows)
     log("[kernels] the batch path's kernels at edge shapes")
-    check_batch_kernels(dev, rows)
+    on_dispatch(check_batch_kernels, dev, rows)
     log("[kernels] the filter path's kernels at edge shapes")
-    check_filter_kernels(dev, rows)
+    on_dispatch(check_filter_kernels, dev, rows)
     log("[kernels] the write path's kernels at edge shapes")
-    check_write_kernels(dev, rows)
+    on_dispatch(check_write_kernels, dev, rows)
     log("[kernels] the query and multi-device paths' kernels at edge shapes")
-    check_query_kernels(dev, rows)
+    on_dispatch(check_query_kernels, dev, rows)
 
     launches: dict[str, dict] = {}
 
@@ -3462,7 +3906,7 @@ def main(argv=None) -> int:
     mixed_path = paths["taxi_mixed"][0]
 
     log("[kernels] the mixed path's kernels at its shapes and at edge shapes")
-    check_new_kernels(dev, rows, mixed_path)
+    on_dispatch(check_new_kernels, dev, rows, mixed_path)
 
     drive("taxi", *paths["taxi"],
           need=("expand_hybrid", "dict_gather", "delta_packed_decode"), no_host_fallback=True)
@@ -3641,8 +4085,30 @@ def main(argv=None) -> int:
             if counts[k] <= 0:
                 raise AssertionError(f"{k} was not launched on the {label} path")
         log(f"[query:{label}] the body equals NumPy's: {body['result']}")
+    # run_local_query(shard=): each of 4 shards answers over its stripe of
+    # the plan's units (groups k and k + 4), equal to NumPy's over them
+    ops.reset_launch_counts()
+    reset_query_device_counts()
+    group_of = np.repeat(np.arange(ROW_GROUPS), RG_ROWS)
+    for k in range(4):
+        body = run_query(taxi_path, None, shard=(k, 4))
+        keep = (group_of % 4) == k
+        want = query_want(taxi_specs, keep, 2)
+        if body != want:
+            raise AssertionError(f"query shard ({k}, 4): body {body} != NumPy's {want}")
+    counts = kernel_counts()
+    launches["taxi query shards"] = counts
+    if query_device_counts() != {"device": ROW_GROUPS}:
+        raise AssertionError(f"query shards: query counts {query_device_counts()}")
+    for k in ("masked_agg", "dict_gather"):
+        if counts[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the query shards path")
+    log(f"[query:taxi shards] run_local_query(shard=(k, 4)), k = 0..3: each body equals NumPy's "
+        f"over groups k and k + 4; launches "
+        + ", ".join(f"{k}={v}" for k, v in counts.items() if v and not isinstance(v, dict)))
     check_query_declines(taxi_path)
     scan = check_scans(taxi_path, taxi_specs, dev, launches)
+    dataset_rates = check_dataset(taxi_path, taxi_specs, dev, smi)
     for k in rows:
         rows[k]["launches"] = sum(c[k] for c in launches.values())
         rows[k]["launches_by_path"] = {label: c[k] for label, c in launches.items()}
@@ -3779,6 +4245,10 @@ def main(argv=None) -> int:
                 f"{c} {v:.3f} s" for c, v in sorted(split.items(), key=lambda kv: -kv[1])))
     log("[native] the host value functions against their Python oracles, row group 0:")
     native_ab = ab_native_values(paths, host_groups[0], taxi_specs)
+    log(f"[overlap] {name} | {smi}")
+    overlap = ab_overlap(paths, batch_paths["taxi batches"][:4], dev)
+    overlap["profile"] = profile_overlap(paths["taxi"][0], dev)
+    overlap["dataset_rows_per_s"] = dataset_rates
     for label in paths:
         log(f"  profiler, {label}:")
         profile_device_read(paths[label][0])
@@ -3795,7 +4265,7 @@ def main(argv=None) -> int:
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"rows_per_s": rates, "prepare_s": prepare, "native_ab_s": native_ab,
-                      "collectives": scan["collectives"], "card": smi}))
+                      "collectives": scan["collectives"], "overlap": overlap, "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

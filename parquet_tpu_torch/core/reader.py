@@ -11,9 +11,19 @@ A subset of parquet_tpu.core.reader.FileReader. The backends:
 read_row_group_device / read_row_groups_device decode straight into device
 memory on every backend, and iter_device_batches streams the file as
 fixed-size batches of device tensors (MaskedColumn for nullable columns,
-RaggedColumn for padded LIST columns). Chunks are planned and dispatched
-serially on the calling thread, so every launch goes to that thread's
-current CUDA stream.
+RaggedColumn for padded LIST columns).
+
+Threads and streams, as in the reference: every chunk's host prepare (the
+fused native walk, one C call with the GIL dropped) is submitted up front
+to the "pqt-host" pool (_host_pool, PQT_HOST_THREADS workers, default
+min(cpu count, 16); 0 or 1 prepares serially on the calling thread), and
+its uploads and launches are queued, in (group, column) order as each
+prepare resolves, on the "pqt-dispatch" thread, which runs them on a CUDA
+stream of its own (kernels/pipeline.dispatch_pool, dispatch_stream).
+device_column() runs on the calling thread: its current stream waits on
+the plan's event before it touches a dispatched tensor, and what it
+launches itself (the dictionary gather, the merges, the BYTE_STREAM_SPLIT
+transpose, the batch layer's kernels) goes to that stream.
 
 Filters (pyarrow-style (column, op, value) conjunctions, or an OR of them)
 prune row groups by their statistics and bloom filters
@@ -32,8 +42,10 @@ versions on the CPU.
 from __future__ import annotations
 
 import io
+import os
 import threading
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor, wait
 from pathlib import Path
 from typing import NamedTuple
 
@@ -41,21 +53,32 @@ import numpy as np
 import torch
 
 from ..kernels.device_ops import expand_nullable, mask_take_rows, mask_take_scan, pad_ragged
-from ..kernels.pipeline import DecodeStats, DeviceColumn, plan_chunk_device, to_device
+from ..kernels.pipeline import (
+    DecodeStats,
+    DeviceColumn,
+    dispatch,
+    mark_pool_thread,
+    on_pool_thread,
+    prepare_chunk_plan,
+    to_device,
+)
 from ..meta.file_meta import ParquetFileError, read_file_metadata
 from ..meta.parquet_types import BloomFilterHeader, FieldRepetitionType, FileMetaData, RowGroup
 from ..meta.thrift import CompactReader, ThriftError
+from ..utils.native import get_native
 from .bloom import BloomFilter
-from .chunk import ChunkData, ChunkWindow, chunk_byte_range, read_chunk
+from .chunk import ChunkData, ChunkError, ChunkWindow, chunk_byte_range, read_chunk
 from .filter import chunks_by_path, normalize_dnf, row_group_may_match
 from .filter_device import DeviceFilterError, device_dnf_mask
 from .filter_vec import dnf_mask
+from .page import PageError
 from .schema import Schema
 from .stats import column_is_unsigned
 
 __all__ = [
     "FileReader",
     "BACKENDS",
+    "PARQUET_ERRORS",
     "MaskedColumn",
     "RaggedColumn",
     "filter_counts",
@@ -64,6 +87,34 @@ __all__ = [
 ]
 
 BACKENDS = ("host", "device", "device_roundtrip")
+
+# The typed malformed-file error family: everything a corrupt or lying file
+# can raise out of a read (the reference's PARQUET_ERRORS).
+PARQUET_ERRORS = (ParquetFileError, ChunkError, PageError, ThriftError)
+
+_pool: ThreadPoolExecutor | None = None
+_pool_lock = threading.Lock()
+
+
+def _host_pool() -> ThreadPoolExecutor | None:
+    """The shared "pqt-host" pool of the host prepare phase, or None when
+    prepare runs serially on the calling thread. Sized by PQT_HOST_THREADS
+    (default min(cpu count, 16); 0 or 1 means serial, with dispatch still on
+    its own thread). The fused walk runs a whole chunk in one C call with
+    the GIL dropped, so N workers give up to N cores of the walk; the NumPy
+    assembly around it holds the GIL. The pool is made once, at the size the
+    first parallel read asked for."""
+    global _pool
+    env = os.environ.get("PQT_HOST_THREADS")
+    workers = int(env) if env else min(os.cpu_count() or 1, 16)
+    if workers <= 1:
+        return None
+    with _pool_lock:
+        if _pool is None:
+            _pool = ThreadPoolExecutor(
+                max_workers=workers, thread_name_prefix="pqt-host", initializer=mark_pool_thread
+            )
+        return _pool
 
 # -- filter counters ---------------------------------------------------------------
 #
@@ -104,6 +155,25 @@ def resolve_device(device=None) -> torch.device:
             "decode with the kernels' plain versions on the CPU"
         )
     return dev
+
+
+def _dispatch_prepared(prepared, device):
+    """Dispatch-thread task: the chunk plan a prepare future gives, uploaded
+    and launched on the dispatch stream (a prepare error re-raises here, at
+    the caller's result())."""
+    return prepared.result().dispatch_device(device)
+
+
+def _settle(staged) -> None:
+    """Wait for every future of a staged read, failed ones included, so no
+    prepare or dispatch of a read that raised or was abandoned outlives it
+    (their counters and buffers belong to that read). On a thread of the
+    port's own pools (a dropped stream finalized there by the garbage
+    collector) it returns at once: the futures may be queued behind that
+    very thread, and they finish on their own."""
+    if on_pool_thread():
+        return
+    wait([fut for group in staged for _path, fut in group])
 
 
 def resolve_column_prefixes(schema: Schema, columns):
@@ -202,7 +272,12 @@ class FileReader:
         backend: str = "host",
         device=None,
         validate_crc: bool = False,
+        metadata: FileMetaData | None = None,
+        schema: Schema | None = None,
     ):
+        """`metadata=` reuses a footer already parsed (open_metadata) and
+        `schema=` a Schema already built for it: the dataset layer opens one
+        reader a row group, and neither parses again."""
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}: expected one of {BACKENDS}")
         self.device = resolve_device(device)
@@ -223,12 +298,36 @@ class FileReader:
             self._owns_file = False
         try:
             self._size = self._f.seek(0, io.SEEK_END)
-            self.metadata: FileMetaData = read_file_metadata(self._f)
-            self.schema = Schema.from_thrift(self.metadata.schema)
+            self.metadata: FileMetaData = (
+                metadata if metadata is not None else read_file_metadata(self._f)
+            )
+            self.schema = schema if schema is not None else Schema.from_thrift(self.metadata.schema)
             self._selected = resolve_column_prefixes(self.schema, columns)
         except BaseException:
             self.close()
             raise
+
+    @classmethod
+    def open_metadata(cls, path) -> FileMetaData:
+        """Parse only the footer of `path`: no data page is read and no
+        handle survives the call (the dataset's planning primitive)."""
+        with open(path, "rb") as f:
+            return read_file_metadata(f)
+
+    @classmethod
+    def open_many(cls, paths, columns=None, **options) -> "list[FileReader]":
+        """Open several files at once (footers only). All or nothing: when
+        one open fails, the readers already open are closed before the
+        error propagates. Every option goes to each reader."""
+        readers: list[FileReader] = []
+        try:
+            for p in paths:
+                readers.append(cls(p, columns=columns, **options))
+        except BaseException:
+            for r in readers:
+                r.close()
+            raise
+        return readers
 
     # -- properties ------------------------------------------------------------
 
@@ -296,14 +395,50 @@ class FileReader:
 
     # -- device delivery -------------------------------------------------------
 
-    def _plan_row_group(self, i: int, columns, device):
-        return {
-            path: plan_chunk_device(
-                self._window(cc), cc, column, device,
-                validate_crc=self.validate_crc, stats=self.stats,
+    def _plan_row_groups_async(self, indices, columns, device) -> list:
+        """Stage the chunks of several row groups at once: every chunk's
+        prepare is submitted to the host pool up front (no barrier between
+        groups), and its dispatch is queued on the dispatch thread in
+        (group, column) order, each dispatch task taking its chunk's plan
+        as the prepare resolves. Returns [[(path, future of the dispatched
+        plan)]] a group, unresolved. With no pool the prepares run here, in
+        order, and each dispatch still overlaps the next prepare."""
+        groups = [list(self._selected_chunks(i, columns)) for i in indices]
+
+        def prep(cc, column):
+            return prepare_chunk_plan(
+                self._window(cc), cc, column, validate_crc=self.validate_crc, stats=self.stats
             )
-            for path, cc, column in self._selected_chunks(i, columns)
-        }
+
+        pool = _host_pool()
+        if pool is None or sum(len(g) for g in groups) <= 1:
+            staged: list = []
+            try:
+                for chunks in groups:
+                    staged.append([])
+                    for path, cc, column in chunks:
+                        plan = prep(cc, column)
+                        staged[-1].append((path, dispatch(plan.dispatch_device, device, device)))
+            except BaseException:
+                _settle(staged)
+                raise
+            return staged
+        get_native()  # the host library's lazy init, before the fan-out
+        return [
+            [(path, dispatch(_dispatch_prepared, device, pool.submit(prep, cc, column), device))
+             for path, cc, column in chunks]
+            for chunks in groups
+        ]
+
+    def _plan_row_group(self, i: int, columns, device) -> dict:
+        """Every selected chunk of group i prepared and dispatched: {leaf
+        path: dispatched plan}."""
+        staged = self._plan_row_groups_async([i], columns, device)
+        try:
+            return {path: fut.result() for path, fut in staged[0]}
+        except BaseException:
+            _settle(staged)
+            raise
 
     def read_row_group_device(self, i: int, columns=None, device=None, *, filters=None):
         """Decode one row group straight into device memory: {leaf path:
@@ -379,15 +514,18 @@ class FileReader:
         self, row_groups=None, columns=None, device=None
     ) -> list[dict[tuple, DeviceColumn]]:
         """Decode row groups into device memory, in row-group order. Every
-        chunk of every group is dispatched before the first is delivered, so
-        the uploads and launches queue back to back on the stream."""
+        chunk of every group is staged before the first is delivered
+        (_plan_row_groups_async): the prepares run on the host pool, the
+        uploads and launches queue back to back on the dispatch stream, and
+        group i's delivery on this thread overlaps the later groups'."""
         dev = self.device if device is None else resolve_device(device)
         indices = range(self.num_row_groups) if row_groups is None else row_groups
-        staged = [self._plan_row_group(i, columns, dev) for i in indices]
-        return [
-            {path: plan.device_column() for path, plan in plans.items()}
-            for plans in staged
-        ]
+        staged = self._plan_row_groups_async(list(indices), columns, dev)
+        try:
+            return [{path: fut.result().device_column() for path, fut in group} for group in staged]
+        except BaseException:
+            _settle(staged)
+            raise
 
     # -- fixed-size device batches ------------------------------------------------
 
@@ -436,8 +574,9 @@ class FileReader:
         the rows carried over from the previous group): views, not copies, so
         a batch keeps its group's tensors alive and an in-place write to a
         batch writes through to them. While the consumer runs on group i's
-        batches, group i+1 is already prepared and dispatched (one-group
-        lookahead): memory stays bounded by two row groups plus the carry.
+        batches, group i+1 prepares on the host pool and dispatches on the
+        dispatch stream (one-group lookahead, held as futures): memory stays
+        bounded by two row groups plus the carry.
         With drop_remainder=False the final short batch is yielded as is.
 
         `filters` pushes a predicate (a (column, op, value) conjunction, or
@@ -457,8 +596,10 @@ class FileReader:
         host vec engine's mask with the same compaction. Filter columns
         missing from `columns=` are read for the mask but not batched.
 
-        `device` overrides the reader's device for every batch. All work runs
-        on the calling thread's current CUDA stream.
+        `device` overrides the reader's device for every batch. The uploads
+        and decode launches run on the dispatch stream; a batch is safe on
+        the calling thread's current stream, which waits on each group's
+        events, and the batch layer's own launches go to that stream.
 
         `sharding` (a torch.distributed ProcessGroup, or a DeviceMesh, whose
         ranks it flattens) splits every batch over the group's ranks, as the
@@ -608,47 +749,57 @@ class FileReader:
             )
 
         def stage(i):
-            # prepare + upload + launch, nothing delivered yet
-            return self._plan_row_group(i, read_columns, dev)
+            # prepare + upload + launch as futures, nothing delivered yet
+            return self._plan_row_groups_async([i], read_columns, dev)[0]
 
         staged_next = stage(groups[0]) if groups else None
         carry: dict = {}
         carry_n = 0
-        for gi, i in enumerate(groups):
-            staged = staged_next
-            staged_next = stage(groups[gi + 1]) if gi + 1 < len(groups) else None
-            group = {path: plan.device_column() for path, plan in staged.items()}
-            del staged
-            arrs = {
-                path: _array_of(path, dc)
-                for path, dc in group.items()
-                if proj is None or path in proj
-            }
-            if not arrs:
-                continue
-            lengths = {t.shape[0] for t in _tree_leaves(arrs)}
-            if len(lengths) != 1:
-                raise ParquetFileError(
-                    f"parquet: columns disagree on row count in group {i}: "
-                    f"{sorted(lengths)}"
-                )
-            n = lengths.pop()
-            if filter_rows:
-                arrs, n = self._device_filter_rows(i, group, normalized, arrs, n, dev)
-                if not n:
+        try:
+            for gi, i in enumerate(groups):
+                staged = staged_next
+                staged_next = stage(groups[gi + 1]) if gi + 1 < len(groups) else None
+                try:
+                    group = {path: fut.result().device_column() for path, fut in staged}
+                except BaseException:
+                    _settle([staged])
+                    raise
+                del staged
+                arrs = {
+                    path: _array_of(path, dc)
+                    for path, dc in group.items()
+                    if proj is None or path in proj
+                }
+                if not arrs:
                     continue
-            del group
-            cat = _tree_map(lambda c, a: torch.cat([c, a]), carry, arrs) if carry_n else arrs
-            total = carry_n + n
-            # cursor slicing: each batch is one row slice; the tail is sliced
-            # once per row group, not once per batch
-            off = 0
-            while total - off >= batch_size:
-                lo = off
-                yield _tree_map(lambda a, lo=lo: a[lo : lo + batch_size], cat)
-                off += batch_size
-            carry_n = total - off
-            carry = _tree_map(lambda a: a[off:], cat) if carry_n else {}
+                lengths = {t.shape[0] for t in _tree_leaves(arrs)}
+                if len(lengths) != 1:
+                    raise ParquetFileError(
+                        f"parquet: columns disagree on row count in group {i}: "
+                        f"{sorted(lengths)}"
+                    )
+                n = lengths.pop()
+                if filter_rows:
+                    arrs, n = self._device_filter_rows(i, group, normalized, arrs, n, dev)
+                    if not n:
+                        continue
+                del group
+                cat = _tree_map(lambda c, a: torch.cat([c, a]), carry, arrs) if carry_n else arrs
+                total = carry_n + n
+                # cursor slicing: each batch is one row slice; the tail is sliced
+                # once per row group, not once per batch
+                off = 0
+                while total - off >= batch_size:
+                    lo = off
+                    yield _tree_map(lambda a, lo=lo: a[lo : lo + batch_size], cat)
+                    off += batch_size
+                carry_n = total - off
+                carry = _tree_map(lambda a: a[off:], cat) if carry_n else {}
+        finally:
+            # a stream that fails, is closed or is dropped mid-file: the group
+            # staged ahead finishes before the generator does
+            if staged_next is not None:
+                _settle([staged_next])
         if carry_n and not drop_remainder:
             yield carry
 

@@ -11,7 +11,8 @@ Each primitive has three parts:
   * the wrapper, which checks its inputs, takes the plain version for a CPU
     tensor, and for a CUDA tensor launches the kernel on the current stream
     or raises. Each wrapper carries a plain int `launches`, which goes up by
-    one where the kernel is launched and nowhere else.
+    one where the kernel is launched and nowhere else (under one lock: the
+    dispatch thread of kernels/pipeline.py launches beside the callers).
 
 Bit patterns travel in signed dtypes: uploads are int32 (the uint32 words of
 the frozen buffers) or int64 (uint64 words), and outputs hold the unsigned
@@ -23,6 +24,7 @@ compute in int64 lanes with explicit masks.
 from __future__ import annotations
 
 import math
+import threading
 
 import numpy as np
 import torch
@@ -174,6 +176,20 @@ def _launch(name: str, device: torch.device, fn, *args) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(fn, n: int = 1, table: str | None = None, key=None) -> None:
+    """Add n to fn.launches (and to fn.<table>[key]) under one lock: the
+    dispatch thread and the callers' threads launch at once, and `+=` on an
+    attribute is not atomic."""
+    with _COUNT_LOCK:
+        fn.launches += n
+        if table is not None:
+            counts = getattr(fn, table)
+            counts[key] = counts.get(key, 0) + n
+
+
 def _lib():
     from .build import load
 
@@ -265,9 +281,7 @@ def expand_hybrid(buf: torch.Tensor, width: int, run_pad: int, total: int) -> to
             "expand_hybrid", buf.device, _lib().pqt_expand_hybrid,
             _ptr(buf), run_pad, width, total, _ptr(out),
         )
-        expand_hybrid.launches += 1
-        by_width = expand_hybrid.launches_by_width
-        by_width[width] = by_width.get(width, 0) + 1
+        _count(expand_hybrid, 1, "launches_by_width", width)
     return out
 
 
@@ -309,7 +323,7 @@ def dict_gather(dictionary: torch.Tensor, indices: torch.Tensor) -> torch.Tensor
             "dict_gather", dictionary.device, fn,
             _ptr(dictionary), dictionary.numel(), _ptr(indices), n, _ptr(out),
         )
-        dict_gather.launches += 1
+        _count(dict_gather)
     return out
 
 
@@ -431,7 +445,7 @@ def delta_packed_decode(
             "delta_packed_decode", dev, lib.pqt_delta_packed_decode,
             _ptr(meta32), _ptr(wide), nbits, m_pad, p_pad, total, _ptr(out), _ptr(scratch),
         )
-        delta_packed_decode.launches += 1
+        _count(delta_packed_decode)
     return out
 
 
@@ -500,7 +514,7 @@ def bss_transpose_pages(pages) -> torch.Tensor:
             "bss_transpose", dev, _lib().pqt_bss_transpose_pages,
             table.ctypes.data, len(table), _ptr(out),
         )
-        bss_transpose.launches += -(-len(table) // BSS_PAGES_PER_LAUNCH)
+        _count(bss_transpose, -(-len(table) // BSS_PAGES_PER_LAUNCH))
     return out
 
 
@@ -635,7 +649,7 @@ def merge_mixed_numeric(
             _ptr(page_kind), _ptr(page_row_start), _ptr(page_aux), page_kind.numel(),
             n_rows, _ptr(out),
         )
-        merge_mixed_numeric.launches += 1
+        _count(merge_mixed_numeric)
     return out
 
 
@@ -758,7 +772,7 @@ def merge_mixed_bytes(
         page_kind.numel(), n_rows, data_bytes,
         _ptr(data), _ptr(offsets), _ptr(scratch),
     )
-    merge_mixed_bytes.launches += 1
+    _count(merge_mixed_bytes)
     return data, offsets
 
 
@@ -842,7 +856,7 @@ def record_starts(rep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         "record_starts", dev, lib.pqt_record_starts,
         _ptr(rep), n, _ptr(row_of), _ptr(n_rows), _ptr(descriptors),
     )
-    record_starts.launches += 1
+    _count(record_starts)
     return row_of, n_rows
 
 
@@ -911,7 +925,7 @@ def list_layout(
         _ptr(rep), _ptr(dfl), n, parent_rep, elem_def,
         _ptr(offsets), _ptr(first_def), _ptr(n_slots), _ptr(descriptors),
     )
-    list_layout.launches += 1
+    _count(list_layout)
     return offsets, first_def, n_slots
 
 
@@ -974,7 +988,7 @@ def pad_ragged(values: torch.Tensor, lengths: torch.Tensor, max_len: int) -> tor
         _ptr(values), nv, elem, _ptr(lengths), lengths.element_size(), rows, max_len,
         _ptr(out), _ptr(scratch),
     )
-    pad_ragged.launches += 1
+    _count(pad_ragged)
     return out
 
 
@@ -1028,7 +1042,7 @@ def expand_nullable(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         "expand_nullable", dev, _lib().pqt_expand_nullable,
         _ptr(values), nv, values.element_size(), _ptr(mask), n, _ptr(out), _ptr(scratch),
     )
-    expand_nullable.launches += 1
+    _count(expand_nullable)
     return out
 
 
@@ -1210,7 +1224,7 @@ def predicate_mask(
                 _ptr(values), n, w, None if table is None else _ptr(table), len(pats),
                 int(op in ("!=", "not_in")), _ptr(out),
             )
-            predicate_mask.launches += 1
+            _count(predicate_mask)
         return out
     _check_vec(values, tuple(_PRED_DTYPES), "predicate_mask: values")
     if unsigned and values.dtype not in (torch.int32, torch.int64):
@@ -1250,7 +1264,7 @@ def predicate_mask(
         int(bool(exact)), (1 << 64) - 1 if umask is None else umask,
         mem_i.ctypes.data, mem_f.ctypes.data, len(members), _ptr(out),
     )
-    predicate_mask.launches += 1
+    _count(predicate_mask)
     return out
 
 
@@ -1334,9 +1348,7 @@ def leaf_verdict(
         None if valid is None else _ptr(valid), n, int(bool(fill)), _ptr(out),
         None if scratch is None else _ptr(scratch),
     )
-    leaf_verdict.launches += 1
-    kind = "gather" if valid is None else "validity"
-    leaf_verdict.launches_by_kind[kind] = leaf_verdict.launches_by_kind.get(kind, 0) + 1
+    _count(leaf_verdict, 1, "launches_by_kind", "gather" if valid is None else "validity")
     return out
 
 
@@ -1404,7 +1416,7 @@ def list_contains_mask(
         _ptr(rep), _ptr(dfl), n, _ptr(dense_match), dense_match.numel(), elem_def,
         _ptr(rows), _ptr(n_rows), _ptr(descriptors),
     )
-    list_contains_mask.launches += 1
+    _count(list_contains_mask)
     return rows, n_rows
 
 
@@ -1498,7 +1510,7 @@ def mask_take_scan(mask: torch.Tensor, out_pad: int) -> tuple[torch.Tensor, torc
         "mask_take", dev, _lib().pqt_mask_scan,
         _ptr(mask), n, out_pad, _ptr(src), _ptr(count), _ptr(scratch),
     )
-    mask_take.launches += 1
+    _count(mask_take)
     return src, count
 
 
@@ -1527,7 +1539,7 @@ def mask_take_rows(
         _ptr(rows), rows.shape[0], row_bytes, _word(row_bytes, rows, out), _ptr(src),
         _ptr(count), out_rows, _ptr(out),
     )
-    mask_take.launches += 1
+    _count(mask_take)
     return out
 
 
@@ -1558,7 +1570,7 @@ def mask_take(values: torch.Tensor, mask: torch.Tensor, out_pad: int):
         _ptr(mask), n, out_pad, _ptr(values), row_bytes, _word(row_bytes, values, out),
         _ptr(out), _ptr(count), _ptr(scratch),
     )
-    mask_take.launches += 1
+    _count(mask_take)
     return out, count
 
 
@@ -1617,7 +1629,7 @@ def bitpack_encode(values: torch.Tensor, width: int) -> torch.Tensor:
         "bitpack_encode", dev, _lib().pqt_bitpack_encode,
         _ptr(values), n, width, _ptr(out), out.numel(),
     )
-    bitpack_encode.launches += 1
+    _count(bitpack_encode)
     return out
 
 
@@ -1702,7 +1714,7 @@ def rle_hybrid_encode(values: torch.Tensor, width: int):
         _ptr(values), n, width, _ptr(in_rle), _ptr(rle_break), _ptr(packed), packed.numel(),
         _ptr(n_bp), _ptr(tiles),
     )
-    rle_hybrid_encode.launches += 1
+    _count(rle_hybrid_encode)
     return in_rle, rle_break, packed, n_bp
 
 
@@ -1761,10 +1773,7 @@ def dict_indices(bits: torch.Tensor):
         "dict_indices", dev, lib.pqt_dict_indices,
         _ptr(bits), n, bits.element_size(), _ptr(scratch), _ptr(indices), _ptr(firsts), _ptr(nu),
     )
-    dict_indices.launches += 1
-    by_width = dict_indices.launches_by_width
-    key_bits = 8 * bits.element_size()
-    by_width[key_bits] = by_width.get(key_bits, 0) + 1
+    _count(dict_indices, 1, "launches_by_width", 8 * bits.element_size())
     return indices, firsts, nu
 
 
@@ -1884,7 +1893,7 @@ def delta_block_encode(values: torch.Tensor):
         "delta_block_encode", dev, _lib().pqt_delta_block_encode,
         _ptr(values), n, nbits, _ptr(mins), _ptr(widths), _ptr(words), _ptr(scratch),
     )
-    delta_block_encode.launches += 1
+    _count(delta_block_encode)
     return mins, widths, words
 
 
@@ -1953,7 +1962,7 @@ def plain_bytearray_encode(
             "plain_bytearray_encode", dev, _lib().pqt_plain_bytearray_encode,
             _ptr(data), _ptr(offsets), n, out_len, _ptr(out), _ptr(heads),
         )
-        plain_bytearray_encode.launches += 1
+        _count(plain_bytearray_encode)
     return out
 
 
@@ -2094,7 +2103,7 @@ def masked_agg(values: torch.Tensor, mask, op: str, *, unsigned: bool = False, b
         _ptr(values), None if mask is None else _ptr(mask), n, _AGG_DTYPES[values.dtype],
         _AGG_OPS[op], int(unsigned), bits, nb, _ptr(partial), _ptr(out),
     )
-    masked_agg.launches += 1
+    _count(masked_agg)
     return out
 
 
@@ -2193,7 +2202,7 @@ def expand_page_grid(words, starts, is_rle, values, bit_starts, dictionary,
             _ptr(bit_starts), n_runs, width, _ptr(dictionary), dictionary.numel(),
             dictionary.element_size(), n_pages, n_out, _ptr(out),
         )
-        expand_page_grid.launches += 1
+        _count(expand_page_grid)
     return out
 
 

@@ -40,8 +40,11 @@ The decode of one chunk runs in two phases:
   prepare_chunk_plan()     host-only: page walk, decompress, levels,
                            prescan, frozen upload buffers.
   plan.dispatch_device()   uploads + kernel launches on the given device
-                           (torch.cuda's current stream; nothing syncs).
-  plan.device_column()     the decoded values resident on the device.
+                           (the current stream, the dispatch thread's when
+                           a reader stages the plan; nothing syncs), then
+                           an event recorded after them.
+  plan.device_column()     the decoded values resident on the device; the
+                           caller's stream first waits on that event.
   plan.finalize()          fetches and reassembles a host ChunkData equal
                            to core.chunk.read_chunk (the parity oracle).
 
@@ -53,7 +56,8 @@ from __future__ import annotations
 
 import os
 import threading
-from collections import Counter
+from collections import Counter, deque
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -131,6 +135,13 @@ __all__ = [
     "plan_chunk_device",
     "read_chunk_device",
     "to_device",
+    "device_put_pipelined",
+    "dispatch",
+    "dispatch_pool",
+    "dispatch_stream",
+    "handoff",
+    "mark_pool_thread",
+    "on_pool_thread",
     "prepare_counts",
     "reset_prepare_counts",
 ]
@@ -187,17 +198,208 @@ def _skewed_dict_bound(dictionary, dict_rows: int, plain_bytes: int):
     return bound, ok
 
 
+# -- the dispatch thread -------------------------------------------------------
+#
+# One process-wide single-thread executor ("pqt-dispatch") owns device
+# dispatch: the uploads and kernel launches of every chunk plan a reader
+# stages, and the batch uploads of device_put_pipelined. The counterpart of
+# parquet_tpu/kernels/pipeline.py's dispatch_pool. A CUDA stream is current
+# per thread, and every wrapper of device_ops launches on the current stream,
+# so the dispatch thread runs each task under a non-default stream of its
+# own, one per device (dispatch_stream). Work it queues reaches another
+# thread's stream only through an event: a plan records one after its last
+# upload and launch (_ChunkPlan.dispatch_device), and the consumer's stream
+# waits on it before it touches a dispatched tensor (handoff()). The
+# executor's worker is joined at interpreter exit after its queue drains,
+# before CUDA is torn down.
+
+_dispatcher: ThreadPoolExecutor | None = None
+_dispatcher_lock = threading.Lock()
+# device index -> the dispatch thread's stream on that device
+_streams: dict = {}
+# set on the threads of the port's own executors (dispatch, pqt-host)
+_pool_thread = threading.local()
+
+
+def mark_pool_thread() -> None:
+    """Executor initializer: the calling thread serves one of the port's
+    pools (see on_pool_thread)."""
+    _pool_thread.active = True
+
+
+def on_pool_thread() -> bool:
+    """True on a thread of the dispatch executor or of the pqt-host pool.
+    Such a thread must not block on futures of those executors: a batch
+    stream dropped in a reference cycle is finalized by whichever thread
+    the garbage collector runs on, and its wait there could be on work
+    queued behind the waiting thread itself."""
+    return getattr(_pool_thread, "active", False)
+
+
+def dispatch_pool() -> ThreadPoolExecutor:
+    """The process-wide single-thread device-dispatch executor."""
+    global _dispatcher
+    with _dispatcher_lock:
+        if _dispatcher is None:
+            _dispatcher = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="pqt-dispatch", initializer=mark_pool_thread
+            )
+        return _dispatcher
+
+
+def _cuda_index(device) -> int | None:
+    """The CUDA device index of `device` (a bare "cuda" is the calling
+    thread's current device), or None for a CPU target."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def dispatch_stream(device) -> torch.cuda.Stream:
+    """The dispatch thread's own stream on CUDA `device`, made on first use.
+    Making it raises when CUDA cannot: there is no fallback to the caller's
+    stream."""
+    idx = _cuda_index(device)
+    if idx is None:
+        raise ValueError(f"dispatch_stream: {device} is not a CUDA device")
+    with _dispatcher_lock:
+        s = _streams.get(idx)
+        if s is None:
+            s = _streams[idx] = torch.cuda.Stream(device=idx)
+        return s
+
+
+def _run_on_stream(fn, idx, args):
+    """Dispatch-thread task body: fn(*args) on the dispatch stream of CUDA
+    device `idx` (plainly for a CPU target)."""
+    if idx is None:
+        return fn(*args)
+    with torch.cuda.device(idx), torch.cuda.stream(dispatch_stream(torch.device("cuda", idx))):
+        return fn(*args)
+
+
+def dispatch(fn, device, *args) -> Future:
+    """Run fn(*args) on the dispatch thread, on `device`'s dispatch stream.
+    The device index resolves on the calling thread, so a bare "cuda" means
+    the caller's current device, not the dispatch thread's."""
+    return dispatch_pool().submit(_run_on_stream, fn, _cuda_index(device), args)
+
+
+def record_event(device) -> "torch.cuda.Event | None":
+    """An event recorded on the current stream of CUDA `device` (None for a
+    CPU target): what a consumer on another stream waits on."""
+    if torch.device(device).type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def handoff(event, tensors, device) -> None:
+    """Make the calling thread's current stream on `device` wait on `event`,
+    and mark every tensor in `tensors` as used on that stream, so the
+    caching allocator does not hand its memory to the producing stream's
+    next allocation while this stream may still read it
+    (Tensor.record_stream). A no-op for a CPU target (event None)."""
+    if event is None:
+        return
+    cur = torch.cuda.current_stream(device)
+    cur.wait_event(event)
+    for t in tensors:
+        if t is not None and t.is_cuda:
+            t.record_stream(cur)
+
+
 def to_device(host: np.ndarray, device) -> torch.Tensor:
     """Copy a host array to `device` (a read-only buffer is copied on the
     host first: torch refuses to alias one).
 
-    The copy is a pageable, blocking `.to(device)`: it has consumed `host`
-    when it returns, so the fused walk may hand its staging buffers back to
-    the per-thread pool (utils/native.release_buffers) right after. A later
-    pinned or non_blocking upload must not recycle a buffer before its
-    copy's event has completed."""
+    For a CUDA target the copy is non_blocking on the current stream (the
+    dispatch stream when the dispatch thread calls) from page-locked
+    memory. A pageable array is staged into a block of torch's caching host
+    allocator first: that copy has consumed `host` when this returns, so
+    the caller may recycle it at once (utils/native.release_buffers), and
+    the allocator records the upload's event on the block and reuses it only
+    once the upload is done. A failed pinned allocation raises: there is no
+    pageable fallback. A CPU target keeps the plain copy (pinning needs
+    CUDA)."""
     host = np.require(host, requirements=["C", "W"])
-    return torch.from_numpy(host).to(device)
+    src = torch.from_numpy(host)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return src.to(dev)
+    pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    pinned.copy_(src)
+    return pinned.to(dev, non_blocking=True)
+
+
+def _put_batch(batch: dict, device) -> tuple:
+    """Upload one {key: np.ndarray | None} batch (the dispatch thread's task
+    for device_put_pipelined): (tensors, event after the last copy)."""
+    out = {k: None if v is None else to_device(np.asarray(v), device) for k, v in batch.items()}
+    return out, record_event(device)
+
+
+def _take_batch(put: tuple, device) -> dict:
+    """The consumer's side of one uploaded batch: its stream waits on the
+    batch's event, and each tensor is marked as used there."""
+    out, event = put
+    handoff(event, out.values(), device)
+    return out
+
+
+def device_put_pipelined(batches, device=None, depth: int = 2):
+    """Yield device-resident copies of host batches ({key: np.ndarray, or
+    None}), keeping up to `depth` uploads in flight on the dispatch thread
+    ahead of the consumer (depth 2: while the consumer works on batch k,
+    batch k+1 is already going up). The counterpart of
+    parquet_tpu/kernels/pipeline.py's device_put_pipelined.
+
+    `device` is a CUDA device (None means CUDA, and raises without it) or
+    "cpu". Order is kept. A batch is safe on the consumer's current stream
+    when it is yielded: that stream waits on the batch's upload event. An
+    error from `batches` is deferred to the position where it happened
+    (every batch before it is yielded first); an error from an upload
+    surfaces at the yield of its batch. depth=0 uploads synchronously on the
+    calling thread."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            'device_put_pipelined: CUDA is not available; pass device="cpu"'
+        )
+    if depth <= 0:
+        for b in batches:
+            yield _take_batch(_put_batch(b, dev), dev)
+        return
+    it = iter(batches)
+    pending: deque = deque()
+    source_err = None
+
+    def fill():
+        # a source failure is held, not raised here: the batches already
+        # uploaded still reach the consumer, and the error surfaces where
+        # the source failed
+        nonlocal source_err
+        if source_err is not None:
+            return
+        while len(pending) < depth:
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            except BaseException as e:  # noqa: BLE001 - re-raised in order
+                source_err = e
+                return
+            pending.append(dispatch(_put_batch, dev, b, dev))
+
+    fill()
+    while pending:
+        fut = pending.popleft()
+        fill()
+        yield _take_batch(fut.result(), dev)
+    if source_err is not None:
+        raise source_err
 
 
 # -- prepare counters ------------------------------------------------------------
@@ -253,14 +455,26 @@ class _FrozenDelta(NamedTuple):
     total: int
 
 
+# One lock for every DecodeStats (held for a few additions): prepare threads
+# and the dispatch thread bump the same counts at once, and `x.n += k` is not
+# atomic.
+_STATS_LOCK = threading.Lock()
+
+
 @dataclass
 class DecodeStats:
-    """Page routing counts (the counterpart of the JAX TpuDecodeStats)."""
+    """Page routing counts (the counterpart of the JAX TpuDecodeStats),
+    bumped through add() from any thread."""
 
     pages: int = 0
     device_values: int = 0
     host_fallback_pages: int = 0
     device_batches: int = 0
+
+    def add(self, **counts: int) -> None:
+        with _STATS_LOCK:
+            for name, n in counts.items():
+                setattr(self, name, getattr(self, name) + n)
 
 
 _NUMERIC_DTYPE = {
@@ -553,11 +767,14 @@ class _ChunkPlan:
         self.dev_bss: list[tuple] = []  # [(device streams, num_values)]
         self.device = None
         self._dispatched = False
+        # recorded on the dispatching stream after the last upload and launch
+        self.event = None
 
     # -- device dispatch (nothing synchronizes here) ---------------------------
 
     def dispatch_device(self, device) -> "_ChunkPlan":
-        """Upload the frozen buffers to `device` and launch the kernels."""
+        """Upload the frozen buffers to `device` and launch the kernels on
+        the current stream, then record the plan's event there."""
         if self._dispatched:
             return self
         self._dispatched = True
@@ -577,27 +794,37 @@ class _ChunkPlan:
         for streams, nv in self.bss_host:
             self.dev_bss.append((to_device(streams, self.device), nv))
             if stats is not None:
-                stats.device_values += nv
-                stats.device_batches += 1
+                stats.add(device_values=nv, device_batches=1)
         self.bss_host = []
         for frozen in self.frozen_hybrid:
             self.dev_hybrid.append(dispatch_hybrid(frozen, self.device))
             if stats is not None:
-                stats.device_values += frozen.total
-                stats.device_batches += 1
+                stats.add(device_values=frozen.total, device_batches=1)
         for frozen in self.frozen_delta:
             self.dev_delta.append(dispatch_delta(frozen, self.device))
             if stats is not None:
-                stats.device_values += frozen.total
-                stats.device_batches += 1
+                stats.add(device_values=frozen.total, device_batches=1)
         self.frozen_hybrid = []
         self.frozen_delta = []
+        self.event = record_event(self.device)
         return self
+
+    def _handoff(self) -> None:
+        """Before the calling thread touches the dispatched tensors: its
+        current stream waits on the plan's event, and each tensor is marked
+        as used there (the dispatch thread's stream allocated them)."""
+        handoff(
+            self.event,
+            [self.dict_dev, self.dev_plain, *self.dev_hybrid, *self.dev_delta,
+             *(t for t, _ in self.dev_bss)],
+            self.device,
+        )
 
     # -- fetch + host reassembly (equal to core.chunk.read_chunk) --------------
 
     def finalize(self) -> ChunkData:
         column = self.column
+        self._handoff()
         hybrid_flat = _fetch(self.dev_hybrid, np.uint32)
         delta_flat = _fetch(self.dev_delta, None)
         bss_pages = None
@@ -674,6 +901,7 @@ class _ChunkPlan:
         upload."""
         if not self._dispatched:
             raise RuntimeError("device_column: plan was not dispatched")
+        self._handoff()
         column = self.column
         dev = self.device
         kinds = {k for _, _, _, k, _ in self.page_infos if k != "empty"}
@@ -1035,7 +1263,7 @@ def _plan_from_tables(column, expected, res, stats, np_dt, delta_nbits):
     rep_all = res["rep"]
     n_data = sum(1 for P in pages if P[_PC_KIND] == 0)
     if stats is not None:
-        stats.pages += n_data
+        stats.add(pages=n_data)
     data_pages = []
     for P in pages:
         if P[_PC_KIND] == 1:  # dictionary page
@@ -1226,7 +1454,7 @@ def _plan_from_tables(column, expected, res, stats, np_dt, delta_nbits):
                     )
                     plan.page_infos.append((P[_PC_N], dfl, rep, "values", values))
                     if stats is not None:
-                        stats.host_fallback_pages += 1
+                        stats.add(host_fallback_pages=1)
             return plan
 
     # Mixed-route chunk (or an oversized device page): host-decode in place,
@@ -1245,7 +1473,7 @@ def _plan_from_tables(column, expected, res, stats, np_dt, delta_nbits):
             idx = _expand_dict_from_tables(P, res)
             plan.page_infos.append((P[_PC_N], dfl, rep, "indices", idx))
             if stats is not None:
-                stats.host_fallback_pages += 1
+                stats.add(host_fallback_pages=1)
         elif route == 2:
             stream = res["delta_stream"][
                 P[_PC_DSTART] : P[_PC_DSTART] + P[_PC_DCONS]
@@ -1257,7 +1485,7 @@ def _plan_from_tables(column, expected, res, stats, np_dt, delta_nbits):
                 (P[_PC_N], dfl, rep, "values", vals[: P[_PC_NONNULL]])
             )
             if stats is not None:
-                stats.host_fallback_pages += 1
+                stats.add(host_fallback_pages=1)
         elif route == 3:
             vals = np.frombuffer(
                 values_buf, dtype=np_dt, count=P[_PC_NONNULL], offset=P[_PC_VOFF]
@@ -1285,7 +1513,7 @@ def _plan_from_tables(column, expected, res, stats, np_dt, delta_nbits):
             else:
                 plan.page_infos.append((P[_PC_N], dfl, rep, "values", values))
             if stats is not None:
-                stats.host_fallback_pages += 1
+                stats.add(host_fallback_pages=1)
     kinds_after = {k for _, _, _, k, _ in plan.page_infos}
     kinds_after.discard("empty")
     if kinds_after == {"values"} and column.type in _NUMERIC_DTYPE:
@@ -1562,7 +1790,7 @@ def _staged_prepare(
             raw, header, pt, codec, column
         )
         if stats is not None:
-            stats.pages += 1
+            stats.add(pages=1)
 
         # -- route the value stream --------------------------------------------
         if enc in (int(Encoding.RLE_DICTIONARY), int(Encoding.PLAIN_DICTIONARY)):
@@ -1621,7 +1849,7 @@ def _staged_prepare(
             else:
                 plan.page_infos.append((n, dfl, rep, "values", values))
             if stats is not None:
-                stats.host_fallback_pages += 1
+                stats.add(host_fallback_pages=1)
 
     _commit_routes(plan, pending, stats)
     return plan
@@ -1685,14 +1913,14 @@ def _commit_routes(plan: _ChunkPlan, pending: list, stats) -> None:
 def _host_decode_dict_page(table, width: int, non_null: int, stats):
     """Host fallback for a dict-coded page: ('indices', expanded indices)."""
     if stats is not None:
-        stats.host_fallback_pages += 1
+        stats.add(host_fallback_pages=1)
     return "indices", expand_runs(table, non_null, width, np.uint32)
 
 
 def _host_decode_delta_page(values_buf, nbits: int, non_null: int, stats):
     """Host fallback for a delta page: ('values', decoded values)."""
     if stats is not None:
-        stats.host_fallback_pages += 1
+        stats.add(host_fallback_pages=1)
     with typed_page_errors("delta stream"):
         vals, _ = decode_delta(values_buf, nbits, max_total=non_null)
     return "values", vals[:non_null]

@@ -14,7 +14,7 @@ through. The tests pin it against the pyarrow merge, wrap-around included.
 
 run_local_query is the daemon-free runner: units are the row groups each
 file's statistics and bloom filters admit, file by file in sorted order
-(the layout of parquet_tpu/data/plan.build_plan). A count(*)-only query
+(data/plan.build_plan), striped over shards with `shard=`. A count(*)-only query
 without filters answers from the footer; every other unit runs on the
 device. A unit outside the device envelope raises a typed ServeError
 (device_declined): the reference reruns it on its host engine, which is
@@ -27,11 +27,10 @@ the bodies are its bytes for the same corpus and spec.
 
 from __future__ import annotations
 
-import glob as _glob
 import json
-import os
 import threading
 from collections import Counter
+from contextlib import ExitStack
 
 from .protocol import QueryRequest, ServeError, agg_name, json_default
 from .query_device import DeviceQueryError, device_unit_partial
@@ -204,59 +203,50 @@ def render_query_body(body: dict) -> bytes:
     return (json.dumps(body, default=json_default) + "\n").encode()
 
 
-def _expand(path: str) -> list:
-    """A glob pattern's sorted hits, or the one file (the reference's
-    data/plan.expand_paths for local paths)."""
-    if _glob.has_magic(path):
-        hits = _glob.glob(path)
-        if not hits:
-            raise FileNotFoundError(f"query: glob {path!r} matched no files")
-        return sorted(hits)
-    if not os.path.exists(path):
-        raise FileNotFoundError(f"query: no such file {path!r}")
-    return [path]
-
-
 def run_local_query(paths, query: QueryRequest, *, device=None) -> dict:
     """The daemon-free twin of POST /v1/query over local files: plan the
-    units (row groups admitted by statistics and bloom filters, files in
-    sorted order), run each on the device (`device`, default CUDA), merge.
-    A count(*)-only query without filters reads footers only. Raises a
-    typed ServeError for a unit outside the device envelope
-    (device_declined) and for `query.shard` (its striping needs the
-    dataset planner, data/plan.py, which is not ported)."""
-    from ..core.reader import FileReader
+    units (data/plan.build_plan: row groups admitted by statistics and
+    bloom filters, files in sorted order), take this shard's stripe of them
+    when `query.shard` is (index, count) (epoch 0's unshuffled order, as
+    the reference stripes it), run each on the device (`device`, default
+    CUDA), merge. A count(*)-only query without filters reads footers only.
+    Raises a typed ServeError for a unit outside the device envelope
+    (device_declined)."""
+    from ..core.reader import FileReader, resolve_device
+    from ..data.plan import build_plan, expand_paths
 
-    if query.shard is not None:
-        raise ServeError(
-            501, "shard_unsupported",
-            "query shard= needs the dataset planner (data/plan.py), not ported",
-        )
+    device = resolve_device(device)  # no CUDA and no device=: raise, even for footers only
     files: list = []
     for p in paths:
-        files.extend(_expand(p))
+        files.extend(expand_paths(p))
     files = sorted(set(files))
+    plan = build_plan(files, filters=query.filters)
+    if query.shard is not None:
+        order = plan.epoch_order(0, shard_index=query.shard[0], shard_count=query.shard[1])
+        units = [plan.units[k] for k in order]
+    else:
+        units = list(plan.units)
     cols = query_columns(query)
     decode = bool(cols) or query.filters is not None
     state = QueryState(query)
-    units = 0
-    for path in files:
-        with FileReader(path, device=device) as r:
-            if query.filters is not None:
-                groups = r.prune_row_groups_counted(query.filters)[0]
-            else:
-                groups = range(r.num_row_groups)
-            for g in groups:
-                units += 1
-                num_rows = int(r.row_group(g).num_rows or 0)
-                if not decode:
-                    state.absorb((unit_count_partial(query, num_rows), num_rows, num_rows))
-                    continue
-                try:
-                    part = device_unit_partial(r, g, query, query.filters)
-                except DeviceQueryError as e:
-                    _bump("declined")
-                    raise ServeError(400, "device_declined", str(e)) from None
-                _bump("device")
-                state.absorb(part)
-    return result_dict(query, state, units=units)
+    # one reader per file, opened at its first unit and kept for the rest
+    # (footer and schema parsed once), units absorbed in plan order
+    readers: dict = {}
+    with ExitStack() as stack:
+        for u in units:
+            if not decode:
+                state.absorb((unit_count_partial(query, u.num_rows), u.num_rows, u.num_rows))
+                continue
+            r = readers.get(u.file_index)
+            if r is None:
+                r = readers[u.file_index] = stack.enter_context(
+                    FileReader(u.path, device=device, metadata=plan.metas[u.file_index])
+                )
+            try:
+                part = device_unit_partial(r, u.row_group, query, query.filters)
+            except DeviceQueryError as e:
+                _bump("declined")
+                raise ServeError(400, "device_declined", str(e)) from None
+            _bump("device")
+            state.absorb(part)
+    return result_dict(query, state, units=len(units))

@@ -517,11 +517,12 @@ class NativeLib:
         """Hand chunk_prepare staging buffers back to this thread's pool.
 
         ONLY legal when the caller proves no view of the named buffers
-        escapes into the returned plan. Must run on the thread that called
-        chunk_prepare. The port's uploads are pageable `.to(device)` copies,
-        which have consumed their source when they return; a pinned or
-        non_blocking upload must not release a buffer before its copy's
-        event has completed (see kernels/pipeline.to_device)."""
+        escapes into the returned plan: then no upload reads them either
+        (kernels/pipeline.to_device copies its pageable source into pinned
+        staging before it returns; the asynchronous copy reads only that
+        staging block, which torch's caching host allocator reuses once the
+        copy's event has completed). Must run on the thread that called
+        chunk_prepare."""
         bases = res.get("_bases")
         if not bases:
             return

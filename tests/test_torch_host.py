@@ -7,6 +7,7 @@ helpers; the port runs its NumPy paths.
 """
 
 import io
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -197,21 +198,30 @@ def test_host_read_chunk_matches(tmp_path):
 
 class _Zstd:
     """A ZSTD codec over the zstandard module, registered by tests only (the
-    port builds in no ZSTD)."""
+    port builds in no ZSTD). A
+    zstandard (de)compressor object is not thread-safe and the reader's
+    prepare pool runs a codec from several threads, so each thread keeps
+    its own."""
 
     name = "ZSTD"
 
     def __init__(self):
+        self._tl = threading.local()
+
+    def _get(self):
         import zstandard
 
-        self._c = zstandard.ZstdCompressor()
-        self._d = zstandard.ZstdDecompressor()
+        tl = self._tl
+        if not hasattr(tl, "d"):
+            tl.c = zstandard.ZstdCompressor()
+            tl.d = zstandard.ZstdDecompressor()
+        return tl
 
     def compress(self, data):
-        return self._c.compress(bytes(data))
+        return self._get().c.compress(bytes(data))
 
     def decompress(self, data, uncompressed_size):
-        return self._d.decompress(bytes(data), max_output_size=max(uncompressed_size, 1))
+        return self._get().d.decompress(bytes(data), max_output_size=max(uncompressed_size, 1))
 
 
 @pytest.mark.parametrize("name", sorted(set(GOLDEN_FILES) - READABLE))

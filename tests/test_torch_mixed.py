@@ -14,6 +14,7 @@
 """
 
 import io
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -53,21 +54,30 @@ GOLDEN_FILES = sorted(p.name for p in GOLDEN.glob("*.parquet"))
 
 
 class _Zstd:
-    """A ZSTD codec over the zstandard module (the port builds in none)."""
+    """A ZSTD codec over the zstandard module (the port builds in none). A
+    zstandard (de)compressor object is not thread-safe and the reader's
+    prepare pool runs a codec from several threads, so each thread keeps
+    its own."""
 
     name = "ZSTD"
 
     def __init__(self):
+        self._tl = threading.local()
+
+    def _get(self):
         import zstandard
 
-        self._c = zstandard.ZstdCompressor()
-        self._d = zstandard.ZstdDecompressor()
+        tl = self._tl
+        if not hasattr(tl, "d"):
+            tl.c = zstandard.ZstdCompressor()
+            tl.d = zstandard.ZstdDecompressor()
+        return tl
 
     def compress(self, data):
-        return self._c.compress(bytes(data))
+        return self._get().c.compress(bytes(data))
 
     def decompress(self, data, uncompressed_size):
-        return self._d.decompress(bytes(data), max_output_size=max(uncompressed_size, 1))
+        return self._get().d.decompress(bytes(data), max_output_size=max(uncompressed_size, 1))
 
 
 @pytest.fixture

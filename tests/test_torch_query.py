@@ -376,10 +376,45 @@ def test_declines_match_jax(corpus, body):
 
 
 def test_shard_raises_typed(corpus):
-    q, _ = _requests(corpus, {"aggregates": ["count"], "shard": [0, 2]})
-    with pytest.raises(ServeError) as e:
-        agg.run_local_query(q.paths, q, device="cpu")
-    assert e.value.code == "shard_unsupported"
+    """shard= was refused (501 shard_unsupported) until the dataset planner
+    was ported; it now stripes the units as the reference does, and a shard
+    index out of range raises the planner's typed ValueError on both
+    sides."""
+    q, jq = _requests(corpus, {"aggregates": ["count"], "shard": [0, 2]})
+    assert agg.run_local_query(q.paths, q, device="cpu") == jagg.run_local_query(jq.paths, jq)
+    bad, jbad = _requests(corpus, {"aggregates": ["count"], "shard": [0, 2]})
+    bad = bad._replace(shard=(2, 2))
+    jbad = jbad._replace(shard=(2, 2))
+    with pytest.raises(ValueError):
+        jagg.run_local_query(jbad.paths, jbad)
+    with pytest.raises(ValueError):
+        agg.run_local_query(bad.paths, bad, device="cpu")
+
+
+SHARD_BODIES = [
+    {"aggregates": ["count", _a("sum", "id"), _a("min", "i32"), _a("max", "i32")]},
+    {"aggregates": ["count", _a("sum", "id")], "filters": [["id", ">=", 1_000_000]]},
+    {"aggregates": ["count", _a("sum", "u64"), _a("max", "maybe32")],
+     "filters": [[["cat", "==", 0]], [["u8", ">=", 200]]]},
+]
+
+
+@pytest.mark.parametrize("count", [1, 2, 3, 4])
+@pytest.mark.parametrize("body", SHARD_BODIES, ids=lambda b: json.dumps(b))
+def test_shards_equal_reference_and_merge_to_whole(corpus, body, count):
+    """Each shard's body equals the reference's run_local_query(shard=)
+    (pyarrow on the host), and the shards' units partition the plan: their
+    counts add up to the unsharded query's."""
+    whole, _ = _requests(corpus, body)
+    want = agg.run_local_query(whole.paths, whole, device="cpu")
+    units = rows = 0
+    for k in range(count):
+        q, jq = _requests(corpus, dict(body, shard=[k, count]))
+        got = agg.run_local_query(q.paths, q, device="cpu")
+        assert got == jagg.run_local_query(jq.paths, jq)
+        units += got["units"]
+        rows += got["rows_scanned"]
+    assert (units, rows) == (want["units"], want["rows_scanned"])
 
 
 def test_glob_paths_and_pruned_units(corpus, tmp_path):
