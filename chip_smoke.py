@@ -155,6 +155,29 @@ Phases (any failure raises and the script exits non-zero):
               must equal the host write_column's of the same NumPy values
               byte for byte, and read_row_groups_device() of it must give
               the generator's columns;
+     write-options  the same groups, the schema from the port's
+              parse_schema (TAXI_DSL): (a) write_device_column with
+              bloom_filters= on trip_id, vendor_id, trip_distance, zone and
+              fare_cents equal to the host write with the same options,
+              byte for byte, every device column engaged; (b) a fare_cents
+              key in one row group only and one in none, both inside every
+              group's min/max, through iter_device_batches(filters=,
+              filter_rows=True) and read_row_group_device(i, filters=):
+              bloom filters (filter_counts()) must prune exactly the groups
+              the written filters rule out, statistics none, and the rows
+              on the card must equal NumPy's; (c) the host write with
+              write_page_index=True and GZIP serial (the fused walk must
+              decline every chunk), serial with PQT_FUSED_ENCODE=0 and
+              parallel=True, byte-equal, then without the page index (the
+              fused walk must take every chunk), byte-equal, and prune_pages
+              on 1,000-row trip_id ranges keeping the matches and dropping
+              pages; (d) split_row_groups of the device-written file into
+              two parts and merge_files back, read on the card equal to the
+              generator; (e) medians of 3: the device write with blooms
+              against without, the GZIP host write fused against staged and
+              parallel against serial, the bloom and page-index bytes, and
+              xxh64_fixed, xxh64_offsets, bloom_insert and chunk_encode
+              against their Python oracles on write group 0;
      query    run_local_query over "taxi", unfiltered and under F_taxi:
               count(*), count(passenger_count) and sum/min/max of
               fare_cents (int32 DELTA, widened), pickup_us (int64),
@@ -240,8 +263,8 @@ line with the card count.
 
 The last three lines of standard output are a JSON line of the end-to-end
 rates, the host value functions' A/B seconds, the collectives' times, the
-overlap A/B, profile and dataset rates, and the card's name and power
-limit, the
+overlap A/B, profile and dataset rates, the write-options phase's numbers,
+and the card's name and power limit, the
 `kernels` JSON line (21
 kernels) and the
 `{"ok": true, ...}` line. Without CUDA, or without the package beside it,
@@ -2108,15 +2131,18 @@ def upload_groups(groups: list[dict], dev) -> list[dict]:
     return out
 
 
-def write_taxi(path, schema, groups: list[dict], device: bool) -> None:
+def write_taxi(path, schema, groups: list[dict], device: bool, **options) -> None:
     """Write the groups with the port's FileWriter: device columns through
     write_device_column (device=True) or every column through write_column
-    from NumPy; passenger_count through write_column either way."""
+    from NumPy; passenger_count through write_column either way. `options`
+    override or extend the write phase's FileWriter options."""
     from parquet_tpu_torch import FileWriter
 
-    with FileWriter(path, schema, codec="snappy", data_page_version=1,
-                    max_page_size=1 << 20, use_dictionary=list(WRITE_DICT),
-                    column_encodings=dict.fromkeys(WRITE_DELTA, "DELTA_BINARY_PACKED")) as w:
+    opts = dict(codec="snappy", data_page_version=1, max_page_size=1 << 20,
+                use_dictionary=list(WRITE_DICT),
+                column_encodings=dict.fromkeys(WRITE_DELTA, "DELTA_BINARY_PACKED"))
+    opts.update(options)
+    with FileWriter(path, schema, **opts) as w:
         for grp in groups:
             for name, v in grp.items():
                 if name == "passenger_count":
@@ -2126,6 +2152,388 @@ def write_taxi(path, schema, groups: list[dict], device: bool) -> None:
                 else:
                     w.write_column(name, v)
             w.flush_row_group()
+
+
+# -- the write options: blooms, the page index, the fused and parallel encode --
+
+# The taxi schema in the port's DSL (zone annotated STRING where the
+# generator's footer has the legacy UTF8 only).
+TAXI_DSL = """message schema {
+  required int64 trip_id;
+  required int32 vendor_id;
+  optional int32 passenger_count;
+  required int64 pickup_us;
+  required int32 fare_cents;
+  required double trip_distance;
+  required binary zone (STRING);
+}"""
+# trip_id, vendor_id, trip_distance and zone, and fare_cents: the one leaf
+# with keys in one row group only that lie inside every group's min/max
+# (trip_id's and pickup_us' groups are disjoint ranges; the others' keys are
+# in every group)
+WRITE_BLOOMS = ("trip_id", "vendor_id", "trip_distance", "zone", "fare_cents")
+
+
+def median_s(fn, reps: int = 3) -> tuple[float, list]:
+    """The median of `reps` timed runs of fn() (s), and the runs; the caller
+    has run it once already as the warm-up."""
+    secs = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        secs.append(time.perf_counter() - t)
+    return statistics.median(secs), secs
+
+
+def index_bytes(path) -> tuple[int, int]:
+    """(bloom bytes, page-index bytes) a file's footer points at."""
+    from parquet_tpu_torch.core.reader import FileReader
+
+    bloom = index = 0
+    with FileReader(path) as r:
+        for i in range(r.num_row_groups):
+            for cc in r.row_group(i).columns:
+                bloom += cc.meta_data.bloom_filter_length or 0
+                index += (cc.column_index_length or 0) + (cc.offset_index_length or 0)
+    return bloom, index
+
+
+def bloom_keys(specs, path) -> tuple[int, int, int, int, int]:
+    """fare_cents keys for the bloom read, both inside every group's [min,
+    max]: (key, group, absent, pruned_key, pruned_absent), a key in one row
+    group only, that group, a key in none, and how many groups the filters
+    written in `path` rule out for each."""
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.meta.parquet_types import Type as T
+
+    fare = next(sp for sp in specs if sp.name == "fare_cents").values.reshape(ROW_GROUPS, RG_ROWS)
+    lo, hi = int(fare.min(axis=1).max()), int(fare.max(axis=1).min())
+    groups_of = collections.defaultdict(set)
+    tail = fare >= lo + (hi - lo) // 2  # the sparse tail holds one-group keys
+    for g, v in zip(*np.nonzero(tail)):
+        groups_of[int(fare[g, v])].add(int(g))
+    key = next((v for v in range(hi, lo, -1) if len(groups_of.get(v, ())) == 1), None)
+    absent = next((v for v in range(hi, lo, -1) if v not in groups_of), None)
+    found = key is not None and absent is not None
+    if not found or np.isin([key, absent], fare.ravel()).tolist() != [True, False]:
+        raise AssertionError(f"fare_cents: no one-group key or absent key in [{lo}, {hi}]")
+    group = groups_of[key].pop()
+    with FileReader(path) as r:
+        blooms = [r.read_bloom_filter(g, "fare_cents") for g in range(ROW_GROUPS)]
+    if blooms[group] is None or not blooms[group].might_contain(T.INT32, key):
+        raise AssertionError("fare_cents: the key's own group's bloom filter misses it")
+    pruned_key = sum(not b.might_contain(T.INT32, key) for b in blooms)
+    pruned_absent = sum(not b.might_contain(T.INT32, absent) for b in blooms)
+    return key, group, absent, pruned_key, pruned_absent
+
+
+def bloom_read(path, filters, dev) -> tuple[list, dict]:
+    """The bloom-pruned read: iter_device_batches(filters=, filter_rows=True)
+    over trip_id and fare_cents (the kept rows' trip ids, from the card),
+    and read_row_group_device(i, filters=) + mask_take on every group
+    prune_row_groups admits (their trip ids too); returns (the two id
+    lists, sorted, and the filter counts of the batch stream)."""
+    import torch
+
+    from parquet_tpu_torch.core.reader import FileReader, filter_counts, reset_filter_counts
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    reset_filter_counts()
+    ids = []
+    with FileReader(path) as r:
+        for batch in r.iter_device_batches(BATCH, columns=["trip_id", "fare_cents"],
+                                           drop_remainder=False, filters=filters,
+                                           filter_rows=True):
+            ids.append(batch[("trip_id",)].cpu().numpy())
+        fc = filter_counts()
+        per_group = []
+        for i in r.prune_row_groups(filters):
+            cols, mask = r.read_row_group_device(i, ["trip_id"], filters=filters)
+            n = mask.numel()
+            taken, count = ops.mask_take(cols[("trip_id",)].values, mask, n)
+            per_group.append(taken[: int(count)].cpu().numpy())
+    torch.cuda.synchronize()
+
+    def ordered(parts):
+        return sorted(np.concatenate(parts).tolist()) if parts else []
+
+    return [ordered(ids), ordered(per_group)], fc
+
+
+def ab_write_natives(host_group: dict, schema) -> dict:
+    """The bloom and encode natives against their Python oracles on write
+    group 0's columns: XXH64 batches of trip_id and zone, the bloom insert,
+    and the fused chunk encode against the staged encoder on every column
+    chunk (GZIP, no page index); each side's median of 3 after a warm-up,
+    outputs held equal."""
+    from parquet_tpu_torch.core.arrays import ByteArrayData
+    from parquet_tpu_torch.core.bloom import BloomFilter, bloom_hash_values, bloom_hash_values_plain
+    from parquet_tpu_torch.core.column_store import ColumnChunkBuilder
+    from parquet_tpu_torch.meta.parquet_types import Encoding
+    from parquet_tpu_torch.meta.parquet_types import Type as T
+    from parquet_tpu_torch.sink import encoder
+
+    out = {}
+    few = 20_000
+    trip = host_group["trip_id"][:few]
+    ab_native(out, "xxh64_fixed, 20,000 trip_id values",
+              lambda: bloom_hash_values(T.INT64, trip),
+              lambda: bloom_hash_values_plain(T.INT64, trip), np.array_equal, reps=3)
+    zone = host_group["zone"]
+    zfew = ByteArrayData(offsets=zone.offsets[: few + 1], data=zone.data)
+    ab_native(out, "xxh64_offsets, 20,000 zone values",
+              lambda: bloom_hash_values(T.BYTE_ARRAY, zfew),
+              lambda: bloom_hash_values_plain(T.BYTE_ARRAY, zfew), np.array_equal, reps=3)
+    hashes = bloom_hash_values(T.INT64, trip)
+
+    def inserted(plain):
+        bf = BloomFilter.sized_for(few, 0.01)
+        (bf.insert_hashes_plain if plain else bf.insert_hashes)(hashes)
+        return bf.blocks
+
+    ab_native(out, "bloom_insert, 20,000 trip_id hashes", lambda: inserted(False),
+              lambda: inserted(True), np.array_equal, reps=3)
+    cfg = encoder.EncoderConfig(
+        codec=2, data_page_version=1, max_page_size=1 << 20, with_crc=False,
+        column_encodings={(k,): Encoding.DELTA_BINARY_PACKED for k in WRITE_DELTA})
+    for name, v in host_group.items():
+        leaf = schema.column(name)
+        b = ColumnChunkBuilder(leaf, name in WRITE_DICT)
+        b.set_columnar(*(v if name == "passenger_count" else (v,)))
+        plan = encoder._plan_chunk(cfg, b)
+        ab_native(out, f"chunk_encode, {name} of write group 0 (gzip)",
+                  lambda: encoder._fused_encode_chunk(cfg, b, None, plan),
+                  lambda: encoder._staged_encode_chunk(cfg, b, None, plan),
+                  lambda f, st: (isinstance(f, encoder.EncodedChunk)
+                                 and b"".join(bytes(x) for x in f.parts)
+                                 == b"".join(bytes(x) for x in st.parts)
+                                 and f.chunk.dumps() == st.chunk.dumps()),
+                  reps=3)
+    return out
+
+
+def check_write_options(taxi_specs, host_groups, dev_groups, dev, launches: dict) -> dict:
+    """The write options phase over the write phase's groups: (a) the device
+    write with bloom filters, byte-equal to the host write with the same
+    options; (b) bloom pruning on the card by a one-group key and an absent
+    one; (c) the host write with the page index and GZIP serial and fused,
+    serial and staged (PQT_FUSED_ENCODE=0) and parallel, byte-equal, the
+    fused walk declining the page-index chunks, and a page-index-free GZIP
+    file through the fused walk; prune_pages on trip_id ranges; (d) split
+    and merge of the device-written file, read back on the card; (e) the
+    timings, with SNAPPY and UNCOMPRESSED host writes fused and staged
+    (byte-equal) beside GZIP's. Returns the phase's numbers."""
+    import torch
+
+    from parquet_tpu_torch import (
+        merge_files,
+        parse_schema,
+        reset_write_counts,
+        split_row_groups,
+        write_counts,
+    )
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.kernels.build import BUILD_ROOT
+
+    out: dict = {}
+    schema = parse_schema(TAXI_DSL)
+    d = BUILD_ROOT / "smoke"
+    blooms = list(WRITE_BLOOMS)
+    n_rows = ROW_GROUPS * RG_ROWS
+    chunks = ROW_GROUPS * len(taxi_specs)
+    # (a) the device write with bloom filters
+    dev_file, host_file = d / "opts-device-bloom.parquet", d / "opts-host-bloom.parquet"
+    ops.reset_launch_counts()
+    reset_write_counts()
+    write_taxi(dev_file, schema, dev_groups, device=True, bloom_filters=blooms)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    wc = write_counts()
+    launches["taxi write with blooms"] = counts
+    log(f"[write-options:a] write_device_column, bloom_filters={blooms}: write counts {wc}; "
+        "launches " + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+    if (wc["device_write_engaged"], wc["device_write_declined"]) != (6 * ROW_GROUPS, 0):
+        raise AssertionError(f"write counts {wc}: every numeric device column must engage")
+    for k in ("dict_indices", "rle_hybrid_encode", "delta_block_encode", "plain_bytearray_encode"):
+        if counts[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the write with blooms")
+    write_taxi(host_file, schema, host_groups, device=False, bloom_filters=blooms)
+    if dev_file.read_bytes() != host_file.read_bytes():
+        raise AssertionError("the device write with blooms differs from the host write's")
+    with FileReader(dev_file) as r:
+        if [c.path for c in r.schema.leaves] != [(sp.name,) for sp in taxi_specs]:
+            raise AssertionError("the DSL taxi schema's leaves differ from the generator's")
+        for g in range(ROW_GROUPS):
+            for name in WRITE_BLOOMS:
+                if r.read_bloom_filter(g, name) is None:
+                    raise AssertionError(f"group {g} {name}: no bloom filter written")
+    out["bytes"] = {"device bloom file": dict(zip(("bloom", "page_index"), index_bytes(dev_file)))}
+    log(f"[write-options:a] the device write's file equals the host write's, byte for byte; "
+        f"bloom bytes {out['bytes']['device bloom file']['bloom']:,}")
+    # (b) bloom pruning on the card
+    key, group, absent, pruned_key, pruned_absent = bloom_keys(taxi_specs, dev_file)
+    fare = next(sp for sp in taxi_specs if sp.name == "fare_cents").values
+    trip = next(sp for sp in taxi_specs if sp.name == "trip_id").values
+    for label, value, pruned in (("one-group key", key, pruned_key),
+                                 ("absent key", absent, pruned_absent)):
+        filters = [("fare_cents", "==", value)]
+        ops.reset_launch_counts()
+        got, fc = bloom_read(dev_file, filters, dev)
+        counts = kernel_counts()
+        launches[f"taxi bloom-pruned read, {label}"] = counts
+        want = sorted(trip[fare == value].tolist())
+        where = f"group {group}" if value == key else "no group"
+        log(f"[write-options:b] fare_cents == {value} ({label}, {where}): {len(want)} rows; "
+            f"filter counts {fc}; launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+        if fc.get("groups_pruned_stats") or fc.get("groups_pruned_bloom") != pruned:
+            raise AssertionError(f"{label}: filter counts {fc}; the written filters prune "
+                                 f"{pruned} groups and statistics none")
+        if pruned < ROW_GROUPS - 2 - (value == key):
+            raise AssertionError(f"{label}: only {pruned} groups pruned by bloom")
+        if got != [want, want]:
+            raise AssertionError(f"{label}: the rows read on the card differ from NumPy's")
+        if pruned < ROW_GROUPS and (counts["predicate_mask"] <= 0 or counts["mask_take"] <= 0):
+            raise AssertionError(f"{label}: predicate_mask / mask_take were not launched on "
+                                 "the groups the filters admit")
+    out["bloom_read"] = {"key": key, "group": group, "absent": absent,
+                         "pruned_key": pruned_key, "pruned_absent": pruned_absent}
+    log("[write-options:b] bloom pruning as the written filters predict; rows equal NumPy's")
+    # (c) the host write variants: page index + GZIP, three ways
+    files = {}
+    variants = (("serial fused", {}, {}), ("serial staged", {"PQT_FUSED_ENCODE": "0"}, {}),
+                ("parallel", {}, {"parallel": True}))
+    for label, env, opts in variants:
+        f = d / f"opts-index-{label.replace(' ', '-')}.parquet"
+        reset_write_counts()
+        t = time.perf_counter()
+        with env_set(**env):
+            write_taxi(f, schema, host_groups, device=False, codec="gzip",
+                       write_page_index=True, **opts)
+        wc = write_counts()
+        log(f"[write-options:c] page index + gzip, {label}: {time.perf_counter() - t:.2f} s, "
+            f"write counts {wc}")
+        files[label] = f
+        fused = (wc["encode_fused_declined"], wc["encode_fused_engaged"])
+        if label != "serial staged" and fused != (chunks, 0):
+            raise AssertionError(f"{label}: the fused walk must decline all {chunks} page-index "
+                                 f"chunks ({wc})")
+        if label == "serial staged" and (wc["encode_fused_declined"] or wc["encode_fused_engaged"]):
+            raise AssertionError(f"PQT_FUSED_ENCODE=0 still counted fused work ({wc})")
+    raw = {label: f.read_bytes() for label, f in files.items()}
+    if len(set(raw.values())) != 1:
+        raise AssertionError("the page-index files of the three host writes differ")
+    out["bytes"]["page index file"] = dict(zip(("bloom", "page_index"),
+                                               index_bytes(files["serial fused"])))
+    log("[write-options:c] serial fused, serial staged and parallel page-index files are equal")
+    plain = {}
+    for label, env, opts in variants:
+        f = d / f"opts-gzip-{label.replace(' ', '-')}.parquet"
+        reset_write_counts()
+        with env_set(**env):
+            write_taxi(f, schema, host_groups, device=False, codec="gzip", **opts)
+        wc = write_counts()
+        plain[label] = f
+        if label != "serial staged" and (wc["encode_fused_engaged"], wc["encode_fused_declined"],
+                                         wc["encode_fallback_recovered"]) != (chunks, 0, 0):
+            raise AssertionError(f"{label}: the fused walk must take all {chunks} chunks ({wc})")
+    if len({f.read_bytes() for f in plain.values()}) != 1:
+        raise AssertionError("the page-index-free gzip files of the three host writes differ")
+    log(f"[write-options:c] page-index-free gzip: the fused walk took all {chunks} chunks; "
+        "serial fused, serial staged and parallel files are equal")
+    ranges = {}
+    with FileReader(files["serial fused"]) as r:
+        for g in range(ROW_GROUPS):
+            lo = int(trip[g * RG_ROWS]) + RG_ROWS // 3
+            flt = [("trip_id", ">=", lo), ("trip_id", "<", lo + 1000)]
+            kept = r.prune_pages(g, flt)
+            rows = sum(b - a for a, b in kept)
+            seg = trip[g * RG_ROWS:(g + 1) * RG_ROWS]
+            match = np.nonzero((seg >= lo) & (seg < lo + 1000))[0]
+            inside = np.zeros(RG_ROWS, dtype=bool)
+            for a, b in kept:
+                inside[a:b] = True
+            if rows >= RG_ROWS or not inside[match].all() or len(match) != 1000:
+                raise AssertionError(f"prune_pages group {g}: kept {kept} for {len(match)} rows")
+            ranges[g] = rows
+    out["prune_pages_rows_kept"] = ranges
+    log(f"[write-options:c] prune_pages on trip_id ranges of 1,000 rows keeps "
+        f"{sorted(set(ranges.values()))} of {RG_ROWS} rows a group; every match inside")
+    # (d) split and merge
+    parts = split_row_groups(dev_file, str(d / "opts-part-%d.parquet"), ROW_GROUPS // 2)
+    merged = d / "opts-merged.parquet"
+    merge_files(merged, parts)
+    reader = FileReader(merged)
+    groups = reader.read_row_groups_device()
+    torch.cuda.synchronize()
+    check_main_path(groups, taxi_specs, reader.stats, no_host_fallback=False)
+    del groups
+    log(f"[write-options:d] split into {len(parts)} parts and merged back: read on the card, "
+        "the columns equal the generator's")
+    # (e) timings, medians of 3; the writes of (a) and (c) were the
+    # warm-ups, and for SNAPPY and UNCOMPRESSED the fused and staged writes
+    # here, held byte-equal
+    for codec in ("snappy", "uncompressed"):
+        for label, env in (("fused", {}), ("staged", {"PQT_FUSED_ENCODE": "0"})):
+            f = d / f"opts-{codec}-{label}.parquet"
+            reset_write_counts()
+            with env_set(**env):
+                write_taxi(f, schema, host_groups, device=False, codec=codec)
+            wc = write_counts()
+            got = (wc["encode_fused_engaged"], wc["encode_fused_declined"],
+                   wc["encode_fallback_recovered"])
+            if got != ((chunks, 0, 0) if label == "fused" else (0, 0, 0)):
+                raise AssertionError(f"{codec} {label}: write counts {wc}")
+            plain[f"{codec} {label}"] = f
+        if plain[f"{codec} fused"].read_bytes() != plain[f"{codec} staged"].read_bytes():
+            raise AssertionError(f"the {codec} files of the fused and staged writes differ")
+    log(f"[write-options:e] snappy and uncompressed: the fused walk took all {chunks} chunks; "
+        "the fused and staged files are equal")
+    rates = {}
+    for label, fn in (
+        ("device write, blooms", lambda: write_taxi(dev_file, schema, dev_groups, True,
+                                                   bloom_filters=blooms)),
+        ("device write, no blooms", lambda: write_taxi(dev_file, schema, dev_groups, True)),
+        ("host write gzip, serial fused", lambda: write_taxi(plain["serial fused"], schema,
+                                                             host_groups, False, codec="gzip")),
+        ("host write gzip, serial staged", lambda: write_taxi(
+            plain["serial staged"], schema, host_groups, False, codec="gzip")),
+        ("host write gzip, parallel fused", lambda: write_taxi(
+            plain["parallel"], schema, host_groups, False, codec="gzip", parallel=True)),
+        *((f"host write {codec}, serial {way}",
+           lambda codec=codec, way=way: write_taxi(plain[f"{codec} {way}"], schema,
+                                                   host_groups, False, codec=codec))
+          for codec in ("snappy", "uncompressed") for way in ("fused", "staged")),
+    ):
+        env = {"PQT_FUSED_ENCODE": "0"} if "staged" in label else {}
+        with env_set(**env):
+            med, secs = median_s(lambda: (fn(), torch.cuda.synchronize()))
+        rates[label] = n_rows / med
+        log(f"  {label}: {rates[label]:,.0f} rows/s (median of {[round(x, 3) for x in secs]} s)")
+    out["rows_per_s"] = rates
+    blooms_ratio = rates["device write, blooms"] / rates["device write, no blooms"]
+    fused_ratio = rates["host write gzip, serial fused"] / rates["host write gzip, serial staged"]
+    par_ratio = rates["host write gzip, parallel fused"] / rates["host write gzip, serial fused"]
+    codec_ratios = {codec: rates[f"host write {codec}, serial fused"]
+                    / rates[f"host write {codec}, serial staged"]
+                    for codec in ("snappy", "uncompressed")}
+    out["fused_over_staged"] = {"gzip": fused_ratio, **codec_ratios}
+    log(f"[write-options:e] device write blooms / none {blooms_ratio:.3f}; host fused / staged "
+        f"gzip {fused_ratio:.3f}, snappy {codec_ratios['snappy']:.3f}, uncompressed "
+        f"{codec_ratios['uncompressed']:.3f}; parallel / serial {par_ratio:.3f}; "
+        f"os.cpu_count() {os.cpu_count()}")
+    for label, b in out["bytes"].items():
+        size = (dev_file if "device" in label else files["serial fused"]).stat().st_size
+        log(f"  {label}: bloom {b['bloom']:,} bytes, page index {b['page_index']:,} bytes, "
+            f"file {size:,} bytes")
+    log("[write-options:e] the new natives against their Python oracles, write group 0:")
+    out["native_ab_s"] = ab_write_natives(host_groups[0], schema)
+    for f in [dev_file, host_file, merged, *files.values(), *plain.values()]:
+        f.unlink()
+    for f in parts:
+        Path(f).unlink()
+    return out
 
 
 def time_write_kernels(dev_groups: list[dict], dev, rows: dict, bw: float) -> None:
@@ -2400,6 +2808,33 @@ def header_walk(path, read) -> list:
     return headers
 
 
+def ab_native(out: dict, label: str, native, oracle, same, reps: int = 0) -> None:
+    """One native function against its Python oracle, the outputs held equal
+    by `same` (an inequality fails the run). With reps=0 each side is timed
+    once, cold; else that first call is the warm-up and each side's time is
+    the median of `reps` more runs. The seconds are logged and kept in
+    out[label]."""
+    t = time.perf_counter()
+    got = native()
+    native_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want = oracle()
+    oracle_s = time.perf_counter() - t
+    if not same(got, want):
+        raise AssertionError(f"A/B {label}: the native function differs from its oracle")
+    out[label] = {"native_s": native_s, "oracle_s": oracle_s}
+    runs = ""
+    if reps:
+        native_s, native_runs = median_s(native, reps)
+        oracle_s, oracle_runs = median_s(oracle, reps)
+        out[label] = {"native_s": native_s, "oracle_s": oracle_s,
+                      "native_runs": native_runs, "oracle_runs": oracle_runs}
+        runs = (f" (medians of {[round(x, 4) for x in native_runs]} and "
+                f"{[round(x, 4) for x in oracle_runs]} s)")
+    log(f"  A/B {label}: native {native_s:.4f} s, Python oracle {oracle_s:.4f} s "
+        f"({oracle_s / max(native_s, 1e-9):.1f}x), equal{runs}")
+
+
 def ab_native_values(paths: dict, host_group: dict, taxi_specs) -> dict:
     """Phase 5's A/B of the host value functions on row group 0 of the real
     columns: each function of the port's host library (native/values.cc and
@@ -2441,17 +2876,7 @@ def ab_native_values(paths: dict, host_group: dict, taxi_specs) -> dict:
         return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
 
     def ab(label, native, oracle):
-        t = time.perf_counter()
-        got = native()
-        native_s = time.perf_counter() - t
-        t = time.perf_counter()
-        want = oracle()
-        oracle_s = time.perf_counter() - t
-        if not same(got, want):
-            raise AssertionError(f"A/B {label}: the native function differs from its oracle")
-        out[label] = {"native_s": native_s, "oracle_s": oracle_s}
-        log(f"  A/B {label}: native {native_s:.4f} s, Python oracle {oracle_s:.4f} s "
-            f"({oracle_s / max(native_s, 1e-9):.1f}x), equal")
+        ab_native(out, label, native, oracle, same)
 
     def gathered(pages):
         return [tplain.decode_plain(b, n, T.BYTE_ARRAY) for _k, _h, b, n in pages]
@@ -4036,7 +4461,7 @@ def main(argv=None) -> int:
         f"{dev_file.stat().st_size / 2**20:.1f} MiB, write counts {wc}, launches "
         + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
     want_wc = {"device_write_engaged": 6 * ROW_GROUPS, "device_write_declined": 0}
-    if wc != want_wc:
+    if {k: wc[k] for k in want_wc} != want_wc:
         raise AssertionError(f"write counts {wc}, expected {want_wc}")
     for k in WRITE_KERNELS:
         if k != "bitpack_encode" and counts[k] <= 0:
@@ -4057,6 +4482,7 @@ def main(argv=None) -> int:
     del groups
     log(f"[write:taxi] read back with read_row_groups_device: columns equal the generator "
         f"({reader.stats})")
+    write_options = check_write_options(taxi_specs, host_groups, dev_groups, dev, launches)
     # the query path: run_local_query over taxi, unfiltered and under F_taxi
     from parquet_tpu_torch.serve.aggregate import query_device_counts, reset_query_device_counts
 
@@ -4162,14 +4588,6 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return out
 
-    def median_s(fn, reps=3):
-        secs = []
-        for _ in range(reps):
-            t = time.perf_counter()
-            fn()
-            secs.append(time.perf_counter() - t)
-        return statistics.median(secs), secs
-
     rates = {}
     def batch_stream(label):
         path, kwargs, step, _want, _need = batch_paths[label]
@@ -4265,7 +4683,8 @@ def main(argv=None) -> int:
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"rows_per_s": rates, "prepare_s": prepare, "native_ab_s": native_ab,
-                      "collectives": scan["collectives"], "overlap": overlap, "card": smi}))
+                      "collectives": scan["collectives"], "overlap": overlap,
+                      "write_options": write_options, "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -8,7 +8,12 @@ RLE/bit-packed expansion, dictionary gather and DELTA_BINARY_PACKED decode.
 Filters prune row groups by statistics and bloom filters and evaluate as
 device row masks, compacted on the card. FileWriter writes device tensors
 back to Parquet: the dictionary probe, the hybrid and DELTA encodes and the
-byte-array framing run on the card, byte-identical to the host write.
+byte-array framing run on the card, byte-identical to the host write;
+host chunks encode in one native call each (the fused encode walk), with
+bloom filters, the page index and a parallel encode pipeline as options.
+Schemas come from the text DSL (parse_schema) or the typed builders
+(schema.builder), and merge_files / split_row_groups copy row groups
+between files without re-encoding.
 Aggregation queries (serve.run_local_query) filter and reduce each row
 group on the card, and scans (parallel.column_stats,
 distributed_column_stats, sharded_decode_step) spread row groups and pages
@@ -26,10 +31,12 @@ over devices and torch.distributed ranks.
             100_000, filters=[("fare", ">=", 1500)], filter_rows=True):
         ...                                         # matching rows only, compacted on the card
 
-    with FileWriter("out.parquet", schema, codec="snappy") as w:
+    schema = parse_schema("message m { required int32 fare; required binary zone; }")
+    with FileWriter("out.parquet", schema, codec="snappy",
+                    bloom_filters=["zone"], write_page_index=True) as w:
         w.write_device_column("fare", fare_tensor)  # a CUDA tensor
         w.write_device_column("zone", (data_u8, offsets_i64))
-    write_counts()                                  # device_write_engaged / _declined
+    write_counts()                                  # device_write_engaged / _declined, encode_fused_*
 
 `device="cpu"` runs the kernels' plain PyTorch versions on the CPU; without
 it a machine with no CUDA raises.
@@ -42,6 +49,7 @@ from .core.page import PageError
 from .core.filter import FilterError
 from .core.filter_device import DeviceFilterError
 from .core.filter_vec import VecFilterError
+from .core.merge import merge_files, split_row_groups
 from .core.reader import (
     BACKENDS,
     FileReader,
@@ -50,13 +58,23 @@ from .core.reader import (
     filter_counts,
     reset_filter_counts,
 )
-from .core.schema import Column, Schema
+from .core.schema import Column, Schema, SchemaError
 from .core.writer import FileWriter, WriterError, reset_write_counts, write_counts
 from .kernels.pipeline import DecodeStats, DeviceColumn
 from .meta.file_meta import ParquetFileError, read_file_metadata
+from .schema import builder
+from .schema.dsl import (
+    SchemaParseError,
+    parse_schema,
+    schema_to_string,
+    validate,
+    validate_strict,
+)
+from .sink.sink import BufferedSink
 
 __all__ = [
     "BACKENDS",
+    "BufferedSink",
     "ByteArrayData",
     "ChunkData",
     "ChunkError",
@@ -73,12 +91,21 @@ __all__ = [
     "ParquetFileError",
     "RaggedColumn",
     "Schema",
+    "SchemaError",
+    "SchemaParseError",
     "VecFilterError",
     "WriterError",
+    "builder",
     "filter_counts",
+    "merge_files",
+    "parse_schema",
     "read_chunk",
     "read_file_metadata",
     "reset_filter_counts",
     "reset_write_counts",
+    "schema_to_string",
+    "split_row_groups",
+    "validate",
+    "validate_strict",
     "write_counts",
 ]

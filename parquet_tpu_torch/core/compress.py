@@ -154,6 +154,36 @@ def codec_supported(codec: CompressionCodec) -> bool:
     return int(codec) in _REGISTRY
 
 
+_GZIP_FUSED_OK: bool | None = None
+
+
+def fused_gzip_identical() -> bool:
+    """One-time probe: the native deflate (ptq_gzip_compress) must produce a
+    gzip stream byte-identical to zlib.compressobj(wbits=31), true when the
+    host library and CPython link the same zlib build. A CPython bundling a
+    different zlib keeps GZIP chunks on the staged encoder (the fused walk's
+    byte-identity contract is absolute)."""
+    global _GZIP_FUSED_OK
+    if _GZIP_FUSED_OK is None:
+        probe = bytes(range(256)) * 16 + b"parquet_tpu gzip probe " * 64
+        _GZIP_FUSED_OK = _native().gzip_compress(probe) == _Gzip().compress(probe)
+    return _GZIP_FUSED_OK
+
+
+def is_fused_encode_codec(codec) -> bool:
+    """True while `codec` resolves to an implementation the fused native
+    ENCODE walk reproduces byte for byte: the stock UNCOMPRESSED
+    pass-through, the native snappy encoder (the walk calls the same
+    function), or stock gzip once the deflate identity probe has passed.
+    register_codec overrides stand the fused encoder down."""
+    impl = _REGISTRY.get(int(codec))
+    if isinstance(impl, (_Uncompressed, _NativeSnappy)):
+        return True
+    if isinstance(impl, _Gzip):
+        return fused_gzip_identical()
+    return False
+
+
 def is_builtin_codec(codec) -> bool:
     """True while `codec` still resolves to a stock implementation: the
     native whole-chunk walk inlines UNCOMPRESSED, SNAPPY, GZIP, LZ4 and

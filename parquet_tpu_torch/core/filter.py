@@ -3,10 +3,10 @@ min/max/null-count proof that a row group holds no match.
 
 A copy of parquet_tpu/core/filter.py cut to what the port's filtering
 uses: `normalize_filters` / `normalize_dnf` (with their coercion helpers),
-the statistics decode and `row_group_may_match` / `dnf_group_may_match`.
-The page-index pruning and the scalar row walk (`row_matches`,
-`dnf_page_ranges`) wait for the slices that read the page index and
-iterate rows.
+the statistics decode, `row_group_may_match` / `dnf_group_may_match`, and
+the page-index pruning (`page_ranges_matching`, `dnf_page_ranges`: the row
+ranges of a group whose pages the ColumnIndex cannot rule out). The scalar
+row walk (`row_matches`) waits for the slice that iterates rows.
 
 Filters are pyarrow-style conjunctive triples, or an OR of conjunctions:
 
@@ -37,6 +37,8 @@ __all__ = [
     "normalize_dnf",
     "row_group_may_match",
     "dnf_group_may_match",
+    "dnf_page_ranges",
+    "page_ranges_matching",
 ]
 
 _OPS = (
@@ -461,3 +463,120 @@ def dnf_group_may_match(rg, dnf, bloom_excludes=None, group_index=None) -> bool:
             continue
         return True
     return False
+
+
+def page_ranges_matching(normalized, indexes, num_rows: int):
+    """Row ranges of one row group that may hold matching rows, proven by
+    the page index ({path: (ColumnIndex, OffsetIndex)}). Returns a sorted
+    disjoint [(start, stop)] list; [(0, num_rows)] when nothing can be
+    pruned. Conservative: a range is dropped only when every filter column's
+    ColumnIndex PROVES its pages empty of matches."""
+    ranges = [(0, num_rows)] if num_rows > 0 else []
+    for path, leaf, op, _row_value, vlo, vhi in normalized:
+        pair = indexes.get(path)
+        if not pair:
+            continue
+        ci, oi = pair
+        if ci is None or oi is None or not oi.page_locations:
+            continue
+        locs = oi.page_locations
+        n_pages = len(locs)
+        # a malformed/foreign index (thrift decodes lists independently, so
+        # lengths can disagree, and first_row_index can be absent) must
+        # degrade to "cannot prune on this column", never crash
+        if (
+            ci.null_pages is None
+            or len(ci.null_pages) != n_pages
+            or ci.min_values is None
+            or len(ci.min_values) != n_pages
+            or ci.max_values is None
+            or len(ci.max_values) != n_pages
+            or (ci.null_counts and len(ci.null_counts) != n_pages)
+            or any(not isinstance(loc.first_row_index, int) for loc in locs)
+            or locs[0].first_row_index < 0
+            # non-monotonic row indexes would break the sorted-disjoint
+            # contract of the range intersection below
+            or any(
+                b.first_row_index <= a.first_row_index
+                for a, b in zip(locs, locs[1:])
+            )
+        ):
+            continue
+        nulls = ci.null_counts if ci.null_counts else [None] * n_pages
+        keep = []
+        for k, loc in enumerate(locs):
+            start = loc.first_row_index
+            stop = (
+                locs[k + 1].first_row_index if k + 1 < n_pages else num_rows
+            )
+            if stop <= start:
+                continue
+            if _page_admits(
+                leaf, op, vlo, vhi, ci.null_pages[k],
+                ci.min_values[k], ci.max_values[k], nulls[k], stop - start,
+            ):
+                keep.append((start, stop))
+        ranges = _intersect_ranges(ranges, keep)
+        if not ranges:
+            return []
+    return _coalesce_ranges(ranges)
+
+
+def dnf_page_ranges(dnf, indexes, num_rows: int):
+    """Union of each conjunction's admitted row ranges."""
+    all_ranges: list = []
+    for conj in dnf:
+        rs = page_ranges_matching(conj, indexes, num_rows)
+        if rs == [(0, num_rows)]:
+            return rs  # one conjunction admits everything
+        all_ranges.extend(rs)
+    all_ranges.sort()
+    return _coalesce_ranges(all_ranges)
+
+
+def _coalesce_ranges(rs):
+    out: list = []
+    for s, e in rs:
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out
+
+
+def _page_admits(leaf, op, vlo, vhi, is_null_page, min_raw, max_raw, null_count, rows):
+    if is_null_page:
+        return op == "is_null"
+    if op == "is_null":
+        return null_count is None or null_count > 0
+    if op == "not_null":
+        # rows counts ROWS; null_count counts level slots — only the
+        # all-null proof is safe, and only for non-repeated columns
+        return not (
+            leaf.max_rep == 0 and null_count is not None and null_count >= rows
+        )
+    if vlo is None:
+        return True
+    lo = _decode_stat(leaf, min_raw, legacy=False)
+    hi = _decode_stat(leaf, max_raw, legacy=False)
+    if lo is None or hi is None:
+        return True
+    if isinstance(lo, float) and (lo != lo or hi != hi):
+        return True
+    return _bounds_admit(op, vlo, vhi, lo, hi, null_count)
+
+
+def _intersect_ranges(a, b):
+    """Intersection of two sorted disjoint [(start, stop)] lists."""
+    out = []
+    i = j = 0
+    while i < len(a) and j < len(b):
+        lo = max(a[i][0], b[j][0])
+        hi = min(a[i][1], b[j][1])
+        if lo < hi:
+            out.append((lo, hi))
+        if a[i][1] <= b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out

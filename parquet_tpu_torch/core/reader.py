@@ -32,6 +32,8 @@ delivered columns (read_row_group_device(filters=), core/filter_device,
 with the host vec engine as its typed and counted fallback), and compact
 a batch stream on the device (iter_device_batches(filters=,
 filter_rows=True)). filter_counts() reads the plain counters of that path.
+Within a group, the page index (read_page_index) narrows a filter to the
+row ranges whose pages may match (prune_pages).
 
 The device is explicit: `device=None` means `torch.device("cuda")`, and a
 reader built without a device on a machine with no CUDA raises rather than
@@ -63,12 +65,19 @@ from ..kernels.pipeline import (
     to_device,
 )
 from ..meta.file_meta import ParquetFileError, read_file_metadata
-from ..meta.parquet_types import BloomFilterHeader, FieldRepetitionType, FileMetaData, RowGroup
+from ..meta.parquet_types import (
+    BloomFilterHeader,
+    ColumnIndex,
+    FieldRepetitionType,
+    FileMetaData,
+    OffsetIndex,
+    RowGroup,
+)
 from ..meta.thrift import CompactReader, ThriftError
 from ..utils.native import get_native
 from .bloom import BloomFilter
 from .chunk import ChunkData, ChunkError, ChunkWindow, chunk_byte_range, read_chunk
-from .filter import chunks_by_path, normalize_dnf, row_group_may_match
+from .filter import chunks_by_path, dnf_page_ranges, normalize_dnf, row_group_may_match
 from .filter_device import DeviceFilterError, device_dnf_mask
 from .filter_vec import dnf_mask
 from .page import PageError
@@ -849,6 +858,41 @@ class FileReader:
         _bump("groups_pruned_stats", stats_pruned)
         _bump("groups_pruned_bloom", bloom_pruned)
         return admitted
+
+    def read_page_index(self, i: int, columns=None) -> dict:
+        """The Parquet page index of row group i: {leaf path: (ColumnIndex,
+        OffsetIndex)}; columns whose chunk carries no index map to
+        (None, None)."""
+        out = {}
+        for path, cc, _col in self._selected_chunks(i, columns):
+            ci = oi = None
+            try:
+                if cc.column_index_offset and cc.column_index_length:
+                    ci = ColumnIndex.loads(
+                        self._pread(cc.column_index_offset, cc.column_index_length)
+                    )
+                if cc.offset_index_offset and cc.offset_index_length:
+                    oi = OffsetIndex.loads(
+                        self._pread(cc.offset_index_offset, cc.offset_index_length)
+                    )
+            except ThriftError as e:
+                raise ParquetFileError(
+                    f"parquet: corrupt page index for {'.'.join(path)}: {e}"
+                ) from e
+            out[path] = (ci, oi)
+        return out
+
+    def prune_pages(self, i: int, filters) -> list[tuple[int, int]]:
+        """Row ranges of row group i that may contain rows matching
+        `filters`, proven by the page index: sorted disjoint [(start,
+        stop)); [(0, num_rows)] when the file has no page index or nothing
+        can be pruned, [] when the whole group is provably empty of
+        matches."""
+        dnf = normalize_dnf(self.schema, filters)
+        num_rows = self.row_group(i).num_rows or 0
+        paths = [p for conj in dnf for p, *_ in conj]
+        indexes = self.read_page_index(i, columns=paths) if paths else {}
+        return dnf_page_ranges(dnf, indexes, num_rows)
 
     def read_bloom_filter(self, i: int, column):
         """The split-block bloom filter of one column chunk, or None when

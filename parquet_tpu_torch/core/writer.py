@@ -1,8 +1,8 @@
-"""FileWriter: the low-level write API, columnar and serial.
+"""FileWriter: the low-level write API, columnar.
 
-A copy of parquet_tpu/core/writer.py, cut to what the device write path
-needs (reference: file_writer.go:15-27, :46-77 ctor/options, :229-276
-FlushRowGroup, :297-350 Close/footer):
+A copy of parquet_tpu/core/writer.py without the row path (reference:
+file_writer.go:15-27, :46-77 ctor/options, :229-276 FlushRowGroup,
+:297-350 Close/footer):
 
   write_column(path, values, def_levels=, rep_levels=)   host values
   write_device_column(path, tensor | (data, offsets))    device values
@@ -10,21 +10,27 @@ FlushRowGroup, :297-350 Close/footer):
 
 Per row group each leaf's values become a typed array, the dictionary
 decision is made over the whole chunk, pages of <= max_page_size are
-emitted ([dict page] + data pages, V1 or V2), and close() writes the Thrift
-footer. Bytes leave through a ByteSink (sink/sink.py): a path is written to
-a temp file renamed over the destination at close, so a fault or an abort
-never leaves a torn file. A device column is encoded by
+emitted ([dict page] + data pages, V1 or V2; sink/encoder.py's fused native
+walk or its staged Python loop), and close() writes the bloom filters
+(`bloom_filters=`), then every ColumnIndex and every OffsetIndex
+(`write_page_index=`), then the Thrift footer. Bytes leave through a
+ByteSink (sink/sink.py): a path is written to a temp file renamed over the
+destination at close, so a fault or an abort never leaves a torn file.
+`parallel=` fans chunk encodes out on the pqt-encode pool while one
+in-order flusher commits groups, byte-identical to the serial write, with
+bounded in-flight bytes (`max_inflight_bytes=`) and faults raised as
+WriterError on the writer's next call. A device column is encoded by
 kernels/pipeline.encode_device_column, byte-identical to write_column of the
 same values; the shapes it declines are encoded on the host, counted
 (write_counts()).
 
-Left out, each raising WriterError that names its slice: the row path
-(write_row / write_rows over the Shredder, with the host row assembly),
-`parallel=` (the encode pipeline), `write_page_index=` and `bloom_filters=`
-(the page index and bloom writes).
+Left out, raising WriterError: the row path (write_row / write_rows over
+the Shredder, with the host row assembly).
 """
 
 from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -41,14 +47,28 @@ from ..meta.parquet_types import (
     Type,
     TypeDefinedOrder,
 )
-from ..sink.encoder import EncoderConfig, assemble_group, commit_group, encode_chunk
+from ..sink.encoder import (
+    EncodePipeline,
+    EncoderConfig,
+    assemble_group,
+    commit_group,
+    encode_chunk,
+    encode_pool,
+)
+from ..sink.counts import count, reset_write_counts, write_counts
 from ..sink.sink import open_sink
+from .arrays import ByteArrayData
 from .column_store import MAX_PAGE_SIZE_DEFAULT, ColumnChunkBuilder
 from .schema import Column, Schema
 
 __all__ = ["FileWriter", "WriterError", "write_counts", "reset_write_counts"]
 
 ROW_GROUP_SIZE_DEFAULT = 128 << 20  # bytes, reference file_writer.go default
+
+# parallel=: the most estimated input bytes buffered between encode and
+# flush, the backpressure that keeps a fast producer from buffering every
+# pending row group in memory while the sink drains.
+MAX_INFLIGHT_BYTES_DEFAULT = 256 << 20
 
 # Allowed fallback (non-dictionary) encodings per physical type — the write
 # side of the reference's encoder selection matrix (chunk_writer.go:13-128).
@@ -75,22 +95,6 @@ _ALLOWED_ENCODINGS = {
     Type.FIXED_LEN_BYTE_ARRAY: {Encoding.PLAIN, Encoding.BYTE_STREAM_SPLIT},
 }
 
-# Device write routing, as plain counters: a device column encoded on the
-# device (engaged) or, for a shape the device encoder declines, on the host.
-_COUNTS = {"device_write_engaged": 0, "device_write_declined": 0}
-
-
-def write_counts() -> dict:
-    """The device write counters: device_write_engaged and
-    device_write_declined."""
-    return dict(_COUNTS)
-
-
-def reset_write_counts() -> None:
-    for k in _COUNTS:
-        _COUNTS[k] = 0
-
-
 class WriterError(ValueError):
     pass
 
@@ -107,7 +111,12 @@ class FileWriter:
 
     `sink` is a path (written ATOMICALLY: a temp file renamed over the
     destination at close, so failures never leave a torn file), a writable
-    binary file object, or any ByteSink.
+    binary file object, or any ByteSink. `parallel=True` encodes row
+    groups on the shared pqt-encode pool (an int spins up a dedicated pool
+    of that many workers); output bytes are identical to the serial path.
+    Encode/flush faults in parallel mode surface as WriterError on the next
+    writer call (deferred propagation) and the destination is never
+    committed.
     """
 
     def __init__(
@@ -129,6 +138,7 @@ class FileWriter:
         bloom_filters=None,
         sorting_columns=None,
         parallel=False,
+        max_inflight_bytes: int = MAX_INFLIGHT_BYTES_DEFAULT,
     ):
         """`column_encodings` maps a leaf ("a.b" or tuple) to the fallback
         value encoding used when the column is not dictionary-encoded:
@@ -136,19 +146,21 @@ class FileWriter:
         DELTA_LENGTH_BYTE_ARRAY / DELTA_BYTE_ARRAY (byte arrays).
         `use_dictionary` is True/False for all columns or a list of leaves
         to dictionary-encode (overrides `enable_dictionary` when given).
+        `write_page_index=True` emits the Parquet page index (ColumnIndex +
+        OffsetIndex per chunk, written between the last row group and the
+        footer): per-page min/max/null stats readers use for page pruning.
+        `bloom_filters` emits split-block bloom filters: a {leaf: True |
+        {"fpp": float, "ndv": int}} dict, a list of leaves, or True for every
+        eligible leaf; default fpp 0.01, default ndv the chunk's value count
+        (exact for dictionary chunks).
         `sorting_columns` declares the row ordering in row-group metadata
         (not enforced): leaf names or (leaf, descending, nulls_first)
-        triples. `write_page_index`, `bloom_filters` and `parallel` are not
-        ported yet and raise."""
+        triples.
+        `parallel` enables the pqt-encode pipeline (True = shared pool,
+        int = dedicated pool of that size); `max_inflight_bytes` bounds the
+        estimated encoded bytes buffered between encode and flush."""
         # Validate EVERY option before the sink opens: a typo'd codec or
         # column name must fail before any filesystem effect.
-        for name, value, slice_ in (
-            ("write_page_index", write_page_index, "the page index"),
-            ("bloom_filters", bloom_filters, "bloom filter writes"),
-            ("parallel", parallel, "the parallel encode pipeline"),
-        ):
-            if value:
-                raise WriterError(f"writer: {name}= comes with {slice_}, not ported yet")
         self.schema = schema
         if isinstance(codec, str):
             try:
@@ -172,8 +184,14 @@ class FileWriter:
         self.with_crc = with_crc
         self.created_by = created_by
         self.key_value_metadata = dict(key_value_metadata or {})
-        self._sorting = self._resolve_sorting(schema, sorting_columns)
         self._row_groups: list[RowGroup] = []
+        self.write_page_index = write_page_index
+        # aligned with _row_groups: per group, per chunk (leaf order):
+        # (ColumnChunk, ColumnIndex, OffsetIndex) awaiting emission at close
+        self._page_indexes: list[list] = []
+        self._bloom_specs = self._resolve_blooms(schema, bloom_filters)
+        self._sorting = self._resolve_sorting(schema, sorting_columns)
+        self._blooms: list[tuple] = []  # (ColumnMetaData, BloomFilter)
         self._cfg = EncoderConfig(
             codec=int(self.codec),
             data_page_version=data_page_version,
@@ -181,7 +199,24 @@ class FileWriter:
             with_crc=with_crc,
             column_encodings=dict(self._column_encodings),
             sorting=tuple(self._sorting) if self._sorting else None,
+            write_page_index=write_page_index,
+            bloom_specs=dict(self._bloom_specs),
         )
+        self._own_pool: ThreadPoolExecutor | None = None
+        pool = None
+        if parallel:
+            if parallel is True:
+                pool = encode_pool()
+            else:
+                workers = int(parallel)
+                if workers < 1:
+                    raise WriterError(
+                        "writer: parallel must be True or a positive worker count"
+                    )
+                self._own_pool = ThreadPoolExecutor(
+                    max_workers=workers, thread_name_prefix="pqt-encode"
+                )
+                pool = self._own_pool
         self._pos = 0
         self._closed = False
         self._aborted = False
@@ -189,11 +224,20 @@ class FileWriter:
         self._meta: FileMetaData | None = None
         self._reset_builders()
         self._sink, self._owns_sink = open_sink(sink)
+        self._pipeline: EncodePipeline | None = None
         try:
             self._write(MAGIC)  # leading magic (reference: file_writer.go:240-244)
         except OSError as e:
             self.abort()
             raise WriterError(f"writer: sink write failed: {e}") from e
+        if pool is not None:
+            self._pipeline = EncodePipeline(
+                self._cfg,
+                self._sink,
+                self._pos,
+                pool=pool,
+                max_inflight_bytes=max_inflight_bytes,
+            )
 
     @staticmethod
     def _leaf(schema: Schema, key) -> Column:
@@ -237,6 +281,43 @@ class FileWriter:
         if isinstance(use_dictionary, str):
             use_dictionary = [use_dictionary]  # one column, not its characters
         return {self._leaf(schema, k).path for k in use_dictionary}
+
+    _BLOOM_TYPES = (
+        Type.INT32,
+        Type.INT64,
+        Type.FLOAT,
+        Type.DOUBLE,
+        Type.BYTE_ARRAY,
+        Type.FIXED_LEN_BYTE_ARRAY,
+    )
+
+    def _resolve_blooms(self, schema: Schema, bloom_filters) -> dict:
+        """{leaf path: (ndv or None, fpp)} for leaves that get a bloom filter."""
+        if not bloom_filters:
+            return {}
+        if bloom_filters is True:
+            bloom_filters = {
+                leaf.path: True
+                for leaf in schema.leaves
+                if leaf.type in self._BLOOM_TYPES
+            }
+        elif isinstance(bloom_filters, str):
+            bloom_filters = {bloom_filters: True}  # one column, not its chars
+        elif not isinstance(bloom_filters, dict):
+            bloom_filters = {k: True for k in bloom_filters}
+        out = {}
+        for key, spec in bloom_filters.items():
+            leaf = self._leaf(schema, key)
+            if leaf.type not in self._BLOOM_TYPES:
+                raise WriterError(
+                    f"writer: bloom filter unsupported for {leaf.type.name} "
+                    f"column {leaf.path_str}"
+                )
+            if spec is True:
+                out[leaf.path] = (None, 0.01)
+            else:
+                out[leaf.path] = (spec.get("ndv"), spec.get("fpp", 0.01))
+        return out
 
     def _resolve_sorting(self, schema: Schema, sorting_columns):
         if not sorting_columns:
@@ -343,8 +424,14 @@ class FileWriter:
         does not match the leaf, ...) are encoded on the host at flush time,
         counted (`device_write_engaged` / `device_write_declined` in
         write_counts()). The tensors are read at flush: they must stay
-        unchanged until then."""
+        unchanged until then. Incompatible with `parallel=`: the encode
+        pipeline snapshots host builders."""
         self._check_open()
+        if self._pipeline is not None:
+            raise WriterError(
+                "writer: write_device_column requires a serial writer "
+                "(parallel=False)"
+            )
         leaf = self._columnar_leaf(path)
         if leaf.max_rep > 0 or leaf.max_def > 0:
             raise WriterError(
@@ -380,9 +467,9 @@ class FileWriter:
         try:
             ec = encode_device_column(leaf, values, self._cfg, kv, enable_dict=use_dict)
         except EncodeDeclined:
-            _COUNTS["device_write_declined"] += 1
+            count("device_write_declined")
             return self._host_encode_device_values(leaf, values, kv, use_dict)
-        _COUNTS["device_write_engaged"] += 1
+        count("device_write_engaged")
         return ec
 
     def _host_encode_device_values(self, leaf, values, kv, use_dict):
@@ -403,7 +490,12 @@ class FileWriter:
 
         `metadata` ({k: v}) attaches key-value metadata to every column chunk
         of this row group; `column_metadata` ({leaf: {k: v}}) targets single
-        columns (reference: file_writer.go:156-226)."""
+        columns (reference: file_writer.go:156-226).
+
+        With `parallel=`, the encode runs in the background: this returns as
+        soon as the group's builders are snapshotted and fanned out (or
+        blocks briefly on the in-flight-bytes backpressure), and any fault
+        surfaces as WriterError on a LATER call (deferred propagation)."""
         self._check_open()
         per_col: dict[tuple, dict] = {}
         if metadata or column_metadata:
@@ -432,6 +524,19 @@ class FileWriter:
         kvs = [per_col.get(leaf.path) for leaf in leaves]
         device_cols = self._device_columns
         self._reset_builders()
+        if self._pipeline is not None:
+            try:
+                est = sum(_estimate_input_bytes(b) for b in builders)
+                self._pipeline.submit(builders, kvs, n_rows, est)
+            except WriterError:
+                raise
+            except BaseException as e:
+                self._failed = e
+                self.abort()
+                raise WriterError(
+                    f"writer: background encode/flush failed: {e}"
+                ) from e
+            return
         try:
             chunks = [
                 self._encode_device_chunk(leaf, device_cols[leaf.path], kv)
@@ -457,14 +562,18 @@ class FileWriter:
             self.abort()
             raise WriterError(f"writer: flush failed: {e}") from e
         self._row_groups.append(erg.row_group)
+        if self.write_page_index:
+            self._page_indexes.append(erg.indexes)
+        self._blooms.extend(erg.blooms)
 
     # -- lifecycle -------------------------------------------------------------
 
     def close(self) -> FileMetaData | None:
-        """Flush, write the footer and COMMIT the sink (atomic rename for
-        path sinks). Idempotent: a second close returns the same
-        FileMetaData. After a write fault (or abort) close() aborts instead
-        and returns None."""
+        """Flush, write blooms/page indexes/footer, and COMMIT the sink
+        (atomic rename for path sinks). Idempotent: a second close returns
+        the same FileMetaData. After a write fault (or abort) close() aborts
+        instead (the destination never sees a half-written file) and
+        returns None."""
         if self._closed:
             return self._meta
         if self._aborted:
@@ -473,8 +582,30 @@ class FileWriter:
             # the failure was already raised to the caller: quiet abort
             self.abort()
             return None
+        if self._pipeline is not None and self._pipeline.error is not None:
+            # a background fault the caller has NOT seen yet: close() is
+            # its last chance to surface; swallowing it would let a `with`
+            # block exit cleanly with the destination silently missing
+            e = self._pipeline.error
+            self._failed = e
+            self.abort()
+            raise WriterError(
+                f"writer: background encode/flush failed: {e}"
+            ) from e
         try:
             self.flush_row_group()
+            if self._pipeline is not None:
+                try:
+                    self._pipeline.drain()
+                except BaseException as e:
+                    self._failed = e
+                    raise WriterError(
+                        f"writer: background encode/flush failed: {e}"
+                    ) from e
+                self._row_groups = list(self._pipeline.row_groups)
+                self._page_indexes = list(self._pipeline.page_indexes)
+                self._blooms = list(self._pipeline.blooms)
+                self._pos = self._pipeline.pos
             try:
                 meta = self._write_tail()
                 self._sink.flush()
@@ -488,9 +619,34 @@ class FileWriter:
             raise
         self._closed = True
         self._meta = meta
+        if self._own_pool is not None:
+            self._own_pool.shutdown(wait=False)
         return meta
 
     def _write_tail(self) -> FileMetaData:
+        """Bloom filters, then page index blobs, live between the last row
+        group and the footer, with metadata fields pointing at them."""
+        for md, bf in self._blooms:
+            blob = bf.to_bytes()
+            md.bloom_filter_offset = self._pos
+            md.bloom_filter_length = len(blob)
+            self._write(blob)
+        self._blooms = []
+        # (parquet-format PageIndex layout): all ColumnIndexes, then all
+        # OffsetIndexes, with ColumnChunk fields pointing at them.
+        for group in self._page_indexes:
+            for cc, ci, _oi in group:
+                blob = ci.dumps()
+                cc.column_index_offset = self._pos
+                cc.column_index_length = len(blob)
+                self._write(blob)
+        for group in self._page_indexes:
+            for cc, _ci, oi in group:
+                blob = oi.dumps()
+                cc.offset_index_offset = self._pos
+                cc.offset_index_length = len(blob)
+                self._write(blob)
+        self._page_indexes = []
         meta = FileMetaData(
             version=2,
             schema=self.schema.to_thrift(),
@@ -510,12 +666,17 @@ class FileWriter:
         return meta
 
     def abort(self) -> None:
-        """Abandon the file: discard the sink WITHOUT committing (the atomic
-        path sink deletes its temp file; the destination is untouched).
-        Idempotent, and a no-op after a successful close()."""
+        """Abandon the file: stop background encodes, discard the sink
+        WITHOUT committing (the atomic path sink deletes its temp file; the
+        destination is untouched). Idempotent, and a no-op after a
+        successful close()."""
         if self._closed or self._aborted:
             return
         self._aborted = True
+        if self._pipeline is not None:
+            self._pipeline.abort()
+        if self._own_pool is not None:
+            self._own_pool.shutdown(wait=False)
         try:
             self._sink.abort()
         except Exception:
@@ -529,15 +690,48 @@ class FileWriter:
             ) from self._failed
         if self._closed or self._aborted:
             raise WriterError("writer: already closed")
+        if self._pipeline is not None and self._pipeline.error is not None:
+            # deferred propagation: a background encode/flush fault
+            # surfaces on the NEXT writer call, and the output is torn down
+            e = self._pipeline.error
+            self._failed = e
+            self.abort()
+            raise WriterError(
+                f"writer: background encode/flush failed: {e}"
+            ) from e
 
     def __enter__(self):
         return self
 
     def __exit__(self, exc_type, *rest):
         if exc_type is None:
+            # close() surfaces any still-unseen background fault as
+            # WriterError (and quietly aborts only when the fault was
+            # already raised to the caller)
             self.close()
         else:
             # an exception inside the `with` must NOT commit a half-written
             # file: tear down the temp file instead
             self.abort()
         return False
+
+
+def _estimate_input_bytes(builder: ColumnChunkBuilder) -> int:
+    """Approximate buffered bytes of one chunk for the pipeline's
+    backpressure accounting: exact for array inputs (nbytes); for long
+    Python value lists a 64-point sample extrapolates instead of walking
+    every element."""
+    v = builder._columnar_values
+    levels = 2 * (len(builder.def_levels) + len(builder.rep_levels))
+    if isinstance(v, ByteArrayData):
+        return levels + len(v.data) + 4 * len(v)
+    nb = getattr(v, "nbytes", None)
+    if nb is not None:
+        return levels + int(nb)
+    v = list(v or ())
+    if not v:
+        return levels
+    step = max(len(v) // 64, 1)
+    sample = v[::step][:64]
+    per = sum(len(x) + 4 if isinstance(x, (bytes, str)) else 8 for x in sample) / len(sample)
+    return levels + int(per * len(v))

@@ -1,9 +1,10 @@
 """Build and load the port's host library (the native prepare walk and the
 host value functions).
 
-`parquet_tpu_torch/native/prepare.cc` (the chunk walk and codecs) and
-`values.cc` (the host value functions), with the headers `prepare.h` and
-`bits.h`, compile in one `g++ -O3 -fPIC -std=c++17 -shared ... -lz` into
+`parquet_tpu_torch/native/prepare.cc` (the chunk walk and codecs),
+`values.cc` (the host value functions) and `encode.cc` (the fused chunk
+encode walk and gzip compression), with the headers `prepare.h`, `encode.h`
+and `bits.h`, compile in one `g++ -O3 -fPIC -std=c++17 -shared ... -lz` into
 `build/parquet_tpu_torch/host-<key>/` at
 the repository root (listed in .gitignore), keyed by a hash of the sources
 and the flags, under the same lock scheme as the CUDA library
@@ -29,8 +30,10 @@ from .build import BUILD_ROOT
 __all__ = ["HostBuildError", "load"]
 
 NATIVE = Path(__file__).resolve().parents[1] / "native"
-SOURCES = ("prepare.cc", "values.cc", "prepare.h", "bits.h")
+SOURCES = ("prepare.cc", "values.cc", "encode.cc", "prepare.h", "encode.h", "bits.h")
+# the read-side and value sources, then the write walk's: all one library
 CXX_SOURCES = ("prepare.cc", "values.cc")
+ENCODE_SOURCES = ("encode.cc",)
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 LIB_NAME = "libpqt_host.so"
 
@@ -60,7 +63,7 @@ def _key() -> str:
 
 def _build(out_dir: Path) -> None:
     tmp = out_dir / (LIB_NAME + ".tmp")
-    cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp), *(str(NATIVE / n) for n in CXX_SOURCES), "-lz"]
+    cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp), *(str(NATIVE / n) for n in CXX_SOURCES + ENCODE_SOURCES), "-lz"]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     if proc.returncode != 0:
         raise HostBuildError(

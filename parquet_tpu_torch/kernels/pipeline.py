@@ -2192,8 +2192,12 @@ def encode_device_column(column: Column, values, cfg, kv: dict | None = None, *,
     offsets, the layout the device read delivers). The leaf must be flat
     REQUIRED. On a CUDA tensor the dictionary probe, the index hybrid
     encode and bit-pack, the DELTA block scans and the byte-array framing
-    run as kernels; on a CPU tensor as their plain versions. Shapes the
-    device encoder does not take raise EncodeDeclined."""
+    run as kernels; on a CPU tensor as their plain versions. A bloom filter
+    (`cfg.bloom_specs`) hashes the chunk's dictionary, or its values
+    downloaded to the host, as the host encoder does. Shapes the device
+    encoder does not take raise EncodeDeclined: the page index among them
+    (its per-page statistics are the host encoder's), counted by the writer
+    as device_write_declined."""
     if column.max_rep > 0 or column.max_def > 0:
         raise EncodeDeclined(
             "encode_device_column: only flat REQUIRED columns encode on the "
@@ -2271,6 +2275,10 @@ def encode_device_column(column: Column, values, cfg, kv: dict | None = None, *,
             stats_src = (torch.stack([keyed.min(), keyed.max()]) ^ flip).cpu().numpy()
         else:
             stats_src = np.zeros(0, dtype=np_dt)
+        if cfg.bloom_specs.get(column.path) is not None:
+            # the bloom filter hashes every value: the one download DELTA
+            # otherwise never makes
+            host_typed = dev.cpu().numpy()
     else:
         host_typed = dev.cpu().numpy()
         stats_src = host_typed
@@ -2334,7 +2342,7 @@ def encode_device_column(column: Column, values, cfg, kv: dict | None = None, *,
         dict_size=len(dict_values) if dict_values is not None else None,
         stats_src=stats_src,
     )
-    cc = _chunk_meta(
+    cc, bloom = _chunk_meta(
         cfg, column, kv, plan,
         uncompressed_total=framer.uncompressed_total,
         pos=framer.pos,
@@ -2342,7 +2350,7 @@ def encode_device_column(column: Column, values, cfg, kv: dict | None = None, *,
         dict_offset=dict_offset,
         n_pages=framer.n_pages,
     )
-    return EncodedChunk(parts=framer.parts, nbytes=framer.pos, chunk=cc)
+    return EncodedChunk(parts=framer.parts, nbytes=framer.pos, chunk=cc, bloom=bloom)
 
 
 def host_byte_array(data: torch.Tensor, offsets: torch.Tensor) -> ByteArrayData:
@@ -2407,7 +2415,7 @@ def _encode_device_bytearray(column: Column, values, cfg, kv: dict | None):
         dict_size=None,
         stats_src=bad,
     )
-    cc = _chunk_meta(
+    cc, bloom = _chunk_meta(
         cfg, column, kv, plan,
         uncompressed_total=framer.uncompressed_total,
         pos=framer.pos,
@@ -2415,4 +2423,4 @@ def _encode_device_bytearray(column: Column, values, cfg, kv: dict | None):
         dict_offset=None,
         n_pages=framer.n_pages,
     )
-    return EncodedChunk(parts=framer.parts, nbytes=framer.pos, chunk=cc)
+    return EncodedChunk(parts=framer.parts, nbytes=framer.pos, chunk=cc, bloom=bloom)

@@ -9,8 +9,9 @@
 // PLAIN->delta transfer repack uses. The host value functions (byte-array
 // gather, take and encode, hybrid and delta decode, hybrid encode, XXH64,
 // the statistics and dictionary probes) are in values.cc, linked into the
-// same library; the bit reader/writer and varints both use are in bits.h.
-// The encode walk and the bloom batch hashes are left out. The ABI
+// same library, and the fused chunk encode walk with gzip compression is in
+// encode.cc; the helpers they share (bit reader/writer, varints, the stage
+// clock, the hybrid encoder) are in bits.h. The ABI
 // (prepare.h) and the PTQ_E_* / PTQ_STAGE_* codes are identical to the
 // original, so the two walks' tables compare field by field.
 //
@@ -883,11 +884,6 @@ bool gzip_inflate(const uint8_t* src, size_t src_len, uint8_t* dst, size_t expec
   return ok;
 }
 
-inline int level_bit_width(int max_level) {
-  int w = 0;
-  while (max_level) { w++; max_level >>= 1; }  // bit_length
-  return w;
-}
 
 // Decompress one page block into scratch. Returns 0 ok, -1 corrupt/unknown
 // codec, -5 scratch too small (same code contract as ptq_chunk_prepare).
@@ -1008,29 +1004,6 @@ ssize_t decode_levels16(const uint8_t* src, size_t src_len, int64_t n,
   if (eq_count) *eq_count = eq;
   return static_cast<ssize_t>(pos);
 }
-
-// Per-stage wall clock for the whole-chunk walk. All accounting is skipped
-// when the caller passes no stage array (ns == nullptr): production calls pay
-// one branch per stage boundary, the bench pays ~25 ns per clock_gettime.
-struct StageClock {
-  int64_t* ns;
-  int64_t t0;
-  static inline int64_t now() {
-    timespec ts;
-    clock_gettime(CLOCK_MONOTONIC, &ts);
-    return static_cast<int64_t>(ts.tv_sec) * 1000000000ll + ts.tv_nsec;
-  }
-  inline void start() {
-    if (ns) t0 = now();
-  }
-  inline void stop(int slot) {
-    if (ns) {
-      int64_t t = now();
-      ns[slot] += t - t0;
-      t0 = t;
-    }
-  }
-};
 
 // stage_ns slots (accumulated nanoseconds)
 enum { ST_DECOMPRESS = 0, ST_LEVELS = 1, ST_PRESCAN = 2, ST_COPY = 3, ST_CRC = 4 };

@@ -2,13 +2,13 @@
 // host read and write paths, as one C pass each.
 //
 // A cut-down copy of the JAX package's native/parquet_tpu_native.cc (the
-// port carries its own copy and never loads that library): XXH64 (the bloom
-// probe's hash), the PLAIN byte-array gather and encode, the byte-array
-// take, the one-shot hybrid RLE/bit-pack decode and encode, the full
-// DELTA_BINARY_PACKED decode with its header probe, the byte-array min/max
-// and the byte-array and numeric dictionary probes. Each function is the
-// original's, byte for byte in what it returns; the bloom batch hashes and
-// inserts, gzip compression and the fused encode walk are left out.
+// port carries its own copy and never loads that library): XXH64 with the
+// bloom filter's batch hashes, inserts and checks, the PLAIN byte-array
+// gather and encode, the byte-array take, the one-shot hybrid RLE/bit-pack
+// decode and encode, the full DELTA_BINARY_PACKED decode with its header
+// probe, the byte-array min/max and the byte-array and numeric dictionary
+// probes. Each function is the original's, byte for byte in what it
+// returns; gzip compression and the fused encode walk are in encode.cc.
 //
 // Linked with prepare.cc into one library (libpqt_host.so) by
 // parquet_tpu_torch/kernels/host_build.py and bound with ctypes in
@@ -93,6 +93,64 @@ uint64_t ptq_xxh64(const uint8_t* p, size_t len, uint64_t seed) {
   h *= XP3;
   h ^= h >> 32;
   return h;
+}
+
+// The bloom write side's batch functions. The original returns void; these
+// return n, or -1 when a size is negative (the convention of this file: no
+// function writes before its sizes are checked).
+
+// Hash n fixed-width elements (stride bytes each, contiguous).
+ssize_t ptq_xxh64_fixed(const uint8_t* src, int64_t n, int stride, uint64_t* out) {
+  if (n < 0 || stride < 0) return -1;
+  for (int64_t i = 0; i < n; i++)
+    out[i] = ptq_xxh64(src + static_cast<size_t>(i) * stride, stride, 0);
+  return static_cast<ssize_t>(n);
+}
+
+// Hash n variable-length elements addressed by int64 offsets[n+1].
+ssize_t ptq_xxh64_offsets(const uint8_t* data, const int64_t* offsets, int64_t n,
+                          uint64_t* out) {
+  if (n < 0) return -1;
+  for (int64_t i = 0; i < n; i++)
+    out[i] = ptq_xxh64(data + offsets[i],
+                       static_cast<size_t>(offsets[i + 1] - offsets[i]), 0);
+  return static_cast<ssize_t>(n);
+}
+
+static const uint32_t BLOOM_SALT[8] = {
+    0x47b6137bu, 0x44974d91u, 0x8824ad5bu, 0xa2b7289du,
+    0x705495c7u, 0x2df1424bu, 0x9efc4947u, 0x5c6bfb31u};
+
+// Set each hash's 8 bits in its 32-byte block (parquet-format
+// BloomFilter.md, split-block algorithm).
+ssize_t ptq_bloom_insert(uint32_t* blocks, int64_t num_blocks,
+                         const uint64_t* hashes, int64_t n) {
+  if (num_blocks < 1 || n < 0) return -1;
+  for (int64_t i = 0; i < n; i++) {
+    uint64_t h = hashes[i];
+    uint64_t bi = ((h >> 32) * static_cast<uint64_t>(num_blocks)) >> 32;
+    uint32_t x = static_cast<uint32_t>(h);
+    uint32_t* b = blocks + bi * 8;
+    for (int j = 0; j < 8; j++) b[j] |= 1u << ((x * BLOOM_SALT[j]) >> 27);
+  }
+  return static_cast<ssize_t>(n);
+}
+
+// out[i] = 1 if hashes[i] might be present.
+ssize_t ptq_bloom_check(const uint32_t* blocks, int64_t num_blocks,
+                        const uint64_t* hashes, int64_t n, uint8_t* out) {
+  if (num_blocks < 1 || n < 0) return -1;
+  for (int64_t i = 0; i < n; i++) {
+    uint64_t h = hashes[i];
+    uint64_t bi = ((h >> 32) * static_cast<uint64_t>(num_blocks)) >> 32;
+    uint32_t x = static_cast<uint32_t>(h);
+    const uint32_t* b = blocks + bi * 8;
+    uint8_t hit = 1;
+    for (int j = 0; j < 8; j++)
+      hit &= static_cast<uint8_t>((b[j] >> ((x * BLOOM_SALT[j]) >> 27)) & 1);
+    out[i] = hit;
+  }
+  return static_cast<ssize_t>(n);
 }
 
 // ---------------------------------------------------------------------------
@@ -341,121 +399,15 @@ ssize_t ptq_plain_encode_bytearray(const char* data, size_t data_len,
 // hybrid RLE/bit-pack encode (the write path's level and index streams)
 // ---------------------------------------------------------------------------
 
-namespace {
-
-// One bit-packed segment: header (groups<<1)|1 then LSB-first payload,
-// zero-padding the final partial group (mirrors _emit_bitpacked). The
-// original reads 2-, 4- or 8-byte elements for its fused encode walk; the
-// port has no such walk, so this copy reads uint64 only.
-static bool emit_bitpacked(const uint64_t* v, int64_t n, int width,
-                           uint8_t* out, size_t cap, size_t* pos,
-                           bool* bad_value) {
-  if (n == 0) return true;
-  int64_t padded = (n + 7) & ~7ll;
-  if (!put_uvarint(out, cap, pos, ((static_cast<uint64_t>(padded) / 8) << 1) | 1))
-    return false;
-  if (width <= 16) {
-    // fast lane for the common widths (levels and dictionary indices):
-    // a full group of 8 values occupies exactly `width` bytes, and 8*16
-    // bits fit one 128-bit accumulator — pack per GROUP with a single
-    // bounds check and byte-store loop instead of per-value bit pushes
-    size_t p = *pos;
-    if (p + static_cast<size_t>((padded / 8)) * width > cap) return false;
-    int64_t full = n & ~7ll;
-    const uint64_t lim = 1ull << width;
-    for (int64_t g = 0; g < full; g += 8) {
-      unsigned __int128 acc = 0;
-      uint64_t over = 0;
-      for (int k = 0; k < 8; k++) {
-        uint64_t x = v[g + k];
-        over |= x;
-        acc |= static_cast<unsigned __int128>(x) << (k * width);
-      }
-      if (over >= lim) { *bad_value = true; return false; }
-      for (int b = 0; b < width; b++) {
-        out[p++] = static_cast<uint8_t>(acc);
-        acc >>= 8;
-      }
-    }
-    if (full < n) {  // trailing partial group, zero-padded to 8
-      unsigned __int128 acc = 0;
-      for (int64_t i = full; i < n; i++) {
-        uint64_t x = v[i];
-        if (x >= lim) { *bad_value = true; return false; }
-        acc |= static_cast<unsigned __int128>(x) << ((i - full) * width);
-      }
-      for (int b = 0; b < width; b++) {
-        out[p++] = static_cast<uint8_t>(acc);
-        acc >>= 8;
-      }
-    }
-    *pos = p;
-    return true;
-  }
-  BitWriter w;
-  bw_init(&w, out, cap, *pos);
-  for (int64_t i = 0; i < n; i++) {
-    uint64_t x = v[i];
-    if (width < 64 && (x >> width)) { *bad_value = true; return false; }
-    if (!bw_push(&w, x, width)) return false;
-  }
-  for (int64_t i = n; i < padded; i++)
-    if (!bw_push(&w, 0, width)) return false;
-  if (!bw_flush(&w)) return false;
-  *pos = w.pos;
-  return true;
-}
-
-}  // namespace
-
 // Hybrid RLE/bit-pack encode of uint64 values at `width` bits. 8-aligned
 // stretches of >=8 identical values become RLE runs, everything else is
 // bit-packed in groups of 8 (mirrors ops/rle_hybrid.py encode_hybrid
 // byte-for-byte). Returns bytes written, -1 on a value that does not fit
-// the width, -2 if out_cap is too small.
+// the width, -2 if out_cap is too small. The core (bits.h) is the fused
+// encode walk's too.
 ssize_t ptq_hybrid_encode(const uint64_t* vals, int64_t n, int width,
                           uint8_t* out, size_t out_cap) {
-  if (width < 0 || width > 64 || n < 0) return -1;
-  size_t pos = 0;
-  if (n == 0) return 0;
-  if (width == 0) {
-    if (!put_uvarint(out, out_cap, &pos, static_cast<uint64_t>(n) << 1)) return -2;
-    return static_cast<ssize_t>(pos);
-  }
-  const int vbytes = (width + 7) / 8;
-  bool bad = false;
-  int64_t i = 0;
-  int64_t seg = 0;  // start of the pending bit-packed segment
-  while (i < n) {
-    int64_t j = i + 1;
-    const uint64_t cur = vals[i];
-    while (j < n && vals[j] == cur) j++;
-    if (j - i >= 8) {
-      // 8-align the RLE window so surrounding bit-packed segments stay
-      // multiples of 8 values (mid-stream padding would shift the stream)
-      int64_t rle_start = (i + 7) & ~7ll;
-      int64_t rle_end = j & ~7ll;
-      if (rle_end - rle_start >= 8) {
-        if (rle_start > seg &&
-            !emit_bitpacked(vals + seg, rle_start - seg, width, out, out_cap,
-                            &pos, &bad))
-          return bad ? -1 : -2;
-        if (width < 64 && (cur >> width)) return -1;
-        if (!put_uvarint(out, out_cap, &pos,
-                         static_cast<uint64_t>(rle_end - rle_start) << 1))
-          return -2;
-        if (pos + vbytes > out_cap) return -2;
-        for (int b = 0; b < vbytes; b++)
-          out[pos++] = static_cast<uint8_t>(cur >> (8 * b));
-        seg = rle_end;
-      }
-    }
-    i = j;
-  }
-  if (seg < n &&
-      !emit_bitpacked(vals + seg, n - seg, width, out, out_cap, &pos, &bad))
-    return bad ? -1 : -2;
-  return static_cast<ssize_t>(pos);
+  return hybrid_encode_any(vals, 8, n, width, out, out_cap);
 }
 
 // ---------------------------------------------------------------------------

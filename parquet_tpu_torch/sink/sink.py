@@ -13,8 +13,10 @@ FileObjectSink, behind the small ByteSink contract:
                     safe after close — never destroys committed output)
     sink_id         stable identity for logs
 
-The write counters, BufferedSink and the remote (HTTP) sink are left out:
-the port has no metrics layer and no io layer yet.
+BufferedSink wraps any of them and batches small writes (page headers are
+tens of bytes) into spill_bytes-sized runs before they reach the inner sink.
+The write counters and the remote (HTTP) sink are left out: the port has no
+metrics layer and no io layer yet.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import os
 from pathlib import Path
 
 __all__ = [
+    "BufferedSink",
     "ByteSink",
     "SinkError",
     "LocalFileSink",
@@ -234,6 +237,68 @@ class FileObjectSink(ByteSink):
 
     def abort(self) -> None:
         pass
+
+
+class BufferedSink(ByteSink):
+    """Write-combining wrapper: writes accumulate in memory and spill to the
+    inner sink in runs of >= `spill_bytes` (default 1 MiB). Page headers are
+    tens of bytes and a row group writes hundreds of them — batching them
+    turns per-page syscalls (or per-page PUTs, for request-priced sinks)
+    into a handful of large sequential writes. flush()/close() drain the
+    buffer; abort() drops it and aborts the inner sink."""
+
+    def __init__(self, inner: ByteSink, *, spill_bytes: int = 1 << 20):
+        if spill_bytes < 1:
+            raise ValueError("spill_bytes must be >= 1")
+        self.inner = inner
+        self.spill_bytes = int(spill_bytes)
+        self._buf = bytearray()
+        self._flushed = 0  # bytes already handed to the inner sink
+        self._closed = False
+
+    @property
+    def sink_id(self) -> str:
+        return self.inner.sink_id
+
+    def buffered(self) -> int:
+        """Bytes held in memory, not yet written through (tests/tuning)."""
+        return len(self._buf)
+
+    def write(self, data) -> int:
+        if self._closed:
+            # without this, a buffered write after close/abort would report
+            # success and silently vanish until (never) the next spill
+            raise SinkError("sink closed: buffered sink")
+        self._buf += data
+        if len(self._buf) >= self.spill_bytes:
+            self._spill()
+        return len(data)
+
+    def _spill(self) -> None:
+        if self._buf:
+            # hand off state only AFTER the fallible inner write: a caller
+            # retrying past a transient spill fault must not silently lose
+            # this run of bytes while tell() still counts them
+            self.inner.write(bytes(self._buf))
+            self._flushed += len(self._buf)
+            self._buf = bytearray()
+
+    def tell(self) -> int:
+        return self._flushed + len(self._buf)
+
+    def flush(self) -> None:
+        self._spill()
+        self.inner.flush()
+
+    def close(self) -> None:
+        self._spill()
+        self._closed = True
+        self.inner.close()
+
+    def abort(self) -> None:
+        self._buf = bytearray()
+        self._closed = True
+        self.inner.abort()
 
 
 def open_sink(obj) -> tuple[ByteSink, bool]:

@@ -8,9 +8,11 @@ prescan behind the PLAIN->delta transfer repack, the walk's fault report
 functions of native/values.cc and the parsers of native/prepare.cc that the
 host read and write paths call: the PLAIN byte-array gather and encode, the
 byte-array take, the hybrid prescan, decode and encode, the DELTA decode,
-the page-header parser, XXH64, the byte-array min/max and the dictionary
-probes. Each method keeps the original's signature, return convention and
-error text.
+the page-header parser, XXH64 with the bloom filter's batch hashes, inserts
+and checks, the byte-array min/max and the dictionary probes; and the write
+side of native/encode.cc: the fused whole-chunk encode walk `chunk_encode`
+(`EncodeFault`, `ENCODE_STAGES`) and `gzip_compress`. Each method keeps the
+original's signature, return convention and error text.
 
 The library is built on first use (kernels/host_build.py); `get_native()`
 raises HostBuildError when it cannot be built, so no codec, walk or value
@@ -26,6 +28,8 @@ from typing import NamedTuple
 import numpy as np
 
 __all__ = [
+    "ENCODE_STAGES",
+    "EncodeFault",
     "NativeLib",
     "PrepareFault",
     "PREPARE_STAGES",
@@ -53,10 +57,21 @@ PREPARE_E_CORRUPT = -1
 PREPARE_E_CAPACITY = -5
 PREPARE_E_CRC = -6
 
+# ptq_chunk_encode err_info[0] stage codes (native/encode.h PTQ_ENC_STAGE_*).
+ENCODE_STAGES = {
+    0: "none",
+    1: "split",
+    2: "levels",
+    3: "values",
+    4: "compress",
+    5: "frame",
+}
+
 
 def hybrid_encode_cap(n: int, width: int) -> int:
     """Worst-case hybrid RLE/bit-pack stream size for n values at `width`
-    bits: hybrid_encode's output buffer."""
+    bits: the one sizing formula behind hybrid_encode's output buffer and
+    the fused encode walk's capacity planning."""
     vbytes = (width + 7) // 8
     return 64 + (n // 8 + 2) * (5 + vbytes) + ((n + 7) // 8) * max(width, 1)
 
@@ -65,7 +80,8 @@ def delta_encode_cap(
     n: int, nbits: int, block_size: int = 128, mini_count: int = 4
 ) -> int:
     """Worst-case DELTA_BINARY_PACKED size: header + per-block zigzag +
-    widths + payloads at full width."""
+    widths + payloads at full width (delta_encode's buffer and the fused
+    encode walk's capacity planning)."""
     blocks = max(n // block_size + 2, 1)
     return (
         64
@@ -73,6 +89,18 @@ def delta_encode_cap(
         + ((n + block_size) * nbits) // 8
         + block_size
     )
+
+
+class EncodeFault(NamedTuple):
+    """Structured failure report from the fused native chunk encode: the
+    negative return code plus the stage/page context. NOT an exception:
+    encode_chunk's fallback ladder retries the chunk on the staged Python
+    encoder, which raises the exact typed error if the input is genuinely
+    unencodable."""
+
+    code: int
+    stage: str
+    page: int
 
 
 class PrepareFault(NamedTuple):
@@ -133,6 +161,14 @@ class NativeLib:
         # native/prepare.cc the host paths call
         lib.ptq_xxh64.restype = _U64
         lib.ptq_xxh64.argtypes = [_P, _SZ, _U64]
+        lib.ptq_xxh64_fixed.restype = _SSZ
+        lib.ptq_xxh64_fixed.argtypes = [_P, _I64, _I, _P]
+        lib.ptq_xxh64_offsets.restype = _SSZ
+        lib.ptq_xxh64_offsets.argtypes = [_P, _P, _I64, _P]
+        lib.ptq_bloom_insert.restype = _SSZ
+        lib.ptq_bloom_insert.argtypes = [_P, _I64, _P, _I64]
+        lib.ptq_bloom_check.restype = _SSZ
+        lib.ptq_bloom_check.argtypes = [_P, _I64, _P, _I64, _P]
         lib.ptq_byte_array_gather.restype = _SSZ
         lib.ptq_byte_array_gather.argtypes = [_P, _SZ, _I64, _P, _P, _SZ]
         lib.ptq_hybrid_decode.restype = _SSZ
@@ -171,6 +207,24 @@ class NativeLib:
             + [_P]  # totals
             + [_P]  # stage_ns (nullable per-stage clock)
             + [_P]  # err_info (nullable int64[4])
+        )
+        # the write side (native/encode.cc)
+        lib.ptq_gzip_compress.restype = _SSZ
+        lib.ptq_gzip_compress.argtypes = [_P, _SZ, _P, _SZ]
+        lib.ptq_chunk_encode.restype = _SSZ
+        lib.ptq_chunk_encode.argtypes = (
+            [_I]  # route
+            + [_P, _SZ]  # values
+            + [_P, _I64]  # ba_offsets, nv
+            + [_I, _I]  # type_size, dict_width
+            + [_P, _SZ, _I64]  # dict_raw, dict_raw_len, dict_num
+            + [_P, _I64, _I]  # def_levels, num_entries, max_def
+            + [_I, _I, _I]  # codec, dpv, with_crc
+            + [_I64]  # per_page
+            + [_P, _SZ]  # out
+            + [_P, _SZ]  # scratch
+            + [_P, _SZ]  # pages, max_pages
+            + [_P, _P, _P]  # totals, stage_ns, err_info
         )
 
     # -- block codecs ----------------------------------------------------------
@@ -289,6 +343,48 @@ class NativeLib:
     def xxh64(self, data, seed: int = 0) -> int:
         addr, n, _keep = _ptr(data)
         return int(self._lib.ptq_xxh64(addr, n, seed))
+
+    def xxh64_fixed(self, data, n: int, stride: int):
+        """XXH64 of n contiguous `stride`-byte elements -> uint64[n]."""
+        addr, n_in, _keep = _ptr(data)
+        if n < 0 or stride < 0 or n * stride > n_in:
+            raise ValueError("native: xxh64_fixed elements exceed the buffer")
+        out = np.empty(n, dtype=np.uint64)
+        if self._lib.ptq_xxh64_fixed(addr, n, stride, ctypes.c_void_p(out.ctypes.data)) < 0:
+            raise ValueError("native: xxh64_fixed failed")
+        return out
+
+    def xxh64_offsets(self, data, offsets):
+        """XXH64 of each (offsets, data) byte-array value -> uint64[n]."""
+        n = len(offsets) - 1
+        addr, _nb, _keep = _ptr(data)
+        off = np.ascontiguousarray(offsets, dtype=np.int64)
+        out = np.empty(max(n, 0), dtype=np.uint64)
+        rc = self._lib.ptq_xxh64_offsets(
+            addr, ctypes.c_void_p(off.ctypes.data), n, ctypes.c_void_p(out.ctypes.data),
+        )
+        if rc < 0:
+            raise ValueError("native: xxh64_offsets failed")
+        return out
+
+    def bloom_insert(self, blocks, hashes) -> None:
+        h = np.ascontiguousarray(hashes, dtype=np.uint64)
+        if self._lib.ptq_bloom_insert(
+            ctypes.c_void_p(blocks.ctypes.data), len(blocks) // 8,
+            ctypes.c_void_p(h.ctypes.data), len(h),
+        ) < 0:
+            raise ValueError("native: bloom insert into an empty bitset")
+
+    def bloom_check(self, blocks, hashes):
+        """Per hash: might it be present (bool[n])."""
+        h = np.ascontiguousarray(hashes, dtype=np.uint64)
+        out = np.empty(len(h), dtype=np.uint8)
+        if self._lib.ptq_bloom_check(
+            ctypes.c_void_p(blocks.ctypes.data), len(blocks) // 8,
+            ctypes.c_void_p(h.ctypes.data), len(h), ctypes.c_void_p(out.ctypes.data),
+        ) < 0:
+            raise ValueError("native: bloom check against an empty bitset")
+        return out.astype(bool)
 
     def byte_array_gather(self, data, num_values: int):
         """PLAIN byte_array scan: returns (offsets int64[n+1], flat bytes, consumed)."""
@@ -657,6 +753,117 @@ class NativeLib:
                 "d_outstart": d_outstart[:M],
                 "d_mins": d_mins[:M],
                 "has_dict": bool(totals[6]),
+                "stage_ns": stage_ns,
+            }
+
+
+    # -- the fused whole-chunk encode walk (native/encode.cc) ------------------
+
+    def gzip_compress(self, data) -> bytes:
+        """Deflate with the fused encode walk's exact gzip parameters (the
+        one-time identity probe against CPython's zlib)."""
+        addr, n_in, _keep = _ptr(data)
+        cap = n_in + n_in // 4 + 128
+        out = ctypes.create_string_buffer(cap)
+        n = self._lib.ptq_gzip_compress(addr, n_in, out, cap)
+        if n < 0:
+            raise ValueError("native gzip: compression failed")
+        return out.raw[:n]
+
+    def chunk_encode(
+        self,
+        route: int,
+        values,
+        ba_offsets,
+        nv: int,
+        type_size: int,
+        dict_width: int,
+        dict_raw,
+        dict_num: int,
+        def_levels,
+        num_entries: int,
+        max_def: int,
+        codec: int,
+        dpv: int,
+        with_crc: bool,
+        per_page: int,
+        raw_worst: int,
+        collect_stages: bool = False,
+    ):
+        """Whole-chunk encode walk (ptq_chunk_encode): one native call does
+        page split + level pack + value encode + compress + Thrift page
+        framing, with the GIL dropped at the ctypes boundary. Returns a dict
+        {out, pages, totals, stage_ns} on success (`out` is a uint8 view of
+        exactly the framed chunk bytes), or an EncodeFault naming the failing
+        {code, stage, page} when the chunk needs the staged Python encoder.
+        `raw_worst` is the caller's worst-case raw (uncompressed) page-block
+        bound; the output and scratch capacities derive from it with
+        compression-expansion slack, and a -5 capacity verdict retries with
+        doubled buffers twice before reporting the fault."""
+        # worst case for an incompressible block: snappy adds ~n/6 + 32,
+        # deflate ~n/1000 + 13: one shared slack covers every codec
+        comp_slack = raw_worst // 4 + 1024
+        scratch_cap = 2 * (raw_worst + comp_slack)
+        out_cap = (
+            raw_worst
+            + comp_slack
+            + int(dict_raw.nbytes if hasattr(dict_raw, "nbytes") else len(dict_raw or b""))
+            + 4096
+        )
+        max_pages = int(num_entries // max(per_page, 1)) + 3
+        totals = np.zeros(8, dtype=np.int64)
+        stage_ns = np.zeros(5, dtype=np.int64) if collect_stages else None
+        err_info = np.zeros(4, dtype=np.int64)
+        p = _P
+        attempts = 0
+        va, v_len, _vk = _ptr(values)
+        oa = da = fa = None
+        ok = dk = fk = None
+        d_len = 0
+        if ba_offsets is not None:
+            oa, _n, ok = _ptr(ba_offsets)
+        if dict_raw is not None:
+            da, d_len, dk = _ptr(dict_raw)
+        if def_levels is not None:
+            fa, _n, fk = _ptr(def_levels)
+        while True:
+            out = np.empty(out_cap, dtype=np.uint8)
+            scratch = self._take_buf(scratch_cap)
+            pages = np.empty((max_pages, 8), dtype=np.int64)
+            if stage_ns is not None:
+                stage_ns[:] = 0
+            rc = self._lib.ptq_chunk_encode(
+                route, va, v_len, oa, nv, type_size, dict_width,
+                da, d_len, dict_num, fa, num_entries, max_def,
+                codec, dpv, 1 if with_crc else 0, per_page,
+                ctypes.c_void_p(out.ctypes.data), out_cap,
+                ctypes.c_void_p(scratch.ctypes.data), scratch_cap,
+                pages.ctypes.data_as(p), max_pages,
+                totals.ctypes.data_as(p),
+                None if stage_ns is None else stage_ns.ctypes.data_as(p),
+                err_info.ctypes.data_as(p),
+            )
+            # scratch never escapes the walk: always pool it back
+            self.release_buffers({"_bases": {"scratch": scratch}}, ("scratch",))
+            if rc == -2 and max_pages < (1 << 24):
+                max_pages *= 8
+                continue
+            if rc == -5 and attempts < 2:
+                attempts += 1
+                out_cap *= 2
+                scratch_cap *= 2
+                continue
+            del ok, dk, fk  # keepalives live through the calls
+            if rc < 0:
+                return EncodeFault(
+                    code=int(rc),
+                    stage=ENCODE_STAGES.get(int(err_info[0]), "none"),
+                    page=int(err_info[1]),
+                )
+            return {
+                "out": out[: int(totals[0])],
+                "pages": pages[: int(rc)],
+                "totals": totals,
                 "stage_ns": stage_ns,
             }
 
