@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive parquet_tpu_torch's decode, batch, filter, write, query and scan paths on one
-CUDA card.
+"""Drive parquet_tpu_torch's decode, batch, filter, write, query, scan and row paths on
+one CUDA card.
 
 Run from the repository root, on a machine with one NVIDIA card and the CUDA
 toolkit (nvcc):
@@ -173,11 +173,14 @@ Phases (any failure raises and the script exits non-zero):
               on 1,000-row trip_id ranges keeping the matches and dropping
               pages; (d) split_row_groups of the device-written file into
               two parts and merge_files back, read on the card equal to the
-              generator; (e) medians of 3: the device write with blooms
-              against without, the GZIP host write fused against staged and
-              parallel against serial, the bloom and page-index bytes, and
-              xxh64_fixed, xxh64_offsets, bloom_insert and chunk_encode
-              against their Python oracles on write group 0;
+              generator; (e) timings: the device write with blooms
+              against without (medians of 3), the GZIP host write fused
+              against staged and parallel against serial (one timed run
+              each after a warm-up), the SNAPPY and UNCOMPRESSED host
+              writes fused against staged (medians of 3), the bloom and
+              page-index bytes, and xxh64_fixed, xxh64_offsets,
+              bloom_insert and chunk_encode against their Python oracles on
+              write group 0;
      query    run_local_query over "taxi", unfiltered and under F_taxi:
               count(*), count(passenger_count) and sum/min/max of
               fare_cents (int32 DELTA, widened), pickup_us (int64),
@@ -206,6 +209,25 @@ Phases (any failure raises and the script exits non-zero):
               (mid-unit) equal to the uninterrupted stream, shard=(k, 4) for
               k = 0..3 covering every unit and row once, and both
               deliveries' rows/s (medians of 3 after a warm-up);
+     rows     the host row path against the card's decode: (a) taxi row
+              group 0 through FileReader(path).iter_rows(row_groups=[0])
+              equal value for value to read_row_group_device(0) of the
+              same group brought to the CPU (zone a str, passenger_count
+              None exactly where its device mask, expanded by
+              expand_nullable, is false); (b) sessions row group 0 through
+              iter_rows, each row's items equal to the generator's list
+              (None for a null list, [] for an empty one); (c) taxi
+              through iter_rows(filters=F_taxi) over all 8 groups, the row
+              count, trip_id and fare_cents sums equal NumPy's and the
+              device filtered read's, with row_counts() showing the
+              vectorized engines on all 6 admitted groups; (d) (a)'s rows
+              written through floor.Writer (TaxiTrip, a dataclass of the 7
+              fields, default options) and read with
+              read_row_groups_device() equal to the source, expand_hybrid
+              and dict_gather launched, and floor.Reader's first 10,000
+              objects equal to the written ones. The host row reads must
+              launch no kernel; each step's rows/s and the phase's
+              seconds are printed beside the card's name and power limit;
   5. times    rows/s of the device reads and of the batch streams, filtered
               and not (the same call, both files), of the filtered read, of
               host decode + upload, of the device write against the host
@@ -264,7 +286,7 @@ line with the card count.
 The last three lines of standard output are a JSON line of the end-to-end
 rates, the host value functions' A/B seconds, the collectives' times, the
 overlap A/B, profile and dataset rates, the write-options phase's numbers,
-and the card's name and power limit, the
+the rows phase's rates and seconds, and the card's name and power limit, the
 `kernels` JSON line (21
 kernels) and the
 `{"ok": true, ...}` line. Without CUDA, or without the package beside it,
@@ -274,6 +296,8 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import dataclasses
+import itertools
 import json
 import os
 import re
@@ -282,6 +306,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -2471,9 +2496,10 @@ def check_write_options(taxi_specs, host_groups, dev_groups, dev, launches: dict
     del groups
     log(f"[write-options:d] split into {len(parts)} parts and merged back: read on the card, "
         "the columns equal the generator's")
-    # (e) timings, medians of 3; the writes of (a) and (c) were the
-    # warm-ups, and for SNAPPY and UNCOMPRESSED the fused and staged writes
-    # here, held byte-equal
+    # (e) timings: the writes of (a) and (c) were the warm-ups, and for
+    # SNAPPY and UNCOMPRESSED the fused and staged writes here, held
+    # byte-equal; medians of 3, but one timed run for each GZIP host write
+    # (about 19 s a serial write)
     for codec in ("snappy", "uncompressed"):
         for label, env in (("fused", {}), ("staged", {"PQT_FUSED_ENCODE": "0"})):
             f = d / f"opts-{codec}-{label}.parquet"
@@ -2507,10 +2533,12 @@ def check_write_options(taxi_specs, host_groups, dev_groups, dev, launches: dict
           for codec in ("snappy", "uncompressed") for way in ("fused", "staged")),
     ):
         env = {"PQT_FUSED_ENCODE": "0"} if "staged" in label else {}
+        reps = 1 if "gzip" in label else 3
         with env_set(**env):
-            med, secs = median_s(lambda: (fn(), torch.cuda.synchronize()))
+            med, secs = median_s(lambda: (fn(), torch.cuda.synchronize()), reps=reps)
         rates[label] = n_rows / med
-        log(f"  {label}: {rates[label]:,.0f} rows/s (median of {[round(x, 3) for x in secs]} s)")
+        how = "one run after a warm-up" if reps == 1 else "median of"
+        log(f"  {label}: {rates[label]:,.0f} rows/s ({how} {[round(x, 3) for x in secs]} s)")
     out["rows_per_s"] = rates
     blooms_ratio = rates["device write, blooms"] / rates["device write, no blooms"]
     fused_ratio = rates["host write gzip, serial fused"] / rates["host write gzip, serial staged"]
@@ -4157,6 +4185,232 @@ def check_dataset(taxi_path, specs, dev, card: str) -> dict:
     return rates
 
 
+# -- the row path: host rows against the card's decode ---------------------------
+
+
+@dataclasses.dataclass
+class TaxiTrip:
+    """One taxi row as a floor record (the file's seven columns)."""
+
+    trip_id: int
+    vendor_id: np.int32
+    passenger_count: Optional[np.int32]
+    pickup_us: int
+    fare_cents: np.int32
+    trip_distance: float
+    zone: str
+
+
+ROWS_FLOOR_CHECK = 10_000
+
+
+def device_group_values(group: dict, dev) -> dict:
+    """{column: row-aligned Python values} of one row group decoded on the
+    card, brought to the CPU: strings decoded, and a nullable column's
+    values expanded to rows under its device mask (expand_nullable), None
+    where the mask is false."""
+    import torch
+
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    out = {}
+    for (name,), col in group.items():
+        if col.indices is not None:
+            vals = [v.decode() for v in col.dictionary.take(col.indices.cpu().numpy()).to_list()]
+        elif col.data is not None:
+            offs = col.offsets.cpu().numpy().tolist()
+            data = col.data.cpu().numpy().tobytes()
+            vals = [data[a:b].decode() for a, b in zip(offs[:-1], offs[1:])]
+        elif col.def_levels is not None:
+            mask = torch.from_numpy(np.asarray(col.def_levels) == 1).to(dev)
+            expanded = ops.expand_nullable(col.values, mask)
+            keep = mask.cpu().numpy()
+            full = np.empty(len(keep), dtype=object)
+            full[keep] = expanded.cpu().numpy()[keep].tolist()
+            vals = full.tolist()
+        else:
+            vals = col.values.cpu().numpy().tolist()
+        out[name] = vals
+    return out
+
+
+def rows_equal_columns(rows: list, columns: dict, label: str) -> None:
+    """Raise unless every row's value of every column equals the column's."""
+    for name, want in columns.items():
+        got = [row[name] for row in rows]
+        if len(got) != len(want):
+            raise AssertionError(f"[rows] {label}: {len(got)} rows, {len(want)} expected")
+        if got != want:
+            k = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            raise AssertionError(f"[rows] {label}: {name} differs at row {k} "
+                                 f"({got[k]!r} against {want[k]!r})")
+
+
+def check_rows(taxi_path, sessions_path, sessions_specs, taxi_specs, f_taxi, taxi_keep,
+               device_filtered, dev, launches: dict, card: str) -> dict:
+    """The row phase: (a) taxi row group 0 through iter_rows against
+    read_row_group_device(0) of the same group; (b) sessions row group 0
+    through iter_rows against the generator's lists; (c) taxi through
+    iter_rows(filters=F_taxi) against NumPy's totals and the device filtered
+    read, on the vectorized engines; (d) (a)'s rows written through
+    floor.Writer with default options, decoded on the card equal to the
+    source (expand_hybrid and dict_gather launched) and read back through
+    floor.Reader. The host row reads must launch no kernel. Returns each
+    step's rows/s and the phase's seconds."""
+    import torch
+
+    from parquet_tpu_torch import floor, reset_row_counts, row_counts
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.kernels import build
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    t_phase = time.perf_counter()
+    rates = {}
+
+    def no_launches(step: str) -> None:
+        counts = kernel_counts()
+        if any(v for v in counts.values() if isinstance(v, int)):
+            raise AssertionError(f"[rows] {step} launched kernels: {counts}")
+
+    # (a) taxi row group 0
+    ops.reset_launch_counts()
+    reset_row_counts()
+    t = time.perf_counter()
+    with FileReader(taxi_path) as r:
+        rows_a = list(r.iter_rows(row_groups=[0]))
+    secs = time.perf_counter() - t
+    rates["taxi iter_rows, group 0"] = len(rows_a) / secs
+    no_launches("iter_rows(row_groups=[0])")
+    t = time.perf_counter()
+    with FileReader(taxi_path) as r:
+        r.read_row_group(0)
+    decode_a = time.perf_counter() - t
+    if len(rows_a) != RG_ROWS or row_counts().get("assemble_vec") != 1:
+        raise AssertionError(f"[rows:a] {len(rows_a)} rows, row counts {row_counts()}")
+    ops.reset_launch_counts()
+    with FileReader(taxi_path) as r:
+        group = r.read_row_group_device(0)
+        torch.cuda.synchronize()
+        # read before the check's own expand_nullable launches
+        launches["rows taxi group 0 on the card"] = kernel_counts()
+        want = device_group_values(group, dev)
+    del group
+    rows_equal_columns(rows_a, want, "taxi group 0")
+    if not all(type(row["zone"]) is str for row in rows_a[:1000]):
+        raise AssertionError("[rows:a] zone is not a str")
+    nulls = sum(v is None for v in want["passenger_count"])
+    log(f"[rows:a] taxi group 0: {len(rows_a):,} rows through iter_rows in {secs:.2f} s "
+        f"({rates['taxi iter_rows, group 0']:,.0f} rows/s | {card}; the group's host decode "
+        f"alone {decode_a:.2f} s) equal read_row_group_device(0) value for value; zone a str, "
+        f"passenger_count None on the {nulls:,} rows its device mask leaves out")
+    # (b) sessions row group 0
+    sid, items = sessions_specs
+    lengths = np.asarray(items.list_lengths[:RG_ROWS], dtype=np.int64)
+    off = np.zeros(RG_ROWS + 1, dtype=np.int64)
+    np.cumsum(lengths, out=off[1:])
+    elems = items.dictionary[items.indices[: off[-1]]].tolist()
+    want_items = [elems[a:b] if ok else None for ok, a, b in
+                  zip(items.valid[:RG_ROWS].tolist(), off[:-1].tolist(), off[1:].tolist())]
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    with FileReader(sessions_path) as r:
+        rows_b = list(r.iter_rows(row_groups=[0]))
+    secs = time.perf_counter() - t
+    rates["sessions iter_rows, group 0"] = len(rows_b) / secs
+    no_launches("sessions iter_rows")
+    rows_equal_columns(rows_b, {"session_id": sid.values[:RG_ROWS].tolist(), "items": want_items},
+                       "sessions group 0")
+    log(f"[rows:b] sessions group 0: {len(rows_b):,} rows through iter_rows in {secs:.2f} s "
+        f"({rates['sessions iter_rows, group 0']:,.0f} rows/s | {card}); each row's items equal "
+        f"the generator's list ({sum(v is None for v in want_items):,} null, "
+        f"{sum(v == [] for v in want_items):,} empty)")
+    del rows_b, want_items, elems
+    # (c) taxi under F_taxi
+    ops.reset_launch_counts()
+    reset_row_counts()
+    n = trip = fare = 0
+    t = time.perf_counter()
+    with FileReader(taxi_path) as r:
+        for row in r.iter_rows(filters=f_taxi):
+            n += 1
+            trip += row["trip_id"]
+            fare += row["fare_cents"]
+    secs = time.perf_counter() - t
+    rates["taxi iter_rows(filters=F_taxi), over input rows"] = ROW_GROUPS * RG_ROWS / secs
+    no_launches("iter_rows(filters=F_taxi)")
+    rc = row_counts()
+    t = time.perf_counter()
+    with FileReader(taxi_path) as r:
+        for i in r.prune_row_groups(f_taxi):
+            r.read_row_group(i)
+    decode_c = time.perf_counter() - t
+    totals = taxi_filtered_totals(taxi_specs, taxi_keep)
+    if (n, trip, fare) != (totals["rows"], totals["trip_id"], totals["fare_cents"]):
+        raise AssertionError(f"[rows:c] (rows, trip_id, fare) {(n, trip, fare)} != NumPy's "
+                             f"{(totals['rows'], totals['trip_id'], totals['fare_cents'])}")
+    if (n, fare) != device_filtered:
+        raise AssertionError(f"[rows:c] (rows, fare) {(n, fare)} != the device filtered read's "
+                             f"{device_filtered}")
+    admitted = ROW_GROUPS - 2
+    if (rc.get("assemble_vec") != admitted or rc.get("assemble_cursor")
+            or rc.get("rows_filtered_scalar")
+            or rc.get("rows_filtered_vec") != admitted * RG_ROWS - n):
+        raise AssertionError(f"[rows:c] row counts {rc}: the vectorized engines must take all "
+                             f"{admitted} admitted groups")
+    log(f"[rows:c] taxi iter_rows(filters=F_taxi): {n:,} rows, trip_id sum {trip}, in "
+        f"{secs:.2f} s ({rates['taxi iter_rows(filters=F_taxi), over input rows']:,.0f} input "
+        f"rows/s | {card}; the admitted groups' host decode alone {decode_c:.2f} s); equal "
+        f"NumPy's totals and the device filtered read; row counts {rc}")
+    # (d) write the rows through floor.Writer, decode on the card, read back
+    objs = [TaxiTrip(**row) for row in rows_a]
+    del rows_a
+    path = build.BUILD_ROOT / "smoke" / "rows-floor.parquet"
+    t = time.perf_counter()
+    with floor.Writer(path, TaxiTrip) as w:
+        w.write_all(objs)
+    secs = time.perf_counter() - t
+    rates["floor.Writer"] = len(objs) / secs
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    reader = FileReader(path)
+    groups = reader.read_row_groups_device()
+    torch.cuda.synchronize()
+    read_secs = time.perf_counter() - t
+    counts = kernel_counts()
+    launches["rows floor file on the card"] = counts
+    for k in ("expand_hybrid", "dict_gather"):
+        if counts[k] <= 0:
+            raise AssertionError(f"[rows:d] {k} was not launched reading the row-written file")
+    got = {}
+    for g in groups:
+        for name, vals in device_group_values(g, dev).items():
+            got.setdefault(name, []).extend(vals)
+    del groups
+    want = {f.name: [getattr(o, f.name) for o in objs] for f in dataclasses.fields(TaxiTrip)}
+    if got != want:
+        bad = [k for k in want if got.get(k) != want[k]]
+        raise AssertionError(f"[rows:d] the row-written file decoded on the card differs in {bad}")
+    t = time.perf_counter()
+    with floor.Reader(path, TaxiTrip) as r:
+        back = list(itertools.islice(iter(r), ROWS_FLOOR_CHECK))
+    back_secs = time.perf_counter() - t
+    if back != objs[:ROWS_FLOOR_CHECK]:
+        raise AssertionError("[rows:d] floor.Reader's objects differ from the written ones")
+    rates["read_row_groups_device of the row-written file"] = len(objs) / read_secs
+    rates["floor.Reader, first 10,000 rows"] = ROWS_FLOOR_CHECK / back_secs
+    log(f"[rows:d] floor.Writer(TaxiTrip), default options: {len(objs):,} rows in {secs:.2f} s "
+        f"({rates['floor.Writer']:,.0f} rows/s | {card}), {path.stat().st_size / 2**20:.1f} MiB, "
+        f"{reader.num_row_groups} row group(s); read_row_groups_device equals the source "
+        f"({read_secs:.2f} s), launches "
+        + ", ".join(f"{k}={v}" for k, v in counts.items() if v and not isinstance(v, dict))
+        + f"; floor.Reader's first {ROWS_FLOOR_CHECK:,} objects equal ({back_secs:.2f} s)")
+    path.unlink()
+    seconds = time.perf_counter() - t_phase
+    log(f"[rows] the phase took {seconds:.1f} s | {card}")
+    return {"rows_per_s": rates, "seconds": seconds,
+            "host_decode_s": {"taxi group 0": decode_a, "taxi admitted groups": decode_c}}
+
+
 def smoke_dir() -> Path:
     """The directory of the cached main-path files."""
     from parquet_tpu_torch.kernels.build import BUILD_ROOT
@@ -4425,6 +4679,7 @@ def main(argv=None) -> int:
     ops.reset_launch_counts()
     reset_filter_counts()
     kept, fare = filtered_read(taxi_path, f_taxi, dev)
+    device_filtered = (kept, fare)
     counts = kernel_counts()
     fc = filter_counts()
     launches["taxi filtered read"] = counts
@@ -4535,6 +4790,8 @@ def main(argv=None) -> int:
     check_query_declines(taxi_path)
     scan = check_scans(taxi_path, taxi_specs, dev, launches)
     dataset_rates = check_dataset(taxi_path, taxi_specs, dev, smi)
+    rows_phase = check_rows(taxi_path, sessions_path, sessions_specs, taxi_specs, f_taxi,
+                            taxi_keep, device_filtered, dev, launches, smi)
     for k in rows:
         rows[k]["launches"] = sum(c[k] for c in launches.values())
         rows[k]["launches_by_path"] = {label: c[k] for label, c in launches.items()}
@@ -4684,7 +4941,7 @@ def main(argv=None) -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"rows_per_s": rates, "prepare_s": prepare, "native_ab_s": native_ab,
                       "collectives": scan["collectives"], "overlap": overlap,
-                      "write_options": write_options, "card": smi}))
+                      "write_options": write_options, "rows": rows_phase, "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -14,6 +14,10 @@ bloom filters, the page index and a parallel encode pipeline as options.
 Schemas come from the text DSL (parse_schema) or the typed builders
 (schema.builder), and merge_files / split_row_groups copy row groups
 between files without re-encoding.
+Rows are a host path: FileReader.iter_rows (filters=, raw=) assembles
+Python dicts from the host decode, FileWriter.write_row / write_rows shreds
+them into the same chunk encode, and floor.Writer / floor.Reader map
+dataclasses onto both.
 Aggregation queries (serve.run_local_query) filter and reduce each row
 group on the card, and scans (parallel.column_stats,
 distributed_column_stats, sharded_decode_step) spread row groups and pages
@@ -38,6 +42,10 @@ over devices and torch.distributed ranks.
         w.write_device_column("zone", (data_u8, offsets_i64))
     write_counts()                                  # device_write_engaged / _declined, encode_fused_*
 
+    for row in FileReader("trips.parquet").iter_rows(filters=[("fare", ">=", 1500)]):
+        ...                                         # {"fare": 1612, "zone": "JFK", ...}
+    row_counts()                                    # assemble_vec / _cursor, rows_filtered_*
+
 `device="cpu"` runs the kernels' plain PyTorch versions on the CPU; without
 it a machine with no CUDA raises.
 """
@@ -57,6 +65,8 @@ from .core.reader import (
     RaggedColumn,
     filter_counts,
     reset_filter_counts,
+    reset_row_counts,
+    row_counts,
 )
 from .core.schema import Column, Schema, SchemaError
 from .core.writer import FileWriter, WriterError, reset_write_counts, write_counts
@@ -71,6 +81,7 @@ from .schema.dsl import (
     validate_strict,
 )
 from .sink.sink import BufferedSink
+from . import floor
 
 __all__ = [
     "BACKENDS",
@@ -97,12 +108,15 @@ __all__ = [
     "WriterError",
     "builder",
     "filter_counts",
+    "floor",
     "merge_files",
     "parse_schema",
     "read_chunk",
     "read_file_metadata",
     "reset_filter_counts",
+    "reset_row_counts",
     "reset_write_counts",
+    "row_counts",
     "schema_to_string",
     "split_row_groups",
     "validate",

@@ -6,6 +6,9 @@ consumed (:187-190), at most one dictionary page (:196-228), CRC validation
 opt-in (:161-180), every size validated before allocation. Decoded pages are
 concatenated into one ChunkData of typed arrays. `read_chunk` is the host
 decode: the oracle the device pipeline (kernels/pipeline.py) is held against.
+`read_chunk_row_ranges` decodes only the pages of a chunk that the page
+index (OffsetIndex) says cover given row ranges: the selective page decode
+of FileReader.iter_rows(filters=).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ __all__ = [
     "ChunkError",
     "ChunkWindow",
     "read_chunk",
+    "read_chunk_row_ranges",
     "RawPage",
     "chunk_byte_range",
     "iter_chunk_pages",
@@ -288,6 +292,137 @@ def iter_chunk_pages(f, chunk: ColumnChunk):
             raise ChunkError("chunk: truncated page payload")
         yield RawPage(header=header, payload=payload, offset=page_start)
         consumed += (f.tell() - page_start)
+
+
+def read_chunk_row_ranges(
+    f,
+    chunk: ColumnChunk,
+    column: Column,
+    offset_index,
+    ranges: list,
+    num_rows: int,
+    validate_crc: bool = False,
+) -> ChunkData:
+    """Decode ONLY the pages covering `ranges` (sorted disjoint row spans),
+    using the chunk's OffsetIndex to seek straight to each admitted page —
+    non-admitted pages are neither read nor decompressed. Returns a ChunkData
+    holding exactly the rows of `ranges`, in order (row-aligned with any
+    other column decoded with the same ranges). Flat columns only
+    (max_rep == 0): repeated pages interleave rows and values, which range
+    slicing by row index cannot express.
+
+    Beyond the reference (which always decodes whole chunks); the payoff is
+    selective filtered scans — decode cost proportional to matching pages,
+    not file size.
+    """
+    if column.max_rep > 0:
+        raise ChunkError("chunk: range decode requires a flat column")
+    md = chunk.meta_data
+    codec = md.codec or 0
+    locs = offset_index.page_locations or []
+    if not locs:
+        raise ChunkError("chunk: empty offset index")
+    firsts = [loc.first_row_index for loc in locs] + [num_rows]
+    dictionary = None
+    dict_off = md.dictionary_page_offset
+    if dict_off is not None and dict_off > 0 and dict_off < (locs[0].offset or 0):
+        f.seek(dict_off)
+        header = _read_page_header(f)
+        payload = f.read(header.compressed_page_size or 0)
+        if validate_crc:
+            _check_crc(header, payload)
+        block = decompress_block(payload, codec, header.uncompressed_page_size or 0)
+        dictionary = decode_dict_page(header, block, column)
+    pages: list[DecodedPage] = []
+    ri = 0
+    n_out = 0
+    for k, loc in enumerate(locs):
+        a, b = firsts[k], firsts[k + 1]
+        while ri < len(ranges) and ranges[ri][1] <= a:
+            ri += 1
+        if ri >= len(ranges):
+            break
+        if ranges[ri][0] >= b:
+            continue  # page admitted no range: skip without reading
+        f.seek(loc.offset)
+        header = _read_page_header(f)
+        size = header.compressed_page_size or 0
+        payload = f.read(size)
+        if len(payload) != size:
+            raise ChunkError("chunk: truncated page payload")
+        if validate_crc:
+            _check_crc(header, payload)
+        if header.type == int(PageType.DATA_PAGE):
+            block = decompress_block(payload, codec, header.uncompressed_page_size or 0)
+            dict_size = len(dictionary) if dictionary is not None else None
+            page = decode_data_page_v1(header, block, column, dict_size)
+        elif header.type == int(PageType.DATA_PAGE_V2):
+            dict_size = len(dictionary) if dictionary is not None else None
+            page = decode_data_page_v2(header, payload, column, dict_size, codec)
+        else:
+            raise ChunkError(f"chunk: offset index points at page type {header.type}")
+        if page.num_values != b - a:
+            raise ChunkError(
+                f"chunk: page holds {page.num_values} rows, offset index says {b - a}"
+            )
+        page.materialize(dictionary)
+        # slice this page down to the admitted rows
+        rj = ri
+        keep = []
+        while rj < len(ranges) and ranges[rj][0] < b:
+            s = max(ranges[rj][0], a) - a
+            e = min(ranges[rj][1], b) - a
+            keep.append((s, e))
+            rj += 1
+        pages.append(_slice_page(page, keep, column))
+        n_out += sum(e - s for s, e in keep)
+    data = _concat_pages(column, pages, dictionary)
+    if data.num_values != n_out:
+        raise ChunkError("chunk: range decode row-count mismatch")
+    return data
+
+
+def _slice_page(page: DecodedPage, keep: list, column: Column) -> DecodedPage:
+    """Restrict one decoded flat page to local row spans `keep`."""
+    if len(keep) == 1 and keep[0] == (0, page.num_values):
+        return page
+    dl = page.def_levels
+    n = sum(e - s for s, e in keep)
+    if dl is None:
+        # no nulls: rows ARE value indices
+        vals = _concat_value_slices(page.values, keep)
+        return DecodedPage(num_values=n, def_levels=None, rep_levels=None, values=vals)
+    # nulls: map row spans to value spans via the non-null prefix sum
+    prefix = np.zeros(len(dl) + 1, dtype=np.int64)
+    np.cumsum(dl == column.max_def, out=prefix[1:])
+    vspans = [(int(prefix[s]), int(prefix[e])) for s, e in keep]
+    vals = _concat_value_slices(page.values, vspans)
+    new_dl = np.concatenate([dl[s:e] for s, e in keep]) if keep else dl[:0]
+    return DecodedPage(
+        num_values=n, def_levels=new_dl, rep_levels=None, values=vals
+    )
+
+
+def _concat_value_slices(values, spans: list):
+    if isinstance(values, ByteArrayData):
+        o = values.offsets
+        parts = [
+            ByteArrayData(
+                offsets=o[s : e + 1] - int(o[s]),
+                data=values.data[int(o[s]) : int(o[e])],
+            )
+            for s, e in spans
+        ]
+        if not parts:
+            return ByteArrayData(offsets=np.zeros(1, dtype=np.int64), data=b"")
+        return _concat_byte_arrays(parts)  # returns parts[0] unchanged for one
+    arr = np.asarray(values)
+    if len(spans) == 1:
+        s, e = spans[0]
+        return arr[s:e]
+    return (
+        np.concatenate([arr[s:e] for s, e in spans]) if spans else arr[:0]
+    )
 
 
 def _check_crc(header: PageHeader, payload: bytes) -> None:

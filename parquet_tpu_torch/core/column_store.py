@@ -1,11 +1,13 @@
 """Write-side column stores: typed buffering and the dictionary decision.
 
-A copy of parquet_tpu/core/column_store.py, cut to the columnar half of
-`ColumnChunkBuilder` that FileWriter.write_column needs: `set_columnar`,
-`typed_values`, `fast_dictionary` and `build_dictionary`. The row path
-(`extend_shredded`, the Shredder's values) and pyarrow ingestion
-(`_from_arrow`) are left out, and so is the conversion of row-domain objects
-(datetime, Decimal) to storage: the port has no host row assembly yet.
+A copy of parquet_tpu/core/column_store.py without pyarrow ingestion
+(`_from_arrow`). A `ColumnChunkBuilder` takes a chunk either columnar
+(`set_columnar`, FileWriter.write_column) or as the Shredder's row values
+(`extend_shredded`, FileWriter.write_row / write_rows); row-domain objects
+(datetime, date, time, Decimal, floor.Time, unsigned ints past the signed
+range) convert to storage by the leaf's logical type (core/assembly.py
+convert_to_storage), and `data_size` is the size signal of the row-group
+auto-flush.
 
 Dictionaries are probed as the JAX module probes them: one C hash probe of
 the port's host library in first-occurrence order, over the byte-array
@@ -22,6 +24,8 @@ dictionary cutoff 32767 uniques (chunk_writer.go:188-200, type_dict.go:101-103).
 """
 
 from __future__ import annotations
+
+import datetime as _dt
 
 import numpy as np
 
@@ -54,6 +58,11 @@ _NUMERIC = {
     Type.INT64: np.int64,
     Type.FLOAT: np.float32,
     Type.DOUBLE: np.float64,
+}
+
+_TYPE_WIDTHS = {
+    Type.INT32: 4, Type.INT64: 8, Type.FLOAT: 4, Type.DOUBLE: 8,
+    Type.BOOLEAN: 1, Type.INT96: 12,
 }
 
 
@@ -95,18 +104,57 @@ class ColumnChunkBuilder:
     def __init__(self, column: Column, enable_dict: bool = True):
         self.column = column
         self.enable_dict = enable_dict
+        self.values: list = []
         self.def_levels: list[int] = []
         self.rep_levels: list[int] = []
         self._columnar_values = None  # fast-path ndarray/ByteArrayData
 
+    def __len__(self) -> int:
+        return len(self.def_levels) if len(self.def_levels) else self._n_values()
+
     def _n_values(self) -> int:
-        return 0 if self._columnar_values is None else len(self._columnar_values)
+        if self._columnar_values is not None:
+            return len(self._columnar_values)
+        return len(self.values)
+
+    def data_size(self) -> int:
+        """Rough UNCOMPRESSED byte size of the buffered values + levels
+        (reference: data_store.go DataSize via file_writer.go:355
+        CurrentRowGroupSize) — the signal callers use for size-based
+        row-group flushing; encoding/compression usually shrink it."""
+        n = len(self)
+        size = n * 2 * (
+            (self.column.max_def > 0) + (self.column.max_rep > 0)
+        )
+        v = self._columnar_values
+        if v is not None:
+            if isinstance(v, ByteArrayData):
+                return size + len(v.data) + 4 * len(v)
+            nb = getattr(v, "nbytes", None)
+            if nb is not None:
+                return size + int(nb)
+            v = list(v)
+        else:
+            v = self.values
+        if not v:
+            return size
+        first = v[0]
+        if isinstance(first, (bytes, str)):
+            return size + sum(len(x) for x in v) + 4 * len(v)
+        width = self.column.type_length or _TYPE_WIDTHS.get(self.column.type, 8)
+        return size + len(v) * width
 
     # -- ingestion -------------------------------------------------------------
 
+    def extend_shredded(self, values: list, def_levels: list, rep_levels: list) -> None:
+        """Row-path input from the Shredder (values include None placeholders)."""
+        self.values.extend(v for v in values if v is not None)
+        self.def_levels.extend(def_levels)
+        self.rep_levels.extend(rep_levels)
+
     def set_columnar(self, values, def_levels=None, rep_levels=None) -> None:
         """Columnar fast path: typed array (+ optional levels) for the chunk."""
-        if len(self.def_levels) or self._columnar_values is not None:
+        if self.values or len(self.def_levels) or self._columnar_values is not None:
             raise StoreError(
                 "store: column already holds data for this row group"
             )
@@ -124,10 +172,90 @@ class ColumnChunkBuilder:
 
     def typed_values(self):
         """Non-null cells as a typed array / ByteArrayData."""
-        return self._coerce_array([] if self._columnar_values is None else self._columnar_values)
+        if self._columnar_values is not None:
+            return self._coerce_array(self._columnar_values)
+        ptype = self.column.type
+        if ptype in _NUMERIC:
+            # same exact-roundtrip validation as the columnar path: a float
+            # 1.5 must not silently truncate into an int64 column
+            return self._coerce_array(self.values)
+        if ptype == Type.BOOLEAN:
+            return np.asarray(self.values, dtype=bool)
+        vals = self.values
+        if vals and not isinstance(vals[0], (bytes, str)):
+            # row-domain objects (e.g. Decimal into FLBA/BYTE_ARRAY
+            # storage) convert by the leaf's logical annotation; datetimes
+            # for INT96 pass through untouched (handled below)
+            from .assembly import convert_to_storage, logical_kind
+
+            k = logical_kind(self.column)
+            if k is not None and k != "int96":
+                try:
+                    vals = [convert_to_storage(self.column, x, k) for x in vals]
+                except ValueError as e:
+                    raise StoreError(
+                        f"store: {self.column.path_str}: {e}"
+                    ) from e
+        if ptype == Type.BYTE_ARRAY:
+            return ByteArrayData.from_list([self._to_bytes(x) for x in vals])
+        if ptype in (Type.INT96, Type.FIXED_LEN_BYTE_ARRAY):
+            width = 12 if ptype == Type.INT96 else (self.column.type_length or 0)
+            if width <= 0:
+                raise StoreError(
+                    f"store: fixed column {self.column.path_str} lacks type_length"
+                )
+            rows = []
+            for v in vals:
+                if ptype == Type.INT96 and isinstance(v, _dt.datetime):
+                    # datetime into an INT96 column converts like the
+                    # reference's floor writer (writer.go INT96 heuristics)
+                    from ..utils.int96 import datetime_to_int96
+
+                    v = datetime_to_int96(v)
+                b = self._to_bytes(v)
+                if len(b) != width:
+                    raise StoreError(
+                        f"store: fixed({width}) column {self.column.path_str} "
+                        f"got {len(b)}-byte value"
+                    )
+                rows.append(np.frombuffer(b, dtype=np.uint8))
+            if not rows:
+                return np.empty((0, width), dtype=np.uint8)
+            return np.stack(rows)
+        raise StoreError(f"store: unsupported type {ptype}")
 
     def _coerce_array(self, v):
         ptype = self.column.type
+        if isinstance(v, list) and v:
+            # row-domain objects (datetime/date/time/Decimal — what
+            # iter_rows RETURNS) convert to storage by the leaf's logical
+            # annotation; raw storage lists skip on the first-element
+            # check. UINT columns also wrap plain ints >= 2^(bits-1) into
+            # their signed storage bit pattern.
+            first = v[0]
+            needs = not isinstance(first, (int, float, str, bytes))
+            if (
+                not needs
+                and isinstance(first, int)
+                and ptype in (Type.INT32, Type.INT64)
+            ):
+                from .assembly import logical_kind
+
+                k = logical_kind(self.column)
+                needs = k is not None and k[0] == "uint"
+            if needs:
+                from .assembly import convert_to_storage, logical_kind
+
+                k = logical_kind(self.column)
+                if k is not None:
+                    try:
+                        v = [
+                            convert_to_storage(self.column, x, k) for x in v
+                        ]
+                    except ValueError as e:
+                        raise StoreError(
+                            f"store: {self.column.path_str}: {e}"
+                        ) from e
         if ptype in _NUMERIC:
             try:
                 arr = np.asarray(v)
@@ -211,7 +339,7 @@ class ColumnChunkBuilder:
         non-BYTE_ARRAY column, a non-str item — take build_dictionary)."""
         if not self.enable_dict or self.column.type != Type.BYTE_ARRAY:
             return PROBE_NA
-        raw = self._columnar_values
+        raw = self._columnar_values if self._columnar_values is not None else self.values
         if not isinstance(raw, list) or not raw:
             return PROBE_NA
         uniq: dict[str, int] = {}

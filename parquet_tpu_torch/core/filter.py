@@ -5,8 +5,9 @@ A copy of parquet_tpu/core/filter.py cut to what the port's filtering
 uses: `normalize_filters` / `normalize_dnf` (with their coercion helpers),
 the statistics decode, `row_group_may_match` / `dnf_group_may_match`, and
 the page-index pruning (`page_ranges_matching`, `dnf_page_ranges`: the row
-ranges of a group whose pages the ColumnIndex cannot rule out). The scalar
-row walk (`row_matches`) waits for the slice that iterates rows.
+ranges of a group whose pages the ColumnIndex cannot rule out), and the
+scalar row walk (`row_matches` / `dnf_row_matches`) that FileReader.iter_rows
+falls back to where the vectorized mask (core/filter_vec) declines.
 
 Filters are pyarrow-style conjunctive triples, or an OR of conjunctions:
 
@@ -15,8 +16,9 @@ Filters are pyarrow-style conjunctive triples, or an OR of conjunctions:
 
 Pruning is CONSERVATIVE: a row group is skipped only when its written
 min/max/null-count statistics prove no row can match. Surviving groups are
-decoded and, with filter_rows=True, masked row by row, so the result is
-exact regardless of how coarse (or absent) the statistics are.
+decoded and, with filter_rows=True (or through iter_rows(filters=)),
+checked row by row, so the result is exact regardless of how coarse (or
+absent) the statistics are.
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ __all__ = [
     "row_group_may_match",
     "dnf_group_may_match",
     "dnf_page_ranges",
+    "dnf_row_matches",
     "page_ranges_matching",
+    "row_matches",
 ]
 
 _OPS = (
@@ -580,3 +584,88 @@ def _intersect_ranges(a, b):
         else:
             j += 1
     return out
+
+
+def dnf_row_matches(row: dict, dnf) -> bool:
+    return any(row_matches(row, conj) for conj in dnf)
+
+
+def _lift_row_value(v, value):
+    """Adapt a row value to the filter value's comparison domain."""
+    if isinstance(v, str) and isinstance(value, bytes):
+        return v.encode("utf-8")
+    if isinstance(v, dt.time) and not isinstance(value, dt.time):
+        # sub-microsecond TIME filter value on a MILLIS/MICROS column:
+        # lift the row into exact-nanos Time space for the comparison
+        from ..floor.time import Time
+
+        if isinstance(value, Time):
+            return Time.from_time(v, utc=value.utc)
+    return v
+
+
+def row_matches(row: dict, normalized) -> bool:
+    for path, leaf, op, value, _vlo, _vhi in normalized:
+        v = row.get(path[0]) if len(path) == 1 else _nested_get(row, path)
+        if op == "is_null":
+            if v is not None:
+                return False
+            continue
+        if op == "not_null":
+            if v is None:
+                return False
+            continue
+        if op == "contains":
+            # rows hold the unwrapped list under the TOP name (the leaf
+            # path addresses the element for stats; normalize_filters pins
+            # len-1 user paths, so path[0] is the top field)
+            v = row.get(path[0])
+            if not isinstance(v, list):
+                return False  # null list, or not the expected shape
+            if not any(
+                e is not None and _lift_row_value(e, value) == value for e in v
+            ):
+                return False
+            continue
+        if v is None:
+            return False
+        if op in ("in", "not_in"):
+            # members were unified into one domain at normalize time, so
+            # the row value lifts once (against any member), not per member
+            if value:
+                lifted = _lift_row_value(v, next(iter(value)))
+                hit = (
+                    lifted in value
+                    if isinstance(value, frozenset)
+                    else any(lifted == x for x in value)
+                )
+            else:
+                hit = False
+            if hit == (op == "not_in"):
+                return False
+            continue
+        v = _lift_row_value(v, value)
+        if op == "==" and not v == value:
+            return False
+        if op == "!=" and not v != value:
+            return False
+        if op == "<" and not v < value:
+            return False
+        if op == "<=" and not v <= value:
+            return False
+        if op == ">" and not v > value:
+            return False
+        if op == ">=" and not v >= value:
+            return False
+    return True
+
+
+def _nested_get(row, path):
+    v = row
+    for part in path:
+        if not isinstance(v, dict):
+            return None
+        v = v.get(part)
+        if v is None:
+            return None
+    return v

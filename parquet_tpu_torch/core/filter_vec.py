@@ -1,8 +1,12 @@
 """Vectorized residual predicate evaluation on the host: filter -> row mask.
 
-A copy of parquet_tpu/core/filter_vec.py cut to the mask pipeline
-(`dnf_mask` and its comparators). In the port it is one rung below the
-device engine (core/filter_device.py): a predicate the device declines is
+A copy of parquet_tpu/core/filter_vec.py. Its mask pipeline (`dnf_mask`
+and its comparators) serves two callers. FileReader.iter_rows(filters=)
+compiles a group's predicate into one row mask and assembles only the kept
+rows (`masked_flat_columns` for flat schemas; `vec_filter_enabled`, with
+PQT_VEC_FILTER=0 forcing the scalar row walk). And in the device path it is
+one rung below the device engine (core/filter_device.py): a predicate the
+device declines is
 evaluated here over the group's host-decoded chunks ({leaf path:
 ChunkData} from FileReader.read_row_group) and the mask is uploaded; and
 filter_device compares a chunk's host dictionary with these comparators
@@ -39,16 +43,24 @@ row membership.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from ..meta.parquet_types import Type
 from ..ops.levels import rows_from_rep
 from .arrays import ByteArrayData
-from .assembly import logical_kind
+from .assembly import convert_logical, logical_kind
 from .filter import FilterError
 from .stats import column_is_unsigned
 
-__all__ = ["VecFilterError", "dnf_mask"]
+__all__ = [
+    "VecFilterError",
+    "dnf_mask",
+    "group_row_count",
+    "masked_flat_columns",
+    "vec_filter_enabled",
+]
 
 # Guards against pathological byte-array shapes: padding n values to the
 # longest value's width is the vectorized compare's only super-linear cost,
@@ -59,7 +71,15 @@ _MAX_PAD_BYTES = 256 << 20
 
 class VecFilterError(FilterError):
     """The mask pipeline cannot evaluate this predicate over these buffers
-    (unorderable physical domain, uncovered shape, pathological widths)."""
+    (unorderable physical domain, uncovered shape, pathological widths).
+    Callers fall back to the scalar row_matches walk, which is exact for
+    everything — same contract as assembly_vec's VecStructureError."""
+
+
+def vec_filter_enabled() -> bool:
+    """Engine-selection knob: PQT_VEC_FILTER=0 forces the scalar predicate
+    walk (the differential oracle) everywhere the mask pipeline would run."""
+    return os.environ.get("PQT_VEC_FILTER", "1") != "0"
 
 
 # -- mask combination ----------------------------------------------------------
@@ -84,6 +104,100 @@ def dnf_mask(chunks: dict, dnf, n_rows: int, *, null_mode: str = "row"):
     if out is None:
         return np.ones(n_rows, dtype=bool)
     return out
+
+
+def group_row_count(chunks: dict) -> int:
+    """Row count one group's decoded chunks promise (record starts for
+    repeated leaves, level entries otherwise) — raising VecFilterError on
+    disagreement, so callers fall back and the scalar walk raises its
+    precise typed error if the data really is inconsistent."""
+    n = None
+    for path, cd in chunks.items():
+        if cd.rep_levels is None:
+            c = cd.num_values
+        else:
+            rl = np.asarray(cd.rep_levels)
+            if len(rl) and int(rl[0]) != 0:
+                raise VecFilterError(
+                    f"filter_vec: {'.'.join(path)}: stream opens mid-record"
+                )
+            c = int((rl == 0).sum())
+        if n is None:
+            n = c
+        elif n != c:
+            raise VecFilterError("filter_vec: leaves disagree on row count")
+    if n is None:
+        raise VecFilterError("filter_vec: no decoded chunks")
+    return n
+
+
+# -- masked row-column gather ---------------------------------------------------
+
+
+def masked_flat_columns(chunks: dict, raw: bool, mask):
+    """(names, columns, k) holding ONLY the mask's rows for flat schemas
+    (single-level leaves, max_def <= 1) — the selective twin of
+    assembly_vec._flat_columns. This is where the mask pays: value boxing
+    and logical conversion run over the k kept rows, never the dropped
+    ones, so a 1%-selective predicate boxes 1% of the group. None when any
+    chunk needs the general assembly path."""
+    for path, cd in chunks.items():
+        node = cd.column
+        if (
+            len(path) != 1
+            or not node.is_leaf
+            or node.max_rep > 0
+            or node.max_def > 1
+        ):
+            return None
+    if not chunks:
+        return [], [], 0
+    idx = np.flatnonzero(mask)
+    names: list = []
+    columns: list = []
+    for path, cd in chunks.items():
+        node = cd.column
+        valid = None
+        if node.max_def == 1 and cd.def_levels is not None:
+            v = np.asarray(cd.def_levels) == 1
+            if not v.all():
+                valid = v
+        if valid is None:
+            vals = _gather_values(cd, node, idx, raw)
+        else:
+            didx = np.clip(np.cumsum(valid) - 1, 0, None)
+            ok = valid[idx]
+            dense = _gather_values(cd, node, didx[idx][ok], raw)
+            it = iter(dense)
+            vals = [next(it) if o else None for o in ok.tolist()]
+        names.append(node.name)
+        columns.append(vals)
+    return names, columns, len(idx)
+
+
+def _gather_values(cd, node, dense_idx, raw: bool) -> list:
+    """Python values of the chunk's dense cells at `dense_idx`, with the
+    exact decode/convert semantics of assembly._leaf_python_values applied
+    to ONLY those cells."""
+    v = cd.values
+    if isinstance(v, ByteArrayData):
+        offs = np.asarray(v.offsets, dtype=np.int64)
+        data = v.data
+        s = offs[dense_idx].tolist()
+        e = offs[np.asarray(dense_idx) + 1].tolist()
+        if not raw and node.is_string():
+            vals = [data[a:b].decode("utf-8", errors="replace") for a, b in zip(s, e)]
+        else:
+            vals = [bytes(data[a:b]) for a, b in zip(s, e)]
+    else:
+        arr = np.asarray(v)
+        if arr.ndim == 2:
+            vals = [arr[j].tobytes() for j in np.asarray(dense_idx).tolist()]
+        else:
+            vals = arr[dense_idx].tolist()
+    if not raw and logical_kind(node) is not None:
+        vals = [convert_logical(node, x) for x in vals]
+    return vals
 
 
 # -- per-leaf masks -------------------------------------------------------------

@@ -35,6 +35,18 @@ filter_rows=True)). filter_counts() reads the plain counters of that path.
 Within a group, the page index (read_page_index) narrows a filter to the
 row ranges whose pages may match (prune_pages).
 
+Rows: iter_rows (and iterating the reader) yields each row as a dict of
+Python values, assembled on the host from the host decode of each group
+(core/assembly_vec.py's level scans, or the scalar Dremel walk of
+core/assembly.py where the scans cannot prove the shape; PQT_VEC_ASSEMBLY=0
+forces the walk). iter_rows(filters=) prunes groups by statistics and bloom
+filters, narrows each group to the page index's row ranges (decoding only
+those pages when they cover few rows: selective page decode), evaluates
+the predicate as one host row mask (core/filter_vec; PQT_VEC_FILTER=0, or a
+predicate the mask declines, takes the scalar row_matches walk) and
+assembles only the kept rows. Which engine ran shows in row_counts(). Row
+reads touch no device, whatever the reader's `device`.
+
 The device is explicit: `device=None` means `torch.device("cuda")`, and a
 reader built without a device on a machine with no CUDA raises rather than
 decoding on the CPU. Pass `device="cpu"` to run the kernels' plain PyTorch
@@ -43,11 +55,14 @@ versions on the CPU.
 
 from __future__ import annotations
 
+import gc
 import io
+import itertools
 import os
 import threading
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor, wait
+from contextlib import contextmanager
 from pathlib import Path
 from typing import NamedTuple
 
@@ -75,11 +90,34 @@ from ..meta.parquet_types import (
 )
 from ..meta.thrift import CompactReader, ThriftError
 from ..utils.native import get_native
+from .assembly import RecordAssembler
+from .assembly_vec import _zip_dict_rows, assemble_row_columns, vec_enabled
 from .bloom import BloomFilter
-from .chunk import ChunkData, ChunkError, ChunkWindow, chunk_byte_range, read_chunk
-from .filter import chunks_by_path, dnf_page_ranges, normalize_dnf, row_group_may_match
+from .chunk import (
+    ChunkData,
+    ChunkError,
+    ChunkWindow,
+    chunk_byte_range,
+    read_chunk,
+    read_chunk_row_ranges,
+)
+from .filter import (
+    FilterError,
+    chunks_by_path,
+    dnf_group_may_match,
+    dnf_page_ranges,
+    dnf_row_matches,
+    normalize_dnf,
+    row_group_may_match,
+)
 from .filter_device import DeviceFilterError, device_dnf_mask
-from .filter_vec import dnf_mask
+from .filter_vec import (
+    VecFilterError,
+    dnf_mask,
+    group_row_count,
+    masked_flat_columns,
+    vec_filter_enabled,
+)
 from .page import PageError
 from .schema import Schema
 from .stats import column_is_unsigned
@@ -92,7 +130,9 @@ __all__ = [
     "RaggedColumn",
     "filter_counts",
     "reset_filter_counts",
+    "reset_row_counts",
     "resolve_device",
+    "row_counts",
 ]
 
 BACKENDS = ("host", "device", "device_roundtrip")
@@ -152,6 +192,72 @@ def filter_counts() -> dict:
 def reset_filter_counts() -> None:
     with _FILTER_LOCK:
         _FILTER_COUNTS.clear()
+
+
+# -- row counters ------------------------------------------------------------------
+#
+# The engines of the row path, which the JAX package bumps as trace events
+# and metrics: assemble_vec / assemble_cursor (a group's rows from the
+# vectorized engine or the scalar Dremel walk), selective_page_decode (a
+# group decoded from the page index's admitted pages only), rows_filtered_vec
+# / rows_filtered_scalar (rows iter_rows(filters=) dropped, by the engine
+# that evaluated the predicate), rows_assembled_vec / rows_assembled_scalar
+# (rows delivered, by engine). Process-wide: read with row_counts(), zero
+# with reset_row_counts().
+
+_ROW_COUNTS: Counter = Counter()
+_ROW_LOCK = threading.Lock()
+
+
+def _count_rows(name: str, n: int = 1) -> None:
+    with _ROW_LOCK:
+        _ROW_COUNTS[name] += n
+
+
+def row_counts() -> dict:
+    """A snapshot of the row counters."""
+    with _ROW_LOCK:
+        return dict(_ROW_COUNTS)
+
+
+def reset_row_counts() -> None:
+    with _ROW_LOCK:
+        _ROW_COUNTS.clear()
+
+
+def _timed_rows(assembler):
+    """Stream rows from the scalar cursor walk without materializing the row
+    group, counting each delivered row (rows_assembled_scalar) when the
+    stream ends or the consumer abandons it."""
+    n = 0
+    try:
+        for row in assembler:
+            n += 1
+            yield row
+    finally:
+        _count_rows("rows_assembled_scalar", n)
+
+
+# Rows materialize in windows this size: cyclic GC cost scales with LIVE
+# tracked containers, so bounded windows keep collections cheap while
+# consumers that drop rows as they go (aggregations, filters) never hold a
+# whole 1M-row group of dicts.
+_ASSEMBLE_WINDOW = 1 << 16
+
+
+@contextmanager
+def _gc_paused():
+    """Pause cyclic GC around a bulk container build: each incremental
+    collection re-scans the still-growing result (~25% of assembly wall
+    time) and nothing in row assembly creates reference cycles."""
+    was_enabled = gc.isenabled()
+    if was_enabled:
+        gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -401,6 +507,330 @@ class FileReader:
             path: read_chunk(self._window(cc), cc, column, validate_crc=self.validate_crc)
             for path, cc, column in self._selected_chunks(i, columns)
         }
+
+    # -- host rows ---------------------------------------------------------------
+
+    def iter_rows(self, row_groups=None, raw: bool = False, filters=None):
+        """Yield rows as dicts (returns an iterator). `raw=True` gives
+        reference-style nested maps (no LIST/MAP unwrapping, bytes not
+        decoded). `filters` is a flat list of (column, op, value) triples (a
+        conjunction) or a list of LISTS of triples (an OR of conjunctions —
+        pyarrow's DNF convention): row groups whose statistics/bloom/
+        page-index exclude the predicate are skipped wholesale and the
+        surviving rows are predicate-checked exactly. Rows are built on the
+        host; no device is touched."""
+        if filters is None and row_groups is None and self.num_row_groups == 1:
+            # single-group scan: hand back the group's list/generator with
+            # no extra per-row generator hop
+            rows = self._iter_group_rows(0, raw)
+            return iter(rows) if isinstance(rows, list) else rows
+        return self._iter_rows_gen(row_groups, raw, filters)
+
+    def _iter_rows_gen(self, row_groups, raw: bool, filters):
+        dnf = None
+        if filters is not None:
+            if raw:
+                # row_matches compares in the converted domain (datetime,
+                # Decimal, str); raw rows are wire-shaped (ints, undecoded
+                # bytes, nested wrappers), so the predicate would silently
+                # mismatch — mirror floor.Reader, which only prunes for the
+                # unmarshal path
+                raise FilterError("filters cannot be combined with raw=True")
+            dnf = normalize_dnf(self.schema, filters)
+        # Filter columns OUTSIDE the projection still evaluate: decode them
+        # alongside the selection, predicate-check, then strip them from the
+        # yielded rows (silently returning zero rows because the predicate
+        # column was projected out is a correctness trap). Stripping is
+        # LEAF-granular: each missing leaf is deleted at the shallowest
+        # path component no selected leaf shares, so g.c vanishes from a
+        # row that keeps g.b, and a whole unselected root vanishes outright.
+        read_cols = None
+        strips: list = []  # (parent path parts, key to pop)
+        if dnf is not None and self._selected is not None:
+            fpaths = {p for conj in dnf for p, *_ in conj}
+            missing = fpaths - self._selected
+            if missing:
+                read_cols = list(self._selected | fpaths)
+                for path in missing:
+                    cut = 1
+                    while cut < len(path) and any(
+                        sel[:cut] == path[:cut] for sel in self._selected
+                    ):
+                        cut += 1
+                    strips.append((path[: cut - 1], path[cut - 1]))
+        indices = range(self.num_row_groups) if row_groups is None else row_groups
+        for i in indices:
+            if dnf is None:
+                yield from self._iter_group_rows(i, raw)
+                continue
+            if not dnf_group_may_match(self.row_group(i), dnf, self._bloom_excludes, i):
+                continue
+            # page index (when written): restrict row materialization to the
+            # ranges whose pages may match — row assembly is the dominant
+            # cost of a filtered scan, so pruned ranges never build rows
+            ranges = None
+            indexes = None
+            try:
+                # one parse covers both uses: range computation here and
+                # selective page decode in _read_group_ranges. Filter columns
+                # outside the projection still prune, so their index is
+                # fetched alongside the selected columns'.
+                indexes = self.read_page_index(i, columns=read_cols)
+                if any(ci is not None for ci, _ in indexes.values()):
+                    num_rows = self.row_group(i).num_rows or 0
+                    ranges = dnf_page_ranges(dnf, indexes, num_rows)
+                    if ranges == [(0, num_rows)]:
+                        # nothing pruned: keep the unpruned fast paths
+                        ranges = None
+            except ParquetFileError:
+                ranges = None  # corrupt index: scan everything, stay correct
+                indexes = None
+            if ranges is not None and not ranges:
+                continue
+            yield from self._filtered_group_rows(i, raw, dnf, ranges, indexes, read_cols, strips)
+
+    def _filtered_group_rows(self, i: int, raw: bool, dnf, ranges, indexes, read_cols, strips):
+        """One row group's rows surviving the residual predicate.
+
+        The vectorized path: the decoded chunks compile into ONE boolean
+        row mask (core/filter_vec.dnf_mask — per-leaf masks over the
+        columnar buffers, AND within conjunctions, OR across them) and only
+        matching rows ever materialize. Shapes or value domains the mask
+        pipeline cannot prove raise the typed VecFilterError and this falls
+        back to the scalar per-row `row_matches` walk — identical output
+        (PQT_VEC_FILTER=0 forces the scalar walk)."""
+        chunks, sliced = self._decode_group_chunks(i, ranges, indexes, read_cols)
+        if not chunks:
+            return  # empty selection
+        mask = None
+        if vec_filter_enabled() and vec_enabled():
+            try:
+                mask = dnf_mask(chunks, dnf, group_row_count(chunks))
+            except VecFilterError:
+                mask = None
+        if mask is not None:
+            kept = int(mask.sum())
+            if not kept:
+                # the mask alone proved the group empty of matches: no rows
+                # assemble under either engine, the filtering was vec's
+                _count_rows("rows_filtered_vec", len(mask))
+                return
+            # rows assemble from the PROJECTION only: filter-only leaf
+            # chunks never build row values, so the strip pass the scalar
+            # path needs does not exist here
+            row_chunks = (
+                chunks
+                if self._selected is None
+                else {p: cd for p, cd in chunks.items() if p in self._selected}
+            )
+            # flat schemas gather ONLY the kept rows (value boxing and
+            # logical conversion scale with matches, not group size)
+            try:
+                flat = masked_flat_columns(row_chunks, raw, mask)
+            except VecFilterError:
+                flat = None
+            if flat is not None:
+                _count_rows("assemble_vec")
+                _count_rows("rows_filtered_vec", len(mask) - kept)
+                names, columns, k = flat
+                if names and k:
+                    yield from self._column_rows(names, columns, k)
+                return
+            with _gc_paused():
+                rc = assemble_row_columns(self.schema, row_chunks, raw)
+            if rc is not None and rc[2] == len(mask):
+                _count_rows("assemble_vec")
+                _count_rows("rows_filtered_vec", len(mask) - kept)
+                names, columns, _n = rc
+                if names:
+                    yield from self._masked_rows(names, columns, mask)
+                return
+            # row assembly couldn't prove the shape: the scalar walk below
+            # decides (and raises its precise error on real inconsistency);
+            # the filtered rows are counted THERE, never here too
+        evaluated = kept = 0
+        try:
+            for row in self._rows_from_chunks(chunks, raw, ranges, sliced):
+                evaluated += 1
+                if not dnf_row_matches(row, dnf):
+                    continue
+                kept += 1
+                for parents, key in strips:
+                    d = row
+                    for part in parents:
+                        d = d.get(part) if isinstance(d, dict) else None
+                        if d is None:
+                            break
+                    if isinstance(d, dict):
+                        d.pop(key, None)
+                yield row
+        finally:
+            _count_rows("rows_filtered_scalar", evaluated - kept)
+
+    def _decode_group_chunks(self, i: int, ranges, indexes, columns):
+        """(chunks, sliced) for one row group: selective page decode when
+        the page index proves `ranges` (sorted disjoint row windows) cover
+        few enough rows, else the full decode. sliced=True means the chunks
+        hold exactly the ranges' rows."""
+        chunks = None
+        if ranges is not None:
+            try:
+                chunks = self._read_group_ranges(i, ranges, indexes, columns)
+            except ValueError:
+                # inconsistent index, or a page shape the range decoder
+                # does not cover (ChunkError/PageError/...): the full decode
+                # below stays correct and raises the precise error if the
+                # file is genuinely corrupt
+                chunks = None
+        sliced = chunks is not None
+        if sliced:
+            _count_rows("selective_page_decode")
+        else:
+            chunks = self.read_row_group(i, columns)
+        return chunks, sliced
+
+    def _iter_group_rows(self, i: int, raw: bool, ranges=None, indexes=None, columns=None):
+        """One row group's rows: a LIST for small vectorized shapes (callers
+        iterate without an extra generator frame per row), a window-batched
+        generator for large ones (bounds the live tracked-object count so
+        cyclic GC passes stay cheap), or the streaming Dremel fallback."""
+        chunks, sliced = self._decode_group_chunks(i, ranges, indexes, columns)
+        if not chunks:
+            return []  # empty selection
+        return self._rows_from_chunks(chunks, raw, ranges, sliced)
+
+    def _rows_from_chunks(self, chunks: dict, raw: bool, ranges=None, sliced=False):
+        rc = None
+        if vec_enabled():
+            # the vectorized engine: level prefix scans -> offsets/validity
+            # columns (core/assembly_vec.py). None when the scans cannot
+            # prove the shape, or always when PQT_VEC_ASSEMBLY=0.
+            with _gc_paused():
+                rc = assemble_row_columns(self.schema, chunks, raw)
+            if rc is not None:
+                _count_rows("assemble_vec")
+        if rc is None:
+            # per-row Dremel fallback: streams one row at a time (constant
+            # memory) and raises precise errors on inconsistent level data
+            _count_rows("assemble_cursor")
+            return _timed_rows(RecordAssembler(self.schema, chunks, raw=raw, engine="scalar"))
+        names, columns, n = rc
+        if not names or n == 0:
+            return []
+        if ranges is not None and not sliced:
+            # full decode happened: restrict materialization to the ranges
+            return self._ranged_rows(names, columns, ranges)
+        if n <= _ASSEMBLE_WINDOW:
+            with _gc_paused():
+                rows = _zip_dict_rows(names, columns)
+            _count_rows("rows_assembled_vec", n)
+            return rows
+        return self._ranged_rows(names, columns, [(0, n)])
+
+    def _read_group_ranges(self, i: int, ranges, indexes=None, columns=None) -> dict | None:
+        """Selective page decode of row group i restricted to `ranges`, or
+        None when it does not apply (no/partial offset index, repeated
+        columns, or ranges covering most rows — whole-chunk decode wins
+        then). All returned chunks hold exactly the ranges' rows, aligned.
+        `indexes` reuses an already-parsed page index for this group."""
+        num_rows = self.row_group(i).num_rows or 0
+        covered = sum(e - s for s, e in ranges)
+        if num_rows == 0 or covered * 4 > num_rows * 3:
+            return None
+        selected = list(self._selected_chunks(i, columns))
+        if any(col.max_rep > 0 for _, _, col in selected):
+            return None
+        if indexes is None:
+            indexes = self.read_page_index(i, columns=columns)
+        out = {}
+        for path, cc, col in selected:
+            oi = indexes.get(path, (None, None))[1]
+            if oi is None or not oi.page_locations:
+                return None
+            firsts = [loc.first_row_index for loc in oi.page_locations]
+            if (
+                any(not isinstance(x, int) for x in firsts)
+                or firsts[0] != 0
+                or any(b <= a for a, b in zip(firsts, firsts[1:]))
+                or any(
+                    not isinstance(loc.offset, int) or loc.offset <= 0
+                    for loc in oi.page_locations
+                )
+            ):
+                return None  # foreign/corrupt index: full decode
+            with self._lock:
+                out[path] = read_chunk_row_ranges(
+                    self._f, cc, col, oi, ranges, num_rows, validate_crc=self.validate_crc
+                )
+        return out
+
+    @staticmethod
+    def _column_rows(names, columns, n):
+        """Row dicts from already-gathered column value lists, windowed to
+        bound live tracked objects like every other materialization path."""
+
+        def windows():
+            for s in range(0, n, _ASSEMBLE_WINDOW):
+                e = min(s + _ASSEMBLE_WINDOW, n)
+                with _gc_paused():
+                    rows = _zip_dict_rows(names, [c[s:e] for c in columns])
+                _count_rows("rows_assembled_vec", e - s)
+                yield rows
+
+        return itertools.chain.from_iterable(windows())
+
+    @staticmethod
+    def _masked_rows(names, columns, mask):
+        """Materialize only the rows a boolean mask keeps, windowed like
+        _ranged_rows. One itertools.compress pass per window gathers
+        arbitrary (even per-row fragmented) masks at C speed."""
+        n = len(mask)
+
+        def windows():
+            for s in range(0, n, _ASSEMBLE_WINDOW):
+                e = min(s + _ASSEMBLE_WINDOW, n)
+                wm = mask[s:e]
+                k = int(wm.sum())
+                if not k:
+                    continue
+                with _gc_paused():
+                    if k == e - s:
+                        cols = [c[s:e] for c in columns]
+                    else:
+                        wml = wm.tolist()
+                        cols = [list(itertools.compress(c[s:e], wml)) for c in columns]
+                    rows = _zip_dict_rows(names, cols)
+                _count_rows("rows_assembled_vec", k)
+                yield rows
+
+        return itertools.chain.from_iterable(windows())
+
+    @staticmethod
+    def _ranged_rows(names, columns, ranges):
+        # chain.from_iterable over window LISTS: the per-row next() is pure
+        # C (no Python generator frame resumes per row); the Python frame
+        # below only wakes once per 64Ki-row window
+        def windows():
+            for start, stop in ranges:
+                for s in range(start, stop, _ASSEMBLE_WINDOW):
+                    e = min(s + _ASSEMBLE_WINDOW, stop)
+                    # build INSIDE the GC pause, yield OUTSIDE it: the
+                    # consumer must run with GC enabled
+                    with _gc_paused():
+                        rows = _zip_dict_rows(names, [c[s:e] for c in columns])
+                    _count_rows("rows_assembled_vec", e - s)
+                    yield rows
+
+        return itertools.chain.from_iterable(windows())
+
+    def iter_row_groups(self, columns=None):
+        for i in range(self.num_row_groups):
+            yield self.read_row_group(i, columns=columns)
+
+    def __iter__(self):
+        """Iterating the reader yields rows — the `for reader.NextRow()` loop
+        of the reference (file_reader.go:258) as a Python iterator."""
+        return self.iter_rows()
 
     # -- device delivery -------------------------------------------------------
 

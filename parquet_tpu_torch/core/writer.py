@@ -1,9 +1,10 @@
-"""FileWriter: the low-level write API, columnar.
+"""FileWriter: the low-level write API, by rows or by columns.
 
-A copy of parquet_tpu/core/writer.py without the row path (reference:
-file_writer.go:15-27, :46-77 ctor/options, :229-276 FlushRowGroup,
-:297-350 Close/footer):
+A copy of parquet_tpu/core/writer.py (reference: file_writer.go:15-27,
+:46-77 ctor/options, :229-276 FlushRowGroup, :280-290 auto-flush, :297-350
+Close/footer):
 
+  write_row(row) / write_rows(rows)                      host rows
   write_column(path, values, def_levels=, rep_levels=)   host values
   write_device_column(path, tensor | (data, offsets))    device values
   flush_row_group(), close(), abort(), `with FileWriter(...) as w:`
@@ -24,8 +25,19 @@ kernels/pipeline.encode_device_column, byte-identical to write_column of the
 same values; the shapes it declines are encoded on the host, counted
 (write_counts()).
 
-Left out, raising WriterError: the row path (write_row / write_rows over
-the Shredder, with the host row assembly).
+Rows (dicts, nested as the schema nests: LIST groups take Python lists,
+MAP groups dicts, and the raw wire shape is accepted too) are shredded into
+per-leaf (value, def, rep) streams by core/shred.Shredder on the host;
+flat schemas take a batched columnar shred in write_rows, staged and then
+committed, so a bad row leaves the writer consistent (a bad nested row,
+shredded field by field, leaves its earlier fields' entries behind, as in
+the reference). At flush the streams
+become ColumnChunkBuilder input and go through the same chunk encode as
+write_column (the fused native walk or the staged loop, dictionaries,
+blooms, the page index, `parallel=`), so a row-written file is
+byte-identical to the JAX package's. A row group flushes itself once its
+estimated size reaches `row_group_size`. Rows and columns cannot mix in one
+row group.
 """
 
 from __future__ import annotations
@@ -57,9 +69,9 @@ from ..sink.encoder import (
 )
 from ..sink.counts import count, reset_write_counts, write_counts
 from ..sink.sink import open_sink
-from .arrays import ByteArrayData
 from .column_store import MAX_PAGE_SIZE_DEFAULT, ColumnChunkBuilder
 from .schema import Column, Schema
+from .shred import ShredError, Shredder, _value_size
 
 __all__ = ["FileWriter", "WriterError", "write_counts", "reset_write_counts"]
 
@@ -95,15 +107,19 @@ _ALLOWED_ENCODINGS = {
     Type.FIXED_LEN_BYTE_ARRAY: {Encoding.PLAIN, Encoding.BYTE_STREAM_SPLIT},
 }
 
+_MIX = "writer: cannot mix write_row and write_column in one row group"
+
+
 class WriterError(ValueError):
     pass
 
 
 class FileWriter:
-    """Writes Parquet files from host arrays and device tensors.
+    """Writes Parquet files from host rows, host arrays and device tensors.
 
     Usage:
         w = FileWriter(path, schema, codec="snappy")
+        w.write_row({"a": 1, "s": "x"})                  # row path
         w.write_column("a", np.arange(100))              # host values
         w.write_device_column("b", torch.arange(100, device="cuda"))
         w.flush_row_group()
@@ -184,6 +200,7 @@ class FileWriter:
         self.with_crc = with_crc
         self.created_by = created_by
         self.key_value_metadata = dict(key_value_metadata or {})
+        self._shredder = Shredder(schema)
         self._row_groups: list[RowGroup] = []
         self.write_page_index = write_page_index
         # aligned with _row_groups: per group, per chunk (leaf order):
@@ -366,16 +383,70 @@ class FileWriter:
     # -- ingestion -------------------------------------------------------------
 
     def write_row(self, row: dict) -> None:
-        raise WriterError(
-            "writer: write_row comes with the Shredder and the host row assembly, "
-            "not ported yet (use write_column)"
-        )
+        self._check_open()
+        if self._columnar_rows is not None:
+            raise WriterError(_MIX)
+        self._shredder.add_row(row)
+        if self._shredder.num_rows % 1000 == 0 and self._estimated_size() >= self.row_group_size:
+            self.flush_row_group()
 
     def write_rows(self, rows) -> None:
-        raise WriterError(
-            "writer: write_rows comes with the Shredder and the host row assembly, "
-            "not ported yet (use write_column)"
-        )
+        """Bulk ingestion; flat schemas take a batched columnar shred that
+        skips the per-row recursive walk (one pass per column per batch)."""
+        root = self.schema.root
+        if any(not c.is_leaf or c.max_rep > 0 or c.max_def > 1 for c in root.children):
+            for row in rows:
+                self.write_row(row)
+            return
+        self._check_open()
+        if self._columnar_rows is not None:
+            raise WriterError(_MIX)
+        batch: list = []
+        for row in rows:
+            batch.append(row)
+            if len(batch) >= 4096:
+                self._write_flat_batch(batch)
+                batch.clear()
+        if batch:
+            self._write_flat_batch(batch)
+
+    def _write_flat_batch(self, batch: list) -> None:
+        # Phase 1 — validate + stage every column WITHOUT touching buffers,
+        # so a bad row leaves the writer consistent (a partial append would
+        # silently misalign columns and close() would write a corrupt file).
+        for row in batch:
+            if not isinstance(row, dict):
+                raise ShredError(f"shred: row must be a dict, got {type(row).__name__}")
+        staged = []
+        for leaf in self.schema.root.children:
+            name = leaf.name
+            vals = []
+            if leaf.max_def == 1:
+                defs = []
+                for row in batch:
+                    v = row.get(name)
+                    if v is None:
+                        defs.append(0)
+                    else:
+                        defs.append(1)
+                        vals.append(v)
+            else:
+                for row in batch:
+                    v = row.get(name)
+                    if v is None:
+                        raise ShredError(f"shred: required field {leaf.path_str} is None")
+                    vals.append(v)
+                defs = [0] * len(batch)
+            staged.append((self._shredder.buffers[leaf.path], vals, defs))
+        # Phase 2 — commit (list extends cannot fail on valid staged data)
+        for buf, vals, defs in staged:
+            buf.values.extend(vals)
+            buf.def_levels.extend(defs)
+            buf.rep_levels.extend([0] * len(batch))
+            buf.data_size += sum(_value_size(v) for v in vals)
+        self._shredder.num_rows += len(batch)
+        if self._estimated_size() >= self.row_group_size:
+            self.flush_row_group()
 
     def _set_rows(self, leaf: Column, n_rows: int) -> None:
         if self._columnar_rows is None:
@@ -400,6 +471,8 @@ class FileWriter:
         pass explicit def/rep levels (Dremel encoding).
         """
         self._check_open()
+        if self._shredder.num_rows:
+            raise WriterError(_MIX)
         leaf = self._columnar_leaf(path)
         self._builders[leaf.path].set_columnar(values, def_levels, rep_levels)
         n_rows = (
@@ -427,6 +500,8 @@ class FileWriter:
         unchanged until then. Incompatible with `parallel=`: the encode
         pipeline snapshots host builders."""
         self._check_open()
+        if self._shredder.num_rows:
+            raise WriterError(_MIX)
         if self._pipeline is not None:
             raise WriterError(
                 "writer: write_device_column requires a serial writer "
@@ -483,10 +558,21 @@ class FileWriter:
         b.set_columnar(host)
         return encode_chunk(self._cfg, b, kv)
 
+    def _estimated_size(self) -> int:
+        total = 0
+        for b in self._shredder.buffers.values():
+            total += b.data_size + 2 * len(b.def_levels)
+        return total
+
+    def estimated_buffered_size(self) -> int:
+        """Approximate bytes of the not-yet-flushed rows (the sizing input of
+        the auto-flush; public for tools sizing output parts)."""
+        return self._estimated_size()
+
     # -- row group flush -------------------------------------------------------
 
     def flush_row_group(self, metadata=None, column_metadata=None) -> None:
-        """Flush the buffered columns as one row group.
+        """Flush the buffered rows or columns as one row group.
 
         `metadata` ({k: v}) attaches key-value metadata to every column chunk
         of this row group; `column_metadata` ({leaf: {k: v}}) targets single
@@ -499,25 +585,31 @@ class FileWriter:
         self._check_open()
         per_col: dict[tuple, dict] = {}
         if metadata or column_metadata:
-            if self._columnar_rows is None:
+            if not self._shredder.num_rows and self._columnar_rows is None:
                 raise WriterError(
-                    "writer: flush_row_group with metadata but nothing buffered"
+                    "writer: flush_row_group with metadata but nothing buffered "
+                    "(an auto-flush may have emptied the buffer)"
                 )
             for leaf in self.schema.leaves:
                 per_col[leaf.path] = dict(metadata or {})
             for key, kv in (column_metadata or {}).items():
                 per_col.setdefault(self._leaf(self.schema, key).path, {}).update(kv)
-        if self._columnar_rows is None:
+        if self._shredder.num_rows:
+            shredded, n_rows = self._shredder.drain()
+            for path, (vals, dls, rls) in shredded.items():
+                self._builders[path].extend_shredded(vals, dls, rls)
+        elif self._columnar_rows is not None:
+            n_rows = self._columnar_rows
+            missing = [
+                leaf.path_str
+                for leaf in self.schema.leaves
+                if self._builders[leaf.path]._columnar_values is None
+                and leaf.path not in self._device_columns
+            ]
+            if missing:
+                raise WriterError(f"writer: columnar row group missing columns {missing}")
+        else:
             return  # nothing buffered
-        n_rows = self._columnar_rows
-        missing = [
-            leaf.path_str
-            for leaf in self.schema.leaves
-            if self._builders[leaf.path]._columnar_values is None
-            and leaf.path not in self._device_columns
-        ]
-        if missing:
-            raise WriterError(f"writer: columnar row group missing columns {missing}")
         # snapshot the builders (leaf order) and hand the writer fresh ones
         leaves = self.schema.leaves
         builders = [self._builders[leaf.path] for leaf in leaves]
@@ -682,6 +774,30 @@ class FileWriter:
         except Exception:
             pass  # abort is the error path: best-effort cleanup only
 
+    @property
+    def current_file_size(self) -> int:
+        """Bytes written so far (reference: file_writer.go:362
+        CurrentFileSize). Under `parallel=` this is the COMMITTED prefix —
+        groups still encoding in the background are not counted yet."""
+        if self._pipeline is not None and not self._closed:
+            return self._pipeline.pos
+        return self._pos
+
+    @property
+    def current_row_group_rows(self) -> int:
+        return self._shredder.num_rows or (self._columnar_rows or 0)
+
+    @property
+    def current_row_group_size(self) -> int:
+        """Rough UNCOMPRESSED size of the buffered (unflushed) row group —
+        the size-based flush signal (reference: file_writer.go:355
+        CurrentRowGroupSize); the flushed bytes will usually be smaller
+        once encoded and compressed. Covers both ingestion paths: shredded
+        rows still in the Shredder plus columnar data in the builders."""
+        return self._estimated_size() + sum(
+            b.data_size() for b in self._builders.values()
+        )
+
     def _check_open(self) -> None:
         if self._failed is not None:
             raise WriterError(
@@ -718,20 +834,15 @@ class FileWriter:
 
 def _estimate_input_bytes(builder: ColumnChunkBuilder) -> int:
     """Approximate buffered bytes of one chunk for the pipeline's
-    backpressure accounting: exact for array inputs (nbytes); for long
+    backpressure accounting. Exact for array inputs (nbytes); for long
     Python value lists a 64-point sample extrapolates instead of walking
     every element."""
-    v = builder._columnar_values
-    levels = 2 * (len(builder.def_levels) + len(builder.rep_levels))
-    if isinstance(v, ByteArrayData):
-        return levels + len(v.data) + 4 * len(v)
-    nb = getattr(v, "nbytes", None)
-    if nb is not None:
-        return levels + int(nb)
-    v = list(v or ())
-    if not v:
-        return levels
-    step = max(len(v) // 64, 1)
-    sample = v[::step][:64]
-    per = sum(len(x) + 4 if isinstance(x, (bytes, str)) else 8 for x in sample) / len(sample)
-    return levels + int(per * len(v))
+    for v in (builder._columnar_values, builder.values):
+        if isinstance(v, list) and len(v) > 256:
+            step = max(len(v) // 64, 1)
+            sample = v[::step][:64]
+            per = sum(
+                len(x) + 4 if isinstance(x, (bytes, str)) else 8 for x in sample
+            ) / max(len(sample), 1)
+            return int(per * len(v)) + 2 * len(builder.def_levels)
+    return builder.data_size()

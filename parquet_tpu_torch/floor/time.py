@@ -5,9 +5,10 @@ columns; this type keeps the full nanos-since-midnight value plus the
 isAdjustedToUTC flag, the same information the reference's floor.Time
 carries (reference: floor/time.go:10-13, ctors :26-45, converters :92-105).
 
-A copy of parquet_tpu/floor/time.py. In the port, core/filter.py lifts
-TIME filter values with sub-microsecond digits into it, so a TIME(NANOS)
-bracket keeps its exact nanoseconds.
+A copy of parquet_tpu/floor/time.py. The read path (core/assembly.py
+convert_logical) returns Time for TIME(NANOS) columns and datetime.time for
+MILLIS/MICROS, where no precision exists to lose; core/filter.py lifts TIME
+filter values with sub-microsecond digits into it.
 """
 
 from __future__ import annotations

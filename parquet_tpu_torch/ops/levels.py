@@ -23,6 +23,7 @@ __all__ = [
     "encode_levels_v2",
     "LevelError",
     "rows_from_rep",
+    "validity_from_def",
 ]
 
 
@@ -119,6 +120,16 @@ def _check(levels: np.ndarray, max_level: int) -> None:
         )
 
 
+# -- assembly prefix scans ------------------------------------------------------
+#
+# The data-parallel formulation of Dremel record assembly (reference
+# schema.go:216-312 walks these streams entry by entry): every structural
+# fact a cursor walk discovers one level at a time is a whole-column scan
+# over the rep/def arrays. core/assembly_vec.py composes them per nesting
+# depth; the list_layout and record_starts kernels are the same math on the
+# card.
+
+
 def rows_from_rep(rep, n: int | None = None) -> np.ndarray:
     """Positions where a record starts (rep == 0), as int64 indices.
 
@@ -129,3 +140,17 @@ def rows_from_rep(rep, n: int | None = None) -> np.ndarray:
             raise ValueError("rows_from_rep: n required when rep is None")
         return np.arange(n, dtype=np.int64)
     return np.flatnonzero(np.asarray(rep) == 0)
+
+
+def validity_from_def(first_def, null_def: int):
+    """Null mask (uint8[n_slots], 1 = null) from each slot's first def
+    level: the slot's node is absent where that level sits below `null_def`.
+    None when every slot is present (callers skip mask work entirely then —
+    the overwhelmingly common all-present case stays one vectorized
+    compare)."""
+    if null_def <= 0:
+        return None
+    first_def = np.asarray(first_def)
+    if bool((first_def >= null_def).all()):
+        return None
+    return (first_def < null_def).astype(np.uint8)

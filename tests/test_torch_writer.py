@@ -333,10 +333,13 @@ def test_refuses_nested_optional_and_cut_options():
         w.write_device_column("b", torch.zeros(4, dtype=torch.int64))
     with pytest.raises(WriterError, match="torch tensors"):
         w.write_device_column("a", np.zeros(4, dtype=np.int64))
-    with pytest.raises(WriterError, match="write_row"):
-        w.write_row({"a": 1})
-    with pytest.raises(WriterError, match="write_rows"):
-        w.write_rows([{"a": 1}])
+    # the row path is ported: rows are taken, and a row group of rows
+    # refuses columns
+    w.write_row({"a": 1})
+    w.write_rows([{"a": 2, "b": 3}])
+    assert w.current_row_group_rows == 2
+    with pytest.raises(WriterError, match="cannot mix write_row and write_column"):
+        w.write_device_column("a", torch.zeros(4, dtype=torch.int64))
     w.abort()
     w = FileWriter(MemorySink(), ts, parallel=True)
     with pytest.raises(WriterError, match="serial writer"):
