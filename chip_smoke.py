@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive parquet_tpu_torch's decode, batch, filter, write, query, scan and row paths on
-one CUDA card.
+"""Drive parquet_tpu_torch's decode, batch, filter, write, query, scan, row and io paths
+on one CUDA card.
 
 Run from the repository root, on a machine with one NVIDIA card and the CUDA
 toolkit (nvcc):
@@ -228,6 +228,26 @@ Phases (any failure raises and the script exits non-zero):
               objects equal to the written ones. The host row reads must
               launch no kernel; each step's rows/s and the phase's
               seconds are printed beside the card's name and power limit;
+     io       the io layer (check_io): taxi and sessions served by
+              testing/httpstub.RangeHttpStub from a process of its own;
+              FileReader(url).read_row_groups_device() bit-equal to the
+              path read (fused walk on every prepare); the same behind 5 ms
+              of latency with the default gap and coalesce_gap="auto", and
+              the host read of three columns both ways; iter_device_batches
+              over the URL equal to taxi_totals; ParquetDataset over the URL
+              for two epochs through a 256 MiB RAM + disk TieredCache and
+              through a 32 MiB RAM tier that spills, each warm epoch
+              reading 0 source bytes and equal to the cold one;
+              the signed stub read with the registered SigV4Signer, and a
+              typed SourceError (http_403) without it; a small CRC'd file
+              with a corrupt chunk (a flipped byte; a lying footer size)
+              under on_error "skip" / "null" (groups and quarantine counts;
+              read_row_group_device raises),
+              max_memory raising AllocError on the host and device reads,
+              testing/faults' seed-7 cases on both rungs; compact_levels=True on
+              sessions, widened equal to the unpacked reads. Range GETs,
+              source bytes, cache hits and rows/s of each step are printed
+              beside the path read and the card's name and power limit;
   5. times    rows/s of the device reads and of the batch streams, filtered
               and not (the same call, both files), of the filtered read, of
               host decode + upload, of the device write against the host
@@ -286,7 +306,8 @@ line with the card count.
 The last three lines of standard output are a JSON line of the end-to-end
 rates, the host value functions' A/B seconds, the collectives' times, the
 overlap A/B, profile and dataset rates, the write-options phase's numbers,
-the rows phase's rates and seconds, and the card's name and power limit, the
+the rows phase's rates and seconds, the io phase's steps, and the card's
+name and power limit, the
 `kernels` JSON line (21
 kernels) and the
 `{"ok": true, ...}` line. Without CUDA, or without the package beside it,
@@ -4411,6 +4432,403 @@ def check_rows(taxi_path, sessions_path, sessions_specs, taxi_specs, f_taxi, tax
             "host_decode_s": {"taxi group 0": decode_a, "taxi admitted groups": decode_c}}
 
 
+# -- the io layer: URL reads, caches, signing, faults ---------------------------
+
+IO_CREDENTIALS = ("smoke-key", "smoke-secret")
+IO_PROJECTION = ("trip_id", "fare_cents", "zone")
+# the dataset step's RAM tiers: one that holds taxi's projection (125 MB),
+# one that spills most of it to the disk tier
+IO_TIER_RAM = (256 << 20, 32 << 20)
+
+
+def start_stub(root, latency_s: float = 0.0, credentials=None):
+    """A RangeHttpStub serving `root` from a process of its own (its
+    serving shares no GIL with the reader). Returns (process, base URL);
+    a stub that does not report its port within 60 s fails the run."""
+    import select
+
+    cmd = [sys.executable, "-m", "parquet_tpu_torch.testing.httpstub", "--root", str(root),
+           "--latency-s", str(latency_s)]
+    if credentials is not None:
+        cmd += ["--credentials", ":".join(credentials)]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            text=True)
+    ready, _, _ = select.select([proc.stdout], [], [], 60)
+    line = proc.stdout.readline() if ready else ""
+    if not line.startswith("PORT "):
+        stop_stub(proc)
+        raise AssertionError(f"[io] the stub did not start: {line!r}, exit {proc.returncode}")
+    return proc, f"http://127.0.0.1:{int(line.split()[1])}"
+
+
+def stop_stub(proc) -> None:
+    """End a stub: its standard input closes, and a stub that does not
+    exit within 30 s is killed."""
+    try:
+        proc.stdin.close()
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    finally:
+        if proc.stdout is not None:
+            proc.stdout.close()
+
+
+def io_numbers() -> dict:
+    """The io counts a step moved: range GETs (206 answers), whole-object
+    answers, HEADs and multi-range answers, source bytes, cache hits."""
+    from parquet_tpu_torch.io import io_counts
+
+    c = io_counts()
+    return {
+        "range_gets": c.get('io_http_requests_total{status="206"}', 0),
+        "multirange": c.get('io_multirange_requests_total{outcome="ok"}', 0),
+        "http_200": c.get('io_http_requests_total{status="200"}', 0),
+        "source_bytes": c.get("io_bytes_read_total", 0),
+        "cache_hits": c.get("io_cache_hits_total", 0),
+        "disk_hits": c.get('cache_tier_hits_total{tier="disk"}', 0),
+        "cache_misses": c.get("io_cache_misses_total", 0),
+    }
+
+
+def io_small_file(path) -> bytes:
+    """The fault step's file: 3 row groups x 2,000 rows, page CRCs, an
+    optional int64 column a, a string column b, a required int32 column c
+    (written with the port's writer)."""
+    from parquet_tpu_torch import FileWriter, parse_schema
+
+    schema = parse_schema("message m { optional int64 a; required binary b (STRING); "
+                          "required int32 c; }")
+    rng = np.random.default_rng(SEED)
+    with FileWriter(str(path), schema, codec="snappy", with_crc=True,
+                    row_group_size=1 << 40) as w:
+        for g in range(3):
+            n = 2000
+            valid = rng.random(n) >= 0.25
+            w.write_column("a", rng.integers(0, 1000, int(valid.sum())).astype(np.int64),
+                           def_levels=valid.astype(np.uint16))
+            w.write_column("b", [f"s{i % 50}".encode() for i in range(n)])
+            w.write_column("c", np.arange(g * n, (g + 1) * n, dtype=np.int32))
+            w.flush_row_group()
+    return open(path, "rb").read()
+
+
+def check_io(paths: dict, dev, launches: dict, card: str) -> dict:
+    """The io phase: the taxi and sessions files served by a
+    RangeHttpStub in a process of its own. (a) FileReader(url)
+    .read_row_groups_device() of taxi and sessions (twice: the stub loads
+    the file at its first request), bit-equal to the path read, every
+    prepare on the fused walk; (b) taxi behind a stub with 5 ms
+    of latency, the device read and the host read of IO_PROJECTION, each
+    with the default coalesce gap and with "auto"; (c) iter_device_batches
+    over the taxi URL, its totals equal to taxi_totals; (d) ParquetDataset
+    over the taxi URL for two epochs with a 256 MiB RAM cache and a disk
+    tier, then with a 32 MiB RAM tier that spills: each second epoch reads
+    no source byte (the spilled one from the disk tier) and its batches
+    equal the first's; (e) the read from a signed stub with the signer registered,
+    equal to the path read, and a typed SourceError without it; (f) a
+    small file with a corrupt chunk (a flipped byte, and a footer that
+    lies about the chunk's size) under on_error "skip" and "null" (the
+    groups and quarantine counts), read_row_group_device raising under
+    both, max_memory below a group raising AllocError on the host and
+    device reads, and testing/faults' seed-7 cases on the host read and the
+    device round trip; (g) sessions with compact_levels=True, the packed
+    levels widened equal to the unpacked read's. Prints the range GETs,
+    source bytes, cache hits and rows/s of each step beside the path read
+    and `card`; returns the numbers."""
+    import shutil
+
+    import torch
+
+    from parquet_tpu_torch import AllocError, PackedLevels, SourceError
+    from parquet_tpu_torch.core.reader import PARQUET_ERRORS, FileReader
+    from parquet_tpu_torch.data import ParquetDataset
+    from parquet_tpu_torch.io import clear_signers, configure_signer, io_tuner, reset_io_counts
+    from parquet_tpu_torch.io.sign import SigV4Signer
+    from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.kernels.pipeline import prepare_counts, reset_prepare_counts
+    from parquet_tpu_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    root = smoke_dir()
+    n_rows = ROW_GROUPS * RG_ROWS
+    out: dict = {"steps": {}}
+    stubs = []
+
+    def step(label, rows, secs, numbers):
+        out["steps"][label] = dict(numbers, rows_per_s=rows / secs, seconds=secs)
+        log(f"[io] {label}: {rows / secs:,.0f} rows/s ({secs:.3f} s), "
+            + ", ".join(f"{k} {v:,}" for k, v in numbers.items()) + f" | {card}")
+
+    def device_read(src, **kw):
+        reset_io_counts()
+        ops.reset_launch_counts()
+        reset_prepare_counts()
+        t = time.perf_counter()
+        with FileReader(src, **kw) as r:
+            groups = r.read_row_groups_device()
+            torch.cuda.synchronize()
+        return groups, time.perf_counter() - t, kernel_counts(), prepare_counts(), io_numbers()
+
+    try:
+        proc, base = start_stub(root)
+        stubs.append(proc)
+        # (a) the URL reads against the path reads
+        for label in ("taxi", "sessions"):
+            path, specs = paths[label]
+            want, secs, _c, _p, numbers = device_read(path)
+            step(f"{label} path read", n_rows, secs, numbers)
+            url = f"{base}/{path.name}"
+            got, secs, counts, prep, numbers = device_read(url)
+            launches[f"io {label} url"] = counts
+            # the stub loads the file at its first request: a second read
+            # times the transport alone
+            step(f"{label} url read, first", n_rows, secs, numbers)
+            again, secs, _c, _p, again_numbers = device_read(url)
+            step(f"{label} url read, again", n_rows, secs, again_numbers)
+            if not groups_equal(again, want):
+                raise AssertionError(f"[io:a] {label}: the second URL read differs")
+            del again
+            if not groups_equal(got, want):
+                raise AssertionError(f"[io:a] {label}: the URL read differs from the path read")
+            chunks = ROW_GROUPS * len(specs)
+            if prep.get("prepare_fused_engaged") != chunks or prep.get("prepare_fused_declined"):
+                raise AssertionError(f"[io:a] {label}: prepare counts {prep} for {chunks} chunks")
+            if numbers["range_gets"] < chunks or numbers["source_bytes"] <= 0:
+                raise AssertionError(f"[io:a] {label}: io numbers {numbers}")
+            log(f"[io:a] {label}: FileReader(url).read_row_groups_device() bit-equal to the path "
+                f"read, fused walk on all {chunks} prepares, launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items() if isinstance(v, int) and v))
+            del got, want
+        taxi_path, taxi_specs = paths["taxi"]
+        taxi_url = f"{base}/{taxi_path.name}"
+        # (b) 5 ms of latency a request: the default gap and "auto"
+        slow_proc, slow_base = start_stub(root, latency_s=0.005)
+        stubs.append(slow_proc)
+        slow_url = f"{slow_base}/{taxi_path.name}"
+        want, _s, _c, _p, _n = device_read(taxi_path)
+        io_tuner().reset()
+        for gap in (None, "auto"):
+            got, secs, counts, prep, numbers = device_read(slow_url, coalesce_gap=gap)
+            step(f"taxi url read, 5 ms, gap {gap or 'default'}", n_rows, secs, numbers)
+            if not groups_equal(got, want):
+                raise AssertionError(f"[io:b] the 5 ms read (gap {gap}) differs")
+            del got
+        del want
+        want = None
+        for gap in (None, "auto"):
+            reset_io_counts()
+            t = time.perf_counter()
+            with FileReader(slow_url, columns=list(IO_PROJECTION), coalesce_gap=gap) as r:
+                got = [r.read_row_group(i) for i in range(r.num_row_groups)]
+            secs = time.perf_counter() - t
+            step(f"taxi url host read of {len(IO_PROJECTION)} columns, 5 ms, gap "
+                 f"{gap or 'default'}", n_rows, secs, io_numbers())
+            if want is None:
+                with FileReader(taxi_path, columns=list(IO_PROJECTION)) as r:
+                    want = [r.read_row_group(i) for i in range(r.num_row_groups)]
+            if not all(a.keys() == b.keys() and all(chunks_equal(a[p], b[p]) for p in a)
+                       for a, b in zip(got, want)):
+                raise AssertionError(f"[io:b] the 5 ms host read (gap {gap}) differs")
+        out["autotune"] = io_tuner().stats()
+        log(f"[io:b] the tuner's verdicts: {out['autotune']}")
+        del got, want
+        stop_stub(slow_proc)
+        stubs.remove(slow_proc)
+        # (c) the batch stream over the URL
+        ops.reset_launch_counts()
+        reset_io_counts()
+        t = time.perf_counter()
+        totals, n_batches = run_batches(taxi_url, dict(nullable="mask"), taxi_step)
+        secs = time.perf_counter() - t
+        launches["io taxi url batches"] = kernel_counts()
+        step("taxi url batches", n_rows, secs, io_numbers())
+        if totals != taxi_totals(taxi_specs):
+            raise AssertionError(f"[io:c] batch totals {totals} != {taxi_totals(taxi_specs)}")
+        log(f"[io:c] iter_device_batches over the URL: {n_batches} batches, totals equal the "
+            "generator's")
+        # (d) the dataset over the URL, two epochs through the tiered cache:
+        # a RAM tier that holds the projection, then one that spills it
+        tier = root / "io-tier"
+        out["tier"] = {}
+        for ram in IO_TIER_RAM:
+            shutil.rmtree(tier, ignore_errors=True)
+            mib = ram >> 20
+            try:
+                kw = dict(batch_size=BATCH, columns=list(DATASET_COLUMNS), nullable="zero",
+                          remainder="keep", cache_bytes=ram, cache_disk_bytes=4 << 30,
+                          cache_dir=str(tier))
+                with ParquetDataset(taxi_url, **kw) as ds:
+                    epochs = []
+                    for e in range(2):
+                        reset_io_counts()
+                        t = time.perf_counter()
+                        batches = list(ds)
+                        torch.cuda.synchronize()
+                        secs = time.perf_counter() - t
+                        ds.io_stats()  # settles the readahead's fetches
+                        numbers = io_numbers()
+                        step(f"dataset, {mib} MiB RAM tier, epoch {e} "
+                             f"({'cold' if e == 0 else 'warm'})", n_rows, secs, numbers)
+                        epochs.append((batches, numbers))
+                    stats = ds.io_stats()
+                    out["tier"][f"{mib} MiB"] = {
+                        t: {k: v for k, v in stats[t].items() if k != "dir"}
+                        for t in ("ram", "disk")}
+                (cold, _), (warm, warm_numbers) = epochs
+                if warm_numbers["source_bytes"] != 0 or warm_numbers["cache_hits"] <= 0:
+                    raise AssertionError(f"[io:d] the warm epoch read the source: {warm_numbers}")
+                spilled = out["tier"][f"{mib} MiB"]["disk"]["blocks"]
+                if spilled and warm_numbers["disk_hits"] <= 0:
+                    raise AssertionError(f"[io:d] {mib} MiB: {spilled} blocks spilled, no disk "
+                                         f"tier hit: {warm_numbers}")
+                if len(cold) != len(warm) or len(cold) != -(-n_rows // BATCH) or not all(
+                        a.keys() == b.keys() and all(torch.equal(a[p], b[p]) for p in a)
+                        for a, b in zip(cold, warm)):
+                    raise AssertionError("[io:d] the two epochs' batches differ")
+                log(f"[io:d] ParquetDataset(url, cache_bytes={mib} MiB, cache_disk_bytes=4 GiB): "
+                    f"{len(cold)} batches twice, equal; the warm epoch read 0 source bytes, "
+                    f"{warm_numbers['cache_hits']} cache hits ({warm_numbers['disk_hits']} from "
+                    f"the disk tier); tiers {out['tier'][f'{mib} MiB']}")
+                del cold, warm, epochs
+            finally:
+                shutil.rmtree(tier, ignore_errors=True)
+        # (e) the signed stub
+        signed_proc, signed_base = start_stub(root, credentials=IO_CREDENTIALS)
+        stubs.append(signed_proc)
+        signed_url = f"{signed_base}/{taxi_path.name}"
+        configure_signer(SigV4Signer(*IO_CREDENTIALS), prefix=signed_base)
+        try:
+            want, _s, _c, _p, _n = device_read(taxi_path)
+            got, secs, counts, _p, numbers = device_read(signed_url)
+            launches["io taxi signed url"] = counts
+            step("taxi signed url read", n_rows, secs, numbers)
+            if not groups_equal(got, want):
+                raise AssertionError("[io:e] the signed read differs from the path read")
+            del got, want
+        finally:
+            clear_signers()
+        try:
+            FileReader(signed_url)
+        except SourceError as e:
+            if getattr(e, "code", None) != "http_403":
+                raise AssertionError(f"[io:e] unsigned: code {getattr(e, 'code', None)}") from e
+            log(f"[io:e] the signed read equals the path read; unsigned: SourceError "
+                f"code={e.code}: {e}")
+        else:
+            raise AssertionError("[io:e] the unsigned read of the signed stub did not raise")
+        stop_stub(signed_proc)
+        stubs.remove(signed_proc)
+    finally:
+        for proc in stubs:
+            stop_stub(proc)
+    # (f) faults, quarantine and the memory ceiling on a small file
+    small = root / "io-small.parquet"
+    try:
+        data = io_small_file(small)
+        from parquet_tpu_torch.core.chunk import chunk_byte_range
+
+        with FileReader(small) as r:
+            off, total = chunk_byte_range(r.row_group(1).columns[0])
+        flipped = bytearray(data)
+        flipped[off + total // 2] ^= 0xFF
+        # the same chunk behind a footer that lies about its size: an
+        # unusable range is a corrupt chunk like a flipped byte
+        from parquet_tpu_torch.meta.file_meta import serialize_footer
+
+        meta = FileReader.open_metadata(small)
+        meta.row_groups[1].columns[0].meta_data.total_compressed_size = -1
+        lying = data[:len(data) - 8 - int.from_bytes(data[-8:-4], "little")]
+        lying += serialize_footer(meta)
+        fault_numbers = {}
+        for (name, bad), (policy, want_groups, want_counts) in itertools.product(
+                (("flipped", bytes(flipped)), ("lying footer", lying)), (
+                ("skip", [3, 0, 3], {"chunks_quarantined": 1, "row_groups_quarantined": 1}),
+                ("null", [3, 3, 3], {"chunks_quarantined": 1, "chunks_nulled": 1}))):
+            reset_io_counts()
+            with FileReader(bad, validate_crc=True, on_error=policy) as r:
+                groups = [r.read_row_group(i) for i in range(r.num_row_groups)]
+                try:
+                    r.read_row_group_device(1)
+                except PARQUET_ERRORS as e:
+                    device_error = f"{type(e).__name__}: {e}"
+                else:
+                    raise AssertionError(f"[io:f] {name}, {policy}: the device read did not "
+                                         "raise")
+            from parquet_tpu_torch.io import io_counts
+
+            counts = {k: v for k, v in io_counts().items()
+                      if k in ("chunks_quarantined", "chunks_nulled", "row_groups_quarantined")}
+            if [len(g) for g in groups] != want_groups or counts != want_counts:
+                raise AssertionError(f"[io:f] {name}, {policy}: groups "
+                                     f"{[len(g) for g in groups]}, counts {counts}")
+            if policy == "null" and (groups[1][("a",)].values.size != 0
+                                     or np.asarray(groups[1][("a",)].def_levels).any()):
+                raise AssertionError(f"[io:f] {name}, null: group 1's a is not all-null")
+            fault_numbers[f"{name}, {policy}"] = counts
+            log(f"[io:f] {name}, on_error={policy!r}: groups of {[len(g) for g in groups]} "
+                f"columns, {counts}; read_row_group_device(1) raised {device_error}")
+        for kw in (dict(), dict(backend="device_roundtrip")):
+            try:
+                with FileReader(data, max_memory=20_000, **kw) as r:
+                    r.read_row_group(0)
+            except AllocError as e:
+                log(f"[io:f] max_memory=20,000 {kw}: read_row_group raised AllocError: {e}")
+            else:
+                raise AssertionError(f"[io:f] max_memory {kw}: the host read did not raise")
+        try:
+            with FileReader(data, max_memory=20_000) as r:
+                r.read_row_group_device(0)
+        except AllocError as e:
+            log(f"[io:f] max_memory=20,000: read_row_group_device raised AllocError: {e}")
+        else:
+            raise AssertionError("[io:f] max_memory: the device read did not raise")
+        with FileReader(data, max_memory=1 << 30) as r:
+            if sum(r.read_row_group_device(i)[("c",)].num_values for i in range(3)) != 6000:
+                raise AssertionError("[io:f] max_memory 1 GiB: rows lost")
+        verdicts = collections.Counter()
+        pristine = {b: faults.read_all(data, True, b, "cuda")
+                    for b in ("host", "device_roundtrip")}
+        for case in faults.iter_fault_cases(data, seed=7):
+            for backend in ("host", "device_roundtrip"):
+                verdicts[(backend, faults.run_case(case, pristine=pristine[backend],
+                                                   backend=backend, device="cuda"))] += 1
+        fault_numbers["cases"] = {f"{b} {v}": n for (b, v), n in sorted(verdicts.items())}
+        log(f"[io:f] testing/faults cases (seed 7) typed or identical on both rungs: "
+            f"{fault_numbers['cases']}")
+        out["faults"] = fault_numbers
+    finally:
+        small.unlink(missing_ok=True)
+    # (g) compact_levels on sessions
+    sessions_path = paths["sessions"][0]
+    with FileReader(sessions_path) as r:
+        plain_host = r.read_row_group(0)
+        plain_dev = r.read_row_group_device(0)
+    with FileReader(sessions_path, compact_levels=True) as r:
+        packed_host = r.read_row_group(0)
+        packed_dev = r.read_row_group_device(0)
+    packed_bytes = plain_bytes = 0
+    for p, cd in plain_host.items():
+        for f in ("def_levels", "rep_levels"):
+            for got, want in ((getattr(packed_host[p], f), getattr(cd, f)),
+                              (getattr(packed_dev[p], f), getattr(plain_dev[p], f))):
+                if want is None:
+                    if got is not None:
+                        raise AssertionError(f"[io:g] {p} {f}: levels appeared")
+                    continue
+                if not isinstance(got, PackedLevels) or not np.array_equal(got.widen(), want):
+                    raise AssertionError(f"[io:g] {p} {f}: packed levels differ")
+                packed_bytes += got.nbytes
+                plain_bytes += np.asarray(want).nbytes
+    out["compact_levels_bytes"] = {"packed": packed_bytes, "plain": plain_bytes}
+    log(f"[io:g] compact_levels=True on sessions group 0: levels packed, {packed_bytes:,} "
+        f"bytes against {plain_bytes:,}, widened equal to the unpacked reads (host and device)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[io] the phase took {out['seconds']:.1f} s | {card}")
+    return out
+
+
 def smoke_dir() -> Path:
     """The directory of the cached main-path files."""
     from parquet_tpu_torch.kernels.build import BUILD_ROOT
@@ -4792,6 +5210,7 @@ def main(argv=None) -> int:
     dataset_rates = check_dataset(taxi_path, taxi_specs, dev, smi)
     rows_phase = check_rows(taxi_path, sessions_path, sessions_specs, taxi_specs, f_taxi,
                             taxi_keep, device_filtered, dev, launches, smi)
+    io_phase = check_io(paths, dev, launches, smi)
     for k in rows:
         rows[k]["launches"] = sum(c[k] for c in launches.values())
         rows[k]["launches_by_path"] = {label: c[k] for label, c in launches.items()}
@@ -4941,7 +5360,8 @@ def main(argv=None) -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"rows_per_s": rates, "prepare_s": prepare, "native_ab_s": native_ab,
                       "collectives": scan["collectives"], "overlap": overlap,
-                      "write_options": write_options, "rows": rows_phase, "card": smi}))
+                      "write_options": write_options, "rows": rows_phase, "io": io_phase,
+                      "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

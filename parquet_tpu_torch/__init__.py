@@ -18,6 +18,11 @@ Rows are a host path: FileReader.iter_rows (filters=, raw=) assembles
 Python dicts from the host decode, FileWriter.write_row / write_rows shreds
 them into the same chunk encode, and floor.Writer / floor.Reader map
 dataclasses onto both.
+Bytes come through the io layer (parquet_tpu_torch.io): a path reads with
+os.pread, an http(s):// URL with range GETs (signed, retried, hedged and
+breaker-gated as configured), through block, footer and RAM -> disk tiered
+caches; the reader's on_error, max_memory and compact_levels ride on it,
+and io_counts() reads its counters.
 Aggregation queries (serve.run_local_query) filter and reduce each row
 group on the card, and scans (parallel.column_stats,
 distributed_column_stats, sharded_decode_step) spread row groups and pages
@@ -50,6 +55,7 @@ over devices and torch.distributed ranks.
 it a machine with no CUDA raises.
 """
 
+from .core.alloc import AllocError
 from .core.arrays import ByteArrayData
 from .core.chunk import ChunkData, ChunkError, read_chunk
 from .core.compress import CompressionError
@@ -70,8 +76,24 @@ from .core.reader import (
 )
 from .core.schema import Column, Schema, SchemaError
 from .core.writer import FileWriter, WriterError, reset_write_counts, write_counts
+from .io import (
+    BlockCache,
+    ByteSource,
+    FooterCache,
+    HttpSource,
+    LocalFileSource,
+    MemorySource,
+    ObjectStoreSource,
+    RetryingSource,
+    SourceError,
+    TieredCache,
+    TransientSourceError,
+    io_counts,
+    reset_io_counts,
+)
 from .kernels.pipeline import DecodeStats, DeviceColumn
 from .meta.file_meta import ParquetFileError, read_file_metadata
+from .ops.packed_levels import PackedLevels
 from .schema import builder
 from .schema.dsl import (
     SchemaParseError,
@@ -84,9 +106,12 @@ from .sink.sink import BufferedSink
 from . import floor
 
 __all__ = [
+    "AllocError",
     "BACKENDS",
+    "BlockCache",
     "BufferedSink",
     "ByteArrayData",
+    "ByteSource",
     "ChunkData",
     "ChunkError",
     "Column",
@@ -97,23 +122,35 @@ __all__ = [
     "FileReader",
     "FileWriter",
     "FilterError",
+    "FooterCache",
+    "HttpSource",
+    "LocalFileSource",
     "MaskedColumn",
+    "MemorySource",
+    "ObjectStoreSource",
+    "PackedLevels",
     "PageError",
     "ParquetFileError",
     "RaggedColumn",
+    "RetryingSource",
     "Schema",
     "SchemaError",
     "SchemaParseError",
+    "SourceError",
+    "TieredCache",
+    "TransientSourceError",
     "VecFilterError",
     "WriterError",
     "builder",
     "filter_counts",
     "floor",
+    "io_counts",
     "merge_files",
     "parse_schema",
     "read_chunk",
     "read_file_metadata",
     "reset_filter_counts",
+    "reset_io_counts",
     "reset_row_counts",
     "reset_write_counts",
     "row_counts",

@@ -29,6 +29,7 @@ from ..meta.parquet_types import (
     PageType,
 )
 from ..meta.thrift import CompactReader, ThriftError
+from .alloc import decoded_nbytes
 from .arrays import ByteArrayData
 from .compress import decompress_block
 from .page import (
@@ -48,6 +49,7 @@ __all__ = [
     "RawPage",
     "chunk_byte_range",
     "iter_chunk_pages",
+    "iter_page_sites",
 ]
 
 # Page headers are small; peek a bounded window per header read, growing up to
@@ -276,6 +278,36 @@ class ChunkWindow:
         return out
 
 
+def iter_page_sites(f, chunk: ColumnChunk):
+    """Yield (header_offset, header, header_len, payload_len) for every page
+    of a chunk WITHOUT reading payloads — the page-location walk of the
+    fault harness's page mapper (testing.faults.map_pages). Raises
+    ChunkError on a header that cannot be parsed or a page size escaping
+    the chunk's byte range. Size errors carry `.stage = "layout"` so a
+    caller can classify them without matching message text."""
+    offset, total = chunk_byte_range(chunk)
+    pos = offset
+    while pos < offset + total:
+        f.seek(pos)
+        header = _read_page_header(f)
+        hlen = f.tell() - pos
+        plen = header.compressed_page_size
+        if plen is None or plen < 0:
+            # same invariant (and message) as the read path below: an absent
+            # size must NOT silently walk on as a 0-byte payload
+            err = ChunkError(f"chunk: invalid compressed page size {plen}")
+            err.stage = "layout"
+            raise err
+        if pos + hlen + plen > offset + total:
+            err = ChunkError(
+                f"chunk: compressed page size {plen} exceeds chunk bounds"
+            )
+            err.stage = "layout"
+            raise err
+        yield pos, header, hlen, plen
+        pos += hlen + plen
+
+
 def iter_chunk_pages(f, chunk: ColumnChunk):
     """Yield RawPage for every page of a chunk (dictionary page first if any)."""
     offset, total = chunk_byte_range(chunk)
@@ -302,6 +334,7 @@ def read_chunk_row_ranges(
     ranges: list,
     num_rows: int,
     validate_crc: bool = False,
+    alloc=None,
 ) -> ChunkData:
     """Decode ONLY the pages covering `ranges` (sorted disjoint row spans),
     using the chunk's OffsetIndex to seek straight to each admitted page —
@@ -331,8 +364,12 @@ def read_chunk_row_ranges(
         payload = f.read(header.compressed_page_size or 0)
         if validate_crc:
             _check_crc(header, payload)
+        if alloc is not None:
+            alloc.check(header.uncompressed_page_size or 0)
         block = decompress_block(payload, codec, header.uncompressed_page_size or 0)
         dictionary = decode_dict_page(header, block, column)
+        if alloc is not None:
+            alloc.register_buffers(dictionary)
     pages: list[DecodedPage] = []
     ri = 0
     n_out = 0
@@ -352,12 +389,20 @@ def read_chunk_row_ranges(
             raise ChunkError("chunk: truncated page payload")
         if validate_crc:
             _check_crc(header, payload)
+        if alloc is not None:
+            # ceiling BEFORE decompression, like read_chunk: a header
+            # claiming a huge uncompressed size must not allocate
+            alloc.check(header.uncompressed_page_size or 0)
         if header.type == int(PageType.DATA_PAGE):
             block = decompress_block(payload, codec, header.uncompressed_page_size or 0)
             dict_size = len(dictionary) if dictionary is not None else None
+            est = _precharge(alloc, header.data_page_header, len(block))
             page = decode_data_page_v1(header, block, column, dict_size)
         elif header.type == int(PageType.DATA_PAGE_V2):
             dict_size = len(dictionary) if dictionary is not None else None
+            est = _precharge(
+                alloc, header.data_page_header_v2, header.uncompressed_page_size or 0
+            )
             page = decode_data_page_v2(header, payload, column, dict_size, codec)
         else:
             raise ChunkError(f"chunk: offset index points at page type {header.type}")
@@ -365,6 +410,7 @@ def read_chunk_row_ranges(
             raise ChunkError(
                 f"chunk: page holds {page.num_values} rows, offset index says {b - a}"
             )
+        _account_page(alloc, est, page, dictionary)
         page.materialize(dictionary)
         # slice this page down to the admitted rows
         rj = ri
@@ -441,8 +487,11 @@ def read_chunk(
     chunk: ColumnChunk,
     column: Column,
     validate_crc: bool = False,
+    alloc=None,
 ) -> ChunkData:
-    """Read and decode all pages of one column chunk (host path)."""
+    """Read and decode all pages of one column chunk (host path). `alloc`
+    (a core.alloc.AllocTracker) checks each page's claimed size before it
+    decompresses and charges what each page decodes to."""
     md = chunk.meta_data
     codec = md.codec or 0
     dictionary = None
@@ -451,6 +500,8 @@ def read_chunk(
     expected = md.num_values or 0
     for raw in iter_chunk_pages(f, chunk):
         header = raw.header
+        if alloc is not None:
+            alloc.check(header.uncompressed_page_size or 0)
         ptype = header.type
         if ptype == int(PageType.DICTIONARY_PAGE):
             if dictionary is not None:
@@ -463,6 +514,8 @@ def read_chunk(
                 raw.payload, codec, header.uncompressed_page_size or 0
             )
             dictionary = decode_dict_page(header, block, column)
+            if alloc is not None:
+                alloc.register_buffers(dictionary)
         elif ptype == int(PageType.DATA_PAGE):
             if validate_crc:
                 _check_crc(header, raw.payload)
@@ -470,14 +523,20 @@ def read_chunk(
                 raw.payload, codec, header.uncompressed_page_size or 0
             )
             dict_size = len(dictionary) if dictionary is not None else None
+            est = _precharge(alloc, header.data_page_header, len(block))
             page = decode_data_page_v1(header, block, column, dict_size)
+            _account_page(alloc, est, page, dictionary)
             pages.append(page)  # dict pages materialize at chunk level
             seen_data_values += page.num_values
         elif ptype == int(PageType.DATA_PAGE_V2):
             if validate_crc:
                 _check_crc(header, raw.payload)
             dict_size = len(dictionary) if dictionary is not None else None
+            est = _precharge(
+                alloc, header.data_page_header_v2, header.uncompressed_page_size or 0
+            )
             page = decode_data_page_v2(header, raw.payload, column, dict_size, codec)
+            _account_page(alloc, est, page, dictionary)
             pages.append(page)  # dict pages materialize at chunk level
             seen_data_values += page.num_values
         elif ptype == int(PageType.INDEX_PAGE):
@@ -489,6 +548,41 @@ def read_chunk(
             f"chunk: pages hold {seen_data_values} values, metadata says {expected}"
         )
     return _concat_pages(column, pages, dictionary)
+
+
+def _precharge(alloc, page_header, block_len: int):
+    """Bound a page's decode allocations BEFORE they happen: levels (2+2 B)
+    plus indices/values (<= 8 B) per header-claimed value, plus the block
+    itself. A header claiming a huge num_values trips the ceiling here, not
+    in the allocator."""
+    if alloc is None:
+        return 0
+    n = (page_header.num_values or 0) if page_header is not None else 0
+    est = n * 12 + block_len
+    alloc.register(est)
+    return est
+
+
+def _account_page(alloc, est: int, page: DecodedPage, dictionary) -> None:
+    """Swap the pre-charge for the page's actual decoded footprint, charging
+    the upcoming dictionary gather before materialize() allocates it (a few
+    RLE bytes can gather to n x longest-dict-entry bytes)."""
+    if alloc is None:
+        return
+    alloc.release(est)
+    gather = 0
+    if page.indices is not None and isinstance(dictionary, ByteArrayData):
+        lengths = np.diff(dictionary.offsets)
+        gather = int(lengths[page.indices].sum()) + (len(page.indices) + 1) * 8
+    elif page.indices is not None and dictionary is not None:
+        gather = len(page.indices) * np.asarray(dictionary).itemsize
+    alloc.register(
+        gather
+        + sum(
+            decoded_nbytes(b)
+            for b in (page.values, page.indices, page.def_levels, page.rep_levels)
+        )
+    )
 
 
 def _concat_pages(column: Column, pages: list[DecodedPage], dictionary) -> ChunkData:

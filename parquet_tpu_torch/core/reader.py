@@ -47,6 +47,20 @@ predicate the mask declines, takes the scalar row_matches walk) and
 assembles only the kept rows. Which engine ran shows in row_counts(). Row
 reads touch no device, whatever the reader's `device`.
 
+Bytes: every byte goes through a ByteSource (io.source.open_source): a path
+opens a LocalFileSource (os.pread, no lock shared by the prepare threads),
+an http(s):// URL an io.remote.HttpSource, bytes and file objects adapt.
+The host read fetches a group's chunks in one planned, coalesced batch
+(io.planner.fetch_ranges; `coalesce_gap`, "auto" tunes it per transport),
+the device prepare one chunk at a time; both go through `block_cache`
+when one is attached, and `footer_cache` spares the footer parse of a file
+seen before. `max_memory` caps what one row group decodes to
+(core.alloc.AllocError past it), `compact_levels` delivers the levels
+bit-packed (ops.packed_levels), and `on_error` ("skip" / "null")
+quarantines corrupt chunks on the host read and the row path, counted in
+io.counts (chunks_quarantined, chunks_nulled, row_groups_quarantined);
+device delivery always raises.
+
 The device is explicit: `device=None` means `torch.device("cuda")`, and a
 reader built without a device on a machine with no CUDA raises rather than
 decoding on the CPU. Pass `device="cpu"` to run the kernels' plain PyTorch
@@ -56,7 +70,6 @@ versions on the CPU.
 from __future__ import annotations
 
 import gc
-import io
 import itertools
 import os
 import threading
@@ -69,6 +82,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..io.counts import count as _io_count
+from ..io.planner import DEFAULT_COALESCE_GAP, fetch_ranges
+from ..io.source import LocalFileSource, SourceFile, open_source
 from ..kernels.device_ops import expand_nullable, mask_take_rows, mask_take_scan, pad_ragged
 from ..kernels.pipeline import (
     DecodeStats,
@@ -87,9 +103,13 @@ from ..meta.parquet_types import (
     FileMetaData,
     OffsetIndex,
     RowGroup,
+    Type,
 )
 from ..meta.thrift import CompactReader, ThriftError
+from ..ops.packed_levels import PackedLevels
 from ..utils.native import get_native
+from .alloc import AllocTracker
+from .arrays import ByteArrayData
 from .assembly import RecordAssembler
 from .assembly_vec import _zip_dict_rows, assemble_row_columns, vec_enabled
 from .bloom import BloomFilter
@@ -97,6 +117,7 @@ from .chunk import (
     ChunkData,
     ChunkError,
     ChunkWindow,
+    _empty_dtype,
     chunk_byte_range,
     read_chunk,
     read_chunk_row_ranges,
@@ -136,6 +157,7 @@ __all__ = [
 ]
 
 BACKENDS = ("host", "device", "device_roundtrip")
+ON_ERROR = ("raise", "skip", "null")
 
 # The typed malformed-file error family: everything a corrupt or lying file
 # can raise out of a read (the reference's PARQUET_ERRORS).
@@ -389,33 +411,81 @@ class FileReader:
         validate_crc: bool = False,
         metadata: FileMetaData | None = None,
         schema: Schema | None = None,
+        max_memory: int | None = None,
+        compact_levels: bool = False,
+        on_error: str = "raise",
+        block_cache=None,
+        footer_cache=None,
+        coalesce_gap=None,
     ):
         """`metadata=` reuses a footer already parsed (open_metadata) and
         `schema=` a Schema already built for it: the dataset layer opens one
-        reader a row group, and neither parses again."""
+        reader a row group, and neither parses again.
+
+        `max_memory` caps the bytes one row group decodes to (advertised
+        page sizes are checked before decompression, decoded buffers are
+        charged as they materialize; core.alloc.AllocError past it).
+        `compact_levels=True` delivers the R/D levels of read_row_group and
+        the device reads bit-packed (ops.packed_levels.PackedLevels).
+        `on_error` is the host read's corruption policy: "raise" (the
+        default), "skip" (a corrupt chunk drops its whole row group) or
+        "null" (a corrupt chunk of an optional column delivers as all-null;
+        a required one drops the group). Device delivery always raises.
+        `block_cache` (io.cache.BlockCache or io.tiercache.TieredCache)
+        serves chunk bytes read before; `footer_cache` (io.cache.FooterCache)
+        serves the footer of a path or URL whose generation is unchanged;
+        `coalesce_gap` is the host read's merge gap in bytes (None: 64 KiB;
+        "auto": the io.autotune profile of the source's transport). It
+        applies only to the host read (read_row_group with backend="host",
+        iter_rows and the dataset's loads, which fetch a group's chunks in
+        one planned batch): the device prepare and the device round trip
+        fetch one chunk per request, whatever the gap."""
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}: expected one of {BACKENDS}")
+        if on_error not in ON_ERROR:
+            raise ValueError(
+                f"unknown on_error {on_error!r}: expected 'raise', 'skip', or 'null'"
+            )
         self.device = resolve_device(device)
         self.backend = backend
         self.validate_crc = validate_crc
+        self.alloc = AllocTracker(max_memory) if max_memory else None
+        self.compact_levels = compact_levels
+        self.on_error = on_error
+        self._block_cache = block_cache
+        if coalesce_gap is None:
+            self._coalesce_gap = DEFAULT_COALESCE_GAP
+        elif coalesce_gap == "auto":
+            self._coalesce_gap = "auto"
+        else:
+            self._coalesce_gap = int(coalesce_gap)
         # page routing counts of every device plan this reader made
         self.stats = DecodeStats()
-        self._lock = threading.Lock()
         self._bloom_cache: dict = {}
-        if isinstance(source, (str, Path)):
-            self._f = open(source, "rb")
-            self._owns_file = True
-        elif isinstance(source, (bytes, bytearray, memoryview)):
-            self._f = io.BytesIO(bytes(source))
-            self._owns_file = True
-        else:
-            self._f = source
-            self._owns_file = False
+        # every byte comes through the source; self._f is a stream-shaped
+        # cursor over it for the footer parse, and the chunk reads are
+        # positional (_fetch_chunk, _chunk_windows)
+        self._source, self._owns_file = open_source(source)
+        self._f = SourceFile(self._source)
         try:
-            self._size = self._f.seek(0, io.SEEK_END)
-            self.metadata: FileMetaData = (
-                metadata if metadata is not None else read_file_metadata(self._f)
-            )
+            if metadata is not None:
+                self.metadata: FileMetaData = metadata
+            else:
+                path_key = str(source) if isinstance(source, (str, Path)) else None
+                # URL keys can't os.stat: validate against the remote
+                # source's generation (size, ETag) instead
+                gen = self._source.generation() if path_key is not None else None
+                cached = (
+                    footer_cache.get(path_key, sig=gen)
+                    if footer_cache is not None and path_key is not None
+                    else None
+                )
+                if cached is not None:
+                    self.metadata = cached
+                else:
+                    self.metadata = read_file_metadata(self._f)
+                    if footer_cache is not None and path_key is not None:
+                        footer_cache.put(path_key, self.metadata, sig=gen)
             self.schema = schema if schema is not None else Schema.from_thrift(self.metadata.schema)
             self._selected = resolve_column_prefixes(self.schema, columns)
         except BaseException:
@@ -423,11 +493,36 @@ class FileReader:
             raise
 
     @classmethod
-    def open_metadata(cls, path) -> FileMetaData:
+    def open_metadata(cls, path, footer_cache=None) -> FileMetaData:
         """Parse only the footer of `path`: no data page is read and no
-        handle survives the call (the dataset's planning primitive)."""
-        with open(path, "rb") as f:
-            return read_file_metadata(f)
+        handle survives the call (the dataset's planning primitive).
+        `footer_cache` (io.cache.FooterCache) makes the parse once a file
+        generation: a warm hit reads nothing. `path` may be an http(s)://
+        URL; the cache then validates against its (size, ETag)."""
+        if isinstance(path, str) and path.startswith(("http://", "https://")):
+            src, owns = open_source(path)
+            try:
+                gen = src.generation()
+                if footer_cache is not None:
+                    meta = footer_cache.get(path, sig=gen)
+                    if meta is not None:
+                        return meta
+                meta = read_file_metadata(SourceFile(src))
+                if footer_cache is not None:
+                    footer_cache.put(path, meta, sig=gen)
+                return meta
+            finally:
+                if owns:
+                    src.close()
+        if footer_cache is not None:
+            meta = footer_cache.get(path)
+            if meta is not None:
+                return meta
+        with LocalFileSource(path) as src:
+            meta = read_file_metadata(SourceFile(src))
+        if footer_cache is not None:
+            footer_cache.put(path, meta)
+        return meta
 
     @classmethod
     def open_many(cls, paths, columns=None, **options) -> "list[FileReader]":
@@ -470,7 +565,10 @@ class FileReader:
         selected = (
             resolve_column_prefixes(self.schema, columns) if columns else self._selected
         )
-        for cc in self.row_group(i).columns or []:
+        rg = self.row_group(i)
+        if self.alloc is not None:
+            self.alloc.release()  # the ceiling is a row group's
+        for cc in rg.columns or []:
             md = cc.meta_data
             if md is None:
                 raise ParquetFileError("parquet: column chunk without metadata")
@@ -480,33 +578,164 @@ class FileReader:
             yield path, cc, self.schema.column(path)
 
     def _window(self, cc) -> ChunkWindow:
-        """One chunk's page bytes in one read. A range past the end of the
-        file reads short, and the page walk raises its typed error."""
+        """One chunk's page bytes in one read (the device prepare's). A
+        range past the end of the file reads short, and the page walk raises
+        its typed error."""
         offset, total = chunk_byte_range(cc)
-        if offset >= self._size or total <= 0:
-            return ChunkWindow(b"", offset)
-        return ChunkWindow(self._pread(offset, min(total, self._size - offset)), offset)
+        return ChunkWindow(self._fetch_chunk(offset, total), offset)
 
-    def _pread(self, offset: int, length: int) -> bytes:
-        with self._lock:
-            self._f.seek(offset)
-            return self._f.read(length)
+    def _pread(self, offset: int, size: int) -> bytes:
+        """Positional read through the reader's source: os.pread on local
+        files, so no shared cursor and no lock. Clamps at EOF (a short
+        return, like a plain handle): truncated files surface as the decode
+        ladder's typed errors, not a raw source exception."""
+        end = self._source.size()
+        if offset >= end or offset < 0 or size <= 0:
+            return b""
+        return self._source.read_at(offset, min(size, end - offset))
+
+    def _fetch_chunk(self, offset: int, size: int):
+        """One chunk's page bytes, through the block cache when attached.
+        Out-of-bounds or degenerate ranges (truncated or lying files) bypass
+        the cache and return short via _pread, so corruption keeps its typed
+        decode error."""
+        if size <= 0 or offset < 0 or offset + size > self._source.size():
+            return self._pread(offset, size)
+        if self._block_cache is None:
+            return self._source.read_at(offset, size)
+        return fetch_ranges(
+            self._source, [(offset, size)], cache=self._block_cache, gap=0
+        )[(offset, size)]
+
+    def _chunk_windows(self, selected) -> "dict | None":
+        """The host read's batched fetch of the selected chunks: exact
+        extents from the footer, neighbours coalesced into batched source
+        reads (io.planner.fetch_ranges), each chunk handed back as a
+        ChunkWindow. None when the planner path does not apply: memory-
+        ceiling readers (preloading a whole group would hold every page at
+        once) and chunks whose ranges are unusable or out of bounds (the
+        per-chunk read then raises the precise typed error)."""
+        if self.alloc is not None or not selected:
+            return None
+        ranges = {}
+        end = self._source.size()
+        for path, cc, _col in selected:
+            try:
+                off, total = chunk_byte_range(cc)
+            except ChunkError:
+                return None
+            # total == 0 included: coalesce() drops empty ranges, so the
+            # fetch would come back without the key
+            if off < 0 or total <= 0 or off + total > end:
+                return None
+            ranges[path] = (off, total)
+        fetched = fetch_ranges(
+            self._source,
+            list(ranges.values()),
+            cache=self._block_cache,
+            gap=self._coalesce_gap,
+        )
+        return {path: ChunkWindow(fetched[r], r[0]) for path, r in ranges.items()}
 
     # -- host delivery ---------------------------------------------------------
 
+    def _pack_chunk_levels(self, path, delivered):
+        """Swap a delivered ChunkData/DeviceColumn's level arrays for their
+        bit-packed form (the compact_levels contract)."""
+        if not self.compact_levels or delivered is None:
+            return delivered
+        col = self.schema.column(path)
+        dl, rl = delivered.def_levels, delivered.rep_levels
+        if dl is not None and not isinstance(dl, PackedLevels):
+            delivered.def_levels = PackedLevels.from_array(dl, col.max_def)
+        if rl is not None and not isinstance(rl, PackedLevels):
+            delivered.rep_levels = PackedLevels.from_array(rl, col.max_rep)
+        return delivered
+
     def read_row_group(self, i: int, columns=None) -> dict[tuple, ChunkData]:
         """Decode one row group into {leaf path: ChunkData}. On the host, or
-        with backend="device_roundtrip" through the device and back."""
+        with backend="device_roundtrip" through the device and back. Under
+        on_error != "raise" a corrupt chunk is quarantined (see __init__);
+        a dropped group returns {}."""
+        return self._read_row_group(i, columns, pack=True)
+
+    def _read_row_group(self, i: int, columns, pack: bool) -> dict[tuple, ChunkData]:
+        """pack=False is the internal path of rows and masks: they consume
+        the levels at once, so bit-packing them would be a round trip."""
         if self.backend == "device_roundtrip":
-            plans = self._plan_row_group(i, columns, self.device)
-            return {path: plan.finalize() for path, plan in plans.items()}
-        return self._read_host(i, columns)
+            try:
+                plans = self._plan_row_group(i, columns, self.device)
+                out = {path: plan.finalize() for path, plan in plans.items()}
+            except PARQUET_ERRORS:
+                # chunks plan and finalize as a batch here, so isolation is
+                # a group's on this backend
+                if self.on_error == "raise":
+                    raise
+                _io_count("chunks_quarantined")
+                _io_count("row_groups_quarantined")
+                return {}
+        else:
+            out = self._read_host(i, columns)
+        if pack and self.compact_levels:
+            for path, cd in out.items():
+                self._pack_chunk_levels(path, cd)
+        return out
 
     def _read_host(self, i: int, columns) -> dict[tuple, ChunkData]:
-        return {
-            path: read_chunk(self._window(cc), cc, column, validate_crc=self.validate_crc)
-            for path, cc, column in self._selected_chunks(i, columns)
-        }
+        """The host decode of group i's selected chunks, under on_error.
+        The chunks come in one planned fetch (_chunk_windows), or chunk by
+        chunk where that does not apply."""
+        out = {}
+        selected = list(self._selected_chunks(i, columns))
+        windows = self._chunk_windows(selected)
+        for path, cc, column in selected:
+            try:
+                # inside the try: a lying footer range (chunk_byte_range's
+                # ChunkError) is a corrupt chunk like any other
+                f = windows[path] if windows is not None else self._window(cc)
+                out[path] = read_chunk(
+                    f, cc, column, validate_crc=self.validate_crc, alloc=self.alloc
+                )
+            except PARQUET_ERRORS:
+                if self.on_error == "raise":
+                    raise
+                _io_count("chunks_quarantined")
+                if self.on_error == "null":
+                    nc = self._null_chunk(i, column)
+                    if nc is not None:
+                        _io_count("chunks_nulled")
+                        out[path] = nc
+                        continue
+                # the columns of a group stay row-aligned: one chunk that
+                # cannot be delivered drops the group
+                _io_count("row_groups_quarantined")
+                return {}
+        return out
+
+    def _null_chunk(self, i: int, column) -> "ChunkData | None":
+        """An all-null stand-in for a quarantined chunk (on_error='null'):
+        one level entry per row at definition 0. Only possible when the
+        column is optional somewhere along its path (max_def > 0): a
+        REQUIRED column has no null representation, so the caller
+        quarantines the group."""
+        if column.max_def <= 0:
+            return None
+        rows = self.row_group(i).num_rows or 0
+        if column.type == Type.BYTE_ARRAY:
+            values = ByteArrayData(offsets=np.zeros(1, dtype=np.int64), data=b"")
+        elif column.type == Type.FIXED_LEN_BYTE_ARRAY:
+            values = np.empty((0, column.type_length or 0), dtype=np.uint8)
+        elif column.type == Type.INT96:
+            values = np.empty((0, 12), dtype=np.uint8)
+        else:
+            values = np.empty(0, dtype=_empty_dtype(column))
+        return ChunkData(
+            column=column,
+            num_values=rows,
+            values=values,
+            def_levels=np.zeros(rows, dtype=np.uint16),
+            rep_levels=np.zeros(rows, dtype=np.uint16) if column.max_rep > 0 else None,
+        )
 
     # -- host rows ---------------------------------------------------------------
 
@@ -601,7 +830,7 @@ class FileReader:
         (PQT_VEC_FILTER=0 forces the scalar walk)."""
         chunks, sliced = self._decode_group_chunks(i, ranges, indexes, read_cols)
         if not chunks:
-            return  # empty selection
+            return  # quarantined group (on_error='skip'), or empty selection
         mask = None
         if vec_filter_enabled() and vec_enabled():
             try:
@@ -686,7 +915,7 @@ class FileReader:
         if sliced:
             _count_rows("selective_page_decode")
         else:
-            chunks = self.read_row_group(i, columns)
+            chunks = self._read_row_group(i, columns, pack=False)
         return chunks, sliced
 
     def _iter_group_rows(self, i: int, raw: bool, ranges=None, indexes=None, columns=None):
@@ -696,7 +925,7 @@ class FileReader:
         cyclic GC passes stay cheap), or the streaming Dremel fallback."""
         chunks, sliced = self._decode_group_chunks(i, ranges, indexes, columns)
         if not chunks:
-            return []  # empty selection
+            return []  # quarantined group (on_error='skip'), or empty selection
         return self._rows_from_chunks(chunks, raw, ranges, sliced)
 
     def _rows_from_chunks(self, chunks: dict, raw: bool, ranges=None, sliced=False):
@@ -758,10 +987,10 @@ class FileReader:
                 )
             ):
                 return None  # foreign/corrupt index: full decode
-            with self._lock:
-                out[path] = read_chunk_row_ranges(
-                    self._f, cc, col, oi, ranges, num_rows, validate_crc=self.validate_crc
-                )
+            out[path] = read_chunk_row_ranges(
+                SourceFile(self._source), cc, col, oi, ranges, num_rows,
+                validate_crc=self.validate_crc, alloc=self.alloc,
+            )
         return out
 
     @staticmethod
@@ -846,7 +1075,8 @@ class FileReader:
 
         def prep(cc, column):
             return prepare_chunk_plan(
-                self._window(cc), cc, column, validate_crc=self.validate_crc, stats=self.stats
+                self._window(cc), cc, column, validate_crc=self.validate_crc,
+                alloc=self.alloc, stats=self.stats,
             )
 
         pool = _host_pool()
@@ -896,12 +1126,16 @@ class FileReader:
         dev = self.device if device is None else resolve_device(device)
         if filters is None:
             plans = self._plan_row_group(i, columns, dev)
-            return {path: plan.device_column() for path, plan in plans.items()}
+            return {
+                path: self._pack_chunk_levels(path, plan.device_column())
+                for path, plan in plans.items()
+            }
         normalized = normalize_dnf(self.schema, filters)
         plans = self._plan_row_group(i, self._columns_with_filters(columns, normalized), dev)
         cols = {path: plan.device_column() for path, plan in plans.items()}
         n = int(self.row_group(i).num_rows or 0)
-        return cols, self._device_group_mask(i, cols, normalized, n, dev)
+        mask = self._device_group_mask(i, cols, normalized, n, dev)
+        return {p: self._pack_chunk_levels(p, dc) for p, dc in cols.items()}, mask
 
     def _columns_with_filters(self, columns, normalized):
         """The read set a row-filtered device read needs: the caller's
@@ -932,7 +1166,12 @@ class FileReader:
         """Host-engine fallback mask: decode the filter columns on the host
         and run the vec mask pipeline (np bool[n])."""
         cols = sorted({e[0] for conj in normalized for e in conj})
-        chunks = self._read_host(i, cols) if cols else {}
+        if not cols:
+            return dnf_mask({}, normalized, n, null_mode=null_mode)
+        chunks = self._read_row_group(i, cols, pack=False)
+        if not chunks:
+            # quarantined under an on_error policy: no rows to admit
+            return np.zeros(n, dtype=bool)
         return dnf_mask(chunks, normalized, n, null_mode=null_mode)
 
     def _device_filter_rows(self, i, group, normalized, arrs, n, dev):
@@ -959,9 +1198,20 @@ class FileReader:
         group i's delivery on this thread overlaps the later groups'."""
         dev = self.device if device is None else resolve_device(device)
         indices = range(self.num_row_groups) if row_groups is None else row_groups
+        if self.alloc is not None:
+            # the ceiling is a row group's (released between groups):
+            # staging several at once would charge them all together, so
+            # a capped reader stages one group at a time
+            return [self.read_row_group_device(i, columns, device=dev) for i in indices]
         staged = self._plan_row_groups_async(list(indices), columns, dev)
         try:
-            return [{path: fut.result().device_column() for path, fut in group} for group in staged]
+            return [
+                {
+                    path: self._pack_chunk_levels(path, fut.result().device_column())
+                    for path, fut in group
+                }
+                for group in staged
+            ]
         except BaseException:
             _settle(staged)
             raise
@@ -1395,9 +1645,10 @@ class FileReader:
     # -- lifetime --------------------------------------------------------------
 
     def close(self) -> None:
-        if self._owns_file and self._f is not None:
-            self._f.close()
-        self._f = None
+        """Release the source when this reader owns it (paths, URLs, bytes).
+        Idempotent; caller-provided sources and file objects stay open."""
+        if self._owns_file:
+            self._source.close()
 
     def __enter__(self):
         return self

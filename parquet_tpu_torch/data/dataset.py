@@ -10,7 +10,8 @@ bulk-inference loop consumes, over many files and hosts:
 
 In the order the pipeline applies them:
 
-  plan      footers parse once a file (plan.build_plan); one work unit per
+  plan      footers parse once a file generation (plan.build_plan, through
+            the process-wide io.cache.shared_footer_cache); one work unit per
             (file, row group); `filters` prune units by statistics and
             bloom filters before any data page is read. `filter_rows=True`
             also masks single rows inside surviving groups with the host
@@ -21,7 +22,17 @@ In the order the pipeline applies them:
             visited by exactly one (process, worker) per epoch.
   prefetch  a bounded pool of the dataset's own ("pqt-data" threads)
             decodes units k+1..k+depth on the host while the consumer works
-            on k's batches; depth 0 is synchronous.
+            on k's batches; depth 0 is synchronous. With a block cache
+            (`cache_bytes`, `cache_disk_bytes`: a RAM -> disk TieredCache in
+            `cache_dir`, or a caller's `block_cache`), unit reads go through
+            it and the "pqt-io" readahead (io.planner.Readahead, in-flight
+            bytes bounded by `readahead_bytes`) fetches the next units'
+            planned ranges into it while pqt-data decodes; `io_autotune`
+            tunes the coalesce gap and readahead depth per transport. Paths
+            may be http(s):// URLs.
+  errors    `on_error="skip"` / `"null"` quarantine a unit whose footer,
+            chunks or transport fail (the reader's policies; skipped units
+            count in dataset_counts() as units_skipped).
   rebatch   decoded row groups re-slice into fixed `batch_size` batches,
             remainders carrying across unit boundaries; the epoch tail
             follows `remainder=` ("drop" | "keep" | "pad").
@@ -37,11 +48,9 @@ In the order the pipeline applies them:
             byte, mid-epoch, under sharding and shuffling.
 
 Cut, each raising plan.NotPortedError (a ValueError) that names the layer:
-`on_error` other than "raise" (the reader's corruption policies),
-`cache_bytes`, `cache_disk_bytes`, `cache_dir`, `block_cache`,
-`readahead_bytes`, `io_autotune` (the io layer), `slo_wait_ms` /
-`controller` (data/controller.py and the metrics it reads), and a placement
-over several devices of one process (the reference's Sharding).
+`slo_wait_ms` / `controller` (data/controller.py and the metrics it reads),
+and a placement over several devices of one process (the reference's
+Sharding).
 dataset_counts() reads the counters the reference keeps in utils.metrics.
 """
 
@@ -57,7 +66,10 @@ import numpy as np
 import torch
 
 from ..core.arrays import ByteArrayData
-from ..core.reader import FileReader, resolve_device
+from ..core.reader import PARQUET_ERRORS, FileReader, resolve_device
+from ..io.cache import BlockCache, shared_footer_cache
+from ..io.planner import Readahead, plan_ranges
+from ..io.tiercache import TieredCache
 from ..kernels.pipeline import device_put_pipelined, to_device
 from ..meta.file_meta import ParquetFileError
 from .plan import ScanPlan, build_plan, not_ported
@@ -162,24 +174,16 @@ class ParquetDataset:
             )
         if nullable not in ("error", "zero"):
             raise ValueError(f'dataset: nullable must be "error" or "zero", got {nullable!r}')
-        if on_error != "raise":
-            raise not_ported(f"on_error={on_error!r}", "the reader's corruption policies")
         if filter_rows and filters is None:
             raise ValueError("dataset: filter_rows=True requires filters")
         if num_epochs is not None and num_epochs < 0:
             raise ValueError("dataset: num_epochs must be >= 0 or None")
         if prefetch < 0:
             raise ValueError("dataset: prefetch depth must be >= 0")
-        for name, value, unset in (
-            ("cache_bytes", cache_bytes, 0),
-            ("cache_disk_bytes", cache_disk_bytes, 0),
-            ("cache_dir", cache_dir, None),
-            ("block_cache", block_cache, None),
-            ("readahead_bytes", readahead_bytes, None),
-            ("io_autotune", io_autotune, False),
-        ):
-            if value != unset:
-                raise not_ported(f"{name}=", "the io layer (io/cache.py, io/planner.py)")
+        if cache_bytes < 0:
+            raise ValueError("dataset: cache_bytes must be >= 0")
+        if cache_disk_bytes < 0:
+            raise ValueError("dataset: cache_disk_bytes must be >= 0")
         if slo_wait_ms is not None or controller is not None:
             raise not_ported(
                 "slo_wait_ms= / controller=",
@@ -211,6 +215,41 @@ class ParquetDataset:
         self._closed = False
         # each plan file's parsed Schema: units open one reader a row group
         self._schemas: dict[int, object] = {}
+        # the io layer: footers cache process-wide (validated by (size,
+        # mtime) for paths and (size, ETag) for URLs); cache_bytes adds a
+        # shared block cache the unit reads go through and the readahead
+        # fills (its in-flight budget readahead_bytes, default cache_bytes
+        # / 4), cache_disk_bytes grows it into a RAM -> disk TieredCache in
+        # cache_dir (a private temp dir when None), and block_cache= passes
+        # a caller's cache (BlockCache or TieredCache, caller-owned)
+        self._footer_cache = shared_footer_cache()
+        self.io_autotune = bool(io_autotune)
+        self._owns_cache = block_cache is None
+        if block_cache is not None:
+            self._block_cache = block_cache
+        elif cache_disk_bytes:
+            self._block_cache = TieredCache(
+                ram_bytes=cache_bytes or (64 << 20),
+                disk_bytes=cache_disk_bytes,
+                cache_dir=cache_dir,
+            )
+        elif cache_bytes:
+            self._block_cache = BlockCache(cache_bytes)
+        else:
+            self._block_cache = None
+        self._readahead = (
+            Readahead(
+                self._block_cache,
+                budget_bytes=(
+                    readahead_bytes
+                    if readahead_bytes is not None
+                    else max(cache_bytes // 4, 1 << 20)
+                ),
+                autotune=self.io_autotune,
+            )
+            if self._block_cache is not None
+            else None
+        )
 
     @staticmethod
     def _resolve_split(spec, what: str) -> tuple[int, int]:
@@ -243,17 +282,55 @@ class ParquetDataset:
     @property
     def plan(self) -> ScanPlan:
         """The global unit plan (footers parse on first access). The
-        projection is checked once against the first file's schema."""
+        projection is checked once against the first readable schema,
+        outside the skip policy: a misspelled columns= entry would otherwise
+        quarantine every unit."""
         with self._plan_lock:
             if self._plan is None:
-                plan = build_plan(self.paths_or_glob, filters=self.filters)
-                if self.columns is not None and plan.metas:
-                    with FileReader(
-                        plan.files[0], columns=self.columns, metadata=plan.metas[0], device="cpu"
-                    ):
-                        pass
+                plan = build_plan(
+                    self.paths_or_glob,
+                    filters=self.filters,
+                    on_error=self.on_error,
+                    footer_cache=self._footer_cache,
+                )
+                if self.columns is not None:
+                    for fi, meta in enumerate(plan.metas):
+                        if meta is not None:
+                            with FileReader(
+                                plan.files[fi], columns=self.columns, metadata=meta,
+                                device="cpu",
+                            ):
+                                pass
+                            break
                 self._plan = plan
             return self._plan
+
+    def _selected_leaf_paths(self, file_index: int):
+        """The projection as leaf path tuples for one plan file (None = all
+        columns): what the io planner needs for a unit's byte ranges. A
+        resolution failure returns None (readahead fetches everything; the
+        decode still raises the precise error)."""
+        if self.columns is None:
+            return None
+        try:
+            schema = self._file_schema(file_index)
+        except Exception:  # noqa: BLE001 — advisory path only
+            return None
+        selected = set()
+        for c in self.columns:
+            path = tuple(c.split(".")) if isinstance(c, str) else tuple(c)
+            selected.update(leaf.path for leaf in schema.leaves if leaf.path[: len(path)] == path)
+        return selected or None
+
+    def _unit_ranges(self, unit) -> list:
+        """The planned (offset, length) byte ranges of one unit under the
+        dataset's projection (readahead's shopping list)."""
+        meta = self.plan.metas[unit.file_index]
+        if meta is None:
+            return []
+        return plan_ranges(
+            meta, row_groups=[unit.row_group], columns=self._selected_leaf_paths(unit.file_index)
+        )
 
     def _file_schema(self, file_index: int):
         """The parsed Schema of one plan file, built once however many row
@@ -299,14 +376,33 @@ class ParquetDataset:
                 )
             return self._pool
 
+    def io_stats(self) -> "dict | None":
+        """The block cache's stats() (a TieredCache's carry its "ram" and
+        "disk" tiers), once every readahead fetch already accepted has
+        finished, so that counts read after it are settled. None when the
+        dataset reads through no cache."""
+        if self._block_cache is None:
+            return None
+        if self._readahead is not None:
+            self._readahead.drain()
+        return self._block_cache.stats()
+
     def close(self) -> None:
         """Shut the prefetch pool down (idempotent). The dataset and its
-        iterators stop being usable: further iteration raises."""
+        iterators stop being usable: further iteration raises. The readahead
+        stops taking work and cancels queued fetches (running ones finish:
+        they touch only the cache). A cache the dataset built is closed (a
+        TieredCache's private spill directory goes); a block_cache= passed
+        in stays the caller's."""
         with self._plan_lock:
             self._closed = True
             pool, self._pool = self._pool, None
+        if self._readahead is not None:
+            self._readahead.close()
         if pool is not None:
             pool.shutdown(wait=False, cancel_futures=True)
+        if self._owns_cache and hasattr(self._block_cache, "close"):
+            self._block_cache.close()
 
     def __enter__(self):
         return self
@@ -532,12 +628,29 @@ class DatasetIterator:
                 t = time.perf_counter()
                 cols, n = self._load_unit(units[order[k]], off)
                 _observe_wait(time.perf_counter() - t)
-                if n > 0:
+                if cols is not None and n > 0:
                     yield k, off, cols, n
             return
         pool = ds._worker_pool()
         pending: deque = deque()
         nxt = start_pos
+        ra_scheduled: set[int] = set()
+
+        def readahead():
+            # one io stage ahead of decode: while pqt-data decodes the
+            # window, pqt-io fetches the NEXT units' planned byte ranges
+            # into the block cache (advisory: an over-budget schedule is
+            # dropped, and the decode reads through either way)
+            if ds._readahead is None:
+                return
+            for j in range(nxt, min(nxt + max(depth, 1), len(order))):
+                if j in ra_scheduled:
+                    continue
+                ra_scheduled.add(j)
+                unit = units[order[j]]
+                ranges = ds._unit_ranges(unit)
+                if ranges:
+                    ds._readahead.schedule(unit.path, ranges)
 
         def fill():
             nonlocal nxt
@@ -549,6 +662,7 @@ class DatasetIterator:
                 added += 1
             if added:
                 _bump("prefetch_depth", added)
+            readahead()
 
         fill()
         try:
@@ -561,7 +675,7 @@ class DatasetIterator:
                     _bump("prefetch_depth", -1)  # a popped unit always leaves the gauge
                 _observe_wait(time.perf_counter() - t)
                 fill()
-                if n > 0:
+                if cols is not None and n > 0:
                     yield k, off, cols, n
         finally:
             if pending:
@@ -572,16 +686,26 @@ class DatasetIterator:
     def _load_unit(self, unit, row_offset: int):
         """Decode one (file, row group) on the host into batchable arrays,
         sliced from `row_offset` (a pqt-data worker's task). The reader
-        touches no device: delivery uploads the batches."""
+        touches no device: delivery uploads the batches. Returns (None, 0)
+        for a unit the on_error policy dropped."""
         ds = self._ds
-        reader = FileReader(
-            unit.path,
-            columns=ds.columns,
-            metadata=ds.plan.metas[unit.file_index],
-            schema=ds._file_schema(unit.file_index),
-            validate_crc=ds.validate_crc,
-            device="cpu",
-        )
+        try:
+            reader = FileReader(
+                unit.path,
+                columns=ds.columns,
+                metadata=ds.plan.metas[unit.file_index],
+                schema=ds._file_schema(unit.file_index),
+                validate_crc=ds.validate_crc,
+                device="cpu",
+                on_error=ds.on_error,
+                block_cache=ds._block_cache,
+                coalesce_gap="auto" if ds.io_autotune else None,
+            )
+        except PARQUET_ERRORS + (OSError,):
+            if ds.on_error == "raise":
+                raise
+            _bump("units_skipped")
+            return None, 0
         try:
             read_cols = None
             normalized = None
@@ -592,10 +716,15 @@ class DatasetIterator:
 
                 normalized = normalize_dnf(reader.schema, ds.filters)
                 read_cols = reader._columns_with_filters(ds.columns, normalized)
-            chunks = reader._read_host(unit.row_group, read_cols)
+            chunks = reader._read_row_group(unit.row_group, read_cols, pack=False)
+            if not chunks:
+                # quarantined by on_error (or an empty selection)
+                _bump("units_skipped")
+                return None, 0
             mask = None
             if normalized is not None:
-                # a VecFilterError is a deterministic shape decline: it raises
+                # a VecFilterError is a deterministic shape decline (it would
+                # quarantine every unit): it raises, whatever on_error says
                 from ..core.filter_vec import dnf_mask
 
                 nrows = int(reader.row_group(unit.row_group).num_rows or 0)
@@ -606,6 +735,14 @@ class DatasetIterator:
                 for p, cd in chunks.items()
                 if keep is None or p in keep
             }
+        except OSError:
+            # a transport failure mid-decode (a retry ladder exhausted, a
+            # breaker fast-failing): under "skip" / "null" the unit is
+            # quarantined like a corrupt one
+            if ds.on_error == "raise":
+                raise
+            _bump("units_skipped")
+            return None, 0
         finally:
             reader.close()
         if not cols:

@@ -13,10 +13,15 @@ prefetch and decode machinery of dataset.py:
     is visited by exactly one (process, worker) per epoch and a mid-epoch
     resume or another host recomputes the same order.
 
-Cut, each raising NotPortedError (a ValueError) that names the layer: lake
-table references (the lake layer), http(s) sources and `footer_cache=` /
-`block_cache=` (the io layer), and `on_error` other than "raise" (the
-reader's corruption policies).
+A corrupt file (unreadable footer) follows the dataset's on_error policy:
+"raise" propagates, otherwise the file's units are dropped from the plan
+(listed in ScanPlan.skipped_files, counted as files_skipped in
+dataset_counts()). http(s):// URLs pass through as they are: their footers
+parse through io.remote.HttpSource, validated in `footer_cache` by (size,
+ETag).
+
+Cut, raising NotPortedError (a ValueError) that names the layer: lake
+table references (the lake layer).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from ..core.reader import FileReader
+from ..core.reader import PARQUET_ERRORS, FileReader
 
 __all__ = ["NotPortedError", "Unit", "ScanPlan", "expand_paths", "build_plan"]
 
@@ -53,10 +58,8 @@ class Unit(NamedTuple):
 
 
 def _refuse_unported_ref(s: str) -> None:
-    """Lake table references and remote URLs, which the reference expands
-    or opens through layers the port does not carry."""
-    if s.startswith(("http://", "https://")):
-        raise not_ported(f"the remote source {s!r}", "the io layer (io/source.py)")
+    """Lake table references, which the reference expands through a layer
+    the port does not carry."""
     if os.path.isdir(s) and os.path.isdir(os.path.join(s, "_lake")) or (
         f"{os.sep}_lake{os.sep}" in s and s.endswith(".json")
     ):
@@ -66,11 +69,15 @@ def _refuse_unported_ref(s: str) -> None:
 def expand_paths(paths_or_glob) -> list[str]:
     """The dataset's input spec as a sorted file list. A string (or Path)
     is a glob pattern when it holds magic characters, else one file; a list
-    or tuple passes through. Sorted, because glob order depends on the file
-    system and the shard and shuffle math needs every process to see the
-    same file indices."""
+    or tuple passes through, and an http(s):// URL passes through as it is
+    (remote objects neither glob nor stat: a missing one raises at its
+    open). Sorted, because glob order depends on the file system and the
+    shard and shuffle math needs every process to see the same file
+    indices."""
     if isinstance(paths_or_glob, (str, Path)):
         s = str(paths_or_glob)
+        if s.startswith(("http://", "https://")):
+            return [s]
         _refuse_unported_ref(s)
         if _glob.has_magic(s):
             hits = _glob.glob(s)
@@ -97,16 +104,19 @@ class ScanPlan:
         files: list[str],
         metas: list,
         units: list[Unit],
+        skipped_files: list | None = None,
         *,
         units_total: int | None = None,
         units_pruned_stats: int = 0,
         units_pruned_bloom: int = 0,
     ):
         self.files = files
-        # each file's FileMetaData: per-unit readers open with metadata=, so
-        # each footer parses exactly once
+        # each file's FileMetaData (None for a skipped file): per-unit
+        # readers open with metadata=, so each footer parses exactly once
         self.metas = metas
         self.units = units
+        # (path, error) of every file on_error dropped
+        self.skipped_files = list(skipped_files or [])
         # the pruning summary: row groups the files held and how many the
         # filters excluded by statistics and by bloom filters
         # (units_total - pruned_stats - pruned_bloom == len(units))
@@ -182,36 +192,60 @@ def build_plan(
     """Parse every file's footer and lay out the unit list. `filters` (the
     (column, op, value) DNF convention of FileReader) prune row groups by
     statistics and bloom filters; the summary rides the returned plan. The
-    filter is checked once against the first schema: a misspelled column is
-    a configuration error."""
-    if on_error != "raise":
-        raise not_ported(f"on_error={on_error!r}", "the reader's corruption policies")
-    if footer_cache is not None:
-        raise not_ported("footer_cache=", "the io layer (io/cache.py)")
-    if block_cache is not None:
-        raise not_ported("block_cache=", "the io layer (io/cache.py)")
+    filter is checked once against the first readable schema: a misspelled
+    column is a configuration error. With on_error != "raise" a file whose
+    footer (or pruning) fails is skipped instead of ending the scan.
+    `footer_cache` (io.cache.FooterCache) parses each footer once a file
+    generation; `block_cache` (io.cache.BlockCache) serves the bloom pages
+    the pruning reads."""
+    from .dataset import _bump
+
     files = expand_paths(paths_or_glob)
     metas: list = []
     units: list[Unit] = []
+    skipped: list[tuple[str, str]] = []
     units_total = pruned_stats = pruned_bloom = 0
     filters_checked = filters is None
     for fi, path in enumerate(files):
-        meta = FileReader.open_metadata(path)
+        try:
+            meta = FileReader.open_metadata(path, footer_cache=footer_cache)
+        except PARQUET_ERRORS + (OSError,) as e:
+            if on_error == "raise":
+                raise
+            _bump("files_skipped")
+            metas.append(None)
+            skipped.append((path, f"{type(e).__name__}: {e}"))
+            continue
         if not filters_checked:
+            # outside the skip policy: a misspelled filter column would
+            # otherwise skip every file and plan an empty dataset
             from ..core.filter import normalize_dnf
             from ..core.schema import Schema
 
             normalize_dnf(Schema.from_thrift(meta.schema), filters)
             filters_checked = True
         groups = meta.row_groups or []
+        # per-file tallies commit only after the file planned cleanly
         f_stats = f_bloom = 0
-        if filters is not None:
-            # bloom pages are read from the file: a live reader, which
-            # touches no device (hence device="cpu" whatever the scan's)
-            with FileReader(path, metadata=meta, device="cpu") as r:
-                admitted, f_stats, f_bloom = r.prune_row_groups_counted(filters)
-        else:
-            admitted = range(len(groups))
+        try:
+            if filters is not None:
+                # bloom pages are read from the file: a live reader, which
+                # touches no device (hence device="cpu" whatever the scan's)
+                with FileReader(
+                    path, metadata=meta, device="cpu", block_cache=block_cache
+                ) as r:
+                    admitted, f_stats, f_bloom = r.prune_row_groups_counted(filters)
+            else:
+                admitted = range(len(groups))
+        except PARQUET_ERRORS + (OSError,) as e:
+            # OSError: the file vanished (or lost read permission) between
+            # the glob and the open: the same policy as corruption
+            if on_error == "raise":
+                raise
+            _bump("files_skipped")
+            metas.append(None)
+            skipped.append((path, f"{type(e).__name__}: {e}"))
+            continue
         metas.append(meta)
         units_total += len(groups)
         pruned_stats += f_stats
@@ -222,6 +256,7 @@ def build_plan(
         files,
         metas,
         units,
+        skipped,
         units_total=units_total,
         units_pruned_stats=pruned_stats,
         units_pruned_bloom=pruned_bloom,

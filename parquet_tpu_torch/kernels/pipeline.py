@@ -64,6 +64,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core.alloc import decoded_nbytes
 from ..core.arrays import ByteArrayData
 from ..core.chunk import (
     ChunkData,
@@ -1147,6 +1148,7 @@ def prepare_chunk_plan(
     chunk,
     column: Column,
     validate_crc: bool = False,
+    alloc=None,
     stats: DecodeStats | None = None,
 ) -> _ChunkPlan:
     """Host-only prepare: page walk, decompress, level decode, prescan.
@@ -1157,11 +1159,12 @@ def prepare_chunk_plan(
     (the error-semantics reference). A chunk the native walk ABORTED on that
     the staged walk then decodes cleanly counts as
     prepare_fallback_recovered; a genuinely corrupt chunk raises the staged
-    walk's typed error."""
-    plan, fault = _native_prepare(f, chunk, column, validate_crc, stats)
+    walk's typed error. `alloc` (a memory ceiling, core.alloc.AllocTracker)
+    needs the staged walk's per-page accounting: the fused walk declines."""
+    plan, fault = _native_prepare(f, chunk, column, validate_crc, alloc, stats)
     if plan is not None:
         return plan
-    plan = _staged_prepare(f, chunk, column, validate_crc, stats)
+    plan = _staged_prepare(f, chunk, column, validate_crc, alloc, stats)
     if fault is not None:
         # the native walk aborted but the staged walk decoded cleanly
         _bump("prepare_fallback_recovered")
@@ -1177,7 +1180,7 @@ _PC_MINIS, _PC_MINIE, _PC_DSTART, _PC_DCONS = 12, 13, 14, 15
 _PC_EXTRA, _PC_DFIRST = 16, 17
 
 
-def _native_prepare(f, chunk, column, validate_crc, stats):
+def _native_prepare(f, chunk, column, validate_crc, alloc, stats):
     """Whole-chunk native prepare: ONE C call walks every page (header
     parse, CRC verify when validate_crc, decompress, level decode, value
     prescan) and returns packed tables; batch assembly is then a handful of
@@ -1186,13 +1189,13 @@ def _native_prepare(f, chunk, column, validate_crc, stats):
     Returns (plan, fault): a ready _ChunkPlan and None, or None and an
     optional PrepareFault. fault is set when the native walk RAN and aborted
     (corrupt/unsupported/capacity, with stage + page + byte offset); it is
-    None when the walk was never attempted (a registered codec override, an
-    unreadable chunk range). Either way the caller falls back to the staged
+    None when the walk was never attempted (a memory ceiling, a registered
+    codec override, an unreadable chunk range). Either way the caller falls back to the staged
     walk. PQT_FUSED_PREPARE=0 forces the staged walk (the differential-test
     control), as it does in the JAX package."""
     if os.environ.get("PQT_FUSED_PREPARE", "1") == "0":
         return None, None  # forced staged path: not a decline, no counter
-    plan, fault = _native_prepare_impl(f, chunk, column, validate_crc, stats)
+    plan, fault = _native_prepare_impl(f, chunk, column, validate_crc, alloc, stats)
     if plan is None:
         _bump("prepare_fused_declined")
         if fault is not None:
@@ -1202,7 +1205,11 @@ def _native_prepare(f, chunk, column, validate_crc, stats):
     return plan, fault
 
 
-def _native_prepare_impl(f, chunk, column, validate_crc, stats):
+def _native_prepare_impl(f, chunk, column, validate_crc, alloc, stats):
+    if alloc is not None:
+        # a memory ceiling needs the per-page accounting only the staged
+        # walk performs (validate_crc, by contrast, is fused natively)
+        return None, None
     md = chunk.meta_data
     codec = int(md.codec or 0)
     if codec not in (0, 1, 2, 5, 7) or not is_builtin_codec(codec):
@@ -1752,6 +1759,7 @@ def _staged_prepare(
     chunk,
     column: Column,
     validate_crc: bool = False,
+    alloc=None,
     stats: DecodeStats | None = None,
 ) -> _ChunkPlan:
     """The per-page Python prepare walk (the error-semantics reference):
@@ -1770,6 +1778,8 @@ def _staged_prepare(
 
     for raw in iter_chunk_pages(f, chunk):
         header = raw.header
+        if alloc is not None:
+            alloc.check(header.uncompressed_page_size or 0)
         pt = header.type
         if pt == int(PageType.DICTIONARY_PAGE):
             if plan.dictionary is not None:
@@ -1778,6 +1788,8 @@ def _staged_prepare(
                 _check_crc(header, raw.payload)
             block = decompress_block(raw.payload, codec, header.uncompressed_page_size or 0)
             plan.dictionary = decode_dict_page(header, block, column)
+            if alloc is not None:
+                alloc.register_buffers(plan.dictionary)
             continue
         if pt == int(PageType.INDEX_PAGE):
             continue
@@ -1791,6 +1803,14 @@ def _staged_prepare(
         )
         if stats is not None:
             stats.add(pages=1)
+        if alloc is not None:
+            # actual levels + the eventual decoded value footprint (a lying
+            # header cannot understate these: non_null comes from the real
+            # level stream, dict indices decode at 4 B/value, delta totals
+            # are plausibility-bounded by the prescan)
+            alloc.register(
+                decoded_nbytes(dfl) + decoded_nbytes(rep) + len(values_buf) + non_null * 8
+            )
 
         # -- route the value stream --------------------------------------------
         if enc in (int(Encoding.RLE_DICTIONARY), int(Encoding.PLAIN_DICTIONARY)):

@@ -16,10 +16,16 @@ tests/test_dataset.py pins them for the reference:
   * the prefetch pipeline under two iterators on two threads, under a
     watchdog;
   * delivery through device_put_pipelined equals CPU delivery;
-  * each cut option raises NotPortedError, naming its layer.
+  * the io options (cache_bytes, cache_disk_bytes, cache_dir, block_cache,
+    readahead_bytes, io_autotune) and on_error give the reference's
+    batches, over the same files (a corrupt footer and a corrupt chunk
+    among them for on_error), and so do the plan's footer_cache=,
+    block_cache=, on_error and http(s):// paths;
+  * each option still cut raises NotPortedError, naming its layer.
 """
 
 import glob
+import os
 import threading
 
 import numpy as np
@@ -337,10 +343,8 @@ class TestStream:
 
 
 CUTS = [
-    dict(on_error="skip"), dict(on_error="null", nullable="zero"), dict(cache_bytes=1 << 20),
-    dict(cache_disk_bytes=1 << 20), dict(cache_dir="/nonexistent"), dict(block_cache=object()),
-    dict(readahead_bytes=1 << 20), dict(io_autotune=True), dict(slo_wait_ms=5.0),
-    dict(controller=object()), dict(device=[torch.device("cpu"), torch.device("cpu")]),
+    dict(slo_wait_ms=5.0), dict(controller=object()),
+    dict(device=[torch.device("cpu"), torch.device("cpu")]),
 ]
 
 
@@ -352,19 +356,179 @@ def test_cut_options_raise_not_ported(pattern, kw):
         ParquetDataset(pattern, batch_size=8, **kw)
 
 
-@pytest.mark.parametrize("kw", [dict(on_error="skip"), dict(footer_cache=object()),
-                                dict(block_cache=object())], ids=lambda kw: next(iter(kw)))
-def test_plan_cut_options_raise_not_ported(pattern, kw):
-    with pytest.raises(NotPortedError, match="not ported"):
-        build_plan(pattern, **kw)
+def _corrupt_dir(d):
+    """Two clean shards, one with a corrupt chunk in its second row group
+    (an optional column: "null" can stand in for it) and one whose footer
+    is garbage."""
+    d.mkdir(exist_ok=True)
+    paths = _write_shards(d, rows=[700, 800, 900, 600], nulls=True)
+    meta = FileReader.open_metadata(paths[2])
+    cc = meta.row_groups[1].columns[0].meta_data  # "x", optional
+    with open(paths[2], "r+b") as f:
+        f.seek(cc.data_page_offset + 8)
+        f.write(b"\xff" * 48)
+    data = open(paths[3], "rb").read()
+    open(paths[3], "wb").write(data[:-8] + b"\xff\xff\xff\x7f" + data[-4:])
+    return str(d / "shard-*.parquet")
+
+
+def _options(name, tmp_path):
+    """The dataset options of one ported case: (port kwargs, reference
+    kwargs); a cache argument is built for each package."""
+    from parquet_tpu.io import BlockCache as JBlockCache
+
+    from parquet_tpu_torch.io import BlockCache
+
+    return {
+        "on_error0": (dict(on_error="skip"), dict(on_error="skip")),
+        "on_error1": (dict(on_error="null", nullable="zero"),
+                      dict(on_error="null", nullable="zero")),
+        "cache_bytes": (dict(cache_bytes=64 << 10), dict(cache_bytes=64 << 10)),
+        "cache_disk_bytes": (dict(cache_bytes=16 << 10, cache_disk_bytes=4 << 20),
+                             dict(cache_bytes=16 << 10, cache_disk_bytes=4 << 20)),
+        "cache_dir": (dict(cache_disk_bytes=4 << 20, cache_dir=str(tmp_path / "p")),
+                      dict(cache_disk_bytes=4 << 20, cache_dir=str(tmp_path / "j"))),
+        "block_cache": (dict(block_cache=BlockCache(1 << 20)),
+                        dict(block_cache=JBlockCache(1 << 20))),
+        "readahead_bytes": (dict(cache_bytes=1 << 20, readahead_bytes=8 << 10),
+                            dict(cache_bytes=1 << 20, readahead_bytes=8 << 10)),
+        "io_autotune": (dict(cache_bytes=1 << 20, io_autotune=True),
+                        dict(cache_bytes=1 << 20, io_autotune=True)),
+    }[name]
+
+
+PORTED = ["on_error0", "on_error1", "cache_bytes", "cache_disk_bytes", "cache_dir",
+          "block_cache", "readahead_bytes", "io_autotune"]
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_ported_options_match_reference(pattern, tmp_path, name):
+    """Each option the port once refused, against the reference's dataset
+    over the same files: two epochs, shuffled, batch for batch. The
+    on_error cases read a corrupt set (a bad chunk and a bad footer)."""
+    pkw, jkw = _options(name, tmp_path)
+    src = _corrupt_dir(tmp_path / "bad") if name.startswith("on_error") else pattern
+    kw = dict(batch_size=256, shuffle=True, seed=3, num_epochs=2, remainder="keep",
+              columns=["x", "y"] if name.startswith("on_error") else None)
+    if name.startswith("on_error"):
+        kw["nullable"] = "zero"
+    pkw = {k: v for k, v in pkw.items() if k not in kw}
+    jkw = {k: v for k, v in jkw.items() if k not in kw}
+    reset_dataset_counts()
+    with ParquetDataset(src, device="cpu", **kw, **pkw) as ds:
+        got = with_watchdog(lambda: _drain(iter(ds)))
+        skipped = dataset_counts().get("units_skipped", 0)
+        files_skipped = len(ds.plan.skipped_files)
+    with JDataset(src, **kw, **jkw) as jds:
+        want = _drain(iter(jds))
+        jskipped = len(jds.plan.skipped_files)
+    _batches_equal(got, want)
+    assert files_skipped == jskipped
+    if name == "on_error0":
+        assert skipped == 2 and files_skipped == 1  # the bad unit, each epoch
+    if name == "on_error1":
+        assert skipped == 0 and files_skipped == 1
+
+
+@pytest.mark.parametrize("cache", ["none", "ram", "tiered"])
+def test_io_stats_settles_the_readahead(pattern, tmp_path, cache):
+    """io_stats(): None without a cache; else the cache's stats() once the
+    readahead's fetches have finished, so a warm epoch reads no source
+    byte and the counts read after it are final."""
+    from parquet_tpu_torch.io import io_counts, reset_io_counts
+
+    kw = {"none": {}, "ram": dict(cache_bytes=4 << 20),
+          "tiered": dict(cache_bytes=16 << 10, cache_disk_bytes=16 << 20,
+                         cache_dir=str(tmp_path / "tier"))}[cache]
+    with ParquetDataset(pattern, batch_size=256, device="cpu", **kw) as ds:
+        reset_io_counts()
+        cold = _drain(iter(ds))
+        stats = ds.io_stats()
+        assert io_counts()["io_bytes_read_total"] > 0
+        reset_io_counts()
+        warm = _drain(iter(ds))
+        ds.io_stats()
+        counts = io_counts()
+    _batches_equal(cold, warm)
+    if cache == "none":
+        assert stats is None
+        return
+    assert 0 < stats["bytes"] <= stats["capacity_bytes"] and stats["blocks"] > 0
+    assert counts.get("io_bytes_read_total", 0) == 0 and counts["io_cache_hits_total"] > 0
+    if cache == "tiered":
+        assert stats["disk"]["blocks"] > 0 and stats["disk"]["dir"] == str(tmp_path / "tier")
+
+
+def _plan_summary(plan):
+    return (
+        [(os.path.basename(u.path), u.row_group, u.num_rows) for u in plan.units],
+        [(os.path.basename(p), e.split(":")[0]) for p, e in plan.skipped_files],
+        plan.pruning_summary(),
+    )
+
+
+@pytest.fixture
+def make_stub():
+    """Start loopback stubs; each shuts down in the finalizer."""
+    made = []
+
+    def make(cls, **kw):
+        made.append(cls(**kw).start())
+        return made[-1]
+
+    yield make
+    for s in made:
+        s.close()
+
+
+@pytest.mark.parametrize("name", ["on_error", "footer_cache", "block_cache", "https"])
+def test_plan_options_match_reference(pattern, tmp_path, make_stub, name):
+    """The plan's once-refused options against the reference's build_plan
+    over the same files; "https" serves them from each package's stub."""
+    from parquet_tpu.io import BlockCache as JBlockCache
+    from parquet_tpu.io import FooterCache as JFooterCache
+    from parquet_tpu.testing.httpstub import RangeHttpStub as JStub
+
+    from parquet_tpu_torch.io import BlockCache, FooterCache
+    from parquet_tpu_torch.testing.httpstub import RangeHttpStub
+
+    filters = [("z", "<", 3)]
+    if name == "on_error":
+        src = _corrupt_dir(tmp_path / "bad")
+        got = build_plan(src, on_error="skip", filters=filters)
+        want = jbuild_plan(src, on_error="skip", filters=filters)
+        assert _plan_summary(got) == _plan_summary(want) and got.skipped_files
+        with pytest.raises(PARQUET_ERRORS):
+            build_plan(src)
+        return
+    if name == "footer_cache":
+        fc, jfc = FooterCache(), JFooterCache()
+        for _ in range(2):
+            got, want = build_plan(pattern, footer_cache=fc), jbuild_plan(pattern, footer_cache=jfc)
+            assert _plan_summary(got) == _plan_summary(want)
+        assert len(fc) == len(jfc) == N_FILES
+        return
+    if name == "block_cache":
+        bc, jbc = BlockCache(1 << 20), JBlockCache(1 << 20)
+        got = build_plan(pattern, filters=filters, block_cache=bc)
+        want = jbuild_plan(pattern, filters=filters, block_cache=jbc)
+        assert _plan_summary(got) == _plan_summary(want)
+        return
+    files = {os.path.basename(p): open(p, "rb").read() for p in sorted(glob.glob(pattern))}
+    stub, jstub = make_stub(RangeHttpStub, files=files), make_stub(JStub, files=files)
+    urls = [stub.url_for(n) for n in files]
+    assert expand_paths(urls[0]) == [urls[0]]
+    got = build_plan(urls, filters=filters)
+    want = jbuild_plan([jstub.url_for(n) for n in files], filters=filters)
+    assert _plan_summary(got) == _plan_summary(want)
+    with ParquetDataset(urls, batch_size=300, device="cpu") as ds:
+        _batches_equal(_drain(iter(ds)), _drain(iter(JDataset(pattern, batch_size=300))))
 
 
 def test_unported_references_raise(tmp_path):
     (tmp_path / "table" / "_lake").mkdir(parents=True)
     with pytest.raises(NotPortedError, match="lake"):
         expand_paths(str(tmp_path / "table"))
-    with pytest.raises(NotPortedError, match="io layer"):
-        expand_paths("https://example.invalid/a.parquet")
 
 
 class TestCheckpoint:
