@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive parquet_tpu_torch's decode, batch, filter, write, query, scan, row and io paths
-on one CUDA card.
+"""Drive parquet_tpu_torch's decode, batch, filter, write, query, scan, row, io, remote
+write and lake paths on one CUDA card.
 
 Run from the repository root, on a machine with one NVIDIA card and the CUDA
 toolkit (nvcc):
@@ -168,15 +168,16 @@ Phases (any failure raises and the script exits non-zero):
               on the card must equal NumPy's; (c) the host write with
               write_page_index=True and GZIP serial (the fused walk must
               decline every chunk), serial with PQT_FUSED_ENCODE=0 and
-              parallel=True, byte-equal, then without the page index (the
-              fused walk must take every chunk), byte-equal, and prune_pages
-              on 1,000-row trip_id ranges keeping the matches and dropping
-              pages; (d) split_row_groups of the device-written file into
-              two parts and merge_files back, read on the card equal to the
+              parallel=True, byte-equal, and prune_pages on 1,000-row
+              trip_id ranges keeping the matches and dropping pages; (d)
+              split_row_groups of the device-written file into two parts
+              and merge_files back, read on the card equal to the
               generator; (e) timings: the device write with blooms
-              against without (medians of 3), the GZIP host write fused
-              against staged and parallel against serial (one timed run
-              each after a warm-up), the SNAPPY and UNCOMPRESSED host
+              against without (medians of 3), the GZIP host write without
+              the page index fused against staged and parallel against
+              serial (one timed run each, the first write of its file; the
+              fused walk must take every chunk, the three files
+              byte-equal), the SNAPPY and UNCOMPRESSED host
               writes fused against staged (medians of 3), the bloom and
               page-index bytes, and xxh64_fixed, xxh64_offsets,
               bloom_insert and chunk_encode against their Python oracles on
@@ -248,6 +249,30 @@ Phases (any failure raises and the script exits non-zero):
               sessions, widened equal to the unpacked reads. Range GETs,
               source bytes, cache hits and rows/s of each step are printed
               beside the path read and the card's name and power limit;
+     remote   remote writes and the lake (check_remote_lake): (a) taxi's
+              device columns through FileWriter(stub URL) to a writable
+              RangeHttpStub in a process of its own, with the device
+              write's schema and options: the object, read back by one
+              GET, equal to the path write's file, one multipart initiate,
+              ceil(size / 8 MiB) parts and one commit in io_counts(),
+              FileReader(url).read_row_groups_device() equal to the
+              generator, and rows/s of the URL write against the path
+              write in turns; (b) the same write through ObjectStoreSink
+              with a SigV4Signer to a signed stub, committing the same
+              bytes, and an unsigned write there refused with
+              SinkError(code="http_403"), no object left; (c) a LakeTable
+              with taxi's DSL schema and sort key pickup_us, the first
+              524,288 rows in 32 interleaved appends through IngestWriter's
+              defaults, Compactor.compact_once(): pruned_ratio of a
+              pickup_us range and of the compactor's probe must rise; a
+              device epoch of ParquetDataset(table) holding the rows'
+              multiset, equal to the CPU epoch batch for batch, and an
+              epoch pinned to the last generation before compaction
+              holding the same multiset (the dataset decodes on the host:
+              no kernel launches there); read_row_groups_device() of the
+              compacted file holding the rows' values, expand_hybrid and
+              dict_gather launched; each step's rows/s beside the card's
+              name and power limit;
   5. times    rows/s of the device reads and of the batch streams, filtered
               and not (the same call, both files), of the filtered read, of
               host decode + upload, of the device write against the host
@@ -306,8 +331,8 @@ line with the card count.
 The last three lines of standard output are a JSON line of the end-to-end
 rates, the host value functions' A/B seconds, the collectives' times, the
 overlap A/B, profile and dataset rates, the write-options phase's numbers,
-the rows phase's rates and seconds, the io phase's steps, and the card's
-name and power limit, the
+the rows phase's rates and seconds, the io phase's steps, the remote and
+lake phase's steps, and the card's name and power limit, the
 `kernels` JSON line (21
 kernels) and the
 `{"ok": true, ...}` line. Without CUDA, or without the package beside it,
@@ -2364,11 +2389,12 @@ def check_write_options(taxi_specs, host_groups, dev_groups, dev, launches: dict
     options; (b) bloom pruning on the card by a one-group key and an absent
     one; (c) the host write with the page index and GZIP serial and fused,
     serial and staged (PQT_FUSED_ENCODE=0) and parallel, byte-equal, the
-    fused walk declining the page-index chunks, and a page-index-free GZIP
-    file through the fused walk; prune_pages on trip_id ranges; (d) split
-    and merge of the device-written file, read back on the card; (e) the
-    timings, with SNAPPY and UNCOMPRESSED host writes fused and staged
-    (byte-equal) beside GZIP's. Returns the phase's numbers."""
+    fused walk declining the page-index chunks; prune_pages on trip_id
+    ranges; (d) split and merge of the device-written file, read back on
+    the card; (e) the timings: the page-index-free GZIP host write three
+    ways (the fused walk on every chunk, the files byte-equal), one timed
+    first write each, and SNAPPY and UNCOMPRESSED host writes fused and
+    staged (byte-equal). Returns the phase's numbers."""
     import torch
 
     from parquet_tpu_torch import (
@@ -2473,21 +2499,6 @@ def check_write_options(taxi_specs, host_groups, dev_groups, dev, launches: dict
     out["bytes"]["page index file"] = dict(zip(("bloom", "page_index"),
                                                index_bytes(files["serial fused"])))
     log("[write-options:c] serial fused, serial staged and parallel page-index files are equal")
-    plain = {}
-    for label, env, opts in variants:
-        f = d / f"opts-gzip-{label.replace(' ', '-')}.parquet"
-        reset_write_counts()
-        with env_set(**env):
-            write_taxi(f, schema, host_groups, device=False, codec="gzip", **opts)
-        wc = write_counts()
-        plain[label] = f
-        if label != "serial staged" and (wc["encode_fused_engaged"], wc["encode_fused_declined"],
-                                         wc["encode_fallback_recovered"]) != (chunks, 0, 0):
-            raise AssertionError(f"{label}: the fused walk must take all {chunks} chunks ({wc})")
-    if len({f.read_bytes() for f in plain.values()}) != 1:
-        raise AssertionError("the page-index-free gzip files of the three host writes differ")
-    log(f"[write-options:c] page-index-free gzip: the fused walk took all {chunks} chunks; "
-        "serial fused, serial staged and parallel files are equal")
     ranges = {}
     with FileReader(files["serial fused"]) as r:
         for g in range(ROW_GROUPS):
@@ -2520,7 +2531,35 @@ def check_write_options(taxi_specs, host_groups, dev_groups, dev, launches: dict
     # (e) timings: the writes of (a) and (c) were the warm-ups, and for
     # SNAPPY and UNCOMPRESSED the fused and staged writes here, held
     # byte-equal; medians of 3, but one timed run for each GZIP host write
-    # (about 19 s a serial write)
+    # (about 19 s a serial write), the first write of its file: the
+    # page-index-free GZIP files of the three ways, each checked on its
+    # walk's counts and the three held byte-equal
+    plain = {}
+    rates = {}
+    gzip_ways = {"serial fused": "host write gzip, serial fused",
+                 "serial staged": "host write gzip, serial staged",
+                 "parallel": "host write gzip, parallel fused"}
+    for label, env, opts in variants:
+        f = d / f"opts-gzip-{label.replace(' ', '-')}.parquet"
+        reset_write_counts()
+        with env_set(**env):
+            med, secs = median_s(lambda: (write_taxi(f, schema, host_groups, device=False,
+                                                     codec="gzip", **opts),
+                                          torch.cuda.synchronize()), reps=1)
+        wc = write_counts()
+        plain[label] = f
+        rates[gzip_ways[label]] = n_rows / med
+        log(f"  {gzip_ways[label]}: {rates[gzip_ways[label]]:,.0f} rows/s (one run, the file's "
+            f"first write, {[round(x, 3) for x in secs]} s); write counts {wc}")
+        if label != "serial staged" and (wc["encode_fused_engaged"], wc["encode_fused_declined"],
+                                         wc["encode_fallback_recovered"]) != (chunks, 0, 0):
+            raise AssertionError(f"{label}: the fused walk must take all {chunks} chunks ({wc})")
+        if label == "serial staged" and (wc["encode_fused_declined"] or wc["encode_fused_engaged"]):
+            raise AssertionError(f"PQT_FUSED_ENCODE=0 still counted fused work ({wc})")
+    if len({f.read_bytes() for f in plain.values()}) != 1:
+        raise AssertionError("the page-index-free gzip files of the three host writes differ")
+    log(f"[write-options:e] page-index-free gzip: the fused walk took all {chunks} chunks; "
+        "serial fused, serial staged and parallel files are equal")
     for codec in ("snappy", "uncompressed"):
         for label, env in (("fused", {}), ("staged", {"PQT_FUSED_ENCODE": "0"})):
             f = d / f"opts-{codec}-{label}.parquet"
@@ -2537,29 +2576,20 @@ def check_write_options(taxi_specs, host_groups, dev_groups, dev, launches: dict
             raise AssertionError(f"the {codec} files of the fused and staged writes differ")
     log(f"[write-options:e] snappy and uncompressed: the fused walk took all {chunks} chunks; "
         "the fused and staged files are equal")
-    rates = {}
     for label, fn in (
         ("device write, blooms", lambda: write_taxi(dev_file, schema, dev_groups, True,
                                                    bloom_filters=blooms)),
         ("device write, no blooms", lambda: write_taxi(dev_file, schema, dev_groups, True)),
-        ("host write gzip, serial fused", lambda: write_taxi(plain["serial fused"], schema,
-                                                             host_groups, False, codec="gzip")),
-        ("host write gzip, serial staged", lambda: write_taxi(
-            plain["serial staged"], schema, host_groups, False, codec="gzip")),
-        ("host write gzip, parallel fused", lambda: write_taxi(
-            plain["parallel"], schema, host_groups, False, codec="gzip", parallel=True)),
         *((f"host write {codec}, serial {way}",
            lambda codec=codec, way=way: write_taxi(plain[f"{codec} {way}"], schema,
                                                    host_groups, False, codec=codec))
           for codec in ("snappy", "uncompressed") for way in ("fused", "staged")),
     ):
         env = {"PQT_FUSED_ENCODE": "0"} if "staged" in label else {}
-        reps = 1 if "gzip" in label else 3
         with env_set(**env):
-            med, secs = median_s(lambda: (fn(), torch.cuda.synchronize()), reps=reps)
+            med, secs = median_s(lambda: (fn(), torch.cuda.synchronize()))
         rates[label] = n_rows / med
-        how = "one run after a warm-up" if reps == 1 else "median of"
-        log(f"  {label}: {rates[label]:,.0f} rows/s ({how} {[round(x, 3) for x in secs]} s)")
+        log(f"  {label}: {rates[label]:,.0f} rows/s (median of {[round(x, 3) for x in secs]} s)")
     out["rows_per_s"] = rates
     blooms_ratio = rates["device write, blooms"] / rates["device write, no blooms"]
     fused_ratio = rates["host write gzip, serial fused"] / rates["host write gzip, serial staged"]
@@ -4441,16 +4471,19 @@ IO_PROJECTION = ("trip_id", "fare_cents", "zone")
 IO_TIER_RAM = (256 << 20, 32 << 20)
 
 
-def start_stub(root, latency_s: float = 0.0, credentials=None):
+def start_stub(root, latency_s: float = 0.0, credentials=None, writable: bool = False):
     """A RangeHttpStub serving `root` from a process of its own (its
-    serving shares no GIL with the reader). Returns (process, base URL);
-    a stub that does not report its port within 60 s fails the run."""
+    serving shares no GIL with the reader or writer); `writable` arms its
+    multipart write side. Returns (process, base URL); a stub that does
+    not report its port within 60 s fails the run."""
     import select
 
     cmd = [sys.executable, "-m", "parquet_tpu_torch.testing.httpstub", "--root", str(root),
            "--latency-s", str(latency_s)]
     if credentials is not None:
         cmd += ["--credentials", ":".join(credentials)]
+    if writable:
+        cmd.append("--writable")
     proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                             text=True)
     ready, _, _ = select.select([proc.stdout], [], [], 60)
@@ -4826,6 +4859,334 @@ def check_io(paths: dict, dev, launches: dict, card: str) -> dict:
         f"bytes against {plain_bytes:,}, widened equal to the unpacked reads (host and device)")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[io] the phase took {out['seconds']:.1f} s | {card}")
+    return out
+
+
+# -- remote writes and the lake ---------------------------------------------------
+
+# the lake loop: the first LAKE_ROWS rows of taxi in LAKE_APPENDS appends
+LAKE_ROWS = 1 << 19
+LAKE_APPENDS = 32
+
+
+def http_get(url: str, signer=None) -> tuple[int, bytes]:
+    """(status, body) of one GET of the whole object at `url` (signed when
+    `signer` is given)."""
+    import http.client
+    from urllib.parse import urlsplit
+
+    split = urlsplit(url)
+    headers = signer.headers("GET", url, b"") if signer is not None else {}
+    conn = http.client.HTTPConnection(split.hostname, split.port, timeout=120)
+    try:
+        conn.request("GET", split.path, headers=headers)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def taxi_rows(specs, n: int) -> list:
+    """The generator's first n taxi rows as row dicts (zone a str,
+    passenger_count None where it is null), and the columns they hold."""
+    s = {sp.name: sp for sp in specs}
+    cols = {}
+    for name, sp in s.items():
+        if name == "passenger_count":
+            valid = sp.valid[:n]
+            full = np.zeros(n, np.int32)
+            full[valid] = sp.dictionary[sp.indices[:int(valid.sum())]]
+            cols[name] = [int(v) if ok else None for v, ok in zip(full.tolist(), valid)]
+        elif name == "zone":
+            cols[name] = [v.decode() for v in sp.dictionary.take(sp.indices[:n]).to_list()]
+        elif sp.dict_encoded:
+            cols[name] = np.asarray(sp.dictionary)[sp.indices[:n]].tolist()
+        else:
+            cols[name] = np.asarray(sp.values[:n]).tolist()
+    names = list(cols)
+    return [dict(zip(names, vals)) for vals in zip(*(cols[c] for c in names))]
+
+
+def check_remote_lake(paths, taxi_schema, dev_groups, dev_file, dev, launches: dict,
+                      card: str) -> dict:
+    """The remote-write and lake phase. (a) taxi's device columns written
+    with FileWriter(stub URL) to a writable RangeHttpStub in a process of
+    its own, with the device write's schema and options: the object, read
+    back by one GET, equals the path write's file byte for byte; one
+    multipart initiate, ceil(size / 8 MiB) parts and one commit in
+    io_counts(); FileReader(url).read_row_groups_device() equals the
+    generator; rows/s of the URL write against the path write (turns: path,
+    URL, URL, path). (b) the same write through ObjectStoreSink with a
+    SigV4Signer to a stub started with --credentials commits the same
+    bytes; an unsigned write there raises SinkError(code="http_403") and
+    leaves no object. (c) the lake loop: a LakeTable with taxi's schema
+    (DSL) and sort key pickup_us; the first LAKE_ROWS rows in LAKE_APPENDS
+    appends through IngestWriter's defaults (append k takes rows k, k + 32,
+    ...: interleaved producers); Compactor.compact_once() with its
+    defaults; pruned_ratio of a pickup_us range and of the compactor's own
+    probe must rise; one device epoch of ParquetDataset(table) holds the
+    rows' multiset column by column and equals the CPU epoch batch for
+    batch; an epoch pinned to the last generation before compaction holds
+    the same multiset (the dataset decodes on the host and uploads, so its
+    epochs launch no decode kernel); read_row_groups_device() of the
+    compacted file holds the rows' values column by column, with
+    expand_hybrid and dict_gather launched. Prints each step's rows/s and
+    seconds beside `card`; returns the numbers."""
+    import shutil
+
+    import torch
+
+    from parquet_tpu_torch import WriterError, reset_write_counts, write_counts
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.data import ParquetDataset
+    from parquet_tpu_torch.io import ObjectStoreSink, io_counts, reset_io_counts
+    from parquet_tpu_torch.io.sign import SigV4Signer
+    from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.lake import Compactor, IngestWriter, LakeTable, pruned_ratio
+    from parquet_tpu_torch.sink import SinkError
+
+    t_phase = time.perf_counter()
+    root = smoke_dir()
+    taxi_specs = paths["taxi"][1]
+    n_rows = ROW_GROUPS * RG_ROWS
+    out: dict = {"steps": {}}
+
+    def step(label, rows, secs, **numbers):
+        out["steps"][label] = dict(numbers, rows_per_s=rows / secs, seconds=secs)
+        log(f"[remote] {label}: {rows / secs:,.0f} rows/s ({secs:.3f} s)"
+            + "".join(f", {k} {v:,}" for k, v in numbers.items()) + f" | {card}")
+
+    def timed_write(dest):
+        t = time.perf_counter()
+        write_taxi(dest, taxi_schema, dev_groups, device=True)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    want = dev_file.read_bytes()
+    part = 8 << 20
+    stubs = []
+    try:
+        # (a) the device write to a URL
+        proc, base = start_stub(root, writable=True)
+        stubs.append(proc)
+        url = f"{base}/remote-taxi.parquet"
+        reset_io_counts()
+        reset_write_counts()
+        ops.reset_launch_counts()
+        secs = timed_write(url)
+        counts = kernel_counts()
+        launches["remote taxi url write"] = counts
+        io, wc = io_counts(), write_counts()
+        status, got = http_get(url)
+        n_parts = -(-len(want) // part)
+        mp = {k: io.get(f"sink_multipart_{k}_total", 0)
+              for k in ("initiated", "parts", "completed", "aborted")}
+        step("taxi url write, first", n_rows, secs, bytes=len(got), parts=mp["parts"],
+             put_bytes=io.get("io_put_bytes_total", 0))
+        if status != 200 or got != want:
+            raise AssertionError(f"[remote:a] GET {status}: the URL object ({len(got):,} bytes) "
+                                 f"differs from the path write's file ({len(want):,} bytes)")
+        # an object under one part goes up in one single-shot PUT
+        want_mp = ({"initiated": 1, "parts": n_parts, "completed": 1, "aborted": 0}
+                   if len(want) >= part else dict.fromkeys(mp, 0))
+        if mp != want_mp:
+            raise AssertionError(f"[remote:a] multipart counts {mp}, expected {want_mp}")
+        if io.get("io_put_bytes_total") != len(want):
+            raise AssertionError(f"[remote:a] {io.get('io_put_bytes_total')} bytes put")
+        if (wc["device_write_engaged"], wc["device_write_declined"]) != (6 * ROW_GROUPS, 0):
+            raise AssertionError(f"[remote:a] write counts {wc}")
+        for k in WRITE_KERNELS:
+            if k != "bitpack_encode" and counts[k] <= 0:
+                raise AssertionError(f"{k} was not launched on the URL write")
+        out["multipart"] = dict(mp, bytes=len(got), part_bytes=part)
+        log(f"[remote:a] FileWriter(url) of taxi's device columns: the object equals the path "
+            f"write's file ({len(got):,} bytes, ceil(size / 8 MiB) = {n_parts}), counts {mp}; "
+            "launches " + ", ".join(f"{k}={v}" for k, v in counts.items()
+                                    if isinstance(v, int) and v))
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        with FileReader(url, device=dev) as r:
+            groups = r.read_row_groups_device()
+            torch.cuda.synchronize()
+            stats = r.stats
+        step("taxi url read-back", n_rows, time.perf_counter() - t)
+        launches["remote taxi url read"] = kernel_counts()
+        check_main_path(groups, taxi_specs, stats, no_host_fallback=False)
+        del groups
+        log("[remote:a] FileReader(url).read_row_groups_device(): the columns equal the "
+            "generator's")
+        tmp = root / "remote-path-write.parquet"
+        turns = {"path": [], "url": []}
+        for k, way in enumerate(("path", "url", "url", "path")):
+            dest = tmp if way == "path" else f"{base}/remote-taxi-{k}.parquet"
+            turns[way].append(timed_write(dest))
+        if tmp.read_bytes() != want:
+            raise AssertionError("[remote:a] the path write's file changed between writes")
+        tmp.unlink()
+        rates = {way: n_rows / statistics.median(s) for way, s in turns.items()}
+        out["write_rows_per_s"] = rates
+        out["url_over_path"] = rates["url"] / rates["path"]
+        log(f"[remote:a] device write rows/s: path {rates['path']:,.0f} "
+            f"({[round(x, 3) for x in turns['path']]} s), url {rates['url']:,.0f} "
+            f"({[round(x, 3) for x in turns['url']]} s), url / path "
+            f"{out['url_over_path']:.3f} | {card}")
+        stop_stub(proc)
+        stubs.remove(proc)
+        # (b) signed and refused writes
+        sproc, sbase = start_stub(root, credentials=IO_CREDENTIALS, writable=True)
+        stubs.append(sproc)
+        signer = SigV4Signer(*IO_CREDENTIALS)
+        surl = f"{sbase}/remote-taxi-signed.parquet"
+        reset_io_counts()
+        ops.reset_launch_counts()
+        sink = ObjectStoreSink(surl, signer=signer)
+        t = time.perf_counter()
+        try:
+            write_taxi(sink, taxi_schema, dev_groups, device=True)
+            sink.close()  # the caller owns a sink it passes in: it commits
+        finally:
+            sink.abort()
+        torch.cuda.synchronize()
+        step("taxi signed url write", n_rows, time.perf_counter() - t)
+        launches["remote taxi signed write"] = kernel_counts()
+        if http_get(surl, signer) != (200, want):
+            raise AssertionError("[remote:b] the signed write's object differs")
+        uurl = f"{sbase}/remote-taxi-unsigned.parquet"
+        try:
+            write_taxi(uurl, taxi_schema, dev_groups[:1], device=True)
+        except WriterError as e:
+            cause = e.__cause__
+            if not isinstance(cause, SinkError) or cause.code != "http_403":
+                raise AssertionError(f"[remote:b] unsigned: {e!r} from {cause!r}") from e
+            refused = f"WriterError from SinkError code={cause.code}: {cause}"
+        else:
+            raise AssertionError("[remote:b] the unsigned write to the signed stub committed")
+        status = http_get(uurl, signer)[0]
+        if status != 404:
+            raise AssertionError(f"[remote:b] after the refused write, GET answers {status}")
+        out["signed"] = {"refused": refused, "get_after_refusal": status}
+        log(f"[remote:b] ObjectStoreSink(SigV4Signer) committed the path write's bytes; "
+            f"unsigned: {refused}; GET then answers {status}")
+        stop_stub(sproc)
+        stubs.remove(sproc)
+    finally:
+        for proc in stubs:
+            stop_stub(proc)
+    # (c) the lake loop
+    table_dir = root / "lake-taxi"
+    shutil.rmtree(table_dir, ignore_errors=True)
+    t_lake = time.perf_counter()
+    try:
+        t = time.perf_counter()
+        rows = taxi_rows(taxi_specs, LAKE_ROWS)
+        log(f"[lake] {LAKE_ROWS:,} taxi rows as dicts in {time.perf_counter() - t:.2f} s")
+        table = LakeTable.create(str(table_dir), TAXI_DSL, sort_key="pickup_us")
+        writer = IngestWriter(table)
+        t = time.perf_counter()
+        for k in range(LAKE_APPENDS):
+            writer.append(rows[k::LAKE_APPENDS])
+        writer.close()
+        secs = time.perf_counter() - t
+        before = table.manifest.open_snapshot()
+        step("lake ingest", LAKE_ROWS, secs, files=len(before.files),
+             generation=before.generation, bytes=before.total_bytes)
+        if before.total_rows != LAKE_ROWS:
+            raise AssertionError(f"[lake] {before.total_rows} rows committed")
+        keys = sorted(r["pickup_us"] for r in rows)
+        # a window of 512 trips' pickups (a few minutes): narrower than a row group
+        lo, hi = keys[LAKE_ROWS // 2], keys[LAKE_ROWS // 2 + LAKE_ROWS // 1024]
+        probe = [("pickup_us", ">=", lo), ("pickup_us", "<", hi)]
+        ratio_before = pruned_ratio(table.snapshot_paths(), probe)
+        t = time.perf_counter()
+        result = Compactor(table).compact_once()
+        secs = time.perf_counter() - t
+        if result is None:
+            raise AssertionError("[lake] the compactor found nothing to fold")
+        after = table.manifest.open_snapshot()
+        ratio_after = pruned_ratio(table.snapshot_paths(), probe)
+        step("lake compaction", LAKE_ROWS, secs, files_in=result.files_in,
+             generation=result.generation, bytes_out=result.bytes_out)
+        out["pruned_ratio"] = {
+            "range": [ratio_before, ratio_after],
+            "probe": [result.pruned_ratio_before, result.pruned_ratio_after]}
+        log(f"[lake] compact_once: {result.files_in} files -> 1, generation "
+            f"{result.generation}; pruned_ratio of pickup_us in [{lo}, {hi}) "
+            f"{ratio_before:.4f} -> {ratio_after:.4f}, of the compactor's point probe "
+            f"{result.pruned_ratio_before:.4f} -> {result.pruned_ratio_after:.4f}")
+        if (after.total_rows != LAKE_ROWS or len(after.files) != 1
+                or not ratio_after > ratio_before
+                or not result.pruned_ratio_after > result.pruned_ratio_before):
+            raise AssertionError(f"[lake] after compaction: {after.total_rows} rows in "
+                                 f"{len(after.files)} files; pruned ratios {out['pruned_ratio']}")
+        kw = dict(batch_size=BATCH, columns=list(DATASET_COLUMNS), nullable="zero",
+                  remainder="keep")
+        want_cols = {c: sorted(0 if r[c] is None else r[c] for r in rows)
+                     for c in DATASET_COLUMNS}
+
+        def epoch(ref, device, label=None):
+            # the dataset decodes its units on the host (as the reference's
+            # does) and uploads the batches: no decode kernel launches here
+            t = time.perf_counter()
+            batches = list(ParquetDataset(str(ref), device=device, **kw))
+            torch.cuda.synchronize()
+            if label is not None:
+                step(label, LAKE_ROWS, time.perf_counter() - t, batches=len(batches))
+            return batches
+
+        def multiset(batches, label):
+            for c in DATASET_COLUMNS:
+                got = sorted(torch.cat([b[(c,)] for b in batches]).cpu().tolist())
+                if got != want_cols[c]:
+                    raise AssertionError(f"[lake] {label}: {c} does not hold the rows' values")
+
+        cuda = epoch(table_dir, dev, "lake device epoch")
+        cpu = epoch(table_dir, "cpu")
+        if len(cuda) != len(cpu) or not all(
+                g.keys() == w.keys() and all(
+                    g[p].device.type == dev.type and g[p].dtype == w[p].dtype
+                    and torch.equal(g[p].cpu(), w[p])
+                    for p in g)
+                for g, w in zip(cuda, cpu)):
+            raise AssertionError("[lake] the device epoch's batches differ from the CPU epoch's")
+        multiset(cuda, "device epoch")
+        del cpu
+        # the table's files decoded on the card: the lake's kernel path
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        decoded = []
+        for path in table.snapshot_paths():
+            with FileReader(path, device=dev) as r:
+                decoded += r.read_row_groups_device()
+        torch.cuda.synchronize()
+        step("lake device read", LAKE_ROWS, time.perf_counter() - t,
+             row_groups=len(decoded))
+        launches["lake device read"] = counts = kernel_counts()
+        for k in ("expand_hybrid", "dict_gather"):
+            if counts[k] <= 0:
+                raise AssertionError(f"{k} was not launched on the lake device read")
+        values = [device_group_values(g, dev) for g in decoded]
+        for c in DATASET_COLUMNS + ("zone",):
+            got = sorted(0 if v is None else v for g in values for v in g[c])
+            want = (want_cols[c] if c != "zone" else sorted(r["zone"] for r in rows))
+            if got != want:
+                raise AssertionError(f"[lake] device read: {c} does not hold the rows' values")
+        log(f"[lake] read_row_groups_device of the table's file: {len(decoded)} row groups hold "
+            "the rows' values column by column; launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items() if isinstance(v, int) and v))
+        del decoded, values
+        pinned = table_dir / "_lake" / f"gen-{before.generation:08d}.json"
+        travel = epoch(pinned, dev, "lake device epoch, time travel")
+        multiset(travel, "time travel")
+        log(f"[lake] ParquetDataset(table, device={dev.type!r}): {len(cuda)} batches equal the CPU "
+            f"epoch's and hold the rows' multiset; pinned to {pinned.name} (before "
+            f"compaction, {len(before.files)} files): the same multiset, {len(travel)} batches")
+        del cuda, travel, rows
+    finally:
+        shutil.rmtree(table_dir, ignore_errors=True)
+    out["lake_seconds"] = time.perf_counter() - t_lake
+    log(f"[lake] the loop took {out['lake_seconds']:.1f} s")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[remote] the phase took {out['seconds']:.1f} s | {card}")
     return out
 
 
@@ -5211,6 +5572,7 @@ def main(argv=None) -> int:
     rows_phase = check_rows(taxi_path, sessions_path, sessions_specs, taxi_specs, f_taxi,
                             taxi_keep, device_filtered, dev, launches, smi)
     io_phase = check_io(paths, dev, launches, smi)
+    remote_phase = check_remote_lake(paths, taxi_schema, dev_groups, dev_file, dev, launches, smi)
     for k in rows:
         rows[k]["launches"] = sum(c[k] for c in launches.values())
         rows[k]["launches_by_path"] = {label: c[k] for label, c in launches.items()}
@@ -5361,7 +5723,7 @@ def main(argv=None) -> int:
     print(json.dumps({"rows_per_s": rates, "prepare_s": prepare, "native_ab_s": native_ab,
                       "collectives": scan["collectives"], "overlap": overlap,
                       "write_options": write_options, "rows": rows_phase, "io": io_phase,
-                      "card": smi}))
+                      "remote": remote_phase, "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

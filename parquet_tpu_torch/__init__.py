@@ -22,7 +22,12 @@ Bytes come through the io layer (parquet_tpu_torch.io): a path reads with
 os.pread, an http(s):// URL with range GETs (signed, retried, hedged and
 breaker-gated as configured), through block, footer and RAM -> disk tiered
 caches; the reader's on_error, max_memory and compact_levels ride on it,
-and io_counts() reads its counters.
+and io_counts() reads its counters. Bytes leave the same way: FileWriter
+and merge_files take an http(s):// URL as their destination (HttpSink,
+atomic multipart PUTs committed at close). The lake layer
+(parquet_tpu_torch.lake) keeps a table of such files: IngestWriter appends,
+Compactor folds, and a table directory or a _lake/gen-N.json path is a
+dataset source pinned to one generation.
 Aggregation queries (serve.run_local_query) filter and reduce each row
 group on the card, and scans (parallel.column_stats,
 distributed_column_stats, sharded_decode_step) spread row groups and pages
@@ -80,9 +85,11 @@ from .io import (
     BlockCache,
     ByteSource,
     FooterCache,
+    HttpSink,
     HttpSource,
     LocalFileSource,
     MemorySource,
+    ObjectStoreSink,
     ObjectStoreSource,
     RetryingSource,
     SourceError,
@@ -123,10 +130,12 @@ __all__ = [
     "FileWriter",
     "FilterError",
     "FooterCache",
+    "HttpSink",
     "HttpSource",
     "LocalFileSource",
     "MaskedColumn",
     "MemorySource",
+    "ObjectStoreSink",
     "ObjectStoreSource",
     "PackedLevels",
     "PageError",

@@ -549,6 +549,16 @@ class FileReader:
     def num_row_groups(self) -> int:
         return len(self.metadata.row_groups or [])
 
+    @property
+    def created_by(self) -> str | None:
+        return self.metadata.created_by
+
+    @property
+    def key_value_metadata(self) -> dict[str, str | None]:
+        return {
+            kv.key: kv.value for kv in (self.metadata.key_value_metadata or [])
+        }
+
     def row_group(self, i: int) -> RowGroup:
         groups = self.metadata.row_groups or []
         if not 0 <= i < len(groups):

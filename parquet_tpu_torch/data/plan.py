@@ -18,10 +18,9 @@ A corrupt file (unreadable footer) follows the dataset's on_error policy:
 (listed in ScanPlan.skipped_files, counted as files_skipped in
 dataset_counts()). http(s):// URLs pass through as they are: their footers
 parse through io.remote.HttpSource, validated in `footer_cache` by (size,
-ETag).
-
-Cut, raising NotPortedError (a ValueError) that names the layer: lake
-table references (the lake layer).
+ETag). A lake table directory, or one of its manifest files
+(table/_lake/gen-N.json), expands to one pinned generation's file list
+(lake/manifest.py).
 """
 
 from __future__ import annotations
@@ -57,13 +56,28 @@ class Unit(NamedTuple):
     num_rows: int
 
 
-def _refuse_unported_ref(s: str) -> None:
-    """Lake table references, which the reference expands through a layer
-    the port does not carry."""
-    if os.path.isdir(s) and os.path.isdir(os.path.join(s, "_lake")) or (
-        f"{os.sep}_lake{os.sep}" in s and s.endswith(".json")
-    ):
-        raise not_ported(f"the lake reference {s!r}", "the lake layer (lake/manifest.py)")
+def _expand_lake_ref(s: str):
+    """A lake-table reference expands to ONE pinned snapshot's file list:
+    a table directory (holding _lake/CURRENT) pins the current
+    generation, a manifest file path (table/_lake/gen-N.json) pins
+    generation N — time travel for scans. Returns None when `s` is not a
+    lake reference; the file list preserves MANIFEST order (it is a
+    consistent snapshot, not a directory listing to be re-sorted —
+    callers that sort sort deterministically anyway)."""
+    from ..lake.manifest import is_lake_table, manifest_ref_root
+
+    ref = manifest_ref_root(s)
+    if ref is not None:
+        root, gen = ref
+    elif os.path.isdir(s) and is_lake_table(s):
+        root, gen = s, None
+    else:
+        return None
+    from ..lake.manifest import LakeManifest
+
+    return LakeManifest(root).open_snapshot(gen).paths(
+        os.path.realpath(root)
+    )
 
 
 def expand_paths(paths_or_glob) -> list[str]:
@@ -71,14 +85,18 @@ def expand_paths(paths_or_glob) -> list[str]:
     is a glob pattern when it holds magic characters, else one file; a list
     or tuple passes through, and an http(s):// URL passes through as it is
     (remote objects neither glob nor stat: a missing one raises at its
-    open). Sorted, because glob order depends on the file system and the
-    shard and shuffle math needs every process to see the same file
-    indices."""
+    open). A lake-table directory or manifest file expands to that
+    snapshot's file list (see _expand_lake_ref): every scan plans against
+    exactly one generation. Sorted, because glob order depends on the file
+    system and the shard and shuffle math needs every process to see the
+    same file indices."""
     if isinstance(paths_or_glob, (str, Path)):
         s = str(paths_or_glob)
         if s.startswith(("http://", "https://")):
             return [s]
-        _refuse_unported_ref(s)
+        lake = _expand_lake_ref(s)
+        if lake is not None:
+            return lake
         if _glob.has_magic(s):
             hits = _glob.glob(s)
             if not hits:
@@ -89,8 +107,8 @@ def expand_paths(paths_or_glob) -> list[str]:
         return [s]
     out: list[str] = []
     for p in paths_or_glob:
-        _refuse_unported_ref(str(p))
-        out.append(str(p))
+        lake = _expand_lake_ref(str(p))
+        out.extend(lake if lake is not None else [str(p)])
     if not out:
         raise ValueError("dataset: empty path list")
     return sorted(out)

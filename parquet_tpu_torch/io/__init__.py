@@ -8,9 +8,9 @@ that derives the exact byte ranges a projected read needs from the footer
 and coalesces them into batched reads, a bounded pqt-io readahead
 scheduler, byte-budgeted block + footer caches with a RAM -> local-disk
 TieredCache for remote corpora, and a latency-aware auto-tuner that picks
-coalesce/readahead knobs per transport. See each module's docstring.
-The remote sinks (HttpSink, ObjectStoreSink) are not ported yet. Every
-count lands in io_counts() (io/counts.py).
+coalesce/readahead knobs per transport, and the write side: HttpSink and
+ObjectStoreSink, atomic multipart object-store writes. See each module's
+docstring. Every count lands in io_counts() (io/counts.py).
 """
 
 from .autotune import IOParams, IOTuner, io_tuner, profile_key  # noqa: F401
@@ -40,6 +40,7 @@ from .remote import (  # noqa: F401
     ObjectStoreSource,
     TransientSourceError,
 )
+from .remote_sink import HttpSink, ObjectStoreSink  # noqa: F401
 from .sign import (  # noqa: F401
     SigV4Signer,
     clear_signers,
@@ -89,6 +90,8 @@ __all__ = [
     "HttpSource",
     "ObjectStoreSource",
     "TransientSourceError",
+    "HttpSink",
+    "ObjectStoreSink",
     "SigV4Signer",
     "configure_signer",
     "signer_for",

@@ -47,8 +47,8 @@ io_http_connections_total{event=new|reused}, io_multirange_requests_total
 {outcome=}, io_multirange_parts_total, io_resigns_total.
 
 The port's copy of parquet_tpu.io.remote: no traceparent header (the copy
-rule drops obs.propagate) and no trace spans; the PUT path's callers, the
-remote sink, are not ported yet.
+rule drops obs.propagate) and no trace spans. pooled_roundtrip also carries
+io.remote_sink's PUT path.
 """
 
 from __future__ import annotations

@@ -15,8 +15,11 @@ FileObjectSink, behind the small ByteSink contract:
 
 BufferedSink wraps any of them and batches small writes (page headers are
 tens of bytes) into spill_bytes-sized runs before they reach the inner sink.
-The write counters and the remote (HTTP) sink are left out: the port has no
-metrics layer and no io layer yet.
+An http(s):// URL opens io.remote_sink.HttpSink, the multipart object-store
+sink with the same atomicity contract. Every concrete sink feeds the plain
+sink_bytes_written_total / sink_write_calls_total counts of sink_counts()
+(sink/counts.py; wrappers do not count twice). The seeded write-fault
+injector is testing.flaky.FlakySink.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import io as _io
 import itertools
 import os
 from pathlib import Path
+
+from .counts import count_sink as _count_sink
 
 __all__ = [
     "BufferedSink",
@@ -39,9 +44,22 @@ __all__ = [
 
 class SinkError(OSError):
     """Terminal IO failure of a byte sink: the write/flush/commit is not
-    satisfiable (sink closed or aborted, rename failed). An OSError
-    subclass so callers treating IO failures generically need no new
-    clause; FileWriter re-raises sink failures as typed WriterError."""
+    satisfiable (sink closed or aborted, rename failed, remote store
+    refused). An OSError subclass so callers treating IO failures
+    generically need no new clause; FileWriter re-raises sink failures as
+    typed WriterError. `code` names the failure shape ("http_403",
+    "put_retry_exhausted", "breaker_open", "sink_closed") for tests and
+    error routing, mirroring SourceError."""
+
+    def __init__(self, *args, code: str | None = None):
+        super().__init__(*args)
+        self.code = code
+
+
+def _count_write(nbytes: int) -> None:
+    # concrete sinks only — wrappers delegate and must not double-count
+    _count_sink("sink_bytes_written_total", nbytes)
+    _count_sink("sink_write_calls_total")
 
 
 class ByteSink:
@@ -133,6 +151,7 @@ class LocalFileSink(ByteSink):
             raise SinkError(f"sink closed: {self._path}")
         n = self._f.write(data)
         self._pos += n
+        _count_write(n)
         return n
 
     def tell(self) -> int:
@@ -186,6 +205,7 @@ class MemorySink(ByteSink):
             raise SinkError("sink closed: memory sink")
         self._buf += data
         n = len(data)
+        _count_write(n)
         return n
 
     def tell(self) -> int:
@@ -222,6 +242,7 @@ class FileObjectSink(ByteSink):
             )
         n = len(data)
         self._pos += n
+        _count_write(n)
         return n
 
     def tell(self) -> int:
@@ -307,16 +328,21 @@ def open_sink(obj) -> tuple[ByteSink, bool]:
 
       str / Path           -> LocalFileSink        (owned: writer commits
                                                     atomically at close)
+      http(s):// URL       -> io.remote_sink.HttpSink  (owned: multipart
+                                                    commit at close, same
+                                                    atomicity contract)
       ByteSink             -> passed through       (caller keeps lifetime)
       writable file-like   -> FileObjectSink       (caller keeps lifetime)
     """
     if isinstance(obj, ByteSink):
         return obj, False
     if isinstance(obj, str) and obj.startswith(("http://", "https://")):
-        raise TypeError(
-            "remote (http) sinks come with the io layer, not ported yet: "
-            "write to a path or a file object"
-        )
+        # the write-side twin of open_source's URL coercion: remote
+        # writes inherit signing (io.sign registry) and the resilience
+        # policy's breaker with zero per-callsite wiring
+        from ..io.remote_sink import HttpSink
+
+        return HttpSink(obj), True
     if isinstance(obj, (str, Path)):
         return LocalFileSink(obj), True
     if (

@@ -27,8 +27,19 @@ blackout -> recovery timeline through one wrapper, deterministically under
 fake time (advance the fake clock, the phase changes; the rng stream stays
 one seeded sequence either way).
 
-The port's copy of parquet_tpu.testing.flaky, read side: FlakySink (the
-write-side mirror) comes with the remote sink.
+FlakySink is the WRITE-side mirror: wrapped around any ByteSink it injects
+seeded write/flush/commit faults (including latency spikes, the same knobs
+and `latency_spike` preset as FlakySource), the adversary for the
+FileWriter error path — flush failures must surface as typed WriterError
+and, because path sinks commit atomically, the destination must never hold
+a torn file:
+
+    sink = FlakySink(LocalFileSink(path), seed=7, error_rate=0.3)
+    with pytest.raises(WriterError):
+        with FileWriter(sink, schema) as w: ...
+    assert not os.path.exists(path)          # nothing committed
+
+The port's copy of parquet_tpu.testing.flaky.
 """
 
 from __future__ import annotations
@@ -38,12 +49,16 @@ import time
 
 import numpy as np
 
-__all__ = ["FlakySource"]
+__all__ = ["FlakySource", "FlakySink"]
 
-# the knobs a FaultSchedule phase may override
+# the knobs a FaultSchedule phase may override, shared by source and sink
 _SOURCE_KNOBS = (
     "error_rate", "short_rate", "latency_s", "latency_jitter_s",
     "spike_rate", "spike_s", "permanent",
+)
+_SINK_KNOBS = (
+    "error_rate", "flush_error_rate", "latency_s", "spike_rate", "spike_s",
+    "permanent",
 )
 
 
@@ -184,4 +199,147 @@ class FlakySource:
 
     def __exit__(self, *exc):
         self.close()
+        return False
+
+
+class FlakySink:
+    """A ByteSink wrapper injecting seeded write-path faults (the mirror of
+    FlakySource for the FileWriter/sink error ladder).
+
+    Parameters
+    ----------
+    inner            the wrapped ByteSink
+    seed             rng seed; one stream across all fault draws
+    error_rate       probability a write raises a transient OSError(EIO)
+                     BEFORE any bytes reach the inner sink (clean failure)
+    fail_after_bytes when set, every write past this many successfully
+                     written bytes fails — the disk-full / quota shape
+    flush_error_rate probability flush() raises OSError(EIO)
+    commit_error     close() (the commit) raises OSError(EIO) — the
+                     rename-fails shape; abort stays clean
+    latency_s        fixed sleep added to every write (the PUT shape)
+    spike_rate       probability a write stalls an EXTRA spike_s — the
+                     stalled-PUT / throttled-store shape (see the
+                     latency_spike preset, FlakySource parity)
+    permanent        every write fails with EIO
+    schedule         a FaultSchedule whose current phase overrides the
+                     knobs above per operation (chaos timelines)
+    clock            the schedule's time base (injectable)
+    """
+
+    def __init__(
+        self,
+        inner,
+        *,
+        seed: int = 0,
+        error_rate: float = 0.0,
+        fail_after_bytes: int | None = None,
+        flush_error_rate: float = 0.0,
+        commit_error: bool = False,
+        latency_s: float = 0.0,
+        spike_rate: float = 0.0,
+        spike_s: float = 0.0,
+        permanent: bool = False,
+        schedule=None,
+        clock=time.monotonic,
+        sleep=time.sleep,
+    ):
+        self.inner = inner
+        self._rng = np.random.default_rng(seed)
+        self.error_rate = float(error_rate)
+        self.fail_after_bytes = fail_after_bytes
+        self.flush_error_rate = float(flush_error_rate)
+        self.commit_error = bool(commit_error)
+        self.latency_s = float(latency_s)
+        self.spike_rate = float(spike_rate)
+        self.spike_s = float(spike_s)
+        self.permanent = bool(permanent)
+        self.schedule = schedule
+        self._clock = clock
+        self._sleep = sleep
+        self.faults_injected = 0
+        self.writes = 0
+        self.bytes_written = 0
+        self.spikes_injected = 0
+
+    @classmethod
+    def latency_spike(cls, inner, *, seed: int = 0, p: float = 0.05, ms: float = 50.0, **kw):
+        """Preset: a sink whose writes occasionally STALL — each write has
+        probability `p` of an extra `ms`-millisecond spike (seeded). The
+        FlakySource.latency_spike mirror for the encode/flush pipeline."""
+        return cls(inner, seed=seed, spike_rate=p, spike_s=ms / 1e3, **kw)
+
+    @property
+    def sink_id(self) -> str:
+        return self.inner.sink_id
+
+    def _params(self) -> dict:
+        p = {k: getattr(self, k) for k in _SINK_KNOBS}
+        if self.schedule is not None:
+            p.update(
+                (k, v)
+                for k, v in self.schedule.params_at(self._clock()).items()
+                if k in p
+            )
+        return p
+
+    def write(self, data) -> int:
+        self.writes += 1
+        p = self._params()
+        if p["latency_s"]:
+            self._sleep(p["latency_s"])
+        if p["spike_rate"] and float(self._rng.random()) < p["spike_rate"]:
+            self.spikes_injected += 1
+            self._sleep(p["spike_s"])
+        if p["permanent"]:
+            self.faults_injected += 1
+            raise OSError(_errno.EIO, "injected permanent EIO on write")
+        if (
+            self.fail_after_bytes is not None
+            and self.bytes_written + len(data) > self.fail_after_bytes
+        ):
+            self.faults_injected += 1
+            raise OSError(
+                _errno.ENOSPC,
+                f"injected write failure past {self.fail_after_bytes} bytes",
+            )
+        if p["error_rate"] and float(self._rng.random()) < p["error_rate"]:
+            self.faults_injected += 1
+            raise OSError(
+                _errno.EIO, f"injected transient EIO at write {self.writes}"
+            )
+        n = self.inner.write(data)
+        self.bytes_written += len(data)
+        return n
+
+    def tell(self) -> int:
+        return self.inner.tell()
+
+    def flush(self) -> None:
+        rate = self._params()["flush_error_rate"]
+        if rate and float(self._rng.random()) < rate:
+            self.faults_injected += 1
+            raise OSError(_errno.EIO, "injected EIO on flush")
+        self.inner.flush()
+
+    def close(self) -> None:
+        if self.commit_error:
+            self.faults_injected += 1
+            # the inner sink must not commit either: a failed commit that
+            # still renamed the temp file would be the torn-file bug itself
+            self.inner.abort()
+            raise OSError(_errno.EIO, "injected EIO on commit")
+        self.inner.close()
+
+    def abort(self) -> None:
+        self.inner.abort()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is None:
+            self.close()
+        else:
+            self.abort()
         return False

@@ -37,35 +37,57 @@ blackout -> recovery timeline drives local sources AND this stub from a
 single object. Fault draws and the request counters are lock-serialized;
 payload writes are not (requests stream concurrently).
 
+`writable=True` grows the stub the WRITE side of an object store — the
+multipart protocol io.remote_sink speaks (initiate/part/complete/abort
+plus single-shot PUT), with the zero-torn-object semantics a real store
+guarantees baked in as assertable state: an object becomes visible ONLY
+at complete (atomically, under the lock), an aborted upload vanishes, and
+`has_object()`/`live_uploads()` let tests prove both. Write-side faults
+draw from the SAME seeded rng stream: the shared knobs above apply to
+every write request, plus
+
+  complete_error_rate  probability complete-multipart answers 500 BEFORE
+                       publishing (the commit-time transient the sink's
+                       ladder must absorb)
+  ack_drop_rate        probability a write op is APPLIED but its ack is
+                       dropped (the ambiguous-ack / truncated-ack shape:
+                       the client must retry idempotently)
+  corrupt_part_etag    every part PUT acks with a WRONG CRC ETag (the
+                       torn-transfer-acknowledged-as-success shape)
+
 `credentials={access_key: secret}` arms signed mode: EVERY request (reads
 included) must carry a valid PQT4-HMAC-SHA256 signature — verified with
 the same io.sign code the client signs with — or it answers a typed 403
 (counted in `auth_rejects`).
 
-The port's copy of parquet_tpu.testing.httpstub, read side: the PUT and
-multipart endpoints come with the remote sink. `python -m
-parquet_tpu_torch.testing.httpstub --root DIR` serves a directory from a
-process of its own (main() below) and prints its port.
+The port's copy of parquet_tpu.testing.httpstub, without the traceparent
+record (the port sends none). `python -m parquet_tpu_torch.testing.httpstub
+--root DIR [--writable]` serves a directory (and, writable, the multipart
+write side) from a process of its own (main() below) and prints its port.
 """
 
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import os
 import threading
 import time
+import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
 __all__ = ["RangeHttpStub"]
 
-# the knobs a FaultSchedule phase may override here (drop_rate is
-# stub-local and settable only via the constructor/attribute)
+# the knobs a FaultSchedule phase may override here (drop_rate and the
+# write-side rates are stub-local and settable only via the
+# constructor/attribute)
 _STUB_KNOBS = (
     "error_rate", "short_rate", "latency_s", "latency_jitter_s",
     "spike_rate", "spike_s", "permanent", "drop_rate",
+    "complete_error_rate", "ack_drop_rate",
 )
 
 
@@ -85,6 +107,28 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
+
+    def _json(self, status: int, obj, *, etag: str | None = None) -> None:
+        body = json.dumps(obj).encode("utf-8")
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        if etag is not None:
+            self.send_header("ETag", etag)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _read_body(self) -> bytes:
+        n = int(self.headers.get("Content-Length") or 0)
+        return self.rfile.read(n) if n > 0 else b""
+
+    def _query(self) -> dict:
+        out = {}
+        for kv in self.path.partition("?")[2].split("&"):
+            if kv:
+                k, _, v = kv.partition("=")
+                out[k] = v
+        return out
 
     def _drop(self) -> None:
         # no status line at all: the client sees the connection die
@@ -278,6 +322,193 @@ class _Handler(BaseHTTPRequestHandler):
             return
         self._serve(head_only=True)
 
+    # -- the write side (multipart object-store mode) --------------------------
+
+    def do_PUT(self):
+        self._write_op("PUT")
+
+    def do_POST(self):
+        self._write_op("POST")
+
+    def do_DELETE(self):
+        self._write_op("DELETE")
+
+    def _write_op(self, method: str) -> None:
+        stub = self.stub
+        # the body is read BEFORE the fault draw: a dropped connection
+        # must model an ack lost in flight, not a request never sent
+        body = self._read_body()
+        p = stub._draw_and_wait()
+        if p is None:
+            self._drop()
+            return
+        if p["permanent"] or p["__error"]:
+            stub._count_fault()
+            self._fail_503()
+            return
+        if not stub.writable:
+            self._json(405, {"error": "read-only stub"})
+            return
+        if stub.credentials is not None:
+            reason = stub._verify(self, method, body)
+            if reason is not None:
+                self._json(403, {"error": reason})
+                return
+        name = self.path.lstrip("/").split("?", 1)[0]
+        q = self._query()
+        if method == "POST" and "uploads" in q:
+            self._mp_initiate(name)
+        elif method == "PUT" and "partNumber" in q and "uploadId" in q:
+            self._mp_part(name, q, body)
+        elif method == "POST" and "uploadId" in q:
+            self._mp_complete(name, q, body)
+        elif method == "DELETE" and "uploadId" in q:
+            self._mp_abort(q)
+        elif method == "PUT" and not q:
+            self._put_object(name, body)
+        else:
+            self._json(400, {"error": f"unsupported write operation {method} {self.path}"})
+
+    @staticmethod
+    def _crc_etag(data: bytes) -> str:
+        return f'"crc32-{zlib.crc32(data) & 0xFFFFFFFF:08x}"'
+
+    def _mp_initiate(self, name: str) -> None:
+        stub = self.stub
+        with stub._lock:
+            uid = f"upload-{next(stub._upload_seq):06d}"
+            stub._uploads[uid] = {"name": name, "parts": {}}
+            stub.uploads_started += 1
+        if stub._draw_rate("ack_drop_rate"):
+            # the upload EXISTS but the client never learns its id — the
+            # orphan a real store reaps by lifecycle rule, never a torn
+            # object
+            self._drop()
+            return
+        self._json(200, {"upload_id": uid})
+
+    def _mp_part(self, name: str, q: dict, body: bytes) -> None:
+        stub = self.stub
+        try:
+            pn = int(q.get("partNumber", ""))
+        except ValueError:
+            self._json(400, {"error": "malformed partNumber"})
+            return
+        with stub._lock:
+            up = stub._uploads.get(q.get("uploadId", ""))
+            if up is None or up["name"] != name:
+                self._json(404, {"error": "no such upload"})
+                return
+            # storing by part number makes the retry of an ambiguous ack
+            # idempotent: same part, same slot
+            up["parts"][pn] = bytes(body)
+            stub.put_requests += 1
+        etag = (
+            '"crc32-deadbeef"'
+            if stub.corrupt_part_etag
+            else self._crc_etag(body)
+        )
+        if stub._draw_rate("ack_drop_rate"):
+            self._drop()  # part stored, ack lost: the truncated-ack shape
+            return
+        self._json(200, {"part_number": pn}, etag=etag)
+
+    def _mp_complete(self, name: str, q: dict, body: bytes) -> None:
+        stub = self.stub
+        uid = q.get("uploadId", "")
+        with stub._lock:
+            done = stub._completed.get(uid)
+        if done is not None:
+            # idempotent replay of a commit whose ack was lost — answering
+            # anything else would turn one ambiguous ack into a client
+            # that can never learn its object committed
+            self._json(200, {"etag": done})
+            return
+        with stub._lock:
+            up = stub._uploads.get(uid)
+            parts = dict(up["parts"]) if up is not None else None
+        if up is None or up["name"] != name:
+            self._json(404, {"error": "no such upload"})
+            return
+        try:
+            listed = [
+                (int(p["part_number"]), str(p["etag"]), int(p["size"]))
+                for p in json.loads(body.decode("utf-8"))["parts"]
+            ]
+        except (ValueError, KeyError, TypeError):
+            self._json(400, {"error": "malformed manifest"})
+            return
+        if not listed:
+            self._json(400, {"error": "empty manifest"})
+            return
+        for pn, etag, size in listed:
+            data = parts.get(pn)
+            if (
+                data is None
+                or len(data) != size
+                or self._crc_etag(data) != etag
+            ):
+                self._json(400, {"error": f"part {pn} mismatch"})
+                return
+        if stub._draw_rate("complete_error_rate"):
+            # the commit-time transient: 500 BEFORE publishing — nothing
+            # became visible, the retry ladder gets another shot
+            body500 = b'{"error": "injected commit fault"}'
+            self.send_response(500)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body500)))
+            self.end_headers()
+            self.wfile.write(body500)
+            return
+        data = b"".join(parts[pn] for pn, _, _ in sorted(listed))
+        obj_etag = self._crc_etag(data)
+        with stub._lock:
+            # the ATOMIC publish: the object flips visible in one step,
+            # full bytes or nothing — there is no code path that installs
+            # a prefix
+            stub._files[name] = data
+            stub._entries.pop(name, None)
+            stub._completed[uid] = obj_etag
+            stub._uploads.pop(uid, None)
+            stub.uploads_completed += 1
+        if stub._draw_rate("ack_drop_rate"):
+            self._drop()  # committed, ack lost: the replay above answers
+            return
+        self._json(200, {"etag": obj_etag})
+
+    def _mp_abort(self, q: dict) -> None:
+        stub = self.stub
+        with stub._lock:
+            if q.get("uploadId", "") in stub._uploads:
+                del stub._uploads[q["uploadId"]]
+                stub.uploads_aborted += 1
+        # idempotent: aborting an unknown/done upload is still a 204 (and
+        # NEVER touches a published object)
+        if stub._draw_rate("ack_drop_rate"):
+            self._drop()
+            return
+        self.send_response(204)
+        self.send_header("Content-Length", "0")
+        self.end_headers()
+
+    def _put_object(self, name: str, body: bytes) -> None:
+        stub = self.stub
+        etag = (
+            '"crc32-deadbeef"'
+            if stub.corrupt_part_etag
+            else self._crc_etag(body)
+        )
+        with stub._lock:
+            stub._files[name] = bytes(body)
+            stub._entries.pop(name, None)
+            stub.put_requests += 1
+            stub.objects_put += 1
+        if stub._draw_rate("ack_drop_rate"):
+            self._drop()  # published, ack lost: the retry re-PUTs the
+            return  # same bytes (idempotent), never a torn object
+        self._json(200, {"etag": etag}, etag=etag)
+
+
 class RangeHttpStub:
     """See module docstring. Construct, `start()` (or use as a context
     manager), point HttpSource at `url_for(name)`.
@@ -295,6 +526,7 @@ class RangeHttpStub:
                   fallback)
     send_etag     False omits the ETag header entirely (the validator-less
                   server shape: only Content-Length can betray a rewrite)
+    writable      enable the multipart write protocol (PUT/POST/DELETE)
     credentials   {access_key: secret} arms signed mode on EVERY request
     schedule      a chaos.FaultSchedule overlaying the knobs per request
     """
@@ -318,15 +550,21 @@ class RangeHttpStub:
         reject_head: bool = False,
         send_etag: bool = True,
         require_token: str | None = None,
+        writable: bool = False,
         credentials: dict | None = None,
+        complete_error_rate: float = 0.0,
+        ack_drop_rate: float = 0.0,
+        corrupt_part_etag: bool = False,
         schedule=None,
         clock=time.monotonic,
         sleep=time.sleep,
     ):
         self._files = {str(k): bytes(v) for k, v in (files or {}).items()}
         self.root = os.fspath(root) if root is not None else None
-        if not self._files and self.root is None:
-            raise ValueError("RangeHttpStub: need files= and/or root=")
+        if not self._files and self.root is None and not writable:
+            raise ValueError(
+                "RangeHttpStub: need files= and/or root= (or writable=True)"
+            )
         self._rng = np.random.default_rng(seed)
         self.error_rate = float(error_rate)
         self.drop_rate = float(drop_rate)
@@ -341,17 +579,29 @@ class RangeHttpStub:
         self.reject_head = bool(reject_head)
         self.send_etag = bool(send_etag)
         self.require_token = require_token
+        self.writable = bool(writable)
         self.credentials = dict(credentials) if credentials else None
+        self.complete_error_rate = float(complete_error_rate)
+        self.ack_drop_rate = float(ack_drop_rate)
+        self.corrupt_part_etag = bool(corrupt_part_etag)
         self.schedule = schedule
         self._clock = clock
         self._sleep = sleep
         self._lock = threading.Lock()
         self._entries: dict[str, tuple] = {}  # name -> (bytes, etag)
+        self._uploads: dict[str, dict] = {}  # id -> {name, parts{pn: bytes}}
+        self._completed: dict[str, str] = {}  # id -> object etag (replays)
+        self._upload_seq = itertools.count(1)
         self.requests = 0
         self.faults_injected = 0
         self.bytes_served = 0
         self.multirange_requests = 0  # comma-form Range GETs served multipart
+        self.put_requests = 0
+        self.objects_put = 0
         self.auth_rejects = 0
+        self.uploads_started = 0
+        self.uploads_completed = 0
+        self.uploads_aborted = 0
         self._server: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
 
@@ -410,6 +660,29 @@ class RangeHttpStub:
             self._files[str(name)] = bytes(data)
             self._entries.pop(str(name), None)
 
+    # -- the zero-torn-object assertion surface --------------------------------
+
+    def has_object(self, name: str) -> bool:
+        """Is `name` VISIBLE (published via complete/PUT/set_file)? The
+        write-path acceptance pins: False until the writer commits, False
+        forever after an abort."""
+        with self._lock:
+            return str(name) in self._files
+
+    def object_bytes(self, name: str):
+        """The published bytes of `name`, or None — byte-identity is the
+        other half of the zero-torn contract."""
+        with self._lock:
+            data = self._files.get(str(name))
+            return None if data is None else bytes(data)
+
+    def live_uploads(self) -> int:
+        """Uploads initiated but neither completed nor aborted. Zero after
+        a clean commit or abort; ambiguous-ack chaos may legitimately
+        orphan some (a real store reaps those by lifecycle rule)."""
+        with self._lock:
+            return len(self._uploads)
+
     def _verify(self, handler, method: str, payload: bytes):
         """Signed-mode check: same io.sign code path the client signs
         with. Returns None (ok) or the 403 reason."""
@@ -423,6 +696,16 @@ class RangeHttpStub:
             with self._lock:
                 self.auth_rejects += 1
         return reason
+
+    def _draw_rate(self, name: str) -> bool:
+        """One seeded draw against the named write-fault rate (same rng
+        stream as every other fault — a failing chaos run replays)."""
+        with self._lock:
+            rate = self._params().get(name) or 0.0
+            if rate and float(self._rng.random()) < rate:
+                self.faults_injected += 1
+                return True
+        return False
 
     # -- handler callbacks -----------------------------------------------------
 
@@ -547,7 +830,8 @@ class RangeHttpStub:
 def main(argv=None) -> int:
     """Serve `--root` from this process until its standard input closes:
     the parent holds the pipe, so the stub ends with it. Prints
-    "PORT <n>" once it listens."""
+    "PORT <n>" once it listens. `--writable` arms the multipart write
+    side; a committed object is served back by GET."""
     import argparse
     import sys
 
@@ -555,6 +839,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", required=True)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--latency-s", type=float, default=0.0)
+    ap.add_argument("--writable", action="store_true")
     ap.add_argument(
         "--credentials", default=None,
         help="ACCESS:SECRET arms signed mode",
@@ -566,7 +851,7 @@ def main(argv=None) -> int:
         creds = {key: secret}
     with RangeHttpStub(
         root=args.root, seed=args.seed, latency_s=args.latency_s,
-        credentials=creds,
+        credentials=creds, writable=args.writable,
     ) as stub:
         print(f"PORT {stub.port}", flush=True)
         sys.stdin.read()

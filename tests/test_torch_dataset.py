@@ -525,10 +525,28 @@ def test_plan_options_match_reference(pattern, tmp_path, make_stub, name):
         _batches_equal(_drain(iter(ds)), _drain(iter(JDataset(pattern, batch_size=300))))
 
 
-def test_unported_references_raise(tmp_path):
-    (tmp_path / "table" / "_lake").mkdir(parents=True)
-    with pytest.raises(NotPortedError, match="lake"):
-        expand_paths(str(tmp_path / "table"))
+def test_lake_references_expand_like_jax(tmp_path):
+    # a table written by the reference's lake layer: its directory pins the
+    # current generation, a gen-N.json path generation N, in both packages
+    from parquet_tpu.data import expand_paths as jexpand_paths
+    from parquet_tpu.lake import IngestWriter, LakeTable
+
+    root = tmp_path / "table"
+    table = LakeTable.create(
+        str(root), "message m { required int64 k; }", sort_key="k"
+    )
+    w = IngestWriter(table, parallel=False)
+    for base in (0, 100, 200):
+        w.append([{"k": base + i} for i in range(10)], flush=True)
+    refs = [str(root), str(root / "_lake" / "gen-00000002.json"), [str(root)]]
+    for ref in refs:
+        assert expand_paths(ref) == jexpand_paths(ref)
+    assert len(expand_paths(str(root))) == 3
+    assert len(expand_paths(refs[1])) == 2
+    # a _lake directory with no CURRENT is not a table: it passes through
+    (tmp_path / "bare" / "_lake").mkdir(parents=True)
+    bare = str(tmp_path / "bare")
+    assert expand_paths(bare) == jexpand_paths(bare) == [bare]
 
 
 class TestCheckpoint:

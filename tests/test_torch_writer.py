@@ -345,8 +345,17 @@ def test_refuses_nested_optional_and_cut_options():
     with pytest.raises(WriterError, match="serial writer"):
         w.write_device_column("a", torch.zeros(4, dtype=torch.int64))
     w.abort()
-    with pytest.raises(TypeError, match="io layer"):
-        open_sink("https://example.invalid/x.parquet")
+    # a URL opens the remote sink, owned by the caller (committed at the
+    # writer's close), as the reference's open_sink gives it
+    from parquet_tpu.sink.sink import open_sink as jopen_sink
+    from parquet_tpu_torch.io import HttpSink
+
+    sink, owned = open_sink("https://example.invalid/x.parquet")
+    jsink, jowned = jopen_sink("https://example.invalid/x.parquet")
+    assert isinstance(sink, HttpSink) and owned is jowned is True
+    assert sink.sink_id == jsink.sink_id
+    sink.abort()
+    jsink.abort()
 
 
 def test_row_count_mismatch_is_refused():
