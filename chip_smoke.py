@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive parquet_tpu_torch's decode, batch, filter, write, query, scan, row, io, remote
-write and lake paths on one CUDA card.
+write, lake and serve paths on one CUDA card.
 
 Run from the repository root, on a machine with one NVIDIA card and the CUDA
 toolkit (nvcc):
@@ -273,6 +273,38 @@ Phases (any failure raises and the script exits non-zero):
               compacted file holding the rows' values, expand_hybrid and
               dict_gather launched; each step's rows/s beside the card's
               name and power limit;
+     serve    the scan daemon (check_serve): the port's
+              ScanServer(ServeConfig(root=the smoke directory, port=0,
+              device="cuda")) in this process, over loopback HTTP. (a)
+              POST /v1/query with the query phase's aggregates, unfiltered
+              and under F_taxi, each body byte-equal to render_query_body
+              of run_local_query of the same request and equal to NumPy's,
+              2 units pruned by statistics, masked_agg, dict_gather and
+              (filtered) mask_take launched; shard=[k, 4], k = 0..3, equal
+              to NumPy's over groups k and k + 4; group_by vendor_id a
+              typed 400 device_declined, counted; (b) 8 client threads x 4
+              filtered queries under 4 X-Tenant values, every body equal
+              to (a)'s, serve_requests_total with status 200 up by exactly
+              32, 0 in flight after; requests/s, median and largest
+              latency and input rows/s against one client's sequential
+              queries and run_local_query in the same call, and a profiler
+              window over one round of 8; (c) POST /v1/scan jsonl of
+              trip_id, fare_cents and zone under F_taxi, limit 200,000,
+              equal to the first rows of iter_rows(filters=F_taxi) dumped
+              with json_default, its chunked stream ended by the 0-chunk,
+              no kernel launched; GET /v1/plan equal to POST, groups 6 and
+              7 pruned; (d) a daemon with a lake table (TAXI_DSL, sort key
+              pickup_us): 8 jsonl appends of 8,192 taxi rows, the last
+              with ?flush=1, each ack taking its rows, the last flushed at
+              the table's generation; the table's /v1/query on the card
+              equal to NumPy's; an arrow-ipc append a typed 415; (e) a
+              daemon with tenant_budget_mb=1: one tenant's second full
+              query a typed 429 tenant_over_budget, another tenant's
+              answered; drain() with a query held in flight by a gated
+              source: a new query 503 draining, /healthz 503 with
+              retry_after_s, the held query's body equal to (a)'s. Each
+              step's figures and the phase's seconds are printed beside
+              the card's name and power limit;
   5. times    rows/s of the device reads and of the batch streams, filtered
               and not (the same call, both files), of the filtered read, of
               host decode + upload, of the device write against the host
@@ -332,7 +364,8 @@ The last three lines of standard output are a JSON line of the end-to-end
 rates, the host value functions' A/B seconds, the collectives' times, the
 overlap A/B, profile and dataset rates, the write-options phase's numbers,
 the rows phase's rates and seconds, the io phase's steps, the remote and
-lake phase's steps, and the card's name and power limit, the
+lake phase's steps, the serve phase's numbers, and the card's name and
+power limit, the
 `kernels` JSON line (21
 kernels) and the
 `{"ok": true, ...}` line. Without CUDA, or without the package beside it,
@@ -5190,6 +5223,502 @@ def check_remote_lake(paths, taxi_schema, dev_groups, dev_file, dev, launches: d
     return out
 
 
+SERVE_CLIENTS = 8
+SERVE_PER_CLIENT = 4
+SERVE_TENANTS = 4
+SERVE_SCAN_LIMIT = 200_000
+SERVE_APPENDS = 8
+SERVE_APPEND_ROWS = 8192
+SERVE_WATCHDOG_S = 600.0  # bounds every socket read and every wait of the phase
+
+
+def serve_request(server, method: str, path: str, body=None, headers=None):
+    """(status, headers, body) of one HTTP exchange with a daemon; `body` a
+    dict (sent as JSON) or bytes."""
+    import http.client
+
+    if isinstance(body, dict):
+        body = json.dumps(body).encode()
+    conn = http.client.HTTPConnection(server.host, server.port, timeout=SERVE_WATCHDOG_S)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def serve_scan_raw(server, body: dict) -> tuple[int, bytes, bytes]:
+    """POST /v1/scan over a raw socket: (status, decoded body, the bytes
+    after the last data chunk). The framing is parsed here, so a stream
+    torn before its 0-chunk shows as a tail other than b"0\\r\\n\\r\\n"."""
+    import socket
+
+    payload = json.dumps(body).encode()
+    with socket.create_connection((server.host, server.port), timeout=SERVE_WATCHDOG_S) as s:
+        s.sendall(b"POST /v1/scan HTTP/1.1\r\nHost: smoke\r\nConnection: close\r\n"
+                  b"Content-Type: application/json\r\nContent-Length: %d\r\n\r\n"
+                  % len(payload) + payload)
+        parts = []
+        while True:
+            b = s.recv(1 << 20)
+            if not b:
+                break
+            parts.append(b)
+    raw = b"".join(parts)
+    head, _, rest = raw.partition(b"\r\n\r\n")
+    status = int(head.split(b" ", 2)[1])
+    if b"transfer-encoding: chunked" not in head.lower():
+        return status, rest, b""
+    out = []
+    pos = 0
+    while True:
+        eol = rest.index(b"\r\n", pos)
+        size = int(rest[pos:eol], 16)
+        if size == 0:
+            return status, b"".join(out), rest[pos:]
+        out.append(rest[eol + 2 : eol + 2 + size])
+        pos = eol + 2 + size + 2
+
+
+class GatedSource:
+    """A byte source whose reads wait for `gate` (a threading.Event): how
+    the drain step holds a query in flight without a sleep."""
+
+    def __init__(self, path, gate):
+        from parquet_tpu_torch.io.source import LocalFileSource
+
+        self._inner = LocalFileSource(path)
+        self._gate = gate
+
+    @property
+    def source_id(self):
+        return self._inner.source_id
+
+    def size(self):
+        return self._inner.size()
+
+    def generation(self):
+        return None
+
+    def read_at(self, offset, n):
+        if not self._gate.wait(SERVE_WATCHDOG_S):
+            raise AssertionError("the drain step's gate never opened")
+        return self._inner.read_at(offset, n)
+
+    def read_ranges(self, ranges):
+        return [self.read_at(o, n) for o, n in ranges]
+
+    def close(self):
+        self._inner.close()
+
+
+def serve_wait(what: str, cond) -> None:
+    """Wait until cond() holds (a bounded poll: the daemon finishes a
+    request's counts and its ticket just after the client has its body)."""
+    end = time.monotonic() + SERVE_WATCHDOG_S
+    while not cond():
+        if time.monotonic() > end:
+            raise AssertionError(f"[serve] {what}: not reached in {SERVE_WATCHDOG_S} s")
+        time.sleep(0.005)
+
+
+def ok_count(counts: dict) -> int:
+    return sum(v for k, v in counts.items()
+               if k.startswith("serve_requests_total{") and 'status="200"' in k)
+
+
+def check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, card: str) -> dict:
+    """The serve phase: the port's ScanServer(ServeConfig(root=the smoke
+    directory, port=0, device=dev)) in this process, driven over HTTP on
+    loopback. (a) POST /v1/query with query_aggregates(), unfiltered and
+    under F_taxi: each body byte-equal to render_query_body of
+    run_local_query of the same request and equal to NumPy's (query_want),
+    POST /v1/plan of the filtered request pruning 2 units by statistics,
+    masked_agg, dict_gather and (filtered) mask_take launched; shard=[k, 4]
+    for k = 0..3 equal to NumPy's over groups k and k + 4; group_by
+    vendor_id a typed 400 device_declined, counted. (b) SERVE_CLIENTS
+    threads send SERVE_PER_CLIENT filtered queries each under
+    SERVE_TENANTS X-Tenant values: every body byte-equal to (a)'s,
+    serve_requests_total with status 200 up by exactly their number, the
+    admission back at 0 in flight; requests/s, median and largest latency
+    and input rows/s against one client's sequential queries and
+    run_local_query's rate. (c) POST /v1/scan jsonl of trip_id, fare_cents
+    and zone under F_taxi, limit SERVE_SCAN_LIMIT: the lines equal the
+    first rows of FileReader(path, columns=...).iter_rows(filters=F_taxi)
+    dumped with json_default, and the chunked stream ends with its
+    0-chunk; GET /v1/plan equal to POST /v1/plan, units of row groups 0-5
+    (6 and 7 pruned). (d) a second daemon with lake_root under the root,
+    TAXI_DSL and sort key pickup_us: SERVE_APPENDS jsonl bodies of
+    SERVE_APPEND_ROWS taxi rows to /v1/append, the last with ?flush=1:
+    each ack takes its rows, the last one flushed at the table's current
+    generation; a /v1/query of the table on the card equal to NumPy's over
+    those rows; an arrow-ipc append a typed 415. (e) a daemon with
+    tenant_budget_mb=1: one tenant's first full query answered, its second
+    a typed 429 tenant_over_budget, another tenant's answered; then a
+    daemon reading through a gate: a full query held in flight, drain() on
+    a thread, a new query a typed 503 draining and /healthz a 503 with
+    retry_after_s, the gate opened, the held query's body equal to (a)'s,
+    the drain complete. Every daemon ends with 0 in flight and is closed.
+    Prints each step's figures beside `card`; returns the numbers."""
+    import shutil
+    import threading
+
+    import torch
+
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.lake.manifest import LakeTable
+    from parquet_tpu_torch.serve import (
+        ScanServer,
+        ServeConfig,
+        query_device_counts,
+        render_query_body,
+        reset_query_device_counts,
+        run_local_query,
+        serve_counts,
+    )
+    from parquet_tpu_torch.serve.executor import SERVE_THREADS
+    from parquet_tpu_torch.serve.protocol import json_default
+
+    t_phase = time.perf_counter()
+    root = taxi_path.parent
+    name = taxi_path.name
+    n_rows = ROW_GROUPS * RG_ROWS
+    out: dict = {}
+    flt = [[list(t) for t in conj] for conj in f_taxi]
+    spec = ["count", ["count", "passenger_count"]]
+    for c in QUERY_COLUMNS:
+        spec += [["sum", c], ["min", c], ["max", c]]
+
+    def qbody(filters=None, **extra):
+        b = {"paths": [name], "aggregates": spec, **extra}
+        if filters is not None:
+            b["filters"] = filters
+        return b
+
+    def query_ok(server, body, headers=None):
+        status, _h, raw = serve_request(server, "POST", "/v1/query", body, headers)
+        if status != 200:
+            raise AssertionError(f"[serve] /v1/query {body}: {status} {raw[:300]!r}")
+        return raw
+
+    def idle(server, label):
+        serve_wait(f"{label}: in flight back to 0", lambda: server.service.admission.in_flight == 0)
+
+    servers = []
+    try:
+        server = ScanServer(ServeConfig(root=str(root), port=0, device=dev)).start_background()
+        servers.append(server)
+        log(f"[serve] ScanServer(ServeConfig(root={root.name}, port=0, device={dev.type!r})) at "
+            f"{server.url}; the pqt-serve pool has {SERVE_THREADS} threads; {card}")
+        # (a) queries over HTTP, each held against run_local_query and NumPy
+        bodies = {}
+        for label, filters, keep, units in (("query", None, np.ones(n_rows, bool), ROW_GROUPS),
+                                            ("query filtered", flt, taxi_keep, ROW_GROUPS - 2)):
+            local = render_query_body(run_local_query(
+                [str(taxi_path)], query_request(taxi_path, f_taxi if filters else None), device=dev))
+            ops.reset_launch_counts()
+            reset_query_device_counts()
+            t = time.perf_counter()
+            raw = query_ok(server, qbody(filters))
+            secs = time.perf_counter() - t
+            launches[f"serve {label}"] = counts = kernel_counts()
+            qc = query_device_counts()
+            want = query_want(taxi_specs, keep, units)
+            if raw != local:
+                raise AssertionError(f"[serve:a] {label}: the daemon's body differs from "
+                                     f"run_local_query's: {raw[:300]!r} vs {local[:300]!r}")
+            if json.loads(raw) != want:
+                raise AssertionError(f"[serve:a] {label}: body {raw!r} != NumPy's {want}")
+            if qc != {"device": units}:
+                raise AssertionError(f"[serve:a] {label}: query counts {qc}")
+            need = ("masked_agg", "dict_gather") + (("mask_take",) if filters else ())
+            for k in need:
+                if counts[k] <= 0:
+                    raise AssertionError(f"[serve:a] {k} was not launched by {label}")
+            bodies[label] = raw
+            out[f"{label} s"] = secs
+            log(f"[serve:a] POST /v1/query ({label}): {secs:.3f} s, {n_rows / secs:,.0f} input "
+                f"rows/s, byte-equal to run_local_query's body and equal to NumPy's; units {qc}; "
+                "launches " + ", ".join(f"{k}={v}" for k, v in counts.items()
+                                        if isinstance(v, int) and v))
+        status, _h, raw = serve_request(server, "POST", "/v1/plan",
+                                        {"paths": [name], "filters": flt})
+        plan = json.loads(raw)
+        if status != 200 or plan["units_pruned_stats"] != 2 or plan["units"] != ROW_GROUPS - 2:
+            raise AssertionError(f"[serve:a] plan of the filtered query: {status} {plan}")
+        ops.reset_launch_counts()
+        reset_query_device_counts()
+        group_of = np.repeat(np.arange(ROW_GROUPS), RG_ROWS)
+        for k in range(4):
+            got = json.loads(query_ok(server, qbody(shard=[k, 4])))
+            want = query_want(taxi_specs, (group_of % 4) == k, 2)
+            if got != want:
+                raise AssertionError(f"[serve:a] shard [{k}, 4]: body {got} != NumPy's {want}")
+        launches["serve query shards"] = counts = kernel_counts()
+        if query_device_counts() != {"device": ROW_GROUPS} or counts["masked_agg"] <= 0:
+            raise AssertionError(f"[serve:a] shards: query counts {query_device_counts()}, "
+                                 f"masked_agg {counts['masked_agg']}")
+        reset_query_device_counts()
+        status, _h, raw = serve_request(server, "POST", "/v1/query", {
+            "paths": [name], "aggregates": ["count"], "group_by": ["vendor_id"]})
+        qc = query_device_counts()
+        code = json.loads(raw)["error"]["code"] if status != 200 else None
+        if (status, code) != (400, "device_declined") or qc.get("declined", 0) < 1 or qc.get(
+                "device"):
+            raise AssertionError(f"[serve:a] group_by vendor_id: {status} {raw[:200]!r}, {qc}")
+        log(f"[serve:a] /v1/plan of the filtered query prunes {plan['units_pruned_stats']} units by "
+            f"statistics; shard [k, 4], k = 0..3, equal NumPy's over groups k and k + 4; "
+            f"group_by vendor_id: {status} {code}, counted {qc}")
+        idle(server, "(a)")
+        # (b) concurrent clients, against one client and run_local_query
+        want_raw = bodies["query filtered"]
+        seq = []
+        for _ in range(SERVE_PER_CLIENT):
+            t = time.perf_counter()
+            if query_ok(server, qbody(flt)) != want_raw:
+                raise AssertionError("[serve:b] a sequential body differs from (a)'s")
+            seq.append(time.perf_counter() - t)
+        local = []
+        for _ in range(3):
+            t = time.perf_counter()
+            run_local_query([str(taxi_path)], query_request(taxi_path, f_taxi), device=dev)
+            local.append(time.perf_counter() - t)
+        idle(server, "(b) sequential")
+        before = ok_count(serve_counts())
+        ops.reset_launch_counts()
+        lat: list = []
+        errors: list = []
+        lock = threading.Lock()
+
+        def client(i):
+            try:
+                for _ in range(SERVE_PER_CLIENT):
+                    t = time.perf_counter()
+                    raw = query_ok(server, qbody(flt), {"X-Tenant": f"tenant-{i % SERVE_TENANTS}"})
+                    dt = time.perf_counter() - t
+                    if raw != want_raw:
+                        raise AssertionError(f"[serve:b] client {i}: body differs from (a)'s")
+                    with lock:
+                        lat.append(dt)
+            except BaseException as e:  # noqa: BLE001 - raised below, in the phase's thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(SERVE_WATCHDOG_S)
+            if th.is_alive():
+                raise AssertionError("[serve:b] a client thread hung")
+        wall = time.perf_counter() - t
+        if errors:
+            raise errors[0]
+        n_req = SERVE_CLIENTS * SERVE_PER_CLIENT
+        serve_wait("(b) the 200s counted", lambda: ok_count(serve_counts()) - before >= n_req)
+        idle(server, "(b)")
+        launches["serve concurrent"] = counts = kernel_counts()
+        rise = ok_count(serve_counts()) - before
+        if rise != n_req or len(lat) != n_req:
+            raise AssertionError(f"[serve:b] serve_requests_total status 200 rose by {rise}, "
+                                 f"{len(lat)} bodies, for {n_req} requests")
+        for k in ("masked_agg", "dict_gather", "mask_take"):
+            if counts[k] <= 0:
+                raise AssertionError(f"[serve:b] {k} was not launched by the concurrent queries")
+        out["concurrent"] = {
+            "clients": SERVE_CLIENTS, "requests": n_req, "seconds": wall,
+            "requests_per_s": n_req / wall, "median_latency_s": statistics.median(lat),
+            "max_latency_s": max(lat), "input_rows_per_s": n_req * n_rows / wall,
+            "sequential_input_rows_per_s": n_rows / statistics.median(seq),
+            "sequential_latency_s": seq,
+            "run_local_query_input_rows_per_s": n_rows / statistics.median(local),
+            "run_local_query_s": local,
+        }
+        c = out["concurrent"]
+        log(f"[serve:b] {SERVE_CLIENTS} clients x {SERVE_PER_CLIENT} filtered queries under "
+            f"{SERVE_TENANTS} tenants: {n_req} bodies byte-equal to (a)'s in {wall:.2f} s, "
+            f"{c['requests_per_s']:.2f} requests/s, latency median {c['median_latency_s']:.3f} s, "
+            f"largest {c['max_latency_s']:.3f} s, {c['input_rows_per_s']:,.0f} input rows/s; one "
+            f"client sequential {c['sequential_input_rows_per_s']:,.0f} input rows/s (latencies "
+            f"{[round(x, 3) for x in seq]} s); run_local_query {c['run_local_query_input_rows_per_s']:,.0f} "
+            f"(median of {[round(x, 3) for x in local]} s); serve_requests_total 200 +{rise}; "
+            f"in flight 0 | {card}")
+        log(f"[serve:b] profiler, one round of {SERVE_CLIENTS} concurrent filtered queries:")
+
+        def one_round():
+            ths = [threading.Thread(target=query_ok, args=(server, qbody(flt)))
+                   for _ in range(SERVE_CLIENTS)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(SERVE_WATCHDOG_S)
+
+        profile_device(one_round)
+        idle(server, "(b) profiler")
+        # (c) a scan and its plan
+        cols = list(IO_PROJECTION)
+        scan_body = {"paths": [name], "columns": cols, "filters": flt, "limit": SERVE_SCAN_LIMIT}
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        status, got, tail = serve_scan_raw(server, scan_body)
+        secs = time.perf_counter() - t
+        if status != 200 or tail != b"0\r\n\r\n":
+            raise AssertionError(f"[serve:c] scan: status {status}, stream tail {tail[:40]!r}")
+        with FileReader(taxi_path, columns=cols, device=dev) as r:
+            want = "".join(json.dumps(row, default=json_default) + "\n" for row in
+                           itertools.islice(r.iter_rows(filters=f_taxi), SERVE_SCAN_LIMIT)).encode()
+        if got != want:
+            raise AssertionError(f"[serve:c] the scan's lines differ from iter_rows': "
+                                 f"{got.count(b'\n')} lines, want {want.count(b'\n')}")
+        counts = kernel_counts()
+        if any(v for v in counts.values() if isinstance(v, int)):
+            raise AssertionError(f"[serve:c] the row scan launched kernels: {counts}")
+        out["scan"] = {"rows": SERVE_SCAN_LIMIT, "seconds": secs, "rows_per_s": SERVE_SCAN_LIMIT / secs,
+                       "bytes": len(got)}
+        qs = ("/v1/plan?paths=" + name + "&columns=" + ",".join(cols) + "&filters="
+              + json.dumps(flt, separators=(",", ":")).replace(" ", "%20"))
+        s1, _h, via_get = serve_request(server, "GET", qs)
+        s2, _h, via_post = serve_request(server, "POST", "/v1/plan",
+                                         {"paths": [name], "columns": cols, "filters": flt})
+        plan = json.loads(via_post)
+        from parquet_tpu_torch.serve.protocol import parse_scan_request
+
+        units = server.service.session.plan(parse_scan_request(json.dumps(
+            {"paths": [name], "filters": flt}).encode())).units
+        if (s1, s2) != (200, 200) or via_get != via_post or plan["units_pruned_stats"] != 2 or [
+                u.row_group for u in units] != list(range(ROW_GROUPS - 2)):
+            raise AssertionError(f"[serve:c] plan: GET {s1} {via_get!r}, POST {s2} {via_post!r}")
+        log(f"[serve:c] POST /v1/scan jsonl ({', '.join(cols)}; F_taxi; limit {SERVE_SCAN_LIMIT:,}): "
+            f"{SERVE_SCAN_LIMIT:,} lines equal to iter_rows', {len(got):,} bytes in {secs:.2f} s, "
+            f"{SERVE_SCAN_LIMIT / secs:,.0f} rows/s, ended by its 0-chunk, no kernel launched; "
+            f"GET /v1/plan equals POST: {plan} (units of groups 0-5: 6 and 7 pruned) | {card}")
+        idle(server, "(c)")
+        # (d) appends into a lake table, queried on the card
+        lake_dir = root / "serve-lake"
+        shutil.rmtree(lake_dir, ignore_errors=True)
+        lake = ScanServer(ServeConfig(root=str(root), port=0, device=dev, lake_root=str(lake_dir),
+                                      lake_schema=TAXI_DSL, lake_sort_key="pickup_us"))
+        servers.append(lake.start_background())
+        n_app = SERVE_APPENDS * SERVE_APPEND_ROWS
+        rows = taxi_rows(taxi_specs, n_app)
+        payloads = [b"".join(json.dumps(r).encode() + b"\n"
+                             for r in rows[k * SERVE_APPEND_ROWS:(k + 1) * SERVE_APPEND_ROWS])
+                    for k in range(SERVE_APPENDS)]
+        del rows
+        acks = []
+        t = time.perf_counter()
+        for k, p in enumerate(payloads):
+            last = k == SERVE_APPENDS - 1
+            status, _h, raw = serve_request(lake, "POST", "/v1/append" + ("?flush=1" if last else ""),
+                                            p, {"Content-Type": "application/x-ndjson"})
+            if status != 200:
+                raise AssertionError(f"[serve:d] append {k}: {status} {raw[:300]!r}")
+            acks.append(json.loads(raw))
+        secs = time.perf_counter() - t
+        gen = LakeTable.open(str(lake_dir)).manifest.current_generation()
+        if any(a["rows"] != SERVE_APPEND_ROWS for a in acks) or not acks[-1]["flushed"] or acks[
+                -1]["generation"] != gen:
+            raise AssertionError(f"[serve:d] acks {acks}, table generation {gen}")
+        flushed = sum(a["flushed"] for a in acks)
+        ops.reset_launch_counts()
+        reset_query_device_counts()
+        got = json.loads(query_ok(lake, {"paths": ["serve-lake"], "aggregates": spec}))
+        launches["serve lake query"] = counts = kernel_counts()
+        keep = np.zeros(n_rows, bool)
+        keep[:n_app] = True
+        want = query_want(taxi_specs, keep, 1)
+        if (got["result"] != want["result"] or got["rows_scanned"] != n_app
+                or got["rows_matched"] != n_app):
+            raise AssertionError(f"[serve:d] the table's query {got} != NumPy's {want['result']}")
+        if query_device_counts() != {"device": got["units"]} or counts["masked_agg"] <= 0:
+            raise AssertionError(f"[serve:d] query counts {query_device_counts()}, "
+                                 f"masked_agg {counts['masked_agg']}")
+        status, _h, raw = serve_request(lake, "POST", "/v1/append", b"\xff\xff",
+                                        {"Content-Type": "application/vnd.apache.arrow.stream"})
+        code = json.loads(raw)["error"]["code"]
+        if (status, code) != (415, "unsupported_format"):
+            raise AssertionError(f"[serve:d] arrow-ipc append: {status} {raw!r}")
+        out["append"] = {"rows": n_app, "seconds": secs, "rows_per_s": n_app / secs,
+                         "generations": gen, "flushes": flushed, "query_units": got["units"]}
+        log(f"[serve:d] {SERVE_APPENDS} jsonl appends of {SERVE_APPEND_ROWS:,} taxi rows, the last "
+            f"with ?flush=1: {secs:.2f} s, {n_app / secs:,.0f} rows/s; {flushed} acks flushed, the "
+            f"table at generation {gen}; /v1/query of the table on the card over {got['units']} "
+            f"units equals NumPy's over the {n_app:,} rows; launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items() if isinstance(v, int) and v)
+            + f"; an arrow-ipc append: {status} {code} | {card}")
+        idle(lake, "(d)")
+        lake.close()
+        servers.remove(lake)
+        shutil.rmtree(lake_dir, ignore_errors=True)
+        # (e) the byte budget, then a drain with a query held in flight
+        budget = ScanServer(ServeConfig(root=str(root), port=0, device=dev, tenant_budget_mb=1,
+                                        budget_window_s=3600.0)).start_background()
+        servers.append(budget)
+        first = query_ok(budget, qbody(), {"X-Tenant": "alice"})
+        status, _h, raw = serve_request(budget, "POST", "/v1/query", qbody(), {"X-Tenant": "alice"})
+        code = json.loads(raw)["error"]["code"] if status != 200 else None
+        other = query_ok(budget, qbody(), {"X-Tenant": "bob"})
+        est = json.loads(serve_request(budget, "POST", "/v1/plan", {
+            "paths": [name], "columns": list(QUERY_COLUMNS)})[2])["estimated_bytes"]
+        if first != bodies["query"] or other != bodies["query"] or (status, code) != (
+                429, "tenant_over_budget"):
+            raise AssertionError(f"[serve:e] budget: alice's second {status} {raw[:200]!r}")
+        idle(budget, "(e) budget")
+        budget.close()
+        servers.remove(budget)
+        gate = threading.Event()
+        held = ScanServer(ServeConfig(root=str(root), port=0, device=dev, cache_mb=0,
+                                      source_factory=lambda p: GatedSource(p, gate)))
+        servers.append(held.start_background())
+        res: dict = {}
+
+        def hold():
+            try:
+                res["resp"] = serve_request(held, "POST", "/v1/query", qbody())
+            except BaseException as e:  # noqa: BLE001 - raised below
+                res["error"] = e
+
+        th = threading.Thread(target=hold)
+        th.start()
+        serve_wait("(e) the held query admitted", lambda: held.service.admission.in_flight == 1)
+        drained: dict = {}
+        dr = threading.Thread(target=lambda: drained.setdefault("ok", held.drain(SERVE_WATCHDOG_S)))
+        dr.start()
+        serve_wait("(e) draining", lambda: held.service.admission.draining)
+        s_new, _h, raw_new = serve_request(held, "POST", "/v1/query", qbody())
+        s_h, h_h, raw_h = serve_request(held, "GET", "/healthz")
+        health = json.loads(raw_h)
+        gate.set()
+        th.join(SERVE_WATCHDOG_S)
+        dr.join(SERVE_WATCHDOG_S)
+        if th.is_alive() or dr.is_alive() or "error" in res:
+            raise AssertionError(f"[serve:e] the held query or the drain hung: {res}")
+        if (s_new, json.loads(raw_new)["error"]["code"]) != (503, "draining"):
+            raise AssertionError(f"[serve:e] a new query while draining: {s_new} {raw_new!r}")
+        if s_h != 503 or health["status"] != "draining" or "retry_after_s" not in health:
+            raise AssertionError(f"[serve:e] /healthz while draining: {s_h} {health}")
+        if res["resp"][0] != 200 or res["resp"][2] != bodies["query"] or drained.get("ok") is not True:
+            raise AssertionError(f"[serve:e] the held query: {res['resp'][0]}, drained {drained}")
+        if held.service.admission.in_flight:
+            raise AssertionError("[serve:e] a ticket outlived the drain")
+        held.close()
+        servers.remove(held)
+        log(f"[serve:e] tenant_budget_mb=1 (a full query's estimate {est:,} bytes): alice's first "
+            f"query answered (a full bucket admits it), her second {status} {code}, bob's answered; "
+            f"drain() with a query held in flight: a new query 503 draining, /healthz {s_h} "
+            f"{health}, the held query's body equal to (a)'s, drained {drained['ok']}")
+        idle(server, "(e)")
+    finally:
+        for s in servers:
+            s.close()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[serve] the phase took {out['seconds']:.1f} s | {card}")
+    torch.cuda.synchronize()
+    return out
+
+
 def smoke_dir() -> Path:
     """The directory of the cached main-path files."""
     from parquet_tpu_torch.kernels.build import BUILD_ROOT
@@ -5573,6 +6102,7 @@ def main(argv=None) -> int:
                             taxi_keep, device_filtered, dev, launches, smi)
     io_phase = check_io(paths, dev, launches, smi)
     remote_phase = check_remote_lake(paths, taxi_schema, dev_groups, dev_file, dev, launches, smi)
+    serve_phase = check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches, smi)
     for k in rows:
         rows[k]["launches"] = sum(c[k] for c in launches.values())
         rows[k]["launches_by_path"] = {label: c[k] for label, c in launches.items()}
@@ -5723,7 +6253,7 @@ def main(argv=None) -> int:
     print(json.dumps({"rows_per_s": rates, "prepare_s": prepare, "native_ab_s": native_ab,
                       "collectives": scan["collectives"], "overlap": overlap,
                       "write_options": write_options, "rows": rows_phase, "io": io_phase,
-                      "remote": remote_phase, "card": smi}))
+                      "remote": remote_phase, "serve": serve_phase, "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

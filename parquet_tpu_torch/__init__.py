@@ -29,7 +29,10 @@ atomic multipart PUTs committed at close). The lake layer
 Compactor folds, and a table directory or a _lake/gen-N.json path is a
 dataset source pinned to one generation.
 Aggregation queries (serve.run_local_query) filter and reduce each row
-group on the card, and scans (parallel.column_stats,
+group on the card; the scan daemon (ScanServer(ServeConfig(...))) answers
+them over HTTP (POST /v1/query), streams rows (POST /v1/scan), plans
+(/v1/plan) and appends to a lake table (POST /v1/append) under admission
+control, and serve_counts() reads its counters. Scans (parallel.column_stats,
 distributed_column_stats, sharded_decode_step) spread row groups and pages
 over devices and torch.distributed ranks.
 
@@ -59,6 +62,8 @@ over devices and torch.distributed ranks.
 `device="cpu"` runs the kernels' plain PyTorch versions on the CPU; without
 it a machine with no CUDA raises.
 """
+
+__version__ = "0.1.0"
 
 from .core.alloc import AllocError
 from .core.arrays import ByteArrayData
@@ -111,8 +116,23 @@ from .schema.dsl import (
 )
 from .sink.sink import BufferedSink
 from . import floor
+from .serve import (
+    AdmissionController,
+    Deadline,
+    PlannedScan,
+    ScanServer,
+    ScanService,
+    ScanSession,
+    ServeConfig,
+    execute_query,
+    execute_stream,
+    reset_serve_counts,
+    serve_counts,
+    serve_pool,
+)
 
 __all__ = [
+    "AdmissionController",
     "AllocError",
     "BACKENDS",
     "BlockCache",
@@ -123,6 +143,7 @@ __all__ = [
     "ChunkError",
     "Column",
     "CompressionError",
+    "Deadline",
     "DecodeStats",
     "DeviceColumn",
     "DeviceFilterError",
@@ -140,17 +161,24 @@ __all__ = [
     "PackedLevels",
     "PageError",
     "ParquetFileError",
+    "PlannedScan",
     "RaggedColumn",
     "RetryingSource",
+    "ScanServer",
+    "ScanService",
+    "ScanSession",
     "Schema",
     "SchemaError",
     "SchemaParseError",
+    "ServeConfig",
     "SourceError",
     "TieredCache",
     "TransientSourceError",
     "VecFilterError",
     "WriterError",
     "builder",
+    "execute_query",
+    "execute_stream",
     "filter_counts",
     "floor",
     "io_counts",
@@ -161,9 +189,12 @@ __all__ = [
     "reset_filter_counts",
     "reset_io_counts",
     "reset_row_counts",
+    "reset_serve_counts",
     "reset_write_counts",
     "row_counts",
     "schema_to_string",
+    "serve_counts",
+    "serve_pool",
     "split_row_groups",
     "validate",
     "validate_strict",

@@ -167,6 +167,13 @@ _pool: ThreadPoolExecutor | None = None
 _pool_lock = threading.Lock()
 
 
+def host_threads() -> int:
+    """The pqt-host pool's worker count as PQT_HOST_THREADS sets it now
+    (default min(cpu count, 16); 0 or 1 means a serial prepare)."""
+    env = os.environ.get("PQT_HOST_THREADS")
+    return int(env) if env else min(os.cpu_count() or 1, 16)
+
+
 def _host_pool() -> ThreadPoolExecutor | None:
     """The shared "pqt-host" pool of the host prepare phase, or None when
     prepare runs serially on the calling thread. Sized by PQT_HOST_THREADS
@@ -176,8 +183,7 @@ def _host_pool() -> ThreadPoolExecutor | None:
     assembly around it holds the GIL. The pool is made once, at the size the
     first parallel read asked for."""
     global _pool
-    env = os.environ.get("PQT_HOST_THREADS")
-    workers = int(env) if env else min(os.cpu_count() or 1, 16)
+    workers = host_threads()
     if workers <= 1:
         return None
     with _pool_lock:

@@ -212,12 +212,15 @@ def fetch_ranges(
 
 # -- the dedicated IO pool ----------------------------------------------------
 
+# the pqt-io pool's worker count
+IO_THREADS = min(os.cpu_count() or 1, 8)
+
 _pool: ThreadPoolExecutor | None = None
 _pool_lock = threading.Lock()
 
 
 def io_pool() -> ThreadPoolExecutor:
-    """The process-wide readahead executor ("pqt-io", min(cpu, 8)
+    """The process-wide readahead executor ("pqt-io", IO_THREADS
     workers). Deliberately its OWN pool: readahead tasks block
     on source latency, and parking them in the prepare or dataset pools
     would let slow IO starve decode (or deadlock a pool waiting on work it
@@ -226,7 +229,7 @@ def io_pool() -> ThreadPoolExecutor:
     with _pool_lock:
         if _pool is None:
             _pool = ThreadPoolExecutor(
-                max_workers=min(os.cpu_count() or 1, 8), thread_name_prefix="pqt-io"
+                max_workers=IO_THREADS, thread_name_prefix="pqt-io"
             )
         return _pool
 

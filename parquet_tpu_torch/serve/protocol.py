@@ -1,14 +1,17 @@
-"""Typed request parsing for aggregation push-down queries.
+"""Typed request parsing and validation for the scan and query service.
 
-The query half of parquet_tpu/serve/protocol.py: everything a query request
-carries is validated HERE, into plain typed objects, before any file is
-opened: a malformed request costs one JSON parse and raises a typed
-ServeError, never a traceback and never a half-planned query. The JSON
-filter-spec parser (`filters_from_spec`) and the aggregate-spec parser
+The port of parquet_tpu/serve/protocol.py: everything that crosses the HTTP
+boundary is validated HERE, into plain typed objects, before any planning
+or IO happens: a malformed request costs one JSON parse and raises a typed
+ServeError, never a traceback and never a half-planned scan. The JSON
+filter-spec parser (`filters_from_spec`), the scan request
+(`parse_scan_request` for POST bodies, `scan_request_from_query` for GET
+/v1/plan query parameters) and the aggregate-spec parser
 (`aggregates_from_spec` / `parse_query_request`) accept the exact language
 of the reference, and `json_default` is its canonical JSON fallback, so the
-rendered bodies are the reference's bytes. The scan request (ScanRequest
-and its parsing) stays in the reference.
+rendered bodies are the reference's bytes. `format="arrow-ipc"` parses as
+in the reference; the daemon refuses it later (serve/server.py: the
+arrow-ipc stream needs pyarrow).
 
 ServeError carries an HTTP status and a stable machine-readable `code`, and
 renders as `{"error": {"code", "message", "status"}}`.
@@ -21,15 +24,21 @@ from typing import NamedTuple
 
 __all__ = [
     "ServeError",
+    "ScanRequest",
     "QueryRequest",
     "AggregateSpec",
+    "FORMATS",
     "AGG_OPS",
     "filters_from_spec",
     "aggregates_from_spec",
+    "parse_scan_request",
     "parse_query_request",
+    "scan_request_from_query",
     "json_default",
     "agg_name",
 ]
+
+FORMATS = ("jsonl", "arrow-ipc")
 
 # ops accepted by the filter spec; mirrors core/filter._OPS (validated
 # again, against the actual schema, at normalize time — this early check
@@ -47,6 +56,10 @@ AGG_OPS = ("count", "sum", "min", "max")
 # point of push-down is that results are kilobytes)
 DEFAULT_MAX_GROUPS = 10_000
 MAX_MAX_GROUPS = 1_000_000
+
+_SCAN_KEYS = {
+    "paths", "columns", "filters", "limit", "format", "shard", "timeout_ms",
+}
 
 _QUERY_KEYS = {
     "paths", "filters", "aggregates", "group_by", "max_groups", "shard",
@@ -99,6 +112,18 @@ class QueryRequest(NamedTuple):
     aggregates: tuple  # AggregateSpec, >= 1
     group_by: tuple  # column names (empty = one global row)
     max_groups: int  # typed overflow past this many distinct groups
+    shard: tuple | None  # (index, count) unit striping for this request
+    timeout_ms: int | None  # per-request deadline override
+
+
+class ScanRequest(NamedTuple):
+    """One validated scan (or plan dry-run) request."""
+
+    paths: list  # file paths and/or glob patterns, server-root relative
+    columns: list | None  # column projection (dotted paths)
+    filters: list | None  # normalized triples/DNF, core/filter convention
+    limit: int | None  # max rows streamed back
+    format: str  # "jsonl" | "arrow-ipc"
     shard: tuple | None  # (index, count) unit striping for this request
     timeout_ms: int | None  # per-request deadline override
 
@@ -181,6 +206,54 @@ def _parse_shard(v):
             400, "bad_request", f"shard index {i} out of range for count {n}"
         )
     return (i, n)
+
+
+def _build_request(obj: dict) -> ScanRequest:
+    unknown = set(obj) - _SCAN_KEYS
+    if unknown:
+        raise _bad(
+            f"unknown request field(s) {sorted(unknown)} "
+            f"(accepted: {sorted(_SCAN_KEYS)})"
+        )
+    paths = obj.get("paths")
+    if isinstance(paths, str):
+        paths = [paths]
+    if (
+        not isinstance(paths, list)
+        or not paths
+        or not all(isinstance(p, str) and p for p in paths)
+    ):
+        raise _bad("'paths' must be a non-empty string or list of strings")
+    columns = obj.get("columns")
+    if columns is not None:
+        if isinstance(columns, str):
+            columns = [c for c in columns.split(",") if c]
+        if not isinstance(columns, list) or not all(
+            isinstance(c, str) and c for c in columns
+        ):
+            raise _bad("'columns' must be a list of column names")
+        if not columns:
+            columns = None
+    limit = obj.get("limit")
+    if limit is not None:
+        if not isinstance(limit, int) or isinstance(limit, bool) or limit < 0:
+            raise _bad(f"'limit' must be a non-negative integer, got {limit!r}")
+    fmt = obj.get("format", "jsonl")
+    if fmt not in FORMATS:
+        raise _bad(f"unknown format {fmt!r} (use one of {', '.join(FORMATS)})")
+    timeout_ms = obj.get("timeout_ms")
+    if timeout_ms is not None:
+        if not isinstance(timeout_ms, int) or isinstance(timeout_ms, bool) or timeout_ms <= 0:
+            raise _bad(f"'timeout_ms' must be a positive integer, got {timeout_ms!r}")
+    return ScanRequest(
+        paths=paths,
+        columns=columns,
+        filters=filters_from_spec(obj.get("filters")),
+        limit=limit,
+        format=fmt,
+        shard=_parse_shard(obj.get("shard")),
+        timeout_ms=timeout_ms,
+    )
 
 
 def aggregates_from_spec(spec):
@@ -294,6 +367,45 @@ def _parse_body(raw: bytes) -> dict:
     return obj
 
 
+def parse_scan_request(raw: bytes) -> ScanRequest:
+    """Parse + validate a POST /v1/scan (or /v1/plan) JSON body."""
+    return _build_request(_parse_body(raw))
+
+
 def parse_query_request(raw: bytes) -> QueryRequest:
     """Parse + validate a POST /v1/query JSON body."""
     return _build_query_request(_parse_body(raw))
+
+
+def scan_request_from_query(qs: dict) -> ScanRequest:
+    """Build a request from GET /v1/plan query parameters (urllib parse_qs
+    shape: {key: [values]}). `paths` repeats or comma-separates; `columns`
+    comma-separates; `filters` is the same JSON spec as the POST body."""
+    obj: dict = {}
+    paths: list = []
+    for v in qs.get("paths", []):
+        paths.extend(p for p in v.split(",") if p)
+    if paths:
+        obj["paths"] = paths
+    if "columns" in qs:
+        obj["columns"] = ",".join(qs["columns"])
+    if "filters" in qs:
+        try:
+            obj["filters"] = json.loads(qs["filters"][-1])
+        except ValueError as e:
+            raise ServeError(
+                400, "bad_filters", f"'filters' is not valid JSON: {e}"
+            ) from None
+    for key in ("limit", "timeout_ms"):
+        if key in qs:
+            try:
+                obj[key] = int(qs[key][-1])
+            except ValueError:
+                raise _bad(f"'{key}' must be an integer") from None
+    if "shard" in qs:
+        obj["shard"] = qs["shard"][-1]
+    if "format" in qs:
+        obj["format"] = qs["format"][-1]
+    if "paths" not in obj:
+        raise _bad("missing 'paths' query parameter")
+    return _build_request(obj)

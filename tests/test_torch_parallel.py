@@ -669,7 +669,8 @@ def test_spawn_reports_a_failing_rank():
 def test_port_modules_import_no_jax():
     code = (
         "import sys, chip_smoke, parquet_tpu_torch.serve, parquet_tpu_torch.parallel, "
-        "parquet_tpu_torch.testing.dist\n"
+        "parquet_tpu_torch.testing.dist, parquet_tpu_torch.serve.server, "
+        "parquet_tpu_torch.obs\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'parquet_tpu' or m.startswith('parquet_tpu.'))\n"
         "print(bad)\n"

@@ -106,7 +106,10 @@ def test_import_loads_no_jax_and_no_jax_package():
         "parquet_tpu_torch.core.filter, parquet_tpu_torch.core.filter_vec, "
         "parquet_tpu_torch.core.filter_device, parquet_tpu_torch.core.stats, "
         "parquet_tpu_torch.core.bloom, parquet_tpu_torch.core.assembly, "
-        "parquet_tpu_torch.floor.time, parquet_tpu_torch.ops.levels\n"
+        "parquet_tpu_torch.floor.time, parquet_tpu_torch.ops.levels, "
+        "parquet_tpu_torch.serve.server, parquet_tpu_torch.serve.session, "
+        "parquet_tpu_torch.serve.executor, parquet_tpu_torch.serve.admission, "
+        "parquet_tpu_torch.serve.counts, parquet_tpu_torch.obs.slo\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'parquet_tpu' or m.startswith('parquet_tpu.'))\n"
         "print(bad)\n"
