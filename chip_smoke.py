@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive parquet_tpu_torch's decode, batch, filter, write, query, scan, row, io, remote
-write, lake and serve paths on one CUDA card.
+write, lake, serve and mesh paths on one CUDA card.
 
 Run from the repository root, on a machine with one NVIDIA card and the CUDA
 toolkit (nvcc):
@@ -305,6 +305,32 @@ Phases (any failure raises and the script exits non-zero):
               retry_after_s, the held query's body equal to (a)'s. Each
               step's figures and the phase's seconds are printed beside
               the card's name and power limit;
+     mesh     the serve mesh and the chaos harness (check_mesh): three
+              replica ScanServers(device="cuda"), a direct daemon and a
+              MeshRouter over the replicas, in this process. (a) /v1/query
+              of the query phase's aggregates, unfiltered and under
+              F_taxi, scattered over taxi's units, each body byte-equal to
+              the direct daemon's and to NumPy's, masked_agg, dict_gather
+              and (filtered) mask_take launched by the replicas,
+              mesh_counts() in scatter mode; /v1/scan jsonl of trip_id,
+              fare_cents and zone under F_taxi narrowed to the trip ids
+              around group 1's start (2 units) byte-equal to the direct
+              daemon's; /v1/plan equal; (b) a FlakyReplica with
+              error_rate=0.2, then one with short_rate=0.5, in front of one
+              replica: every body byte-equal to (a)'s, faults injected,
+              failovers counted; (c) 8 client threads x 3 filtered queries
+              through a router whose replicas sit behind fault-free
+              FlakyReplicas, the replica owning most of the query's keys
+              closed under them: every answer (a)'s body or a typed 503,
+              the dead path's breaker open, /healthz counting it; (d) the
+              clients' requests/s, latencies and input rows/s against the
+              direct daemon's; (e) run_dataset_chaos over taxi with CUDA
+              delivery under standard_schedule(phase_s=1.0) with breakers,
+              retries and hedges, the SLO controller attached and detached:
+              every batch on the card, each phase's p50, p99 and violation
+              share, the controller's state(), units skipped, hedges and
+              retries. Every daemon, proxy and router ends with 0 in flight
+              and is closed;
   5. times    rows/s of the device reads and of the batch streams, filtered
               and not (the same call, both files), of the filtered read, of
               host decode + upload, of the device write against the host
@@ -364,8 +390,8 @@ The last three lines of standard output are a JSON line of the end-to-end
 rates, the host value functions' A/B seconds, the collectives' times, the
 overlap A/B, profile and dataset rates, the write-options phase's numbers,
 the rows phase's rates and seconds, the io phase's steps, the remote and
-lake phase's steps, the serve phase's numbers, and the card's name and
-power limit, the
+lake phase's steps, the serve and mesh phases' numbers, and the card's
+name and power limit, the
 `kernels` JSON line (21
 kernels) and the
 `{"ok": true, ...}` line. Without CUDA, or without the package beside it,
@@ -5719,6 +5745,356 @@ def check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, c
     return out
 
 
+MESH_CLIENTS = 8
+MESH_PER_CLIENT = 3
+MESH_FAULT_REQUESTS = 12  # backend requests each flaky proxy must see in (b)
+MESH_FAULT_QUERIES = 16  # at most this many queries in each of (b)'s two runs
+MESH_SCAN_SPAN = 100_000  # trip ids either side of the group 0 / group 1 boundary
+CHAOS_SLO_MS = 100.0
+CHAOS_BATCH = 1 << 18
+
+
+def mesh_kill_order(router, urls, sig: str, units: int) -> list:
+    """The router's replica URLs, the one that owns the most of a request's
+    keys (its plan probe and its unit keys) first: killing it makes every
+    later request of that signature attempt a dead replica."""
+    ring = router.service.client.ring
+    keys = [sig] + [f"{sig}#{k}" for k in range(units)]
+    owned = collections.Counter(ring.lookup(k) for k in keys)
+    return sorted(urls, key=lambda u: -owned[u])
+
+
+def check_mesh(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, card: str) -> dict:
+    """The mesh-and-chaos phase, in this process over loopback. (a) Three
+    replica ScanServers(device=dev) over the smoke directory, a direct
+    daemon, and a MeshRouter over the replicas: /v1/query of
+    query_aggregates(), unfiltered and under F_taxi, scattered over taxi's
+    units, each body byte-equal to the direct daemon's and to NumPy's
+    (query_want); /v1/scan jsonl of IO_PROJECTION under F_taxi narrowed to
+    MESH_SCAN_SPAN trip ids either side of group 1's start (2 units)
+    byte-equal to the direct daemon's, its lines NumPy's count; /v1/plan
+    equal; mesh_counts() in scatter mode; masked_agg, dict_gather and
+    (filtered) mask_take launched by the replicas. (b) A FlakyReplica with
+    error_rate=0.2, then one with short_rate=0.5, in front of one replica:
+    queries until the proxy has relayed MESH_FAULT_REQUESTS backend
+    requests, every body byte-equal to (a)'s, faults injected and
+    failovers counted. (c) Every replica behind a fault-free FlakyReplica
+    (the network path), a router with breaker_failures=2: MESH_CLIENTS
+    threads x MESH_PER_CLIENT filtered queries, and the replica owning most
+    of the query's keys closed while they run: every answer byte-equal to
+    (a)'s or a typed 503, none torn; the dead path's breaker opens and
+    /healthz counts it. (d) (c)'s requests/s, median and largest latency
+    and input rows/s against the same clients on the direct daemon.
+    (e) run_dataset_chaos over taxi (DATASET_COLUMNS, nullable="zero")
+    with CUDA delivery under standard_schedule(phase_s=1.0) and the
+    harness's breaker, retry and hedge layers, with the SLO controller
+    attached and detached: no raise, every batch on the card, each phase's
+    p50, p99 and violation share, the controller's state(), units skipped,
+    hedges and retries. Every daemon, proxy and router ends with 0 in
+    flight and is closed. Prints each step's figures beside `card`;
+    returns the numbers."""
+    import threading
+
+    import torch
+
+    from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.serve import (
+        MeshConfig,
+        MeshRouter,
+        ScanServer,
+        ServeConfig,
+        mesh_counts,
+        query_device_counts,
+        reset_mesh_counts,
+        reset_query_device_counts,
+    )
+    from parquet_tpu_torch.testing.chaos import ChaosHarness, run_dataset_chaos, standard_schedule
+    from parquet_tpu_torch.testing.flaky_replica import FlakyReplica
+
+    t_phase = time.perf_counter()
+    root = taxi_path.parent
+    name = taxi_path.name
+    n_rows = ROW_GROUPS * RG_ROWS
+    out: dict = {}
+    flt = [[list(t) for t in conj] for conj in f_taxi]
+    spec = ["count", ["count", "passenger_count"]]
+    for c in QUERY_COLUMNS:
+        spec += [["sum", c], ["min", c], ["max", c]]
+
+    def qbody(filters=None):
+        b = {"paths": [name], "aggregates": spec}
+        if filters is not None:
+            b["filters"] = filters
+        return b
+
+    def post(server, path, body):
+        status, _h, raw = serve_request(server, "POST", path, body)
+        if status != 200:
+            raise AssertionError(f"[mesh] {path} {body}: {status} {raw[:300]!r}")
+        return raw
+
+    def retries() -> int:
+        return sum(v for k, v in mesh_counts().items() if k.startswith("mesh_retries_total"))
+
+    closed: set = set()
+    made = []  # every daemon, proxy and router, closed in the finally
+
+    def start(thing):
+        made.append(thing)
+        return thing.start_background() if hasattr(thing, "start_background") else thing.start()
+
+    def close(thing):
+        if hasattr(thing, "service"):
+            serve_wait(f"{thing.url}: in flight back to 0",
+                       lambda: thing.service.admission.in_flight == 0)
+        thing.close()
+        closed.add(id(thing))
+
+    try:
+        replicas = [start(ScanServer(ServeConfig(root=str(root), port=0, device=dev)))
+                    for _ in range(3)]
+        direct = start(ScanServer(ServeConfig(root=str(root), port=0, device=dev)))
+        router = start(MeshRouter(MeshConfig(port=0, replicas=tuple(r.url for r in replicas))))
+        log(f"[mesh] 3 replica ScanServers and a direct daemon (device={dev.type!r}), a MeshRouter "
+            f"over the replicas at {router.url} | {card}")
+        # (a) routed equals direct
+        bodies = {}
+        for label, filters, keep, units in (("query", None, np.ones(n_rows, bool), ROW_GROUPS),
+                                            ("query filtered", flt, taxi_keep, ROW_GROUPS - 2)):
+            want_raw = post(direct, "/v1/query", qbody(filters))
+            ops.reset_launch_counts()
+            reset_query_device_counts()
+            reset_mesh_counts()
+            t = time.perf_counter()
+            raw = post(router, "/v1/query", qbody(filters))
+            secs = time.perf_counter() - t
+            launches[f"mesh {label}"] = counts = kernel_counts()
+            qc = query_device_counts()
+            mc = mesh_counts()
+            want = query_want(taxi_specs, keep, units)
+            if raw != want_raw:
+                raise AssertionError(f"[mesh:a] {label}: the router's body differs from the direct "
+                                     f"daemon's: {raw[:300]!r} vs {want_raw[:300]!r}")
+            if json.loads(raw) != want:
+                raise AssertionError(f"[mesh:a] {label}: body {raw!r} != NumPy's {want}")
+            if (qc != {"device": units}
+                    or mc.get('mesh_requests_total{endpoint="/v1/query",mode="scatter"}') != 1
+                    or mc.get('mesh_scatter_units_total{endpoint="/v1/query"}') != units):
+                raise AssertionError(f"[mesh:a] {label}: query counts {qc}, mesh counts {mc}")
+            need = ("masked_agg", "dict_gather") + (("mask_take",) if filters else ())
+            for k in need:
+                if counts[k] <= 0:
+                    raise AssertionError(f"[mesh:a] {k} was not launched by the routed {label}")
+            bodies[label] = raw
+            out[f"{label} s"] = secs
+            log(f"[mesh:a] routed /v1/query ({label}): {secs:.3f} s, {n_rows / secs:,.0f} input "
+                f"rows/s, {units} units scattered, byte-equal to the direct daemon's body and equal "
+                f"to NumPy's; units {qc}; launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items() if isinstance(v, int) and v))
+        lo = 10**9 + RG_ROWS - MESH_SCAN_SPAN
+        hi = 10**9 + RG_ROWS + MESH_SCAN_SPAN
+        scan_flt = [conj + [["trip_id", ">=", lo], ["trip_id", "<", hi]] for conj in flt]
+        scan_body = {"paths": [name], "columns": list(IO_PROJECTION), "filters": scan_flt}
+        plan_body = {"paths": [name], "columns": list(IO_PROJECTION), "filters": scan_flt}
+        plan_r, plan_d = post(router, "/v1/plan", plan_body), post(direct, "/v1/plan", plan_body)
+        if plan_r != plan_d or json.loads(plan_r)["units"] != 2:
+            raise AssertionError(f"[mesh:a] plan: router {plan_r!r}, direct {plan_d!r}")
+        ops.reset_launch_counts()
+        reset_mesh_counts()
+        t = time.perf_counter()
+        scan_r = post(router, "/v1/scan", scan_body)
+        secs = time.perf_counter() - t
+        scan_d = post(direct, "/v1/scan", scan_body)
+        trip = np.arange(n_rows, dtype=np.int64) + 10**9
+        lines = int((taxi_keep & (trip >= lo) & (trip < hi)).sum())
+        mc = mesh_counts()
+        if scan_r != scan_d or scan_r.count(b"\n") != lines:
+            raise AssertionError(f"[mesh:a] scan: router {scan_r.count(b'\n')} lines, direct "
+                                 f"{scan_d.count(b'\n')}, NumPy {lines}; equal {scan_r == scan_d}")
+        if mc.get('mesh_requests_total{endpoint="/v1/scan",mode="scatter"}') != 1:
+            raise AssertionError(f"[mesh:a] scan: mesh counts {mc}")
+        out["scan"] = {"lines": lines, "bytes": len(scan_r), "seconds": secs}
+        log(f"[mesh:a] routed /v1/scan jsonl ({', '.join(IO_PROJECTION)}; F_taxi and trip_id in "
+            f"[{lo}, {hi})): 2 units scattered, {lines:,} lines byte-equal to the direct daemon's "
+            f"({len(scan_r):,} bytes) in {secs:.2f} s; /v1/plan equal: {json.loads(plan_r)} | {card}")
+        # (b) wire faults between the router and one replica
+        ops.reset_launch_counts()
+        out["faults"] = {}
+        for label, knobs in (("error_rate=0.2", dict(error_rate=0.2)),
+                             ("short_rate=0.5", dict(short_rate=0.5))):
+            proxy = start(FlakyReplica(replicas[0].url, seed=11, **knobs))
+            flaky = start(MeshRouter(MeshConfig(port=0, replicas=(
+                proxy.url, replicas[1].url, replicas[2].url))))
+            reset_mesh_counts()
+            n_queries = 0
+            t = time.perf_counter()
+            while proxy.requests < MESH_FAULT_REQUESTS and n_queries < MESH_FAULT_QUERIES:
+                for lbl in ("query", "query filtered"):
+                    raw = post(flaky, "/v1/query", qbody(flt if "filtered" in lbl else None))
+                    n_queries += 1
+                    if raw != bodies[lbl]:
+                        raise AssertionError(f"[mesh:b] {label}: a {lbl} body differs from (a)'s")
+            secs = time.perf_counter() - t
+            fails = {k: v for k, v in mesh_counts().items() if k.startswith("mesh_retries_total")}
+            if proxy.faults_injected <= 0 or retries() <= 0:
+                raise AssertionError(f"[mesh:b] {label}: {proxy.faults_injected} faults injected "
+                                     f"in {proxy.requests} requests, failovers {fails}")
+            out["faults"][label] = {"queries": n_queries, "seconds": secs,
+                                    "proxy_requests": proxy.requests,
+                                    "faults_injected": proxy.faults_injected, "failovers": fails}
+            log(f"[mesh:b] FlakyReplica({label}) in front of one replica: {n_queries} queries in "
+                f"{secs:.2f} s, every body byte-equal to (a)'s; the proxy relayed {proxy.requests} "
+                f"requests, injected {proxy.faults_injected} faults; failovers {fails} | {card}")
+            close(flaky)
+            close(proxy)
+        # (c) a dead replica under 8 clients
+        paths = [start(FlakyReplica(r.url, seed=k)) for k, r in enumerate(replicas)]
+        fleet = start(MeshRouter(MeshConfig(port=0, replicas=tuple(p.url for p in paths),
+                                            breaker_failures=2,
+                                            breaker_open_s=SERVE_WATCHDOG_S)))
+        order = mesh_kill_order(fleet, [p.url for p in paths], name, ROW_GROUPS - 2)
+        victim = replicas[[p.url for p in paths].index(order[0])]
+        want_raw = bodies["query filtered"]
+
+        def hammer(server):
+            lat: list = []
+            results: list = []
+            errors: list = []
+            lock = threading.Lock()
+
+            def client():
+                try:
+                    for _ in range(MESH_PER_CLIENT):
+                        t = time.perf_counter()
+                        status, _h, raw = serve_request(server, "POST", "/v1/query", qbody(flt))
+                        dt = time.perf_counter() - t
+                        if status == 200 and raw == want_raw:
+                            kind = "ok"
+                        elif status == 503 and json.loads(raw)["error"]["code"] in (
+                                "partial_failure", "no_replicas"):
+                            kind = "typed 503"
+                        else:
+                            raise AssertionError(f"[mesh:c] an answer neither (a)'s nor a typed "
+                                                 f"503: {status} {raw[:300]!r}")
+                        with lock:
+                            results.append(kind)
+                            lat.append(dt)
+                except BaseException as e:  # noqa: BLE001 - raised below, in the phase's thread
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client) for _ in range(MESH_CLIENTS)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            return threads, t, lat, results, errors
+
+        def join(threads, t0, errors):
+            for th in threads:
+                th.join(SERVE_WATCHDOG_S)
+                if th.is_alive():
+                    raise AssertionError("[mesh] a client thread hung")
+            if errors:
+                raise errors[0]
+            return time.perf_counter() - t0
+
+        reset_mesh_counts()
+        threads, t0, lat, results, errors = hammer(fleet)
+        serve_wait("(c) the first answers", lambda: len(results) >= MESH_CLIENTS or errors)
+        victim.close()  # a hard close: requests may be in flight on it
+        closed.add(id(victim))
+        wall = join(threads, t0, errors)
+        serve_wait("(c) the closed replica's in flight back to 0",
+                   lambda: victim.service.admission.in_flight == 0)
+        dead = fleet.service.table.by_url[order[0]]
+        extra = 0
+        while dead.breaker.state != "open" and extra < 8:
+            status, _h, raw = serve_request(fleet, "POST", "/v1/query", qbody(flt))
+            if status != 200 or raw != want_raw:
+                raise AssertionError(f"[mesh:c] a query after the kill: {status} {raw[:300]!r}")
+            extra += 1
+        status, _h, raw = serve_request(fleet, "GET", "/healthz")
+        health = json.loads(raw)
+        mc = mesh_counts()
+        if dead.breaker.state != "open" or dead.state() != "open-breaker" or status != 200 or (
+                health["replicas"]["open-breaker"] != 1):
+            raise AssertionError(f"[mesh:c] the dead replica: breaker {dead.breaker.state}, "
+                                 f"/healthz {status} {health}")
+        kinds = collections.Counter(results)
+        n_req = MESH_CLIENTS * MESH_PER_CLIENT
+        if sum(kinds.values()) != n_req or not kinds["ok"]:
+            raise AssertionError(f"[mesh:c] answers {dict(kinds)} for {n_req} requests")
+        fails = {k: v for k, v in mc.items() if k.startswith("mesh_retries_total")}
+        log(f"[mesh:c] {MESH_CLIENTS} clients x {MESH_PER_CLIENT} filtered queries, the replica "
+            f"owning most of the query's keys closed under them: answers {dict(kinds)}, none torn; "
+            f"{extra} more queries until its breaker opened; failovers {fails}; /healthz {health}")
+        # (b) and (c) reached the card only through the routers' replicas
+        launches["mesh faults and clients"] = kernel_counts()
+        # (d) (c)'s clients against the direct daemon
+        okl = [dt for dt, k in zip(lat, results) if k == "ok"]
+        ops.reset_launch_counts()
+        threads, t0, dlat, dres, derr = hammer(direct)
+        dwall = join(threads, t0, derr)
+        launches["serve direct clients (mesh phase)"] = kernel_counts()
+        if set(dres) != {"ok"}:
+            raise AssertionError(f"[mesh:d] the direct daemon's answers {collections.Counter(dres)}")
+        out["clients"] = {
+            "clients": MESH_CLIENTS, "requests": n_req, "answers": dict(kinds),
+            "router": {"seconds": wall, "requests_per_s": n_req / wall,
+                       "median_latency_s": statistics.median(okl), "max_latency_s": max(lat),
+                       "input_rows_per_s": kinds["ok"] * n_rows / wall},
+            "direct": {"seconds": dwall, "requests_per_s": n_req / dwall,
+                       "median_latency_s": statistics.median(dlat), "max_latency_s": max(dlat),
+                       "input_rows_per_s": n_req * n_rows / dwall},
+        }
+        for who in ("router", "direct"):
+            c = out["clients"][who]
+            log(f"[mesh:d] {who}: {n_req} filtered queries from {MESH_CLIENTS} clients in "
+                f"{c['seconds']:.2f} s, {c['requests_per_s']:.2f} requests/s, latency median "
+                f"{c['median_latency_s']:.3f} s, largest {c['max_latency_s']:.3f} s, "
+                f"{c['input_rows_per_s']:,.0f} input rows/s | {card}")
+        for thing in reversed(made):
+            if id(thing) not in closed:
+                close(thing)
+        # (e) chaos on the dataset, CUDA delivery
+        out["chaos"] = {}
+        for label, attached in (("controller", True), ("detached", False)):
+            sched = standard_schedule(phase_s=1.0)
+            with ChaosHarness(sched, seed=29, breaker=True, retry=True, hedge=True,
+                              retry_kw={"attempts": 3, "base_delay_s": 0.001,
+                                        "max_delay_s": 0.01},
+                              breaker_kw={"failure_threshold": 5, "open_s": 0.5},
+                              hedge_kw={"min_delay_s": 0.005, "initial_delay_s": 0.02}) as chaos:
+                rep = run_dataset_chaos(str(taxi_path), chaos=chaos, batch_size=CHAOS_BATCH,
+                                        columns=list(DATASET_COLUMNS), slo_wait_ms=CHAOS_SLO_MS,
+                                        enable_controller=attached, device=dev,
+                                        dataset_kw={"nullable": "zero"})
+            if rep["devices"] != [dev.type] or rep["batches"] <= 0:
+                raise AssertionError(f"[mesh:e] {label}: {rep['batches']} batches on "
+                                     f"{rep['devices']}")
+            if any(not rep["phases"][p]["waits"] for p in ("warmup", "latency_spike", "recovery")):
+                raise AssertionError(f"[mesh:e] {label}: a phase saw no batch: {rep['phases']}")
+            out["chaos"][label] = rep
+            log(f"[mesh:e] run_dataset_chaos(taxi, batch {CHAOS_BATCH}, slo_wait_ms={CHAOS_SLO_MS}, "
+                f"controller {'attached' if attached else 'detached'}), {dev.type} delivery: "
+                f"{rep['batches']} batches, {rep['rows']:,} rows in {rep['wall_s']:.2f} s, every one "
+                f"on the card; faults {rep['faults_injected']}, spikes {rep['spikes_injected']}, "
+                f"units skipped {rep['units_skipped']}, hedges {rep['hedge']}, retries "
+                f"{rep['retries']}, violations counted {rep['slo_violations_total']}; controller "
+                f"{rep['controller']} | {card}")
+            for p, row in rep["phases"].items():
+                log(f"[mesh:e]   {label} {p}: {row['waits']} waits, p50 {row['p50_ms']} ms, p99 "
+                    f"{row['p99_ms']} ms, max {row['max_ms']} ms, violation share "
+                    f"{row['violation_share']}")
+    finally:
+        for thing in made:
+            if id(thing) not in closed:
+                thing.close()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh] the phase took {out['seconds']:.1f} s | {card}")
+    torch.cuda.synchronize()
+    return out
+
+
 def smoke_dir() -> Path:
     """The directory of the cached main-path files."""
     from parquet_tpu_torch.kernels.build import BUILD_ROOT
@@ -6103,6 +6479,7 @@ def main(argv=None) -> int:
     io_phase = check_io(paths, dev, launches, smi)
     remote_phase = check_remote_lake(paths, taxi_schema, dev_groups, dev_file, dev, launches, smi)
     serve_phase = check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches, smi)
+    mesh_phase = check_mesh(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches, smi)
     for k in rows:
         rows[k]["launches"] = sum(c[k] for c in launches.values())
         rows[k]["launches_by_path"] = {label: c[k] for label, c in launches.items()}
@@ -6253,7 +6630,8 @@ def main(argv=None) -> int:
     print(json.dumps({"rows_per_s": rates, "prepare_s": prepare, "native_ab_s": native_ab,
                       "collectives": scan["collectives"], "overlap": overlap,
                       "write_options": write_options, "rows": rows_phase, "io": io_phase,
-                      "remote": remote_phase, "serve": serve_phase, "card": smi}))
+                      "remote": remote_phase, "serve": serve_phase, "mesh": mesh_phase,
+                      "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

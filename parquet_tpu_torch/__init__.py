@@ -32,7 +32,9 @@ Aggregation queries (serve.run_local_query) filter and reduce each row
 group on the card; the scan daemon (ScanServer(ServeConfig(...))) answers
 them over HTTP (POST /v1/query), streams rows (POST /v1/scan), plans
 (/v1/plan) and appends to a lake table (POST /v1/append) under admission
-control, and serve_counts() reads its counters. Scans (parallel.column_stats,
+control, and serve_counts() reads its counters; a MeshRouter(MeshConfig(
+replicas=...)) puts the same surface in front of a fleet of such daemons,
+scattering each request's units over them (mesh_counts()). Scans (parallel.column_stats,
 distributed_column_stats, sharded_decode_step) spread row groups and pages
 over devices and torch.distributed ranks.
 
@@ -119,6 +121,8 @@ from . import floor
 from .serve import (
     AdmissionController,
     Deadline,
+    MeshConfig,
+    MeshRouter,
     PlannedScan,
     ScanServer,
     ScanService,
@@ -126,6 +130,8 @@ from .serve import (
     ServeConfig,
     execute_query,
     execute_stream,
+    mesh_counts,
+    reset_mesh_counts,
     reset_serve_counts,
     serve_counts,
     serve_pool,
@@ -156,6 +162,8 @@ __all__ = [
     "LocalFileSource",
     "MaskedColumn",
     "MemorySource",
+    "MeshConfig",
+    "MeshRouter",
     "ObjectStoreSink",
     "ObjectStoreSource",
     "PackedLevels",
@@ -183,11 +191,13 @@ __all__ = [
     "floor",
     "io_counts",
     "merge_files",
+    "mesh_counts",
     "parse_schema",
     "read_chunk",
     "read_file_metadata",
     "reset_filter_counts",
     "reset_io_counts",
+    "reset_mesh_counts",
     "reset_row_counts",
     "reset_serve_counts",
     "reset_write_counts",

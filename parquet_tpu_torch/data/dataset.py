@@ -46,12 +46,18 @@ In the order the pipeline applies them:
             load_state_dict(): (epoch, unit cursor, row offset in the unit);
             a resumed iterator reproduces the rest of the stream byte for
             byte, mid-epoch, under sharding and shuffling.
+  SLO       `slo_wait_ms` attaches an AIMD controller (data/controller.py;
+            `controller=` passes a pre-built one) that moves the prefetch
+            depth, the pqt-data worker count and the readahead budget to
+            keep consumer waits under the SLO. It changes speed, never the
+            stream: nothing state_dict() holds depends on it.
 
-Cut, each raising plan.NotPortedError (a ValueError) that names the layer:
-`slo_wait_ms` / `controller` (data/controller.py and the metrics it reads),
-and a placement over several devices of one process (the reference's
-Sharding).
-dataset_counts() reads the counters the reference keeps in utils.metrics.
+Cut, raising plan.NotPortedError (a ValueError) that names the layer: a
+placement over several devices of one process (the reference's Sharding).
+dataset_counts() reads the counters the reference keeps in utils.metrics;
+the waits the controller steers on (dataset_wait_seconds and the pqt-data
+pool's pool_queue_wait_seconds) are observed into
+utils.instruments.INSTRUMENTS, the histograms it reads.
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ from ..io.planner import Readahead, plan_ranges
 from ..io.tiercache import TieredCache
 from ..kernels.pipeline import device_put_pipelined, to_device
 from ..meta.file_meta import ParquetFileError
+from ..utils.instruments import INSTRUMENTS
 from .plan import ScanPlan, build_plan, not_ported
 
 __all__ = ["ParquetDataset", "DatasetIterator", "dataset_counts", "reset_dataset_counts"]
@@ -80,8 +87,9 @@ _STATE_VERSION = 1
 
 # The counters the reference keeps in utils.metrics (dataset_batches_total,
 # dataset_rows_total, the dataset_wait_seconds histogram's count and sum,
-# dataset_units_row_filtered) and its prefetch-depth gauge (the units in
-# flight over every iterator). Process-wide: read with dataset_counts(),
+# dataset_units_row_filtered, dataset_slo_violations_total: the waits an
+# attached controller counted over its SLO) and its prefetch-depth gauge
+# (the units in flight over every iterator). Process-wide: read with dataset_counts(),
 # zero with reset_dataset_counts().
 _COUNTS: Counter = Counter()
 _COUNTS_LOCK = threading.Lock()
@@ -93,7 +101,9 @@ def _bump(name: str, n=1) -> None:
 
 
 def dataset_counts() -> dict:
-    """A snapshot of the dataset counters."""
+    """A snapshot of the dataset counters, with dataset_slo_violations_total
+    (the consumer waits an attached SLO controller counted over its SLO)
+    once there is one."""
     with _COUNTS_LOCK:
         return dict(_COUNTS)
 
@@ -112,6 +122,23 @@ def _observe_wait(seconds: float) -> None:
     with _COUNTS_LOCK:
         _COUNTS["wait_seconds_count"] += 1
         _COUNTS["wait_seconds_sum"] += seconds
+    INSTRUMENTS.observe("dataset_wait_seconds", seconds)
+
+
+def _inflight_add(n: int) -> None:
+    """Move the prefetch-depth gauge (the units in flight over every
+    iterator) by n."""
+    _bump("prefetch_depth", n)
+
+
+def _queued_task(t_submit: float, fn, args):
+    """A pqt-data task: its submit-to-start wait goes into
+    pool_queue_wait_seconds{pool="pqt-data"}, the controller's
+    scale-workers signal."""
+    INSTRUMENTS.observe(
+        "pool_queue_wait_seconds", time.perf_counter() - t_submit, pool="pqt-data"
+    )
+    return fn(*args)
 
 
 def _resolve_delivery(device) -> torch.device:
@@ -184,11 +211,6 @@ class ParquetDataset:
             raise ValueError("dataset: cache_bytes must be >= 0")
         if cache_disk_bytes < 0:
             raise ValueError("dataset: cache_disk_bytes must be >= 0")
-        if slo_wait_ms is not None or controller is not None:
-            raise not_ported(
-                "slo_wait_ms= / controller=",
-                "the SLO controller (data/controller.py) and the metrics it reads",
-            )
         self.paths_or_glob = paths_or_glob
         self.batch_size = int(batch_size)
         self.columns = list(columns) if columns is not None else None
@@ -250,6 +272,24 @@ class ParquetDataset:
             if self._block_cache is not None
             else None
         )
+        # the elastic SLO: slo_wait_ms attaches an AIMD controller that
+        # scales the prefetch depth, the pqt-data workers and the readahead
+        # budget to keep consumer waits under the SLO. Advisory only: it
+        # never touches anything state_dict() depends on, so resume stays
+        # byte-identical. A pre-built AIMDController (controller=) wins,
+        # which lets tests inject clocks and stores.
+        if controller is not None:
+            self._controller = controller
+        elif slo_wait_ms is not None:
+            from .controller import AIMDController
+
+            self._controller = AIMDController(
+                slo_wait_ms=slo_wait_ms,
+                initial_depth=max(1, self.prefetch),
+                max_depth=max(32, self.prefetch),
+            )
+        else:
+            self._controller = None
 
     @staticmethod
     def _resolve_split(spec, what: str) -> tuple[int, int]:
@@ -362,19 +402,43 @@ class ParquetDataset:
 
     def _worker_pool(self) -> ThreadPoolExecutor:
         """The dataset's own bounded decode pool ("pqt-data", sized
-        min(prefetch, PQT_DATA_THREADS or the cpu count)). Kept apart from
-        the reader's "pqt-host" prepare pool: unit tasks that fanned out into
-        the pool they run in would deadlock once it saturates."""
+        min(prefetch, PQT_DATA_THREADS or the cpu count), or the SLO
+        controller's worker target). Kept apart from the reader's
+        "pqt-host" prepare pool: unit tasks that fanned out into the pool
+        they run in would deadlock once it saturates."""
         with self._plan_lock:
             if self._closed:
                 raise RuntimeError("dataset: closed")
             if self._pool is None:
                 env = os.environ.get("PQT_DATA_THREADS")
                 cap = int(env) if env else (os.cpu_count() or 1)
+                if self._controller is not None:
+                    workers = self._controller.worker_target
+                else:
+                    workers = max(1, min(self.prefetch, cap))
                 self._pool = ThreadPoolExecutor(
-                    max_workers=max(1, min(self.prefetch, cap)), thread_name_prefix="pqt-data"
+                    max_workers=workers, thread_name_prefix="pqt-data"
                 )
             return self._pool
+
+    def _apply_controller_targets(self) -> None:
+        """Push the SLO controller's current targets onto the pool and the
+        readahead (called from the fetch loop after each control tick).
+        Growth takes effect on the next submit (the executor spawns threads
+        lazily up to _max_workers); a shrink is lazy: extra idle workers
+        park, and concurrency is already bounded by the prefetch window."""
+        ctl = self._controller
+        if ctl is None:
+            return
+        pool = self._pool
+        if pool is not None:
+            w = ctl.worker_target
+            # _max_workers is the executor's sizing knob in use; the
+            # standard library has no public resize
+            if w != pool._max_workers:
+                pool._max_workers = w
+        if self._readahead is not None:
+            self._readahead.budget_bytes = ctl.readahead_budget
 
     def io_stats(self) -> "dict | None":
         """The block cache's stats() (a TieredCache's carry its "ram" and
@@ -620,7 +684,8 @@ class DatasetIterator:
         up to `prefetch` units ahead on the pqt-data pool."""
         ds = self._ds
         units = ds.plan.units
-        depth = ds.prefetch
+        ctl = ds._controller
+        depth = ds.prefetch if ctl is None else ctl.prefetch_target
         if depth <= 0:
             for k in range(start_pos, len(order)):
                 off = start_off if k == start_pos else 0
@@ -653,15 +718,21 @@ class DatasetIterator:
                     ds._readahead.schedule(unit.path, ranges)
 
         def fill():
-            nonlocal nxt
+            nonlocal nxt, depth
+            if ctl is not None:
+                # re-read the target each refill: the controller moves it
+                # between batches, and the window follows it at once
+                depth = ctl.prefetch_target
             added = 0
             while nxt < len(order) and len(pending) < depth:
                 off = start_off if nxt == start_pos else 0
-                pending.append((nxt, off, pool.submit(self._load_unit, units[order[nxt]], off)))
+                unit = (units[order[nxt]], off)
+                fut = pool.submit(_queued_task, time.perf_counter(), self._load_unit, unit)
+                pending.append((nxt, off, fut))
                 nxt += 1
                 added += 1
             if added:
-                _bump("prefetch_depth", added)
+                _inflight_add(added)
             readahead()
 
         fill()
@@ -672,14 +743,20 @@ class DatasetIterator:
                 try:
                     cols, n = fut.result()
                 finally:
-                    _bump("prefetch_depth", -1)  # a popped unit always leaves the gauge
+                    _inflight_add(-1)  # a popped unit always leaves the gauge
                 _observe_wait(time.perf_counter() - t)
+                if ctl is not None:
+                    seen = ctl.violations
+                    if ctl.tick():
+                        if ctl.violations > seen:
+                            _bump("dataset_slo_violations_total", ctl.violations - seen)
+                        ds._apply_controller_targets()
                 fill()
                 if cols is not None and n > 0:
                     yield k, off, cols, n
         finally:
             if pending:
-                _bump("prefetch_depth", -len(pending))
+                _inflight_add(-len(pending))
             for _k, _o, fut in pending:
                 fut.cancel()
 

@@ -5,9 +5,11 @@ warm-cache planning (io.cache), projection/predicate push-down
 (data.plan + core.filter), bounded streaming execution (executor on the
 pqt-serve pool), aggregation push-down on the card (query_device +
 aggregate), admission control (queue depth, per-tenant budgets, deadlines,
-graceful drain), all behind a stdlib HTTP daemon (ScanServer). See each
-module's docstring; serve/server.py lists what the reference's
-observability hooks became.
+graceful drain), all behind a stdlib HTTP daemon (ScanServer), and the mesh (serve.mesh:
+MeshRouter scatters a request's units over a fleet of replicas, with
+failover, hedging and breakers in MeshClient). See each module's
+docstring; serve/server.py lists what the reference's observability hooks
+became.
 """
 
 from .admission import AdmissionController, Deadline  # noqa: F401
@@ -18,7 +20,12 @@ from .aggregate import (  # noqa: F401
     reset_query_device_counts,
     run_local_query,
 )
-from .counts import reset_serve_counts, serve_counts  # noqa: F401
+from .counts import (  # noqa: F401
+    mesh_counts,
+    reset_mesh_counts,
+    reset_serve_counts,
+    serve_counts,
+)
 from .executor import execute_query, execute_stream, serve_pool  # noqa: F401
 from .protocol import (  # noqa: F401
     AggregateSpec,
@@ -35,6 +42,16 @@ from .protocol import (  # noqa: F401
 from .query_device import DeviceQueryError, device_unit_partial  # noqa: F401
 from .server import ScanServer, ScanService, ServeConfig  # noqa: F401
 from .session import PlannedScan, ScanSession  # noqa: F401
+from .mesh import (  # noqa: F401  (after server: the router subclasses it)
+    HashRing,
+    MeshClient,
+    MeshConfig,
+    MeshError,
+    MeshRouter,
+    MeshService,
+    Replica,
+    ReplicaTable,
+)
 
 __all__ = [
     "ServeError",
@@ -66,4 +83,14 @@ __all__ = [
     "ServeConfig",
     "ScanServer",
     "ScanService",
+    "HashRing",
+    "MeshClient",
+    "MeshConfig",
+    "MeshError",
+    "MeshRouter",
+    "MeshService",
+    "Replica",
+    "ReplicaTable",
+    "mesh_counts",
+    "reset_mesh_counts",
 ]

@@ -105,7 +105,10 @@ def unit_count_partial(query: QueryRequest, num_rows: int):
 def _merge_value(op: str, a, b, typ):
     """Merge two partial values of one aggregate: counts add; sums wrap in
     64-bit two's complement in the domain of `typ` ("int64" or "uint64");
-    min/max compare; None (no matching rows) passes the other through."""
+    min/max compare; None (no matching rows) passes the other through.
+    An untyped pair (typ None: the mesh router's partials, parsed from
+    replica bodies) of integers merges as int64, the type pyarrow infers
+    for them in the reference's merge."""
     if op == "count":
         return int(a) + int(b)
     if a is None:
@@ -113,6 +116,10 @@ def _merge_value(op: str, a, b, typ):
     if b is None:
         return a
     if op == "sum":
+        if typ is None and all(
+            isinstance(v, int) and not isinstance(v, bool) for v in (a, b)
+        ):
+            typ = "int64"
         if typ not in ("int64", "uint64"):
             raise ServeError(500, "internal", f"sum partials of type {typ!r}")
         s = (int(a) + int(b)) & _M64

@@ -29,6 +29,26 @@ queue waits. `submit()` is the reference's instrumented_submit without the
 context carry: it records them around a plain executor submit, and
 AdmissionController's brownout and /v1/debug/vars read them through
 `serve_pool_stats()`.
+
+The mesh router (serve/mesh/) keeps its counts apart, in mesh_counts(),
+under the reference's mesh_* names:
+
+  mesh_requests_total{endpoint=,mode=}    routed requests (scatter or
+                                          passthrough)
+  mesh_scatter_units_total{endpoint=}     plan units fanned out
+  mesh_retries_total{reason=}             failed-over backend attempts
+  mesh_hedges_total{outcome=}             hedged duplicates and who won
+  mesh_partial_failures_total{target=}    requests that exhausted the fleet
+  mesh_replica_state_total{replica=,state=}  the reference's
+                                          mesh_replica_state gauge as a
+                                          count: one a passive note, under
+                                          the state the replica is in
+                                          after it (the current state is
+                                          ReplicaTable.snapshot()'s)
+
+and mesh_backend_requests_total{status=}, the router-to-replica round
+trips, which io.remote.pooled_roundtrip counts in io_counts() under the
+name the mesh client hands it; mesh_counts() shows them too.
 """
 
 from __future__ import annotations
@@ -44,9 +64,13 @@ __all__ = [
     "reset_serve_counts",
     "submit",
     "serve_pool_stats",
+    "mesh_count",
+    "mesh_counts",
+    "reset_mesh_counts",
 ]
 
 _COUNTS = LabelledCounts()
+_MESH = LabelledCounts()
 _LOCK = threading.Lock()  # guards _POOL
 
 POOL = "pqt-serve"
@@ -115,3 +139,27 @@ def serve_pool_stats() -> dict:
     depths)."""
     with _LOCK:
         return dict(_POOL)
+
+
+def mesh_count(name: str, n: int = 1, **labels) -> None:
+    """Add n to the mesh count `name` (with its labels)."""
+    _MESH.count(name, n, **labels)
+
+
+def mesh_counts() -> dict:
+    """A snapshot of every mesh count, the backend round trips included
+    (see the module docstring)."""
+    from ..io.counts import io_counts
+
+    out = _MESH.snapshot()
+    out.update(
+        (k, v) for k, v in io_counts().items()
+        if k.startswith("mesh_backend_requests_total")
+    )
+    return out
+
+
+def reset_mesh_counts() -> None:
+    """Zero the mesh counts (the backend round trips live in io_counts():
+    reset_io_counts() zeroes them)."""
+    _MESH.reset()

@@ -684,14 +684,20 @@ def render_metrics() -> str:
     samples = dict(_counts.serve_counts())
     for engine, n in query_device_counts().items():
         samples[_key("query_device_units_total", {"engine": engine})] = n
+    return render_counts(samples)
+
+
+def render_counts(samples: dict, helps: dict = _HELP) -> str:
+    """Counts keyed name{labels} as classic Prometheus counter families
+    (a `# HELP` line where `helps` names the family, then `# TYPE`)."""
     lines = []
     seen = set()
     for k in sorted(samples):
         fam = k.partition("{")[0]
         if fam not in seen:
             seen.add(fam)
-            if fam in _HELP:
-                lines.append(f"# HELP {_PREFIX}{fam} {_HELP[fam]}")
+            if fam in helps:
+                lines.append(f"# HELP {_PREFIX}{fam} {helps[fam]}")
             lines.append(f"# TYPE {_PREFIX}{fam} counter")
         lines.append(f"{_PREFIX}{k} {samples[k]}")
     return "\n".join(lines) + "\n"

@@ -343,7 +343,6 @@ class TestStream:
 
 
 CUTS = [
-    dict(slo_wait_ms=5.0), dict(controller=object()),
     dict(device=[torch.device("cpu"), torch.device("cpu")]),
 ]
 
