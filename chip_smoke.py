@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive parquet_tpu_torch's decode, batch, filter, write, query, scan, row, io, remote
-write, lake, serve and mesh paths on one CUDA card.
+write, lake, serve and mesh paths and its command-line tools on one CUDA card.
 
 Run from the repository root, on a machine with one NVIDIA card and the CUDA
 toolkit (nvcc):
@@ -236,9 +236,9 @@ Phases (any failure raises and the script exits non-zero):
               of latency with the default gap and coalesce_gap="auto", and
               the host read of three columns both ways; iter_device_batches
               over the URL equal to taxi_totals; ParquetDataset over the URL
-              for two epochs through a 256 MiB RAM + disk TieredCache and
-              through a 32 MiB RAM tier that spills, each warm epoch
-              reading 0 source bytes and equal to the cold one;
+              for two epochs through a 32 MiB RAM + disk TieredCache that
+              spills, the warm epoch reading 0 source bytes (the spilled
+              blocks from the disk tier) and equal to the cold one;
               the signed stub read with the registered SigV4Signer, and a
               typed SourceError (http_403) without it; a small CRC'd file
               with a corrupt chunk (a flipped byte; a lying footer size)
@@ -256,8 +256,8 @@ Phases (any failure raises and the script exits non-zero):
               GET, equal to the path write's file, one multipart initiate,
               ceil(size / 8 MiB) parts and one commit in io_counts(),
               FileReader(url).read_row_groups_device() equal to the
-              generator, and rows/s of the URL write against the path
-              write in turns; (b) the same write through ObjectStoreSink
+              generator, and rows/s of that URL write against one path
+              write; (b) the same write through ObjectStoreSink
               with a SigV4Signer to a signed stub, committing the same
               bytes, and an unsigned write there refused with
               SinkError(code="http_403"), no object left; (c) a LakeTable
@@ -331,6 +331,27 @@ Phases (any failure raises and the script exits non-zero):
               share, the controller's state(), units skipped, hedges and
               retries. Every daemon, proxy and router ends with 0 in flight
               and is closed;
+     tools    the command-line tools (check_tools), each run as
+              `python -m parquet_tpu_torch.tools.parquet_tool ...` in a
+              child process on the card, without --cpu, its launches read
+              back through PQT_LAUNCH_COUNTS, (a)-(c) at once, then (d),
+              (e), then (f)-(h) at once: (a) `profile` of taxi and of
+              taxi_mixed, whose Chrome traces hold the CUDA kernels of
+              expand_hybrid, delta_packed_decode and dict_gather (and
+              bss_transpose and both mixed merges), 8 row_group ranges and
+              every row; (b) `profile --device --filter F_taxi`: 996,784
+              rows matched and compacted, masked_agg, predicate_mask and
+              mask_take in the trace; (c) `scan --aggregate` of the query
+              phase's aggregates under F_taxi, byte-equal to
+              run_local_query's body in this process; (d) `scan` of taxi
+              (DATASET_COLUMNS) delivering every row to the card; (e)
+              `serve --port 0` and `route --replica` over it, their
+              /v1/query bodies equal to (c)'s, SIGTERM drained; (f)
+              verify, meta, rowcount and head -n 3 of taxi equal to this
+              process's FileReader; (g) csv2parquet of taxi's first 65,536
+              rows, read back equal; (h) both examples_torch/ scripts; (i)
+              a ZSTD write of taxi's group 0 read back on the card equal to
+              the path read, or the typed refusal where libzstd is missing;
   5. times    rows/s of the device reads and of the batch streams, filtered
               and not (the same call, both files), of the filtered read, of
               host decode + upload, of the device write against the host
@@ -390,7 +411,7 @@ The last three lines of standard output are a JSON line of the end-to-end
 rates, the host value functions' A/B seconds, the collectives' times, the
 overlap A/B, profile and dataset rates, the write-options phase's numbers,
 the rows phase's rates and seconds, the io phase's steps, the remote and
-lake phase's steps, the serve and mesh phases' numbers, and the card's
+lake phase's steps, the serve, mesh and tools phases' numbers, and the card's
 name and power limit, the
 `kernels` JSON line (21
 kernels) and the
@@ -553,11 +574,7 @@ def kernel_counts() -> dict:
     by kind, gather or validity scan (`leaf_verdict_by_kind`)."""
     from parquet_tpu_torch.kernels import device_ops as ops
 
-    counts = {k: fn.launches for k, fn in ops.KERNELS.items()}
-    counts["expand_hybrid_by_width"] = dict(ops.expand_hybrid.launches_by_width)
-    counts["dict_indices_by_width"] = dict(ops.dict_indices.launches_by_width)
-    counts["leaf_verdict_by_kind"] = dict(ops.leaf_verdict.launches_by_kind)
-    return counts
+    return ops.launch_counts()
 
 
 def hold_plain(rows: dict, name: str, label: str, got, plain) -> None:
@@ -4525,9 +4542,11 @@ def check_rows(taxi_path, sessions_path, sessions_specs, taxi_specs, f_taxi, tax
 
 IO_CREDENTIALS = ("smoke-key", "smoke-secret")
 IO_PROJECTION = ("trip_id", "fare_cents", "zone")
-# the dataset step's RAM tiers: one that holds taxi's projection (125 MB),
-# one that spills most of it to the disk tier
-IO_TIER_RAM = (256 << 20, 32 << 20)
+# the dataset step's RAM tier: it spills most of taxi's projection (125 MB)
+# to the disk tier, so its warm epoch holds every check a tier that holds
+# the projection would (0 source bytes, cache hits, equal batches) and the
+# disk tier's hits besides
+IO_TIER_RAM = (32 << 20,)
 
 
 def start_stub(root, latency_s: float = 0.0, credentials=None, writable: bool = False):
@@ -4615,10 +4634,9 @@ def check_io(paths: dict, dev, launches: dict, card: str) -> dict:
     of latency, the device read and the host read of IO_PROJECTION, each
     with the default coalesce gap and with "auto"; (c) iter_device_batches
     over the taxi URL, its totals equal to taxi_totals; (d) ParquetDataset
-    over the taxi URL for two epochs with a 256 MiB RAM cache and a disk
-    tier, then with a 32 MiB RAM tier that spills: each second epoch reads
-    no source byte (the spilled one from the disk tier) and its batches
-    equal the first's; (e) the read from a signed stub with the signer registered,
+    over the taxi URL for two epochs with a 32 MiB RAM tier that spills to
+    a disk tier: the second epoch reads no source byte (the spilled blocks
+    from the disk tier) and its batches equal the first's; (e) the read from a signed stub with the signer registered,
     equal to the path read, and a typed SourceError without it; (f) a
     small file with a corrupt chunk (a flipped byte, and a footer that
     lies about the chunk's size) under on_error "skip" and "null" (the
@@ -4741,7 +4759,7 @@ def check_io(paths: dict, dev, launches: dict, card: str) -> dict:
         log(f"[io:c] iter_device_batches over the URL: {n_batches} batches, totals equal the "
             "generator's")
         # (d) the dataset over the URL, two epochs through the tiered cache:
-        # a RAM tier that holds the projection, then one that spills it
+        # a RAM tier that spills the projection to the disk tier
         tier = root / "io-tier"
         out["tier"] = {}
         for ram in IO_TIER_RAM:
@@ -4772,6 +4790,8 @@ def check_io(paths: dict, dev, launches: dict, card: str) -> dict:
                 if warm_numbers["source_bytes"] != 0 or warm_numbers["cache_hits"] <= 0:
                     raise AssertionError(f"[io:d] the warm epoch read the source: {warm_numbers}")
                 spilled = out["tier"][f"{mib} MiB"]["disk"]["blocks"]
+                if not spilled:
+                    raise AssertionError(f"[io:d] {mib} MiB: the RAM tier spilled nothing")
                 if spilled and warm_numbers["disk_hits"] <= 0:
                     raise AssertionError(f"[io:d] {mib} MiB: {spilled} blocks spilled, no disk "
                                          f"tier hit: {warm_numbers}")
@@ -4974,8 +4994,8 @@ def check_remote_lake(paths, taxi_schema, dev_groups, dev_file, dev, launches: d
     back by one GET, equals the path write's file byte for byte; one
     multipart initiate, ceil(size / 8 MiB) parts and one commit in
     io_counts(); FileReader(url).read_row_groups_device() equals the
-    generator; rows/s of the URL write against the path write (turns: path,
-    URL, URL, path). (b) the same write through ObjectStoreSink with a
+    generator; rows/s of that URL write against one path write, whose file
+    must equal the device file. (b) the same write through ObjectStoreSink with a
     SigV4Signer to a stub started with --credentials commits the same
     bytes; an unsigned write there raises SinkError(code="http_403") and
     leaves no object. (c) the lake loop: a LakeTable with taxi's schema
@@ -5032,7 +5052,7 @@ def check_remote_lake(paths, taxi_schema, dev_groups, dev_file, dev, launches: d
         reset_io_counts()
         reset_write_counts()
         ops.reset_launch_counts()
-        secs = timed_write(url)
+        secs = first_url_s = timed_write(url)
         counts = kernel_counts()
         launches["remote taxi url write"] = counts
         io, wc = io_counts(), write_counts()
@@ -5075,12 +5095,11 @@ def check_remote_lake(paths, taxi_schema, dev_groups, dev_file, dev, launches: d
         log("[remote:a] FileReader(url).read_row_groups_device(): the columns equal the "
             "generator's")
         tmp = root / "remote-path-write.parquet"
-        turns = {"path": [], "url": []}
-        for k, way in enumerate(("path", "url", "url", "path")):
-            dest = tmp if way == "path" else f"{base}/remote-taxi-{k}.parquet"
-            turns[way].append(timed_write(dest))
+        # the URL side is the first write above; one path write beside it
+        turns = {"path": [timed_write(tmp)], "url": [first_url_s]}
         if tmp.read_bytes() != want:
-            raise AssertionError("[remote:a] the path write's file changed between writes")
+            raise AssertionError("[remote:a] the path write's file differs from the device "
+                                 "file")
         tmp.unlink()
         rates = {way: n_rows / statistics.median(s) for way, s in turns.items()}
         out["write_rows_per_s"] = rates
@@ -6095,6 +6114,479 @@ def check_mesh(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, ca
     return out
 
 
+# -- the command-line tools -----------------------------------------------------
+
+TOOL = ("-m", "parquet_tpu_torch.tools.parquet_tool")
+TOOLS_CSV_ROWS = 1 << 16
+TOOLS_SCAN_BATCH = 1 << 18
+TOOLS_TIMEOUT_S = 600.0  # bounds every child process of the phase
+
+
+def kernel_symbols() -> dict:
+    """{port kernel: the names of its __global__ functions}, read from its
+    source in kernels/csrc/: the names the profiler's kernel events carry
+    (demangled, or length-prefixed in a mangled name)."""
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    csrc = ROOT / "parquet_tpu_torch" / "kernels" / "csrc"
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+    return {k: set(pat.findall((csrc / f"{k}.cu").read_text())) for k in ops.KERNELS
+            if (csrc / f"{k}.cu").exists()}
+
+
+def trace_kernels(trace_path, symbols: dict) -> collections.Counter:
+    """The CUDA kernel events of a Chrome trace, by the port kernel whose
+    source defines the function: a name that more than one kernel defines
+    counts under "a|b" (the caller settles it with the launch counts);
+    another library's kernel under "other"."""
+    events = json.loads(Path(trace_path).read_text()).get("traceEvents", [])
+    out: collections.Counter = collections.Counter()
+    for e in events:
+        if e.get("cat") != "kernel" or e.get("ph") != "X":
+            continue
+        name = e.get("name", "")
+        hits = sorted(
+            k for k, names in symbols.items()
+            if any(re.search(rf"(?<![\w]){n}(?:<|\()", name)
+                   or (name.startswith("_Z") and f"{len(n)}{n}" in name) for n in names))
+        out["|".join(hits) if hits else "other"] += 1
+    return out
+
+
+def in_trace(kernel: str, kinds: collections.Counter, counts: dict) -> bool:
+    """True when the trace holds an event of `kernel`: under its own name,
+    or under a name it shares with kernels that did not launch in the run."""
+    for key, n in kinds.items():
+        names = key.split("|")
+        if n and kernel in names and all(counts.get(k, 0) == 0 for k in names if k != kernel):
+            return True
+    return False
+
+
+def run_tool(args, counts_dir: Path, label: str, *, prog=TOOL,
+             timeout: float = TOOLS_TIMEOUT_S) -> tuple:
+    """One child process, `python <prog> <args>` (the tool by default), with
+    its launch counts written to counts_dir/<label>.counts.json at exit: (exit
+    code, stdout, stderr, seconds, launch counts)."""
+    argv = [sys.executable, *prog, *args]
+    env = dict(os.environ, PQT_LAUNCH_COUNTS=str(counts_dir / f"{label}.counts.json"))
+    t = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+                          env=env)
+    secs = time.perf_counter() - t
+    return proc.returncode, proc.stdout, proc.stderr, secs, child_counts(counts_dir, label)
+
+
+def child_counts(counts_dir: Path, label: str) -> dict:
+    """A child's launch counts (PQT_LAUNCH_COUNTS), in kernel_counts()'s
+    shape; zeros for a child that imported no kernel wrapper."""
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    path = counts_dir / f"{label}.counts.json"
+    if not path.exists():
+        return {k: 0 for k in ops.KERNELS} | {"expand_hybrid_by_width": {},
+                                               "dict_indices_by_width": {},
+                                               "leaf_verdict_by_kind": {}}
+    c = json.loads(path.read_text())
+    for k in ("expand_hybrid_by_width", "dict_indices_by_width"):
+        c[k] = {int(w): n for w, n in c[k].items()}
+    return c
+
+
+def add_counts(total: dict, c: dict) -> None:
+    for k, v in c.items():
+        if isinstance(v, dict):
+            sub = total.setdefault(k, {})
+            for w, n in v.items():
+                sub[w] = sub.get(w, 0) + n
+        else:
+            total[k] = total.get(k, 0) + v
+
+
+def start_tool(args, counts_dir: Path, label: str):
+    """A long-running child of the tool (serve, route), its stdout a pipe;
+    its launches go to counts_dir/<label>.counts.json when it exits."""
+    env = dict(os.environ, PQT_LAUNCH_COUNTS=str(counts_dir / f"{label}.counts.json"))
+    err = open(counts_dir / f"{label}.err", "w")
+    proc = subprocess.Popen([sys.executable, *TOOL, *args], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=err, text=True, env=env)
+    err.close()
+    return proc
+
+
+def tool_line(proc, what: str, timeout: float = TOOLS_TIMEOUT_S) -> str:
+    """The next stdout line of a child started by start_tool."""
+    import select
+
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    line = proc.stdout.readline() if ready else ""
+    if not line:
+        raise AssertionError(f"[tools] {what}: no line (exit {proc.poll()})")
+    return line.rstrip("\n")
+
+
+def stop_tool(proc, what: str) -> tuple:
+    """SIGTERM a child started by start_tool: (exit code, the rest of its
+    stdout). A child that does not end in time is killed and fails the run."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        raise AssertionError(f"[tools] {what} did not drain within 60 s") from None
+    return rc, proc.stdout.read()
+
+
+def check_tools(paths: dict, taxi_specs, f_taxi, taxi_keep, host_group0: dict, taxi_schema,
+                dev, launches: dict, card: str) -> dict:
+    """The tools phase: parquet-tool, csv2parquet and the examples_torch/
+    scripts in child processes on the card, none with --cpu, each child's
+    launches read back through PQT_LAUNCH_COUNTS and added, with this
+    process's own, under the "tools" label; (a)-(c) run at once, then (d)
+    and (e) alone, then (f)-(h) at once. (a) `profile taxi -o trace`:
+    its Chrome trace holds CUDA kernel events of expand_hybrid,
+    delta_packed_decode and dict_gather (named from their sources), 8
+    `row_group` ranges, and the summary line counts every row; `profile
+    taxi_mixed` holds bss_transpose and both mixed merges. (b) `profile
+    taxi --device --filter F_taxi`: taxi_keep's rows matched and
+    compacted, masked_agg, predicate_mask and mask_take in the trace, the
+    device mask engine on every admitted group. (c) `scan --aggregate` of
+    query_aggregates() with `--filters` F_taxi: stdout byte-equal to
+    render_query_body(run_local_query(...)) in this process. (d) `scan`
+    of taxi's DATASET_COLUMNS at TOOLS_SCAN_BATCH rows a batch: every row
+    delivered, the wait share printed. (e) `serve --port 0 --root` the
+    smoke directory and `route --replica` its URL, started at the phase's
+    start: one /v1/query each, both bodies equal to (c)'s; SIGTERM to
+    both, each printing `serve: drained, bye` and exiting 0. (f) `verify`,
+    `meta`, `rowcount` and `head -n 3` of taxi, run together: verify
+    finds every page clean, meta and rowcount equal this process's own
+    run of the same code over FileReader, head equals FileReader's first
+    3 rows. (g) csv2parquet of taxi's first TOOLS_CSV_ROWS rows (written
+    here to CSV): the file reads back equal to them. (h) both examples_torch/
+    scripts on the card, run beside (f) and (g). (i) where the native ZSTD codec built:
+    taxi's group 0 written with FileWriter(codec="zstd"), read back on the
+    card equal to the path read of group 0; where it did not, the typed
+    refusal printed. Prints each step's wall time beside `card`; returns
+    the numbers."""
+    import contextlib
+    import csv
+    import io
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    from parquet_tpu_torch.core import compress
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.meta.parquet_types import CompressionCodec
+    from parquet_tpu_torch.serve import render_query_body
+    from parquet_tpu_torch.serve.protocol import json_default
+    from parquet_tpu_torch.tools import parquet_tool
+
+    t_phase = time.perf_counter()
+    taxi_path = paths["taxi"][0]
+    mixed_path = paths["taxi_mixed"][0]
+    root = taxi_path.parent
+    n_rows = ROW_GROUPS * RG_ROWS
+    keep = int(taxi_keep.sum())
+    out: dict = {"seconds": {}}
+    total: dict = {}
+    symbols = kernel_symbols()
+    flt = json.dumps([[list(t) for t in conj] for conj in f_taxi])
+    spec = ["count", ["count", "passenger_count"]]
+    for c in QUERY_COLUMNS:
+        spec += [["sum", c], ["min", c], ["max", c]]
+    ops.reset_launch_counts()
+    want_body = render_query_body(run_query(taxi_path, f_taxi))
+    work = Path(tempfile.mkdtemp(prefix="tools-", dir=root))
+    daemons = []
+
+    def step(label: str, secs: float, extra: str = "") -> None:
+        out["seconds"][label] = secs
+        log(f"[tools] {label}: {secs:.2f} s{extra} | {card}")
+
+    def ok(label, rc, stdout, stderr):
+        if rc != 0:
+            raise AssertionError(f"[tools] {label}: exit {rc}\n{stdout[-3000:]}\n{stderr[-3000:]}")
+
+    try:
+        # (e) the daemon and the router start now: their start-up overlaps (a)-(d)
+        t_start = time.perf_counter()
+        daemon = start_tool(["serve", "--port", "0", "--root", str(root)], work, "serve")
+        daemons.append(daemon)
+        line = tool_line(daemon, "serve")
+        if not line.startswith("serve: listening on http://"):
+            raise AssertionError(f"[tools:e] serve printed {line!r}")
+        url = line.split()[-1]
+        router = start_tool(["route", "--port", "0", "--replica", url], work, "route")
+        daemons.append(router)
+        daemon_up = time.perf_counter() - t_start
+
+        # (a), (b) and (c) run at once, each in a child of its own (a
+        # profile's trace holds its own process's kernels only)
+        from concurrent.futures import ThreadPoolExecutor
+
+        profiles = {
+            "profile taxi": (taxi_path, ("expand_hybrid", "delta_packed_decode",
+                                         "dict_gather")),
+            "profile taxi_mixed": (mixed_path, ("expand_hybrid", "bss_transpose",
+                                                "merge_mixed_numeric", "merge_mixed_bytes")),
+        }
+        traces = {label: work / f"{label.replace(' ', '-')}.trace.json"
+                  for label in (*profiles, "profile --device")}
+        t = time.perf_counter()
+        with ThreadPoolExecutor(len(profiles) + 2) as pool:
+            futs = {label: pool.submit(run_tool, ["profile", str(path), "-o",
+                                                  str(traces[label]), "--metrics"],
+                                       work, label.replace(" ", "-"))
+                    for label, (path, _need) in profiles.items()}
+            futs["profile --device"] = pool.submit(
+                run_tool, ["profile", str(taxi_path), "-o", str(traces["profile --device"]),
+                           "--device", "--filter", flt], work, "profile-device")
+            futs["scan --aggregate"] = pool.submit(
+                run_tool, ["scan", str(taxi_path), "--aggregate", json.dumps(spec),
+                           "--filters", flt], work, "scan-aggregate")
+            res = {k: f.result() for k, f in futs.items()}
+        out["together_abc_s"] = time.perf_counter() - t
+        for label, (rc, so, se, _secs, c) in res.items():
+            ok(label, rc, so, se)
+            add_counts(total, c)
+
+        # (a) profile of taxi and of taxi_mixed
+        for label, (path, need) in profiles.items():
+            rc, so, se, secs, c = res[label]
+            trace = traces[label]
+            kinds = trace_kernels(trace, symbols)
+            events = json.loads(trace.read_text())["traceEvents"]
+            ranges = [e["name"] for e in events
+                      if e.get("cat") == "user_annotation" and e.get("ph") == "X"]
+            groups = sorted(n for n in ranges if n.startswith("row_group "))
+            m = re.search(r"profile: ([\d,]+) rows via backend=device, (\d+) trace "
+                          r"events", so)
+            rows = int(m.group(1).replace(",", "")) if m else None
+            step(label, secs, f" (run beside (b) and (c)); {rows} rows, {len(events)} trace "
+                 f"events, kernels in the trace {dict(sorted(kinds.items()))}; launches "
+                 + ", ".join(f"{k}={v}" for k, v in c.items() if isinstance(v, int) and v))
+            if rows != n_rows:
+                raise AssertionError(f"[tools:a] {label}: {rows} rows decoded, not {n_rows}")
+            if groups != [f"row_group {i}" for i in range(ROW_GROUPS)] or ranges.count("file") != 1:
+                raise AssertionError(f"[tools:a] {label}: ranges {ranges}")
+            for k in need:
+                if c[k] <= 0 or not in_trace(k, kinds, c):
+                    raise AssertionError(f"[tools:a] {label}: {k} launched {c[k]} times, "
+                                         f"trace kernels {dict(kinds)}")
+            if "kernel launches: " not in so or f"launches.{need[0]} = {c[need[0]]}" not in so:
+                raise AssertionError(f"[tools:a] {label}: --metrics does not show the launches")
+            out[label] = {"rows": rows, "events": len(events), "kernels": dict(kinds)}
+
+        # (b) profile --device under F_taxi
+        rc, so, se, secs, c = res["profile --device"]
+        kinds = trace_kernels(traces["profile --device"], symbols)
+        step("profile --device F_taxi", secs, f" (run beside (a) and (c)); kernels in the trace "
+             f"{dict(sorted(kinds.items()))}; " + so.strip().splitlines()[-2][:200])
+        want = (f"-> {keep:,} matched (aggregate lane: device), {keep:,} rows compacted into "
+                "filtered batches")
+        if want not in so or not re.search(r"profile: mask engine device=[1-9]\d* "
+                                           r"host_fallback=0\n", so):
+            raise AssertionError(f"[tools:b] profile --device printed:\n{so[-1500:]}")
+        for k in ("masked_agg", "predicate_mask", "mask_take"):
+            if c[k] <= 0 or not in_trace(k, kinds, c):
+                raise AssertionError(f"[tools:b] {k} launched {c[k]} times, trace kernels "
+                                     f"{dict(kinds)}")
+        out["profile --device"] = {"matched": keep, "kernels": dict(kinds)}
+
+        # (c) scan --aggregate: the daemon's canonical body, from the CLI
+        rc, so, se, secs, c = res["scan --aggregate"]
+        step("scan --aggregate F_taxi", secs, f" (run beside (a) and (b)); {len(so)} bytes, "
+             f"byte-equal to run_local_query's: {so.encode() == want_body}; launches "
+             f"masked_agg={c['masked_agg']}, mask_take={c['mask_take']}")
+        if so.encode() != want_body:
+            raise AssertionError(f"[tools:c] scan --aggregate printed {so!r}, "
+                                 f"run_local_query renders {want_body!r}")
+        if json.loads(so)["rows_matched"] != keep or c["masked_agg"] <= 0:
+            raise AssertionError(f"[tools:c] {so[:300]} launches {c}")
+
+        # (d) scan: CUDA delivery of every row
+        rc, so, se, secs, c = run_tool(["scan", str(taxi_path), "--columns",
+                                        ",".join(DATASET_COLUMNS), "--batch-size",
+                                        str(TOOLS_SCAN_BATCH), "--json"], work, "scan")
+        ok("scan", rc, so, se)
+        add_counts(total, c)
+        doc = json.loads(so.strip().splitlines()[-1])
+        wait_line = next(ln for ln in so.splitlines() if ln.startswith("scan: wait"))
+        step("scan taxi", secs, f"; {doc['rows']} rows in {doc['batches']} batches, "
+             f"{doc['rows_s']:,.0f} rows/s, {wait_line}")
+        if doc["rows"] != n_rows or doc["batches"] != -(-n_rows // TOOLS_SCAN_BATCH):
+            raise AssertionError(f"[tools:d] scan delivered {doc}")
+        out["scan"] = {k: doc[k] for k in ("rows", "batches", "rows_s", "wait_share", "wall_s")}
+
+        # (e) the daemon and the router
+        line = tool_line(router, "route")
+        if not line.startswith("serve: listening on http://"):
+            raise AssertionError(f"[tools:e] route printed {line!r}")
+        router_url = line.split()[-1]
+        body = json.dumps({"paths": [taxi_path.name], "aggregates": spec,
+                           "filters": json.loads(flt)}).encode()
+        got = {}
+        for label, base in (("serve", url), ("route", router_url)):
+            t = time.perf_counter()
+            req = urllib.request.Request(base + "/v1/query", data=body, method="POST")
+            got[label] = urllib.request.urlopen(req, timeout=TOOLS_TIMEOUT_S).read()
+            got[label + " s"] = time.perf_counter() - t
+        ends = {}
+        for label, proc in (("route", router), ("serve", daemon)):
+            rc, rest = stop_tool(proc, label)
+            daemons.remove(proc)
+            ends[label] = (rc, rest.strip().splitlines()[-1:])
+            if rc != 0 or rest.strip().splitlines()[-1:] != ["serve: drained, bye"]:
+                raise AssertionError(f"[tools:e] {label} ended {rc}: {rest!r}")
+        c = child_counts(work, "serve")
+        add_counts(total, c)
+        step("serve + route", daemon_up, f" to the daemon's listening line; /v1/query "
+             f"{got['serve s']:.3f} s direct, {got['route s']:.3f} s routed, both bodies "
+             f"equal to (c)'s: {got['serve'] == got['route'] == want_body}; SIGTERM: {ends}; "
+             f"daemon launches masked_agg={c['masked_agg']}")
+        if not got["serve"] == got["route"] == want_body:
+            raise AssertionError(f"[tools:e] bodies {got['serve']!r} / {got['route']!r}")
+        out["serve"] = {"query_s": got["serve s"], "routed_s": got["route s"],
+                        "start_s": daemon_up}
+
+        # (f), (g) and (h): the host subcommands, csv2parquet and the two
+        # examples on the card, all at once
+        rows = taxi_rows(taxi_specs, TOOLS_CSV_ROWS)
+        csv_path = work / "taxi.csv"
+        with open(csv_path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(list(rows[0]))
+            for r in rows:
+                w.writerow(["" if v is None else repr(v) if isinstance(v, float) else v
+                            for v in r.values()])
+        csv_out = work / "taxi-csv.parquet"
+        hints = ("trip_id=int64,vendor_id=int32,passenger_count=int32,pickup_us=int64,"
+                 "fare_cents=int32,trip_distance=double")
+        host_runs = {
+            "verify": ["verify", str(taxi_path)],
+            "meta": ["meta", str(taxi_path)],
+            "rowcount": ["rowcount", str(taxi_path)],
+            "head": ["head", "-n", "3", str(taxi_path)],
+        }
+        examples = ("train_loop.py", "streaming_train_loop.py")
+        t = time.perf_counter()
+        with ThreadPoolExecutor(len(host_runs) + 1 + len(examples)) as pool:
+            futs = {k: pool.submit(run_tool, a, work, k) for k, a in host_runs.items()}
+            futs["csv2parquet"] = pool.submit(
+                run_tool, ["-typehints", hints, "-o", str(csv_out), str(csv_path)], work,
+                "csv2parquet", prog=("-m", "parquet_tpu_torch.tools.csv2parquet"))
+            for name in examples:
+                futs[name] = pool.submit(run_tool, [], work, name.removesuffix(".py"),
+                                         prog=(str(ROOT / "examples_torch" / name),))
+            res = {k: f.result() for k, f in futs.items()}
+        host_secs = time.perf_counter() - t
+        for k, (rc, so, se, secs, c) in res.items():
+            if k != "verify":
+                ok(k, rc, so, se)
+            add_counts(total, c)
+
+        def own(argv):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = parquet_tool.main(argv)
+            return rc, buf.getvalue()
+
+        with FileReader(taxi_path, device="cpu") as r:
+            head = "".join(json.dumps(row, default=json_default) + "\n"
+                           for row, _ in zip(r.iter_rows(), range(3)))
+            num_rows = r.num_rows
+        checks = {
+            "verify": res["verify"][:2] == (0, "OK: every page decodes cleanly\n"),
+            "meta": res["meta"][1] == own(host_runs["meta"])[1],
+            "rowcount": res["rowcount"][1] == f"{num_rows}\n" and num_rows == n_rows,
+            "head": res["head"][1] == head,
+        }
+        for k in host_runs:
+            step(k, res[k][3], f" (run beside the others); equal: {checks[k]}")
+        if not all(checks.values()):
+            raise AssertionError(f"[tools:f] {checks}: " + "; ".join(
+                f"{k}: {res[k][1][:300]!r}" for k, v in checks.items() if not v))
+        with FileReader(csv_out, device="cpu") as r:
+            back = list(r.iter_rows())
+        step("csv2parquet", res["csv2parquet"][3], f"; {TOOLS_CSV_ROWS} rows, "
+             f"{csv_out.stat().st_size:,} bytes, read back equal: {back == rows}")
+        if back != rows:
+            bad = next(i for i, (a, b) in enumerate(zip(back, rows)) if a != b) if len(
+                back) == len(rows) else None
+            raise AssertionError(f"[tools:g] csv2parquet read back {len(back)} rows; first "
+                                 f"difference at {bad}")
+        out["together"] = {k: res[k][3] for k in res} | {"wall_s": host_secs}
+
+        # (h) the examples (run beside (f) and (g))
+        for name in examples:
+            rc, so, se, secs, c = res[name]
+            step(f"examples_torch/{name}", secs, " (run beside the others); "
+                 + so.strip().splitlines()[-1][:160] + "; launches "
+                 + (", ".join(f"{k}={v}" for k, v in c.items() if isinstance(v, int) and v)
+                    or "none"))
+            if "on cuda" not in so:
+                raise AssertionError(f"[tools:h] {name} did not run on the card:\n{so}")
+
+        # (i) the native ZSTD codec
+        zstd = compress._REGISTRY.get(int(CompressionCodec.ZSTD))
+        try:
+            zstd.lib()
+            version = zstd.version()
+        except compress.CompressionError as e:
+            import ctypes.util
+
+            runtime = ctypes.util.find_library("zstd")
+            out["zstd"] = {"refused": str(e).splitlines()[0], "runtime_library": runtime}
+            log(f"[tools:i] ZSTD is not available on this host (the typed refusal): "
+                f"{str(e).splitlines()[0]}; the runtime library: {runtime}")
+        else:
+            # the same group written SNAPPY, as the write phase writes it:
+            # both files read on the card must give the same columns
+            zpath, spath = work / "taxi-zstd.parquet", work / "taxi-snappy.parquet"
+            write_taxi(spath, taxi_schema, [host_group0], device=False)
+            t = time.perf_counter()
+            write_taxi(zpath, taxi_schema, [host_group0], device=False, codec="zstd")
+            w_secs = time.perf_counter() - t
+            t = time.perf_counter()
+            with FileReader(zpath) as r:
+                got_z = [r.read_row_group_device(0)]
+                codecs = {cc.meta_data.codec for cc in r.row_group(0).columns}
+            torch.cuda.synchronize()
+            r_secs = time.perf_counter() - t
+            with FileReader(spath) as r:
+                want_z = [r.read_row_group_device(0)]
+            equal = groups_equal(got_z, want_z)
+            step("zstd write + read", w_secs + r_secs, f"; libzstd {version}: group 0 "
+                 f"written in {w_secs:.2f} s ({zpath.stat().st_size:,} bytes, SNAPPY "
+                 f"{spath.stat().st_size:,}), read on the card in {r_secs:.2f} s, equal to "
+                 f"the SNAPPY file's read: {equal}")
+            if not equal or codecs != {int(CompressionCodec.ZSTD)}:
+                raise AssertionError(f"[tools:i] the ZSTD file's group 0 differs on the card "
+                                     f"(codecs {codecs})")
+            out["zstd"] = {"version": version, "write_s": w_secs, "read_s": r_secs,
+                           "bytes": zpath.stat().st_size}
+            del got_z, want_z
+    finally:
+        for proc in daemons:
+            proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(work, ignore_errors=True)
+    add_counts(total, kernel_counts())
+    launches["tools"] = total
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tools] the tools phase: {out['phase_s']:.1f} s; launches "
+        + ", ".join(f"{k}={v}" for k, v in total.items() if isinstance(v, int) and v)
+        + f" | {card}")
+    return out
+
+
 def smoke_dir() -> Path:
     """The directory of the cached main-path files."""
     from parquet_tpu_torch.kernels.build import BUILD_ROOT
@@ -6480,6 +6972,8 @@ def main(argv=None) -> int:
     remote_phase = check_remote_lake(paths, taxi_schema, dev_groups, dev_file, dev, launches, smi)
     serve_phase = check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches, smi)
     mesh_phase = check_mesh(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches, smi)
+    tools_phase = check_tools(paths, taxi_specs, f_taxi, taxi_keep, host_groups[0], taxi_schema,
+                              dev, launches, smi)
     for k in rows:
         rows[k]["launches"] = sum(c[k] for c in launches.values())
         rows[k]["launches_by_path"] = {label: c[k] for label, c in launches.items()}
@@ -6631,6 +7125,7 @@ def main(argv=None) -> int:
                       "collectives": scan["collectives"], "overlap": overlap,
                       "write_options": write_options, "rows": rows_phase, "io": io_phase,
                       "remote": remote_phase, "serve": serve_phase, "mesh": mesh_phase,
+                      "tools": tools_phase,
                       "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

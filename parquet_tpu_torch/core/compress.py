@@ -6,13 +6,18 @@ expected size before use (reference: compress.go:102-123). Built in:
 UNCOMPRESSED and GZIP from the standard library, and SNAPPY, LZ4_RAW and the
 legacy LZ4 codec (Hadoop framing on write; framed or bare raw blocks on
 read, parquet-cpp's contract) over the port's host library
-(utils/native.py, built on first use). ZSTD, BROTLI and LZO raise the typed
-"codec not registered" CompressionError unless the caller registers an
-implementation with register_codec.
+(utils/native.py, built on first use), and ZSTD over the system's libzstd
+(native/zstd.cc, its own small library, built at the first ZSTD use by
+kernels/host_build.load_zstd). Where zstd.h or libzstd is missing, ZSTD
+raises the typed "codec not registered" CompressionError, naming what is
+missing; BROTLI and LZO always do. A codec the caller registers with
+register_codec takes precedence over the built-in one.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
 import zlib
 
 from ..meta.file_meta import ParquetFileError
@@ -135,11 +140,84 @@ class _Lz4Hadoop(_Codec):
         return _native().lz4_decompress(data, uncompressed_size, hadoop=True)
 
 
+class _NativeZstd(_Codec):
+    """ZSTD (codec 6) over libzstd (native/zstd.cc): level 3 with the
+    content size in the frame, as the reference's zstandard
+    ZstdCompressor() writes it. Each pqt-host thread compresses and
+    decompresses with its own libzstd context. The library builds at the
+    first call; where it cannot, every call raises the typed "not
+    registered" CompressionError naming the missing header or library."""
+
+    name = "ZSTD"
+    LEVEL = 3  # zstandard.ZstdCompressor()'s default
+
+    def __init__(self):
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def lib(self):
+        if self._lib is None:
+            from ..kernels.host_build import HostBuildError, load_zstd
+
+            with self._lock:
+                try:
+                    lib = load_zstd()
+                except HostBuildError as e:
+                    why = str(e).splitlines()[0]
+                    raise CompressionError(
+                        f"compression codec ZSTD not registered: {why} "
+                        "(use parquet_tpu_torch.core.compress.register_codec)"
+                    ) from None
+                ll, p = ctypes.c_longlong, ctypes.c_char_p
+                lib.ptq_zstd_bound.argtypes = [ll]
+                lib.ptq_zstd_bound.restype = ll
+                lib.ptq_zstd_compress.argtypes = [p, ll, ctypes.c_void_p, ll, ctypes.c_int]
+                lib.ptq_zstd_compress.restype = ll
+                lib.ptq_zstd_decompress.argtypes = [p, ll, ctypes.c_void_p, ll]
+                lib.ptq_zstd_decompress.restype = ll
+                lib.ptq_zstd_error.argtypes = []
+                lib.ptq_zstd_error.restype = ctypes.c_char_p
+                lib.ptq_zstd_version.argtypes = []
+                lib.ptq_zstd_version.restype = ctypes.c_uint
+                self._lib = lib
+        return self._lib
+
+    def available(self) -> bool:
+        try:
+            self.lib()
+        except CompressionError:
+            return False
+        return True
+
+    def version(self) -> str:
+        v = self.lib().ptq_zstd_version()
+        return f"{v // 10000}.{v // 100 % 100}.{v % 100}"
+
+    def compress(self, data):
+        lib = self.lib()
+        data = bytes(data)
+        cap = lib.ptq_zstd_bound(len(data))
+        out = ctypes.create_string_buffer(cap)
+        n = lib.ptq_zstd_compress(data, len(data), out, cap, self.LEVEL)
+        if n < 0:
+            raise CompressionError(f"zstd compression failed: {lib.ptq_zstd_error().decode()}")
+        return out.raw[:n]
+
+    def decompress(self, data, uncompressed_size):
+        lib = self.lib()
+        out = ctypes.create_string_buffer(max(uncompressed_size, 1))
+        n = lib.ptq_zstd_decompress(bytes(data), len(data), out, uncompressed_size)
+        if n < 0:
+            raise CompressionError(f"zstd decompression failed: {lib.ptq_zstd_error().decode()}")
+        return out.raw[:n]
+
+
 _REGISTRY: dict = {
     int(CompressionCodec.UNCOMPRESSED): _Uncompressed(),
     int(CompressionCodec.GZIP): _Gzip(),
     int(CompressionCodec.SNAPPY): _NativeSnappy(),
     int(CompressionCodec.LZ4_RAW): _NativeLz4Raw(),
+    int(CompressionCodec.ZSTD): _NativeZstd(),
 }
 _REGISTRY[int(CompressionCodec.LZ4)] = _Lz4Hadoop(_REGISTRY[int(CompressionCodec.LZ4_RAW)])
 
@@ -151,7 +229,8 @@ def register_codec(codec: CompressionCodec, impl) -> None:
 
 
 def codec_supported(codec: CompressionCodec) -> bool:
-    return int(codec) in _REGISTRY
+    impl = _REGISTRY.get(int(codec))
+    return impl is not None and (not isinstance(impl, _NativeZstd) or impl.available())
 
 
 _GZIP_FUSED_OK: bool | None = None

@@ -23,7 +23,10 @@ compute in int64 lanes with explicit masks.
 
 from __future__ import annotations
 
+import atexit
+import json
 import math
+import os
 import threading
 
 import numpy as np
@@ -2242,3 +2245,28 @@ def reset_launch_counts() -> None:
     expand_hybrid.launches_by_width = {}
     dict_indices.launches_by_width = {}
     leaf_verdict.launches_by_kind = {}
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since the last reset_launch_counts, with
+    expand_hybrid's by bit width (`expand_hybrid_by_width`), dict_indices'
+    by key width (`dict_indices_by_width`) and leaf_verdict's by kind
+    (`leaf_verdict_by_kind`)."""
+    with _COUNT_LOCK:
+        counts = {k: fn.launches for k, fn in KERNELS.items()}
+        counts["expand_hybrid_by_width"] = dict(expand_hybrid.launches_by_width)
+        counts["dict_indices_by_width"] = dict(dict_indices.launches_by_width)
+        counts["leaf_verdict_by_kind"] = dict(leaf_verdict.launches_by_kind)
+    return counts
+
+
+def _write_launch_counts(path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(launch_counts(), f)
+
+
+# PQT_LAUNCH_COUNTS=<path>: the process writes launch_counts() to <path> as
+# JSON when it exits, so a parent reads the launches of the processes it
+# starts (chip_smoke.py's tools phase runs parquet-tool in child processes)
+if os.environ.get("PQT_LAUNCH_COUNTS"):
+    atexit.register(_write_launch_counts, os.environ["PQT_LAUNCH_COUNTS"])

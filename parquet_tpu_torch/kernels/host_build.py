@@ -11,7 +11,13 @@ and the flags, under the same lock scheme as the CUDA library
 (kernels/build.py). It needs a C++ compiler and zlib, and no card: the CPU
 tests build and run it too. A failed build raises `HostBuildError`.
 
-Nothing here runs at import: `load()` builds on first use.
+The ZSTD codec is a second, separate library: `native/zstd.cc` compiles
+alone with `-lzstd` into `libpqt_zstd.so` in a `zstd-<key>/` directory
+beside it (`load_zstd()`, at the first ZSTD use), so that a host without
+libzstd's header or library loses the ZSTD codec only, never the host
+library.
+
+Nothing here runs at import: `load()` and `load_zstd()` build on first use.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from pathlib import Path
 
 from .build import BUILD_ROOT
 
-__all__ = ["HostBuildError", "load"]
+__all__ = ["HostBuildError", "load", "load_zstd"]
 
 NATIVE = Path(__file__).resolve().parents[1] / "native"
 SOURCES = ("prepare.cc", "values.cc", "encode.cc", "prepare.h", "encode.h", "bits.h")
@@ -36,9 +42,14 @@ CXX_SOURCES = ("prepare.cc", "values.cc")
 ENCODE_SOURCES = ("encode.cc",)
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 LIB_NAME = "libpqt_host.so"
+ZSTD_SOURCES = ("zstd.cc",)
+ZSTD_LIB_NAME = "libpqt_zstd.so"
 
 _lib = None
 _lib_lock = threading.Lock()
+_zstd = None
+_zstd_error: "HostBuildError | None" = None
+_zstd_lock = threading.Lock()
 
 
 class HostBuildError(RuntimeError):
@@ -53,24 +64,48 @@ def _cxx() -> str:
     raise HostBuildError("no C++ compiler (g++) found to build the host library")
 
 
-def _key() -> str:
+def _key(sources=SOURCES) -> str:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for name in SOURCES:
+    for name in sources:
         h.update(name.encode())
         h.update((NATIVE / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def _build(out_dir: Path) -> None:
-    tmp = out_dir / (LIB_NAME + ".tmp")
-    cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp), *(str(NATIVE / n) for n in CXX_SOURCES + ENCODE_SOURCES), "-lz"]
+def _compile(out_dir: Path, lib_name: str, sources, link: str, failure) -> None:
+    """One `g++ ... -shared` of `sources` into out_dir/lib_name, linked with
+    `link`; a failure raises HostBuildError whose first line is
+    failure(compiler output)."""
+    tmp = out_dir / (lib_name + ".tmp")
+    cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp), *(str(NATIVE / n) for n in sources), link]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     if proc.returncode != 0:
-        raise HostBuildError(
-            f"host library build failed ({proc.returncode}): {' '.join(cmd)}\n"
-            + proc.stdout.decode(errors="replace")
-        )
-    os.replace(tmp, out_dir / LIB_NAME)
+        log = proc.stdout.decode(errors="replace")
+        raise HostBuildError(f"{failure(log)}\n({proc.returncode}): {' '.join(cmd)}\n{log}")
+    os.replace(tmp, out_dir / lib_name)
+
+
+def _build(out_dir: Path) -> None:
+    _compile(out_dir, LIB_NAME, CXX_SOURCES + ENCODE_SOURCES, "-lz",
+             lambda log: "host library build failed")
+
+
+def _locked_build(out_dir: Path, lib_name: str, build) -> ctypes.CDLL:
+    """`build(out_dir)` under the directory's file lock unless the library
+    is there already, then load it."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / lib_name
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not lib_path.exists():
+                build(out_dir)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    try:
+        return ctypes.CDLL(str(lib_path))
+    except OSError as e:
+        raise HostBuildError(f"cannot load {lib_path}: {e}") from e
 
 
 def load() -> ctypes.CDLL:
@@ -78,20 +113,36 @@ def load() -> ctypes.CDLL:
     if it cannot be built or loaded."""
     global _lib
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        out_dir = BUILD_ROOT / f"host-{_key()}"
-        out_dir.mkdir(parents=True, exist_ok=True)
-        lib_path = out_dir / LIB_NAME
-        with open(out_dir / "lock", "w") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)
-            try:
-                if not lib_path.exists():
-                    _build(out_dir)
-            finally:
-                fcntl.flock(lock, fcntl.LOCK_UN)
-        try:
-            _lib = ctypes.CDLL(str(lib_path))
-        except OSError as e:
-            raise HostBuildError(f"cannot load {lib_path}: {e}") from e
+        if _lib is None:
+            _lib = _locked_build(BUILD_ROOT / f"host-{_key()}", LIB_NAME, _build)
         return _lib
+
+
+def _zstd_failure(log: str) -> str:
+    if "zstd.h" in log:
+        return "zstd library: zstd.h not found (libzstd's development header)"
+    if "-lzstd" in log:
+        return "zstd library: libzstd not found (-lzstd)"
+    return "zstd library: build failed"
+
+
+def _build_zstd(out_dir: Path) -> None:
+    _compile(out_dir, ZSTD_LIB_NAME, ZSTD_SOURCES, "-lzstd", _zstd_failure)
+
+
+def load_zstd() -> ctypes.CDLL:
+    """The loaded ZSTD library (built on first use). Raises HostBuildError,
+    naming the missing header or library, if it cannot be built or loaded;
+    a failure is kept, and raised again without a second build."""
+    global _zstd, _zstd_error
+    with _zstd_lock:
+        if _zstd is None and _zstd_error is None:
+            try:
+                _zstd = _locked_build(
+                    BUILD_ROOT / f"zstd-{_key(ZSTD_SOURCES)}", ZSTD_LIB_NAME, _build_zstd
+                )
+            except HostBuildError as e:
+                _zstd_error = e
+        if _zstd_error is not None:
+            raise _zstd_error
+        return _zstd
