@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive parquet_tpu_torch's decode, batch, filter, write, query, scan, row, io, remote
-write, lake, serve and mesh paths and its command-line tools on one CUDA card.
+write, lake, serve and mesh paths, its command-line tools and its observability
+layer on one CUDA card.
 
 Run from the repository root, on a machine with one NVIDIA card and the CUDA
 toolkit (nvcc):
@@ -177,7 +178,9 @@ Phases (any failure raises and the script exits non-zero):
               the page index fused against staged and parallel against
               serial (one timed run each, the first write of its file; the
               fused walk must take every chunk, the three files
-              byte-equal), the SNAPPY and UNCOMPRESSED host
+              byte-equal; (c)'s and (e)'s GZIP writes take the first
+              GZIP_GROUPS row groups, their rows/s over those rows), the
+              SNAPPY and UNCOMPRESSED host
               writes fused against staged (medians of 3), the bloom and
               page-index bytes, and xxh64_fixed, xxh64_offsets,
               bloom_insert and chunk_encode against their Python oracles on
@@ -273,6 +276,28 @@ Phases (any failure raises and the script exits non-zero):
               compacted file holding the rows' values, expand_hybrid and
               dict_gather launched; each step's rows/s beside the card's
               name and power limit;
+     obs      the observability layer, in three parts: check_obs_read
+              before the serve phase, obs_serve on the serve phase's daemon
+              and obs_mesh on the mesh phase's router and replicas. (a)
+              taxi's 8 groups read on the card under decode_trace(): 8
+              row_group.device spans, a chunk.prepare span and a dispatch
+              stage a chunk, 56 prepare_fused_engaged bumps, the columns
+              bit-equal to an untraced read's, the per-stage report
+              printed; torch_profile around the same read holds its
+              kernels; (b) rows/s traced and untraced, medians of 3 in
+              turn, span_allocations() unmoved by the untraced reads; (c)
+              one F_taxi /v1/query with an inbound traceparent: its body
+              byte-equal to run_local_query's, /v1/debug/requests listing
+              it, its span tree under the inbound trace id,
+              /v1/debug/tenants charging its tenant (CPU seconds against
+              the query's wall), /metrics parsed by obs.fleet with its
+              histograms and the request's exemplar, and
+              /v1/debug/profile?seconds=2 under 8 clients showing
+              pqt-serve lanes; (d) a routed F_taxi query: the replicas'
+              records under the router's trace id, `parquet-tool
+              trace-merge` of the router's and the replicas' span trees
+              into one timeline, /v1/debug/fleet over the replicas
+              summing each counter of their own scrapes;
      serve    the scan daemon (check_serve): the port's
               ScanServer(ServeConfig(root=the smoke directory, port=0,
               device="cuda")) in this process, over loopback HTTP. (a)
@@ -411,7 +436,7 @@ The last three lines of standard output are a JSON line of the end-to-end
 rates, the host value functions' A/B seconds, the collectives' times, the
 overlap A/B, profile and dataset rates, the write-options phase's numbers,
 the rows phase's rates and seconds, the io phase's steps, the remote and
-lake phase's steps, the serve, mesh and tools phases' numbers, and the card's
+lake phase's steps, the serve, mesh, tools and obs phases' numbers, and the card's
 name and power limit, the
 `kernels` JSON line (21
 kernels) and the
@@ -422,6 +447,7 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -2319,6 +2345,8 @@ TAXI_DSL = """message schema {
 # (trip_id's and pickup_us' groups are disjoint ranges; the others' keys are
 # in every group)
 WRITE_BLOOMS = ("trip_id", "vendor_id", "trip_distance", "zone", "fare_cents")
+# the row groups the write-options phase's GZIP writes take
+GZIP_GROUPS = 2
 
 
 def median_s(fn, reps: int = 3) -> tuple[float, list]:
@@ -2470,7 +2498,12 @@ def check_write_options(taxi_specs, host_groups, dev_groups, dev, launches: dict
     the card; (e) the timings: the page-index-free GZIP host write three
     ways (the fused walk on every chunk, the files byte-equal), one timed
     first write each, and SNAPPY and UNCOMPRESSED host writes fused and
-    staged (byte-equal). Returns the phase's numbers."""
+    staged (byte-equal). The GZIP writes of (c) and (e) take the first
+    GZIP_GROUPS row groups (their rows/s over those rows): deflate costs
+    about 19 s a serial write of the whole file, and a write's groups
+    encode independently, so the rest of the file would only repeat them;
+    "gzip_cut" holds their seconds (scripts/time_gzip_cut.py times them
+    against the whole file's). Returns the phase's numbers."""
     import torch
 
     from parquet_tpu_torch import (
@@ -2490,6 +2523,10 @@ def check_write_options(taxi_specs, host_groups, dev_groups, dev, launches: dict
     blooms = list(WRITE_BLOOMS)
     n_rows = ROW_GROUPS * RG_ROWS
     chunks = ROW_GROUPS * len(taxi_specs)
+    gzip_groups = host_groups[:GZIP_GROUPS]
+    gzip_rows = GZIP_GROUPS * RG_ROWS
+    gzip_chunks = GZIP_GROUPS * len(taxi_specs)
+    gzip_secs: list = []
     # (a) the device write with bloom filters
     dev_file, host_file = d / "opts-device-bloom.parquet", d / "opts-host-bloom.parquet"
     ops.reset_launch_counts()
@@ -2557,16 +2594,17 @@ def check_write_options(taxi_specs, host_groups, dev_groups, dev, launches: dict
         reset_write_counts()
         t = time.perf_counter()
         with env_set(**env):
-            write_taxi(f, schema, host_groups, device=False, codec="gzip",
+            write_taxi(f, schema, gzip_groups, device=False, codec="gzip",
                        write_page_index=True, **opts)
+        gzip_secs.append(time.perf_counter() - t)
         wc = write_counts()
-        log(f"[write-options:c] page index + gzip, {label}: {time.perf_counter() - t:.2f} s, "
-            f"write counts {wc}")
+        log(f"[write-options:c] page index + gzip, {label}, {GZIP_GROUPS} groups: "
+            f"{gzip_secs[-1]:.2f} s, write counts {wc}")
         files[label] = f
         fused = (wc["encode_fused_declined"], wc["encode_fused_engaged"])
-        if label != "serial staged" and fused != (chunks, 0):
-            raise AssertionError(f"{label}: the fused walk must decline all {chunks} page-index "
-                                 f"chunks ({wc})")
+        if label != "serial staged" and fused != (gzip_chunks, 0):
+            raise AssertionError(f"{label}: the fused walk must decline all {gzip_chunks} "
+                                 f"page-index chunks ({wc})")
         if label == "serial staged" and (wc["encode_fused_declined"] or wc["encode_fused_engaged"]):
             raise AssertionError(f"PQT_FUSED_ENCODE=0 still counted fused work ({wc})")
     raw = {label: f.read_bytes() for label, f in files.items()}
@@ -2577,7 +2615,7 @@ def check_write_options(taxi_specs, host_groups, dev_groups, dev, launches: dict
     log("[write-options:c] serial fused, serial staged and parallel page-index files are equal")
     ranges = {}
     with FileReader(files["serial fused"]) as r:
-        for g in range(ROW_GROUPS):
+        for g in range(GZIP_GROUPS):
             lo = int(trip[g * RG_ROWS]) + RG_ROWS // 3
             flt = [("trip_id", ">=", lo), ("trip_id", "<", lo + 1000)]
             kept = r.prune_pages(g, flt)
@@ -2619,23 +2657,28 @@ def check_write_options(taxi_specs, host_groups, dev_groups, dev, launches: dict
         f = d / f"opts-gzip-{label.replace(' ', '-')}.parquet"
         reset_write_counts()
         with env_set(**env):
-            med, secs = median_s(lambda: (write_taxi(f, schema, host_groups, device=False,
+            med, secs = median_s(lambda: (write_taxi(f, schema, gzip_groups, device=False,
                                                      codec="gzip", **opts),
                                           torch.cuda.synchronize()), reps=1)
+        gzip_secs.extend(secs)
         wc = write_counts()
         plain[label] = f
-        rates[gzip_ways[label]] = n_rows / med
-        log(f"  {gzip_ways[label]}: {rates[gzip_ways[label]]:,.0f} rows/s (one run, the file's "
-            f"first write, {[round(x, 3) for x in secs]} s); write counts {wc}")
+        rates[gzip_ways[label]] = gzip_rows / med
+        log(f"  {gzip_ways[label]}: {rates[gzip_ways[label]]:,.0f} rows/s ({GZIP_GROUPS} groups, "
+            f"one run, the file's first write, {[round(x, 3) for x in secs]} s); write counts {wc}")
         if label != "serial staged" and (wc["encode_fused_engaged"], wc["encode_fused_declined"],
-                                         wc["encode_fallback_recovered"]) != (chunks, 0, 0):
-            raise AssertionError(f"{label}: the fused walk must take all {chunks} chunks ({wc})")
+                                         wc["encode_fallback_recovered"]) != (gzip_chunks, 0, 0):
+            raise AssertionError(f"{label}: the fused walk must take all {gzip_chunks} chunks "
+                                 f"({wc})")
         if label == "serial staged" and (wc["encode_fused_declined"] or wc["encode_fused_engaged"]):
             raise AssertionError(f"PQT_FUSED_ENCODE=0 still counted fused work ({wc})")
     if len({f.read_bytes() for f in plain.values()}) != 1:
         raise AssertionError("the page-index-free gzip files of the three host writes differ")
-    log(f"[write-options:e] page-index-free gzip: the fused walk took all {chunks} chunks; "
+    log(f"[write-options:e] page-index-free gzip: the fused walk took all {gzip_chunks} chunks; "
         "serial fused, serial staged and parallel files are equal")
+    out["gzip_cut"] = {"groups": GZIP_GROUPS, "seconds": sum(gzip_secs)}
+    log(f"[write-options:e] the six GZIP writes over {GZIP_GROUPS} of {ROW_GROUPS} groups: "
+        f"{out['gzip_cut']['seconds']:.2f} s")
     for codec in ("snappy", "uncompressed"):
         for label, env in (("fused", {}), ("staged", {"PQT_FUSED_ENCODE": "0"})):
             f = d / f"opts-{codec}-{label}.parquet"
@@ -5602,6 +5645,9 @@ def check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, c
 
         profile_device(one_round)
         idle(server, "(b) profiler")
+        # the obs phase's daemon steps, on this daemon
+        out["obs"] = obs_serve(server, qbody(flt), bodies["query filtered"], card)
+        idle(server, "(obs)")
         # (c) a scan and its plan
         cols = list(IO_PROJECTION)
         scan_body = {"paths": [name], "columns": cols, "filters": flt, "limit": SERVE_SCAN_LIMIT}
@@ -5933,6 +5979,8 @@ def check_mesh(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, ca
         if mc.get('mesh_requests_total{endpoint="/v1/scan",mode="scatter"}') != 1:
             raise AssertionError(f"[mesh:a] scan: mesh counts {mc}")
         out["scan"] = {"lines": lines, "bytes": len(scan_r), "seconds": secs}
+        # the obs phase's mesh step, on this router and its replicas
+        out["obs"] = obs_mesh(router, replicas, qbody(flt), bodies["query filtered"], card)
         log(f"[mesh:a] routed /v1/scan jsonl ({', '.join(IO_PROJECTION)}; F_taxi and trip_id in "
             f"[{lo}, {hi})): 2 units scattered, {lines:,} lines byte-equal to the direct daemon's "
             f"({len(scan_r):,} bytes) in {secs:.2f} s; /v1/plan equal: {json.loads(plan_r)} | {card}")
@@ -6114,9 +6162,363 @@ def check_mesh(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, ca
     return out
 
 
+# -- the observability layer: traced reads, the daemon's and the router's obs ------
+
+OBS_TP = "00-" + "0b5e" * 8 + "-" + "cafe" * 4 + "-01"
+OBS_MESH_TP = "00-" + "3e54" * 8 + "-" + "cafe" * 4 + "-01"  # the routed query's own trace
+# the counters a scrape itself moves (each GET resolves a traceparent; the
+# fleet's own fetches inject one and count their outcome): left out of the
+# fleet sum's check
+SCRAPE_MOVED = ("parquet_tpu_io_traceparent_inbound_total",
+                "parquet_tpu_io_traceparent_injected_total", "parquet_tpu_fleet_scrapes_total")
+OBS_TENANT = "obs-tenant"
+OBS_PROFILE_S = 2.0
+OBS_CLIENTS = 8
+
+
+def span_names(doc: dict) -> collections.Counter:
+    """The spans of a Chrome-trace document, by name."""
+    return collections.Counter(e["name"] for e in doc["traceEvents"] if e.get("ph") == "X")
+
+
+def check_obs_read(taxi_path, taxi_specs, dev, launches: dict, card: str) -> dict:
+    """The obs phase's read steps on the cached taxi file. (a) taxi on the
+    card, read_row_group_device of each of its ROW_GROUPS groups, under
+    utils.trace.decode_trace(): the tree holds ROW_GROUPS row_group.device
+    spans, a chunk.prepare span and a dispatch stage a chunk, and one
+    prepare_fused_engaged bump a chunk; the columns bit-equal to an
+    untraced read's; the same read under utils.trace.torch_profile holds
+    the read's kernels (expand_hybrid, dict_gather, delta_packed_decode)
+    in its Chrome trace. (b) rows/s of the untraced and the traced read,
+    three of each in turn (medians), and span_allocations() before and
+    after the untraced reads (no hook synchronizes the card: each read
+    ends in one torch.cuda.synchronize() of the caller's). Returns the
+    numbers."""
+    import tempfile
+
+    import torch
+
+    from parquet_tpu_torch.core.reader import FileReader
+    from parquet_tpu_torch.kernels import build
+    from parquet_tpu_torch.kernels import device_ops as ops
+    from parquet_tpu_torch.kernels.pipeline import prepare_counts, reset_prepare_counts
+    from parquet_tpu_torch.utils import trace
+
+    t_phase = time.perf_counter()
+    n_rows = ROW_GROUPS * RG_ROWS
+    chunks = ROW_GROUPS * len(taxi_specs)
+
+    def read():
+        with FileReader(taxi_path) as r:
+            out = [r.read_row_group_device(i) for i in range(r.num_row_groups)]
+        torch.cuda.synchronize()
+        return out
+
+    plain = read()
+    ops.reset_launch_counts()
+    reset_prepare_counts()
+    with trace.decode_trace() as t:
+        traced = read()
+    launches["obs traced read"] = counts = kernel_counts()
+    prep = prepare_counts()
+    doc = t.to_chrome_trace()
+    names = span_names(doc)
+    tc = t.counters()
+    want = {"row_group.device": ROW_GROUPS, "chunk.prepare": chunks, "dispatch": chunks}
+    got = {k: names[k] for k in want}
+    if got != want or tc.get("prepare_fused_engaged") != chunks or prep.get(
+            "prepare_fused_engaged") != chunks:
+        raise AssertionError(f"[obs:a] the traced read's tree: spans {got} (want {want}), "
+                             f"bumps {tc}, prepare counts {prep}")
+    if not groups_equal(traced, plain):
+        raise AssertionError("[obs:a] the traced read's columns differ from the untraced read's")
+    for k in ("expand_hybrid", "dict_gather", "delta_packed_decode"):
+        if counts[k] <= 0:
+            raise AssertionError(f"[obs:a] {k} was not launched by the traced read")
+    del traced, plain
+    stages = t.stage_rollup()
+    split = {k: round(v["seconds"], 6) for k, v in sorted(stages.items())
+             if k.startswith("prepare.") or k in ("dispatch", "decode.bytes")}
+    log(f"[obs:a] taxi, read_row_group_device of {ROW_GROUPS} groups under decode_trace(): "
+        f"{sum(names.values())} spans ({dict(sorted(names.items()))}), bumps "
+        f"prepare_fused_engaged={tc['prepare_fused_engaged']}, columns bit-equal to the "
+        f"untraced read's; stage seconds {split} | {card}")
+    log("[obs:a] the per-stage report:\n" + t.report())
+    symbols = kernel_symbols()
+    with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
+        ops.reset_launch_counts()
+        with trace.torch_profile(tmp):
+            read()
+        pcounts = kernel_counts()
+        kinds = trace_kernels(Path(tmp) / "trace.json", symbols)
+    for k in ("expand_hybrid", "dict_gather", "delta_packed_decode"):
+        if not in_trace(k, kinds, pcounts):
+            raise AssertionError(f"[obs:a] torch_profile's trace holds no {k} kernel: {kinds}")
+    log(f"[obs:a] torch_profile around the same read: kernel events "
+        + ", ".join(f"{k}={v}" for k, v in sorted(kinds.items())))
+    # (b) traced against untraced, in turn; the span allocator around the
+    # untraced reads
+    secs: dict = {"untraced": [], "traced": []}
+    allocs_before = trace.span_allocations()
+    allocs_untraced = 0
+    for _ in range(3):
+        a0 = trace.span_allocations()
+        t0 = time.perf_counter()
+        read()
+        secs["untraced"].append(time.perf_counter() - t0)
+        allocs_untraced += trace.span_allocations() - a0
+        t0 = time.perf_counter()
+        with trace.decode_trace():
+            read()
+        secs["traced"].append(time.perf_counter() - t0)
+    allocs_after = trace.span_allocations()
+    rates = {k: n_rows / statistics.median(v) for k, v in secs.items()}
+    if allocs_untraced:
+        raise AssertionError(f"[obs:b] untraced reads allocated {allocs_untraced} spans")
+    out = {"rows_per_s": rates, "seconds": {k: v for k, v in secs.items()},
+           "traced_over_untraced": rates["traced"] / rates["untraced"],
+           "span_allocations": {"before": allocs_before, "after": allocs_after,
+                                "untraced_reads": allocs_untraced},
+           "spans_a_read": sum(names.values()), "stage_seconds": split}
+    log(f"[obs:b] taxi rows/s, medians of 3 in turn: untraced {rates['untraced']:,.0f}, traced "
+        f"{rates['traced']:,.0f} (traced / untraced {out['traced_over_untraced']:.3f}); "
+        f"span_allocations() {allocs_before} before, {allocs_after} after, +0 over the "
+        f"untraced reads | {card}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+@contextlib.contextmanager
+def sample_every_request(server):
+    """The process-wide flight recorder (the daemon's) keeps every
+    request's span tree inside the block, and its own knobs after."""
+    from parquet_tpu_torch.obs.recorder import ObsConfig
+
+    rec = server.service.recorder
+    saved = rec.config
+    rec.configure(ObsConfig(ring_size=saved.ring_size, trace_sample_rate=1.0,
+                            slow_ms=saved.slow_ms, max_traces=saved.max_traces))
+    try:
+        yield
+    finally:
+        rec.configure(saved)
+
+
+def obs_serve_traced(server, qbody: dict, want_body: bytes, rid: str, card: str) -> dict:
+    """obs_serve's traced query and the debug views of its record."""
+    from parquet_tpu_torch.obs import fleet, propagate
+    from parquet_tpu_torch.serve.executor import SERVE_THREADS
+
+    out: dict = {}
+    t = time.perf_counter()
+    status, headers, raw = serve_request(server, "POST", "/v1/query", qbody, {
+        "traceparent": OBS_TP, "X-Request-Id": rid, "X-Tenant": OBS_TENANT,
+        "Content-Type": "application/json"})
+    wall = time.perf_counter() - t
+    echoed = propagate.parse_traceparent(headers.get("traceparent"))
+    trace_id = OBS_TP.split("-")[1]
+    if status != 200 or raw != want_body:
+        raise AssertionError(f"[obs:c] the traced query: {status}, body equal {raw == want_body}")
+    if echoed is None or echoed.trace_id != trace_id or echoed.span_id == OBS_TP.split("-")[2]:
+        raise AssertionError(f"[obs:c] traceparent echoed {headers.get('traceparent')!r}")
+    serve_wait("[obs:c] the record closed", lambda: not json.loads(serve_request(
+        server, "GET", f"/v1/debug/requests/{rid}")[2]).get("open", True))
+    listed = json.loads(serve_request(server, "GET", "/v1/debug/requests?limit=50")[2])
+    mine = [r for r in listed["requests"] if r["id"] == rid]
+    if len(mine) != 1 or mine[0]["trace_id"] != trace_id or mine[0]["status"] != 200:
+        raise AssertionError(f"[obs:c] /v1/debug/requests: {mine}")
+    st, _h, raw_doc = serve_request(server, "GET", f"/v1/debug/requests/{rid}/trace")
+    doc = json.loads(raw_doc)
+    spans = span_names(doc)
+    if st != 200 or doc["otherData"]["propagation"]["trace_id"] != trace_id or not spans.get(
+            "serve.aggregate") or not spans.get("row_group.device"):
+        raise AssertionError(f"[obs:c] the record's trace: {st}, spans {dict(spans)}")
+    tenants = json.loads(serve_request(server, "GET", "/v1/debug/tenants")[2])
+    row = next((r for r in tenants["tenants"] if r["tenant"] == OBS_TENANT), None)
+    if row is None or row["requests"] != 1 or row["units"] != ROW_GROUPS - 2 or row[
+            "cpu_seconds"] <= 0:
+        raise AssertionError(f"[obs:c] /v1/debug/tenants: {row}")
+    out["query"] = {"wall_s": wall, "tenant_cpu_s": row["cpu_seconds"],
+                    "cpu_over_wall": row["cpu_seconds"] / wall, "units": row["units"],
+                    "spans": sum(spans.values())}
+    log(f"[obs:c] POST /v1/query (F_taxi) with traceparent {OBS_TP}: body byte-equal to "
+        f"run_local_query's, traceparent echoed on its trace id; /v1/debug/requests lists "
+        f"{rid}; its trace holds {sum(spans.values())} spans under the inbound trace id "
+        f"({', '.join(f'{k}={v}' for k, v in sorted(spans.items()) if k.startswith(('serve.', 'row_group', 'query.')))}); "
+        f"/v1/debug/tenants charges {OBS_TENANT} {row['units']} units and "
+        f"{row['cpu_seconds']:.4f} CPU s against the query's {wall:.4f} s wall "
+        f"({out['query']['cpu_over_wall']:.3f} CPU s a wall s over {SERVE_THREADS} "
+        f"pqt-serve threads) | {card}")
+    st, _h, text = serve_request(server, "GET", "/metrics")
+    fams = fleet.parse_exposition(text.decode())
+    hist = fams.get("parquet_tpu_serve_request_seconds")
+    st2, h2, om = serve_request(server, "GET", "/metrics",
+                                headers={"Accept": "application/openmetrics-text"})
+    if st != 200 or hist is None or hist.kind != "histogram" or not any(
+            f"request_id=\"{rid}\"" in ln for ln in om.decode().splitlines()):
+        raise AssertionError(f"[obs:c] /metrics: {st}, serve_request_seconds "
+                             f"{hist and hist.kind}; OpenMetrics {st2} without {rid}'s exemplar")
+    kinds = collections.Counter(f.kind for f in fams.values())
+    out["metrics"] = {"families": dict(kinds), "bytes": len(text)}
+    log(f"[obs:c] /metrics ({len(text):,} bytes) parses through obs.fleet: {dict(kinds)} "
+        f"families, serve_request_seconds a histogram; {rid}'s exemplar in the OpenMetrics "
+        f"variant | {card}")
+    return out
+
+
+def obs_serve(server, qbody: dict, want_body: bytes, card: str) -> dict:
+    """The obs phase's daemon steps, on the serve phase's daemon (its
+    recorder keeps every request's span tree during the traced query): (c) one F_taxi /v1/query (`qbody`)
+    with an inbound traceparent under OBS_TENANT: its body byte-equal to
+    run_local_query's (`want_body`), the traceparent echoed on the inbound
+    trace id; /v1/debug/requests lists it; /v1/debug/requests/<id>/trace
+    holds its serve.* spans under the inbound trace id;
+    /v1/debug/tenants charges OBS_TENANT its units and CPU seconds (held
+    against the query's wall: a unit that waits on the card may spin in
+    the driver, and the spin is thread CPU time); /v1/debug/profile over
+    OBS_PROFILE_S under OBS_CLIENTS clients shows pqt-serve lanes;
+    /metrics parses through obs.fleet.parse_exposition with its histograms
+    (and the OpenMetrics variant with its exemplar). Returns the numbers."""
+    import threading
+
+    t_phase = time.perf_counter()
+    rid = "obs-query-1"
+    out: dict = {}
+    with sample_every_request(server):
+        out.update(obs_serve_traced(server, qbody, want_body, rid, card))
+    stop = threading.Event()
+    errors: list = []
+
+    def client():
+        try:
+            while not stop.is_set():
+                st, _h, r = serve_request(server, "POST", "/v1/query", qbody,
+                                          {"Content-Type": "application/json"})
+                if st != 200 or r != want_body:
+                    raise AssertionError(f"[obs:c] a profiled client's answer: {st}")
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client) for _ in range(OBS_CLIENTS)]
+    for th in threads:
+        th.start()
+    try:
+        st, _h, prof = serve_request(server, "GET",
+                                     f"/v1/debug/profile?seconds={OBS_PROFILE_S:g}&format=json")
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(SERVE_WATCHDOG_S)
+    if errors:
+        raise errors[0]
+    prof = json.loads(prof)
+    lanes = prof.get("lanes", {})
+    if st != 200 or not lanes.get("pqt-serve"):
+        raise AssertionError(f"[obs:c] /v1/debug/profile under {OBS_CLIENTS} clients: {st} {lanes}")
+    out["profile"] = {"samples": prof["samples"], "lanes": lanes}
+    serve_wait("[obs:c] in flight back to 0", lambda: server.service.admission.in_flight == 0)
+    log(f"[obs:c] /v1/debug/profile?seconds={OBS_PROFILE_S:g} under {OBS_CLIENTS} clients: "
+        f"{prof['samples']} samples, lanes {lanes} | {card}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def obs_mesh(router, replicas, qbody: dict, want_body: bytes, card: str) -> dict:
+    """The obs phase's mesh step, on the mesh phase's router and replicas
+    (the recorder keeps every span tree during the routed query): (d) one routed F_taxi /v1/query
+    (`qbody`) with OBS_MESH_TP: its body byte-equal to the direct daemon's (`want_body`);
+    the replicas' records (the process-wide flight recorder) carry the
+    router's trace id, one a scattered unit; `parquet-tool trace-merge` of
+    the router's and the replicas' span trees stitches one timeline under
+    that trace id; /v1/debug/fleet over the replicas sums each counter of
+    one scrape of each replica's /metrics, taken just before (the replicas
+    share this process's registry; a scrape that raced new samples is
+    taken again; SCRAPE_MOVED, which the scrapes move themselves, are left
+    out). Returns the numbers."""
+    import io
+    import tempfile
+
+    from parquet_tpu_torch.kernels import build
+    from parquet_tpu_torch.obs import fleet
+    from parquet_tpu_torch.tools import parquet_tool
+
+    t_phase = time.perf_counter()
+    trace_id = OBS_MESH_TP.split("-")[1]
+    mine: list = []
+
+    def all_closed() -> bool:
+        listed = json.loads(serve_request(router, "GET", "/v1/debug/requests?limit=200")[2])
+        mine[:] = [r for r in listed["requests"] if r.get("trace_id") == trace_id]
+        return rid_router in {r["id"] for r in mine} and not any(r["open"] for r in mine)
+
+    with sample_every_request(router):
+        status, headers, raw = serve_request(router, "POST", "/v1/query", qbody, {
+            "traceparent": OBS_MESH_TP, "Content-Type": "application/json"})
+        if status != 200 or raw != want_body:
+            raise AssertionError(f"[obs:d] the routed query: {status}, equal {raw == want_body}")
+        rid_router = headers["X-Request-Id"]
+        # a replica closes its record (and decides whether to keep its span
+        # tree) just after the router has its answer, and the router just
+        # after the client has its own: every record under the trace id
+        # closes while every request is sampled
+        serve_wait("[obs:d] the records under the trace id closed", all_closed)
+    replica_ids = [r["id"] for r in mine if r["id"] != rid_router and r["endpoint"] == "/v1/query"]
+    if rid_router not in {r["id"] for r in mine} or len(replica_ids) < ROW_GROUPS - 2:
+        raise AssertionError(f"[obs:d] records under the trace id: {[(r['id'], r['endpoint']) for r in mine]}")
+    docs = []
+    with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
+        for rid in [rid_router] + replica_ids:
+            st, _h, raw_doc = serve_request(router, "GET", f"/v1/debug/requests/{rid}/trace")
+            if st != 200:
+                raise AssertionError(f"[obs:d] {rid}'s trace: {st} {raw_doc[:200]!r}")
+            p = Path(tmp) / f"{rid}.json"
+            p.write_bytes(raw_doc)
+            docs.append(str(p))
+        merged_path = Path(tmp) / "merged.json"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = parquet_tool.main(["trace-merge", *docs, "-o", str(merged_path)])
+        merged = json.loads(merged_path.read_text())
+    lanes = {e["pid"] for e in merged["traceEvents"]}
+    if rc != 0 or merged["otherData"]["propagation"]["trace_id"] != trace_id or lanes != set(
+            range(len(docs))):
+        raise AssertionError(f"[obs:d] trace-merge: rc {rc}, lanes {lanes}")
+    log(f"[obs:d] routed /v1/query (F_taxi) with traceparent: body byte-equal to the direct "
+        f"daemon's; {len(replica_ids)} replica records carry the router's trace id; "
+        f"trace-merge of the router's and the replicas' documents: {len(docs)} process lanes, "
+        f"{len(merged['traceEvents'])} events on trace {trace_id} ({buf.getvalue().strip()}) | {card}")
+    peers = ",".join(f"{r.host}:{r.port}" for r in replicas)
+    for attempt in range(3):
+        own = [fleet.parse_exposition(serve_request(r, "GET", "/metrics")[2].decode())
+               for r in replicas]
+        st, _h, view = serve_request(replicas[0], "GET", f"/v1/debug/fleet?peers={peers}")
+        merged_fams = fleet.parse_exposition(view.decode())
+        bad = []
+        n_counters = 0
+        for fam, f in merged_fams.items():
+            if f.kind != "counter" or fam in SCRAPE_MOVED:
+                continue
+            for key, value in f.samples.items():
+                n_counters += 1
+                want = sum(o[fam].samples.get(key, 0) for o in own if fam in o)
+                if value != want:
+                    bad.append((key, value, want))
+        if st == 200 and not bad:
+            break
+    if st != 200 or bad:
+        raise AssertionError(f"[obs:d] /v1/debug/fleet: {st}; counters off the replicas' sum: "
+                             f"{bad[:5]}")
+    log(f"[obs:d] /v1/debug/fleet over the {len(replicas)} replicas: {n_counters} counter "
+        f"samples, each the sum of the replicas' own scrapes (attempt {attempt + 1}) | {card}")
+    return {"replica_records": len(replica_ids), "merged_events": len(merged["traceEvents"]),
+            "fleet_counters": n_counters, "fleet_attempts": attempt + 1,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 # -- the command-line tools -----------------------------------------------------
 
 TOOL = ("-m", "parquet_tpu_torch.tools.parquet_tool")
+TOOL_SPAN_PID = 1 << 30  # the span events' pid in `profile -o` (parquet_tool.SPAN_PID)
 TOOLS_CSV_ROWS = 1 << 16
 TOOLS_SCAN_BATCH = 1 << 18
 TOOLS_TIMEOUT_S = 600.0  # bounds every child process of the phase
@@ -6376,6 +6778,14 @@ def check_tools(paths: dict, taxi_specs, f_taxi, taxi_keep, host_group0: dict, t
                 raise AssertionError(f"[tools:a] {label}: {rows} rows decoded, not {n_rows}")
             if groups != [f"row_group {i}" for i in range(ROW_GROUPS)] or ranges.count("file") != 1:
                 raise AssertionError(f"[tools:a] {label}: ranges {ranges}")
+            # the span trace's events beside the profiler's, under a pid of
+            # their own, and its per-stage report on stdout
+            spans = collections.Counter(e["name"] for e in events if e.get("ph") == "X"
+                                        and e.get("pid") == TOOL_SPAN_PID)
+            if spans["row_group.device"] != ROW_GROUPS or spans["chunk.prepare"] <= 0 or (
+                    "TOTAL " not in so):
+                raise AssertionError(f"[tools:a] {label}: span events {dict(spans)}, the "
+                                     f"stage report printed: {'TOTAL ' in so}")
             for k in need:
                 if c[k] <= 0 or not in_trace(k, kinds, c):
                     raise AssertionError(f"[tools:a] {label}: {k} launched {c[k]} times, "
@@ -6970,8 +7380,17 @@ def main(argv=None) -> int:
                             taxi_keep, device_filtered, dev, launches, smi)
     io_phase = check_io(paths, dev, launches, smi)
     remote_phase = check_remote_lake(paths, taxi_schema, dev_groups, dev_file, dev, launches, smi)
+    obs_phase = {"read": check_obs_read(taxi_path, taxi_specs, dev, launches, smi)}
     serve_phase = check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches, smi)
     mesh_phase = check_mesh(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches, smi)
+    obs_phase["serve"] = serve_phase.pop("obs")
+    obs_phase["mesh"] = mesh_phase.pop("obs")
+    obs_phase["seconds"] = sum(obs_phase[k]["phase_s"] for k in ("read", "serve", "mesh"))
+    log(f"[obs] the phase took {obs_phase['seconds']:.1f} s (read "
+        f"{obs_phase['read']['phase_s']:.1f} s, daemon {obs_phase['serve']['phase_s']:.1f} s, "
+        f"mesh {obs_phase['mesh']['phase_s']:.1f} s); the six GZIP writes on "
+        f"{write_options['gzip_cut']['groups']} groups {write_options['gzip_cut']['seconds']:.1f} s"
+        f" | {smi}")
     tools_phase = check_tools(paths, taxi_specs, f_taxi, taxi_keep, host_groups[0], taxi_schema,
                               dev, launches, smi)
     for k in rows:
@@ -7125,7 +7544,7 @@ def main(argv=None) -> int:
                       "collectives": scan["collectives"], "overlap": overlap,
                       "write_options": write_options, "rows": rows_phase, "io": io_phase,
                       "remote": remote_phase, "serve": serve_phase, "mesh": mesh_phase,
-                      "tools": tools_phase,
+                      "tools": tools_phase, "obs": obs_phase,
                       "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

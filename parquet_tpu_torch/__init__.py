@@ -37,6 +37,12 @@ replicas=...)) puts the same surface in front of a fleet of such daemons,
 scattering each request's units over them (mesh_counts()). Scans (parallel.column_stats,
 distributed_column_stats, sharded_decode_step) spread row groups and pages
 over devices and torch.distributed ranks.
+Observability (parquet_tpu_torch.obs, utils.trace, utils.metrics), as the
+reference's: every *_counts() above is a view of one process metrics
+registry (Prometheus and OpenMetrics expositions); utils.trace.decode_trace
+collects a read's span tree across the pqt-* pools; the daemon keeps a
+flight recorder, tenant cost, JSON-lines logs, a sampling profiler,
+traceparent propagation and a fleet view under /v1/debug/*.
 
     from parquet_tpu_torch import FileReader
     with FileReader("trips.parquet") as r:          # device=None -> CUDA

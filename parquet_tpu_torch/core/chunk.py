@@ -13,6 +13,7 @@ of FileReader.iter_rows(filters=).
 
 from __future__ import annotations
 
+import time as _time
 import zlib
 from dataclasses import dataclass
 
@@ -29,6 +30,9 @@ from ..meta.parquet_types import (
     PageType,
 )
 from ..meta.thrift import CompactReader, ThriftError
+from ..utils import metrics as _metrics
+from ..utils.trace import active as trace_active
+from ..utils.trace import bump, span, stage
 from .alloc import decoded_nbytes
 from .arrays import ByteArrayData
 from .compress import decompress_block
@@ -319,7 +323,8 @@ def iter_chunk_pages(f, chunk: ColumnChunk):
         size = header.compressed_page_size
         if size is None or size < 0:
             raise ChunkError(f"chunk: invalid compressed page size {size}")
-        payload = f.read(size)
+        with stage("io", size):
+            payload = f.read(size)
         if len(payload) != size:
             raise ChunkError("chunk: truncated page payload")
         yield RawPage(header=header, payload=payload, offset=page_start)
@@ -491,58 +496,82 @@ def read_chunk(
 ) -> ChunkData:
     """Read and decode all pages of one column chunk (host path). `alloc`
     (a core.alloc.AllocTracker) checks each page's claimed size before it
-    decompresses and charges what each page decodes to."""
+    decompresses and charges what each page decodes to.
+
+    The whole chunk runs under a "chunk" span (page spans and decompress /
+    decode stages nest inside it when a trace is active) and feeds the
+    always-on chunk_decode_seconds histogram."""
+    t0 = _time.perf_counter()
+    with span("chunk", {"column": column.path_str}):
+        out = _read_chunk_impl(f, chunk, column, validate_crc, alloc)
+    _metrics.observe("chunk_decode_seconds", _time.perf_counter() - t0)
+    return out
+
+
+def _read_chunk_impl(f, chunk: ColumnChunk, column: Column, validate_crc: bool, alloc) -> ChunkData:
     md = chunk.meta_data
     codec = md.codec or 0
     dictionary = None
     pages: list[DecodedPage] = []
     seen_data_values = 0
     expected = md.num_values or 0
+    # the staged walk: the counterpart of the fused walk's
+    # prepare_fused_engaged, so a trace tells which walk a read took
+    bump("prepare_staged_chunk")
+    collecting = trace_active()  # span args only when someone listens
+    page_idx = 0
     for raw in iter_chunk_pages(f, chunk):
         header = raw.header
         if alloc is not None:
             alloc.check(header.uncompressed_page_size or 0)
         ptype = header.type
-        if ptype == int(PageType.DICTIONARY_PAGE):
-            if dictionary is not None:
-                raise ChunkError("chunk: more than one dictionary page")
-            if pages:
-                raise ChunkError("chunk: dictionary page after data pages")
-            if validate_crc:
-                _check_crc(header, raw.payload)
-            block = decompress_block(
-                raw.payload, codec, header.uncompressed_page_size or 0
-            )
-            dictionary = decode_dict_page(header, block, column)
-            if alloc is not None:
-                alloc.register_buffers(dictionary)
-        elif ptype == int(PageType.DATA_PAGE):
-            if validate_crc:
-                _check_crc(header, raw.payload)
-            block = decompress_block(
-                raw.payload, codec, header.uncompressed_page_size or 0
-            )
-            dict_size = len(dictionary) if dictionary is not None else None
-            est = _precharge(alloc, header.data_page_header, len(block))
-            page = decode_data_page_v1(header, block, column, dict_size)
-            _account_page(alloc, est, page, dictionary)
-            pages.append(page)  # dict pages materialize at chunk level
-            seen_data_values += page.num_values
-        elif ptype == int(PageType.DATA_PAGE_V2):
-            if validate_crc:
-                _check_crc(header, raw.payload)
-            dict_size = len(dictionary) if dictionary is not None else None
-            est = _precharge(
-                alloc, header.data_page_header_v2, header.uncompressed_page_size or 0
-            )
-            page = decode_data_page_v2(header, raw.payload, column, dict_size, codec)
-            _account_page(alloc, est, page, dictionary)
-            pages.append(page)  # dict pages materialize at chunk level
-            seen_data_values += page.num_values
-        elif ptype == int(PageType.INDEX_PAGE):
-            continue  # skip, like the reference
-        else:
-            raise ChunkError(f"chunk: unknown page type {ptype}")
+        with span("page", {"page": page_idx, "type": int(ptype)} if collecting else None):
+            if ptype == int(PageType.DICTIONARY_PAGE):
+                if dictionary is not None:
+                    raise ChunkError("chunk: more than one dictionary page")
+                if pages:
+                    raise ChunkError("chunk: dictionary page after data pages")
+                if validate_crc:
+                    _check_crc(header, raw.payload)
+                with stage("decompress", len(raw.payload)):
+                    block = decompress_block(
+                        raw.payload, codec, header.uncompressed_page_size or 0
+                    )
+                dictionary = decode_dict_page(header, block, column)
+                if alloc is not None:
+                    alloc.register_buffers(dictionary)
+            elif ptype == int(PageType.DATA_PAGE):
+                if validate_crc:
+                    _check_crc(header, raw.payload)
+                with stage("decompress", len(raw.payload)):
+                    block = decompress_block(
+                        raw.payload, codec, header.uncompressed_page_size or 0
+                    )
+                dict_size = len(dictionary) if dictionary is not None else None
+                est = _precharge(alloc, header.data_page_header, len(block))
+                with stage("decode", len(block)):
+                    page = decode_data_page_v1(header, block, column, dict_size)
+                _account_page(alloc, est, page, dictionary)
+                pages.append(page)  # dict pages materialize at chunk level
+                seen_data_values += page.num_values
+            elif ptype == int(PageType.DATA_PAGE_V2):
+                if validate_crc:
+                    _check_crc(header, raw.payload)
+                dict_size = len(dictionary) if dictionary is not None else None
+                est = _precharge(
+                    alloc, header.data_page_header_v2, header.uncompressed_page_size or 0
+                )
+                with stage("decode", header.uncompressed_page_size or 0):
+                    page = decode_data_page_v2(header, raw.payload, column, dict_size, codec)
+                _account_page(alloc, est, page, dictionary)
+                pages.append(page)  # dict pages materialize at chunk level
+                seen_data_values += page.num_values
+            elif ptype == int(PageType.INDEX_PAGE):
+                page_idx += 1
+                continue  # skip, like the reference
+            else:
+                raise ChunkError(f"chunk: unknown page type {ptype}")
+        page_idx += 1
     if seen_data_values != expected:
         raise ChunkError(
             f"chunk: pages hold {seen_data_values} values, metadata says {expected}"

@@ -22,6 +22,8 @@ import zlib
 
 from ..meta.file_meta import ParquetFileError
 from ..meta.parquet_types import CompressionCodec
+from ..utils import metrics as _metrics
+from ..utils.trace import add_bytes as _trace_add_bytes
 
 __all__ = [
     "compress_block",
@@ -305,4 +307,12 @@ def decompress_block(data: bytes, codec, uncompressed_size: int) -> bytes:
         raise CompressionError(
             f"decompressed size {len(out)} != advertised {uncompressed_size}"
         )
+    # every staged decode path funnels through here: the one choke point
+    # for the always-on byte counters (the fused native walk bypasses it and
+    # reports its own totals in kernels/pipeline.py). The same output bytes
+    # ride the active trace as the `decode.bytes` account, so a request's
+    # decoded bytes reconcile with the process bytes_uncompressed_total
+    # delta (what the serve cost ledger charges a tenant)
+    _metrics.io_bytes(len(data), len(out), impl.name)
+    _trace_add_bytes("decode.bytes", len(out))
     return out

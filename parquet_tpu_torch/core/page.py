@@ -45,6 +45,8 @@ from ..ops.levels import (
 from .arrays import ByteArrayData
 from .compress import compress_block, decompress_block
 from .schema import Column
+from ..utils import metrics as _metrics
+from ..utils.trace import stage
 
 __all__ = ["DecodedPage", "PageError", "decode_data_page_v1", "decode_data_page_v2",
            "decode_dict_page", "encode_data_page_v1", "encode_data_page_v2",
@@ -217,6 +219,7 @@ def decode_data_page_v1(
         values, indices = _decode_values(
             buf[pos:], non_null, h.encoding, column, dict_size
         )
+    _metrics.page_decoded(_metrics.encoding_name(h.encoding), nbytes=len(block))
     return DecodedPage(
         num_values=n, def_levels=dfl, rep_levels=rep, values=values, indices=indices
     )
@@ -264,18 +267,26 @@ def decode_data_page_v2(
     values_block = bytes(buf[rep_len + def_len :])
     if h.is_compressed is None or h.is_compressed:
         uncompressed = (header.uncompressed_page_size or 0) - rep_len - def_len
-        values_block = decompress_block(values_block, codec, max(uncompressed, 0))
+        with stage("decompress", len(values_block)):
+            values_block = decompress_block(values_block, codec, max(uncompressed, 0))
     with typed_page_errors("v2 value stream"):
         values, indices = _decode_values(
             values_block, non_null, h.encoding, column, dict_size
         )
+    _metrics.page_decoded(
+        _metrics.encoding_name(h.encoding), nbytes=header.uncompressed_page_size or 0
+    )
     return DecodedPage(
         num_values=n, def_levels=dfl, rep_levels=rep, values=values, indices=indices
     )
 
 
-def decode_dict_page(header: PageHeader, block: bytes, column: Column):
-    """Decode a dictionary page's PLAIN values (reference: page_dict.go)."""
+def decode_dict_page(header: PageHeader, block: bytes, column: Column, count_metrics: bool = True):
+    """Decode a dictionary page's PLAIN values (reference: page_dict.go).
+    count_metrics=False lets the fused native walk count its pages once
+    the whole chunk plan commits (kernels/pipeline.py): counting here would
+    count the dictionary page twice if the plan fell back to the staged
+    walk."""
     h: DictionaryPageHeader = header.dictionary_page_header
     if h is None:
         raise PageError("page: DICTIONARY_PAGE without header")
@@ -295,6 +306,8 @@ def decode_dict_page(header: PageHeader, block: bytes, column: Column):
         raise PageError(
             f"page: dictionary page has {len(block) - consumed} trailing bytes"
         )
+    if count_metrics:
+        _metrics.page_decoded(_metrics.encoding_name(enc), nbytes=len(block))
     return values
 
 

@@ -73,7 +73,6 @@ import gc
 import itertools
 import os
 import threading
-from collections import Counter
 from concurrent.futures import ThreadPoolExecutor, wait
 from contextlib import contextmanager
 from pathlib import Path
@@ -106,8 +105,13 @@ from ..meta.parquet_types import (
     Type,
 )
 from ..meta.thrift import CompactReader, ThriftError
+from ..obs.log import log_event as _log_event
+from ..obs.pool import instrumented_submit
+from ..utils import metrics as _metrics
 from ..ops.packed_levels import PackedLevels
+from ..utils.counters import LabelledCounts, event_alias
 from ..utils.native import get_native
+from ..utils.trace import span, stage, timed_stage
 from .alloc import AllocTracker
 from .arrays import ByteArrayData
 from .assembly import RecordAssembler
@@ -202,24 +206,24 @@ def _host_pool() -> ThreadPoolExecutor | None:
 # excluded, by the rung that excluded them). Process-wide, like the prepare
 # counters: read with filter_counts(), zero with reset_filter_counts().
 
-_FILTER_COUNTS: Counter = Counter()
-_FILTER_LOCK = threading.Lock()
+# each a sample of the registry's events_total; the engine events are also
+# counts of the active trace, as the reference's trace.bump() makes them
+_FILTER_COUNTS = LabelledCounts(
+    alias=event_alias(), traced=lambda name: name.startswith("device_filter_")
+)
 
 
 def _bump(name: str, n: int = 1) -> None:
-    with _FILTER_LOCK:
-        _FILTER_COUNTS[name] += n
+    _FILTER_COUNTS.count(name, n)
 
 
 def filter_counts() -> dict:
     """A snapshot of the filter counters."""
-    with _FILTER_LOCK:
-        return dict(_FILTER_COUNTS)
+    return _FILTER_COUNTS.snapshot()
 
 
 def reset_filter_counts() -> None:
-    with _FILTER_LOCK:
-        _FILTER_COUNTS.clear()
+    _FILTER_COUNTS.reset()
 
 
 # -- row counters ------------------------------------------------------------------
@@ -233,37 +237,62 @@ def reset_filter_counts() -> None:
 # (rows delivered, by engine). Process-wide: read with row_counts(), zero
 # with reset_row_counts().
 
-_ROW_COUNTS: Counter = Counter()
-_ROW_LOCK = threading.Lock()
+# rows by engine are the registry's assembly_rows_total{engine=} and
+# query_rows_filtered_total{engine=}, the engine events its events_total
+_ROW_FAMILIES = {
+    "rows_assembled_vec": ("assembly_rows_total", "vec"),
+    "rows_assembled_scalar": ("assembly_rows_total", "scalar"),
+    "rows_filtered_vec": ("query_rows_filtered_total", "vec"),
+    "rows_filtered_scalar": ("query_rows_filtered_total", "scalar"),
+}
+
+
+def _row_alias(name, labels):
+    if name in _ROW_FAMILIES:
+        fam, engine = _ROW_FAMILIES[name]
+        return fam, {"engine": engine}
+    return "events_total", {"event": name}
+
+
+_ROW_COUNTS = LabelledCounts(alias=_row_alias)
 
 
 def _count_rows(name: str, n: int = 1) -> None:
-    with _ROW_LOCK:
-        _ROW_COUNTS[name] += n
+    _ROW_COUNTS.count(name, n)
 
 
 def row_counts() -> dict:
     """A snapshot of the row counters."""
-    with _ROW_LOCK:
-        return dict(_ROW_COUNTS)
+    return _ROW_COUNTS.snapshot()
 
 
 def reset_row_counts() -> None:
-    with _ROW_LOCK:
-        _ROW_COUNTS.clear()
+    _ROW_COUNTS.reset()
 
 
 def _timed_rows(assembler):
     """Stream rows from the scalar cursor walk without materializing the row
     group, counting each delivered row (rows_assembled_scalar) when the
-    stream ends or the consumer abandons it."""
+    stream ends or the consumer abandons it. Each row's step bills the
+    assembly.rows stage with record_span=False (a span a row would flood
+    the trace's event budget; the aggregate stays exact), and the walk's
+    seconds feed the assembly_seconds histogram."""
+    it = iter(assembler)
     n = 0
+    seconds = 0.0
     try:
-        for row in assembler:
+        while True:
+            with timed_stage("assembly.rows", record_span=False) as el:
+                try:
+                    row = next(it)
+                except StopIteration:
+                    break
             n += 1
+            seconds += el.seconds
             yield row
     finally:
         _count_rows("rows_assembled_scalar", n)
+        _metrics.observe("assembly_seconds", seconds)
 
 
 # Rows materialize in windows this size: cyclic GC cost scales with LIVE
@@ -300,11 +329,20 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _dispatch_traced(plan, device):
+    """Dispatch-thread task: the plan's uploads and launches on the dispatch
+    stream, under a 'dispatch' stage, so a trace gives the pqt-dispatch
+    lane its host time (the launch, not the kernel: nothing waits on the
+    card here). The trace arrives through the dispatch's context carry."""
+    with stage("dispatch"):
+        return plan.dispatch_device(device)
+
+
 def _dispatch_prepared(prepared, device):
     """Dispatch-thread task: the chunk plan a prepare future gives, uploaded
     and launched on the dispatch stream (a prepare error re-raises here, at
     the caller's result())."""
-    return prepared.result().dispatch_device(device)
+    return _dispatch_traced(prepared.result(), device)
 
 
 def _settle(staged) -> None:
@@ -678,18 +716,26 @@ class FileReader:
     def _read_row_group(self, i: int, columns, pack: bool) -> dict[tuple, ChunkData]:
         """pack=False is the internal path of rows and masks: they consume
         the levels at once, so bit-packing them would be a round trip."""
+        with span("row_group", {"group": i}):
+            return self._read_row_group_impl(i, columns, pack)
+
+    def _read_row_group_impl(self, i: int, columns, pack: bool) -> dict[tuple, ChunkData]:
         if self.backend == "device_roundtrip":
             try:
                 plans = self._plan_row_group(i, columns, self.device)
                 out = {path: plan.finalize() for path, plan in plans.items()}
-            except PARQUET_ERRORS:
+            except PARQUET_ERRORS as e:
                 # chunks plan and finalize as a batch here, so isolation is
                 # a group's on this backend
                 if self.on_error == "raise":
                     raise
                 _io_count("chunks_quarantined")
-                _io_count("row_groups_quarantined")
-                return {}
+                _log_event(
+                    "chunk_quarantined", level="warning",
+                    source=self._source.source_id, group=i,
+                    error=f"{type(e).__name__}: {e}",
+                )
+                return self._group_quarantined(i)
         else:
             out = self._read_host(i, columns)
         if pack and self.compact_levels:
@@ -712,10 +758,15 @@ class FileReader:
                 out[path] = read_chunk(
                     f, cc, column, validate_crc=self.validate_crc, alloc=self.alloc
                 )
-            except PARQUET_ERRORS:
+            except PARQUET_ERRORS as e:
                 if self.on_error == "raise":
                     raise
                 _io_count("chunks_quarantined")
+                _log_event(
+                    "chunk_quarantined", level="warning",
+                    source=self._source.source_id, group=i,
+                    column=".".join(path), error=f"{type(e).__name__}: {e}",
+                )
                 if self.on_error == "null":
                     nc = self._null_chunk(i, column)
                     if nc is not None:
@@ -724,9 +775,17 @@ class FileReader:
                         continue
                 # the columns of a group stay row-aligned: one chunk that
                 # cannot be delivered drops the group
-                _io_count("row_groups_quarantined")
-                return {}
+                return self._group_quarantined(i)
         return out
+
+    def _group_quarantined(self, i: int) -> dict:
+        """Count and log a dropped group; its read delivers {}."""
+        _io_count("row_groups_quarantined")
+        _log_event(
+            "row_group_quarantined", level="warning",
+            source=self._source.source_id, group=i,
+        )
+        return {}
 
     def _null_chunk(self, i: int, column) -> "ChunkData | None":
         """An all-null stand-in for a quarantined chunk (on_error='null'):
@@ -850,7 +909,9 @@ class FileReader:
         mask = None
         if vec_filter_enabled() and vec_enabled():
             try:
-                mask = dnf_mask(chunks, dnf, group_row_count(chunks))
+                with timed_stage("assembly.filter") as el:
+                    mask = dnf_mask(chunks, dnf, group_row_count(chunks))
+                _metrics.observe("filter_mask_seconds", el.seconds)
             except VecFilterError:
                 mask = None
         if mask is not None:
@@ -871,7 +932,8 @@ class FileReader:
             # flat schemas gather ONLY the kept rows (value boxing and
             # logical conversion scale with matches, not group size)
             try:
-                flat = masked_flat_columns(row_chunks, raw, mask)
+                with stage("assemble"):
+                    flat = masked_flat_columns(row_chunks, raw, mask)
             except VecFilterError:
                 flat = None
             if flat is not None:
@@ -881,7 +943,7 @@ class FileReader:
                 if names and k:
                     yield from self._column_rows(names, columns, k)
                 return
-            with _gc_paused():
+            with stage("assemble"), _gc_paused():
                 rc = assemble_row_columns(self.schema, row_chunks, raw)
             if rc is not None and rc[2] == len(mask):
                 _count_rows("assemble_vec")
@@ -950,7 +1012,7 @@ class FileReader:
             # the vectorized engine: level prefix scans -> offsets/validity
             # columns (core/assembly_vec.py). None when the scans cannot
             # prove the shape, or always when PQT_VEC_ASSEMBLY=0.
-            with _gc_paused():
+            with stage("assemble"), _gc_paused():
                 rc = assemble_row_columns(self.schema, chunks, raw)
             if rc is not None:
                 _count_rows("assemble_vec")
@@ -966,9 +1028,10 @@ class FileReader:
             # full decode happened: restrict materialization to the ranges
             return self._ranged_rows(names, columns, ranges)
         if n <= _ASSEMBLE_WINDOW:
-            with _gc_paused():
+            with timed_stage("assembly.rows") as el, _gc_paused():
                 rows = _zip_dict_rows(names, columns)
             _count_rows("rows_assembled_vec", n)
+            _metrics.observe("assembly_seconds", el.seconds)
             return rows
         return self._ranged_rows(names, columns, [(0, n)])
 
@@ -1017,9 +1080,10 @@ class FileReader:
         def windows():
             for s in range(0, n, _ASSEMBLE_WINDOW):
                 e = min(s + _ASSEMBLE_WINDOW, n)
-                with _gc_paused():
+                with timed_stage("assembly.rows") as el, _gc_paused():
                     rows = _zip_dict_rows(names, [c[s:e] for c in columns])
                 _count_rows("rows_assembled_vec", e - s)
+                _metrics.observe("assembly_seconds", el.seconds)
                 yield rows
 
         return itertools.chain.from_iterable(windows())
@@ -1038,7 +1102,7 @@ class FileReader:
                 k = int(wm.sum())
                 if not k:
                     continue
-                with _gc_paused():
+                with timed_stage("assembly.rows") as el, _gc_paused():
                     if k == e - s:
                         cols = [c[s:e] for c in columns]
                     else:
@@ -1046,6 +1110,7 @@ class FileReader:
                         cols = [list(itertools.compress(c[s:e], wml)) for c in columns]
                     rows = _zip_dict_rows(names, cols)
                 _count_rows("rows_assembled_vec", k)
+                _metrics.observe("assembly_seconds", el.seconds)
                 yield rows
 
         return itertools.chain.from_iterable(windows())
@@ -1061,9 +1126,10 @@ class FileReader:
                     e = min(s + _ASSEMBLE_WINDOW, stop)
                     # build INSIDE the GC pause, yield OUTSIDE it: the
                     # consumer must run with GC enabled
-                    with _gc_paused():
+                    with timed_stage("assembly.rows") as el, _gc_paused():
                         rows = _zip_dict_rows(names, [c[s:e] for c in columns])
                     _count_rows("rows_assembled_vec", e - s)
+                    _metrics.observe("assembly_seconds", el.seconds)
                     yield rows
 
         return itertools.chain.from_iterable(windows())
@@ -1089,11 +1155,12 @@ class FileReader:
         order, and each dispatch still overlaps the next prepare."""
         groups = [list(self._selected_chunks(i, columns)) for i in indices]
 
-        def prep(cc, column):
-            return prepare_chunk_plan(
-                self._window(cc), cc, column, validate_crc=self.validate_crc,
-                alloc=self.alloc, stats=self.stats,
-            )
+        def prep(path, cc, column):
+            with span("chunk.prepare", {"column": ".".join(path)}):
+                return prepare_chunk_plan(
+                    self._window(cc), cc, column, validate_crc=self.validate_crc,
+                    alloc=self.alloc, stats=self.stats,
+                )
 
         pool = _host_pool()
         if pool is None or sum(len(g) for g in groups) <= 1:
@@ -1102,15 +1169,19 @@ class FileReader:
                 for chunks in groups:
                     staged.append([])
                     for path, cc, column in chunks:
-                        plan = prep(cc, column)
-                        staged[-1].append((path, dispatch(plan.dispatch_device, device, device)))
+                        plan = prep(path, cc, column)
+                        staged[-1].append((path, dispatch(_dispatch_traced, device, plan, device)))
             except BaseException:
                 _settle(staged)
                 raise
             return staged
         get_native()  # the host library's lazy init, before the fan-out
+        # both pool hops carry the caller's context (an active decode_trace
+        # is a contextvar, which a ThreadPoolExecutor does not carry): the
+        # prepares' and dispatches' spans join the submitting read's trace
         return [
-            [(path, dispatch(_dispatch_prepared, device, pool.submit(prep, cc, column), device))
+            [(path, dispatch(_dispatch_prepared, device, instrumented_submit(
+                pool, prep, path, cc, column, pool="pqt-host", credit_wait=False), device))
              for path, cc, column in chunks]
             for chunks in groups
         ]
@@ -1141,14 +1212,16 @@ class FileReader:
         masked reductions."""
         dev = self.device if device is None else resolve_device(device)
         if filters is None:
-            plans = self._plan_row_group(i, columns, dev)
-            return {
-                path: self._pack_chunk_levels(path, plan.device_column())
-                for path, plan in plans.items()
-            }
+            with span("row_group.device", {"group": i}):
+                plans = self._plan_row_group(i, columns, dev)
+                return {
+                    path: self._pack_chunk_levels(path, plan.device_column())
+                    for path, plan in plans.items()
+                }
         normalized = normalize_dnf(self.schema, filters)
-        plans = self._plan_row_group(i, self._columns_with_filters(columns, normalized), dev)
-        cols = {path: plan.device_column() for path, plan in plans.items()}
+        with span("row_group.device", {"group": i}):
+            plans = self._plan_row_group(i, self._columns_with_filters(columns, normalized), dev)
+            cols = {path: plan.device_column() for path, plan in plans.items()}
         n = int(self.row_group(i).num_rows or 0)
         mask = self._device_group_mask(i, cols, normalized, n, dev)
         return {p: self._pack_chunk_levels(p, dc) for p, dc in cols.items()}, mask
@@ -1170,13 +1243,14 @@ class FileReader:
         mask with the host vec engine, uploaded (a shape even it declines
         raises its typed VecFilterError). Anything else, a CUDA error
         included, propagates."""
-        try:
-            mask = device_dnf_mask(group, normalized, n, null_mode=null_mode, device=dev)
-        except DeviceFilterError:
-            _bump("device_filter_declined")
-            return to_device(self._host_row_mask(i, normalized, n, null_mode), dev)
-        _bump("device_filter_engaged")
-        return mask
+        with span("query.mask", {"group": i, "terms": len(normalized)}):
+            try:
+                mask = device_dnf_mask(group, normalized, n, null_mode=null_mode, device=dev)
+            except DeviceFilterError:
+                _bump("device_filter_declined")
+                return to_device(self._host_row_mask(i, normalized, n, null_mode), dev)
+            _bump("device_filter_engaged")
+            return mask
 
     def _host_row_mask(self, i, normalized, n, null_mode="row"):
         """Host-engine fallback mask: decode the filter columns on the host
@@ -1198,11 +1272,12 @@ class FileReader:
         the kept rows. The kept count is the group's one host sync.
         Returns (filtered arrs, kept rows)."""
         mask = self._device_group_mask(i, group, normalized, n, dev)
-        src, count = mask_take_scan(mask, n)
-        kept = int(count)
-        if kept == n or kept == 0:
-            return arrs, kept
-        return _tree_map(lambda a: mask_take_rows(a, src, count, kept), arrs), kept
+        with span("query.take", {"group": i, "rows": n}):
+            src, count = mask_take_scan(mask, n)
+            kept = int(count)
+            if kept == n or kept == 0:
+                return arrs, kept
+            return _tree_map(lambda a: mask_take_rows(a, src, count, kept), arrs), kept
 
     def read_row_groups_device(
         self, row_groups=None, columns=None, device=None

@@ -69,6 +69,7 @@ from ..sink.encoder import (
 )
 from ..sink.counts import count, reset_write_counts, write_counts
 from ..sink.sink import open_sink
+from ..utils import metrics as _metrics
 from .column_store import MAX_PAGE_SIZE_DEFAULT, ColumnChunkBuilder
 from .schema import Column, Schema
 from .shred import ShredError, Shredder, _value_size
@@ -646,7 +647,7 @@ class FileWriter:
             raise
         erg.row_group.ordinal = len(self._row_groups)
         try:
-            self._pos = commit_group(erg, self._sink, self._pos)
+            self._pos = commit_group(erg, self._sink, self._pos, _metrics.codec_name(self._cfg.codec))
         except Exception as e:
             # the sink rejected bytes mid-group: _pos is out of sync with the
             # sink, so the writer can never produce a coherent file

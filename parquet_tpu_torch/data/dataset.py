@@ -54,10 +54,13 @@ In the order the pipeline applies them:
 
 Cut, raising plan.NotPortedError (a ValueError) that names the layer: a
 placement over several devices of one process (the reference's Sharding).
-dataset_counts() reads the counters the reference keeps in utils.metrics;
-the waits the controller steers on (dataset_wait_seconds and the pqt-data
-pool's pool_queue_wait_seconds) are observed into
-utils.instruments.INSTRUMENTS, the histograms it reads.
+dataset_counts() is a view of the process registry (utils.metrics): the
+counters, the dataset_wait_seconds histogram and the dataset_prefetch_depth
+gauge. The waits the controller steers on (dataset_wait_seconds and the
+pqt-data pool's pool_queue_wait_seconds, through obs.pool) are observed
+there too. Each unit is a record of the flight recorder (obs.recorder) and
+a `dataset.unit` span of an active decode trace; a skipped unit also logs
+unit_quarantined (obs.log).
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ from __future__ import annotations
 import os
 import threading
 import time
-from collections import Counter, deque
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -78,67 +81,83 @@ from ..io.planner import Readahead, plan_ranges
 from ..io.tiercache import TieredCache
 from ..kernels.pipeline import device_put_pipelined, to_device
 from ..meta.file_meta import ParquetFileError
-from ..utils.instruments import INSTRUMENTS
+from ..obs.log import log_event
+from ..obs.pool import instrumented_submit
+from ..obs.recorder import recorder as _recorder
+from ..utils import metrics as _metrics
+from ..utils.counters import LabelledCounts
+from ..utils.trace import span, timed_stage
 from .plan import ScanPlan, build_plan, not_ported
 
 __all__ = ["ParquetDataset", "DatasetIterator", "dataset_counts", "reset_dataset_counts"]
 
 _STATE_VERSION = 1
 
-# The counters the reference keeps in utils.metrics (dataset_batches_total,
-# dataset_rows_total, the dataset_wait_seconds histogram's count and sum,
-# dataset_units_row_filtered, dataset_slo_violations_total: the waits an
-# attached controller counted over its SLO) and its prefetch-depth gauge
-# (the units in flight over every iterator). Process-wide: read with dataset_counts(),
-# zero with reset_dataset_counts().
-_COUNTS: Counter = Counter()
+# The dataset's counts, under the registry families the reference writes:
+# batches and rows (dataset_batches_total, dataset_rows_total), the units an
+# on_error policy skipped or row filtering masked (events_total, also counts
+# of the active trace, as the reference's trace.bump() makes them), and the
+# waits an attached controller counted over its SLO
+# (dataset_slo_violations_total). dataset_counts() adds the count and sum
+# of the consumer waits the dataset observed into dataset_wait_seconds
+# since the last reset (a controller's driver may observe into that
+# histogram too) and the prefetch-depth gauge (the units in flight over
+# every iterator).
+_FAMILIES = {
+    "batches": ("dataset_batches_total", {}),
+    "rows": ("dataset_rows_total", {}),
+    "units_skipped": ("events_total", {"event": "dataset_units_skipped"}),
+    "units_row_filtered": ("events_total", {"event": "dataset_units_row_filtered"}),
+}
+_COUNTS = LabelledCounts(alias=lambda name, labels: _FAMILIES.get(name, (name, labels)))
 _COUNTS_LOCK = threading.Lock()
+_waits = [0, 0.0]  # the dataset's own observations: count, sum
+_inflight_units = 0
+_inflight_seen = False  # the gauge moved since the last reset
 
 
 def _bump(name: str, n=1) -> None:
-    with _COUNTS_LOCK:
-        _COUNTS[name] += n
+    _COUNTS.count(name, n)
 
 
 def dataset_counts() -> dict:
     """A snapshot of the dataset counters, with dataset_slo_violations_total
     (the consumer waits an attached SLO controller counted over its SLO)
     once there is one."""
+    out = _COUNTS.snapshot()
     with _COUNTS_LOCK:
-        return dict(_COUNTS)
+        if _waits[0]:
+            out["wait_seconds_count"], out["wait_seconds_sum"] = _waits
+        if _inflight_seen or _inflight_units:
+            out["prefetch_depth"] = _inflight_units
+    return out
 
 
 def reset_dataset_counts() -> None:
     """Zero the counters. The prefetch-depth gauge stays: it counts units
     still in flight, which their iterators give back later."""
+    global _inflight_seen
+    _COUNTS.reset()
     with _COUNTS_LOCK:
-        depth = _COUNTS.get("prefetch_depth", 0)
-        _COUNTS.clear()
-        if depth:
-            _COUNTS["prefetch_depth"] = depth
+        _waits[:] = [0, 0.0]
+        _inflight_seen = False
 
 
 def _observe_wait(seconds: float) -> None:
     with _COUNTS_LOCK:
-        _COUNTS["wait_seconds_count"] += 1
-        _COUNTS["wait_seconds_sum"] += seconds
-    INSTRUMENTS.observe("dataset_wait_seconds", seconds)
+        _waits[0] += 1
+        _waits[1] += seconds
+    _metrics.observe("dataset_wait_seconds", seconds)
 
 
 def _inflight_add(n: int) -> None:
     """Move the prefetch-depth gauge (the units in flight over every
     iterator) by n."""
-    _bump("prefetch_depth", n)
-
-
-def _queued_task(t_submit: float, fn, args):
-    """A pqt-data task: its submit-to-start wait goes into
-    pool_queue_wait_seconds{pool="pqt-data"}, the controller's
-    scale-workers signal."""
-    INSTRUMENTS.observe(
-        "pool_queue_wait_seconds", time.perf_counter() - t_submit, pool="pqt-data"
-    )
-    return fn(*args)
+    global _inflight_units, _inflight_seen
+    with _COUNTS_LOCK:
+        _inflight_units += n
+        _inflight_seen = True
+        _metrics.set_gauge("dataset_prefetch_depth", _inflight_units)
 
 
 def _resolve_delivery(device) -> torch.device:
@@ -690,9 +709,9 @@ class DatasetIterator:
             for k in range(start_pos, len(order)):
                 off = start_off if k == start_pos else 0
                 # the synchronous path waits for the whole decode: record it
-                t = time.perf_counter()
-                cols, n = self._load_unit(units[order[k]], off)
-                _observe_wait(time.perf_counter() - t)
+                with timed_stage("dataset.wait") as w:
+                    cols, n = self._load_unit(units[order[k]], off)
+                _observe_wait(w.seconds)
                 if cols is not None and n > 0:
                     yield k, off, cols, n
             return
@@ -726,8 +745,9 @@ class DatasetIterator:
             added = 0
             while nxt < len(order) and len(pending) < depth:
                 off = start_off if nxt == start_pos else 0
-                unit = (units[order[nxt]], off)
-                fut = pool.submit(_queued_task, time.perf_counter(), self._load_unit, unit)
+                fut = instrumented_submit(
+                    pool, self._load_unit, units[order[nxt]], off, pool="pqt-data"
+                )
                 pending.append((nxt, off, fut))
                 nxt += 1
                 added += 1
@@ -739,12 +759,12 @@ class DatasetIterator:
         try:
             while pending:
                 k, off, fut = pending.popleft()
-                t = time.perf_counter()
                 try:
-                    cols, n = fut.result()
+                    with timed_stage("dataset.wait") as w:
+                        cols, n = fut.result()
                 finally:
                     _inflight_add(-1)  # a popped unit always leaves the gauge
-                _observe_wait(time.perf_counter() - t)
+                _observe_wait(w.seconds)
                 if ctl is not None:
                     seen = ctl.violations
                     if ctl.tick():
@@ -762,66 +782,84 @@ class DatasetIterator:
 
     def _load_unit(self, unit, row_offset: int):
         """Decode one (file, row group) on the host into batchable arrays,
-        sliced from `row_offset` (a pqt-data worker's task). The reader
-        touches no device: delivery uploads the batches. Returns (None, 0)
-        for a unit the on_error policy dropped."""
+        sliced from `row_offset` (a pqt-data worker's task; the trace and
+        log context arrive through instrumented_submit). The reader touches
+        no device: delivery uploads the batches. Returns (None, 0) for a
+        unit the on_error policy dropped."""
         ds = self._ds
-        try:
-            reader = FileReader(
-                unit.path,
-                columns=ds.columns,
-                metadata=ds.plan.metas[unit.file_index],
-                schema=ds._file_schema(unit.file_index),
-                validate_crc=ds.validate_crc,
-                device="cpu",
-                on_error=ds.on_error,
-                block_cache=ds._block_cache,
-                coalesce_gap="auto" if ds.io_autotune else None,
+        t0 = time.perf_counter()
+
+        def _skipped(reason: str):
+            # the noteworthy event (rate-limited) and the flight record: one
+            # /v1/debug listing shows the skipped unit beside the serve
+            # traffic that may have raced it
+            _bump("units_skipped")
+            log_event(
+                "unit_quarantined", level="warning",
+                file=unit.path, group=unit.row_group, reason=reason,
             )
-        except PARQUET_ERRORS + (OSError,):
-            if ds.on_error == "raise":
-                raise
-            _bump("units_skipped")
+            _recorder().record(
+                "dataset.unit", status="skipped",
+                duration_s=time.perf_counter() - t0,
+                detail={"file": unit.path, "group": unit.row_group, "reason": reason},
+            )
             return None, 0
-        try:
-            read_cols = None
-            normalized = None
-            if ds.filter_rows:
-                # the read set covers the filter leaves; the projection
-                # (reader._selected) prunes them back out below
-                from ..core.filter import normalize_dnf
 
-                normalized = normalize_dnf(reader.schema, ds.filters)
-                read_cols = reader._columns_with_filters(ds.columns, normalized)
-            chunks = reader._read_row_group(unit.row_group, read_cols, pack=False)
-            if not chunks:
-                # quarantined by on_error (or an empty selection)
-                _bump("units_skipped")
-                return None, 0
-            mask = None
-            if normalized is not None:
-                # a VecFilterError is a deterministic shape decline (it would
-                # quarantine every unit): it raises, whatever on_error says
-                from ..core.filter_vec import dnf_mask
+        with span("dataset.unit", {"file": unit.path, "group": unit.row_group}):
+            try:
+                reader = FileReader(
+                    unit.path,
+                    columns=ds.columns,
+                    metadata=ds.plan.metas[unit.file_index],
+                    schema=ds._file_schema(unit.file_index),
+                    validate_crc=ds.validate_crc,
+                    device="cpu",
+                    on_error=ds.on_error,
+                    block_cache=ds._block_cache,
+                    coalesce_gap="auto" if ds.io_autotune else None,
+                )
+            except PARQUET_ERRORS + (OSError,):
+                if ds.on_error == "raise":
+                    raise
+                return _skipped("open_failed")
+            try:
+                read_cols = None
+                normalized = None
+                if ds.filter_rows:
+                    # the read set covers the filter leaves; the projection
+                    # (reader._selected) prunes them back out below
+                    from ..core.filter import normalize_dnf
 
-                nrows = int(reader.row_group(unit.row_group).num_rows or 0)
-                mask = dnf_mask(chunks, normalized, nrows)
-            keep = reader._selected
-            cols = {
-                p: self._batch_array(p, cd, reader.schema.column(p))
-                for p, cd in chunks.items()
-                if keep is None or p in keep
-            }
-        except OSError:
-            # a transport failure mid-decode (a retry ladder exhausted, a
-            # breaker fast-failing): under "skip" / "null" the unit is
-            # quarantined like a corrupt one
-            if ds.on_error == "raise":
-                raise
-            _bump("units_skipped")
-            return None, 0
-        finally:
-            reader.close()
+                    normalized = normalize_dnf(reader.schema, ds.filters)
+                    read_cols = reader._columns_with_filters(ds.columns, normalized)
+                chunks = reader._read_row_group(unit.row_group, read_cols, pack=False)
+                if not chunks:
+                    # quarantined by on_error (or an empty selection)
+                    return _skipped("quarantined")
+                mask = None
+                if normalized is not None:
+                    # a VecFilterError is a deterministic shape decline (it
+                    # would quarantine every unit): it raises, whatever
+                    # on_error says
+                    from ..core.filter_vec import dnf_mask
+
+                    nrows = int(reader.row_group(unit.row_group).num_rows or 0)
+                    mask = dnf_mask(chunks, normalized, nrows)
+                keep = reader._selected
+                cols = {
+                    p: self._batch_array(p, cd, reader.schema.column(p))
+                    for p, cd in chunks.items()
+                    if keep is None or p in keep
+                }
+            except OSError:
+                # a transport failure mid-decode (a retry ladder exhausted, a
+                # breaker fast-failing): under "skip" / "null" the unit is
+                # quarantined like a corrupt one
+                if ds.on_error == "raise":
+                    raise
+                return _skipped("io_failed")
+            finally:
+                reader.close()
         if not cols:
             return None, 0
         lens = {a.shape[0] for a in cols.values()}
@@ -844,6 +882,12 @@ class DatasetIterator:
                 return None, 0
             cols = {p: a[row_offset:] for p, a in cols.items()}
             n -= row_offset
+        _recorder().record(
+            "dataset.unit",
+            duration_s=time.perf_counter() - t0,
+            nbytes=sum(int(a.nbytes) for a in cols.values()),
+            detail={"file": unit.path, "group": unit.row_group, "rows": n},
+        )
         return cols, n
 
     def _batch_array(self, path, cd, leaf) -> np.ndarray:

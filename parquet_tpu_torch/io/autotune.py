@@ -35,10 +35,10 @@ the LOCAL profile EXACTLY: observation noise on a fast local disk must
 never perturb the default byte-for-byte behavior tests pin.
 
 Observation is always on (one lock + three float updates per BATCHED
-read, not per range); only knob RESOLUTION is opt-in.
-`io_tuner().stats()` shows each profile's current verdict.
-
-The port's copy of parquet_tpu.io.autotune (its gauges dropped).
+read, not per range); only knob RESOLUTION is opt-in. The gauges
+io_autotune_gap_bytes{profile=} / io_autotune_latency_ms{profile=} mirror
+each profile's current verdict for operators; `io_tuner().stats()` is the
+debug-vars form.
 """
 
 from __future__ import annotations
@@ -46,6 +46,8 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 from typing import NamedTuple
+
+from ..utils import metrics as _metrics
 
 __all__ = [
     "IOParams",
@@ -182,6 +184,10 @@ class IOTuner:
                 p.latency_s += a * (per_run - p.latency_s)
                 p.bandwidth_bps += a * (bw - p.bandwidth_bps)
             p.observations += 1
+            lat_ms, params = self._params_locked(key, p)
+        # gauges outside the tuner lock (the registry has its own)
+        _metrics.set_gauge("io_autotune_gap_bytes", params.coalesce_gap, profile=key)
+        _metrics.set_gauge("io_autotune_latency_ms", lat_ms, profile=key)
 
     # -- resolution ------------------------------------------------------------
 

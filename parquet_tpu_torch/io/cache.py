@@ -17,8 +17,10 @@ Two caches, two lifetimes:
 
 Both count in io.counts: io_cache_hits_total / io_cache_misses_total /
 io_cache_evictions_total for blocks, io_footer_cache_hits_total /
-io_footer_cache_misses_total for footers (the port's copy of
-parquet_tpu.io.cache; the io_cache_bytes gauge is stats()["bytes"]).
+io_footer_cache_misses_total for footers and the io_cache_bytes
+gauge of the process registry; a hit or miss is also an io_cache_hit /
+io_cache_miss count of the request's trace (the tenant ledger's cache
+split).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import os
 import threading
 from collections import OrderedDict
 
+from ..utils import metrics as _metrics
+from ..utils.trace import count as _trace_count
 from .counts import count as _count
 
 __all__ = ["BlockCache", "FooterCache", "shared_footer_cache"]
@@ -51,8 +55,14 @@ class BlockCache:
             if buf is not None:
                 self._blocks.move_to_end(key)
                 _count("io_cache_hits_total")
+                # trace-only count (the line above owns the always-on
+                # counter): a request-scoped trace carries its own hit /
+                # miss split, how the serve cost ledger attributes cache
+                # outcomes per tenant
+                _trace_count("io_cache_hit")
                 return buf
         _count("io_cache_misses_total")
+        _trace_count("io_cache_miss")
         return None
 
     def put(self, source_id: str, offset: int, length: int, data) -> None:
@@ -70,17 +80,20 @@ class BlockCache:
                 _k, evicted = self._blocks.popitem(last=False)
                 self._bytes -= len(evicted)
                 _count("io_cache_evictions_total")
+            _metrics.set_gauge("io_cache_bytes", self._bytes)
 
     def invalidate(self, source_id: str) -> None:
         """Drop every block of one source (a file known to be rewritten)."""
         with self._lock:
             for key in [k for k in self._blocks if k[0] == source_id]:
                 self._bytes -= len(self._blocks.pop(key))
+            _metrics.set_gauge("io_cache_bytes", self._bytes)
 
     def clear(self) -> None:
         with self._lock:
             self._blocks.clear()
             self._bytes = 0
+            _metrics.set_gauge("io_cache_bytes", 0)
 
     def stats(self) -> dict:
         with self._lock:

@@ -8,17 +8,21 @@ io_resigns_total, io_sign_requests_total{method=...},
 io_hedges_total{outcome=...}, cache_tier_*) and the reader's
 chunks_quarantined, chunks_nulled and row_groups_quarantined. A labelled
 count is keyed as the reference's registry keys it: name{label="value"}
-(utils.counters).
-The reference's gauges (cache bytes, breaker state, autotune verdicts) are
-not kept: the objects they mirror answer stats() themselves."""
+(utils.counters); the reader's three are the registry's
+events_total{event=...}, as the reference's trace.bump() keeps them.
+Every count is a sample of the process registry (utils.metrics), which
+also holds the layer's gauges (cache bytes, breaker state, autotune
+verdicts); io_counts() is the view of the counts since the last reset."""
 
 from __future__ import annotations
 
-from ..utils.counters import LabelledCounts
+from ..utils.counters import LabelledCounts, event_alias
 
 __all__ = ["count", "io_counts", "reset_io_counts"]
 
-_COUNTS = LabelledCounts()
+_COUNTS = LabelledCounts(
+    alias=event_alias(("chunks_quarantined", "chunks_nulled", "row_groups_quarantined"))
+)
 
 
 def count(name: str, n: int = 1, **labels) -> None:

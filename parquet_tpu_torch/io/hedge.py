@@ -41,11 +41,10 @@ chaos harness (testing/chaos.py) also injects its FlakySource through the
 same hook. The default policy is all-off: zero wrappers, zero cost.
 
 Counts (io.counts): io_hedges_total{outcome=launched|win_primary|
-win_hedge|failed}. A breaker's state is `CircuitBreaker.state` and
-`BreakerRegistry.states()`.
-
-The port's copy of parquet_tpu.io.hedge (the state gauge and the
-structured log are dropped).
+win_hedge|failed}, and the io_breaker_state{source=} gauge (0 closed, 1
+open, 2 half-open; the label set is bounded by BreakerRegistry's
+max_sources). A hedge launch and every breaker transition are also logged
+(obs.log), and a launch is an io.hedge count of the request's trace.
 """
 
 from __future__ import annotations
@@ -56,6 +55,10 @@ from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as _FutTimeout
 from dataclasses import dataclass, field
 
+from ..obs.log import log_event as _log_event
+from ..obs.pool import instrumented_submit
+from ..utils import metrics as _metrics
+from ..utils import trace as _trace
 from .counts import count as _count
 from .source import ByteSource, RetryingSource, SourceError
 
@@ -192,7 +195,9 @@ class HedgedSource(ByteSource):
 
     def read_at(self, offset: int, n: int) -> bytes:
         delay = self.hedge_delay()
-        primary = hedge_pool().submit(self._timed_read, offset, n)
+        primary = instrumented_submit(
+            hedge_pool(), self._timed_read, offset, n, pool="pqt-hedge"
+        )
         try:
             # a primary failing BEFORE the bar propagates from here: there
             # is nothing to race, retry ladders handle plain failure
@@ -200,9 +205,18 @@ class HedgedSource(ByteSource):
         except _FutTimeout:
             pass
         # the primary outlived the bar: race a duplicate
-        hedge = hedge_pool().submit(self._timed_read, offset, n)
+        hedge = instrumented_submit(
+            hedge_pool(), self._timed_read, offset, n, pool="pqt-hedge"
+        )
         self.hedges_launched += 1
         _count("io_hedges_total", outcome="launched")
+        # per-request attribution beside the process-wide counter: the
+        # hedge launch is visible in this request's merged trace
+        _trace.count("io.hedge")
+        _log_event(
+            "hedged_read", delay_ms=round(delay * 1e3, 3), offset=offset,
+            nbytes=n, source=self.inner.source_id,
+        )
         return self._race(primary, hedge)
 
     def _race(self, primary, hedge) -> bytes:
@@ -249,6 +263,7 @@ class HedgedSource(ByteSource):
 # -- circuit breaker -----------------------------------------------------------
 
 _CLOSED, _OPEN, _HALF_OPEN = "closed", "open", "half_open"
+_STATE_GAUGE = {_CLOSED: 0, _OPEN: 1, _HALF_OPEN: 2}
 
 
 class CircuitBreaker:
@@ -260,7 +275,8 @@ class CircuitBreaker:
     ladder spin — until `open_s` has elapsed on the injected clock. Then
     half-open: ONE probe read is admitted (concurrent readers keep
     fast-failing); its success closes the breaker, its failure re-opens it
-    and re-arms the timer. Thread-safe."""
+    and re-arms the timer. Thread-safe; every transition is logged and
+    mirrored on the io_breaker_state{source=} gauge."""
 
     def __init__(
         self,
@@ -284,9 +300,15 @@ class CircuitBreaker:
         self._failures = 0
         self._opened_at = 0.0
         self._probing = False
-        # the label errors name: bounded/sanitized by the registry (NOT the
-        # raw source_id, which embeds paths and mtimes)
+        # the gauge label: bounded / sanitized by the registry (NOT the raw
+        # source_id, which embeds paths and mtimes)
         self._label = label if label is not None else source_id[:96]
+        self._set_gauge()
+
+    def _set_gauge(self) -> None:
+        _metrics.set_gauge(
+            "io_breaker_state", _STATE_GAUGE[self._state], source=self._label
+        )
 
     @property
     def state(self) -> str:
@@ -302,10 +324,16 @@ class CircuitBreaker:
         ):
             self._state = _HALF_OPEN
             self._probing = False
+            self._set_gauge()
 
     def _transition(self, state: str, event: str) -> None:
         # lock held
         self._state = state
+        self._set_gauge()
+        _log_event(
+            f"breaker_{event}", level="warning", source=self._label,
+            failures=self._failures,
+        )
 
     def before_read(self) -> None:
         """The admission gate: raises the typed fast-fail while open, and
@@ -395,7 +423,8 @@ class BreakerRegistry:
                     None,
                 )
                 if victim is not None:
-                    self._breakers.pop(victim)
+                    ev = self._breakers.pop(victim)
+                    _metrics.set_gauge("io_breaker_state", 0, source=ev._label)
                 else:
                     source_id = self.OVERFLOW
                     b = self._breakers.get(source_id)
@@ -419,7 +448,10 @@ class BreakerRegistry:
     def reset(self) -> None:
         """Drop every breaker (tests, chaos-harness teardown)."""
         with self._lock:
+            breakers = list(self._breakers.values())
             self._breakers.clear()
+        for b in breakers:
+            _metrics.set_gauge("io_breaker_state", 0, source=b._label)
 
 
 _default_registry: BreakerRegistry | None = None

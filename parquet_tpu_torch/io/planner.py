@@ -17,8 +17,8 @@ This module is that layer:
                    the gap bytes); runs are capped so one merge never
                    becomes an unbounded single read
   fetch_ranges()   the one choke point reads go through: block-cache
-                   lookup, coalesce, batched source.read_ranges, member
-                   slicing, cache fill
+                   lookup, coalesce, batched source.read_ranges under the
+                   io.read trace stage, member slicing, cache fill
   Readahead        a bounded scheduler on the dedicated pqt-io pool:
                    fetches planned ranges into a BlockCache ahead of
                    decode, with a budget on in-flight bytes; over-budget
@@ -28,8 +28,7 @@ This module is that layer:
                    prepare ("pqt-host") and dataset ("pqt-data") pools so
                    no layer can deadlock waiting on its own executor.
 
-The port's copy of parquet_tpu.io.planner (trace stages and pool
-instrumentation dropped; counts in io.counts).
+Counts in io.counts; the pqt-io pool goes through obs.pool.
 """
 
 from __future__ import annotations
@@ -39,6 +38,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+from ..obs.pool import instrumented_submit
+from ..utils.trace import stage
 from .counts import count as _count
 from .autotune import io_tuner, profile_key
 
@@ -160,7 +161,8 @@ def fetch_ranges(
     """Fetch every (offset, length) range; returns {(offset, length): buf}.
 
     The read choke point: cache-satisfied ranges never touch the source;
-    the rest coalesce into batched read_ranges calls and fill the cache. Buffers for
+    the rest coalesce (io.coalesce stage) into batched read_ranges calls
+    (io.read stage, byte volume billed) and fill the cache. Buffers for
     members of one run are zero-copy memoryview slices of the run buffer;
     cached entries are bytes.
 
@@ -187,11 +189,13 @@ def fetch_ranges(
         missing.append(key)
     if not missing:
         return out
-    runs = coalesce(missing, gap=gap, max_run=max_run)
+    with stage("io.coalesce"):
+        runs = coalesce(missing, gap=gap, max_run=max_run)
     run_spans = [(off, n) for off, n, _m in runs]
     total = sum(n for _o, n in run_spans)
     t0 = time.perf_counter()
-    bufs = source.read_ranges(run_spans)
+    with stage("io.read", total):
+        bufs = source.read_ranges(run_spans)
     # wall/runs is only an honest per-request latency when the runs were
     # SEQUENTIAL — remote sources fan read_ranges out concurrently and
     # feed the tuner per request themselves (HttpSource._observe), so
@@ -293,7 +297,8 @@ class Readahead:
             self._inflight += total
             self._futures = [f for f in self._futures if not f.done()]
             self._futures.append(
-                io_pool().submit(self._fetch, source_or_path, list(ranges), total)
+                instrumented_submit(io_pool(), self._fetch, source_or_path,
+                                    list(ranges), total, pool="pqt-io")
             )
         return True
 

@@ -46,8 +46,9 @@ Counts (io.counts): io_http_requests_total{status=},
 io_http_connections_total{event=new|reused}, io_multirange_requests_total
 {outcome=}, io_multirange_parts_total, io_resigns_total.
 
-The port's copy of parquet_tpu.io.remote: no traceparent header (the copy
-rule drops obs.propagate) and no trace spans. pooled_roundtrip also carries
+Every GET carries a child traceparent of the request's trace
+(obs.propagate) when one is bound, and rides the request's decode trace
+as a remote.get / remote.multirange span. pooled_roundtrip also carries
 io.remote_sink's PUT path.
 """
 
@@ -59,6 +60,10 @@ import threading
 import time
 from urllib.parse import urlsplit
 
+from ..obs import propagate as _propagate
+from ..obs.log import log_event as _log_event
+from ..obs.pool import instrumented_submit
+from ..utils import trace as _trace
 from .counts import count as _count
 from .source import ByteSource, SourceError, _count_read
 
@@ -306,6 +311,11 @@ class HttpSource(ByteSource):
             hdrs.update(extra_headers)
         if self._signer is not None:
             hdrs.update(self._signer.headers(method, self.url, b""))
+        tp = _propagate.outbound_traceparent("get")
+        if tp is not None:
+            # every call gets its own child span id under the request's
+            # trace: a store-side access log lines up per attempt
+            hdrs["traceparent"] = tp
         return pooled_roundtrip(
             self._pool, method, self._target, hdrs, timeout_s=self.timeout_s
         )
@@ -379,9 +389,15 @@ class HttpSource(ByteSource):
             # surfaces the rewrite as a typed source_changed rather than
             # silently mis-slicing the new generation
             hdrs["If-Range"] = self._etag
-        t0 = time.perf_counter()
-        status, reason, headers, body = self._request("GET", hdrs)
-        dt = time.perf_counter() - t0
+        # remote.get rides the request's decode trace as a child span; the
+        # args dict is committed by reference, so the status lands on the
+        # span once the response is in
+        span_args = {"offset": offset, "nbytes": n}
+        with _trace.span("remote.get", args=span_args):
+            t0 = time.perf_counter()
+            status, reason, headers, body = self._request("GET", hdrs)
+            dt = time.perf_counter() - t0
+            span_args["status"] = status
         if status == 206:
             self._validate_generation(headers, context)
             if len(body) != n:
@@ -458,7 +474,10 @@ class HttpSource(ByteSource):
             return [self.read_at(off, n) for off, n in ranges]
         from .planner import io_pool
 
-        futs = [io_pool().submit(self.read_at, off, n) for off, n in ranges]
+        futs = [
+            instrumented_submit(io_pool(), self.read_at, off, n, pool="pqt-io")
+            for off, n in ranges
+        ]
         out, first_err = [], None
         for f in futs:
             try:
@@ -491,15 +510,18 @@ class HttpSource(ByteSource):
         if self._etag:
             hdrs["If-Range"] = self._etag
         context = f"GET {self.url} [{len(ranges)} ranges]"
-        t0 = time.perf_counter()
-        try:
-            status, reason, headers, body = self._request("GET", hdrs)
-        except TransientSourceError:
-            # a transport fault says nothing about multi-range
-            # support: fall back THIS call, try again next time
-            _count_multirange("transport_fallback")
-            return None
-        dt = time.perf_counter() - t0
+        span_args = {"ranges": len(ranges), "nbytes": sum(n for _, n in ranges)}
+        with _trace.span("remote.multirange", args=span_args):
+            t0 = time.perf_counter()
+            try:
+                status, reason, headers, body = self._request("GET", hdrs)
+            except TransientSourceError:
+                # a transport fault says nothing about multi-range
+                # support: fall back THIS call, try again next time
+                _count_multirange("transport_fallback")
+                return None
+            dt = time.perf_counter() - t0
+            span_args["status"] = status
         ctype = (headers.get("Content-Type") or "").lower()
         if status == 206 and ctype.startswith("multipart/byteranges"):
             self._validate_generation(headers, context)
@@ -646,6 +668,10 @@ class ObjectStoreSource(ByteSource):
         self._expires_at = float(expires_at) if expires_at is not None else None
         if prev is not None:
             _count("io_resigns_total")
+            _log_event(
+                "source_resigned", source=self._inner.source_id,
+                expires_at=self._expires_at,
+            )
 
     def _ensure(self) -> HttpSource:
         with self._lock:

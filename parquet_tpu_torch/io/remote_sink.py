@@ -58,9 +58,9 @@ io_put_requests_total{status=}, io_put_bytes_total,
 io_put_retries_total{reason=}, sink_multipart_{initiated,parts,completed,
 aborted}_total.
 
-The port's copy of parquet_tpu.io.remote_sink: no traceparent header, no
-trace span and no event log (the copy rule drops those hooks); a part PUT
-goes straight to io_pool().
+Every attempt carries a child traceparent of the request's trace and is a
+remote.put span of it; a part PUT goes to the pqt-io pool through
+obs.pool, and the upload's lifecycle is logged (obs.log).
 """
 
 from __future__ import annotations
@@ -72,6 +72,10 @@ import zlib
 from urllib.parse import urlsplit
 
 from ..sink.sink import ByteSink, SinkError, _count_write
+from ..obs import propagate as _propagate
+from ..obs.log import log_event as _log_event
+from ..obs.pool import instrumented_submit
+from ..utils import trace as _trace
 from .counts import count as _count
 from .remote import (
     TransientSourceError,
@@ -244,16 +248,24 @@ class HttpSink(ByteSink):
             hdrs = dict(self.headers)
             if self._signer is not None:
                 hdrs.update(self._signer.headers(method, url, body or b""))
+            tp = _propagate.outbound_traceparent("put")
+            if tp is not None:
+                # fresh child span id per ATTEMPT: a retried part is two
+                # distinct spans in the store's access log, one trace id
+                hdrs["traceparent"] = tp
             try:
-                status, reason_s, resp_headers, resp_body = pooled_roundtrip(
-                    self._pool,
-                    method,
-                    target,
-                    hdrs,
-                    body=body,
-                    timeout_s=self.timeout_s,
-                    counter="io_put_requests_total",
-                )
+                span_args = {"attempt": attempt + 1, "nbytes": len(body or b"")}
+                with _trace.span("remote.put", args=span_args):
+                    status, reason_s, resp_headers, resp_body = pooled_roundtrip(
+                        self._pool,
+                        method,
+                        target,
+                        hdrs,
+                        body=body,
+                        timeout_s=self.timeout_s,
+                        counter="io_put_requests_total",
+                    )
+                    span_args["status"] = status
                 if status >= 300:
                     raise _put_status_error(status, reason_s, context)
             except TransientSourceError as e:
@@ -292,6 +304,9 @@ class HttpSink(ByteSink):
                     code="bad_initiate_response",
                 ) from e
             _count("sink_multipart_initiated_total")
+            _log_event(
+                "multipart_initiated", sink=self._id, upload_id=self._upload_id
+            )
         return self._upload_id
 
     def _put_part(self, part_number: int, data: bytes) -> dict:
@@ -358,7 +373,11 @@ class HttpSink(ByteSink):
             return
         from .planner import io_pool
 
-        self._pending.append(io_pool().submit(self._put_part, part_number, data))
+        self._pending.append(
+            instrumented_submit(
+                io_pool(), self._put_part, part_number, data, pool="pqt-io"
+            )
+        )
 
     def _reap(self, fut) -> None:
         try:
@@ -450,6 +469,13 @@ class HttpSink(ByteSink):
                     f"complete multipart {self.url}",
                 )
                 _count("sink_multipart_completed_total")
+                _log_event(
+                    "multipart_completed",
+                    sink=self._id,
+                    upload_id=self._upload_id,
+                    parts=len(self._parts),
+                    bytes=self._pos,
+                )
         except BaseException:
             # commit did NOT happen; leave nothing behind (abort-upload
             # is best-effort — an unreachable store keeps the close()
@@ -483,6 +509,9 @@ class HttpSink(ByteSink):
             except BaseException:  # noqa: BLE001 — best-effort by contract
                 pass
             _count("sink_multipart_aborted_total")
+            _log_event(
+                "multipart_aborted", sink=self._id, upload_id=self._upload_id
+            )
 
 
 class ObjectStoreSink(HttpSink):

@@ -1,7 +1,7 @@
 """Pluggable byte sources: where a Parquet file's bytes actually come from.
 
-The port's copy of parquet_tpu.io.source (metrics hooks become the plain
-counters of io.counts; the structured log is dropped).
+Its counts are io.counts counts; a retry is also an io.retry count of the
+request's trace and a rate-limited source_retry log event.
 
 The decode stack above this layer (reader/planner/cache) never touches a
 file handle directly — it speaks the small ByteSource contract:
@@ -44,6 +44,8 @@ import threading
 import time
 from pathlib import Path
 
+from ..obs.log import log_event as _log_event
+from ..utils import trace as _trace
 from .counts import count as _count
 
 __all__ = [
@@ -370,6 +372,17 @@ class RetryingSource(ByteSource):
                 )
                 reason = "short_read"
             _count("io_retries_total", reason=reason)
+            # per-request attribution: the retry shows in this request's
+            # trace (and merged multi-process view), not just the process
+            # counter: a remote.get followed by io.retry reads as one story
+            _trace.count("io.retry")
+            # structured mirror of the counter: rate-limited per event key,
+            # so a retry storm costs counters (exact) not disk (sampled)
+            _log_event(
+                "source_retry", level="warning", reason=reason,
+                attempt=attempt + 1, offset=offset, nbytes=n,
+                source=self.inner.source_id,
+            )
             if attempt + 1 >= self.attempts:
                 break
             delay = min(self.max_delay_s, self.base_delay_s * (2**attempt))

@@ -31,9 +31,9 @@ writers (single lock; disk reads copy out under it), so co-resident
 dataset workers can pool one spill directory. Its counts are
 tier-labelled (cache_tier_* in io.counts); the io_cache_* block-cache
 counts keep counting too, so a hit rate reads the same over either cache.
-
-The port's copy of parquet_tpu.io.tiercache (gauges dropped: stats()
-holds the bytes of each tier).
+The cache_tier_bytes{tier=} and io_cache_bytes gauges of the process
+registry hold each tier's resident bytes; a hit or miss is also an
+io_cache_hit / io_cache_miss count of the request's trace.
 """
 
 from __future__ import annotations
@@ -47,6 +47,8 @@ import threading
 import zlib
 from collections import OrderedDict
 
+from ..utils import metrics as _metrics
+from ..utils.trace import count as _trace_count
 from .counts import count as _count
 
 __all__ = ["TieredCache"]
@@ -187,6 +189,7 @@ class TieredCache:
             self._disk_used += seg.size
             _count("cache_tier_restored_blocks_total", restored)
         self._enforce_disk_budget()
+        self._set_gauges()
 
     def _replay(self, seg: _Segment, file_size: int) -> int:
         """Walk records from offset 0; index every intact one. Stops (and
@@ -242,6 +245,7 @@ class TieredCache:
                 return buf
         _count("cache_tier_misses_total")
         _count("io_cache_misses_total")
+        _trace_count("io_cache_miss")
         return None
 
     def put(self, source_id: str, offset: int, length: int, data) -> None:
@@ -256,12 +260,14 @@ class TieredCache:
                 if len(data) <= self.disk_bytes and key not in self._disk:
                     self._spill(key, data)
                     self._enforce_disk_budget()
+                    self._set_gauges()
                 return
             self._ram_put(key, data, spill_on_evict=True)
 
     def _count_hit(self, tier: str) -> None:
         _count("cache_tier_hits_total", tier=tier)
         _count("io_cache_hits_total")
+        _trace_count("io_cache_hit")
 
     def _ram_put(self, key, data: bytes, *, spill_on_evict: bool) -> None:
         # lock held
@@ -277,6 +283,7 @@ class TieredCache:
             if spill_on_evict and k not in self._disk:
                 self._spill(k, evicted)
         self._enforce_disk_budget()
+        self._set_gauges()
 
     # -- disk tier -------------------------------------------------------------
 
@@ -343,6 +350,7 @@ class TieredCache:
             for key in [k for k in self._disk if k[0] == source_id]:
                 seg, _off, data_len = self._disk.pop(key)
                 seg.live_bytes -= data_len
+            self._set_gauges()
 
     def clear(self) -> None:
         with self._lock:
@@ -350,6 +358,7 @@ class TieredCache:
             self._ram_used = 0
             self._disk.clear()
             self._drop_segments()
+            self._set_gauges()
 
     def _drop_segments(self) -> None:
         # lock held
@@ -358,6 +367,11 @@ class TieredCache:
         self._segments.clear()
         self._active = None
         self._disk_used = 0
+
+    def _set_gauges(self) -> None:
+        _metrics.set_gauge("cache_tier_bytes", self._ram_used, tier="ram")
+        _metrics.set_gauge("cache_tier_bytes", self._disk_used, tier="disk")
+        _metrics.set_gauge("io_cache_bytes", self._ram_used + self._disk_used)
 
     def stats(self) -> dict:
         with self._lock:

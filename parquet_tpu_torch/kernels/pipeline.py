@@ -56,7 +56,8 @@ from __future__ import annotations
 
 import os
 import threading
-from collections import Counter, deque
+import time
+from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -97,6 +98,11 @@ from ..ops.delta import _to_signed, decode_delta, prescan_delta_packed
 from ..ops.levels import decode_levels_v1, decode_levels_v2
 from ..ops.rle_hybrid import RunTable, expand_runs, prescan_hybrid
 from ..ops.varint import emit_uvarint, emit_zigzag
+from ..obs.log import log_event as _log_event
+from ..obs.pool import instrumented_submit
+from ..utils import metrics as _metrics
+from ..utils import trace as _trace
+from ..utils.counters import LabelledCounts, event_alias
 from ..utils.native import PrepareFault, get_native
 from ..sink.encoder import (
     EncodedChunk,
@@ -283,8 +289,13 @@ def _run_on_stream(fn, idx, args):
 def dispatch(fn, device, *args) -> Future:
     """Run fn(*args) on the dispatch thread, on `device`'s dispatch stream.
     The device index resolves on the calling thread, so a bare "cuda" means
-    the caller's current device, not the dispatch thread's."""
-    return dispatch_pool().submit(_run_on_stream, fn, _cuda_index(device), args)
+    the caller's current device, not the dispatch thread's. The task runs
+    in the caller's context (an active decode trace, the request's log and
+    cost context), as every pqt-* pool's does (obs.pool)."""
+    return instrumented_submit(
+        dispatch_pool(), _run_on_stream, fn, _cuda_index(device), args,
+        pool="pqt-dispatch", credit_wait=False,
+    )
 
 
 def record_event(device) -> "torch.cuda.Event | None":
@@ -363,7 +374,9 @@ def device_put_pipelined(batches, device=None, depth: int = 2):
     error from `batches` is deferred to the position where it happened
     (every batch before it is yielded first); an error from an upload
     surfaces at the yield of its batch. depth=0 uploads synchronously on the
-    calling thread."""
+    calling thread. Each upload runs under a `device_put` trace stage (the
+    dispatch carries the caller's decode_trace onto the dispatch thread);
+    the stage measures the upload's host time, not the copy's."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -371,8 +384,17 @@ def device_put_pipelined(batches, device=None, depth: int = 2):
         )
     if depth <= 0:
         for b in batches:
-            yield _take_batch(_put_batch(b, dev), dev)
+            # upload inside the stage, yield outside it: a yield under the
+            # stage would bill the consumer's time to the upload
+            with _trace.stage("device_put"):
+                put = _put_batch(b, dev)
+            yield _take_batch(put, dev)
         return
+
+    def put(b):
+        with _trace.stage("device_put"):
+            return _put_batch(b, dev)
+
     it = iter(batches)
     pending: deque = deque()
     source_err = None
@@ -392,7 +414,7 @@ def device_put_pipelined(batches, device=None, depth: int = 2):
             except BaseException as e:  # noqa: BLE001 - re-raised in order
                 source_err = e
                 return
-            pending.append(dispatch(_put_batch, dev, b, dev))
+            pending.append(dispatch(put, dev, b))
 
     fill()
     while pending:
@@ -414,24 +436,24 @@ def device_put_pipelined(batches, device=None, depth: int = 2):
 # device_ops launch counts: read with prepare_counts(), zero with
 # reset_prepare_counts().
 
-_COUNTS: Counter = Counter()
-_COUNTS_LOCK = threading.Lock()
+# each a sample of the registry's events_total; the reference's names are
+# also counts of the active decode trace, the port's route counts are not
+_COUNTS = LabelledCounts(alias=event_alias(), traced=lambda name: not name.startswith("route_"))
 
 
-def _bump(name: str, n: int = 1) -> None:
-    with _COUNTS_LOCK:
-        _COUNTS[name] += n
+def _bump(name: str, n: int = 1, nbytes: int = 0) -> None:
+    _COUNTS.count(name, n)
+    if nbytes:
+        _trace.add_bytes(name, nbytes)
 
 
 def prepare_counts() -> dict:
     """A snapshot of the prepare and route counters."""
-    with _COUNTS_LOCK:
-        return dict(_COUNTS)
+    return _COUNTS.snapshot()
 
 
 def reset_prepare_counts() -> None:
-    with _COUNTS_LOCK:
-        _COUNTS.clear()
+    _COUNTS.reset()
 
 
 class _FrozenHybrid(NamedTuple):
@@ -1164,10 +1186,16 @@ def prepare_chunk_plan(
     plan, fault = _native_prepare(f, chunk, column, validate_crc, alloc, stats)
     if plan is not None:
         return plan
+    t0 = time.perf_counter()
     plan = _staged_prepare(f, chunk, column, validate_crc, alloc, stats)
+    _metrics.observe("chunk_decode_seconds", time.perf_counter() - t0)
     if fault is not None:
         # the native walk aborted but the staged walk decoded cleanly
         _bump("prepare_fallback_recovered")
+        _log_event(
+            "prepare_fallback_recovered", level="warning",
+            column=".".join(column.path), fault=str(fault),
+        )
     return plan
 
 
@@ -1230,6 +1258,7 @@ def _native_prepare_impl(f, chunk, column, validate_crc, alloc, stats):
     if expected < 0:
         return None, None
     lib = get_native()  # a failed host build raises: no quiet decline
+    t_walk = time.perf_counter()
     res = lib.chunk_prepare(
         buf,
         codec,
@@ -1239,17 +1268,57 @@ def _native_prepare_impl(f, chunk, column, validate_crc, alloc, stats):
         delta_nbits,
         expected,
         int(md.total_uncompressed_size or 0),
+        collect_stages=_trace.active(),
         validate_crc=validate_crc,
     )
     if isinstance(res, PrepareFault):
         return None, res
+    t_walk = time.perf_counter() - t_walk
+    stage_ns = res.get("stage_ns")
+    if stage_ns is not None:
+        # one batch: the sub-stage spans lay back to back ending now, so
+        # they nest inside the enclosing chunk.prepare span
+        _trace.add_seconds_batch(
+            [
+                (name, int(stage_ns[slot]) / 1e9)
+                for slot, name in enumerate(_PREPARE_STAGES)
+                if stage_ns[slot]
+            ]
+        )
     try:
         plan = _plan_from_tables(column, expected, res, stats, np_dt, delta_nbits)
     except (PageError, ChunkError):
         raise
     except Exception:
         return None, None  # unexpected table shape: let the staged walk decide
+    # the process counters, recorded only once the plan is committed (a
+    # chunk that falls back to the staged walk is counted by that walk):
+    # the fused walk bypasses decompress_block and the per-page decoders,
+    # so it reports its own totals (io_bytes over the chunk window and the
+    # metadata's uncompressed size, page bytes over the value streams)
+    _metrics.observe("chunk_decode_seconds", t_walk)
+    _metrics.io_bytes(len(buf), int(md.total_uncompressed_size or 0), codec)
+    # decompress_block's per-trace decoded-byte account, which the fused
+    # walk bypasses: tenant cost stays exact on this lane too
+    _trace.add_bytes("decode.bytes", int(md.total_uncompressed_size or 0))
+    pages_arr = res["pages"]
+    if len(pages_arr):
+        for e in np.unique(pages_arr[:, _PC_ENC]):
+            sel = pages_arr[pages_arr[:, _PC_ENC] == e]
+            _metrics.page_decoded(
+                _metrics.encoding_name(int(e)), n=len(sel), nbytes=int(sel[:, _PC_VLEN].sum())
+            )
     return plan, None
+
+
+# the fused walk's stage_ns slots, as trace stages
+_PREPARE_STAGES = (
+    "prepare.decompress",
+    "prepare.levels",
+    "prepare.prescan",
+    "prepare.copy",
+    "prepare.crc",
+)
 
 
 def _release(res, keep_values: bool) -> None:
@@ -1281,7 +1350,7 @@ def _plan_from_tables(column, expected, res, stats, np_dt, delta_nbits):
                 ),
             )
             block = memoryview(values_buf)[P[_PC_VOFF] : P[_PC_VOFF] + P[_PC_VLEN]]
-            plan.dictionary = decode_dict_page(header, block, column)
+            plan.dictionary = decode_dict_page(header, block, column, count_metrics=False)
         elif P[_PC_KIND] == 0:
             data_pages.append(P)
     if column.max_def > 0 and data_pages:
@@ -1607,26 +1676,26 @@ def _repack_plain_as_delta(plan: _ChunkPlan, whole: np.ndarray, nbits: int) -> b
             zz = int(np.abs(d).max()) << 1
             est_bits = max(est_bits, zz.bit_length())
     if est_bits * n >= 4 * raw_bytes:  # est packed size >= raw/2: not worth it
-        _bump("repack_declined")
+        _bump("repack_declined", nbytes=raw_bytes)
         return False
     try:
         stream = lib.delta_encode(whole, nbits, 1024, 4)
     except (ValueError, OverflowError):
-        _bump("repack_declined")
+        _bump("repack_declined", nbytes=raw_bytes)
         return False
     if len(stream) * 8 > _BATCH_BITS_CAP or len(stream) * 2 > raw_bytes:
         # sampled estimate missed: ship raw rather than inflate
-        _bump("repack_declined")
+        _bump("repack_declined", nbytes=raw_bytes)
         return False
     try:
         widths, byte_starts, out_starts, mins, first, total, consumed = (
             lib.prescan_delta_packed(stream, nbits, n)
         )
     except (ValueError, OverflowError):
-        _bump("repack_declined")
+        _bump("repack_declined", nbytes=raw_bytes)
         return False
     if int(total) != n:
-        _bump("repack_declined")
+        _bump("repack_declined", nbytes=raw_bytes)
         return False
     first_u = int(first) & ((1 << 64) - 1)
     first_i64 = first_u - (1 << 64) if first_u >= 1 << 63 else first_u
@@ -1647,7 +1716,7 @@ def _repack_plain_as_delta(plan: _ChunkPlan, whole: np.ndarray, nbits: int) -> b
     }
     plan.frozen_delta = _freeze_delta_from_tables([P2], res2, nbits)
     if plan.frozen_delta:
-        _bump("repack_engaged")
+        _bump("repack_engaged", nbytes=len(stream))
     return bool(plan.frozen_delta)
 
 
@@ -1800,6 +1869,12 @@ def _staged_prepare(
 
         n, dfl, rep, non_null, enc, values_buf = _split_page(
             raw, header, pt, codec, column
+        )
+        # byte volumes ride decompress_block's choke point; pages by encoding
+        # count here, as this walk prescans value streams without the
+        # core.page decoders
+        _metrics.page_decoded(
+            _metrics.encoding_name(enc), nbytes=header.uncompressed_page_size or 0
         )
         if stats is not None:
             stats.add(pages=1)

@@ -26,10 +26,12 @@ sort-key point probe (at the merged run's median key) prunes at plan
 time, before vs after the rewrite.
 
 The port's copy of parquet_tpu.lake.compactor. The rewrite reads rows on
-the host (FileReader(device="cpu"): iter_rows touches no device). The
-metric and event-log hooks are plain counts in lake_counts()
-(lake_compactions_total, lake_compact_files_total, lake_compact_rows_total,
-lake_compact_skipped_total{reason=}, lake_compact_errors_total).
+the host (FileReader(device="cpu"): iter_rows touches no device). Its
+counts are lake_counts() (lake_compactions_total, lake_compact_files_total,
+lake_compact_rows_total, lake_compact_skipped_total{reason=},
+lake_compact_errors_total), beside the lake_compact_seconds histogram and
+the reference's log events (lake_compaction, lake_compact_skipped,
+lake_compact_error).
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ import time
 from ..core.merge import merge_files
 from ..core.reader import FileReader
 from ..core.writer import FileWriter
+from ..obs import log as _obslog
+from ..utils import metrics as _metrics
 from .counts import count as _count
 from .ingest import _FILE_SEQ
 from .manifest import FileEntry, LakeError, LakeTable
@@ -187,6 +191,15 @@ class Compactor:
         _count("lake_compactions_total")
         _count("lake_compact_files_total", len(picked))
         _count("lake_compact_rows_total", rows)
+        _metrics.observe("lake_compact_seconds", dt)
+        _obslog.log_event(
+            "lake_compaction",
+            generation=gen.generation,
+            files_in=len(picked),
+            rows=rows,
+            pruned_ratio_before=before,
+            pruned_ratio_after=after,
+        )
         return result
 
     def _sorted_rewrite(self, in_paths, out_path, key):
@@ -244,14 +257,22 @@ class Compactor:
                 "lake_compact_skipped_total",
                 reason=getattr(e, "code", "lake_error"),
             )
+            _obslog.log_event(
+                "lake_compact_skipped", level="warning",
+                reason=getattr(e, "code", "lake_error"), detail=str(e),
+            )
         self.table.manifest.reap_orphans(grace_s=self.reap_grace_s)
 
     def _loop(self) -> None:
         while not self._stop.wait(self.interval_s):
             try:
                 self.run_cycle()
-            except Exception:  # noqa: BLE001 — the loop must survive
+            except Exception as e:  # noqa: BLE001 — the loop must survive
                 _count("lake_compact_errors_total")
+                _obslog.log_event(
+                    "lake_compact_error", level="error",
+                    error=f"{type(e).__name__}: {e}",
+                )
 
     def start(self) -> "Compactor":
         if self._thread is None:

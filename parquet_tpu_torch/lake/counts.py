@@ -4,7 +4,9 @@ lake_orphans_reaped_total, lake_append_rows_total, lake_append_bytes_total,
 lake_flushes_total, lake_compactions_total, lake_compact_files_total,
 lake_compact_rows_total) and, for the compactor loop's event-log hooks,
 lake_compact_skipped_total{reason=...} and lake_compact_errors_total. A
-labelled count is keyed as io.counts keys it (utils.counters): name{label="value"}."""
+labelled count is keyed as io.counts keys it (utils.counters): name{label="value"}. Each count is a sample of the
+process registry (utils.metrics); lake_counts() is its view since the
+last reset."""
 
 from __future__ import annotations
 

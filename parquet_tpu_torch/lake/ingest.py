@@ -19,9 +19,9 @@ flush IS the serialization point that gives each flush one generation).
 
 The port's copy of parquet_tpu.lake.ingest. The copy rule bars pyarrow, so
 the arrow-ipc format is cut: its body raises the reference's own
-no-pyarrow refusal, LakeError(code="unsupported_format"). The metric hooks
-are plain counts in lake_counts() (lake_append_rows_total,
-lake_append_bytes_total, lake_flushes_total).
+no-pyarrow refusal, LakeError(code="unsupported_format"). Its counts are
+lake_counts() (lake_append_rows_total, lake_append_bytes_total,
+lake_flushes_total), beside the lake_flush_seconds histogram.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import threading
 import time
 
 from ..core.writer import FileWriter
+from ..utils import metrics as _metrics
 from .counts import count as _count
 from .manifest import FileEntry, LakeError, LakeTable, Snapshot
 
@@ -172,6 +173,7 @@ class IngestWriter:
             return self._flush_locked()
 
     def _flush_locked(self) -> Snapshot:
+        t0 = time.perf_counter()
         rows, self._rows = self._rows, []
         self._buffered = 0
         key = self.table.sort_key
@@ -213,6 +215,7 @@ class IngestWriter:
         )
         self.flushes += 1
         _count("lake_flushes_total")
+        _metrics.observe("lake_flush_seconds", time.perf_counter() - t0)
         return snap
 
     def close(self):

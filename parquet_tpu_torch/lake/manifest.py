@@ -30,10 +30,9 @@ the dropping commit is durable). Orphan data/tmp files — a crash between
 a compactor rewrite and its manifest commit — are reaped by
 reap_orphans(), age-gated so in-flight writers are never raced.
 
-The port's copy of parquet_tpu.lake.manifest: the metric hooks are plain
-counts in lake_counts() (lake_manifest_commits_total,
-lake_files_unlinked_total, lake_orphans_reaped_total); the reference's
-gauges (generation, files, rows) are what open_snapshot() answers.
+Its counts are lake_counts() (lake_manifest_commits_total,
+lake_files_unlinked_total, lake_orphans_reaped_total); a commit also sets
+the lake_generation, lake_files and lake_rows gauges of the registry.
 """
 
 from __future__ import annotations
@@ -46,6 +45,7 @@ import time
 from ..core.schema import Schema
 from ..schema.dsl import parse_schema, schema_to_string
 from ..sink.sink import LocalFileSink
+from ..utils import metrics as _metrics
 from .counts import count as _count
 
 __all__ = [
@@ -369,6 +369,9 @@ class LakeManifest:
                 self._current_path(), {"generation": new_gen}
             )
             _count("lake_manifest_commits_total")
+            _metrics.set_gauge("lake_generation", new_gen)
+            _metrics.set_gauge("lake_files", len(files))
+            _metrics.set_gauge("lake_rows", snap.total_rows)
             self._prune_retention(new_gen)
             return snap
 

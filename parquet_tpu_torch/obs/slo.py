@@ -29,17 +29,16 @@ over the serve daemon's own request outcomes:
               "warn"     fast burn >= `warn_burn` on either SLI
               "ok"       otherwise
 
-The daemon feeds `record()` from its `_finish` path (one sample per
-finished request), evaluates on demand (`GET /v1/debug/slo` returns
+The daemon feeds `record()` from the same `_finish` path that observes
+serve_request_seconds, evaluates on demand (`GET /v1/debug/slo` returns
 the full window math), and folds the verdict into `/healthz` as a
 `degraded` status — still HTTP 200, deliberately distinct from
 `draining`'s 503: a degraded replica can still serve (a router may
 deprioritize it), a draining one must not be routed to at all.
 
-The port's copy of parquet_tpu.obs.slo. The reference mirrors every
-evaluate() into gauges of its metrics registry (slo_burn_rate,
-slo_error_budget_remaining, slo_verdict); the port has no registry, so the
-evaluate() body is the one place the numbers are read.
+Gauges (refreshed at every evaluate()): slo_burn_rate{sli=,window=},
+slo_error_budget_remaining{sli=} (windowed, slow window), and
+slo_verdict (0 ok / 1 warn / 2 burning).
 """
 
 from __future__ import annotations
@@ -47,6 +46,8 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
+
+from ..utils import metrics as _metrics
 
 __all__ = ["SLOObjective", "BurnRateEngine", "VERDICT_LEVELS"]
 
@@ -198,7 +199,9 @@ class BurnRateEngine:
         return _LAT_BUCKETS[-1] * 1e3
 
     def evaluate(self) -> dict:
-        """The full verdict + window math (the /v1/debug/slo body)."""
+        """The full verdict + window math (the /v1/debug/slo body).
+        Refreshes the slo_* gauges as a side effect, so any scrape after
+        an evaluate sees the current burn rates."""
         obj = self.objective
         now = self._clock()
         with self._lock:
@@ -265,4 +268,29 @@ class BurnRateEngine:
             },
         }
 
+        # gauge mirror: burn per (sli, window), windowed budget remaining
+        # (slow window — the budget a router would reason about), verdict
+        for sli, (f, s) in slis.items():
+            _metrics.set_gauge("slo_burn_rate", round(f, 4), sli=sli,
+                               window="5m")
+            _metrics.set_gauge("slo_burn_rate", round(s, 4), sli=sli,
+                               window="1h")
+            budget = (
+                1.0 - obj.availability
+                if sli == "availability"
+                else _LATENCY_BUDGET
+            )
+            win = slow
+            used = (
+                (win["bad"] if sli == "availability" else win["slow"])
+                / win["requests"]
+                if win["requests"]
+                else 0.0
+            )
+            _metrics.set_gauge(
+                "slo_error_budget_remaining",
+                round(max(0.0, 1.0 - used / budget), 4),
+                sli=sli,
+            )
+        _metrics.set_gauge("slo_verdict", VERDICT_LEVELS[verdict])
         return body

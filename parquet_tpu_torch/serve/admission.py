@@ -27,14 +27,15 @@ a thread on them:
     requests with a typed 503 `draining` while in-flight ones run to
     completion; `wait_drained()` tells the server when the last one left.
 
-Everything here is clock-injectable (tests pin time). The port's copy of
-parquet_tpu.serve.admission: the reference mirrors in-flight requests into
-a serve_queue_depth gauge (here: `in_flight`), logs each typed rejection
-as a rate-limited admission_rejected event (here: the count
-admission_rejected_total{code=} in serve.counts.serve_counts()), and reads
-the brownout signal (the pqt-serve pool's queue waits and depth) back out
-of its metrics registry; here it reads serve.counts.serve_pool_stats(),
-or the `pool_stats` callable a test passes.
+Everything here is clock-injectable (tests pin time) and updates the
+always-on registry: the `serve_queue_depth` gauge tracks in-flight
+requests; each typed rejection is logged as a rate-limited
+admission_rejected:<code> event (obs.log) and counted
+admission_rejected_total{code=} (serve.counts.serve_counts()); brownout
+reads the pqt-serve pool's pool_queue_wait_seconds histogram and
+pool_queue_depth gauge back out of the process registry (windowed
+deltas) through serve.counts.serve_pool_stats(), or calls the `pool_stats`
+callable a test passes instead.
 """
 
 from __future__ import annotations
@@ -42,14 +43,19 @@ from __future__ import annotations
 import threading
 import time
 
+from ..obs.log import log_event as _log_event
+from ..utils import metrics as _metrics
 from . import counts as _counts
 from .protocol import ServeError
 
 
-def _rejected(code: str) -> None:
-    # every typed admission rejection, counted by its code (codes are
-    # code-controlled, so the key set stays bounded)
+def _rejected(code: str, tenant: str) -> None:
+    # every typed admission rejection, counted and logged by its code. The
+    # code rides the EVENT KEY so the limiter buckets per code: a
+    # queue_full flood cannot absorb the one draining line at SIGTERM time
+    # (codes are code-controlled, so the key set stays bounded)
     _counts.count("admission_rejected_total", code=code)
+    _log_event(f"admission_rejected:{code}", level="warning", code=code, tenant=tenant)
 
 __all__ = ["AdmissionController", "Deadline", "Ticket"]
 
@@ -159,7 +165,8 @@ class AdmissionController:
         self.brownout_wait_s = brownout_wait_s
         self.brownout_depth = brownout_depth
         self.brownout_window_s = float(brownout_window_s)
-        # () -> {"queued", "wait_count", "wait_sum", ...} of the pqt-serve pool
+        # () -> {"queued", "wait_count", "wait_sum", ...} of the pqt-serve
+        # pool, read from the process registry
         self._pool_stats = (
             pool_stats if pool_stats is not None else _counts.serve_pool_stats
         )
@@ -299,14 +306,16 @@ class AdmissionController:
                     )
                 st.concurrent += 1
                 self._inflight += 1
+                _metrics.set_gauge("serve_queue_depth", self._inflight)
         except ServeError as e:
-            _rejected(e.code)
-            raise
+            _rejected(e.code, tenant)  # outside the lock: logging IO must
+            raise  # never serialize admissions
         return Ticket(self, tenant)
 
     def _release(self, tenant: str) -> None:
         with self._lock:
             self._inflight -= 1
+            _metrics.set_gauge("serve_queue_depth", self._inflight)
             st = self._tenants.get(tenant)
             if st is not None:
                 st.concurrent -= 1
@@ -376,7 +385,7 @@ class AdmissionController:
                 f"(needs {nbytes:,} B, {int(st.tokens):,} B available)",
                 retry_after_s=max(1, int(retry)),
             )
-        _rejected(err.code)
+        _rejected(err.code, tenant)  # outside the lock (see admit)
         raise err
 
     # -- drain -----------------------------------------------------------------

@@ -28,10 +28,9 @@ the bodies are its bytes for the same corpus and spec.
 from __future__ import annotations
 
 import json
-import threading
-from collections import Counter
 from contextlib import ExitStack
 
+from ..utils.counters import LabelledCounts
 from .protocol import QueryRequest, ServeError, agg_name, json_default
 from .query_device import DeviceQueryError, device_unit_partial
 
@@ -50,24 +49,22 @@ _M64 = (1 << 64) - 1
 
 # Units by engine, as the reference counts query_device_units_total{engine=}:
 # "device" (device_unit_partial answered) and "declined" (DeviceQueryError).
-_COUNTS: Counter = Counter()
-_COUNTS_LOCK = threading.Lock()
+_COUNTS = LabelledCounts(
+    alias=lambda engine, labels: ("query_device_units_total", {"engine": engine})
+)
 
 
 def query_device_counts() -> dict:
     """A snapshot of the query units' engine counts."""
-    with _COUNTS_LOCK:
-        return dict(_COUNTS)
+    return _COUNTS.snapshot()
 
 
 def reset_query_device_counts() -> None:
-    with _COUNTS_LOCK:
-        _COUNTS.clear()
+    _COUNTS.reset()
 
 
 def _bump(engine: str) -> None:
-    with _COUNTS_LOCK:
-        _COUNTS[engine] += 1
+    _COUNTS.count(engine)
 
 
 def query_columns(query: QueryRequest) -> list:

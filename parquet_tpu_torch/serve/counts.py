@@ -12,7 +12,7 @@ as io.counts keys them (utils.counters), name{label="value"}:
   events_total{event="serve_stream_aborted"}  torn chunked streams
 
 and two counts of the port's own, for what the reference only logs
-(obs.log events):
+(obs.log events, which the port logs too):
 
   admission_rejected_total{code=}         each typed admission rejection
                                           (the reference's rate-limited
@@ -22,13 +22,13 @@ and two counts of the port's own, for what the reference only logs
                                           reference's drain_begin /
                                           drain_complete events)
 
-It also holds the pqt-serve pool's numbers that the reference reads back
-out of its registry (pool_queue_depth and the pool_queue_wait_seconds
-histogram): the tasks queued and running, and the count and sum of the
-queue waits. `submit()` is the reference's instrumented_submit without the
-context carry: it records them around a plain executor submit, and
-AdmissionController's brownout and /v1/debug/vars read them through
-`serve_pool_stats()`.
+Each count is a sample of the process registry (utils.metrics), which
+the daemon's /metrics renders; serve_counts() is the view of the counts
+since the last reset. The pqt-serve pool goes through
+obs.pool.instrumented_submit like every pqt-* pool (`submit` is that, on
+the pool's name); `serve_pool_stats()` reads the pool's depth and its
+queue-wait histogram back out of the registry, as the brownout check and
+/v1/debug/vars do.
 
 The mesh router (serve/mesh/) keeps its counts apart, in mesh_counts(),
 under the reference's mesh_* names:
@@ -53,9 +53,10 @@ name the mesh client hands it; mesh_counts() shows them too.
 
 from __future__ import annotations
 
-import threading
-import time
+from functools import partial
 
+from ..obs.pool import instrumented_submit
+from ..utils import metrics as _metrics
 from ..utils.counters import LabelledCounts
 
 __all__ = [
@@ -71,11 +72,12 @@ __all__ = [
 
 _COUNTS = LabelledCounts()
 _MESH = LabelledCounts()
-_LOCK = threading.Lock()  # guards _POOL
 
 POOL = "pqt-serve"
-# the pool's live depth (queued, active) and its queue-wait totals
-_POOL = {"queued": 0, "active": 0, "wait_count": 0, "wait_sum": 0.0}
+
+# fn(*args) on a pqt-serve executor, with the context carry and the pool's
+# gauges and histograms
+submit = partial(instrumented_submit, pool=POOL)
 
 
 def count(name: str, n: int = 1, **labels) -> None:
@@ -89,57 +91,23 @@ def serve_counts() -> dict:
 
 
 def reset_serve_counts() -> None:
-    """Zero the counts and the queue-wait totals (the live depth stays:
-    it counts tasks that are still queued or running)."""
+    """Zero the view of the counts (the registry and the pool's numbers
+    stay: they are the process's)."""
     _COUNTS.reset()
-    with _LOCK:
-        _POOL["wait_count"] = 0
-        _POOL["wait_sum"] = 0.0
-
-
-def _run(t_submit: float, fn, args):
-    wait = time.perf_counter() - t_submit
-    with _LOCK:
-        _POOL["queued"] -= 1
-        _POOL["active"] += 1
-        _POOL["wait_count"] += 1
-        _POOL["wait_sum"] += wait
-    try:
-        return fn(*args)
-    finally:
-        with _LOCK:
-            _POOL["active"] -= 1
-
-
-def submit(executor, fn, *args):
-    """Submit fn(*args) to the pqt-serve executor, recording its queue wait
-    and the pool's depth."""
-    with _LOCK:
-        _POOL["queued"] += 1
-    try:
-        fut = executor.submit(_run, time.perf_counter(), fn, args)
-    except BaseException:
-        with _LOCK:
-            _POOL["queued"] -= 1  # shutdown race: the task never queued
-        raise
-
-    def _on_done(f):
-        if f.cancelled():  # cancelled before it started: _run never ran
-            with _LOCK:
-                _POOL["queued"] -= 1
-
-    fut.add_done_callback(_on_done)
-    return fut
 
 
 def serve_pool_stats() -> dict:
     """The pqt-serve pool right now: {"queued": tasks waiting, "active":
-    tasks running, "wait_count": waits ended, "wait_sum": their seconds}
-    (the brownout check reads the queue and the waits; /v1/debug/vars the
-    depths)."""
-    with _LOCK:
-        return dict(_POOL)
-
+    tasks running, "wait_count": waits ended, "wait_sum": their seconds},
+    read from the process registry."""
+    reg = _metrics.REGISTRY
+    h = reg.hist_stats("pool_queue_wait_seconds", pool=POOL)
+    return {
+        "queued": reg.get("pool_queue_depth", pool=POOL),
+        "active": reg.get("pool_active_workers", pool=POOL),
+        "wait_count": h["count"],
+        "wait_sum": h["sum"],
+    }
 
 def mesh_count(name: str, n: int = 1, **labels) -> None:
     """Add n to the mesh count `name` (with its labels)."""

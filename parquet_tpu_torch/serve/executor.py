@@ -30,10 +30,11 @@ json_default prints them, one chunk per unit). The reference's
 "arrow-ipc" stream needs pyarrow and is not ported: serve/server.py refuses
 it before admission.
 
-What the reference's hooks became: instrumented_submit is
-serve.counts.submit (the pool's queue wait and depth, no context carry);
-unit_clock (the per-tenant CPU ledger) and the trace stages are dropped;
-the metric increments are serve.counts counts. The reference's host query
+Every unit task goes through obs.pool.instrumented_submit (serve.counts.
+submit: the request's trace, log and cost context ride along), runs under
+obs.cost.unit_clock (its thread CPU billed to the tenant) and a
+serve.execute / serve.aggregate trace stage; the merge and each streamed
+chunk are serve.merge / serve.stream stages. The reference's host query
 engine is pyarrow (to_arrow + unit_partial) and is not ported, so a unit
 outside the device envelope raises ServeError(400, "device_declined"),
 counted in serve.aggregate.query_device_counts() as run_local_query
@@ -51,6 +52,8 @@ from concurrent.futures import TimeoutError as _FutTimeout
 
 from ..core.reader import PARQUET_ERRORS, FileReader
 from ..io.source import SourceError
+from ..obs.cost import unit_clock
+from ..utils.trace import stage
 from . import counts as _counts
 from .protocol import ServeError, json_default
 
@@ -127,25 +130,28 @@ def _close_unit_reader(session, reader) -> None:
 
 
 def _run_jsonl_unit(session, planned, unit, max_rows, check, device):
-    """Decode + serialize one unit; returns (payload bytes, rows)."""
+    """Decode + serialize one unit; returns (payload bytes, rows).
+    unit_clock bills the unit's thread time (exact per-thread CPU) to the
+    request's tenant through the cost context the submit carried."""
     check()
-    reader = _open_reader(session, planned, unit, device)
-    try:
-        lines = []
-        n = 0
-        for row in reader.iter_rows(
-            row_groups=[unit.row_group], filters=planned.request.filters
-        ):
-            lines.append(json.dumps(row, default=json_default))
-            n += 1
-            if n % _ROW_CHECK_EVERY == 0:
-                check()
-            if max_rows is not None and n >= max_rows:
-                break
-        payload = ("\n".join(lines) + "\n").encode() if lines else b""
-        return payload, n
-    finally:
-        _close_unit_reader(session, reader)
+    with unit_clock(), stage("serve.execute"):
+        reader = _open_reader(session, planned, unit, device)
+        try:
+            lines = []
+            n = 0
+            for row in reader.iter_rows(
+                row_groups=[unit.row_group], filters=planned.request.filters
+            ):
+                lines.append(json.dumps(row, default=json_default))
+                n += 1
+                if n % _ROW_CHECK_EVERY == 0:
+                    check()
+                if max_rows is not None and n >= max_rows:
+                    break
+            payload = ("\n".join(lines) + "\n").encode() if lines else b""
+            return payload, n
+        finally:
+            _close_unit_reader(session, reader)
 
 
 def _wait(fut, check: "_Check"):
@@ -299,23 +305,25 @@ def execute_query(
             return (
                 unit_count_partial(query, u.num_rows), u.num_rows, u.num_rows
             )
-        reader = _open_reader(session, planned, u, device)
-        try:
-            part = device_unit_partial(
-                reader, u.row_group, query, planned.request.filters
-            )
-        except DeviceQueryError as e:
-            _bump("declined")
-            raise ServeError(400, "device_declined", str(e)) from None
-        finally:
-            _close_unit_reader(session, reader)
-        _bump("device")
-        return part
+        with unit_clock(), stage("serve.aggregate"):
+            reader = _open_reader(session, planned, u, device)
+            try:
+                part = device_unit_partial(
+                    reader, u.row_group, query, planned.request.filters
+                )
+            except DeviceQueryError as e:
+                _bump("declined")
+                raise ServeError(400, "device_declined", str(e)) from None
+            finally:
+                _close_unit_reader(session, reader)
+            _bump("device")
+            return part
 
     gen = _pipelined(units, run, window, check)
     try:
         for part in _wrap_decode_errors(gen):
-            state.absorb(part)
+            with stage("serve.merge"):
+                state.absorb(part)
     finally:
         gen.close()
     _counts.count("serve_aggregate_requests_total")
@@ -339,7 +347,12 @@ def execute_stream(planned, session, *, deadline=None, window: int = 2, device=N
 
     def outer():
         try:
-            yield from _wrap_decode_errors(gen)
+            for payload in _wrap_decode_errors(gen):
+                # the stage brackets the YIELD: its wall time is how long
+                # the consumer (the chunked HTTP write) took to drain this
+                # chunk, the backpressure measurement
+                with stage("serve.stream", nbytes=len(payload)):
+                    yield payload
         finally:
             check.abort.set()
             gen.close()

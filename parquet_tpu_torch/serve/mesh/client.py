@@ -27,12 +27,12 @@ Exhaustion raises MeshError — a ServeError, so the HTTP layer renders the
 same typed body discipline as every other failure: `partial_failure`
 mid-scatter, `no_replicas` when the table has nothing routable.
 
-The port's copy of parquet_tpu.serve.mesh.client. The reference injects a
-traceparent child span into every attempt (obs.propagate, which the port
-does not carry): the port sends none, as its HttpSource sends none. Hedge
-attempts go on pqt-hedge with a plain submit (the reference's
-instrumented_submit carries its trace context), and the counts are
-serve.counts.mesh_counts()'.
+Every attempt injects a fresh traceparent CHILD span via
+obs/propagate.outbound_traceparent, so each router->replica hop is a
+distinct span under the request's trace and `parquet-tool trace-merge`
+stitches the full multi-process timeline. Hedge attempts go on pqt-hedge
+through obs.pool.instrumented_submit (the request's context rides along);
+the counts are serve.counts.mesh_counts()'.
 """
 
 from __future__ import annotations
@@ -44,6 +44,8 @@ from concurrent.futures import FIRST_COMPLETED, wait
 from ...io.hedge import hedge_pool
 from ...io.remote import host_pool, pooled_roundtrip
 from ...io.source import SourceError
+from ...obs.pool import instrumented_submit
+from ...obs.propagate import outbound_traceparent
 from ..counts import mesh_count
 from ..protocol import ServeError
 from .ring import HashRing
@@ -122,6 +124,9 @@ class MeshClient:
                 "breaker_open", f"{replica.label}: {e}", retry_after_s=None
             ) from None
         hdrs = dict(headers)
+        tp = outbound_traceparent("mesh")
+        if tp is not None:
+            hdrs["traceparent"] = tp
         t0 = time.perf_counter()
         try:
             status, _reason, rhdrs, rbody = pooled_roundtrip(
@@ -249,18 +254,18 @@ class MeshClient:
         delay = min(max(p95, self.hedge_min_s), self.hedge_max_s)
         pool = hedge_pool()
         futs = {
-            pool.submit(
-                self._attempt, primary, method, target, headers, body,
-                timeout_s,
+            instrumented_submit(
+                pool, self._attempt, primary, method, target, headers,
+                body, timeout_s, pool="pqt-hedge",
             ): "primary"
         }
         done, not_done = wait(futs, timeout=delay, return_when=FIRST_COMPLETED)
         if not done:
             mesh_count("mesh_hedges_total", outcome="launched")
             futs[
-                pool.submit(
-                    self._attempt, backup, method, target, headers, body,
-                    timeout_s,
+                instrumented_submit(
+                    pool, self._attempt, backup, method, target, headers,
+                    body, timeout_s, pool="pqt-hedge",
                 )
             ] = "hedge"
         pending = set(futs)

@@ -55,13 +55,15 @@ replicas run the query units on theirs. What differs from the reference:
   formats   format="arrow-ipc" scans (the reference re-frames the unit
             streams with pyarrow) answer the port daemon's typed 501
             not_ported before admission.
-  obs       the flight recorder, obs.cost and the record= hand-off are
-            cut (ScanService.scan / query take no record=); the mesh pool
-            takes a plain submit; the counts are serve.counts.mesh_counts()
-            and /metrics renders them beside the serve counts, counters
-            only; /v1/debug/vars has no "obs" or "process" key.
   pool      pqt-mesh has MESH_THREADS workers, a constant (no
-            PQT_MESH_THREADS).
+            PQT_MESH_THREADS); /v1/debug/vars lists it under "sizes".
+
+The router keeps the reference's observability: its own flight records
+and tenant cost (the process-wide recorder and ledger), a child
+traceparent on every backend attempt, hedge and scatter unit (the mesh
+client), the pqt-mesh pool through obs.pool, and /metrics as the
+process registry renders it (the mesh counts are its samples:
+serve.counts.mesh_counts()).
 """
 
 from __future__ import annotations
@@ -76,21 +78,24 @@ from concurrent.futures import TimeoutError as _FutTimeout
 from dataclasses import dataclass
 from urllib.parse import urlsplit
 
+from ...obs import cost as _cost
+from ...obs.pool import instrumented_submit
+from ...obs.recorder import ObsConfig as _ObsConfig
+from ...obs.recorder import configure as _obs_configure
 from ...obs.slo import BurnRateEngine as _BurnRateEngine
 from ...obs.slo import SLOObjective as _SLOObjective
+from ...utils import metrics as _metrics
 from ..admission import AdmissionController
 from ..aggregate import QueryState, result_dict
-from ..counts import mesh_count, mesh_counts, serve_counts
+from ..counts import mesh_count
 from ..executor import not_ported_format
 from ..protocol import QueryRequest, ScanRequest, ServeError, agg_name
 from ..server import (
-    _HELP,
     ScanServer,
     ScanService,
     ServeConfig,
     _count_request,
     _Handler,
-    render_counts,
 )
 from .client import MeshClient, MeshResponse
 from .table import ReplicaTable
@@ -301,6 +306,15 @@ class MeshService:
             brownout_depth=config.brownout_depth,
             brownout_window_s=config.brownout_window_s,
         )
+        self.recorder = _obs_configure(
+            _ObsConfig(
+                ring_size=config.debug_ring_size,
+                trace_sample_rate=config.trace_sample_rate,
+                slow_ms=config.slow_ms,
+                max_traces=config.debug_max_traces,
+            )
+        )
+        self.ledger = _cost.LEDGER
         self.started_at = time.time()
         if config.slo_engine is not None:
             self.slo = config.slo_engine
@@ -312,8 +326,15 @@ class MeshService:
                 )
             )
 
-    # the SLO view only touches self.slo: the daemon's applies verbatim
+    # the flight-recorder, SLO, profile and fleet views only touch
+    # self.recorder / self.slo / self.ledger: the daemon's apply verbatim
+    debug_requests = ScanService.debug_requests
+    debug_request = ScanService.debug_request
+    debug_trace = ScanService.debug_trace
     debug_slo = ScanService.debug_slo
+    debug_fleet = ScanService.debug_fleet
+    debug_tenants = ScanService.debug_tenants
+    debug_profile = ScanService.debug_profile
 
     # -- plumbing --------------------------------------------------------------
 
@@ -379,7 +400,7 @@ class MeshService:
             try:
                 while k < units or pending:
                     while k < units and len(pending) < window:
-                        pending.append(pool.submit(fetch, k))
+                        pending.append(instrumented_submit(pool, fetch, k, pool="pqt-mesh"))
                         k += 1
                     fut = pending[0]
                     while True:
@@ -401,7 +422,7 @@ class MeshService:
 
     # -- /v1/scan --------------------------------------------------------------
 
-    def scan(self, request: ScanRequest, tenant, timeout_ms=None):
+    def scan(self, request: ScanRequest, tenant, timeout_ms=None, record=None):
         if request.format != "jsonl":
             raise not_ported_format(request.format)
         deadline = self.admission.deadline_for(
@@ -429,6 +450,8 @@ class MeshService:
             summary = self._probe_plan(
                 _scan_obj(request._replace(limit=None)), sig, hdrs, deadline
             )
+            if record is not None:
+                record.plan = summary
             self.admission.charge(
                 ticket.tenant, int(summary.get("estimated_bytes") or 0)
             )
@@ -467,7 +490,7 @@ class MeshService:
 
     # -- /v1/query -------------------------------------------------------------
 
-    def query(self, request: QueryRequest, tenant, timeout_ms=None):
+    def query(self, request: QueryRequest, tenant, timeout_ms=None, record=None):
         deadline = self.admission.deadline_for(
             timeout_ms if timeout_ms is not None else request.timeout_ms
         )
@@ -487,6 +510,8 @@ class MeshService:
             if request.filters is not None:
                 probe["filters"] = _jsonable(request.filters)
             summary = self._probe_plan(probe, sig, hdrs, deadline)
+            if record is not None:
+                record.plan = summary
             self.admission.charge(
                 ticket.tenant, int(summary.get("estimated_bytes") or 0)
             )
@@ -605,11 +630,11 @@ class MeshService:
         }
 
     def debug_vars(self) -> dict:
-        """The /v1/debug/vars snapshot in mesh mode: the reference's body
-        without its "obs" knobs (cut with the flight recorder) and
-        "process" self-stats (cut with the metrics registry); "pools"
-        holds the pqt-mesh worker count."""
+        """The /v1/debug/vars snapshot in mesh mode; "pools" holds the
+        pqt-mesh worker count ("sizes", the port's own key) and every
+        instrumented pool's depths."""
         from ... import __version__ as _version
+        from ...obs.pool import pool_depths
 
         cfg = self.config
         return {
@@ -619,7 +644,7 @@ class MeshService:
             "started_at": self.started_at,
             "mode": "mesh",
             "replicas": self.table.urls(),
-            "pools": {"sizes": {"pqt-mesh": MESH_THREADS}},
+            "pools": {"sizes": {"pqt-mesh": MESH_THREADS}, "depths": pool_depths()},
             "serve": {
                 "max_inflight": cfg.max_inflight,
                 "tenant_concurrent": cfg.tenant_concurrent,
@@ -638,10 +663,17 @@ class MeshService:
                 "breaker_failures": cfg.breaker_failures,
                 "breaker_open_s": cfg.breaker_open_s,
             },
+            "obs": {
+                "trace_sample_rate": cfg.trace_sample_rate,
+                "slow_ms": cfg.slow_ms,
+                "debug_ring_size": cfg.debug_ring_size,
+                "debug_max_traces": cfg.debug_max_traces,
+            },
             "slo": {
                 "availability": self.slo.objective.availability,
                 "p99_ms": self.slo.objective.p99_ms,
             },
+            "process": _metrics.process_stats(),
         }
 
 
@@ -661,68 +693,23 @@ def _concat_jsonl(inner):
 
 # -- the HTTP layer ------------------------------------------------------------
 
-# `# HELP` lines of the mesh families (the reference's texts; the state
-# family is the port's count in place of the reference's gauge)
-_MESH_HELP = {
-    "mesh_requests_total": (
-        "requests routed by the mesh router, per endpoint and mode "
-        "(scatter/passthrough)"
-    ),
-    "mesh_backend_requests_total": (
-        "router->replica HTTP round trips, per response status"
-    ),
-    "mesh_retries_total": (
-        "backend attempts the mesh client failed over, per reason "
-        "(transport/5xx/draining/shed/breaker_open)"
-    ),
-    "mesh_hedges_total": (
-        "hedged backend duplicates: launched past the replica p95, then "
-        "won_primary/won_hedge for how the race resolved"
-    ),
-    "mesh_replica_state_total": (
-        "passive replica notes, per replica and the composite routing "
-        "state after each (up, degraded, draining, open-breaker, down)"
-    ),
-    "mesh_scatter_units_total": (
-        "plan units fanned out by scatter-gather, per endpoint"
-    ),
-    "mesh_partial_failures_total": (
-        "requests that exhausted every replica (typed partial_failure), "
-        "per target route"
-    ),
-}
-
-
-def render_mesh_metrics() -> str:
-    """The router's /metrics: its serve counts (requests, sheds) and the
-    mesh counts, classic Prometheus counters."""
-    return render_counts(
-        {**serve_counts(), **mesh_counts()}, {**_HELP, **_MESH_HELP}
-    )
-
-
 class _RouterHandler(_Handler):
-    """The daemon's handler, plus the router-only routes. Every inherited
-    route (scan/query/plan/healthz/debug) drives MeshService through the
-    ScanService signatures."""
+    """The daemon's handler, plus the router-only debug route. Every
+    inherited route (scan/query/plan/healthz/metrics/debug) drives
+    MeshService through the ScanService signatures."""
 
     server_version = "parquet-tpu-mesh"
 
     def do_GET(self) -> None:  # noqa: N802 - BaseHTTPRequestHandler API
         route = urlsplit(self.path).path
-        if route not in ("/v1/debug/mesh", "/metrics"):
+        if route != "/v1/debug/mesh":
             super().do_GET()
             return
         self._body_read = False
         self._rid = self._request_id()
+        self._tp = self._trace_context()
         try:
-            if route == "/metrics":
-                self._send_payload(
-                    200, render_mesh_metrics().encode(),
-                    content_type="text/plain; version=0.0.4; charset=utf-8",
-                )
-            else:
-                self._send_json(200, self.service.debug_mesh())
+            self._send_json(200, self.service.debug_mesh())
         except ServeError as e:
             self._send_error_body(e)
         except (BrokenPipeError, ConnectionResetError, TimeoutError):
@@ -742,6 +729,7 @@ class _RouterHandler(_Handler):
         # instead of a bare 404's "no such thing".
         self._body_read = False
         self._rid = self._request_id()
+        self._tp = self._trace_context()
         tenant = self._tenant()
         e = ServeError(
             501, "not_routable",

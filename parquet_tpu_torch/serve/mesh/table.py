@@ -18,12 +18,10 @@ The composite state each replica reports is a small closed vocabulary:
                failures) — fast-fail window, probes resume via half-open
   down         an active probe could not reach it at all
 
-The port's copy of parquet_tpu.serve.mesh.table, over the port's own
-CircuitBreaker and _LatencyWindow (io/hedge.py). The reference mirrors each
-replica's state on the mesh_replica_state gauge family; the port keeps no
-gauges: every passive note counts mesh_replica_state_total{replica=,
-state=} in serve.counts.mesh_counts() under the state after it, and the
-current state is `snapshot()`'s (GET /v1/debug/mesh)."""
+States map to the mesh_replica_state gauge family (one series per
+replica; the label set is bounded by the static --replica list). The
+port also counts every passive note as mesh_replica_state_total{replica=,
+state=} in serve.counts.mesh_counts(), under the state after it."""
 
 from __future__ import annotations
 
@@ -32,6 +30,7 @@ import time
 from urllib.parse import urlsplit
 
 from ...io.hedge import CircuitBreaker, _LatencyWindow
+from ...utils import metrics as _metrics
 from ..counts import mesh_count
 
 __all__ = ["Replica", "ReplicaTable", "STATE_VALUES"]
@@ -135,8 +134,10 @@ class Replica:
         return self.latency.quantile(0.95)
 
     def _count_state(self) -> None:
+        state = self.state()
+        _metrics.set_gauge("mesh_replica_state", STATE_VALUES[state], replica=self.label)
         mesh_count(
-            "mesh_replica_state_total", replica=self.label, state=self.state()
+            "mesh_replica_state_total", replica=self.label, state=state
         )
 
     def snapshot(self) -> dict:

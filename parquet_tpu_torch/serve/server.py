@@ -21,17 +21,45 @@ the bounded pqt-serve pool):
                     zero source reads when the footer cache is warm.
   POST /v1/append   one jsonl row batch into the lake table (`?flush=1`
                     commits a generation before the ack).
-  GET  /metrics     Prometheus text exposition of the serve counters
-                    (serve.counts.serve_counts()) and the query units'
-                    engines (query_device_units_total{engine=}).
+  GET  /metrics     Prometheus text exposition of the process metrics
+                    registry (utils/metrics.py: counters, gauges,
+                    histograms), families prefixed parquet_tpu_;
+                    `Accept: application/openmetrics-text` negotiates the
+                    OpenMetrics variant, whose serve_request_seconds
+                    buckets carry request-id exemplars.
   GET  /healthz     {"status": "ok"|"degraded"|"draining", "in_flight": n,
                     "slo": verdict}; 503 while draining so load balancers
                     stop routing here.
-  GET  /v1/debug/vars  daemon snapshot: uptime, pid, version, pool sizes
-                    and depths, resilience policy, cache/admission budgets.
+  GET  /v1/debug/requests[/<id>[/trace]]  the flight recorder
+                    (obs/recorder.py): newest-first summaries (?limit=,
+                    ?slow=1, ?endpoint=), one record in full, or its
+                    retained span tree as a Perfetto-loadable document.
+  GET  /v1/debug/profile?seconds=N  live sampling profile of the process
+                    (obs/prof.py), as collapsed stacks, a top table or
+                    json (?format=); a concurrent window is a typed 409.
+  GET  /v1/debug/tenants  per-tenant cost table (CPU seconds, decoded /
+                    source / payload bytes, cache outcomes; obs/cost.py).
+  GET  /v1/debug/vars  process snapshot: uptime, pid, version, pool sizes
+                    and depths, resilience policy, cache/admission
+                    budgets, obs knobs, process self-stats.
   GET  /v1/debug/slo  the burn-rate engine's verdict (ok/warn/burning)
                     + per-window math (obs/slo.py); the same verdict
                     folds into /healthz as "degraded" at 200.
+  GET  /v1/debug/fleet?peers=host:port,...  scrape the named replicas'
+                    /metrics and answer the merged exposition
+                    (obs/fleet.py: counters sum, histogram buckets add,
+                    gauges keep a replica= label).
+
+Every request resolves an inbound `traceparent` header (malformed ones
+are counted and replaced by a fresh context: obs/propagate.py), echoes
+the resolved one, and carries its trace id into error bodies, flight
+records and log lines as `trace_id`. A recorded request runs under a
+request-scoped decode trace (utils/trace.py) whose stage rollup every
+flight record keeps; the span tree is kept for a trace_sample_rate share
+of ok requests and for every errored or slow one. Its executor units bill
+their thread CPU to the tenant (obs/cost.py), and the daemon logs JSON
+lines (obs/log.py: slow_request, drain_begin / drain_complete, the
+admission rejections) once logging is configured.
 
 Error discipline: EVERY failure renders as a structured JSON body
 ({"error": {code, message, status, request_id}}) — never a traceback.
@@ -44,39 +72,8 @@ Shutdown: SIGTERM/SIGINT (install_signal_handlers) or drain() begin a
 graceful drain — new requests get typed 503s while in-flight ones run to
 completion — then the listener stops; close() commits the ingest tail.
 
-What the reference's hooks became in the port:
-
-  utils.metrics     the counters are plain counts in
-                    serve.counts.serve_counts() under the reference's
-                    names; the serve_request_seconds histogram and its
-                    exemplars are dropped, and /metrics renders counters
-                    only, in the classic text format, whatever the Accept
-                    header asks for (OpenMetrics included);
-  utils.trace       decode_trace (the request-scoped trace) is dropped;
-  obs.recorder      the flight-recorder ring and /v1/debug/requests[/<id>
-                    [/trace]] are cut; sanitize_request_id and the id mint
-                    are copied, so X-Request-Id is echoed (or minted for
-                    scan, query, plan and append) and error bodies carry
-                    request_id; the ring's knobs (trace_sample_rate,
-                    debug_ring_size, debug_max_traces) are gone, slow_ms
-                    stays and drives serve_slow_requests_total;
-  obs.propagate     dropped: no traceparent is echoed and error bodies
-                    carry no trace_id;
-  obs.cost          dropped, with /v1/debug/tenants;
-  obs.log           dropped: slow requests count in
-                    serve_slow_requests_total, drains in
-                    serve_drains_total{drained=}, admission rejections in
-                    admission_rejected_total{code=};
-  obs.prof          dropped, with /v1/debug/profile;
-  obs.fleet         dropped, with /v1/debug/fleet;
-  obs.slo           ported (obs/slo.py): /v1/debug/slo and /healthz's
-                    "slo" field and "degraded" status;
-  obs.pool          instrumented_submit is serve.counts.submit (no context
-                    carry), pool_depths its serve_pool_stats().
-
-The cut debug routes answer a typed 501 not_ported naming the cut module,
-and so does a format="arrow-ipc" scan (the stream needs pyarrow), refused
-before admission.
+A format="arrow-ipc" scan answers a typed 501 not_ported (the stream
+needs pyarrow), refused before admission.
 
 ServeConfig.device takes None, a string or a torch.device. None means
 CUDA, by the port's rule, and a daemon without CUDA and without device=
@@ -92,7 +89,6 @@ import json
 import os
 import threading
 import time
-import uuid
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
@@ -100,7 +96,16 @@ from urllib.parse import parse_qs, urlsplit
 from ..core.reader import PARQUET_ERRORS, host_threads, resolve_device
 from ..io.cache import BlockCache
 from ..io.planner import IO_THREADS
+from ..obs import cost as _cost
+from ..obs import log as _obslog
+from ..obs import prof as _prof
+from ..obs import propagate as _propagate
+from ..obs.recorder import ObsConfig as _ObsConfig
+from ..obs.recorder import configure as _obs_configure
+from ..obs.recorder import sanitize_request_id
 from ..obs.slo import BurnRateEngine, SLOObjective
+from ..utils import metrics as _metrics
+from ..utils.trace import decode_trace
 from . import counts as _counts
 from .admission import AdmissionController
 from .executor import SERVE_THREADS, execute_query, execute_stream, not_ported_format
@@ -112,31 +117,10 @@ from .protocol import (
     scan_request_from_query,
 )
 from .session import ScanSession
-from ..utils.counters import key as _key
 
 __all__ = ["ServeConfig", "ScanService", "ScanServer", "sanitize_request_id"]
 
-_ID_OK = set(
-    "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789._:-"
-)
-_MAX_ID = 64
-
-
-def sanitize_request_id(raw) -> str | None:
-    """The bounded, charset-safe form of a client-supplied X-Request-Id
-    (the same discipline as tenant keys): strip, truncate to 64, replace
-    anything outside [A-Za-z0-9._:-] with '_'. None/empty -> None (the
-    daemon mints one)."""
-    if raw is None:
-        return None
-    rid = str(raw).strip()[:_MAX_ID]
-    if not rid:
-        return None
-    return "".join(c if c in _ID_OK else "_" for c in rid)
-
-
-def _mint_request_id() -> str:
-    return uuid.uuid4().hex[:16]
+_OBS_DEFAULTS = _ObsConfig()
 
 
 @dataclass
@@ -211,7 +195,15 @@ class ServeConfig:
     # how a daemon and co-resident dataset workers pool ONE tier budget.
     # Overrides cache_mb/cache_disk_mb.
     block_cache: object = None
-    slow_ms: float = 1000.0  # serve_slow_requests_total bar
+    # observability (obs/): every recorded request runs under a
+    # request-scoped decode trace whose stage rollup the flight-recorder
+    # ring always keeps; the span tree is kept for a trace_sample_rate
+    # share of ok-and-fast requests and for every request that errors or
+    # runs >= slow_ms. The defaults are ObsConfig's, the one owner.
+    trace_sample_rate: float = _OBS_DEFAULTS.trace_sample_rate
+    slow_ms: float = _OBS_DEFAULTS.slow_ms  # serve_slow_requests_total bar
+    debug_ring_size: int = _OBS_DEFAULTS.ring_size  # /v1/debug retention
+    debug_max_traces: int = _OBS_DEFAULTS.max_traces  # trees kept (~MBs each)
     # the SLO this replica promises (obs/slo.py burn-rate engine): the
     # availability objective over server-side failures (5xx), and an
     # optional latency bar — None disables the latency SLI. The verdict
@@ -272,6 +264,13 @@ class ServeConfig:
                     "(need n >= 1 and 0 <= index < count)"
                 )
             self.shard = (i, n)
+        # the obs knobs: ObsConfig owns their invariants
+        _ObsConfig(
+            ring_size=self.debug_ring_size,
+            trace_sample_rate=self.trace_sample_rate,
+            slow_ms=self.slow_ms,
+            max_traces=self.debug_max_traces,
+        )
         # the SLO knobs: SLOObjective owns their invariants
         if self.slo_engine is None:
             SLOObjective(
@@ -332,6 +331,20 @@ class ScanService:
             brownout_depth=config.brownout_depth,
             brownout_window_s=config.brownout_window_s,
         )
+        # the process-wide flight recorder, configured with this daemon's
+        # knobs: library records (dataset units, encode groups) land in the
+        # ring the debug endpoints serve (a sibling ring, so pipeline churn
+        # cannot evict request evidence)
+        self.recorder = _obs_configure(
+            _ObsConfig(
+                ring_size=config.debug_ring_size,
+                trace_sample_rate=config.trace_sample_rate,
+                slow_ms=config.slow_ms,
+                max_traces=config.debug_max_traces,
+            )
+        )
+        # the process-wide tenant cost ledger and the daemon's start instant
+        self.ledger = _cost.LEDGER
         self.started_at = time.time()
         # the burn-rate health engine: fed one sample per finished
         # recorded request (_Handler._finish), read by /v1/debug/slo and
@@ -374,12 +387,13 @@ class ScanService:
         cached; hammering /v1/plan cannot starve scans of pool threads)."""
         return self.session.plan(request).summary()
 
-    def scan(self, request, tenant: str, timeout_ms=None):
+    def scan(self, request, tenant: str, timeout_ms=None, record=None):
         """Admit, plan, charge, and open the result stream. Returns
         (ticket, content_type, chunk iterator); the caller MUST close the
         iterator and release the ticket (both context-manage safely). A
         format the port does not stream (arrow-ipc) is refused first,
-        before admission."""
+        before admission. `record` (a flight-recorder RequestRecord)
+        receives the plan's pruning summary as soon as planning ends."""
         if request.format != "jsonl":
             raise not_ported_format(request.format)
         deadline = self.admission.deadline_for(
@@ -388,6 +402,8 @@ class ScanService:
         ticket = self.admission.admit(tenant)
         try:
             planned = self.session.plan(request)
+            if record is not None:
+                record.plan = planned.summary()
             # ticket.tenant is the RESOLVED accounting key (it may have
             # collapsed to the overflow bucket under tenant-table pressure)
             self.admission.charge(ticket.tenant, planned.estimated_bytes)
@@ -404,7 +420,7 @@ class ScanService:
             raise
         return ticket, "application/x-ndjson", chunks
 
-    def query(self, request, tenant: str, timeout_ms=None):
+    def query(self, request, tenant: str, timeout_ms=None, record=None):
         """POST /v1/query: aggregation push-down. Admission is EXACTLY the
         scan discipline — same ticket, same deadline clamp, and the tenant
         byte budget is charged with the same plan estimate (aggregation
@@ -432,6 +448,8 @@ class ScanService:
                     timeout_ms=request.timeout_ms,
                 )
             )
+            if record is not None:
+                record.plan = planned.summary()
             self.admission.charge(ticket.tenant, planned.estimated_bytes)
             deadline.check()
             body = execute_query(
@@ -445,10 +463,23 @@ class ScanService:
         except BaseException:
             ticket.release()
             raise
+        if record is not None and isinstance(record.plan, dict):
+            # mask selectivity beside the pruning summary: together they say
+            # how much each rung (stats / bloom against the residual mask) cut
+            scanned = body.get("rows_scanned", 0)
+            matched = body.get("rows_matched", 0)
+            record.plan = {
+                **record.plan,
+                "residual": {
+                    "rows_scanned": scanned,
+                    "rows_matched": matched,
+                    "selectivity": round(matched / scanned, 6) if scanned else None,
+                },
+            }
         return ticket, body
 
     def append(self, body: bytes, content_type, tenant: str, *,
-               flush: bool = False):
+               flush: bool = False, record=None):
         """POST /v1/append: one row batch into the lake table's ingest
         buffer. Admission is the scan discipline — same ticket, and the
         tenant byte budget is charged the BODY size up front (ingest work
@@ -485,6 +516,12 @@ class ScanService:
                 raise ServeError(
                     422, "bad_rows", f"{type(e).__name__}: {e}"
                 ) from None
+            if record is not None:
+                record.plan = {
+                    "rows": ack["rows"],
+                    "flushed": ack["flushed"],
+                    "generation": ack["generation"],
+                }
         except BaseException:
             ticket.release()
             raise
@@ -518,26 +555,113 @@ class ScanService:
 
     # -- the /v1/debug bodies (HTTP-free, like plan/scan) ----------------------
 
+    def debug_requests(
+        self, *, limit: int = 100, slow_only: bool = False, endpoint=None
+    ) -> dict:
+        """The /v1/debug/requests listing: newest-first record summaries."""
+        return {
+            "requests": self.recorder.list(
+                limit=limit, slow_only=slow_only, endpoint=endpoint
+            )
+        }
+
+    def debug_request(self, request_id) -> dict:
+        """One record in full (plan summary, stage rollup, queue-wait).
+        The id is sanitized before lookup: a hostile value can only miss."""
+        rec = self.recorder.get(request_id)
+        if rec is None:
+            raise ServeError(
+                404, "no_such_request",
+                f"request {str(request_id)[:64]!r} is not in the flight "
+                "recorder (never seen, or evicted from the ring)",
+            )
+        return rec.to_dict()
+
+    def debug_trace(self, request_id) -> dict:
+        """One record's Chrome-trace document (Perfetto-loadable)."""
+        rec = self.recorder.get(request_id)
+        if rec is None:
+            raise ServeError(
+                404, "no_such_request",
+                f"request {str(request_id)[:64]!r} is not in the flight "
+                "recorder (never seen, or evicted from the ring)",
+            )
+        doc = rec._trace
+        if doc is None:
+            if rec.trace_kind is not None:
+                # it qualified (error / slow / sampled) but newer qualifying
+                # requests pushed it past the trace budget: the knob to turn
+                # is max_traces, not the sampler
+                raise ServeError(
+                    404, "trace_evicted",
+                    f"request {rec.id!r} kept a span tree "
+                    f"({rec.trace_kind}) but it was evicted by newer "
+                    "traces (raise --debug-max-traces to retain more)",
+                )
+            raise ServeError(
+                404, "no_trace",
+                f"request {rec.id!r} kept no span tree (not sampled, not "
+                "slow, not errored — raise trace_sample_rate or lower "
+                "slow_ms to keep more)",
+            )
+        return doc
+
     def debug_slo(self) -> dict:
         """GET /v1/debug/slo: the burn-rate engine's full verdict + window
-        math."""
+        math (and, as a side effect, a refresh of the slo_* gauges)."""
         return self.slo.evaluate()
+
+    def debug_fleet(self, urls, *, timeout_s: float = 5.0) -> dict:
+        """GET /v1/debug/fleet: scrape `urls` and merge their expositions
+        (obs/fleet.py). Raises ValueError when no peer answers (the HTTP
+        layer renders a typed 502)."""
+        from ..obs import fleet as _fleet
+
+        return _fleet.federate(urls, timeout_s=timeout_s)
+
+    def debug_tenants(self) -> dict:
+        """The /v1/debug/tenants usage table: per-tenant CPU seconds,
+        decoded / source / payload bytes, cache outcomes, request and unit
+        counts, hottest CPU first, plus the cross-tenant totals."""
+        return {
+            "tenants": self.ledger.table(),
+            "totals": self.ledger.totals(),
+        }
+
+    def debug_profile(
+        self, seconds: float, interval_ms: float = 10.0
+    ) -> _prof.SamplingProfiler:
+        """Run one live capture window (the /v1/debug/profile body; the
+        HTTP layer renders collapsed / top / json). Bounded: at most 60 s
+        and at least a 1 ms interval; a concurrent window is a typed 409."""
+        if not 0 < seconds <= 60:
+            raise ServeError(400, "bad_request", "'seconds' must be in (0, 60]")
+        if not 1.0 <= interval_ms <= 1000.0:
+            raise ServeError(400, "bad_request", "'interval_ms' must be in [1, 1000]")
+        try:
+            return _prof.capture(seconds, interval_ms / 1e3)
+        except _prof.ProfilerBusy as e:
+            raise ServeError(
+                409, "profile_in_progress", str(e), retry_after_s=1
+            ) from None
 
     def debug_vars(self) -> dict:
         """The /v1/debug/vars snapshot: uptime, pid, version, the pools,
-        resilience policy, cache/admission budgets — the reference's body
-        without its "obs" knobs (cut with the flight recorder) and
-        "process" self-stats (cut with the metrics registry). "pools"
-        holds the pool-sizing variables the port reads ("env", where
-        set), the worker counts of the process-wide pools ("sizes", the
-        port's own key) and the pqt-serve pool's depths."""
+        resilience policy, cache/admission budgets, obs knobs and process
+        self-stats. "pools" holds the pool-sizing variables the port reads
+        ("env", where set), the worker counts of the process-wide pools
+        ("sizes", the port's own key) and every instrumented pool's depths
+        (obs.pool.pool_depths, the pqt-serve pool's always listed)."""
         from .. import __version__ as _version
         from ..io.autotune import io_tuner as _io_tuner
         from ..io.hedge import resilience_config
 
+        from ..obs.pool import pool_depths
+
         cfg = self.config
         res = resilience_config()
-        pool = _counts.serve_pool_stats()
+        depths = pool_depths()
+        depths.setdefault(_counts.POOL, {"queued": 0, "active": 0})
         uptime = round(time.time() - self.started_at, 3)
         return {
             "pid": os.getpid(),
@@ -555,11 +679,7 @@ class ScanService:
                     "pqt-host": host_threads(),
                     "pqt-io": IO_THREADS,
                 },
-                "depths": {
-                    _counts.POOL: {
-                        k: pool[k] for k in ("queued", "active")
-                    }
-                },
+                "depths": depths,
             },
             "serve": {
                 "root": cfg.root,
@@ -596,10 +716,19 @@ class ScanService:
                 if self.lake is not None
                 else None
             ),
+            "obs": {
+                "trace_sample_rate": cfg.trace_sample_rate,
+                "slow_ms": cfg.slow_ms,
+                "debug_ring_size": cfg.debug_ring_size,
+                "debug_max_traces": cfg.debug_max_traces,
+            },
             "slo": {
                 "availability": self.slo.objective.availability,
                 "p99_ms": self.slo.objective.p99_ms,
             },
+            # process self-stats (the /proc read the exposition's gauges
+            # refresh from; empty where there is no procfs)
+            "process": _metrics.process_stats(),
             "resilience": {
                 "breaker": res.breaker,
                 "retry": res.retry,
@@ -616,6 +745,14 @@ class ScanService:
 
 def _count_request(tenant: str, status: int) -> None:
     _counts.count("serve_requests_total", status=str(status), tenant=tenant)
+
+
+def _normalize_peer(peer: str) -> str:
+    """A fleet peer spec as a scrape URL, shared with the CLI's --fleet, so
+    `?peers=127.0.0.1:8081` and a full URL both work."""
+    from ..obs.fleet import normalize_peer
+
+    return normalize_peer(peer)
 
 
 # the LakeError -> ServeError taxonomy map: lake codes stay the error
@@ -636,71 +773,12 @@ def _lake_serve_error(e) -> "ServeError":
     return ServeError(_LAKE_STATUS.get(code, 500), code, str(e))
 
 
-# the reference's debug routes whose module the port does not carry
-_CUT_ROUTES = {
-    "/v1/debug/requests": "obs.recorder (the flight recorder)",
-    "/v1/debug/profile": "obs.prof (the sampling profiler)",
-    "/v1/debug/tenants": "obs.cost (the tenant cost ledger)",
-    "/v1/debug/fleet": "obs.fleet (the fleet scrape)",
-}
-
-
-def _cut_route(route: str):
-    for prefix, module in _CUT_ROUTES.items():
-        if route == prefix or route.startswith(prefix + "/"):
-            return ServeError(
-                501, "not_ported",
-                f"{prefix} is not served by this daemon: it needs {module}, "
-                "which parquet_tpu_torch does not port",
-            )
-    return None
-
-
-# `# HELP` lines of the families /metrics renders (the reference's texts;
-# the last two families are the port's own)
-_HELP = {
-    "serve_requests_total": "scan-service requests finished, by status and tenant",
-    "serve_scan_bytes_total": "response payload bytes streamed by /v1/scan",
-    "serve_slow_requests_total": "requests at/over the slow_ms threshold, per endpoint",
-    "serve_shed_total": "requests shed before execution, per reason",
-    "serve_aggregate_requests_total": (
-        "aggregation push-down queries executed (/v1/query and the CLI twin)"
-    ),
-    "events_total": "torn chunked streams (serve_stream_aborted)",
-    "query_device_units_total": "query units by engine (device, declined)",
-    "admission_rejected_total": "typed admission rejections, per code",
-    "serve_drains_total": "graceful drains, by whether they drained in time",
-}
-_PREFIX = "parquet_tpu_"
-
-
-def render_metrics() -> str:
-    """The classic Prometheus text exposition of the serve counters and
-    the query units' engines: counters only (no gauges, no histograms),
-    families prefixed parquet_tpu_ as the reference prefixes them. /metrics
-    answers it whatever the Accept header asks for, OpenMetrics included."""
-    from .aggregate import query_device_counts
-
-    samples = dict(_counts.serve_counts())
-    for engine, n in query_device_counts().items():
-        samples[_key("query_device_units_total", {"engine": engine})] = n
-    return render_counts(samples)
-
-
-def render_counts(samples: dict, helps: dict = _HELP) -> str:
-    """Counts keyed name{labels} as classic Prometheus counter families
-    (a `# HELP` line where `helps` names the family, then `# TYPE`)."""
-    lines = []
-    seen = set()
-    for k in sorted(samples):
-        fam = k.partition("{")[0]
-        if fam not in seen:
-            seen.add(fam)
-            if fam in helps:
-                lines.append(f"# HELP {_PREFIX}{fam} {helps[fam]}")
-            lines.append(f"# TYPE {_PREFIX}{fam} counter")
-        lines.append(f"{_PREFIX}{k} {samples[k]}")
-    return "\n".join(lines) + "\n"
+def render_metrics(openmetrics: bool = False) -> str:
+    """The process registry's exposition (utils/metrics.py): the classic
+    Prometheus text format, or OpenMetrics with exemplars."""
+    if openmetrics:
+        return _metrics.render_openmetrics()
+    return _metrics.render_prometheus()
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -790,6 +868,11 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Content-Length", str(len(payload)))
         if getattr(self, "_rid", None):
             self.send_header("X-Request-Id", self._rid)
+        tp = getattr(self, "_tp", None)
+        if tp is not None:
+            # echo the RESOLVED context (the daemon's own span id under the
+            # adopted trace id), never the client's raw header
+            self.send_header("traceparent", tp.header())
         if retry_after is not None:
             self.send_header("Retry-After", str(retry_after))
         self.end_headers()
@@ -804,6 +887,11 @@ class _Handler(BaseHTTPRequestHandler):
             # the correlation key rides the error body too, so a client
             # that logs only bodies can still quote the id to an operator
             body["error"]["request_id"] = self._rid
+        tp = getattr(self, "_tp", None)
+        if tp is not None:
+            # and the cross-process key: a failed request is the one an
+            # operator wants to trace-merge across the fleet
+            body["error"]["trace_id"] = tp.trace_id
         try:
             self._send_json(e.status, body, retry_after=e.retry_after_s)
         except OSError:
@@ -818,10 +906,12 @@ class _Handler(BaseHTTPRequestHandler):
         """Send a 200 + chunked body. The FIRST chunk is pulled before the
         status line goes out, so planning/admission/decode errors that
         surface lazily still produce a clean typed error response.
-        Returns the status for the route wrapper to finish the counts
-        with."""
+        Returns (status, payload bytes sent, error or None) for the route
+        wrapper to finish the counts and the flight record with."""
         started = False
         status = 200
+        nbytes = 0
+        err = None
         try:
             it = iter(chunks)
             try:
@@ -833,13 +923,18 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_header("Transfer-Encoding", "chunked")
             if getattr(self, "_rid", None):
                 self.send_header("X-Request-Id", self._rid)
+            tp = getattr(self, "_tp", None)
+            if tp is not None:
+                self.send_header("traceparent", tp.header())
             self.end_headers()
             started = True
             if first:
                 self._write_chunk(first)
+                nbytes += len(first)
             for payload in it:
                 if payload:
                     self._write_chunk(payload)
+                    nbytes += len(payload)
             self._write_chunk(b"")  # terminating 0-chunk: complete transfer
             self.wfile.flush()
         except (BrokenPipeError, ConnectionResetError, TimeoutError):
@@ -855,7 +950,7 @@ class _Handler(BaseHTTPRequestHandler):
                 if isinstance(exc, ServeError)
                 else ServeError(500, "internal", f"{type(exc).__name__}: {exc}")
             )
-            status = e.status
+            status, err = e.status, e
             if not started:
                 self._send_error_body(e)
             else:
@@ -873,52 +968,96 @@ class _Handler(BaseHTTPRequestHandler):
                 self.close_connection = True
         finally:
             chunks.close()
-        return status
+        return status, nbytes, err
 
-    # -- request finishing (counts + SLI sample, one place) --------------------
+    # -- request finishing (metrics + flight record, one place) ----------------
 
-    def _finish(self, *, endpoint, tenant, status, t0) -> None:
+    def _finish(
+        self, *, endpoint, tenant, status, t0, rec=None, trace=None,
+        nbytes=0, error=None,
+    ) -> None:
         dt = time.perf_counter() - t0
         _count_request(tenant, status)
-        # one SLI sample per finished recorded request
+        # one SLI sample per finished recorded request: the burn-rate
+        # engine sees what serve_request_seconds sees
         self.service.slo.record(status, dt)
         # endpoint labels are the matched-route constants, never the raw
-        # client path — a 404 probe flood cannot grow the label set
-        if dt * 1e3 >= self.service.config.slow_ms:
+        # client path: a 404 probe flood cannot grow the label set. The
+        # request id rides the histogram bucket as an OpenMetrics exemplar,
+        # so a latency spike on a dashboard names the record to fetch
+        _metrics.observe(
+            "serve_request_seconds",
+            dt,
+            exemplar=({"request_id": rec.id} if rec is not None else None),
+            endpoint=endpoint,
+        )
+        if rec is None:
+            return
+        svc = self.service
+        svc.recorder.finish(
+            rec, status, nbytes=nbytes, error=error, trace=trace, duration_s=dt,
+        )
+        # the request's byte and cache usage, charged to its tenant from the
+        # trace rollup the flight record keeps (its CPU was charged per unit
+        # by the executor's thread-time clock)
+        _cost.charge_request_from_trace(tenant, trace, nbytes=nbytes, ledger=svc.ledger)
+        if dt * 1e3 >= svc.config.slow_ms:
             _counts.count("serve_slow_requests_total", endpoint=endpoint)
+            _obslog.log_event(
+                "slow_request", level="warning",
+                endpoint=endpoint, status=status,
+                duration_ms=round(dt * 1e3, 3), bytes=nbytes,
+            )
 
     # -- routes ----------------------------------------------------------------
 
     def _recorded_request(self, endpoint: str, tenant: str, t0, run) -> None:
         """One copy of the request discipline every recorded endpoint runs
-        under: mint the request id, render failures through the typed-
-        error ladder, and finish the counts in one place. `run()` does
-        the endpoint work and returns its status."""
-        if not self._rid:
-            self._rid = _mint_request_id()
-        status = 500
-        try:
+        under: open a flight record, bind the log, cost and propagation
+        context, run a request-scoped trace, render failures through the
+        typed-error ladder, and finish metrics and record in one place.
+        `run(rec)` does the endpoint work and returns (status, payload
+        bytes, error)."""
+        svc = self.service
+        rec = svc.recorder.begin(endpoint, tenant, request_id=self._rid)
+        self._rid = rec.id
+        ctx = getattr(self, "_tp", None)
+        if ctx is not None:
+            rec.trace_id = ctx.trace_id
+        status, nbytes, err, trace = 500, 0, None, None
+        with _obslog.log_context(
+            request_id=rec.id,
+            tenant=tenant,
+            trace_id=ctx.trace_id if ctx is not None else None,
+        ), _cost.cost_context(tenant), _propagate.propagation_scope(ctx):
             try:
-                status = run()
-            except ServeError as e:
-                self._send_error_body(e)
-                status = e.status
-            except (BrokenPipeError, ConnectionResetError, TimeoutError):
-                self.close_connection = True
-                status = 499
-            except Exception as e:  # noqa: BLE001 - no-traceback contract
-                self._send_internal_error(e)
-                status = 500
-        finally:
-            self._finish(endpoint=endpoint, tenant=tenant, status=status, t0=t0)
+                with decode_trace() as trace:
+                    if ctx is not None:
+                        trace.trace_id = ctx.trace_id
+                    try:
+                        status, nbytes, err = run(rec)
+                    except ServeError as e:
+                        self._send_error_body(e)
+                        status, err = e.status, e
+                    except (BrokenPipeError, ConnectionResetError, TimeoutError):
+                        self.close_connection = True
+                        status = 499
+                    except Exception as e:  # noqa: BLE001 - no-traceback contract
+                        self._send_internal_error(e)
+                        status, err = 500, e
+            finally:
+                self._finish(
+                    endpoint=endpoint, tenant=tenant, status=status, t0=t0,
+                    rec=rec, trace=trace, nbytes=nbytes, error=err,
+                )
 
     def _scan_request(self, tenant: str, t0: float) -> None:
         """POST /v1/scan under the record discipline."""
 
-        def run():
+        def run(rec):
             request = parse_scan_request(self._read_body())
             ticket, content_type, chunks = self.service.scan(
-                request, tenant, timeout_ms=self._timeout_ms()
+                request, tenant, timeout_ms=self._timeout_ms(), record=rec
             )
             with ticket:
                 return self._stream(chunks, content_type)
@@ -932,14 +1071,15 @@ class _Handler(BaseHTTPRequestHandler):
         bytes match run_local_query's render_query_body bytes."""
         from .aggregate import render_query_body
 
-        def run():
+        def run(rec):
             request = parse_query_request(self._read_body())
             ticket, body = self.service.query(
-                request, tenant, timeout_ms=self._timeout_ms()
+                request, tenant, timeout_ms=self._timeout_ms(), record=rec
             )
             with ticket:
-                self._send_payload(200, render_query_body(body))
-                return 200
+                payload = render_query_body(body)
+                self._send_payload(200, payload)
+                return 200, len(payload), None
 
         self._recorded_request("/v1/query", tenant, t0, run)
 
@@ -948,7 +1088,7 @@ class _Handler(BaseHTTPRequestHandler):
         into the lake ingest buffer. `?flush=1` forces the buffer to
         commit a generation before the ack (the durability handshake)."""
 
-        def run():
+        def run(rec):
             flush = (
                 parse_qs(urlsplit(self.path).query).get("flush", ["0"])[0]
                 in ("1", "true")
@@ -961,20 +1101,22 @@ class _Handler(BaseHTTPRequestHandler):
                 self.headers.get("Content-Type"),
                 tenant,
                 flush=flush,
+                record=rec,
             )
             with ticket:
                 self._send_json(200, ack)
-                return 200
+                return 200, 0, None
 
         self._recorded_request("/v1/append", tenant, t0, run)
 
     def _plan_request(self, tenant: str, t0: float, request_fn) -> None:
         """GET/POST /v1/plan under the same record discipline."""
 
-        def run():
+        def run(rec):
             body = self.service.plan(request_fn())
+            rec.plan = body
             self._send_json(200, body)
-            return 200
+            return 200, 0, None
 
         self._recorded_request("/v1/plan", tenant, t0, run)
 
@@ -984,6 +1126,7 @@ class _Handler(BaseHTTPRequestHandler):
         t0 = time.perf_counter()
         self._body_read = False  # per-request: the handler serves many
         self._rid = self._request_id()
+        self._tp = self._trace_context()
         tenant = self._tenant()
         try:
             if route == "/healthz":
@@ -993,13 +1136,17 @@ class _Handler(BaseHTTPRequestHandler):
                 )
                 return
             if route == "/metrics":
-                # the classic text format for every scraper: an Accept
-                # header asking for OpenMetrics gets it too (the port keeps
-                # no exemplars for the OpenMetrics variant to carry)
-                self._send_payload(
-                    200, render_metrics().encode(),
-                    content_type="text/plain; version=0.0.4; charset=utf-8",
-                )
+                # content negotiation: a scraper asking for OpenMetrics gets
+                # the exemplar-carrying variant (and its # EOF); everyone
+                # else the classic text format
+                accept = self.headers.get("Accept") or ""
+                if "application/openmetrics-text" in accept:
+                    payload = render_metrics(openmetrics=True).encode()
+                    ctype = "application/openmetrics-text; version=1.0.0; charset=utf-8"
+                else:
+                    payload = render_metrics().encode()
+                    ctype = "text/plain; version=0.0.4; charset=utf-8"
+                self._send_payload(200, payload, content_type=ctype)
                 return
             if route == "/v1/plan":
                 self._plan_request(
@@ -1007,15 +1154,24 @@ class _Handler(BaseHTTPRequestHandler):
                     lambda: scan_request_from_query(parse_qs(split.query)),
                 )
                 return
+            if route == self._DEBUG_PREFIX or route.startswith(self._DEBUG_PREFIX + "/"):
+                self._debug_request(route, parse_qs(split.query))
+                return
+            if route == "/v1/debug/tenants":
+                self._send_json(200, self.service.debug_tenants())
+                return
             if route == "/v1/debug/vars":
                 self._send_json(200, self.service.debug_vars())
+                return
+            if route == "/v1/debug/profile":
+                self._profile_request(parse_qs(split.query))
                 return
             if route == "/v1/debug/slo":
                 self._send_json(200, self.service.debug_slo())
                 return
-            cut = _cut_route(route)
-            if cut is not None:
-                raise cut
+            if route == "/v1/debug/fleet":
+                self._fleet_request(parse_qs(split.query))
+                return
             raise ServeError(404, "no_such_route", f"unknown path {route!r}")
         except ServeError as e:
             self._send_error_body(e)
@@ -1025,9 +1181,119 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_internal_error(e)
 
     def _request_id(self) -> str | None:
-        """The sanitized client-supplied X-Request-Id (None: a recorded
-        endpoint mints one). Bounded exactly like tenant keys."""
+        """The sanitized client-supplied X-Request-Id (None: the recorder
+        mints one when the record opens). Bounded exactly like tenant keys:
+        a hostile header cannot grow the ring, the index or the debug JSON."""
         return sanitize_request_id(self.headers.get("X-Request-Id"))
+
+    def _trace_context(self):
+        """Resolve the inbound traceparent header into this request's
+        propagation context (a malformed header is counted and replaced by
+        a fresh one, never echoed). Every request, /metrics scrapes
+        included, gets a context, so every outbound call it makes is
+        traceable."""
+        ctx, _ = _propagate.resolve_inbound(self.headers.get("traceparent"))
+        return ctx
+
+    _DEBUG_PREFIX = "/v1/debug/requests"
+
+    def _debug_request(self, route: str, qs: dict) -> None:
+        """GET /v1/debug/requests[/<id>[/trace]]: read-only views of the
+        flight recorder. No admission (cheap, in memory), no record (the
+        debugger must not evict the evidence it reads)."""
+        svc = self.service
+        if route == self._DEBUG_PREFIX:
+            raw = qs.get("limit", ["100"])[-1]
+            try:
+                limit = int(raw)
+            except ValueError:
+                raise ServeError(
+                    400, "bad_request", f"'limit' must be an integer, got {raw!r}"
+                ) from None
+            if not 1 <= limit <= 1000:
+                raise ServeError(400, "bad_request", "'limit' must be in [1, 1000]")
+            slow_only = qs.get("slow", ["0"])[-1] in ("1", "true", "yes")
+            endpoint = qs.get("endpoint", [None])[-1]
+            self._send_json(
+                200, svc.debug_requests(limit=limit, slow_only=slow_only, endpoint=endpoint)
+            )
+            return
+        rest = route[len(self._DEBUG_PREFIX) + 1 :]
+        if rest.endswith("/trace"):
+            self._send_json(200, svc.debug_trace(rest[: -len("/trace")]))
+        elif "/" not in rest and rest:
+            self._send_json(200, svc.debug_request(rest))
+        else:
+            raise ServeError(404, "no_such_route", f"unknown path {route!r}")
+
+    def _profile_request(self, qs: dict) -> None:
+        """GET /v1/debug/profile?seconds=N[&interval_ms=M][&format=F]: one
+        live capture window on this handler thread (scan work never runs
+        on connection threads), answered as `collapsed` flamegraph text
+        (the default), a `top` self-time table or the `json` snapshot. No
+        admission: the window is bounded at 60 s and a concurrent capture
+        is a typed 409."""
+
+        def num(name, default):
+            raw = qs.get(name, [None])[-1]
+            if raw is None:
+                return default
+            try:
+                return float(raw)
+            except ValueError:
+                raise ServeError(
+                    400, "bad_request", f"{name!r} must be a number, got {raw!r}"
+                ) from None
+
+        seconds = num("seconds", 2.0)
+        interval_ms = num("interval_ms", 10.0)
+        fmt = qs.get("format", ["collapsed"])[-1]
+        if fmt not in ("collapsed", "top", "json"):
+            raise ServeError(400, "bad_request", "'format' must be collapsed, top or json")
+        prof = self.service.debug_profile(seconds, interval_ms)
+        if fmt == "json":
+            self._send_json(200, prof.snapshot())
+            return
+        text = prof.collapsed() if fmt == "collapsed" else prof.render_top(30)
+        self._send_payload(200, text.encode(), content_type="text/plain; charset=utf-8")
+
+    _MAX_FLEET_PEERS = 32
+
+    def _fleet_request(self, qs: dict) -> None:
+        """GET /v1/debug/fleet?peers=host:port[,host:port...]: scrape the
+        named replicas' /metrics and answer the merged exposition, after
+        `# fleet:` comment lines naming the merged and failed replicas.
+        The peer count is bounded: a hostile query cannot fan this daemon
+        out without end."""
+        raw = qs.get("peers", [None])[-1]
+        if not raw:
+            raise ServeError(
+                400, "bad_request",
+                "'peers' query parameter required: peers=host:port[,host:port...]",
+            )
+        peers = [p.strip() for p in raw.split(",") if p.strip()]
+        if not peers:
+            raise ServeError(400, "bad_request", "'peers' names no replica")
+        if len(peers) > self._MAX_FLEET_PEERS:
+            raise ServeError(
+                400, "bad_request",
+                f"at most {self._MAX_FLEET_PEERS} peers per fleet scrape (got {len(peers)})",
+            )
+        urls = [_normalize_peer(p) for p in peers]
+        try:
+            view = self.service.debug_fleet(urls)
+        except ValueError as e:
+            raise ServeError(502, "fleet_unreachable", str(e)) from None
+        lines = [
+            f"# fleet: merged {len(view['replicas'])} replica(s): "
+            + ", ".join(view["replicas"])
+        ]
+        for replica, err in view["errors"].items():
+            lines.append(f"# fleet: {replica} failed: {err}")
+        payload = ("\n".join(lines) + "\n" + view["text"]).encode()
+        self._send_payload(
+            200, payload, content_type="text/plain; version=0.0.4; charset=utf-8"
+        )
 
     def _send_internal_error(self, e) -> None:
         """Best-effort typed 500: never let a dead socket turn a handler
@@ -1044,6 +1310,7 @@ class _Handler(BaseHTTPRequestHandler):
         t0 = time.perf_counter()
         self._body_read = False  # per-request: the handler serves many
         self._rid = self._request_id()
+        self._tp = self._trace_context()
         tenant = self._tenant()
         try:
             if route == "/v1/scan":
@@ -1130,10 +1397,15 @@ class ScanServer:
         """Graceful shutdown, the SIGTERM semantics: stop admitting (new
         scans get typed 503s), let in-flight requests complete (bounded by
         `timeout`), then stop the listener. True iff fully drained;
-        counted serve_drains_total{drained=}."""
+        counted serve_drains_total{drained=} and logged (drain_begin,
+        drain_complete)."""
+        _obslog.log_event("drain_begin", in_flight=self.service.admission.in_flight)
         self.service.admission.begin_drain()
         drained = self.service.admission.wait_drained(timeout=timeout)
         _counts.count("serve_drains_total", drained=str(drained).lower())
+        _obslog.log_event(
+            "drain_complete", level="info" if drained else "warning", drained=drained,
+        )
         self.shutdown()
         return drained
 

@@ -15,9 +15,8 @@ executor), stripe the units for the effective shard, and estimate the
 byte volume the scan will touch (the admission layer charges tenant
 budgets with this number before a single data byte is read).
 
-The port's copy of parquet_tpu.serve.session, without the reference's
-serve.plan trace span and remote.mapped trace count (the port has no
-request trace); a breaker shed counts serve_shed_total{reason=
+A plan is a serve.plan span of the request's trace, and each path mapped
+to a remote URL a remote.mapped count of it; a breaker shed counts serve_shed_total{reason=
 "breaker_open"} in serve.counts.serve_counts()."""
 
 from __future__ import annotations
@@ -30,6 +29,8 @@ from ..core.schema import Schema
 from ..data.plan import ScanPlan, build_plan, expand_paths
 from ..io.cache import BlockCache, FooterCache
 from ..io.source import SourceError
+from ..utils.trace import count as _trace_count
+from ..utils.trace import span
 from . import counts as _counts
 from .protocol import ScanRequest, ServeError
 
@@ -151,6 +152,10 @@ class ScanSession:
         for p in paths:
             mapped = self._map_remote(p)
             if mapped is not None:
+                # per-request attribution: the trace shows how many paths
+                # went remote (their GETs then carry the request's
+                # traceparent: the sources read under the request scope)
+                _trace_count("remote.mapped")
                 specs.append(mapped)
                 continue
             if self.root is not None and not os.path.isabs(p):
@@ -192,6 +197,10 @@ class ScanSession:
         """Plan one request: prune, stripe, estimate. Zero source reads
         when the footer cache is warm (and bloom/page-index consultation
         hits the block cache)."""
+        with span("serve.plan", {"paths": ",".join(request.paths)}):
+            return self._plan(request)
+
+    def _plan(self, request: ScanRequest) -> PlannedScan:
         files = self.resolve_paths(request.paths)
         try:
             plan = build_plan(

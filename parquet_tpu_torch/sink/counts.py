@@ -9,11 +9,16 @@ sink/encoder.py).
 The sinks' own counts live apart, in sink_counts(): sink_bytes_written_total
 and sink_write_calls_total, fed by every concrete sink (LocalFileSink,
 MemorySink, FileObjectSink, io.remote_sink.HttpSink) and by no wrapper, as
-the reference's metric families of those names are."""
+the reference's metric families of those names are.
+
+Both are views of the process registry (utils.metrics): a routing count is
+its events_total{event=...} sample, as the reference's trace.bump() keeps
+it (and a count of the active decode trace), a sink count its own
+family."""
 
 from __future__ import annotations
 
-import threading
+from ..utils.counters import LabelledCounts, event_alias
 
 __all__ = [
     "count",
@@ -31,43 +36,33 @@ _BASE_COUNTS = (
     "encode_fused_declined",
     "encode_fallback_recovered",
 )
-_COUNTS = dict.fromkeys(_BASE_COUNTS, 0)
-_COUNTS_LOCK = threading.Lock()
+_COUNTS = LabelledCounts(alias=event_alias())
+_SINK_COUNTS = LabelledCounts()
 
 
 def count(name: str, n: int = 1) -> None:
     """Add n to the write count `name`."""
-    with _COUNTS_LOCK:
-        _COUNTS[name] = _COUNTS.get(name, 0) + n
+    _COUNTS.count(name, n)
 
 
 def write_counts() -> dict:
     """A snapshot of every write count (see the module docstring)."""
-    with _COUNTS_LOCK:
-        return dict(_COUNTS)
+    return {**dict.fromkeys(_BASE_COUNTS, 0), **_COUNTS.snapshot()}
 
 
 def reset_write_counts() -> None:
-    with _COUNTS_LOCK:
-        _COUNTS.clear()
-        _COUNTS.update(dict.fromkeys(_BASE_COUNTS, 0))
-
-
-_SINK_COUNTS: dict = {}
+    _COUNTS.reset()
 
 
 def count_sink(name: str, n: int = 1) -> None:
     """Add n to the sink count `name`."""
-    with _COUNTS_LOCK:
-        _SINK_COUNTS[name] = _SINK_COUNTS.get(name, 0) + n
+    _SINK_COUNTS.count(name, n)
 
 
 def sink_counts() -> dict:
     """A snapshot of the sinks' byte and call counts."""
-    with _COUNTS_LOCK:
-        return dict(_SINK_COUNTS)
+    return _SINK_COUNTS.snapshot()
 
 
 def reset_sink_counts() -> None:
-    with _COUNTS_LOCK:
-        _SINK_COUNTS.clear()
+    _SINK_COUNTS.reset()

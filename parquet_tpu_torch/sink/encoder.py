@@ -1,7 +1,11 @@
 """Chunk encode and the parallel row-group encode pipeline.
 
-A copy of parquet_tpu/sink/encoder.py without its metrics, trace and
-flight-recorder hooks (the counts go to write_counts()):
+The port's copy of the chunk encoder and its pipeline, with the
+reference's observability: a chunk encode is a write.encode stage of the
+active trace and an encode_seconds observation, a group commit a
+write.flush stage and write_bytes_total{codec=}, and each pipeline group a
+flight-recorder record (encode.group); the routing counts go to
+write_counts():
 
   encode_chunk()      one column chunk -> page bytes + metadata with offsets
                       RELATIVE to the chunk start; a pure function of
@@ -35,8 +39,10 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from contextvars import copy_context
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -59,7 +65,12 @@ from ..meta.parquet_types import (
     RowGroup,
     Type,
 )
+from ..obs.log import log_event as _log_event
+from ..obs.pool import instrumented_submit
+from ..obs.recorder import recorder as _recorder
 from ..ops import plain as plain_ops
+from ..utils import metrics as _metrics
+from ..utils.trace import stage, timed_stage
 from .counts import count
 
 __all__ = [
@@ -481,16 +492,26 @@ def encode_chunk(cfg: EncoderConfig, builder, kv: dict | None) -> EncodedChunk:
     staged rung; the outcome is counted in write_counts()
     (encode_fused_engaged / encode_fused_declined /
     encode_fallback_recovered)."""
-    plan = _plan_chunk(cfg, builder)
-    fault = None
-    ec = _fused_encode_chunk(cfg, builder, kv, plan)
-    if ec is not None and not isinstance(ec, EncodedChunk):
-        fault, ec = ec, None  # EncodeFault: remember for the recovery count
-    if ec is None:
-        ec = _staged_encode_chunk(cfg, builder, kv, plan)
-        if fault is not None:
-            # the staged rung salvaged a chunk the native walk refused
-            count("encode_fallback_recovered")
+    with timed_stage("write.encode", record_span=True) as clock:
+        plan = _plan_chunk(cfg, builder)
+        fault = None
+        ec = _fused_encode_chunk(cfg, builder, kv, plan)
+        if ec is not None and not isinstance(ec, EncodedChunk):
+            fault, ec = ec, None  # EncodeFault: remember for the recovery count
+        if ec is None:
+            ec = _staged_encode_chunk(cfg, builder, kv, plan)
+            if fault is not None:
+                # the staged rung salvaged a chunk the native walk refused
+                count("encode_fallback_recovered")
+                _log_event(
+                    "encode_fallback_recovered",
+                    level="warning",
+                    column=builder.column.path_str,
+                    stage=fault.stage,
+                    code=fault.code,
+                    page=fault.page,
+                )
+    _metrics.observe("encode_seconds", clock.seconds)
     return ec
 
 
@@ -811,18 +832,21 @@ def assemble_group(
     )
 
 
-def commit_group(erg: EncodedRowGroup, sink, pos: int) -> int:
+def commit_group(erg: EncodedRowGroup, sink, pos: int, codec_label: str) -> int:
     """Rebase `erg` to absolute file position `pos` and write its bytes to
     the sink. Returns the new position. The ONE place group bytes meet the
     sink: serial and parallel writes are byte-identical because they both
-    end here, in submission order."""
+    end here, in submission order. `codec_label` labels the group's
+    write_bytes_total{codec=} sample."""
     for ec in erg.chunks:
         _shift_chunk(ec, pos)  # chunks are group-relative: one shift places all
     if erg.row_group.file_offset is not None:
         erg.row_group.file_offset += pos
-    for ec in erg.chunks:
-        for part in ec.parts:
-            sink.write(part)
+    with stage("write.flush", erg.nbytes):
+        for ec in erg.chunks:
+            for part in ec.parts:
+                sink.write(part)
+    _metrics.inc("write_bytes_total", erg.nbytes, codec=codec_label)
     return pos + erg.nbytes
 
 
@@ -886,6 +910,7 @@ class EncodePipeline:
         self.page_indexes: list[list] = []  # per committed group, when enabled
         self.blooms: list = []  # (md, bf) in file order
         self.error: BaseException | None = None
+        self._codec_label = _metrics.codec_name(cfg.codec)
         self._lock = threading.Lock()
         self._have_work = threading.Condition(self._lock)
         self._room = threading.Condition(self._lock)
@@ -909,8 +934,14 @@ class EncodePipeline:
             ):
                 self._room.wait()
                 self._raise_pending()
+        # ONE context snapshot per group, shared as a template by every
+        # chunk task: the group's chunks all carry the same trace and tenant
+        group_ctx = copy_context()
         futs = [
-            self.pool.submit(encode_chunk, self.cfg, b, kv)
+            instrumented_submit(
+                self.pool, encode_chunk, self.cfg, b, kv,
+                pool="pqt-encode", ctx=group_ctx,
+            )
             for b, kv in zip(builders, kvs)
         ]
         with self._lock:
@@ -918,8 +949,11 @@ class EncodePipeline:
             self._inflight_bytes += est_bytes
             self._inflight_groups += 1
             if self._thread is None:
+                # the flusher carries the submitting context (an active
+                # decode_trace at the first flush keeps collecting its spans)
                 self._thread = threading.Thread(
-                    target=self._run, name="pqt-flush", daemon=True
+                    target=copy_context().run, args=(self._run,),
+                    name="pqt-flush", daemon=True,
                 )
                 self._thread.start()
             self._have_work.notify()
@@ -941,18 +975,37 @@ class EncodePipeline:
                 futs, n_rows, est = self._queue.popleft()
             try:
                 if self.error is None:
+                    t0 = time.perf_counter()
                     chunks = [f.result() for f in futs]
                     erg = assemble_group(self.cfg, chunks, n_rows)
-                    erg.row_group.ordinal = len(self.row_groups)
-                    self.pos = commit_group(erg, self.sink, self.pos)
+                    ordinal = erg.row_group.ordinal = len(self.row_groups)
+                    pos0 = self.pos
+                    self.pos = commit_group(erg, self.sink, self.pos, self._codec_label)
                     self.row_groups.append(erg.row_group)
                     if self.cfg.write_page_index:
                         self.page_indexes.append(erg.indexes)
                     self.blooms.extend(erg.blooms)
+                    # the library side of the flight recorder: encode groups
+                    # land in the ring the serve daemon's /v1/debug lists
+                    _recorder().record(
+                        "encode.group",
+                        duration_s=time.perf_counter() - t0,
+                        nbytes=self.pos - pos0,
+                        detail={"group": ordinal, "rows": n_rows},
+                    )
                 else:
                     for f in futs:  # error set: drop, but don't leak workers
                         f.cancel()
             except BaseException as e:  # noqa: BLE001 (deferred to the writer)
+                _log_event(
+                    "encode_group_failed", level="error",
+                    group=len(self.row_groups), error=f"{type(e).__name__}: {e}",
+                )
+                _recorder().record(
+                    "encode.group", status="error",
+                    detail={"group": len(self.row_groups), "rows": n_rows},
+                    error=e,
+                )
                 with self._lock:
                     if self.error is None:
                         self.error = e

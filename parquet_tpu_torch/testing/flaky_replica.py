@@ -39,10 +39,6 @@ proxied response is Content-Length framed — which is exactly what makes
 Counters: `requests`, `faults_injected`, `proxied`, and `traceparents`
 (every traceparent header seen, in arrival order — the replica-side half
 of a propagation pin when tests want the hop recorded at the wire).
-
-The port's copy of parquet_tpu.testing.flaky_replica. The port's mesh
-client sends no traceparent, so in front of a port router `traceparents`
-stays empty.
 """
 
 from __future__ import annotations

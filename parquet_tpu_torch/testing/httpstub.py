@@ -60,9 +60,10 @@ included) must carry a valid PQT4-HMAC-SHA256 signature — verified with
 the same io.sign code the client signs with — or it answers a typed 403
 (counted in `auth_rejects`).
 
-The port's copy of parquet_tpu.testing.httpstub, without the traceparent
-record (the port sends none). `python -m parquet_tpu_torch.testing.httpstub
---root DIR [--writable]` serves a directory (and, writable, the multipart
+Every traceparent header received is kept in `traceparents`, in arrival
+order (the store-side half of the propagation check).
+`python -m parquet_tpu_torch.testing.httpstub --root DIR [--writable]`
+serves a directory (and, writable, the multipart
 write side) from a process of its own (main() below) and prints its port.
 """
 
@@ -147,6 +148,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _serve(self, head_only: bool) -> None:
         stub = self.stub
+        stub._record_traceparent(self.headers.get("traceparent"))
         p = stub._draw_and_wait()
         if p is None:  # drop was drawn
             self._drop()
@@ -335,6 +337,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _write_op(self, method: str) -> None:
         stub = self.stub
+        stub._record_traceparent(self.headers.get("traceparent"))
         # the body is read BEFORE the fault draw: a dropped connection
         # must model an ack lost in flight, not a request never sent
         body = self._read_body()
@@ -596,6 +599,9 @@ class RangeHttpStub:
         self.faults_injected = 0
         self.bytes_served = 0
         self.multirange_requests = 0  # comma-form Range GETs served multipart
+        # every traceparent header received, in arrival order (recorded
+        # before the fault draw: a faulted request was still received)
+        self.traceparents: list = []
         self.put_requests = 0
         self.objects_put = 0
         self.auth_rejects = 0
@@ -818,6 +824,12 @@ class RangeHttpStub:
                 self.faults_injected += 1
                 return int(self._rng.integers(0, declared))
         return None
+
+    def _record_traceparent(self, raw) -> None:
+        """Keep every traceparent header received (None headers skipped)."""
+        if raw is not None:
+            with self._lock:
+                self.traceparents.append(str(raw))
 
     def _count_fault(self) -> None:
         pass  # counted at draw time (one lock acquisition per request)

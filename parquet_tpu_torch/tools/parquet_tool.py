@@ -47,15 +47,16 @@ scrapers and load balancers.
 
     python -m parquet_tpu_torch.tools.parquet_tool serve --root /data --port 8080
 
-`debug --vars` snapshots a daemon's configuration. What the port cuts
-(the obs package and utils.trace of the reference): the flight recorder
-(`debug` without flags, `--id`, `--trace` and `--tenants` print the
-daemon's typed 501 not_ported and exit 1; so does `profile --live`),
-`debug --fleet` and `trace-merge` (exit 2: obs.fleet and obs.propagate are
-cut), the daemon's structured JSON logs (plain standard-library lines on
-stderr instead: no request ids, no JSON), and the flags whose ServeConfig
-fields the port lacks (`--trace-sample-rate`, `--debug-ring`,
-`--debug-max-traces`: refused, exit 2, before the daemon starts).
+`debug` reads a running daemon's flight recorder (its newest requests;
+`--id` one record, `--trace -o` its span tree as a Perfetto document,
+`--tenants` the per-tenant cost table, `--vars` its configuration) and
+`debug --fleet URL...` merges several replicas' /metrics into one
+exposition. `trace-merge` stitches the span trees of one request's
+processes (a router's and its replicas') into one timeline on their shared
+trace id. `profile --live URL` takes a sampling-profiler window of a
+running daemon; `profile FILE` decodes under a span trace and prints its
+per-stage report beside the metrics report. The daemon logs structured
+JSON lines on stderr (obs.log), with request ids and trace ids.
 """
 
 from __future__ import annotations
@@ -68,6 +69,8 @@ from ..core.reader import FileReader, MaskedColumn
 from ..core.writer import FileWriter
 from ..meta.parquet_types import CompressionCodec, Encoding, Type
 from ..schema.dsl import schema_to_string
+from ..utils import metrics as _metrics
+from ..utils.trace import decode_trace, span
 
 __all__ = ["main"]
 
@@ -832,14 +835,33 @@ def _profiler(dev: str):
     )
 
 
-def _trace_out(prof, sort_by: str, out: str, mdelta: dict) -> dict:
+# the pid of the span trace's events in a profile document: apart from the
+# profiler's process and device lanes
+SPAN_PID = 1 << 30
+
+
+def _trace_out(prof, sort_by: str, out: str, mdelta: dict, trace=None,
+               registry_delta=None) -> dict:
     """Write the profile's Chrome trace to `out` (the counts delta under
-    otherData, as the reference writes its metrics delta there), print
-    the key_averages report, and return the trace document."""
+    otherData, and the registry's delta as the reference writes its
+    metrics delta there), with `trace`'s span events beside the
+    profiler's under pid SPAN_PID; print the key_averages report, and
+    return the trace document."""
     prof.export_chrome_trace(out)
     with open(out) as f:
         doc = json.load(f)
-    doc.setdefault("otherData", {})["counts_delta"] = mdelta
+    other = doc.setdefault("otherData", {})
+    other["counts_delta"] = mdelta
+    if registry_delta is not None:
+        other["metrics_delta"] = registry_delta
+    if trace is not None:
+        spans = trace.to_chrome_trace()
+        events = doc.setdefault("traceEvents", [])
+        events.append({"ph": "M", "name": "process_name", "pid": SPAN_PID, "tid": 0,
+                       "args": {"name": "parquet_tpu_torch spans"}})
+        events.extend({**ev, "pid": SPAN_PID} for ev in spans["traceEvents"])
+        other["stages"] = spans["otherData"]["stages"]
+        other["counters"] = spans["otherData"]["counters"]
     with open(out, "w") as f:
         json.dump(doc, f)
     try:
@@ -906,9 +928,14 @@ def cmd_profile(args) -> int:
     sink, on the host. --metrics prints the delta of the port's count
     registries and of every kernel's launches.
 
+    The decode also runs under a span trace (utils.trace.decode_trace):
+    its per-stage report prints after the profiler's table, then the
+    metrics registry's report of the run, and the -o document holds the
+    trace's span events beside the profiler's, in the same traceEvents
+    list under a pid of their own (named by a process_name event).
+
     --live <url> asks a RUNNING daemon for GET /v1/debug/profile (the
-    sampling profiler): the port's daemon answers a typed 501 not_ported,
-    printed, exit 1."""
+    sampling profiler)."""
     import os
 
     if args.live:
@@ -971,6 +998,7 @@ def cmd_profile(args) -> int:
     cols = args.columns.split(",") if args.columns else None
     prof, sort_by = _profiler(dev)
     snap0 = _counts_snapshot()
+    msnap0 = _metrics.snapshot()
     with FileReader(args.file, columns=cols, backend=backend, device=dev) as r:
         rows = r.num_rows
         if args.write:
@@ -988,13 +1016,18 @@ def cmd_profile(args) -> int:
                 CompressionCodec.UNCOMPRESSED
             )
             snap0 = _counts_snapshot()  # exclude the decode from the delta
-            with prof, record_function("file"):
+            msnap0 = _metrics.snapshot()
+            with prof, record_function("file"), decode_trace() as t, span(
+                "file", {"path": str(args.file), "mode": "write-encode"}
+            ):
                 w = FileWriter(MemorySink(), r.schema, codec=codec)
                 for row in all_rows:
                     w.write_row(row)
                 w.close()
         else:
-            with prof, record_function("file"):
+            with prof, record_function("file"), decode_trace() as t, span(
+                "file", {"path": str(args.file), "backend": backend}
+            ):
                 if args.rows:
                     rows = 0
                     for _row in r.iter_rows():
@@ -1012,7 +1045,11 @@ def cmd_profile(args) -> int:
     # computed once: the registries are live process state, so a re-read
     # could disagree with what the file artifact recorded
     mdelta = _counts_delta(snap0)
-    doc = _trace_out(prof, sort_by, args.out, mdelta)
+    registry_delta = _metrics.delta(msnap0)
+    doc = _trace_out(prof, sort_by, args.out, mdelta, trace=t, registry_delta=registry_delta)
+    print(t.report())
+    print()
+    print(_metrics.report(registry_delta))
     print()
     mode = "write-encode" if args.write else f"backend={backend}"
     print(
@@ -1426,32 +1463,6 @@ def _scan_aggregate(args, filters, dev: str) -> int:
     return 0
 
 
-# serve flags whose ServeConfig fields the port lacks (the flight
-# recorder they size lives in the cut obs package): refused, exit 2,
-# before the daemon starts
-_CUT_SERVE_FLAGS = (
-    ("--trace-sample-rate", "trace_sample_rate"),
-    ("--debug-ring", "debug_ring"),
-    ("--debug-max-traces", "debug_max_traces"),
-)
-
-
-def _configure_logging() -> None:
-    """The daemon is the one place the library's silent-by-default logging
-    opts in: plain standard-library lines on stderr. The reference's
-    obs.log (structured JSON lines with request ids injected) is cut, so
-    lines carry no request id and are not JSON."""
-    import logging
-
-    log = logging.getLogger("parquet_tpu_torch")
-    if not any(getattr(h, "_pqt_cli", False) for h in log.handlers):
-        h = logging.StreamHandler(sys.stderr)
-        h.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s"))
-        h._pqt_cli = True
-        log.addHandler(h)
-    log.setLevel(logging.INFO)
-
-
 def cmd_serve(args) -> int:
     """Run the scan/query daemon (parquet_tpu_torch.serve) in the
     foreground: its /v1/query units run on CUDA (the CPU with --cpu). As
@@ -1460,18 +1471,13 @@ def cmd_serve(args) -> int:
 
     SIGTERM/SIGINT drain gracefully: in-flight requests complete, new ones
     get typed 503s, then the listener stops."""
+    from ..obs.log import configure_logging
     from ..serve import ScanServer, ServeConfig
     from ..serve.protocol import _parse_shard
 
-    for flag, dest in _CUT_SERVE_FLAGS:
-        if getattr(args, dest) is not None:
-            print(
-                f"error: {flag} is not ported (the flight recorder of obs "
-                "is cut; ServeConfig has no such field)",
-                file=sys.stderr,
-            )
-            return 2
-    _configure_logging()
+    # the daemon is the one place the library's silent-by-default logging
+    # opts in: structured JSON lines on stderr, request ids injected
+    configure_logging()
     remote_map = {}
     for spec in args.remote_map or ():
         prefix, sep, url = spec.partition("=")
@@ -1490,7 +1496,7 @@ def cmd_serve(args) -> int:
             file=sys.stderr,
         )
         return 2
-    # the knobs both roles share: admission, deadlines, SLO
+    # the knobs both roles share: admission, deadlines, obs, SLO
     common = dict(
         host=args.host,
         port=args.port,
@@ -1505,9 +1511,18 @@ def cmd_serve(args) -> int:
         socket_timeout_s=args.socket_timeout_s,
         slo_availability=args.slo_availability,
         slo_p99_ms=args.slo_p99_ms,
-        # --slow-ms defaults to None so ServeConfig stays the single owner
-        # of the number
-        **({"slow_ms": args.slow_ms} if args.slow_ms is not None else {}),
+        # obs flags default to None so ObsConfig (through ServeConfig)
+        # stays the single owner of the numbers
+        **{
+            k: v
+            for k, v in {
+                "trace_sample_rate": args.trace_sample_rate,
+                "slow_ms": args.slow_ms,
+                "debug_ring_size": args.debug_ring,
+                "debug_max_traces": args.debug_max_traces,
+            }.items()
+            if v is not None
+        },
     )
     if mesh:
         from ..serve.mesh import MeshConfig, MeshRouter
@@ -1607,15 +1622,22 @@ def cmd_debug(args) -> int:
     With --id + --trace: the Perfetto-loadable Chrome-trace JSON, written
     to -o (or stdout) for ui.perfetto.dev / chrome://tracing. --vars
     snapshots the daemon's configuration (/v1/debug/vars); --tenants
-    prints the per-tenant cost table (/v1/debug/tenants).
-
-    The port's daemon keeps no flight recorder and no tenant table (the
-    obs package is cut): every view but --vars answers a typed 501
-    not_ported, which is printed, exit 1. --fleet (obs.fleet) is not
-    ported: exit 2."""
+    prints the per-tenant cost table (/v1/debug/tenants); --fleet scrapes
+    every listed replica's /metrics and prints ONE merged exposition
+    (counters summed, histogram buckets added, gauges kept per replica)."""
     if args.fleet:
-        print("parquet-tool: debug --fleet is not ported (obs.fleet is cut)", file=sys.stderr)
-        return 2
+        from ..obs import fleet as _fleet
+
+        urls = [_fleet.normalize_peer(p) for p in args.fleet]
+        view = _fleet.federate(urls)  # ValueError -> main()'s exit-1 path
+        print(
+            f"# fleet: merged {len(view['replicas'])} replica(s): "
+            + ", ".join(view["replicas"])
+        )
+        for replica, why in sorted(view["errors"].items()):
+            print(f"# fleet: {replica} failed: {why}")
+        sys.stdout.write(view["text"])
+        return 1 if view["errors"] else 0
     if not args.url:
         raise ValueError("debug: a daemon URL (or --fleet URL...) is required")
     base = args.url.rstrip("/")
@@ -1720,10 +1742,37 @@ def cmd_debug(args) -> int:
 def cmd_trace_merge(args) -> int:
     """Stitch per-process Chrome-trace documents (each exported by
     `debug --id X --trace -o`) into ONE Perfetto document on their shared
-    trace-id: every input becomes its own named process lane. Not ported:
-    the stitching lives in obs.propagate, which the port cuts (exit 2)."""
-    print("parquet-tool: trace-merge is not ported (obs.propagate is cut)", file=sys.stderr)
-    return 2
+    trace id: every input becomes its own named process lane, so a
+    router's spans and its replicas' spans of one request sit on one
+    timeline."""
+    from ..obs.propagate import merge_chrome_traces
+
+    docs = []
+    for path in args.files:
+        with open(path) as f:
+            try:
+                docs.append(json.load(f))
+            except json.JSONDecodeError as e:
+                raise ValueError(f"trace-merge: {path}: {e}") from None
+    if args.label and len(args.label) != len(args.files):
+        raise ValueError(
+            "trace-merge: one --label per input file "
+            f"(got {len(args.label)} labels for {len(args.files)} files)"
+        )
+    merged = merge_chrome_traces(docs, labels=args.label)
+    text = json.dumps(merged)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+        trace_id = merged["otherData"]["propagation"]["trace_id"]
+        print(
+            f"trace-merge: stitched {len(docs)} process(es), "
+            f"{len(merged['traceEvents'])} events on trace {trace_id} "
+            f"-> {args.out}"
+        )
+    else:
+        print(text)
+    return 0
 
 
 def main(argv=None) -> int:

@@ -1,12 +1,15 @@
 """The port's `parquet-tool debug` against a port daemon, as
 tests/test_observatory.py's TestDebugCLI pins the reference's: `--vars`
-snapshots the daemon (its pid is this process's). The flight recorder,
-the tenant table and the sampling profiler are cut with the obs package:
-the daemon answers each view with a typed 501 not_ported, which the tool
-prints and exits 1 on (as the reference's tool does on any HTTP error)."""
+snapshots the daemon (its pid is this process's). The flight-recorder
+views, the tenant table and `profile --live` hold the port's tool on the
+port's daemon against the reference's tool on the reference's daemon,
+after the same request on each (both recorders and ledgers emptied
+first): the same exit code, the same output with ids, times and numbers
+masked (a record's keys for --id)."""
 
 import json
 import os
+import re
 
 import numpy as np
 import pyarrow as pa
@@ -15,6 +18,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from parquet_tpu_torch.obs.cost import LEDGER as PLEDGER  # noqa: E402
+from parquet_tpu_torch.obs.recorder import RECORDER as PRECORDER  # noqa: E402
 from parquet_tpu_torch.serve import ScanServer, ServeConfig  # noqa: E402
 from parquet_tpu_torch.tools.parquet_tool import main as tool_main  # noqa: E402
 
@@ -42,6 +47,51 @@ def server(corpus):
         yield s
 
 
+@pytest.fixture()
+def reference(corpus):
+    """The reference's daemon on the same corpus."""
+    jserve = pytest.importorskip("parquet_tpu.serve")
+    s = jserve.ScanServer(jserve.ServeConfig(port=0, root=str(corpus), cache_mb=16))
+    with s.start_background():
+        yield s
+
+
+def jax_tool_main(argv):
+    from parquet_tpu.tools.parquet_tool import main
+
+    return main(argv)
+
+
+def debug_run(tool, server, argv, capsys):
+    """Empty the package's recorder and ledger, record one /v1/plan request
+    under the id r1, then run `debug URL argv`: (rc, stdout, stderr)."""
+    import urllib.request
+
+    if tool is tool_main:
+        rec, ledger = PRECORDER, PLEDGER
+    else:
+        from parquet_tpu.obs.cost import LEDGER as ledger
+        from parquet_tpu.obs.recorder import RECORDER as rec
+    rec.__init__(rec.config)
+    ledger.reset()
+    req = urllib.request.Request(server.url + "/v1/plan?paths=a.parquet",
+                                 headers={"X-Request-Id": "r1"})
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        assert resp.status == 200
+    capsys.readouterr()
+    rc = tool(["debug", server.url, *argv])
+    cap = capsys.readouterr()
+    return rc, cap.out, cap.err
+
+
+def masked(text: str) -> str:
+    """Output with hex ids, times and numbers masked, and the column
+    padding that their widths set collapsed."""
+    text = re.sub(r"\b[0-9a-f]{16,32}\b", "<id>", text)
+    text = re.sub(r"\d+(\.\d+)?(e-?\d+)?", "0", text)
+    return re.sub(r"[ \t]+", " ", text)
+
+
 class TestDebugCLI:
     def test_debug_vars(self, server, capsys):
         assert tool_main(["debug", server.url, "--vars"]) == 0
@@ -54,17 +104,25 @@ class TestDebugCLI:
 
     @pytest.mark.parametrize("argv", [[], ["--slow"], ["--id", "r1"], ["--id", "r1", "--trace"],
                                       ["--tenants"]], ids=lambda a: " ".join(a) or "list")
-    def test_cut_views_print_the_typed_501(self, server, capsys, argv):
-        assert tool_main(["debug", server.url, *argv]) == 1
-        cap = capsys.readouterr()
-        assert cap.out == ""
-        assert cap.err.startswith("debug: not_ported: /v1/debug/")
-        assert "parquet_tpu_torch does not port" in cap.err
+    def test_cut_views_print_the_typed_501(self, server, reference, capsys, argv):
+        got, want = (debug_run(tool, s, argv, capsys)
+                     for tool, s in ((tool_main, server), (jax_tool_main, reference)))
+        assert got[0] == want[0]
+        if argv[:2] == ["--id", "r1"] and "--trace" not in argv:
+            assert got[0] == 0 and set(json.loads(got[1])) == set(json.loads(want[1]))
+        else:
+            assert masked(got[1]) == masked(want[1]) and masked(got[2]) == masked(want[2])
 
-    def test_profile_live_prints_the_typed_501(self, server, capsys):
-        assert tool_main(["profile", "--live", server.url, "--seconds", "0.2"]) == 1
-        err = capsys.readouterr().err
-        assert err.startswith("profile: not_ported: /v1/debug/profile is not served")
+    def test_profile_live_prints_the_typed_501(self, server, reference, capsys):
+        got, want = (
+            (tool(["profile", "--live", s.url, "--seconds", "0.2"]), capsys.readouterr())
+            for tool, s in ((tool_main, server), (jax_tool_main, reference))
+        )
+        assert got[0] == want[0] == 0
+        # collapsed stacks: `lane;frame;... count` a line, on both
+        for out in (got[1].out, want[1].out):
+            lines = out.splitlines()
+            assert lines and all(re.fullmatch(r"\S.* \d+", ln) for ln in lines)
 
     def test_trace_without_id_is_a_message(self, server, capsys):
         assert tool_main(["debug", server.url, "--trace"]) == 1

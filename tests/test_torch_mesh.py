@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import http.client
 import json
+import re
 import threading
 import time
 
@@ -328,8 +329,8 @@ QUERIES = [
 
 
 def without_trace_id(raw: bytes) -> bytes:
-    """A JAX error body without its trace_id (the port's carry none: a
-    known difference), re-rendered as both daemons render bodies."""
+    """An error body without its trace_id (each request's is its own),
+    re-rendered as both packages' daemons render bodies."""
     doc = json.loads(raw)
     doc["error"].pop("trace_id", None)
     return (json.dumps(doc) + "\n").encode()
@@ -337,13 +338,11 @@ def without_trace_id(raw: bytes) -> bytes:
 
 def all_equal(fleets, method, path, body=None, headers=None):
     """The exchange on the port's router and direct daemon and on the JAX
-    router and direct daemon: every status and body equal (the JAX error
-    bodies without their trace_id). Returns the port router's (status,
-    body)."""
+    router and direct daemon: every status and body equal (error bodies
+    without their trace_id). Returns the port router's (status, body)."""
     out = [request(fleets[pkg][i], method, path, body, headers)
            for pkg in ("port", "jax") for i in (2, 0)]
-    got = [(st, raw if st == 200 or i < 2 else without_trace_id(raw))
-           for i, (st, _h, raw) in enumerate(out)]
+    got = [(st, raw if st == 200 else without_trace_id(raw)) for st, _h, raw in out]
     assert len(set(got)) == 1, [(st, raw[:300]) for st, raw in got]
     return got[0]
 
@@ -428,7 +427,8 @@ def test_typed_errors_equal_through_the_routers(fleets, path, body, status):
 def test_append_is_typed_not_routable(fleets):
     out = [request(fleets[pkg][2], "POST", "/v1/append", b'{"k": 1}\n',
                    {"Content-Type": "application/x-ndjson", **RID}) for pkg in ("port", "jax")]
-    assert out[0][0] == out[1][0] == 501 and out[0][2] == without_trace_id(out[1][2])
+    assert out[0][0] == out[1][0] == 501
+    assert without_trace_id(out[0][2]) == without_trace_id(out[1][2])
     assert error_code(out[0][2]) == "not_routable"
     assert "replica" in json.loads(out[0][2])["error"]["message"]
 
@@ -443,7 +443,7 @@ def test_arrow_ipc_is_the_daemons_not_ported(fleets, body, status, code):
     direct, _replicas, router = fleets["port"]
     got = request(router, "POST", "/v1/scan", body, RID)
     want = request(direct, "POST", "/v1/scan", body, RID)
-    assert (got[0], got[2]) == (want[0], want[2])
+    assert (got[0], without_trace_id(got[2])) == (want[0], without_trace_id(want[2]))
     assert (got[0], error_code(got[2])) == (status, code)
     assert router.service.admission.in_flight == 0
     assert request(fleets["jax"][2], "POST", "/v1/scan", body)[0] == 200
@@ -461,7 +461,7 @@ def test_declined_units_forward_the_replicas_typed_400(fleets, body):
     router merges the floats byte-equal to its direct daemon."""
     got = request(fleets["port"][2], "POST", "/v1/query", body, RID)
     want = request(fleets["port"][0], "POST", "/v1/query", body, RID)
-    assert (got[0], got[2]) == (want[0], want[2])
+    assert (got[0], without_trace_id(got[2])) == (want[0], without_trace_id(want[2]))
     assert (got[0], error_code(got[2])) == (400, "device_declined")
     jr = request(fleets["jax"][2], "POST", "/v1/query", body)
     jd = request(fleets["jax"][0], "POST", "/v1/query", body)
@@ -624,16 +624,20 @@ def test_dead_replica_opens_its_breaker(corpus):
 # -- FlakyReplica ---------------------------------------------------------------------
 
 
+# the traceparent each outcomes() request sends: both proxies record it
+OUTCOME_TP = "00-" + "ab" * 16 + "-" + "cd" * 8 + "-01"
+
+
 def outcomes(proxy_cls, backend_url, n, **knobs):
-    """n sequential GET /healthz through a fresh proxy: each one's outcome
-    (status and body length, or the transport failure's kind), and the
-    proxy's counters."""
+    """n sequential GET /healthz through a fresh proxy, each with
+    OUTCOME_TP: each one's outcome (status and body length, or the
+    transport failure's kind), and the proxy's counters."""
     out = []
     with proxy_cls(backend_url, seed=7, **knobs) as proxy:
         for _ in range(n):
             conn = http.client.HTTPConnection("127.0.0.1", proxy.port, timeout=WATCHDOG_S)
             try:
-                conn.request("GET", "/healthz")
+                conn.request("GET", "/healthz", headers={"traceparent": OUTCOME_TP})
                 resp = conn.getresponse()
                 out.append(("answer", resp.status, len(resp.read())))
             except http.client.IncompleteRead as e:
@@ -657,7 +661,8 @@ def test_flaky_replica_matches_the_reference(fleets, knobs):
     got = with_watchdog(lambda: outcomes(FlakyReplica, backend, 40, **knobs))
     want = with_watchdog(lambda: outcomes(JaxFlakyReplica, backend, 40, **knobs))
     assert got == want
-    assert got[1][1] > 0 and got[1][3] == []  # faults fired; no traceparent sent
+    # faults fired; each proxy recorded every traceparent that reached it
+    assert got[1][1] > 0 and got[1][3] == want[1][3] and set(got[1][3]) == {OUTCOME_TP}
 
 
 def test_flaky_replica_refuses_a_bad_backend():
@@ -687,7 +692,11 @@ def test_wire_faults_change_no_routed_body(corpus, knobs, seed):
                 assert st == 200 and body == want_scan
                 st, _h, body = request(router, "POST", "/v1/query", query)
                 assert st == 200 and body == want_query
-            assert proxy.faults_injected > 0 and proxy.traceparents == []
+            # every attempt through the proxy carried the router's child
+            # traceparent, in the reference's wire format
+            assert proxy.faults_injected > 0 and proxy.traceparents
+            assert all(re.fullmatch(r"00-[0-9a-f]{32}-[0-9a-f]{16}-01", tp)
+                       for tp in proxy.traceparents)
 
         with_watchdog(run)
     finally:
@@ -719,8 +728,9 @@ def test_debug_vars_mesh_mode(fleets):
     jdoc = json.loads(request(fleets["jax"][2], "GET", "/v1/debug/vars")[2])
     assert doc["mode"] == "mesh" and len(doc["replicas"]) == 3
     assert doc["mesh"] == jdoc["mesh"] and doc["serve"] == jdoc["serve"]
-    assert set(jdoc) - set(doc) == {"obs", "process"}
-    assert doc["pools"] == {"sizes": {"pqt-mesh": 16}}
+    assert set(jdoc) == set(doc) and doc["obs"] == jdoc["obs"]
+    assert doc["pools"]["sizes"] == {"pqt-mesh": 16}
+    assert set(doc["pools"]) == set(jdoc["pools"]) | {"sizes"}
 
 
 def test_healthz_reports_replica_counts(fleets):
@@ -741,7 +751,7 @@ def test_metrics_render_the_mesh_families(fleets):
                    "serve_requests_total"):
         name = f"parquet_tpu_{family}"
         assert f"# HELP {name} " in text and f"# TYPE {name} counter" in text, family
-    assert "gauge" not in text and "parquet_tpu_mesh_replica_state " not in text
+    assert "# TYPE parquet_tpu_mesh_replica_state gauge" in text
     assert 'parquet_tpu_mesh_scatter_units_total{endpoint="/v1/scan"}' in text
 
 

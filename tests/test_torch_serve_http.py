@@ -23,9 +23,10 @@ device="cpu" (the kernels' plain versions). Pinned:
     buffered then flushed acks equal, typed errors equal, a daemon query of
     the table equal; an arrow-ipc append is the port's 415 (a known
     difference);
-  * the port's own answers: arrow-ipc scans and each cut debug route a
-    typed 501 not_ported, /metrics' counter lines, /v1/debug/vars' keys,
-    X-Request-Id echoed and minted, no traceparent.
+  * the port's own answers: arrow-ipc scans a typed 501 not_ported; each
+    debug route the reference's status and body keys; /metrics the
+    registry's exposition (classic and OpenMetrics); /v1/debug/vars' keys;
+    X-Request-Id echoed and minted; traceparent resolved and echoed.
 
 Every socket binds port 0, every daemon is closed in a fixture's finally
 with its admission at 0 in flight, every wait has a timeout of its own,
@@ -38,6 +39,7 @@ from __future__ import annotations
 import http.client
 import json
 import os
+import re
 import threading
 import time
 
@@ -681,15 +683,49 @@ def test_arrow_ipc_scan_is_refused_before_admission(corpus, daemons):
     ("/v1/debug/fleet?peers=127.0.0.1:1", "obs.fleet"),
 ])
 def test_cut_debug_routes_are_501(pair, route, module):
-    status, _h, raw = request(pair[0], "GET", route)
-    assert (status, error_code(raw)) == (501, "not_ported")
-    assert module in json.loads(raw)["error"]["message"]
+    """Each debug route the reference serves answers as the reference's
+    does (the obs `module` behind it): the same status and content type,
+    and for JSON the same keys (an error's code too). The profile route
+    runs one window at a time, so the two daemons take it in turn."""
+    got = request(pair[0], "GET", route)
+    want = request(pair[1], "GET", route)
+    assert got[0] == want[0] and got[0] != 501, (module, got[0], got[2][:200])
+    assert got[1]["Content-Type"] == want[1]["Content-Type"]
+    if got[1]["Content-Type"].startswith("application/json"):
+        a, b = json.loads(got[2]), json.loads(want[2])
+        assert set(a) == set(b)
+        if "error" in a:
+            assert error_code(got[2]) == error_code(want[2])
+            assert set(a["error"]) == set(b["error"])
+        elif "requests" in a:
+            assert all(set(r) == set(want_r) for r in a["requests"]
+                       for want_r in b["requests"][:1])
+        else:
+            assert set(a["totals"]) == set(b["totals"])
+    else:
+        assert route.startswith("/v1/debug/profile") and got[0] == 200
 
 
 def test_metrics_are_counters_in_the_classic_text_format(corpus, daemons):
+    """/metrics is the process registry's exposition: the serve counters
+    among its counter families, gauges and histograms beside them, and the
+    OpenMetrics variant (exemplars, # EOF) for a scraper that asks. The
+    registry is the process's, so each counter is read as its growth over
+    the three requests, in both formats."""
     s = daemons("port", root=str(corpus))
     reset_serve_counts()
     reset_query_device_counts()
+    formats = (None, "application/openmetrics-text; version=1.0.0")
+
+    def scrape(accept):
+        status, headers, raw = request(s, "GET", "/metrics",
+                                       headers={"Accept": accept} if accept else None)
+        assert status == 200
+        lines = raw.decode().splitlines()
+        samples = dict(ln.split(" # ")[0].rsplit(" ", 1) for ln in lines if not ln.startswith("#"))
+        return headers, lines, samples
+
+    before = {accept: scrape(accept)[2] for accept in formats}
     assert request(s, "POST", "/v1/scan", {"paths": "a.parquet", "limit": 3})[0] == 200
     assert request(s, "POST", "/v1/query", {"paths": "a.parquet",
                                             "aggregates": [["sum", "id"]]})[0] == 200
@@ -697,21 +733,31 @@ def test_metrics_are_counters_in_the_classic_text_format(corpus, daemons):
                                             "group_by": ["k"]})[0] == 400
     wait_until("the requests counted", lambda: sum(
         v for k, v in serve_counts().items() if k.startswith("serve_requests_total")) == 3)
-    for accept in (None, "application/openmetrics-text; version=1.0.0"):
-        status, headers, raw = request(s, "GET", "/metrics",
-                                       headers={"Accept": accept} if accept else None)
-        assert status == 200 and headers["Content-Type"].startswith("text/plain; version=0.0.4")
-        lines = raw.decode().splitlines()
-        samples = dict(ln.rsplit(" ", 1) for ln in lines if not ln.startswith("#"))
-        assert samples['parquet_tpu_serve_requests_total{status="200",tenant="default"}'] == "2"
-        assert samples['parquet_tpu_serve_requests_total{status="400",tenant="default"}'] == "1"
-        assert int(samples["parquet_tpu_serve_scan_bytes_total"]) > 0
-        assert samples["parquet_tpu_serve_aggregate_requests_total"] == "1"
-        assert samples['parquet_tpu_query_device_units_total{engine="device"}'] == "3"
-        assert int(samples['parquet_tpu_query_device_units_total{engine="declined"}']) >= 1
-        types = [ln.split()[-1] for ln in lines if ln.startswith("# TYPE")]
-        assert types and set(types) == {"counter"}
-        assert "# EOF" not in lines and not any("_bucket" in ln for ln in lines)
+    for accept in formats:
+        headers, lines, samples = scrape(accept)
+
+        def grew(key):
+            key = "parquet_tpu_" + key
+            return int(samples[key]) - int(before[accept].get(key, "0"))
+
+        assert grew('serve_requests_total{status="200",tenant="default"}') == 2
+        assert grew('serve_requests_total{status="400",tenant="default"}') == 1
+        assert grew("serve_scan_bytes_total") > 0
+        assert grew("serve_aggregate_requests_total") == 1
+        assert grew('query_device_units_total{engine="device"}') == 3
+        assert grew('query_device_units_total{engine="declined"}') >= 1
+        types = {ln.split()[2]: ln.split()[-1] for ln in lines if ln.startswith("# TYPE")}
+        assert {"counter", "gauge", "histogram"} <= set(types.values())
+        if accept is None:
+            assert headers["Content-Type"].startswith("text/plain; version=0.0.4")
+            assert types["parquet_tpu_serve_requests_total"] == "counter"
+            assert "# EOF" not in lines and any("_bucket" in ln for ln in lines)
+        else:
+            assert headers["Content-Type"].startswith("application/openmetrics-text")
+            assert types["parquet_tpu_serve_requests"] == "counter"
+            assert lines[-1] == "# EOF"
+            assert any('# {request_id="' in ln for ln in lines
+                       if ln.startswith("parquet_tpu_serve_request_seconds_bucket"))
 
 
 def test_tenant_labels_are_escaped(corpus, daemons):
@@ -732,7 +778,9 @@ def test_debug_vars_keys_are_the_reference_without_obs_and_process(pair, monkeyp
     monkeypatch.delenv("PQT_DATA_THREADS", raising=False)
     got = json.loads(request(port, "GET", "/v1/debug/vars")[2])
     want = json.loads(request(ref, "GET", "/v1/debug/vars")[2])
-    assert set(got) == set(want) - {"obs", "process"}
+    assert set(got) == set(want)
+    assert got["obs"] == want["obs"]
+    assert set(got["process"]) == set(want["process"])
     assert got["version"] == "0.1.0"
     assert set(got["serve"]) == set(want["serve"])
     assert set(got["pools"]) == set(want["pools"]) | {"sizes"}
@@ -767,12 +815,17 @@ def test_request_ids_are_echoed_and_minted(pair):
                                    {"X-Request-Id": "abc def/1"})
     assert status == 404 and headers["X-Request-Id"] == "abc_def_1"
     assert json.loads(raw)["error"]["request_id"] == "abc_def_1"
-    assert "traceparent" not in {k.lower() for k in headers}
-    assert "trace_id" not in json.loads(raw)["error"]
+    # no inbound traceparent: a fresh one, echoed, its trace id in the body
+    tp = headers["traceparent"]
+    assert re.fullmatch(r"00-[0-9a-f]{32}-[0-9a-f]{16}-01", tp)
+    assert json.loads(raw)["error"]["trace_id"] == tp.split("-")[1]
+    inbound = "00-" + "1" * 32 + "-" + "2" * 16 + "-01"
     status, headers, _raw = request(port, "POST", "/v1/plan", {"paths": "a.parquet"},
-                                    {"traceparent": "00-" + "1" * 32 + "-" + "2" * 16 + "-01"})
+                                    {"traceparent": inbound})
     assert status == 200 and len(headers["X-Request-Id"]) == 16
-    assert "traceparent" not in {k.lower() for k in headers}
+    # adopted: the caller's trace id, the daemon's own span id
+    echoed = headers["traceparent"].split("-")
+    assert echoed[1] == "1" * 32 and echoed[2] != "2" * 16 and echoed[3] == "01"
     assert "X-Request-Id" not in request(port, "GET", "/healthz")[1]
 
 

@@ -612,27 +612,56 @@ def test_profile_refusals_match_reference(argv, rc, msg, sample, tmp_path):
     assert t[0] == rc and msg in t[2]
 
 
-# -- what the port cuts, typed -----------------------------------------------------
+# -- the subcommands and flags that were cut, held against the reference ---------------
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["trace-merge", "a.json", "b.json"], "parquet-tool: trace-merge is not ported "
-                                          "(obs.propagate is cut)"),
-    (["debug", "--fleet", "http://127.0.0.1:9"], "parquet-tool: debug --fleet is not ported "
-                                                 "(obs.fleet is cut)"),
+    (["trace-merge", "a.json", "b.json"], "a.json"),
+    (["debug", "--fleet", "http://127.0.0.1:9"], "fleet"),
 ])
 def test_cut_subcommands_exit_2(argv, msg):
-    rc, out, err = run(ttool.main, argv)
-    assert (rc, out, err.strip()) == (2, "", msg)
+    """trace-merge of missing inputs and a fleet of one unreachable replica:
+    the port's tool answers as the reference's (the same exit code and
+    message)."""
+    got, want = run(ttool.main, argv), run(jtool.main, argv)
+    assert got == want and got[0] == 1 and msg in got[2]
 
 
 @pytest.mark.parametrize("flag,value", [("--trace-sample-rate", "0.5"), ("--debug-ring", "10"),
                                         ("--debug-max-traces", "3")])
 @pytest.mark.parametrize("cmd", ["serve", "route"])
-def test_serve_refuses_flags_it_has_no_field_for(cmd, flag, value):
-    rc, out, err = run(ttool.main, [cmd, "--cpu", "--port", "0", flag, value])
-    assert rc == 2 and out == ""
-    assert err.startswith(f"error: {flag} is not ported")
+def test_serve_refuses_flags_it_has_no_field_for(cmd, flag, value, monkeypatch):
+    """The obs flags reach the daemon's (or router's) config as the
+    reference's do: both tools build a server whose config holds the value
+    (its serve loop, shutdown and signal handlers stubbed) and exit 0."""
+    from parquet_tpu.obs.recorder import RECORDER as JREC
+    from parquet_tpu.serve import server as jserver
+
+    from parquet_tpu_torch.obs.recorder import RECORDER as PREC
+    from parquet_tpu_torch.serve import server as pserver
+
+    argv = [cmd, "--port", "0", flag, value]
+    if cmd == "route":
+        argv += ["--replica", "http://127.0.0.1:9"]
+    field = {"--trace-sample-rate": "trace_sample_rate", "--debug-ring": "debug_ring_size",
+             "--debug-max-traces": "debug_max_traces"}[flag]
+    configs = []
+    saved = (PREC.config, JREC.config)
+    try:
+        for mod in (pserver, jserver):
+            monkeypatch.setattr(mod.ScanServer, "serve_forever",
+                                lambda self: configs.append(self.config))
+            monkeypatch.setattr(mod.ScanServer, "install_signal_handlers", lambda self: None)
+            # a listener never served: its shutdown() would wait forever
+            monkeypatch.setattr(mod.ScanServer, "shutdown", lambda self: None)
+        got = run(ttool.main, argv + (["--cpu"] if cmd == "serve" else []))
+        want = run(jtool.main, argv)
+    finally:
+        PREC.configure(saved[0])
+        JREC.configure(saved[1])
+    assert got[0] == want[0] == 0
+    assert got[1].splitlines()[-1] == want[1].splitlines()[-1] == "serve: drained, bye"
+    assert [getattr(c, field) for c in configs] == [type(getattr(configs[1], field))(value)] * 2
 
 
 def test_route_refuses_cpu():
