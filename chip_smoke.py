@@ -374,9 +374,16 @@ Phases (any failure raises and the script exits non-zero):
               /v1/query bodies equal to (c)'s, SIGTERM drained; (f)
               verify, meta, rowcount and head -n 3 of taxi equal to this
               process's FileReader; (g) csv2parquet of taxi's first 65,536
-              rows, read back equal; (h) both examples_torch/ scripts; (i)
-              a ZSTD write of taxi's group 0 read back on the card equal to
-              the path read, or the typed refusal where libzstd is missing;
+              rows, read back equal; (h) the nine examples_torch/
+              scripts, each printing `on cuda` (the train loops in their
+              own children, the other seven in turn in one child, each
+              example's launches logged; cuda_columnar_scan also over a
+              golden dictionary file: expand_hybrid and dict_gather, and
+              distributed_stats masked_agg); (i) where a libzstd is found
+              the ZSTD codec builds (zstd.cc declares what it calls where
+              zstd.h is missing), taxi's group 0 written ZSTD and the golden
+              ZSTD file read on the card equal to the port's host decode
+              (device="cpu"); the typed refusal only where no libzstd is;
   5. times    rows/s of the device reads and of the batch streams, filtered
               and not (the same call, both files), of the filtered read, of
               host decode + upload, of the device write against the host
@@ -3983,6 +3990,17 @@ def variant_env(env: dict) -> env_set:
     return env_set(**knobs)
 
 
+def group_on(group: dict, device) -> dict:
+    """A read's {path: DeviceColumn} with every tensor moved to `device`."""
+    import dataclasses
+
+    import torch
+
+    return {p: dataclasses.replace(c, **{
+        f.name: getattr(c, f.name).to(device) for f in dataclasses.fields(c)
+        if isinstance(getattr(c, f.name), torch.Tensor)}) for p, c in group.items()}
+
+
 def groups_equal(a, b) -> bool:
     """Two reads' [{path: DeviceColumn}] equal field by field, on the card."""
     import torch
@@ -6522,6 +6540,53 @@ TOOL_SPAN_PID = 1 << 30  # the span events' pid in `profile -o` (parquet_tool.SP
 TOOLS_CSV_ROWS = 1 << 16
 TOOLS_SCAN_BATCH = 1 << 18
 TOOLS_TIMEOUT_S = 600.0  # bounds every child process of the phase
+GOLDEN = ROOT / "tests" / "golden" / "data"
+# (h): the seven examples without a training loop, in turn in ONE child
+# process (one start-up and CUDA initialisation for all): (script, argv).
+# cuda_columnar_scan reads write_low_level's example.parquet (no
+# dictionary chunk), then a golden file whose dictionary chunks launch the
+# hybrid expansion and the gather
+EXAMPLE_RUNS = (
+    ("write_low_level.py", []),
+    ("read_low_level.py", []),
+    ("cuda_columnar_scan.py", []),
+    ("cuda_columnar_scan.py", [str(GOLDEN / "alltypes_dict_snappy_v1.parquet")]),
+    ("analytics_pruning.py", []),
+    ("dataclass_floor.py", []),
+    ("distributed_stats.py", []),
+    ("filtered_scan.py", []),
+)
+# the child: each example's main(argv) in the working directory, its stdout
+# and its launches (the counts' difference around it) as one JSON line
+EXAMPLES_DRIVER = r"""
+import contextlib, importlib.util, io, json, sys, time
+sys.path.insert(0, sys.argv[2])
+import torch
+from parquet_tpu_torch.kernels import device_ops as ops
+
+def minus(a, b):
+    out = {}
+    for k, v in a.items():
+        if isinstance(v, dict):
+            out[k] = {w: n - b[k].get(w, 0) for w, n in v.items() if n != b[k].get(w, 0)}
+        else:
+            out[k] = v - b[k]
+    return out
+
+runs = []
+for script, argv in json.loads(sys.argv[1]):
+    spec = importlib.util.spec_from_file_location("example", script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    before, buf, t = ops.launch_counts(), io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mod.main(argv)
+    torch.cuda.synchronize()
+    runs.append({"script": script, "argv": argv, "stdout": buf.getvalue(),
+                 "seconds": time.perf_counter() - t,
+                 "launches": minus(ops.launch_counts(), before)})
+print(json.dumps(runs))
+"""
 
 
 def kernel_symbols() -> dict:
@@ -6566,14 +6631,14 @@ def in_trace(kernel: str, kinds: collections.Counter, counts: dict) -> bool:
 
 
 def run_tool(args, counts_dir: Path, label: str, *, prog=TOOL,
-             timeout: float = TOOLS_TIMEOUT_S) -> tuple:
-    """One child process, `python <prog> <args>` (the tool by default), with
-    its launch counts written to counts_dir/<label>.counts.json at exit: (exit
-    code, stdout, stderr, seconds, launch counts)."""
+             timeout: float = TOOLS_TIMEOUT_S, cwd: Path = ROOT) -> tuple:
+    """One child process, `python <prog> <args>` (the tool by default) in
+    `cwd`, with its launch counts written to counts_dir/<label>.counts.json
+    at exit: (exit code, stdout, stderr, seconds, launch counts)."""
     argv = [sys.executable, *prog, *args]
     env = dict(os.environ, PQT_LAUNCH_COUNTS=str(counts_dir / f"{label}.counts.json"))
     t = time.perf_counter()
-    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+    proc = subprocess.run(argv, cwd=cwd, capture_output=True, text=True, timeout=timeout,
                           env=env)
     secs = time.perf_counter() - t
     return proc.returncode, proc.stdout, proc.stderr, secs, child_counts(counts_dir, label)
@@ -6667,12 +6732,18 @@ def check_tools(paths: dict, taxi_specs, f_taxi, taxi_keep, host_group0: dict, t
     finds every page clean, meta and rowcount equal this process's own
     run of the same code over FileReader, head equals FileReader's first
     3 rows. (g) csv2parquet of taxi's first TOOLS_CSV_ROWS rows (written
-    here to CSV): the file reads back equal to them. (h) both examples_torch/
-    scripts on the card, run beside (f) and (g). (i) where the native ZSTD codec built:
-    taxi's group 0 written with FileWriter(codec="zstd"), read back on the
-    card equal to the path read of group 0; where it did not, the typed
-    refusal printed. Prints each step's wall time beside `card`; returns
-    the numbers."""
+    here to CSV): the file reads back equal to them. (h) the nine
+    examples_torch/ scripts on the card, run beside (f) and (g): the two
+    train loops in children of their own, the other seven (EXAMPLE_RUNS) in
+    turn in one child (EXAMPLES_DRIVER), each printing `on cuda` and its
+    launches logged; cuda_columnar_scan over the golden dictionary file
+    launches expand_hybrid and dict_gather, distributed_stats masked_agg.
+    (i) where ctypes.util.find_library finds a libzstd, the native ZSTD
+    codec must build: taxi's group 0 written with FileWriter(codec="zstd")
+    and tests/golden/data/alltypes_zstd_v2_nodict.parquet read on the card
+    equal to the port's host decode (device="cpu"); where none is found,
+    the typed refusal printed. Prints each step's wall time beside `card`;
+    returns the numbers."""
     import contextlib
     import csv
     import io
@@ -6886,8 +6957,12 @@ def check_tools(paths: dict, taxi_specs, f_taxi, taxi_keep, host_group0: dict, t
             "head": ["head", "-n", "3", str(taxi_path)],
         }
         examples = ("train_loop.py", "streaming_train_loop.py")
+        ex_dir = work / "examples"
+        ex_dir.mkdir()
+        ex_runs = json.dumps([(str(ROOT / "examples_torch" / name), argv)
+                              for name, argv in EXAMPLE_RUNS])
         t = time.perf_counter()
-        with ThreadPoolExecutor(len(host_runs) + 1 + len(examples)) as pool:
+        with ThreadPoolExecutor(len(host_runs) + 2 + len(examples)) as pool:
             futs = {k: pool.submit(run_tool, a, work, k) for k, a in host_runs.items()}
             futs["csv2parquet"] = pool.submit(
                 run_tool, ["-typehints", hints, "-o", str(csv_out), str(csv_path)], work,
@@ -6895,6 +6970,8 @@ def check_tools(paths: dict, taxi_specs, f_taxi, taxi_keep, host_group0: dict, t
             for name in examples:
                 futs[name] = pool.submit(run_tool, [], work, name.removesuffix(".py"),
                                          prog=(str(ROOT / "examples_torch" / name),))
+            futs["examples"] = pool.submit(run_tool, [ex_runs, str(ROOT)], work, "examples",
+                                           prog=("-c", EXAMPLES_DRIVER), cwd=ex_dir)
             res = {k: f.result() for k, f in futs.items()}
         host_secs = time.perf_counter() - t
         for k, (rc, so, se, secs, c) in res.items():
@@ -6935,54 +7012,115 @@ def check_tools(paths: dict, taxi_specs, f_taxi, taxi_keep, host_group0: dict, t
         out["together"] = {k: res[k][3] for k in res} | {"wall_s": host_secs}
 
         # (h) the examples (run beside (f) and (g))
+        def launched(c):
+            return ", ".join(f"{k}={v}" for k, v in c.items() if isinstance(v, int) and v)
+
         for name in examples:
             rc, so, se, secs, c = res[name]
             step(f"examples_torch/{name}", secs, " (run beside the others); "
-                 + so.strip().splitlines()[-1][:160] + "; launches "
-                 + (", ".join(f"{k}={v}" for k, v in c.items() if isinstance(v, int) and v)
-                    or "none"))
+                 + so.strip().splitlines()[-1][:160] + "; launches " + (launched(c) or "none"))
             if "on cuda" not in so:
                 raise AssertionError(f"[tools:h] {name} did not run on the card:\n{so}")
+        ex_runs = json.loads(res["examples"][1].strip().splitlines()[-1])
+        step("examples_torch/ (7 scripts in one child)", res["examples"][3],
+             f" (run beside the others; {sum(r['seconds'] for r in ex_runs):.2f} s of "
+             "examples after its start-up)")
+        out["examples"] = {}
+        for r in ex_runs:
+            name = Path(r["script"]).name + "".join(f" {Path(a).name}" for a in r["argv"])
+            lines = r["stdout"].strip().splitlines()
+            log(f"[tools:h] {name}: {r['seconds']:.2f} s; {' / '.join(lines[-3:])[:240]}; "
+                f"launches {launched(r['launches']) or 'none'} | {card}")
+            out["examples"][name] = {"seconds": r["seconds"], "launches": {
+                k: v for k, v in r["launches"].items() if isinstance(v, int) and v}}
+            if lines[-1:] != ["on cuda"]:
+                raise AssertionError(f"[tools:h] {name} did not run on the card:\n{r['stdout']}")
+        want = {  # what the tests hold against the JAX package on the CPU
+            "analytics_pruning.py": ["groups admitting ghost trip_id: []",
+                                     "device batches after pushdown: 4 (250000 rows)"],
+            "filtered_scan.py": ["row groups: 10, surviving pruning: [8, 9]"],
+            "cuda_columnar_scan.py": ["device columns equal the host read"],
+            "cuda_columnar_scan.py alltypes_dict_snappy_v1.parquet": [
+                "device columns equal the host read"],
+            "distributed_stats.py": ["devices: ['cuda']"],
+        }
+        by_name = {Path(r["script"]).name + "".join(f" {Path(a).name}" for a in r["argv"]): r
+                   for r in ex_runs}
+        for name, expect in want.items():
+            missing = [w for w in expect if w not in by_name[name]["stdout"].splitlines()]
+            if missing:
+                raise AssertionError(f"[tools:h] {name} printed no {missing}:\n"
+                                     f"{by_name[name]['stdout']}")
+        gold = by_name["cuda_columnar_scan.py alltypes_dict_snappy_v1.parquet"]["launches"]
+        stats = by_name["distributed_stats.py"]["launches"]
+        if not (gold["expand_hybrid"] and gold["dict_gather"] and stats["masked_agg"]):
+            raise AssertionError(f"[tools:h] the examples' scans launched expand_hybrid="
+                                 f"{gold['expand_hybrid']}, dict_gather={gold['dict_gather']}, "
+                                 f"masked_agg={stats['masked_agg']}")
 
-        # (i) the native ZSTD codec
+        # (i) the native ZSTD codec: it must build wherever a libzstd is found
+        # (the runtime library is enough: zstd.cc declares what it calls
+        # where zstd.h is missing)
+        import ctypes.util
+
+        runtime = ctypes.util.find_library("zstd")
         zstd = compress._REGISTRY.get(int(CompressionCodec.ZSTD))
         try:
+            t = time.perf_counter()
             zstd.lib()
+            b_secs = time.perf_counter() - t
             version = zstd.version()
         except compress.CompressionError as e:
-            import ctypes.util
-
-            runtime = ctypes.util.find_library("zstd")
-            out["zstd"] = {"refused": str(e).splitlines()[0], "runtime_library": runtime}
-            log(f"[tools:i] ZSTD is not available on this host (the typed refusal): "
-                f"{str(e).splitlines()[0]}; the runtime library: {runtime}")
+            if runtime is not None:
+                raise AssertionError(f"[tools:i] {runtime} is on this host, yet the ZSTD codec "
+                                     f"did not build: {e}") from None
+            out["zstd"] = {"refused": str(e).splitlines()[0], "runtime_library": None}
+            log(f"[tools:i] no libzstd on this host (the typed refusal): "
+                f"{str(e).splitlines()[0]}")
         else:
-            # the same group written SNAPPY, as the write phase writes it:
-            # both files read on the card must give the same columns
-            zpath, spath = work / "taxi-zstd.parquet", work / "taxi-snappy.parquet"
-            write_taxi(spath, taxi_schema, [host_group0], device=False)
+            from parquet_tpu_torch.kernels import host_build
+
+            defines, link = host_build._zstd_flags()
+
+            def both_reads(path) -> tuple:
+                """(every group read on the card, on the host (device="cpu"),
+                the card's seconds): the host's columns are the port's host
+                decode, which the CPU tests hold against the reference."""
+                t = time.perf_counter()
+                with FileReader(path) as r:
+                    got = [r.read_row_group_device(i) for i in range(r.num_row_groups)]
+                    codecs = {cc.meta_data.codec for g in r.metadata.row_groups
+                              for cc in g.columns}
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t
+                with FileReader(path, device="cpu") as r:
+                    want = [r.read_row_group_device(i) for i in range(r.num_row_groups)]
+                if codecs != {int(CompressionCodec.ZSTD)}:
+                    raise AssertionError(f"[tools:i] {path.name}: codecs {codecs}")
+                return [group_on(g, "cpu") for g in got], want, secs
+
+            zpath = work / "taxi-zstd.parquet"
             t = time.perf_counter()
             write_taxi(zpath, taxi_schema, [host_group0], device=False, codec="zstd")
             w_secs = time.perf_counter() - t
-            t = time.perf_counter()
-            with FileReader(zpath) as r:
-                got_z = [r.read_row_group_device(0)]
-                codecs = {cc.meta_data.codec for cc in r.row_group(0).columns}
-            torch.cuda.synchronize()
-            r_secs = time.perf_counter() - t
-            with FileReader(spath) as r:
-                want_z = [r.read_row_group_device(0)]
-            equal = groups_equal(got_z, want_z)
-            step("zstd write + read", w_secs + r_secs, f"; libzstd {version}: group 0 "
-                 f"written in {w_secs:.2f} s ({zpath.stat().st_size:,} bytes, SNAPPY "
-                 f"{spath.stat().st_size:,}), read on the card in {r_secs:.2f} s, equal to "
-                 f"the SNAPPY file's read: {equal}")
-            if not equal or codecs != {int(CompressionCodec.ZSTD)}:
-                raise AssertionError(f"[tools:i] the ZSTD file's group 0 differs on the card "
-                                     f"(codecs {codecs})")
-            out["zstd"] = {"version": version, "write_s": w_secs, "read_s": r_secs,
+            got_z, want_z, r_secs = both_reads(zpath)
+            taxi_equal = groups_equal(got_z, want_z)
+            got_g, want_g, g_secs = both_reads(GOLDEN / "alltypes_zstd_v2_nodict.parquet")
+            golden_equal = groups_equal(got_g, want_g)
+            step("zstd build + write + reads", b_secs + w_secs + r_secs + g_secs,
+                 f"; libzstd {version} ({runtime}; {' '.join(defines + (link,))}), built in "
+                 f"{b_secs:.2f} s: taxi's group 0 written in {w_secs:.2f} s "
+                 f"({zpath.stat().st_size:,} bytes), read on the card in {r_secs:.2f} s, equal "
+                 f"to the host decode: {taxi_equal}; alltypes_zstd_v2_nodict.parquet read on "
+                 f"the card in {g_secs:.3f} s, equal to the host decode: {golden_equal}")
+            if not (taxi_equal and golden_equal):
+                raise AssertionError(f"[tools:i] a ZSTD file read on the card differs from the "
+                                     f"host decode: taxi {taxi_equal}, golden {golden_equal}")
+            out["zstd"] = {"version": version, "runtime_library": runtime,
+                           "flags": list(defines) + [link], "build_s": b_secs,
+                           "write_s": w_secs, "read_s": r_secs, "golden_read_s": g_secs,
                            "bytes": zpath.stat().st_size}
-            del got_z, want_z
+            del got_z, want_z, got_g, want_g
     finally:
         for proc in daemons:
             proc.kill()

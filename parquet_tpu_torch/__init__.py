@@ -76,7 +76,7 @@ __version__ = "0.1.0"
 from .core.alloc import AllocError
 from .core.arrays import ByteArrayData
 from .core.chunk import ChunkData, ChunkError, read_chunk
-from .core.compress import CompressionError
+from .core.compress import CompressionError, register_codec
 from .core.page import PageError
 from .core.filter import FilterError
 from .core.filter_device import DeviceFilterError
@@ -112,7 +112,17 @@ from .io import (
     reset_io_counts,
 )
 from .kernels.pipeline import DecodeStats, DeviceColumn
-from .meta.file_meta import ParquetFileError, read_file_metadata
+from .meta import (
+    CompressionCodec,
+    ConvertedType,
+    Encoding,
+    FieldRepetitionType,
+    LogicalType,
+    PageType,
+    ParquetFileError,
+    Type,
+    read_file_metadata,
+)
 from .ops.packed_levels import PackedLevels
 from .schema import builder
 from .schema.dsl import (
@@ -122,8 +132,16 @@ from .schema.dsl import (
     validate,
     validate_strict,
 )
-from .sink.sink import BufferedSink
+from .sink import (
+    BufferedSink,
+    ByteSink,
+    FileObjectSink,
+    LocalFileSink,
+    MemorySink,
+    SinkError,
+)
 from . import floor
+from .data import ParquetDataset
 from .serve import (
     AdmissionController,
     Deadline,
@@ -150,23 +168,32 @@ __all__ = [
     "BlockCache",
     "BufferedSink",
     "ByteArrayData",
+    "ByteSink",
     "ByteSource",
     "ChunkData",
     "ChunkError",
     "Column",
+    "CompressionCodec",
     "CompressionError",
+    "ConvertedType",
     "Deadline",
     "DecodeStats",
     "DeviceColumn",
     "DeviceFilterError",
+    "Encoding",
+    "FieldRepetitionType",
+    "FileObjectSink",
     "FileReader",
     "FileWriter",
     "FilterError",
     "FooterCache",
     "HttpSink",
     "HttpSource",
+    "LocalFileSink",
     "LocalFileSource",
+    "LogicalType",
     "MaskedColumn",
+    "MemorySink",
     "MemorySource",
     "MeshConfig",
     "MeshRouter",
@@ -174,6 +201,8 @@ __all__ = [
     "ObjectStoreSource",
     "PackedLevels",
     "PageError",
+    "PageType",
+    "ParquetDataset",
     "ParquetFileError",
     "PlannedScan",
     "RaggedColumn",
@@ -185,9 +214,11 @@ __all__ = [
     "SchemaError",
     "SchemaParseError",
     "ServeConfig",
+    "SinkError",
     "SourceError",
     "TieredCache",
     "TransientSourceError",
+    "Type",
     "VecFilterError",
     "WriterError",
     "builder",
@@ -201,6 +232,7 @@ __all__ = [
     "parse_schema",
     "read_chunk",
     "read_file_metadata",
+    "register_codec",
     "reset_filter_counts",
     "reset_io_counts",
     "reset_mesh_counts",

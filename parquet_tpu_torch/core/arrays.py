@@ -16,7 +16,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["ByteArrayData"]
+__all__ = ["ByteArrayData", "byte_array_from_items"]
+
 
 @dataclass
 class ByteArrayData:
@@ -96,3 +97,24 @@ class ByteArrayData:
         return (
             np.array_equal(self.offsets, other.offsets) and self.data == other.data
         )
+
+
+def byte_array_from_items(items, to_bytes=None) -> ByteArrayData:
+    """Sequence of str/bytes (or anything `to_bytes` can convert) -> column.
+
+    The reference's per-item path (its one-pass C extension is not part of
+    the port): each item converted, then the lengths, offsets and buffer
+    built in one NumPy pass and one join (ByteArrayData.from_list)."""
+    if to_bytes is None:
+        to_bytes = _default_to_bytes
+    return ByteArrayData.from_list([to_bytes(x) for x in items])
+
+
+def _default_to_bytes(v) -> bytes:
+    if isinstance(v, bytes):
+        return v
+    if isinstance(v, str):
+        return v.encode("utf-8")
+    if isinstance(v, (bytearray, memoryview)):
+        return bytes(v)
+    raise TypeError(f"cannot convert {type(v).__name__} to bytes")

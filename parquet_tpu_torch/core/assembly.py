@@ -259,7 +259,7 @@ class RecordAssembler:
                         e = min(s + step, n)
                         yield from assembly_vec._zip_dict_rows(
                             names,
-                            [c[s:e] for c in columns],
+                            [assembly_vec.slice_column(c, s, e) for c in columns],
                         )
                     return
                 if self.engine == "vec":

@@ -55,10 +55,12 @@ __all__ = [
     "vec_enabled",
     "build_field_vec",
     "assemble_row_columns",
+    "assemble_rows",
     "LeafVec",
     "ListVec",
     "StructVec",
     "VecStructureError",
+    "slice_column",
 ]
 
 
@@ -609,9 +611,32 @@ def assemble_row_columns(schema, chunks: dict, raw: bool):
     return names, columns, n_rows
 
 
+def assemble_rows(schema, chunks: dict, raw: bool):
+    """Row-list form of assemble_row_columns (None on unprovable shapes)."""
+    rc = assemble_row_columns(schema, chunks, raw)
+    if rc is None:
+        return None
+    names, columns, n = rc
+    if not names or n == 0:
+        return []
+    return _zip_dict_rows(names, columns)
+
+
 # -- shared row-zip machinery (consumed by the reader's windowed path) ----------
 
 
 def _zip_dict_rows(names: list, columns: list) -> list:
     """Zip column value lists into row dicts."""
     return [dict(zip(names, row)) for row in zip(*columns)]
+
+
+def slice_column(col, start: int, end: int):
+    """Row-window of an assemble_row_columns column (list or slices spec).
+    The port's assemble_row_columns yields lists only: the reference defers
+    ("slices", elems, offsets, mask) specs to its C row-zip, which the port
+    does not have. The spec form is kept so a window of either slices alike."""
+    if isinstance(col, tuple):
+        tag, elems, offsets, mask = col
+        return (tag, elems, offsets[start : end + 1],
+                None if mask is None else mask[start:end])
+    return col[start:end]

@@ -30,7 +30,7 @@ import datetime as _dt
 import numpy as np
 
 from ..meta.parquet_types import Type
-from .arrays import ByteArrayData
+from .arrays import ByteArrayData, byte_array_from_items
 from .schema import Column
 
 __all__ = [
@@ -197,7 +197,7 @@ class ColumnChunkBuilder:
                         f"store: {self.column.path_str}: {e}"
                     ) from e
         if ptype == Type.BYTE_ARRAY:
-            return ByteArrayData.from_list([self._to_bytes(x) for x in vals])
+            return byte_array_from_items(vals, to_bytes=self._to_bytes)
         if ptype in (Type.INT96, Type.FIXED_LEN_BYTE_ARRAY):
             width = 12 if ptype == Type.INT96 else (self.column.type_length or 0)
             if width <= 0:
@@ -295,7 +295,7 @@ class ColumnChunkBuilder:
         if ptype == Type.BYTE_ARRAY:
             if isinstance(v, ByteArrayData):
                 return v
-            return ByteArrayData.from_list([self._to_bytes(x) for x in v])
+            return byte_array_from_items(v, to_bytes=self._to_bytes)
         if isinstance(v, (list, tuple)) and (not v or isinstance(v[0], bytes)):
             width = 12 if ptype == Type.INT96 else (self.column.type_length or 0)
             if width <= 0 or any(

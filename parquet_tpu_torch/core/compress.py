@@ -8,9 +8,10 @@ legacy LZ4 codec (Hadoop framing on write; framed or bare raw blocks on
 read, parquet-cpp's contract) over the port's host library
 (utils/native.py, built on first use), and ZSTD over the system's libzstd
 (native/zstd.cc, its own small library, built at the first ZSTD use by
-kernels/host_build.load_zstd). Where zstd.h or libzstd is missing, ZSTD
-raises the typed "codec not registered" CompressionError, naming what is
-missing; BROTLI and LZO always do. A codec the caller registers with
+kernels/host_build.load_zstd; a host with the runtime library and no
+zstd.h builds it too). Where libzstd is missing, ZSTD raises the typed
+"codec not registered" CompressionError, naming what is missing; BROTLI
+and LZO always do. A codec the caller registers with
 register_codec takes precedence over the built-in one.
 """
 

@@ -58,6 +58,7 @@ __all__ = [
     "VecFilterError",
     "dnf_mask",
     "group_row_count",
+    "mask_to_ranges",
     "masked_flat_columns",
     "vec_filter_enabled",
 ]
@@ -129,6 +130,15 @@ def group_row_count(chunks: dict) -> int:
     if n is None:
         raise VecFilterError("filter_vec: no decoded chunks")
     return n
+
+
+def mask_to_ranges(mask) -> list:
+    """Sorted disjoint [(start, stop)) runs of True — the gather plan the
+    reader's windowed row materialization already consumes."""
+    d = np.diff(mask.astype(np.int8), prepend=np.int8(0), append=np.int8(0))
+    starts = np.flatnonzero(d == 1)
+    ends = np.flatnonzero(d == -1)
+    return list(zip(starts.tolist(), ends.tolist()))
 
 
 # -- masked row-column gather ---------------------------------------------------

@@ -106,16 +106,15 @@ from ..meta.parquet_types import (
 )
 from ..meta.thrift import CompactReader, ThriftError
 from ..obs.log import log_event as _log_event
-from ..obs.pool import instrumented_submit
 from ..utils import metrics as _metrics
 from ..ops.packed_levels import PackedLevels
 from ..utils.counters import LabelledCounts, event_alias
 from ..utils.native import get_native
-from ..utils.trace import span, stage, timed_stage
+from ..utils.trace import span, stage, timed_stage, traced_submit
 from .alloc import AllocTracker
 from .arrays import ByteArrayData
 from .assembly import RecordAssembler
-from .assembly_vec import _zip_dict_rows, assemble_row_columns, vec_enabled
+from .assembly_vec import _zip_dict_rows, assemble_row_columns, slice_column, vec_enabled
 from .bloom import BloomFilter
 from .chunk import (
     ChunkData,
@@ -156,6 +155,7 @@ __all__ = [
     "filter_counts",
     "reset_filter_counts",
     "reset_row_counts",
+    "resolve_column_prefixes",
     "resolve_device",
     "row_counts",
 ]
@@ -1104,10 +1104,11 @@ class FileReader:
                     continue
                 with timed_stage("assembly.rows") as el, _gc_paused():
                     if k == e - s:
-                        cols = [c[s:e] for c in columns]
+                        cols = [slice_column(c, s, e) for c in columns]
                     else:
                         wml = wm.tolist()
-                        cols = [list(itertools.compress(c[s:e], wml)) for c in columns]
+                        cols = [list(itertools.compress(slice_column(c, s, e), wml))
+                                for c in columns]
                     rows = _zip_dict_rows(names, cols)
                 _count_rows("rows_assembled_vec", k)
                 _metrics.observe("assembly_seconds", el.seconds)
@@ -1127,7 +1128,9 @@ class FileReader:
                     # build INSIDE the GC pause, yield OUTSIDE it: the
                     # consumer must run with GC enabled
                     with timed_stage("assembly.rows") as el, _gc_paused():
-                        rows = _zip_dict_rows(names, [c[s:e] for c in columns])
+                        rows = _zip_dict_rows(
+                            names, [slice_column(c, s, e) for c in columns]
+                        )
                     _count_rows("rows_assembled_vec", e - s)
                     _metrics.observe("assembly_seconds", el.seconds)
                     yield rows
@@ -1180,8 +1183,8 @@ class FileReader:
         # is a contextvar, which a ThreadPoolExecutor does not carry): the
         # prepares' and dispatches' spans join the submitting read's trace
         return [
-            [(path, dispatch(_dispatch_prepared, device, instrumented_submit(
-                pool, prep, path, cc, column, pool="pqt-host", credit_wait=False), device))
+            [(path, dispatch(_dispatch_prepared, device,
+                             traced_submit(pool, prep, path, cc, column), device))
              for path, cc, column in chunks]
             for chunks in groups
         ]

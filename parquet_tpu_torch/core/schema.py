@@ -11,6 +11,7 @@ max_def; REPEATED also increments max_rep. The root is not counted.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 from functools import cached_property
 
@@ -92,6 +93,12 @@ class Column:
         )
 
 
+def _deep_copy_column(col: Column) -> Column:
+    # deepcopy the element so nested structs (logicalType) are independent too
+    elem = copy.deepcopy(col.element)
+    return Column(element=elem, children=[_deep_copy_column(c) for c in col.children])
+
+
 class Schema:
     """Parsed schema: root group + flat leaf list in file order."""
 
@@ -129,6 +136,22 @@ class Schema:
         if node is None:
             raise SchemaError(f"schema: no column {'.'.join(path)}")
         return node
+
+    def sub_schema(self, path) -> "Schema":
+        """A new Schema rooted at the named group — the reference's
+        SchemaDefinition.SubSchema (schema_def.go:137-150)."""
+        node = self.column(path)
+        if node.is_leaf:
+            raise SchemaError(
+                f"schema: sub_schema root {node.path_str!r} is a leaf, not a group"
+            )
+        return Schema(_deep_copy_column(node))
+
+    def clone(self) -> "Schema":
+        """Independent deep copy — the reference's SchemaDefinition.Clone
+        (schema_def.go:106-112, which round-trips through the printer; here a
+        structural copy, equivalent and cheaper)."""
+        return Schema(_deep_copy_column(self.root))
 
     # -- thrift conversion -----------------------------------------------------
 

@@ -12,10 +12,13 @@ and the flags, under the same lock scheme as the CUDA library
 tests build and run it too. A failed build raises `HostBuildError`.
 
 The ZSTD codec is a second, separate library: `native/zstd.cc` compiles
-alone with `-lzstd` into `libpqt_zstd.so` in a `zstd-<key>/` directory
-beside it (`load_zstd()`, at the first ZSTD use), so that a host without
-libzstd's header or library loses the ZSTD codec only, never the host
-library.
+alone into `libpqt_zstd.so` in a `zstd-<key>/` directory beside it
+(`load_zstd()`, at the first ZSTD use), so that a host without libzstd
+loses the ZSTD codec only, never the host library. It links `-lzstd`
+where libzstd's development link (`libzstd.so`) resolves, and the runtime
+library by its soname (`-l:libzstd.so.1`) where it does not; without
+`zstd.h`, `zstd.cc` declares the few libzstd functions it calls itself.
+The key of `zstd-<key>/` covers those flags.
 
 Nothing here runs at import: `load()` and `load_zstd()` build on first use.
 """
@@ -44,6 +47,13 @@ CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 LIB_NAME = "libpqt_host.so"
 ZSTD_SOURCES = ("zstd.cc",)
 ZSTD_LIB_NAME = "libpqt_zstd.so"
+# libzstd's development link, and the runtime library linked by its
+# soname where that link does not resolve
+ZSTD_DEV_LINK = "libzstd.so"
+ZSTD_RUNTIME = "libzstd.so.1"
+# -DPQT_ZSTD_DECLARE builds zstd.cc's declared-prototype branch where
+# zstd.h is present too (the tests build that branch so)
+ZSTD_DEFINES: tuple = ()
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -64,20 +74,21 @@ def _cxx() -> str:
     raise HostBuildError("no C++ compiler (g++) found to build the host library")
 
 
-def _key(sources=SOURCES) -> str:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+def _key(sources=SOURCES, flags=()) -> str:
+    h = hashlib.sha256(" ".join(CXX_FLAGS + tuple(flags)).encode())
     for name in sources:
         h.update(name.encode())
         h.update((NATIVE / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def _compile(out_dir: Path, lib_name: str, sources, link: str, failure) -> None:
+def _compile(out_dir: Path, lib_name: str, sources, link: str, failure, defines=()) -> None:
     """One `g++ ... -shared` of `sources` into out_dir/lib_name, linked with
     `link`; a failure raises HostBuildError whose first line is
     failure(compiler output)."""
     tmp = out_dir / (lib_name + ".tmp")
-    cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp), *(str(NATIVE / n) for n in sources), link]
+    cmd = [_cxx(), *CXX_FLAGS, *defines, "-o", str(tmp), *(str(NATIVE / n) for n in sources),
+           link]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     if proc.returncode != 0:
         log = proc.stdout.decode(errors="replace")
@@ -118,16 +129,29 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+def _resolves(lib: str) -> bool:
+    """True when the compiler's library search path holds `lib` (the
+    compiler prints the bare name back when it finds none)."""
+    proc = subprocess.run([_cxx(), f"-print-file-name={lib}"], capture_output=True, text=True)
+    found = proc.stdout.strip()
+    return os.path.isabs(found) and os.path.exists(found)
+
+
+def _zstd_flags() -> tuple:
+    """(defines, link) of the ZSTD build on this host."""
+    link = "-lzstd" if _resolves(ZSTD_DEV_LINK) else f"-l:{ZSTD_RUNTIME}"
+    return tuple(ZSTD_DEFINES), link
+
+
 def _zstd_failure(log: str) -> str:
     if "zstd.h" in log:
         return "zstd library: zstd.h not found (libzstd's development header)"
+    if f"-l:{ZSTD_RUNTIME}" in log:
+        return (f"zstd library: {ZSTD_RUNTIME} not found (neither libzstd's development "
+                f"link {ZSTD_DEV_LINK} nor its runtime library)")
     if "-lzstd" in log:
         return "zstd library: libzstd not found (-lzstd)"
     return "zstd library: build failed"
-
-
-def _build_zstd(out_dir: Path) -> None:
-    _compile(out_dir, ZSTD_LIB_NAME, ZSTD_SOURCES, "-lzstd", _zstd_failure)
 
 
 def load_zstd() -> ctypes.CDLL:
@@ -138,8 +162,12 @@ def load_zstd() -> ctypes.CDLL:
     with _zstd_lock:
         if _zstd is None and _zstd_error is None:
             try:
+                defines, link = _zstd_flags()
                 _zstd = _locked_build(
-                    BUILD_ROOT / f"zstd-{_key(ZSTD_SOURCES)}", ZSTD_LIB_NAME, _build_zstd
+                    BUILD_ROOT / f"zstd-{_key(ZSTD_SOURCES, defines + (link,))}",
+                    ZSTD_LIB_NAME,
+                    lambda out: _compile(out, ZSTD_LIB_NAME, ZSTD_SOURCES, link,
+                                         _zstd_failure, defines),
                 )
             except HostBuildError as e:
                 _zstd_error = e

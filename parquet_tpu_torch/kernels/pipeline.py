@@ -99,7 +99,6 @@ from ..ops.levels import decode_levels_v1, decode_levels_v2
 from ..ops.rle_hybrid import RunTable, expand_runs, prescan_hybrid
 from ..ops.varint import emit_uvarint, emit_zigzag
 from ..obs.log import log_event as _log_event
-from ..obs.pool import instrumented_submit
 from ..utils import metrics as _metrics
 from ..utils import trace as _trace
 from ..utils.counters import LabelledCounts, event_alias
@@ -291,10 +290,10 @@ def dispatch(fn, device, *args) -> Future:
     The device index resolves on the calling thread, so a bare "cuda" means
     the caller's current device, not the dispatch thread's. The task runs
     in the caller's context (an active decode trace, the request's log and
-    cost context), as every pqt-* pool's does (obs.pool)."""
-    return instrumented_submit(
-        dispatch_pool(), _run_on_stream, fn, _cuda_index(device), args,
-        pool="pqt-dispatch", credit_wait=False,
+    cost context) through traced_submit, the reference's hop here: no pool
+    gauges or histograms."""
+    return _trace.traced_submit(
+        dispatch_pool(), _run_on_stream, fn, _cuda_index(device), args
     )
 
 

@@ -3,16 +3,43 @@
 // The reference compresses with the zstandard package's ZstdCompressor()
 // (level 3, the frame's content size written, no checksum) and
 // decompresses with its ZstdDecompressor; this is the same over libzstd's
-// simple API. Built alone into libpqt_zstd.so (with -lzstd) by
+// simple API. Built alone into libpqt_zstd.so by
 // parquet_tpu_torch/kernels/host_build.py at the first ZSTD use, apart
-// from libpqt_host.so, so that a host without libzstd's header loses ZSTD
-// only. Bound with ctypes in parquet_tpu_torch/core/compress.py.
+// from libpqt_host.so, so that a host without libzstd loses ZSTD only.
+// Bound with ctypes in parquet_tpu_torch/core/compress.py.
+//
+// A host with libzstd's runtime library but not its development header
+// (zstd.h) still builds it: the few functions of libzstd's stable API that
+// this file calls are declared below, as zstd.h declares them, and
+// host_build.py links the runtime library by its soname. PQT_ZSTD_DECLARE
+// forces that branch where the header is present.
 //
 // The codec runs on several pqt-host prepare threads at once: each thread
 // keeps its own compression and decompression context (thread_local),
 // never one shared across threads.
 
+#if !defined(PQT_ZSTD_DECLARE) && __has_include(<zstd.h>)
 #include <zstd.h>
+#else
+#include <cstddef>
+extern "C" {
+// libzstd's stable API (zstd.h, every 1.x release), opaque contexts
+typedef struct ZSTD_CCtx_s ZSTD_CCtx;
+typedef struct ZSTD_DCtx_s ZSTD_DCtx;
+unsigned ZSTD_versionNumber(void);
+size_t ZSTD_compressBound(size_t srcSize);
+unsigned ZSTD_isError(size_t code);
+const char* ZSTD_getErrorName(size_t code);
+ZSTD_CCtx* ZSTD_createCCtx(void);
+size_t ZSTD_freeCCtx(ZSTD_CCtx* cctx);
+ZSTD_DCtx* ZSTD_createDCtx(void);
+size_t ZSTD_freeDCtx(ZSTD_DCtx* dctx);
+size_t ZSTD_compressCCtx(ZSTD_CCtx* cctx, void* dst, size_t dstCapacity, const void* src,
+                         size_t srcSize, int compressionLevel);
+size_t ZSTD_decompressDCtx(ZSTD_DCtx* dctx, void* dst, size_t dstCapacity, const void* src,
+                           size_t srcSize);
+}
+#endif
 
 #include <cstdint>
 #include <cstring>

@@ -14,9 +14,10 @@ long-running daemon can actually use at 14:02 when request X was slow:
   log       structured JSON-lines logging (stdlib logging underneath):
             request-id/tenant context injection, token-bucket rate
             limiting per event key, silent until configure_logging().
-  pool      the one instrumented submit every pqt-* pool routes
-            through (pqt-host, pqt-dispatch, pqt-io, pqt-hedge, pqt-data,
-            pqt-encode, pqt-serve, pqt-mesh): queue-depth/active gauges +
+  pool      the one instrumented submit the pqt-* pools route
+            through (pqt-io, pqt-hedge, pqt-data, pqt-encode, pqt-serve,
+            pqt-mesh; the device read's pqt-host and pqt-dispatch hops
+            are plain traced_submit): queue-depth/active gauges +
             queue-wait/task-time histograms per pool.
   prof      continuous sampling profiler over sys._current_frames():
             bounded, lane-attributed (the named pqt-* pools), rendered

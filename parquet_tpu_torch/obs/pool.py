@@ -1,13 +1,13 @@
 """One instrumented submit shared by every pqt-* worker pool.
 
-The process runs dedicated pools — pqt-host (the read's host prepare),
-pqt-dispatch (the card's uploads and launches, on its own CUDA stream),
-pqt-io (readahead, range fetches, remote parts), pqt-hedge (hedged reads),
-pqt-data (dataset unit decode), pqt-encode (parallel row-group encode),
-pqt-serve (scan execution) and pqt-mesh (the router's scatter) — and the
-two numbers every capacity question starts with are how deep each queue
-is and how long work waits in it. This wrapper is the ONE choke point they
-all submit through, feeding:
+The process runs dedicated pools — pqt-io (readahead, range fetches,
+remote parts), pqt-hedge (hedged reads), pqt-data (dataset unit decode),
+pqt-encode (parallel row-group encode), pqt-serve (scan execution) and
+pqt-mesh (the router's scatter) — and the two numbers every capacity
+question starts with are how deep each queue is and how long work waits
+in it. This wrapper is the ONE choke point they all submit through
+(the device read's pqt-host and pqt-dispatch hops use plain
+trace.traced_submit, as the reference's do), feeding:
 
   pool_queue_depth{pool=}         gauge: tasks submitted, not yet running
   pool_active_workers{pool=}      gauge: tasks currently running
@@ -63,15 +63,13 @@ def pool_depths() -> dict:
         }
 
 
-def _run(pool: str, ctx, t_submit: float, credit_wait: bool, fn, args):
+def _run(pool: str, ctx, t_submit: float, fn, args):
     wait = time.perf_counter() - t_submit
     _adjust(pool, dq=-1, da=+1)
     _metrics.observe("pool_queue_wait_seconds", wait, pool=pool)
     t0 = time.perf_counter()
     try:
-        if not credit_wait:
-            return ctx.run(fn, *args)
-        return ctx.run(_credit_wait_and_call, wait, fn, args)
+        return ctx.run(_charge_wait_and_call, wait, fn, args)
     finally:
         _adjust(pool, da=-1)
         _metrics.observe(
@@ -79,7 +77,7 @@ def _run(pool: str, ctx, t_submit: float, credit_wait: bool, fn, args):
         )
 
 
-def _credit_wait_and_call(wait: float, fn, args):
+def _charge_wait_and_call(wait: float, fn, args):
     # inside the carried context: the submitting request's DecodeTrace (if
     # any) aggregates this task's queue wait under the pool.wait stage —
     # the flight recorder reads it back as the record's queue_wait_ms
@@ -87,9 +85,7 @@ def _credit_wait_and_call(wait: float, fn, args):
     return fn(*args)
 
 
-def instrumented_submit(
-    executor, fn, *args, pool: str | None = None, ctx=None, credit_wait: bool = True
-):
+def instrumented_submit(executor, fn, *args, pool: str | None = None, ctx=None):
     """Submit `fn(*args)` to `executor` with contextvars carry (the
     traced_submit contract) plus queue/active gauges and wait/task-time
     histograms under the `pool` label (defaults to the executor's thread
@@ -98,16 +94,13 @@ def instrumented_submit(
     pass a shared `ctx` template (snapshotted once per group): each task
     still receives a private copy — Context.run refuses re-entry on a
     shared object, and group tasks overlap — but the per-task cost drops
-    to Context.copy instead of a fresh per-submit thread-state snapshot.
-    `credit_wait=False` keeps the gauges and histograms but adds no
-    pool.wait stage to the trace: the read path's pqt-host and
-    pqt-dispatch hops, whose span tree is the traced_submit one."""
+    to Context.copy instead of a fresh per-submit thread-state snapshot."""
     name = pool or getattr(executor, "_thread_name_prefix", "") or "pool"
     ctx = ctx.copy() if ctx is not None else copy_context()
     _adjust(name, dq=+1)
     t_submit = time.perf_counter()
     try:
-        fut = executor.submit(_run, name, ctx, t_submit, credit_wait, fn, args)
+        fut = executor.submit(_run, name, ctx, t_submit, fn, args)
     except BaseException:
         _adjust(name, dq=-1)  # shutdown race: the task never queued
         raise

@@ -23,6 +23,8 @@ __all__ = [
     "encode_levels_v2",
     "LevelError",
     "rows_from_rep",
+    "slot_ids",
+    "list_layout",
     "validity_from_def",
 ]
 
@@ -140,6 +142,43 @@ def rows_from_rep(rep, n: int | None = None) -> np.ndarray:
             raise ValueError("rows_from_rep: n required when rep is None")
         return np.arange(n, dtype=np.int64)
     return np.flatnonzero(np.asarray(rep) == 0)
+
+
+def slot_ids(rep, parent_rep: int) -> np.ndarray:
+    """Which slot (instance at nesting depth `parent_rep`) each level entry
+    belongs to: the inclusive prefix count of boundary entries, minus one.
+    An entry opens a new slot iff its rep level <= parent_rep (reference
+    data_store.go:294-308: the loop-until-rep-drops cursor walk, as one
+    cumsum)."""
+    return np.cumsum(np.asarray(rep) <= parent_rep, dtype=np.int64) - 1
+
+
+def list_layout(rep, dfl, slot_of, n_slots: int, elem_rep: int, elem_def: int):
+    """One repeated node's Arrow-style layout over the current entry stream.
+
+    rep/dfl are the stream's level arrays, slot_of the slot each entry
+    belongs to at the PARENT's granularity (from slot_ids, int64,
+    non-decreasing over n_slots slots). An entry STARTS an element of this
+    depth iff its rep level <= elem_rep AND its def level >= elem_def (below
+    elem_def the entry is the placeholder of an empty/null list and
+    contributes no element); entries with rep > elem_rep extend the open
+    element's subtree.
+
+    Returns (offsets, elem_start, exists):
+      offsets     int64[n_slots+1]  element-count prefix sums — slot i's
+                                    elements sit at [offsets[i], offsets[i+1])
+      elem_start  bool[n]           entry opens an element of this depth
+      exists      bool[n]           entry belongs to SOME element of this
+                                    depth (the child stream's keep mask)
+    """
+    rep = np.asarray(rep)
+    dfl = np.asarray(dfl)
+    exists = dfl >= elem_def
+    elem_start = (rep <= elem_rep) & exists
+    counts = np.bincount(slot_of[elem_start], minlength=n_slots)
+    offsets = np.zeros(n_slots + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    return offsets, elem_start, exists
 
 
 def validity_from_def(first_def, null_def: int):

@@ -174,14 +174,10 @@ def test_instrumented_submit_feeds_the_same_samples():
     assert got["pool.wait"] == 2
 
 
-def test_credit_wait_off_keeps_the_tree_but_not_the_wait():
-    with ThreadPoolExecutor(1, thread_name_prefix="pqt-nowait") as ex, \
-            ptrace.decode_trace() as t:
-        fut = ppool.instrumented_submit(ex, ptrace.current, pool="pqt-nowait",
-                                        credit_wait=False)
-        assert fut.result(30) is t
-    assert "pool.wait" not in t.counters()
-    assert pmetrics.REGISTRY.hist_stats("pool_queue_wait_seconds", pool="pqt-nowait")["count"] >= 1
+def test_instrumented_submit_has_the_references_signature():
+    import inspect
+    assert (inspect.signature(ppool.instrumented_submit)
+            == inspect.signature(jpool.instrumented_submit))
 
 
 # -- recorder -------------------------------------------------------------------------

@@ -98,6 +98,9 @@ def read(reader, mode: str) -> None:
                                              filter_rows=True, drop_remainder=False):
             pass
         return
+    if mode == "groups":
+        reader.read_row_groups_device()
+        return
     for i in range(reader.num_row_groups):
         if mode == "host":
             reader.read_row_group(i)
@@ -118,7 +121,7 @@ def traced(pkg: str, path: str, mode: str):
     return t
 
 
-@pytest.mark.parametrize("mode", ["device", "host", "filtered", "batches", "rows",
+@pytest.mark.parametrize("mode", ["device", "groups", "host", "filtered", "batches", "rows",
                                   "rows_filtered"])
 def test_span_trees_equal_the_references(sample, mode):
     got, want = traced("port", sample, mode), traced("jax", sample, mode)
@@ -127,11 +130,38 @@ def test_span_trees_equal_the_references(sample, mode):
     names = {n[1] for n in span_tree(got.to_chrome_trace())}
     expect = {"host": {"row_group", "chunk", "page"},
               "device": {"row_group.device", "chunk.prepare", "dispatch"},
+              "groups": {"chunk.prepare", "dispatch"},
               "filtered": {"row_group.device", "query.mask"},
               "batches": {"chunk.prepare", "dispatch", "query.mask", "query.take"},
               "rows": {"row_group", "assemble", "assembly.rows"},
               "rows_filtered": {"row_group", "assembly.filter", "assemble"}}[mode]
     assert expect <= names
+
+
+def pool_series(pkg: str, path: str) -> tuple[dict, dict]:
+    """The registry's samples and pool_depths() entries of the device read's
+    two pool hops (pqt-host, pqt-dispatch) after read_row_groups_device."""
+    if pkg == "port":
+        from parquet_tpu_torch.obs import pool
+        from parquet_tpu_torch.utils import metrics
+        with FileReader(path, device="cpu") as r:
+            r.read_row_groups_device()
+    else:
+        from parquet_tpu.obs import pool
+        from parquet_tpu.utils import metrics
+        with JaxReader(path, backend="tpu_roundtrip") as r:
+            r.read_row_groups_device()
+    hops = ("pqt-host", "pqt-dispatch")
+    series = {k: v for k, v in metrics.snapshot().items() if any(h in k for h in hops)}
+    depths = {k: v for k, v in pool.pool_depths().items() if k in hops}
+    return series, depths
+
+
+def test_the_read_hops_feed_no_pool_series_like_the_references(sample, monkeypatch):
+    # the reference hops with traced_submit: a context carry, no gauges or
+    # histograms; 4 prepare threads so the pqt-host fan-out runs
+    monkeypatch.setenv("PQT_HOST_THREADS", "4")
+    assert pool_series("port", sample) == pool_series("jax", sample) == ({}, {})
 
 
 @pytest.mark.parametrize("mode", ["device", "host"])

@@ -2,9 +2,13 @@
 first ZSTD use into libpqt_zstd.so) against the reference's zstandard
 codec: the golden ZSTD file reads with no codec registered, equal to the
 reference, through FileReader and `parquet-tool cat`; a port ZSTD write
-reads back through the reference; where libzstd cannot build, ZSTD is the
-typed "not registered" CompressionError naming the missing header; a
-registered codec takes precedence; libpqt_host.so does not link libzstd."""
+reads back through the reference; the branch for a host with libzstd's
+runtime library and no zstd.h (zstd.cc's own declarations, forced with
+PQT_ZSTD_DECLARE, linked by the runtime soname) builds, compresses like
+zstandard and reads the golden file; where neither the header nor the
+runtime library is there, ZSTD is the typed "not registered"
+CompressionError naming the library; a registered codec takes
+precedence; libpqt_host.so does not link libzstd."""
 
 import contextlib
 import io
@@ -148,35 +152,83 @@ def test_each_thread_keeps_its_own_context():
     assert "thread_local Contexts ctx;" in src
 
 
-def test_missing_header_is_the_typed_refusal(monkeypatch, tmp_path):
-    """A host without zstd.h: the build fails, ZSTD stays unregistered and
-    every use raises the typed CompressionError naming the header."""
+def fresh_zstd(monkeypatch, tmp_path, **constants):
+    """A ZSTD codec registered anew over a fresh build of host_build's ZSTD
+    library into tmp_path, with host_build's ZSTD constants set."""
     from parquet_tpu_torch.utils.native import get_native
 
-    get_native()  # the host library (not ZSTD's) loads from the real sources
-    src = tmp_path / "native"
-    src.mkdir()
-    (src / "zstd.cc").write_text((host_build.NATIVE / "zstd.cc").read_text())
-    monkeypatch.setattr(host_build, "NATIVE", src)
+    get_native()  # the host library (not ZSTD's) loads from the real build root
     monkeypatch.setattr(host_build, "BUILD_ROOT", tmp_path / "build")
-    # a compiler that searches no system include directory cannot find zstd.h
-    real_cxx = host_build._cxx()
-    shim = tmp_path / "cxx"
-    shim.write_text(f'#!/bin/sh\nexec {real_cxx} -nostdinc++ -nostdinc "$@"\n')
-    shim.chmod(0o755)
-    monkeypatch.setenv("CXX", str(shim))
+    for k, v in constants.items():
+        monkeypatch.setattr(host_build, k, v)
     monkeypatch.setattr(host_build, "_zstd", None)
     monkeypatch.setattr(host_build, "_zstd_error", None)
     impl = tcompress._NativeZstd()
     monkeypatch.setitem(tcompress._REGISTRY, ZSTD, impl)
+    return impl
+
+
+# ZSTD_H_235446 is zstd.h's include guard: defined, an #include <zstd.h>
+# declares nothing, so a build that compiles with it needs none of the header
+NO_HEADER = ("-DPQT_ZSTD_DECLARE", "-DZSTD_H_235446")
+NO_DEV_LINK = "libpqt-absent-dev-link.so"
+
+
+def test_the_header_guard_hides_zstd_h(monkeypatch, tmp_path):
+    # the control of the next test: without PQT_ZSTD_DECLARE the guard
+    # leaves zstd.cc nothing to compile against
+    impl = fresh_zstd(monkeypatch, tmp_path, ZSTD_DEFINES=("-DZSTD_H_235446",))
+    with pytest.raises(CompressionError, match="not registered: zstd library: build failed"):
+        impl.lib()
+
+
+@pytest.mark.parametrize("size", [0, 1, 777, 1 << 20])
+def test_declared_branch_links_the_runtime_library(monkeypatch, tmp_path, size):
+    """A host with libzstd.so.1 and neither zstd.h nor libzstd.so: the
+    declared prototypes compile, the runtime library links by its soname,
+    and the codec agrees with zstandard and reads the golden file."""
+    impl = fresh_zstd(monkeypatch, tmp_path, ZSTD_DEFINES=NO_HEADER,
+                      ZSTD_DEV_LINK=NO_DEV_LINK)
+    assert host_build._zstd_flags() == (NO_HEADER, "-l:libzstd.so.1")
+    lib = host_build.load_zstd()._name
+    assert Path(lib).is_relative_to(tmp_path / "build")
+    assert "libzstd.so.1" in subprocess.run(["ldd", lib], capture_output=True,
+                                            text=True).stdout
+    data = (np.random.default_rng(size).integers(0, 16, size, dtype=np.uint8)).tobytes()
+    ours, theirs = impl.compress(data), zstandard.ZstdCompressor().compress(data)
+    assert impl.decompress(theirs, size) == data
+    assert zstandard.ZstdDecompressor().decompress(ours, max_output_size=max(size, 1)) == data
+    bundled = ".".join(map(str, zstandard.ZSTD_VERSION))
+    if impl.version() == bundled:
+        assert ours == theirs, f"libzstd {impl.version()} = bundled {bundled}, bytes differ"
+    assert _rows(FileReader, ZSTD_FILE, device="cpu") == _rows(JReader, ZSTD_FILE)
+
+
+def test_the_build_key_covers_the_flags(monkeypatch, tmp_path):
+    fresh_zstd(monkeypatch, tmp_path)
+    default = Path(host_build.load_zstd()._name).parent
+    fresh_zstd(monkeypatch, tmp_path, ZSTD_DEFINES=NO_HEADER)
+    declared = Path(host_build.load_zstd()._name).parent
+    fresh_zstd(monkeypatch, tmp_path, ZSTD_DEFINES=NO_HEADER, ZSTD_DEV_LINK=NO_DEV_LINK)
+    runtime = Path(host_build.load_zstd()._name).parent
+    assert len({default, declared, runtime}) == 3
+    assert all(d.name.startswith("zstd-") for d in (default, declared, runtime))
+
+
+def test_no_header_and_no_runtime_library_is_the_typed_refusal(monkeypatch, tmp_path):
+    """A host with neither zstd.h nor any libzstd: the build fails, ZSTD
+    stays unregistered and every use raises the typed CompressionError
+    naming the library."""
+    fresh_zstd(monkeypatch, tmp_path, ZSTD_DEFINES=NO_HEADER, ZSTD_DEV_LINK=NO_DEV_LINK,
+               ZSTD_RUNTIME="libzstd.so.999")
     for call in (lambda: tcompress.decompress_block(b"x", ZSTD, 1),
                  lambda: tcompress.compress_block(b"x", ZSTD)):
         with pytest.raises(CompressionError) as e:
             call()
         assert "compression codec ZSTD not registered" in str(e.value)
-        assert "zstd.h not found" in str(e.value)
+        assert "libzstd.so.999 not found" in str(e.value)
     assert not tcompress.codec_supported(CompressionCodec.ZSTD)
-    with pytest.raises(host_build.HostBuildError, match="zstd.h not found"):
+    with pytest.raises(host_build.HostBuildError, match="libzstd.so.999 not found"):
         host_build.load_zstd()  # kept, not rebuilt
     with pytest.raises(CompressionError, match="not registered"):
         _rows(FileReader, ZSTD_FILE, device="cpu")
