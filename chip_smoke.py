@@ -193,9 +193,15 @@ Phases (any failure raises and the script exits non-zero):
               rows scanned and matched, every value) must equal NumPy's
               over the generator, groups 6 and 7 pruned under the filter,
               masked_agg, dict_gather and (filtered) mask_take launched;
-              group_by vendor_id and sum(trip_distance) must decline typed
-              and counted; the unfiltered query over shard=(k, 4), k =
-              0..3, must equal NumPy's over groups k and k + 4;
+              the unfiltered query over shard=(k, 4), k = 0..3, must equal
+              NumPy's over groups k and k + 4; then the host engine
+              (check_query_host): group_by vendor_id of those aggregates,
+              sum(trip_distance), and GROUP_SPEC (count, sum(fare_cents),
+              sum(trip_distance), min(zone), max(zone)) grouped by
+              vendor_id unfiltered and under F_taxi, each unit declined by
+              the device and counted host_fallback, each body equal to
+              NumPy's (counts, integer sums and the zone's min / max exact,
+              float sums within 1e-12 relative of math.fsum);
      scan     in an NCCL group of one rank (a file store): column_stats
               and distributed_column_stats over taxi's six numeric leaves
               (one stats scan's 18 one-element all_reduces timed alone and
@@ -306,8 +312,9 @@ Phases (any failure raises and the script exits non-zero):
               of run_local_query of the same request and equal to NumPy's,
               2 units pruned by statistics, masked_agg, dict_gather and
               (filtered) mask_take launched; shard=[k, 4], k = 0..3, equal
-              to NumPy's over groups k and k + 4; group_by vendor_id a
-              typed 400 device_declined, counted; (b) 8 client threads x 4
+              to NumPy's over groups k and k + 4; GROUP_SPEC grouped by
+              vendor_id a 200 byte-equal to run_local_query's body, its
+              units host_fallback; (b) 8 client threads x 4
               filtered queries under 4 X-Tenant values, every body equal
               to (a)'s, serve_requests_total with status 200 up by exactly
               32, 0 in flight after; requests/s, median and largest
@@ -337,7 +344,9 @@ Phases (any failure raises and the script exits non-zero):
               F_taxi, scattered over taxi's units, each body byte-equal to
               the direct daemon's and to NumPy's, masked_agg, dict_gather
               and (filtered) mask_take launched by the replicas,
-              mesh_counts() in scatter mode; /v1/scan jsonl of trip_id,
+              mesh_counts() in scatter mode; GROUP_SPEC grouped by
+              vendor_id through the router byte-equal to the direct
+              daemon's body and run_local_query's; /v1/scan jsonl of trip_id,
               fare_cents and zone under F_taxi narrowed to the trip ids
               around group 1's start (2 units) byte-equal to the direct
               daemon's; /v1/plan equal; (b) a FlakyReplica with
@@ -367,8 +376,9 @@ Phases (any failure raises and the script exits non-zero):
               every row; (b) `profile --device --filter F_taxi`: 996,784
               rows matched and compacted, masked_agg, predicate_mask and
               mask_take in the trace; (c) `scan --aggregate` of the query
-              phase's aggregates under F_taxi, byte-equal to
-              run_local_query's body in this process; (d) `scan` of taxi
+              phase's aggregates under F_taxi, and of GROUP_SPEC with
+              --group-by vendor_id, each byte-equal to run_local_query's
+              body in this process; (d) `scan` of taxi
               (DATASET_COLUMNS) delivering every row to the card; (e)
               `serve --port 0` and `route --replica` over it, their
               /v1/query bodies equal to (c)'s, SIGTERM drained; (f)
@@ -3482,30 +3492,146 @@ def run_query(path, filters, device=None, shard=None):
     return run_local_query(q.paths, q, device=device)
 
 
-def check_query_declines(path, device=None) -> None:
-    """group_by and a float sum decline, typed and counted."""
+# The host engine's query, the reference's headline "how many rows match,
+# grouped by X": the device declines a group-by unit and the host engine
+# answers it (an integer sum, a float sum and a string min / max a group)
+GROUP_SPEC = ["count", ["sum", "fare_cents"], ["sum", "trip_distance"], ["min", "zone"],
+              ["max", "zone"]]
+
+
+def group_request(path, filters, spec=None, group_by=("vendor_id",)):
+    from parquet_tpu_torch.serve.protocol import aggregates_from_spec
+
+    return query_request(path, filters, aggregates_from_spec(GROUP_SPEC if spec is None else spec),
+                         group_by=group_by)
+
+
+def group_want(specs, keep, units: int, query_aggs: bool = False) -> dict:
+    """NumPy's body of a vendor_id group-by of GROUP_SPEC (or, with
+    query_aggs, of query_aggregates()) under `keep`: counts, integer sums and the
+    zone's min / max exact (the zone strings order as their dictionary
+    indices), float sums as math.fsum over the group's values (the bits are
+    the tests' to hold against pyarrow)."""
+    import math
+
+    s = {sp.name: sp for sp in specs}
+    vendor = s["vendor_id"].dictionary[s["vendor_id"].indices]
+    fare = s["fare_cents"].values.astype(np.int64)
+    dist = s["trip_distance"].dictionary[s["trip_distance"].indices]
+    zone = s["zone"].indices
+    zones = s["zone"].dictionary
+    groups = []
+    for v in np.unique(vendor[keep]):
+        sel = keep & (vendor == v)
+        if not query_aggs:
+            aggs = {"count": int(sel.sum()), "sum(fare_cents)": int(fare[sel].sum()),
+                    "sum(trip_distance)": math.fsum(dist[sel].tolist()),
+                    "min(zone)": zones[int(zone[sel].min())].decode(),
+                    "max(zone)": zones[int(zone[sel].max())].decode()}
+        else:
+            aggs = query_want(specs, sel, units)["result"]
+        groups.append({"key": [int(v)], "aggregates": aggs})
+    return {"group_by": ["vendor_id"], "aggregates": list(groups[0]["aggregates"]) if groups
+            else [], "units": units, "rows_scanned": units * RG_ROWS,
+            "rows_matched": int(keep.sum()), "group_count": len(groups), "groups": groups}
+
+
+def group_matches(got: dict, want: dict) -> bool:
+    """Equal, but for float sums within 1e-12 relative of math.fsum's."""
+    if {k: v for k, v in got.items() if k != "groups"} != {
+            k: v for k, v in want.items() if k != "groups"}:
+        return False
+    for g, w in zip(got["groups"], want["groups"]):
+        if g["key"] != w["key"] or g["aggregates"].keys() != w["aggregates"].keys():
+            return False
+        for k, x in w["aggregates"].items():
+            y = g["aggregates"][k]
+            if isinstance(x, float):
+                if not isinstance(y, float) or abs(y - x) > 1e-12 * abs(x):
+                    return False
+            elif y != x:
+                return False
+    return True
+
+
+def group_body(path, bodies=None, filtered=False) -> bytes:
+    """render_query_body of run_local_query's GROUP_SPEC group-by over taxi
+    (unfiltered; the filtered one is the query phase's only): the query
+    phase's `bodies` where given, else run here."""
+    if bodies is not None:
+        return bodies["filtered" if filtered else "all"]
+    from parquet_tpu_torch.serve.aggregate import render_query_body, run_local_query
+
+    q = group_request(path, None)
+    return render_query_body(run_local_query(q.paths, q, device=None))
+
+
+def check_query_host(path, specs, f_taxi, keep, launches: dict) -> dict:
+    """The host engine on the query path: the device declines these units
+    (group_by, a float sum) and run_local_query answers them on the host
+    engine, counted host_fallback: group_by vendor_id with query_aggregates()
+    and with GROUP_SPEC, unfiltered and under F_taxi, and a global
+    sum(trip_distance), each equal to NumPy's (group_matches). Returns each
+    run's seconds and the rendered GROUP_SPEC bodies."""
+    from parquet_tpu_torch.kernels import device_ops as ops
     from parquet_tpu_torch.serve.aggregate import (
         query_device_counts,
+        render_query_body,
         reset_query_device_counts,
         run_local_query,
     )
-    from parquet_tpu_torch.serve.protocol import ServeError, aggregates_from_spec
+    from parquet_tpu_torch.serve.protocol import aggregates_from_spec
 
-    for label, q in (("group_by vendor_id", query_request(path, None, group_by=("vendor_id",))),
-                     ("sum(trip_distance)", query_request(
-                         path, None, aggregates_from_spec([["sum", "trip_distance"]])))):
+    n_rows = ROW_GROUPS * RG_ROWS
+    every = np.ones(n_rows, dtype=bool)
+    dist_spec = [["sum", "trip_distance"]]
+    runs = {
+        "group_by vendor_id": (query_request(path, None, group_by=("vendor_id",)), every,
+                               ROW_GROUPS, "aggs"),
+        "sum(trip_distance)": (query_request(path, None, aggregates_from_spec(dist_spec)),
+                               every, ROW_GROUPS, "dist"),
+        "group_by vendor_id GROUP_SPEC": (group_request(path, None), every, ROW_GROUPS, None),
+        "group_by vendor_id GROUP_SPEC filtered": (group_request(path, f_taxi), keep,
+                                                   ROW_GROUPS - 2, None),
+    }
+    out: dict = {"bodies": {}}
+    for label, (q, sel, units, kind) in runs.items():
+        ops.reset_launch_counts()
         reset_query_device_counts()
-        try:
-            run_local_query(q.paths, q, device=device)
-        except ServeError as e:
-            if e.code != "device_declined":
-                raise
-            got = query_device_counts()
-            if got != {"declined": 1}:
-                raise AssertionError(f"{label}: query counts {got}") from None
-            log(f"[query:taxi] {label}: declined, typed ({e.status} {e.code}) and counted {got}")
-            continue
-        raise AssertionError(f"{label} did not decline")
+        t = time.perf_counter()
+        body = run_local_query(q.paths, q, device=None)
+        secs = time.perf_counter() - t
+        qc = query_device_counts()
+        launches[f"taxi query {label}"] = kernel_counts()
+        if kind == "dist":
+            import math
+
+            d = next(sp for sp in specs if sp.name == "trip_distance")
+            want = {"group_by": [], "aggregates": ["sum(trip_distance)"], "units": units,
+                    "rows_scanned": units * RG_ROWS, "rows_matched": n_rows,
+                    "result": {"sum(trip_distance)": math.fsum(
+                        d.dictionary[d.indices].tolist())}}
+            got_v, want_v = body["result"]["sum(trip_distance)"], want["result"][
+                "sum(trip_distance)"]
+            ok = ({k: v for k, v in body.items() if k != "result"}
+                  == {k: v for k, v in want.items() if k != "result"}
+                  and abs(got_v - want_v) <= 1e-12 * abs(want_v))
+        else:
+            want = group_want(specs, sel, units, query_aggs=kind == "aggs")
+            ok = group_matches(body, want)
+        log(f"[query:taxi] {label}: {secs:.2f} s on the host engine, units {body['units']}, "
+            f"rows matched {body['rows_matched']}; query counts {qc}")
+        if not ok:
+            raise AssertionError(f"[query:taxi] {label}: body {body} != NumPy's {want}")
+        if qc != {"host_fallback": units}:
+            raise AssertionError(f"[query:taxi] {label}: query counts {qc}, expected {units} "
+                                 "host_fallback units")
+        out[f"{label} s"] = secs
+        if kind is None:
+            out["bodies"]["filtered" if q.filters else "all"] = render_query_body(body)
+    log("[query:taxi] group_by vendor_id and sum(trip_distance) equal NumPy's (counts, integer "
+        "sums and the zone's min / max exact, float sums within 1e-12 relative of math.fsum)")
+    return out
 
 
 def index_page_grid(path, column: str):
@@ -5434,7 +5560,8 @@ def ok_count(counts: dict) -> int:
                if k.startswith("serve_requests_total{") and 'status="200"' in k)
 
 
-def check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, card: str) -> dict:
+def check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, card: str,
+                group_bodies=None) -> dict:
     """The serve phase: the port's ScanServer(ServeConfig(root=the smoke
     directory, port=0, device=dev)) in this process, driven over HTTP on
     loopback. (a) POST /v1/query with query_aggregates(), unfiltered and
@@ -5442,8 +5569,11 @@ def check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, c
     run_local_query of the same request and equal to NumPy's (query_want),
     POST /v1/plan of the filtered request pruning 2 units by statistics,
     masked_agg, dict_gather and (filtered) mask_take launched; shard=[k, 4]
-    for k = 0..3 equal to NumPy's over groups k and k + 4; group_by
-    vendor_id a typed 400 device_declined, counted. (b) SERVE_CLIENTS
+    for k = 0..3 equal to NumPy's over groups k and k + 4; GROUP_SPEC
+    grouped by vendor_id (units the device declines, answered by the host
+    engine and counted host_fallback) a 200 whose body is byte-equal to
+    render_query_body of run_local_query's (`group_bodies`, the query
+    phase's, or run here) and equal to NumPy's. (b) SERVE_CLIENTS
     threads send SERVE_PER_CLIENT filtered queries each under
     SERVE_TENANTS X-Tenant values: every body byte-equal to (a)'s,
     serve_requests_total with status 200 up by exactly their number, the
@@ -5566,17 +5696,25 @@ def check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, c
         if query_device_counts() != {"device": ROW_GROUPS} or counts["masked_agg"] <= 0:
             raise AssertionError(f"[serve:a] shards: query counts {query_device_counts()}, "
                                  f"masked_agg {counts['masked_agg']}")
+        want_group = group_body(taxi_path, group_bodies)
+        ops.reset_launch_counts()
         reset_query_device_counts()
+        t = time.perf_counter()
         status, _h, raw = serve_request(server, "POST", "/v1/query", {
-            "paths": [name], "aggregates": ["count"], "group_by": ["vendor_id"]})
+            "paths": [name], "aggregates": GROUP_SPEC, "group_by": ["vendor_id"]})
+        secs = time.perf_counter() - t
         qc = query_device_counts()
-        code = json.loads(raw)["error"]["code"] if status != 200 else None
-        if (status, code) != (400, "device_declined") or qc.get("declined", 0) < 1 or qc.get(
-                "device"):
-            raise AssertionError(f"[serve:a] group_by vendor_id: {status} {raw[:200]!r}, {qc}")
+        launches["serve query group_by"] = kernel_counts()
+        if (status != 200 or raw != want_group or qc != {"host_fallback": ROW_GROUPS}
+                or not group_matches(json.loads(raw), group_want(
+                    taxi_specs, np.ones(n_rows, bool), ROW_GROUPS))):
+            raise AssertionError(f"[serve:a] group_by vendor_id: {status} {raw[:300]!r}, "
+                                 f"run_local_query's {want_group[:300]!r}, counts {qc}")
+        out["group_by s"] = secs
         log(f"[serve:a] /v1/plan of the filtered query prunes {plan['units_pruned_stats']} units by "
             f"statistics; shard [k, 4], k = 0..3, equal NumPy's over groups k and k + 4; "
-            f"group_by vendor_id: {status} {code}, counted {qc}")
+            f"group_by vendor_id ({json.dumps(GROUP_SPEC)}): {status} in {secs:.3f} s, "
+            f"byte-equal to run_local_query's body and equal to NumPy's, counted {qc} | {card}")
         idle(server, "(a)")
         # (b) concurrent clients, against one client and run_local_query
         want_raw = bodies["query filtered"]
@@ -5847,7 +5985,8 @@ def mesh_kill_order(router, urls, sig: str, units: int) -> list:
     return sorted(urls, key=lambda u: -owned[u])
 
 
-def check_mesh(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, card: str) -> dict:
+def check_mesh(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, card: str,
+               group_bodies=None) -> dict:
     """The mesh-and-chaos phase, in this process over loopback. (a) Three
     replica ScanServers(device=dev) over the smoke directory, a direct
     daemon, and a MeshRouter over the replicas: /v1/query of
@@ -5857,7 +5996,10 @@ def check_mesh(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, ca
     MESH_SCAN_SPAN trip ids either side of group 1's start (2 units)
     byte-equal to the direct daemon's, its lines NumPy's count; /v1/plan
     equal; mesh_counts() in scatter mode; masked_agg, dict_gather and
-    (filtered) mask_take launched by the replicas. (b) A FlakyReplica with
+    (filtered) mask_take launched by the replicas; GROUP_SPEC grouped by
+    vendor_id through the router byte-equal to the direct daemon's body and
+    to run_local_query's (`group_bodies`), its units host_fallback on the
+    replicas. (b) A FlakyReplica with
     error_rate=0.2, then one with short_rate=0.5, in front of one replica:
     queries until the proxy has relayed MESH_FAULT_REQUESTS backend
     requests, every body byte-equal to (a)'s, faults injected and
@@ -5974,6 +6116,27 @@ def check_mesh(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, ca
                 f"rows/s, {units} units scattered, byte-equal to the direct daemon's body and equal "
                 f"to NumPy's; units {qc}; launches "
                 + ", ".join(f"{k}={v}" for k, v in counts.items() if isinstance(v, int) and v))
+        want_group = group_body(taxi_path, group_bodies)
+        gbody = {"paths": [name], "aggregates": GROUP_SPEC, "group_by": ["vendor_id"]}
+        direct_group = post(direct, "/v1/query", gbody)
+        reset_query_device_counts()
+        reset_mesh_counts()
+        t = time.perf_counter()
+        raw = post(router, "/v1/query", gbody)
+        secs = time.perf_counter() - t
+        qc = query_device_counts()
+        mc = {k: v for k, v in mesh_counts().items() if "hedge" in k or "retries" in k}
+        if raw != direct_group or raw != want_group:
+            raise AssertionError(f"[mesh:a] group_by vendor_id: router {raw[:300]!r}, direct "
+                                 f"{direct_group[:300]!r}, run_local_query {want_group[:300]!r}")
+        # a unit past its replica's p95 is hedged: its duplicate runs too
+        if set(qc) != {"host_fallback"} or qc["host_fallback"] < ROW_GROUPS:
+            raise AssertionError(f"[mesh:a] group_by vendor_id: query counts {qc}, mesh {mc}")
+        out["group_by s"] = secs
+        log(f"[mesh:a] routed /v1/query group_by vendor_id ({json.dumps(GROUP_SPEC)}): "
+            f"{secs:.3f} s (the direct daemon's body in the step before), {ROW_GROUPS} units "
+            f"scattered, byte-equal to the direct daemon's body and to run_local_query's; units "
+            f"{qc} (hedged duplicates included), mesh counts {mc}")
         lo = 10**9 + RG_ROWS - MESH_SCAN_SPAN
         hi = 10**9 + RG_ROWS + MESH_SCAN_SPAN
         scan_flt = [conj + [["trip_id", ">=", lo], ["trip_id", "<", hi]] for conj in flt]
@@ -6708,7 +6871,7 @@ def stop_tool(proc, what: str) -> tuple:
 
 
 def check_tools(paths: dict, taxi_specs, f_taxi, taxi_keep, host_group0: dict, taxi_schema,
-                dev, launches: dict, card: str) -> dict:
+                dev, launches: dict, card: str, group_bodies=None) -> dict:
     """The tools phase: parquet-tool, csv2parquet and the examples_torch/
     scripts in child processes on the card, none with --cpu, each child's
     launches read back through PQT_LAUNCH_COUNTS and added, with this
@@ -6722,7 +6885,9 @@ def check_tools(paths: dict, taxi_specs, f_taxi, taxi_keep, host_group0: dict, t
     compacted, masked_agg, predicate_mask and mask_take in the trace, the
     device mask engine on every admitted group. (c) `scan --aggregate` of
     query_aggregates() with `--filters` F_taxi: stdout byte-equal to
-    render_query_body(run_local_query(...)) in this process. (d) `scan`
+    render_query_body(run_local_query(...)) in this process, and `scan
+    --aggregate` of GROUP_SPEC with `--group-by vendor_id` (the host
+    engine's units) byte-equal to run_local_query's (`group_bodies`). (d) `scan`
     of taxi's DATASET_COLUMNS at TOOLS_SCAN_BATCH rows a batch: every row
     delivered, the wait share printed. (e) `serve --port 0 --root` the
     smoke directory and `route --replica` its URL, started at the phase's
@@ -6813,7 +6978,7 @@ def check_tools(paths: dict, taxi_specs, f_taxi, taxi_keep, host_group0: dict, t
         traces = {label: work / f"{label.replace(' ', '-')}.trace.json"
                   for label in (*profiles, "profile --device")}
         t = time.perf_counter()
-        with ThreadPoolExecutor(len(profiles) + 2) as pool:
+        with ThreadPoolExecutor(len(profiles) + 3) as pool:
             futs = {label: pool.submit(run_tool, ["profile", str(path), "-o",
                                                   str(traces[label]), "--metrics"],
                                        work, label.replace(" ", "-"))
@@ -6824,6 +6989,9 @@ def check_tools(paths: dict, taxi_specs, f_taxi, taxi_keep, host_group0: dict, t
             futs["scan --aggregate"] = pool.submit(
                 run_tool, ["scan", str(taxi_path), "--aggregate", json.dumps(spec),
                            "--filters", flt], work, "scan-aggregate")
+            futs["scan --aggregate --group-by"] = pool.submit(
+                run_tool, ["scan", str(taxi_path), "--aggregate", json.dumps(GROUP_SPEC),
+                           "--group-by", "vendor_id"], work, "scan-aggregate-group-by")
             res = {k: f.result() for k, f in futs.items()}
         out["together_abc_s"] = time.perf_counter() - t
         for label, (rc, so, se, _secs, c) in res.items():
@@ -6891,6 +7059,13 @@ def check_tools(paths: dict, taxi_specs, f_taxi, taxi_keep, host_group0: dict, t
                                  f"run_local_query renders {want_body!r}")
         if json.loads(so)["rows_matched"] != keep or c["masked_agg"] <= 0:
             raise AssertionError(f"[tools:c] {so[:300]} launches {c}")
+        rc, so, se, secs, c = res["scan --aggregate --group-by"]
+        want_group = group_body(taxi_path, group_bodies)
+        step("scan --aggregate --group-by vendor_id", secs, f" (run beside (a) and (b)); "
+             f"{len(so)} bytes, byte-equal to run_local_query's: {so.encode() == want_group}")
+        if so.encode() != want_group:
+            raise AssertionError(f"[tools:c] scan --aggregate --group-by printed {so[:300]!r}, "
+                                 f"run_local_query renders {want_group[:300]!r}")
 
         # (d) scan: CUDA delivery of every row
         rc, so, se, secs, c = run_tool(["scan", str(taxi_path), "--columns",
@@ -7511,7 +7686,7 @@ def main(argv=None) -> int:
     log(f"[query:taxi shards] run_local_query(shard=(k, 4)), k = 0..3: each body equals NumPy's "
         f"over groups k and k + 4; launches "
         + ", ".join(f"{k}={v}" for k, v in counts.items() if v and not isinstance(v, dict)))
-    check_query_declines(taxi_path)
+    query_host = check_query_host(taxi_path, taxi_specs, f_taxi, taxi_keep, launches)
     scan = check_scans(taxi_path, taxi_specs, dev, launches)
     dataset_rates = check_dataset(taxi_path, taxi_specs, dev, smi)
     rows_phase = check_rows(taxi_path, sessions_path, sessions_specs, taxi_specs, f_taxi,
@@ -7519,8 +7694,10 @@ def main(argv=None) -> int:
     io_phase = check_io(paths, dev, launches, smi)
     remote_phase = check_remote_lake(paths, taxi_schema, dev_groups, dev_file, dev, launches, smi)
     obs_phase = {"read": check_obs_read(taxi_path, taxi_specs, dev, launches, smi)}
-    serve_phase = check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches, smi)
-    mesh_phase = check_mesh(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches, smi)
+    serve_phase = check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches, smi,
+                              query_host["bodies"])
+    mesh_phase = check_mesh(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches, smi,
+                            query_host["bodies"])
     obs_phase["serve"] = serve_phase.pop("obs")
     obs_phase["mesh"] = mesh_phase.pop("obs")
     obs_phase["seconds"] = sum(obs_phase[k]["phase_s"] for k in ("read", "serve", "mesh"))
@@ -7530,7 +7707,7 @@ def main(argv=None) -> int:
         f"{write_options['gzip_cut']['groups']} groups {write_options['gzip_cut']['seconds']:.1f} s"
         f" | {smi}")
     tools_phase = check_tools(paths, taxi_specs, f_taxi, taxi_keep, host_groups[0], taxi_schema,
-                              dev, launches, smi)
+                              dev, launches, smi, query_host["bodies"])
     for k in rows:
         rows[k]["launches"] = sum(c[k] for c in launches.values())
         rows[k]["launches_by_path"] = {label: c[k] for label, c in launches.items()}

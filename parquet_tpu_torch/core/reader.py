@@ -1255,6 +1255,40 @@ class FileReader:
             _bump("device_filter_engaged")
             return mask
 
+    def _host_unit_table(self, i: int, columns, filters):
+        """One query unit's rows on the host (core/unit_table.HostUnitTable):
+        row group i's rows that `filters` keeps, for the `columns` prefixes,
+        as the reference's to_arrow(row_groups=[i], columns=, filters=)
+        holds them. One host decode covers the projection and the filter
+        leaves. Raises VecFilterError for a predicate the vec mask declines
+        (the reference evaluates those with pyarrow compute)."""
+        from .unit_table import HostUnitTable
+
+        tops = [c.split(".")[0] if isinstance(c, str) else c[0] for c in columns]
+        n = int(self.row_group(i).num_rows or 0)
+        dnf = None if filters is None else normalize_dnf(self.schema, filters)
+        vacuous = not dnf or any(not conj for conj in dnf)
+        if not vacuous and not dnf_group_may_match(
+            self.row_group(i), dnf, self._bloom_excludes, i
+        ):
+            return HostUnitTable(self.schema, tops, {}, 0)
+        sel = resolve_column_prefixes(self.schema, columns)
+        fpaths = set() if vacuous else {e[0] for conj in dnf for e in conj}
+        chunks = self._read_row_group(i, sorted(sel | fpaths), pack=False)
+        if not chunks:
+            return HostUnitTable(self.schema, tops, {}, 0)  # quarantined
+        mask = None
+        if not vacuous:
+            mask = dnf_mask(chunks, dnf, n, null_mode="arrow")
+            kept = int(mask.sum())
+            if kept == 0:
+                return HostUnitTable(self.schema, tops, {}, 0)
+            if kept == n:
+                mask = None
+            n = kept
+        proj = {p: cd for p, cd in chunks.items() if p in sel}
+        return HostUnitTable(self.schema, tops, proj, n, mask)
+
     def _host_row_mask(self, i, normalized, n, null_mode="row"):
         """Host-engine fallback mask: decode the filter columns on the host
         and run the vec mask pipeline (np bool[n])."""

@@ -17,7 +17,8 @@ into an incremental byte stream (execute_stream) or one query body
     unit reads through FileReader.iter_rows(row_groups=, filters=) (exact
     residual filtering, projection applied at the source through the
     shared BlockCache); a query unit runs serve/query_device.
-    device_unit_partial on the daemon's torch.device;
+    device_unit_partial on the daemon's torch.device, or the host engine
+    where the device declines it;
   * cancellation is cooperative: the deadline and the abort flag are
     checked between units and every few thousand rows inside one, and
     result waits are bounded by the deadline — an expired or disconnected
@@ -34,11 +35,11 @@ Every unit task goes through obs.pool.instrumented_submit (serve.counts.
 submit: the request's trace, log and cost context ride along), runs under
 obs.cost.unit_clock (its thread CPU billed to the tenant) and a
 serve.execute / serve.aggregate trace stage; the merge and each streamed
-chunk are serve.merge / serve.stream stages. The reference's host query
-engine is pyarrow (to_arrow + unit_partial) and is not ported, so a unit
-outside the device envelope raises ServeError(400, "device_declined"),
-counted in serve.aggregate.query_device_counts() as run_local_query
-counts it.
+chunk are serve.merge / serve.stream stages. A query unit runs on the
+reference's engine ladder (serve/aggregate.run_unit): the device first, and
+a unit outside the device envelope on the host engine (the unit table and
+unit_partial), counted in serve.aggregate.query_device_counts() as
+run_local_query counts it ("device", "host_fallback").
 """
 
 from __future__ import annotations
@@ -274,18 +275,18 @@ def execute_query(
     between units exactly like streamed scans.
 
     `device` is the torch.device the units decode to (the daemon's
-    ServeConfig.device, resolved; None: CUDA). A unit outside the device
-    envelope raises ServeError(400, "device_declined"), counted "declined"
-    in query_device_counts(); each unit the device answers counts
-    "device"."""
+    ServeConfig.device, resolved; None: CUDA). Each unit tries the device
+    first (counted "device" in query_device_counts()); a unit outside the
+    device envelope falls back, typed and counted "host_fallback", to the
+    host engine (serve/aggregate.host_unit_partial), as the reference's
+    executor does."""
     from .aggregate import (
         QueryState,
-        _bump,
         query_columns,
         result_dict,
+        run_unit,
         unit_count_partial,
     )
-    from .query_device import DeviceQueryError, device_unit_partial
 
     check = _Check(deadline)
     if window < 1:
@@ -308,16 +309,9 @@ def execute_query(
         with unit_clock(), stage("serve.aggregate"):
             reader = _open_reader(session, planned, u, device)
             try:
-                part = device_unit_partial(
-                    reader, u.row_group, query, planned.request.filters
-                )
-            except DeviceQueryError as e:
-                _bump("declined")
-                raise ServeError(400, "device_declined", str(e)) from None
+                return run_unit(reader, u.row_group, query, planned.request.filters)
             finally:
                 _close_unit_reader(session, reader)
-            _bump("device")
-            return part
 
     gen = _pipelined(units, run, window, check)
     try:

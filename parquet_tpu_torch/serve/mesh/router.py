@@ -52,6 +52,14 @@ replicas run the query units on theirs. What differs from the reference:
             so it merges in the uint64 domain from then on and answers what
             one daemon answers. The first case cannot be told apart without
             a type on the wire, and stays the reference's.
+            Floats, strings, booleans and mixed int / float pairs merge as
+            pyarrow infers them, so routed group-by and float bodies equal
+            the direct daemon's. A DECIMAL sum travels as its str(): the
+            reference's merge of two strings has no sum kernel (a 500
+            internal); the port sums them as decimals, exactly, and answers
+            what one daemon answers. Temporal min / max travel as strings
+            too and compare as strings, by their bytes, as the reference's
+            do.
   formats   format="arrow-ipc" scans (the reference re-frames the unit
             streams with pyarrow) answer the port daemon's typed 501
             not_ported before admission.

@@ -30,7 +30,9 @@ group_by) count/sum/min/max over flat integer leaves (signed and unsigned,
 compared and summed in their bit-pattern view domain), count over anything
 flat. Everything else (group_by, float sums, decimal and temporal logical
 domains, repeated columns, columns with no device value form) raises
-DeviceQueryError. Integer sums wrap in 64-bit two's complement exactly like
+DeviceQueryError, and the unit reruns on the host engine
+(serve/aggregate.run_unit), counted "host_fallback" as the reference
+counts it. Integer sums wrap in 64-bit two's complement exactly like
 pyarrow's unchecked int64/uint64 kernels, min/max over zero matching rows is
 None, count skips nulls.
 """

@@ -78,9 +78,10 @@ needs pyarrow), refused before admission.
 ServeConfig.device takes None, a string or a torch.device. None means
 CUDA, by the port's rule, and a daemon without CUDA and without device=
 raises at construction; device="cpu" runs the kernels' plain versions.
-(The reference's None means its pyarrow host engine, which the port does
-not have: a query unit outside the device envelope answers a typed 400
-device_declined, counted in query_device_counts().)
+(The reference's None means its pyarrow host engine alone. The port's
+query units run on the reference's ladder, the device first and the host
+engine for a unit outside the device envelope, counted in
+query_device_counts().)
 """
 
 from __future__ import annotations
@@ -188,8 +189,8 @@ class ServeConfig:
     # the torch.device POST /v1/query units decode and reduce on: None is
     # CUDA (construction raises without it), or a string / torch.device
     # ("cpu" runs the kernels' plain versions). The reference's None is
-    # its pyarrow host engine, which the port does not have: a unit outside
-    # the device envelope answers a typed 400 device_declined.
+    # its host engine alone; a port unit outside the device envelope runs
+    # on the host engine (host_fallback).
     device: object = None
     # a PRE-BUILT BlockCache/TieredCache (caller-owned, survives close()):
     # how a daemon and co-resident dataset workers pool ONE tier budget.

@@ -1148,7 +1148,7 @@ def _profile_device_query(args, dev: str) -> int:
                         scanned += n_scan
                         matched += n_match
                 except DeviceQueryError:
-                    agg_engine = "declined (outside the device envelope)"
+                    agg_engine = "host (device declined)"
             with record_function("query.batches"):
                 try:
                     for b in r.iter_device_batches(

@@ -239,12 +239,13 @@ Key families (all under the `parquet_tpu_` prefix in exposition):
   query_device_units_total{engine=} /v1/query row-group units by
                                     engine: "device" = partial aggregate
                                     reduced in device memory
-                                    (serve/query_device), "declined" = a
-                                    shape outside the device envelope
-                                    (float sums, group_by, decimals),
-                                    answered as a typed 400
-                                    (serve.aggregate.query_device_counts()
-                                    is its view)
+                                    (serve/query_device),
+                                    "host_fallback" = a shape outside the
+                                    device envelope (group_by, float,
+                                    decimal, bool, string and temporal
+                                    aggregates) answered by the host
+                                    engine (serve.aggregate.
+                                    query_device_counts() is its view)
   mesh_requests_total{endpoint=,mode=}  requests the mesh router routed,
                                     "scatter" = fanned out per plan unit,
                                     "passthrough" = forwarded whole to

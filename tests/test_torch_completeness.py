@@ -33,7 +33,6 @@ _DEVICE_OPS = ("bitpack_encode", "bss_transpose", "delta_block_encode",
 ALLOWED = {
     ("core/arrow_nested.py", None): ("pyarrow cut", None),
     ("core/reader.py", "FileReader.to_arrow"): ("pyarrow cut", None),
-    ("serve/aggregate.py", "unit_partial"): ("pyarrow cut (the pyarrow query engine)", None),
     ("parallel/mesh.py", "make_decode_mesh"): ("JAX-only: builds a jax.sharding.Mesh", None),
     ("parallel/__init__.py", "make_decode_mesh"): ("JAX-only: builds a jax.sharding.Mesh", None),
     ("utils/trace.py", "jax_profile"): ("JAX-only: jax.profiler.trace; renamed",

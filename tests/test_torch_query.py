@@ -10,7 +10,8 @@
     each unit's device_unit_partial against the reference's, over a corpus
     with signed INT32/INT64, UINT_8/UINT_32/UINT_64, nullable and
     dictionary columns, filtered and not;
-  * the declines (DeviceQueryError) against the reference's.
+  * the declines (DeviceQueryError) against the reference's, and the host
+    engine's answers to the declined units against the reference's bodies.
 
 Tolerance: exact everywhere. The float sums compare on values whose sums are
 exact in any order (small multiples of 1/4): the kernel accumulates in
@@ -361,6 +362,11 @@ def test_query_units_match_jax_device_units(corpus, body):
 
 @pytest.mark.parametrize("body", DECLINES, ids=lambda b: json.dumps(b))
 def test_declines_match_jax(corpus, body):
+    """Both packages' devices decline these units (DeviceQueryError); the
+    port's run_local_query then answers them on its host engine, counted
+    host_fallback, with the reference's body byte for byte. A dotted name
+    through a list is the reference's raw pyarrow error, which its daemon
+    answers as a 500 internal, as the port raises it."""
     q, jq = _requests(corpus, body)
     with JaxReader(corpus[0]) as jr:
         with pytest.raises(jqd.DeviceQueryError):
@@ -369,10 +375,26 @@ def test_declines_match_jax(corpus, body):
         with pytest.raises(qd.DeviceQueryError):
             qd.device_unit_partial(r, 0, q, q.filters)
     agg.reset_query_device_counts()
-    with pytest.raises(ServeError) as e:
-        agg.run_local_query(q.paths, q, device="cpu")
-    assert (e.value.status, e.value.code) == (400, "device_declined")
-    assert agg.query_device_counts() == {"declined": 1}
+    if body["aggregates"][0] == _a("count", "tags.list.element"):
+        with pytest.raises(NotImplementedError):
+            jagg.run_local_query(jq.paths, jq)
+        with pytest.raises(ServeError) as e:
+            agg.run_local_query(q.paths, q, device="cpu")
+        assert (e.value.status, e.value.code) == (500, "internal")
+        assert agg.query_device_counts() == {"host_fallback": 1}
+        return
+    if body["aggregates"] == [_a("sum", "name")]:
+        with pytest.raises(jagg.ServeError) as je:
+            jagg.run_local_query(jq.paths, jq)
+        with pytest.raises(ServeError) as e:
+            agg.run_local_query(q.paths, q, device="cpu")
+        assert (e.value.status, e.value.code) == (je.value.status, je.value.code) == (
+            400, "bad_aggregates")
+        return
+    got = agg.run_local_query(q.paths, q, device="cpu")
+    assert agg.render_query_body(got) == jagg.render_query_body(
+        jagg.run_local_query(jq.paths, jq))
+    assert agg.query_device_counts() == {"host_fallback": got["units"]}
 
 
 def test_shard_raises_typed(corpus):

@@ -7,8 +7,8 @@ device="cpu" (the kernels' plain versions). Pinned:
     and globs; plans: /v1/plan bodies equal, GET and POST;
   * queries inside the device envelope: /v1/query bodies byte-equal to the
     reference run with device=None (its pyarrow engine) and with
-    device=True (its jax engine on the CPU); outside it the port answers a
-    typed 400 device_declined, counted (a known difference);
+    device=True (its jax engine on the CPU); outside it the port's host
+    engine answers, counted host_fallback, byte-equal to the reference's;
   * typed errors: equal status and code for bad JSON, an unknown column, a
     path outside the root, a missing file, a body over the limit (413
     before buffering), an unknown route; keep-alive after an error with an
@@ -274,15 +274,15 @@ def test_query_bodies_equal_the_reference(pair, body):
     {"paths": "a.parquet", "aggregates": [["min", "name"]], "filters": [["id", "<", 5]]},
 ], ids=["group_by", "float_sum", "string_min"])
 def test_query_outside_the_envelope_is_declined(pair, body):
-    """A known difference: the reference answers these units on its pyarrow
-    engine, the port (no host engine) with a typed 400, counted."""
-    port, ref, _ = pair
+    """The device declines these units, and the daemon answers them on its
+    host engine (counted host_fallback), byte-equal to the reference's
+    pyarrow engine."""
     reset_query_device_counts()
-    status, _h, raw = request(port, "POST", "/v1/query", body)
-    assert (status, error_code(raw)) == (400, "device_declined")
-    got = query_device_counts()
-    assert got.get("declined", 0) >= 1 and not got.get("device")
-    assert request(ref, "POST", "/v1/query", body)[0] == 200
+    status, raw = same(pair, "POST", "/v1/query", body)
+    assert status == 200
+    units = json.loads(raw)["units"]
+    assert units >= 1
+    assert query_device_counts() == {"host_fallback": units}
 
 
 # -- typed errors ----------------------------------------------------------------
@@ -729,8 +729,10 @@ def test_metrics_are_counters_in_the_classic_text_format(corpus, daemons):
     assert request(s, "POST", "/v1/scan", {"paths": "a.parquet", "limit": 3})[0] == 200
     assert request(s, "POST", "/v1/query", {"paths": "a.parquet",
                                             "aggregates": [["sum", "id"]]})[0] == 200
-    assert request(s, "POST", "/v1/query", {"paths": "a.parquet", "aggregates": ["count"],
-                                            "group_by": ["k"]})[0] == 400
+    # the device declines a string sum and the host engine refuses it: a
+    # 400 bad_aggregates, its unit counted host_fallback
+    assert request(s, "POST", "/v1/query", {"paths": "a.parquet",
+                                            "aggregates": [["sum", "name"]]})[0] == 400
     wait_until("the requests counted", lambda: sum(
         v for k, v in serve_counts().items() if k.startswith("serve_requests_total")) == 3)
     for accept in formats:
@@ -745,7 +747,7 @@ def test_metrics_are_counters_in_the_classic_text_format(corpus, daemons):
         assert grew("serve_scan_bytes_total") > 0
         assert grew("serve_aggregate_requests_total") == 1
         assert grew('query_device_units_total{engine="device"}') == 3
-        assert grew('query_device_units_total{engine="declined"}') >= 1
+        assert grew('query_device_units_total{engine="host_fallback"}') >= 1
         types = {ln.split()[2]: ln.split()[-1] for ln in lines if ln.startswith("# TYPE")}
         assert {"counter", "gauge", "histogram"} <= set(types.values())
         if accept is None:

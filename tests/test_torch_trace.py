@@ -152,7 +152,10 @@ def pool_series(pkg: str, path: str) -> tuple[dict, dict]:
         with JaxReader(path, backend="tpu_roundtrip") as r:
             r.read_row_groups_device()
     hops = ("pqt-host", "pqt-dispatch")
-    series = {k: v for k, v in metrics.snapshot().items() if any(h in k for h in hops)}
+    # the sampling profiler's per-lane samples name the pools' threads too;
+    # a profiler an earlier test of the process ran leaves them behind
+    series = {k: v for k, v in metrics.snapshot().items()
+              if any(h in k for h in hops) and not k.startswith("obs_profile_samples_total")}
     depths = {k: v for k, v in pool.pool_depths().items() if k in hops}
     return series, depths
 
