@@ -329,12 +329,23 @@ Phases (any failure raises and the script exits non-zero):
               pickup_us): 8 jsonl appends of 8,192 taxi rows, the last
               with ?flush=1, each ack taking its rows, the last flushed at
               the table's generation; the table's /v1/query on the card
-              equal to NumPy's; an arrow-ipc append a typed 415; (e) a
+              equal to NumPy's; an arrow-ipc append of the same rows,
+              written by the port's own stream writer, read back equal
+              to them; (e) a
               daemon with tenant_budget_mb=1: one tenant's second full
               query a typed 429 tenant_over_budget, another tenant's
               answered; drain() with a query held in flight by a gated
               source: a new query 503 draining, /healthz 503 with
-              retry_after_s, the held query's body equal to (a)'s. Each
+              retry_after_s, the held query's body equal to (a)'s; (f)
+              arrow-ipc scans (the port's own IPC stream, no pyarrow):
+              taxi's seven columns unfiltered and under F_taxi (996,784
+              rows), parsed by the port's reader, every column's values,
+              validity and zone strings equal to the card's decode of
+              the same groups (read_row_group_device, moved to the host);
+              sessions' group 0, its items LIST a large_list<int32> whose
+              offsets and validity equal list_layout's on the card; (c)'s
+              request as arrow-ipc, its rows equal to (c)'s lines, rows/s
+              and MB/s beside (c)'s jsonl; no kernel launched. Each
               step's figures and the phase's seconds are printed beside
               the card's name and power limit;
      mesh     the serve mesh and the chaos harness (check_mesh): three
@@ -349,7 +360,9 @@ Phases (any failure raises and the script exits non-zero):
               daemon's body and run_local_query's; /v1/scan jsonl of trip_id,
               fare_cents and zone under F_taxi narrowed to the trip ids
               around group 1's start (2 units) byte-equal to the direct
-              daemon's; /v1/plan equal; (b) a FlakyReplica with
+              daemon's, and the same scan as arrow-ipc, scattered and with
+              a limit (passed through), byte-equal to the direct daemon's
+              stream; /v1/plan equal; (b) a FlakyReplica with
               error_rate=0.2, then one with short_rate=0.5, in front of one
               replica: every body byte-equal to (a)'s, faults injected,
               failovers counted; (c) 8 client threads x 3 filtered queries
@@ -5513,6 +5526,228 @@ def serve_scan_raw(server, body: dict) -> tuple[int, bytes, bytes]:
         pos = eol + 2 + size + 2
 
 
+ARROW_CT = "application/vnd.apache.arrow.stream"
+
+
+def no_launches(label: str) -> dict:
+    """The launch counts since the last reset_launch_counts, which must all
+    be 0: an arrow-ipc request decodes on the host, as the reference's
+    does. Raises naming `label` otherwise."""
+    counts = kernel_counts()
+    if any(v for v in counts.values() if isinstance(v, int)):
+        raise AssertionError(f"{label} launched kernels: "
+                             f"{ {k: v for k, v in counts.items() if isinstance(v, int) and v} }")
+    return counts
+
+
+def arrow_scan(server, body: dict):
+    """POST /v1/scan of `body` as arrow-ipc: (seconds, the stream's bytes,
+    its table as the port's own reader parses it, the launch counts of the
+    request alone, all 0). Raises unless the answer is a 200 with the
+    Arrow stream Content-Type and the request launched no kernel."""
+    from parquet_tpu_torch.core import arrow_ipc
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    status, headers, raw = serve_request(server, "POST", "/v1/scan", {**body, "format": "arrow-ipc"})
+    secs = time.perf_counter() - t
+    counts = no_launches(f"[arrow] /v1/scan {body}")
+    if status != 200 or headers.get("Content-Type") != ARROW_CT:
+        raise AssertionError(f"[arrow] /v1/scan {body}: {status} "
+                             f"{headers.get('Content-Type')} {raw[:300]!r}")
+    return secs, raw, arrow_ipc.open_stream(raw).read_all(), counts
+
+
+def arrow_differs(arr, col, keep, dev) -> Optional[str]:
+    """Where an Arrow column (the port's array from a daemon's stream)
+    differs from a column the card decoded (a DeviceColumn of
+    read_row_group_device) over the rows `keep` selects (None: every row):
+    its values byte for byte, its validity, its strings. None if equal."""
+    import torch
+
+    from parquet_tpu_torch.core.arrays import ByteArrayData
+    from parquet_tpu_torch.kernels import device_ops as ops
+
+    rows = np.flatnonzero(keep) if keep is not None else None
+    n = col.num_values if rows is None else len(rows)
+    if len(arr) != n:
+        return f"{len(arr)} rows, the card's decode {n}"
+    valid = arr.is_valid_np()
+    if col.indices is not None or col.data is not None:
+        if col.indices is not None:
+            want = col.dictionary.take(col.indices.cpu().numpy())
+        else:
+            want = ByteArrayData(offsets=col.offsets.cpu().numpy(),
+                                 data=col.data.cpu().numpy().tobytes())
+        if rows is not None:
+            want = want.take(rows)
+        off = arr.offsets_np()
+        if valid is not None:
+            return "a null string"
+        if not np.array_equal(off - off[0], want.offsets):
+            return "string offsets"
+        if arr.data_np()[off[0]:off[-1]].tobytes() != want.data:
+            return "string bytes"
+        return None
+    if col.def_levels is not None:
+        mask = np.asarray(col.def_levels) == 1
+        vals = ops.expand_nullable(col.values, torch.from_numpy(mask).to(dev)).cpu().numpy()
+    else:
+        mask = None
+        vals = col.values.cpu().numpy()
+    if rows is not None:
+        vals = vals[rows]
+        mask = None if mask is None else mask[rows]
+    got_valid = np.ones(n, bool) if valid is None else valid
+    want_valid = np.ones(n, bool) if mask is None else mask
+    if not np.array_equal(got_valid, want_valid):
+        return "validity"
+    got = arr.values_np()
+    if got.dtype.itemsize != vals.dtype.itemsize:
+        return f"value width {got.dtype} against {vals.dtype}"
+    if not np.array_equal(got[want_valid].view(np.uint8), np.ascontiguousarray(
+            vals[want_valid]).view(np.uint8)):
+        return "values"
+    return None
+
+
+def taxi_arrow_table(specs, n: int):
+    """The generator's first n taxi rows as the port's own Arrow table
+    (core/arrow_format): zone a large_string, passenger_count nullable."""
+    from parquet_tpu_torch.core import arrow_format as af
+
+    cols = {}
+    for sp in specs:
+        if sp.name == "passenger_count":
+            valid = sp.valid[:n]
+            full = np.zeros(n, np.int32)
+            full[valid] = sp.dictionary[sp.indices[:int(valid.sum())]]
+            cols[sp.name] = af.array(full, mask=~valid)
+        elif sp.name == "zone":
+            z = sp.dictionary.take(sp.indices[:n])
+            cols[sp.name] = af.Array.from_buffers(af.large_string(), n,
+                                                  [None, z.offsets, z.data])
+        elif sp.dict_encoded:
+            cols[sp.name] = af.array(np.asarray(sp.dictionary)[sp.indices[:n]])
+        else:
+            cols[sp.name] = af.array(np.asarray(sp.values[:n]))
+    return af.table(cols)
+
+
+def serve_arrow(server, taxi_path, sessions_path, f_taxi, taxi_keep, dev, launches: dict,
+                card: str, jsonl_scan: dict, scan_body: dict, jsonl_lines: bytes) -> dict:
+    """The serve phase's step (f): arrow-ipc scans through the daemon,
+    parsed by the port's reader and held against the card's decode. Returns
+    the step's numbers."""
+    from parquet_tpu_torch.core import arrow_format as af
+    from parquet_tpu_torch.core.reader import FileReader
+
+    t_step = time.perf_counter()
+    name = taxi_path.name
+    n_rows = ROW_GROUPS * RG_ROWS
+    flt = [[list(t) for t in conj] for conj in f_taxi]
+    kept = int(taxi_keep.sum())
+    out: dict = {}
+    # each arrow request alone between a reset and its zero check; the
+    # path's entry is the snapshot after the last of them, before the
+    # checks below decode on the card
+    secs, raw, whole, _c = arrow_scan(server, {"paths": [name]})
+    fsecs, fraw, filtered, _c = arrow_scan(server, {"paths": [name], "filters": flt})
+    names = ["trip_id", "vendor_id", "passenger_count", "pickup_us", "fare_cents",
+             "trip_distance", "zone"]
+    if whole.column_names != names or whole.num_rows != n_rows:
+        raise AssertionError(f"[serve:f] the whole scan: {whole.column_names}, {whole.num_rows} rows")
+    if filtered.num_rows != kept or filtered.schema != whole.schema:
+        raise AssertionError(f"[serve:f] the F_taxi scan kept {filtered.num_rows} rows, "
+                             f"NumPy {kept}")
+    if whole.schema.field("zone").type != af.large_string():
+        raise AssertionError(f"[serve:f] zone arrives as {whole.schema.field('zone').type}")
+    t = time.perf_counter()
+    pos = 0
+    with FileReader(taxi_path, device=dev) as r:
+        for g in range(ROW_GROUPS):
+            group = r.read_row_group_device(g)
+            keep_g = taxi_keep[g * RG_ROWS:(g + 1) * RG_ROWS]
+            n_keep = int(keep_g.sum())
+            for c in names:
+                col = group[(c,)]
+                chunk = whole.column(c).chunks[g]
+                why = arrow_differs(chunk, col, None, dev)
+                if why is not None:
+                    raise AssertionError(f"[serve:f] {c}, group {g}: the stream's {why} differ(s) "
+                                         "from the card's decode")
+                if n_keep:
+                    part = filtered.column(c).slice(pos, n_keep).combine_chunks()
+                    why = arrow_differs(part, col, keep_g, dev)
+                    if why is not None:
+                        raise AssertionError(f"[serve:f] {c}, group {g} under F_taxi: the "
+                                             f"stream's {why} differ(s) from the card's decode")
+            pos += n_keep
+            del group
+    held_s = time.perf_counter() - t
+    out["whole"] = {"rows": n_rows, "bytes": len(raw), "seconds": secs,
+                    "rows_per_s": n_rows / secs, "mb_per_s": len(raw) / secs / 1e6}
+    out["filtered"] = {"rows": kept, "bytes": len(fraw), "seconds": fsecs,
+                       "input_rows_per_s": n_rows / fsecs}
+    log(f"[serve:f] POST /v1/scan arrow-ipc of taxi's 7 columns: {n_rows:,} rows, {len(raw):,} "
+        f"bytes in {secs:.2f} s ({n_rows / secs:,.0f} rows/s, {len(raw) / secs / 1e6:,.1f} MB/s); "
+        f"under F_taxi {kept:,} rows, {len(fraw):,} bytes in {fsecs:.2f} s "
+        f"({n_rows / fsecs:,.0f} input rows/s); parsed by the port's reader, every column's "
+        f"values, validity and zone strings equal to the card's decode of the same groups "
+        f"(held in {held_s:.2f} s); no kernel launched | {card}")
+    # sessions' group 0: the LIST column as large_list<int32>
+    ssecs, sraw, sess, _c = arrow_scan(server, {"paths": [sessions_path.name], "shard": [0, ROW_GROUPS]})
+    if sess.schema.field("items").type != af.large_list(af.int32()) or sess.num_rows != RG_ROWS:
+        raise AssertionError(f"[serve:f] sessions: {sess.schema.field('items').type}, "
+                             f"{sess.num_rows} rows")
+    with FileReader(sessions_path, device=dev) as r:
+        group = r.read_row_group_device(0)
+    dc = next(v for k, v in group.items() if k[0] == "items")
+    offsets, fdef, n_slots = dc.list_layout(0, 2)
+    rows = int(n_slots)
+    items = sess.column("items").combine_chunks()
+    off = items.offsets_np()
+    valid = items.is_valid_np()
+    if not (rows == RG_ROWS and np.array_equal(off - off[0], offsets.cpu().numpy()[: rows + 1])
+            and np.array_equal(np.ones(rows, bool) if valid is None else valid,
+                               fdef.cpu().numpy()[:rows] >= 1)):
+        raise AssertionError("[serve:f] sessions: the items' offsets or validity differ from "
+                             "list_layout's on the card")
+    elems = items.children[0].slice(int(off[0]), int(off[-1] - off[0]))
+    if elems.null_count or not np.array_equal(elems.values_np(), dc.values.cpu().numpy()):
+        raise AssertionError("[serve:f] sessions: the items' values differ from the card's decode")
+    why = arrow_differs(sess.column("session_id").combine_chunks(), group[("session_id",)], None, dev)
+    if why is not None:
+        raise AssertionError(f"[serve:f] sessions: session_id's {why} differ(s)")
+    out["sessions"] = {"rows": RG_ROWS, "bytes": len(sraw), "seconds": ssecs}
+    # (c)'s request as arrow-ipc, its rows against (c)'s lines
+    asecs, araw, atable, counts = arrow_scan(server, scan_body)
+    launches["serve arrow-ipc"] = counts
+    lines = [json.loads(ln) for ln in jsonl_lines.splitlines()]
+    if atable.to_pylist() != lines:
+        raise AssertionError(f"[serve:f] (c)'s request as arrow-ipc: {atable.num_rows} rows "
+                             f"differ from (c)'s {len(lines)} lines")
+    n = len(lines)
+    out["rates"] = {"rows": n, "arrow_seconds": asecs, "arrow_bytes": len(araw),
+                    "arrow_rows_per_s": n / asecs, "arrow_mb_per_s": len(araw) / asecs / 1e6,
+                    "jsonl_seconds": jsonl_scan["seconds"], "jsonl_bytes": jsonl_scan["bytes"],
+                    "jsonl_rows_per_s": n / jsonl_scan["seconds"],
+                    "jsonl_mb_per_s": jsonl_scan["bytes"] / jsonl_scan["seconds"] / 1e6}
+    rt = out["rates"]
+    log(f"[serve:f] sessions group 0 as arrow-ipc: {RG_ROWS:,} rows, items a "
+        f"large_list<int32> whose offsets and validity equal list_layout's on the card and "
+        f"values the card's decode, {len(sraw):,} bytes in {ssecs:.2f} s | {card}")
+    log(f"[serve:f] the same request as (c) ({n:,} rows of {', '.join(IO_PROJECTION)} under "
+        f"F_taxi): arrow-ipc {asecs:.3f} s, {rt['arrow_rows_per_s']:,.0f} rows/s, "
+        f"{rt['arrow_mb_per_s']:,.1f} MB/s ({len(araw):,} bytes) against jsonl "
+        f"{jsonl_scan['seconds']:.3f} s, {rt['jsonl_rows_per_s']:,.0f} rows/s, "
+        f"{rt['jsonl_mb_per_s']:,.1f} MB/s ({jsonl_scan['bytes']:,} bytes); its rows equal "
+        f"(c)'s lines; none of the four arrow-ipc requests launched a kernel | {card}")
+    out["seconds"] = time.perf_counter() - t_step
+    return out
+
+
 class GatedSource:
     """A byte source whose reads wait for `gate` (a threading.Event): how
     the drain step holds a query in flight without a sleep."""
@@ -5561,7 +5796,7 @@ def ok_count(counts: dict) -> int:
 
 
 def check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, card: str,
-                group_bodies=None) -> dict:
+                group_bodies=None, sessions_path=None) -> dict:
     """The serve phase: the port's ScanServer(ServeConfig(root=the smoke
     directory, port=0, device=dev)) in this process, driven over HTTP on
     loopback. (a) POST /v1/query with query_aggregates(), unfiltered and
@@ -5589,14 +5824,19 @@ def check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, c
     SERVE_APPEND_ROWS taxi rows to /v1/append, the last with ?flush=1:
     each ack takes its rows, the last one flushed at the table's current
     generation; a /v1/query of the table on the card equal to NumPy's over
-    those rows; an arrow-ipc append a typed 415. (e) a daemon with
+    those rows; then the same rows as one arrow-ipc append (the port's own
+    stream writer) into a table of their own, read back by an arrow-ipc
+    scan equal to them. (e) a daemon with
     tenant_budget_mb=1: one tenant's first full query answered, its second
     a typed 429 tenant_over_budget, another tenant's answered; then a
     daemon reading through a gate: a full query held in flight, drain() on
     a thread, a new query a typed 503 draining and /healthz a 503 with
     retry_after_s, the gate opened, the held query's body equal to (a)'s,
-    the drain complete. Every daemon ends with 0 in flight and is closed.
-    Prints each step's figures beside `card`; returns the numbers."""
+    the drain complete. (f) arrow-ipc scans (serve_arrow): taxi's seven
+    columns unfiltered and under F_taxi, sessions' group 0, and (c)'s
+    request, held against the card's decode and (c)'s lines. Every daemon
+    ends with 0 in flight and is closed. Prints each step's figures beside
+    `card`; returns the numbers."""
     import shutil
     import threading
 
@@ -5824,6 +6064,7 @@ def check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, c
             raise AssertionError(f"[serve:c] the row scan launched kernels: {counts}")
         out["scan"] = {"rows": SERVE_SCAN_LIMIT, "seconds": secs, "rows_per_s": SERVE_SCAN_LIMIT / secs,
                        "bytes": len(got)}
+        jsonl_lines = got
         qs = ("/v1/plan?paths=" + name + "&columns=" + ",".join(cols) + "&filters="
               + json.dumps(flt, separators=(",", ":")).replace(" ", "%20"))
         s1, _h, via_get = serve_request(server, "GET", qs)
@@ -5882,11 +6123,6 @@ def check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, c
         if query_device_counts() != {"device": got["units"]} or counts["masked_agg"] <= 0:
             raise AssertionError(f"[serve:d] query counts {query_device_counts()}, "
                                  f"masked_agg {counts['masked_agg']}")
-        status, _h, raw = serve_request(lake, "POST", "/v1/append", b"\xff\xff",
-                                        {"Content-Type": "application/vnd.apache.arrow.stream"})
-        code = json.loads(raw)["error"]["code"]
-        if (status, code) != (415, "unsupported_format"):
-            raise AssertionError(f"[serve:d] arrow-ipc append: {status} {raw!r}")
         out["append"] = {"rows": n_app, "seconds": secs, "rows_per_s": n_app / secs,
                          "generations": gen, "flushes": flushed, "query_units": got["units"]}
         log(f"[serve:d] {SERVE_APPENDS} jsonl appends of {SERVE_APPEND_ROWS:,} taxi rows, the last "
@@ -5894,11 +6130,43 @@ def check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, c
             f"table at generation {gen}; /v1/query of the table on the card over {got['units']} "
             f"units equals NumPy's over the {n_app:,} rows; launches "
             + ", ".join(f"{k}={v}" for k, v in counts.items() if isinstance(v, int) and v)
-            + f"; an arrow-ipc append: {status} {code} | {card}")
+            + f" | {card}")
         idle(lake, "(d)")
         lake.close()
         servers.remove(lake)
         shutil.rmtree(lake_dir, ignore_errors=True)
+        # (d) the same rows as one arrow-ipc append, written by the port's
+        # own stream writer, read back by an arrow-ipc scan of the table
+        from parquet_tpu_torch.core import arrow_ipc
+
+        arrow_dir = root / "serve-lake-arrow"
+        shutil.rmtree(arrow_dir, ignore_errors=True)
+        alake = ScanServer(ServeConfig(root=str(root), port=0, device=dev,
+                                       lake_root=str(arrow_dir), lake_schema=TAXI_DSL,
+                                       lake_sort_key="pickup_us"))
+        servers.append(alake.start_background())
+        body = arrow_ipc.serialize_table(taxi_arrow_table(taxi_specs, n_app))
+        t = time.perf_counter()
+        status, _h, raw = serve_request(alake, "POST", "/v1/append?flush=1", body,
+                                        {"Content-Type": ARROW_CT})
+        asecs = time.perf_counter() - t
+        ack = json.loads(raw)
+        if status != 200 or ack["rows"] != n_app or not ack["flushed"]:
+            raise AssertionError(f"[serve:d] arrow-ipc append: {status} {raw[:300]!r}")
+        _s, _raw, back, _c = arrow_scan(alake, {"paths": ["serve-lake-arrow"]})
+        key = lambda r: (r["pickup_us"], r["trip_id"])  # noqa: E731
+        want_rows = sorted(taxi_rows(taxi_specs, n_app), key=key)
+        if sorted(back.to_pylist(), key=key) != want_rows:
+            raise AssertionError("[serve:d] the arrow-ipc append read back differs from its rows")
+        out["append arrow"] = {"rows": n_app, "bytes": len(body), "seconds": asecs,
+                               "rows_per_s": n_app / asecs}
+        log(f"[serve:d] one arrow-ipc append of the same {n_app:,} rows ({len(body):,} bytes, the "
+            f"port's own stream writer) with ?flush=1: {asecs:.2f} s, {n_app / asecs:,.0f} rows/s, "
+            f"read back by an arrow-ipc scan equal to them | {card}")
+        idle(alake, "(d) arrow")
+        alake.close()
+        servers.remove(alake)
+        shutil.rmtree(arrow_dir, ignore_errors=True)
         # (e) the byte budget, then a drain with a query held in flight
         budget = ScanServer(ServeConfig(root=str(root), port=0, device=dev, tenant_budget_mb=1,
                                         budget_window_s=3600.0)).start_background()
@@ -5957,6 +6225,10 @@ def check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, c
             f"drain() with a query held in flight: a new query 503 draining, /healthz {s_h} "
             f"{health}, the held query's body equal to (a)'s, drained {drained['ok']}")
         idle(server, "(e)")
+        # (f) arrow-ipc scans, held against the card's decode
+        out["arrow"] = serve_arrow(server, taxi_path, sessions_path, f_taxi, taxi_keep, dev,
+                                   launches, card, out["scan"], scan_body, jsonl_lines)
+        idle(server, "(f)")
     finally:
         for s in servers:
             s.close()
@@ -5971,6 +6243,7 @@ MESH_PER_CLIENT = 3
 MESH_FAULT_REQUESTS = 12  # backend requests each flaky proxy must see in (b)
 MESH_FAULT_QUERIES = 16  # at most this many queries in each of (b)'s two runs
 MESH_SCAN_SPAN = 100_000  # trip ids either side of the group 0 / group 1 boundary
+MESH_ARROW_LIMIT = 5_000  # the routed arrow-ipc scan's limit (passed through)
 CHAOS_SLO_MS = 100.0
 CHAOS_BATCH = 1 << 18
 
@@ -6160,6 +6433,36 @@ def check_mesh(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches: dict, ca
         if mc.get('mesh_requests_total{endpoint="/v1/scan",mode="scatter"}') != 1:
             raise AssertionError(f"[mesh:a] scan: mesh counts {mc}")
         out["scan"] = {"lines": lines, "bytes": len(scan_r), "seconds": secs}
+        # the same scan as arrow-ipc: scattered, then with a limit (passed
+        # through); each routed stream the direct daemon's, byte for byte
+        from parquet_tpu_torch.core import arrow_ipc
+
+        arrow_body = {**scan_body, "format": "arrow-ipc"}
+        limited = {**arrow_body, "limit": MESH_ARROW_LIMIT}
+        reset_mesh_counts()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        arrow_r = post(router, "/v1/scan", arrow_body)
+        asecs = time.perf_counter() - t
+        mc = mesh_counts()
+        arrow_d = post(direct, "/v1/scan", arrow_body)
+        lim_r, lim_d = post(router, "/v1/scan", limited), post(direct, "/v1/scan", limited)
+        launches["mesh arrow-ipc"] = no_launches("[mesh:a] the routed and direct arrow-ipc scans")
+        n_arrow = arrow_ipc.open_stream(arrow_r).read_all().num_rows
+        n_lim = arrow_ipc.open_stream(lim_r).read_all().num_rows
+        if (arrow_r != arrow_d or lim_r != lim_d or n_arrow != lines
+                or n_lim != min(lines, MESH_ARROW_LIMIT)):
+            raise AssertionError(f"[mesh:a] arrow-ipc scan: router {len(arrow_r):,} bytes, direct "
+                                 f"{len(arrow_d):,}, equal {arrow_r == arrow_d}; limited equal "
+                                 f"{lim_r == lim_d}; rows {n_arrow} and {n_lim}, NumPy {lines}")
+        if mc.get('mesh_requests_total{endpoint="/v1/scan",mode="scatter"}') != 1:
+            raise AssertionError(f"[mesh:a] arrow-ipc scan: mesh counts {mc}")
+        out["arrow"] = {"rows": n_arrow, "bytes": len(arrow_r), "seconds": asecs,
+                        "limited_rows": n_lim}
+        log(f"[mesh:a] routed /v1/scan arrow-ipc of the same request: 2 units scattered and "
+            f"re-framed through one writer, {n_arrow:,} rows, {len(arrow_r):,} bytes byte-equal to "
+            f"the direct daemon's stream in {asecs:.2f} s; with limit {MESH_ARROW_LIMIT:,} (passed "
+            f"through) {n_lim:,} rows, byte-equal; no kernel launched | {card}")
         # the obs phase's mesh step, on this router and its replicas
         out["obs"] = obs_mesh(router, replicas, qbody(flt), bodies["query filtered"], card)
         log(f"[mesh:a] routed /v1/scan jsonl ({', '.join(IO_PROJECTION)}; F_taxi and trip_id in "
@@ -7695,7 +7998,7 @@ def main(argv=None) -> int:
     remote_phase = check_remote_lake(paths, taxi_schema, dev_groups, dev_file, dev, launches, smi)
     obs_phase = {"read": check_obs_read(taxi_path, taxi_specs, dev, launches, smi)}
     serve_phase = check_serve(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches, smi,
-                              query_host["bodies"])
+                              query_host["bodies"], sessions_path)
     mesh_phase = check_mesh(taxi_path, taxi_specs, f_taxi, taxi_keep, dev, launches, smi,
                             query_host["bodies"])
     obs_phase["serve"] = serve_phase.pop("obs")

@@ -1,10 +1,10 @@
 """Vectorized Dremel record assembly: level prefix scans -> offsets/validity
 -> rows by batched slicing.
 
-A copy of parquet_tpu/core/assembly_vec.py without its "arrow" build mode
-(the pyarrow handoff, which the port does not carry) and without the C
-extension's row builders: rows zip in Python here, as the JAX module does
-when its extension is absent.
+A copy of parquet_tpu/core/assembly_vec.py without the C extension's row
+builders: rows zip in Python here, as the JAX module does when its
+extension is absent. Its "arrow" build mode feeds core/arrow_nested.py,
+which hands the IR to the port's own Arrow arrays (core/arrow_format.py).
 
 The scalar walk in core/assembly.py (RecordAssembler) rebuilds nested rows
 one cursor step per level entry. This module is the data-parallel
@@ -26,12 +26,15 @@ The intermediate representation (IR) is a small tree mirroring the schema:
              MAP -> dict, "repeated" = wire-shape repeated field)
   StructVec  named children at shared slot granularity + null mask
 
-Two build modes share one recursion:
+Three build modes share one recursion (core/arrow_nested.py consumes the
+IR for to_arrow: the same scan feeds rows and Arrow):
 
   "rows"   ergonomic dispatch: LIST -> list, MAP -> dict, logical
            conversions — matches pyarrow to_pylist
   "raw"    wire shape: no unwrapping, bytes stay bytes — matches the
            reference's NextRow
+  "arrow"  arrow_nested's dispatch (2-level legacy lists stay structs,
+           MAP needs both key and value selected)
 
 Engine selection: the reader (and RecordAssembler's iterator facade) uses
 this engine by default; PQT_VEC_ASSEMBLY=0 forces the scalar walk — the
@@ -148,18 +151,31 @@ class _Stream:
         self.dl = None if dl is None else np.asarray(dl)
 
 
-def _is_list_node(node) -> bool:
+def _is_list_node(node, mode: str) -> bool:
     ct = node.converted_type
+    if mode == "arrow":
+        # must match arrow_nested.nested_arrow_type's dispatch exactly
+        # (converted type only), or the built array and the declared type
+        # would disagree
+        return ct == ConvertedType.LIST
     lt = node.logical_type
     return ct == ConvertedType.LIST or (lt is not None and lt.LIST is not None)
 
 
-def _is_map_node(node) -> bool:
+def _is_map_node(node, mode: str) -> bool:
     ct = node.converted_type
+    if mode == "arrow":
+        return ct in (ConvertedType.MAP, ConvertedType.MAP_KEY_VALUE)
     lt = node.logical_type
     return ct in (ConvertedType.MAP, ConvertedType.MAP_KEY_VALUE) or (
         lt is not None and lt.MAP is not None
     )
+
+
+def _covered(node, streams) -> bool:
+    if node.is_leaf:
+        return node.path in streams
+    return any(_covered(c, streams) for c in node.children)
 
 
 # -- the builder ----------------------------------------------------------------
@@ -190,7 +206,7 @@ class _View:
 
 def build_field_vec(schema, top, chunks: dict, mode: str):
     """The IR of one top-level field over one row group's leaf chunks.
-    `top` is the schema node or its name; mode is "rows" | "raw".
+    `top` is the schema node or its name; mode is "rows" | "raw" | "arrow".
     Returns (vec, n_rows). Raises VecStructureError on structures the scans
     cannot prove and AssemblyError on provable value-count corruption."""
     if isinstance(top, str):
@@ -247,7 +263,7 @@ def _build(node, streams, state, n_slots, mode):
     if node.is_leaf:
         return _leaf_vec(node, streams, state, n_slots)
 
-    if mode != "raw" and _is_map_node(node) and len(node.children) == 1:
+    if mode != "raw" and _is_map_node(node, mode) and len(node.children) == 1:
         kv = node.children[0]
         if (
             kv.repetition == FieldRepetitionType.REPEATED
@@ -263,11 +279,17 @@ def _build(node, streams, state, n_slots, mode):
             child = _build_struct(
                 kv, streams, elem_state, int(offsets[-1]), mode, force_valid=True
             )
-            return ListVec(node, kv, offsets, null_mask, child, "map")
+            # arrow needs both key and value selected for a MapArray; with
+            # one projected out it assembles the underlying list-of-struct
+            both = all(_covered(c, streams) for c in kv.children)
+            kind = "list" if (mode == "arrow" and not both) else "map"
+            return ListVec(node, kv, offsets, null_mask, child, kind)
 
-    if mode != "raw" and _is_list_node(node) and len(node.children) == 1:
+    if mode != "raw" and _is_list_node(node, mode) and len(node.children) == 1:
         rep = node.children[0]
-        if rep.repetition == FieldRepetitionType.REPEATED:
+        if rep.repetition == FieldRepetitionType.REPEATED and (
+            mode != "arrow" or not rep.is_leaf
+        ):
             null_mask = (
                 _node_null_mask(node, state, n_slots)
                 if node.repetition == FieldRepetitionType.OPTIONAL

@@ -78,6 +78,9 @@ class ChunkData:
     def_levels: "np.ndarray | None"
     rep_levels: "np.ndarray | None"
     dictionary: object | None = None  # decoded dict page values, if any
+    # dictionary-preserving reads only (read_chunk keep_dict_indices=True):
+    # int32 indices of the non-null cells; values is None then
+    indices: "np.ndarray | None" = None
 
 
 @dataclass
@@ -493,27 +496,39 @@ def read_chunk(
     column: Column,
     validate_crc: bool = False,
     alloc=None,
+    keep_dict_indices: bool = False,
 ) -> ChunkData:
     """Read and decode all pages of one column chunk (host path). `alloc`
     (a core.alloc.AllocTracker) checks each page's claimed size before it
     decompresses and charges what each page decodes to.
+
+    keep_dict_indices=True returns ChunkData with `indices` set (and
+    values=None) when EVERY data page is dictionary-encoded — the
+    dictionary-preserving columnar lane (to_arrow read_dictionary=);
+    mixed chunks fall back to materialized values.
 
     The whole chunk runs under a "chunk" span (page spans and decompress /
     decode stages nest inside it when a trace is active) and feeds the
     always-on chunk_decode_seconds histogram."""
     t0 = _time.perf_counter()
     with span("chunk", {"column": column.path_str}):
-        out = _read_chunk_impl(f, chunk, column, validate_crc, alloc)
+        out = _read_chunk_impl(
+            f, chunk, column, validate_crc, alloc, keep_dict_indices
+        )
     _metrics.observe("chunk_decode_seconds", _time.perf_counter() - t0)
     return out
 
 
-def _read_chunk_impl(f, chunk: ColumnChunk, column: Column, validate_crc: bool, alloc) -> ChunkData:
+def _read_chunk_impl(
+    f, chunk: ColumnChunk, column: Column, validate_crc: bool, alloc,
+    keep_dict_indices: bool = False,
+) -> ChunkData:
     md = chunk.meta_data
     codec = md.codec or 0
     dictionary = None
     pages: list[DecodedPage] = []
     seen_data_values = 0
+    deferred_gather = 0
     expected = md.num_values or 0
     # the staged walk: the counterpart of the fused walk's
     # prepare_fused_engaged, so a trace tells which walk a read took
@@ -551,7 +566,9 @@ def _read_chunk_impl(f, chunk: ColumnChunk, column: Column, validate_crc: bool, 
                 est = _precharge(alloc, header.data_page_header, len(block))
                 with stage("decode", len(block)):
                     page = decode_data_page_v1(header, block, column, dict_size)
-                _account_page(alloc, est, page, dictionary)
+                deferred_gather += _account_page(
+                    alloc, est, page, dictionary, keep_dict_indices
+                ) or 0
                 pages.append(page)  # dict pages materialize at chunk level
                 seen_data_values += page.num_values
             elif ptype == int(PageType.DATA_PAGE_V2):
@@ -563,7 +580,9 @@ def _read_chunk_impl(f, chunk: ColumnChunk, column: Column, validate_crc: bool, 
                 )
                 with stage("decode", header.uncompressed_page_size or 0):
                     page = decode_data_page_v2(header, raw.payload, column, dict_size, codec)
-                _account_page(alloc, est, page, dictionary)
+                deferred_gather += _account_page(
+                    alloc, est, page, dictionary, keep_dict_indices
+                ) or 0
                 pages.append(page)  # dict pages materialize at chunk level
                 seen_data_values += page.num_values
             elif ptype == int(PageType.INDEX_PAGE):
@@ -576,7 +595,18 @@ def _read_chunk_impl(f, chunk: ColumnChunk, column: Column, validate_crc: bool, 
         raise ChunkError(
             f"chunk: pages hold {seen_data_values} values, metadata says {expected}"
         )
-    return _concat_pages(column, pages, dictionary)
+    if keep_dict_indices and deferred_gather and alloc is not None:
+        will_keep = (
+            dictionary is not None
+            and pages
+            and all(p.values is None and p.indices is not None for p in pages)
+        )
+        if not will_keep:
+            # a mixed chunk falls back to materialization: charge the
+            # gather the per-page accounting deferred
+            alloc.check(deferred_gather)
+            alloc.register(deferred_gather)
+    return _concat_pages(column, pages, dictionary, keep_dict_indices)
 
 
 def _precharge(alloc, page_header, block_len: int):
@@ -592,12 +622,16 @@ def _precharge(alloc, page_header, block_len: int):
     return est
 
 
-def _account_page(alloc, est: int, page: DecodedPage, dictionary) -> None:
+def _account_page(
+    alloc, est: int, page: DecodedPage, dictionary, keep_dict_indices=False
+) -> int:
     """Swap the pre-charge for the page's actual decoded footprint, charging
     the upcoming dictionary gather before materialize() allocates it (a few
-    RLE bytes can gather to n x longest-dict-entry bytes)."""
+    RLE bytes can gather to n x longest-dict-entry bytes). A dictionary-
+    preserving read (keep_dict_indices) never gathers, so only the indices
+    themselves are charged; the gather it deferred is returned."""
     if alloc is None:
-        return
+        return 0
     alloc.release(est)
     gather = 0
     if page.indices is not None and isinstance(dictionary, ByteArrayData):
@@ -605,6 +639,11 @@ def _account_page(alloc, est: int, page: DecodedPage, dictionary) -> None:
         gather = int(lengths[page.indices].sum()) + (len(page.indices) + 1) * 8
     elif page.indices is not None and dictionary is not None:
         gather = len(page.indices) * np.asarray(dictionary).itemsize
+    deferred = 0
+    if keep_dict_indices:
+        # indices stay indices: the caller re-charges the gather only if
+        # the chunk falls back to materialization
+        deferred, gather = gather, 0
     alloc.register(
         gather
         + sum(
@@ -612,9 +651,13 @@ def _account_page(alloc, est: int, page: DecodedPage, dictionary) -> None:
             for b in (page.values, page.indices, page.def_levels, page.rep_levels)
         )
     )
+    return deferred
 
 
-def _concat_pages(column: Column, pages: list[DecodedPage], dictionary) -> ChunkData:
+def _concat_pages(
+    column: Column, pages: list[DecodedPage], dictionary,
+    keep_dict_indices: bool = False,
+) -> ChunkData:
     num_values = sum(p.num_values for p in pages)
     def_levels = None
     rep_levels = None
@@ -638,6 +681,16 @@ def _concat_pages(column: Column, pages: list[DecodedPage], dictionary) -> Chunk
             if len(pages) > 1
             else np.asarray(pages[0].indices)
         )
+        if keep_dict_indices:
+            return ChunkData(
+                column=column,
+                num_values=num_values,
+                values=None,
+                def_levels=def_levels,
+                rep_levels=rep_levels,
+                dictionary=dictionary,
+                indices=idx.astype(np.int32, copy=False),
+            )
         try:
             values = (
                 dictionary.take(idx)

@@ -1,8 +1,10 @@
 """Write-side column stores: typed buffering and the dictionary decision.
 
-A copy of parquet_tpu/core/column_store.py without pyarrow ingestion
-(`_from_arrow`). A `ColumnChunkBuilder` takes a chunk either columnar
-(`set_columnar`, FileWriter.write_column) or as the Shredder's row values
+A copy of parquet_tpu/core/column_store.py. A `ColumnChunkBuilder` takes a
+chunk either columnar (`set_columnar`, FileWriter.write_column: NumPy
+arrays, value lists, or the port's Arrow arrays of core/arrow_format.py,
+ingested at the buffer level by `_from_arrow` where the reference ingests
+pyarrow's) or as the Shredder's row values
 (`extend_shredded`, FileWriter.write_row / write_rows); row-domain objects
 (datetime, date, time, Decimal, floor.Time, unsigned ints past the signed
 range) convert to storage by the leaf's logical type (core/assembly.py
@@ -64,6 +66,14 @@ _TYPE_WIDTHS = {
     Type.INT32: 4, Type.INT64: 8, Type.FLOAT: 4, Type.DOUBLE: 8,
     Type.BOOLEAN: 1, Type.INT96: 12,
 }
+
+
+def _is_arrow(v) -> bool:
+    """An Arrow array of the port's (core/arrow_format), the write_column
+    input the reference takes as a pyarrow array."""
+    from .arrow_format import Array, ChunkedArray
+
+    return isinstance(v, (Array, ChunkedArray))
 
 
 def _first_occurrence_dictionary(bits: np.ndarray):
@@ -224,6 +234,113 @@ class ColumnChunkBuilder:
             return np.stack(rows)
         raise StoreError(f"store: unsupported type {ptype}")
 
+    def _from_arrow(self, v):
+        """An Arrow Array / ChunkedArray (core/arrow_format) -> the columnar
+        containers, zero-copy where the layouts agree (numeric buffers,
+        string offsets): handing write_column an Arrow array skips the
+        per-item Python string encode entirely."""
+        from . import arrow_format as pa
+
+        if isinstance(v, pa.ChunkedArray):
+            v = v.combine_chunks()
+        if not isinstance(v, pa.Array):
+            raise StoreError(
+                f"store: unsupported arrow input {type(v).__name__} for "
+                f"{self.column.path_str}"
+            )
+        t = v.type
+        if pa.types.is_dictionary(t):
+            v = v.dictionary_decode()
+            t = v.type
+        # null check AFTER dictionary decode: a dictionary array carrying
+        # nulls in its VALUE buffer reports no null on the indices
+        if v.null_count:
+            raise StoreError(
+                f"store: arrow array for {self.column.path_str} contains "
+                "nulls; write_column takes non-null cells (pass def_levels "
+                "explicitly, or drop/fill nulls upstream)"
+            )
+        k = t.kind
+        if k in ("string", "binary", "large_string", "large_binary"):
+            off = v.offsets_np()
+            base = int(off[0]) if len(off) else 0
+            end = int(off[-1]) if len(off) else 0
+            # data stays `bytes` (ByteArrayData contract: slices hash)
+            data = v.data_np()[base:end].tobytes()
+            offsets = off - base if base else off
+            return ByteArrayData(offsets=offsets, data=data)
+        if k == "fixed_size_binary":
+            return v.values_np()
+        if k == "bool":
+            return v.values_np()  # bit-packed in arrow: unpack copy
+        if pa.types.is_temporal(t):
+            # temporal values pass through as their integer representation;
+            # the schema annotation (TIMESTAMP(unit) etc.) defines meaning
+            return v.values_np()
+        if k == "decimal128":
+            # unscaled 128-bit LE two's complement -> the column's physical
+            # storage (the reverse of to_arrow's decimal128 widening). The
+            # array's scale must MATCH the column's declared scale, and
+            # every value must FIT the narrower storage.
+            decl_scale = self.column.element.scale
+            lt = self.column.logical_type
+            if lt is not None and lt.DECIMAL is not None:
+                decl_scale = lt.DECIMAL.scale
+            if decl_scale is not None and t.scale != decl_scale:
+                raise StoreError(
+                    f"store: decimal scale mismatch for "
+                    f"{self.column.path_str}: array has scale {t.scale}, "
+                    f"column declares {decl_scale}"
+                )
+            n = len(v)
+            m = v.values_np()
+            ptype = self.column.type
+            if ptype in (Type.INT32, Type.INT64):
+                lohi = np.ascontiguousarray(m).view("<i8").reshape(n, 2)
+                lo = lohi[:, 0]
+                if not bool((lohi[:, 1] == (lo >> 63)).all()):
+                    raise StoreError(
+                        f"store: decimal value does not fit 64-bit storage "
+                        f"of {self.column.path_str}"
+                    )
+                if ptype == Type.INT64:
+                    return lo.copy()
+                lo32 = lo.astype(np.int32)
+                if not bool((lo32 == lo).all()):
+                    raise StoreError(
+                        f"store: decimal value does not fit INT32 storage "
+                        f"of {self.column.path_str}"
+                    )
+                return lo32
+            if ptype == Type.FIXED_LEN_BYTE_ARRAY:
+                w = self.column.type_length or 0
+                if 1 <= w <= 16:
+                    if w < 16:
+                        # dropped high bytes must be pure sign extension
+                        sign = np.where(m[:, w - 1] >= 0x80, 0xFF, 0).astype(
+                            np.uint8
+                        )
+                        if not bool((m[:, w:] == sign[:, None]).all()):
+                            raise StoreError(
+                                f"store: decimal value does not fit "
+                                f"{w}-byte storage of {self.column.path_str}"
+                            )
+                    return np.ascontiguousarray(m[:, :w][:, ::-1])  # LE -> BE
+                if w > 16:
+                    out = np.zeros((n, w), dtype=np.uint8)
+                    out[:, w - 16 :] = m[:, ::-1]
+                    out[m[:, 15] >= 0x80, : w - 16] = 0xFF  # sign fill
+                    return out
+        if k == "float" and t.bit_width == 16:
+            return v.values_np().view(np.uint8).reshape(len(v), 2)
+        try:
+            return v.to_numpy(zero_copy_only=True)
+        except (pa.ArrowInvalid, pa.ArrowTypeError) as e:
+            raise StoreError(
+                f"store: cannot ingest arrow {t} array for "
+                f"{self.column.path_str}: {e}"
+            ) from e
+
     def _coerce_array(self, v):
         ptype = self.column.type
         if isinstance(v, list) and v:
@@ -256,6 +373,15 @@ class ColumnChunkBuilder:
                         raise StoreError(
                             f"store: {self.column.path_str}: {e}"
                         ) from e
+        if _is_arrow(v):
+            v = self._from_arrow(v)
+            if isinstance(v, ByteArrayData):
+                if ptype != Type.BYTE_ARRAY:
+                    raise StoreError(
+                        f"store: string/binary arrow array into non-BYTE_ARRAY "
+                        f"column {self.column.path_str}"
+                    )
+                return v
         if ptype in _NUMERIC:
             try:
                 arr = np.asarray(v)

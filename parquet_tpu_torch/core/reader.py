@@ -47,6 +47,12 @@ predicate the mask declines, takes the scalar row_matches walk) and
 assembles only the kept rows. Which engine ran shows in row_counts(). Row
 reads touch no device, whatever the reader's `device`.
 
+Arrow: to_arrow decodes groups on the host into the port's own Arrow
+arrays (core/arrow_format.py; nested shapes through core/arrow_nested.py),
+with the reference's projections, row-group subsets, filters (the host
+mask of _filtered_group, shared with the host query engine's unit table)
+and read_dictionary=; core/arrow_ipc.py streams the table.
+
 Bytes: every byte goes through a ByteSource (io.source.open_source): a path
 opens a LocalFileSource (os.pread, no lock shared by the prepare threads),
 an http(s):// URL an io.remote.HttpSource, bytes and file objects adapt.
@@ -407,6 +413,48 @@ def _expand_nullable_device(values, mask) -> MaskedColumn:
     return MaskedColumn(values=expand_nullable(values, mask), mask=mask)
 
 
+def _scatter_byte_offsets(valid: np.ndarray, offsets) -> np.ndarray:
+    """Dense byte-array offsets (non-null cells only) -> offsets positioned
+    at every slot, int64[len(valid) + 1], null slots zero-length. Shared by
+    the flat and list to_arrow paths."""
+    idx = np.clip(np.cumsum(valid) - 1, 0, None)
+    ends = np.asarray(offsets[1:], dtype=np.int64)
+    picked = ends[idx] if len(ends) else np.zeros(len(valid), dtype=np.int64)
+    out = np.concatenate(
+        [np.zeros(1, dtype=np.int64), np.where(valid, picked, 0)]
+    )
+    np.maximum.accumulate(out, out=out)
+    return out
+
+
+def _concat_group_tables(pa, parts):
+    """Concatenate per-row-group tables of the SAME selection, the one
+    place to_arrow and its filtered reads join groups: a column whose
+    groups mix dictionary and plain (a group with PLAIN fallback pages
+    decodes plain while its siblings stay dictionary-typed) normalizes to
+    plain. None for no parts."""
+    if not parts:
+        return None
+    if len(parts) == 1:
+        return parts[0]
+    names = parts[0].column_names
+    arrays = []
+    for name in names:
+        cols = [p.column(name) for p in parts]
+        is_dict = [pa.types.is_dictionary(c.type) for c in cols]
+        if any(is_dict) and not all(is_dict):
+            cols = [
+                c.cast(c.type.value_type) if pa.types.is_dictionary(c.type) else c
+                for c in cols
+            ]
+        arrays.append(
+            pa.chunked_array(
+                [ch for c in cols for ch in c.chunks], type=cols[0].type
+            )
+        )
+    return pa.table(dict(zip(names, arrays)))
+
+
 def _tree_map(fn, tree: dict, *rest: dict) -> dict:
     """fn over every tensor of {path: Tensor | MaskedColumn | RaggedColumn}
     (and the same paths and fields of `rest`), keeping the structure."""
@@ -713,17 +761,27 @@ class FileReader:
         a dropped group returns {}."""
         return self._read_row_group(i, columns, pack=True)
 
-    def _read_row_group(self, i: int, columns, pack: bool) -> dict[tuple, ChunkData]:
+    def _read_row_group(
+        self, i: int, columns, pack: bool, dict_paths=frozenset()
+    ) -> dict[tuple, ChunkData]:
         """pack=False is the internal path of rows and masks: they consume
-        the levels at once, so bit-packing them would be a round trip."""
+        the levels at once, so bit-packing them would be a round trip.
+        `dict_paths` keeps those columns' dictionary indices unmaterialized
+        where their chunk allows it (to_arrow's read_dictionary=; both
+        backends)."""
         with span("row_group", {"group": i}):
-            return self._read_row_group_impl(i, columns, pack)
+            return self._read_row_group_impl(i, columns, pack, dict_paths)
 
-    def _read_row_group_impl(self, i: int, columns, pack: bool) -> dict[tuple, ChunkData]:
+    def _read_row_group_impl(
+        self, i: int, columns, pack: bool, dict_paths=frozenset()
+    ) -> dict[tuple, ChunkData]:
         if self.backend == "device_roundtrip":
             try:
                 plans = self._plan_row_group(i, columns, self.device)
-                out = {path: plan.finalize() for path, plan in plans.items()}
+                out = {
+                    path: plan.finalize(keep_dict_indices=path in dict_paths)
+                    for path, plan in plans.items()
+                }
             except PARQUET_ERRORS as e:
                 # chunks plan and finalize as a batch here, so isolation is
                 # a group's on this backend
@@ -737,13 +795,13 @@ class FileReader:
                 )
                 return self._group_quarantined(i)
         else:
-            out = self._read_host(i, columns)
+            out = self._read_host(i, columns, dict_paths)
         if pack and self.compact_levels:
             for path, cd in out.items():
                 self._pack_chunk_levels(path, cd)
         return out
 
-    def _read_host(self, i: int, columns) -> dict[tuple, ChunkData]:
+    def _read_host(self, i: int, columns, dict_paths=frozenset()) -> dict[tuple, ChunkData]:
         """The host decode of group i's selected chunks, under on_error.
         The chunks come in one planned fetch (_chunk_windows), or chunk by
         chunk where that does not apply."""
@@ -756,7 +814,8 @@ class FileReader:
                 # ChunkError) is a corrupt chunk like any other
                 f = windows[path] if windows is not None else self._window(cc)
                 out[path] = read_chunk(
-                    f, cc, column, validate_crc=self.validate_crc, alloc=self.alloc
+                    f, cc, column, validate_crc=self.validate_crc, alloc=self.alloc,
+                    keep_dict_indices=path in dict_paths,
                 )
             except PARQUET_ERRORS as e:
                 if self.on_error == "raise":
@@ -1146,6 +1205,399 @@ class FileReader:
         of the reference (file_reader.go:258) as a Python iterator."""
         return self.iter_rows()
 
+    # -- Arrow -----------------------------------------------------------------
+
+    def to_arrow(
+        self, row_groups=None, columns=None, filters=None, read_dictionary=None
+    ):
+        """Decoded columns as an Arrow table (core/arrow_format.Table, the
+        port's own arrays: core/arrow_ipc.py streams it). Flat leaves
+        (numerics, booleans, strings/binary, FLBA) and canonical
+        single-level LIST columns take buffer-level fast paths; every deeper
+        shape — structs, MAPs, multi-level lists, list-of-struct,
+        struct-of-list, legacy repeated groups/leaves — assembles through
+        the vectorized Dremel-levels builder (core/arrow_nested.py). The
+        reverse of write_column's Arrow ingest. Decodes on the host (the
+        device_roundtrip backend through the device and back), whatever the
+        reader's device.
+
+        `filters` mirrors pyarrow.parquet.read_table's: a flat list of
+        (column, op, value) triples (a conjunction) or a list of lists (an
+        OR of conjunctions). Row groups that statistics/bloom exclude are
+        never decoded; surviving rows are filtered EXACTLY, by the host
+        mask (core/filter_vec, pyarrow's null convention). Filter columns
+        outside the projection still apply, then drop. A predicate the mask
+        declines raises VecFilterError (the reference evaluates those with
+        pyarrow compute).
+
+        `read_dictionary` (list of flat string/binary column names, like
+        pyarrow's) returns those columns DICTIONARY-ENCODED
+        (dictionary<int32, large_string>) — indices and the (small)
+        dictionary pass through without materializing the strings. Chunks
+        with PLAIN fallback pages decode plain; a column mixing both
+        normalizes to plain across groups so the type stays uniform."""
+        if filters is not None:
+            return self._to_arrow_filtered(
+                row_groups, columns, filters, read_dictionary
+            )
+        from . import arrow_format as pa
+        from .arrow_nested import nested_arrow_type
+
+        dict_paths = self._dict_paths(read_dictionary)
+        indices = list(
+            range(self.num_row_groups) if row_groups is None else row_groups
+        )
+        if not indices:
+            # zero groups selected: a zero-ROW table with the selected
+            # schema, so cross-file concatenation never hits a mismatch
+            # (nested_arrow_type derives the same type every data branch
+            # produces, fast paths included)
+            sel = (
+                resolve_column_prefixes(self.schema, columns)
+                if columns else self._selected
+            )
+            by_top: dict[str, list] = {}
+            for leaf in self.schema.leaves:
+                if sel is None or leaf.path in sel:
+                    by_top.setdefault(leaf.path[0], []).append(leaf.path)
+
+            def _empty_type(top_name):
+                t = nested_arrow_type(pa, self.schema.column((top_name,)), sel)
+                if (top_name,) in dict_paths:
+                    return pa.dictionary(pa.int32(), t)
+                return t
+
+            return pa.table({
+                top_name: pa.array([], type=_empty_type(top_name))
+                for top_name in by_top
+            })
+        per_group = []
+        for i in indices:
+            chunks = self._read_row_group(
+                i, columns, pack=False, dict_paths=dict_paths
+            )
+            if not chunks:
+                continue  # quarantined group (on_error != 'raise')
+            per_group.append(pa.table(self._arrow_group_cols(pa, chunks, dict_paths)))
+        table = _concat_group_tables(pa, per_group)
+        if table is None:
+            # every selected group was quarantined (on_error != 'raise'):
+            # deliver the zero-row table WITH the selected schema, like an
+            # empty row-group selection would
+            return self.to_arrow(
+                row_groups=[], columns=columns, read_dictionary=read_dictionary
+            )
+        return table
+
+    def _dict_paths(self, read_dictionary) -> frozenset:
+        """The dictionary-preserving projection (read_dictionary=): flat
+        BYTE_ARRAY tops only."""
+        if not read_dictionary:
+            return frozenset()
+        wanted = set()
+        for name in read_dictionary:
+            path = (
+                tuple(name.split(".")) if isinstance(name, str) else tuple(name)
+            )
+            try:
+                leaf = self.schema.column(path)
+            except Exception as e:
+                raise ParquetFileError(
+                    f"parquet: read_dictionary column {name!r} not in schema"
+                ) from e
+            if (
+                len(path) == 1
+                and leaf.is_leaf
+                and leaf.max_rep == 0
+                and leaf.type == Type.BYTE_ARRAY
+            ):
+                wanted.add(path)
+        return frozenset(wanted)
+
+    def _arrow_group_cols(self, pa, chunks: dict, dict_paths) -> dict:
+        """{top-level name: Arrow array} for one decoded row group — the
+        per-group body of to_arrow, shared with the filtered read so a
+        group's chunks decode exactly once however they were read."""
+        from .arrow_nested import build_top_field, fixed_width_rows, retype_leaf
+
+        def _fast_kind(paths):
+            """'flat' | 'list' | 'nested' for one top-level field's leaves."""
+            if len(paths) != 1:
+                return "nested"
+            path = paths[0]
+            leaf = self.schema.column(path)
+            if leaf.max_rep == 0 and len(path) == 1:
+                return "flat"
+            if self._is_canonical_list(path, leaf) and leaf.type not in (
+                Type.FIXED_LEN_BYTE_ARRAY, Type.INT96,
+            ):
+                return "list"
+            return "nested"
+
+        by_top: dict[str, dict] = {}
+        for path, cd in chunks.items():
+            by_top.setdefault(path[0], {})[path] = cd
+        cols = {}
+        for top_name, sub in by_top.items():
+            kind = _fast_kind(list(sub))
+            if kind == "nested":
+                cols[top_name] = build_top_field(pa, self.schema, top_name, sub)
+                continue
+            (path, cd), = sub.items()
+            leaf = self.schema.column(path)
+            if kind == "list":
+                cols[top_name] = self._arrow_list_column(pa, path, leaf, cd)
+                continue
+            if cd.indices is not None and isinstance(
+                cd.dictionary, ByteArrayData
+            ):
+                cols[top_name] = self._arrow_dictionary_column(pa, leaf, cd)
+                continue
+            mask = None
+            if cd.def_levels is not None and leaf.max_def > 0:
+                valid = np.asarray(cd.def_levels) == leaf.max_def
+                if not valid.all():
+                    mask = ~valid
+            values = cd.values
+            if isinstance(values, ByteArrayData):
+                atype = (
+                    pa.large_string() if leaf.is_string() else pa.large_binary()
+                )
+                offsets = np.ascontiguousarray(values.offsets, dtype=np.int64)
+                data = values.data
+                if mask is not None:
+                    # expand offsets to row positions: null rows repeat
+                    # the running offset (zero-length slot)
+                    offsets = _scatter_byte_offsets(valid, offsets)
+                n = len(offsets) - 1
+                bufs = [
+                    None
+                    if mask is None
+                    else pa.py_buffer(
+                        np.packbits(valid, bitorder="little").tobytes()
+                    ),
+                    pa.py_buffer(offsets),
+                    pa.py_buffer(data),
+                ]
+                arr = pa.Array.from_buffers(
+                    atype, n, bufs,
+                    null_count=int(mask.sum()) if mask is not None else 0,
+                )
+            else:
+                np_vals = fixed_width_rows(values, leaf)
+                if np_vals.ndim == 2:  # FLBA / INT96 rows
+                    atype = pa.binary(np_vals.shape[1])
+                    if mask is None:
+                        flat = np.ascontiguousarray(np_vals).reshape(-1)
+                        arr = pa.Array.from_buffers(
+                            atype, len(np_vals), [None, pa.py_buffer(flat)]
+                        )
+                    else:
+                        # values are DENSE (non-null cells only):
+                        # scatter them to their row positions
+                        it = iter(np_vals)
+                        rows = [
+                            bytes(next(it)) if ok else None for ok in valid
+                        ]
+                        arr = pa.array(rows, atype)
+                elif mask is not None:
+                    # dense non-null cells scatter to row positions
+                    expanded = np.zeros(len(valid), np_vals.dtype)
+                    expanded[valid] = np_vals
+                    arr = pa.array(expanded, mask=mask)
+                else:
+                    arr = pa.array(np_vals)
+            cols[path[0]] = retype_leaf(pa, leaf, arr)
+        return cols
+
+    def _arrow_dictionary_column(self, pa, leaf, cd):
+        """A dictionary-preserved chunk -> DictionaryArray: the (small)
+        dictionary transfers as large_string / large_binary, indices
+        scatter to row positions with validity from the definition levels
+        (read_dictionary= lane)."""
+        d = cd.dictionary
+        offs = np.ascontiguousarray(d.offsets, dtype=np.int64)
+        dict_arr = pa.Array.from_buffers(
+            pa.large_string() if leaf.is_string() else pa.large_binary(),
+            len(d),
+            [None, pa.py_buffer(offs), pa.py_buffer(d.data)],
+        )
+        n = cd.num_values
+        idx = np.asarray(cd.indices, dtype=np.int32)
+        valid = None
+        if cd.def_levels is not None and leaf.max_def > 0:
+            v = np.asarray(cd.def_levels) == leaf.max_def
+            if not v.all():
+                valid = v
+        if valid is None:
+            ind = pa.array(idx)
+        else:
+            expanded = np.zeros(n, dtype=np.int32)
+            expanded[valid] = idx
+            ind = pa.array(expanded, mask=~valid)
+        return pa.DictionaryArray.from_arrays(ind, dict_arr)
+
+    def _to_arrow_filtered(self, row_groups, columns, filters, read_dictionary=None):
+        """Pruned + exactly-filtered columnar read (to_arrow's filters=).
+        Row groups the statistics and blooms exclude are never decoded; a
+        vacuous DNF keeps every row. Each surviving group decodes its
+        projection and filter leaves once (_filtered_group), its mask
+        compiles off those chunks and applies as one take a column; a
+        group quarantined under on_error= drops, as the reference's
+        group-by-group read drops it."""
+        from . import arrow_format as pa
+
+        dnf = normalize_dnf(self.schema, filters)
+        indices = [
+            i
+            for i in (
+                range(self.num_row_groups) if row_groups is None else row_groups
+            )
+            if dnf_group_may_match(self.row_group(i), dnf, self._bloom_excludes, i)
+        ]
+        vacuous = not dnf or any(not conj for conj in dnf)
+        if not indices or vacuous:
+            return self.to_arrow(
+                row_groups=indices, columns=columns,
+                read_dictionary=read_dictionary,
+            )
+        return self._to_arrow_vec_filtered(pa, dnf, indices, columns, read_dictionary)
+
+    def _to_arrow_vec_filtered(self, pa, dnf, indices, columns, read_dictionary):
+        """The filtered read's body: per group, the residual mask compiles
+        off the decoded filter-leaf chunks (core/filter_vec, arrow null
+        semantics) and applies as ONE take a column (`Table.filter`); no
+        per-row predicate work. The reference returns None here for a
+        predicate the mask declines and evaluates it with pyarrow compute;
+        the port raises the VecFilterError."""
+        sel = resolve_column_prefixes(self.schema, columns) if columns else self._selected
+        dict_paths = self._dict_paths(read_dictionary)
+        parts = []
+        filtered = 0
+        for i in indices:
+            got = self._filtered_group(i, dnf, sel, dict_paths)
+            if got is None:
+                continue  # quarantined (on_error != 'raise')
+            proj, n_rows, mask = got
+            kept = n_rows if mask is None else int(mask.sum())
+            filtered += n_rows - kept
+            if not kept:
+                continue  # the whole group drops: never build its table
+            t_i = pa.table(self._arrow_group_cols(pa, proj, dict_paths))
+            if t_i.num_rows != n_rows:
+                raise VecFilterError("filter_vec: projection row drift")
+            parts.append(t_i if mask is None else t_i.filter(mask))
+        _count_rows("rows_filtered_vec", filtered)
+        table = _concat_group_tables(pa, parts)
+        if table is None:
+            return self.to_arrow(
+                row_groups=[], columns=columns, read_dictionary=read_dictionary
+            )
+        return table
+
+    def _is_canonical_list(self, path, leaf) -> bool:
+        """True for the one list shape _arrow_list_column's level math
+        covers: top group > repeated mid group > element leaf, with no other
+        optional layer (anything else — e.g. an optional group whose child
+        is a bare repeated leaf — has different level semantics and must
+        take the nested path, not silently corrupt)."""
+        if len(path) != 3 or leaf.max_rep != 1:
+            return False
+        top = self.schema.column((path[0],))
+        mid = next((c for c in top.children if c.name == path[1]), None)
+        if (
+            mid is None
+            or mid.repetition != FieldRepetitionType.REPEATED
+            # exactly ONE element leaf: a legacy list-of-STRUCT repeated
+            # group has several, and collapsing them to one column would
+            # silently drop fields
+            or len(mid.children) != 1
+            or mid.children[0].path != leaf.path
+        ):
+            return False
+        t = 1 if top.repetition == FieldRepetitionType.OPTIONAL else 0
+        e = 1 if leaf.repetition == FieldRepetitionType.OPTIONAL else 0
+        return leaf.max_def == t + 1 + e
+
+    def _arrow_list_column(self, pa, path, leaf, cd):
+        """One canonical LIST column chunk -> LargeListArray: row lengths
+        and validity from the levels (the same derivation as ragged device
+        batches), element array from the dense non-null cells."""
+        from .arrow_nested import retype_leaf
+
+        top = self.schema.column((path[0],))
+        t = 1 if top.repetition == FieldRepetitionType.OPTIONAL else 0
+        n = cd.num_values
+        rl = (
+            np.asarray(cd.rep_levels)
+            if cd.rep_levels is not None
+            else np.zeros(n, dtype=np.uint16)
+        )
+        dl = (
+            np.asarray(cd.def_levels)
+            if cd.def_levels is not None
+            else np.full(n, leaf.max_def, dtype=np.uint16)
+        )
+        starts = np.nonzero(rl == 0)[0]
+        slot = dl >= t + 1  # level entries that denote a list ELEMENT
+        elem_valid = (dl == leaf.max_def)[slot]
+        lengths = (
+            np.add.reduceat(slot.astype(np.int64), starts)
+            if len(starts)
+            else np.zeros(0, dtype=np.int64)
+        )
+        row_null = (dl[starts] < t) if t else np.zeros(len(starts), dtype=bool)
+        n_slots = int(slot.sum())
+        values = cd.values
+        if isinstance(values, ByteArrayData):
+            etype = pa.large_string() if leaf.is_string() else pa.large_binary()
+            if elem_valid.all():
+                offs = np.ascontiguousarray(values.offsets, dtype=np.int64)
+                elem = pa.Array.from_buffers(
+                    etype, n_slots,
+                    [None, pa.py_buffer(offs), pa.py_buffer(values.data)],
+                )
+            else:
+                offs = _scatter_byte_offsets(elem_valid, values.offsets)
+                elem = pa.Array.from_buffers(
+                    etype, n_slots,
+                    [
+                        pa.py_buffer(
+                            np.packbits(elem_valid, bitorder="little").tobytes()
+                        ),
+                        pa.py_buffer(offs),
+                        pa.py_buffer(values.data),
+                    ],
+                    null_count=int((~elem_valid).sum()),
+                )
+        else:
+            npv = np.asarray(values)
+            if npv.ndim != 1 or leaf.type in (
+                Type.FIXED_LEN_BYTE_ARRAY, Type.INT96,
+            ):
+                raise ParquetFileError(
+                    f"parquet: to_arrow does not cover fixed-width elements "
+                    f"inside lists ({'.'.join(path)}); use iter_rows"
+                )
+            if elem_valid.all():
+                elem = pa.array(npv)
+            else:
+                expanded = np.zeros(n_slots, dtype=npv.dtype)
+                expanded[elem_valid] = npv
+                elem = pa.array(expanded, mask=~elem_valid)
+        elem = retype_leaf(pa, leaf, elem)
+        offsets = np.zeros(len(lengths) + 1, dtype=np.int64)
+        np.cumsum(lengths, out=offsets[1:])
+        if row_null.any():
+            # a null offset at i marks list i null; the final offset (the
+            # appended False) must stay valid
+            offsets_pa = pa.array(
+                offsets, pa.int64(), mask=np.append(row_null, False)
+            )
+        else:
+            offsets_pa = pa.array(offsets, pa.int64())
+        return pa.LargeListArray.from_arrays(offsets_pa, elem)
+
     # -- device delivery -------------------------------------------------------
 
     def _plan_row_groups_async(self, indices, columns, device) -> list:
@@ -1265,7 +1717,6 @@ class FileReader:
         from .unit_table import HostUnitTable
 
         tops = [c.split(".")[0] if isinstance(c, str) else c[0] for c in columns]
-        n = int(self.row_group(i).num_rows or 0)
         dnf = None if filters is None else normalize_dnf(self.schema, filters)
         vacuous = not dnf or any(not conj for conj in dnf)
         if not vacuous and not dnf_group_may_match(
@@ -1273,21 +1724,41 @@ class FileReader:
         ):
             return HostUnitTable(self.schema, tops, {}, 0)
         sel = resolve_column_prefixes(self.schema, columns)
-        fpaths = set() if vacuous else {e[0] for conj in dnf for e in conj}
-        chunks = self._read_row_group(i, sorted(sel | fpaths), pack=False)
-        if not chunks:
+        got = self._filtered_group(i, None if vacuous else dnf, sel)
+        if got is None:
             return HostUnitTable(self.schema, tops, {}, 0)  # quarantined
-        mask = None
-        if not vacuous:
-            mask = dnf_mask(chunks, dnf, n, null_mode="arrow")
-            kept = int(mask.sum())
-            if kept == 0:
+        proj, n, mask = got
+        if mask is not None:
+            n = int(mask.sum())
+            if n == 0:
                 return HostUnitTable(self.schema, tops, {}, 0)
-            if kept == n:
-                mask = None
-            n = kept
-        proj = {p: cd for p, cd in chunks.items() if p in sel}
         return HostUnitTable(self.schema, tops, proj, n, mask)
+
+    def _filtered_group(self, i: int, dnf, sel, dict_paths=frozenset()):
+        """Row group i's residual-filtered host read, shared by
+        to_arrow(filters=) and the host query engine's unit table: one
+        decode of the projection `sel` (leaf paths; None: every selected
+        leaf) and the filter leaves, and the DNF's row mask with pyarrow's
+        null convention (core/filter_vec.dnf_mask, null_mode="arrow").
+        Returns (the projection's chunks, the group's rows, the mask or
+        None where every row is kept), or None for a group quarantined
+        under on_error. Raises VecFilterError for a predicate the mask
+        declines (the reference evaluates those with pyarrow compute)."""
+        fpaths = set() if dnf is None else {e[0] for conj in dnf for e in conj}
+        read_cols = None if sel is None else sorted(sel | fpaths)
+        chunks = self._read_row_group(i, read_cols, pack=False, dict_paths=dict_paths)
+        if not chunks:
+            return None
+        proj = chunks if sel is None else {p: cd for p, cd in chunks.items() if p in sel}
+        if dnf is None:
+            return proj, int(self.row_group(i).num_rows or 0), None
+        n = group_row_count(chunks)
+        with timed_stage("assembly.filter") as el:
+            mask = dnf_mask(chunks, dnf, n, null_mode="arrow")
+        _metrics.observe("filter_mask_seconds", el.seconds)
+        if bool(mask.all()):
+            mask = None
+        return proj, n, mask
 
     def _host_row_mask(self, i, normalized, n, null_mode="row"):
         """Host-engine fallback mask: decode the filter columns on the host

@@ -844,10 +844,14 @@ class _ChunkPlan:
 
     # -- fetch + host reassembly (equal to core.chunk.read_chunk) --------------
 
-    def finalize(self) -> ChunkData:
+    def finalize(self, keep_dict_indices: bool = False) -> ChunkData:
         column = self.column
         self._handoff()
         hybrid_flat = _fetch(self.dev_hybrid, np.uint32)
+        if keep_dict_indices and self.dictionary is not None:
+            kinds = {k for _, _, _, k, _ in self.page_infos if k != "empty"}
+            if kinds and kinds <= {"dict", "indices"}:
+                return self._finalize_indices(hybrid_flat)
         delta_flat = _fetch(self.dev_delta, None)
         bss_pages = None
         if self.dev_bss or self.bss_host:
@@ -902,6 +906,43 @@ class _ChunkPlan:
             def_levels=def_levels,
             rep_levels=rep_levels,
             dictionary=self.dictionary,
+        )
+
+    def _finalize_indices(self, hybrid_flat) -> ChunkData:
+        """The dictionary-preserving delivery (to_arrow's read_dictionary=):
+        the decoded indices pass through unmaterialized."""
+        parts = []
+        hpos = 0
+        all_def, all_rep = [], []
+        total = 0
+        for n, dfl, rep, kind, payload in self.page_infos:
+            total += n
+            if dfl is not None:
+                all_def.append(dfl)
+            if rep is not None:
+                all_rep.append(rep)
+            if kind == "dict":
+                parts.append(hybrid_flat[hpos : hpos + payload])
+                hpos += payload
+            elif kind == "indices":
+                parts.append(np.asarray(payload))
+        if total != self.expected:
+            raise ChunkError(
+                f"chunk: pages hold {total} values, metadata says {self.expected}"
+            )
+        idx = (
+            (np.concatenate(parts) if len(parts) != 1 else parts[0])
+            if parts else np.empty(0, np.int32)
+        )
+        def_levels, rep_levels = self._levels(all_def, all_rep)
+        return ChunkData(
+            column=self.column,
+            num_values=total,
+            values=None,
+            def_levels=def_levels,
+            rep_levels=rep_levels,
+            dictionary=self.dictionary,
+            indices=idx.astype(np.int32, copy=False),
         )
 
     def _levels(self, all_def, all_rep):

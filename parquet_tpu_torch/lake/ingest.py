@@ -2,8 +2,9 @@
 per flush.
 
 The write path mirrors the read path's two wire formats (serve/protocol's
-FORMATS): jsonl (one JSON object per line) and arrow-ipc (a pyarrow
-stream). rows_from_payload() decodes either into the plain row dicts
+FORMATS): jsonl (one JSON object per line) and arrow-ipc (an Arrow IPC
+stream, parsed by the port's own reader, core/arrow_ipc.py).
+rows_from_payload() decodes either into the plain row dicts
 FileWriter.write_rows ingests.
 
 IngestWriter buffers appended rows in memory up to `flush_bytes` of
@@ -17,10 +18,7 @@ committed generation. Thread-safe: the daemon's handler threads append
 concurrently under one lock (encoding happens inside the lock too — the
 flush IS the serialization point that gives each flush one generation).
 
-The port's copy of parquet_tpu.lake.ingest. The copy rule bars pyarrow, so
-the arrow-ipc format is cut: its body raises the reference's own
-no-pyarrow refusal, LakeError(code="unsupported_format"). Its counts are
-lake_counts() (lake_append_rows_total, lake_append_bytes_total,
+The port's copy of parquet_tpu.lake.ingest. Its counts are lake_counts() (lake_append_rows_total, lake_append_bytes_total,
 lake_flushes_total), beside the lake_flush_seconds histogram.
 """
 
@@ -76,12 +74,17 @@ def rows_from_payload(body: bytes, content_type: str) -> list:
             rows.append(row)
         return rows
     if ct in _ARROW_TYPES:
-        # the port never imports pyarrow: the reference's refusal for a
-        # daemon without it, word for word
-        raise LakeError(
-            "append: arrow-ipc needs pyarrow, which this daemon "
-            "does not have", code="unsupported_format",
-        )
+        from ..core.arrow_ipc import ArrowInvalid, open_stream
+
+        try:
+            with open_stream(body) as reader:
+                table = reader.read_all()
+            return table.to_pylist()
+        except (ArrowInvalid, OSError, ValueError) as e:
+            raise LakeError(
+                f"append: arrow-ipc stream does not parse: {e}",
+                code="bad_payload",
+            ) from None
     raise LakeError(
         f"append: unsupported content type {content_type!r} (expected "
         f"{_JSONL_TYPES[0]} or {_ARROW_TYPES[0]})", code="unsupported_format",

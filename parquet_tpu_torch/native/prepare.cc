@@ -341,12 +341,15 @@ size_t ptq_lz4_max_compressed_length(size_t n) {
   return 16 + n + n / 255;
 }
 
-ssize_t ptq_lz4_decompress(const char* src_c, size_t src_len,
-                           char* dst, size_t expect) {
+// One block decoded into dst from position `start` on, no write past
+// `cap`; a match may reach back to dst[0] (the earlier blocks of a linked
+// LZ4 frame). Returns the end position, or -1 on corrupt input.
+static ssize_t lz4_block_into(const char* src_c, size_t src_len, char* dst,
+                              size_t start, size_t cap) {
   const uint8_t* src = reinterpret_cast<const uint8_t*>(src_c);
   size_t pos = 0;
-  size_t out = 0;
-  if (src_len == 0) return expect == 0 ? 0 : -1;
+  size_t out = start;
+  if (src_len == 0) return -1;
   while (pos < src_len) {
     uint8_t token = src[pos++];
     // literals
@@ -360,7 +363,7 @@ ssize_t ptq_lz4_decompress(const char* src_c, size_t src_len,
         if (lit > (1ull << 40)) return -1;  // length bomb
       }
     }
-    if (pos + lit > src_len || out + lit > expect) return -1;
+    if (pos + lit > src_len || out + lit > cap) return -1;
     std::memcpy(dst + out, src + pos, lit);
     out += lit;
     pos += lit;
@@ -382,7 +385,7 @@ ssize_t ptq_lz4_decompress(const char* src_c, size_t src_len,
       }
     }
     mlen += 4;  // minmatch
-    if (out + mlen > expect) return -1;
+    if (out + mlen > cap) return -1;
     const char* from = dst + out - offset;
     char* op = dst + out;
     if (offset >= 8) {
@@ -396,7 +399,20 @@ ssize_t ptq_lz4_decompress(const char* src_c, size_t src_len,
     }
     out += mlen;
   }
-  return out == expect ? static_cast<ssize_t>(out) : -1;
+  return static_cast<ssize_t>(out);
+}
+
+ssize_t ptq_lz4_decompress(const char* src_c, size_t src_len,
+                           char* dst, size_t expect) {
+  if (src_len == 0) return expect == 0 ? 0 : -1;
+  ssize_t out = lz4_block_into(src_c, src_len, dst, 0, expect);
+  return out == static_cast<ssize_t>(expect) ? out : -1;
+}
+
+ssize_t ptq_lz4_decompress_into(const char* src_c, size_t src_len,
+                                char* dst, size_t start, size_t cap) {
+  if (start > cap) return -1;
+  return lz4_block_into(src_c, src_len, dst, start, cap);
 }
 
 static inline uint32_t lz4_hash(uint32_t v) {

@@ -57,13 +57,14 @@ from contextlib import ExitStack
 
 import numpy as np
 
+from ..core.arrow_format import NanoTimestamp
 from ..core.arrays import ByteArrayData
 from ..core.filter_vec import VecFilterError
 from ..core.unit_table import list_like
 from ..meta.parquet_types import ConvertedType, Type
 from ..utils.counters import LabelledCounts
 from ..utils.native import get_native
-from .protocol import QueryRequest, ServeError, agg_name, json_default
+from .protocol import QueryRequest, ServeError, agg_name, filter_not_ported, json_default
 from .query_device import DeviceQueryError, device_unit_partial
 
 __all__ = [
@@ -274,42 +275,6 @@ _TIME_US = {"time32[ms]": 1000, "time64[us]": 1, "time64[ns]": None}
 _TS_US = {"ms": 1000, "us": 1}
 
 
-class NanoTimestamp:
-    """A timestamp[ns] value as the reference's as_py() gives it with
-    pandas installed (pandas.Timestamp): equal, hashed and ordered by its
-    nanoseconds, and str() as pandas renders it (nine fractional digits
-    where the nanoseconds are not whole microseconds). Without pandas the
-    reference raises on such a value (ROADMAP section 3)."""
-
-    __slots__ = ("value", "utc")
-
-    def __init__(self, value: int, utc: bool):
-        self.value = value
-        self.utc = utc
-
-    def __str__(self) -> str:
-        us, ns = divmod(self.value, 1000)
-        dt = (_EPOCH_UTC if self.utc else _EPOCH) + datetime.timedelta(microseconds=us)
-        s = dt.strftime("%Y-%m-%d %H:%M:%S")
-        if ns:
-            s += f".{dt.microsecond:06d}{ns:03d}"
-        elif dt.microsecond:
-            s += f".{dt.microsecond:06d}"
-        return s + ("+00:00" if self.utc else "")
-
-    def __eq__(self, other):
-        return isinstance(other, NanoTimestamp) and self.value == other.value
-
-    def __hash__(self):
-        return hash(self.value)
-
-    def __lt__(self, other):
-        return self.value < other.value
-
-    def __gt__(self, other):
-        return self.value > other.value
-
-
 def _to_py(tag: str, x):
     """One physical value of a column (a Python int, float, bool or bytes)
     as the reference's as_py() gives it for `tag`."""
@@ -480,7 +445,7 @@ def _float_extreme(values, valid, op, tag):
     if m != 0.0:
         return m
     zeros = np.flatnonzero(vals == 0)
-    if valid is None:
+    if valid is None or valid.all():  # Arrow's null-aware pass runs only over nulls
         win = zeros[0]
     else:
         rows = np.flatnonzero(valid)[zeros]
@@ -1013,10 +978,7 @@ def host_unit_partial(reader, row_group: int, query: QueryRequest, filters):
     try:
         table = reader._host_unit_table(row_group, query_columns(query), filters)
     except VecFilterError as e:
-        raise ServeError(
-            501, "not_ported",
-            f"filter needs pyarrow compute, which parquet_tpu_torch does not use: {e}",
-        ) from None
+        raise filter_not_ported(e) from None
     n = int(reader.row_group(row_group).num_rows or 0)
     return unit_partial(table, query), n, table.num_rows
 

@@ -26,10 +26,15 @@ into an incremental byte stream (execute_stream) or one query body
     device unit in mid-read runs to its end; its tensors are freed when
     its task returns.
 
-Output format: "jsonl" (rows exactly as a FileReader.iter_rows() dump with
-json_default prints them, one chunk per unit). The reference's
-"arrow-ipc" stream needs pyarrow and is not ported: serve/server.py refuses
-it before admission.
+Output formats: "jsonl" (rows exactly as a FileReader.iter_rows() dump with
+json_default prints them, one chunk per unit) and "arrow-ipc" (one Arrow
+IPC stream for the whole response: each unit decodes to an Arrow table with
+FileReader.to_arrow on the host, as the reference's units do, and ONE
+stream writer, core/arrow_ipc.py, frames the units' batches in plan order;
+an empty result is the schema and the end of the stream). A residual
+filter the host mask declines is a typed 501 not_ported on an arrow unit,
+as on the host query engine (the reference evaluates it with pyarrow
+compute).
 
 Every unit task goes through obs.pool.instrumented_submit (serve.counts.
 submit: the request's trace, log and cost context ride along), runs under
@@ -51,12 +56,15 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as _FutTimeout
 
+from ..core import arrow_ipc
+from ..core.arrow_format import ArrowInvalid
+from ..core.filter_vec import VecFilterError
 from ..core.reader import PARQUET_ERRORS, FileReader
 from ..io.source import SourceError
 from ..obs.cost import unit_clock
 from ..utils.trace import stage
 from . import counts as _counts
-from .protocol import ServeError, json_default
+from .protocol import ServeError, filter_not_ported, json_default
 
 __all__ = ["SERVE_THREADS", "serve_pool", "execute_stream", "execute_query"]
 
@@ -151,6 +159,27 @@ def _run_jsonl_unit(session, planned, unit, max_rows, check, device):
                     break
             payload = ("\n".join(lines) + "\n").encode() if lines else b""
             return payload, n
+        finally:
+            _close_unit_reader(session, reader)
+
+
+def _run_arrow_unit(session, planned, unit, max_rows, check, device):
+    """Decode one unit to an Arrow table on the host (serialized by the
+    stream side, which owns the single IPC writer). unit_clock: see
+    _run_jsonl_unit."""
+    check()
+    with unit_clock(), stage("serve.execute"):
+        reader = _open_reader(session, planned, unit, device)
+        try:
+            try:
+                t = reader.to_arrow(
+                    row_groups=[unit.row_group], filters=planned.request.filters
+                )
+            except VecFilterError as e:
+                raise filter_not_ported(e) from None
+            if max_rows is not None and t.num_rows > max_rows:
+                t = t.slice(0, max_rows)
+            return t
         finally:
             _close_unit_reader(session, reader)
 
@@ -259,6 +288,81 @@ def _stream_jsonl(planned, session, check, window, device):
             yield payload
 
 
+def _empty_table(planned, session):
+    """A zero-row table carrying the scan's schema (so an empty result is
+    still a VALID Arrow IPC stream: schema header + EOS)."""
+    for fi, meta in enumerate(planned.plan.metas):
+        if meta is None:
+            continue
+        reader = FileReader(
+            session.open_source(planned.plan.files[fi]),
+            columns=planned.request.columns,
+            device="cpu",
+            metadata=meta,
+        )
+        try:
+            return reader.to_arrow(row_groups=[])
+        finally:
+            _close_unit_reader(session, reader)
+    raise ServeError(422, "unreadable_file", "no readable file to derive a schema")
+
+
+def _stream_arrow(planned, session, check, window, device):
+    out = arrow_ipc.ChunkedStreamWriter()
+    remaining = planned.request.limit
+    units = planned.units
+
+    def run(u):
+        return _run_arrow_unit(session, planned, u, None, check, device)
+
+    def limited():
+        # limited scans run sequentially, each unit capped at what the
+        # limit STILL needs (`remaining` shrinks as the loop consumes) —
+        # lookahead past a satisfied limit would be wasted decode work
+        for u in units:
+            if remaining <= 0:
+                return
+            check()
+            yield _wait(
+                _counts.submit(
+                    serve_pool(), _run_arrow_unit, session, planned, u,
+                    remaining, check, device,
+                ),
+                check,
+            )
+
+    try:
+        source = (
+            _pipelined(units, run, window, check)
+            if remaining is None
+            else limited()
+        )
+        for table in source:
+            if remaining is not None:
+                table = table.slice(0, remaining)
+                remaining -= table.num_rows
+            try:
+                payload = out.write_table(table)
+            except ArrowInvalid as e:
+                raise ServeError(
+                    422, "schema_mismatch",
+                    f"files in one scan must share a schema: {e}",
+                ) from None
+            if payload:
+                _count_bytes(payload)
+                yield payload
+            if remaining is not None and remaining <= 0:
+                break
+        if not out.opened:
+            out.open(_empty_table(planned, session).schema)
+        payload = out.close()
+        if payload:
+            _count_bytes(payload)
+            yield payload
+    finally:
+        check.abort.set()
+
+
 def execute_query(
     planned, query, session, *, deadline=None, window: int = 2, device=None
 ):
@@ -329,15 +433,16 @@ def execute_stream(planned, session, *, deadline=None, window: int = 2, device=N
     beyond `window` units ahead of what the consumer has taken, and closing
     the generator (client disconnect) aborts in-flight unit tasks at their
     next cooperative check. Raises ServeError (typed) for every failure
-    mode — deadline, cancellation, corrupt data. Rows decode on the host
-    (iter_rows); `device` is the readers' device (None: CUDA), which a
-    row read does not touch. A format other than jsonl is a typed 501."""
+    mode — deadline, cancellation, corrupt data, schema drift. Rows and
+    Arrow tables decode on the host (iter_rows, to_arrow); `device` is the
+    readers' device (None: CUDA), which neither read touches."""
     check = _Check(deadline)
     if window < 1:
         raise ValueError("executor: window must be >= 1")
-    if planned.request.format != "jsonl":
-        raise not_ported_format(planned.request.format)
-    gen = _stream_jsonl(planned, session, check, window, device)
+    if planned.request.format == "arrow-ipc":
+        gen = _stream_arrow(planned, session, check, window, device)
+    else:
+        gen = _stream_jsonl(planned, session, check, window, device)
 
     def outer():
         try:
@@ -353,11 +458,3 @@ def execute_stream(planned, session, *, deadline=None, window: int = 2, device=N
 
     return outer()
 
-
-def not_ported_format(fmt: str) -> ServeError:
-    """The typed refusal of a scan format the port does not stream."""
-    return ServeError(
-        501, "not_ported",
-        f"format {fmt!r} is not served by this daemon: the arrow-ipc stream "
-        "needs pyarrow, which parquet_tpu_torch does not use (use jsonl)",
-    )

@@ -60,9 +60,10 @@ replicas run the query units on theirs. What differs from the reference:
             what one daemon answers. Temporal min / max travel as strings
             too and compare as strings, by their bytes, as the reference's
             do.
-  formats   format="arrow-ipc" scans (the reference re-frames the unit
-            streams with pyarrow) answer the port daemon's typed 501
-            not_ported before admission.
+  formats   format="arrow-ipc" scans re-frame the unit streams through
+            one writer of the port's (core/arrow_ipc.py) where the
+            reference's router uses pyarrow's: the routed body equals the
+            direct daemon's, byte for byte.
   pool      pqt-mesh has MESH_THREADS workers, a constant (no
             PQT_MESH_THREADS); /v1/debug/vars lists it under "sizes".
 
@@ -96,8 +97,7 @@ from ...utils import metrics as _metrics
 from ..admission import AdmissionController
 from ..aggregate import QueryState, result_dict
 from ..counts import mesh_count
-from ..executor import not_ported_format
-from ..protocol import QueryRequest, ScanRequest, ServeError, agg_name
+from ..protocol import CONTENT_TYPES, QueryRequest, ScanRequest, ServeError, agg_name
 from ..server import (
     ScanServer,
     ScanService,
@@ -431,14 +431,12 @@ class MeshService:
     # -- /v1/scan --------------------------------------------------------------
 
     def scan(self, request: ScanRequest, tenant, timeout_ms=None, record=None):
-        if request.format != "jsonl":
-            raise not_ported_format(request.format)
         deadline = self.admission.deadline_for(
             timeout_ms if timeout_ms is not None else request.timeout_ms
         )
         ticket = self.admission.admit(tenant)
         try:
-            content_type = "application/x-ndjson"
+            content_type = CONTENT_TYPES[request.format]
             sig = "|".join(request.paths)
             hdrs = self._headers(tenant)
             if (
@@ -479,6 +477,8 @@ class MeshService:
             inner = self._scatter_bodies(
                 _scan_obj(request), "/v1/scan", sig, hdrs, units, deadline
             )
+            if request.format == "arrow-ipc":
+                return ticket, content_type, _reframe_arrow(inner)
             return ticket, content_type, _concat_jsonl(inner)
         except BaseException:
             ticket.release()
@@ -695,6 +695,27 @@ def _concat_jsonl(inner):
         for body in inner:
             if body:
                 yield body
+    finally:
+        inner.close()
+
+
+def _reframe_arrow(inner):
+    """arrow-ipc re-assembly: each unit response is a complete IPC stream
+    of that unit's batches; re-write them through ONE writer in unit
+    order — the daemon's single-writer framing, byte-for-byte."""
+    from ...core import arrow_ipc
+
+    out = arrow_ipc.ChunkedStreamWriter()
+    try:
+        for body in inner:
+            reader = arrow_ipc.open_stream(body)
+            payload = out.open(reader.schema) + b"".join(
+                out.write_batch(batch) for batch in reader
+            )
+            if payload:
+                yield payload
+        if out.opened:
+            yield out.close()
     finally:
         inner.close()
 

@@ -10,8 +10,7 @@ filter-spec parser (`filters_from_spec`), the scan request
 (`aggregates_from_spec` / `parse_query_request`) accept the exact language
 of the reference, and `json_default` is its canonical JSON fallback, so the
 rendered bodies are the reference's bytes. `format="arrow-ipc"` parses as
-in the reference; the daemon refuses it later (serve/server.py: the
-arrow-ipc stream needs pyarrow).
+in the reference (the daemon streams it with core/arrow_ipc.py).
 
 ServeError carries an HTTP status and a stable machine-readable `code`, and
 renders as `{"error": {"code", "message", "status"}}`.
@@ -28,6 +27,7 @@ __all__ = [
     "QueryRequest",
     "AggregateSpec",
     "FORMATS",
+    "CONTENT_TYPES",
     "AGG_OPS",
     "filters_from_spec",
     "aggregates_from_spec",
@@ -39,6 +39,11 @@ __all__ = [
 ]
 
 FORMATS = ("jsonl", "arrow-ipc")
+# the Content-Type a scan's answer carries, by format
+CONTENT_TYPES = {
+    "jsonl": "application/x-ndjson",
+    "arrow-ipc": "application/vnd.apache.arrow.stream",
+}
 
 # ops accepted by the filter spec; mirrors core/filter._OPS (validated
 # again, against the actual schema, at normalize time — this early check
@@ -96,6 +101,16 @@ class AggregateSpec(NamedTuple):
 
     op: str
     column: str | None
+
+
+def filter_not_ported(err) -> ServeError:
+    """The typed 501 for a residual filter the host mask declines (a
+    core.filter_vec.VecFilterError), which the reference evaluates with
+    pyarrow compute: the host query engine's and the arrow-ipc scan's."""
+    return ServeError(
+        501, "not_ported",
+        f"filter needs pyarrow compute, which parquet_tpu_torch does not use: {err}",
+    )
 
 
 def agg_name(a: AggregateSpec) -> str:

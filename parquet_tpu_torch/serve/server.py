@@ -72,8 +72,10 @@ Shutdown: SIGTERM/SIGINT (install_signal_handlers) or drain() begin a
 graceful drain — new requests get typed 503s while in-flight ones run to
 completion — then the listener stops; close() commits the ingest tail.
 
-A format="arrow-ipc" scan answers a typed 501 not_ported (the stream
-needs pyarrow), refused before admission.
+A format="arrow-ipc" scan answers one Arrow IPC stream
+(application/vnd.apache.arrow.stream), written by the port's own stream
+writer (core/arrow_ipc.py) from each unit's host to_arrow table, as the
+reference's daemon answers it with pyarrow.
 
 ServeConfig.device takes None, a string or a torch.device. None means
 CUDA, by the port's rule, and a daemon without CUDA and without device=
@@ -109,8 +111,9 @@ from ..utils import metrics as _metrics
 from ..utils.trace import decode_trace
 from . import counts as _counts
 from .admission import AdmissionController
-from .executor import SERVE_THREADS, execute_query, execute_stream, not_ported_format
+from .executor import SERVE_THREADS, execute_query, execute_stream
 from .protocol import (
+    CONTENT_TYPES,
     ScanRequest,
     ServeError,
     parse_query_request,
@@ -391,12 +394,9 @@ class ScanService:
     def scan(self, request, tenant: str, timeout_ms=None, record=None):
         """Admit, plan, charge, and open the result stream. Returns
         (ticket, content_type, chunk iterator); the caller MUST close the
-        iterator and release the ticket (both context-manage safely). A
-        format the port does not stream (arrow-ipc) is refused first,
-        before admission. `record` (a flight-recorder RequestRecord)
-        receives the plan's pruning summary as soon as planning ends."""
-        if request.format != "jsonl":
-            raise not_ported_format(request.format)
+        iterator and release the ticket (both context-manage safely).
+        `record` (a flight-recorder RequestRecord) receives the plan's
+        pruning summary as soon as planning ends."""
         deadline = self.admission.deadline_for(
             timeout_ms if timeout_ms is not None else request.timeout_ms
         )
@@ -419,7 +419,8 @@ class ScanService:
         except BaseException:
             ticket.release()
             raise
-        return ticket, "application/x-ndjson", chunks
+        content_type = CONTENT_TYPES[request.format]
+        return ticket, content_type, chunks
 
     def query(self, request, tenant: str, timeout_ms=None, record=None):
         """POST /v1/query: aggregation push-down. Admission is EXACTLY the
@@ -959,7 +960,7 @@ class _Handler(BaseHTTPRequestHandler):
                 # chunked encoding (no 0-chunk) so the client cannot
                 # mistake the prefix for a complete result
                 _counts.count("events_total", event="serve_stream_aborted")
-                if content_type == "application/x-ndjson":
+                if content_type == CONTENT_TYPES["jsonl"]:
                     try:
                         self._write_chunk(
                             (json.dumps(e.to_body()) + "\n").encode()

@@ -490,14 +490,7 @@ def cmd_lake(args) -> int:
             else:
                 with open(args.file, "rb") as f:
                     body = f.read()
-            # an Arrow IPC file is refused typed (the port has no pyarrow:
-            # the daemon's unsupported_format LakeError); the reference
-            # parses every input as jsonl
-            arrow = args.file.endswith((".arrow", ".arrows"))
-            rows = rows_from_payload(
-                body,
-                "application/vnd.apache.arrow.stream" if arrow else "application/x-ndjson",
-            )
+            rows = rows_from_payload(body, "application/x-ndjson")
             if not rows:
                 raise LakeError("lake: no rows in input", code="bad_payload")
             writer = IngestWriter(table)

@@ -151,6 +151,8 @@ class NativeLib:
         ):
             fn.restype = _SSZ
             fn.argtypes = [_P, _SZ, _P, _SZ]
+        lib.ptq_lz4_decompress_into.restype = _SSZ
+        lib.ptq_lz4_decompress_into.argtypes = [_P, _SZ, _P, _SZ, _SZ]
         lib.ptq_delta_encode.restype = _SSZ
         lib.ptq_delta_encode.argtypes = [_P, _I64, _I, _I64, _I64, _P, _SZ]
         lib.ptq_prescan_delta_packed.restype = _SSZ
@@ -278,6 +280,18 @@ class NativeLib:
         if n < 0:
             raise ValueError("native lz4: corrupt input")
         return memoryview(out)[:n]
+
+    def lz4_decompress_into(self, data, out: np.ndarray, start: int, cap: int) -> int:
+        """Decode one raw LZ4 block into `out` (uint8) from `start` on, no
+        write past `cap`; a match may reach back into out[:start] (the
+        earlier blocks of a linked LZ4 frame). Returns the end position,
+        or -1 for a corrupt block."""
+        if len(out) < cap:
+            raise ValueError("native lz4: output shorter than its cap")
+        addr, n_in, _keep = _ptr(data)
+        return self._lib.ptq_lz4_decompress_into(
+            addr, n_in, ctypes.c_void_p(out.ctypes.data), start, cap
+        )
 
     # -- DELTA_BINARY_PACKED (the transfer repack) -----------------------------
 

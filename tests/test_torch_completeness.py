@@ -8,8 +8,9 @@ same relative path; a name in the reference's `__all__` is in the port
 module's `__all__`. The exceptions are written below, each beside its
 reason, and each must still be missing from the port (a stale entry
 fails): JAX-only names, the port's renames (whose new name must
-resolve), constants that stand for a reference function, and the
-pyarrow cuts (the card's installation has no pyarrow; ROADMAP §1).
+resolve), and constants that stand for a reference function. The Arrow
+surface (core/arrow_nested.py, FileReader.to_arrow) is the port's own,
+without pyarrow.
 """
 
 from __future__ import annotations
@@ -31,8 +32,6 @@ _DEVICE_OPS = ("bitpack_encode", "bss_transpose", "delta_block_encode",
 
 # (file, name) -> (reason, the port's name for a rename)
 ALLOWED = {
-    ("core/arrow_nested.py", None): ("pyarrow cut", None),
-    ("core/reader.py", "FileReader.to_arrow"): ("pyarrow cut", None),
     ("parallel/mesh.py", "make_decode_mesh"): ("JAX-only: builds a jax.sharding.Mesh", None),
     ("parallel/__init__.py", "make_decode_mesh"): ("JAX-only: builds a jax.sharding.Mesh", None),
     ("utils/trace.py", "jax_profile"): ("JAX-only: jax.profiler.trace; renamed",

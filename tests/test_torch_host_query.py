@@ -50,7 +50,7 @@ jax = pytest.importorskip("jax")
 pa = pytest.importorskip("pyarrow")
 pc = pytest.importorskip("pyarrow.compute")
 hypothesis = pytest.importorskip("hypothesis")
-from hypothesis import HealthCheck, given, settings  # noqa: E402
+from hypothesis import HealthCheck, example, given, settings  # noqa: E402
 from hypothesis import strategies as st  # noqa: E402
 
 import parquet_tpu.kernels.device_ops  # noqa: E402,F401  (x64 before any jnp array)
@@ -346,6 +346,7 @@ def test_grouped_float_sums_are_pyarrows_hash_sum(chunk, ngroups, seed):
 @settings(max_examples=300, deadline=None, suppress_health_check=[HealthCheck.too_slow])
 @given(st.integers(1, 300), st.integers(0, 2**32 - 1), st.sampled_from(["min", "max"]),
        st.sampled_from([np.float32, np.float64]), st.booleans())
+@example(n=4, seed=30783, op="min", dtype=np.float32, nulls=True)  # a mask with no null
 def test_global_min_max_zero_ties_are_pyarrows(n, seed, op, dtype, nulls):
     """NaN skipped unless every value is NaN; a tie of -0.0 and 0.0 as
     pyarrow's kernels break it (aggregate._ZERO_TIES)."""

@@ -355,23 +355,47 @@ class TestIngest:
 
         assert run(lake) == run(jlake)
 
-    def test_arrow_ipc_is_a_typed_cut(self):
-        # the reference decodes arrow-ipc through pyarrow; the port never
-        # imports it and refuses with the reference's own no-pyarrow error
+    def test_arrow_ipc_is_a_typed_cut(self, tmp_path):
+        """Once the port's cut (its unsupported_format refusal), now
+        parity: the port parses an arrow-ipc body with its own reader into
+        the reference's rows (pyarrow's stream and the port writer's), the
+        appends commit the reference's tables byte for byte, and a body
+        that does not parse is the reference's bad_payload."""
         pa = pytest.importorskip("pyarrow")
         import io as _io
 
-        table = pa.table({"k": [3, 4]})
+        from parquet_tpu_torch.core import arrow_format as paf
+        from parquet_tpu_torch.core import arrow_ipc
+
+        table = pa.table({"k": [3, 4, 1], "v": ["x", None, "yz"]})
         buf = _io.BytesIO()
         with pa.ipc.new_stream(buf, table.schema) as wr:
             wr.write_table(table)
+        ours = arrow_ipc.serialize_table(paf.table({
+            "k": paf.array(np.array([9, 2])),
+            "v": paf.Array.from_buffers(paf.large_string(), 2,
+                                        [paf.py_buffer(np.array([1], np.uint8)),
+                                         np.array([0, 1, 1], np.int64), b"q"]),
+        }))
         ctype = "application/vnd.apache.arrow.stream"
-        assert jlake.rows_from_payload(buf.getvalue(), ctype) == [{"k": 3}, {"k": 4}]
-        with pytest.raises(LakeError) as ei:
-            lake.rows_from_payload(buf.getvalue(), ctype)
-        assert ei.value.code == "unsupported_format"
-        assert str(ei.value) == ("append: arrow-ipc needs pyarrow, which this daemon "
-                                 "does not have")
+        for body in (buf.getvalue(), ours):
+            assert lake.rows_from_payload(body, ctype) == jlake.rows_from_payload(body, ctype)
+        assert lake.rows_from_payload(ours, ctype) == [{"k": 9, "v": "q"}, {"k": 2, "v": None}]
+
+        def scenario(pkg, t, clock):
+            w = pkg.lake.IngestWriter(t, parallel=False)
+            acks = [w.append(pkg.lake.rows_from_payload(b, ctype), flush=True)
+                    for b in (buf.getvalue(), ours)]
+            w.close()
+            return acks
+
+        same(both(tmp_path, scenario))
+        for body in (b"\xff\xff\xff\xff\x10\x00\x00\x00", b"ARROW1\x00\x00"):
+            with pytest.raises(LakeError) as ei:
+                lake.rows_from_payload(body, ctype)
+            with pytest.raises(jlake.LakeError) as ej:
+                jlake.rows_from_payload(body, ctype)
+            assert ei.value.code == ej.value.code == "bad_payload"
 
     def test_counts_match_the_reference_metrics(self, tmp_path):
         """lake_counts() moves as the reference's counters do over the same

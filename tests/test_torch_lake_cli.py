@@ -57,11 +57,19 @@ class TestLakeCLI:
         assert main(["lake", "append", tbl]) == 0
         ack = json.loads(capsys.readouterr().out)
         assert ack["rows"] == 1 and ack["generation"] == 1
-        # an Arrow IPC file needs pyarrow: the daemon's typed refusal, where
-        # the reference parses it as jsonl (kept on purpose, ROADMAP §3)
+        # every input parses as jsonl, as the reference's lake append parses
+        # it, whatever the file's suffix: an Arrow file's bytes are the
+        # reference's jsonl parse error
         arrow = tmp_path / "rows.arrow"
         arrow.write_bytes(b"ARROW1\x00\x00")
         assert main(["lake", "append", tbl, str(arrow)]) == 1
         err = capsys.readouterr().err
-        assert err == ("parquet-tool: lake: append: arrow-ipc needs pyarrow, which this "
-                       "daemon does not have\n")
+        assert err == ("parquet-tool: lake: append: jsonl line 1 does not parse: "
+                       "Expecting value: line 1 column 1 (char 0)\n")
+        from parquet_tpu.tools.parquet_tool import main as jmain
+
+        jtbl = str(tmp_path / "jt")
+        assert jmain(["lake", "init", jtbl, "--schema", SCHEMA]) == 0
+        capsys.readouterr()
+        assert jmain(["lake", "append", jtbl, str(arrow)]) == 1
+        assert capsys.readouterr().err == err

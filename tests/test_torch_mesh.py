@@ -14,9 +14,10 @@ device="cpu" replicas: the kernels' plain versions). Pinned:
     byte-equal to the JAX router's, to the port's direct daemon's and to
     the JAX direct daemon's; limit and explicit-shard passthroughs too;
   * typed errors through the router: shard validation, a path outside the
-    root, a missing file, /v1/append's 501 not_routable; arrow-ipc's 501
-    not_ported byte-equal to the port's direct daemon (the JAX router
-    answers it: a known difference); group_by and float sums, which the
+    root, a missing file, /v1/append's 501 not_routable; arrow-ipc scans
+    (scattered, limited, filtered, projected, sharded, empty) byte-equal
+    to the port's direct daemon and parsed equal to the JAX router's
+    bodies; group_by and float sums, which the
     replicas' host engines answer, byte-equal through both routers;
   * the merge of untyped partials (a uint64 column): where each unit's sum
     is below 2^63 and the total crosses it, the port's router answers the
@@ -130,6 +131,25 @@ def fleets(corpus):
             made.append(router)
             out[pkg] = (direct, replicas, router)
         yield out
+    finally:
+        close_all(made)
+
+
+@pytest.fixture(scope="module")
+def arrow_fleet(corpus):
+    """A port fleet (direct, replicas, router) of its own for the routed
+    arrow-ipc scans."""
+    made = []
+    try:
+        daemon = lambda: ScanServer(ServeConfig(port=0, root=str(corpus), device="cpu"))  # noqa: E731
+        direct = daemon().start_background()
+        made.append(direct)
+        replicas = [daemon().start_background() for _ in range(3)]
+        made.extend(replicas)
+        router = pmesh.MeshRouter(pmesh.MeshConfig(
+            port=0, replicas=tuple(r.url for r in replicas))).start_background()
+        made.append(router)
+        yield direct, replicas, router
     finally:
         close_all(made)
 
@@ -435,19 +455,49 @@ def test_append_is_typed_not_routable(fleets):
 
 
 @pytest.mark.parametrize("body,status,code", [
-    ({"paths": "*.parquet", "format": "arrow-ipc"}, 501, "not_ported"),
-    ({"paths": "*.parquet", "format": "arrow-ipc", "limit": 5}, 501, "not_ported"),
+    ({"paths": "*.parquet", "format": "arrow-ipc"}, 200, None),
+    ({"paths": "*.parquet", "format": "arrow-ipc", "limit": 5}, 200, None),
 ], ids=["scatter", "passthrough"])
 def test_arrow_ipc_is_the_daemons_not_ported(fleets, body, status, code):
-    """A known difference: the JAX router re-frames arrow-ipc with pyarrow;
-    the port's router refuses it before admission, as its daemon does."""
+    """Once the port's cut (the daemon's 501 not_ported), now parity: the
+    port's router re-frames the replicas' arrow-ipc streams through one
+    writer, and its body equals its direct daemon's byte for byte,
+    scattered and with a limit (passed through); the JAX router's body
+    parses equal."""
     direct, _replicas, router = fleets["port"]
     got = request(router, "POST", "/v1/scan", body, RID)
     want = request(direct, "POST", "/v1/scan", body, RID)
-    assert (got[0], without_trace_id(got[2])) == (want[0], without_trace_id(want[2]))
-    assert (got[0], error_code(got[2])) == (status, code)
+    assert (got[0], got[2]) == (want[0], want[2])
+    assert got[0] == status and code is None
+    assert got[1]["Content-Type"] == "application/vnd.apache.arrow.stream"
+    ref = request(fleets["jax"][2], "POST", "/v1/scan", body)
+    assert ref[0] == 200
+    assert pa.ipc.open_stream(got[2]).read_all().equals(pa.ipc.open_stream(ref[2]).read_all())
     assert router.service.admission.in_flight == 0
-    assert request(fleets["jax"][2], "POST", "/v1/scan", body)[0] == 200
+
+
+@pytest.mark.parametrize("body", [
+    {"paths": "*.parquet", "format": "arrow-ipc", "filters": [["v", ">", 0.25]]},
+    {"paths": "*.parquet", "format": "arrow-ipc", "columns": ["id", "g"],
+     "filters": [["id", ">=", 700], ["id", "<", 1900]]},
+    {"paths": "*.parquet", "format": "arrow-ipc", "shard": [1, 2]},
+    {"paths": "*.parquet", "format": "arrow-ipc", "filters": [["id", "<", -1]]},
+], ids=["filtered", "columns", "shard", "empty"])
+def test_routed_arrow_ipc_is_the_direct_daemons_bytes(arrow_fleet, fleets, body):
+    """The reference's invariant (its TestRoutedByteIdentity): the routed
+    arrow-ipc body is the direct daemon's, byte for byte, and one valid
+    stream; pyarrow reads it equal to the JAX direct daemon's body. A
+    fleet of its own, so the shared routers' SLO windows see none of these
+    requests."""
+    direct, _replicas, router = arrow_fleet
+    got = request(router, "POST", "/v1/scan", body, RID)
+    want = request(direct, "POST", "/v1/scan", body, RID)
+    assert got[0] == want[0] == 200 and got[2] == want[2]
+    table = pa.ipc.open_stream(pa.py_buffer(got[2])).read_all()
+    ref = request(fleets["jax"][0], "POST", "/v1/scan", body)
+    assert table.equals(pa.ipc.open_stream(ref[2]).read_all())
+    if "filters" in body and body["filters"][0][0] == "v":
+        assert table.num_rows > 0 and np.all(table.column("v").to_numpy() > 0.25)
 
 
 @pytest.mark.parametrize("body", [
@@ -734,10 +784,21 @@ def test_debug_vars_mesh_mode(fleets):
 
 
 def test_healthz_reports_replica_counts(fleets):
+    """The bodies agree but for the SLO verdict, which each router derives
+    from its own answers: the JAX router's 500 on a uint64 sum at or above
+    2^63 (which the port's router repairs, ROADMAP section 3) is an error
+    only in its window. Each status follows its own router's verdict."""
     got = request(fleets["port"][2], "GET", "/healthz")
     want = request(fleets["jax"][2], "GET", "/healthz")
-    assert got[0] == want[0] == 200 and got[2] == want[2]
-    assert json.loads(got[2])["replicas"]["up"] == 3
+    assert got[0] == want[0] == 200
+    docs = [json.loads(got[2]), json.loads(want[2])]
+    for doc, router in zip(docs, (fleets["port"][2], fleets["jax"][2])):
+        verdict = router.service.slo.evaluate()["verdict"]
+        assert doc["slo"] == verdict
+        assert doc["status"] == ("degraded" if verdict == "burning" else "ok")
+    assert [{k: v for k, v in d.items() if k not in ("status", "slo")} for d in docs[:1]] == [
+        {k: v for k, v in docs[1].items() if k not in ("status", "slo")}]
+    assert docs[0]["replicas"]["up"] == 3
 
 
 def test_metrics_render_the_mesh_families(fleets):

@@ -242,18 +242,27 @@ def test_exemplars_name_fetchable_records(pair):
     for s in pair:
         assert request(s, "POST", "/v1/scan", {"paths": "a.parquet", "limit": 3},
                        {"X-Request-Id": "exemplar-1"})[0] == 200
-        status, headers, body = request(s, "GET", "/metrics",
-                                        headers={"Accept": "application/openmetrics-text"})
-        assert status == 200 and headers["Content-Type"].startswith("application/openmetrics")
-        lines = [ln for ln in body.decode().splitlines()
-                 if "serve_request_seconds_bucket" in ln and 'request_id="exemplar-1"' in ln]
+        # the daemon records a request's latency as it finishes the
+        # request, which can be just after the client has its answer
+        end = time.monotonic() + 30
+        while True:
+            status, headers, body = request(s, "GET", "/metrics",
+                                            headers={"Accept": "application/openmetrics-text"})
+            assert status == 200 and headers["Content-Type"].startswith("application/openmetrics")
+            lines = [ln for ln in body.decode().splitlines()
+                     if "serve_request_seconds_bucket" in ln and 'request_id="exemplar-1"' in ln]
+            if lines or time.monotonic() > end:
+                break
+            time.sleep(0.005)
         assert lines
         rec = json.loads(request(s, "GET", "/v1/debug/requests/exemplar-1")[2])
         assert rec["id"] == "exemplar-1" and rec["status"] == 200
 
 
-def log_lines(log, script) -> list:
-    buf = io.StringIO()
+def log_lines(log, script, buf=None) -> list:
+    """The JSON log lines `script()` makes, their run-dependent keys
+    dropped; `buf` is the stream the log writes to (a new one if None)."""
+    buf = io.StringIO() if buf is None else buf
     handler = log.configure_logging(buf)
     try:
         script()
@@ -275,13 +284,22 @@ def test_daemon_log_lines_equal(corpus):
         server = server_cls(config_cls(port=0, root=str(corpus), slow_ms=0.0001, max_inflight=1,
                                        **extra)).start_background()
 
-        def script(server=server):
+        buf = io.StringIO()
+
+        def script(server=server, buf=buf):
             request(server, "POST", "/v1/scan", {"paths": "a.parquet", "limit": 2},
                     {"X-Tenant": "t"})
+            # the daemon logs a request's slow_request line as it finishes
+            # the request, which can be just after the client has its
+            # answer: the drain starts once the line is there
+            end = time.monotonic() + 30
+            while '"slow_request"' not in buf.getvalue():
+                assert time.monotonic() < end, "no slow_request line in 30 s"
+                time.sleep(0.002)
             server.drain(timeout=30)
 
         try:
-            lines = log_lines(log, script)
+            lines = log_lines(log, script, buf)
         finally:
             server.close()
         out.append([ln for ln in lines if ln["event"] in ("slow_request", "drain_begin",

@@ -21,9 +21,11 @@ device="cpu" (the kernels' plain versions). Pinned:
   * eight concurrent clients get byte-identical bodies;
   * /v1/append (the counterpart of tests/test_lake.py's TestAppendHTTP):
     buffered then flushed acks equal, typed errors equal, a daemon query of
-    the table equal; an arrow-ipc append is the port's 415 (a known
-    difference);
-  * the port's own answers: arrow-ipc scans a typed 501 not_ported; each
+    the table equal; arrow-ipc appends commit the reference's rows;
+  * arrow-ipc scans (whole, filtered, limited, sharded, empty, across two
+    files): 200, the reference's Content-Type, bodies that parse equal to
+    the reference daemon's; a draining daemon's 503 for them too;
+  * the port's own answers: each
     debug route the reference's status and body keys; /metrics the
     registry's exposition (classic and OpenMetrics); /v1/debug/vars' keys;
     X-Request-Id echoed and minted; traceparent resolved and echoed.
@@ -208,6 +210,69 @@ def test_scan_bodies_equal_the_reference(pair, body):
     status, raw = same((port, ref), "POST", "/v1/scan", body)
     assert status == 200
     assert raw.endswith(b"\n") or (raw == b"" and (body.get("limit") == 0 or "filters" in body))
+
+
+def arrow_scan(server, body):
+    """(status, Content-Type, body) of an arrow-ipc scan; a torn stream's
+    partial body (a mid-stream typed error) is returned, not raised."""
+    conn = http.client.HTTPConnection(server.host, server.port, timeout=WATCHDOG_S)
+    try:
+        conn.request("POST", "/v1/scan", body=json.dumps({**body, "format": "arrow-ipc"}).encode())
+        resp = conn.getresponse()
+        try:
+            raw = resp.read()
+        except http.client.IncompleteRead as e:
+            raw = e.partial
+        return resp.status, resp.getheader("Content-Type"), raw
+    finally:
+        conn.close()
+
+
+@pytest.mark.parametrize("body", SCANS, ids=range(len(SCANS)))
+def test_arrow_ipc_scans_parse_equal_the_reference(pair, body):
+    """Whole, filtered, limited, sharded and empty arrow-ipc scans: 200 and
+    the reference's Content-Type on both daemons; the port's body, read by
+    pyarrow, equals the reference's body, and the port's own reader gives
+    pyarrow's rows."""
+    from parquet_tpu_torch.core import arrow_ipc
+
+    port, ref, _ = pair
+    got = [arrow_scan(s, body) for s in (port, ref)]
+    assert [g[:2] for g in got] == [(200, "application/vnd.apache.arrow.stream")] * 2
+    mine, want = (pa.ipc.open_stream(g[2]).read_all() for g in got)
+    assert mine.equals(want)
+    assert arrow_ipc.open_stream(got[0][2]).read_all().to_pylist() == want.to_pylist()
+    if body.get("limit") is not None:
+        assert mine.num_rows <= body["limit"]
+
+
+def test_arrow_ipc_schema_mismatch_is_the_references_422(tmp_path, daemons):
+    """Two files of different schemas in one arrow-ipc scan: the first
+    file's batches stream, then both daemons tear the stream at the
+    schema_mismatch (no end-of-stream marker), byte for byte alike."""
+    pq.write_table(pa.table({"x": pa.array([1, 2], pa.int64())}), str(tmp_path / "a.parquet"))
+    pq.write_table(pa.table({"x": pa.array(["p"])}), str(tmp_path / "b.parquet"))
+    outs = [arrow_scan(daemons(pkg, root=str(tmp_path)), {"paths": "*.parquet"})
+            for pkg in ("port", "jax")]
+    assert outs[0] == outs[1]
+    status, _ct, raw = outs[0]
+    assert status == 200 and not raw.endswith(b"\xff\xff\xff\xff\x00\x00\x00\x00")
+    first = pa.ipc.open_stream(raw + b"\xff\xff\xff\xff\x00\x00\x00\x00").read_all()
+    assert first.column("x").to_pylist() == [1, 2]
+
+
+def test_arrow_ipc_scan_of_a_declined_filter_is_a_typed_501(tmp_path, daemons):
+    """An inexact float32 in-list member: the host mask declines it, the
+    reference evaluates it with pyarrow compute (a 200), the port answers
+    the host query engine's typed 501 not_ported before the stream."""
+    pq.write_table(pa.table({"f": pa.array(np.arange(8, dtype=np.float32) / 4)}),
+                   str(tmp_path / "f.parquet"))
+    body = {"paths": "f.parquet", "filters": [["f", "in", [0.1, 0.5]]]}
+    port, ref = (daemons(pkg, root=str(tmp_path)) for pkg in ("port", "jax"))
+    status, _ct, raw = arrow_scan(port, body)
+    assert (status, error_code(raw)) == (501, "not_ported")
+    status, _ct, raw = arrow_scan(ref, body)
+    assert status == 200 and pa.ipc.open_stream(raw).read_all().column("f").to_pylist() == [0.5]
 
 
 PLANS = [
@@ -631,9 +696,12 @@ def test_daemon_query_of_the_table_equals_the_reference(lakes):
 
 
 def test_arrow_ipc_append_is_a_415(lakes):
-    """A known difference: the reference decodes an arrow-ipc body with
-    pyarrow; the port refuses it typed (the lake's own refusal)."""
-    port, ref = lakes
+    """Once the port's cut (a 415), now parity: an arrow-ipc append body
+    (pyarrow's stream, and the port's writer's) commits the reference's
+    ack and rows on both daemons."""
+    from parquet_tpu_torch.core import arrow_format as paf
+    from parquet_tpu_torch.core import arrow_ipc
+
     table = pa.table({"k": [7, 8], "v": ["x", None]})
     import io as _io
 
@@ -641,10 +709,20 @@ def test_arrow_ipc_append_is_a_415(lakes):
     with pa.ipc.new_stream(buf, table.schema) as wr:
         wr.write_table(table)
     ct = "application/vnd.apache.arrow.stream"
-    status, doc = append(port, buf.getvalue(), content_type=ct, flush=True)
-    assert (status, doc["error"]["code"]) == (415, "unsupported_format")
-    assert "pyarrow" in doc["error"]["message"]
-    assert append(ref, buf.getvalue(), content_type=ct, flush=True)[0] == 200
+    assert same(lakes, "POST", "/v1/append?flush=1", buf.getvalue(),
+                {"Content-Type": ct})[0] == 200
+    ours = paf.table({"k": paf.array(np.array([1, 9])),
+                      "v": paf.array([b"p", None], paf.binary(1))})
+    status, raw = same(lakes, "POST", "/v1/append?flush=1", arrow_ipc.serialize_table(ours),
+                       {"Content-Type": ct})
+    assert status == 200 and json.loads(raw)["generation"] == 2
+    status, raw = same(lakes, "POST", "/v1/scan", {"paths": ["tbl"]})
+    assert [json.loads(ln) for ln in raw.splitlines()] == [
+        {"k": 7, "v": "x"}, {"k": 8, "v": None}, {"k": 1, "v": "p"}, {"k": 9, "v": None}]
+    for s in lakes:  # the message is each parser's own
+        status, _h, raw = request(s, "POST", "/v1/append", b"\xff\xff\xff\xff\x10\x00",
+                                  {"Content-Type": ct})
+        assert (status, error_code(raw)) == (400, "bad_payload")
 
 
 def test_close_commits_the_ingest_tail(tmp_path):
@@ -664,14 +742,23 @@ def test_close_commits_the_ingest_tail(tmp_path):
 
 
 def test_arrow_ipc_scan_is_refused_before_admission(corpus, daemons):
-    s = daemons("port", root=str(corpus))
+    """Once the port's cut (a 501 before admission), now parity: an
+    arrow-ipc scan goes through admission like a jsonl one (a draining
+    daemon answers both daemons' 503), then answers 200 with the
+    reference's Content-Type and a body that parses equal to the
+    reference's."""
+    servers = [daemons("port", root=str(corpus)), daemons("jax", root=str(corpus))]
+    body = {"paths": "a.parquet", "format": "arrow-ipc"}
+    got = [request(s, "POST", "/v1/scan", body) for s in servers]
+    assert [g[0] for g in got] == [200, 200]
+    assert {g[1]["Content-Type"] for g in got} == {"application/vnd.apache.arrow.stream"}
+    tables = [pa.ipc.open_stream(g[2]).read_all() for g in got]
+    assert tables[0].equals(tables[1]) and tables[0].num_rows == ROWS_A
     reset_serve_counts()
-    s.service.admission.begin_drain()  # any admitted request would be a 503 now
-    status, _h, raw = request(s, "POST", "/v1/scan", {"paths": "a.parquet",
-                                                     "format": "arrow-ipc"})
-    assert (status, error_code(raw)) == (501, "not_ported")
-    assert "pyarrow" in json.loads(raw)["error"]["message"]
-    assert not any(k.startswith("admission_rejected") for k in serve_counts())
+    for s in servers:
+        s.service.admission.begin_drain()
+    out = [request(s, "POST", "/v1/scan", body) for s in servers]
+    assert [(o[0], error_code(o[2])) for o in out] == [(503, "draining")] * 2
 
 
 @pytest.mark.parametrize("route,module", [
